@@ -12,16 +12,28 @@ Phases (each failure is fatal; exit code != 0, no result line):
    and for a mixed-3rd / unmixed-4th request set.
 4. K2 (Taylor-table backward: dW, db, dX) against autograd of the plain
    flavor, same shapes.
-5. the slice: the Allen-Cahn SA-PINN at its full size trained through
-   ``compile(fused="cuda", minimax=False)``, ``fit(tf_iter=200)`` and
-   ``predict`` on the 512x201 grid, with the kernels' launch counts read
-   around that run.
-6. a ``{"kernels": [...]}`` line, the card line again, and the result line.
+5. K3 (the fused minimax step: value, dW/db, gw, gX) against its plain
+   flavor, for the Allen-Cahn residual (E = 1, N = 50,000, 2-128x4-1), the
+   coupled 2-equation system (E = 2, 2-128x4-2) and a ``1/x`` residual at a
+   ragged N = 50,001 (everything finite).
+6. the minimax slice, the main path: the Allen-Cahn SA-PINN at its full
+   size trained through ``compile(fused="cuda")`` with the default
+   ``minimax``, which adopts K3; ``fit(tf_iter=200)`` and ``predict`` on the
+   512x201 grid, with the kernels' launch counts read around compile, fit
+   and predict (K3 once in compile's cross-check and once per step; K1 and
+   K2 not in ``fit``).
+7. the unfused path of the first slice, ``compile(fused="cuda",
+   minimax=False)``: K1 and K2 once each per step, the same 200 steps, so
+   the two paths' ms/step compare within one call.
+8. a ``{"kernels": [...]}`` line, the card line again, and the result line.
 
-``--profile`` adds, after phase 5, 20 Adam steps under ``torch.profiler``:
-the host's time in each of ``fit_adam``'s ranges, device time by kernel
-group, the device's busy and idle share, and the top host ops.  The script imports nothing of
-JAX.
+``--profile`` adds, after phase 7, an A/B of the two trained solvers (50
+more steps per turn in eight turns: minimax, unfused, unfused, minimax,
+twice), so their ms/step compare within one stretch of the host's load;
+then four windows of 20 Adam steps under ``torch.profiler``, the paths in
+turns (minimax, unfused, unfused, minimax): the host's time in each of
+``fit_adam``'s ranges, device time by kernel group, the device's busy and
+idle share, and the top host ops.  The script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -45,12 +57,17 @@ PEAK_HBM_BYTES = 3.35e12      # HBM3 bytes/s
 # Measured on an H100 at these shapes: <= 2.5e-6 for both.
 K1_RTOL = 1e-4
 K2_RTOL = 1e-4
+# K3 vs its plain flavor, the same measure over the value, every dW/db leaf,
+# gw and gX: both sides are IEEE f32 and differ in summation order (the
+# value and dW/db sum 50,000 points)
+K3_RTOL = 1e-4
 
 AC_REQUESTS = {(), (1,), (0, 0)}
 MIXED_REQUESTS = {(), (0,), (1,), (0, 0), (0, 1), (0, 0, 1), (0, 0, 0, 0)}
 WIDTHS = [2, 128, 128, 128, 128, 1]
 N_POINTS = 50_000
 TF_ITER = 200  # Adam steps of the slice
+AB_STEPS = 50  # steps per turn of the paths' A/B
 # the profiler ranges of one Adam step (training/fit.py, models/assembly.py)
 HOST_SPANS = ("fit_adam.loss", "loss.residual", "fit_adam.backward",
               "fit_adam.adam", "fit_adam.record")
@@ -184,6 +201,102 @@ def phase_kernels(dev) -> dict:
     return out["ac"]
 
 
+def _ac_residual(u, x, t):
+    from tensordiffeq_tpu_torch import grad
+    uv = u(x, t)
+    return (grad(u, "t")(x, t) - 0.0001 * grad(grad(u, "x"), "x")(x, t)
+            + 5.0 * uv ** 3 - 5.0 * uv)
+
+
+def _coupled_residual(u, x, t):
+    """The Schrodinger-type coupled pair of the JAX package's
+    ``tests/test_solver.py::make_coupled_system``."""
+    from tensordiffeq_tpu_torch import grad
+    uv, vv = u[0](x, t), u[1](x, t)
+    sq = uv ** 2 + vv ** 2
+    f_u = (grad(u[0], "t")(x, t) + 0.5 * grad(grad(u[1], "x"), "x")(x, t)
+           + sq * vv)
+    f_v = (grad(u[1], "t")(x, t) - 0.5 * grad(grad(u[0], "x"), "x")(x, t)
+           - sq * uv)
+    return f_u, f_v
+
+
+def _singular_residual(u, x, t):
+    """A cylindrical-Laplacian-style ``1/x`` term: NaN at the origin."""
+    from tensordiffeq_tpu_torch import grad
+    return grad(u, "t")(x, t) + grad(u, "x")(x, t) / x
+
+
+def phase_k3(dev) -> dict:
+    """Phase 5: K3 against its plain flavor.  Returns the measurements of
+    the Allen-Cahn case (the slice's shapes)."""
+    import torch
+    from tensordiffeq_tpu_torch.networks import neural_net
+    from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
+    from tensordiffeq_tpu_torch.ops.fused import analyze_f_model
+    from tensordiffeq_tpu_torch.ops.minimax import build_minimax_sq_fn
+
+    cases = (  # label, residual, widths, N, x range
+        ("ac", _ac_residual, WIDTHS, N_POINTS, (-1.0, 1.0)),
+        ("system", _coupled_residual, WIDTHS[:-1] + [2], N_POINTS,
+         (-1.0, 1.0)),
+        ("singular", _singular_residual, WIDTHS, N_POINTS + 1, (0.5, 1.5)))
+    rng = np.random.RandomState(1)
+    out = {}
+    for label, f_model, widths, n, (lo, hi) in cases:
+        n_out = widths[-1]
+        reqs = analyze_f_model(f_model, ("x", "t"), n_out)
+        if reqs is None:
+            fail(f"K3 {label}: the residual does not analyse")
+        layers = neural_net(widths, device=dev, seed=0).layers()
+        sq = build_minimax_sq_fn(f_model, ("x", "t"), n_out, reqs,
+                                 [tuple(W.shape) for W, _ in layers])
+        plan = sq.plan
+        X = torch.as_tensor(np.stack([rng.uniform(lo, hi, n),
+                                      rng.uniform(0, 1, n)], 1),
+                            dtype=torch.float32, device=dev)
+        # w = lambda^2, lambda ~ U[0, 1] per point and equation
+        w = torch.as_tensor(rng.rand(n, plan.E) ** 2, dtype=torch.float32,
+                            device=dev)
+        flat_layers = [a.detach() if a.ndim == 2 else
+                       a.detach().reshape(1, -1)
+                       for pair in layers for a in pair]
+        flat = plan.pack(flat_layers)
+        before = cm.k3_minimax.launches
+        val, dflat, gw, gX = cm.k3_minimax(plan, X, w, flat)
+        torch.cuda.synchronize()
+        p_val, p_flat, p_gw, p_gX = sq.plain(flat_layers, w, X)
+        got = [val.reshape(1)] + [g.reshape(-1) for g in plan.unpack(dflat)] \
+            + [gw, gX]
+        want = [p_val.reshape(1)] + [g.reshape(-1) for g in p_flat] \
+            + [p_gw, p_gX]
+        if not all(bool(torch.isfinite(g).all()) for g in got):
+            fail(f"K3 {label}: non-finite output")
+        k3_abs, k3_rel = 0.0, 0.0
+        for a_k, a_p in zip(got, want):
+            a, r = scaled_err(a_k, a_p)
+            k3_abs, k3_rel = max(k3_abs, a), max(k3_rel, r)
+        print(f"[K3 {label}] C={plan.C} E={plan.E} N={n} tape "
+              f"{len(plan.tape.ops)} ops, value {float(val):.6e} (plain "
+              f"{float(p_val):.6e}) max_abs_err={k3_abs:.3e} "
+              f"scale_rel_err={k3_rel:.3e} (tol {K3_RTOL:g} on it)",
+              flush=True)
+        if not k3_rel <= K3_RTOL:
+            fail(f"K3 disagrees with its plain flavor ({label})")
+        ms = cuda_ms(lambda: cm.k3_minimax(plan, X, w, flat))
+        plain_ms = cuda_ms(lambda: sq.plain(flat_layers, w, X), reps=5)
+        # comparison launches are not the main path's: restore the count
+        cm.k3_minimax.launches = before
+        bound = bound_ms(cm.flop_count(plan, n)["k3"],
+                         cm.byte_count(plan, n)["k3"])
+        print(f"[time K3 {label}] K3 {ms:.3f} ms (plain fwd+bwd "
+              f"{plain_ms:.3f} ms), bound {bound[0]:.3f} ms ({bound[1]})",
+              flush=True)
+        out[label] = dict(max_abs_err=k3_abs, ms=ms, plain_ms=plain_ms,
+                          bound=bound)
+    return out["ac"]
+
+
 def ac_sa_problem(n_f: int = N_POINTS, grid=(512, 201), seed: int = 0):
     """The Allen-Cahn SA-PINN at its full size (the JAX package's zoo entry
     ``allen-cahn-sa``, size ``full``): u_t - 1e-4 u_xx + 5u^3 - 5u = 0 on
@@ -222,14 +335,25 @@ def ac_sa_problem(n_f: int = N_POINTS, grid=(512, 201), seed: int = 0):
     return domain, bcs, f_model, compile_kw
 
 
-def phase_slice(tf_iter: int) -> dict:
-    """Phase 5: compile + fit + predict through fused="cuda", with the
-    kernels' launch counts set to 0 just before and read just after."""
+def _counts() -> dict:
+    from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    return {"k1": ct.k1_forward.launches, "k2": ct.k2_backward.launches,
+            "k3": cm.k3_minimax.launches}
+
+
+def phase_slice(tf_iter: int, minimax) -> dict:
+    """Phases 6 and 7: compile + fit + predict through fused="cuda" with
+    ``minimax`` (None: the default, which adopts K3; False: the unfused
+    loss), with the kernels' launch counts set to 0 just before and read
+    after compile, fit and predict."""
     import torch
     import tensordiffeq_tpu_torch as tdqt
     from tensordiffeq_tpu_torch.exact import allen_cahn_solution
     from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
 
+    tag = "minimax" if minimax is None else "unfused"
+    want_engine = "fused-minimax-cuda" if minimax is None else "fused-cuda"
     domain, bcs, f_model, kw = ac_sa_problem()
     lam0 = {"residual": kw["init_weights"]["residual"][0].astype(np.float32),
             "IC": kw["init_weights"]["BCs"][0].astype(np.float32)}
@@ -239,35 +363,43 @@ def phase_slice(tf_iter: int) -> dict:
     ct.reset_launch_counts()
     solver = tdqt.CollocationSolverND(verbose=False, seed=0)
     t0 = time.perf_counter()
-    solver.compile(WIDTHS, f_model, domain, bcs, fused="cuda",
-                   minimax=False, **kw)
+    if minimax is None:  # the default
+        solver.compile(WIDTHS, f_model, domain, bcs, fused="cuda", **kw)
+    else:
+        solver.compile(WIDTHS, f_model, domain, bcs, fused="cuda",
+                       minimax=minimax, **kw)
     torch.cuda.synchronize()
     t_compile = time.perf_counter() - t0
-    if solver.engine != "fused-cuda":
-        fail(f"solver engine is {solver.engine}, expected fused-cuda")
+    if solver.engine != want_engine:
+        fail(f"solver engine is {solver.engine}, expected {want_engine} "
+             f"(minimax not adopted: {solver._minimax_fail_reason!r})")
+    at_compile = _counts()
     t0 = time.perf_counter()
     solver.fit(tf_iter=tf_iter)
     torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
+    at_fit = _counts()
     t0 = time.perf_counter()
     u_pred, f_pred = solver.predict(X_star)
     t_pred = time.perf_counter() - t0
-    launches = {"k1": ct.k1_forward.launches, "k2": ct.k2_backward.launches}
+    launches = _counts()
+    in_fit = {k: at_fit[k] - at_compile[k] for k in launches}
 
     total = np.array([r["Total Loss"] for r in solver.losses])
     lam_res = solver.lambdas["residual"][0].detach().cpu().numpy()
     lam_ic = solver.lambdas["BCs"][0].detach().cpu().numpy()
     rel_l2 = tdqt.find_L2_error(u_pred, usol.reshape(-1, 1))
     ms_step = 1e3 * t_fit / tf_iter
-    print(f"[slice] compile {t_compile:.2f} s, fit {tf_iter} epochs "
-          f"{t_fit:.2f} s = {ms_step:.3f} ms/step, predict "
-          f"{X_star.shape[0]} pts {t_pred:.3f} s", flush=True)
-    print(f"[slice] loss epoch 0 {total[0]:.6e} -> epoch {tf_iter - 1} "
-          f"{total[-1]:.6e} (min {total.min():.6e}); rel-L2 vs ETDRK4 "
+    print(f"[slice {tag}] engine {solver.engine}; compile {t_compile:.2f} s,"
+          f" fit {tf_iter} epochs {t_fit:.2f} s = {ms_step:.3f} ms/step, "
+          f"predict {X_star.shape[0]} pts {t_pred:.3f} s", flush=True)
+    print(f"[slice {tag}] loss epoch 0 {total[0]:.6e} -> epoch {tf_iter - 1}"
+          f" {total[-1]:.6e} (min {total.min():.6e}); rel-L2 vs ETDRK4 "
           f"{rel_l2:.4f}; |d lambda_res| max "
           f"{np.abs(lam_res - lam0['residual']).max():.3e}, |d lambda_IC| "
-          f"max {np.abs(lam_ic - lam0['IC']).max():.3e}; launches {launches}",
-          flush=True)
+          f"max {np.abs(lam_ic - lam0['IC']).max():.3e}", flush=True)
+    print(f"[slice {tag}] launches after compile {at_compile}, in fit "
+          f"{in_fit}, in all {launches}", flush=True)
     if not (np.all(np.isfinite(total)) and total[-1] < total[0]):
         fail("the loss did not fall (or is not finite)")
     if not (np.abs(lam_res - lam0["residual"]).max() > 0
@@ -276,18 +408,55 @@ def phase_slice(tf_iter: int) -> dict:
     if u_pred.shape != (X_star.shape[0], 1) or not (
             np.all(np.isfinite(u_pred)) and np.all(np.isfinite(f_pred))):
         fail("predict is not finite / has the wrong shape")
-    if not (launches["k1"] > 0 and launches["k2"] > 0):
-        fail(f"the main path did not go through the kernels: {launches}")
+    if minimax is None:
+        # K3: once in compile's cross-check, once per Adam step; K1 and K2
+        # only outside fit (compile's fused-residual check and predict)
+        if solver._minimax_kind != "cuda":
+            fail(f"_minimax_kind is {solver._minimax_kind!r}, not 'cuda'")
+        if not (at_compile["k3"] == 1 and in_fit["k3"] == tf_iter
+                and launches["k3"] == 1 + tf_iter):
+            fail(f"K3 launches {launches['k3']} != the cross-check + "
+                 f"{tf_iter} steps")
+        if in_fit["k1"] or in_fit["k2"] or not (launches["k1"]
+                                                and launches["k2"]):
+            fail(f"K1/K2 ran in the minimax fit or not at all: {in_fit}")
+    elif not (in_fit["k1"] == in_fit["k2"] == tf_iter and not launches["k3"]):
+        fail(f"the unfused path did not go through K1/K2 per step: {in_fit}")
     return dict(launches=launches, ms_step=ms_step, rel_l2=rel_l2,
                 solver=solver)
+
+
+def phase_ab(paths: dict, steps: int = AB_STEPS) -> dict:
+    """``--profile``: ``steps`` more Adam steps of each trained solver per
+    turn, in the order minimax, unfused, unfused, minimax, twice; ms/step
+    per turn."""
+    import torch
+    turns = {tag: [] for tag in paths}
+    for tag in ("minimax", "unfused", "unfused", "minimax") * 2:
+        solver = paths[tag]["solver"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.fit(tf_iter=steps, chunk=steps)
+        torch.cuda.synchronize()
+        turns[tag].append(1e3 * (time.perf_counter() - t0) / steps)
+    print("[A/B] ms/step of each path's turns (run in the order minimax, "
+          "unfused, unfused, minimax, twice): "
+          + "; ".join(f"{tag} " + ", ".join(f"{ms:.3f}" for ms in v)
+                      + f" (mean {np.mean(v):.3f})"
+                      for tag, v in turns.items()), flush=True)
+    return turns
 
 
 def _kernel_group(name: str) -> str:
     low = name.lower()
     if "taylor_fwd" in low:
         return "K1 taylor_fwd_kernel"
-    if "taylor_bwd" in low or "reduce_partials" in low:
-        return "K2 taylor_bwd_kernel + reduce_partials"
+    if "taylor_bwd" in low:
+        return "K2 taylor_bwd_kernel"
+    if "minimax_step" in low:
+        return "K3 minimax_step_kernel"
+    if "reduce_partials" in low:
+        return "reduce_partials (K2's or K3's slot-ordered sum)"
     if "gemm" in low or "gemv" in low or "cutlass" in low:
         return "cuBLAS matmuls (BC terms, generic engine)"
     if "adam" in low or "multi_tensor" in low:
@@ -295,7 +464,7 @@ def _kernel_group(name: str) -> str:
     return "other PyTorch kernels (pointwise, reductions, copies)"
 
 
-def phase_profile(solver, n_steps: int = 20):
+def phase_profile(solver, tag: str, n_steps: int = 20):
     """``--profile``: ``n_steps`` Adam steps of the trained slice under
     ``torch.profiler``: the host's time in each of ``fit_adam``'s ranges,
     device time by kernel group, the device's busy and idle share of the
@@ -305,6 +474,10 @@ def phase_profile(solver, n_steps: int = 20):
 
     solver.fit(tf_iter=5)  # warm
     torch.cuda.synchronize()
+    # the profiler's first window carries its own start-up; keep it out
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        solver.fit(tf_iter=2)
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -331,42 +504,53 @@ def phase_profile(solver, n_steps: int = 20):
         fail("the profiler saw no device time")
     if not all(host.values()):
         fail(f"the profiler missed a range of fit_adam: {host}")
-    print(f"[host] {n_steps} steps, host ms/step in fit_adam's ranges "
+    print(f"[host {tag}] {n_steps} steps, host ms/step in fit_adam's ranges "
           "(under the profiler; loss.residual lies inside fit_adam.loss): "
           + ", ".join(f"{k} {us / 1e3 / n_steps:.3f}"
                       for k, us in host.items()), flush=True)
-    print(f"[profile] {n_steps} steps: wall {wall_ms / n_steps:.3f} ms/step, "
-          f"device busy {busy_ms / n_steps:.3f} ms/step "
+    print(f"[profile {tag}] {n_steps} steps: wall {wall_ms / n_steps:.3f} "
+          f"ms/step, device busy {busy_ms / n_steps:.3f} ms/step "
           f"({100 * busy_ms / wall_ms:.1f}% busy, "
           f"{100 * (1 - busy_ms / wall_ms):.1f}% idle), "
           f"{n_launch / n_steps:.0f} kernel launches/step", flush=True)
     for grp, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"[profile]   {us / 1e3 / n_steps:8.3f} ms/step  {grp}",
               flush=True)
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"[profile]     {us / 1e3 / n_steps:8.3f} ms/step  {name[:90]}",
               flush=True)
     ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
-    for e in ops[:12]:
+    for e in ops[:8]:
         print(f"[profile] host {e.self_cpu_time_total / 1e3 / n_steps:8.3f} "
               f"ms/step self, {e.count / n_steps:6.1f} calls/step  "
               f"{e.key[:70]}", flush=True)
 
 
-def kernels_line(meas: dict, launches: dict) -> str:
+def kernels_line(meas: dict, paths: dict) -> str:
+    """``launches`` sums a kernel's launches over the runs of both paths
+    (``launches_by_path`` splits them)."""
     entries = []
-    for key, name, line in (("k1", "taylor_table_fwd (K1)", 154),
-                            ("k2", "taylor_table_bwd (K2)", 171)):
+    for key, name, source, replaces in (
+            ("k1", "taylor_table_fwd (K1)", "csrc/taylor_table.cu",
+             "pallas_taylor.py:154"),
+            ("k2", "taylor_table_bwd (K2)", "csrc/taylor_table.cu",
+             "pallas_taylor.py:171"),
+            ("k3", "minimax_step (K3)", "csrc/minimax_step.cu",
+             "pallas_minimax.py:259")):
         m = meas[key]
+        by_path = {tag: int(res["launches"][key])
+                   for tag, res in paths.items()}
         entries.append({
             "name": name, "route": "cuda",
-            "source": "tensordiffeq_tpu_torch/csrc/taylor_table.cu",
-            "replaces": f"tensordiffeq_tpu/ops/pallas_taylor.py:{line}",
-            "launches": int(launches[key]),
+            "source": f"tensordiffeq_tpu_torch/{source}",
+            "replaces": f"tensordiffeq_tpu/ops/{replaces}",
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound"][0],
             "bound_by": m["bound"][1],
-            # no single PyTorch call computes the Taylor table
+            # no single PyTorch call computes the Taylor table or the
+            # fused minimax step
             "library_ms": None})
     return json.dumps({"kernels": entries})
 
@@ -374,7 +558,9 @@ def kernels_line(meas: dict, launches: dict) -> str:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after the slice, profile 20 Adam steps")
+                    help="after the slices, an A/B of the two paths in "
+                    "eight turns of 50 steps, then profile 20 Adam steps of "
+                    "each path, twice, in turns")
     args = ap.parse_args()
 
     import torch
@@ -396,10 +582,18 @@ def main():
           f"(nvcc {nvcc_s:.2f} s)", flush=True)
 
     meas = phase_kernels(dev)
-    res = phase_slice(TF_ITER)
+    meas["k3"] = phase_k3(dev)
+    paths = {"minimax": phase_slice(TF_ITER, minimax=None),
+             "unfused": phase_slice(TF_ITER, minimax=False)}
+    print(f"[paths] ms/step minimax {paths['minimax']['ms_step']:.3f}, "
+          f"unfused {paths['unfused']['ms_step']:.3f}", flush=True)
     if args.profile:
-        phase_profile(res["solver"])
-    print(kernels_line(meas, res["launches"]), flush=True)
+        phase_ab(paths)
+        # in turns, so a slower stretch of the host does not land on one
+        # path's window only
+        for tag in ("minimax", "unfused", "unfused", "minimax"):
+            phase_profile(paths[tag]["solver"], tag)
+    print(kernels_line(meas, paths), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

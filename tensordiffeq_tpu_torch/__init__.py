@@ -3,8 +3,10 @@
 A second package beside the JAX one, with the same module layout and names:
 the forward SA-PINN solve (``DomainND`` → BCs → ``CollocationSolverND.
 compile`` → ``fit`` → ``predict``) in PyTorch, with the fused residual
-engine's Taylor-table kernels hand-written in CUDA for the H100
-(``compile(fused="cuda")``, :mod:`.ops.cuda_taylor`).  Entry points run on
+engine's Taylor-table kernels (``compile(fused="cuda")``,
+:mod:`.ops.cuda_taylor`) and the fused minimax training step
+(``compile(minimax=None)``, the default, :mod:`.ops.minimax`) hand-written
+in CUDA for the H100.  Entry points run on
 the card unless the caller passes ``device="cpu"``.  The port imports
 nothing of JAX and nothing of ``tensordiffeq_tpu``.
 """

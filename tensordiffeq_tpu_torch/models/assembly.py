@@ -10,8 +10,10 @@ re-design of the reference's ``CollocationSolverND.update_loss``,
 * **Structural λ routing**: λ arrive as per-term lists (``None`` for
   non-adaptive terms).
 * **Residuals** through the generic per-point engine
-  (:func:`~..ops.derivatives.vmap_residual`) or a fused batched
-  ``residual_fn`` (one Taylor wavefront, :mod:`..ops.fused`).
+  (:func:`~..ops.derivatives.vmap_residual`), a fused batched
+  ``residual_fn`` (one Taylor wavefront, :mod:`..ops.fused`), or a fused
+  minimax ``residual_loss_fn`` (:mod:`..ops.minimax`) that replaces the
+  whole residual term.
 * **Periodic BCs match every derivative** the user's ``deriv_model``
   returns; **data assimilation is a real loss term**.
 
@@ -19,8 +21,7 @@ Self-adaptive weighting follows McClenny et al. (arXiv:2009.04544): type 1
 weights point-wise inside the mean, type 2 scales each term's mean,
 optional ``g(λ)`` transform on residual terms.
 
-Not ported yet (ROADMAP queue 1): the fused minimax residual-loss term,
-causal weighting, and ``remat``.
+Not ported yet (ROADMAP queue 1): causal weighting and ``remat``.
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ def build_loss_fn(apply_fn: Callable,
                   data_X=None,
                   data_s=None,
                   residual_fn: Optional[Callable] = None,
+                  residual_loss_fn: Optional[Callable] = None,
                   device="cpu") -> Callable:
     """Assemble ``loss(params, lam_bcs, lam_res, X_batch, lam_data=None)``.
 
@@ -75,6 +77,11 @@ def build_loss_fn(apply_fn: Callable,
       data_X / data_s: optional assimilation observations.
       residual_fn: optional fused batched residual ``(params, X) -> preds``;
         the generic per-point engine is used when ``None``.
+      residual_loss_fn: optional fused minimax residual term
+        ``(params, lam_res, X) -> scalar``
+        (:func:`~..ops.minimax.make_minimax_residual_loss`); when given it
+        is the whole residual term (every equation and its λ), reported as
+        ``Residual_0``.
       device: where the BC meshes and targets live.
 
     Returns ``loss(...) -> (total, components)`` where ``components`` is the
@@ -138,8 +145,16 @@ def build_loss_fn(apply_fn: Callable,
             loss_bcs = loss_bcs + loss_bc
 
         loss_res = 0.0
-        with span("loss.residual"):
-            preds = _as_tuple(residual_eval(params, X_batch))
+        if residual_loss_fn is not None:
+            # the fused minimax unit: residual, λ weighting and reduction in
+            # one step; a system's whole residual reports as one component
+            with span("loss.residual"):
+                loss_res = residual_loss_fn(params, lam_res, X_batch)
+            components["Residual_0"] = loss_res
+            preds = ()
+        else:
+            with span("loss.residual"):
+                preds = _as_tuple(residual_eval(params, X_batch))
         for j, f_pred in enumerate(preds):
             f_pred = f_pred.reshape(-1, 1)
             lam = lam_res[j] if j < len(lam_res) else None

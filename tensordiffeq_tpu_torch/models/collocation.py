@@ -5,8 +5,7 @@ CollocationSolverND`` (reference ``tensordiffeq/models.py:12-322``), with
 the same user workflow::
 
     solver = CollocationSolverND()            # device="cuda" by default
-    solver.compile(layer_sizes, f_model, domain, bcs, fused="cuda",
-                   minimax=False)
+    solver.compile(layer_sizes, f_model, domain, bcs, fused="cuda")
     solver.fit(tf_iter=10_000)
     u_pred, f_pred = solver.predict(X_star)
 
@@ -21,6 +20,14 @@ Residual engines (``compile(fused=...)``):
   hand-written CUDA kernels (:mod:`..ops.cuda_taylor`), the counterpart of
   the JAX package's ``"pallas"``; on a CPU solver the same producer takes
   the plain flavor.
+
+The fused minimax step (``compile(minimax=...)``, :mod:`..ops.minimax`)
+replaces the training loss's residual term with one unit that computes the
+λ-weighted residual loss and every cotangent: on a CUDA solver the
+hand-written kernel K3 (:mod:`..ops.cuda_minimax`), on a CPU solver its
+plain flavor.  ``None`` adopts it behind a numeric cross-check whenever the
+fused residual is active, as the JAX solver does; ``True`` requires it;
+``False`` keeps the unfused loss.
 
 Everything of the JAX solver that is not ported yet raises
 :class:`~..utils.NotPortedError` naming its ROADMAP item.
@@ -52,7 +59,7 @@ class NotCompiledError(RuntimeError):
 # name -> (value that means "off", ROADMAP item)
 _UNPORTED_COMPILE = {
     "dist": (False, "queue 1, multi-GPU"),
-    "fused_dtype": (None, "queue 2, bf16-operand flavor of K1/K2"),
+    "fused_dtype": (None, "queue 2, bf16-operand flavor of K1-K3"),
     "causal_eps": (None, "queue 1, resampling/discovery/NTK/causal"),
     "remat": (False, "queue 1, remaining solver features"),
 }
@@ -138,18 +145,17 @@ class CollocationSolverND:
           network: an :class:`~..networks.MLP` to train instead of a fresh
             one (its parameters are moved to the solver's device).
           fused: residual engine selection (module docstring).
-          minimax: the fused minimax step (kernel K3) is not ported yet:
-            ``None`` keeps the unfused loss, as the JAX solver does when
-            the engine does not qualify; ``True`` raises
-            :class:`~..utils.NotPortedError`.
+          minimax: the fused minimax step (module docstring).  ``None``
+            adopts it when the fused residual is active, the ``f_model``
+            lowers to the kernel's residual tape and the step passes the
+            cross-check, else records why in ``_minimax_fail_reason``;
+            ``True`` raises :class:`ValueError` instead of falling back;
+            ``False`` keeps the unfused loss.
           **unported: ``dist``, ``fused_dtype``, ``causal_eps``, ``remat``
             at anything but their "off" value raise
             :class:`~..utils.NotPortedError`.
         """
         _reject_unported(_UNPORTED_COMPILE, unported, "compile")
-        if minimax is True:
-            raise not_ported("compile(minimax=True), the fused minimax "
-                             "step K3", "queue 2, K3")
         if fused == "autotune":
             raise not_ported("compile(fused='autotune')",
                              "queue 1, solver features")
@@ -290,7 +296,10 @@ class CollocationSolverND:
             return sum(torch.sum(c ** 2) for c in comps)
 
         generic = self._generic_residual(params, X_s)
-        g_gen = torch.autograd.grad(sumsq(generic), flat)
+        # materialize: a residual that never reads the primal leaves the
+        # head's bias out of the graph (its gradient is zero, as in JAX)
+        g_gen = torch.autograd.grad(sumsq(generic), flat,
+                                    materialize_grads=True)
         try:
             fused = residual_fn(params, X_s)
         except Exception as e:  # e.g. control flow on values in f_model
@@ -299,10 +308,108 @@ class CollocationSolverND:
         if not ok:
             return ok, reason
         try:
-            g_fus = torch.autograd.grad(sumsq(fused), flat)
+            g_fus = torch.autograd.grad(sumsq(fused), flat,
+                                        materialize_grads=True)
         except Exception as e:  # backward-only failure
             return False, e
         return crosscheck_grads(g_gen, g_fus)
+
+    def _try_minimax(self):
+        """Build and cross-check the fused minimax loss term
+        (:mod:`..ops.minimax`) and adopt it for the training loss when it
+        qualifies and agrees with the generic loss.  Records the
+        disqualifying reason in ``_minimax_fail_reason`` (raised from under
+        ``minimax=True``).
+
+        Only the residual disqualifies the step: an ``f_model`` that does
+        not lower to K3's tape (one value per point per equation, within
+        the kernel's caps) or a numeric mismatch.  Whatever running the
+        step raises (on a CUDA solver: K3 does not build or launch) leaves
+        ``compile`` as it is; the step is never handed to another
+        engine."""
+        from ..ops import minimax as mmx
+
+        def decline(reason: Exception):
+            self._minimax_fail_reason = reason
+            if self.minimax is True:
+                raise ValueError("minimax=True but the fused minimax engine "
+                                 "cannot be adopted") from reason
+            if self.verbose:
+                print(f"[fuse] minimax engine not adopted ("
+                      f"{type(reason).__name__}: {reason}); keeping the "
+                      "unfused loss", flush=True)
+
+        try:
+            # the lowering to K3's tape: a MinimaxLoweringError when the
+            # f_model does not lower, or the plan's caps refuse the network
+            sq = mmx.build_minimax_sq_fn(
+                self.f_model, self.domain.vars, self.n_out,
+                self._fuse_requests,
+                [tuple(W.shape) for W, _ in self.net.layers()],
+                device=self.device)
+        except ValueError as e:
+            return decline(e)
+        mm = mmx.make_minimax_residual_loss(
+            sq, weight_outside_sum=self.weight_outside_sum, g=self.g)
+        # runs the step (K3 on a CUDA solver): whatever it raises leaves
+        # compile as it is
+        ok, why = self._crosscheck_minimax(mm)
+        if not ok:
+            mismatch = ValueError("minimax engine failed the numeric "
+                                  "cross-check against the generic loss")
+            mismatch.__cause__ = why
+            return decline(mismatch)
+        self._minimax_loss = mm
+        # the kernel follows the device, as the JAX solver takes Pallas
+        # whenever a TPU is present
+        self._minimax_kind = "cuda" if self.device.type == "cuda" else "plain"
+        self._minimax_sq = sq
+        self._minimax_n_eq = sq.n_equations
+        if self.verbose:
+            print(f"[fuse] minimax engine adopted ({self._minimax_kind}: "
+                  "residual + SA-λ loss + cotangents in one step)",
+                  flush=True)
+
+    def _crosscheck_minimax(self, mm_loss, n_check: int = 32):
+        """Compare the fused minimax loss term (value and gradients with
+        respect to the parameters and λ) against the generic engine's
+        residual term on a sample of the collocation set, at rtol 5e-3.
+        On a CUDA solver this launches K3, and a kernel that does not build
+        or launch raises.  Returns ``(ok, reason)``."""
+        from ..ops.fused import FusedMismatch, crosscheck_grads
+
+        n_f = int(self.X_f.shape[0])
+        n_s = min(n_check, n_f)
+        X_s = self.X_f[:n_s]
+        # residual-term-only losses (no BC terms), with assembly's own λ
+        # semantics on both sides
+        kw = dict(weight_outside_sum=self.weight_outside_sum, g=self.g,
+                  device=self.device)
+        gen = build_loss_fn(mlp_forward, self.domain.vars, self.n_out,
+                            self.f_model, [], **kw)
+        mm = build_loss_fn(mlp_forward, self.domain.vars, self.n_out,
+                           self.f_model, [], residual_loss_fn=mm_loss, **kw)
+
+        def val_grad(loss_fn):
+            params = [t.detach().clone().requires_grad_(True)
+                      for t in _flat(self.net.layers())]
+            lams = [None if lam is None else
+                    (lam[:n_s] if lam.ndim >= 1 and lam.shape[0] == n_f
+                     else lam).detach().clone().requires_grad_(True)
+                    for lam in self.lambdas["residual"]]
+            val = loss_fn(list(zip(params[0::2], params[1::2])), [], lams,
+                          X_s)[0]
+            leaves = params + [lam for lam in lams if lam is not None]
+            return float(val.detach()), torch.autograd.grad(
+                val, leaves, materialize_grads=True)
+
+        v_m, g_m = val_grad(mm)
+        v_g, g_g = val_grad(gen)
+        if not (abs(v_m - v_g) <= 1e-5 + 5e-3 * abs(v_g)):  # NaN-safe form
+            return False, FusedMismatch(
+                f"minimax loss value {v_m:.6e} disagrees with the generic "
+                f"engine's {v_g:.6e}")
+        return crosscheck_grads(g_g, g_m)
 
     def _build(self):
         self._fused_residual = (self._try_fuse() if self.fused is not False
@@ -331,23 +438,46 @@ class CollocationSolverND:
                     print(f"[fuse] cross-check failed ({type(reason).__name__}"
                           f": {reason}); using the generic autodiff engine",
                           flush=True)
-        # the minimax step (K3) is not ported: the JAX solver's
-        # auto-adoption falls back to the unfused loss with a recorded
-        # reason, and so does this one
-        self._minimax_fail_reason = (
-            None if self.minimax is False
-            else not_ported("the fused minimax step K3", "queue 2, K3"))
-        residual = self._fused_residual or self._generic_residual
-        self._residual = residual
+        # the fused minimax step replaces the training loss's residual term
+        # when it qualifies, behind the same numeric cross-check discipline
+        self._minimax_loss = None
+        self._minimax_kind = None
+        self._minimax_sq = None
+        self._minimax_n_eq = 1
+        self._minimax_fail_reason = None
+        if self.minimax is not False:
+            if self._fused_residual is not None:
+                self._try_minimax()
+            else:
+                reason = getattr(self, "_fuse_fail_reason", None)
+                why = ValueError(
+                    "the fused minimax step needs the fused residual engine "
+                    "(the standard float32 tanh MLP and an analysable "
+                    "f_model, fused != False)")
+                why.__cause__ = reason
+                self._minimax_fail_reason = why
+                if self.minimax is True:
+                    detail = ("" if reason is None else
+                              f"; analysis stopped on: "
+                              f"{type(reason).__name__}: {reason}")
+                    raise ValueError(f"minimax=True: {why}{detail}") \
+                        from reason
+        self._residual = self._fused_residual or self._generic_residual
         self.loss_fn = build_loss_fn(
             mlp_forward, self.domain.vars, self.n_out, self.f_model,
             self.bcs, weight_outside_sum=self.weight_outside_sum, g=self.g,
             data_X=self.data_X, data_s=self.data_s,
-            residual_fn=self._fused_residual, device=self.device)
+            residual_fn=self._fused_residual,
+            residual_loss_fn=self._minimax_loss, device=self.device)
 
     @property
     def engine(self) -> str:
-        """``"fused-cuda"``, ``"fused"`` or ``"generic"``."""
+        """``"fused-minimax-cuda"`` or ``"fused-minimax"`` when the
+        minimax step is adopted, else ``"fused-cuda"``, ``"fused"`` or
+        ``"generic"``."""
+        if self._minimax_kind is not None:
+            return ("fused-minimax-cuda" if self._minimax_kind == "cuda"
+                    else "fused-minimax")
         if self._fused_residual is None:
             return "generic"
         return "fused-cuda" if self.fused == "cuda" else "fused"

@@ -1,0 +1,115 @@
+"""The fused minimax step's hand-written CUDA kernel K3: its plan, launch
+wrapper and work counts.
+
+Counterpart of the Pallas branch of the JAX package's
+``ops/pallas_minimax.py::build_minimax_sq_fn`` (``kernel`` :193-231,
+``pallas_call`` at :259).  The kernel lives in ``csrc/minimax_step.cu``
+(its header note says what it computes, what bounds it on the H100 and how
+the design answers it); it shares the Taylor-table device code of K1/K2
+through ``csrc/taylor_common.cuh`` and is built into the same shared
+library by :func:`.cuda_taylor.build`.
+
+:func:`k3_minimax` launches it for CUDA tensors or raises; nothing here
+falls back.  The plain flavor, the CPU path and the kernel's referee, is
+``tile_sq`` in :mod:`.minimax`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from . import cuda_taylor as ct
+from .residual_tape import ResidualTape
+
+
+class MinimaxPlan(ct._Plan):
+    """:class:`~.cuda_taylor._Plan` (the channel schedule and the packed
+    network) plus the residual: its equation count ``E`` and its tape as C
+    int and float arrays, in ``csrc/minimax_step.cu``'s layout."""
+
+    def __init__(self, requests: set, layer_shapes: Sequence[tuple],
+                 tape: ResidualTape):
+        super().__init__(requests, layer_shapes)
+        if tape.n_table != self.C * self.n_out:
+            raise ValueError(
+                f"the tape reads {tape.n_table} table columns; the plan has "
+                f"{self.C} channels x {self.n_out} outputs")
+        self.tape = tape
+        self.E = tape.n_eq
+        ints, floats = tape.encode()
+        self.tape_h = (ctypes.c_int * len(ints))(*ints)
+        self.cst_h = (ctypes.c_float * len(floats))(*floats)
+
+
+def _check_k3_inputs(plan: MinimaxPlan, X: torch.Tensor, w: torch.Tensor,
+                     flat: torch.Tensor):
+    ct._check_cuda_inputs(plan, X, flat)
+    N = X.shape[0]
+    if w.device != X.device:
+        raise ValueError("the minimax kernel needs w on X's CUDA device")
+    if w.dtype != torch.float32:
+        raise TypeError("the minimax kernel takes float32 only")
+    if tuple(w.shape) != (N, plan.E) or not w.is_contiguous():
+        raise ValueError(f"w must be a contiguous [{N}, {plan.E}], got "
+                         f"{tuple(w.shape)}")
+
+
+def k3_minimax(plan: MinimaxPlan, X: torch.Tensor, w: torch.Tensor,
+               flat: torch.Tensor):
+    """Launch K3 (and its slot-ordered reduction of the per-block
+    partials).  Returns ``(value, dflat, gw, gX)``: the scalar ``Σ_e Σ_p
+    w[p,e]·f_e(p)²``, its parameter cotangent in the packed layout
+    ``[P_total]``, ``gw = f² [N, E]`` and ``gX [N, d]``."""
+    _check_k3_inputs(plan, X, w, flat)
+    lib = ct.build()
+    _, tp, n_sm = plan.tile_sizes(X.device)
+    N = X.shape[0]
+    n_tiles = -(-N // tp)
+    G = min(n_tiles, n_sm)
+    R = tp * plan.C
+    L = len(plan.layer_shapes)
+    opts = dict(device=X.device, dtype=torch.float32)
+    gw = torch.empty((N, plan.E), **opts)
+    gX = torch.empty((N, plan.d), **opts)
+    part = torch.empty((G, plan.P_total + 1), **opts)
+    ws = torch.empty((G * (L - 1) * R * plan.ld,), **opts)
+    out = torch.empty((plan.P_total + 1,), **opts)
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    ct._check(lib.tdq_minimax_step(
+        X.data_ptr(), w.data_ptr(), flat.data_ptr(), gw.data_ptr(),
+        gX.data_ptr(), part.data_ptr(), ws.data_ptr(), out.data_ptr(), N, tp,
+        G, plan.net_h, plan.sched_h, plan.tape_h, plan.cst_h, stream),
+        "minimax_step K3 launch")
+    k3_minimax.launches += 1
+    return out[plan.P_total], out[:plan.P_total], gw, gX
+
+
+k3_minimax.launches = 0
+ct.COUNTED.append(k3_minimax)
+
+
+def flop_count(plan: MinimaxPlan, n_points: int) -> dict:
+    """Float operations K3's function needs for ``n_points`` points: K2's
+    (the hidden layers' forward once, the weight and input cotangent
+    products, the transposed Faà di Bruno lines, the sums), the head's
+    product, and per point the tape forward and reverse plus, per
+    equation, ``f²``, ``w·f²`` into the value and the seed ``2·w·f``."""
+    fi, fo = plan.layer_shapes[-1]
+    head = 2 * plan.C * fi * fo
+    fwd, rev = plan.tape.flops()
+    return {"k3": ct.flop_count(plan, n_points)["k2"]
+            + n_points * (head + fwd + rev + 5 * plan.E)}
+
+
+def byte_count(plan: MinimaxPlan, n_points: int) -> dict:
+    """Bytes K3 must move at least: X, w and the parameters in; the value,
+    the parameter cotangents, gw and gX out.  The table's round trip is
+    not counted: K3 exists to remove it (its partials and workspace are
+    its own choice and not counted either)."""
+    x = 4 * n_points * plan.d
+    w = 4 * n_points * plan.E
+    params = 4 * plan.P_total
+    return {"k3": (x + w + params) + (4 + params + w + x)}

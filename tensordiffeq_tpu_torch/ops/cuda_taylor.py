@@ -6,9 +6,11 @@ build_pallas_table_fn``: :func:`build_cuda_table_fn` returns
 ``table_fn(layers, X) -> {mi: [N, n_out]}``, a drop-in ``table_producer``
 for :func:`~.fused.make_fused_residual`.  The kernels live in
 ``csrc/taylor_table.cu`` (its header note says what bounds them on the H100
-and how the design answers it); they are compiled with ``nvcc`` for
-``sm_90a`` into a plain C-ABI shared library at first use and loaded with
-``ctypes``.
+and how the design answers it) over the device code in
+``csrc/taylor_common.cuh``, which the fused minimax step K3
+(``csrc/minimax_step.cu``, :mod:`.cuda_minimax`) shares.  :func:`build`
+compiles every source under ``csrc/`` with ``nvcc`` for ``sm_90a`` into
+one plain C-ABI shared library at first use and loads it with ``ctypes``.
 
 Dispatch is by the tensors' device, never by a fallback:
 
@@ -38,12 +40,17 @@ import torch
 from ..utils import resolve_device
 from .taylor import canonical, channel_order, taylor_derivatives
 
-MAX_LAYERS = 16    # MAXL in csrc/taylor_table.cu
-MAX_CHANNELS = 16  # MAXC in csrc/taylor_table.cu
+MAX_LAYERS = 16    # MAXL in csrc/taylor_common.cuh
+MAX_CHANNELS = 16  # MAXC in csrc/taylor_common.cuh
+# the residual tape K3 interprets (csrc/minimax_step.cu, ops/residual_tape.py)
+MAX_TAPE_INPUTS = 48  # MAXTIN: table columns and coordinates the tape reads
+MAX_TAPE_OPS = 96     # MAXTOPS
+MAX_TAPE_CONSTS = 32  # MAXTCONST
+MAX_EQUATIONS = 8     # MAXEQ: residual equations E
 _SUPER_ROWS = 128  # SUP_R: rows of one register super-tile
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "taylor_table.cu")
+CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 _lib = None
@@ -72,51 +79,97 @@ def find_nvcc() -> str:
         "nvcc not found on PATH, under $CUDA_HOME/bin or /usr/local/cuda/bin")
 
 
+def sources() -> list:
+    """Every file under ``csrc/`` (the ``.cu`` translation units and the
+    headers they share), sorted by name."""
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def source_digest() -> str:
+    """Digest over the names and contents of every file under ``csrc/``: an
+    edited header changes it as an edited kernel does."""
+    h = hashlib.sha256()
+    for path in sources():
+        h.update(os.path.basename(path).encode() + b"\0")
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+        h.update(b"\0")
+    return h.hexdigest()[:12]
+
+
+def _nvcc_build(so: str):
+    """Compile each ``.cu`` under ``csrc/`` with its own ``nvcc`` (all
+    started together), link the objects into one shared library, and move
+    it into place under ``so``."""
+    nvcc = find_nvcc()
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC"]
+    tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        units = [p for p in sources() if p.endswith(".cu")]
+        objs = [os.path.join(tmpdir, os.path.basename(p) + ".o")
+                for p in units]
+        procs = [subprocess.Popen([nvcc] + flags + ["-c", src, "-o", obj],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(units, objs)]
+        errors = []
+        for src, proc in zip(units, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{os.path.basename(src)} "
+                              f"({proc.returncode}):\n{err[-4000:]}")
+        if errors:
+            raise KernelBuildError("nvcc failed: " + "\n".join(errors))
+        tmp = os.path.join(tmpdir, "lib.so")
+        res = subprocess.run([nvcc] + flags + ["-shared", "-o", tmp] + objs,
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc link failed ({res.returncode}):\n{res.stderr[-4000:]}")
+        # rename into place: a concurrent process never loads a half-written
+        # library
+        os.replace(tmp, so)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+
+
 def build() -> ctypes.CDLL:
-    """Compile ``csrc/taylor_table.cu`` (once per source version, into the
-    git-ignored ``_build/``) and load it.  Idempotent."""
+    """Compile every source under ``csrc/`` into one shared library (once
+    per version of the sources, into the git-ignored ``_build/``) and load
+    it.  Idempotent."""
     global _lib, build_seconds
     if _lib is not None:
         return _lib
-    with open(SOURCE, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:12]
-    so = os.path.join(BUILD_DIR, f"libtaylor_table_{digest}.so")
+    so = os.path.join(BUILD_DIR, f"libtdq_kernels_{source_digest()}.so")
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        cmd = [find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
-        # build under a private name, then rename: a concurrent process
-        # never loads a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            t0 = time.perf_counter()
-            res = subprocess.run(cmd + ["-o", tmp, SOURCE],
-                                 capture_output=True, text=True)
-            if res.returncode != 0:
-                raise KernelBuildError(
-                    f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-            os.replace(tmp, so)
-            build_seconds = time.perf_counter() - t0
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        t0 = time.perf_counter()
+        _nvcc_build(so)
+        build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(so)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.tdq_taylor_fwd.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr, ptr]
     lib.tdq_taylor_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
                                    i32, i32, ptr, ptr, ptr]
+    lib.tdq_minimax_step.argtypes = [ptr] * 8 + [i32, i32, i32] + [ptr] * 5
     lib.tdq_device_info.argtypes = [i32, ptr]
     lib.tdq_limits.argtypes = [ptr]
-    for fn in (lib.tdq_taylor_fwd, lib.tdq_taylor_bwd, lib.tdq_device_info,
-               lib.tdq_limits):
+    lib.tdq_minimax_limits.argtypes = [ptr]
+    for fn in (lib.tdq_taylor_fwd, lib.tdq_taylor_bwd, lib.tdq_minimax_step,
+               lib.tdq_device_info, lib.tdq_limits, lib.tdq_minimax_limits):
         fn.restype = i32
     limits = (ctypes.c_int * 3)()
     lib.tdq_limits(limits)
-    if (limits[0], limits[1]) != (MAX_LAYERS, MAX_CHANNELS):
+    tape = (ctypes.c_int * 4)()
+    lib.tdq_minimax_limits(tape)
+    got = (limits[0], limits[1], *tape)
+    want = (MAX_LAYERS, MAX_CHANNELS, MAX_TAPE_INPUTS, MAX_TAPE_OPS,
+            MAX_TAPE_CONSTS, MAX_EQUATIONS)
+    if got != want:
         raise KernelBuildError(
-            f"kernel limits {tuple(limits[:2])} disagree with the wrapper's "
-            f"{(MAX_LAYERS, MAX_CHANNELS)}")
+            f"kernel limits {got} disagree with the wrapper's {want}")
     lib.bs_bytes = int(limits[2])
     _lib = lib
     return lib
@@ -226,7 +279,7 @@ class _Plan:
                 rows = min((smem - lib.bs_bytes) // (n_buf * row_bytes),
                            _SUPER_ROWS)
                 if rows < self.C:
-                    raise ValueError(
+                    raise KernelLaunchError(
                         f"width {self.ld - 1} x {self.C} channels does not "
                         f"fit one point in {smem} B of shared memory")
                 tps.append(rows // self.C)
@@ -313,9 +366,14 @@ def k2_backward(plan: _Plan, X: torch.Tensor, flat: torch.Tensor,
 k2_backward.launches = 0
 
 
+# every kernel wrapper of the package, K3's included once its module is
+# imported; reset_launch_counts() zeroes them all
+COUNTED = [k1_forward, k2_backward]
+
+
 def reset_launch_counts():
-    k1_forward.launches = 0
-    k2_backward.launches = 0
+    for fn in COUNTED:
+        fn.launches = 0
 
 
 class _TaylorTable(torch.autograd.Function):

@@ -38,8 +38,10 @@ class _AnalysisEngine:
     """Records the set of multi-indices ``f_model`` requests."""
 
     def __init__(self, ndim: int):
-        # Distinct boxed scalars: object identity marks "the raw coordinate".
-        self.tokens = tuple(np.float32(0.1 + 0.05 * i) for i in range(ndim))
+        # Distinct 0-d tensors: object identity marks "the raw coordinate",
+        # and torch functions of a coordinate (torch.sin(x)) take them, as
+        # the batched and per-point engines' coordinates are tensors too
+        self.tokens = tuple(torch.tensor(0.1 + 0.05 * i) for i in range(ndim))
         self.requests: set = set()
 
     def lookup(self, multi_index, component, coords, n_out):

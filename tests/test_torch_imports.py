@@ -41,6 +41,9 @@ def _imports(tree):
 def test_port_has_modules():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     for want in ("tensordiffeq_tpu_torch/ops/cuda_taylor.py",
+                 "tensordiffeq_tpu_torch/ops/cuda_minimax.py",
+                 "tensordiffeq_tpu_torch/ops/minimax.py",
+                 "tensordiffeq_tpu_torch/ops/residual_tape.py",
                  "tensordiffeq_tpu_torch/models/collocation.py",
                  "chip_smoke.py"):
         assert want in names

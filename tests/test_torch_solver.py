@@ -131,7 +131,7 @@ def test_device_defaults_to_cuda():
 def test_unported_options_raise_typed_errors():
     d, b, f, _ = ac_problem(tdqt)
     s = tdqt.CollocationSolverND(verbose=False, device="cpu")
-    for kw in (dict(minimax=True), dict(fused="autotune"), dict(dist=True),
+    for kw in (dict(fused="autotune"), dict(dist=True),
                dict(fused_dtype="bfloat16"), dict(causal_eps=1.0),
                dict(remat=True), dict(Adaptive_type=3)):
         with pytest.raises(NotPortedError, match="ROADMAP"):

@@ -317,3 +317,20 @@ def test_cuda_default_needs_a_card():
     with pytest.raises(CudaUnavailableError):
         cuda_taylor.build_cuda_table_fn(REQS, [(2, 4), (4, 1)])
 
+
+
+def test_build_digest_covers_every_source(tmp_path, monkeypatch):
+    """The library is built from every file under ``csrc/`` and named by a
+    digest over all of them: an edited shared header must not load a stale
+    build."""
+    import shutil
+    for path in cuda_taylor.sources():
+        shutil.copy(path, tmp_path)
+    monkeypatch.setattr(cuda_taylor, "CSRC", str(tmp_path))
+    names = {p.rsplit("/", 1)[-1] for p in cuda_taylor.sources()}
+    assert {"taylor_table.cu", "minimax_step.cu",
+            "taylor_common.cuh"} <= names
+    before = cuda_taylor.source_digest()
+    with open(tmp_path / "taylor_common.cuh", "a") as fh:
+        fh.write("// edited\n")
+    assert cuda_taylor.source_digest() != before
