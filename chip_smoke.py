@@ -16,6 +16,11 @@ Phases (each failure is fatal; exit code != 0, no result line):
    flavor, for the Allen-Cahn residual (E = 1, N = 50,000, 2-128x4-1), the
    coupled 2-equation system (E = 2, 2-128x4-2) and a ``1/x`` residual at a
    ragged N = 50,001 (everything finite).
+   Each kernel's time is printed beside two bounds: the route it takes
+   (its tensor-core products as 3 TF32 passes over the TF32 peak, the rest
+   over the FP32 peak, its bytes over the HBM rate) and, for continuity,
+   every operation on the FP32 CUDA cores.  A ``[yardstick]`` line times
+   the same hidden-layer products as cuBLAS f32 matmuls.
 6. the minimax slice, the main path: the Allen-Cahn SA-PINN at its full
    size trained through ``compile(fused="cuda")`` with the default
    ``minimax``, which adopts K3; ``fit(tf_iter=200)`` and ``predict`` on the
@@ -48,18 +53,22 @@ import numpy as np
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12       # FP32 on the CUDA cores, no tensor cores
+PEAK_TF32_FLOPS = 495e12      # TF32 on the tensor cores, dense
 PEAK_HBM_BYTES = 3.35e12      # HBM3 bytes/s
+TF32_PASSES = 3               # the kernels' products are 3xTF32
 
 # K1/K2 vs their plain flavor: scale-relative max error (max |kernel - plain|
-# over max |plain|, per table channel / gradient leaf).  Both sides are IEEE
-# f32; they differ only in summation order (128-term dot products per layer
-# for K1; K2's weight cotangents also sum 50,000 points x C channels).
-# Measured on an H100 at these shapes: <= 2.5e-6 for both.
+# over max |plain|, per table channel / gradient leaf).  The plain side is
+# IEEE f32; the kernels take the hidden-layer products as 3xTF32 (at worst
+# about 2^-20 relative per product, f32 sums) and sum in another order
+# (128-term dot products per layer for K1; K2's weight cotangents also sum
+# 50,000 points x C channels).  Measured on an H100 at these shapes: K1
+# 4.8e-6, K2 1.1e-6 (PERF.md).
 K1_RTOL = 1e-4
 K2_RTOL = 1e-4
 # K3 vs its plain flavor, the same measure over the value, every dW/db leaf,
-# gw and gX: both sides are IEEE f32 and differ in summation order (the
-# value and dW/db sum 50,000 points)
+# gw and gX: the same product numerics, another summation order (the value
+# and dW/db sum 50,000 points)
 K3_RTOL = 1e-4
 
 AC_REQUESTS = {(), (1,), (0, 0)}
@@ -104,10 +113,25 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+def bound_ms(flops: dict, nbytes: float) -> dict:
+    """The least time the card could take for a kernel's work on the route
+    the kernel takes it: the larger of its tensor-core products (3 TF32
+    passes each) over the TF32 peak, the rest of its operations over the
+    FP32 peak, and its bytes over the HBM rate.  ``fp32_ms``: the bound
+    with every operation on the CUDA cores, as before the tensor cores."""
+    t_tc = TF32_PASSES * flops["tensor"] / PEAK_TF32_FLOPS
+    t_simt = flops["simt"] / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    t_fp32 = (flops["tensor"] + flops["simt"]) / PEAK_FP32_FLOPS
+    return dict(ms=max(t_tc, t_simt, t_bytes) * 1e3,
+                by="operations" if max(t_tc, t_simt) >= t_bytes else "bytes",
+                fp32_ms=max(t_fp32, t_bytes) * 1e3)
+
+
+def bound_text(ms: float, bound: dict) -> str:
+    return (f"bound {bound['ms']:.3f} ms ({bound['by']}; "
+            f"{100 * bound['ms'] / ms:.1f} % of it), FP32-core bound "
+            f"{bound['fp32_ms']:.3f} ms ({100 * bound['fp32_ms'] / ms:.1f} %)")
 
 
 def scaled_err(got, want) -> tuple[float, float]:
@@ -190,14 +214,17 @@ def phase_kernels(dev) -> dict:
         ct.k1_forward.launches, ct.k2_backward.launches = before
         flops = ct.flop_count(plan, N_POINTS)
         nbytes = ct.byte_count(plan, N_POINTS)
+        b1 = bound_ms(flops["k1"], nbytes["k1"])
+        b2 = bound_ms(flops["k2"], nbytes["k2"])
         print(f"[time {label}] K1 {k1_ms:.3f} ms (plain {k1_plain_ms:.3f} ms)"
-              f"  K2 {k2_ms:.3f} ms (plain fwd+bwd {k2_plain_ms:.3f} ms)",
-              flush=True)
+              f", {bound_text(k1_ms, b1)}", flush=True)
+        print(f"[time {label}] K2 {k2_ms:.3f} ms (plain fwd+bwd "
+              f"{k2_plain_ms:.3f} ms), {bound_text(k2_ms, b2)}", flush=True)
         out[label] = dict(
             k1=dict(max_abs_err=k1_abs, ms=k1_ms, plain_ms=k1_plain_ms,
-                    bound=bound_ms(flops["k1"], nbytes["k1"])),
+                    bound=b1),
             k2=dict(max_abs_err=k2_abs, ms=k2_ms, plain_ms=k2_plain_ms,
-                    bound=bound_ms(flops["k2"], nbytes["k2"])))
+                    bound=b2))
     return out["ac"]
 
 
@@ -290,11 +317,33 @@ def phase_k3(dev) -> dict:
         bound = bound_ms(cm.flop_count(plan, n)["k3"],
                          cm.byte_count(plan, n)["k3"])
         print(f"[time K3 {label}] K3 {ms:.3f} ms (plain fwd+bwd "
-              f"{plain_ms:.3f} ms), bound {bound[0]:.3f} ms ({bound[1]})",
-              flush=True)
+              f"{plain_ms:.3f} ms), {bound_text(ms, bound)}", flush=True)
         out[label] = dict(max_abs_err=k3_abs, ms=ms, plain_ms=plain_ms,
                           bound=bound)
     return out["ac"]
+
+
+def phase_yardstick(dev) -> dict:
+    """What the card's own f32 GEMM does on the slice's hidden-layer
+    products: torch.matmul with TF32 off on [N*C, 128] x [128, 128] (C = 4),
+    the forward H W, dW = H^T dP and dH = dP W^T, three of each as in one
+    K2 or K3 launch (K1 takes the three forward ones).  A yardstick only:
+    the port never calls it."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = N_POINTS * 4
+    H = torch.rand(rows, 128, generator=g, device=dev) * 2 - 1
+    dP = torch.randn(rows, 128, generator=g, device=dev)
+    W = torch.randn(128, 128, generator=g, device=dev) / 128 ** 0.5
+    fwd = cuda_ms(lambda: [H @ W for _ in range(3)], reps=10)
+    dw = cuda_ms(lambda: [H.t() @ dP for _ in range(3)], reps=10)
+    dh = cuda_ms(lambda: [dP @ W.t() for _ in range(3)], reps=10)
+    print(f"[yardstick] torch.matmul f32 (allow_tf32=False), [{rows}, 128] x "
+          f"[128, 128], three of each: forward {fwd:.3f} ms, dW {dw:.3f} ms,"
+          f" dH {dh:.3f} ms; the nine of K2/K3 {fwd + dw + dh:.3f} ms, the "
+          f"three of K1 {fwd:.3f} ms (cuBLAS, not used by the port)",
+          flush=True)
+    return dict(fwd_ms=fwd, dw_ms=dw, dh_ms=dh)
 
 
 def ac_sa_problem(n_f: int = N_POINTS, grid=(512, 201), seed: int = 0):
@@ -547,8 +596,8 @@ def kernels_line(meas: dict, paths: dict) -> str:
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-            "plain_ms": m["plain_ms"], "bound_ms": m["bound"][0],
-            "bound_by": m["bound"][1],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound"]["ms"],
+            "bound_by": m["bound"]["by"],
             # no single PyTorch call computes the Taylor table or the
             # fused minimax step
             "library_ms": None})
@@ -583,6 +632,7 @@ def main():
 
     meas = phase_kernels(dev)
     meas["k3"] = phase_k3(dev)
+    phase_yardstick(dev)
     paths = {"minimax": phase_slice(TF_ITER, minimax=None),
              "unfused": phase_slice(TF_ITER, minimax=False)}
     print(f"[paths] ms/step minimax {paths['minimax']['ms_step']:.3f}, "

@@ -40,9 +40,21 @@
 // point against the ~1 MFLOP per point of the matmuls, so that is not what
 // bounds the kernel.
 //
-// What bounds it on the H100: FP32 operations, as for K2 (it is K2's work
-// plus the head's product and the tape): IEEE f32 FMA on the CUDA cores, no
-// TF32.  A first version that is right; wgmma/TMA come later.
+// What bounds it on the H100: operations, as for K2 (it is K2's work plus
+// the head's product and the tape), nearly all of them the nine 128-wide
+// hidden-layer products of a tile (three forward, three dW, three dH on
+// the AC net).  They run on the tensor cores as 3xTF32 (taylor_common.cuh:
+// at worst about 2^-20 relative error per product, the counterpart of
+// precision=HIGHEST), so the bound is 3 x products / 495 TFLOP/s; each
+// product's weights are staged in shared memory ahead of it, the staged
+// layers come back by bulk copies behind other work.  taylor_table.cu's K2
+// note has what holds the products back (mma.sync's instruction stream
+// and latency at eight warps per SM) and the workspace's L2 footprint; K3's
+// partial slots are 132 x 50,052 floats = 26.4 MB, so with the 48.3 MB
+// workspace 75 MB meet the 50 MB L2 and dW's slot updates reach HBM.  The
+// narrow head, layer 0 and the tape epilogue stay SIMT; the epilogue runs
+// one thread per point.  wgmma with TMA, the tensor cores' full rate, is
+// later work.
 //
 // Differences from the Pallas kernel:
 //   * Pallas accumulated the value and dW/db over a sequential grid
@@ -65,8 +77,8 @@
 #define MAXEQ 8       // residual equations
 #define MAXTREG (MAXTIN + MAXTOPS)
 
-// the epilogue's block sum of the value uses the weight chunk Bs as scratch
-static_assert(KT * BS_LD >= NTHREADS, "Bs holds one float per thread");
+// the epilogue's block sum of the value uses the weight stage as scratch
+static_assert(STAGE_F >= NTHREADS, "the stage holds one float per thread");
 
 // op codes (ops/residual_tape.py: OPS)
 #define OP_CONST 0  // r = cst[a]
@@ -222,29 +234,37 @@ minimax_step_kernel(const float* __restrict__ X, const float* __restrict__ w,
                     float* __restrict__ gX, float* __restrict__ part,
                     float* __restrict__ ws, int N, int TP, int n_tiles,
                     Net net, Sched s, Tape tp) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(16) float sm[];
   const int C = s.C, R = TP * C, ld = net.ld, L = net.L, lh = net.L - 1;
+  const int Rp = pad16(R);
   float* buf0 = sm;
-  float* buf1 = sm + R * ld;
-  float* buf2 = sm + 2 * R * ld;
-  float* Bs = sm + 3 * R * ld;
-  float* mypart = part + (size_t)blockIdx.x * (net.P_total + 1);
-  float* myws = ws + (size_t)blockIdx.x * (L - 1) * R * ld;
+  float* buf1 = sm + Rp * ld;
+  float* buf2 = sm + 2 * Rp * ld;
+  float* wst = stage_of(sm, 3, R, ld);
+  uint64_t* mbar = mbar_of(wst);
+  float* mypart = part + (size_t)blockIdx.x * slot_stride(net.P_total + 1);
+  float* myws = ws + (size_t)blockIdx.x * ws_slices(L) * R * ld;
 
+  zero_buffers(sm, 3 * Rp * ld);
+  mbar_init(mbar);
+  unsigned phase = 0;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const bool first = (tile == blockIdx.x);
     const int p0 = tile * TP;
+    bool head_issued = false;
     float* cur = stage_forward(X, prm, N, p0, TP, net, s, myws, buf0, buf1,
-                               Bs);
+                               wst, &head_issued);
     float* oth = (cur == buf0) ? buf1 : buf0;
+    // the reverse sweep's first staged layer, behind the head and epilogue
+    ws_load(oth, myws + (size_t)(L - 2) * R * ld, R, ld, mbar);
     // the head's channels: the table rows of this tile
     float* T = buf2;
-    mm_smem(cur, ld, R, net.w_in[lh], prm + net.offW[lh], net.n_out, 1,
-            net.n_out, prm + net.offb[lh], C, T, ld, Bs);
-    epilogue(T, ld, X, w, gw, gX, N, p0, TP, C, net.n_out, net.d, tp, Bs,
+    product_fwd(cur, ld, R, net.w_in[lh], prm + net.offW[lh], net.n_out,
+                prm + net.offb[lh], C, T, wst, head_issued);
+    epilogue(T, ld, X, w, gw, gX, N, p0, TP, C, net.n_out, net.d, tp, wst,
              mypart + net.P_total, first);
     reverse_sweep(X, prm, gX, true, mypart, myws, N, p0, TP, first, net, s,
-                  cur, oth, T, Bs);
+                  cur, oth, T, wst, mbar, phase);
   }
 }
 
@@ -280,6 +300,9 @@ extern "C" int tdq_minimax_step(const float* X, const float* w,
                                 const float* cst_h, void* stream) {
   const Net net = unpack_net(net_h);
   const Sched s = unpack_sched(sched_h);
+  // layer 0 takes its operands into the weight stage
+  if (!layer0_fits(net.d, net.w_out[0], TP))
+    return (int)cudaErrorInvalidValue;
   const Tape tp = unpack_tape(tape_h, cst_h);
   const size_t smem = smem_bytes(3, TP * s.C, net.ld);
   cudaError_t e = cudaFuncSetAttribute(

@@ -1,30 +1,51 @@
 // Device code shared by the Taylor-table kernels (taylor_table.cu: K1, K2)
 // and the fused minimax step (minimax_step.cu: K3): the packed network and
-// channel-schedule descriptors, the shared-memory SIMT matmuls, the tanh
-// chain with its Faa di Bruno lines and their transpose, K2's staged
-// forward and reverse sweep, and the slot-ordered partial reduction.
+// channel-schedule descriptors, the channel products on the tensor cores
+// (3xTF32 mma.sync, the weights staged by cp.async ahead of use) and the
+// SIMT loops kept for narrow shapes, the tanh chain with its Faa di Bruno
+// lines and their transpose, K2's staged forward and reverse sweep with its
+// bulk-copy workspace reads, and the slot-ordered partial reduction.
 //
 // Everything here has internal linkage (static), so each translation unit
 // of the one shared library carries its own copy and nothing collides at
 // link time.
+//
+// Shared-memory layout of a block: n_buf wavefront buffers of Rp x ld floats
+// (Rp = TP*C rounded up to 16 rows for the m16 fragments; the pad rows are
+// zeroed once and never written, so they add nothing to a product over
+// rows), then the weight stage (STAGE_F floats: a whole 128 x 128 layer),
+// then one mbarrier for the workspace copies.  ld = 32*ceil(max width/32)
+// + 8: every fragment column of a padded width lies inside a row, rows stay
+// 16-byte aligned for the copies, and ld = 8 (mod 32) words puts a warp's
+// fragment loads on distinct banks (see the tensor-core section).
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #define MAXL 16          // layers
 #define MAXC 16          // channels
-#define NTHREADS 256     // 16 x 16
-#define TM 8             // register tile rows per thread
-#define TN 8             // register tile cols per thread
-#define KT 16            // streamed k-chunk
-#define SUP_R (16 * TM)  // rows per register super-tile
-#define SUP_N (16 * TN)  // cols per register super-tile
-#define BS_LD (SUP_N + 1)
-// outputs at most this many columns wide (the head's n_out) take a
-// dot-product loop, one thread per output element: the register tile would
-// spend nearly all its FMAs on masked columns.  Both sum k (or r) in the
-// same order, so the results are the same bits.
+#define NTHREADS 256     // 8 warps
+#define BLK_M 128        // rows of a product's block tile: 2 warps x 64
+#define BLK_N 128        // columns of a block tile: 4 warps x 32
+#define WFM 4            // m16 fragments per warp
+#define WFN 4            // n8 fragments per warp
+#define KT 128           // k rows of the weight stage: a whole 128-wide layer
+// stage strides: W by rows (Bs[k][n], the forward product) = 4 (mod 32)
+// words, so b0/b1 (k = 2t and 2t+1, n = g) fall on banks 8t + g (+ 4); W by
+// columns (Bt[n][k], dH = dP W^T) = 8 (mod 32) words, so each lane's 8-byte
+// pair (n = g, k = 2t..2t+1) falls on banks 8g + 2t within a half-warp
+#define LDB_ROWS (BLK_N + 4)
+#define LDB_COLS (KT + 8)
+#define STAGE_F (KT * LDB_ROWS > BLK_N * LDB_COLS ? KT * LDB_ROWS \
+                                                  : BLK_N * LDB_COLS)
+// the shared memory a block needs besides its wavefront buffers: the
+// weight stage and the 16-byte slot of the workspace mbarrier
+#define STAGE_BYTES (STAGE_F * 4 + 16)
+// products at most this many columns wide (the head's n_out), or this deep
+// (the head's dH), stay SIMT loops, one thread per output element: an n8
+// fragment would spend nearly all its work on padding
 #define NARROW_N 16
 
 struct Net {
@@ -40,138 +61,651 @@ struct Sched {
   int idx[MAXC][6];
 };
 
+static __device__ __forceinline__ int pad16(int r) { return (r + 15) & ~15; }
+
 // ------------------------------------------------------------------------
-// out[r][n] = sum_k A[r][k] * B(k, n) (+ bias[n] on primal rows), for
-// r < R, n < Nn, k < K.  A and out live in shared memory (row strides lda,
-// ldo); B(k, n) = B[k*sbk + n*sbn] in global memory, streamed in KT-row
-// chunks through Bs.
-static __device__ void mm_smem(const float* A, int lda, int R, int K,
-                               const float* __restrict__ B, int sbk, int sbn,
-                               int Nn, const float* __restrict__ bias, int C,
-                               float* out, int ldo, float* Bs) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  if (Nn <= NARROW_N) {
-    for (int e = tid; e < R * Nn; e += NTHREADS) {
-      const int r = e / Nn, n = e % Nn;
-      float acc = 0.f;
-      for (int k = 0; k < K; ++k)
-        acc = fmaf(A[r * lda + k], B[(size_t)k * sbk + (size_t)n * sbn], acc);
-      if (bias != nullptr && r % C == 0) acc += bias[n];
-      out[r * ldo + n] = acc;
-    }
-    __syncthreads();
-    return;
+// Asynchronous copies.  The weight stage is filled by cp.async groups
+// (16-byte pieces where W's rows are 16-byte aligned, else 4-byte ones);
+// the workspace reads use one bulk copy each (cp.async.bulk), tracked by an
+// mbarrier, so they never mix with the stage's groups and one thread issues
+// a whole layer.  (Bulk copies for the stage too, one per 512-byte stage
+// row on a second mbarrier, were slower per fill on the H100; PERF.md.)
+
+static __device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+static __device__ __forceinline__ void cp_async16(float* dst,
+                                                  const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+static __device__ __forceinline__ void cp_async4(float* dst,
+                                                 const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+static __device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+static __device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// bytes from global src to shared dst (both 16-byte aligned, bytes a
+// multiple of 16), completing on bar
+static __device__ __forceinline__ void bulk_copy(float* dst,
+                                                 const float* src,
+                                                 unsigned bytes,
+                                                 uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// a hint to bring the line holding p into L2
+static __device__ __forceinline__ void prefetch_l2(const float* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" :: "l"(p));
+}
+
+// the one arrival of bar's phase, which then waits for bytes of copies
+static __device__ __forceinline__ void mbar_expect(uint64_t* bar,
+                                                   unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// wait until bar's phase of the given parity has completed
+static __device__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = smem_addr(bar);
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
   }
-  for (int r0 = 0; r0 < R; r0 += SUP_R) {
-    for (int n0 = 0; n0 < Nn; n0 += SUP_N) {
-      float acc[TM][TN];
+}
+
+// The workspace mbarrier sits after the weight stage (STAGE_BYTES).
+static __device__ __forceinline__ uint64_t* mbar_of(float* wst) {
+  return reinterpret_cast<uint64_t*>(wst + STAGE_F);
+}
+
+static __device__ __forceinline__ void mbar_init(uint64_t* mbar) {
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                 :: "r"(smem_addr(mbar)) : "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// Start copying rows [0, R) of a staged layer (R x ld floats, contiguous in
+// the workspace) into dst.  Called by every thread after a barrier that
+// freed dst; thread 0 issues.
+static __device__ __forceinline__ void ws_load(float* dst,
+                                               const float* __restrict__ src,
+                                               int R, int ld,
+                                               uint64_t* mbar) {
+  if (threadIdx.x == 0) {
+    const unsigned bytes = (unsigned)(R * ld * 4);
+    asm volatile("fence.proxy.async;\n" ::: "memory");
+    mbar_expect(mbar, bytes);
+    bulk_copy(dst, src, bytes, mbar);
+  }
+}
+
+// Wait for the last ws_load: every thread watches the mbarrier's phase.
+static __device__ void ws_wait(uint64_t* mbar, unsigned& phase) {
+  mbar_wait(mbar, phase);
+  phase ^= 1u;
+}
+
+// ------------------------------------------------------------------------
+// 3xTF32 on the tensor cores.  Each operand is split as x = hi + lo: hi is
+// x rounded to TF32 (to nearest, ties away from zero: what cvt.rna.tf32.f32
+// gives a finite x, in two integer operations where ptxas expands cvt.rna
+// into four), lo = x - hi exactly, which the tensor core truncates to TF32
+// as it reads it (a NaN stays NaN in lo).  Each k8 step takes lo*hi' +
+// hi*lo' + hi*hi' into a fresh f32 accumulator whose sum is then added to
+// the running one on the CUDA cores (the tensor cores' own accumulation
+// truncates, so one accumulator through all 48 passes of a 128-deep
+// product would drift toward zero): about 2^-20 relative error per product
+// at worst, the counterpart of the JAX package's precision=HIGHEST.
+// Single-pass TF32 is not used.
+//
+// A block tile is up to 128 x 128: the 8 warps as 2 rows x 4 columns, each
+// warp up to WFM m16 by WFN n8 fragments.  mma.m16n8k8.tf32 fragments,
+// lane = 4g + t: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4); b0
+// (t, g), b1 (t+4, g); c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1).
+//
+// A k8 step may take its eight k in any order, as long as A and B take the
+// same one.  The products over a row's columns (forward, dH) give the
+// fragment slots t and t+4 the k 2t and 2t+1, so each lane's pair is one
+// 8-byte load; dW, a sum over the tile's rows, gives them rows t and t+4.
+// With ld = 8 (mod 32) words and the stage strides, every fragment load is
+// free of bank conflicts.
+
+static __device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                                  unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a*b on the tensor cores (not volatile: the compiler may interleave
+// independent products; each accumulator's order is fixed by its data flow)
+static __device__ __forceinline__ void mma_tf32(float* d, const unsigned* a,
+                                                const unsigned* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a*b: a step's first pass, from zero
+static __device__ __forceinline__ void mma_tf32_first(float* d,
+                                                      const unsigned* a,
+                                                      const unsigned* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
+}
+
+// Where a lane finds its fragment elements in the k8 step at k0: a(mf) the
+// four of A fragment mf (rows mf*16 + g and + 8), b(nf) the two of B
+// fragment nf (column nf*8 + g).  The pointers are at the lane's element
+// of the warp's first fragments.
+
+// A: a wavefront buffer at (row g, column 2t), rows of the product
+struct OpRows {
+  const float* A;
+  int ld;
+  __device__ __forceinline__ void a(int mf, int k0, float (&x)[4]) const {
+    const float* p = A + mf * 16 * ld + k0;
+    const float2 u = *reinterpret_cast<const float2*>(p);
+    const float2 v = *reinterpret_cast<const float2*>(p + 8 * ld);
+    x[0] = u.x; x[1] = v.x; x[2] = u.y; x[3] = v.y;
+  }
+};
+
+// the forward H W: B the weight stage by rows (k, n), at (row 2t, column g)
+struct OpFwd : OpRows {
+  const float* B;
+  __device__ OpFwd(const float* A_, int ld_, const float* B_)
+      : OpRows{A_, ld_}, B(B_) {}
+  __device__ __forceinline__ void b(int nf, int k0, float (&y)[2]) const {
+    y[0] = B[k0 * LDB_ROWS + nf * 8];
+    y[1] = B[(k0 + 1) * LDB_ROWS + nf * 8];
+  }
+};
+
+// dH = dP W^T: B the weight stage by columns (n, k), at (row g, column 2t)
+struct OpDh : OpRows {
+  const float* B;
+  __device__ OpDh(const float* A_, int ld_, const float* B_)
+      : OpRows{A_, ld_}, B(B_) {}
+  __device__ __forceinline__ void b(int nf, int k0, float (&y)[2]) const {
+    const float2 u =
+        *reinterpret_cast<const float2*>(B + nf * 8 * LDB_COLS + k0);
+    y[0] = u.x; y[1] = u.y;
+  }
+};
+
+// dW = H^T E over the tile's rows: H and E wavefront buffers, both at
+// (row t, column g)
+struct OpDw {
+  const float* A;
+  const float* B;
+  int ld;
+  __device__ __forceinline__ void a(int mf, int k0, float (&x)[4]) const {
+    const float* p = A + k0 * ld + mf * 16;
+    x[0] = p[0]; x[1] = p[8]; x[2] = p[4 * ld]; x[3] = p[4 * ld + 8];
+  }
+  __device__ __forceinline__ void b(int nf, int k0, float (&y)[2]) const {
+    const float* p = B + k0 * ld + nf * 8;
+    y[0] = p[0]; y[1] = p[4 * ld];
+  }
+};
+
+// The raw fragment elements of k8 step k0: NFM row fragments, WFN column
+// fragments (FULL), or nfm and nfn of them (the others read as zero).
+template <int NFM, bool FULL, class Op>
+static __device__ __forceinline__ void frag_load(const Op& op, int k0,
+                                                 int nfm, int nfn,
+                                                 float (&x)[NFM][4],
+                                                 float (&y)[WFN][2]) {
 #pragma unroll
-      for (int m = 0; m < TM; ++m)
+  for (int mf = 0; mf < NFM; ++mf) {
+    if (FULL || mf < nfm) {
+      op.a(mf, k0, x[mf]);
+    } else {
 #pragma unroll
-        for (int n = 0; n < TN; ++n) acc[m][n] = 0.f;
-      for (int k0 = 0; k0 < K; k0 += KT) {
-        __syncthreads();
-        for (int e = tid; e < KT * SUP_N; e += NTHREADS) {
-          // keep consecutive threads on consecutive global addresses
-          int kk, nn;
-          if (sbn == 1) { kk = e / SUP_N; nn = e % SUP_N; }
-          else { kk = e % KT; nn = e / KT; }
-          int k = k0 + kk, n = n0 + nn;
-          Bs[kk * BS_LD + nn] = (k < K && n < Nn)
-              ? B[(size_t)k * sbk + (size_t)n * sbn] : 0.f;
-        }
-        __syncthreads();
-        const int kmax = min(KT, K - k0);
-        for (int kk = 0; kk < kmax; ++kk) {
-          float a[TM], b[TN];
+      for (int q = 0; q < 4; ++q) x[mf][q] = 0.f;
+    }
+  }
 #pragma unroll
-          for (int m = 0; m < TM; ++m) {
-            int r = r0 + ty + 16 * m;
-            a[m] = (r < R) ? A[r * lda + k0 + kk] : 0.f;
+  for (int nf = 0; nf < WFN; ++nf) {
+    if (FULL || nf < nfn) {
+      op.b(nf, k0, y[nf]);
+    } else {
+      y[nf][0] = 0.f;
+      y[nf][1] = 0.f;
+    }
+  }
+}
+
+// acc += the product over `steps` k8 steps of the warp's NFM x WFN
+// fragments (FULL), or of its nfm x nfn (a ragged edge: the others load
+// zeros and are never stored).  The next step's elements are loaded while
+// this step's passes run.  The passes run pass by pass across all the
+// warp's fragments: NFM*WFN independent products between dependent ones.
+// (Holding two steps' sums, so that a step's sum is added behind the next
+// step's passes, is faster alone but spills inside K2/K3's body.)
+template <int NFM, bool FULL, class Op>
+static __device__ __forceinline__ void mma_steps(float (&acc)[WFM][WFN][4],
+                                                 const Op& op, int steps,
+                                                 int nfm, int nfn) {
+  float x[NFM][4], y[WFN][2];
+  frag_load<NFM, FULL>(op, 0, nfm, nfn, x, y);
+#pragma unroll 1
+  for (int s = 0; s < steps; ++s) {
+    unsigned ah[NFM][4], al[NFM][4], bh[WFN][2], bl[WFN][2];
+#pragma unroll
+    for (int mf = 0; mf < NFM; ++mf)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) split_tf32(x[mf][q], ah[mf][q], al[mf][q]);
+#pragma unroll
+    for (int nf = 0; nf < WFN; ++nf) {
+      split_tf32(y[nf][0], bh[nf][0], bl[nf][0]);
+      split_tf32(y[nf][1], bh[nf][1], bl[nf][1]);
+    }
+    if (s + 1 < steps) frag_load<NFM, FULL>(op, 8 * (s + 1), nfm, nfn, x, y);
+    float st[NFM][WFN][4];
+#pragma unroll
+    for (int mf = 0; mf < NFM; ++mf)
+#pragma unroll
+      for (int nf = 0; nf < WFN; ++nf)
+        mma_tf32_first(st[mf][nf], al[mf], bh[nf]);
+#pragma unroll
+    for (int mf = 0; mf < NFM; ++mf)
+#pragma unroll
+      for (int nf = 0; nf < WFN; ++nf) mma_tf32(st[mf][nf], ah[mf], bl[nf]);
+#pragma unroll
+    for (int mf = 0; mf < NFM; ++mf)
+#pragma unroll
+      for (int nf = 0; nf < WFN; ++nf) mma_tf32(st[mf][nf], ah[mf], bh[nf]);
+#pragma unroll
+    for (int mf = 0; mf < NFM; ++mf)
+#pragma unroll
+      for (int nf = 0; nf < WFN; ++nf)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mf][nf][q] += st[mf][nf][q];
+  }
+}
+
+// The warp's fragments as the tile gives them: whole 4 x 4 or 3 x 4 (the
+// slice's 128- and 96-row tiles) take a loop with no guards.
+template <class Op>
+static __device__ __forceinline__ void mma_run(float (&acc)[WFM][WFN][4],
+                                               const Op& op, int steps,
+                                               int nfm, int nfn) {
+  if (nfn == WFN && nfm == 4) mma_steps<4, true>(acc, op, steps, nfm, nfn);
+  else if (nfn == WFN && nfm == 3) mma_steps<3, true>(acc, op, steps, nfm, nfn);
+  else mma_steps<WFM, false>(acc, op, steps, nfm, nfn);
+}
+
+static __device__ __forceinline__ int clamp_frags(int v) {
+  return v < 0 ? 0 : (v > WFM ? WFM : v);  // WFM == WFN
+}
+
+static __device__ __forceinline__ void zero_acc(float (&acc)[WFM][WFN][4]) {
+#pragma unroll
+  for (int mf = 0; mf < WFM; ++mf)
+#pragma unroll
+    for (int nf = 0; nf < WFN; ++nf)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mf][nf][q] = 0.f;
+}
+
+// Stage rows k0 .. k0+KT-1 of B(k, n), n0 <= n < n0+BLK_N, into dst, zero
+// past K or Nn:  rows (COLS false): B(k, n) = W[k*Nn + n], dst[k][n];
+// columns (COLS true): B(k, n) = W[n*K + k], dst[n][k].
+template <bool COLS>
+static __device__ __forceinline__ void stage_load(const float* __restrict__ W,
+                                                 int K, int Nn, int k0,
+                                                 int n0, float* dst) {
+  const int seg = COLS ? K : Nn;  // length of W's rows
+  const bool vec = (seg % 4 == 0) &&
+                   (reinterpret_cast<uintptr_t>(W) % 16 == 0);
+  if (vec) {
+    for (int e = threadIdx.x; e < KT * BLK_N / 4; e += NTHREADS) {
+      int kk, nn;
+      if (COLS) { nn = e / (KT / 4); kk = 4 * (e % (KT / 4)); }
+      else { kk = e / (BLK_N / 4); nn = 4 * (e % (BLK_N / 4)); }
+      const int k = k0 + kk, n = n0 + nn;
+      float* d = COLS ? dst + nn * LDB_COLS + kk : dst + kk * LDB_ROWS + nn;
+      if (k < K && n < Nn)
+        cp_async16(d, COLS ? W + (size_t)n * K + k : W + (size_t)k * Nn + n);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int e = threadIdx.x; e < KT * BLK_N; e += NTHREADS) {
+      int kk, nn;
+      if (COLS) { nn = e / KT; kk = e % KT; }
+      else { kk = e / BLK_N; nn = e % BLK_N; }
+      const int k = k0 + kk, n = n0 + nn;
+      float* d = COLS ? dst + nn * LDB_COLS + kk : dst + kk * LDB_ROWS + nn;
+      if (k < K && n < Nn)
+        cp_async4(d, COLS ? W + (size_t)n * K + k : W + (size_t)k * Nn + n);
+      else
+        *d = 0.f;
+    }
+  }
+}
+
+// out[r][n] = sum_{k<K} A[r][k] * B(k, n) (+ bias[n] on primal rows r % C
+// == 0), r < R, n < Nn, with B(k, n) from W as stage_load<COLS> reads it.
+// A and out are wavefront buffers (stride ld).  W comes through the weight
+// stage in chunks of KT rows: one chunk for a layer at most 128 wide, which
+// the caller issues ahead (issued: chunk 0 of the first column tile is
+// already in flight, from before the pass that precedes the product), so
+// the warps wait on no copy and pass two barriers.  A wider layer's later
+// chunks are each loaded and waited for (a two-slot ring of 64-row chunks,
+// one barrier per chunk, ran slower on the 128-wide layers; PERF.md).  A's
+// columns K .. pad8(K)-1, which the last k8 step reads against the stage's
+// zero rows, are zeroed first, whatever the buffer held there (a staged
+// slice's pad, a wider layer's values).  The tile's row fragments split
+// between the two warp rows as evenly as they go.
+template <bool COLS>
+static __device__ __forceinline__ void mma_w(float* A, int ld, int R, int K,
+                                             const float* __restrict__ W,
+                                             int Nn,
+                                             const float* __restrict__ bias,
+                                             int C, float* out, float* wst,
+                                             bool issued) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mtot = pad16(R) / 16, mhalf = (mtot + 1) / 2;
+  const int wm0 = (warp & 1) ? mhalf * 16 : 0;
+  const int nfm = (warp & 1) ? mtot - mhalf : mhalf;
+  const int wn0 = (warp >> 1) * (WFN * 8);
+  const int nK = (K + KT - 1) / KT;
+  if (K % 8) {  // seen by every warp after the first chunk's barrier
+    const int np = 8 - K % 8;
+    for (int e = threadIdx.x; e < R * np; e += NTHREADS)
+      A[(e / np) * ld + K + e % np] = 0.f;
+  }
+  for (int n0 = 0; n0 < Nn; n0 += BLK_N) {
+    const int nfn = clamp_frags((Nn - n0 - wn0 + 7) / 8);
+    float acc[WFM][WFN][4];
+    zero_acc(acc);
+    for (int c = 0; c < nK; ++c) {
+      if (c > 0 || n0 > 0 || !issued) {
+        stage_load<COLS>(W, K, Nn, c * KT, n0, wst);
+        cp_async_commit();
+      }
+      cp_async_wait_all();
+      __syncthreads();  // the chunk landed for every warp
+      const int steps = (min(KT, K - c * KT) + 7) / 8;
+      if (nfm > 0 && nfn > 0) {
+        const float* Ap = A + (wm0 + g) * ld + c * KT + 2 * t;
+        if constexpr (COLS)
+          mma_run(acc, OpDh(Ap, ld, wst + (wn0 + g) * LDB_COLS + 2 * t),
+                  steps, nfm, nfn);
+        else
+          mma_run(acc, OpFwd(Ap, ld, wst + 2 * t * LDB_ROWS + wn0 + g),
+                  steps, nfm, nfn);
+      }
+      if (c + 1 < nK || n0 + BLK_N < Nn)
+        __syncthreads();  // every warp is done with the stage
+    }
+    // (c0, c1) and (c2, c3) are column pairs of rows g and g + 8: one
+    // 8-byte store each
+#pragma unroll
+    for (int mf = 0; mf < WFM; ++mf) {
+      if (mf >= nfm) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm0 + mf * 16 + g + 8 * h;
+        if (r >= R) continue;
+        const bool prim = bias != nullptr && r % C == 0;
+#pragma unroll
+        for (int nf = 0; nf < WFN; ++nf) {
+          const int n = n0 + wn0 + nf * 8 + 2 * t;
+          if (nf >= nfn || n >= Nn) continue;
+          float v0 = acc[mf][nf][2 * h], v1 = acc[mf][nf][2 * h + 1];
+          if (n + 1 < Nn) {
+            if (prim) { v0 += bias[n]; v1 += bias[n + 1]; }
+            *reinterpret_cast<float2*>(out + r * ld + n) = make_float2(v0, v1);
+          } else {
+            if (prim) v0 += bias[n];
+            out[r * ld + n] = v0;
           }
-#pragma unroll
-          for (int n = 0; n < TN; ++n) b[n] = Bs[kk * BS_LD + tx + 16 * n];
-#pragma unroll
-          for (int m = 0; m < TM; ++m)
-#pragma unroll
-            for (int n = 0; n < TN; ++n) acc[m][n] = fmaf(a[m], b[n], acc[m][n]);
         }
       }
-#pragma unroll
-      for (int m = 0; m < TM; ++m) {
-        int r = r0 + ty + 16 * m;
-        if (r >= R) continue;
-#pragma unroll
-        for (int n = 0; n < TN; ++n) {
-          int nn = n0 + tx + 16 * n;
-          if (nn >= Nn) continue;
-          float v = acc[m][n];
-          if (bias != nullptr && r % C == 0) v += bias[nn];
-          out[r * ldo + nn] = v;
+    }
+  }
+  __syncthreads();  // out complete; the stage is free again
+}
+
+// The two weight products that go through mma_w (named apart so a
+// profile can tell them apart): the forward H W (+ bias), and dH = dP W^T.
+static __device__ void mma_w_rows(float* A, int ld, int R, int K,
+                                  const float* __restrict__ W, int Nn,
+                                  const float* __restrict__ bias, int C,
+                                  float* out, float* wst, bool issued) {
+  mma_w<false>(A, ld, R, K, W, Nn, bias, C, out, wst, issued);
+}
+
+static __device__ void mma_w_cols(float* dP, int ld, int R, int K,
+                                  const float* __restrict__ W, int Ni,
+                                  float* out, float* wst, bool issued) {
+  mma_w<true>(dP, ld, R, K, W, Ni, nullptr, 1, out, wst, issued);
+}
+
+// part[i*Nn + n] (+)= sum_{r<R} H[r][i] * E[r][n], i < Ni, n < Nn: the
+// weight cotangent of one tile, both operands wavefront buffers (the pad
+// rows R..pad16(R)-1 are zero), into the block's global partial slot
+// (assigned on the block's first tile, else added to).
+static __device__ void mma_dw(const float* H, const float* E, int ld, int R,
+                              int Ni, int Nn, float* __restrict__ part,
+                              bool first) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm0 = (warp & 1) * (WFM * 16), wn0 = (warp >> 1) * (WFN * 8);
+  const int steps = pad16(R) / 8;
+  const bool pair = Nn % 2 == 0 && reinterpret_cast<uintptr_t>(part) % 8 == 0;
+  for (int i0 = 0; i0 < Ni; i0 += BLK_M) {
+    const int nfm = clamp_frags((Ni - i0 - wm0 + 15) / 16);
+    for (int n0 = 0; n0 < Nn; n0 += BLK_N) {
+      const int nfn = clamp_frags((Nn - n0 - wn0 + 7) / 8);
+      if (nfm == 0 || nfn == 0) continue;
+      // the slot's old values of the warp's 64 x 32 block: into L2 while
+      // the k8 steps run (a hint; the slots and the workspace overflow L2)
+      if (!first) {
+        for (int rr = lane; rr < WFM * 16; rr += 32) {
+          const int i = i0 + wm0 + rr;
+          if (i >= Ni) break;
+          const float* row = part + (size_t)i * Nn;
+          prefetch_l2(row + n0 + wn0);
+          prefetch_l2(row + min(n0 + wn0 + WFN * 8, Nn) - 1);
         }
+      }
+      float acc[WFM][WFN][4];
+      zero_acc(acc);
+      mma_run(acc, OpDw{H + t * ld + i0 + wm0 + g, E + t * ld + n0 + wn0 + g,
+                        ld},
+              steps, nfm, nfn);
+      // into the slot, an m16 row of fragments at a time: its eight old
+      // column pairs (c0,c1 and c2,c3) read together before any is added
+      // (one round trip each; where the warp's block lies whole inside the
+      // slot, with no guard between the loads), then the sums stored
+      const bool whole = pair && nfm == WFM && nfn == WFN &&
+                         i0 + wm0 + WFM * 16 <= Ni && n0 + wn0 + WFN * 8 <= Nn;
+#pragma unroll
+      for (int mf = 0; mf < WFM; ++mf) {
+        if (mf >= nfm) continue;
+        float2 old[WFN][2];
+#pragma unroll
+        for (int nf = 0; nf < WFN; ++nf)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = i0 + wm0 + mf * 16 + g + 8 * h;
+            const int n = n0 + wn0 + nf * 8 + 2 * t;
+            const float* src = part + (size_t)i * Nn + n;
+            old[nf][h] = make_float2(0.f, 0.f);
+            if (first) continue;
+            if (whole)
+              old[nf][h] = *reinterpret_cast<const float2*>(src);
+            else if (nf < nfn && i < Ni && n < Nn)
+              old[nf][h] = pair ? *reinterpret_cast<const float2*>(src)
+                                : make_float2(src[0],
+                                              n + 1 < Nn ? src[1] : 0.f);
+          }
+#pragma unroll
+        for (int nf = 0; nf < WFN; ++nf)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = i0 + wm0 + mf * 16 + g + 8 * h;
+            const int n = n0 + wn0 + nf * 8 + 2 * t;
+            if (!whole && !(nf < nfn && i < Ni && n < Nn)) continue;
+            float* dst = part + (size_t)i * Nn + n;
+            const float2 v =
+                make_float2(old[nf][h].x + acc[mf][nf][2 * h],
+                            old[nf][h].y + acc[mf][nf][2 * h + 1]);
+            if (pair) {
+              *reinterpret_cast<float2*>(dst) = v;
+            } else {
+              dst[0] = v.x;
+              if (n + 1 < Nn) dst[1] = v.y;
+            }
+          }
       }
     }
   }
   __syncthreads();
 }
 
-// part[i*Nn + n] (+)= sum_r A[r][i] * E[r][n]  for i < Ni, n < Nn, r < R
-// (A and E in shared memory; part is this block's global partial slot).
-static __device__ void mm_tn_accum(const float* A, int lda, int Ni,
-                                   const float* E, int lde, int Nn, int R,
-                                   float* __restrict__ part, bool first) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  if (Nn <= NARROW_N) {
-    for (int e = tid; e < Ni * Nn; e += NTHREADS) {
-      const int i = e / Nn, n = e % Nn;
-      float acc = 0.f;
-      for (int r = 0; r < R; ++r)
-        acc = fmaf(A[r * lda + i], E[r * lde + n], acc);
-      float* dst = part + (size_t)i * Nn + n;
-      *dst = first ? acc : *dst + acc;
-    }
-    __syncthreads();
-    return;
-  }
-  for (int i0 = 0; i0 < Ni; i0 += SUP_R) {
-    for (int n0 = 0; n0 < Nn; n0 += SUP_N) {
-      float acc[TM][TN];
-#pragma unroll
-      for (int m = 0; m < TM; ++m)
-#pragma unroll
-        for (int n = 0; n < TN; ++n) acc[m][n] = 0.f;
-      for (int r = 0; r < R; ++r) {
-        float a[TM], b[TN];
-#pragma unroll
-        for (int m = 0; m < TM; ++m) {
-          int i = i0 + ty + 16 * m;
-          a[m] = (i < Ni) ? A[r * lda + i] : 0.f;
-        }
-#pragma unroll
-        for (int n = 0; n < TN; ++n) {
-          int nn = n0 + tx + 16 * n;
-          b[n] = (nn < Nn) ? E[r * lde + nn] : 0.f;
-        }
-#pragma unroll
-        for (int m = 0; m < TM; ++m)
-#pragma unroll
-          for (int n = 0; n < TN; ++n) acc[m][n] = fmaf(a[m], b[n], acc[m][n]);
-      }
-#pragma unroll
-      for (int m = 0; m < TM; ++m) {
-        int i = i0 + ty + 16 * m;
-        if (i >= Ni) continue;
-#pragma unroll
-        for (int n = 0; n < TN; ++n) {
-          int nn = n0 + tx + 16 * n;
-          if (nn >= Nn) continue;
-          float* dst = part + (size_t)i * Nn + nn;
-          *dst = first ? acc[m][n] : *dst + acc[m][n];
-        }
-      }
-    }
+// ------------------------------------------------------------------------
+// The SIMT loops for narrow products (the head), one thread per output
+// element, each summing k in order.
+
+// Copy n floats from global src into shared dst, every thread a share (the
+// caller's barrier makes them every warp's).
+static __device__ __forceinline__ void to_shared(float* dst,
+                                                 const float* __restrict__ src,
+                                                 int n) {
+  for (int e = threadIdx.x; e < n; e += NTHREADS) dst[e] = src[e];
+}
+
+// out[r][n] = sum_k A[r][k] * W[k*Nn + n] (+ bias[n] on primal rows); W
+// and the bias are read from shared scratch (the weight stage), where one
+// pass of loads puts them, not each from global memory in the sums.
+static __device__ void narrow_fwd(const float* A, int ld, int R, int K,
+                                  const float* __restrict__ W, int Nn,
+                                  const float* __restrict__ bias, int C,
+                                  float* out, float* scratch) {
+  float* sW = scratch;
+  float* sb = scratch + K * Nn;
+  to_shared(sW, W, K * Nn);
+  if (bias != nullptr) to_shared(sb, bias, Nn);
+  __syncthreads();
+  for (int e = threadIdx.x; e < R * Nn; e += NTHREADS) {
+    const int r = e / Nn, n = e % Nn;
+    float acc = 0.f;
+    for (int k = 0; k < K; ++k)
+      acc = fmaf(A[r * ld + k], sW[k * Nn + n], acc);
+    if (bias != nullptr && r % C == 0) acc += sb[n];
+    out[r * ld + n] = acc;
   }
   __syncthreads();
+}
+
+// out[r][i] = sum_{n<K} dP[r][n] * W[i*K + n]  (dH through a narrow layer;
+// W from shared scratch)
+static __device__ void narrow_dh(const float* dP, int ld, int R, int K,
+                                 const float* __restrict__ W, int Ni,
+                                 float* out, float* scratch) {
+  to_shared(scratch, W, Ni * K);
+  __syncthreads();
+  for (int e = threadIdx.x; e < R * Ni; e += NTHREADS) {
+    const int r = e / Ni, i = e % Ni;
+    float acc = 0.f;
+    for (int n = 0; n < K; ++n)
+      acc = fmaf(dP[r * ld + n], scratch[i * K + n], acc);
+    out[r * ld + i] = acc;
+  }
+  __syncthreads();
+}
+
+// part[i*Nn + n] (+)= sum_r A[r][i] * E[r][n]  (dW of a narrow layer)
+static __device__ void narrow_dw(const float* A, int ld, int Ni,
+                                 const float* E, int Nn, int R,
+                                 float* __restrict__ part, bool first) {
+  for (int e = threadIdx.x; e < Ni * Nn; e += NTHREADS) {
+    const int i = e / Nn, n = e % Nn;
+    float acc = 0.f;
+    for (int r = 0; r < R; ++r)
+      acc = fmaf(A[r * ld + i], E[r * ld + n], acc);
+    float* dst = part + (size_t)i * Nn + n;
+    *dst = first ? acc : *dst + acc;
+  }
+  __syncthreads();
+}
+
+// ------------------------------------------------------------------------
+// The products as the sweeps call them: the tensor cores, or the SIMT loop
+// for a narrow shape.
+
+// Issue chunk 0 of a forward product (W [K][Nn]) into the weight stage ahead
+// of it; returns whether it did (not for a narrow product).
+static __device__ __forceinline__ bool prefetch_fwd(
+    const float* __restrict__ W, int K, int Nn, float* wst) {
+  if (Nn <= NARROW_N) return false;
+  stage_load<false>(W, K, Nn, 0, 0, wst);
+  cp_async_commit();
+  return true;
+}
+
+// The same for dH = dP W^T (W [Ni][K]).
+static __device__ __forceinline__ bool prefetch_dh(
+    const float* __restrict__ W, int K, int Ni, float* wst) {
+  if (K <= NARROW_N) return false;
+  stage_load<true>(W, K, Ni, 0, 0, wst);
+  cp_async_commit();
+  return true;
+}
+
+static __device__ __forceinline__ void product_fwd(
+    float* A, int ld, int R, int K, const float* __restrict__ W, int Nn,
+    const float* __restrict__ bias, int C, float* out, float* wst,
+    bool issued) {
+  if (Nn <= NARROW_N) narrow_fwd(A, ld, R, K, W, Nn, bias, C, out, wst);
+  else mma_w_rows(A, ld, R, K, W, Nn, bias, C, out, wst, issued);
+}
+
+static __device__ __forceinline__ void product_dh(
+    float* dP, int ld, int R, int K, const float* __restrict__ W,
+    int Ni, float* out, float* wst, bool issued) {
+  if (K <= NARROW_N) narrow_dh(dP, ld, R, K, W, Ni, out, wst);
+  else mma_w_cols(dP, ld, R, K, W, Ni, out, wst, issued);
+}
+
+static __device__ __forceinline__ void product_dw(
+    const float* H, const float* E, int ld, int R, int Ni, int Nn,
+    float* __restrict__ part, bool first) {
+  if (Nn <= NARROW_N) narrow_dw(H, ld, Ni, E, Nn, R, part, first);
+  else mma_dw(H, E, ld, R, Ni, Nn, part, first);
 }
 
 // part[j] (+)= sum_p G[p*C][j]: the bias sees only the primal channel.
@@ -186,34 +720,50 @@ static __device__ void bias_accum(const float* G, int ld, int w, int TP,
   __syncthreads();
 }
 
+// Zero the wavefront buffers once per block: the pad rows, which the
+// products over rows (dW) read, stay zero.
+static __device__ void zero_buffers(float* sm, int n) {
+  float4* p = reinterpret_cast<float4*>(sm);
+  for (int e = threadIdx.x; e < n / 4; e += NTHREADS)
+    p[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+}
+
 // Layer 0's pre-activation channels: the primal is X @ W0 + b0; a
 // first-order channel along direction k is its seed e_k @ W0 = W0[k][:];
-// higher orders start at zero.
+// higher orders start at zero.  W0, b0 and the tile's rows of X (zero past
+// N) are read from shared scratch (the weight stage, free here; the
+// kernels' C interface checks they fit).
 static __device__ void layer0_fwd(const float* __restrict__ X,
                                   const float* __restrict__ prm, int N,
                                   int p0, int TP, const Net& net,
-                                  const Sched& s, float* out) {
-  const int C = s.C, d = net.d, w = net.w_out[0], R = TP * C;
-  const float* W0 = prm + net.offW[0];
-  const float* b0 = prm + net.offb[0];
-  for (int e = threadIdx.x; e < R * w; e += NTHREADS) {
-    int r = e / w, j = e % w, p = r / C, c = r % C, gp = p0 + p;
-    float v;
-    if (c == 0) {
-      float acc = 0.f;
-      for (int k = 0; k < d; ++k) {
-        float x = (gp < N) ? X[(size_t)gp * d + k] : 0.f;
-        acc = fmaf(x, W0[k * w + j], acc);
-      }
-      v = acc + b0[j];
-    } else if (s.order[c] == 1) {
-      v = W0[s.idx[c][0] * w + j];
-    } else {
-      v = 0.f;
-    }
-    out[r * net.ld + j] = v;
+                                  const Sched& s, float* out, float* scratch) {
+  const int C = s.C, d = net.d, w = net.w_out[0], ld = net.ld;
+  float* sW = scratch;
+  float* sb = sW + d * w;
+  float* sx = sb + w;
+  to_shared(sW, prm + net.offW[0], d * w);
+  to_shared(sb, prm + net.offb[0], w);
+  for (int e = threadIdx.x; e < TP * d; e += NTHREADS)
+    sx[e] = (p0 + e / d < N) ? X[(size_t)p0 * d + e] : 0.f;
+  __syncthreads();
+  for (int e = threadIdx.x; e < TP * w; e += NTHREADS) {
+    const int p = e / w, j = e % w;
+    float* col = out + (p * C) * ld + j;
+    float acc = 0.f;
+    for (int k = 0; k < d; ++k) acc = fmaf(sx[p * d + k], sW[k * w + j], acc);
+    col[0] = acc + sb[j];
+    for (int c = 1; c < C; ++c)
+      col[c * ld] = (s.order[c] == 1) ? sW[s.idx[c][0] * w + j] : 0.f;
   }
   __syncthreads();
+}
+
+// Whether layer 0's operands fit the scratch that layer0_fwd and
+// layer0_bwd take them into: W0, b0 and TP rows of X.
+static __host__ __device__ __forceinline__ bool layer0_fits(int d, int w,
+                                                           int TP) {
+  return d * w + w + TP * d <= STAGE_F;
 }
 
 struct TanhChain {
@@ -230,158 +780,308 @@ static __device__ __forceinline__ TanhChain tanh_chain(float u) {
   return t;
 }
 
-// Pre-activation channels -> post-activation channels, in place.  Thread
-// (p, j) owns column j of point p across all channels; channels run from
-// the highest order down, because each reads only lower-order channels.
-static __device__ void act_fwd(float* buf, int ld, int TP, int w,
-                               const Sched& s) {
-  const int C = s.C;
-  for (int e = threadIdx.x; e < TP * w; e += NTHREADS) {
-    int p = e / w, j = e % w;
-    float* col = buf + (p * C) * ld + j;
-    const TanhChain t = tanh_chain(col[0]);
-    for (int c = C - 1; c >= 1; --c) {
-      const int* ix = s.idx[c];
+// Channel c's post-activation value at one (point, column), by its Faa di
+// Bruno line over the pre-activation channels col[c' * ld] (c' <= c).
+static __device__ __forceinline__ float fdb_line(const float* col, int ld,
+                                                 const TanhChain& t, int order,
+                                                 const int* ix, float Pc) {
+  switch (order) {
+    case 1:
+      return t.d1 * Pc;
+    case 2:
+      return t.d1 * Pc + t.d2 * col[ix[0] * ld] * col[ix[1] * ld];
+    case 3: {
+      const float qi = col[ix[0] * ld], qj = col[ix[1] * ld],
+                  qk = col[ix[2] * ld], rij = col[ix[3] * ld],
+                  rik = col[ix[4] * ld], rjk = col[ix[5] * ld];
+      return t.d3 * qi * qj * qk + t.d2 * (rij * qk + rik * qj + rjk * qi)
+             + t.d1 * Pc;
+    }
+    default: {  // 4: unmixed along k
+      const float q = col[ix[0] * ld], r = col[ix[1] * ld],
+                  v = col[ix[2] * ld];
+      return t.d1 * Pc + 4.f * t.d2 * v * q + 3.f * t.d2 * r * r
+             + 6.f * t.d3 * r * q * q + t.d4 * q * q * q * q;
+    }
+  }
+}
+
+// act_fwd on NI (point, column) items at buffer offsets base[]: their
+// tanh chains and lines are independent, so a thread keeps NI in flight.
+// Channels run from the highest order down (each reads only lower-order
+// channels, so in place is safe); all items' lines of a channel are
+// computed before any is stored.
+template <int NI>
+static __device__ __forceinline__ void act_fwd_items(
+    float* buf, int ld, const Sched& s, float* __restrict__ stage,
+    float* __restrict__ stage_h, const int* base) {
+  TanhChain t[NI];
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    const float u = buf[base[i]];
+    if (stage != nullptr) __stcs(stage + base[i], u);
+    t[i] = tanh_chain(u);
+  }
+  for (int c = s.C - 1; c >= 1; --c) {
+    float h[NI];
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const float* col = buf + base[i];
       const float Pc = col[c * ld];
-      float h;
-      switch (s.order[c]) {
+      if (stage != nullptr) __stcs(stage + base[i] + c * ld, Pc);
+      h[i] = fdb_line(col, ld, t[i], s.order[c], s.idx[c], Pc);
+    }
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      buf[base[i] + c * ld] = h[i];
+      if (stage_h != nullptr) __stcs(stage_h + base[i] + c * ld, h[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    buf[base[i]] = t[i].z;
+    if (stage_h != nullptr) __stcs(stage_h + base[i], t[i].z);
+  }
+}
+
+// The pointwise passes take ITEMS items per thread at a time: with one
+// block of 8 warps per SM, the independent tanh chains and lines of
+// several items are what hides the latency of each.
+#define ITEMS 4
+
+// Buffer offset of item e of a pass over TP points x w columns: column
+// e % w of point e / w, channel 0.
+static __device__ __forceinline__ int item_base(int e, int w, int C, int ld) {
+  return (e / w) * C * ld + e % w;
+}
+
+// Pre-activation channels -> post-activation channels, in place.  Item
+// (p, j) is column j of point p across all channels.  stage != nullptr:
+// each pre-activation value is also written there, at its buffer offset,
+// and stage_h != nullptr: each post-activation value (K2/K3's workspace;
+// consecutive threads write consecutive columns, 128 bytes per warp store,
+// marked to stream through L2 so the partial slots stay there).
+static __device__ void act_fwd(float* buf, int ld, int TP, int w,
+                               const Sched& s, float* __restrict__ stage,
+                               float* __restrict__ stage_h) {
+  const int C = s.C, n = TP * w;
+  int e = threadIdx.x;
+  for (; e + (ITEMS - 1) * NTHREADS < n; e += ITEMS * NTHREADS) {
+    int base[ITEMS];
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i)
+      base[i] = item_base(e + i * NTHREADS, w, C, ld);
+    act_fwd_items<ITEMS>(buf, ld, s, stage, stage_h, base);
+  }
+  for (; e < n; e += NTHREADS) {
+    const int base[1] = {item_base(e, w, C, ld)};
+    act_fwd_items<1>(buf, ld, s, stage, stage_h, base);
+  }
+  // the staged values are read back by the async proxy (ws_load)
+  if (stage != nullptr) asm volatile("fence.proxy.async;\n" ::: "memory");
+  __syncthreads();
+}
+
+// The cotangents of an item's z and chain d1..d4.
+struct ChainGrad {
+  float z, d1, d2, d3, d4;
+};
+
+// act_vjp on NI items at buffer offsets base[] (see act_fwd_items).
+template <int NI>
+static __device__ __forceinline__ void act_vjp_items(
+    const float* P, const float* dH, float* dG, int ld, const Sched& s,
+    const int* base) {
+  const int C = s.C;
+  TanhChain t[NI];
+  ChainGrad gt[NI];
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    t[i] = tanh_chain(P[base[i]]);
+    gt[i] = ChainGrad{dH[base[i]], 0.f, 0.f, 0.f, 0.f};
+    for (int c = 0; c < C; ++c) dG[base[i] + c * ld] = 0.f;
+  }
+  for (int c = 1; c < C; ++c) {
+    const int* ix = s.idx[c];
+    const int order = s.order[c];
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const float* col = P + base[i];
+      float* gc = dG + base[i];
+      const float g = dH[base[i] + c * ld], Pc = col[c * ld];
+      gt[i].d1 += g * Pc;
+      gc[c * ld] += g * t[i].d1;
+      switch (order) {
         case 1:
-          h = t.d1 * Pc;
           break;
-        case 2:
-          h = t.d1 * Pc + t.d2 * col[ix[0] * ld] * col[ix[1] * ld];
+        case 2: {
+          const float a = col[ix[0] * ld], b = col[ix[1] * ld];
+          gt[i].d2 += g * a * b;
+          gc[ix[0] * ld] += g * t[i].d2 * b;
+          gc[ix[1] * ld] += g * t[i].d2 * a;
           break;
+        }
         case 3: {
           const float qi = col[ix[0] * ld], qj = col[ix[1] * ld],
                       qk = col[ix[2] * ld], rij = col[ix[3] * ld],
                       rik = col[ix[4] * ld], rjk = col[ix[5] * ld];
-          h = t.d3 * qi * qj * qk + t.d2 * (rij * qk + rik * qj + rjk * qi)
-              + t.d1 * Pc;
+          gt[i].d3 += g * qi * qj * qk;
+          gt[i].d2 += g * (rij * qk + rik * qj + rjk * qi);
+          gc[ix[0] * ld] += g * (t[i].d3 * qj * qk + t[i].d2 * rjk);
+          gc[ix[1] * ld] += g * (t[i].d3 * qi * qk + t[i].d2 * rik);
+          gc[ix[2] * ld] += g * (t[i].d3 * qi * qj + t[i].d2 * rij);
+          gc[ix[3] * ld] += g * t[i].d2 * qk;
+          gc[ix[4] * ld] += g * t[i].d2 * qj;
+          gc[ix[5] * ld] += g * t[i].d2 * qi;
           break;
         }
-        default: {  // 4: unmixed along k
+        default: {  // 4
           const float q = col[ix[0] * ld], r = col[ix[1] * ld],
                       v = col[ix[2] * ld];
-          h = t.d1 * Pc + 4.f * t.d2 * v * q + 3.f * t.d2 * r * r
-              + 6.f * t.d3 * r * q * q + t.d4 * q * q * q * q;
+          gt[i].d2 += g * (4.f * v * q + 3.f * r * r);
+          gt[i].d3 += g * 6.f * r * q * q;
+          gt[i].d4 += g * q * q * q * q;
+          gc[ix[0] * ld] += g * (4.f * t[i].d2 * v + 12.f * t[i].d3 * r * q
+                                 + 4.f * t[i].d4 * q * q * q);
+          gc[ix[1] * ld] += g * (6.f * t[i].d2 * r + 6.f * t[i].d3 * q * q);
+          gc[ix[2] * ld] += g * 4.f * t[i].d2 * q;
           break;
         }
       }
-      col[c * ld] = h;
     }
-    col[0] = t.z;
   }
-  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    // d z/du = d1 and d(d_k)/du = d_{k+1}; d5 = d1 (16 - 120 z^2 + 120 z^4)
+    const TanhChain& ti = t[i];
+    const float z2 = ti.z * ti.z;
+    const float d5 = ti.d1 * (16.f - z2 * (120.f - 120.f * z2));
+    dG[base[i]] += gt[i].z * ti.d1 + gt[i].d1 * ti.d2 + gt[i].d2 * ti.d3
+                   + gt[i].d3 * ti.d4 + gt[i].d4 * d5;
+  }
 }
 
 // The transpose of act_fwd: cotangents dH of the post-activation channels
 // -> cotangents dG of the pre-activation channels P (all [TP*C][ld]).
 static __device__ void act_vjp(const float* P, const float* dH, float* dG,
                                int ld, int TP, int w, const Sched& s) {
-  const int C = s.C;
-  for (int e = threadIdx.x; e < TP * w; e += NTHREADS) {
-    int p = e / w, j = e % w;
-    const int base = (p * C) * ld + j;
-    const float* col = P + base;
-    const float* hc = dH + base;
-    float* gc = dG + base;
-    const TanhChain t = tanh_chain(col[0]);
-    for (int c = 0; c < C; ++c) gc[c * ld] = 0.f;
-    // cotangents of z and of the chain d1..d4 (all functions of u = P[0])
-    float gz = hc[0], gd1 = 0.f, gd2 = 0.f, gd3 = 0.f, gd4 = 0.f;
-    for (int c = 1; c < C; ++c) {
-      const int* ix = s.idx[c];
-      const float g = hc[c * ld], Pc = col[c * ld];
-      gd1 += g * Pc;
-      gc[c * ld] += g * t.d1;
-      switch (s.order[c]) {
-        case 1:
-          break;
-        case 2: {
-          const float a = col[ix[0] * ld], b = col[ix[1] * ld];
-          gd2 += g * a * b;
-          gc[ix[0] * ld] += g * t.d2 * b;
-          gc[ix[1] * ld] += g * t.d2 * a;
-          break;
-        }
-        case 3: {
-          const float qi = col[ix[0] * ld], qj = col[ix[1] * ld],
-                      qk = col[ix[2] * ld], rij = col[ix[3] * ld],
-                      rik = col[ix[4] * ld], rjk = col[ix[5] * ld];
-          gd3 += g * qi * qj * qk;
-          gd2 += g * (rij * qk + rik * qj + rjk * qi);
-          gc[ix[0] * ld] += g * (t.d3 * qj * qk + t.d2 * rjk);
-          gc[ix[1] * ld] += g * (t.d3 * qi * qk + t.d2 * rik);
-          gc[ix[2] * ld] += g * (t.d3 * qi * qj + t.d2 * rij);
-          gc[ix[3] * ld] += g * t.d2 * qk;
-          gc[ix[4] * ld] += g * t.d2 * qj;
-          gc[ix[5] * ld] += g * t.d2 * qi;
-          break;
-        }
-        default: {  // 4
-          const float q = col[ix[0] * ld], r = col[ix[1] * ld],
-                      v = col[ix[2] * ld];
-          gd2 += g * (4.f * v * q + 3.f * r * r);
-          gd3 += g * 6.f * r * q * q;
-          gd4 += g * q * q * q * q;
-          gc[ix[0] * ld] += g * (4.f * t.d2 * v + 12.f * t.d3 * r * q
-                                 + 4.f * t.d4 * q * q * q);
-          gc[ix[1] * ld] += g * (6.f * t.d2 * r + 6.f * t.d3 * q * q);
-          gc[ix[2] * ld] += g * 4.f * t.d2 * q;
-          break;
-        }
-      }
-    }
-    // d z/du = d1 and d(d_k)/du = d_{k+1}; d5 = d1 (16 - 120 z^2 + 120 z^4)
-    const float z2 = t.z * t.z;
-    const float d5 = t.d1 * (16.f - z2 * (120.f - 120.f * z2));
-    gc[0] += gz * t.d1 + gd1 * t.d2 + gd2 * t.d3 + gd3 * t.d4 + gd4 * d5;
+  const int C = s.C, n = TP * w;
+  int e = threadIdx.x;
+  for (; e + (ITEMS - 1) * NTHREADS < n; e += ITEMS * NTHREADS) {
+    int base[ITEMS];
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i)
+      base[i] = item_base(e + i * NTHREADS, w, C, ld);
+    act_vjp_items<ITEMS>(P, dH, dG, ld, s, base);
   }
-  __syncthreads();
-}
-
-static __device__ void copy_rows(const float* src, float* dst, int R, int w,
-                                 int ld) {
-  for (int e = threadIdx.x; e < R * w; e += NTHREADS) {
-    int r = e / w, j = e % w;
-    dst[r * ld + j] = src[r * ld + j];
+  for (; e < n; e += NTHREADS) {
+    const int base[1] = {item_base(e, w, C, ld)};
+    act_vjp_items<1>(P, dH, dG, ld, s, base);
   }
   __syncthreads();
 }
 
 // ------------------------------------------------------------------------
+// The slices of a block's workspace, each R x ld floats: the pre-activation
+// channels P_0 .. P_{L-2} of the hidden layers, then the post-activation
+// channels H_1 .. H_{L-2} (the inputs of layers 1 .. L-2).
+static __host__ __device__ __forceinline__ int ws_slices(int L) {
+  return 2 * L - 3;
+}
+
 // The backward kernels' forward recompute over the hidden layers of one
 // tile (points p0 .. p0+TP-1): stages each hidden layer's pre-activation
-// channels in the block's workspace slice myws and returns the buffer
-// (buf0 or buf1) holding the last hidden layer's post-activations.
+// channels and each hidden layer's input in the block's workspace slice
+// myws (see ws_slices; rows < R, stride ld, as act_fwd transforms them) and
+// returns the buffer (buf0 or buf1) holding the last hidden layer's
+// post-activations.  Each layer's first weight chunk is issued before the
+// activation pass that precedes its product.  head_issued != nullptr: the
+// head's first chunk too (K3's head product); *head_issued says whether it
+// was.
 static __device__ float* stage_forward(const float* __restrict__ X,
                                        const float* __restrict__ prm, int N,
                                        int p0, int TP, const Net& net,
                                        const Sched& s, float* myws,
-                                       float* buf0, float* buf1, float* Bs) {
-  const int C = s.C, R = TP * C, ld = net.ld;
+                                       float* buf0, float* buf1, float* wst,
+                                       bool* head_issued) {
+  const int C = s.C, R = TP * C, ld = net.ld, lh = net.L - 1;
+  const size_t slice = (size_t)R * ld;
   float* cur = buf0;
   float* oth = buf1;
-  layer0_fwd(X, prm, N, p0, TP, net, s, cur);
-  copy_rows(cur, myws, R, net.w_out[0], ld);
-  act_fwd(cur, ld, TP, net.w_out[0], s);
-  for (int l = 1; l < net.L - 1; ++l) {
-    mm_smem(cur, ld, R, net.w_in[l], prm + net.offW[l], net.w_out[l], 1,
-            net.w_out[l], prm + net.offb[l], C, oth, ld, Bs);
-    copy_rows(oth, myws + (size_t)l * R * ld, R, net.w_out[l], ld);
-    act_fwd(oth, ld, TP, net.w_out[l], s);
+  layer0_fwd(X, prm, N, p0, TP, net, s, cur, wst);
+  for (int l = 1; l < lh; ++l) {
+    const bool issued = prefetch_fwd(prm + net.offW[l], net.w_in[l],
+                                     net.w_out[l], wst);
+    act_fwd(cur, ld, TP, net.w_out[l - 1], s, myws + (l - 1) * slice,
+            myws + (lh + l - 1) * slice);
+    product_fwd(cur, ld, R, net.w_in[l], prm + net.offW[l], net.w_out[l],
+                prm + net.offb[l], C, oth, wst, issued);
     float* t = cur; cur = oth; oth = t;
   }
+  if (head_issued != nullptr)
+    *head_issued = prefetch_fwd(prm + net.offW[lh], net.w_in[lh], net.n_out,
+                                wst);
+  act_fwd(cur, ld, TP, net.w_out[lh - 1], s, myws + (lh - 1) * slice,
+          nullptr);
   return cur;
+}
+
+// Layer 0's weight and input cotangents from its pre-activation cotangents
+// dG: its input channels are X (the primal) and constant one-hot seeds, so
+// dW_0 sums X against the primal rows and the seeds' rows, and dX =
+// dG_primal W_0^T for points < N (dX = acc, or += acc when add_dX).  W0 and
+// the tile's rows of X come from shared scratch, as in layer0_fwd.
+static __device__ void layer0_bwd(const float* __restrict__ X,
+                                  const float* __restrict__ prm,
+                                  float* __restrict__ dX, bool add_dX,
+                                  float* __restrict__ mypart, int N, int p0,
+                                  int TP, bool first, const Net& net,
+                                  const Sched& s, const float* dG,
+                                  float* scratch) {
+  const int C = s.C, ld = net.ld, d = net.d, w = net.w_out[0];
+  float* sW = scratch;
+  float* sx = sW + d * w;
+  to_shared(sW, prm + net.offW[0], d * w);
+  for (int e = threadIdx.x; e < TP * d; e += NTHREADS)
+    sx[e] = (p0 + e / d < N) ? X[(size_t)p0 * d + e] : 0.f;
+  __syncthreads();
+  float* pW = mypart + net.offW[0];
+  for (int e = threadIdx.x; e < d * w; e += NTHREADS) {
+    int k = e / w, j = e % w;
+    float acc = 0.f;
+    for (int p = 0; p < TP; ++p)
+      acc = fmaf(sx[p * d + k], dG[(p * C) * ld + j], acc);
+    for (int c = 1; c < C; ++c) {
+      if (s.order[c] != 1 || s.idx[c][0] != k) continue;
+      for (int p = 0; p < TP; ++p) acc += dG[(p * C + c) * ld + j];
+    }
+    pW[e] = first ? acc : pW[e] + acc;
+  }
+  for (int e = threadIdx.x; e < TP * d; e += NTHREADS) {
+    int p = e / d, k = e % d, gp = p0 + p;
+    if (gp >= N) continue;
+    float acc = 0.f;
+    for (int j = 0; j < w; ++j)
+      acc = fmaf(dG[(p * C) * ld + j], sW[k * w + j], acc);
+    float* dst = dX + (size_t)gp * d + k;
+    *dst = add_dX ? *dst + acc : acc;
+  }
+  __syncthreads();
 }
 
 // The reverse sweep from the head's pre-activation cotangents dP (the
 // table cotangents, [TP*C][ld], columns < n_out) down to layer 0.  cur
-// holds the last hidden layer's post-activations (stage_forward's result)
-// and oth is the other wavefront buffer; both are clobbered, as is dP.
-// Accumulates dW/db into the block's partial slot mypart (assigned on the
-// block's first tile) and writes dX rows for points < N: dX = acc, or
-// dX += acc when add_dX (K3 has put the coordinates' direct adjoints there).
+// holds the last hidden layer's post-activations (stage_forward's result);
+// the caller has issued the ws_load of the last hidden layer's staged
+// pre-activations into oth.  All three buffers are clobbered.  Accumulates
+// dW/db into the block's partial slot mypart (assigned on the block's
+// first tile) and writes dX rows for points < N: dX = acc, or dX += acc
+// when add_dX (K3 has put the coordinates' direct adjoints there).
+//
+// Per hidden layer l the buffers keep their roles: Pb receives P_l (the
+// staged pre-activations), dH holds the cotangent of H_l, dG receives dP_l.
+// Pb then receives the staged layer input H_l for dW_l, and P_{l-1} behind
+// the dH product, for layer l-1's act_vjp.
 static __device__ void reverse_sweep(const float* __restrict__ X,
                                      const float* __restrict__ prm,
                                      float* __restrict__ dX, bool add_dX,
@@ -389,63 +1089,49 @@ static __device__ void reverse_sweep(const float* __restrict__ X,
                                      const float* myws, int N, int p0, int TP,
                                      bool first, const Net& net,
                                      const Sched& s, float* cur, float* oth,
-                                     float* dP, float* Bs) {
+                                     float* dP, float* wst, uint64_t* mbar,
+                                     unsigned& phase) {
   const int C = s.C, R = TP * C, ld = net.ld, L = net.L, n_out = net.n_out;
   const int lh = L - 1;
-  mm_tn_accum(cur, ld, net.w_in[lh], dP, ld, n_out, R,
-              mypart + net.offW[lh], first);
+  product_dw(cur, dP, ld, R, net.w_in[lh], n_out, mypart + net.offW[lh],
+             first);
   bias_accum(dP, ld, n_out, TP, C, mypart + net.offb[lh], first);
-  float* dH = oth;  // dH = dP @ W^T
-  mm_smem(dP, ld, R, n_out, prm + net.offW[lh], 1, n_out, net.w_in[lh],
-          nullptr, C, dH, ld, Bs);
+  product_dh(dP, ld, R, n_out, prm + net.offW[lh], net.w_in[lh], cur, wst,
+             false);
 
-  float* Pb = cur;
+  float* Pb = oth;
+  float* dH = cur;
+  float* dG = dP;
   for (int l = L - 2; l >= 0; --l) {
     const int w = net.w_out[l];
-    copy_rows(myws + (size_t)l * R * ld, Pb, R, w, ld);
-    act_vjp(Pb, dH, dP, ld, TP, w, s);
+    const bool issued =
+        (l > 0) && prefetch_dh(prm + net.offW[l], w, net.w_in[l], wst);
+    ws_wait(mbar, phase);
+    act_vjp(Pb, dH, dG, ld, TP, w, s);
     if (l > 0) {
-      // the layer input H_l = act(P_{l-1})
-      copy_rows(myws + (size_t)(l - 1) * R * ld, Pb, R, net.w_in[l], ld);
-      act_fwd(Pb, ld, TP, net.w_in[l], s);
-      mm_tn_accum(Pb, ld, net.w_in[l], dP, ld, w, R, mypart + net.offW[l],
-                  first);
-      bias_accum(dP, ld, w, TP, C, mypart + net.offb[l], first);
-      mm_smem(dP, ld, R, w, prm + net.offW[l], 1, w, net.w_in[l], nullptr,
-              C, dH, ld, Bs);
+      const float* Pprev = myws + (size_t)(l - 1) * R * ld;
+      // the layer input H_l, staged by stage_forward
+      ws_load(Pb, myws + (size_t)(L - 2 + l) * R * ld, R, ld, mbar);
+      ws_wait(mbar, phase);
+      product_dw(Pb, dG, ld, R, net.w_in[l], w, mypart + net.offW[l], first);
+      bias_accum(dG, ld, w, TP, C, mypart + net.offb[l], first);
+      // P_{l-1} again, for the next act_vjp, behind the dH product
+      ws_load(Pb, Pprev, R, ld, mbar);
+      product_dh(dG, ld, R, w, prm + net.offW[l], net.w_in[l], dH, wst,
+                 issued);
     } else {
-      // layer 0: the input channels are X (primal) and constant seeds
-      const int d = net.d;
-      const float* W0 = prm + net.offW[0];
-      float* pW = mypart + net.offW[0];
-      float* pb = mypart + net.offb[0];
-      for (int e = threadIdx.x; e < d * w; e += NTHREADS) {
-        int k = e / w, j = e % w;
-        float acc = 0.f;
-        for (int p = 0; p < TP; ++p) {
-          int gp = p0 + p;
-          float x = (gp < N) ? X[(size_t)gp * d + k] : 0.f;
-          acc = fmaf(x, dP[(p * C) * ld + j], acc);
-        }
-        for (int c = 1; c < C; ++c) {
-          if (s.order[c] != 1 || s.idx[c][0] != k) continue;
-          for (int p = 0; p < TP; ++p) acc += dP[(p * C + c) * ld + j];
-        }
-        pW[e] = first ? acc : pW[e] + acc;
-      }
-      bias_accum(dP, ld, w, TP, C, pb, first);
-      for (int e = threadIdx.x; e < TP * d; e += NTHREADS) {
-        int p = e / d, k = e % d, gp = p0 + p;
-        if (gp >= N) continue;
-        float acc = 0.f;
-        for (int j = 0; j < w; ++j)
-          acc = fmaf(dP[(p * C) * ld + j], W0[k * w + j], acc);
-        float* dst = dX + (size_t)gp * d + k;
-        *dst = add_dX ? *dst + acc : acc;
-      }
-      __syncthreads();
+      layer0_bwd(X, prm, dX, add_dX, mypart, N, p0, TP, first, net, s, dG,
+                 wst);
+      bias_accum(dG, ld, w, TP, C, mypart + net.offb[0], first);
     }
   }
+}
+
+// The stride of the per-block partial slots holding P values: a multiple
+// of 4 floats, so every slot starts 16-byte aligned (ops/cuda_taylor.py
+// allocates them so).
+static __host__ __device__ __forceinline__ int slot_stride(int P) {
+  return (P + 3) & ~3;
 }
 
 // Sum the per-block partial slots (G slots of P values each) in slot
@@ -454,8 +1140,9 @@ static __global__ void reduce_partials(const float* __restrict__ part,
                                        float* __restrict__ out, int G, int P) {
   int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= P) return;
+  const size_t stride = slot_stride(P);
   float acc = 0.f;
-  for (int g = 0; g < G; ++g) acc += part[(size_t)g * P + e];
+  for (int g = 0; g < G; ++g) acc += part[g * stride + e];
   out[e] = acc;
 }
 
@@ -485,6 +1172,16 @@ static inline Sched unpack_sched(const int* h) {
   return s;
 }
 
+// Dynamic shared memory of a block with n_buf wavefront buffers for tiles
+// of R rows: the buffers, the weight stage, the mbarrier slot.
 static inline size_t smem_bytes(int n_buf, int R, int ld) {
-  return sizeof(float) * ((size_t)n_buf * R * ld + (size_t)KT * BS_LD);
+  const size_t Rp = (size_t)((R + 15) & ~15);
+  return sizeof(float) * (size_t)n_buf * Rp * ld + STAGE_BYTES;
 }
+
+// Where the weight stage lies in a block's dynamic shared memory.
+static __device__ __forceinline__ float* stage_of(float* sm, int n_buf, int R,
+                                                 int ld) {
+  return sm + (size_t)n_buf * pad16(R) * ld;
+}
+

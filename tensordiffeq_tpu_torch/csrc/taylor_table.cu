@@ -21,26 +21,45 @@
 // What bounds it on the H100.  Work is dominated by the channel-stacked
 // matmuls: 2*C*sum(w_in*w_out) flops per point (0.40 MFLOP/point for the
 // Allen-Cahn net 2-128x4-1 at C=4), against ~12 B/point in and C*n_out*4
-// B/point out.  So both kernels are bound by FP32 operations, not bytes.
-// The design follows from that:
-//   * f32 is IEEE f32: plain FP32 FMA on the CUDA cores, no TF32 tensor
-//     cores, matching the JAX package's precision=HIGHEST.
+// B/point out.  So both kernels are bound by operations, not bytes, and
+// nearly all of them are the hidden layers' 128-wide products.  The design
+// follows from that:
+//   * the hidden-layer products run on the tensor cores as 3xTF32
+//     (mma.sync.m16n8k8: each operand split into a TF32 high part and the
+//     rest, three products per k8 step summed in f32): at worst about
+//     2^-20 relative error per product, the counterpart of the JAX
+//     package's precision=HIGHEST, at a bound of 3 x products / 495
+//     TFLOP/s instead of products / 67 TFLOP/s on the CUDA cores
+//     (taylor_common.cuh: mma_steps, mma_w, mma_dw).  What bounds them now
+//     is the instruction stream around each mma.sync (the split and the
+//     f32 sums, about five instructions per mma) and its latency at eight
+//     warps per SM: about 11 cycles per mma per SM sub-partition, against
+//     6.8 for independent mma.sync (scripts/torch_mma_bench.cu).
 //   * the whole wavefront of a point tile (TP points x C channels x width)
 //     stays in shared memory across all layers, so device memory sees only
 //     X in and the table out (K1) — the Pallas kernel's VMEM residency.
-//   * each layer's matmul is a register-tiled SIMT GEMM (16x16 threads,
-//     8x8 outputs each) with the weights streamed through a small
-//     shared-memory chunk; weights are ~200 KB and stay L2-resident.  The
-//     head's product (n_out columns, at most NARROW_N) is a dot-product
-//     loop, one thread per output, since the tile would be almost all
-//     masked columns.
+//     Fragments load straight from it: the row stride ld = 8 (mod 32)
+//     words and the k order of each k8 step keep every fragment load free
+//     of bank conflicts.
+//   * each product's weights (a 128 x 128 layer, 64 KB; ~200 KB in all,
+//     L2-resident) come into one shared-memory stage by cp.async, issued
+//     before the activation pass that precedes the product, so the warps
+//     find them there: no copy waits inside a product and two barriers.
+//     A layer wider than 128 streams in 128-row chunks, each loaded and
+//     waited for.  A two-slot ring of 64-row chunks (the next in flight
+//     while one is in the MMAs, one barrier per chunk) ran 2-4 % slower on
+//     the AC net, whose fills land before their products start; what it
+//     would buy a wider net is in PERF.md.
+//   * narrow products (the head's n_out columns, at most NARROW_N) and
+//     layer 0 (d inputs) stay SIMT loops, one thread per output, their
+//     weights (and layer 0's rows of X) first copied into the free stage.
 //   * the pointwise tanh chain runs in place in shared memory, channels in
 //     descending order (a channel only reads lower-order channels and the
-//     primal, so in-place is safe).
-// This first version is simple and right; wgmma/TMA and a persistent K1 are
-// later work (its measured times are in PERF.md).  The device code is in
-// taylor_common.cuh, which the fused minimax step (minimax_step.cu, K3)
-// shares.
+//     primal, so in-place is safe), four items per thread at a time.
+// K1 keeps one block per tile and a non-persistent grid.  wgmma with TMA,
+// the tensor cores' full rate, is later work (PERF.md has the measured
+// times).  The device code is in taylor_common.cuh, which the fused
+// minimax step (minimax_step.cu, K3) shares.
 //
 // K2 differences from the Pallas kernel:
 //   * Pallas summed dW/db across a sequential grid (pl.when(i == 0) then
@@ -52,12 +71,19 @@
 //     out: the transpose of each Faa di Bruno line needs the tanh chain one
 //     order higher (d(d_k)/du = d_{k+1}, so d5 when fourth-order channels
 //     are present).
-//   * The reverse sweep needs every hidden layer's pre-activation channels.
-//     K2 recomputes the tile's forward once and stages them in a global
-//     workspace slice private to the block (L-1 layers x TP*C rows), reused
-//     for each tile the block takes: 35 MB for 132 blocks on the AC net,
-//     so it stays L2-resident, where recomputing per layer would cost
-//     O(L^2) matmuls.
+//   * The reverse sweep needs every hidden layer's pre-activation channels
+//     and every layer's input.  K2 recomputes the tile's forward once and
+//     stages both in a global workspace slice private to the block (2L-3
+//     slices of TP*C rows x ld: ws_slices), reused for each tile the block
+//     takes, where recomputing per layer would cost O(L^2) matmuls.
+//     act_fwd writes them as it reads and computes them (no extra pass,
+//     streaming stores); the reverse sweep reads each slice back once with
+//     one bulk copy (cp.async.bulk, one thread, an mbarrier) behind other
+//     work.  The weight stage leaves room for three wavefront buffers of 96
+//     rows (24 points at C = 4), so on the AC net the workspace is 48.3 MB
+//     for 132 blocks and K2's partial slots 26.4 MB: 75 MB against the 50
+//     MB L2.  The slots' read-modify-write per tile then reaches HBM: dW
+//     takes about twice its time in the product bench (PERF.md).
 //   * The bias enters only the primal channel, so db sums the primal
 //     channel's cotangents; first-order seeds are constant one-hots, so dX
 //     flows only through the primal channel of layer 0: dX = dP0 @ W0^T.
@@ -72,21 +98,22 @@ __global__ void __launch_bounds__(NTHREADS)
 taylor_fwd_kernel(const float* __restrict__ X, const float* __restrict__ prm,
                   float* __restrict__ table, int N, int TP, Net net,
                   Sched s) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(16) float sm[];
   const int C = s.C, R = TP * C, ld = net.ld;
   float* cur = sm;
-  float* nxt = sm + R * ld;
-  float* Bs = sm + 2 * R * ld;
+  float* nxt = sm + pad16(R) * ld;
+  float* wst = stage_of(sm, 2, R, ld);
   const int p0 = blockIdx.x * TP;
 
-  layer0_fwd(X, prm, N, p0, TP, net, s, cur);
-  for (int l = 0; l < net.L; ++l) {
-    if (l > 0) {
-      mm_smem(cur, ld, R, net.w_in[l], prm + net.offW[l], net.w_out[l], 1,
-              net.w_out[l], prm + net.offb[l], C, nxt, ld, Bs);
-      float* t = cur; cur = nxt; nxt = t;
-    }
-    if (l < net.L - 1) act_fwd(cur, ld, TP, net.w_out[l], s);
+  zero_buffers(sm, 2 * pad16(R) * ld);
+  layer0_fwd(X, prm, N, p0, TP, net, s, cur, wst);
+  for (int l = 1; l < net.L; ++l) {
+    const bool issued = prefetch_fwd(prm + net.offW[l], net.w_in[l],
+                                     net.w_out[l], wst);
+    act_fwd(cur, ld, TP, net.w_out[l - 1], s, nullptr, nullptr);
+    product_fwd(cur, ld, R, net.w_in[l], prm + net.offW[l], net.w_out[l],
+                prm + net.offb[l], C, nxt, wst, issued);
+    float* t = cur; cur = nxt; nxt = t;
   }
   const int n_out = net.n_out;
   for (int e = threadIdx.x; e < R * n_out; e += NTHREADS) {
@@ -102,21 +129,27 @@ taylor_bwd_kernel(const float* __restrict__ X, const float* __restrict__ prm,
                   const float* __restrict__ gtab, float* __restrict__ dX,
                   float* __restrict__ part, float* __restrict__ ws, int N,
                   int TP, int n_tiles, Net net, Sched s) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(16) float sm[];
   const int C = s.C, R = TP * C, ld = net.ld, L = net.L, n_out = net.n_out;
+  const int Rp = pad16(R);
   float* buf0 = sm;
-  float* buf1 = sm + R * ld;
-  float* buf2 = sm + 2 * R * ld;
-  float* Bs = sm + 3 * R * ld;
-  float* mypart = part + (size_t)blockIdx.x * net.P_total;
-  float* myws = ws + (size_t)blockIdx.x * (L - 1) * R * ld;
+  float* buf1 = sm + Rp * ld;
+  float* buf2 = sm + 2 * Rp * ld;
+  float* wst = stage_of(sm, 3, R, ld);
+  uint64_t* mbar = mbar_of(wst);
+  float* mypart = part + (size_t)blockIdx.x * slot_stride(net.P_total);
+  float* myws = ws + (size_t)blockIdx.x * ws_slices(L) * R * ld;
 
+  zero_buffers(sm, 3 * Rp * ld);
+  mbar_init(mbar);
+  unsigned phase = 0;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const bool first = (tile == blockIdx.x);
     const int p0 = tile * TP;
     float* cur = stage_forward(X, prm, N, p0, TP, net, s, myws, buf0, buf1,
-                               Bs);
+                               wst, nullptr);
     float* oth = (cur == buf0) ? buf1 : buf0;
+    ws_load(oth, myws + (size_t)(L - 2) * R * ld, R, ld, mbar);
     // head: the table cotangents are its pre-activation cotangents
     float* dP = buf2;
     for (int e = threadIdx.x; e < R * n_out; e += NTHREADS) {
@@ -125,7 +158,7 @@ taylor_bwd_kernel(const float* __restrict__ X, const float* __restrict__ prm,
     }
     __syncthreads();
     reverse_sweep(X, prm, dX, false, mypart, myws, N, p0, TP, first, net, s,
-                  cur, oth, dP, Bs);
+                  cur, oth, dP, wst, mbar, phase);
   }
 }
 
@@ -136,7 +169,9 @@ taylor_bwd_kernel(const float* __restrict__ X, const float* __restrict__ prm,
 extern "C" int tdq_limits(int* out) {
   out[0] = MAXL;
   out[1] = MAXC;
-  out[2] = KT * BS_LD * (int)sizeof(float);
+  out[2] = STAGE_BYTES;
+  out[3] = NARROW_N;
+  out[4] = BLK_M;
   return 0;
 }
 
@@ -153,6 +188,9 @@ extern "C" int tdq_taylor_fwd(const float* X, const float* prm, float* table,
                               const int* sched_h, void* stream) {
   const Net net = unpack_net(net_h);
   const Sched s = unpack_sched(sched_h);
+  // layer 0 takes its operands into the weight stage
+  if (!layer0_fits(net.d, net.w_out[0], TP))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(2, TP * s.C, net.ld);
   cudaError_t e = cudaFuncSetAttribute(
       taylor_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -171,6 +209,9 @@ extern "C" int tdq_taylor_bwd(const float* X, const float* prm,
                               void* stream) {
   const Net net = unpack_net(net_h);
   const Sched s = unpack_sched(sched_h);
+  // layer 0 takes its operands into the weight stage
+  if (!layer0_fits(net.d, net.w_out[0], TP))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(3, TP * s.C, net.ld);
   cudaError_t e = cudaFuncSetAttribute(
       taylor_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -34,7 +34,7 @@ from torch.func import vmap
 from ..boundaries import BC
 from ..ops.derivatives import UFn, make_ufn, vmap_residual
 from ..ops.losses import MSE, g_MSE
-from ..utils import span
+from ..utils import resolve_device, span
 
 
 def _as_tuple(x):
@@ -63,7 +63,7 @@ def build_loss_fn(apply_fn: Callable,
                   data_s=None,
                   residual_fn: Optional[Callable] = None,
                   residual_loss_fn: Optional[Callable] = None,
-                  device="cpu") -> Callable:
+                  device="cuda") -> Callable:
     """Assemble ``loss(params, lam_bcs, lam_res, X_batch, lam_data=None)``.
 
     Args:
@@ -82,12 +82,15 @@ def build_loss_fn(apply_fn: Callable,
         (:func:`~..ops.minimax.make_minimax_residual_loss`); when given it
         is the whole residual term (every equation and its λ), reported as
         ``Residual_0``.
-      device: where the BC meshes and targets live.
+      device: where the BC meshes and targets live; ``"cuda"`` (the
+        default) raises :class:`~..utils.CudaUnavailableError` without a
+        card.
 
     Returns ``loss(...) -> (total, components)`` where ``components`` is the
     reference's per-epoch loss dict (``BC_i`` / ``Residual_i`` / ``Data`` /
     ``Total Loss``) of scalar tensors.
     """
+    device = resolve_device(device)
     ndim = len(varnames)
 
     def dev(a):

@@ -74,8 +74,8 @@ def k3_minimax(plan: MinimaxPlan, X: torch.Tensor, w: torch.Tensor,
     opts = dict(device=X.device, dtype=torch.float32)
     gw = torch.empty((N, plan.E), **opts)
     gX = torch.empty((N, plan.d), **opts)
-    part = torch.empty((G, plan.P_total + 1), **opts)
-    ws = torch.empty((G * (L - 1) * R * plan.ld,), **opts)
+    part = torch.empty((G, ct.slot_stride(plan.P_total + 1)), **opts)
+    ws = torch.empty((G * (2 * L - 3) * R * plan.ld,), **opts)
     out = torch.empty((plan.P_total + 1,), **opts)
     stream = torch.cuda.current_stream(X.device).cuda_stream
     ct._check(lib.tdq_minimax_step(
@@ -92,16 +92,21 @@ ct.COUNTED.append(k3_minimax)
 
 
 def flop_count(plan: MinimaxPlan, n_points: int) -> dict:
-    """Float operations K3's function needs for ``n_points`` points: K2's
-    (the hidden layers' forward once, the weight and input cotangent
-    products, the transposed Faà di Bruno lines, the sums), the head's
-    product, and per point the tape forward and reverse plus, per
-    equation, ``f²``, ``w·f²`` into the value and the seed ``2·w·f``."""
+    """Float operations K3's function needs for ``n_points`` points, split
+    as :func:`.cuda_taylor.flop_count` splits K2's: K2's (the hidden
+    layers' forward once, the weight and input cotangent products, the
+    transposed Faà di Bruno lines, the sums), the head's product (on the
+    tensor cores only if wider than ``NARROW_N``), and per point the tape
+    forward and reverse plus, per equation, ``f²``, ``w·f²`` into the value
+    and the seed ``2·w·f``."""
     fi, fo = plan.layer_shapes[-1]
     head = 2 * plan.C * fi * fo
+    head_tc = head if fo > ct.NARROW_N else 0
     fwd, rev = plan.tape.flops()
-    return {"k3": ct.flop_count(plan, n_points)["k2"]
-            + n_points * (head + fwd + rev + 5 * plan.E)}
+    k2 = ct.flop_count(plan, n_points)["k2"]
+    return {"k3": {"tensor": k2["tensor"] + n_points * head_tc,
+                   "simt": k2["simt"] + n_points * (head - head_tc + fwd + rev
+                                                    + 5 * plan.E)}}
 
 
 def byte_count(plan: MinimaxPlan, n_points: int) -> dict:

@@ -47,7 +47,8 @@ MAX_TAPE_INPUTS = 48  # MAXTIN: table columns and coordinates the tape reads
 MAX_TAPE_OPS = 96     # MAXTOPS
 MAX_TAPE_CONSTS = 32  # MAXTCONST
 MAX_EQUATIONS = 8     # MAXEQ: residual equations E
-_SUPER_ROWS = 128  # SUP_R: rows of one register super-tile
+BLOCK_ROWS = 128  # BLK_M: rows of a product's block tile, the tile's cap
+NARROW_N = 16     # NARROW_N: products this narrow stay SIMT loops
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -160,19 +161,27 @@ def build() -> ctypes.CDLL:
     for fn in (lib.tdq_taylor_fwd, lib.tdq_taylor_bwd, lib.tdq_minimax_step,
                lib.tdq_device_info, lib.tdq_limits, lib.tdq_minimax_limits):
         fn.restype = i32
-    limits = (ctypes.c_int * 3)()
+    limits = (ctypes.c_int * 5)()
     lib.tdq_limits(limits)
     tape = (ctypes.c_int * 4)()
     lib.tdq_minimax_limits(tape)
-    got = (limits[0], limits[1], *tape)
-    want = (MAX_LAYERS, MAX_CHANNELS, MAX_TAPE_INPUTS, MAX_TAPE_OPS,
-            MAX_TAPE_CONSTS, MAX_EQUATIONS)
+    got = (limits[0], limits[1], limits[3], limits[4], *tape)
+    want = (MAX_LAYERS, MAX_CHANNELS, NARROW_N, BLOCK_ROWS, MAX_TAPE_INPUTS,
+            MAX_TAPE_OPS, MAX_TAPE_CONSTS, MAX_EQUATIONS)
     if got != want:
         raise KernelBuildError(
             f"kernel limits {got} disagree with the wrapper's {want}")
-    lib.bs_bytes = int(limits[2])
+    # the shared memory a block needs besides its wavefront buffers
+    lib.stage_bytes = int(limits[2])
     _lib = lib
     return lib
+
+
+def slot_stride(n: int) -> int:
+    """Floats between the per-block partial slots of ``n`` values: a
+    multiple of 4, so each slot starts 16-byte aligned (``slot_stride`` in
+    ``csrc/taylor_common.cuh``)."""
+    return -(-n // 4) * 4
 
 
 def _check(err: int, what: str):
@@ -240,7 +249,11 @@ class _Plan:
         self.pos = {mi: c for c, mi in enumerate(self.channels)}
         self.mis = sorted({canonical(m) for m in requests} | {()},
                           key=lambda t: (len(t), t))
-        self.ld = max(max(s) for s in self.layer_shapes) + 1
+        # the wavefront row stride in floats: every width padded to 16 fits
+        # in a row, and ld = 8 (mod 32) keeps the tensor-core fragment loads
+        # free of bank conflicts (csrc/taylor_common.cuh)
+        self.width = max(max(s) for s in self.layer_shapes)
+        self.ld = 32 * -(-self.width // 32) + 8
         offs, o = [], 0
         for fi, fo in self.layer_shapes:
             offs.append((o, o + fi * fo))
@@ -263,9 +276,10 @@ class _Plan:
         self.tiles = None  # (TP_fwd, TP_bwd, n_sm) after the first launch
 
     def tile_sizes(self, device: torch.device) -> tuple[int, int, int]:
-        """Points per block for K1 (2 wavefront buffers) and K2 (3), the
-        largest that fit the card's opt-in shared memory, capped so one
-        block's rows fill one register super-tile."""
+        """Points per block for K1 (2 wavefront buffers) and K2/K3 (3): the
+        most whose rows, padded to the tensor cores' 16, fit the card's
+        opt-in shared memory beside the weight stage, at most one block tile
+        of rows."""
         if self.tiles is None:
             lib = build()
             info = (ctypes.c_int * 2)()
@@ -276,12 +290,12 @@ class _Plan:
             row_bytes = 4 * self.ld
             tps = []
             for n_buf in (2, 3):
-                rows = min((smem - lib.bs_bytes) // (n_buf * row_bytes),
-                           _SUPER_ROWS)
+                rows = min((smem - lib.stage_bytes) // (n_buf * row_bytes),
+                           BLOCK_ROWS) // 16 * 16
                 if rows < self.C:
                     raise KernelLaunchError(
-                        f"width {self.ld - 1} x {self.C} channels does not "
-                        f"fit one point in {smem} B of shared memory")
+                        f"width {self.width} x {self.C} channels does not "
+                        f"fit 16 rows in {smem} B of shared memory")
                 tps.append(rows // self.C)
             self.tiles = (tps[0], tps[1], n_sm)
         return self.tiles
@@ -350,8 +364,8 @@ def k2_backward(plan: _Plan, X: torch.Tensor, flat: torch.Tensor,
     L = len(plan.layer_shapes)
     opts = dict(device=X.device, dtype=torch.float32)
     dX = torch.empty((N, plan.d), **opts)
-    part = torch.empty((G, plan.P_total), **opts)
-    ws = torch.empty((G * (L - 1) * R * plan.ld,), **opts)
+    part = torch.empty((G, slot_stride(plan.P_total)), **opts)
+    ws = torch.empty((G * (2 * L - 3) * R * plan.ld,), **opts)
     dflat = torch.empty((plan.P_total,), **opts)
     stream = torch.cuda.current_stream(X.device).cuda_stream
     _check(lib.tdq_taylor_bwd(X.data_ptr(), flat.data_ptr(), g.data_ptr(),
@@ -439,31 +453,42 @@ _VJP_FLOPS = {1: 4, 2: 13, 3: 39, 4: 40}
 
 def flop_count(plan: _Plan, n_points: int) -> dict:
     """Float operations the function of each kernel needs for ``n_points``
-    points, not what the kernel happens to do.
+    points, not what the kernel happens to do, split by the route the kernel
+    takes them on: ``{"k1": {"tensor": ..., "simt": ...}, "k2": ...}``.
 
-    K1: the channel matmuls (2 per multiply-add; layer 0 is a product only
-    in the primal channel, its seeds are copies) and, per hidden unit, the
-    tanh chain up to the highest order in the plan plus one Faa di Bruno
-    line per channel.  K2: the forward through the hidden layers once (the
-    kernel re-derives each layer's input a second time; its choice, not
-    counted), the weight- and input-cotangent products, per hidden unit
-    the chain's next order and the transposed lines closed onto the primal
-    cotangent, and the sums of db and of the seeds' share of dW_0."""
+    ``tensor``: the channel products of the layers past layer 0 that are
+    wider than ``NARROW_N`` (the hidden layers' products, on the tensor
+    cores as 3xTF32; counted once, as the f32 products they stand for).
+    ``simt``: the rest, on the CUDA cores.  K1: the channel matmuls (2 per
+    multiply-add; layer 0 is a product only in the primal channel, its
+    seeds are copies) and, per hidden unit, the tanh chain up to the
+    highest order in the plan plus one Faa di Bruno line per channel.  K2:
+    the forward through the hidden layers once (the kernel re-derives each
+    layer's input a second time; its choice, not counted), the weight- and
+    input-cotangent products, per hidden unit the chain's next order and
+    the transposed lines closed onto the primal cotangent, and the sums of
+    db and of the seeds' share of dW_0."""
     orders = [len(mi) for mi in plan.channels if mi]
     top = max(orders, default=0)
     shapes = plan.layer_shapes
     w0 = shapes[0][1]
     hidden = sum(fo for _, fo in shapes[:-1])
     mm = [2 * plan.d * w0] + [2 * plan.C * fi * fo for fi, fo in shapes[1:]]
+    tc = [0] + [m if fo > NARROW_N else 0
+                for m, (_, fo) in zip(mm[1:], shapes[1:])]
     act = hidden * (sum(_CHAIN_FLOPS[:top + 1])
                     + sum(_ACT_FLOPS[o] for o in orders))
     # d_{top+1}, then gz*d1 + sum_k gd_k*d_{k+1} added to the primal's
     vjp = hidden * (_CHAIN_FLOPS[top + 1] + 2 * (top + 1)
                     + sum(_VJP_FLOPS[o] for o in orders))
     sums = sum(fo for _, fo in shapes) + w0 * orders.count(1)
-    return {"k1": n_points * (sum(mm) + act),
-            "k2": n_points * (sum(mm[:-1]) + act + 2 * sum(mm) + vjp
-                              + sums)}
+    k1_tc = sum(tc)
+    k2_tc = sum(tc[:-1]) + 2 * sum(tc)
+    return {"k1": {"tensor": n_points * k1_tc,
+                   "simt": n_points * (sum(mm) - k1_tc + act)},
+            "k2": {"tensor": n_points * k2_tc,
+                   "simt": n_points * (sum(mm[:-1]) + act + 2 * sum(mm) + vjp
+                                       + sums - k2_tc)}}
 
 
 def byte_count(plan: _Plan, n_points: int) -> dict:

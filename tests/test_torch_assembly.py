@@ -19,7 +19,7 @@ from tensordiffeq_tpu.ops.fused import make_fused_residual as jax_fused
 from tensordiffeq_tpu_torch.models.assembly import build_loss_fn
 from tensordiffeq_tpu_torch.networks import mlp_forward
 from tensordiffeq_tpu_torch.ops.fused import analyze_f_model, make_fused_residual
-from tensordiffeq_tpu_torch.utils import initialize_lambdas
+from tensordiffeq_tpu_torch.utils import CudaUnavailableError, initialize_lambdas
 from tensordiffeq_tpu_torch.weights import params_from_jax
 
 torch.set_num_threads(1)
@@ -70,7 +70,8 @@ def test_ac_sa_loss_and_grads_match_jax(shared, engine):
         j_res = jax_fused(jf, jd.vars, 1, jax_analyze(jf, jd.vars, 1))
         t_res = make_fused_residual(tf, td.vars, 1, analyze_f_model(tf, td.vars, 1))
     jloss = jax_build(net.apply, jd.vars, 1, jf, jb, residual_fn=j_res)
-    tloss = build_loss_fn(mlp_forward, td.vars, 1, tf, tb, residual_fn=t_res)
+    tloss = build_loss_fn(mlp_forward, td.vars, 1, tf, tb, residual_fn=t_res,
+                          device="cpu")
 
     X = jd.X_f.astype(np.float32)
     j_lam = [jnp.asarray(jlam["residual"][0], jnp.float32)]
@@ -121,3 +122,13 @@ def test_lambda_containers():
     with pytest.raises(ValueError, match="same length"):
         initialize_lambdas({"residual": [1.0, 2.0]}, {"residual": [True]},
                            device="cpu")
+
+
+def test_build_loss_fn_defaults_to_the_card():
+    """``build_loss_fn`` runs on the card unless the caller asks for the
+    CPU, as every other entry point of the port does."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    td, tb, tf, _ = ac_problem(tdqt)
+    with pytest.raises(CudaUnavailableError):
+        build_loss_fn(mlp_forward, td.vars, 1, tf, tb)

@@ -10,10 +10,12 @@ installed::
 
 * K1 values and K2 gradients (dW, db, dX) against the plain flavor at shapes
   the ``chip_smoke.py`` run does not reach: a ragged tail, several output
-  columns, three coordinates, a width above one register super-tile (128),
-  a deep net, a single point.  Scale-relative tolerance 1e-4 (both sides
-  are IEEE f32 and differ only in summation order; ``chip_smoke.py`` states
-  the measured error).
+  columns, three coordinates, a width above one block tile (128), a deep
+  net, a single point, widths that are not multiples of 8 with a tile of
+  R = 126 rows.  Scale-relative tolerance 1e-4 (the plain side is IEEE f32;
+  the kernels take the hidden products as 3xTF32, at worst about 2^-20 per
+  product, and sum in another order; ``chip_smoke.py`` states the measured
+  error).
 * K2 is bit-identical run to run (per-block partials, no atomics).
 * the wrapper raises on what the kernels do not take.
 * the solver trained through ``fused="cuda"`` tracks the same solver
@@ -21,7 +23,8 @@ installed::
 * ``fit`` does not synchronise the host with the card inside a chunk.
 * K3 (the fused minimax step) against its plain flavor: the value, every
   dW/db leaf, gw and gX, for E = 1, E = 2 and a ``1/x`` residual at a
-  ragged N (finite), at the same scale-relative 1e-4; bit-identical run to
+  ragged N (finite) and at odd widths, at the same scale-relative 1e-4;
+  bit-identical run to
   run; the wrapper raises on what it does not take; the solver's minimax
   step on the card tracks the CPU solver's plain flavor over 20 steps; a
   K3 launch the runtime refuses raises out of ``compile``; a minimax fit
@@ -55,6 +58,9 @@ CASES = {
                           [3, 200, 40, 1], 301),
     "deep": (AC, [2, 32, 32, 32, 32, 32, 1], 517),
     "one-point": (MIXED, [2, 16, 1], 1),
+    # widths off the tensor cores' multiples of 8 and C = 3 channels, so a
+    # tile's R = 126 rows are not a multiple of the fragments' 16
+    "odd-widths": ({(), (1,), (1, 1)}, [2, 37, 53, 1], 1003),
 }
 
 
@@ -244,6 +250,8 @@ K3_CASES = {
     "system-E2": (_res_system, [2, 48, 48, 2], 777, (-1.0, 1.0)),
     "singular-ragged": (_res_singular, [2, 200, 40, 1], 1001, (0.5, 1.5)),
     "one-point": (_res_ac, [2, 16, 1], 1, (-1.0, 1.0)),
+    # C = 3 (R = 126 rows), widths off the multiples of 8, a ragged tail
+    "odd-widths": (_res_singular, [2, 37, 53, 1], 1001, (0.5, 1.5)),
 }
 
 

@@ -356,13 +356,32 @@ def test_k3_work_counts():
     plan = sq.plan
     assert minimax.n_channels(reqs) == plan.C == 3
     k2 = cuda_taylor.flop_count(plan, 10)["k2"]
-    # + the head's product 2·C·16·1, the tape (2 + 7) and 5 per equation
-    assert cuda_minimax.flop_count(plan, 10) == {
-        "k3": k2 + 10 * (2 * 3 * 16 + 9 + 5)}
+    # + the head's product 2·C·16·1, the tape (2 + 7) and 5 per equation,
+    # all on the CUDA cores (16 wide is narrow)
+    assert cuda_minimax.flop_count(plan, 10) == {"k3": {
+        "tensor": k2["tensor"],
+        "simt": k2["simt"] + 10 * (2 * 3 * 16 + 9 + 5)}}
     # X, w and params in; value, params, gw and gX out
     P = plan.P_total
     assert cuda_minimax.byte_count(plan, 10) == {
         "k3": 4 * (2 * (10 * 2 + 10 * 1 + P) + 1)}
+
+
+def test_k3_work_counts_at_the_slice():
+    """The Allen-Cahn residual at the slice (N = 50,000, 2-128x4-1, C = 4):
+    60.33 GFLOP in all, the nine 128-wide hidden products (58.98 GFLOP) on
+    the tensor cores, the rest as K2's plus the narrow head and the tape."""
+    f = T_RES["ac"]
+    shapes = [(2, 128)] + [(128, 128)] * 3 + [(128, 1)]
+    sq = minimax.build_minimax_sq_fn(f, VARS, 1, analyze_f_model(f, VARS, 1),
+                                     shapes, device="cpu")
+    got = cuda_minimax.flop_count(sq.plan, 50_000)["k3"]
+    k2 = cuda_taylor.flop_count(sq.plan, 50_000)["k2"]
+    assert got["tensor"] == k2["tensor"] == 9 * 50_000 * 2 * 4 * 128 * 128
+    assert round(got["tensor"] / 1e9, 2) == 58.98
+    assert round((got["tensor"] + got["simt"]) / 1e9, 2) == 60.33
+    fwd, rev = sq.plan.tape.flops()
+    assert got["simt"] - k2["simt"] == 50_000 * (2 * 4 * 128 + fwd + rev + 5)
 
 
 # ------------------------------------------------------------------ #
@@ -393,7 +412,7 @@ def test_lambda_modes_match_unfused_loss(mode):
     outside = adaptive == 2
     mm = minimax.make_minimax_residual_loss(sq, weight_outside_sum=outside,
                                             g=g)
-    kw = dict(weight_outside_sum=outside, g=g)
+    kw = dict(weight_outside_sum=outside, g=g, device="cpu")
     unfused = build_loss_fn(mlp_forward, VARS, n_out, f, [], **kw)
     fused = build_loss_fn(mlp_forward, VARS, n_out, f, [],
                           residual_loss_fn=mm, **kw)

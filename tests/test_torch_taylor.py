@@ -286,8 +286,10 @@ def test_flop_count_counts_what_the_function_needs():
     vjp = 32 * (4 + 2 * 3 + (4 + 4 + 13))    # d3; the closing sum; lines
     sums = (16 + 16 + 1) + 16 * 2            # db; the seeds' share of dW_0
     got = cuda_taylor.flop_count(plan, 10)
-    assert got == {"k1": 10 * (mm + act),
-                   "k2": 10 * ((mm - 2 * 4 * 16) + act + 2 * mm + vjp + sums)}
+    # 16 wide is narrow: every product stays on the CUDA cores
+    assert got == {"k1": {"tensor": 0, "simt": 10 * (mm + act)},
+                   "k2": {"tensor": 0, "simt": 10 * ((mm - 2 * 4 * 16) + act
+                                                     + 2 * mm + vjp + sums)}}
     # a fourth-order channel takes the chain to d4 (and d5 in K2)
     deep = cuda_taylor.build_cuda_table_fn(
         {(), (1,), (0, 0), (0, 0, 0, 0)}, [(2, 16), (16, 16), (16, 1)],
@@ -296,7 +298,34 @@ def test_flop_count_counts_what_the_function_needs():
     assert max(orders) == 4
     lines = sum(cuda_taylor._ACT_FLOPS[o] for o in orders)
     mm4 = 2 * 2 * 16 + 2 * deep.C * 16 * 16 + 2 * deep.C * 16
-    assert cuda_taylor.flop_count(deep, 1)["k1"] == mm4 + 32 * (15 + lines)
+    assert sum(cuda_taylor.flop_count(deep, 1)["k1"].values()) \
+        == mm4 + 32 * (15 + lines)
+
+
+def test_flop_count_splits_tensor_core_products_at_the_slice():
+    """At the slice (N = 50,000, 2-128x4-1, the Allen-Cahn requests, C = 4)
+    the split counts add up to the totals the FP32 bound was taken from
+    (K1 20.02, K2 60.28 GFLOP), and the tensor-core share is exactly the
+    128-wide hidden products: 3 forward in K1, 3 forward + 3 dW + 3 dH in
+    K2, 2·C·128·128 flops per point each."""
+    shapes = [(2, 128)] + [(128, 128)] * 3 + [(128, 1)]
+    plan = cuda_taylor.build_cuda_table_fn({(), (1,), (0, 0)}, shapes,
+                                           device="cpu").plan
+    assert plan.C == 4
+    got = cuda_taylor.flop_count(plan, 50_000)
+    prod = 50_000 * 2 * 4 * 128 * 128
+    assert got["k1"]["tensor"] == 3 * prod
+    assert got["k2"]["tensor"] == 9 * prod
+    assert round(sum(got["k1"].values()) / 1e9, 2) == 20.02
+    assert round(sum(got["k2"].values()) / 1e9, 2) == 60.28
+    # the totals are the pre-split formula's, to the flop
+    mm = [2 * 2 * 128] + [2 * 4 * fi * fo for fi, fo in shapes[1:]]
+    act = 512 * ((1 + 2 + 2) + (1 + 1 + 4))
+    vjp = 512 * (4 + 2 * 3 + (4 + 4 + 13))
+    sums = (4 * 128 + 1) + 128 * 2
+    assert sum(got["k1"].values()) == 50_000 * (sum(mm) + act)
+    assert sum(got["k2"].values()) == 50_000 * (sum(mm[:-1]) + act
+                                                + 2 * sum(mm) + vjp + sums)
 
 
 def test_cpu_tensors_take_plain_flavor_and_count_no_launch(setup):
