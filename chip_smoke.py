@@ -30,15 +30,30 @@ Phases (each failure is fatal; exit code != 0, no result line):
 7. the unfused path of the first slice, ``compile(fused="cuda",
    minimax=False)``: K1 and K2 once each per step, the same 200 steps, so
    the two paths' ms/step compare within one call.
-8. a ``{"kernels": [...]}`` line, the card line again, and the result line.
+8. the refinement slice on the trained minimax solver of phase 6: L-BFGS
+   with the zoom line search (``fit(newton_iter=100)``), where every
+   evaluation of the loss and its gradient is one K3 launch and K1/K2 do
+   not run; the fixed-step rule (``fit(newton_iter=20,
+   newton_eager=True)``, K3 exactly 20 times); ms per iteration,
+   evaluations and host synchronisations per iteration, one evaluation and
+   one two-loop sweep timed alone, and the rel-L2 of ``predict(
+   best_model=True)``.  Then the checkpoint leg: ``save_checkpoint``, a
+   fresh solver compiled the same way and restored on the card has the
+   same ``update_loss()`` and the same 10 further Adam steps, bit for bit;
+   a checkpoint taken mid-L-BFGS brings ``newton_done`` and the iterate
+   back.
+9. a ``{"kernels": [...]}`` line, the card line again, and the result line.
 
-``--profile`` adds, after phase 7, an A/B of the two trained solvers (50
+``--profile`` adds, after phase 8, an A/B of the two trained solvers (50
 more steps per turn in eight turns: minimax, unfused, unfused, minimax,
 twice), so their ms/step compare within one stretch of the host's load;
 then four windows of 20 Adam steps under ``torch.profiler``, the paths in
 turns (minimax, unfused, unfused, minimax): the host's time in each of
 ``fit_adam``'s ranges, device time by kernel group, the device's busy and
-idle share, and the top host ops.  The script imports nothing of JAX.
+idle share, and the top host ops; then one window of 20 line-search L-BFGS
+iterations of the minimax solver, split the same way over the ranges
+``lbfgs.evaluate``, ``lbfgs.direction`` and ``lbfgs.read`` (the host
+reads: the line search's syncs).  The script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -76,10 +91,16 @@ MIXED_REQUESTS = {(), (0,), (1,), (0, 0), (0, 1), (0, 0, 1), (0, 0, 0, 0)}
 WIDTHS = [2, 128, 128, 128, 128, 1]
 N_POINTS = 50_000
 TF_ITER = 200  # Adam steps of the slice
+LBFGS_ITER = 100  # line-search L-BFGS iterations of the refinement slice
+EAGER_ITER = 20  # fixed-step L-BFGS iterations
+RESUME_STEPS = 10  # Adam steps after the restore, on both solvers
 AB_STEPS = 50  # steps per turn of the paths' A/B
 # the profiler ranges of one Adam step (training/fit.py, models/assembly.py)
 HOST_SPANS = ("fit_adam.loss", "loss.residual", "fit_adam.backward",
               "fit_adam.adam", "fit_adam.record")
+# the profiler ranges of an L-BFGS iteration (training/lbfgs.py):
+# evaluations of loss and gradient, two-loop products, host reads
+LBFGS_SPANS = ("lbfgs.evaluate", "lbfgs.direction", "lbfgs.read")
 
 
 def fail(msg: str):
@@ -475,12 +496,208 @@ def phase_slice(tf_iter: int, minimax) -> dict:
                 solver=solver)
 
 
+def _lbfgs_counts() -> tuple:
+    from tensordiffeq_tpu_torch.training.lbfgs import lbfgs_minimize
+    return lbfgs_minimize.evaluations, lbfgs_minimize.host_syncs
+
+
+def _time_lbfgs_parts(solver) -> dict:
+    """One evaluation of the L-BFGS objective (loss and gradient at the
+    flat parameters, K3 on this path) and one two-loop sweep over a full
+    memory of 50 pairs at the net's 50,049 parameters, each timed alone
+    (host clock around 10 calls ending in a synchronisation).  Restores the
+    kernels' launch counts."""
+    import torch
+    from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
+    from tensordiffeq_tpu_torch.training import lbfgs as tl
+    from tensordiffeq_tpu_torch.utils import ieee_f32
+
+    before = (cm.k3_minimax.launches, _lbfgs_counts())
+    layers = solver.net.layers()
+    fun = tl.lbfgs_objective(solver.loss_fn, solver.lambdas, solver.X_f,
+                             tl.layer_shapes(layers))
+    x = tl.flatten_layers(layers)
+    g = torch.Generator(device=x.device).manual_seed(0)
+    mem = tl._Memory(x, 50)
+    for _ in range(51):  # fill every slot
+        mem.precondition(x + torch.randn(x.shape, generator=g,
+                                         device=x.device),
+                         torch.randn(x.shape, generator=g, device=x.device))
+
+    def host_ms(fn, reps=10):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    with ieee_f32():
+        eval_ms = host_ms(lambda: tl._value_and_grad(fun, x))
+    direction_ms = host_ms(lambda: mem.precondition(x, x))
+    cm.k3_minimax.launches = before[0]
+    (tl.lbfgs_minimize.evaluations, tl.lbfgs_minimize.host_syncs) = before[1]
+    return dict(eval_ms=eval_ms, direction_ms=direction_ms,
+                n_params=int(x.numel()))
+
+
+def phase_refine(paths: dict) -> dict:
+    """Phase 8: the refinement slice on the minimax solver of phase 6 (after
+    its Adam steps), with the kernels' launch counts set to 0 just before
+    each L-BFGS leg and read just after; then the checkpoint leg."""
+    import torch
+    import tensordiffeq_tpu_torch as tdqt
+    from tensordiffeq_tpu_torch.exact import allen_cahn_solution
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+
+    solver = paths["minimax"]["solver"]
+    n_adam = len(solver.losses)
+    adam_last = solver.losses[-1]["Total Loss"]
+    x, t, usol = allen_cahn_solution()
+    X_star = np.stack(np.meshgrid(x, t, indexing="ij"), -1).reshape(-1, 2)
+
+    # the line-search leg
+    ct.reset_launch_counts()
+    e0, s0 = _lbfgs_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.fit(newton_iter=LBFGS_ITER)
+    torch.cuda.synchronize()
+    t_leg = time.perf_counter() - t0
+    zoom = _counts()
+    evals, syncs = (b - a for a, b in zip((e0, s0), _lbfgs_counts()))
+    iters = len(solver.losses) - n_adam
+    hist = np.array([r["Total Loss"] for r in solver.losses[n_adam:]])
+    u_best, _ = solver.predict(X_star, best_model=True)
+    rel_l2 = tdqt.find_L2_error(u_best, usol.reshape(-1, 1))
+    ms_iter = 1e3 * t_leg / max(iters, 1)
+    print(f"[refine lbfgs] {iters} iterations in {t_leg:.2f} s = "
+          f"{ms_iter:.3f} ms/iteration; {evals} evaluations "
+          f"({evals / max(iters, 1):.3f}/iteration), {syncs} host syncs "
+          f"({syncs / max(iters, 1):.3f}/iteration); launches {zoom}",
+          flush=True)
+    print(f"[refine lbfgs] loss {adam_last:.6e} (last Adam step) -> "
+          f"{hist[-1]:.6e}, best {solver.min_loss['l-bfgs']:.6e} at "
+          f"iteration {solver.best_epoch['l-bfgs']}; predict(best_model="
+          f"True) rel-L2 vs ETDRK4 {rel_l2:.4f} (overall best: "
+          f"{solver.best_epoch['overall']}, "
+          f"{solver.min_loss['overall']:.6e})", flush=True)
+    if not (zoom["k3"] == evals and zoom["k3"] > 0):
+        fail(f"K3 launched {zoom['k3']} times for {evals} L-BFGS "
+             "evaluations")
+    if zoom["k1"] or zoom["k2"]:
+        fail(f"K1/K2 ran in the L-BFGS leg: {zoom}")
+    best = solver.min_loss["l-bfgs"]
+    if not (np.isfinite(best) and best < adam_last):
+        fail(f"the L-BFGS best loss {best} is not below the Adam leg's last "
+             f"{adam_last}")
+    if solver.newton_done != iters or iters <= 0:
+        fail(f"newton_done {solver.newton_done} != the {iters} iterations "
+             "in the history")
+
+    # where an iteration's time goes
+    parts = _time_lbfgs_parts(solver)
+    per_iter = evals / max(iters, 1)
+    rest = ms_iter - per_iter * parts["eval_ms"] - parts["direction_ms"]
+    print(f"[refine split] per iteration: {per_iter:.3f} evaluations x "
+          f"{parts['eval_ms']:.3f} ms (loss + gradient, timed alone) + "
+          f"two-loop sweep {parts['direction_ms']:.3f} ms (50 pairs, "
+          f"{parts['n_params']} parameters, timed alone) + the rest "
+          f"{rest:.3f} ms (line-search arithmetic, syncs, best select)",
+          flush=True)
+
+    # the fixed-step leg
+    ct.reset_launch_counts()
+    e0, s0 = _lbfgs_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.fit(newton_iter=EAGER_ITER, newton_eager=True)
+    torch.cuda.synchronize()
+    t_eager = time.perf_counter() - t0
+    eager = _counts()
+    e_evals, e_syncs = (b - a for a, b in zip((e0, s0), _lbfgs_counts()))
+    print(f"[refine fixed-step] {EAGER_ITER} iterations in {t_eager:.2f} s "
+          f"= {1e3 * t_eager / EAGER_ITER:.3f} ms/iteration; {e_evals} "
+          f"evaluations, {e_syncs} host syncs; launches {eager}", flush=True)
+    if eager["k3"] != EAGER_ITER or e_evals != EAGER_ITER \
+            or eager["k1"] or eager["k2"]:
+        fail(f"the fixed-step leg launched {eager}, not K3 x {EAGER_ITER}")
+
+    resume = phase_checkpoint(solver)
+    return dict(launches={k: zoom[k] + eager[k] for k in zoom},
+                ms_iter=ms_iter, evals_per_iter=per_iter,
+                syncs_per_iter=syncs / max(iters, 1), rel_l2=rel_l2,
+                eager_syncs=e_syncs, **parts, **resume)
+
+
+def phase_checkpoint(solver) -> dict:
+    """Phase 8, the checkpoint leg: save the trained solver, restore it into
+    a fresh solver compiled the same way on the card; the loss and
+    ``RESUME_STEPS`` more Adam steps on both must agree bit for bit.  Then
+    a checkpoint taken mid-L-BFGS restores ``newton_done`` and the
+    iterate."""
+    import tempfile
+
+    import torch
+    import tensordiffeq_tpu_torch as tdqt
+
+    def fresh():
+        domain, bcs, f_model, kw = ac_sa_problem()
+        s = tdqt.CollocationSolverND(verbose=False, seed=1)
+        s.compile(WIDTHS, f_model, domain, bcs, fused="cuda", **kw)
+        return s
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = f"{tmp}/ck"
+        t0 = time.perf_counter()
+        solver.save_checkpoint(ck)
+        t_save = time.perf_counter() - t0
+        other = fresh()
+        t0 = time.perf_counter()
+        other.restore_checkpoint(ck)
+        t_restore = time.perf_counter() - t0
+        if other.X_f.device.type != "cuda" or not all(
+                p.is_cuda for pair in other.net.layers() for p in pair):
+            fail("the restored state is not on the card")
+        a = float(solver.update_loss()[0].detach())
+        b = float(other.update_loss()[0].detach())
+        n0 = len(solver.losses)
+        solver.fit(tf_iter=RESUME_STEPS)
+        other.fit(tf_iter=RESUME_STEPS)
+        ha = [r["Total Loss"] for r in solver.losses[n0:]]
+        hb = [r["Total Loss"] for r in other.losses[n0:]]
+        print(f"[checkpoint] save {t_save:.3f} s, restore {t_restore:.3f} s;"
+              f" update_loss {a!r} vs restored {b!r}; {RESUME_STEPS} Adam "
+              f"steps each: {ha[-1]!r} vs {hb[-1]!r}", flush=True)
+        if a != b:
+            fail("the restored solver's loss differs from the saved one's")
+        if ha != hb:
+            fail("the restored solver's Adam steps differ from the saved "
+                 "one's")
+
+        mid = f"{tmp}/mid"
+        solver.fit(newton_iter=10, checkpoint_dir=mid, checkpoint_every=10)
+        third = fresh()
+        third.restore_checkpoint(mid)
+        same = all(torch.equal(p, q) for p, q in zip(
+            [t for pair in solver.net.layers() for t in pair],
+            [t for pair in third.net.layers() for t in pair]))
+        print(f"[checkpoint] mid-L-BFGS: newton_done {third.newton_done} "
+              f"(saved solver {solver.newton_done}), iterate "
+              f"{'identical' if same else 'DIFFERS'}", flush=True)
+        if third.newton_done != solver.newton_done or not same:
+            fail("the mid-L-BFGS checkpoint did not bring back newton_done "
+                 "and the iterate")
+    return dict(save_s=t_save, restore_s=t_restore)
+
+
 def phase_ab(paths: dict, steps: int = AB_STEPS) -> dict:
     """``--profile``: ``steps`` more Adam steps of each trained solver per
     turn, in the order minimax, unfused, unfused, minimax, twice; ms/step
     per turn."""
     import torch
-    turns = {tag: [] for tag in paths}
+    turns = {tag: [] for tag in ("minimax", "unfused")}
     for tag in ("minimax", "unfused", "unfused", "minimax") * 2:
         solver = paths[tag]["solver"]
         torch.cuda.synchronize()
@@ -513,28 +730,31 @@ def _kernel_group(name: str) -> str:
     return "other PyTorch kernels (pointwise, reductions, copies)"
 
 
-def phase_profile(solver, tag: str, n_steps: int = 20):
-    """``--profile``: ``n_steps`` Adam steps of the trained slice under
-    ``torch.profiler``: the host's time in each of ``fit_adam``'s ranges,
-    device time by kernel group, the device's busy and idle share of the
-    wall, the top kernels and host ops."""
+def phase_profile(solver, tag: str, n_steps: int = 20, lbfgs: bool = False):
+    """``--profile``: ``n_steps`` Adam steps (``lbfgs``: line-search L-BFGS
+    iterations) of the trained slice under ``torch.profiler``: the host's
+    time in each of the loop's ranges, device time by kernel group, the
+    device's busy and idle share of the wall, the top kernels and host
+    ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    solver.fit(tf_iter=5)  # warm
+    key = "newton_iter" if lbfgs else "tf_iter"
+    spans = LBFGS_SPANS if lbfgs else HOST_SPANS
+    solver.fit(**{key: 5})  # warm
     torch.cuda.synchronize()
     # the profiler's first window carries its own start-up; keep it out
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        solver.fit(tf_iter=2)
+        solver.fit(**{key: 2})
         torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solver.fit(tf_iter=n_steps)
+        solver.fit(**{key: n_steps})
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name, by_group, n_launch = {}, {}, 0
-    host = dict.fromkeys(HOST_SPANS, 0.0)
+    host = dict.fromkeys(spans, 0.0)
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CPU:
             if evt.name in host:
@@ -552,26 +772,28 @@ def phase_profile(solver, tag: str, n_steps: int = 20):
     if busy_ms <= 0:
         fail("the profiler saw no device time")
     if not all(host.values()):
-        fail(f"the profiler missed a range of fit_adam: {host}")
-    print(f"[host {tag}] {n_steps} steps, host ms/step in fit_adam's ranges "
-          "(under the profiler; loss.residual lies inside fit_adam.loss): "
+        fail(f"the profiler missed a range of the loop: {host}")
+    unit = "iteration" if lbfgs else "step"
+    note = "" if lbfgs else "; loss.residual lies inside fit_adam.loss"
+    print(f"[host {tag}] {n_steps} {unit}s, host ms/{unit} in the loop's "
+          f"ranges (under the profiler{note}): "
           + ", ".join(f"{k} {us / 1e3 / n_steps:.3f}"
                       for k, us in host.items()), flush=True)
-    print(f"[profile {tag}] {n_steps} steps: wall {wall_ms / n_steps:.3f} "
-          f"ms/step, device busy {busy_ms / n_steps:.3f} ms/step "
+    print(f"[profile {tag}] {n_steps} {unit}s: wall {wall_ms / n_steps:.3f} "
+          f"ms/{unit}, device busy {busy_ms / n_steps:.3f} ms/{unit} "
           f"({100 * busy_ms / wall_ms:.1f}% busy, "
           f"{100 * (1 - busy_ms / wall_ms):.1f}% idle), "
-          f"{n_launch / n_steps:.0f} kernel launches/step", flush=True)
+          f"{n_launch / n_steps:.0f} kernel launches/{unit}", flush=True)
     for grp, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        print(f"[profile]   {us / 1e3 / n_steps:8.3f} ms/step  {grp}",
+        print(f"[profile]   {us / 1e3 / n_steps:8.3f} ms/{unit}  {grp}",
               flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-        print(f"[profile]     {us / 1e3 / n_steps:8.3f} ms/step  {name[:90]}",
-              flush=True)
+        print(f"[profile]     {us / 1e3 / n_steps:8.3f} ms/{unit}  "
+              f"{name[:90]}", flush=True)
     ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     for e in ops[:8]:
         print(f"[profile] host {e.self_cpu_time_total / 1e3 / n_steps:8.3f} "
-              f"ms/step self, {e.count / n_steps:6.1f} calls/step  "
+              f"ms/{unit} self, {e.count / n_steps:6.1f} calls/{unit}  "
               f"{e.key[:70]}", flush=True)
 
 
@@ -609,7 +831,7 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="after the slices, an A/B of the two paths in "
                     "eight turns of 50 steps, then profile 20 Adam steps of "
-                    "each path, twice, in turns")
+                    "each path, twice, in turns, and 20 L-BFGS iterations")
     args = ap.parse_args()
 
     import torch
@@ -637,12 +859,15 @@ def main():
              "unfused": phase_slice(TF_ITER, minimax=False)}
     print(f"[paths] ms/step minimax {paths['minimax']['ms_step']:.3f}, "
           f"unfused {paths['unfused']['ms_step']:.3f}", flush=True)
+    paths["lbfgs"] = phase_refine(paths)
     if args.profile:
         phase_ab(paths)
         # in turns, so a slower stretch of the host does not land on one
         # path's window only
         for tag in ("minimax", "unfused", "unfused", "minimax"):
             phase_profile(paths[tag]["solver"], tag)
+        # the refinement: where an L-BFGS iteration's time goes
+        phase_profile(paths["minimax"]["solver"], "lbfgs", lbfgs=True)
     print(kernels_line(meas, paths), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,7 @@ the same user workflow::
 
     solver = CollocationSolverND()            # device="cuda" by default
     solver.compile(layer_sizes, f_model, domain, bcs, fused="cuda")
-    solver.fit(tf_iter=10_000)
+    solver.fit(tf_iter=10_000, newton_iter=10_000)  # Adam, then L-BFGS
     u_pred, f_pred = solver.predict(X_star)
 
 Residual engines (``compile(fused=...)``):
@@ -29,12 +29,23 @@ plain flavor.  ``None`` adopts it behind a numeric cross-check whenever the
 fused residual is active, as the JAX solver does; ``True`` requires it;
 ``False`` keeps the unfused loss.
 
+``fit(newton_iter=...)`` refines with L-BFGS (:mod:`..training.lbfgs`) on
+the same training loss, so on the card every evaluation of the loss and its
+gradient is one K3 launch.  ``save_checkpoint``/``restore_checkpoint``
+carry the whole training state (:mod:`..checkpoint`), ``fit(checkpoint_dir=,
+checkpoint_every=)`` saves it at chunk boundaries of both phases, and
+``save``/``load_model`` write and read the network alone, self-describing.
+
 Everything of the JAX solver that is not ported yet raises
 :class:`~..utils.NotPortedError` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import io
+import json
+import os
+import struct
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -45,6 +56,7 @@ from ..domains import DomainND
 from ..networks import MLP, init_generator, mlp_forward
 from ..ops.derivatives import make_ufn, vmap_residual
 from ..training.fit import FitResult, fit_adam, make_optimizer
+from ..training.lbfgs import fit_lbfgs
 from ..utils import (ieee_f32, initialize_lambdas, not_ported,
                      resolve_device)
 from .assembly import build_loss_fn
@@ -64,17 +76,13 @@ _UNPORTED_COMPILE = {
     "remat": (False, "queue 1, remaining solver features"),
 }
 _UNPORTED_FIT = {
-    "newton_iter": (0, "queue 1, L-BFGS"),
-    "newton_eager": (None, "queue 1, L-BFGS"),
     "batch_sz": (None, "queue 1, minibatching"),
-    "profile_dir": (None, "queue 1, telemetry"),
-    "eval_fn": (None, "queue 1, telemetry"),
-    "eval_every": (0, "queue 1, telemetry"),
+    "profile_dir": (None, "queue 1 item 7, telemetry"),
+    "eval_fn": (None, "queue 1 item 7, telemetry"),
+    "eval_every": (0, "queue 1 item 7, telemetry"),
     "resample_every": (0, "queue 1, resampling"),
-    "checkpoint_dir": (None, "queue 1, checkpointing"),
-    "checkpoint_every": (0, "queue 1, checkpointing"),
-    "telemetry": (None, "queue 1, telemetry"),
-    "grad_clip": (None, "queue 1, resilience"),
+    "telemetry": (None, "queue 1 item 7, telemetry"),
+    "grad_clip": (None, "queue 1 item 5, grad_clip"),
 }
 
 
@@ -90,6 +98,13 @@ def _reject_unported(table: dict, given: dict, where: str):
 
 def _flat(layers) -> list:
     return [t for pair in layers for t in pair]
+
+
+def _pairs(flat) -> list:
+    return list(zip(flat[0::2], flat[1::2]))
+
+
+_SAVE_MAGIC = b"TDQM"
 
 
 class CollocationSolverND:
@@ -116,6 +131,10 @@ class CollocationSolverND:
         self.data_s = None
         self._opt = None  # Adam pair; the moments persist across fit() calls
         self._compiled = False
+        self._loaded = False  # load_model() on an uncompiled solver
+        # L-BFGS iterations done so far (restored from checkpoints), so a
+        # resumed run credits the refinement it already did
+        self.newton_done = 0
 
     @property
     def params(self) -> list:
@@ -133,7 +152,9 @@ class CollocationSolverND:
         """Assemble the problem (reference ``models.py:27-105``).
 
         Args:
-          layer_sizes: ``[n_in, …, n_out]`` MLP sizes.
+          layer_sizes: ``[n_in, …, n_out]`` MLP sizes; ``None`` after
+            :meth:`load_model` reuses the loaded network and its parameters
+            (transfer learning without restating the architecture).
           f_model: per-point residual ``f_model(u, *coords)`` written with
             :func:`tensordiffeq_tpu_torch.grad` combinators.
           domain: :class:`DomainND` with collocation points generated.
@@ -164,8 +185,13 @@ class CollocationSolverND:
                              "'cuda' ('pallas' is the JAX package's TPU "
                              "kernel; its counterpart here is 'cuda')")
         if layer_sizes is None:
-            raise not_ported("compile(layer_sizes=None) after load_model",
-                             "queue 1, checkpointing")
+            if not self._loaded:
+                raise ValueError(
+                    "layer_sizes=None requires load_model(path) first (the "
+                    "architecture is then taken from the saved file)")
+            layer_sizes = self.layer_sizes
+            if network is None:
+                network = self.net
         if Adaptive_type == 3:
             raise not_ported("NTK weighting (Adaptive_type=3)",
                              "queue 1, resampling/discovery/NTK")
@@ -515,53 +541,338 @@ class CollocationSolverND:
             return self.loss_fn(self.net.layers(), self.lambdas["BCs"],
                                 self.lambdas["residual"], self.X_f)
 
-    def fit(self, tf_iter: int = 0, chunk: int = 100, **unported):
-        """Adam phase with SA-λ ascent (reference ``models.py:227`` →
-        ``fit.py:17-102``).  ``tf_iter`` epochs run in chunks of ``chunk``
-        with no host synchronisation inside a chunk; the loss history
-        (``self.losses``) gets one component dict per epoch.
+    def fit(self, tf_iter: int = 0, newton_iter: int = 0,
+            newton_eager: Optional[bool] = None, chunk: int = 100,
+            checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
+            **unported):
+        """Adam with SA-λ ascent, then L-BFGS refinement (reference
+        ``models.py:227`` → ``fit.py:17-102``).
 
-        ``newton_iter > 0`` (L-BFGS) and the JAX solver's other fit
-        options (minibatching, resampling, checkpointing, telemetry,
-        clipping, profiling, eval hooks) raise
+        ``tf_iter`` Adam epochs run in chunks of ``chunk`` with no host
+        synchronisation inside a chunk; the loss history (``self.losses``)
+        gets one component dict per epoch.  ``newton_iter`` L-BFGS
+        iterations then refine the network parameters on the same loss with
+        the λ frozen (:func:`~..training.lbfgs.fit_lbfgs`): with the zoom
+        line search by default, with the reference's fixed step of 0.8 for
+        ``newton_eager=True``.  The history gets one ``{"Total Loss": v}``
+        per iteration, ``newton_done`` counts the iterations that ran (also
+        across checkpoint restores), and the best iterate of each phase is
+        kept; ``predict(best_model=True)`` takes the better one.
+
+        ``checkpoint_dir`` + ``checkpoint_every``: :meth:`save_checkpoint`'s
+        full state, saved when a chunk boundary crosses a
+        ``checkpoint_every`` boundary, in both phases; during L-BFGS it
+        carries the current iterate and the absolute ``newton_done``.  A
+        killed run resumes by compiling the same configuration,
+        :meth:`restore_checkpoint`, and ``fit`` with what is left of the
+        budget.
+
+        The JAX solver's other fit options (minibatching, resampling,
+        telemetry, clipping, profiling, eval hooks) raise
         :class:`~..utils.NotPortedError`."""
         if not self._compiled:
             raise NotCompiledError("Call compile(...) before fit(...)")
         _reject_unported(_UNPORTED_FIT, unported, "fit")
         if self.verbose:
             print(f"[fit] engine={self.engine} device={self.device} "
-                  f"N_f={int(self.X_f.shape[0])} tf_iter={tf_iter}",
-                  flush=True)
-        if tf_iter <= 0:
+                  f"N_f={int(self.X_f.shape[0])} tf_iter={tf_iter} "
+                  f"newton_iter={newton_iter}", flush=True)
+        newton_prior = int(self.newton_done)
+        save = None
+        if checkpoint_dir is not None and checkpoint_every > 0:
+            def save(layers, newton_done, live):
+                self._save_state(checkpoint_dir, layers, newton_done, live)
+
+        if tf_iter > 0:
+            params = _flat(self.net.layers())
+            if self._opt is None:
+                self._opt = make_optimizer(params, self.lambdas, self.lr,
+                                           self.lr_weights)
+            hook = None
+            if save is not None:
+                def hook(epoch, best):
+                    save(self.net.layers(), newton_prior,
+                         ("adam", _pairs(best[0]), best[1], best[2]))
+            with ieee_f32():
+                result = fit_adam(self.loss_fn, params, self.lambdas,
+                                  self.X_f, tf_iter, self._opt, chunk=chunk,
+                                  verbose=self.verbose,
+                                  result=FitResult(losses=self.losses),
+                                  state_hook=hook,
+                                  state_hook_every=checkpoint_every)
+            self.wall_time = result.wall_time
+            if (self.best_model["adam"] is None
+                    or result.min_loss["adam"] <= self.min_loss["adam"]):
+                self.best_model["adam"] = _pairs(result.best_params["adam"])
+                self.min_loss["adam"] = result.min_loss["adam"]
+                self.best_epoch["adam"] = result.best_epoch["adam"]
+
+        if newton_iter > 0:
+            callback = None
+            if save is not None:
+                def callback(done, layers, best):
+                    # the live best counts iterations within this leg:
+                    # re-based to absolute beside the absolute newton_done
+                    save(layers, newton_prior + done,
+                         ("l-bfgs", best[0], best[1],
+                          newton_prior + best[2]))
+            final, best_params, best_loss, best_iter, history = fit_lbfgs(
+                self.loss_fn, self.net.layers(), self.lambdas, self.X_f,
+                maxiter=newton_iter, verbose=self.verbose,
+                eager=bool(newton_eager), callback=callback,
+                callback_every=checkpoint_every if save else 0,
+                iter0=newton_prior)
+            self.net.load_layers(final)
+            self.losses.extend(history)
+            # adopt-if-better, as in the Adam phase: a resumed leg keeps a
+            # restored best that is better
+            if (self.best_model["l-bfgs"] is None
+                    or best_loss <= self.min_loss["l-bfgs"]):
+                self.best_model["l-bfgs"] = [
+                    (W.clone(), b.clone()) for W, b in best_params]
+                self.min_loss["l-bfgs"] = best_loss
+                self.best_epoch["l-bfgs"] = newton_prior + best_iter
+            # the iterations that ran, not the budget: the loop may stop
+            # early, and a resume must not skip refinement that never ran
+            self.newton_done = newton_prior + len(history)
+
+        # the overall best (reference fit.py:95-102); a phase without a
+        # snapshot (skipped by a resumed fit) never wins
+        adam_ok = self.best_model["adam"] is not None
+        lbfgs_ok = self.best_model["l-bfgs"] is not None
+        if adam_ok and (not lbfgs_ok
+                        or self.min_loss["adam"] <= self.min_loss["l-bfgs"]):
+            which, offset = "adam", 0
+        else:
+            which, offset = "l-bfgs", tf_iter
+        self.min_loss["overall"] = self.min_loss[which]
+        self.best_epoch["overall"] = self.best_epoch[which] + offset
+        self.best_model["overall"] = self.best_model[which]
+        return self
+
+    # ------------------------------------------------------------------ #
+    @staticmethod
+    def _opt_tree(opts) -> dict:
+        """The Adam pair's states as ``{"net": [...], "lam": [...]}``, one
+        ``{"exp_avg", "exp_avg_sq", "step"}`` per parameter (zeros for a
+        parameter that has not stepped: the same as a fresh moment)."""
+        tree = {}
+        for name, opt in zip(("net", "lam"), opts):
+            if opt is None:
+                continue
+            entries = []
+            for p in opt.param_groups[0]["params"]:
+                st = opt.state.get(p, {})
+                entries.append({
+                    "exp_avg": st.get("exp_avg", torch.zeros_like(p)),
+                    "exp_avg_sq": st.get("exp_avg_sq", torch.zeros_like(p)),
+                    "step": st.get("step", torch.zeros(()))})
+            tree[name] = entries
+        return tree
+
+    def _state_and_meta(self, layers, newton_done: int, live=None):
+        """The checkpoint's state tree and meta (the JAX solver's keys).
+        ``live = (phase, best_layers, best_loss, best_iter)`` is the running
+        best of a phase in progress, which competes with the stored phase
+        bests for the saved best iterate."""
+        state = {"params": [list(pair) for pair in layers],
+                 "lambdas": self.lambdas}
+        if self._opt is not None:
+            state["opt_state"] = self._opt_tree(self._opt)
+        state["X_f"] = self.X_f
+        min_loss = {k: float(v) for k, v in self.min_loss.items()}
+        best_epoch = dict(self.best_epoch)
+        cand = []
+        if live is not None:
+            phase, bp, bl, bi = live
+            bl, bi = float(bl), int(bi)
+            if np.isfinite(bl):
+                cand.append((bl, bi, phase, bp))
+                if bl < min_loss.get(phase, np.inf):
+                    min_loss[phase], best_epoch[phase] = bl, bi
+        phases = ("adam", "l-bfgs") if live is not None else \
+            ("adam", "l-bfgs", "overall")
+        for ph in phases:
+            bp = self.best_model.get(ph)
+            if bp is not None and np.isfinite(float(self.min_loss[ph])):
+                cand.append((float(self.min_loss[ph]),
+                             int(self.best_epoch[ph]), ph, bp))
+        meta = {"losses": self.losses,
+                "min_loss": min_loss,
+                "best_epoch": best_epoch,
+                "newton_done": int(newton_done),
+                "has_opt_state": self._opt is not None,
+                "has_X_f": True,
+                "n_f": int(self.X_f.shape[0]),
+                "grad_clip": None,
+                "resample_uniform_floor": 0.0}
+        if cand:
+            # the lowest loss; ties go to the first candidate (the live
+            # best) or, in a plain save, to the phase bucket before
+            # "overall", which mirrors one of them
+            bl, bi, ph, bp = min(cand, key=lambda c: c[0])
+            state["best_params"] = [list(pair) for pair in bp]
+            meta.update(has_best=True, best_phase=ph, best_loss=bl,
+                        best_iter=bi)
+        return state, meta
+
+    def _save_state(self, path, layers, newton_done, live=None,
+                    sharded=None):
+        from ..checkpoint import save_checkpoint
+        state, meta = self._state_and_meta(layers, newton_done, live)
+        save_checkpoint(path, state, meta, sharded=sharded)
+
+    def save_checkpoint(self, path: str, sharded: Optional[bool] = None):
+        """Checkpoint the full training state under the directory ``path``
+        (:mod:`..checkpoint`): the parameters, the SA λ, both Adam states
+        (moments and step counts), the collocation set, the loss history,
+        ``min_loss``, ``best_epoch``, ``newton_done`` and the best iterate.
+        ``sharded=True`` (the multi-process layout) is not ported."""
+        if not self._compiled:
+            raise NotCompiledError("Call compile(...) before save_checkpoint")
+        self._save_state(path, self.net.layers(), self.newton_done,
+                         sharded=sharded)
+
+    def restore_checkpoint(self, path: str):
+        """Restore a :meth:`save_checkpoint` state into this solver, which
+        must be compiled with the same configuration (else
+        :class:`~..checkpoint.TemplateMismatch`).  Everything lands on the
+        solver's device; the best iterate is re-bucketed by its phase and
+        mirrored into ``"overall"``."""
+        if not self._compiled:
+            raise NotCompiledError(
+                "Call compile(...) before restore_checkpoint")
+        from ..checkpoint import resolve_checkpoint_dir, restore_checkpoint
+        with open(os.path.join(resolve_checkpoint_dir(path),
+                               "tdq_meta.json")) as fh:
+            peek = json.load(fh)["meta"]
+        layers = self.net.layers()
+        template = {"params": [list(pair) for pair in layers],
+                    "lambdas": self.lambdas}
+        fresh = make_optimizer(_flat(layers), self.lambdas, self.lr,
+                               self.lr_weights)
+        if peek.get("has_opt_state", False):
+            template["opt_state"] = self._opt_tree(fresh)
+        if peek.get("has_X_f", False):
+            template["X_f"] = self.X_f
+        if peek.get("has_best", False):
+            template["best_params"] = template["params"]
+        state, meta = restore_checkpoint(path, template)
+
+        def dev(a):
+            return torch.as_tensor(np.array(a), device=self.device)
+
+        self.net.load_layers([(dev(W), dev(b)) for W, b in state["params"]])
+        with torch.no_grad():
+            for key, lams in self.lambdas.items():
+                for lam, saved in zip(lams, state["lambdas"][key]):
+                    if lam is not None:
+                        lam.copy_(dev(saved))
+        if "opt_state" in state:
+            for opt, entries in zip(fresh, (state["opt_state"].get("net"),
+                                            state["opt_state"].get("lam"))):
+                if opt is None:
+                    continue
+                sd = opt.state_dict()
+                sd["state"] = {
+                    i: {"step": torch.as_tensor(np.array(e["step"])),
+                        "exp_avg": dev(e["exp_avg"]),
+                        "exp_avg_sq": dev(e["exp_avg_sq"])}
+                    for i, e in enumerate(entries)}
+                opt.load_state_dict(sd)
+            self._opt = fresh
+        else:
+            self._opt = None
+        if "X_f" in state:
+            self.X_f = dev(np.ascontiguousarray(state["X_f"], np.float32))
+        self.losses = list(meta.get("losses", []))
+        for k, v in meta.get("min_loss", {}).items():
+            self.min_loss[k] = float(v)
+        for k, v in meta.get("best_epoch", {}).items():
+            self.best_epoch[k] = int(v)
+        if "best_params" in state:
+            best = [(dev(W), dev(b)) for W, b in state["best_params"]]
+            ph = meta.get("best_phase", "adam")
+            if ph in ("adam", "l-bfgs"):
+                self.best_model[ph] = best
+            self.best_model["overall"] = best
+            self.min_loss["overall"] = float(meta.get("best_loss", np.inf))
+            self.best_epoch["overall"] = int(meta.get("best_iter", -1))
+        self.newton_done = int(meta.get("newton_done", 0))
+        return self
+
+    # ------------------------------------------------------------------ #
+    def _arch_meta(self) -> dict:
+        return {"format": 1, "layer_sizes": list(self.layer_sizes),
+                "activation": "tanh", "network_type": "MLP",
+                "n_out": int(self.n_out)}
+
+    def save(self, path: str):
+        """Write the network, self-describing (reference ``models.py:315-
+        316``): ``TDQM``, the JSON architecture header's length (8 bytes,
+        little-endian) and the header, then the parameters as an ``.npz``
+        in the flax layout of :func:`~..weights.params_to_numpy`."""
+        from ..checkpoint import write_npz
+        from ..weights import params_to_numpy
+        if not (self._compiled or self._loaded):
+            raise NotCompiledError("Call compile(...) or load_model(...) "
+                                   "before save(...)")
+        header = json.dumps(self._arch_meta()).encode("utf-8")
+        tree = params_to_numpy(self.net)["params"]
+        blob = io.BytesIO()
+        write_npz(blob, {f"params/{name}/{leaf}": arr
+                         for name, layer in tree.items()
+                         for leaf, arr in layer.items()})
+        with open(path, "wb") as fh:
+            fh.write(_SAVE_MAGIC + struct.pack("<Q", len(header)) + header
+                     + blob.getvalue())
+
+    def load_model(self, path: str):
+        """Read a network written by :meth:`save` (reference ``models.py:
+        318-319``).  On a compiled solver the file's architecture must match
+        the compiled one.  On an uncompiled solver the MLP is rebuilt from
+        the file; ``predict`` then gives ``u`` (and ``None`` for the
+        residual), and ``compile(layer_sizes=None, ...)`` trains on from the
+        loaded network (the transfer-learn flow)."""
+        from ..checkpoint import read_npz
+        with open(path, "rb") as fh:
+            raw = fh.read()
+        if raw[:4] != _SAVE_MAGIC:
+            raise ValueError(f"{path} is not a model saved by save() (no "
+                             "TDQM header)")
+        hlen = struct.unpack("<Q", raw[4:12])[0]
+        meta = json.loads(raw[12:12 + hlen].decode("utf-8"))
+        arrays = read_npz(io.BytesIO(raw[12 + hlen:]))
+        if meta.get("network_type", "MLP") != "MLP":
+            raise not_ported(f"loading a {meta['network_type']}",
+                             "queue 1, solver features")
+        n_layers = len(meta["layer_sizes"]) - 1
+        layers = [(torch.from_numpy(arrays[f"params/Dense_{i}/kernel"]),
+                   torch.from_numpy(arrays[f"params/Dense_{i}/bias"]))
+                  for i in range(n_layers)]
+        if self._compiled:
+            if list(meta["layer_sizes"]) != list(self.layer_sizes):
+                raise ValueError(
+                    f"saved model has layer_sizes {meta['layer_sizes']} but "
+                    f"this solver was compiled with {self.layer_sizes}")
+            self.net.load_layers(layers)
             return self
-        params = _flat(self.net.layers())
-        if self._opt is None:
-            self._opt = make_optimizer(params, self.lambdas, self.lr,
-                                       self.lr_weights)
-        with ieee_f32():
-            result = fit_adam(self.loss_fn, params, self.lambdas, self.X_f,
-                              tf_iter, self._opt, chunk=chunk,
-                              verbose=self.verbose,
-                              result=FitResult(losses=self.losses))
-        self.wall_time = result.wall_time
-        if (self.best_model["adam"] is None
-                or result.min_loss["adam"] <= self.min_loss["adam"]):
-            best = result.best_params["adam"]
-            self.best_model["adam"] = list(zip(best[0::2], best[1::2]))
-            self.min_loss["adam"] = result.min_loss["adam"]
-            self.best_epoch["adam"] = result.best_epoch["adam"]
-        self.min_loss["overall"] = self.min_loss["adam"]
-        self.best_epoch["overall"] = self.best_epoch["adam"]
-        self.best_model["overall"] = self.best_model["adam"]
+        self.net = MLP(meta["layer_sizes"], device=self.device)
+        self.net.load_layers(layers)
+        self.layer_sizes = list(meta["layer_sizes"])
+        self.n_out = int(meta.get("n_out", self.layer_sizes[-1]))
+        self._loaded = True
         return self
 
     # ------------------------------------------------------------------ #
     def predict(self, X_star, best_model: bool = False):
         """Evaluate the solution and the PDE residual at query points
         (reference ``models.py:297-313``).  Returns ``(u, f_u)`` as NumPy;
-        ``f_u`` is a tuple for multi-equation systems."""
-        if not self._compiled:
-            raise NotCompiledError("Call compile(...) before predict(...)")
+        ``f_u`` is a tuple for multi-equation systems, ``None`` on a solver
+        that loaded a network but is not compiled."""
+        if not (self._compiled or self._loaded):
+            raise NotCompiledError("Call compile(...) or load_model(...) "
+                                   "before predict(...)")
         params = (self.best_model["overall"]
                   if best_model and self.best_model["overall"] is not None
                   else self.net.layers())
@@ -569,6 +880,10 @@ class CollocationSolverND:
                             device=self.device)
         with ieee_f32(), torch.no_grad():
             u = mlp_forward(params, X)
+            if not self._compiled:
+                # loaded, not compiled: the solution network exists, the
+                # residual does not (no f_model yet)
+                return u.cpu().numpy(), None
             f = self._residual(params, X)
         if isinstance(f, tuple):
             f_np = tuple(c.cpu().numpy() for c in f)

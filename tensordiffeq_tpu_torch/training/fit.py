@@ -14,7 +14,7 @@ The optimizer is the JAX package's ``optax.multi_transform`` written as two
 both with the reference's ``lr=0.005, beta_1=0.99``.
 
 Not ported yet (ROADMAP queue 1): minibatching (``batch_sz``), learning-rate
-schedules, gradient clipping, resampling and checkpoint hooks, telemetry.
+schedules, gradient clipping, resampling, telemetry.
 """
 
 from __future__ import annotations
@@ -75,14 +75,22 @@ def _device_scalar(v, dev) -> torch.Tensor:
 def fit_adam(loss_fn: Callable, params: list, lambdas: dict,
              X_f: torch.Tensor, tf_iter: int, optimizers: tuple,
              chunk: int = 100, verbose: bool = True,
-             result: Optional[FitResult] = None) -> FitResult:
+             result: Optional[FitResult] = None,
+             state_hook: Optional[Callable] = None,
+             state_hook_every: int = 0) -> FitResult:
     """Run ``tf_iter`` Adam(+SA) epochs in place on ``params`` / ``lambdas``.
 
     ``loss_fn(params, lam_bcs, lam_res, X) -> (total, components)``;
     ``params`` is the network's live parameter list (``[W_0, b_0, ...]`` in
     layer pairs), ``optimizers`` the :func:`make_optimizer` pair (kept by
     the caller so the Adam moments persist across calls).  Returns the
-    record with one loss-component dict per epoch and the best iterate."""
+    record with one loss-component dict per epoch and the best iterate.
+
+    ``state_hook(epoch, best)`` + ``state_hook_every``: called at a chunk
+    boundary that crosses a ``state_hook_every`` boundary (``epoch`` counts
+    this call's steps), with the live parameters and optimizers as they are
+    then and ``best = (best_params, best_loss, best_epoch)``, the running
+    best as device tensors: the mid-run checkpoint path."""
     result = result or FitResult()
     opt_net, opt_lam = optimizers
     layers = list(zip(params[0::2], params[1::2]))
@@ -129,7 +137,10 @@ def fit_adam(loss_fn: Callable, params: list, lambdas: dict,
         hist = torch.stack(rows).cpu().numpy()  # one host copy per chunk
         for row in hist:
             result.losses.append({k: float(v) for k, v in zip(keys, row)})
-        step += n
+        prev, step = step, step + n
+        if (state_hook is not None and state_hook_every > 0
+                and prev // state_hook_every != step // state_hook_every):
+            state_hook(step, (best_params, best_loss, best_step))
         if verbose:
             print(f"Adam epoch {step}/{tf_iter}: total loss "
                   f"{result.losses[-1]['Total Loss']:.6e}", flush=True)

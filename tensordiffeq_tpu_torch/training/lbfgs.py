@@ -1,0 +1,555 @@
+"""L-BFGS refinement.
+
+Counterpart of the JAX package's ``training/lbfgs.py`` (``lbfgs_minimize``,
+``fit_lbfgs``).  The JAX package runs ``optax.lbfgs`` inside a jitted
+``lax.scan`` chunk; this module computes the same algorithm as optax 0.2.6
+without importing it:
+
+* the compact two-loop recursion of ``optax.scale_by_lbfgs`` (memory ring of
+  ``memory_size`` difference pairs kept as two ``[m, n]`` tensors, ρ = 1/(y·s)
+  or 0, identity scale γ = (y·s)/(y·y) or min(1, 1/‖g‖) at the first step);
+* ``optax.scale_by_zoom_linesearch(max_linesearch_steps=30)`` with its
+  defaults, ``initial_guess_strategy="keep"`` among them (the first step tried
+  is the previous accepted step size): the interval search, the zoom with
+  cubic, quadratic and bisection candidates, and the safe step on failure;
+* ``optax.value_and_grad_from_state``: the value and gradient at the accepted
+  point serve the next iteration, so an iteration costs its line-search
+  evaluations (the first one, one more);
+* the fixed-step rule (``eager=True``): ``optax.lbfgs(learning_rate=0.8,
+  linesearch=None)``, one evaluation per iteration.
+
+The vectors (iterate, direction, gradients, the memory, the best iterate)
+stay on the iterate's device.  The line search's branches read each trial's
+value and slope on the host: one host synchronisation per line-search
+evaluation.  The fixed-step rule has none inside a chunk: its losses and
+gradient norms come back in one copy per chunk, as ``fit_adam``'s do.
+:func:`lbfgs_minimize` counts the objective's evaluations and its host
+synchronisations in ``lbfgs_minimize.evaluations`` and
+``lbfgs_minimize.host_syncs`` (as the kernel wrappers count their launches),
+and marks the evaluations, the two-loop products and the host reads as the
+profiler ranges ``lbfgs.evaluate``, ``lbfgs.direction`` and ``lbfgs.read``
+(entered only while a profiler records).
+
+L-BFGS optimizes the network parameters only; SA λ stay frozen (reference
+``models.py:283-295``).
+
+Not ported yet (ROADMAP queue 1 item 7): the telemetry step-time split, the
+preemption flush and the cluster heartbeat of the JAX loop.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..utils import ieee_f32, span
+
+# optax.scale_by_zoom_linesearch's defaults, as the JAX package calls it
+MAX_LINESEARCH_STEPS = 30
+SLOPE_RTOL = 1e-4
+CURV_RTOL = 0.9
+APPROX_DEC_RTOL = 1e-6
+INCREASE_FACTOR = 2.0
+STEPSIZE_PRECISION = 1e-5  # the zoom's interval threshold
+TOL = 0.0
+
+
+def _log_stop(msg: str) -> None:
+    """Early stops print to stderr unconditionally, as in the JAX loop: a
+    silent stop inside a long run reads like a completed phase."""
+    print(f"[l-bfgs] {msg}", file=sys.stderr, flush=True)
+
+
+def _read(*tensors) -> np.ndarray:
+    """Scalars from the device in one copy (one host synchronisation)."""
+    lbfgs_minimize.host_syncs += 1
+    with span("lbfgs.read"):
+        return torch.stack([t.reshape(()) for t in tensors]).cpu().numpy()
+
+
+def _value_and_grad(fun: Callable, x: torch.Tensor):
+    """``(f(x), ∇f(x))`` detached; one evaluation of the objective."""
+    with span("lbfgs.evaluate"), torch.enable_grad():
+        xl = x.detach().requires_grad_(True)
+        value = fun(xl)
+        # a parameter the objective does not read gets a zero gradient, as
+        # in JAX (the head's bias under a residual that never reads u)
+        (grad,) = torch.autograd.grad(value, xl, materialize_grads=True)
+    lbfgs_minimize.evaluations += 1
+    return value.detach().reshape(()), grad
+
+
+class _Memory:
+    """``optax.scale_by_lbfgs`` with ``scale_init_precond=True``: the ring of
+    parameter and gradient differences and its two-loop product."""
+
+    def __init__(self, x: torch.Tensor, m: int):
+        self.m = m
+        self.count = 0  # host-side: the iteration number decides the slots
+        self.S = torch.zeros((m,) + x.shape, dtype=x.dtype, device=x.device)
+        self.Y = torch.zeros_like(self.S)
+        self.rho = torch.zeros(m, dtype=x.dtype, device=x.device)
+        self.prev_x = None
+        self.prev_g = None
+
+    def precondition(self, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        """Store the pair ``(x - x_prev, g - g_prev)`` in slot ``(count-1) %
+        m`` (nothing while ``count == 0``) and return ``P·g``."""
+        with span("lbfgs.direction"):
+            return self._precondition(x, g)
+
+    def _precondition(self, x, g):
+        m, count = self.m, self.count
+        if count > 0:
+            s = x - self.prev_x
+            y = g - self.prev_g
+            ys = torch.dot(y, s)
+            slot = (count - 1) % m
+            self.S[slot] = s
+            self.Y[slot] = y
+            self.rho[slot] = torch.where(ys == 0, torch.zeros_like(ys),
+                                         1.0 / ys)
+            yy = torch.dot(y, y)
+            gamma = torch.where(yy > 0, ys / yy, torch.ones_like(yy))
+        else:
+            # the first step's identity scale: a capped reciprocal of ‖g‖
+            gamma = torch.clamp(1.0 / torch.linalg.vector_norm(g), max=1.0)
+        self.prev_x, self.prev_g = x, g
+        self.count += 1
+        # oldest to newest; optax sweeps all m slots, but an unfilled slot
+        # (ρ = 0, zero vectors) changes nothing, so only filled ones run
+        start = count % m
+        order = [(start + k) % m for k in range(m)][m - min(count, m):]
+        v = g.clone()
+        alphas = []
+        for i in reversed(order):
+            a = self.rho[i] * torch.dot(self.S[i], v)
+            v.addcmul_(self.Y[i], a, value=-1.0)
+            alphas.append(a)
+        v = gamma * v
+        for i, a in zip(order, reversed(alphas)):
+            b = self.rho[i] * torch.dot(self.Y[i], v)
+            v.addcmul_(self.S[i], a - b)
+        return v
+
+
+def _cubicmin(a, fa, fpa, b, fb, c, fc, dt):
+    """Critical point of the cubic through (a, fa) with slope fpa, (b, fb)
+    and (c, fc); NaN when there is none (optax ``_cubicmin``)."""
+    C = fpa
+    db = b - a
+    dc = c - a
+    denom = (db * dc) ** 2 * (db - dc)
+    d1 = np.array([[dc ** 2, -(db ** 2)], [-(dc ** 3), db ** 3]], dt)
+    A, B = np.dot(d1, np.array([fb - fa - C * db, fc - fa - C * dc], dt)) \
+        / denom
+    radical = B * B - dt(3.0) * A * C
+    return a + (-B + np.sqrt(radical)) / (dt(3.0) * A)
+
+
+def _quadmin(a, fa, fpa, b, fb, dt):
+    """Critical point of the quadratic through (a, fa) with slope fpa and
+    (b, fb) (optax ``_quadmin``)."""
+    C = fpa
+    db = b - a
+    B = (fb - fa - C * db) / (db ** 2)
+    return a - C / (dt(2.0) * B)
+
+
+class _ZoomLinesearch:
+    """``optax.zoom_linesearch`` with the defaults above, one trial per turn
+    of :meth:`run`'s loop.  Scalars live on the host in the iterate's dtype;
+    the gradients (and the values, for the best-iterate select) at the
+    trials stay on the device.
+
+    The starting value and slope are read from the device together with
+    the first trial's (one host synchronisation for both): ``init`` holds
+    the device scalars ``[slope_init, ‖g‖, value_init?]``, the last only
+    when the caller does not know the value on the host yet."""
+
+    def __init__(self, fun, x, d, value, grad, guess, dt, init,
+                 value_h=None):
+        self.fun, self.x, self.d, self.dt = fun, x, d, dt
+        self.guess = guess
+        self.init = init
+        self.count = 0
+        self.stepsize = dt(0.0)
+        self.grad = self.safe_grad = grad
+        self.value_dev = self.safe_value_dev = value
+        self.value_init = value_h
+        self.decrease_error = self.curvature_error = dt(np.inf)
+        self.interval_found = self.done = self.failed = False
+        self.gnorm = None
+
+    def _bind(self, vals):
+        """The line search's initial state, once its scalars are here."""
+        dt = self.dt
+        slope, self.gnorm = dt(vals[0]), float(vals[1])
+        if self.value_init is None:
+            self.value_init = dt(vals[2])
+        value = self.value_init
+        self.slope_init = self.slope = slope
+        self.value = value
+        z = dt(0.0)
+        self.low, self.value_low, self.slope_low = z, value, slope
+        self.high, self.value_high, self.slope_high = z, value, slope
+        self.cubic_ref, self.value_cubic_ref = z, value
+        self.safe_stepsize, self.safe_value = z, value
+
+    def _trial(self, stepsize):
+        value, grad = _value_and_grad(self.fun,
+                                      self.x + float(stepsize) * self.d)
+        slope = torch.dot(grad, self.d)
+        got = _read(value, slope, *self.init)
+        if self.init:
+            self._bind(got[2:])
+            self.init = []
+        return self.dt(got[0]), value, grad, self.dt(got[1])
+
+    def _decrease_error(self, stepsize, value, slope):
+        dt = self.dt
+        armijo = value - self.value_init - dt(SLOPE_RTOL) * stepsize \
+            * self.slope_init
+        approx = slope - (dt(2 * SLOPE_RTOL) - dt(1.0)) * self.slope_init
+        delta = value - self.value_init - dt(APPROX_DEC_RTOL) \
+            * np.abs(self.value_init)
+        err = np.minimum(np.maximum(approx, delta), armijo)
+        err = np.maximum(err, dt(0.0))
+        return dt(np.inf) if np.isnan(err) else err
+
+    def _curvature_error(self, slope):
+        err = np.maximum(np.abs(slope) - self.dt(CURV_RTOL)
+                         * np.abs(self.slope_init), self.dt(0.0))
+        return self.dt(np.inf) if np.isnan(err) else err
+
+    def _set_safe(self, stepsize, value, value_dev, grad):
+        self.safe_stepsize, self.safe_value = stepsize, value
+        self.safe_value_dev, self.safe_grad = value_dev, grad
+
+    def _search_interval(self):
+        """Algorithm 3.5 of Nocedal and Wright (optax
+        ``_search_interval``)."""
+        it = self.count
+        new = self.guess if it == 0 else self.dt(INCREASE_FACTOR) \
+            * self.stepsize
+        value, value_dev, grad, slope = self._trial(new)
+        prev_step, prev_value, prev_slope = self.stepsize, self.value, \
+            self.slope
+        dec = self._decrease_error(new, value, slope)
+        curv = self._curvature_error(slope)
+        error = np.maximum(dec, curv)
+        if dec <= TOL:
+            self._set_safe(new, value, value_dev, grad)
+        set_high = bool(dec > 0.0) or (bool(value >= prev_value) and it > 0)
+        set_low = bool(slope >= 0.0) and not set_high
+        if set_low:
+            self.low, self.value_low, self.slope_low = new, value, slope
+            self.high, self.value_high, self.slope_high = \
+                prev_step, prev_value, prev_slope
+        else:
+            self.low, self.value_low, self.slope_low = \
+                prev_step, prev_value, prev_slope
+            self.high, self.value_high, self.slope_high = new, value, slope
+        self.interval_found = set_high or set_low or bool(error <= TOL)
+        self.done = bool(error <= TOL)
+        self.failed = it + 1 >= MAX_LINESEARCH_STEPS and not self.done
+        self.cubic_ref, self.value_cubic_ref = self.low, self.value_low
+        self.stepsize, self.value, self.slope = new, value, slope
+        self.value_dev, self.grad = value_dev, grad
+        self.decrease_error, self.curvature_error = dec, curv
+
+    def _zoom_into_interval(self):
+        """Algorithm 3.6 of Nocedal and Wright (optax
+        ``_zoom_into_interval``)."""
+        dt = self.dt
+        low, value_low, slope_low = self.low, self.value_low, self.slope_low
+        high, value_high, slope_high = self.high, self.value_high, \
+            self.slope_high
+        delta = np.abs(high - low)
+        left, right = np.minimum(high, low), np.maximum(high, low)
+        too_small = bool(delta <= STEPSIZE_PRECISION)
+        with np.errstate(all="ignore"):  # NaN candidates are not taken
+            cubic = _cubicmin(low, value_low, slope_low, high, value_high,
+                              self.cubic_ref, self.value_cubic_ref, dt)
+            quad = _quadmin(low, value_low, slope_low, high, value_high, dt)
+        use_cubic = bool(cubic > left + dt(0.2) * delta) and \
+            bool(cubic < right - dt(0.2) * delta)
+        use_quad = not use_cubic and bool(quad > left + dt(0.1) * delta) \
+            and bool(quad < right - dt(0.1) * delta)
+        if use_cubic:
+            middle = dt(cubic)
+        elif use_quad:
+            middle = dt(quad)
+        else:
+            middle = (low + high) / dt(2.0)
+        value, value_dev, grad, slope = self._trial(middle)
+        dec = self._decrease_error(middle, value, slope)
+        curv = self._curvature_error(slope)
+        error = np.maximum(dec, curv)
+        if dec <= TOL and bool(value < self.safe_value):
+            self._set_safe(middle, value, value_dev, grad)
+        self.done = bool(error <= TOL)
+        set_high_to_middle = bool(dec > 0.0) or bool(value >= value_low)
+        set_high_to_low = bool(slope * (high - low) >= 0.0) and \
+            not set_high_to_middle
+        if set_high_to_middle:
+            self.high, self.value_high, self.slope_high = middle, value, slope
+        elif set_high_to_low:
+            self.high, self.value_high, self.slope_high = \
+                low, value_low, slope_low
+        if not set_high_to_middle:
+            self.low, self.value_low, self.slope_low = middle, value, slope
+        # the old high when high moved, else the old low
+        if set_high_to_middle or set_high_to_low:
+            self.cubic_ref, self.value_cubic_ref = high, value_high
+        else:
+            self.cubic_ref, self.value_cubic_ref = low, value_low
+        presumably_failed = self.count + 1 >= MAX_LINESEARCH_STEPS or (
+            too_small and bool(self.safe_stepsize > 0.0))
+        self.failed = presumably_failed and not self.done
+        self.stepsize, self.value, self.slope = middle, value, slope
+        self.value_dev, self.grad = value_dev, grad
+        self.decrease_error, self.curvature_error = dec, curv
+
+    def _try_safe_step(self):
+        """The best step with sufficient decrease; with none, the last trial,
+        or the safe step 0 when that trial left the domain (optax
+        ``_try_safe_step``)."""
+        outside_domain = bool(np.isinf(self.decrease_error))
+        if self.safe_stepsize > 0.0 or outside_domain:
+            self.stepsize, self.value = self.safe_stepsize, self.safe_value
+            self.value_dev, self.grad = self.safe_value_dev, self.safe_grad
+
+    def run(self):
+        while not (self.done or self.failed):
+            if self.interval_found:
+                self._zoom_into_interval()
+            else:
+                self._search_interval()
+            self.count += 1
+            if self.failed:
+                self._try_safe_step()
+        return self
+
+
+def lbfgs_minimize(fun: Callable, x0: torch.Tensor, maxiter: int = 1000,
+                   memory_size: int = 50, tol_fun: float = 1e-12,
+                   tol_grad: float = 1e-12, chunk: int = 100,
+                   eager: bool = False, learning_rate: float = 0.8,
+                   callback: Optional[Callable] = None,
+                   callback_every: int = 0, iter0: int = 0,
+                   fun_fallback: Optional[Callable] = None,
+                   verbose: bool = False):
+    """Minimise ``fun(x) -> scalar tensor`` over a 1-D tensor ``x``.
+
+    Returns ``(x_final, x_best, f_best, best_iter, history)`` as the JAX
+    function does: ``history`` is the per-iteration loss as a Python list;
+    ``f_best`` and ``best_iter`` are 0-d tensors on ``x0``'s device.  The
+    line-search rule records the value at each accepted iterate, the
+    fixed-step rule (``eager=True``: the update ``-learning_rate·P·g``) the
+    value at the iterate it just evaluated.  The best iterate is a
+    device-side select that never adopts a non-finite value.
+
+    Stops run at chunk boundaries, in the JAX order: a non-finite loss, then
+    ``|f_prev - f_now| < tol_fun``, then ``‖g‖ < tol_grad``.
+    ``callback(done, x, (x_best, f_best, best_iter))`` fires when a chunk
+    boundary crosses a ``callback_every`` boundary.
+
+    ``fun_fallback``: the precision retreat.  A non-finite or stagnation
+    stop with budget left restarts, once, from the best iterate with fresh
+    memory on ``fun_fallback``, after re-measuring the incumbent under it.
+
+    ``iter0`` is the absolute iteration of the first one here; it only
+    labels the stop messages."""
+    x = x0.detach().clone()
+    dt = np.dtype(str(x.dtype).replace("torch.", "")).type
+    dev = x.device
+    x_best = x0.detach().clone()
+    f_best = torch.full((), float("inf"), dtype=x.dtype, device=dev)
+    i_best = torch.full((), -1, dtype=torch.long, device=dev)
+    step_ids = torch.arange(maxiter, device=dev)
+
+    def fresh(fn):
+        # the L-BFGS memory and the line search's carried state (optax's
+        # ScaleByZoomLinesearchState: step size 1, value inf)
+        return dict(fn=fn, memory=_Memory(x, memory_size), value=None,
+                    value_h=dt(np.inf), grad=None, learning_rate=dt(1.0))
+
+    run = fresh(fun)
+    history: list[float] = []
+    f_prev = np.inf
+    done = 0
+    retreated = fun_fallback is None
+    while done < maxiter:
+        n = int(min(chunk, maxiter - done))
+        values, gnorms = [], []
+        for i in range(n):
+            if eager:
+                value, grad = _value_and_grad(run["fn"], x)
+                direction = run["memory"].precondition(x, grad)
+                x_at, new_value = x, value
+                x = x + (-learning_rate) * direction
+                values.append(value)
+                gnorms.append(torch.linalg.vector_norm(grad))
+            else:
+                value, grad, value_h = run["value"], run["grad"], \
+                    run["value_h"]
+                fresh_eval = not np.isfinite(value_h)
+                if fresh_eval:  # value_and_grad_from_state: nothing stored
+                    value, grad = _value_and_grad(run["fn"], x)
+                d = -run["memory"].precondition(x, grad)
+                init = [torch.dot(d, grad), torch.linalg.vector_norm(grad)]
+                if fresh_eval:
+                    init.append(value)
+                ls = _ZoomLinesearch(
+                    run["fn"], x, d, value, grad, run["learning_rate"], dt,
+                    init, value_h=None if fresh_eval else value_h).run()
+                x = x + float(ls.stepsize) * d
+                x_at, new_value = x, ls.value_dev
+                run.update(value=ls.value_dev, grad=ls.grad,
+                           value_h=ls.value, learning_rate=ls.stepsize)
+                values.append(float(ls.value))
+                gnorms.append(ls.gnorm)
+            with torch.no_grad():
+                improved = torch.isfinite(new_value) & (new_value < f_best)
+                x_best = torch.where(improved, x_at, x_best)
+                f_best = torch.where(improved, new_value, f_best)
+                i_best = torch.where(improved, step_ids[done + i], i_best)
+        if eager:
+            got = _read(*values, *gnorms)
+            values, gnorms = list(got[:n]), list(got[n:])
+        history.extend(float(v) for v in values)
+        prev_done = done
+        done += n
+        if (callback is not None and callback_every > 0
+                and prev_done // callback_every != done // callback_every):
+            callback(done, x, (x_best, f_best, i_best))
+        f_now = float(values[-1])
+        if verbose:
+            print(f"L-BFGS iter {iter0 + done}: loss {f_now:.6e}", flush=True)
+        stop = None
+        if not np.isfinite(f_now):
+            stop = "non-finite"
+        elif abs(f_prev - f_now) < tol_fun:
+            stop = "stagnation"
+        if stop is not None and not retreated and done < maxiter:
+            retreated = True
+            _log_stop(f"{stop} on the reduced-precision loss at iter "
+                      f"{iter0 + done}; retreating to the full-precision "
+                      f"objective for the remaining {maxiter - done} iters")
+            # the best finite iterate, or x0 when nothing improved: never
+            # the possibly poisoned last one
+            x = x_best.clone()
+            run = fresh(fun_fallback)
+            with torch.no_grad():
+                f_best = fun_fallback(x_best).detach().reshape(())
+            lbfgs_minimize.evaluations += 1
+            f_prev = np.inf
+            continue
+        if stop == "non-finite":
+            _log_stop(f"non-finite loss at iter {iter0 + done}; stopping, "
+                      "keeping the best iterate")
+            break
+        if stop == "stagnation":
+            _log_stop(f"tolerance stop at iter {iter0 + done}: "
+                      f"|f_prev-f_now|={abs(f_prev - f_now):.3e} < "
+                      f"tol_fun={tol_fun:g} (f={f_now:.6e})")
+            break
+        if float(gnorms[-1]) < tol_grad:
+            _log_stop(f"gradient stop at iter {iter0 + done}: "
+                      f"|g|={float(gnorms[-1]):.3e} < tol_grad={tol_grad:g}")
+            break
+        f_prev = f_now
+    return x, x_best, f_best, i_best, history
+
+
+lbfgs_minimize.evaluations = 0
+lbfgs_minimize.host_syncs = 0
+
+
+def flatten_layers(layers) -> torch.Tensor:
+    """``[(W, b), ...]`` as one contiguous 1-D float32 copy."""
+    return torch.cat([t.detach().reshape(-1) for pair in layers
+                      for t in pair])
+
+
+def unflatten_layers(x: torch.Tensor, shapes) -> list:
+    """``[(W, b), ...]`` as views of the 1-D ``x`` (contiguous pieces, so
+    the kernel wrappers take them as they are; autograd through the views
+    gives ``x``'s gradient in one piece)."""
+    sizes = [int(np.prod(s)) for pair in shapes for s in pair]
+    pieces = x.split(sizes)
+    flat = [p.view(s) for p, s in zip(pieces,
+                                       [s for pair in shapes for s in pair])]
+    return list(zip(flat[0::2], flat[1::2]))
+
+
+def layer_shapes(layers) -> list:
+    return [(tuple(W.shape), tuple(b.shape)) for W, b in layers]
+
+
+def lbfgs_objective(loss_fn: Callable, lambdas: dict, X_f: torch.Tensor,
+                    shapes) -> Callable:
+    """``fun(x)``: the total of ``loss_fn`` at the flat parameters ``x``
+    (layers of ``shapes``, :func:`unflatten_layers`), with the λ entering
+    detached (frozen: no gradient is computed for them)."""
+    lam_bcs = [None if lam is None else lam.detach()
+               for lam in lambdas["BCs"]]
+    lam_res = [None if lam is None else lam.detach()
+               for lam in lambdas["residual"]]
+
+    def fun(x):
+        return loss_fn(unflatten_layers(x, shapes), lam_bcs, lam_res, X_f)[0]
+    return fun
+
+
+def fit_lbfgs(loss_fn: Callable, params, lambdas: dict, X_f: torch.Tensor,
+              maxiter: int = 1000, memory_size: int = 50,
+              verbose: bool = True, chunk: int = 100, eager: bool = False,
+              callback: Optional[Callable] = None, callback_every: int = 0,
+              iter0: int = 0, loss_fn_fallback: Optional[Callable] = None):
+    """L-BFGS phase over the network parameters with the SA λ frozen
+    (reference ``fit.py:60-89``).
+
+    ``params`` is ``[(W, b), ...]``; ``loss_fn(params, lam_bcs, lam_res, X)
+    -> (total, components)``.  The λ enter detached (no gradient is
+    computed for them); the objective runs under IEEE float32.  The
+    parameters travel as one flat buffer whose views are the layers.
+    ``callback(done, layers, (best_layers, f_best, best_iter))`` receives
+    the live iterate and best as layer lists.  ``loss_fn_fallback``: the
+    full-precision objective of :func:`lbfgs_minimize`'s retreat.
+
+    Returns ``(params_final, params_best, best_loss, best_iter,
+    loss_dicts)``: layer lists of fresh tensors, the best loss and its
+    iteration within this call as Python numbers, and one
+    ``{"Total Loss": v}`` per iteration."""
+    shapes = layer_shapes(params)
+    fun = lbfgs_objective(loss_fn, lambdas, X_f, shapes)
+    fun_fallback = None
+    if loss_fn_fallback is not None and loss_fn_fallback is not loss_fn:
+        fun_fallback = lbfgs_objective(loss_fn_fallback, lambdas, X_f,
+                                       shapes)
+
+    cb = None
+    if callback is not None:
+        def cb(done, x, best):
+            callback(done, unflatten_layers(x, shapes),
+                     (unflatten_layers(best[0], shapes), best[1], best[2]))
+
+    t0 = time.time()
+    with ieee_f32():
+        x, x_best, f_best, i_best, history = lbfgs_minimize(
+            fun, flatten_layers(params), maxiter=maxiter,
+            memory_size=memory_size, chunk=chunk, eager=eager, callback=cb,
+            callback_every=callback_every, iter0=iter0,
+            fun_fallback=fun_fallback, verbose=verbose)
+    f_best, i_best = float(f_best), int(i_best)
+    if verbose:
+        print(f"[l-bfgs] {len(history)} iters in {time.time() - t0:.1f}s, "
+              f"best loss {f_best:.3e} @ iter {i_best}", flush=True)
+    return (unflatten_layers(x, shapes), unflatten_layers(x_best, shapes),
+            f_best, i_best, [{"Total Loss": v} for v in history])

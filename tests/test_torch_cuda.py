@@ -29,6 +29,13 @@ installed::
   step on the card tracks the CPU solver's plain flavor over 20 steps; a
   K3 launch the runtime refuses raises out of ``compile``; a minimax fit
   does not synchronise inside a chunk either.
+* the L-BFGS leg on the card: every evaluation is one K3 launch (no K1/K2),
+  5 line-search iterations track the CPU solver's plain flavor within rtol
+  5e-3; the fixed-step rule launches K3 once per iteration and does not
+  synchronise inside a chunk.
+* a checkpoint restored on the card lands on the card, and the restored
+  solver's loss and 5 further Adam steps are bit-identical to the saved
+  solver's.
 """
 
 import warnings
@@ -42,6 +49,7 @@ from tensordiffeq_tpu_torch.ops import cuda_minimax, cuda_taylor
 from tensordiffeq_tpu_torch.ops.fused import analyze_f_model
 from tensordiffeq_tpu_torch.ops.minimax import build_minimax_sq_fn
 from tensordiffeq_tpu_torch.ops.taylor import taylor_derivatives
+from tensordiffeq_tpu_torch.training.lbfgs import lbfgs_minimize
 
 pytestmark = pytest.mark.cuda
 
@@ -371,3 +379,66 @@ def test_minimax_fit_does_not_sync_inside_a_chunk(card):
     _n_syncs(solver, 2)  # optimizer state
     few, many = _n_syncs(solver, 3), _n_syncs(solver, 12)
     assert few == many, (few, many)
+
+
+# ------------------------------------------------------------------ #
+# L-BFGS refinement and checkpoints on the card
+# ------------------------------------------------------------------ #
+def test_lbfgs_leg_through_k3_tracks_cpu_plain_flavor(card):
+    kern = _ac_solver("cuda", n_f=1024, minimax=None)
+    plain = _ac_solver("cuda", n_f=1024, minimax=None, device="cpu")
+    assert kern._minimax_kind == "cuda" and plain._minimax_kind == "plain"
+    for s in (kern, plain):
+        s.fit(tf_iter=20)
+    cuda_taylor.reset_launch_counts()
+    e0 = lbfgs_minimize.evaluations
+    kern.fit(newton_iter=5)
+    evals = lbfgs_minimize.evaluations - e0
+    assert cuda_minimax.k3_minimax.launches == evals >= 6
+    assert cuda_taylor.k1_forward.launches == \
+        cuda_taylor.k2_backward.launches == 0
+    plain.fit(newton_iter=5)
+    assert cuda_minimax.k3_minimax.launches == evals  # the CPU launches none
+    lk = np.array([r["Total Loss"] for r in kern.losses])
+    lp = np.array([r["Total Loss"] for r in plain.losses])
+    assert len(lk) == len(lp) == 25 and kern.newton_done == 5
+    np.testing.assert_allclose(lk, lp, rtol=5e-3)
+    assert kern.min_loss["l-bfgs"] < kern.min_loss["adam"]
+
+
+def _n_lbfgs_syncs(solver, iters):
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            solver.fit(newton_iter=iters, newton_eager=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def test_fixed_step_lbfgs_launches_k3_per_iteration_without_syncs(card):
+    solver = _ac_solver("cuda", n_f=512, minimax=None)
+    cuda_taylor.reset_launch_counts()
+    solver.fit(newton_iter=7, newton_eager=True)
+    assert cuda_minimax.k3_minimax.launches == 7
+    few, many = _n_lbfgs_syncs(solver, 3), _n_lbfgs_syncs(solver, 12)
+    assert few == many, (few, many)
+
+
+def test_checkpoint_resume_on_card_is_bit_identical(card, tmp_path):
+    a = _ac_solver("cuda", n_f=1024, minimax=None)
+    a.fit(tf_iter=10)
+    a.save_checkpoint(str(tmp_path / "ck"))
+    b = _ac_solver("cuda", n_f=1024, minimax=None, seed=0)
+    b.restore_checkpoint(str(tmp_path / "ck"))
+    assert b.X_f.device.type == "cuda"
+    assert all(t.device.type == "cuda" for pair in b.net.layers()
+               for t in pair)
+    assert b._opt[0].state[b.net.layers()[0][0]]["exp_avg"].is_cuda
+    assert float(a.update_loss()[0].detach()) == \
+        float(b.update_loss()[0].detach())
+    a.fit(tf_iter=5)
+    b.fit(tf_iter=5)
+    assert [r["Total Loss"] for r in a.losses] == \
+        [r["Total Loss"] for r in b.losses]
