@@ -35,25 +35,46 @@ Phases (each failure is fatal; exit code != 0, no result line):
    evaluation of the loss and its gradient is one K3 launch and K1/K2 do
    not run; the fixed-step rule (``fit(newton_iter=20,
    newton_eager=True)``, K3 exactly 20 times); ms per iteration,
-   evaluations and host synchronisations per iteration, one evaluation and
-   one two-loop sweep timed alone, and the rel-L2 of ``predict(
-   best_model=True)``.  Then the checkpoint leg: ``save_checkpoint``, a
+   evaluations and host synchronisations per iteration, one evaluation,
+   one two-loop sweep and one fixed-step iteration timed alone, the
+   host's time to issue each of their graphs, line-search iterations past
+   the graphs' capture, and the rel-L2 of ``predict(best_model=True)``.  Then the checkpoint leg: ``save_checkpoint``, a
    fresh solver compiled the same way and restored on the card has the
    same ``update_loss()`` and the same 10 further Adam steps, bit for bit;
    a checkpoint taken mid-L-BFGS brings ``newton_done`` and the iterate
    back.
-9. a ``{"kernels": [...]}`` line, the card line again, and the result line.
+9. the CUDA graphs against their eager referee: on each path an
+   identically seeded solver trains 50 Adam steps through the replayed
+   graphs and another through the same steps run eagerly
+   (``fit(_graphs=False)``), ms/step of both printed, every loss and
+   parameter bit for bit (or within 1e-6 scale-relative, the band printed);
+   on the minimax path also 10 line-search and 10 fixed-step L-BFGS
+   iterations each way.  Then ``fit(batch_sz=16384)`` for 20 epochs on the
+   minimax solver (4 batches, the last wrapping 15,536 rows to the front:
+   K3 exactly 80 times, at N = 16,384 each; the loss falls) and
+   ``fit(grad_clip=1.0)`` for 20 steps, held to its eager referee too.
+   Every capture's seconds and graph-pool bytes are printed.
+10. a ``{"kernels": [...]}`` line, the card line again, and the result line.
+
+Phases 6-9 train through CUDA graphs (``training/graphs.py``): each Adam
+step, each L-BFGS evaluation and two-loop sweep, and each fixed-step L-BFGS
+iteration is one replayed graph after three eager warm-up steps; the
+kernels' launch counters add each graph's recorded launches at every
+replay, so the launch gates count the launches the device ran.
 
 ``--profile`` adds, after phase 8, an A/B of the two trained solvers (50
 more steps per turn in eight turns: minimax, unfused, unfused, minimax,
 twice), so their ms/step compare within one stretch of the host's load;
 then four windows of 20 Adam steps under ``torch.profiler``, the paths in
 turns (minimax, unfused, unfused, minimax): the host's time in each of
-``fit_adam``'s ranges, device time by kernel group, the device's busy and
-idle share, and the top host ops; then one window of 20 line-search L-BFGS
-iterations of the minimax solver, split the same way over the ranges
-``lbfgs.evaluate``, ``lbfgs.direction`` and ``lbfgs.read`` (the host
-reads: the line search's syncs).  The script imports nothing of JAX.
+``fit_adam``'s ranges (``fit_adam.step``: a graph replay; ``fit_adam.read``:
+the chunk's history copy), device time by kernel group, the device's busy
+and idle share, the host's launches per step (kernel and graph launches,
+copies and fills: the runtime calls the host makes), and the top host ops;
+then one window of 20 line-search L-BFGS iterations of the minimax solver,
+split the same way over the ranges ``lbfgs.evaluate``, ``lbfgs.direction``
+and ``lbfgs.read`` (the host reads: the line search's syncs).  The script
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -95,9 +116,19 @@ LBFGS_ITER = 100  # line-search L-BFGS iterations of the refinement slice
 EAGER_ITER = 20  # fixed-step L-BFGS iterations
 RESUME_STEPS = 10  # Adam steps after the restore, on both solvers
 AB_STEPS = 50  # steps per turn of the paths' A/B
-# the profiler ranges of one Adam step (training/fit.py, models/assembly.py)
-HOST_SPANS = ("fit_adam.loss", "loss.residual", "fit_adam.backward",
-              "fit_adam.adam", "fit_adam.record")
+REFEREE_STEPS = 50  # Adam steps, graphs against the eager referee
+REFEREE_ITER = 10  # L-BFGS iterations of each rule, the same
+STEADY_ITER = 50  # line-search iterations timed past the graphs' capture
+BATCH_SZ, BATCH_EPOCHS = 16_384, 20  # the minibatch leg: 4 batches
+CLIP, CLIP_STEPS = 1.0, 20  # the grad_clip leg
+# graph against eager: scale-relative, were a replayed op to round otherwise
+GRAPH_BAND = 1e-6
+# the profiler ranges of an Adam step under the graphs (training/fit.py):
+# the replay, and the chunk's history copy
+HOST_SPANS = ("fit_adam.step", "fit_adam.read")
+# the CUDA runtime calls by which the host starts work on the device
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                "cudaMemcpyAsync", "cudaMemsetAsync", "cudaLaunchKernelExC")
 # the profiler ranges of an L-BFGS iteration (training/lbfgs.py):
 # evaluations of loss and gradient, two-loop products, host reads
 LBFGS_SPANS = ("lbfgs.evaluate", "lbfgs.direction", "lbfgs.read")
@@ -421,6 +452,7 @@ def phase_slice(tf_iter: int, minimax) -> dict:
     import tensordiffeq_tpu_torch as tdqt
     from tensordiffeq_tpu_torch.exact import allen_cahn_solution
     from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    from tensordiffeq_tpu_torch.training import graphs
 
     tag = "minimax" if minimax is None else "unfused"
     want_engine = "fused-minimax-cuda" if minimax is None else "fused-cuda"
@@ -444,11 +476,13 @@ def phase_slice(tf_iter: int, minimax) -> dict:
         fail(f"solver engine is {solver.engine}, expected {want_engine} "
              f"(minimax not adopted: {solver._minimax_fail_reason!r})")
     at_compile = _counts()
+    c0 = len(graphs.captures)
     t0 = time.perf_counter()
     solver.fit(tf_iter=tf_iter)
     torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
     at_fit = _counts()
+    _captures_since(f"slice {tag}", c0)
     t0 = time.perf_counter()
     u_pred, f_pred = solver.predict(X_star)
     t_pred = time.perf_counter() - t0
@@ -503,12 +537,16 @@ def _lbfgs_counts() -> tuple:
 
 def _time_lbfgs_parts(solver) -> dict:
     """One evaluation of the L-BFGS objective (loss and gradient at the
-    flat parameters, K3 on this path) and one two-loop sweep over a full
-    memory of 50 pairs at the net's 50,049 parameters, each timed alone
-    (host clock around 10 calls ending in a synchronisation).  Restores the
-    kernels' launch counts."""
+    flat parameters, K3 on this path), one two-loop sweep over a full
+    memory of 50 pairs at the net's 50,049 parameters and one fixed-step
+    iteration, each a replayed graph timed alone (host clock around 10
+    calls ending in a synchronisation), and the host's time to issue one
+    replay of each (the device idle before); then ``STEADY_ITER``
+    line-search iterations past the graphs' warm-up and capture.  Restores
+    the kernels' launch counts."""
     import torch
     from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
+    from tensordiffeq_tpu_torch.training import graphs
     from tensordiffeq_tpu_torch.training import lbfgs as tl
     from tensordiffeq_tpu_torch.utils import ieee_f32
 
@@ -518,8 +556,10 @@ def _time_lbfgs_parts(solver) -> dict:
                              tl.layer_shapes(layers))
     x = tl.flatten_layers(layers)
     g = torch.Generator(device=x.device).manual_seed(0)
+    ev = tl._Evaluator(fun, x)
+    ev.aim(x)
     mem = tl._Memory(x, 50)
-    for _ in range(51):  # fill every slot
+    for _ in range(51):  # fill every slot (warm-ups and capture first)
         mem.precondition(x + torch.randn(x.shape, generator=g,
                                          device=x.device),
                          torch.randn(x.shape, generator=g, device=x.device))
@@ -533,13 +573,38 @@ def _time_lbfgs_parts(solver) -> dict:
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0) / reps
 
+    def launch_ms(graph, reps=10, before=lambda: None):
+        total = 0.0
+        for _ in range(reps):
+            before()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graph.replay()
+            total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return 1e3 * total / reps
+
     with ieee_f32():
-        eval_ms = host_ms(lambda: tl._value_and_grad(fun, x))
+        for _ in range(graphs.WARMUP_RUNS):
+            ev()
+        eval_ms = host_ms(ev)
+        fixed = tl._FixedStep(ev, tl._Memory(x, 50), tl._Best(x), 0.8, 1)
+        for _ in range(graphs.WARMUP_RUNS):
+            fixed.row.zero_()
+            fixed.graph()
+        fixed_ms = host_ms(lambda: (fixed.row.zero_(), fixed.graph()))
+    steady_ms = _lbfgs_past_capture(solver, STEADY_ITER)
     direction_ms = host_ms(lambda: mem.precondition(x, x))
+    launches = {"evaluation": launch_ms(ev.graph.graph),
+                "sweep": launch_ms(mem.graph.graph),
+                # its history row starts over before each replay
+                "fixed-step": launch_ms(fixed.graph.graph,
+                                        before=fixed.row.zero_)}
     cm.k3_minimax.launches = before[0]
     (tl.lbfgs_minimize.evaluations, tl.lbfgs_minimize.host_syncs) = before[1]
     return dict(eval_ms=eval_ms, direction_ms=direction_ms,
-                n_params=int(x.numel()))
+                fixed_ms=fixed_ms, steady_ms=steady_ms,
+                launch_ms=launches, n_params=int(x.numel()))
 
 
 def phase_refine(paths: dict) -> dict:
@@ -550,6 +615,7 @@ def phase_refine(paths: dict) -> dict:
     import tensordiffeq_tpu_torch as tdqt
     from tensordiffeq_tpu_torch.exact import allen_cahn_solution
     from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    from tensordiffeq_tpu_torch.training import graphs
 
     solver = paths["minimax"]["solver"]
     n_adam = len(solver.losses)
@@ -560,6 +626,7 @@ def phase_refine(paths: dict) -> dict:
     # the line-search leg
     ct.reset_launch_counts()
     e0, s0 = _lbfgs_counts()
+    c0 = len(graphs.captures)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     solver.fit(newton_iter=LBFGS_ITER)
@@ -567,6 +634,7 @@ def phase_refine(paths: dict) -> dict:
     t_leg = time.perf_counter() - t0
     zoom = _counts()
     evals, syncs = (b - a for a, b in zip((e0, s0), _lbfgs_counts()))
+    _captures_since("refine lbfgs", c0)
     iters = len(solver.losses) - n_adam
     hist = np.array([r["Total Loss"] for r in solver.losses[n_adam:]])
     u_best, _ = solver.predict(X_star, best_model=True)
@@ -604,12 +672,19 @@ def phase_refine(paths: dict) -> dict:
           f"{parts['eval_ms']:.3f} ms (loss + gradient, timed alone) + "
           f"two-loop sweep {parts['direction_ms']:.3f} ms (50 pairs, "
           f"{parts['n_params']} parameters, timed alone) + the rest "
-          f"{rest:.3f} ms (line-search arithmetic, syncs, best select)",
-          flush=True)
+          f"{rest:.3f} ms (line-search arithmetic, syncs, best select, the "
+          f"graphs' warm-up and capture)", flush=True)
+    print(f"[refine steady] past the warm-up and capture: line search "
+          f"{parts['steady_ms']:.3f} ms/iteration ({STEADY_ITER} "
+          f"iterations), fixed step {parts['fixed_ms']:.3f} ms/iteration "
+          f"(its graph timed alone); host time to issue one replay: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                      parts["launch_ms"].items()), flush=True)
 
     # the fixed-step leg
     ct.reset_launch_counts()
     e0, s0 = _lbfgs_counts()
+    c0 = len(graphs.captures)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     solver.fit(newton_iter=EAGER_ITER, newton_eager=True)
@@ -617,6 +692,7 @@ def phase_refine(paths: dict) -> dict:
     t_eager = time.perf_counter() - t0
     eager = _counts()
     e_evals, e_syncs = (b - a for a, b in zip((e0, s0), _lbfgs_counts()))
+    _captures_since("refine fixed-step", c0)
     print(f"[refine fixed-step] {EAGER_ITER} iterations in {t_eager:.2f} s "
           f"= {1e3 * t_eager / EAGER_ITER:.3f} ms/iteration; {e_evals} "
           f"evaluations, {e_syncs} host syncs; launches {eager}", flush=True)
@@ -692,6 +768,151 @@ def phase_checkpoint(solver) -> dict:
     return dict(save_s=t_save, restore_s=t_restore)
 
 
+def _captures_since(tag: str, since: int) -> list:
+    """Print the graph captures made since ``since``: their seconds and the
+    device memory their pools took (``torch.cuda.memory_reserved`` across
+    the capture)."""
+    from tensordiffeq_tpu_torch.training import graphs
+    new = graphs.captures[since:]
+    if new:
+        print(f"[graphs {tag}] {len(new)} captures: " + "; ".join(
+            f"{c['name']} {c['seconds']:.3f} s, pool "
+            f"{c['pool_bytes'] / 2 ** 20:.1f} MiB" for c in new), flush=True)
+    if any(c["pool_bytes"] < 0 for c in new):
+        # the allocator gave memory back across a capture: the capture
+        # released the cache, which costs more than the capture itself
+        fail(f"a graph pool read negative: {new}")
+    return new
+
+
+def _fresh_solver(minimax=None, seed: int = 0):
+    """The slice's solver, compiled as phases 6 and 7 compile it."""
+    import tensordiffeq_tpu_torch as tdqt
+    domain, bcs, f_model, kw = ac_sa_problem()
+    s = tdqt.CollocationSolverND(verbose=False, seed=seed)
+    if minimax is not None:
+        kw = dict(kw, minimax=minimax)
+    s.compile(WIDTHS, f_model, domain, bcs, fused="cuda", **kw)
+    return s
+
+
+def _timed_fit(solver, **kw) -> float:
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.fit(**kw)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _state_diff(a, b, since: int = 0) -> float:
+    """The largest scale-relative difference between two solvers' loss
+    histories (from row ``since``), parameters and λ: 0.0 when every one is
+    bit-identical."""
+    rows_a, rows_b = a.losses[since:], b.losses[since:]
+    if len(rows_a) != len(rows_b):
+        return float("inf")
+    pairs = [(np.array([r[k] for r in rows_a for k in sorted(r)]),
+              np.array([r[k] for r in rows_b for k in sorted(r)]))]
+    for sa, sb in ((a.net.layers(), b.net.layers()),
+                   (a.lambdas["residual"] + a.lambdas["BCs"],
+                    b.lambdas["residual"] + b.lambdas["BCs"])):
+        flat_a = [t for x in sa for t in (x if isinstance(x, tuple) else (x,))
+                  if t is not None]
+        flat_b = [t for x in sb for t in (x if isinstance(x, tuple) else (x,))
+                  if t is not None]
+        pairs += [(p.detach().cpu().numpy(), q.detach().cpu().numpy())
+                  for p, q in zip(flat_a, flat_b)]
+    worst = 0.0
+    for x, y in pairs:
+        if not np.array_equal(x, y):
+            worst = max(worst, float(np.abs(x - y).max())
+                        / max(float(np.abs(y).max()), 1e-30))
+    return worst
+
+
+def phase_graphs():
+    """Phase 9: the graphs against their eager referee on each path (Adam;
+    on the minimax path also both L-BFGS rules), then the minibatch leg and
+    the clipping leg."""
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    from tensordiffeq_tpu_torch.ops import minimax as mmx
+    from tensordiffeq_tpu_torch.training import graphs
+
+    def held(tag, leg, graph, eager, n, unit, since, **kw):
+        c0 = len(graphs.captures)
+        t_g = _timed_fit(graph, **kw)
+        t_e = _timed_fit(eager, _graphs=False, **kw)
+        diff = _state_diff(graph, eager, since)
+        same = ("bit-identical" if diff == 0 else
+                f"max scale-relative difference {diff:.3e} (band "
+                f"{GRAPH_BAND:g})")
+        print(f"[graph {tag} {leg}] {n} {unit}s each way: graphs "
+              f"{1e3 * t_g / n:.3f} ms/{unit}, eager {1e3 * t_e / n:.3f} "
+              f"ms/{unit}; graph vs eager: {same}", flush=True)
+        _captures_since(f"{tag} {leg}", c0)
+        if not diff <= GRAPH_BAND:
+            fail(f"the {tag} {leg} graphs differ from their eager referee "
+                 f"by {diff:.3e}")
+
+    for tag, minimax in (("minimax", None), ("unfused", False)):
+        graph, eager = _fresh_solver(minimax), _fresh_solver(minimax)
+        # the first turn warms up and captures the step; the second replays
+        held(tag, "adam", graph, eager, REFEREE_STEPS, "step", 0,
+             tf_iter=REFEREE_STEPS)
+        held(tag, "adam, replays only", graph, eager, REFEREE_STEPS, "step",
+             0, tf_iter=REFEREE_STEPS)
+        if minimax is None:
+            n0 = len(graph.losses)
+            held(tag, "lbfgs", graph, eager, REFEREE_ITER, "iteration", n0,
+                 newton_iter=REFEREE_ITER)
+            n0 = len(graph.losses)
+            held(tag, "fixed-step", graph, eager, REFEREE_ITER, "iteration",
+                 n0, newton_iter=REFEREE_ITER, newton_eager=True)
+
+    # minibatches: K3 once per batch, each at N = batch_sz
+    solver = _fresh_solver()
+    sizes = []
+    k3 = mmx.k3_minimax
+
+    def spy(plan, X, w, flat):  # runs at the warm-ups and the capture
+        sizes.append(int(X.shape[0]))
+        return k3(plan, X, w, flat)
+
+    mmx.k3_minimax = spy
+    ct.reset_launch_counts()
+    try:
+        t = _timed_fit(solver, tf_iter=BATCH_EPOCHS, batch_sz=BATCH_SZ)
+    finally:
+        mmx.k3_minimax = k3
+    launches = _counts()
+    n_b = solver._adam.n_batches
+    total = np.array([r["Total Loss"] for r in solver.losses])
+    print(f"[batch] batch_sz {BATCH_SZ}: {n_b} batches per epoch ("
+          f"{n_b * BATCH_SZ - N_POINTS} rows wrapped), {BATCH_EPOCHS} epochs "
+          f"in {t:.2f} s = {1e3 * t / (BATCH_EPOCHS * n_b):.3f} ms/step; K3 "
+          f"at N = {sorted(set(sizes))}; launches {launches}; loss epoch 0 "
+          f"{total[0]:.6e} -> {total[-1]:.6e}", flush=True)
+    want = BATCH_EPOCHS * -(-N_POINTS // BATCH_SZ)
+    if n_b != 4 or launches["k3"] != want or launches["k1"] \
+            or launches["k2"] or set(sizes) != {BATCH_SZ}:
+        fail(f"the minibatch leg launched {launches} over {n_b} batches at "
+             f"N = {sorted(set(sizes))}, not K3 x {want} at {BATCH_SZ}")
+    if not (np.all(np.isfinite(total)) and total[-1] < total[0]):
+        fail("the minibatch leg's loss did not fall")
+
+    # global-norm clipping, held to its eager referee
+    graph, eager = _fresh_solver(), _fresh_solver()
+    ct.reset_launch_counts()
+    held("minimax", f"grad_clip={CLIP:g}", graph, eager, CLIP_STEPS, "step",
+         0, tf_iter=CLIP_STEPS, grad_clip=CLIP)
+    total = np.array([r["Total Loss"] for r in graph.losses])
+    if not (np.all(np.isfinite(total)) and total[-1] < total[0]):
+        fail("the grad_clip leg's loss did not fall")
+    if _counts()["k3"] != 2 * CLIP_STEPS:  # both solvers' steps
+        fail(f"the grad_clip leg launched {_counts()}")
+
+
 def phase_ab(paths: dict, steps: int = AB_STEPS) -> dict:
     """``--profile``: ``steps`` more Adam steps of each trained solver per
     turn, in the order minimax, unfused, unfused, minimax, twice; ms/step
@@ -730,35 +951,71 @@ def _kernel_group(name: str) -> str:
     return "other PyTorch kernels (pointwise, reductions, copies)"
 
 
+def _lbfgs_past_capture(solver, n: int, prof=None) -> float:
+    """Ms per line-search L-BFGS iteration of ``solver``'s objective over
+    ``n`` iterations past those in which the evaluation and sweep graphs
+    warm up and are captured: a ``fit_lbfgs`` leg whose chunk-boundary
+    callback starts the clock (and ``prof``, a profiler, when given).  The
+    solver is not changed."""
+    import torch
+    from tensordiffeq_tpu_torch.training import graphs
+    from tensordiffeq_tpu_torch.training.lbfgs import fit_lbfgs
+
+    skip = graphs.WARMUP_RUNS + 1
+    t0 = []
+
+    def start(done, *_):
+        if done == skip:
+            torch.cuda.synchronize()
+            if prof is not None:
+                prof.__enter__()
+            t0.append(time.perf_counter())
+
+    fit_lbfgs(solver.loss_fn, solver.net.layers(), solver.lambdas,
+              solver.X_f, maxiter=skip + n, chunk=skip, callback=start,
+              callback_every=skip, verbose=False)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0[0]) / n
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    return ms
+
+
 def phase_profile(solver, tag: str, n_steps: int = 20, lbfgs: bool = False):
     """``--profile``: ``n_steps`` Adam steps (``lbfgs``: line-search L-BFGS
     iterations) of the trained slice under ``torch.profiler``: the host's
-    time in each of the loop's ranges, device time by kernel group, the
-    device's busy and idle share of the wall, the top kernels and host
-    ops."""
+    time in each of the loop's ranges and its launches, device time by
+    kernel group, the device's busy and idle share of the wall, the top
+    kernels and host ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    key = "newton_iter" if lbfgs else "tf_iter"
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     spans = LBFGS_SPANS if lbfgs else HOST_SPANS
-    solver.fit(**{key: 5})  # warm
-    torch.cuda.synchronize()
-    # the profiler's first window carries its own start-up; keep it out
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        solver.fit(**{key: 2})
+    if lbfgs:
+        # the first window takes the profiler's start-up
+        _lbfgs_past_capture(solver, 2, profile(activities=activities))
+        prof = profile(activities=activities)
+        wall_ms = n_steps * _lbfgs_past_capture(solver, n_steps, prof)
+    else:
+        solver.fit(tf_iter=5)  # warm
         torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        solver.fit(**{key: n_steps})
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    by_name, by_group, n_launch = {}, {}, 0
+        # the profiler's first window carries its own start-up; keep it out
+        with profile(activities=activities):
+            solver.fit(tf_iter=2)
+            torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            solver.fit(tf_iter=n_steps)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name, by_group, n_launch, n_host = {}, {}, 0, 0
     host = dict.fromkeys(spans, 0.0)
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CPU:
             if evt.name in host:
                 host[evt.name] += evt.time_range.elapsed_us()
+            n_host += evt.name in LAUNCH_CALLS
             continue
         if evt.device_type != torch.autograd.DeviceType.CUDA or getattr(
                 evt, "is_user_annotation", False):
@@ -774,16 +1031,17 @@ def phase_profile(solver, tag: str, n_steps: int = 20, lbfgs: bool = False):
     if not all(host.values()):
         fail(f"the profiler missed a range of the loop: {host}")
     unit = "iteration" if lbfgs else "step"
-    note = "" if lbfgs else "; loss.residual lies inside fit_adam.loss"
     print(f"[host {tag}] {n_steps} {unit}s, host ms/{unit} in the loop's "
-          f"ranges (under the profiler{note}): "
+          f"ranges (under the profiler): "
           + ", ".join(f"{k} {us / 1e3 / n_steps:.3f}"
                       for k, us in host.items()), flush=True)
     print(f"[profile {tag}] {n_steps} {unit}s: wall {wall_ms / n_steps:.3f} "
           f"ms/{unit}, device busy {busy_ms / n_steps:.3f} ms/{unit} "
           f"({100 * busy_ms / wall_ms:.1f}% busy, "
           f"{100 * (1 - busy_ms / wall_ms):.1f}% idle), "
-          f"{n_launch / n_steps:.0f} kernel launches/{unit}", flush=True)
+          f"{n_launch / n_steps:.0f} kernels/{unit} on the device, "
+          f"{n_host / n_steps:.1f} host launches/{unit} ("
+          + ", ".join(LAUNCH_CALLS) + ")", flush=True)
     for grp, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"[profile]   {us / 1e3 / n_steps:8.3f} ms/{unit}  {grp}",
               flush=True)
@@ -860,6 +1118,7 @@ def main():
     print(f"[paths] ms/step minimax {paths['minimax']['ms_step']:.3f}, "
           f"unfused {paths['unfused']['ms_step']:.3f}", flush=True)
     paths["lbfgs"] = phase_refine(paths)
+    phase_graphs()
     if args.profile:
         phase_ab(paths)
         # in turns, so a slower stretch of the host does not land on one

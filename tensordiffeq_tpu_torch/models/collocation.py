@@ -55,7 +55,7 @@ from ..boundaries import BC
 from ..domains import DomainND
 from ..networks import MLP, init_generator, mlp_forward
 from ..ops.derivatives import make_ufn, vmap_residual
-from ..training.fit import FitResult, fit_adam, make_optimizer
+from ..training.fit import AdamStep, FitResult, fit_adam, make_optimizer
 from ..training.lbfgs import fit_lbfgs
 from ..utils import (ieee_f32, initialize_lambdas, not_ported,
                      resolve_device)
@@ -76,13 +76,11 @@ _UNPORTED_COMPILE = {
     "remat": (False, "queue 1, remaining solver features"),
 }
 _UNPORTED_FIT = {
-    "batch_sz": (None, "queue 1, minibatching"),
     "profile_dir": (None, "queue 1 item 7, telemetry"),
     "eval_fn": (None, "queue 1 item 7, telemetry"),
     "eval_every": (0, "queue 1 item 7, telemetry"),
     "resample_every": (0, "queue 1, resampling"),
     "telemetry": (None, "queue 1 item 7, telemetry"),
-    "grad_clip": (None, "queue 1 item 5, grad_clip"),
 }
 
 
@@ -130,6 +128,8 @@ class CollocationSolverND:
         self.data_X = None
         self.data_s = None
         self._opt = None  # Adam pair; the moments persist across fit() calls
+        self._opt_grad_clip = None  # the clipping the moments were made under
+        self._adam = None  # the AdamStep (and its CUDA graph) of the last fit
         self._compiled = False
         self._loaded = False  # load_model() on an uncompiled solver
         # L-BFGS iterations done so far (restored from checkpoints), so a
@@ -218,6 +218,7 @@ class CollocationSolverND:
             raise not_ported("custom networks", "queue 1, solver features")
         self.net = network.to(self.device)
         self._opt = None
+        self._adam = None
 
         self.Adaptive_type = Adaptive_type
         self.isAdaptive = Adaptive_type in (1, 2)
@@ -544,13 +545,29 @@ class CollocationSolverND:
     def fit(self, tf_iter: int = 0, newton_iter: int = 0,
             newton_eager: Optional[bool] = None, chunk: int = 100,
             checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
+            batch_sz: Optional[int] = None,
+            grad_clip: Optional[float] = None, _graphs: bool = True,
             **unported):
         """Adam with SA-λ ascent, then L-BFGS refinement (reference
         ``models.py:227`` → ``fit.py:17-102``).
 
         ``tf_iter`` Adam epochs run in chunks of ``chunk`` with no host
         synchronisation inside a chunk; the loss history (``self.losses``)
-        gets one component dict per epoch.  ``newton_iter`` L-BFGS
+        gets one component dict per epoch.  On a CUDA solver each Adam step,
+        each L-BFGS evaluation and two-loop sweep, and each fixed-step
+        L-BFGS iteration is a replayed CUDA graph
+        (:mod:`~..training.graphs`); on a CPU solver the same steps run
+        eagerly.
+
+        ``batch_sz``: minibatching as in the JAX solver on one device: every
+        epoch runs all ``ceil(N_f / batch_sz)`` batches (the tail wraps to
+        the front of the set), per-point λ rows are gathered with their
+        points, and the history records each epoch's last batch.
+        ``grad_clip``: global-norm clipping of the network's gradient ahead
+        of its Adam and, separately, of the λ gradient ahead of their
+        ascent (``optax.clip_by_global_norm``); turning it on or off
+        restarts the Adam moments, as the JAX solver's optimizer-state
+        check does.  ``newton_iter`` L-BFGS
         iterations then refine the network parameters on the same loss with
         the λ frozen (:func:`~..training.lbfgs.fit_lbfgs`): with the zoom
         line search by default, with the reference's fixed step of 0.8 for
@@ -567,9 +584,10 @@ class CollocationSolverND:
         :meth:`restore_checkpoint`, and ``fit`` with what is left of the
         budget.
 
-        The JAX solver's other fit options (minibatching, resampling,
-        telemetry, clipping, profiling, eval hooks) raise
-        :class:`~..utils.NotPortedError`."""
+        The JAX solver's other fit options (resampling, telemetry,
+        profiling, eval hooks) raise :class:`~..utils.NotPortedError`.
+        ``_graphs=False`` runs every step eagerly: the referee the graphs
+        are held to on the card, not an option of the training run."""
         if not self._compiled:
             raise NotCompiledError("Call compile(...) before fit(...)")
         _reject_unported(_UNPORTED_FIT, unported, "fit")
@@ -585,17 +603,26 @@ class CollocationSolverND:
 
         if tf_iter > 0:
             params = _flat(self.net.layers())
-            if self._opt is None:
+            if self._opt is None or (grad_clip is None) != (
+                    self._opt_grad_clip is None):
                 self._opt = make_optimizer(params, self.lambdas, self.lr,
                                            self.lr_weights)
+            self._opt_grad_clip = grad_clip
+            eager = not _graphs
+            if self._adam is None or not self._adam.matches(
+                    self.loss_fn, self._opt, self.X_f, batch_sz, grad_clip,
+                    eager):
+                self._adam = AdamStep(self.loss_fn, params, self.lambdas,
+                                      self.X_f, self._opt, batch_sz=batch_sz,
+                                      grad_clip=grad_clip,
+                                      verbose=self.verbose, eager=eager)
             hook = None
             if save is not None:
                 def hook(epoch, best):
                     save(self.net.layers(), newton_prior,
                          ("adam", _pairs(best[0]), best[1], best[2]))
             with ieee_f32():
-                result = fit_adam(self.loss_fn, params, self.lambdas,
-                                  self.X_f, tf_iter, self._opt, chunk=chunk,
+                result = fit_adam(self._adam, tf_iter, chunk=chunk,
                                   verbose=self.verbose,
                                   result=FitResult(losses=self.losses),
                                   state_hook=hook,
@@ -621,7 +648,7 @@ class CollocationSolverND:
                 maxiter=newton_iter, verbose=self.verbose,
                 eager=bool(newton_eager), callback=callback,
                 callback_every=checkpoint_every if save else 0,
-                iter0=newton_prior)
+                iter0=newton_prior, _graphs=_graphs)
             self.net.load_layers(final)
             self.losses.extend(history)
             # adopt-if-better, as in the Adam phase: a resumed leg keeps a
@@ -704,7 +731,7 @@ class CollocationSolverND:
                 "has_opt_state": self._opt is not None,
                 "has_X_f": True,
                 "n_f": int(self.X_f.shape[0]),
-                "grad_clip": None,
+                "grad_clip": self._opt_grad_clip,
                 "resample_uniform_floor": 0.0}
         if cand:
             # the lowest loss; ties go to the first candidate (the live
@@ -799,6 +826,9 @@ class CollocationSolverND:
             self.min_loss["overall"] = float(meta.get("best_loss", np.inf))
             self.best_epoch["overall"] = int(meta.get("best_iter", -1))
         self.newton_done = int(meta.get("newton_done", 0))
+        # the restored moments carry this clipping config; a fit() that
+        # turns clipping on or off restarts them
+        self._opt_grad_clip = meta.get("grad_clip")
         return self
 
     # ------------------------------------------------------------------ #

@@ -19,22 +19,29 @@ without importing it:
   linesearch=None)``, one evaluation per iteration.
 
 The vectors (iterate, direction, gradients, the memory, the best iterate)
-stay on the iterate's device.  The line search's branches read each trial's
-value and slope on the host: one host synchronisation per line-search
-evaluation.  The fixed-step rule has none inside a chunk: its losses and
-gradient norms come back in one copy per chunk, as ``fit_adam``'s do.
-:func:`lbfgs_minimize` counts the objective's evaluations and its host
-synchronisations in ``lbfgs_minimize.evaluations`` and
-``lbfgs_minimize.host_syncs`` (as the kernel wrappers count their launches),
-and marks the evaluations, the two-loop products and the host reads as the
-profiler ranges ``lbfgs.evaluate``, ``lbfgs.direction`` and ``lbfgs.read``
-(entered only while a profiler records).
+stay on the iterate's device, in static buffers, and the device work runs
+as CUDA graphs on a CUDA device (:mod:`.graphs`, the counterpart of the JAX
+package's jitted ``run_chunk``): one graph for an evaluation of the loss
+and its gradient at a trial point, one for the two-loop sweep, and for the
+fixed-step rule one for a whole iteration.  The line search stays on the
+host: its branches read each trial's value and slope, one host
+synchronisation per line-search evaluation.  The fixed-step rule has none
+inside a chunk: its losses and gradient norms come back in one copy per
+chunk, as ``fit_adam``'s do.  :func:`lbfgs_minimize` counts the
+objective's evaluations and its host synchronisations in
+``lbfgs_minimize.evaluations`` and ``lbfgs_minimize.host_syncs`` (as the
+kernel wrappers count their launches), and marks the evaluations, the
+two-loop products, the fixed-step iterations and the host reads as the
+profiler ranges ``lbfgs.evaluate``, ``lbfgs.direction``, ``lbfgs.step`` and
+``lbfgs.read`` (entered only while a profiler records).
 
 L-BFGS optimizes the network parameters only; SA λ stay frozen (reference
 ``models.py:283-295``).
 
-Not ported yet (ROADMAP queue 1 item 7): the telemetry step-time split, the
-preemption flush and the cluster heartbeat of the JAX loop.
+Not ported yet: the line search on the device (JAX's ``while_loop``, which
+needs conditional graph nodes; ROADMAP queue 1 item 2), and the telemetry
+step-time split, the preemption flush and the cluster heartbeat of the JAX
+loop (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import numpy as np
 import torch
 
 from ..utils import ieee_f32, span
+from .graphs import StepGraph
 
 # optax.scale_by_zoom_linesearch's defaults, as the JAX package calls it
 MAX_LINESEARCH_STEPS = 30
@@ -65,76 +73,200 @@ def _log_stop(msg: str) -> None:
 
 
 def _read(*tensors) -> np.ndarray:
-    """Scalars from the device in one copy (one host synchronisation)."""
+    """Scalars and vectors from the device in one copy (one host
+    synchronisation), concatenated."""
     lbfgs_minimize.host_syncs += 1
     with span("lbfgs.read"):
-        return torch.stack([t.reshape(()) for t in tensors]).cpu().numpy()
+        return torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
 
 
-def _value_and_grad(fun: Callable, x: torch.Tensor):
-    """``(f(x), ∇f(x))`` detached; one evaluation of the objective."""
-    with span("lbfgs.evaluate"), torch.enable_grad():
-        xl = x.detach().requires_grad_(True)
-        value = fun(xl)
-        # a parameter the objective does not read gets a zero gradient, as
-        # in JAX (the head's bias under a residual that never reads u)
-        (grad,) = torch.autograd.grad(value, xl, materialize_grads=True)
-    lbfgs_minimize.evaluations += 1
-    return value.detach().reshape(()), grad
+class _Evaluator:
+    """One evaluation of the objective over static buffers: the value and
+    gradient at ``x + s·d`` and the slope ``∇f·d`` there (the line search's
+    trial), run by :attr:`graph` (captured and replayed on a CUDA device,
+    :mod:`.graphs`).  :meth:`aim` sets ``x`` and ``d`` once per line search;
+    a call sets the step size ``s`` with a fill on the device (a graph
+    cannot take a new Python number) and runs the evaluation.  Without a
+    direction ``d`` is zero, so the evaluation is at ``x`` itself."""
+
+    def __init__(self, fun: Callable, x: torch.Tensor, eager: bool = False):
+        self.fun = fun
+        self.x = torch.zeros_like(x)
+        self.d = torch.zeros_like(x)
+        self.s = torch.zeros((), dtype=x.dtype, device=x.device)
+        self.value = self.grad = self.slope = None
+        self.graph = StepGraph(self._run, self._keyed, x.device,
+                               "L-BFGS evaluation", eager=eager)
+
+    def _keyed(self) -> list:
+        return [self.x, self.d, self.s] + list(getattr(self.fun, "tensors",
+                                                       ()))
+
+    def _run(self):
+        with torch.enable_grad():
+            xt = (self.x + self.s * self.d).requires_grad_(True)
+            value = self.fun(xt)
+            # a parameter the objective does not read gets a zero gradient,
+            # as in JAX (the head's bias under a residual that never reads u)
+            (grad,) = torch.autograd.grad(value, xt, materialize_grads=True)
+        self.value = value.detach().reshape(())
+        self.grad = grad
+        self.slope = torch.dot(grad, self.d)
+
+    def aim(self, x: torch.Tensor, d: Optional[torch.Tensor] = None):
+        self.x.copy_(x)
+        if d is None:
+            self.d.zero_()
+        else:
+            self.d.copy_(d)
+
+    def __call__(self, s=0.0):
+        """``(value, grad, slope)`` at ``x + s·d``: the value and gradient
+        as fresh tensors (the line search keeps them past the next trial),
+        the slope as the static output, to be read before the next call."""
+        with span("lbfgs.evaluate"):
+            self.s.fill_(float(s))
+            self.graph()
+            lbfgs_minimize.evaluations += 1
+            return self.value.clone(), self.grad.clone(), self.slope
 
 
 class _Memory:
     """``optax.scale_by_lbfgs`` with ``scale_init_precond=True``: the ring of
-    parameter and gradient differences and its two-loop product."""
+    parameter and gradient differences and its two-loop product, over static
+    buffers, run by :attr:`graph`.  The slot each pair goes to and the
+    sweep's order come from a device counter of the sweeps done, so one
+    graph serves every iteration.  The sweep runs over all ``m`` slots, as
+    optax does: an unfilled slot (ρ = 0, zero vectors) changes nothing, bit
+    for bit on finite data.  A host flag tells the first sweep (no pair
+    yet; always an eager warm-up run, never captured) from the rest."""
 
-    def __init__(self, x: torch.Tensor, m: int):
+    def __init__(self, x: torch.Tensor, m: int, eager: bool = False):
         self.m = m
-        self.count = 0  # host-side: the iteration number decides the slots
+        self.first = True
         self.S = torch.zeros((m,) + x.shape, dtype=x.dtype, device=x.device)
         self.Y = torch.zeros_like(self.S)
         self.rho = torch.zeros(m, dtype=x.dtype, device=x.device)
-        self.prev_x = None
-        self.prev_g = None
+        self.prev_x = torch.zeros_like(x)
+        self.prev_g = torch.zeros_like(x)
+        self.x_in = torch.zeros_like(x)
+        self.g_in = torch.zeros_like(x)
+        self.n = torch.zeros((), dtype=torch.long, device=x.device)
+        self.slots = torch.arange(m, device=x.device)
+        self.out = None
+        self.graph = StepGraph(self._sweep, self._keyed, x.device,
+                               "two-loop sweep", eager=eager)
+
+    def _keyed(self) -> list:
+        return [self.S, self.Y, self.rho, self.prev_x, self.prev_g,
+                self.x_in, self.g_in, self.n, self.slots]
 
     def precondition(self, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-        """Store the pair ``(x - x_prev, g - g_prev)`` in slot ``(count-1) %
-        m`` (nothing while ``count == 0``) and return ``P·g``."""
+        """Store the pair ``(x - x_prev, g - g_prev)`` (nothing at the first
+        call) and return ``P·g``, a static buffer under a graph: use it
+        before the next call."""
         with span("lbfgs.direction"):
-            return self._precondition(x, g)
+            self.x_in.copy_(x)
+            self.g_in.copy_(g)
+            self.graph()
+            return self.out
 
-    def _precondition(self, x, g):
-        m, count = self.m, self.count
-        if count > 0:
+    def _sweep(self):
+        m, x, g = self.m, self.x_in, self.g_in
+        if not self.first:
             s = x - self.prev_x
             y = g - self.prev_g
             ys = torch.dot(y, s)
-            slot = (count - 1) % m
-            self.S[slot] = s
-            self.Y[slot] = y
-            self.rho[slot] = torch.where(ys == 0, torch.zeros_like(ys),
-                                         1.0 / ys)
+            slot = torch.remainder(self.n - 1, m).reshape(1)
+            self.S.index_copy_(0, slot, s[None])
+            self.Y.index_copy_(0, slot, y[None])
+            self.rho.index_copy_(0, slot, torch.where(
+                ys == 0, torch.zeros_like(ys), 1.0 / ys).reshape(1))
             yy = torch.dot(y, y)
             gamma = torch.where(yy > 0, ys / yy, torch.ones_like(yy))
         else:
             # the first step's identity scale: a capped reciprocal of ‖g‖
             gamma = torch.clamp(1.0 / torch.linalg.vector_norm(g), max=1.0)
-        self.prev_x, self.prev_g = x, g
-        self.count += 1
-        # oldest to newest; optax sweeps all m slots, but an unfilled slot
-        # (ρ = 0, zero vectors) changes nothing, so only filled ones run
-        start = count % m
-        order = [(start + k) % m for k in range(m)][m - min(count, m):]
+        self.prev_x.copy_(x)
+        self.prev_g.copy_(g)
+        self.first = False
+        # the slots oldest to newest: the next slot to write comes first
+        order = torch.remainder(self.n + self.slots, m)
+        self.n.add_(1)
+        S = self.S.index_select(0, order)
+        Y = self.Y.index_select(0, order)
+        rho = self.rho.index_select(0, order)
         v = g.clone()
         alphas = []
-        for i in reversed(order):
-            a = self.rho[i] * torch.dot(self.S[i], v)
-            v.addcmul_(self.Y[i], a, value=-1.0)
+        for i in reversed(range(m)):
+            a = rho[i] * torch.dot(S[i], v)
+            v.addcmul_(Y[i], a, value=-1.0)
             alphas.append(a)
         v = gamma * v
-        for i, a in zip(order, reversed(alphas)):
-            b = self.rho[i] * torch.dot(self.Y[i], v)
-            v.addcmul_(self.S[i], a - b)
-        return v
+        for i, a in zip(range(m), reversed(alphas)):
+            b = rho[i] * torch.dot(Y[i], v)
+            v.addcmul_(S[i], a - b)
+        self.out = v
+
+
+class _Best:
+    """The running best iterate as static buffers: a device-side select per
+    iteration that never adopts a non-finite value, keyed by a device
+    iteration counter."""
+
+    def __init__(self, x0: torch.Tensor):
+        self.x = x0.detach().clone()
+        self.f = torch.full((), float("inf"), dtype=x0.dtype,
+                            device=x0.device)
+        self.i = torch.full((), -1, dtype=torch.long, device=x0.device)
+        self.it = torch.zeros((), dtype=torch.long, device=x0.device)
+
+    def select(self, x_at: torch.Tensor, value: torch.Tensor):
+        with torch.no_grad():
+            improved = torch.isfinite(value) & (value < self.f)
+            self.x.copy_(torch.where(improved, x_at, self.x))
+            self.f.copy_(torch.where(improved, value, self.f))
+            self.i.copy_(torch.where(improved, self.it, self.i))
+            self.it.add_(1)
+
+
+class _FixedStep:
+    """One iteration of the fixed-step rule over static buffers: the
+    evaluation at the iterate (the evaluator's ``x``), the two-loop sweep,
+    the best select, the value and ‖g‖ into row ``row`` of the chunk's
+    history, and the update ``x ← x - learning_rate·P·g``; one graph per
+    iteration."""
+
+    def __init__(self, ev: _Evaluator, memory: _Memory, best: _Best,
+                 learning_rate: float, rows: int, eager: bool = False):
+        self.ev, self.memory, self.best = ev, memory, best
+        self.lr = learning_rate
+        x = ev.x
+        self.values = torch.zeros(rows, dtype=x.dtype, device=x.device)
+        self.gnorms = torch.zeros(rows, dtype=x.dtype, device=x.device)
+        self.row = torch.zeros((), dtype=torch.long, device=x.device)
+        self.graph = StepGraph(self._run, self._keyed, x.device,
+                               "fixed-step L-BFGS iteration", eager=eager)
+
+    def _keyed(self) -> list:
+        return (self.ev._keyed() + self.memory._keyed()
+                + [self.best.x, self.best.f, self.best.i, self.best.it,
+                   self.values, self.gnorms, self.row])
+
+    def _run(self):
+        ev, mem = self.ev, self.memory
+        ev._run()
+        mem.x_in.copy_(ev.x)
+        mem.g_in.copy_(ev.grad)
+        mem._sweep()
+        with torch.no_grad():
+            self.best.select(ev.x, ev.value)
+            at = self.row.reshape(1)
+            self.values.index_copy_(0, at, ev.value.reshape(1))
+            self.gnorms.index_copy_(
+                0, at, torch.linalg.vector_norm(ev.grad).reshape(1))
+            ev.x.copy_(ev.x + (-self.lr) * mem.out)
+            self.row.add_(1)
 
 
 def _cubicmin(a, fa, fpa, b, fb, c, fc, dt):
@@ -162,18 +294,20 @@ def _quadmin(a, fa, fpa, b, fb, dt):
 
 class _ZoomLinesearch:
     """``optax.zoom_linesearch`` with the defaults above, one trial per turn
-    of :meth:`run`'s loop.  Scalars live on the host in the iterate's dtype;
-    the gradients (and the values, for the best-iterate select) at the
-    trials stay on the device.
+    of :meth:`run`'s loop, each trial one call of the :class:`_Evaluator`
+    ``ev`` aimed at ``x`` along ``d``.  Scalars live on the host in the
+    iterate's dtype; the gradients (and the values, for the best-iterate
+    select) at the trials stay on the device.
 
     The starting value and slope are read from the device together with
     the first trial's (one host synchronisation for both): ``init`` holds
     the device scalars ``[slope_init, ‖g‖, value_init?]``, the last only
     when the caller does not know the value on the host yet."""
 
-    def __init__(self, fun, x, d, value, grad, guess, dt, init,
+    def __init__(self, ev, x, d, value, grad, guess, dt, init,
                  value_h=None):
-        self.fun, self.x, self.d, self.dt = fun, x, d, dt
+        self.ev, self.dt = ev, dt
+        ev.aim(x, d)
         self.guess = guess
         self.init = init
         self.count = 0
@@ -201,9 +335,7 @@ class _ZoomLinesearch:
         self.safe_stepsize, self.safe_value = z, value
 
     def _trial(self, stepsize):
-        value, grad = _value_and_grad(self.fun,
-                                      self.x + float(stepsize) * self.d)
-        slope = torch.dot(grad, self.d)
+        value, grad, slope = self.ev(stepsize)
         got = _read(value, slope, *self.init)
         if self.init:
             self._bind(got[2:])
@@ -343,7 +475,7 @@ def lbfgs_minimize(fun: Callable, x0: torch.Tensor, maxiter: int = 1000,
                    callback: Optional[Callable] = None,
                    callback_every: int = 0, iter0: int = 0,
                    fun_fallback: Optional[Callable] = None,
-                   verbose: bool = False):
+                   verbose: bool = False, _graphs: bool = True):
     """Minimise ``fun(x) -> scalar tensor`` over a 1-D tensor ``x``.
 
     Returns ``(x_final, x_best, f_best, best_iter, history)`` as the JAX
@@ -354,6 +486,11 @@ def lbfgs_minimize(fun: Callable, x0: torch.Tensor, maxiter: int = 1000,
     value at the iterate it just evaluated.  The best iterate is a
     device-side select that never adopts a non-finite value.
 
+    On a CUDA device the evaluations, the two-loop sweeps and (fixed step)
+    whole iterations are replayed CUDA graphs (:mod:`.graphs`); the line
+    search runs on the host between evaluations.  ``_graphs=False`` runs
+    them eagerly instead: the referee the graphs are held to.
+
     Stops run at chunk boundaries, in the JAX order: a non-finite loss, then
     ``|f_prev - f_now| < tol_fun``, then ``‖g‖ < tol_grad``.
     ``callback(done, x, (x_best, f_best, best_iter))`` fires when a chunk
@@ -361,23 +498,25 @@ def lbfgs_minimize(fun: Callable, x0: torch.Tensor, maxiter: int = 1000,
 
     ``fun_fallback``: the precision retreat.  A non-finite or stagnation
     stop with budget left restarts, once, from the best iterate with fresh
-    memory on ``fun_fallback``, after re-measuring the incumbent under it.
+    memory (and its own graphs) on ``fun_fallback``, after re-measuring the
+    incumbent under it.
 
     ``iter0`` is the absolute iteration of the first one here; it only
     labels the stop messages."""
     x = x0.detach().clone()
     dt = np.dtype(str(x.dtype).replace("torch.", "")).type
-    dev = x.device
-    x_best = x0.detach().clone()
-    f_best = torch.full((), float("inf"), dtype=x.dtype, device=dev)
-    i_best = torch.full((), -1, dtype=torch.long, device=dev)
-    step_ids = torch.arange(maxiter, device=dev)
+    best = _Best(x0)
 
     def fresh(fn):
         # the L-BFGS memory and the line search's carried state (optax's
         # ScaleByZoomLinesearchState: step size 1, value inf)
-        return dict(fn=fn, memory=_Memory(x, memory_size), value=None,
-                    value_h=dt(np.inf), grad=None, learning_rate=dt(1.0))
+        ev = _Evaluator(fn, x, eager=not _graphs)
+        memory = _Memory(x, memory_size, eager=not _graphs)
+        return dict(ev=ev, memory=memory, value=None, value_h=dt(np.inf),
+                    grad=None, learning_rate=dt(1.0),
+                    fixed=_FixedStep(ev, memory, best, learning_rate,
+                                     min(chunk, maxiter), eager=not _graphs)
+                    if eager else None)
 
     run = fresh(fun)
     history: list[float] = []
@@ -386,48 +525,45 @@ def lbfgs_minimize(fun: Callable, x0: torch.Tensor, maxiter: int = 1000,
     retreated = fun_fallback is None
     while done < maxiter:
         n = int(min(chunk, maxiter - done))
-        values, gnorms = [], []
-        for i in range(n):
-            if eager:
-                value, grad = _value_and_grad(run["fn"], x)
-                direction = run["memory"].precondition(x, grad)
-                x_at, new_value = x, value
-                x = x + (-learning_rate) * direction
-                values.append(value)
-                gnorms.append(torch.linalg.vector_norm(grad))
-            else:
+        if eager:
+            fixed = run["fixed"]
+            run["ev"].aim(x)
+            fixed.row.zero_()
+            for _ in range(n):
+                with span("lbfgs.step"):
+                    fixed.graph()
+                lbfgs_minimize.evaluations += 1
+            x = run["ev"].x
+            got = _read(fixed.values[:n], fixed.gnorms[:n])
+            values, gnorms = list(got[:n]), list(got[n:])
+        else:
+            values, gnorms = [], []
+            for i in range(n):
                 value, grad, value_h = run["value"], run["grad"], \
                     run["value_h"]
                 fresh_eval = not np.isfinite(value_h)
                 if fresh_eval:  # value_and_grad_from_state: nothing stored
-                    value, grad = _value_and_grad(run["fn"], x)
+                    run["ev"].aim(x)
+                    value, grad, _ = run["ev"]()
                 d = -run["memory"].precondition(x, grad)
                 init = [torch.dot(d, grad), torch.linalg.vector_norm(grad)]
                 if fresh_eval:
                     init.append(value)
                 ls = _ZoomLinesearch(
-                    run["fn"], x, d, value, grad, run["learning_rate"], dt,
+                    run["ev"], x, d, value, grad, run["learning_rate"], dt,
                     init, value_h=None if fresh_eval else value_h).run()
                 x = x + float(ls.stepsize) * d
-                x_at, new_value = x, ls.value_dev
+                best.select(x, ls.value_dev)
                 run.update(value=ls.value_dev, grad=ls.grad,
                            value_h=ls.value, learning_rate=ls.stepsize)
                 values.append(float(ls.value))
                 gnorms.append(ls.gnorm)
-            with torch.no_grad():
-                improved = torch.isfinite(new_value) & (new_value < f_best)
-                x_best = torch.where(improved, x_at, x_best)
-                f_best = torch.where(improved, new_value, f_best)
-                i_best = torch.where(improved, step_ids[done + i], i_best)
-        if eager:
-            got = _read(*values, *gnorms)
-            values, gnorms = list(got[:n]), list(got[n:])
         history.extend(float(v) for v in values)
         prev_done = done
         done += n
         if (callback is not None and callback_every > 0
                 and prev_done // callback_every != done // callback_every):
-            callback(done, x, (x_best, f_best, i_best))
+            callback(done, x, (best.x, best.f, best.i))
         f_now = float(values[-1])
         if verbose:
             print(f"L-BFGS iter {iter0 + done}: loss {f_now:.6e}", flush=True)
@@ -443,10 +579,10 @@ def lbfgs_minimize(fun: Callable, x0: torch.Tensor, maxiter: int = 1000,
                       f"objective for the remaining {maxiter - done} iters")
             # the best finite iterate, or x0 when nothing improved: never
             # the possibly poisoned last one
-            x = x_best.clone()
+            x = best.x.clone()
             run = fresh(fun_fallback)
             with torch.no_grad():
-                f_best = fun_fallback(x_best).detach().reshape(())
+                best.f.copy_(fun_fallback(best.x).detach().reshape(()))
             lbfgs_minimize.evaluations += 1
             f_prev = np.inf
             continue
@@ -464,7 +600,7 @@ def lbfgs_minimize(fun: Callable, x0: torch.Tensor, maxiter: int = 1000,
                       f"|g|={float(gnorms[-1]):.3e} < tol_grad={tol_grad:g}")
             break
         f_prev = f_now
-    return x, x_best, f_best, i_best, history
+    return x.clone(), best.x, best.f, best.i, history
 
 
 lbfgs_minimize.evaluations = 0
@@ -504,6 +640,9 @@ def lbfgs_objective(loss_fn: Callable, lambdas: dict, X_f: torch.Tensor,
 
     def fun(x):
         return loss_fn(unflatten_layers(x, shapes), lam_bcs, lam_res, X_f)[0]
+    # what a graph over the objective reads besides x (graphs.StepGraph)
+    fun.tensors = [X_f] + [lam for lam in lam_bcs + lam_res
+                           if lam is not None]
     return fun
 
 
@@ -511,7 +650,8 @@ def fit_lbfgs(loss_fn: Callable, params, lambdas: dict, X_f: torch.Tensor,
               maxiter: int = 1000, memory_size: int = 50,
               verbose: bool = True, chunk: int = 100, eager: bool = False,
               callback: Optional[Callable] = None, callback_every: int = 0,
-              iter0: int = 0, loss_fn_fallback: Optional[Callable] = None):
+              iter0: int = 0, loss_fn_fallback: Optional[Callable] = None,
+              _graphs: bool = True):
     """L-BFGS phase over the network parameters with the SA λ frozen
     (reference ``fit.py:60-89``).
 
@@ -522,6 +662,7 @@ def fit_lbfgs(loss_fn: Callable, params, lambdas: dict, X_f: torch.Tensor,
     ``callback(done, layers, (best_layers, f_best, best_iter))`` receives
     the live iterate and best as layer lists.  ``loss_fn_fallback``: the
     full-precision objective of :func:`lbfgs_minimize`'s retreat.
+    ``_graphs=False``: the eager referee of :func:`lbfgs_minimize`.
 
     Returns ``(params_final, params_best, best_loss, best_iter,
     loss_dicts)``: layer lists of fresh tensors, the best loss and its
@@ -546,7 +687,7 @@ def fit_lbfgs(loss_fn: Callable, params, lambdas: dict, X_f: torch.Tensor,
             fun, flatten_layers(params), maxiter=maxiter,
             memory_size=memory_size, chunk=chunk, eager=eager, callback=cb,
             callback_every=callback_every, iter0=iter0,
-            fun_fallback=fun_fallback, verbose=verbose)
+            fun_fallback=fun_fallback, verbose=verbose, _graphs=_graphs)
     f_best, i_best = float(f_best), int(i_best)
     if verbose:
         print(f"[l-bfgs] {len(history)} iters in {time.time() - t0:.1f}s, "

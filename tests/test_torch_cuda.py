@@ -36,6 +36,13 @@ installed::
 * a checkpoint restored on the card lands on the card, and the restored
   solver's loss and 5 further Adam steps are bit-identical to the saved
   solver's.
+* the CUDA graphs (``training/graphs.py``): 50 graphed Adam steps on both
+  paths, and 10 graphed L-BFGS iterations of each rule, equal the same
+  steps run eagerly (``fit(_graphs=False)``) bit for bit, or within 1e-6
+  scale-relative; the launch counters count every replay exactly; a
+  restored checkpoint re-captures and its 10 graphed steps equal the saved
+  solver's; a capture that fails raises and the step does not carry on
+  eagerly.
 """
 
 import warnings
@@ -49,6 +56,7 @@ from tensordiffeq_tpu_torch.ops import cuda_minimax, cuda_taylor
 from tensordiffeq_tpu_torch.ops.fused import analyze_f_model
 from tensordiffeq_tpu_torch.ops.minimax import build_minimax_sq_fn
 from tensordiffeq_tpu_torch.ops.taylor import taylor_derivatives
+from tensordiffeq_tpu_torch.training.graphs import GraphCaptureError
 from tensordiffeq_tpu_torch.training.lbfgs import lbfgs_minimize
 
 pytestmark = pytest.mark.cuda
@@ -224,7 +232,7 @@ def test_fit_does_not_sync_inside_a_chunk(card):
     """The synchronising calls of one ``fit`` (chunk = the whole fit) do not
     grow with the number of epochs: none happens per step."""
     solver = _ac_solver("cuda", n_f=512)
-    _n_syncs(solver, 2)  # optimizer state
+    _n_syncs(solver, 5)  # optimizer state, the graph's warm-up and capture
     few, many = _n_syncs(solver, 3), _n_syncs(solver, 12)
     assert few == many, (few, many)
 
@@ -376,7 +384,7 @@ def test_k3_launch_failure_raises_out_of_compile(card, monkeypatch):
 def test_minimax_fit_does_not_sync_inside_a_chunk(card):
     solver = _ac_solver("cuda", n_f=512, minimax=None)
     assert solver._minimax_kind == "cuda"
-    _n_syncs(solver, 2)  # optimizer state
+    _n_syncs(solver, 5)  # optimizer state, the graph's warm-up and capture
     few, many = _n_syncs(solver, 3), _n_syncs(solver, 12)
     assert few == many, (few, many)
 
@@ -442,3 +450,113 @@ def test_checkpoint_resume_on_card_is_bit_identical(card, tmp_path):
     b.fit(tf_iter=5)
     assert [r["Total Loss"] for r in a.losses] == \
         [r["Total Loss"] for r in b.losses]
+
+
+# ------------------------------------------------------------------ #
+# the training steps as CUDA graphs
+# ------------------------------------------------------------------ #
+GRAPH_BAND = 1e-6  # scale-relative, were a replayed op to round otherwise
+
+
+def _diff(a, b):
+    """The largest scale-relative difference between two solvers' loss
+    histories, parameters and λ (0.0: all bit-identical)."""
+    ha = np.array([r[k] for r in a.losses for k in sorted(r)])
+    hb = np.array([r[k] for r in b.losses for k in sorted(r)])
+    assert ha.shape == hb.shape
+    pairs = [(ha, hb)] + [
+        (p.detach().cpu().numpy(), q.detach().cpu().numpy())
+        for p, q in zip([t for pair in a.net.layers() for t in pair]
+                        + [lam for lam in a.lambdas["residual"]
+                           + a.lambdas["BCs"] if lam is not None],
+                        [t for pair in b.net.layers() for t in pair]
+                        + [lam for lam in b.lambdas["residual"]
+                           + b.lambdas["BCs"] if lam is not None])]
+    return max(0.0 if np.array_equal(x, y) else
+               float(np.abs(x - y).max() / np.abs(y).max())
+               for x, y in pairs)
+
+
+@pytest.mark.parametrize("minimax", [None, False],
+                         ids=["minimax", "unfused"])
+def test_graph_adam_steps_equal_eager_steps(card, minimax):
+    graph = _ac_solver("cuda", n_f=1024, minimax=minimax)
+    eager = _ac_solver("cuda", n_f=1024, minimax=minimax)
+    graph.fit(tf_iter=50, chunk=20)
+    eager.fit(tf_iter=50, chunk=20, _graphs=False)
+    assert graph._adam.graph.captures == 1
+    assert eager._adam.graph.captures == 0
+    assert _diff(graph, eager) <= GRAPH_BAND
+
+
+@pytest.mark.parametrize("newton_eager", [None, True],
+                         ids=["line-search", "fixed-step"])
+def test_graph_lbfgs_iterations_equal_eager_ones(card, newton_eager):
+    graph = _ac_solver("cuda", n_f=1024, minimax=None)
+    eager = _ac_solver("cuda", n_f=1024, minimax=None)
+    for s, graphs in ((graph, True), (eager, False)):
+        s.fit(tf_iter=5, newton_iter=10, newton_eager=newton_eager,
+              _graphs=graphs)
+    assert graph.newton_done == eager.newton_done == 10
+    assert _diff(graph, eager) <= GRAPH_BAND
+    assert graph.min_loss == eager.min_loss
+
+
+def test_launch_counts_are_exact_under_replay(card):
+    cuda_taylor.reset_launch_counts()
+    mm = _ac_solver("cuda", n_f=512, minimax=None)
+    k = cuda_minimax.k3_minimax
+    assert k.launches == 1  # compile's cross-check
+    mm.fit(tf_iter=25, chunk=10)
+    assert k.launches == 26
+    mm.fit(tf_iter=7, chunk=10)  # the graph is kept: replays only
+    assert k.launches == 33 and mm._adam.graph.captures == 1
+    mm.fit(newton_iter=12, newton_eager=True)
+    assert k.launches == 45
+    e0 = lbfgs_minimize.evaluations
+    mm.fit(newton_iter=8)
+    assert k.launches == 45 + lbfgs_minimize.evaluations - e0
+    cuda_taylor.reset_launch_counts()
+    unfused = _ac_solver("cuda", n_f=512)
+    unfused.fit(tf_iter=9)
+    assert (cuda_taylor.k1_forward.launches,
+            cuda_taylor.k2_backward.launches, k.launches) == (10, 10, 0)
+
+
+def test_restore_recaptures_and_resumes_bit_identically(card, tmp_path):
+    a = _ac_solver("cuda", n_f=1024, minimax=None)
+    a.fit(tf_iter=10)
+    ck = str(tmp_path / "ck")
+    a.save_checkpoint(ck)
+    b = _ac_solver("cuda", n_f=1024, minimax=None, seed=1)
+    b.restore_checkpoint(ck)
+    a.fit(tf_iter=10)
+    b.fit(tf_iter=10)
+    assert b._adam.graph.captures == 1
+    assert _diff(a, b) == 0.0
+    # restoring into a solver that has a graph captures a new one
+    old = a._adam
+    a.restore_checkpoint(ck)
+    a.fit(tf_iter=10)
+    assert a._adam is not old and a._adam.graph.captures == 1
+    assert _diff(a, b) == 0.0
+
+
+def test_failed_capture_raises_and_does_not_run_eagerly(card):
+    solver = _ac_solver("cuda", n_f=512, minimax=None)
+    loss_fn = solver.loss_fn
+
+    def reads_the_loss(*args, **kw):
+        total, comps = loss_fn(*args, **kw)
+        float(total)  # a host read: refused inside a capture
+        return total, comps
+
+    solver.loss_fn = reads_the_loss
+    before = cuda_minimax.k3_minimax.launches
+    with pytest.raises(GraphCaptureError, match="Adam step"):
+        solver.fit(tf_iter=10)
+    # the three warm-up steps ran, then nothing: no eager step in its place
+    assert cuda_minimax.k3_minimax.launches == before + 3
+    assert solver.losses == []
+    torch.cuda.synchronize()
+    assert float((torch.ones(2, device=card) * 2).sum()) == 4.0

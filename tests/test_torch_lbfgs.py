@@ -215,10 +215,12 @@ def test_zoom_linesearch_matches_optax(case):
     tf = make(torch)
     xt = torch.as_tensor(x0, dtype=torch.float64)
     dt_ = torch.as_tensor(d, dtype=torch.float64)
-    v, g = tl._value_and_grad(tf, xt)
+    ev = tl._Evaluator(tf, xt)
+    ev.aim(xt)
+    v, g, _ = ev()
     before = tl.lbfgs_minimize.evaluations
     got = tl._ZoomLinesearch(
-        tf, xt, dt_, v, g, np.float64(guess), np.float64,
+        ev, xt, dt_, v, g, np.float64(guess), np.float64,
         [torch.dot(dt_, g), torch.linalg.vector_norm(g), v]).run()
     assert tl.lbfgs_minimize.evaluations - before == got.count == want_count
     np.testing.assert_allclose(float(got.stepsize), want_step, rtol=RTOL)
