@@ -54,7 +54,24 @@ Phases (each failure is fatal; exit code != 0, no result line):
    K3 exactly 80 times, at N = 16,384 each; the loss falls) and
    ``fit(grad_clip=1.0)`` for 20 steps, held to its eager referee too.
    Every capture's seconds and graph-pool bytes are printed.
-10. a ``{"kernels": [...]}`` line, the card line again, and the result line.
+10. serving, on the trained minimax solver of phases 6 and 8:
+   ``export_surrogate()`` saved, loaded back with no solver
+   (``Surrogate.load(dir, f_model=...)``) onto a 256-131,072 ladder (10
+   rungs), then the kinds ``u``, ``d:x:1``, ``d:x:2``, ``d:t:1`` and
+   ``residual`` on the 512x201 grid (one chunk, rung 131,072) and on 200
+   queries of 1-50,000 points (log-uniform sizes); every rung a captured
+   CUDA graph.  Gates: each rung's graph equals its program run eagerly at
+   the same padded shape bit for bit; 1,000 rows answer bit for bit alone
+   and inside a larger query of the same rung; ``u`` matches ``predict``
+   within 1e-6 and its rel-L2 matches ``predict``'s; the derivative kinds
+   recombine into the residual within 1e-4; the residual matches
+   ``predict``'s (K1's fused engine) in the cross-check band; no rung
+   quarantined, one capture per program, no K1-K3 launch; the graphs in one
+   shared pool answer as in private pools.  Then a ``RequestBatcher`` over
+   the residual takes 5,000 requests of 1-64 points.  Prints a ``[serve
+   <kind> b=<bucket>]`` line per rung (capture s, pool MiB, ms per replay
+   by CUDA events, points/s), ``[serve grid]`` and ``[serve batcher]``.
+11. a ``{"kernels": [...]}`` line, the card line again, and the result line.
 
 Phases 6-9 train through CUDA graphs (``training/graphs.py``): each Adam
 step, each L-BFGS evaluation and two-loop sweep, and each fixed-step L-BFGS
@@ -132,6 +149,20 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
 # the profiler ranges of an L-BFGS iteration (training/lbfgs.py):
 # evaluations of loss and gradient, two-loop products, host reads
 LBFGS_SPANS = ("lbfgs.evaluate", "lbfgs.direction", "lbfgs.read")
+# phase 10, serving: the kinds, the ladder, the traffic
+SERVE_KINDS = ("u", "d:x:1", "d:x:2", "d:t:1", "residual")
+SERVE_LADDER = dict(min_bucket=256, max_bucket=131_072)
+SERVE_QUERIES, SERVE_MAX_ROWS = 200, 50_000
+ROW_STABLE = 1_000
+BATCH_REQUESTS, BATCH_MAX_ROWS = 5_000, 64
+# engine u against predict's u: the same forward at another row count
+SERVE_U_BAND = 1e-6
+# u_t - 1e-4 u_xx + 5u^3 - 5u from the derivative kinds against the
+# residual kind: the JAX serving example's check
+SERVE_RECOMBINE_BAND = 1e-4
+# the residual against predict's (K1's fused engine): the engines'
+# cross-check band (ops/fused.py::crosscheck_residuals)
+SERVE_CROSSCHECK_RTOL = 5e-3
 
 
 def fail(msg: str):
@@ -1055,6 +1086,258 @@ def phase_profile(solver, tag: str, n_steps: int = 20, lbfgs: bool = False):
               f"{e.key[:70]}", flush=True)
 
 
+def _serve_leaves(out) -> list:
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def _bit_equal(a, b) -> bool:
+    return all(np.array_equal(x, y) for x, y in
+               zip(_serve_leaves(a), _serve_leaves(b)))
+
+
+def _serve_eager(eng, spec: str, X: np.ndarray, bucket: int):
+    """The kind's program run eagerly on ``X`` padded to ``bucket``: the
+    graph's referee."""
+    import torch
+    from tensordiffeq_tpu_torch.utils import ieee_f32
+    sur = eng.surrogate
+    Xp = torch.zeros(bucket, X.shape[1], dtype=torch.float32,
+                     device=sur.device)
+    Xp[:X.shape[0]] = torch.from_numpy(X)
+    with ieee_f32(), torch.no_grad():
+        out = eng.make_batched(spec)()(sur.params, Xp)
+    return [o[:X.shape[0]].cpu().numpy() for o in _serve_leaves(out)]
+
+
+def _serve_queries(rng, n_queries: int, max_rows: int) -> list:
+    sizes = np.exp(rng.uniform(0.0, np.log(max_rows), n_queries))
+    return [np.stack([rng.uniform(-1, 1, n), rng.uniform(0, 1, n)],
+                     1).astype(np.float32)
+            for n in np.maximum(sizes.astype(int), 1)]
+
+
+def phase_serve(solver, card: str) -> dict:
+    """Phase 10: the serving path on the trained minimax solver, with the
+    kernels' launch counts set to 0 just before the engine's queries and
+    read just after (serving launches none of K1-K3)."""
+    import tempfile
+
+    import torch
+    import tensordiffeq_tpu_torch as tdqt
+    from tensordiffeq_tpu_torch.exact import allen_cahn_solution
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    from tensordiffeq_tpu_torch.ops.fused import crosscheck_residuals
+    from tensordiffeq_tpu_torch.serving import RequestBatcher, Surrogate
+    from tensordiffeq_tpu_torch.training import graphs
+    from tensordiffeq_tpu_torch.training.graphs import CudaGraph
+
+    x, t, usol = allen_cahn_solution()
+    X_grid = np.ascontiguousarray(np.stack(
+        np.meshgrid(x, t, indexing="ij"), -1).reshape(-1, 2), np.float32)
+    u_pred, f_pred = solver.predict(X_grid)
+    rel_pred = tdqt.find_L2_error(u_pred, usol.reshape(-1, 1))
+
+    # export, save, and load back with no solver object
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        solver.export_surrogate().save(f"{tmp}/ac")
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sur = Surrogate.load(f"{tmp}/ac", f_model=_ac_residual)
+        t_load = time.perf_counter() - t0
+    eng = sur.engine(**SERVE_LADDER)
+    if eng.n_buckets != 10:
+        fail(f"the engine has {eng.n_buckets} rungs, not 10")
+
+    rng = np.random.default_rng(0)
+    queries = _serve_queries(rng, SERVE_QUERIES, SERVE_MAX_ROWS)
+    reps = {eng.bucket_for(X_grid.shape[0]): X_grid}
+    for Xq in queries:  # the first query of each rung
+        reps.setdefault(eng.bucket_for(Xq.shape[0]), Xq)
+    c0 = len(graphs.captures)
+    ct.reset_launch_counts()
+    first_ms, grid_ms, grid = {}, {}, {}
+    for spec in SERVE_KINDS:
+        op = eng.op_for(spec)
+        for label, store in (("first", first_ms), ("warm", grid_ms)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grid[spec] = op(X_grid)
+            store[spec] = 1e3 * (time.perf_counter() - t0)
+        for Xq in queries:
+            op(Xq)
+    launches = _counts()
+    if any(launches.values()):
+        fail(f"the serving path launched {launches}")
+
+    # the graphs against their programs run eagerly, per touched rung
+    mismatched = []
+    for spec in SERVE_KINDS:
+        op = eng.op_for(spec)
+        for bucket, Xq in sorted(reps.items()):
+            if not _bit_equal(op(Xq), _serve_eager(eng, spec, Xq, bucket)):
+                mismatched.append(f"{spec} b={bucket}")
+    rows = np.stack([rng.uniform(-1, 1, ROW_STABLE),
+                     rng.uniform(0, 1, ROW_STABLE)], 1).astype(np.float32)
+    pad = eng.bucket_for(ROW_STABLE) - ROW_STABLE
+    others = np.stack([rng.uniform(-1, 1, pad),
+                       rng.uniform(0, 1, pad)], 1).astype(np.float32)
+    big = np.concatenate([others[:pad // 2], rows, others[pad // 2:]])
+    unstable = [spec for spec in SERVE_KINDS
+                if not _bit_equal(eng.op_for(spec)(rows),
+                                  [a[pad // 2:pad // 2 + ROW_STABLE] for a in
+                                   _serve_leaves(eng.op_for(spec)(big))])]
+    print(f"[serve] graph vs eager at the padded shape on {len(reps)} rungs"
+          f" x {len(SERVE_KINDS)} kinds: "
+          f"{'bit-identical' if not mismatched else mismatched}; "
+          f"{ROW_STABLE} rows alone vs inside {ROW_STABLE + pad} rows (rung "
+          f"{eng.bucket_for(ROW_STABLE)}): "
+          f"{'bit-identical' if not unstable else unstable}", flush=True)
+    if mismatched:
+        fail(f"graphs differ from their eager programs: {mismatched}")
+    if unstable:
+        fail(f"rows change with their neighbours: {unstable}")
+
+    # the answers against the solver and each other
+    u_err = scaled_err(torch.from_numpy(grid["u"]),
+                       torch.from_numpy(u_pred))[1]
+    u_ = grid["u"][:, 0].astype(np.float64)
+    recombined = (grid["d:t:1"] - 1e-4 * grid["d:x:2"].astype(np.float64)
+                  + 5.0 * u_ ** 3 - 5.0 * u_)
+    res = grid["residual"].astype(np.float64)
+    rec_err = float(np.abs(recombined - res).max() / np.abs(res).max())
+    ok, why = crosscheck_residuals(grid["residual"], f_pred,
+                                   rtol=SERVE_CROSSCHECK_RTOL)
+    f_err = float(np.abs(grid["residual"] - f_pred).max()
+                  / np.abs(grid["residual"]).max())
+    rel_eng = tdqt.find_L2_error(grid["u"], usol.reshape(-1, 1))
+    rel_gap = abs(rel_eng - rel_pred) / rel_pred
+    print(f"[serve] u vs predict {u_err:.3e} scale-relative (band "
+          f"{SERVE_U_BAND:g}); u_t - 1e-4 u_xx + 5u^3 - 5u vs residual "
+          f"{rec_err:.3e} (band {SERVE_RECOMBINE_BAND:g}); residual vs "
+          f"predict's fused K1 engine {f_err:.3e} (cross-check rtol "
+          f"{SERVE_CROSSCHECK_RTOL:g}); rel-L2 vs ETDRK4 {rel_eng:.6f}, "
+          f"predict {rel_pred:.6f} (relative gap {rel_gap:.2e})", flush=True)
+    if not u_err <= SERVE_U_BAND:
+        fail("the engine's u differs from predict's")
+    if not rec_err <= SERVE_RECOMBINE_BAND:
+        fail("the derivative kinds do not recombine into the residual")
+    if not ok:
+        fail(f"the engine's residual fails the cross-check: {why}")
+    if not rel_gap <= 1e-6:
+        fail("the engine's rel-L2 differs from predict's")
+
+    # one capture per program, none quarantined
+    caps = [c for c in graphs.captures[c0:]
+            if c["name"].startswith("serve ")]
+    print(f"[serve] programs {eng.compile_cache_size} (bound "
+          f"{len(SERVE_KINDS) * eng.n_buckets}), graph captures {len(caps)},"
+          f" quarantined {eng.quarantined_buckets()}; shared pool "
+          f"{sum(c['pool_bytes'] for c in caps) / 2 ** 20:.1f} MiB; launches "
+          f"{launches}; save {t_save:.3f} s, load {t_load:.3f} s", flush=True)
+    if eng.compile_cache_size > len(SERVE_KINDS) * eng.n_buckets \
+            or len(caps) != eng.compile_cache_size \
+            or eng.quarantined_buckets():
+        fail("the ladder is not one graph per touched rung")
+    if any(c["pool_bytes"] < 0 for c in caps):
+        fail(f"a graph pool read negative: {caps}")
+
+    # per rung: capture, pool, replay time
+    by_name = {c["name"]: c for c in caps}
+    sizes = eng.surrogate.layer_sizes
+    # u's products per point; the other kinds' work is the jvp chains'
+    u_flops = 2 * sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
+    rungs = []
+    for spec, bucket in [(k, b) for k in SERVE_KINDS
+                         for b in eng.bucket_sizes]:
+        rung = eng._rungs.get((eng.kind_key(spec), bucket))
+        if rung is None:
+            continue
+        cap = by_name[rung.graph.name]
+        ms = cuda_ms(rung.graph.graph.replay)
+        rungs.append(dict(kind=spec, bucket=bucket, capture_s=cap["seconds"],
+                          pool_mib=cap["pool_bytes"] / 2 ** 20, ms=ms))
+        bound = ""
+        if spec == "u":
+            b_ms = 1e3 * u_flops * bucket / PEAK_FP32_FLOPS
+            bound = (f", FP32-core bound {b_ms:.4f} ms ({100 * b_ms / ms:.1f}"
+                     " % of it)")
+        print(f"[serve {spec} b={bucket}] capture {cap['seconds']:.3f} s, "
+              f"pool {cap['pool_bytes'] / 2 ** 20:.1f} MiB, {ms:.4f} "
+              f"ms/replay, {bucket / ms * 1e3:.4g} points/s{bound} ({card})",
+              flush=True)
+    print(f"[serve grid] {X_grid.shape[0]} points, wall ms (host clock, "
+          "copies in and out included) first touch / warm: "
+          + ", ".join(f"{k} {first_ms[k]:.3f} / {grid_ms[k]:.3f}"
+                      for k in SERVE_KINDS) + f" ({card})", flush=True)
+
+    # the same traffic through private pools: the same answers
+    private = sur.engine(**SERVE_LADDER)
+    private._make_graph = CudaGraph  # a pool per graph
+    p0 = len(graphs.captures)
+    for spec in ("d:x:2", "residual"):
+        for Xq in [X_grid] + queries:
+            if not _bit_equal(private.op_for(spec)(Xq),
+                              eng.op_for(spec)(Xq)):
+                fail(f"{spec}: private pools answer otherwise than the "
+                     "shared pool")
+    shared = sum(c["pool_bytes"] for c in caps if c["name"].split()[1]
+                 in ("d:0:2:0", "residual"))
+    priv = sum(c["pool_bytes"] for c in graphs.captures[p0:])
+    print(f"[serve pools] d:x:2 and residual over their {len(private._rungs)}"
+          f" rungs: shared pool {shared / 2 ** 20:.1f} MiB, private pools "
+          f"{priv / 2 ** 20:.1f} MiB; answers bit-identical", flush=True)
+    del private
+
+    # the batcher over the residual
+    batch_rows = []
+
+    def op(X):
+        batch_rows.append(X.shape[0])
+        return eng.residual(X)
+
+    batcher = RequestBatcher(eng, op=op, max_batch=4096,
+                             max_latency_s=0.002)
+    reqs = [np.stack([rng.uniform(-1, 1, n), rng.uniform(0, 1, n)],
+                     1).astype(np.float32)
+            for n in rng.integers(1, BATCH_MAX_ROWS + 1, BATCH_REQUESTS)]
+    handles = []
+    for Xr in reqs:
+        handles.append(batcher.submit(Xr))
+        batcher.poll()
+    got = [h.result() for h in handles]
+    stats = batcher.stats()
+    ends = np.cumsum(batch_rows)
+    starts = np.cumsum([r.shape[0] for r in reqs]) - 1
+    batch_of = np.searchsorted(ends, starts, side="right")
+    worst = {"same rung": 0.0, "other rung": 0.0}
+    scale = 0.0
+    for Xr, g, b in zip(reqs, got, batch_of):
+        want = eng.residual(Xr)
+        where = ("same rung" if eng.bucket_for(batch_rows[b])
+                 == eng.bucket_for(Xr.shape[0]) else "other rung")
+        worst[where] = max(worst[where], float(np.abs(g - want).max()))
+        scale = max(scale, float(np.abs(want).max()))
+    worst = {k: v / scale for k, v in worst.items()}
+    lat = stats["latency_s"]
+    print(f"[serve batcher] {stats['requests']} requests in "
+          f"{stats['batches']} batches, mean batch "
+          f"{stats['points'] / stats['batches']:.1f} points, "
+          f"{stats['qps']:.1f} requests/s, latency p50 "
+          f"{1e3 * lat['p50']:.3f} ms, p90 {1e3 * lat['p90']:.3f} ms, p99 "
+          f"{1e3 * lat['p99']:.3f} ms; against each request alone: same "
+          f"rung {worst['same rung']:.3e}, other rung "
+          f"{worst['other rung']:.3e} scale-relative ({card})", flush=True)
+    if stats["requests"] != BATCH_REQUESTS or stats["failed"]:
+        fail(f"the batcher served {stats}")
+    if not (worst["same rung"] <= SERVE_U_BAND
+            and worst["other rung"] <= SERVE_RECOMBINE_BAND):
+        fail(f"batched answers differ from single ones: {worst}")
+    if eng.quarantined_buckets():
+        fail(f"rungs quarantined: {eng.quarantined_buckets()}")
+    return dict(rungs=rungs, grid_ms=grid_ms, batcher=stats)
+
+
 def kernels_line(meas: dict, paths: dict) -> str:
     """``launches`` sums a kernel's launches over the runs of both paths
     (``launches_by_path`` splits them)."""
@@ -1119,6 +1402,7 @@ def main():
           f"unfused {paths['unfused']['ms_step']:.3f}", flush=True)
     paths["lbfgs"] = phase_refine(paths)
     phase_graphs()
+    phase_serve(paths["minimax"]["solver"], card)
     if args.profile:
         phase_ab(paths)
         # in turns, so a slower stretch of the host does not land on one

@@ -6,13 +6,16 @@ compile`` → ``fit`` → ``predict``) in PyTorch, with the fused residual
 engine's Taylor-table kernels (``compile(fused="cuda")``,
 :mod:`.ops.cuda_taylor`) and the fused minimax training step
 (``compile(minimax=None)``, the default, :mod:`.ops.minimax`) hand-written
-in CUDA for the H100.  Entry points run on
+in CUDA for the H100, and the serving path (``solver.export_surrogate()``
+→ :class:`~.serving.Surrogate` → its bucketed engine, one CUDA graph per
+rung, → :class:`~.serving.RequestBatcher`).  Entry points run on
 the card unless the caller passes ``device="cpu"``.  The port imports
 nothing of JAX and nothing of ``tensordiffeq_tpu``.
 """
 
 from . import boundaries, domains, exact, helpers, networks  # noqa: F401
-from . import models, ops, sampling, training, utils, weights  # noqa: F401
+from . import models, ops, profiling, resilience, sampling  # noqa: F401
+from . import serving, telemetry, training, utils, weights  # noqa: F401
 from .boundaries import (  # noqa: F401
     BC, IC, FunctionDirichletBC, FunctionNeumannBC, dirichletBC, periodicBC)
 from .domains import DomainND  # noqa: F401

@@ -178,11 +178,15 @@ def checkpoint_exists(path: str) -> bool:
 
 
 def save_checkpoint(path: str, state: dict, meta: Optional[dict] = None,
+                    extra_files: Optional[dict] = None,
                     sharded: Optional[bool] = None) -> None:
     """Write ``state`` under the directory ``path``, crash-safe (module
     docstring).  ``meta`` is a JSON-serialisable dict stored beside it (the
-    loss history, iteration counters, ...).  ``sharded=True`` (the
-    multi-process layout) is not ported."""
+    loss history, iteration counters, ...).  ``extra_files`` maps
+    checkpoint-relative paths to raw bytes written beside the state before
+    the checksum is taken, so they are fsynced, swapped and validated with
+    it: a torn extra file fails the whole generation.  ``sharded=True``
+    (the multi-process layout) is not ported."""
     if sharded:
         raise not_ported("save_checkpoint(sharded=True)",
                          "queue 1 item 6, topology-portable checkpoints")
@@ -194,6 +198,18 @@ def save_checkpoint(path: str, state: dict, meta: Optional[dict] = None,
     os.makedirs(tmp)
     with open(os.path.join(tmp, _STATE_FILE), "wb") as fh:
         write_npz(fh, arrays)
+    for rel, blob in (extra_files or {}).items():
+        rel = os.path.normpath(rel)
+        if os.path.isabs(rel) or rel.startswith(".."):
+            raise ValueError(f"extra file path {rel!r} escapes the "
+                             "checkpoint directory")
+        if os.path.basename(rel) in (_META, _STATE_FILE):
+            raise ValueError(f"extra file {rel!r} would shadow the "
+                             "checkpoint's own files")
+        dest = os.path.join(tmp, rel)
+        os.makedirs(os.path.dirname(dest), exist_ok=True)
+        with open(dest, "wb") as fh:
+            fh.write(bytes(blob))
     with open(os.path.join(tmp, _META), "w") as fh:
         json.dump({"backend": "npz", "meta": meta or {},
                    # restores hold the caller's template to these before

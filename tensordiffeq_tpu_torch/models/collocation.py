@@ -35,6 +35,8 @@ gradient is one K3 launch.  ``save_checkpoint``/``restore_checkpoint``
 carry the whole training state (:mod:`..checkpoint`), ``fit(checkpoint_dir=,
 checkpoint_every=)`` saves it at chunk boundaries of both phases, and
 ``save``/``load_model`` write and read the network alone, self-describing.
+``export_surrogate`` hands the trained network to the serving path
+(:mod:`..serving`).
 
 Everything of the JAX solver that is not ported yet raises
 :class:`~..utils.NotPortedError` naming its ROADMAP item.
@@ -53,7 +55,7 @@ import torch
 
 from ..boundaries import BC
 from ..domains import DomainND
-from ..networks import MLP, init_generator, mlp_forward
+from ..networks import MLP, init_generator, mlp_forward, net_metadata
 from ..ops.derivatives import make_ufn, vmap_residual
 from ..training.fit import AdamStep, FitResult, fit_adam, make_optimizer
 from ..training.lbfgs import fit_lbfgs
@@ -832,10 +834,23 @@ class CollocationSolverND:
         return self
 
     # ------------------------------------------------------------------ #
+    def export_surrogate(self, best_model: bool = False):
+        """Export the trained solution as a deployable
+        :class:`~..serving.Surrogate`: the network, a copy of its
+        parameters and the ``u``/derivative/residual closures, with no
+        training state (no optimizer moments, no λ, no collocation set).
+        It ``save``s through the checkpoint protocol and restores in a fresh
+        process (``Surrogate.load(path, f_model=...)``); batched queries go
+        through ``surrogate.engine()``.  ``best_model=True`` exports the
+        best iterate, as in :meth:`predict`."""
+        if not (self._compiled or self._loaded):
+            raise NotCompiledError("Call compile(...) or load_model(...) "
+                                   "before export_surrogate()")
+        from ..serving import Surrogate
+        return Surrogate.from_solver(self, best_model=best_model)
+
     def _arch_meta(self) -> dict:
-        return {"format": 1, "layer_sizes": list(self.layer_sizes),
-                "activation": "tanh", "network_type": "MLP",
-                "n_out": int(self.n_out)}
+        return net_metadata(self.net, self.layer_sizes, self.n_out)
 
     def save(self, path: str):
         """Write the network, self-describing (reference ``models.py:315-

@@ -1,8 +1,10 @@
 """Neural networks for PINN solvers.
 
 Counterpart of the JAX package's ``networks.py`` (``MLP``, ``neural_net``,
-``init_params``): a fully-connected tanh MLP with glorot-normal kernels and
-a linear head (reference ``tensordiffeq/networks.py:10-20``).
+``init_params``, ``net_metadata``/``net_from_metadata``): a fully-connected
+tanh MLP with glorot-normal kernels and a linear head (reference
+``tensordiffeq/networks.py:10-20``), and the architecture record that the
+solver's ``save`` and the serving artifact share.
 
 Weights are stored as ``[in, out]`` matrices — the flax ``Dense`` layout —
 so a JAX parameter tree converts layer for layer
@@ -21,7 +23,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from .utils import resolve_device
+from .utils import not_ported, resolve_device
 
 # flax's glorot_normal is a variance-scaling truncated normal on [-2σ, 2σ];
 # σ is divided by the std of a unit normal truncated there so the variance
@@ -114,3 +116,44 @@ def init_generator(seed: Optional[int]) -> Optional[torch.Generator]:
     g = torch.Generator()
     g.manual_seed(int(seed))
     return g
+
+
+# The architecture record shared by the solver's self-describing save
+# (models/collocation.py::save) and the serving artifact
+# (serving/surrogate.py): a net persisted by either is rebuilt in a fresh
+# process with no solver around.  The names are the JAX package's; only the
+# MLP is ported (FourierMLP and PeriodicMLP: ROADMAP queue 1 item 5).
+REBUILDABLE_NETS = ("MLP", "FourierMLP", "PeriodicMLP")
+
+
+def net_metadata(net: nn.Module, layer_sizes: Sequence[int],
+                 n_out: int) -> dict:
+    """JSON-serialisable architecture record for ``net`` (the JAX
+    package's keys; the port's MLP is always tanh)."""
+    act = "tanh" if type(net) is MLP else getattr(
+        getattr(net, "activation", None), "__name__", "None")
+    return {"format": 1,
+            "layer_sizes": list(layer_sizes),
+            "activation": act,
+            "network_type": type(net).__name__,
+            "n_out": int(n_out)}
+
+
+def net_from_metadata(meta: dict, device="cuda") -> MLP:
+    """Rebuild a network from a :func:`net_metadata` record, on ``device``.
+
+    Only the standard tanh families can be rebuilt without user code
+    (:data:`REBUILDABLE_NETS`), and of them only the MLP is ported; a custom
+    module must be rebuilt by the caller and handed in directly."""
+    ntype = meta.get("network_type")
+    if ntype not in REBUILDABLE_NETS \
+            or "tanh" not in str(meta.get("activation", "")):
+        raise ValueError(
+            f"only tanh networks of type {REBUILDABLE_NETS} can be "
+            f"reconstructed from metadata (file has {ntype}/"
+            f"{meta.get('activation')}); build the custom network "
+            "yourself and pass it in explicitly")
+    if ntype != "MLP":
+        raise not_ported(f"rebuilding a {ntype}",
+                         "queue 1 item 5, FourierMLP/PeriodicMLP")
+    return neural_net(tuple(meta["layer_sizes"]), device=device)

@@ -1,0 +1,229 @@
+"""The deployable surrogate artifact: the train/infer split.
+
+Counterpart of the JAX package's ``serving/surrogate.py``.  A
+:class:`Surrogate` is the inference-only extract of a trained solver: the
+network, its parameters and the ``u``/derivative/residual closures, with no
+training state (no optimizer moments, no λ, no collocation set).  It saves
+through :mod:`tensordiffeq_tpu_torch.checkpoint`, whose state tree is
+``{"params": ...}`` and nothing else, and restores in a fresh process with
+no solver around.
+
+The residual ``f_model`` is user code and is not serialised: the loader
+passes it to :meth:`Surrogate.load` again, as in the reference's
+``AC-inference.py`` flow.  The payload is the port's ``.npz``, so an
+artifact of the JAX package (orbax) does not load here; parameters cross
+between the packages through :func:`~tensordiffeq_tpu_torch.weights.
+params_from_jax`.
+
+Typical flow::
+
+    solver.fit(...)
+    solver.export_surrogate().save("runs/ac_surrogate")
+
+    # -- fresh process, no solver, no domain, no training state ----------
+    from tensordiffeq_tpu_torch.serving import Surrogate
+    sur = Surrogate.load("runs/ac_surrogate", f_model=f_model)  # the card
+    engine = sur.engine()                 # bucketed, one CUDA graph a rung
+    u = engine.u(X)                       # [N, n_out]
+    u_x = engine.derivative(X, "x")       # [N]
+    f = engine.residual(X)                # [N] (tuple for systems)
+
+Not ported yet (ROADMAP queue 1 item 5, ``DiscoveryModel``):
+``from_discovery`` and the ``"discovery"`` contract raise
+:class:`~tensordiffeq_tpu_torch.utils.NotPortedError`.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..checkpoint import (resolve_checkpoint_dir, restore_checkpoint,
+                          save_checkpoint)
+from ..networks import mlp_forward, net_from_metadata, net_metadata
+from ..utils import not_ported, resolve_device
+
+_FORMAT = 1
+# Artifact schema version (distinct from _FORMAT, the original marker
+# field).  v1: no version field (absent reads as 1); v2 adds the optional
+# fleet warm-start block.  Every version <= ARTIFACT_VERSION loads; a newer
+# one fails loudly with ArtifactVersionMismatch instead of mis-restoring
+# fields this build has never heard of.
+ARTIFACT_VERSION = 2
+# which f_model signature the artifact's residual expects:
+#   forward    f_model(u, *coords)            (CollocationSolverND)
+#   discovery  f_model(u, var, *coords)       (DiscoveryModel)
+_CONTRACTS = ("forward", "discovery")
+_DISCOVERY_ITEM = "queue 1 item 5, DiscoveryModel"
+
+
+class ArtifactVersionMismatch(ValueError):
+    """The artifact's schema version is newer than this build supports:
+    loading would drop or mis-read fields the producer relied on.  Upgrade
+    the serving build, or re-export the artifact."""
+
+    def __init__(self, path: str, found: int, supported: int):
+        self.path = path
+        self.found = int(found)
+        self.supported = int(supported)
+        super().__init__(
+            f"{path} is a v{found} surrogate artifact but this build "
+            f"supports up to v{supported}; upgrade tensordiffeq_tpu_torch "
+            "or re-export the artifact with this version")
+
+
+class Surrogate:
+    """Inference-only extract of a trained solver: net + params + closures.
+
+    ``params`` is the ``[(W, b), ...]`` list the engine serves (its device
+    is the engine's); ``net`` is the architecture they belong to.  Build
+    one with :meth:`from_solver` (or the solver's ``export_surrogate()``)
+    or :meth:`load`; evaluate through :meth:`engine`.
+    """
+
+    def __init__(self, net, params, varnames: Sequence[str], n_out: int = 1,
+                 f_model: Optional[Callable] = None,
+                 coefficients: Optional[Sequence] = None,
+                 contract: str = "forward"):
+        if contract not in _CONTRACTS:
+            raise ValueError(f"contract must be one of {_CONTRACTS}, "
+                             f"got {contract!r}")
+        if contract == "discovery":
+            raise not_ported("a discovery surrogate", _DISCOVERY_ITEM)
+        self.net = net
+        self.params = [tuple(pair) for pair in params]
+        self.varnames = tuple(varnames)
+        self.ndim = len(self.varnames)
+        self.n_out = int(n_out)
+        self.contract = contract
+        self.coefficients = (None if coefficients is None else
+                             [np.asarray(c, np.float32)
+                              for c in coefficients])
+        self.f_model = f_model
+        self.layer_sizes = list(getattr(net, "layer_sizes",
+                                        (self.ndim, self.n_out)))
+        # set by load(): the artifact's meta and its on-disk directory
+        self.artifact_meta: dict = {}
+        self.artifact_dir: Optional[str] = None
+
+    # ------------------------------------------------------------------ #
+    @property
+    def apply_fn(self) -> Callable:
+        """The forward contract: ``apply_fn(params, x[..., ndim]) ->
+        [..., n_out]``."""
+        return mlp_forward
+
+    @property
+    def device(self) -> torch.device:
+        return self.params[0][0].device
+
+    @property
+    def point_residual(self) -> Optional[Callable]:
+        """The per-point residual ``r(u, *coords)``, or ``None`` when no
+        ``f_model`` is attached (u and derivative queries still work;
+        residual queries raise)."""
+        return self.f_model
+
+    # ------------------------------------------------------------------ #
+    @classmethod
+    def from_solver(cls, solver, best_model: bool = False) -> "Surrogate":
+        """Extract from a :class:`CollocationSolverND` (compiled, or
+        ``load_model``-restored).  ``best_model=True`` exports the best
+        iterate seen in training instead of the last one (the selection
+        ``predict(best_model=True)`` makes).  The parameters are copied:
+        the surrogate does not follow later training."""
+        params = solver.params
+        if best_model and solver.best_model.get("overall") is not None:
+            params = solver.best_model["overall"]
+        params = [(W.detach().clone(), b.detach().clone())
+                  for W, b in params]
+        if getattr(solver, "_compiled", False):
+            varnames = tuple(solver.domain.vars)
+            f_model = solver.f_model
+        else:  # load_model-only solver: the net exists, the residual not
+            varnames = tuple(f"x{i}"
+                             for i in range(int(solver.layer_sizes[0])))
+            f_model = None
+        return cls(solver.net, params, varnames, n_out=solver.n_out,
+                   f_model=f_model, contract="forward")
+
+    @classmethod
+    def from_discovery(cls, model) -> "Surrogate":
+        """Extract from a ``DiscoveryModel``: not ported yet."""
+        raise not_ported("Surrogate.from_discovery", _DISCOVERY_ITEM)
+
+    # ------------------------------------------------------------------ #
+    def engine(self, **kwargs):
+        """An :class:`~tensordiffeq_tpu_torch.serving.InferenceEngine` over
+        this surrogate (see there for the bucket ladder)."""
+        from .engine import InferenceEngine
+        return InferenceEngine(self, **kwargs)
+
+    # ------------------------------------------------------------------ #
+    def save(self, path: str, extra_meta: Optional[dict] = None,
+             extra_files: Optional[dict] = None) -> None:
+        """Persist under the directory ``path`` through the checkpoint
+        protocol (``.tmp``, fsync, atomic swap, sha256).  The state is
+        ``{"params": ...}`` only.  ``extra_meta`` merges JSON fields into
+        the artifact meta; ``extra_files`` maps artifact-relative paths to
+        raw bytes saved and checksummed beside the state."""
+        meta = net_metadata(self.net, self.layer_sizes, self.n_out)
+        meta.update(surrogate_format=_FORMAT,
+                    artifact_version=ARTIFACT_VERSION,
+                    varnames=list(self.varnames),
+                    contract=self.contract)
+        if self.coefficients is not None:
+            meta["coefficients"] = [c.tolist() for c in self.coefficients]
+        if extra_meta:
+            meta.update(extra_meta)
+        save_checkpoint(path, {"params": [list(p) for p in self.params]},
+                        meta, extra_files=extra_files)
+
+    @classmethod
+    def load(cls, path: str, f_model: Optional[Callable] = None, net=None,
+             device="cuda") -> "Surrogate":
+        """Restore an artifact written by :meth:`save` onto ``device`` (the
+        card unless the caller asks for ``"cpu"``); needs no solver, no
+        domain and no training state.  ``f_model`` re-attaches the residual
+        (user code is never serialised); omit it to serve ``u`` and
+        derivatives only.  ``net`` re-attaches a network built by the
+        caller, with the architecture the training run used."""
+        dev = resolve_device(device)
+        artifact_dir = resolve_checkpoint_dir(path)
+        with open(os.path.join(artifact_dir, "tdq_meta.json")) as fh:
+            meta = json.load(fh)["meta"]
+        if "surrogate_format" not in meta:
+            raise ValueError(
+                f"{path} is not a surrogate artifact (it has no "
+                "surrogate_format field — a full training checkpoint "
+                "belongs to solver.restore_checkpoint)")
+        # the schema gate comes before any other field is read
+        version = int(meta.get("artifact_version", 1))
+        if version > ARTIFACT_VERSION:
+            raise ArtifactVersionMismatch(path, version, ARTIFACT_VERSION)
+        if net is None:
+            try:
+                net = net_from_metadata(meta, device=dev)
+            except ValueError as e:
+                raise ValueError(
+                    f"{e}; here: Surrogate.load(path, f_model=..., "
+                    "net=<the network module the training run compiled "
+                    "with>)") from None
+        net = net.to(dev)
+        state, _ = restore_checkpoint(
+            path, {"params": [list(p) for p in net.layers()]})
+        net.load_layers([(torch.from_numpy(np.asarray(W)),
+                          torch.from_numpy(np.asarray(b)))
+                         for W, b in state["params"]])
+        # the served tensors share the net's storage
+        params = [(W.detach(), b.detach()) for W, b in net.layers()]
+        sur = cls(net, params, meta["varnames"], n_out=int(meta["n_out"]),
+                  f_model=f_model, coefficients=meta.get("coefficients"),
+                  contract=meta.get("contract", "forward"))
+        sur.artifact_meta = meta
+        sur.artifact_dir = artifact_dir
+        return sur

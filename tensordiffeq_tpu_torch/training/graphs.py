@@ -30,10 +30,16 @@ capture.  The kernel wrappers count their launches in
 Python, which runs once at capture and never at replay: the launches a
 capture records are taken back out of the counters and added again at every
 replay, so a counter reads the launches the device ran.
+
+The serving engine runs each (kind, bucket) rung through a
+:class:`StepGraph` too: :meth:`StepGraph.prime` warms a rung up and captures
+it at its first query, which the replay then answers, and the rungs of one
+engine share a :class:`SharedPool`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import inspect
 import time
@@ -86,20 +92,37 @@ def side_stream(device: torch.device) -> torch.cuda.Stream:
     return _side_streams[index]
 
 
+@contextlib.contextmanager
+def _collector_off():
+    """Python's cyclic collector held off (around a capture)."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if collecting:
+            gc.enable()
+
+
 class CudaGraph:
     """``torch.cuda.CUDAGraph`` behind the two calls :class:`StepGraph`
     makes; captured on ``stream``, the stream of the warm-up.  The capture
     is ``torch.cuda.graph``'s without its synchronisation and cache release
     on entry: a capture runs nothing on the device, and emptying the cache
-    costs a step's time or more each time."""
+    costs a step's time or more each time.  ``pool`` (a
+    :class:`SharedPool`'s ``id``) shares one memory pool between graphs
+    that never run at the same time; ``None`` gives the graph a private
+    one."""
 
-    def __init__(self, stream: Optional[torch.cuda.Stream]):
+    def __init__(self, stream: Optional[torch.cuda.Stream], pool=None):
         self.graph = torch.cuda.CUDAGraph()
         self.stream = stream
+        self.pool = pool
 
     def capture(self, fn: Callable):
         with torch.cuda.stream(self.stream):
-            self.graph.capture_begin(capture_error_mode="global")
+            self.graph.capture_begin(pool=self.pool,
+                                     capture_error_mode="global")
             try:
                 fn()
             finally:
@@ -107,6 +130,28 @@ class CudaGraph:
 
     def replay(self):
         self.graph.replay()
+
+
+class SharedPool:
+    """One graph memory pool for graphs that never run at the same time
+    (the rungs of a serving engine).  PyTorch frees a pool when the last
+    graph captured into it is destroyed and then refuses a capture into
+    it, so the pool holds a graph of its own (one fill of one element):
+    the graphs that share it may be dropped and captured again in any
+    order.  (A ``torch.cuda.MemPool`` would hold the pool too, but aborts
+    the process if it is destroyed before the graphs captured into it.)"""
+
+    def __init__(self, device: torch.device):
+        self.id = torch.cuda.graph_pool_handle()
+        self._holder = torch.cuda.CUDAGraph()
+        stream = side_stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with _collector_off(), torch.cuda.stream(stream):
+            self._holder.capture_begin(pool=self.id)
+            try:
+                torch.zeros(1, device=device)
+            finally:
+                self._holder.capture_end()
 
 
 class StepGraph:
@@ -141,6 +186,17 @@ class StepGraph:
         if self.graph is not None and storage_key(self.keyed()) != self.key:
             self.graph, self.held, self.warm = None, (), 0
 
+    def prime(self):
+        """Warm up and capture now, if a graph is due and missing: the
+        first call of a step that must be served by a replay at once (a
+        serving rung's first query).  The warm-ups are the usual eager runs
+        on the side stream; their results are not the caller's."""
+        if self.make_graph is None or self.graph is not None:
+            return
+        while self.warm < WARMUP_RUNS:
+            self._warm_up()
+        self._capture()
+
     def __call__(self):
         """One step."""
         if self.make_graph is None:
@@ -170,22 +226,19 @@ class StepGraph:
     def _capture(self):
         before = [(c, c.launches) for c in ct.COUNTED]
         t0 = time.perf_counter()
-        # a capture allocates from the graph's own pool, which starts empty:
-        # what the allocator reserves across it is the pool
+        # a capture allocates from the graph's pool: what the allocator
+        # reserves across it is what the pool grew by (all of a private one)
         reserved = torch.cuda.memory_reserved(self.device) if self.cuda else 0
         graph = self.make_graph(side_stream(self.device) if self.cuda
                                 else None)
-        collecting = gc.isenabled()
-        gc.disable()
         try:
-            graph.capture(self.fn)
+            with _collector_off():
+                graph.capture(self.fn)
         except RuntimeError as e:
             raise GraphCaptureError(
                 f"capturing the {self.name} as a CUDA graph failed; it is not "
                 "run eagerly instead") from e
         finally:
-            if collecting:
-                gc.enable()
             # capture launches nothing: take its counts back out
             recorded = [(c, c.launches - n) for c, n in before]
             for c, n in before:

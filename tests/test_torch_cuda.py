@@ -43,6 +43,14 @@ installed::
   restored checkpoint re-captures and its 10 graphed steps equal the saved
   solver's; a capture that fails raises and the step does not carry on
   eagerly.
+* serving (``tensordiffeq_tpu_torch.serving``): every (kind, bucket) rung's
+  graph equals its program run eagerly at the same padded shape bit for
+  bit; a restored checkpoint's parameters assigned to the surrogate drop
+  the graphs and capture them again; graphs in the engine's shared pool
+  answer as in private pools; a 10-rung ladder serves every kind with no
+  rung quarantined; a capture that fails quarantines its rungs and nothing
+  is served eagerly; the batcher's answers equal the engine's on the same
+  batches.
 """
 
 import warnings
@@ -560,3 +568,163 @@ def test_failed_capture_raises_and_does_not_run_eagerly(card):
     assert solver.losses == []
     torch.cuda.synchronize()
     assert float((torch.ones(2, device=card) * 2).sum()) == 4.0
+
+
+# --------------------------------------------------------------------------- #
+# serving: one CUDA graph per (kind, bucket) rung
+# --------------------------------------------------------------------------- #
+SERVE_KINDS = ("u", "d:x:1", "d:x:2", "d:t:1", "residual")
+
+
+def _serve_points(n, seed=0):
+    rng = np.random.RandomState(seed)
+    return np.stack([rng.uniform(-1, 1, n),
+                     rng.uniform(0, 1, n)], 1).astype(np.float32)
+
+
+def _serve_leaves(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def _serve_eager(eng, spec, X, bucket):
+    """The kind's program run eagerly on ``X`` padded to ``bucket``."""
+    from tensordiffeq_tpu_torch.utils import ieee_f32
+    Xp = torch.zeros(bucket, 2, device=eng.surrogate.device)
+    Xp[:len(X)] = torch.from_numpy(X)
+    with ieee_f32(), torch.no_grad():
+        out = eng.make_batched(spec)()(eng.surrogate.params, Xp)
+    return [o[:len(X)].cpu().numpy() for o in _serve_leaves(out)]
+
+
+def _serve_equal(a, b):
+    return all(np.array_equal(x, y)
+               for x, y in zip(_serve_leaves(a), _serve_leaves(b)))
+
+
+@pytest.fixture
+def served(card):
+    solver = _ac_solver("cuda", n_f=1024, minimax=None)
+    solver.fit(tf_iter=5)
+    return solver
+
+
+@pytest.mark.parametrize("spec", SERVE_KINDS)
+def test_serving_rung_graphs_equal_eager_bit_for_bit(served, spec):
+    eng = served.export_surrogate().engine(min_bucket=64, max_bucket=4096)
+    for n in (1, 64, 100, 1000, 4096, 5000):
+        X = _serve_points(n, seed=n)
+        got = eng.op_for(spec)(X)
+        for i in range(0, n, 4096):  # chunk by chunk
+            part = X[i:i + 4096]
+            want = _serve_eager(eng, spec, part, eng.bucket_for(len(part)))
+            assert _serve_equal([g[i:i + 4096] for g in _serve_leaves(got)],
+                                want), (spec, n)
+    # one capture per touched rung, each replayed since
+    assert all(r.graph.captures == 1 and r.graph.graph is not None
+               for r in eng._rungs.values())
+    assert eng.compile_cache_size == len(eng._rungs) == 4  # 64, 128, 1024, 4096
+
+
+def test_serving_restore_drops_and_recaptures(served, tmp_path):
+    ck = str(tmp_path / "ck")
+    served.save_checkpoint(ck)
+    served.fit(tf_iter=5)
+    eng = served.export_surrogate().engine(min_bucket=64, max_bucket=1024)
+    X = _serve_points(300)
+    before = eng.residual(X)
+    rung = eng._rungs[("residual", 512)]
+    assert rung.graph.captures == 1
+    served.restore_checkpoint(ck)
+    eng.surrogate.params = served.export_surrogate().params
+    after = eng.residual(X)
+    assert rung.graph.captures == 2
+    assert not np.array_equal(before, after)
+    fresh = served.export_surrogate().engine(min_bucket=64, max_bucket=1024)
+    assert np.array_equal(after, fresh.residual(X))
+    u, _ = served.predict(X)
+    assert float(np.abs(eng.u(X) - u).max() / np.abs(u).max()) <= 1e-6
+
+
+def test_serving_shared_pool_matches_private_pools(served):
+    from tensordiffeq_tpu_torch.training.graphs import CudaGraph
+    sur = served.export_surrogate()
+    shared = sur.engine(min_bucket=64, max_bucket=2048)
+    private = sur.engine(min_bucket=64, max_bucket=2048)
+    private._make_graph = CudaGraph  # a pool per graph
+    for n in (10, 100, 500, 2048):
+        X = _serve_points(n, seed=n)
+        for spec in SERVE_KINDS:
+            assert _serve_equal(shared.op_for(spec)(X),
+                                private.op_for(spec)(X)), (spec, n)
+
+
+def test_serving_no_rung_quarantined_across_the_ladder(served):
+    eng = served.export_surrogate().engine(min_bucket=64, max_bucket=32768)
+    assert eng.n_buckets == 10
+    for bucket in eng.bucket_sizes:
+        X = _serve_points(bucket - 3 if bucket > 64 else 1, seed=bucket)
+        for spec in SERVE_KINDS:
+            out = _serve_leaves(eng.op_for(spec)(X))
+            assert all(np.isfinite(o).all() for o in out)
+    assert eng.quarantined_buckets() == {}
+    assert eng.compile_cache_size == len(SERVE_KINDS) * eng.n_buckets
+    assert all(r.graph.captures == 1 for r in eng._rungs.values())
+
+
+def test_serving_capture_failure_quarantines_and_never_runs_eagerly(served):
+    from tensordiffeq_tpu_torch.serving import EngineDegraded
+    eng = served.export_surrogate().engine(min_bucket=64, max_bucket=128)
+    make_fn = eng._make_fn
+    runs = []
+
+    def syncing(key):  # a host read: refused inside a capture
+        make = make_fn(key)
+
+        def make_syncing():
+            program = make()
+
+            def batched(params, Xb):
+                runs.append(float(Xb.sum()))
+                return program(params, Xb)
+            return batched
+        return make_syncing
+
+    eng._make_fn = lambda key: syncing(key) if key == "u" else make_fn(key)
+    with pytest.raises(EngineDegraded):
+        eng.u(_serve_points(10))
+    assert eng.quarantined_buckets() == {"u": [64, 128]}
+    # the warm-ups ran (3 per rung), then nothing was served eagerly
+    assert len(runs) == 6 and not eng._rungs
+    torch.cuda.synchronize()
+    assert float((torch.ones(2, device="cuda") * 2).sum()) == 4.0
+    # the engine's pool outlived the failed captures: other kinds capture
+    X = _serve_points(100)
+    assert np.array_equal(eng.derivative(X, "x"),
+                          _serve_eager(eng, "d:x:1", X, 128)[0])
+    assert eng._rungs[(("d", 0, 1, 0), 128)].graph.captures == 1
+
+
+def test_serving_batcher_through_the_engine_on_card(served):
+    from tensordiffeq_tpu_torch.serving import RequestBatcher
+    from tensordiffeq_tpu_torch.telemetry import MetricsRegistry
+    eng = served.export_surrogate().engine(min_bucket=64, max_bucket=4096)
+    sizes = []
+
+    def op(X):
+        sizes.append(len(X))
+        return eng.residual(X)
+
+    b = RequestBatcher(eng, op=op, max_batch=256, max_latency_s=60.0,
+                       registry=MetricsRegistry())
+    rng = np.random.RandomState(0)
+    reqs = [_serve_points(int(n), seed=i)
+            for i, n in enumerate(rng.randint(1, 40, 100))]
+    handles = [b.submit(X) for X in reqs]
+    got = np.concatenate([h.result() for h in handles])
+    # the same batches through the engine directly: the same rungs
+    ends = np.cumsum(sizes)
+    allX = np.concatenate(reqs)
+    want = np.concatenate([eng.residual(allX[a:z]) for a, z in
+                           zip(np.concatenate([[0], ends[:-1]]), ends)])
+    assert np.array_equal(got, want)
+    assert b.stats()["requests"] == 100 and eng.quarantined_buckets() == {}

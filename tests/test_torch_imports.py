@@ -45,6 +45,13 @@ def test_port_has_modules():
                  "tensordiffeq_tpu_torch/ops/minimax.py",
                  "tensordiffeq_tpu_torch/ops/residual_tape.py",
                  "tensordiffeq_tpu_torch/models/collocation.py",
+                 "tensordiffeq_tpu_torch/serving/engine.py",
+                 "tensordiffeq_tpu_torch/serving/batcher.py",
+                 "tensordiffeq_tpu_torch/serving/surrogate.py",
+                 "tensordiffeq_tpu_torch/telemetry/registry.py",
+                 "tensordiffeq_tpu_torch/resilience/retry.py",
+                 "tensordiffeq_tpu_torch/resilience/breaker.py",
+                 "tensordiffeq_tpu_torch/profiling.py",
                  "chip_smoke.py"):
         assert want in names
 
