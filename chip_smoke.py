@@ -71,9 +71,37 @@ Phases (each failure is fatal; exit code != 0, no result line):
    the residual takes 5,000 requests of 1-64 points.  Prints a ``[serve
    <kind> b=<bucket>]`` line per rung (capture s, pool MiB, ms per replay
    by CUDA events, points/s), ``[serve grid]`` and ``[serve batcher]``.
-11. a ``{"kernels": [...]}`` line, the card line again, and the result line.
+11. adaptive collocation on AC-SA full (``compile(fused="cuda")``, K3
+   adopted): (a) K3 at w = 1, the ascent mover's scores (the sum of gw)
+   and direction (gX), against its plain flavor at N = 50,000; (b) K1 over
+   a pool of 200,000 points (``[X_f ; 150,000 stratified]``) against its
+   plain flavor, each within 1e-4 scale-relative and timed; (c)
+   ``fit(tf_iter=400, chunk=100, resample_every=100)`` in pool mode: 3
+   redraws dispatched on their own stream, 2 swapped in, the last discarded;
+   (d) the same with ``resample_mode="ascent"``; (e) each mode again on a
+   fresh solver with ``_graphs=False``.  Gates: N_f unchanged and ``X_f``
+   the same tensor; the Adam graph captured once across the swaps; at each
+   swap kept rows' λ and λ moments are the old rows gathered bit for bit,
+   fresh rows' λ the kept mean and their moments zero; launches K1 3 and
+   K3 400 in pool mode, K3 400 + 6 x 3 in ascent mode; the graphed and the
+   eager solver (one seed) end bit for bit equal, ``X_f`` included; the
+   loss finite.  Prints each redraw's device ms (CUDA events on its
+   stream), its host dispatch and swap stall, and, in four more fits of
+   two chunks on the graphed solver, ms/step of the first chunk (alone)
+   against the second (a redraw in flight).
+12. the inverse problem at full width: ``DiscoveryModel`` on the 512x201
+   Allen-Cahn grid (102,912 observations), 2-128x4-1, var = [0, 0], SA
+   weights from ``RandomState(0).rand``, ``lr_vars=[2e-5, 0.01]``, the
+   fused engine adopted.  50 graphed steps against 50 eager ones bit for
+   bit; 200 steps in all (ms/step), the loss falls and both coefficients
+   move; a checkpoint at step 100 restored into a fresh model resumes bit
+   for bit; ``export_surrogate`` → ``save`` → ``Surrogate.load(...,
+   f_model=)`` keeps the learned coefficients and its engine's residual on
+   the grid matches ``predict_f`` within 1e-5 scale-relative.  No kernel
+   launches (the JAX package's discovery reaches none either).
+13. a ``{"kernels": [...]}`` line, the card line again, and the result line.
 
-Phases 6-9 train through CUDA graphs (``training/graphs.py``): each Adam
+Phases 6-9, 11 and 12 train through CUDA graphs (``training/graphs.py``): each Adam
 step, each L-BFGS evaluation and two-loop sweep, and each fixed-step L-BFGS
 iteration is one replayed graph after three eager warm-up steps; the
 kernels' launch counters add each graph's recorded launches at every
@@ -155,6 +183,15 @@ SERVE_LADDER = dict(min_bucket=256, max_bucket=131_072)
 SERVE_QUERIES, SERVE_MAX_ROWS = 200, 50_000
 ROW_STABLE = 1_000
 BATCH_REQUESTS, BATCH_MAX_ROWS = 5_000, 64
+# phase 11, adaptive collocation: 400 steps, a redraw dispatched every 100
+# (at 100, 200, 300), swapped in at the next boundary, the last discarded
+RESAMPLE_STEPS, RESAMPLE_EVERY = 400, 100
+RESAMPLE_PLAN = [(100, 200), (200, 300), (300, None)]
+RESAMPLE_TURNS = 4  # fits of two chunks: the second with a redraw in flight
+# phase 12, discovery: 200 steps in chunks of 50, the first 50 held to
+# eager, a checkpoint at 100; the JAX example's per-coefficient rates
+DISC_STEPS, DISC_REFEREE, DISC_CKPT, DISC_CHUNK = 200, 50, 100, 50
+DISC_LR_VARS = (2e-5, 0.01)
 # engine u against predict's u: the same forward at another row count
 SERVE_U_BAND = 1e-6
 # u_t - 1e-4 u_xx + 5u^3 - 5u from the derivative kinds against the
@@ -1338,9 +1375,359 @@ def phase_serve(solver, card: str) -> dict:
     return dict(rungs=rungs, grid_ms=grid_ms, batcher=stats)
 
 
+# --------------------------------------------------------------------- #
+# phase 11: adaptive collocation; phase 12: the inverse problem
+# --------------------------------------------------------------------- #
+def _checked_adopt(log: list):
+    """A wrapper of ``AdamStep.adopt`` that holds each swap's λ carry to
+    its contract: kept rows' λ and λ moments are the old rows gathered, bit
+    for bit; fresh rows' λ sit at the kept rows' mean and their moments at
+    zero.  Appends one ``(kept, ok, why)`` per swap to ``log``."""
+    import torch
+    from tensordiffeq_tpu_torch.training import fit as tfit
+    adopt = tfit.AdamStep.adopt
+
+    def checked(self, X_new, swap=None):
+        if swap is None:
+            return adopt(self, X_new, swap)
+        lam = self.lambdas["residual"][0]
+        state = self.optimizers[1].state[lam]
+        old = lam.detach().clone()
+        moments = {k: state[k].clone() for k in ("exp_avg", "exp_avg_sq")}
+        shape = tuple(self.X_f.shape)
+        drift = adopt(self, X_new, swap)
+        kept, rows = swap.kept, swap.idx[swap.kept]
+        fresh = ~kept
+        new = lam.detach()
+        why = []
+        if tuple(self.X_f.shape) != shape or not torch.equal(self.X_f,
+                                                             X_new):
+            why.append("X_f")
+        if not torch.equal(new[kept], old[rows]):
+            why.append("kept lambda")
+        if int(fresh.sum()):
+            mean = old[rows].mean(0)
+            if not torch.allclose(new[fresh], mean.expand_as(new[fresh]),
+                                  rtol=1e-6, atol=0):
+                why.append("fresh lambda")
+        for k, m in moments.items():
+            if not torch.equal(state[k][kept], m[rows]) \
+                    or bool(state[k][fresh].any()):
+                why.append(k)
+        log.append((int(kept.sum()), not why, why))
+        return drift
+
+    return adopt, checked
+
+
+def _resample_fit(solver, tag: str, **kw) -> dict:
+    """``fit`` with resampling on ``solver``, the launch counts set to 0
+    just before and read just after, each swap's carry checked."""
+    import torch
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    from tensordiffeq_tpu_torch.training import fit as tfit
+
+    log = []
+    adopt, checked = _checked_adopt(log)
+    X_f = solver.X_f
+    n0 = len(solver.redraws)
+    ct.reset_launch_counts()
+    tfit.AdamStep.adopt = checked
+    try:
+        t = _timed_fit(solver, **kw)
+    finally:
+        tfit.AdamStep.adopt = adopt
+    launches = _counts()
+    recs = solver.redraws[n0:]
+    chunks = solver._adam_result.chunk_seconds
+    n_step = kw["tf_iter"] // len(chunks)
+    print(f"[resample {tag}] {kw['tf_iter']} steps in {t:.2f} s = "
+          f"{1e3 * t / kw['tf_iter']:.3f} ms/step; launches {launches}; "
+          f"captures {solver._adam.graph.captures}; loss "
+          f"{solver.losses[-kw['tf_iter']]['Total Loss']:.6e} -> "
+          f"{solver.losses[-1]['Total Loss']:.6e}", flush=True)
+    for r in recs:
+        stall = ("discarded" if r["adopted"] is None else
+                 f"swapped at {r['adopted']}, host stall "
+                 f"{1e3 * r['stall_s']:.3f} ms")
+        print(f"[resample {tag}] redraw of epoch {r['epoch']}: device "
+              f"{r['device_ms']:.3f} ms on its stream, dispatch "
+              f"{1e3 * r['dispatch_s']:.3f} ms host, {stall}; "
+              + ", ".join(f"{k} {v:.4g}" for k, v in r["stats"].items()),
+              flush=True)
+    print(f"[resample {tag}] chunk ms/step: "
+          + ", ".join(f"{1e3 * c / n_step:.3f}" for c in chunks)
+          + " (the first holds the warm-up and capture; the rest run with "
+          "a redraw in flight)", flush=True)
+    for kept, ok, why in log:
+        print(f"[resample {tag}] swap: {kept} rows kept, carry "
+              f"{'exact' if ok else 'WRONG: ' + ', '.join(why)}", flush=True)
+    total = np.array([r["Total Loss"] for r in solver.losses])
+    if solver.X_f is not X_f or tuple(X_f.shape) != (N_POINTS, 2):
+        fail(f"{tag}: X_f was replaced or changed shape")
+    captures = 0 if kw.get("_graphs") is False else 1
+    if solver._adam.graph.captures != captures:
+        fail(f"{tag}: the Adam graph was captured "
+             f"{solver._adam.graph.captures} times across the swaps")
+    if [(r["epoch"], r["adopted"]) for r in recs] != RESAMPLE_PLAN:
+        fail(f"{tag}: redraws {[(r['epoch'], r['adopted']) for r in recs]}"
+             f", expected {RESAMPLE_PLAN}")
+    if len(log) != 2 or not all(ok for _, ok, _ in log):
+        fail(f"{tag}: the swaps' carry broke its contract: {log}")
+    if not np.all(np.isfinite(total)):
+        fail(f"{tag}: the loss is not finite")
+    return dict(launches=launches, seconds=t, records=recs, chunks=chunks,
+                solver=solver)
+
+
+def phase_resample(dev) -> dict:
+    """Phase 11: adaptive collocation on AC-SA full through
+    ``compile(fused="cuda")`` (K3 adopted): (a) K3 at w = 1 and (b) K1 at
+    the pool's size against their plain flavors; (c) the pool redraw and
+    (d) the ascent mover, 400 steps each with a redraw every 100; (e) each
+    mode again eagerly from the same seed, held bit for bit."""
+    import torch
+    from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    from tensordiffeq_tpu_torch.ops import resampling as rs
+    from tensordiffeq_tpu_torch.ops.taylor import taylor_derivatives
+
+    solver = _fresh_solver()
+    layers = solver.net.layers()
+    flat_layers = [a.detach() if a.ndim == 2 else a.detach().reshape(1, -1)
+                   for pair in layers for a in pair]
+    X = solver.X_f
+    before = _counts()
+    # (a) K3 at w = 1: the ascent mover's scores (sum of gw) and direction
+    sg = solver._minimax_score_grad_fn()
+    s_k, g_k = sg(layers, X)
+    torch.cuda.synchronize()
+    ones = torch.ones((N_POINTS, 1), device=dev)
+    _, _, gw_p, g_p = solver._minimax_sq.plain(flat_layers, ones, X)
+    s_p = gw_p.sum(1)
+    a1, r1 = scaled_err(s_k, s_p)
+    a2, r2 = scaled_err(g_k, g_p)
+    ms = cuda_ms(lambda: sg(layers, X))
+    plain_ms = cuda_ms(lambda: solver._minimax_sq.plain(flat_layers, ones, X),
+                       reps=5)
+    print(f"[K3 w=1] N={N_POINTS}: scores max_abs_err={a1:.3e} "
+          f"scale_rel_err={r1:.3e}, gX max_abs_err={a2:.3e} scale_rel_err="
+          f"{r2:.3e} (tol {K3_RTOL:g}); {ms:.3f} ms (plain {plain_ms:.3f} ms)",
+          flush=True)
+    if not (max(r1, r2) <= K3_RTOL and bool(torch.isfinite(s_k).all())):
+        fail("K3 at w = 1 disagrees with its plain flavor")
+    # (b) K1 over the pool: [X_f ; 3 N_f fresh]
+    gen = rs.redraw_generator(0, 1, dev)
+    pool = torch.cat([X, rs._stratified_pool(gen, 3 * N_POINTS,
+                                              solver.domain.xlimits)])
+    plan = ct.build_cuda_table_fn(solver._fuse_requests,
+                                  [tuple(W.shape) for W, _ in layers],
+                                  device=dev).plan
+    flat = plan.pack(flat_layers)
+    table = ct.k1_forward(plan, pool, flat)
+    torch.cuda.synchronize()
+    pairs = [(W.detach(), b.detach()) for W, b in layers]
+
+    def plain_table():
+        t = taylor_derivatives(pairs, pool, set(plan.channels),
+                               flat_matmul=True)
+        return torch.stack([t[mi] for mi in plan.channels])
+
+    with torch.no_grad():
+        ref = plain_table()
+        k1_abs, k1_rel = 0.0, 0.0
+        for c in range(plan.C):
+            a, r = scaled_err(table[c], ref[c])
+            k1_abs, k1_rel = max(k1_abs, a), max(k1_rel, r)
+        k1_ms = cuda_ms(lambda: ct.k1_forward(plan, pool, flat))
+        k1_plain = cuda_ms(plain_table, reps=5)
+    n_pool = int(pool.shape[0])
+    bound = bound_ms(ct.flop_count(plan, n_pool)["k1"],
+                     ct.byte_count(plan, n_pool)["k1"])
+    print(f"[K1 pool] N={n_pool}: max_abs_err={k1_abs:.3e} scale_rel_err="
+          f"{k1_rel:.3e} (tol {K1_RTOL:g}); {k1_ms:.3f} ms (plain "
+          f"{k1_plain:.3f} ms), {bound_text(k1_ms, bound)}", flush=True)
+    if not k1_rel <= K1_RTOL:
+        fail("K1 at the pool's size disagrees with its plain flavor")
+    # comparison launches are not the main path's: restore the counts
+    ct.k1_forward.launches, ct.k2_backward.launches, \
+        cm.k3_minimax.launches = before["k1"], before["k2"], before["k3"]
+    del solver, pool, table, ref
+
+    out = {"w1": dict(max_abs_err=max(a1, a2), ms=ms, plain_ms=plain_ms),
+           "pool_k1": dict(max_abs_err=k1_abs, ms=k1_ms, plain_ms=k1_plain,
+                           bound=bound)}
+    kw = dict(tf_iter=RESAMPLE_STEPS, chunk=RESAMPLE_EVERY,
+              resample_every=RESAMPLE_EVERY)
+    for mode in ("pool", "ascent"):
+        want = ({"k1": 3, "k2": 0, "k3": RESAMPLE_STEPS} if mode == "pool"
+                else {"k1": 0, "k2": 0, "k3": RESAMPLE_STEPS + 6 * 3})
+        runs = {}
+        for leg, graphs in (("graphs", True), ("eager", False)):
+            res = runs[leg] = _resample_fit(
+                _fresh_solver(), f"{mode} {leg}", resample_mode=mode,
+                _graphs=graphs, **kw)
+            if res["launches"] != want:
+                fail(f"{mode} {leg}: launches {res['launches']}, expected "
+                     f"{want}")
+        # (e) two solvers from one seed, one graphed, one eager
+        a, b = runs["graphs"]["solver"], runs["eager"]["solver"]
+        diff = _state_diff(a, b)
+        same_x = bool(torch.equal(a.X_f, b.X_f))
+        print(f"[resample {mode}] graph vs eager from one seed: "
+              + ("losses, parameters and lambda bit-identical" if diff == 0
+                 else f"max scale-relative difference {diff:.3e}")
+              + f"; X_f {'bit-identical' if same_x else 'DIFFERS'}",
+              flush=True)
+        if diff != 0 or not same_x:
+            fail(f"{mode}: the graphed and the eager solver differ")
+        # a chunk with a redraw in flight against one without, in turns:
+        # each fit of two chunks dispatches a redraw after its first, so
+        # the first runs alone and the second beside the redraw
+        quiet, busy = [], []
+        for _ in range(RESAMPLE_TURNS):
+            _timed_fit(a, tf_iter=2 * RESAMPLE_EVERY, chunk=RESAMPLE_EVERY,
+                       resample_every=RESAMPLE_EVERY, resample_mode=mode)
+            q, b_ = a._adam_result.chunk_seconds
+            quiet.append(1e3 * q / RESAMPLE_EVERY)
+            busy.append(1e3 * b_ / RESAMPLE_EVERY)
+        print(f"[resample {mode}] chunk ms/step in {RESAMPLE_TURNS} turns "
+              f"of the same graph, without / with a redraw in flight: "
+              + ", ".join(f"{q:.3f} / {b_:.3f}" for q, b_ in
+                          zip(quiet, busy))
+              + f"; mean {np.mean(quiet):.3f} / {np.mean(busy):.3f} "
+              f"({100 * (np.mean(busy) / np.mean(quiet) - 1):+.1f} %)",
+              flush=True)
+        if a._adam.graph.captures != 1:
+            fail(f"{mode}: the turns captured the step again")
+        runs["graphs"]["busy_ms"] = float(np.mean(busy))
+        runs["graphs"]["quiet_ms"] = float(np.mean(quiet))
+        out[mode] = runs["graphs"]
+    return out
+
+
+def _discovery_model(X, u_star, col_weights):
+    """Phase 12's model: the JAX package's ``examples/ac_discovery.py``
+    setup at full width (2-128x4-1, var = [0, 0], SA weights, per-coefficient
+    rates), the fused engine chosen automatically."""
+    import tensordiffeq_tpu_torch as tdqt
+    from tensordiffeq_tpu_torch import grad
+
+    def f_model(u, var, x, t):
+        c1, c2 = var
+        u_xx = grad(grad(u, "x"), "x")
+        uv = u(x, t)
+        return grad(u, "t")(x, t) - c1 * u_xx(x, t) + c2 * uv ** 3 - c2 * uv
+
+    m = tdqt.DiscoveryModel()
+    m.compile(WIDTHS, f_model, [X[:, 0:1], X[:, 1:2]], u_star,
+              var=[0.0, 0.0], col_weights=col_weights, varnames=["x", "t"],
+              lr_vars=list(DISC_LR_VARS), verbose=False)
+    return m, f_model
+
+
+def _disc_equal(a, b) -> bool:
+    import torch
+    return (a.losses == b.losses and a.var_history == b.var_history
+            and np.array_equal(a.col_weights, b.col_weights)
+            and all(torch.equal(p, q) for p, q in
+                    zip(a.net.parameters(), b.net.parameters())))
+
+
+def phase_discovery() -> dict:
+    """Phase 12: ``DiscoveryModel`` on the Allen-Cahn grid at full width;
+    graphs against eager, the run, a mid-run checkpoint resumed in a fresh
+    model, and the exported surrogate's residual against ``predict_f``."""
+    import tempfile
+
+    import torch
+    from tensordiffeq_tpu_torch.exact import allen_cahn_solution
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    from tensordiffeq_tpu_torch.serving import Surrogate
+    from tensordiffeq_tpu_torch.training import graphs
+
+    x, t, usol = allen_cahn_solution()
+    X = np.stack(np.meshgrid(x, t, indexing="ij"), -1).reshape(-1, 2)
+    u_star = usol.reshape(-1, 1)
+    cw = np.random.RandomState(0).rand(X.shape[0], 1)
+    ct.reset_launch_counts()
+    c0 = len(graphs.captures)
+    a, f_model = _discovery_model(X, u_star, cw)
+    b, _ = _discovery_model(X, u_star, cw)
+    if a.engine != "fused":
+        fail(f"discovery engine {a.engine}: the fused engine was not "
+             f"adopted ({a._fuse_fail_reason!r})")
+    t_g = _timed_disc(a, DISC_REFEREE)
+    t_e = _timed_disc(b, DISC_REFEREE, _graphs=False)
+    same = _disc_equal(a, b)
+    print(f"[discovery] n={X.shape[0]} engine {a.engine}; {DISC_REFEREE} "
+          f"steps each way: graphs {1e3 * t_g / DISC_REFEREE:.3f} ms/step, "
+          f"eager {1e3 * t_e / DISC_REFEREE:.3f} ms/step; graph vs eager: "
+          f"{'bit-identical' if same else 'DIFFERS'}", flush=True)
+    _captures_since("discovery", c0)
+    if not same or a._step_obj.graph.captures != 1:
+        fail("discovery: the graphed steps differ from the eager ones")
+    del b
+    # the run: 200 steps in all, a checkpoint at 100
+    t_1 = _timed_disc(a, DISC_CKPT - DISC_REFEREE)
+    with tempfile.TemporaryDirectory() as tmp:
+        a.save_checkpoint(f"{tmp}/ck")
+        t_2 = _timed_disc(a, DISC_STEPS - DISC_CKPT)
+        c, _ = _discovery_model(X, u_star, cw)
+        c.restore_checkpoint(f"{tmp}/ck")
+        _timed_disc(c, DISC_STEPS - DISC_CKPT)
+        resumed = _disc_equal(a, c)
+        del c
+        ms = 1e3 * (t_1 + t_2) / (DISC_STEPS - DISC_REFEREE)
+        v0, v1 = a.var_history[0], a.var_history[-1]
+        print(f"[discovery] {DISC_STEPS} steps: {ms:.3f} ms/step (replays); "
+              f"loss {a.losses[0]:.6e} -> {a.losses[-1]:.6e}; c1 {v0[0]:.6e}"
+              f" -> {v1[0]:.6e}, c2 {v0[1]:.6e} -> {v1[1]:.6e} (true 1e-4, "
+              f"5); resume from step {DISC_CKPT} "
+              f"{'bit-identical' if resumed else 'DIFFERS'}", flush=True)
+        if not (np.all(np.isfinite(a.losses)) and a.losses[-1] < a.losses[0]):
+            fail("discovery: the loss did not fall")
+        if not all(abs(v) > 0 for v in v1):
+            fail(f"discovery: a coefficient did not move: {v1}")
+        if not resumed:
+            fail("discovery: the resumed model differs from the run")
+        # the learned PDE as a surrogate, with no model around
+        a.export_surrogate().save(f"{tmp}/art")
+        sur = Surrogate.load(f"{tmp}/art", f_model=f_model)
+        eng = sur.engine(**SERVE_LADDER)
+        Xg = np.ascontiguousarray(X, np.float32)
+        t0 = time.perf_counter()
+        res = np.asarray(eng.residual(Xg)).reshape(-1, 1)
+        t_res = time.perf_counter() - t0
+        ref = a.predict_f(Xg)
+        err = float(np.abs(res - ref).max())
+        scale = float(np.abs(ref).max())
+        print(f"[discovery serve] contract {sur.contract}, coefficients "
+              f"{[float(c) for c in sur.coefficients]}; engine residual on "
+              f"{Xg.shape[0]} points in {t_res:.3f} s (first touch) vs "
+              f"predict_f: max_abs_err {err:.3e}, scale-relative "
+              f"{err / scale:.3e} (band 1e-5)", flush=True)
+        if not err <= 1e-5 * scale:
+            fail("discovery: the engine's residual disagrees with predict_f")
+    launches = _counts()
+    if any(launches.values()):
+        fail(f"discovery launched kernels: {launches}")
+    return dict(ms_step=ms, launches=launches)
+
+
+def _timed_disc(model, steps: int, _graphs: bool = True) -> float:
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(tf_iter=steps, chunk=DISC_CHUNK, _graphs=_graphs)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def kernels_line(meas: dict, paths: dict) -> str:
-    """``launches`` sums a kernel's launches over the runs of both paths
-    (``launches_by_path`` splits them)."""
+    """``launches`` sums a kernel's launches over the runs of every path
+    (``launches_by_path`` splits them: minimax, unfused, lbfgs, pool,
+    ascent, discovery)."""
     entries = []
     for key, name, source, replaces in (
             ("k1", "taylor_table_fwd (K1)", "csrc/taylor_table.cu",
@@ -1403,6 +1790,10 @@ def main():
     paths["lbfgs"] = phase_refine(paths)
     phase_graphs()
     phase_serve(paths["minimax"]["solver"], card)
+    resample = phase_resample(dev)
+    paths["pool"] = resample["pool"]
+    paths["ascent"] = resample["ascent"]
+    paths["discovery"] = phase_discovery()
     if args.profile:
         phase_ab(paths)
         # in turns, so a slower stretch of the host does not land on one

@@ -8,7 +8,9 @@ engine's Taylor-table kernels (``compile(fused="cuda")``,
 (``compile(minimax=None)``, the default, :mod:`.ops.minimax`) hand-written
 in CUDA for the H100, and the serving path (``solver.export_surrogate()``
 → :class:`~.serving.Surrogate` → its bucketed engine, one CUDA graph per
-rung, → :class:`~.serving.RequestBatcher`).  Entry points run on
+rung, → :class:`~.serving.RequestBatcher`), adaptive collocation
+(``fit(resample_every=...)``, :mod:`.ops.resampling`) and the inverse
+problem (:class:`~.models.DiscoveryModel`).  Entry points run on
 the card unless the caller passes ``device="cpu"``.  The port imports
 nothing of JAX and nothing of ``tensordiffeq_tpu``.
 """
@@ -20,7 +22,8 @@ from .boundaries import (  # noqa: F401
     BC, IC, FunctionDirichletBC, FunctionNeumannBC, dirichletBC, periodicBC)
 from .domains import DomainND  # noqa: F401
 from .helpers import find_L2_error  # noqa: F401
-from .models import CollocationSolverND, NotCompiledError  # noqa: F401
+from .models import (  # noqa: F401
+    CollocationSolverND, DiscoveryModel, NotCompiledError)
 from .networks import MLP, neural_net  # noqa: F401
 from .ops import MSE, UFn, d, g_MSE, grad, laplacian  # noqa: F401
 from .ops import set_default_grad_mode  # noqa: F401

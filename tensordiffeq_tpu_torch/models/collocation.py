@@ -36,7 +36,11 @@ carry the whole training state (:mod:`..checkpoint`), ``fit(checkpoint_dir=,
 checkpoint_every=)`` saves it at chunk boundaries of both phases, and
 ``save``/``load_model`` write and read the network alone, self-describing.
 ``export_surrogate`` hands the trained network to the serving path
-(:mod:`..serving`).
+(:mod:`..serving`).  ``fit(resample_every=...)`` redraws the collocation
+set during the Adam phase (:mod:`..ops.resampling`): the pool redraw,
+scored through the residual engine (K1 on ``fused="cuda"``), or the
+PACMANN ascent mover (``resample_mode="ascent"``), scored and moved by one
+K3 launch at w ≡ 1 per step when the minimax step is adopted.
 
 Everything of the JAX solver that is not ported yet raises
 :class:`~..utils.NotPortedError` naming its ROADMAP item.
@@ -81,7 +85,6 @@ _UNPORTED_FIT = {
     "profile_dir": (None, "queue 1 item 7, telemetry"),
     "eval_fn": (None, "queue 1 item 7, telemetry"),
     "eval_every": (0, "queue 1 item 7, telemetry"),
-    "resample_every": (0, "queue 1, resampling"),
     "telemetry": (None, "queue 1 item 7, telemetry"),
 }
 
@@ -94,6 +97,25 @@ def _reject_unported(table: dict, given: dict, where: str):
         off, item = table[name]
         if value is not off and value != off:
             raise not_ported(f"{where}({name}=...)", item)
+
+
+class _DeviceResampleHook:
+    """``fit_adam``-facing adapter around a device resampler
+    (:class:`~..ops.resampling.DeviceResampler` or
+    :class:`~..ops.resampling.AscentResampler`): re-bases the loop's
+    call-relative epoch by the epochs already trained, so a warm-restarted
+    ``fit`` explores new pools instead of replaying the last one's draws.
+    The swap writes into the solver's ``X_f`` in place, so nothing else
+    needs syncing."""
+
+    pipelined = True
+
+    def __init__(self, sampler, epoch_offset: int):
+        self.sampler = sampler
+        self.epoch_offset = int(epoch_offset)
+
+    def redraw(self, layers, X_cur, epoch: int):
+        return self.sampler.redraw(layers, X_cur, epoch + self.epoch_offset)
 
 
 def _flat(layers) -> list:
@@ -137,6 +159,11 @@ class CollocationSolverND:
         # L-BFGS iterations done so far (restored from checkpoints), so a
         # resumed run credits the refinement it already did
         self.newton_done = 0
+        # the least resample_uniform a redraw uses (a resilience remedy in
+        # the JAX package); checkpoints carry it
+        self._resample_uniform_floor = 0.0
+        # one record per redraw of every fit (training.fit.fit_adam)
+        self.redraws: list[dict] = []
 
     @property
     def params(self) -> list:
@@ -399,6 +426,27 @@ class CollocationSolverND:
                   "residual + SA-λ loss + cotangents in one step)",
                   flush=True)
 
+    def _minimax_score_grad_fn(self):
+        """``score_grad(layers, X) -> (scores [N], gX [N, d])`` for the
+        ascent mover, from the adopted minimax step: one evaluation at
+        w ≡ 1 (one K3 launch on the card) gives ``gw = f²`` per point and
+        equation, summed into the scores, and ``gX``, the ascent direction.
+        ``None`` when the step is not adopted (the mover then takes
+        autograd over the residual: K1 + K2 on ``fused="cuda"``)."""
+        sq = self._minimax_sq
+        if sq is None:
+            return None
+        n_eq = int(sq.n_equations)
+
+        def score_grad(layers, X):
+            flat = [a if a.ndim == 2 else a.reshape(1, -1)
+                    for pair in layers for a in pair]
+            w = torch.ones((X.shape[0], n_eq), dtype=X.dtype, device=X.device)
+            _, _, gw, gX = sq.value_and_grads(flat, w, X.contiguous())
+            return torch.sum(gw.reshape(X.shape[0], -1), 1), gX
+
+        return score_grad
+
     def _crosscheck_minimax(self, mm_loss, n_check: int = 32):
         """Compare the fused minimax loss term (value and gradients with
         respect to the parameters and λ) against the generic engine's
@@ -548,8 +596,12 @@ class CollocationSolverND:
             newton_eager: Optional[bool] = None, chunk: int = 100,
             checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
             batch_sz: Optional[int] = None,
-            grad_clip: Optional[float] = None, _graphs: bool = True,
-            **unported):
+            grad_clip: Optional[float] = None,
+            resample_every: int = 0, resample_pool: int = 4,
+            resample_temp: float = 1.0, resample_uniform: float = 0.1,
+            resample_seed: int = 0, resample_device: Optional[bool] = None,
+            resample_mode: str = "pool", resample_ascent_steps: int = 5,
+            _graphs: bool = True, **unported):
         """Adam with SA-λ ascent, then L-BFGS refinement (reference
         ``models.py:227`` → ``fit.py:17-102``).
 
@@ -586,8 +638,35 @@ class CollocationSolverND:
         :meth:`restore_checkpoint`, and ``fit`` with what is left of the
         budget.
 
-        The JAX solver's other fit options (resampling, telemetry,
-        profiling, eval hooks) raise :class:`~..utils.NotPortedError`.
+        ``resample_every`` (:mod:`..ops.resampling`): every that many Adam
+        epochs, at a chunk boundary, the N_f collocation points are redrawn
+        (never at the phase's last boundary); L-BFGS refines on the final
+        set.  ``resample_device=None``/``True`` (the default): the device
+        redraw, dispatched at one boundary on a stream of its own and
+        swapped in at the next, written into the step's buffers, so the
+        Adam step's CUDA graph replays on without a new capture; a redraw
+        still pending at the phase's end is discarded.
+        ``resample_mode="pool"``: ``[X_f ; (resample_pool - 1)·N_f fresh
+        stratified points]`` scored by the residual engine (one K1 launch
+        on ``fused="cuda"``), ``N_f`` rows kept by Gumbel top-k under ``p ∝
+        |f|^resample_temp`` with a ``resample_uniform`` floor; kept rows
+        carry their per-point λ, fresh rows start at the kept mean, and the
+        λ-ascent moments follow with fresh rows at zero.
+        ``resample_mode="ascent"``: the PACMANN mover,
+        ``resample_ascent_steps`` normalized-gradient steps up ``Σ f²``
+        (clipped to the domain box; scores and direction from one K3
+        launch at w ≡ 1 when the minimax step is adopted), then the
+        ``resample_uniform``·N_f lowest-score rows are replaced by a
+        stratified draw; moved rows keep their λ.  ``resample_device=
+        False``: the host path (NumPy LHS pool, host scores, synchronous);
+        it raises :class:`ValueError` under per-point λ (its pool is all
+        fresh) and with ``resample_mode="ascent"``.  Draws are seeded by
+        ``(resample_seed, epoch)``, the epoch counted from the epochs
+        already trained.  ``self.redraws`` gets one record per redraw
+        (:func:`~..training.fit.fit_adam`).
+
+        The JAX solver's other fit options (telemetry, profiling, eval
+        hooks) raise :class:`~..utils.NotPortedError`.
         ``_graphs=False`` runs every step eagerly: the referee the graphs
         are held to on the card, not an option of the training run."""
         if not self._compiled:
@@ -602,6 +681,13 @@ class CollocationSolverND:
         if checkpoint_dir is not None and checkpoint_every > 0:
             def save(layers, newton_done, live):
                 self._save_state(checkpoint_dir, layers, newton_done, live)
+
+        resample_fn = None
+        if resample_every > 0:
+            resample_fn = self._resample_hook(
+                resample_pool, resample_temp, resample_uniform,
+                resample_seed, resample_device, resample_mode,
+                resample_ascent_steps)
 
         if tf_iter > 0:
             params = _flat(self.net.layers())
@@ -628,9 +714,15 @@ class CollocationSolverND:
                                   verbose=self.verbose,
                                   result=FitResult(losses=self.losses),
                                   state_hook=hook,
-                                  state_hook_every=checkpoint_every)
+                                  state_hook_every=checkpoint_every,
+                                  resample_fn=resample_fn,
+                                  resample_every=resample_every)
             self.wall_time = result.wall_time
-            if (self.best_model["adam"] is None
+            self.redraws.extend(result.redraws)
+            self._adam_result = result  # its chunk_seconds, for timing
+            # losses on other point sets do not compare: under resampling
+            # this leg's best wins, as in the JAX solver
+            if (self.best_model["adam"] is None or resample_fn is not None
                     or result.min_loss["adam"] <= self.min_loss["adam"]):
                 self.best_model["adam"] = _pairs(result.best_params["adam"])
                 self.min_loss["adam"] = result.min_loss["adam"]
@@ -678,6 +770,60 @@ class CollocationSolverND:
         self.best_epoch["overall"] = self.best_epoch[which] + offset
         self.best_model["overall"] = self.best_model[which]
         return self
+
+    def _resample_hook(self, pool, temp, uniform, seed, device, mode,
+                       ascent_steps):
+        """The ``fit_adam`` resample hook for ``fit``'s ``resample_*``
+        options, with the JAX solver's validation."""
+        from ..ops import resampling as rs
+
+        n_f = int(self.X_f.shape[0])
+        per_point = any(lam is not None and lam.ndim >= 1
+                        and lam.shape[0] == n_f
+                        for lam in self.lambdas["residual"])
+        uniform_frac = max(float(uniform),
+                           float(self._resample_uniform_floor or 0.0))
+        # fit_adam counts this call's epochs from 0: offset by the epochs
+        # already trained, so a warm restart explores new pools
+        epoch_offset = len(self.losses)
+        xlimits = self.domain.xlimits
+        if mode not in ("pool", "ascent"):
+            raise ValueError(
+                f"resample_mode={mode!r}: expected 'pool' (pool→top-k "
+                "redraw) or 'ascent' (PACMANN gradient mover)")
+        if mode == "ascent":
+            if device is False:
+                raise ValueError(
+                    "resample_mode='ascent' is device-resident by "
+                    "construction (the mover is a gradient program on the "
+                    "solver's device); it has no host path — drop "
+                    "resample_device=False")
+            sampler = rs.AscentResampler(
+                self._residual, xlimits, n_f, n_steps=ascent_steps,
+                fresh_frac=uniform_frac, seed=seed,
+                score_grad_fn=self._minimax_score_grad_fn())
+            return _DeviceResampleHook(sampler, epoch_offset)
+        if device is not False:
+            sampler = rs.DeviceResampler(
+                self._residual, xlimits, n_f, pool_factor=pool, temp=temp,
+                uniform_frac=uniform_frac, seed=seed)
+            return _DeviceResampleHook(sampler, epoch_offset)
+        if per_point:
+            raise ValueError(
+                "resample_device=False (the host-path redraw) is "
+                "incompatible with per-point residual λ (Adaptive_type=1): "
+                "the host pool is entirely fresh, so trained λ rows have no "
+                "points to ride.  Use the device path (resample_device="
+                "None/True, the default), which keeps the current points in "
+                "the pool and carries kept rows' λ through the redraw.")
+        base = rs.make_residual_resampler(
+            self._residual, xlimits, n_f, pool_factor=pool, temp=temp,
+            uniform_frac=uniform_frac, seed=seed, device=self.device)
+
+        def resample(layers, epoch):
+            return base(layers, epoch + epoch_offset)
+
+        return resample
 
     # ------------------------------------------------------------------ #
     @staticmethod
@@ -734,7 +880,8 @@ class CollocationSolverND:
                 "has_X_f": True,
                 "n_f": int(self.X_f.shape[0]),
                 "grad_clip": self._opt_grad_clip,
-                "resample_uniform_floor": 0.0}
+                "resample_uniform_floor": float(
+                    self._resample_uniform_floor or 0.0)}
         if cand:
             # the lowest loss; ties go to the first candidate (the live
             # best) or, in a plain save, to the phase bucket before
@@ -831,6 +978,9 @@ class CollocationSolverND:
         # the restored moments carry this clipping config; a fit() that
         # turns clipping on or off restarts them
         self._opt_grad_clip = meta.get("grad_clip")
+        floor = float(meta.get("resample_uniform_floor", 0.0) or 0.0)
+        if floor > 0.0:
+            self._resample_uniform_floor = floor
         return self
 
     # ------------------------------------------------------------------ #

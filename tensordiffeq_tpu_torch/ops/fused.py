@@ -208,16 +208,25 @@ def analyze_f_model(f_model: Callable, varnames: Sequence[str],
 
 def make_fused_residual(f_model: Callable, varnames: Sequence[str],
                         n_out: int, requests: set,
-                        table_producer: Optional[Callable] = None) -> Callable:
+                        table_producer: Optional[Callable] = None,
+                        has_prefix_arg: bool = False,
+                        return_primal: bool = False) -> Callable:
     """Build ``residual(params, X) -> [N] | tuple of [N]`` backed by one
     Taylor propagation.  ``params`` is an MLP or its ``[(W, b), ...]``.
 
     ``table_producer(layers, X) -> {mi: [N, n_out]}`` replaces the plain
     propagation — the hook the CUDA kernels plug into
-    (:func:`~.cuda_taylor.build_cuda_table_fn`)."""
+    (:func:`~.cuda_taylor.build_cuda_table_fn`).
+
+    ``has_prefix_arg=True`` builds ``residual(params, X, var)`` for the
+    inverse-problem contract ``f_model(u, var, *coords)``: ``var`` (the
+    trainable coefficients) multiplies the table's columns like any other
+    batched value.  ``return_primal=True`` returns ``(residual, u)`` with
+    ``u = table[()]``: a data loss at the same ``X`` takes the primal from
+    the propagation instead of a second network forward."""
     ndim = len(varnames)
 
-    def residual(params, X):
+    def residual(params, X, *prefix):
         layers = extract_mlp_layers(params)
         if layers is None:
             raise ValueError(
@@ -230,6 +239,13 @@ def make_fused_residual(f_model: Callable, varnames: Sequence[str],
         # ONE batched re-run of f_model: lookups return whole [N] columns
         coords = tuple(X[:, i] for i in range(ndim))
         u = SymbolicUFn(_TableEngine(coords, table), varnames, n_out)
-        return f_model(u, *coords)
+        out = f_model(u, *prefix, *coords)
+        if return_primal:
+            return out, table[()]
+        return out
 
+    if not has_prefix_arg:
+        def residual_no_prefix(params, X):
+            return residual(params, X)
+        return residual_no_prefix
     return residual

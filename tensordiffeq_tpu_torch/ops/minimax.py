@@ -120,7 +120,9 @@ def build_minimax_sq_fn(f_model: Callable, varnames: Sequence[str],
     block.  ``sq_fn.n_equations`` is E, ``sq_fn.plan`` the kernel's
     :class:`~.cuda_minimax.MinimaxPlan`, and ``sq_fn.plain(flat, w, X)``
     the plain flavor's ``(value, [dW_0, db_0, ...], gw, gX)`` on any
-    device (biases as ``[1, fan_out]``)."""
+    device (biases as ``[1, fan_out]``); ``sq_fn.value_and_grads(flat, w,
+    X)`` the same from the flavor the tensors' device takes (one K3 launch
+    for CUDA tensors), outside autograd."""
     resolve_device(device)
     mis = _sorted_mis(requests)
     ndim = len(varnames)
@@ -172,6 +174,7 @@ def build_minimax_sq_fn(f_model: Callable, varnames: Sequence[str],
     sq_fn.n_equations = plan.E
     sq_fn.plan = plan
     sq_fn.plain = plain
+    sq_fn.value_and_grads = value_and_grads
     return sq_fn
 
 

@@ -28,9 +28,10 @@ Typical flow::
     u_x = engine.derivative(X, "x")       # [N]
     f = engine.residual(X)                # [N] (tuple for systems)
 
-Not ported yet (ROADMAP queue 1 item 5, ``DiscoveryModel``):
-``from_discovery`` and the ``"discovery"`` contract raise
-:class:`~tensordiffeq_tpu_torch.utils.NotPortedError`.
+A ``DiscoveryModel`` exports through :meth:`Surrogate.from_discovery`
+(the ``"discovery"`` contract): its learned coefficients are frozen into
+the artifact's meta, and the residual the engine serves is the loader's
+``f_model(u, var, *coords)`` with them bound in.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ import torch
 from ..checkpoint import (resolve_checkpoint_dir, restore_checkpoint,
                           save_checkpoint)
 from ..networks import mlp_forward, net_from_metadata, net_metadata
-from ..utils import not_ported, resolve_device
+from ..utils import resolve_device
 
 _FORMAT = 1
 # Artifact schema version (distinct from _FORMAT, the original marker
@@ -58,7 +59,6 @@ ARTIFACT_VERSION = 2
 #   forward    f_model(u, *coords)            (CollocationSolverND)
 #   discovery  f_model(u, var, *coords)       (DiscoveryModel)
 _CONTRACTS = ("forward", "discovery")
-_DISCOVERY_ITEM = "queue 1 item 5, DiscoveryModel"
 
 
 class ArtifactVersionMismatch(ValueError):
@@ -92,8 +92,6 @@ class Surrogate:
         if contract not in _CONTRACTS:
             raise ValueError(f"contract must be one of {_CONTRACTS}, "
                              f"got {contract!r}")
-        if contract == "discovery":
-            raise not_ported("a discovery surrogate", _DISCOVERY_ITEM)
         self.net = net
         self.params = [tuple(pair) for pair in params]
         self.varnames = tuple(varnames)
@@ -101,9 +99,10 @@ class Surrogate:
         self.n_out = int(n_out)
         self.contract = contract
         self.coefficients = (None if coefficients is None else
-                             [np.asarray(c, np.float32)
+                             [np.array(c, np.float32)
                               for c in coefficients])
         self.f_model = f_model
+        self._bound = None  # the discovery residual with its coefficients
         self.layer_sizes = list(getattr(net, "layer_sizes",
                                         (self.ndim, self.n_out)))
         # set by load(): the artifact's meta and its on-disk directory
@@ -123,9 +122,23 @@ class Surrogate:
 
     @property
     def point_residual(self) -> Optional[Callable]:
-        """The per-point residual ``r(u, *coords)``, or ``None`` when no
-        ``f_model`` is attached (u and derivative queries still work;
-        residual queries raise)."""
+        """The per-point residual ``r(u, *coords)`` with any learned
+        coefficients bound in (as 0-d tensors on the surrogate's device),
+        or ``None`` when no ``f_model`` is attached (u and derivative
+        queries still work; residual queries raise)."""
+        if self.f_model is None:
+            return None
+        if self.contract == "discovery":
+            if self.coefficients is None:
+                raise ValueError(
+                    "discovery surrogate has no coefficient values; the "
+                    "artifact is corrupt or was built without vars")
+            if self._bound is None:  # one copy to the device, not per query
+                f = self.f_model
+                coeffs = [torch.as_tensor(c, device=self.device)
+                          for c in self.coefficients]
+                self._bound = lambda u, *coords: f(u, coeffs, *coords)
+            return self._bound
         return self.f_model
 
     # ------------------------------------------------------------------ #
@@ -153,8 +166,15 @@ class Surrogate:
 
     @classmethod
     def from_discovery(cls, model) -> "Surrogate":
-        """Extract from a ``DiscoveryModel``: not ported yet."""
-        raise not_ported("Surrogate.from_discovery", _DISCOVERY_ITEM)
+        """Extract from a :class:`~..models.DiscoveryModel`: a copy of the
+        network's parameters, with the learned coefficient values frozen
+        into the artifact, so the surrogate evaluates the *learned* PDE's
+        residual."""
+        params = [(W.detach().clone(), b.detach().clone())
+                  for W, b in model.net.layers()]
+        return cls(model.net, params, model.varnames, n_out=model.n_out,
+                   f_model=model.f_model, coefficients=model.vars,
+                   contract="discovery")
 
     # ------------------------------------------------------------------ #
     def engine(self, **kwargs):

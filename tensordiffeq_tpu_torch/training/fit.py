@@ -24,8 +24,16 @@ Minibatching (``batch_sz``) scans every batch each epoch, with ceil
 batching and a wraparound tail (:func:`make_batches`), and gathers per-point
 λ rows alongside their points, as the JAX package does on one device.
 
-Not ported yet (ROADMAP queue 1): learning-rate schedules, ``permute`` and
-the mesh branch of ``make_batches``, resampling, telemetry.
+Adaptive collocation (``resample_fn``, ``resample_every``;
+:mod:`..ops.resampling`) redraws the collocation set at chunk boundaries.
+A redraw is written INTO the step's buffers (:meth:`AdamStep.adopt`), so
+the graph, which is keyed on their storage, is replayed on the new points
+without a new capture.  A pipelined redraw runs on a stream of its own
+(:func:`dispatch_redraw`) over a snapshot of the parameters of its dispatch
+boundary, while the next chunk's replays update the live ones.
+
+Not ported yet (ROADMAP queue 1): learning-rate schedules, the mesh branch
+of ``make_batches``, telemetry.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..ops.resampling import carry_rows
 from ..utils import span, tree_copy
 from .graphs import StepGraph
 
@@ -82,22 +91,30 @@ def clip_by_global_norm(tensors, max_norm: float):
 
 
 def make_batches(X_f: torch.Tensor, batch_sz: Optional[int],
-                 verbose: bool = True):
+                 verbose: bool = True, permute: bool = False):
     """``(X_batched [n_b, bsz, d], idx_batched [n_b, bsz], n_batches)``, the
     single-device branch of the JAX package's ``make_batches``:
     ``idx_batched`` maps each batch row to its row of ``X_f`` (for the
     per-point λ gather).  Every row trains: when ``batch_sz`` does not
-    divide the point count, the tail batch wraps to the front of the set."""
+    divide the point count, the tail batch wraps to the front of the set.
+
+    ``permute=True``: the rows are shuffled by ``np.random.RandomState(0)``
+    before batching (the JAX package's permutation, row for row), so a
+    batch of an ordered set (an observation grid) covers the domain
+    instead of being a thin slab of it."""
     n_f = int(X_f.shape[0])
     if batch_sz is None or batch_sz >= n_f:
         idx = torch.arange(n_f, device=X_f.device)[None]
         return X_f[None], idx, 1
     bsz = int(batch_sz)
     n_batches = -(-n_f // bsz)  # ceil: keep every row
-    take = torch.arange(n_batches * bsz, device=X_f.device) % n_f
-    if take.numel() != n_f and verbose:
-        print(f"[fit] tail batch wraps {take.numel() - n_f} rows so "
+    take = np.arange(n_batches * bsz) % n_f
+    if take.size != n_f and verbose:
+        print(f"[fit] tail batch wraps {take.size - n_f} rows so "
               f"{bsz}-point batches cover every point", flush=True)
+    if permute:
+        take = np.random.RandomState(0).permutation(n_f)[take]
+    take = torch.as_tensor(take, device=X_f.device)
     X_batched = X_f.index_select(0, take).reshape(n_batches, bsz, -1)
     return X_batched, take.reshape(n_batches, bsz), n_batches
 
@@ -117,6 +134,10 @@ class FitResult:
                                                        "l-bfgs": None,
                                                        "overall": None})
     wall_time: dict = field(default_factory=dict)
+    # one record per redraw (dispatched, adopted or discarded), see fit_adam
+    redraws: list = field(default_factory=list)
+    # host seconds of each chunk, from its first step to its history read
+    chunk_seconds: list = field(default_factory=list)
 
 
 def _device_scalar(v, dev) -> torch.Tensor:
@@ -197,6 +218,47 @@ class AdamStep:
             bufs.append(self.hist)
         return self.params + lams + state + bufs + self.best_params
 
+    def adopt(self, X_new: torch.Tensor, swap=None):
+        """Adopt a redrawn collocation set: written into ``X_f`` and the
+        batch buffers with ``copy_`` (the graph's storage key holds, so the
+        graph replays on the new points without a new capture), and the
+        running best's loss reset to +inf (losses on different point sets
+        do not compare; the JAX package's ``_adopt_points``).  With the
+        redraw's ``swap`` (:class:`~..ops.resampling.ResampleSwap`), each
+        per-point residual λ rides :func:`~..ops.resampling.carry_rows`
+        (kept rows gathered, fresh rows at the kept mean) and its λ-ascent
+        Adam moments follow the same map with fresh rows at zero
+        (``_carry_point_state``).  Returns the largest λ drift (a 0-d
+        tensor), or ``None`` when nothing was carried."""
+        if tuple(X_new.shape) != tuple(self.X_f.shape):
+            raise ValueError(
+                f"resample redraw changed the collocation shape "
+                f"{tuple(self.X_f.shape)} -> {tuple(X_new.shape)}; the "
+                "redraw must keep N_f so the step and its graph are reused")
+        drift = None
+        opt_lam = self.optimizers[1]
+        with torch.no_grad():
+            if swap is not None:
+                for lam, pp in zip(self.lambdas["residual"], self.per_point):
+                    if not pp:
+                        continue
+                    new, d = carry_rows(lam, swap.idx, swap.kept)
+                    state = opt_lam.state.get(lam, {}) if opt_lam else {}
+                    for key in ("exp_avg", "exp_avg_sq"):
+                        if key in state:
+                            state[key].copy_(carry_rows(
+                                state[key], swap.idx, swap.kept,
+                                fresh_zero=True)[0])
+                    lam.copy_(new)
+                    drift = d if drift is None else torch.maximum(drift, d)
+            self.X_f.copy_(X_new)
+            if self.n_batches > 1:
+                self.X_batched.copy_(self.X_f.index_select(
+                    0, self.idx_batched.reshape(-1)).reshape(
+                        self.X_batched.shape))
+            self.best_loss.fill_(float("inf"))
+        return drift
+
     def begin(self, rows: int):
         """Start a ``fit``: step counter 0, the best reset to the current
         parameters, room for ``rows`` history rows per chunk (a chunk's
@@ -264,10 +326,108 @@ class AdamStep:
             self.row.add_(1)
 
 
+_redraw_streams: dict = {}
+
+
+def redraw_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream pipelined redraws run on, one per device: not the
+    graphs' warm-up and capture stream (:func:`.graphs.side_stream`)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _redraw_streams:
+        _redraw_streams[index] = torch.cuda.Stream(index)
+    return _redraw_streams[index]
+
+
+class PendingRedraw:
+    """A redraw dispatched at a chunk boundary and not adopted yet: its
+    :class:`~..ops.resampling.ResampleSwap` (device tensors), its epoch and
+    the host seconds its dispatch took; on a CUDA device also the events
+    that bracket it on the redraw stream."""
+
+    def __init__(self, swap, epoch: int, dispatch_s: float, start=None,
+                 done=None):
+        self.swap, self.epoch, self.dispatch_s = swap, epoch, dispatch_s
+        self.start, self.done = start, done
+
+    def join(self, device: torch.device):
+        """Make the current stream wait for the redraw (on the device; the
+        host does not wait) and hand its tensors over to that stream, so
+        their memory is not reused before the stream is done with them."""
+        if self.done is None:
+            return
+        stream = torch.cuda.current_stream(device)
+        stream.wait_event(self.done)
+        sw = self.swap
+        for t in (sw.X_new, sw.idx, sw.kept, *sw.stats.values()):
+            t.record_stream(stream)
+
+    def device_ms(self) -> Optional[float]:
+        """Device milliseconds of the redraw on its stream, by its CUDA
+        events (``None`` off the card); call after a synchronisation."""
+        if self.done is None:
+            return None
+        return self.start.elapsed_time(self.done)
+
+
+def dispatch_redraw(redraw: Callable, params: list, X_f: torch.Tensor,
+                    epoch: int) -> PendingRedraw:
+    """Dispatch ``redraw(layers, X_f, epoch) -> ResampleSwap`` at a chunk
+    boundary.  On a CUDA device: the parameters are snapshot on the current
+    stream (the next chunk's replays update the live ones in place), the
+    redraw stream waits for that and runs the redraw, and the snapshot is
+    marked as used there, so the host returns as soon as the redraw is
+    issued.  ``X_f`` is read there too; it is written only at the swap,
+    after :meth:`PendingRedraw.join`.  On the CPU the redraw runs now."""
+    t0 = time.perf_counter()
+    dev = X_f.device
+    if dev.type != "cuda":
+        layers = list(zip(params[0::2], params[1::2]))
+        swap = redraw([(W.detach(), b.detach()) for W, b in layers], X_f,
+                      epoch)
+        return PendingRedraw(swap, epoch, time.perf_counter() - t0)
+    main = torch.cuda.current_stream(dev)
+    side = redraw_stream(dev)
+    with torch.no_grad():
+        snap = [p.detach().clone() for p in params]
+    side.wait_stream(main)
+    start = torch.cuda.Event(enable_timing=True)
+    done = torch.cuda.Event(enable_timing=True)
+    with torch.cuda.stream(side):
+        start.record(side)
+        swap = redraw(list(zip(snap[0::2], snap[1::2])), X_f, epoch)
+        done.record(side)
+    for t in snap:
+        t.record_stream(side)
+    return PendingRedraw(swap, epoch, time.perf_counter() - t0, start, done)
+
+
+def _redraw_record(pending: PendingRedraw, adopted, stall_s, drift) -> dict:
+    return {"epoch": pending.epoch, "adopted": adopted,
+            "dispatch_s": pending.dispatch_s, "stall_s": stall_s,
+            "pending": pending, "drift": drift}
+
+
+def _finish_records(records: list):
+    """Fill each record's device numbers in (after a synchronisation)."""
+    for rec in records:
+        pending = rec.pop("pending", None)
+        if pending is None:
+            continue
+        rec["device_ms"] = pending.device_ms()
+        stats = {k: float(v) for k, v in pending.swap.stats.items()}
+        drift = rec.pop("drift", None)
+        if drift is not None:
+            stats["lambda_drift"] = float(drift)
+        rec["stats"] = stats
+
+
 def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
              verbose: bool = True, result: Optional[FitResult] = None,
              state_hook: Optional[Callable] = None,
-             state_hook_every: int = 0) -> FitResult:
+             state_hook_every: int = 0,
+             resample_fn: Optional[Callable] = None,
+             resample_every: int = 0) -> FitResult:
     """Run ``tf_iter`` Adam(+SA) epochs of ``step`` in place on its
     parameters and λ: ``tf_iter · n_batches`` steps in chunks of ``chunk ·
     n_batches``, so the batch index restarts at each chunk as in the JAX
@@ -278,15 +438,35 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
     boundary that crosses a ``state_hook_every`` boundary (``epoch`` counts
     this call's epochs), with the live parameters and optimizers as they
     are then and ``best = (best_params, best_loss, best_epoch)``, the
-    running best as device tensors: the mid-run checkpoint path."""
+    running best as device tensors: the mid-run checkpoint path.
+
+    ``resample_fn`` + ``resample_every``: adaptive collocation at the chunk
+    boundaries that cross a ``resample_every`` boundary, never at the last.
+    A pipelined hook (``resample_fn.pipelined``, with ``redraw(layers,
+    X_f, epoch) -> ResampleSwap``) is dispatched there
+    (:func:`dispatch_redraw`) and adopted at the NEXT boundary, λ carried
+    (:meth:`AdamStep.adopt`), so its work runs behind the chunk between
+    them; a redraw still pending when the phase ends is discarded (it
+    trained no step), after it has finished on its stream.  Any other hook
+    is called as ``resample_fn(layers, epoch) -> X_new`` and adopted at
+    once.  Each redraw adds a record to ``result.redraws``: ``epoch``
+    (dispatched), ``adopted`` (the epoch, or ``None`` if discarded),
+    ``dispatch_s`` and ``stall_s`` (host seconds to issue it and to swap it
+    in), ``device_ms`` (CUDA events on its stream; ``None`` off the card)
+    and ``stats`` (kept fraction, score gain, λ drift).  The JAX package
+    calls the host seconds ``data_s``; its telemetry is not ported."""
     result = result or FitResult()
     n_b = step.n_batches
     total_steps = tf_iter * n_b
     step.begin(chunk * n_b)
+    pipelined = bool(getattr(resample_fn, "pipelined", False))
+    pending = None
+    records = []
     t0 = time.time()
     done = 0
     while done < total_steps:
         n = min(chunk * n_b, total_steps - done)
+        t_chunk = time.perf_counter()
         step.graph.check()
         step.row.zero_()
         for _ in range(n):
@@ -294,6 +474,7 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
                 step.graph()
         with span("fit_adam.read"):
             hist = step.hist[:n].cpu().numpy()  # one host copy per chunk
+        result.chunk_seconds.append(time.perf_counter() - t_chunk)
         # one entry per epoch: its last batch's
         for row in hist[n_b - 1::n_b]:
             result.losses.append({k: float(v)
@@ -301,6 +482,35 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
         prev = done // n_b
         done += n
         epochs = done // n_b
+        if pending is not None and done >= total_steps:
+            # the phase is over: the pending redraw trained no step
+            pending.join(step.device)
+            records.append(_redraw_record(pending, None, None, None))
+            pending = None
+        if pending is not None:
+            with span("fit_adam.swap"):
+                t_sw = time.perf_counter()
+                pending.join(step.device)
+                drift = step.adopt(pending.swap.X_new, pending.swap)
+                records.append(_redraw_record(
+                    pending, epochs, time.perf_counter() - t_sw, drift))
+            pending = None
+        if (resample_fn is not None and resample_every > 0
+                and done < total_steps
+                and prev // resample_every != epochs // resample_every):
+            with span("fit_adam.redraw"):
+                if pipelined:
+                    pending = dispatch_redraw(resample_fn.redraw, step.params,
+                                              step.X_f, epochs)
+                else:
+                    t_rd = time.perf_counter()
+                    layers = [(W.detach(), b.detach()) for W, b in
+                              zip(step.params[0::2], step.params[1::2])]
+                    step.adopt(resample_fn(layers, epochs))
+                    records.append({"epoch": epochs, "adopted": epochs,
+                                    "dispatch_s": time.perf_counter() - t_rd,
+                                    "stall_s": 0.0, "device_ms": None,
+                                    "stats": {}})
         if (state_hook is not None and state_hook_every > 0
                 and prev // state_hook_every != epochs // state_hook_every):
             state_hook(epochs, (step.best_params, step.best_loss,
@@ -311,6 +521,8 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
                   f"{result.losses[-1]['Total Loss']:.6e}", flush=True)
     if step.device.type == "cuda":
         torch.cuda.synchronize(step.device)
+    _finish_records(records)
+    result.redraws.extend(records)
     result.wall_time["adam"] = time.time() - t0
     result.best_params["adam"] = tree_copy(step.best_params)
     result.min_loss["adam"] = float(step.best_loss)

@@ -51,6 +51,15 @@ installed::
   rung quarantined; a capture that fails quarantines its rungs and nothing
   is served eagerly; the batcher's answers equal the engine's on the same
   batches.
+* adaptive collocation (``fit(resample_every=...)``): a swap writes into
+  the Adam step's buffers, so the graph is not captured again, and a
+  graphed fit equals an eager one bit for bit with redraws in both modes
+  (K1 once per pool redraw, K3 six times per ascent redraw); a redraw on
+  its side stream reads the parameters of its dispatch boundary though the
+  main stream updates them in place right after; dispatching a redraw
+  does not wait for the device; a discarded redraw has finished before
+  the main stream goes on (its memory is not reused early).
+* ``DiscoveryModel``: 50 graphed steps equal 50 eager ones bit for bit.
 """
 
 import warnings
@@ -728,3 +737,122 @@ def test_serving_batcher_through_the_engine_on_card(served):
                            zip(np.concatenate([[0], ends[:-1]]), ends)])
     assert np.array_equal(got, want)
     assert b.stats()["requests"] == 100 and eng.quarantined_buckets() == {}
+
+
+# ------------------------------------------------------------------ #
+# adaptive collocation and the inverse problem
+# ------------------------------------------------------------------ #
+def _x_f_equal(a, b):
+    return torch.equal(a.X_f, b.X_f)
+
+
+@pytest.mark.parametrize("mode", ["pool", "ascent"])
+def test_resample_swap_keeps_the_graph_and_equals_eager(card, mode):
+    graph = _ac_solver("cuda", n_f=1024, minimax=None)
+    eager = _ac_solver("cuda", n_f=1024, minimax=None)
+    X_f = graph.X_f
+    kw = dict(tf_iter=40, chunk=10, resample_every=10, resample_mode=mode)
+    cuda_taylor.reset_launch_counts()
+    graph.fit(**kw)
+    k1, k3 = (cuda_taylor.k1_forward.launches,
+              cuda_minimax.k3_minimax.launches)
+    eager.fit(_graphs=False, **kw)
+    assert graph.X_f is X_f and graph._adam.graph.captures == 1
+    assert [(r["epoch"], r["adopted"]) for r in graph.redraws] == \
+        [(10, 20), (20, 30), (30, None)]
+    assert all(r["device_ms"] > 0 for r in graph.redraws)
+    if mode == "pool":  # K1 scores each pool; K3 takes each Adam step
+        assert (k1, k3) == (3, 40)
+    else:  # 5 ascent steps and a last scoring, each one K3 at w = 1
+        assert (k1, k3) == (0, 40 + 6 * 3)
+    assert _diff(graph, eager) == 0.0 and _x_f_equal(graph, eager)
+
+
+def test_side_stream_redraw_reads_its_boundary_parameters(card):
+    from tensordiffeq_tpu_torch.ops.resampling import DeviceResampler
+    from tensordiffeq_tpu_torch.training.fit import dispatch_redraw
+    s = _ac_solver("cuda", n_f=4096, minimax=None)
+    params = [t for pair in s.net.layers() for t in pair]
+    sampler = DeviceResampler(s._residual, s.domain.xlimits, 4096)
+    want = sampler.redraw([(W.detach().clone(), b.detach().clone())
+                           for W, b in s.net.layers()], s.X_f, 7)
+    pending = dispatch_redraw(sampler.redraw, params, s.X_f, 7)
+    with torch.no_grad():  # the next chunk's updates, in place, at once
+        for p in params:
+            p.mul_(-3.0).add_(1.0)
+    pending.join(s.X_f.device)
+    assert torch.equal(pending.swap.idx, want.idx)
+    assert torch.equal(pending.swap.X_new, want.X_new)
+
+
+@pytest.mark.parametrize("mode", ["pool", "ascent"])
+def test_redraw_dispatch_does_not_wait_for_the_device(card, mode):
+    """The host issues a redraw and returns while the card is still busy:
+    nothing in the redraw synchronises (a host-to-device copy from
+    pageable memory would wait for the redraw stream)."""
+    import time
+
+    from tensordiffeq_tpu_torch.training.fit import dispatch_redraw
+    s = _ac_solver("cuda", n_f=8192, minimax=None)
+    params = [t for pair in s.net.layers() for t in pair]
+    hook = s._resample_hook(4, 1.0, 0.1, 0, None, mode, 5)
+    # a first redraw loads its kernels' modules and fills the redraw
+    # stream's share of the caching allocator
+    dispatch_redraw(hook.redraw, params, s.X_f, 1).join(s.X_f.device)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)  # the main stream busy for ~1 s
+    t0 = time.perf_counter()
+    pending = dispatch_redraw(hook.redraw, params, s.X_f, 2)
+    issued = time.perf_counter() - t0
+    assert not pending.done.query() and issued < 0.5
+    pending.join(s.X_f.device)
+    torch.cuda.synchronize()
+    assert pending.done.query() and pending.device_ms() > 0
+
+
+def test_discarded_redraw_finishes_before_its_memory_is_reused(card):
+    from tensordiffeq_tpu_torch.ops.resampling import DeviceResampler
+    from tensordiffeq_tpu_torch.training.fit import dispatch_redraw
+    s = _ac_solver("cuda", n_f=65536, minimax=None)
+    params = [t for pair in s.net.layers() for t in pair]
+    sampler = DeviceResampler(s._residual, s.domain.xlimits, 65536,
+                              pool_factor=8)
+    pending = dispatch_redraw(sampler.redraw, params, s.X_f, 3)
+    n = pending.swap.X_new.numel()
+    pending.join(s.X_f.device)  # what fit_adam does before discarding
+    done = pending.done
+    del pending
+    fills = [torch.full((n,), 7.0, device=card) for _ in range(8)]
+    torch.cuda.current_stream(card).synchronize()
+    assert done.query()  # the main stream waited for the redraw
+    assert all(bool((f == 7.0).all()) for f in fills)
+
+
+def test_discovery_graph_steps_equal_eager_steps(card):
+    rng = np.random.RandomState(0)
+    n = 2048
+    x, t = rng.uniform(-1, 1, (n, 1)), rng.uniform(0, 1, (n, 1))
+    u = np.sin(np.pi * x) * np.exp(-t)
+    grad = tdqt.grad
+
+    def f_model(u_, var, x_, t_):
+        c1, c2 = var
+        uv = u_(x_, t_)
+        return (grad(u_, "t")(x_, t_) - c1 * grad(grad(u_, "x"), "x")(x_, t_)
+                + c2 * uv ** 3 - c2 * uv)
+
+    models = []
+    for graphs in (True, False):
+        m = tdqt.DiscoveryModel()
+        m.compile([2, 64, 64, 1], f_model, [x, t], u, var=[0.0, 0.0],
+                  col_weights=np.random.RandomState(1).rand(n, 1),
+                  lr_vars=[2e-5, 0.01], varnames=["x", "t"], verbose=False)
+        m.fit(tf_iter=50, chunk=20, batch_sz=512, _graphs=graphs)
+        models.append(m)
+    a, b = models
+    assert a.engine == "fused" and a._step_obj.graph.captures == 1
+    assert b._step_obj.graph.captures == 0
+    assert a.losses == b.losses and a.var_history == b.var_history
+    assert np.array_equal(a.col_weights, b.col_weights)
+    for p, q in zip(a.net.parameters(), b.net.parameters()):
+        assert torch.equal(p, q)

@@ -45,6 +45,8 @@ def test_port_has_modules():
                  "tensordiffeq_tpu_torch/ops/minimax.py",
                  "tensordiffeq_tpu_torch/ops/residual_tape.py",
                  "tensordiffeq_tpu_torch/models/collocation.py",
+                 "tensordiffeq_tpu_torch/models/discovery.py",
+                 "tensordiffeq_tpu_torch/ops/resampling.py",
                  "tensordiffeq_tpu_torch/serving/engine.py",
                  "tensordiffeq_tpu_torch/serving/batcher.py",
                  "tensordiffeq_tpu_torch/serving/surrogate.py",

@@ -575,17 +575,27 @@ def test_default_device_is_the_card(trained, tmp_path):
 @pytest.mark.parametrize("what", ["compute_dtype", "shard", "discovery",
                                   "from_discovery"])
 def test_unported_options_raise(engine, what):
+    """Serving options still left out, and the ``DiscoveryModel`` options
+    its surrogates need that are still left out: an lr schedule
+    (``"discovery"``) and the data-parallel layout (``"from_discovery"``).
+    The discovery contract itself is ported
+    (``tests/test_torch_discovery.py``)."""
     sur = engine.surrogate
+    X = np.zeros((8, 2))
     with pytest.raises(NotPortedError, match="ROADMAP"):
         if what == "compute_dtype":
             sur.engine(compute_dtype="bfloat16")
         elif what == "shard":
             sur.engine(shard=True)
         elif what == "discovery":
-            Surrogate(sur.net, sur.params, sur.varnames,
-                      contract="discovery")
+            tdqt.DiscoveryModel(device="cpu").compile(
+                SIZES, lambda u, var, x, t: u(x, t), X, X[:, :1], var=[0.0],
+                lr_vars=lambda step: 1e-3, varnames=["x", "t"],
+                verbose=False)
         else:
-            Surrogate.from_discovery(object())
+            tdqt.DiscoveryModel(device="cpu").compile(
+                SIZES, lambda u, var, x, t: u(x, t), X, X[:, :1], var=[0.0],
+                dist=True, varnames=["x", "t"], verbose=False)
 
 
 # --------------------------------------------------------------------------- #

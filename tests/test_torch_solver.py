@@ -142,7 +142,7 @@ def test_unported_options_raise_typed_errors():
         s.fit(tf_iter=1)
     s.compile([2, 8, 1], f, d, b, fused=True, minimax=False)
     assert s.engine == "fused"
-    for kw in (dict(telemetry=object()), dict(resample_every=5)):
+    for kw in (dict(telemetry=object()), dict(eval_fn=lambda *a: None)):
         with pytest.raises(NotPortedError, match="ROADMAP"):
             s.fit(tf_iter=1, **kw)
     with pytest.raises(TypeError, match="unexpected"):
