@@ -99,9 +99,35 @@ Phases (each failure is fatal; exit code != 0, no result line):
    f_model=)`` keeps the learned coefficients and its engine's residual on
    the grid matches ``predict_f`` within 1e-5 scale-relative.  No kernel
    launches (the JAX package's discovery reaches none either).
-13. a ``{"kernels": [...]}`` line, the card line again, and the result line.
+13. the solver's remaining training options, each on the Allen-Cahn
+   problem at full width (N_f = 50,000, 2-128x4-1, the 512x201 grid):
+   (a) ``compile(fused="autotune")`` on AC-SA: each candidate's graphed
+   loss-and-gradient step (generic, the fused engine's plain flavor, its
+   K1/K2 flavor) and the K3 race printed; gates: the adopted engine is the
+   argmin, the K1/K2 candidate passed its cross-check, compile's launches
+   are the protocol's; (b) AC-SA on the minimax path with
+   ``exponential_decay`` on the network's rate and ``cosine_decay_schedule``
+   on the λ's, 200 steps (ms/step beside a constant-rate twin's 200 and
+   phase 6's), then 50 graphed against 50 eager steps; gates: bit for bit, one capture, the device's
+   counts 200 and rates the schedules' at count 199 (the 200th update's),
+   K3 once per step; (c) ``examples/ac_ntk.py``'s configuration
+   (``Adaptive_type=3``), ``fit(tf_iter=200, chunk=50)``, each NTK update's
+   device and host ms; gates: 4-5 updates within ``max_ratio``, one
+   capture, 50 graphed steps equal 50 eager ones across two updates, K3
+   once per step, the loss falls; (d) AC-SA on ``fused="cuda"`` with the
+   ladder ``causal_eps=[1e-2, 1e-1, 1, 10]`` (gate 0.5), 200 steps in
+   chunks of 50, then the same with ``remat=True``: peak device memory and
+   ms/step of both; gates: K1 and K2 once per step (K1 twice under remat),
+   one capture across the ladder's changes, graph = eager bit for bit,
+   ``Causal_w_last`` in every row, remat's first loss and gradients equal
+   to the plain run's; (e) ``PeriodicMLP`` (x periodic, 4 harmonics) and
+   ``FourierMLP`` (64 frequencies) on AC-SA, 200 graphed steps each on the
+   generic engine, exported, saved and loaded with no solver; gates: served
+   ``u`` equals ``predict`` within 1e-6, ``u(-1, t) = u(1, t)`` within 1e-6
+   (periodic), no K1-K3 launch.
+14. a ``{"kernels": [...]}`` line, the card line again, and the result line.
 
-Phases 6-9, 11 and 12 train through CUDA graphs (``training/graphs.py``): each Adam
+Phases 6-9 and 11-13 train through CUDA graphs (``training/graphs.py``): each Adam
 step, each L-BFGS evaluation and two-loop sweep, and each fixed-step L-BFGS
 iteration is one replayed graph after three eager warm-up steps; the
 kernels' launch counters add each graph's recorded launches at every
@@ -192,6 +218,14 @@ RESAMPLE_TURNS = 4  # fits of two chunks: the second with a redraw in flight
 # eager, a checkpoint at 100; the JAX example's per-coefficient rates
 DISC_STEPS, DISC_REFEREE, DISC_CKPT, DISC_CHUNK = 200, 50, 100, 50
 DISC_LR_VARS = (2e-5, 0.01)
+# phase 13, the training options: autotune's timed replays per step (the
+# solver's _time_loss_step default), the causal ladder and its gate (the
+# default causal_delta of 0.99 does not open within 200 steps on AC-SA:
+# Causal_w_last stays at 0.77-0.98 at eps 1e-2 over the first 100 steps,
+# measured on the CPU at N_f = 5,000)
+AUTOTUNE_REPS = 3
+CAUSAL_LADDER = [1e-2, 1e-1, 1.0, 10.0]
+CAUSAL_DELTA = 0.5
 # engine u against predict's u: the same forward at another row count
 SERVE_U_BAND = 1e-6
 # u_t - 1e-4 u_xx + 5u^3 - 5u from the derivative kinds against the
@@ -1724,10 +1758,386 @@ def _timed_disc(model, steps: int, _graphs: bool = True) -> float:
     return time.perf_counter() - t0
 
 
+# --------------------------------------------------------------------- #
+# phase 13: the solver's remaining training options
+# --------------------------------------------------------------------- #
+def _fit_counted(solver, **kw) -> tuple:
+    """``fit`` with the launch counts set to 0 just before and read just
+    after; returns (seconds, launches, Adam-step captures in the fit)."""
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    from tensordiffeq_tpu_torch.training import graphs
+
+    c0 = len(graphs.captures)
+    ct.reset_launch_counts()
+    t = _timed_fit(solver, **kw)
+    launches = _counts()
+    caps = [c for c in graphs.captures[c0:] if c["name"] == "Adam step"]
+    return t, launches, len(caps)
+
+
+def _steady_ms(solver, chunk: int) -> float:
+    """ms per Adam step of the last ``fit``'s chunks after its first (the
+    first holds the warm-ups and the capture): replays and the chunks'
+    history reads."""
+    secs = solver._adam_result.chunk_seconds[1:]
+    return 1e3 * float(np.mean(secs)) / chunk if secs else float("nan")
+
+
+def _graph_vs_eager(tag: str, make, steps: int, chunk: int) -> dict:
+    """Two solvers from one seed, ``steps`` Adam steps each, graphed and
+    eager: held bit for bit (``_state_diff``)."""
+    graph, eager = make(), make()
+    t_g, launches, caps = _fit_counted(graph, tf_iter=steps, chunk=chunk)
+    t_e = _timed_fit(eager, tf_iter=steps, chunk=chunk, _graphs=False)
+    diff = _state_diff(graph, eager)
+    print(f"[{tag} graph] {steps} steps each way: graphs "
+          f"{1e3 * t_g / steps:.3f} ms/step, eager {1e3 * t_e / steps:.3f} "
+          f"ms/step; captures {caps}; graph vs eager: "
+          f"{'bit-identical' if diff == 0 else f'differs by {diff:.3e}'}",
+          flush=True)
+    if diff != 0 or caps != 1:
+        fail(f"{tag}: graphed steps differ from eager ones ({diff:.3e}) or "
+             f"the step was captured {caps} times")
+    return dict(graph=graph, eager=eager, launches=launches)
+
+
+def _log_eps(solver) -> list:
+    """The (epoch, ε) of each ladder change of ``solver``."""
+    log = []
+    real = solver._set_causal_eps
+
+    def logged(eps):
+        log.append((len(solver.losses), float(eps)))
+        real(eps)
+
+    solver._set_causal_eps = logged
+    return log
+
+
+def phase_options(phase6_ms: float) -> dict:
+    """Phase 13: (a) ``fused="autotune"``, (b) lr schedules, (c) NTK
+    weighting, (d) causal weighting and ``remat``, (e) the embedding
+    network families, each on the Allen-Cahn problem at full width."""
+    out = {}
+    out["autotune"] = _phase_autotune()
+    out["schedules"] = _phase_schedules(phase6_ms)
+    out["ntk"] = _phase_ntk()
+    out.update(_phase_causal())
+    out["families"] = _phase_families()
+    return out
+
+
+def _phase_autotune() -> dict:
+    """(a) ``compile(fused="autotune")`` on AC-SA: each candidate's graphed
+    loss step, the K3 race, the launches the protocol makes."""
+    import torch
+    import tensordiffeq_tpu_torch as tdqt
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    from tensordiffeq_tpu_torch.training import graphs
+
+    domain, bcs, f_model, kw = ac_sa_problem()
+    ct.reset_launch_counts()
+    solver = tdqt.CollocationSolverND(verbose=False, seed=0)
+    t0 = time.perf_counter()
+    solver.compile(WIDTHS, f_model, domain, bcs, fused="autotune", **kw)
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t0
+    launches = _counts()
+    rep = solver.autotune_report
+    times = rep["timings_ms"]
+    race = rep["minimax"]
+    print(f"[autotune] compile {t_c:.2f} s; ms per graphed loss step: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+          + f" -> {rep['choice']}; excluded {list(rep['excluded'])}, "
+          f"failed {list(rep['failures'])}", flush=True)
+    if race is not None:
+        print(f"[autotune] K3 race: minimax step {race['minimax_ms']:.3f} ms"
+              f" vs the winner's unfused step {race['unfused_ms']:.3f} ms -> "
+              f"{'adopted' if race['adopted'] else 'not adopted'}; engine "
+              f"{solver.engine}; launches in compile {launches}", flush=True)
+    if "cuda" not in times:
+        fail(f"autotune: the K1/K2 candidate did not pass its cross-check "
+             f"or run: {rep['excluded']} {rep['failures']}")
+    if rep["choice"] != min(times, key=times.get):
+        fail(f"autotune chose {rep['choice']}, not the argmin of {times}")
+    # the protocol: K1/K2 once each in the K1/K2 candidate's cross-check,
+    # WARMUP_RUNS warm-ups and AUTOTUNE_REPS replays per timed step; K3
+    # once in the minimax cross-check, then its timed step; the winner's
+    # unfused step timed again in the race
+    per = graphs.WARMUP_RUNS + AUTOTUNE_REPS
+    k12 = 1 + per
+    k3 = 0
+    if rep["choice"] != "generic":
+        k3 = 1 + per
+        if rep["choice"] == "cuda":
+            k12 += per
+    want = {"k1": k12, "k2": k12, "k3": k3}
+    if launches != want:
+        fail(f"autotune launched {launches} in compile, the protocol says "
+             f"{want}")
+    adopted = race is not None and race["adopted"]
+    want_engine = ("generic" if rep["choice"] == "generic" else
+                   "fused-minimax-cuda" if adopted else
+                   "fused-cuda" if rep["choice"] == "cuda" else "fused")
+    if solver.engine != want_engine:
+        fail(f"autotune's engine {solver.engine} is not its choice "
+             f"{want_engine}")
+    return dict(launches=launches)
+
+
+def _phase_schedules(phase6_ms: float) -> dict:
+    """(b) AC-SA on the minimax path with an exponential-decay rate on the
+    network and a cosine-decay rate on the λ: 200 steps, then 50 graphed
+    steps against 50 eager ones."""
+    import torch
+    import tensordiffeq_tpu_torch as tdqt
+    from tensordiffeq_tpu_torch.training import schedules as S
+    from tensordiffeq_tpu_torch.training.fit import step_count
+
+    def sched():
+        return dict(lr=S.exponential_decay(5e-3, 100, 0.5),
+                    lr_weights=S.cosine_decay_schedule(5e-3, TF_ITER))
+
+    def make(scheduled=True):
+        domain, bcs, f_model, kw = ac_sa_problem()
+        s = tdqt.CollocationSolverND(verbose=False, seed=0)
+        s.compile(WIDTHS, f_model, domain, bcs, fused="cuda", **kw,
+                  **(sched() if scheduled else {}))
+        return s
+
+    # the constant-rate twin beside it, on the same measure
+    const = make(scheduled=False)
+    t_c, _, _ = _fit_counted(const, tf_iter=TF_ITER, chunk=50)
+    solver = make()
+    t, launches, caps = _fit_counted(solver, tf_iter=TF_ITER, chunk=50)
+    ms = 1e3 * t / TF_ITER
+    net_lr = solver._opt[0].tdq_schedules[0]
+    lam_lr = solver._opt[1].tdq_schedules[0]
+    counts = [int(step_count(opt, opt.param_groups[0]))
+              for opt in solver._opt]
+    want_net = float(S.exponential_decay(5e-3, 100, 0.5)(
+        torch.tensor(TF_ITER - 1, dtype=torch.int32)))
+    want_lam = float(S.cosine_decay_schedule(5e-3, TF_ITER)(
+        torch.tensor(TF_ITER - 1, dtype=torch.int32)))
+    total = np.array([r["Total Loss"] for r in solver.losses])
+    print(f"[schedules] engine {solver.engine}; {TF_ITER} steps "
+          f"{ms:.3f} ms/step, {_steady_ms(solver, 50):.3f} past the first "
+          f"chunk; constant rates beside it {1e3 * t_c / TF_ITER:.3f}, "
+          f"{_steady_ms(const, 50):.3f} (phase 6: {phase6_ms:.3f}); "
+          f"captures {caps}; launches {launches}; "
+          f"device counts {counts[0]}/{counts[1]}, rates "
+          f"{float(net_lr.lr):.6e}/{float(lam_lr.lr):.6e} (schedules at "
+          f"count {TF_ITER - 1}: {want_net:.6e}/{want_lam:.6e}); loss "
+          f"{total[0]:.6e} -> {total[-1]:.6e}", flush=True)
+    if solver.engine != "fused-minimax-cuda":
+        fail(f"schedules: engine {solver.engine}")
+    if caps != 1 or launches != {"k1": 0, "k2": 0, "k3": TF_ITER}:
+        fail(f"schedules: captures {caps}, launches {launches}")
+    if not (counts[0] == counts[1] == TF_ITER
+            and float(net_lr.lr) == want_net and float(lam_lr.lr) == want_lam):
+        fail("schedules: the device's counts or rates are not the "
+             "schedules'")
+    if not (np.all(np.isfinite(total)) and total[-1] < total[0]):
+        fail("schedules: the loss did not fall")
+    _graph_vs_eager("schedules", make, REFEREE_STEPS, 25)
+    return dict(launches=launches, ms_step=ms)
+
+
+def _phase_ntk() -> dict:
+    """(c) ``examples/ac_ntk.py``'s configuration: AC at full width with
+    ``Adaptive_type=3``, ``fit(tf_iter=200, chunk=50)``; then 50 graphed
+    steps against 50 eager ones across two updates."""
+    import tensordiffeq_tpu_torch as tdqt
+
+    def make():
+        domain, bcs, f_model, _ = ac_sa_problem()
+        s = tdqt.CollocationSolverND(verbose=False, seed=0)
+        s.compile(WIDTHS, f_model, domain, bcs, fused="cuda",
+                  Adaptive_type=3)
+        return s
+
+    solver = make()
+    t, launches, caps = _fit_counted(solver, tf_iter=TF_ITER, chunk=50)
+    ups = solver.ntk_updates
+    weights = [[float(v) for vs in u["weights"].values() for v in vs]
+               for u in ups]
+    total = np.array([r["Total Loss"] for r in solver.losses])
+    print(f"[ntk] engine {solver.engine}; {TF_ITER} steps "
+          f"{1e3 * t / TF_ITER:.3f} ms/step, {_steady_ms(solver, 50):.3f} "
+          f"past the first chunk; {len(ups)} updates: device ms "
+          + ", ".join(f"{u['device_ms'] or float('nan'):.2f}" for u in ups)
+          + "; host ms "
+          + ", ".join(f"{1e3 * u['host_s']:.2f}" for u in ups)
+          + f"; captures {caps}; launches {launches}; loss {total[0]:.6e} "
+          f"-> {total[-1]:.6e}", flush=True)
+    print("[ntk] weights (BCs, residual) per update: "
+          + "; ".join(", ".join(f"{v:.4g}" for v in w) for w in weights),
+          flush=True)
+    if solver.engine != "fused-minimax-cuda":
+        fail(f"ntk: engine {solver.engine}")
+    if not 4 <= len(ups) <= 5:
+        fail(f"ntk: {len(ups)} weight updates")
+    if not all(max(w) / min(w) <= solver.ntk_max_ratio * (1 + 1e-6)
+               and min(w) > 0 for w in weights):
+        fail(f"ntk: a weight update left its max_ratio: {weights}")
+    if caps != 1 or launches != {"k1": 0, "k2": 0, "k3": TF_ITER}:
+        fail(f"ntk: captures {caps}, launches {launches}")
+    if not (np.all(np.isfinite(total)) and total[-1] < total[0]):
+        fail("ntk: the loss did not fall")
+    _graph_vs_eager("ntk", make, REFEREE_STEPS, 25)
+    return dict(launches=launches)
+
+
+def _first_step(solver) -> list:
+    """The loss and its parameter gradients at the solver's current state,
+    eagerly, as detached tensors.  Nothing of the autograd graph may
+    outlive the call: a live graph keeps the parameters' gradient
+    accumulators of this (default) stream, and a later capture's backward
+    would then reach into the default stream, which the capture
+    refuses."""
+    import torch
+    layers = solver.net.layers()
+    flat = [p for pair in layers for p in pair]
+    total, _ = solver.loss_fn(layers, solver.lambdas["BCs"],
+                              solver.lambdas["residual"], solver.X_f)
+    grads = torch.autograd.grad(total, flat)
+    return [total.detach()] + [g.detach() for g in grads]
+
+
+def _phase_causal() -> dict:
+    """(d) AC-SA on ``fused="cuda"`` with the ladder ``causal_eps=
+    CAUSAL_LADDER``, 200 steps in chunks of 50, then the same with
+    ``remat=True``: peak memory and ms/step of both, graphs against eager,
+    and remat's first step against the plain one's."""
+    import torch
+    import tensordiffeq_tpu_torch as tdqt
+
+    def make(remat=False):
+        domain, bcs, f_model, kw = ac_sa_problem()
+        s = tdqt.CollocationSolverND(verbose=False, seed=0)
+        s.compile(WIDTHS, f_model, domain, bcs, fused="cuda",
+                  causal_eps=CAUSAL_LADDER, causal_delta=CAUSAL_DELTA,
+                  remat=remat, **kw)
+        return s
+
+    out = {}
+    first = {}
+    for tag, remat in (("causal", False), ("remat", True)):
+        graph, eager = make(remat), make(remat)
+        if graph.engine != "fused-cuda":
+            fail(f"{tag}: engine {graph.engine} ({graph._minimax_fail_reason})")
+        first[tag] = _first_step(graph)
+        log = _log_eps(graph)
+        _log_eps(eager)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t, launches, caps = _fit_counted(graph, tf_iter=TF_ITER, chunk=50)
+        peak = torch.cuda.max_memory_allocated()
+        t_e = _timed_fit(eager, tf_iter=TF_ITER, chunk=50, _graphs=False)
+        diff = _state_diff(graph, eager)
+        rows = graph.losses
+        w = [r["Causal_w_last_0"] for r in rows]
+        print(f"[{tag}] engine {graph.engine}; {TF_ITER} steps "
+              f"{1e3 * t / TF_ITER:.3f} ms/step graphed "
+              f"({_steady_ms(graph, 50):.3f} past the first chunk), "
+              f"{1e3 * t_e / TF_ITER:.3f} eager; peak device memory "
+              f"{peak / 2 ** 20:.1f} MiB; ladder {CAUSAL_LADDER} (delta "
+              f"{CAUSAL_DELTA}) changes (epoch, eps) {log}; Causal_w_last "
+              f"{w[0]:.4f} -> {w[-1]:.4f}; captures {caps}; launches "
+              f"{launches}; graph vs eager "
+              f"{'bit-identical' if diff == 0 else f'differs by {diff:.3e}'}",
+              flush=True)
+        k1 = TF_ITER * (2 if remat else 1)
+        if launches != {"k1": k1, "k2": TF_ITER, "k3": 0}:
+            fail(f"{tag}: launches {launches}, expected K1 {k1}, K2 "
+                 f"{TF_ITER}")
+        if caps != 1 or not log:
+            fail(f"{tag}: captures {caps} across the ladder changes {log}")
+        if diff != 0:
+            fail(f"{tag}: graph differs from eager by {diff:.3e}")
+        if len(rows) != TF_ITER or not all(
+                "Causal_w_last_0" in r for r in rows):
+            fail(f"{tag}: a history row lacks Causal_w_last")
+        if not np.all(np.isfinite([r["Total Loss"] for r in rows])):
+            fail(f"{tag}: the loss is not finite")
+        out[tag] = dict(launches=launches, peak=peak,
+                        ms_step=1e3 * t / TF_ITER)
+        del graph, eager
+    same = all(torch.equal(a, b) for a, b in zip(first["causal"],
+                                                   first["remat"]))
+    print(f"[remat] first step's loss and gradients against the plain "
+          f"run's: {'bit-identical' if same else 'DIFFER'}; peak memory "
+          f"{out['remat']['peak'] / 2 ** 20:.1f} MiB against "
+          f"{out['causal']['peak'] / 2 ** 20:.1f}", flush=True)
+    if not same:
+        fail("remat: the first step differs from the plain run's")
+    return out
+
+
+def _phase_families() -> dict:
+    """(e) the embedding families on AC-SA: ``PeriodicMLP`` (x periodic, 4
+    harmonics) and ``FourierMLP`` (64 frequencies), 200 graphed steps each
+    on the generic engine, then export, save and load with no solver."""
+    import tempfile
+
+    import tensordiffeq_tpu_torch as tdqt
+    from tensordiffeq_tpu_torch import networks
+    from tensordiffeq_tpu_torch.serving import Surrogate
+
+    total = {"k1": 0, "k2": 0, "k3": 0}
+    grid = np.stack(np.meshgrid(np.linspace(-1, 1, 512),
+                                np.linspace(0, 1, 201), indexing="ij"),
+                    -1).reshape(-1, 2).astype(np.float32)
+    ts = np.linspace(0, 1, 201, dtype=np.float32)
+    for tag in ("periodic", "fourier"):
+        domain, bcs, f_model, kw = ac_sa_problem()
+        gen = networks.init_generator(0)
+        net = (networks.periodic_net(WIDTHS, domain, ["x"], n_harmonics=4,
+                                     generator=gen)
+               if tag == "periodic" else
+               networks.fourier_net(WIDTHS, n_frequencies=64, generator=gen))
+        s = tdqt.CollocationSolverND(verbose=False, seed=0)
+        s.compile(WIDTHS, f_model, domain, bcs, network=net, **kw)
+        t, launches, caps = _fit_counted(s, tf_iter=TF_ITER)
+        rows = np.array([r["Total Loss"] for r in s.losses])
+        u_pred, _ = s.predict(grid)
+        with tempfile.TemporaryDirectory() as tmp:
+            s.export_surrogate().save(f"{tmp}/art")
+            sur = Surrogate.load(f"{tmp}/art", f_model=f_model)
+        eng = sur.engine(**SERVE_LADDER)
+        u_srv = np.asarray(eng.u(grid)).reshape(u_pred.shape)
+        err = float(np.abs(u_srv - u_pred).max())
+        scale = float(np.abs(u_pred).max())
+        edge = float(np.abs(
+            np.asarray(eng.u(np.stack([-np.ones_like(ts), ts], 1)))
+            - np.asarray(eng.u(np.stack([np.ones_like(ts), ts], 1)))).max())
+        print(f"[family {tag}] {type(s.net).__name__} engine {s.engine}; "
+              f"{TF_ITER} steps {1e3 * t / TF_ITER:.3f} ms/step "
+              f"({_steady_ms(s, 100):.3f} past the first chunk); captures "
+              f"{caps}; launches {launches}; loss {rows[0]:.6e} -> "
+              f"{rows[-1]:.6e}; served u vs predict max_abs_err {err:.3e} "
+              f"(scale {scale:.3f}); |u(-1,t) - u(1,t)| max {edge:.3e}",
+              flush=True)
+        if s.engine != "generic" or type(sur.net) is not type(s.net):
+            fail(f"family {tag}: engine {s.engine}, served net "
+                 f"{type(sur.net).__name__}")
+        if caps != 1 or any(launches.values()):
+            fail(f"family {tag}: captures {caps}, launches {launches}")
+        if not (np.all(np.isfinite(rows)) and rows[-1] < rows[0]):
+            fail(f"family {tag}: the loss did not fall")
+        if not err <= SERVE_U_BAND * max(1.0, scale):
+            fail(f"family {tag}: served u differs from predict by {err:.3e}")
+        if tag == "periodic" and not edge <= 1e-6 * max(1.0, scale):
+            fail(f"family periodic: u(-1, t) != u(1, t) by {edge:.3e}")
+        total = {k: total[k] + v for k, v in _counts().items()}
+    return dict(launches=total)
+
+
 def kernels_line(meas: dict, paths: dict) -> str:
     """``launches`` sums a kernel's launches over the runs of every path
     (``launches_by_path`` splits them: minimax, unfused, lbfgs, pool,
-    ascent, discovery)."""
+    ascent, discovery, and phase 13's autotune, schedules, ntk, causal,
+    remat, families)."""
     entries = []
     for key, name, source, replaces in (
             ("k1", "taylor_table_fwd (K1)", "csrc/taylor_table.cu",
@@ -1794,6 +2204,7 @@ def main():
     paths["pool"] = resample["pool"]
     paths["ascent"] = resample["ascent"]
     paths["discovery"] = phase_discovery()
+    paths.update(phase_options(paths["minimax"]["ms_step"]))
     if args.profile:
         phase_ab(paths)
         # in turns, so a slower stretch of the host does not land on one

@@ -19,9 +19,10 @@ re-design of the reference's ``CollocationSolverND.update_loss``,
 
 Self-adaptive weighting follows McClenny et al. (arXiv:2009.04544): type 1
 weights point-wise inside the mean, type 2 scales each term's mean,
-optional ``g(λ)`` transform on residual terms.
-
-Not ported yet (ROADMAP queue 1): causal weighting and ``remat``.
+optional ``g(λ)`` transform on residual terms.  Causal weighting
+(``causal_eps``, :func:`~..ops.losses.causal_residual_loss`) bins the
+residual along time; ``remat`` recomputes the residual's evaluation in the
+backward pass (``torch.utils.checkpoint``) instead of keeping it.
 """
 
 from __future__ import annotations
@@ -30,10 +31,11 @@ from typing import Callable, Optional, Sequence
 
 import torch
 from torch.func import vmap
+from torch.utils.checkpoint import checkpoint
 
 from ..boundaries import BC
 from ..ops.derivatives import UFn, make_ufn, vmap_residual
-from ..ops.losses import MSE, g_MSE
+from ..ops.losses import MSE, causal_residual_loss, g_MSE
 from ..utils import resolve_device, span
 
 
@@ -63,6 +65,11 @@ def build_loss_fn(apply_fn: Callable,
                   data_s=None,
                   residual_fn: Optional[Callable] = None,
                   residual_loss_fn: Optional[Callable] = None,
+                  causal_eps=None,
+                  causal_bins: int = 32,
+                  time_index: Optional[int] = None,
+                  time_bounds: Optional[tuple] = None,
+                  remat: bool = False,
                   device="cuda") -> Callable:
     """Assemble ``loss(params, lam_bcs, lam_res, X_batch, lam_data=None)``.
 
@@ -81,7 +88,21 @@ def build_loss_fn(apply_fn: Callable,
         ``(params, lam_res, X) -> scalar``
         (:func:`~..ops.minimax.make_minimax_residual_loss`); when given it
         is the whole residual term (every equation and its λ), reported as
-        ``Residual_0``.
+        ``Residual_0``.  The solver never pairs it with ``causal_eps`` or
+        ``remat``.
+      causal_eps / causal_bins / time_index / time_bounds: temporal
+        causality weighting of the residual terms, on when ``causal_eps``
+        is set (a number, or a 0-d tensor the caller may rewrite between
+        steps); ``time_index`` is the time column of ``X_batch`` and
+        ``time_bounds`` its range.  Each term reports ``Causal_w_last_j``.
+        Per-point λ fold into the squared errors as the plain term does;
+        a type-2 scalar λ scales the causal term.
+      remat: recompute the residual evaluation in the backward pass
+        (``torch.utils.checkpoint``, non-reentrant, without saving the RNG
+        state: the residual draws no random numbers, and a capture may
+        refuse the RNG's state calls).  The same maths for one more
+        forward evaluation of the residual: on ``fused="cuda"`` K1 runs
+        twice per step and K2 once.
       device: where the BC meshes and targets live; ``"cuda"`` (the
         default) raises :class:`~..utils.CudaUnavailableError` without a
         card.
@@ -117,6 +138,16 @@ def build_loss_fn(apply_fn: Callable,
             return residual_fn(params, X_batch)
         u_local = make_ufn(apply_fn, params, varnames, n_out)
         return vmap_residual(f_model, u_local, ndim)(X_batch)
+
+    if remat:
+        evaluate = residual_eval
+
+        def residual_eval(params, X_batch):
+            def run(X, *flat):
+                return evaluate(list(zip(flat[0::2], flat[1::2])), X)
+            return checkpoint(run, X_batch,
+                              *[t for pair in params for t in pair],
+                              use_reentrant=False, preserve_rng_state=False)
 
     def loss(params, lam_bcs, lam_res, X_batch, lam_data=None):
         u = make_ufn(apply_fn, params, varnames, n_out)
@@ -161,7 +192,24 @@ def build_loss_fn(apply_fn: Callable,
         for j, f_pred in enumerate(preds):
             f_pred = f_pred.reshape(-1, 1)
             lam = lam_res[j] if j < len(lam_res) else None
-            if lam is not None:
+            if causal_eps is not None:
+                # per-point squared errors with λ folded in as the plain
+                # term below does, then the causality-weighted bin means
+                outer = None
+                if lam is not None and g is not None:
+                    sq = g(lam) * torch.square(f_pred)
+                elif lam is not None and not weight_outside_sum:
+                    sq = torch.square(lam * f_pred)
+                else:
+                    sq = torch.square(f_pred)
+                    outer = lam
+                loss_r, w_last = causal_residual_loss(
+                    sq, X_batch[:, time_index], time_bounds, causal_eps,
+                    causal_bins)
+                if outer is not None:
+                    loss_r = torch.reshape(outer, ()) * loss_r
+                components[f"Causal_w_last_{j}"] = w_last
+            elif lam is not None:
                 if g is not None:
                     loss_r = g_MSE(f_pred, 0.0, g(lam))
                 else:

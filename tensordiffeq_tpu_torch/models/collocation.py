@@ -36,7 +36,15 @@ carry the whole training state (:mod:`..checkpoint`), ``fit(checkpoint_dir=,
 checkpoint_every=)`` saves it at chunk boundaries of both phases, and
 ``save``/``load_model`` write and read the network alone, self-describing.
 ``export_surrogate`` hands the trained network to the serving path
-(:mod:`..serving`).  ``fit(resample_every=...)`` redraws the collocation
+(:mod:`..serving`).  The training options of the JAX solver are here too:
+learning-rate schedules (``lr``/``lr_weights`` callables, evaluated on the
+device inside the Adam step, :mod:`..training.schedules`), the embedding
+network families (``network=FourierMLP/PeriodicMLP``, on the generic
+engine), NTK weighting (``Adaptive_type=3``, :mod:`..ops.ntk`), causal
+weighting with its ε ladder (``causal_eps``), ``remat``, and
+``fused="autotune"``, which times each residual engine's graphed
+loss-and-gradient step and races the minimax step against the winner.
+``fit(resample_every=...)`` redraws the collocation
 set during the Adam phase (:mod:`..ops.resampling`): the pool redraw,
 scored through the residual engine (K1 on ``fused="cuda"``), or the
 PACMANN ascent mover (``resample_mode="ascent"``), scored and moved by one
@@ -59,9 +67,11 @@ import torch
 
 from ..boundaries import BC
 from ..domains import DomainND
-from ..networks import MLP, init_generator, mlp_forward, net_metadata
+from ..networks import (MLP, init_generator, net_buffers, net_from_metadata,
+                        net_metadata)
 from ..ops.derivatives import make_ufn, vmap_residual
-from ..training.fit import AdamStep, FitResult, fit_adam, make_optimizer
+from ..training.fit import (AdamStep, FitResult, fit_adam, make_optimizer,
+                            relink_schedules)
 from ..training.lbfgs import fit_lbfgs
 from ..utils import (ieee_f32, initialize_lambdas, not_ported,
                      resolve_device)
@@ -73,13 +83,24 @@ class NotCompiledError(RuntimeError):
     ``compile(...)``."""
 
 
+class AutotuneFailure(RuntimeError):
+    """``fused="autotune"`` had no surviving residual-engine candidate:
+    every engine failed to run.  ``failures`` maps each candidate's name to
+    its exception."""
+
+    def __init__(self, failures: dict):
+        self.failures = dict(failures)
+        super().__init__(
+            "autotune: every residual engine candidate failed: "
+            + "; ".join(f"{k}: {type(e).__name__}: {e}"
+                        for k, e in failures.items()))
+
+
 # compile()/fit() options of the JAX solver that the port does not have yet:
 # name -> (value that means "off", ROADMAP item)
 _UNPORTED_COMPILE = {
     "dist": (False, "queue 1, multi-GPU"),
     "fused_dtype": (None, "queue 2, bf16-operand flavor of K1-K3"),
-    "causal_eps": (None, "queue 1, resampling/discovery/NTK/causal"),
-    "remat": (False, "queue 1, remaining solver features"),
 }
 _UNPORTED_FIT = {
     "profile_dir": (None, "queue 1 item 7, telemetry"),
@@ -133,7 +154,8 @@ class CollocationSolverND:
     """N-dimensional collocation PINN solver (forward problems).
 
     ``Adaptive_type`` keeps the reference's encoding: 0 = baseline, 1 =
-    self-adaptive per-point (SA-PINN), 2 = self-adaptive scalar per loss.
+    self-adaptive per-point (SA-PINN), 2 = self-adaptive scalar per loss,
+    3 = NTK weighting (scalar per loss, recomputed between chunks).
     ``device`` defaults to ``"cuda"`` and raises
     :class:`~..utils.CudaUnavailableError` without a card; pass
     ``device="cpu"`` to run on the CPU.
@@ -164,6 +186,8 @@ class CollocationSolverND:
         self._resample_uniform_floor = 0.0
         # one record per redraw of every fit (training.fit.fit_adam)
         self.redraws: list[dict] = []
+        # one record per NTK weight update: host s, device ms, the weights
+        self.ntk_updates: list[dict] = []
 
     @property
     def params(self) -> list:
@@ -176,8 +200,12 @@ class CollocationSolverND:
                 dict_adaptive: Optional[dict] = None,
                 init_weights: Optional[dict] = None,
                 g: Optional[Callable] = None, network: Optional[MLP] = None,
-                lr: float = 0.005, lr_weights: float = 0.005,
-                fused=None, minimax: Optional[bool] = None, **unported):
+                lr=0.005, lr_weights=0.005,
+                fused=None, minimax: Optional[bool] = None,
+                causal_eps=None, causal_bins: int = 32,
+                causal_delta: float = 0.99, remat: bool = False,
+                ntk_max_ratio: Optional[float] = 100.0,
+                ntk_max_points: int = 256, **unported):
         """Assemble the problem (reference ``models.py:27-105``).
 
         Args:
@@ -188,31 +216,69 @@ class CollocationSolverND:
             :func:`tensordiffeq_tpu_torch.grad` combinators.
           domain: :class:`DomainND` with collocation points generated.
           bcs: list of boundary/initial conditions.
-          Adaptive_type: 0/1/2 as in the reference.
+          Adaptive_type: 0/1/2 as in the reference; 3 = NTK weighting
+            (:mod:`..ops.ntk`): one scalar λ per loss term starting at 1,
+            recomputed from the terms' tangent-kernel traces before the
+            first step and at every chunk boundary, frozen inside the step
+            (``dict_adaptive``/``init_weights`` must be ``None``).
           dict_adaptive/init_weights: SA contract — which loss terms carry λ
             and their initial values.
           g: optional λ transform for residual terms.
-          network: an :class:`~..networks.MLP` to train instead of a fresh
-            one (its parameters are moved to the solver's device).
-          fused: residual engine selection (module docstring).
+          network: an :class:`~..networks.MLP` (or a
+            :class:`~..networks.FourierMLP`/:class:`~..networks.PeriodicMLP`)
+            to train instead of a fresh MLP; its parameters are moved to the
+            solver's device.  The embedding families take the generic
+            engine, as in the JAX package (the fused engines qualify only
+            a plain MLP).
+          lr, lr_weights: the Adam rates of the network and of the SA λ: a
+            float, or a schedule (:mod:`..training.schedules`, or any
+            callable of a 0-d integer device tensor returning a 0-d float32
+            tensor), evaluated on the device at optax's count inside the
+            Adam step.  The count persists across ``fit`` calls and through
+            checkpoints.
+          fused: residual engine selection (module docstring), or
+            ``"autotune"``: the generic engine, the fused engine's plain
+            flavor and, on the card, its K1/K2 flavor (behind a
+            cross-check of its own) each time a graphed loss-and-gradient
+            step over the full training loss (CUDA events over replays,
+            warm-up and capture excluded; eager steps on the CPU), the
+            fastest is kept, and the minimax step is then adopted only if
+            its own step beats the winner's.  ``autotune_report`` records
+            the race.
           minimax: the fused minimax step (module docstring).  ``None``
             adopts it when the fused residual is active, the ``f_model``
             lowers to the kernel's residual tape and the step passes the
             cross-check, else records why in ``_minimax_fail_reason``;
             ``True`` raises :class:`ValueError` instead of falling back;
             ``False`` keeps the unfused loss.
-          **unported: ``dist``, ``fused_dtype``, ``causal_eps``, ``remat``
-            at anything but their "off" value raise
-            :class:`~..utils.NotPortedError`.
+          causal_eps / causal_bins / causal_delta: temporal-causality
+            weighting of the residual (Wang et al. 2203.07404): bin ``b``
+            along time weighted by ``exp(-ε · Σ earlier bins' loss)``; the
+            history gets ``Causal_w_last_j`` per epoch.  A sequence of ε is
+            the annealing ladder: Adam starts at the smallest and advances
+            at a chunk boundary once ``min Causal_w_last > causal_delta``,
+            handing the remaining epochs, the moments and λ to the next
+            stage.  ε lives in a device scalar, so one captured step serves
+            the whole ladder.  Needs a domain with ``time_var``; the minimax
+            step declines it.
+          remat: recompute the residual's evaluation in the backward pass
+            (:func:`~.assembly.build_loss_fn`); the minimax step declines
+            it.
+          ntk_max_ratio / ntk_max_points: NTK weighting's bound on the
+            weights' range (``None``: unbounded) and per-term trace
+            subsample.
+          **unported: ``dist`` and ``fused_dtype`` at anything but their
+            "off" value raise :class:`~..utils.NotPortedError`.
         """
         _reject_unported(_UNPORTED_COMPILE, unported, "compile")
-        if fused == "autotune":
-            raise not_ported("compile(fused='autotune')",
-                             "queue 1, solver features")
-        if fused not in (None, False, True, "cuda"):
-            raise ValueError(f"fused={fused!r}: expected None, False, True or "
-                             "'cuda' ('pallas' is the JAX package's TPU "
-                             "kernel; its counterpart here is 'cuda')")
+        if fused not in (None, False, True, "cuda", "autotune"):
+            raise ValueError(f"fused={fused!r}: expected None, False, True, "
+                             "'cuda' or 'autotune' ('pallas' is the JAX "
+                             "package's TPU kernel; its counterpart here is "
+                             "'cuda')")
+        if causal_eps is not None and domain.time_var is None:
+            raise ValueError("causal_eps requires a domain with time_var "
+                             "set (causality is ordered along time)")
         if layer_sizes is None:
             if not self._loaded:
                 raise ValueError(
@@ -221,11 +287,13 @@ class CollocationSolverND:
             layer_sizes = self.layer_sizes
             if network is None:
                 network = self.net
-        if Adaptive_type == 3:
-            raise not_ported("NTK weighting (Adaptive_type=3)",
-                             "queue 1, resampling/discovery/NTK")
-        if Adaptive_type not in (0, 1, 2):
+        if Adaptive_type not in (0, 1, 2, 3):
             raise ValueError("Adaptive method invalid! (expected 0, 1, 2 or 3)")
+        if Adaptive_type == 3 and (dict_adaptive is not None
+                                   or init_weights is not None):
+            raise ValueError(
+                "NTK weighting (type 3) computes all term weights from the "
+                "tangent kernel; dict_adaptive/init_weights must be None")
         if domain.X_f is None:
             raise ValueError("Domain has no collocation points; call "
                              "domain.generate_collocation_points(N_f) first")
@@ -239,19 +307,48 @@ class CollocationSolverND:
         self.lr = lr
         self.lr_weights = lr_weights
         self.n_out = int(layer_sizes[-1])
+        # a number: one stage; a sequence: the annealing ladder, ascending
+        if causal_eps is None:
+            self.causal_ladder = []
+        elif np.ndim(causal_eps) == 0:
+            self.causal_ladder = [float(causal_eps)]
+        else:
+            self.causal_ladder = sorted(float(e) for e in causal_eps)
+            if not self.causal_ladder:
+                raise ValueError("causal_eps sequence must be non-empty")
+        self.causal_eps = (self.causal_ladder[0] if self.causal_ladder
+                           else None)
+        self.causal_bins = int(causal_bins)
+        self.causal_delta = float(causal_delta)
+        self._ladder_active = False
+        # ε in a device scalar: a ladder stage rewrites it with fill_, and
+        # the captured step reads it
+        self._causal_kw = {} if self.causal_eps is None else dict(
+            causal_eps=torch.full((), self.causal_eps, device=self.device),
+            causal_bins=self.causal_bins,
+            time_index=domain.vars.index(domain.time_var),
+            time_bounds=tuple(float(v) for v in
+                              domain.bounds(domain.time_var)))
+        self.remat = bool(remat)
+        self.ntk_max_ratio = ntk_max_ratio
+        self.ntk_max_points = int(ntk_max_points)
 
         if network is None:
             network = MLP(layer_sizes, device=self.device,
                           generator=init_generator(self.seed))
-        elif type(network) is not MLP:
-            raise not_ported("custom networks", "queue 1, solver features")
+        elif not isinstance(network, MLP):
+            raise not_ported("custom network modules (other than the MLP, "
+                             "FourierMLP and PeriodicMLP families)",
+                             "queue 1, solver features")
         self.net = network.to(self.device)
+        self.apply_fn = self.net.apply
         self._opt = None
         self._adam = None
 
         self.Adaptive_type = Adaptive_type
         self.isAdaptive = Adaptive_type in (1, 2)
-        self.weight_outside_sum = Adaptive_type == 2
+        self.use_ntk = Adaptive_type == 3
+        self.weight_outside_sum = Adaptive_type in (2, 3)
         self.dict_adaptive = dict_adaptive
         if self.isAdaptive:
             if dict_adaptive is None or init_weights is None:
@@ -298,6 +395,13 @@ class CollocationSolverND:
         # row-major: SciPy's LHS hands back a Fortran-ordered design
         self.X_f = torch.as_tensor(
             np.ascontiguousarray(domain.X_f, np.float32), device=self.device)
+        if self.use_ntk:
+            # one scalar weight per loss term, balanced at 1, rewritten in
+            # place by each NTK update (the step's graph reads them)
+            one = lambda: torch.ones((), device=self.device)  # noqa: E731
+            self.lambdas = {
+                "residual": [one() for _ in range(self._count_residuals())],
+                "BCs": [one() for _ in self.bcs]}
         with ieee_f32():
             self._build()
         self._compiled = True
@@ -307,11 +411,11 @@ class CollocationSolverND:
         """The fused Taylor-propagation residual when both the network and
         ``f_model`` qualify, else ``None`` (the failure is recorded in
         ``_fuse_fail_reason``)."""
-        from ..ops.fused import analyze_f_model, make_fused_residual, \
-            mlp_qualifies
+        from ..ops.fused import analyze_f_model, mlp_qualifies
 
         self._fuse_fail_reason = None
         self._fuse_requests = None
+        self._fused_kind = None
         layers = mlp_qualifies(self.net)
         if layers is None:
             return None
@@ -321,24 +425,45 @@ class CollocationSolverND:
             self._fuse_fail_reason = reason
             return None
         self._fuse_requests = requests
+        self._fused_kind = "cuda" if self.fused == "cuda" else "plain"
+        return self._fused_flavor(self._fused_kind)
+
+    def _fused_flavor(self, kind: str):
+        """The fused residual whose table comes from K1/K2 (``"cuda"``; the
+        plain flavor on a CPU solver) or from the plain flavor
+        (``"plain"``)."""
+        from ..ops.fused import make_fused_residual
+
         table_producer = None
-        if self.fused == "cuda":
+        if kind == "cuda":
             from ..ops.cuda_taylor import build_cuda_table_fn
             table_producer = build_cuda_table_fn(
-                requests, [tuple(W.shape) for W, _ in layers],
+                self._fuse_requests,
+                [tuple(W.shape) for W, _ in self.net.layers()],
                 device=self.device)
         return make_fused_residual(self.f_model, self.domain.vars, self.n_out,
-                                   requests, table_producer=table_producer)
+                                   self._fuse_requests,
+                                   table_producer=table_producer)
 
     def _generic_residual(self, params, X):
-        u = make_ufn(mlp_forward, params, self.domain.vars, self.n_out)
+        u = make_ufn(self.apply_fn, params, self.domain.vars, self.n_out)
         return vmap_residual(self.f_model, u, self.domain.ndim)(X)
 
-    def _crosscheck_fused(self, n_check: int = 32, residual_fn=None):
+    def _count_residuals(self) -> int:
+        """The number of residual components ``f_model`` returns (a system
+        returns a tuple), from one point."""
+        with torch.no_grad():
+            out = self._generic_residual(self.net.layers(),
+                                         self.X_f[:1])
+        return len(out) if isinstance(out, tuple) else 1
+
+    def _crosscheck_fused(self, n_check: int = 32, residual_fn=None,
+                          catch: bool = True):
         """Compare a fused residual engine (values AND the gradient of the
         squared residual w.r.t. the parameters) against the generic engine
         on a small sample of the collocation set; for ``fused="cuda"`` this
-        runs K1 and K2.  Returns ``(ok, reason)``."""
+        runs K1 and K2.  Returns ``(ok, reason)``; what running the engine
+        raises is a reason too, unless ``catch`` is false."""
         from ..ops.fused import crosscheck_grads, crosscheck_residuals
 
         if residual_fn is None:
@@ -359,6 +484,8 @@ class CollocationSolverND:
         try:
             fused = residual_fn(params, X_s)
         except Exception as e:  # e.g. control flow on values in f_model
+            if not catch:
+                raise
             return False, e
         ok, reason = crosscheck_residuals(generic, fused)
         if not ok:
@@ -367,6 +494,8 @@ class CollocationSolverND:
             g_fus = torch.autograd.grad(sumsq(fused), flat,
                                         materialize_grads=True)
         except Exception as e:  # backward-only failure
+            if not catch:
+                raise
             return False, e
         return crosscheck_grads(g_gen, g_fus)
 
@@ -395,6 +524,14 @@ class CollocationSolverND:
                       f"{type(reason).__name__}: {reason}); keeping the "
                       "unfused loss", flush=True)
 
+        if self._causal_kw:
+            return decline(ValueError(
+                "causal weighting bins residuals across points; the "
+                "per-point minimax fusion cannot serve it"))
+        if self.remat:
+            return decline(ValueError(
+                "remat wraps the residual evaluation; the fused minimax "
+                "loss already owns its memory layout"))
         try:
             # the lowering to K3's tape: a MinimaxLoweringError when the
             # f_model does not lower, or the plan's caps refuse the network
@@ -415,6 +552,23 @@ class CollocationSolverND:
                                   "cross-check against the generic loss")
             mismatch.__cause__ = why
             return decline(mismatch)
+        if self.fused == "autotune" and self.minimax is not True:
+            # measured choice: the minimax step replaces the timed winner's
+            # residual term, so it must beat that step, not only agree
+            t_mm = self._time_loss_step(residual_loss_fn=mm)
+            t_un = self._time_loss_step(residual_fn=self._fused_residual)
+            self.autotune_report["minimax"] = {
+                "minimax_ms": t_mm * 1e3, "unfused_ms": t_un * 1e3,
+                "adopted": t_mm < t_un}
+            if t_mm >= t_un:
+                return decline(ValueError(
+                    f"autotune: minimax step measured slower than the "
+                    f"selected residual engine ({t_mm * 1e3:.3f} ms vs "
+                    f"{t_un * 1e3:.3f} ms)"))
+            if self.verbose:
+                print(f"[autotune] minimax loss step: {t_mm * 1e3:.3f} ms "
+                      f"vs unfused {t_un * 1e3:.3f} ms; adopting",
+                      flush=True)
         self._minimax_loss = mm
         # the kernel follows the device, as the JAX solver takes Pallas
         # whenever a TPU is present
@@ -462,9 +616,9 @@ class CollocationSolverND:
         # semantics on both sides
         kw = dict(weight_outside_sum=self.weight_outside_sum, g=self.g,
                   device=self.device)
-        gen = build_loss_fn(mlp_forward, self.domain.vars, self.n_out,
+        gen = build_loss_fn(self.apply_fn, self.domain.vars, self.n_out,
                             self.f_model, [], **kw)
-        mm = build_loss_fn(mlp_forward, self.domain.vars, self.n_out,
+        mm = build_loss_fn(self.apply_fn, self.domain.vars, self.n_out,
                            self.f_model, [], residual_loss_fn=mm_loss, **kw)
 
         def val_grad(loss_fn):
@@ -488,7 +642,129 @@ class CollocationSolverND:
                 f"engine's {v_g:.6e}")
         return crosscheck_grads(g_g, g_m)
 
+    def _time_loss_step(self, residual_fn=None, residual_loss_fn=None,
+                        reps: int = 3) -> float:
+        """Seconds per loss-and-gradient step of the full training loss
+        with the given residual flavor, over the collocation set: the
+        measurement every ``fused="autotune"`` candidate and the minimax
+        race take.  On the card it times what ``fit`` will run, replays of
+        the step captured as a CUDA graph, by CUDA events (the warm-ups
+        and the capture are not timed; the graph is freed on return);
+        eager steps there are host-bound and would choose by the host's
+        overhead.  On the CPU it times eager steps after one warm-up."""
+        import time
+
+        from ..training.graphs import StepGraph
+
+        loss_fn = build_loss_fn(
+            self.apply_fn, self.domain.vars, self.n_out, self.f_model,
+            self.bcs, weight_outside_sum=self.weight_outside_sum, g=self.g,
+            data_X=self.data_X, data_s=self.data_s, residual_fn=residual_fn,
+            residual_loss_fn=residual_loss_fn, remat=self.remat,
+            device=self.device, **self._causal_kw)
+        params = [t.detach().clone().requires_grad_(True)
+                  for t in _flat(self.net.layers())]
+        layers = _pairs(params)
+        lam = {k: [None if v is None else v.detach() for v in vs]
+               for k, vs in self.lambdas.items()}
+        lam_data = lam.get("data", [None])[0]
+        grads = [torch.zeros_like(p) for p in params]
+        total_buf = torch.zeros((), device=self.device)
+
+        def step():
+            total = loss_fn(layers, lam["BCs"], lam["residual"], self.X_f,
+                            lam_data=lam_data)[0]
+            gs = torch.autograd.grad(total, params, materialize_grads=True)
+            with torch.no_grad():
+                for g_buf, g in zip(grads, gs):
+                    g_buf.copy_(g)
+                total_buf.copy_(total.detach())
+
+        def keyed():
+            return (params + grads + [total_buf, self.X_f]
+                    + [v for vs in lam.values() for v in vs if v is not None])
+
+        if self.device.type != "cuda":
+            step()  # warm-up
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                step()
+            return (time.perf_counter() - t0) / reps
+        graph = StepGraph(step, keyed, self.device, "autotune step")
+        graph.prime()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3 / reps
+
+    def _autotune_engine(self):
+        """``fused="autotune"``: time one graphed loss-and-gradient step per
+        residual engine on the collocation set (:meth:`_time_loss_step`)
+        and return the fastest engine's residual (``None``: the generic
+        engine).  The candidates are ``"generic"``, ``"fused"`` (the plain
+        flavor, already cross-checked) and, on a CUDA solver, ``"cuda"``
+        (the K1/K2 table, the counterpart of the JAX package's Pallas
+        tiles) behind a cross-check of its own over 257 points (more than
+        two of the kernels' 128-row tiles).  A candidate whose numbers
+        disagree there is excluded and recorded; whatever building,
+        checking or timing the ``"cuda"`` candidate raises (K1/K2 do not
+        build or launch; the plain flavor already ran this ``f_model``)
+        propagates, and training never moves off the kernels quietly.  A
+        ``"generic"`` or ``"fused"`` candidate that fails to run is recorded
+        in the failures, as in the JAX package.  ``autotune_report`` keeps
+        the times, the choice, the exclusions and failures."""
+        from ..ops.cuda_taylor import BLOCK_ROWS
+
+        report = self.autotune_report
+        candidates = {"generic": None, "fused": self._fused_residual}
+        kinds = {"generic": None, "fused": "plain", "cuda": "cuda"}
+        if self.device.type == "cuda":
+            res = self._fused_flavor("cuda")
+            ok, reason = self._crosscheck_fused(
+                n_check=2 * BLOCK_ROWS + 1, residual_fn=res, catch=False)
+            if ok:
+                candidates["cuda"] = res
+            else:
+                report["excluded"]["cuda"] = reason
+                if self.verbose:
+                    print(f"[autotune] cuda excluded ({type(reason).__name__}"
+                          f": {reason})", flush=True)
+        for name, res in candidates.items():
+            try:
+                report["timings_ms"][name] = 1e3 * self._time_loss_step(
+                    residual_fn=res)
+            except Exception as e:  # a candidate that cannot run
+                if name == "cuda":  # K1/K2 do not launch or capture
+                    raise
+                report["failures"][name] = e
+        timings = report["timings_ms"]
+        if not timings:
+            raise AutotuneFailure(report["failures"])
+        best = min(timings, key=timings.get)
+        report["choice"] = best
+        if self.verbose:
+            shown = ", ".join(f"{k}={v:.3f}ms" for k, v in timings.items())
+            for k, e in report["failures"].items():
+                shown += f", {k}=FAILED({type(e).__name__})"
+            print(f"[autotune] residual engine: {best} ({shown})", flush=True)
+        self._fused_kind = kinds[best]
+        return candidates[best]
+
+    def _set_causal_eps(self, eps: float):
+        """Advance the causal ε (the annealing ladder): written into the
+        device scalar the loss reads, so no step is rebuilt or captured
+        again."""
+        self.causal_eps = float(eps)
+        self._causal_kw["causal_eps"].fill_(float(eps))
+
     def _build(self):
+        self.autotune_report = {"timings_ms": {}, "failures": {},
+                                "excluded": {}, "choice": None,
+                                "minimax": None}
         self._fused_residual = (self._try_fuse() if self.fused is not False
                                 else None)
         if self.fused in (True, "cuda") and self._fused_residual is None:
@@ -511,10 +787,17 @@ class CollocationSolverND:
                         "against the generic engine") from reason
                 self._fuse_fail_reason = reason
                 self._fused_residual = None
+                self._fused_kind = None
                 if self.verbose:
                     print(f"[fuse] cross-check failed ({type(reason).__name__}"
                           f": {reason}); using the generic autodiff engine",
                           flush=True)
+        if self.fused == "autotune":
+            if self._fused_residual is not None:
+                self._fused_residual = self._autotune_engine()
+            elif self.verbose:
+                print("[autotune] fused engine excluded; only the generic "
+                      "engine was considered", flush=True)
         # the fused minimax step replaces the training loss's residual term
         # when it qualifies, behind the same numeric cross-check discipline
         self._minimax_loss = None
@@ -541,11 +824,26 @@ class CollocationSolverND:
                         from reason
         self._residual = self._fused_residual or self._generic_residual
         self.loss_fn = build_loss_fn(
-            mlp_forward, self.domain.vars, self.n_out, self.f_model,
+            self.apply_fn, self.domain.vars, self.n_out, self.f_model,
             self.bcs, weight_outside_sum=self.weight_outside_sum, g=self.g,
             data_X=self.data_X, data_s=self.data_s,
             residual_fn=self._fused_residual,
-            residual_loss_fn=self._minimax_loss, device=self.device)
+            residual_loss_fn=self._minimax_loss, remat=self.remat,
+            device=self.device, **self._causal_kw)
+        self._ntk_fn = None
+        if self.use_ntk:
+            from ..ops.ntk import build_error_fns, make_ntk_weight_fn
+            n_res = len(self.lambdas["residual"])
+            bc_fns, res_all_fn, data_fn = build_error_fns(
+                self.apply_fn, self.domain.vars, self.n_out, self.f_model,
+                self.bcs, self.X_f, n_residuals=n_res,
+                max_points=self.ntk_max_points, data_X=self.data_X,
+                data_s=self.data_s)
+            self._ntk_fn = make_ntk_weight_fn(bc_fns, res_all_fn, n_res,
+                                              data_fn=data_fn,
+                                              max_ratio=self.ntk_max_ratio)
+            if data_fn is not None and "data" not in self.lambdas:
+                self.lambdas["data"] = [torch.ones((), device=self.device)]
 
     @property
     def engine(self) -> str:
@@ -557,7 +855,7 @@ class CollocationSolverND:
                     else "fused-minimax")
         if self._fused_residual is None:
             return "generic"
-        return "fused-cuda" if self.fused == "cuda" else "fused"
+        return "fused-cuda" if self._fused_kind == "cuda" else "fused"
 
     # ------------------------------------------------------------------ #
     def compile_data(self, x, t, y):
@@ -585,12 +883,17 @@ class CollocationSolverND:
 
     # ------------------------------------------------------------------ #
     def update_loss(self):
-        """Current composite loss and components on the full collocation set."""
+        """Current composite loss and components on the full collocation set,
+        as values (no autograd graph, as the JAX package returns arrays): a
+        graph kept alive by the caller would hold the parameters' gradient
+        accumulators of the current stream, and the next capture of the
+        Adam step on the card would fail on them."""
         if not self._compiled:
             raise NotCompiledError("Call compile(...) before update_loss()")
-        with ieee_f32():
+        with ieee_f32(), torch.no_grad():
             return self.loss_fn(self.net.layers(), self.lambdas["BCs"],
-                                self.lambdas["residual"], self.X_f)
+                                self.lambdas["residual"], self.X_f,
+                                lam_data=self.lambdas.get("data", [None])[0])
 
     def fit(self, tf_iter: int = 0, newton_iter: int = 0,
             newton_eager: Optional[bool] = None, chunk: int = 100,
@@ -694,7 +997,8 @@ class CollocationSolverND:
             if self._opt is None or (grad_clip is None) != (
                     self._opt_grad_clip is None):
                 self._opt = make_optimizer(params, self.lambdas, self.lr,
-                                           self.lr_weights)
+                                           self.lr_weights,
+                                           freeze_lambdas=self.use_ntk)
             self._opt_grad_clip = grad_clip
             eager = not _graphs
             if self._adam is None or not self._adam.matches(
@@ -704,25 +1008,72 @@ class CollocationSolverND:
                                       self.X_f, self._opt, batch_sz=batch_sz,
                                       grad_clip=grad_clip,
                                       verbose=self.verbose, eager=eager)
+            ntk_update = self._ntk_update(resample_fn is not None)
             hook = None
             if save is not None:
                 def hook(epoch, best):
                     save(self.net.layers(), newton_prior,
                          ("adam", _pairs(best[0]), best[1], best[2]))
-            with ieee_f32():
-                result = fit_adam(self._adam, tf_iter, chunk=chunk,
-                                  verbose=self.verbose,
-                                  result=FitResult(losses=self.losses),
-                                  state_hook=hook,
-                                  state_hook_every=checkpoint_every,
-                                  resample_fn=resample_fn,
-                                  resample_every=resample_every)
+            # the causal ε ladder (Wang et al. 2203.07404, Alg. 1): Adam at
+            # each ε in ascending order, the next once the gate opens (min
+            # Causal_w_last > causal_delta at a chunk boundary); the epochs
+            # left, the parameters, λ and the moments carry over, and the
+            # same step (and graph) serves every stage
+            ladder = list(self.causal_ladder)
+            stages = ladder if len(ladder) > 1 else [None]
+            multi_stage = len(stages) > 1
+            self._ladder_active = multi_stage
+            result = FitResult(losses=self.losses)
+            remaining, stage_off, stage_epochs = tf_iter, 0, 0
+            wall = 0.0
+            for si, eps in enumerate(stages):
+                if eps is not None and eps != self.causal_eps:
+                    if self.verbose:
+                        why = "ladder restart" if si == 0 else "gate open"
+                        print(f"[causal] {why}: eps -> {eps:g} ({remaining} "
+                              "Adam epochs left)", flush=True)
+                    self._set_causal_eps(eps)
+                stop_fn = None
+                if si < len(stages) - 1:
+                    def stop_fn(res, _d=self.causal_delta):
+                        last = res.losses[-1] if res.losses else {}
+                        w = [v for k, v in last.items()
+                             if k.startswith("Causal_w_last")]
+                        return bool(w) and min(w) > _d
+                epochs_before = len(result.losses)
+                with ieee_f32():
+                    result = fit_adam(self._adam, remaining, chunk=chunk,
+                                      verbose=self.verbose, result=result,
+                                      state_hook=hook,
+                                      state_hook_every=checkpoint_every,
+                                      resample_fn=resample_fn,
+                                      resample_every=resample_every,
+                                      lambda_update_fn=ntk_update,
+                                      stop_fn=stop_fn,
+                                      epoch_offset=stage_off)
+                wall += result.wall_time["adam"]
+                stage_epochs = len(result.losses) - epochs_before
+                remaining -= stage_epochs
+                stage_off += stage_epochs
+                if remaining <= 0:
+                    break
+            result.wall_time["adam"] = wall
+            for rec in self.ntk_updates:  # fit_adam synchronised the card
+                events = rec.pop("events", None)
+                if events is not None:
+                    rec["device_ms"] = events[0].elapsed_time(events[1])
+            if multi_stage and result.best_epoch["adam"] >= 0:
+                # stages weigh the residual by different ε: the last
+                # (strictest) stage's best is the run's, at its epoch
+                result.best_epoch["adam"] += stage_off - stage_epochs
             self.wall_time = result.wall_time
             self.redraws.extend(result.redraws)
             self._adam_result = result  # its chunk_seconds, for timing
-            # losses on other point sets do not compare: under resampling
-            # this leg's best wins, as in the JAX solver
+            # losses on other point sets or ε stages do not compare: under
+            # resampling or a ladder this leg's best wins, as in the JAX
+            # solver
             if (self.best_model["adam"] is None or resample_fn is not None
+                    or multi_stage
                     or result.min_loss["adam"] <= self.min_loss["adam"]):
                 self.best_model["adam"] = _pairs(result.best_params["adam"])
                 self.min_loss["adam"] = result.min_loss["adam"]
@@ -770,6 +1121,41 @@ class CollocationSolverND:
         self.best_epoch["overall"] = self.best_epoch[which] + offset
         self.best_model["overall"] = self.best_model[which]
         return self
+
+    def _ntk_update(self, resampling: bool):
+        """``fit_adam``'s ``lambda_update_fn`` under NTK weighting (else
+        ``None``): the weights from :mod:`..ops.ntk` at the live
+        parameters, on the build-time trace points or, under resampling,
+        on the live collocation set's subsample, so the balance follows
+        each redraw.  Each update leaves a record in ``ntk_updates``: host
+        seconds, device ms (CUDA events; ``None`` on the CPU) and the
+        weights."""
+        if self._ntk_fn is None:
+            return None
+        import time
+
+        from ..ops.ntk import residual_subsample
+        cuda = self.device.type == "cuda"
+
+        def update(layers):
+            t0 = time.perf_counter()
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            X_sub = (residual_subsample(self.X_f, self.ntk_max_points)
+                     if resampling else None)
+            new = self._ntk_fn([(W.detach(), b.detach()) for W, b in layers],
+                               X_sub)
+            rec = {"host_s": time.perf_counter() - t0, "device_ms": None,
+                   "weights": new}
+            if cuda:
+                end.record()
+                rec["events"] = (start, end)
+            self.ntk_updates.append(rec)
+            return new
+
+        return update
 
     def _resample_hook(self, pool, temp, uniform, seed, device, mode,
                        ascent_steps):
@@ -852,6 +1238,9 @@ class CollocationSolverND:
         bests for the saved best iterate."""
         state = {"params": [list(pair) for pair in layers],
                  "lambdas": self.lambdas}
+        buffers = net_buffers(self.net)
+        if buffers:
+            state["net_buffers"] = buffers
         if self._opt is not None:
             state["opt_state"] = self._opt_tree(self._opt)
         state["X_f"] = self.X_f
@@ -868,6 +1257,11 @@ class CollocationSolverND:
         phases = ("adam", "l-bfgs") if live is not None else \
             ("adam", "l-bfgs", "overall")
         for ph in phases:
+            if ph == "adam" and live is not None and live[0] == "adam" \
+                    and self._ladder_active:
+                # mid-ladder: a stored Adam best carries another ε stage's
+                # loss scale; the live (current stage's) best competes
+                continue
             bp = self.best_model.get(ph)
             if bp is not None and np.isfinite(float(self.min_loss[ph])):
                 cand.append((float(self.min_loss[ph]),
@@ -877,6 +1271,7 @@ class CollocationSolverND:
                 "best_epoch": best_epoch,
                 "newton_done": int(newton_done),
                 "has_opt_state": self._opt is not None,
+                "has_net_buffers": bool(buffers),
                 "has_X_f": True,
                 "n_f": int(self.X_f.shape[0]),
                 "grad_clip": self._opt_grad_clip,
@@ -926,9 +1321,11 @@ class CollocationSolverND:
         template = {"params": [list(pair) for pair in layers],
                     "lambdas": self.lambdas}
         fresh = make_optimizer(_flat(layers), self.lambdas, self.lr,
-                               self.lr_weights)
+                               self.lr_weights, freeze_lambdas=self.use_ntk)
         if peek.get("has_opt_state", False):
             template["opt_state"] = self._opt_tree(fresh)
+        if peek.get("has_net_buffers", False):
+            template["net_buffers"] = net_buffers(self.net)
         if peek.get("has_X_f", False):
             template["X_f"] = self.X_f
         if peek.get("has_best", False):
@@ -940,6 +1337,8 @@ class CollocationSolverND:
 
         self.net.load_layers([(dev(W), dev(b)) for W, b in state["params"]])
         with torch.no_grad():
+            for name, saved in state.get("net_buffers", {}).items():
+                getattr(self.net, name).copy_(dev(saved))
             for key, lams in self.lambdas.items():
                 for lam, saved in zip(lams, state["lambdas"][key]):
                     if lam is not None:
@@ -956,6 +1355,7 @@ class CollocationSolverND:
                         "exp_avg_sq": dev(e["exp_avg_sq"])}
                     for i, e in enumerate(entries)}
                 opt.load_state_dict(sd)
+                relink_schedules(opt)
             self._opt = fresh
         else:
             self._opt = None
@@ -1014,10 +1414,14 @@ class CollocationSolverND:
                                    "before save(...)")
         header = json.dumps(self._arch_meta()).encode("utf-8")
         tree = params_to_numpy(self.net)["params"]
+        arrays = {f"params/{name}/{leaf}": arr
+                  for name, layer in tree.items()
+                  for leaf, arr in layer.items()}
+        # a FourierMLP's frequency matrix: the network's function needs it
+        arrays.update({f"buffers/{name}": t.detach().cpu().numpy()
+                       for name, t in net_buffers(self.net).items()})
         blob = io.BytesIO()
-        write_npz(blob, {f"params/{name}/{leaf}": arr
-                         for name, layer in tree.items()
-                         for leaf, arr in layer.items()})
+        write_npz(blob, arrays)
         with open(path, "wb") as fh:
             fh.write(_SAVE_MAGIC + struct.pack("<Q", len(header)) + header
                      + blob.getvalue())
@@ -1038,9 +1442,6 @@ class CollocationSolverND:
         hlen = struct.unpack("<Q", raw[4:12])[0]
         meta = json.loads(raw[12:12 + hlen].decode("utf-8"))
         arrays = read_npz(io.BytesIO(raw[12 + hlen:]))
-        if meta.get("network_type", "MLP") != "MLP":
-            raise not_ported(f"loading a {meta['network_type']}",
-                             "queue 1, solver features")
         n_layers = len(meta["layer_sizes"]) - 1
         layers = [(torch.from_numpy(arrays[f"params/Dense_{i}/kernel"]),
                    torch.from_numpy(arrays[f"params/Dense_{i}/bias"]))
@@ -1050,10 +1451,23 @@ class CollocationSolverND:
                 raise ValueError(
                     f"saved model has layer_sizes {meta['layer_sizes']} but "
                     f"this solver was compiled with {self.layer_sizes}")
-            self.net.load_layers(layers)
+            mine = self._arch_meta()
+            for key in ("network_type", "net_config"):
+                if meta.get(key) != mine.get(key):
+                    raise ValueError(
+                        f"saved model has {key} {meta.get(key)!r} but this "
+                        f"solver was compiled with {mine.get(key)!r}")
+            net = self.net
+        else:
+            net = net_from_metadata(meta, device=self.device)
+        net.load_layers(layers)
+        with torch.no_grad():
+            for name, t in net_buffers(net).items():
+                t.copy_(torch.from_numpy(arrays[f"buffers/{name}"]))
+        if self._compiled:
             return self
-        self.net = MLP(meta["layer_sizes"], device=self.device)
-        self.net.load_layers(layers)
+        self.net = net
+        self.apply_fn = net.apply
         self.layer_sizes = list(meta["layer_sizes"])
         self.n_out = int(meta.get("n_out", self.layer_sizes[-1]))
         self._loaded = True
@@ -1074,7 +1488,7 @@ class CollocationSolverND:
         X = torch.as_tensor(np.ascontiguousarray(X_star, np.float32),
                             device=self.device)
         with ieee_f32(), torch.no_grad():
-            u = mlp_forward(params, X)
+            u = self.net.apply(params, X)
             if not self._compiled:
                 # loaded, not compiled: the solution network exists, the
                 # residual does not (no f_model yet)

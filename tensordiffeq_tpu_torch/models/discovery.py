@@ -33,8 +33,11 @@ per-point engine.  Each Adam step is one step over static buffers
 (:mod:`..training.graphs`), the counterpart of the JAX package's
 ``lax.scan`` chunk; on the CPU the same code runs eagerly.
 
-Not ported (ROADMAP queue 1): ``dist=True`` (item 6), learning-rate
-schedules and custom ``network=`` modules (item 5); they raise
+Every rate (``lr``, ``lr_weights``, each of ``lr_vars``) is a float or a
+schedule (:mod:`..training.schedules`), evaluated on the device inside the
+step; ``network=`` takes a :class:`~..networks.FourierMLP` or
+:class:`~..networks.PeriodicMLP`, which trains on the generic engine.
+Not ported (ROADMAP queue 1): ``dist=True`` (item 6); it raises
 :class:`~..utils.NotPortedError`.
 """
 
@@ -47,10 +50,11 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..networks import MLP, init_generator, mlp_forward
+from ..networks import MLP, init_generator, net_buffers
 from ..ops.derivatives import make_ufn, vmap_residual
 from ..ops.losses import MSE, default_g, g_MSE
-from ..training.fit import make_batches
+from ..training.fit import (adam, make_batches, optimizer_step,
+                            relink_schedules, schedule_tensors)
 from ..training.graphs import StepGraph
 from ..utils import ieee_f32, not_ported, resolve_device
 from .collocation import NotCompiledError
@@ -100,6 +104,8 @@ class _DiscoveryStep:
         state = [v for opt in m._opts if opt is not None
                  for st in opt.state.values() for v in st.values()
                  if isinstance(v, torch.Tensor)]
+        state += [t for opt in m._opts if opt is not None
+                  for t in schedule_tensors(opt)]
         bufs = [m.X, m.u_data, self.X_batched, self.idx_batched,
                 self.counter, self.row]
         if m._cw is not None:
@@ -139,7 +145,7 @@ class _DiscoveryStep:
         total.backward()
         for opt in m._opts:
             if opt is not None:
-                opt.step()
+                optimizer_step(opt)
         with torch.no_grad():
             vals = torch.stack([total.detach().reshape(())]
                                + [v.detach().reshape(()) for v in m._vars])
@@ -168,8 +174,8 @@ class DiscoveryModel:
     # ------------------------------------------------------------------ #
     def compile(self, layer_sizes: Sequence[int], f_model: Callable, X, u,
                 var: Sequence[float], col_weights=None,
-                varnames: Optional[Sequence[str]] = None, lr: float = 0.005,
-                lr_vars=0.005, lr_weights: float = 0.005, seed: int = 0,
+                varnames: Optional[Sequence[str]] = None, lr=0.005,
+                lr_vars=0.005, lr_weights=0.005, seed: int = 0,
                 verbose: bool = True, fused: Optional[bool] = None,
                 dist: bool = False, network=None,
                 g: Optional[Callable] = None):
@@ -187,33 +193,32 @@ class DiscoveryModel:
           varnames: coordinate names for ``grad(u, "x")`` (default ``x0,
             x1, …``).
           lr, lr_weights: Adam rates of the network and of
-            ``col_weights``.
-          lr_vars: the coefficients' Adam rate, one float or one per
-            coefficient (coefficients at very different scales, such as
-            Allen-Cahn's 1e-4 diffusion beside its reaction rate of 5).
+            ``col_weights``: floats or schedules
+            (:mod:`..training.schedules`).
+          lr_vars: the coefficients' Adam rate, one float or schedule, or
+            one per coefficient (coefficients at very different scales,
+            such as Allen-Cahn's 1e-4 diffusion beside its reaction rate of
+            5).
           fused: ``None`` the fused engine when it qualifies and passes the
             cross-check, ``False`` the generic engine, ``True`` the fused
             engine or raise.
           g: the λ transform (default ``λ²``).
-          dist, network: not ported (raise
-            :class:`~..utils.NotPortedError`); a callable ``lr``,
-            ``lr_weights`` or ``lr_vars`` (a schedule) likewise.
+          network: an :class:`~..networks.MLP` family member to train
+            instead of a fresh MLP (``layer_sizes`` must match it); the
+            embedding families take the generic engine.
+          dist: not ported (raises :class:`~..utils.NotPortedError`).
         """
         if dist:
             raise not_ported("DiscoveryModel.compile(dist=True)",
                              "queue 1 item 6, multi-GPU and multi-host")
-        if network is not None:
-            raise not_ported("DiscoveryModel.compile(network=...)",
-                             "queue 1 item 5, FourierMLP/PeriodicMLP")
+        if network is not None and not isinstance(network, MLP):
+            raise not_ported("custom network modules (other than the MLP, "
+                             "FourierMLP and PeriodicMLP families)",
+                             "queue 1, solver features")
         if getattr(lr_vars, "ndim", 0) > 0:  # an array of rates
             lr_vars = [float(v) for v in np.asarray(lr_vars)]
         per_var = isinstance(lr_vars, (list, tuple))
         rates = list(lr_vars) if per_var else [lr_vars]
-        for name, v in [("lr", lr), ("lr_weights", lr_weights)] + [
-                ("lr_vars", r) for r in rates]:
-            if callable(v):
-                raise not_ported(f"DiscoveryModel.compile({name}=<schedule>)",
-                                 "queue 1 item 5, lr schedules")
         if fused not in (None, False, True):
             raise ValueError(f"fused={fused!r}: expected None, False or True "
                              "(the discovery residual has no kernel flavor)")
@@ -240,15 +245,16 @@ class DiscoveryModel:
         self.verbose = verbose
         self.fused = fused
         self.g = g
-        self.net = MLP(layer_sizes, device=self.device,
-                       generator=init_generator(seed))
+        self.net = (MLP(layer_sizes, device=self.device,
+                        generator=init_generator(seed))
+                    if network is None else network.to(self.device))
+        self.apply_fn = self.net.apply
         self._vars = [torch.full((), float(np.asarray(v)), device=self.device)
                       .requires_grad_(True) for v in var]
         self._cw = (None if col_weights is None else torch.as_tensor(
             np.asarray(col_weights, np.float32),
             device=self.device).clone().requires_grad_(True))
-        self._lrs = (float(lr), [float(r) for r in rates] if per_var
-                     else float(rates[0]), float(lr_weights))
+        self._lrs = (lr, list(rates) if per_var else rates[0], lr_weights)
         self._opts = self._make_optimizers()
         self._step_obj = None
         self.losses, self.var_history = [], []
@@ -259,17 +265,14 @@ class DiscoveryModel:
 
     def _make_optimizers(self) -> tuple:
         lr, lr_vars, lr_w = self._lrs
-        cap = self.device.type == "cuda"
-        betas = (0.99, 0.999)
-        opt_net = torch.optim.Adam(self._params(), lr=lr, betas=betas,
-                                   capturable=cap)
+        dev = self.device
+        opt_net = adam([(self._params(), lr)], dev)
         per = lr_vars if isinstance(lr_vars, list) \
             else [lr_vars] * len(self._vars)
-        opt_vars = (torch.optim.Adam(
-            [{"params": [v], "lr": r} for v, r in zip(self._vars, per)],
-            lr=per[0], betas=betas, capturable=cap) if self._vars else None)
-        opt_lam = (None if self._cw is None else torch.optim.Adam(
-            [self._cw], lr=lr_w, betas=betas, maximize=True, capturable=cap))
+        opt_vars = (adam([([v], r) for v, r in zip(self._vars, per)], dev)
+                    if self._vars else None)
+        opt_lam = (None if self._cw is None else
+                   adam([([self._cw], lr_w)], dev, maximize=True))
         return opt_net, opt_vars, opt_lam
 
     def _params(self) -> list:
@@ -301,7 +304,7 @@ class DiscoveryModel:
         """The one generic construction of ``f_model(u, var, ·)``: the
         training fallback, the cross-check's referee and
         :meth:`predict_f`."""
-        u = make_ufn(mlp_forward, params, self.varnames, self.n_out)
+        u = make_ufn(self.apply_fn, params, self.varnames, self.n_out)
         return vmap_residual(
             lambda u_, *coords: self.f_model(u_, vars_, *coords),
             u, self.ndim)(X)
@@ -324,7 +327,7 @@ class DiscoveryModel:
             if not ok:
                 return ok, reason
             # the data loss reads the table's primal channel: check it too
-            return crosscheck_residuals(mlp_forward(layers, X_s), u_primal)
+            return crosscheck_residuals(self.apply_fn(layers, X_s), u_primal)
 
     def _build(self):
         self._fused_residual = (self._try_fuse() if self.fused is not False
@@ -363,7 +366,7 @@ class DiscoveryModel:
         if self._fused_residual is not None:
             f_pred, u_pred = self._fused_residual(layers, X, vars_)
         else:
-            u_pred = mlp_forward(layers, X)
+            u_pred = self.apply_fn(layers, X)
             f_pred = self._generic_residual(layers, vars_, X)
         preds = f_pred if isinstance(f_pred, tuple) else (f_pred,)
         g_fn = self.g if self.g is not None else default_g
@@ -445,18 +448,22 @@ class DiscoveryModel:
 
     # ------------------------------------------------------------------ #
     def _state(self) -> dict:
-        return {"trainables": {
-                    "params": [list(pair) for pair in self.net.layers()],
-                    "vars": list(self._vars), "col_weights": self._cw},
-                "opt_state": {name: _opt_entries(opt) for name, opt in
-                              zip(("net", "vars", "lam"), self._opts)
-                              if opt is not None}}
+        state = {"trainables": {
+                     "params": [list(pair) for pair in self.net.layers()],
+                     "vars": list(self._vars), "col_weights": self._cw},
+                 "opt_state": {name: _opt_entries(opt) for name, opt in
+                               zip(("net", "vars", "lam"), self._opts)
+                               if opt is not None}}
+        buffers = net_buffers(self.net)
+        if buffers:  # a FourierMLP's B: the function depends on it
+            state["net_buffers"] = buffers
+        return state
 
     def save_checkpoint(self, path: str):
         """The full inverse-problem state under the directory ``path``
-        (:mod:`..checkpoint`): the network, the coefficients, the SA
-        weights, the three Adam states, the loss and coefficient
-        histories."""
+        (:mod:`..checkpoint`): the network (a :class:`~..networks.FourierMLP`
+        with its ``B``), the coefficients, the SA weights, the three Adam
+        states, the loss and coefficient histories."""
         if not self._compiled:
             raise NotCompiledError("Call compile(...) before save_checkpoint")
         from ..checkpoint import save_checkpoint
@@ -480,6 +487,8 @@ class DiscoveryModel:
         tr = state["trainables"]
         with torch.no_grad():
             self.net.load_layers([(dev(W), dev(b)) for W, b in tr["params"]])
+            for name, saved in state.get("net_buffers", {}).items():
+                getattr(self.net, name).copy_(dev(saved))
             for v, saved in zip(self._vars, tr["vars"]):
                 v.copy_(dev(saved))
             if self._cw is not None:
@@ -495,6 +504,7 @@ class DiscoveryModel:
                     "exp_avg_sq": dev(e["exp_avg_sq"])}
                 for i, e in enumerate(state["opt_state"][name])}
             opt.load_state_dict(sd)
+            relink_schedules(opt)
         self._step_obj = None  # new optimizer state: a new step and graph
         self.losses = [float(v) for v in meta.get("losses", [])]
         self.var_history = [list(v) for v in meta.get("var_history", [])]
@@ -518,7 +528,7 @@ class DiscoveryModel:
         X = torch.as_tensor(np.ascontiguousarray(X_star, np.float32),
                             device=self.device)
         with ieee_f32(), torch.no_grad():
-            return mlp_forward(self.net.layers(), X).cpu().numpy()
+            return self.apply_fn(self.net.layers(), X).cpu().numpy()
 
     def predict_f(self, X_star):
         """The learned PDE's residual at ``X_star`` under the current

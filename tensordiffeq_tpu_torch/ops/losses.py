@@ -10,6 +10,9 @@ semantics:
 * ``MSE(..., weights, outside_sum=True)``   -> ``w * mean((pred-actual)**2)``
   ("type 2" scalar per-loss weighting)
 * ``g_MSE(pred, actual, g_lam)``            -> ``mean(g_lam*(pred-actual)**2)``
+
+and the temporal-causality weighting of the residual
+(:func:`causal_residual_loss`).
 """
 
 from __future__ import annotations
@@ -39,6 +42,37 @@ def g_MSE(pred, actual, g_lam):
 def default_g(lam):
     """Default SA-weight transform ``g(lam) = lam**2``."""
     return torch.square(lam)
+
+
+def causal_residual_loss(sq_errors, t_column, t_bounds, eps, n_bins: int):
+    """Temporal-causality-weighted residual loss (Wang, Sankaran &
+    Perdikaris, arXiv:2203.07404; the JAX package's
+    ``causal_residual_loss``): the points are binned uniformly along time,
+    bin ``b``'s mean squared residual ``L_b`` is weighted by ``w_b =
+    exp(-eps · Σ_{b' < b} L_b')`` (no gradient through ``w``), so later
+    times train once earlier ones are resolved.  Returns ``(loss,
+    w_last)``; ``w_last → 1`` when the whole horizon trains.
+
+    ``eps`` is a number or a 0-d tensor (the solver keeps it in a device
+    scalar, so one captured step serves every stage of an ε ladder).  The
+    bin sums are a one-hot mask and a column sum, not ``index_add_``: on
+    CUDA that scatters by atomics, whose order changes from run to run,
+    and a replayed graph would then not equal the eager step bit for bit.
+    The mask depends only on the time column, so it also follows a
+    minibatch or a redraw without any state."""
+    t0, t1 = t_bounds
+    sq = sq_errors.reshape(-1)
+    pos = (t_column.reshape(-1) - t0) / (t1 - t0)
+    bins = torch.clamp((pos * n_bins).to(torch.int32), 0, n_bins - 1)
+    onehot = (bins[:, None] == torch.arange(
+        n_bins, dtype=torch.int32, device=sq.device)[None, :]).to(sq.dtype)
+    counts = torch.sum(onehot, 0)
+    per_bin = torch.sum(sq[:, None] * onehot, 0) / torch.clamp(counts,
+                                                                 min=1.0)
+    cum = torch.cat([torch.zeros(1, dtype=per_bin.dtype, device=sq.device),
+                     torch.cumsum(per_bin, 0)[:-1]])
+    w = torch.exp(-eps * cum).detach()
+    return torch.mean(w * per_bin), w[-1]
 
 
 def relative_l2(pred, ref):

@@ -11,9 +11,9 @@ not vendored), and the "enhanced stochastic evolutionary" (ESE) maximin
 optimizer is implemented from the published algorithm (Jin, Chen &
 Sudjianto 2005) in vectorised NumPy.  Sampling is host-side setup work;
 determinism comes from explicit seeds rather than global RNG state, so for
-the same seed every criterion except ``"ese"`` gives the same arrays as the
-JAX package's sampler.  ``"ese"`` runs the NumPy optimizer only: the JAX
-package's native C++ ESE is not ported yet (ROADMAP queue 1).
+the same seed every criterion gives the same arrays as the JAX package's
+sampler.  ``"ese"`` runs the native C++ optimizer (:mod:`.native`) when it
+builds, as the JAX package does, and the NumPy one otherwise.
 """
 
 from __future__ import annotations
@@ -170,13 +170,20 @@ class LHS(ScaledSamplingMethod):
         if crit == "ese":
             sampler = qmc.LatinHypercube(d=nx, scramble=True, seed=seed)
             X0 = sampler.random(nt)
+            if nt >= 3:
+                from . import native
+                if native.available():
+                    outer, inner, J = _ese_schedule(*X0.shape)
+                    return native.ese_optimize(
+                        X0, outer_loops=outer, inner_loops=inner, J=J,
+                        seed=seed)
             return _maximin_ese(X0, rng)
         raise ValueError(f"Unknown LHS criterion: {crit!r}")
 
 
 def _ese_schedule(n: int, nx: int) -> tuple:
-    """Annealing schedule (outer loops, inner loops, J proposals) of the ESE
-    optimizer."""
+    """Annealing schedule (outer loops, inner loops, J proposals) shared by
+    the NumPy and native C++ ESE optimizers."""
     outer = min(30, max(5, int(1.5 * nx)))
     inner = min(20, max(5, n // 5))
     J = min(10, max(1, n // 10))

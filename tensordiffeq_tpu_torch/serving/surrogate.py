@@ -45,7 +45,7 @@ import torch
 
 from ..checkpoint import (resolve_checkpoint_dir, restore_checkpoint,
                           save_checkpoint)
-from ..networks import mlp_forward, net_from_metadata, net_metadata
+from ..networks import net_buffers, net_from_metadata, net_metadata
 from ..utils import resolve_device
 
 _FORMAT = 1
@@ -113,8 +113,8 @@ class Surrogate:
     @property
     def apply_fn(self) -> Callable:
         """The forward contract: ``apply_fn(params, x[..., ndim]) ->
-        [..., n_out]``."""
-        return mlp_forward
+        [..., n_out]`` (the network's own, with its embedding)."""
+        return self.net.apply
 
     @property
     def device(self) -> torch.device:
@@ -188,7 +188,9 @@ class Surrogate:
              extra_files: Optional[dict] = None) -> None:
         """Persist under the directory ``path`` through the checkpoint
         protocol (``.tmp``, fsync, atomic swap, sha256).  The state is
-        ``{"params": ...}`` only.  ``extra_meta`` merges JSON fields into
+        ``{"params": ...}``, and a FourierMLP's frequency matrix
+        (``{"net_buffers": {"B": ...}}``): the port draws ``B`` from another
+        random stream than the JAX package, so the artifact carries it.  ``extra_meta`` merges JSON fields into
         the artifact meta; ``extra_files`` maps artifact-relative paths to
         raw bytes saved and checksummed beside the state."""
         meta = net_metadata(self.net, self.layer_sizes, self.n_out)
@@ -200,8 +202,11 @@ class Surrogate:
             meta["coefficients"] = [c.tolist() for c in self.coefficients]
         if extra_meta:
             meta.update(extra_meta)
-        save_checkpoint(path, {"params": [list(p) for p in self.params]},
-                        meta, extra_files=extra_files)
+        state = {"params": [list(p) for p in self.params]}
+        buffers = net_buffers(self.net)
+        if buffers:
+            state["net_buffers"] = buffers
+        save_checkpoint(path, state, meta, extra_files=extra_files)
 
     @classmethod
     def load(cls, path: str, f_model: Optional[Callable] = None, net=None,
@@ -234,11 +239,17 @@ class Surrogate:
                     "net=<the network module the training run compiled "
                     "with>)") from None
         net = net.to(dev)
-        state, _ = restore_checkpoint(
-            path, {"params": [list(p) for p in net.layers()]})
+        template = {"params": [list(p) for p in net.layers()]}
+        buffers = net_buffers(net)
+        if buffers:
+            template["net_buffers"] = buffers
+        state, _ = restore_checkpoint(path, template)
         net.load_layers([(torch.from_numpy(np.asarray(W)),
                           torch.from_numpy(np.asarray(b)))
                          for W, b in state["params"]])
+        with torch.no_grad():
+            for name, saved in state.get("net_buffers", {}).items():
+                getattr(net, name).copy_(torch.from_numpy(np.asarray(saved)))
         # the served tensors share the net's storage
         params = [(W.detach(), b.detach()) for W, b in net.layers()]
         sur = cls(net, params, meta["varnames"], n_out=int(meta["n_out"]),

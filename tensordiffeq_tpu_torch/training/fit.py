@@ -32,8 +32,15 @@ without a new capture.  A pipelined redraw runs on a stream of its own
 (:func:`dispatch_redraw`) over a snapshot of the parameters of its dispatch
 boundary, while the next chunk's replays update the live ones.
 
-Not ported yet (ROADMAP queue 1): learning-rate schedules, the mesh branch
-of ``make_batches``, telemetry.
+Learning-rate schedules (:mod:`.schedules`) run on the device: a
+scheduled rate is a 0-d tensor the step rewrites from the Adam's own
+device step count before each update (:func:`optimizer_step`).  NTK weighting
+(``lambda_update_fn``) rewrites the frozen λ between chunks with ``copy_``,
+and a causal ε ladder ends a phase early (``stop_fn``): neither replaces a
+tensor the step's graph is keyed on.
+
+Not ported yet (ROADMAP queue 1): the mesh branch of ``make_batches``,
+telemetry.
 """
 
 from __future__ import annotations
@@ -48,29 +55,82 @@ import torch
 from ..ops.resampling import carry_rows
 from ..utils import span, tree_copy
 from .graphs import StepGraph
+from .schedules import DeviceLR
 
 
-def make_optimizer(params, lambdas: dict, lr: float = 0.005,
-                   lr_weights: float = 0.005, b1: float = 0.99):
+def adam(groups, device: torch.device, b1: float = 0.99,
+         maximize: bool = False) -> torch.optim.Adam:
+    """A ``torch.optim.Adam`` over ``groups = [(params, rate), ...]``, one
+    param group each, β = (``b1``, 0.999).  A float rate is the plain
+    float path.  A callable rate is a schedule (:mod:`.schedules`): the
+    group's ``lr`` is then the 0-d device tensor of a
+    :class:`~.schedules.DeviceLR`, which :func:`optimizer_step` advances
+    before each update, so a CUDA graph that holds the step evaluates the
+    schedule on the group's Adam step count.  On a CUDA device the Adam is
+    ``capturable`` (its step counts live on the device)."""
+    pgs, scheds = [], {}
+    for i, (params, rate) in enumerate(groups):
+        if callable(rate):
+            scheds[i] = DeviceLR(rate, device)
+            rate = scheds[i].lr
+        else:
+            rate = float(rate)
+        pgs.append({"params": list(params), "lr": rate})
+    floats = [g["lr"] for g in pgs if not isinstance(g["lr"], torch.Tensor)]
+    opt = torch.optim.Adam(pgs, lr=floats[0] if floats else pgs[0]["lr"],
+                           betas=(b1, 0.999), maximize=maximize,
+                           capturable=device.type == "cuda")
+    opt.tdq_schedules = scheds
+    return opt
+
+
+def relink_schedules(opt):
+    """Point each scheduled group's ``lr`` at its :class:`DeviceLR` again:
+    ``load_state_dict`` replaces the groups' hyperparameters with copies
+    (the count rides the restored Adam step counts)."""
+    for i, sched in getattr(opt, "tdq_schedules", {}).items():
+        opt.param_groups[i]["lr"] = sched.lr
+
+
+def step_count(opt, group: dict) -> torch.Tensor:
+    """The updates ``opt`` has applied to ``group``: its Adam step count
+    as a 0-d int32 tensor on the step's device (0 before the first)."""
+    for p in group["params"]:
+        st = opt.state.get(p)
+        if st and "step" in st:
+            return st["step"].to(torch.int32)
+    return torch.zeros((), dtype=torch.int32,
+                       device=group["params"][0].device)
+
+
+def schedule_tensors(opt) -> list:
+    """The device tensors of ``opt``'s schedules (a graph's storage
+    key)."""
+    return [s.lr for s in getattr(opt, "tdq_schedules", {}).values()]
+
+
+def optimizer_step(opt):
+    """``opt.step()``, each schedule's rate written first at its group's
+    step count."""
+    for i, sched in getattr(opt, "tdq_schedules", {}).items():
+        sched.advance(step_count(opt, opt.param_groups[i]))
+    opt.step()
+
+
+def make_optimizer(params, lambdas: dict, lr=0.005, lr_weights=0.005,
+                   b1: float = 0.99, freeze_lambdas: bool = False):
     """``(opt_net, opt_lam)``: Adam descent on ``params`` and Adam ascent on
-    every λ tensor in ``lambdas`` (``opt_lam`` is ``None`` without any).
-    On a CUDA device both are ``capturable`` (their step counts live on the
-    device), so a CUDA graph can hold their updates."""
-    for name, v in (("lr", lr), ("lr_weights", lr_weights)):
-        if callable(v):
-            raise NotImplementedError(
-                f"{name} schedules are not ported yet (ROADMAP queue 1); "
-                "pass a float")
+    every λ tensor in ``lambdas`` (``opt_lam`` is ``None`` without any, or
+    under ``freeze_lambdas``: the JAX package's ``set_to_zero`` for λ that
+    NTK weighting recomputes between chunks).  ``lr`` and ``lr_weights``
+    are floats or schedules (:func:`adam`)."""
     params = list(params)
-    capturable = params[0].device.type == "cuda"
-    opt_net = torch.optim.Adam(params, lr=float(lr), betas=(b1, 0.999),
-                               capturable=capturable)
+    dev = params[0].device
+    opt_net = adam([(params, lr)], dev, b1)
     lams = [lam for terms in lambdas.values() for lam in terms
             if lam is not None]
-    opt_lam = (torch.optim.Adam(lams, lr=float(lr_weights),
-                                betas=(b1, 0.999), maximize=True,
-                                capturable=capturable)
-               if lams else None)
+    opt_lam = (adam([(lams, lr_weights)], dev, b1, maximize=True)
+               if lams and not freeze_lambdas else None)
     return opt_net, opt_lam
 
 
@@ -212,11 +272,14 @@ class AdamStep:
         state = [v for opt in self.optimizers if opt is not None
                  for st in opt.state.values() for v in st.values()
                  if isinstance(v, torch.Tensor)]
+        scheds = [t for opt in self.optimizers if opt is not None
+                  for t in schedule_tensors(opt)]
         bufs = [self.X_f, self.X_batched, self.idx_batched, self.counter,
                 self.row, self.best_loss, self.best_step]
         if self.hist is not None:
             bufs.append(self.hist)
-        return self.params + lams + state + bufs + self.best_params
+        return (self.params + lams + state + scheds + bufs
+                + self.best_params)
 
     def adopt(self, X_new: torch.Tensor, swap=None):
         """Adopt a redrawn collocation set: written into ``X_f`` and the
@@ -291,8 +354,9 @@ class AdamStep:
             opt_lam.zero_grad(set_to_none=True)
         X_b, lam_res = self._batch()
         with span("fit_adam.loss"):
-            total, comps = self.loss_fn(self.layers, self.lambdas["BCs"],
-                                        lam_res, X_b)
+            total, comps = self.loss_fn(
+                self.layers, self.lambdas["BCs"], lam_res, X_b,
+                lam_data=self.lambdas.get("data", [None])[0])
         with span("fit_adam.backward"):
             total.backward()
         with span("fit_adam.adam"):
@@ -301,9 +365,9 @@ class AdamStep:
                 if opt_lam is not None:
                     clip_by_global_norm(opt_lam.param_groups[0]["params"],
                                         self.grad_clip)
-            opt_net.step()
+            optimizer_step(opt_net)
             if opt_lam is not None:
-                opt_lam.step()
+                optimizer_step(opt_lam)
         with span("fit_adam.record"), torch.no_grad():
             if self.hist is None:  # the first step, always an eager one
                 self.keys = list(comps)
@@ -422,12 +486,24 @@ def _finish_records(records: list):
         rec["stats"] = stats
 
 
+def _write_lambdas(step: AdamStep, new: dict):
+    """Write recomputed λ (0-d tensors) into the step's λ in place."""
+    with torch.no_grad():
+        for key, vals in new.items():
+            for lam, v in zip(step.lambdas.get(key, []), vals):
+                if lam is not None:
+                    lam.copy_(v.reshape(lam.shape))
+
+
 def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
              verbose: bool = True, result: Optional[FitResult] = None,
              state_hook: Optional[Callable] = None,
              state_hook_every: int = 0,
              resample_fn: Optional[Callable] = None,
-             resample_every: int = 0) -> FitResult:
+             resample_every: int = 0,
+             lambda_update_fn: Optional[Callable] = None,
+             stop_fn: Optional[Callable] = None,
+             epoch_offset: int = 0) -> FitResult:
     """Run ``tf_iter`` Adam(+SA) epochs of ``step`` in place on its
     parameters and λ: ``tf_iter · n_batches`` steps in chunks of ``chunk ·
     n_batches``, so the batch index restarts at each chunk as in the JAX
@@ -454,7 +530,22 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
     ``dispatch_s`` and ``stall_s`` (host seconds to issue it and to swap it
     in), ``device_ms`` (CUDA events on its stream; ``None`` off the card)
     and ``stats`` (kept fraction, score gain, λ drift).  The JAX package
-    calls the host seconds ``data_s``; its telemetry is not ported."""
+    calls the host seconds ``data_s``; its telemetry is not ported.
+
+    ``lambda_update_fn(layers) -> {"BCs": [...], "residual": [...][,
+    "data": [...]]}`` (NTK weighting, :mod:`..ops.ntk`): called before the
+    first step and at every chunk boundary with steps left (after any
+    redraw, so the balance follows the points being trained); its 0-d
+    weights are written into the step's λ with ``copy_``, so the step's
+    graph replays on without a new capture.
+
+    ``stop_fn(result) -> bool``: checked at every chunk boundary; true ends
+    the phase there (the causal ε ladder hands the rest of the budget to
+    its next stage).
+
+    ``epoch_offset`` is added to every epoch the hooks are handed (and the
+    redraw records keep): the epochs earlier stages of a causal ε ladder
+    trained.  The boundaries stay counted from this call's start."""
     result = result or FitResult()
     n_b = step.n_batches
     total_steps = tf_iter * n_b
@@ -464,6 +555,8 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
     records = []
     t0 = time.time()
     done = 0
+    if lambda_update_fn is not None and total_steps > 0:
+        _write_lambdas(step, lambda_update_fn(step.layers))
     while done < total_steps:
         n = min(chunk * n_b, total_steps - done)
         t_chunk = time.perf_counter()
@@ -493,32 +586,43 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
                 pending.join(step.device)
                 drift = step.adopt(pending.swap.X_new, pending.swap)
                 records.append(_redraw_record(
-                    pending, epochs, time.perf_counter() - t_sw, drift))
+                    pending, epochs + epoch_offset,
+                    time.perf_counter() - t_sw, drift))
             pending = None
         if (resample_fn is not None and resample_every > 0
                 and done < total_steps
                 and prev // resample_every != epochs // resample_every):
             with span("fit_adam.redraw"):
+                at = epochs + epoch_offset
                 if pipelined:
                     pending = dispatch_redraw(resample_fn.redraw, step.params,
-                                              step.X_f, epochs)
+                                              step.X_f, at)
                 else:
                     t_rd = time.perf_counter()
                     layers = [(W.detach(), b.detach()) for W, b in
                               zip(step.params[0::2], step.params[1::2])]
-                    step.adopt(resample_fn(layers, epochs))
-                    records.append({"epoch": epochs, "adopted": epochs,
+                    step.adopt(resample_fn(layers, at))
+                    records.append({"epoch": at, "adopted": at,
                                     "dispatch_s": time.perf_counter() - t_rd,
                                     "stall_s": 0.0, "device_ms": None,
                                     "stats": {}})
+        if lambda_update_fn is not None and done < total_steps:
+            _write_lambdas(step, lambda_update_fn(step.layers))
         if (state_hook is not None and state_hook_every > 0
                 and prev // state_hook_every != epochs // state_hook_every):
-            state_hook(epochs, (step.best_params, step.best_loss,
-                                torch.div(step.best_step, n_b,
-                                          rounding_mode="floor")))
+            state_hook(epochs + epoch_offset,
+                       (step.best_params, step.best_loss,
+                        torch.div(step.best_step, n_b, rounding_mode="floor")
+                        + epoch_offset))
         if verbose:
             print(f"Adam epoch {epochs}/{tf_iter}: total loss "
                   f"{result.losses[-1]['Total Loss']:.6e}", flush=True)
+        if stop_fn is not None and done < total_steps and stop_fn(result):
+            if pending is not None:
+                pending.join(step.device)
+                records.append(_redraw_record(pending, None, None, None))
+                pending = None
+            break
     if step.device.type == "cuda":
         torch.cuda.synchronize(step.device)
     _finish_records(records)

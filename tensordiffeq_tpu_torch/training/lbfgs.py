@@ -637,11 +637,15 @@ def lbfgs_objective(loss_fn: Callable, lambdas: dict, X_f: torch.Tensor,
                for lam in lambdas["BCs"]]
     lam_res = [None if lam is None else lam.detach()
                for lam in lambdas["residual"]]
+    # NTK weighting's scalar weight on the assimilation term
+    lam_data = lambdas.get("data", [None])[0]
+    lam_data = None if lam_data is None else lam_data.detach()
 
     def fun(x):
-        return loss_fn(unflatten_layers(x, shapes), lam_bcs, lam_res, X_f)[0]
+        return loss_fn(unflatten_layers(x, shapes), lam_bcs, lam_res, X_f,
+                       lam_data=lam_data)[0]
     # what a graph over the objective reads besides x (graphs.StepGraph)
-    fun.tensors = [X_f] + [lam for lam in lam_bcs + lam_res
+    fun.tensors = [X_f] + [lam for lam in lam_bcs + lam_res + [lam_data]
                            if lam is not None]
     return fun
 

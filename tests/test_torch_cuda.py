@@ -60,6 +60,16 @@ installed::
   does not wait for the device; a discarded redraw has finished before
   the main stream goes on (its memory is not reused early).
 * ``DiscoveryModel``: 50 graphed steps equal 50 eager ones bit for bit.
+* the training options (``chip_smoke.py`` phase 13, at small size):
+  ``fused="autotune"`` races the K1/K2 candidate behind its cross-check,
+  adopts the argmin and launches what the protocol says, and a K1 the
+  runtime refuses raises out of its ``compile``; lr schedules,
+  NTK weighting, the causal ε ladder and ``remat`` each keep one capture of
+  the Adam step and equal the eager steps bit for bit (K3 once per step
+  under schedules and NTK; K1 and K2 once per step under causal weighting,
+  K1 twice under ``remat``, whose first step equals the plain one's); the
+  embedding families train graphed on the generic engine with no kernel
+  launch, equal to eager, and serve ``u`` as ``predict`` does.
 """
 
 import warnings
@@ -73,6 +83,7 @@ from tensordiffeq_tpu_torch.ops import cuda_minimax, cuda_taylor
 from tensordiffeq_tpu_torch.ops.fused import analyze_f_model
 from tensordiffeq_tpu_torch.ops.minimax import build_minimax_sq_fn
 from tensordiffeq_tpu_torch.ops.taylor import taylor_derivatives
+from tensordiffeq_tpu_torch.training.fit import step_count
 from tensordiffeq_tpu_torch.training.graphs import GraphCaptureError
 from tensordiffeq_tpu_torch.training.lbfgs import lbfgs_minimize
 
@@ -178,7 +189,7 @@ def test_wrapper_rejects_what_the_kernels_do_not_take(card):
 
 
 def _ac_solver(fused, n_f=2048, grid=(128, 51), seed=0, minimax=False,
-               device="cuda"):
+               device="cuda", sa=True, widths=(64, 64, 64), **extra):
     nx, nt = grid
     domain = tdqt.DomainND(["x", "t"], time_var="t")
     domain.add("x", [-1.0, 1.0], nx)
@@ -199,13 +210,18 @@ def _ac_solver(fused, n_f=2048, grid=(128, 51), seed=0, minimax=False,
                 + 5.0 * uv ** 3 - 5.0 * uv)
 
     rng = np.random.RandomState(seed)
+    if sa:
+        extra.update(Adaptive_type=1,
+                     dict_adaptive={"residual": [True],
+                                    "BCs": [True, False]},
+                     init_weights={"residual": [rng.rand(n_f, 1)],
+                                   "BCs": [100.0 * rng.rand(nx, 1), None]})
+    if callable(extra.get("network")):  # built on the problem's domain
+        extra["network"] = extra["network"](domain)
     solver = tdqt.CollocationSolverND(verbose=False, seed=seed,
                                       device=device)
-    solver.compile([2, 64, 64, 64, 1], f_model, domain, bcs, fused=fused,
-                   minimax=minimax, Adaptive_type=1,
-                   dict_adaptive={"residual": [True], "BCs": [True, False]},
-                   init_weights={"residual": [rng.rand(n_f, 1)],
-                                 "BCs": [100.0 * rng.rand(nx, 1), None]})
+    solver.compile([2, *widths, 1], f_model, domain, bcs, fused=fused,
+                   minimax=minimax, **extra)
     return solver
 
 
@@ -856,3 +872,171 @@ def test_discovery_graph_steps_equal_eager_steps(card):
     assert np.array_equal(a.col_weights, b.col_weights)
     for p, q in zip(a.net.parameters(), b.net.parameters()):
         assert torch.equal(p, q)
+
+
+# --------------------------------------------------------------------- #
+# the training options of phase 13, at small size
+# --------------------------------------------------------------------- #
+def _fit_counted(solver, **kw):
+    cuda_taylor.reset_launch_counts()
+    solver.fit(**kw)
+    torch.cuda.synchronize()
+    return {"k1": cuda_taylor.k1_forward.launches,
+            "k2": cuda_taylor.k2_backward.launches,
+            "k3": cuda_minimax.k3_minimax.launches}
+
+
+def test_autotune_races_the_kernel_candidate_on_card(card):
+    from tensordiffeq_tpu_torch.training.graphs import WARMUP_RUNS
+    cuda_taylor.reset_launch_counts()
+    s = _ac_solver("autotune", n_f=1024, minimax=None)
+    launches = {"k1": cuda_taylor.k1_forward.launches,
+                "k2": cuda_taylor.k2_backward.launches,
+                "k3": cuda_minimax.k3_minimax.launches}
+    rep = s.autotune_report
+    assert set(rep["timings_ms"]) == {"generic", "fused", "cuda"}
+    assert rep["choice"] == min(rep["timings_ms"], key=rep["timings_ms"].get)
+    per = WARMUP_RUNS + 3
+    k3 = 0 if rep["choice"] == "generic" else 1 + per
+    k12 = 1 + per + (per if rep["choice"] == "cuda" else 0)
+    assert launches == {"k1": k12, "k2": k12, "k3": k3}
+    race = rep["minimax"]
+    if race is not None:
+        assert (s.engine == "fused-minimax-cuda") == race["adopted"]
+    s.fit(tf_iter=5)
+    assert np.isfinite(s.losses[-1]["Total Loss"])
+
+
+def test_autotune_raises_when_k1_does_not_launch_on_card(card, monkeypatch):
+    """A K1 the runtime refuses fails ``compile(fused="autotune")``: the
+    race does not drop the kernel candidate and train on another engine.
+    The tile here asks for more shared memory than a block may have."""
+    fits = cuda_taylor._Plan.tile_sizes
+
+    def oversized(self, device):
+        tp_fwd, tp_bwd, n_sm = fits(self, device)
+        return 64 * tp_fwd, tp_bwd, n_sm
+
+    monkeypatch.setattr(cuda_taylor._Plan, "tile_sizes", oversized)
+    before = cuda_taylor.k1_forward.launches
+    with pytest.raises(cuda_taylor.KernelLaunchError, match="K1 launch"):
+        _ac_solver("autotune", n_f=512, minimax=None)
+    assert cuda_taylor.k1_forward.launches == before
+
+
+def test_scheduled_steps_graph_equals_eager_on_card(card):
+    from tensordiffeq_tpu_torch.training import schedules as S
+
+    def make():
+        return _ac_solver("cuda", n_f=1024, minimax=None,
+                          lr=S.exponential_decay(5e-3, 10, 0.5),
+                          lr_weights=S.cosine_decay_schedule(5e-3, 40))
+
+    graph, eager = make(), make()
+    launches = _fit_counted(graph, tf_iter=40, chunk=10)
+    eager.fit(tf_iter=40, chunk=10, _graphs=False)
+    assert launches == {"k1": 0, "k2": 0, "k3": 40}
+    assert graph._adam.graph.captures == 1
+    assert _diff(graph, eager) == 0.0
+    opt = graph._opt[0]
+    sched = opt.tdq_schedules[0]
+    assert int(step_count(opt, opt.param_groups[0])) == 40
+    assert float(sched.lr) == float(
+        S.exponential_decay(5e-3, 10, 0.5)(
+            torch.tensor(39, dtype=torch.int32, device="cuda")))
+
+
+def test_ntk_updates_keep_one_capture_and_equal_eager_on_card(card):
+    def make():
+        return _ac_solver("cuda", n_f=1024, minimax=None, sa=False,
+                          Adaptive_type=3)
+
+    graph, eager = make(), make()
+    assert graph.engine == "fused-minimax-cuda"
+    launches = _fit_counted(graph, tf_iter=40, chunk=10)
+    eager.fit(tf_iter=40, chunk=10, _graphs=False)
+    assert launches == {"k1": 0, "k2": 0, "k3": 40}
+    assert len(graph.ntk_updates) == 4
+    assert all(u["device_ms"] > 0 for u in graph.ntk_updates)
+    assert graph._adam.graph.captures == 1
+    assert _diff(graph, eager) == 0.0
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["causal", "remat"])
+def test_causal_ladder_keeps_one_capture_and_equals_eager_on_card(card,
+                                                                  remat):
+    def make():
+        return _ac_solver("cuda", n_f=1024, causal_eps=[1e-6, 1e-5, 10.0],
+                          causal_delta=0.5, causal_bins=8, remat=remat,
+                          minimax=None)
+
+    graph, eager = make(), make()
+    assert graph.engine == "fused-cuda"  # the minimax step declines
+    launches = _fit_counted(graph, tf_iter=40, chunk=10)
+    eager.fit(tf_iter=40, chunk=10, _graphs=False)
+    assert graph.causal_eps == 10.0  # both earlier stages opened
+    assert launches == {"k1": 40 * (2 if remat else 1), "k2": 40, "k3": 0}
+    assert graph._adam.graph.captures == 1
+    assert all("Causal_w_last_0" in r for r in graph.losses)
+    assert _diff(graph, eager) == 0.0
+
+
+def test_remat_first_step_equals_the_plain_step_on_card(card):
+    a = _ac_solver("cuda", n_f=1024, causal_eps=1.0)
+    b = _ac_solver("cuda", n_f=1024, causal_eps=1.0, remat=True)
+
+    def value_grad(s):
+        layers = s.net.layers()
+        total, _ = s.loss_fn(layers, s.lambdas["BCs"],
+                             s.lambdas["residual"], s.X_f)
+        return [total.detach()] + list(torch.autograd.grad(
+            total, [p for pair in layers for p in pair]))
+
+    for x, y in zip(value_grad(a), value_grad(b)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("family", ["periodic", "fourier"])
+def test_family_graphs_equal_eager_and_serve_on_card(card, family,
+                                                     tmp_path):
+    from tensordiffeq_tpu_torch import networks
+    from tensordiffeq_tpu_torch.serving import Surrogate
+
+    def net(domain):  # one seed: the two solvers start from one network
+        gen = networks.init_generator(0)
+        return (networks.periodic_net([2, 32, 32, 1], domain, ["x"],
+                                      n_harmonics=4, generator=gen)
+                if family == "periodic" else
+                networks.fourier_net([2, 32, 32, 1], n_frequencies=16,
+                                     generator=gen))
+
+    def make():
+        return _ac_solver(None, n_f=1024, minimax=None, widths=(32, 32),
+                          network=net)
+
+    graph, eager = make(), make()
+    assert graph.engine == "generic"
+    launches = _fit_counted(graph, tf_iter=20, chunk=10)
+    eager.fit(tf_iter=20, chunk=10, _graphs=False)
+    assert launches == {"k1": 0, "k2": 0, "k3": 0}
+    assert graph._adam.graph.captures == 1
+    assert _diff(graph, eager) == 0.0
+    graph.export_surrogate().save(str(tmp_path / "art"))
+    sur = Surrogate.load(str(tmp_path / "art"), f_model=graph.f_model)
+    X = np.random.RandomState(0).uniform([-1, 0], [1, 1], (500, 2))
+    u = graph.predict(X)[0]
+    got = sur.engine().u(X)
+    assert float(np.abs(got - u).max()) <= 1e-6 * max(1.0, np.abs(u).max())
+
+
+def test_fit_captures_with_an_update_loss_result_alive(card):
+    """``update_loss`` returns values: a result the caller keeps holds no
+    autograd graph, whose gradient accumulators of the default stream
+    would make the Adam step's capture fail."""
+    s = _ac_solver("cuda", n_f=1024, minimax=None)
+    total, comps = s.update_loss()
+    assert not total.requires_grad
+    s.fit(tf_iter=5)
+    assert s._adam.graph.captures == 1
+    assert np.isfinite(float(total))
+    assert np.isfinite(s.losses[-1]["Total Loss"])

@@ -193,8 +193,6 @@ def test_discovery_fused_needs_a_pointwise_residual():
 
 @pytest.mark.parametrize("kw,err", [
     (dict(dist=True), NotPortedError),
-    (dict(lr=lambda step: 1e-3), NotPortedError),
-    (dict(lr_vars=[lambda step: 1e-3]), NotPortedError),
     (dict(network=torch.nn.Linear(2, 1)), NotPortedError),
     (dict(lr_vars=[0.1, 0.1]), ValueError),
     (dict(fused="cuda"), ValueError),

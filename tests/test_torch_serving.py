@@ -551,9 +551,7 @@ def test_net_metadata_matches_jax_and_rebuilds():
     assert type(net) is networks.MLP and net.layer_sizes == tuple(SIZES)
 
 
-@pytest.mark.parametrize("ntype,err", [("FourierMLP", NotPortedError),
-                                       ("PeriodicMLP", NotPortedError),
-                                       ("ResNet", ValueError)])
+@pytest.mark.parametrize("ntype,err", [("ResNet", ValueError)])
 def test_net_from_metadata_rejects(ntype, err):
     meta = {"network_type": ntype, "activation": "tanh",
             "layer_sizes": SIZES, "n_out": 1}
@@ -572,14 +570,14 @@ def test_default_device_is_the_card(trained, tmp_path):
         networks.net_from_metadata(s._arch_meta())
 
 
-@pytest.mark.parametrize("what", ["compute_dtype", "shard", "discovery",
+@pytest.mark.parametrize("what", ["compute_dtype", "shard",
                                   "from_discovery"])
 def test_unported_options_raise(engine, what):
-    """Serving options still left out, and the ``DiscoveryModel`` options
-    its surrogates need that are still left out: an lr schedule
-    (``"discovery"``) and the data-parallel layout (``"from_discovery"``).
-    The discovery contract itself is ported
-    (``tests/test_torch_discovery.py``)."""
+    """Serving options still left out, and the ``DiscoveryModel`` option
+    its surrogates need that is still left out: the data-parallel layout
+    (``"from_discovery"``).  The discovery contract itself is ported
+    (``tests/test_torch_discovery.py``), and so are its lr schedules
+    (``tests/test_torch_schedules.py``)."""
     sur = engine.surrogate
     X = np.zeros((8, 2))
     with pytest.raises(NotPortedError, match="ROADMAP"):
@@ -587,11 +585,6 @@ def test_unported_options_raise(engine, what):
             sur.engine(compute_dtype="bfloat16")
         elif what == "shard":
             sur.engine(shard=True)
-        elif what == "discovery":
-            tdqt.DiscoveryModel(device="cpu").compile(
-                SIZES, lambda u, var, x, t: u(x, t), X, X[:, :1], var=[0.0],
-                lr_vars=lambda step: 1e-3, varnames=["x", "t"],
-                verbose=False)
         else:
             tdqt.DiscoveryModel(device="cpu").compile(
                 SIZES, lambda u, var, x, t: u(x, t), X, X[:, :1], var=[0.0],

@@ -131,9 +131,9 @@ def test_device_defaults_to_cuda():
 def test_unported_options_raise_typed_errors():
     d, b, f, _ = ac_problem(tdqt)
     s = tdqt.CollocationSolverND(verbose=False, device="cpu")
-    for kw in (dict(fused="autotune"), dict(dist=True),
-               dict(fused_dtype="bfloat16"), dict(causal_eps=1.0),
-               dict(remat=True), dict(Adaptive_type=3)):
+    # fused="autotune", causal_eps, remat and Adaptive_type=3 are ported:
+    # tests/test_torch_autotune.py, test_torch_causal.py, test_torch_ntk.py
+    for kw in (dict(dist=True), dict(fused_dtype="bfloat16")):
         with pytest.raises(NotPortedError, match="ROADMAP"):
             s.compile([2, 8, 1], f, d, b, **kw)
     with pytest.raises(ValueError, match="cuda"):
