@@ -125,9 +125,36 @@ Phases (each failure is fatal; exit code != 0, no result line):
    generic engine, exported, saved and loaded with no solver; gates: served
    ``u`` equals ``predict`` within 1e-6, ``u(-1, t) = u(1, t)`` within 1e-6
    (periodic), no K1-K3 launch.
-14. a ``{"kernels": [...]}`` line, the card line again, and the result line.
+14. mixed precision, the bf16-operand flavor of K1, K2 and K3 at full width
+   (AC, N_f = 50,000, 2-128x4-1, the 512x201 grid):
+   (a) K1-bf16 and K2-bf16 (the AC and mixed request sets) and K3-bf16
+   (E = 1 and the coupled E = 2 system) against their plain bf16 flavors
+   (``compute_dtype=torch.bfloat16``); gates: every leaf within the
+   reference's bf16 bands (5e-2 values, 1.5e-1 gradients, scale-relative),
+   and nearer (RMS) the plain bf16 flavor than the plain f32 one; each
+   timed over 20 launches beside its f32 flavor, with its bound (the
+   products at the dense bf16 peak: 1 pass per forward product, 3 per
+   cotangent product) and its route's bound (its TF32 passes per product);
+   (b) ``compile(fused="cuda", fused_dtype="bfloat16")`` on AC-SA: the
+   minimax path ``fit(tf_iter=200)`` then ``fit(newton_iter=100)``, and
+   ``minimax=False`` ``fit(tf_iter=200)``, then 50 graphed against 50
+   eager steps on each path; gates: K3-bf16 once per Adam step and no other
+   kernel in the minimax Adam leg, K1-bf16 and K2-bf16 once per step on
+   the unfused one, in the L-BFGS leg K3-bf16 per evaluation until the
+   retreat and f32 K3 after it (whether and when it retreated is printed),
+   the loss falls and the L-BFGS best is below the Adam leg's last loss,
+   one capture, graph = eager bit for bit; rel-L2 reported beside phase
+   6's; (c) the trained bf16 net exported, loaded with no solver and served
+   by ``InferenceEngine(compute_dtype="bfloat16")`` on phase 10's ladder
+   for ``u``, ``d:x:1``, ``d:x:2`` and ``residual`` at rungs 256, 4,096 and
+   131,072; gates: each rung's graph equals its program run eagerly bit for
+   bit, each kind within 5e-2 of the f32 engine and not equal to it,
+   K1-bf16 once per replay and nothing else; ms per replay beside phase
+   10's.
+15. a ``{"kernels": [...]}`` line (K1, K2, K3 and their bf16 flavors, each
+   held to its plain version), the card line again, and the result line.
 
-Phases 6-9 and 11-13 train through CUDA graphs (``training/graphs.py``): each Adam
+Phases 6-9 and 11-14 train through CUDA graphs (``training/graphs.py``): each Adam
 step, each L-BFGS evaluation and two-loop sweep, and each fixed-step L-BFGS
 iteration is one replayed graph after three eager warm-up steps; the
 kernels' launch counters add each graph's recorded launches at every
@@ -161,8 +188,9 @@ import numpy as np
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12       # FP32 on the CUDA cores, no tensor cores
 PEAK_TF32_FLOPS = 495e12      # TF32 on the tensor cores, dense
+PEAK_BF16_FLOPS = 989e12      # bf16 on the tensor cores, dense
 PEAK_HBM_BYTES = 3.35e12      # HBM3 bytes/s
-TF32_PASSES = 3               # the kernels' products are 3xTF32
+TF32_PASSES = 3               # the f32 flavor's products are 3xTF32
 
 # K1/K2 vs their plain flavor: scale-relative max error (max |kernel - plain|
 # over max |plain|, per table channel / gradient leaf).  The plain side is
@@ -226,6 +254,12 @@ DISC_LR_VARS = (2e-5, 0.01)
 AUTOTUNE_REPS = 3
 CAUSAL_LADDER = [1e-2, 1e-1, 1.0, 10.0]
 CAUSAL_DELTA = 0.5
+# phase 14, mixed precision: the reference's bf16 bands (the JAX solver's
+# cross-check bands under fused_dtype), scale-relative; the serving kinds
+# and the rungs timed
+BF16_VALUE_BAND, BF16_GRAD_BAND = 5e-2, 1.5e-1
+SERVE_BF16_KINDS = ("u", "d:x:1", "d:x:2", "residual")
+SERVE_BF16_BUCKETS = (256, 4096, 131_072)
 # engine u against predict's u: the same forward at another row count
 SERVE_U_BAND = 1e-6
 # u_t - 1e-4 u_xx + 5u^3 - 5u from the derivative kinds against the
@@ -267,13 +301,18 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops: dict, nbytes: float) -> dict:
-    """The least time the card could take for a kernel's work on the route
-    the kernel takes it: the larger of its tensor-core products (3 TF32
-    passes each) over the TF32 peak, the rest of its operations over the
-    FP32 peak, and its bytes over the HBM rate.  ``fp32_ms``: the bound
-    with every operation on the CUDA cores, as before the tensor cores."""
-    t_tc = TF32_PASSES * flops["tensor"] / PEAK_TF32_FLOPS
+def bound_ms(flops: dict, nbytes: float, passes: float = TF32_PASSES,
+             peak: float = PEAK_TF32_FLOPS) -> dict:
+    """The least time the card could take for a kernel's work: the larger
+    of its tensor-core products (``passes`` each at ``peak``: 3 TF32 passes
+    in the f32 flavor; in the bf16 flavor dense-bf16 passes at the bf16
+    peak, 1 per forward product and 3 per cotangent product,
+    ``bf16_bound_passes``), the rest of its operations over the FP32 peak,
+    and its bytes over the HBM rate.  With the bf16 flavor's own TF32
+    passes (``tensor_passes``) it is the bound of the route the kernel
+    takes.  ``fp32_ms``: the bound with every operation on the CUDA cores,
+    as before the tensor cores."""
+    t_tc = passes * flops["tensor"] / peak
     t_simt = flops["simt"] / PEAK_FP32_FLOPS
     t_bytes = nbytes / PEAK_HBM_BYTES
     t_fp32 = (flops["tensor"] + flops["simt"]) / PEAK_FP32_FLOPS
@@ -975,18 +1014,18 @@ def phase_graphs():
     # minibatches: K3 once per batch, each at N = batch_sz
     solver = _fresh_solver()
     sizes = []
-    k3 = mmx.k3_minimax
+    k3 = mmx.FLAVORS[None]  # the f32 K3 the minimax unit launches
 
     def spy(plan, X, w, flat):  # runs at the warm-ups and the capture
         sizes.append(int(X.shape[0]))
         return k3(plan, X, w, flat)
 
-    mmx.k3_minimax = spy
+    mmx.FLAVORS[None] = spy
     ct.reset_launch_counts()
     try:
         t = _timed_fit(solver, tf_iter=BATCH_EPOCHS, batch_sz=BATCH_SZ)
     finally:
-        mmx.k3_minimax = k3
+        mmx.FLAVORS[None] = k3
     launches = _counts()
     n_b = solver._adam.n_batches
     total = np.array([r["Total Loss"] for r in solver.losses])
@@ -2133,11 +2172,373 @@ def _phase_families() -> dict:
     return dict(launches=total)
 
 
+# --------------------------------------------------------------------- #
+# phase 14: mixed precision, the bf16-operand flavor of K1, K2 and K3
+# --------------------------------------------------------------------- #
+def _counts_all() -> dict:
+    """Both flavors' launch counts: ``_counts()`` and the bf16 ones."""
+    from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    return dict(_counts(), k1_bf16=ct.k1_forward_bf16.launches,
+                k2_bf16=ct.k2_backward_bf16.launches,
+                k3_bf16=cm.k3_minimax_bf16.launches)
+
+
+def _rms(a, b) -> float:
+    import torch
+    return float(torch.sqrt(torch.mean((a.double() - b.double()) ** 2)))
+
+
+def _flavor_check(label: str, got: list, want: list, want32: list,
+                  bands: list) -> dict:
+    """A bf16 kernel's outputs against its plain bf16 flavor (each leaf in
+    its band, scale-relative) and nearer that flavor than the plain f32
+    one, by the RMS over every leaf together."""
+    import torch
+    worst_abs, worst_rel, fails = 0.0, 0.0, []
+    for i, (a, b, band) in enumerate(zip(got, want, bands)):
+        if not bool(torch.isfinite(a).all()):
+            fail(f"{label}: non-finite output")
+        ab, rel = scaled_err(a, b)
+        worst_abs = max(worst_abs, ab)
+        worst_rel = max(worst_rel, rel)
+        if not rel <= band:
+            fails.append((i, rel, band))
+    cat = lambda ts: torch.cat([t.reshape(-1) for t in ts])  # noqa: E731
+    r16, r32 = _rms(cat(got), cat(want)), _rms(cat(got), cat(want32))
+    print(f"[{label}] max_abs_err={worst_abs:.3e} scale_rel_err="
+          f"{worst_rel:.3e} (bands {BF16_VALUE_BAND:g} values, "
+          f"{BF16_GRAD_BAND:g} gradients); RMS to the plain bf16 flavor "
+          f"{r16:.3e}, to the plain f32 flavor {r32:.3e}", flush=True)
+    if fails:
+        fail(f"{label} outside the bf16 bands: {fails}")
+    if not r16 < r32:
+        fail(f"{label} is not nearer the plain bf16 flavor than the f32 one")
+    return dict(max_abs_err=worst_abs, scale_rel_err=worst_rel,
+                rms_bf16=r16, rms_f32=r32)
+
+
+def phase_mixed_kernels(dev) -> dict:
+    """Phase 14(a): K1-bf16, K2-bf16 and K3-bf16 against their plain bf16
+    flavors at phases 3-5's shapes, timed beside their f32 flavors."""
+    import torch
+    from tensordiffeq_tpu_torch.networks import neural_net
+    from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    from tensordiffeq_tpu_torch.ops.fused import analyze_f_model
+    from tensordiffeq_tpu_torch.ops.minimax import build_minimax_sq_fn
+    from tensordiffeq_tpu_torch.ops.taylor import taylor_derivatives
+
+    bf16 = torch.bfloat16
+    rng = np.random.RandomState(0)
+    X = torch.as_tensor(np.stack([rng.uniform(-1, 1, N_POINTS),
+                                  rng.uniform(0, 1, N_POINTS)], 1),
+                        dtype=torch.float32, device=dev)
+    layers = neural_net(WIDTHS, device=dev, seed=0).layers()
+    shapes = [tuple(W.shape) for W, _ in layers]
+    flat_layers = [t.detach() for pair in layers for t in pair]
+    params = [t.clone().requires_grad_(True) for t in flat_layers]
+    pairs = list(zip(params[0::2], params[1::2]))
+    before = _counts_all()
+    out = {}
+
+    def timed(label, kernel, ms32, plain_ms, flops, nbytes, passes,
+              route_passes):
+        ms = cuda_ms(kernel)
+        b = bound_ms(flops, nbytes, passes, PEAK_BF16_FLOPS)
+        route = bound_ms(flops, nbytes, route_passes)
+        print(f"[time {label}] {ms:.3f} ms beside the f32 flavor's "
+              f"{ms32:.3f} ms (plain bf16 {plain_ms:.3f} ms); "
+              f"{bound_text(ms, b)}; the route's bound (TF32 passes) "
+              f"{route['ms']:.4f} ms ({100 * route['ms'] / ms:.1f} %)",
+              flush=True)
+        return dict(ms=ms, f32_ms=ms32, plain_ms=plain_ms, bound=b,
+                    route_bound=route)
+
+    for label, reqs in (("ac", AC_REQUESTS), ("mixed", MIXED_REQUESTS)):
+        plan = ct.build_cuda_table_fn(reqs, shapes).plan
+        flat = plan.pack(flat_layers)
+        channels = plan.channels
+        g = torch.as_tensor(rng.randn(plan.C, N_POINTS, 1),
+                            dtype=torch.float32, device=dev)
+        Xg = X.clone().requires_grad_(True)
+
+        def plain(dtype):
+            t = taylor_derivatives(pairs, Xg, set(channels), flat_matmul=True,
+                                   compute_dtype=dtype)
+            table = torch.stack([t[mi] for mi in channels])
+            loss = sum((t[mi] * g[c]).sum() for c, mi in enumerate(channels))
+            return table.detach(), torch.autograd.grad(loss, params + [Xg])
+
+        table = ct.k1_forward_bf16(plan, X, flat)
+        dX, dflat = ct.k2_backward_bf16(plan, X, flat, g)
+        torch.cuda.synchronize()
+        (t16, g16), (t32, g32) = plain(bf16), plain(None)
+        k1 = _flavor_check(f"K1-bf16 {label}", list(table), list(t16),
+                           list(t32), [BF16_VALUE_BAND] * plan.C)
+        mine = plan.unpack(dflat) + [dX]
+        k2 = _flavor_check(f"K2-bf16 {label}", mine, list(g16), list(g32),
+                           [BF16_GRAD_BAND] * len(mine))
+        flops, nbytes = ct.flop_count(plan, N_POINTS), \
+            ct.byte_count(plan, N_POINTS)
+        passes, route = ct.bf16_bound_passes(plan), \
+            ct.tensor_passes(plan, bf16)
+        with torch.no_grad():
+            p1 = cuda_ms(lambda: taylor_derivatives(
+                pairs, X, set(channels), flat_matmul=True,
+                compute_dtype=bf16), reps=5)
+        k1.update(timed(f"K1-bf16 {label}",
+                        lambda: ct.k1_forward_bf16(plan, X, flat),
+                        cuda_ms(lambda: ct.k1_forward(plan, X, flat)), p1,
+                        flops["k1"], nbytes["k1"], passes["k1"],
+                        route["k1"]))
+        k2.update(timed(f"K2-bf16 {label}",
+                        lambda: ct.k2_backward_bf16(plan, X, flat, g),
+                        cuda_ms(lambda: ct.k2_backward(plan, X, flat, g)),
+                        cuda_ms(lambda: plain(bf16), reps=5),
+                        flops["k2"], nbytes["k2"], passes["k2"],
+                        route["k2"]))
+        out[label] = dict(k1=k1, k2=k2)
+
+    k3 = {}
+    for label, f_model, widths in (("ac", _ac_residual, WIDTHS),
+                                   ("system", _coupled_residual,
+                                    WIDTHS[:-1] + [2])):
+        n_out = widths[-1]
+        reqs = analyze_f_model(f_model, ("x", "t"), n_out)
+        layers = neural_net(widths, device=dev, seed=0).layers()
+        kw = dict(device=dev)
+        sq32 = build_minimax_sq_fn(f_model, ("x", "t"), n_out, reqs,
+                                   [tuple(W.shape) for W, _ in layers], **kw)
+        sq = build_minimax_sq_fn(f_model, ("x", "t"), n_out, reqs,
+                                 sq32.plan.layer_shapes, compute_dtype=bf16,
+                                 **kw)
+        plan = sq.plan
+        w = torch.as_tensor(rng.rand(N_POINTS, plan.E) ** 2,
+                            dtype=torch.float32, device=dev)
+        fl = [a.detach() if a.ndim == 2 else a.detach().reshape(1, -1)
+              for pair in layers for a in pair]
+        flat = plan.pack(fl)
+
+        def leaves(res):
+            v, d, gw, gX = res
+            return [v.reshape(1)] + [t.reshape(-1) for t in d] + [gw, gX]
+
+        got = cm.k3_minimax_bf16(plan, X, w, flat)
+        torch.cuda.synchronize()
+        got = leaves((got[0], plan.unpack(got[1]), got[2], got[3]))
+        bands = [BF16_VALUE_BAND] + [BF16_GRAD_BAND] * (len(got) - 3) \
+            + [BF16_VALUE_BAND, BF16_GRAD_BAND]
+        res = _flavor_check(f"K3-bf16 {label}", got,
+                            leaves(sq.plain(fl, w, X)),
+                            leaves(sq32.plain(fl, w, X)), bands)
+        res.update(timed(f"K3-bf16 {label}",
+                         lambda: cm.k3_minimax_bf16(plan, X, w, flat),
+                         cuda_ms(lambda: cm.k3_minimax(plan, X, w, flat)),
+                         cuda_ms(lambda: sq.plain(fl, w, X), reps=5),
+                         cm.flop_count(plan, N_POINTS)["k3"],
+                         cm.byte_count(plan, N_POINTS)["k3"],
+                         cm.bf16_bound_passes(plan),
+                         cm.tensor_passes(plan, bf16)))
+        k3[label] = res
+    # comparison launches are not the main path's: restore the counts
+    for fn, key in ((ct.k1_forward, "k1"), (ct.k2_backward, "k2"),
+                    (cm.k3_minimax, "k3"), (ct.k1_forward_bf16, "k1_bf16"),
+                    (ct.k2_backward_bf16, "k2_bf16"),
+                    (cm.k3_minimax_bf16, "k3_bf16")):
+        fn.launches = before[key]
+    return {"k1_bf16": out["ac"]["k1"], "k2_bf16": out["ac"]["k2"],
+            "k3_bf16": k3["ac"]}
+
+
+def _bf16_solver(minimax, seed: int = 0):
+    """AC-SA at full size on ``fused="cuda", fused_dtype="bfloat16"``."""
+    import tensordiffeq_tpu_torch as tdqt
+    domain, bcs, f_model, kw = ac_sa_problem()
+    s = tdqt.CollocationSolverND(verbose=False, seed=seed)
+    s.compile(WIDTHS, f_model, domain, bcs, fused="cuda",
+              fused_dtype="bfloat16", minimax=minimax, **kw)
+    return s
+
+
+def phase_mixed_training(paths: dict) -> dict:
+    """Phase 14(b): ``compile(fused="cuda", fused_dtype="bfloat16")`` on
+    AC-SA, the minimax path (200 Adam steps, then 100 L-BFGS iterations)
+    and the unfused one (200 steps), the counts set to 0 just before each
+    leg and read just after; then 50 graphed against 50 eager steps on each
+    path."""
+    import torch
+    import tensordiffeq_tpu_torch as tdqt
+    from tensordiffeq_tpu_torch.exact import allen_cahn_solution
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+
+    x, t, usol = allen_cahn_solution()
+    X_star = np.stack(np.meshgrid(x, t, indexing="ij"), -1).reshape(-1, 2)
+    out = {}
+    for tag, minimax in (("minimax", None), ("unfused", False)):
+        ct.reset_launch_counts()
+        solver = _bf16_solver(minimax)
+        at_compile = _counts_all()
+        want_engine = ("fused-minimax-cuda" if minimax is None
+                       else "fused-cuda")
+        if solver.engine != want_engine or solver.fused_dtype is None:
+            fail(f"bf16 {tag}: engine {solver.engine}, expected "
+                 f"{want_engine} ({solver._minimax_fail_reason!r})")
+        ct.reset_launch_counts()
+        t_fit = _timed_fit(solver, tf_iter=TF_ITER)
+        adam = _counts_all()
+        total = np.array([r["Total Loss"] for r in solver.losses])
+        ms_step = 1e3 * t_fit / TF_ITER
+        want = (dict(k3_bf16=TF_ITER) if minimax is None else
+                dict(k1_bf16=TF_ITER, k2_bf16=TF_ITER))
+        print(f"[bf16 {tag}] compile launches {at_compile}; {TF_ITER} Adam "
+              f"steps {ms_step:.3f} ms/step (f32 phase "
+              f"{6 if minimax is None else 7}: "
+              f"{paths[tag]['ms_step']:.3f}); launches {adam}; loss "
+              f"{total[0]:.6e} -> {total[-1]:.6e}; captures "
+              f"{solver._adam.graph.captures}", flush=True)
+        if adam != dict({k: 0 for k in adam}, **want):
+            fail(f"bf16 {tag}: the Adam leg launched {adam}, not {want}")
+        if not (np.all(np.isfinite(total)) and total[-1] < total[0]):
+            fail(f"bf16 {tag}: the loss did not fall")
+        if solver._adam.graph.captures != 1:
+            fail(f"bf16 {tag}: {solver._adam.graph.captures} captures")
+        res = dict(launches=adam, ms_step=ms_step, solver=solver)
+        if minimax is None:
+            adam_last = total[-1]
+            e0, _ = _lbfgs_counts()
+            ct.reset_launch_counts()
+            n0 = len(solver.losses)
+            t_leg = _timed_fit(solver, newton_iter=LBFGS_ITER)
+            leg = _counts_all()
+            evals = _lbfgs_counts()[0] - e0
+            iters = len(solver.losses) - n0
+            best = solver.min_loss["l-bfgs"]
+            where = ("no retreat" if solver.lbfgs_retreat is None else
+                     f"retreated to f32 after iteration "
+                     f"{solver.lbfgs_retreat}")
+            ms_iter = 1e3 * t_leg / max(iters, 1)
+            print(f"[bf16 lbfgs] {iters} iterations {ms_iter:.3f} "
+                  f"ms/iteration (f32 phase 8: "
+                  f"{paths['lbfgs']['ms_iter']:.3f}); {evals} evaluations; "
+                  f"launches {leg}; {where}; loss {adam_last:.6e} (last "
+                  f"Adam step) -> best {best:.6e}", flush=True)
+            if leg["k3_bf16"] + leg["k3"] != evals or leg["k3_bf16"] == 0:
+                fail(f"bf16 lbfgs: {leg} for {evals} evaluations")
+            if (solver.lbfgs_retreat is None) != (leg["k3"] == 0):
+                fail(f"bf16 lbfgs: f32 K3 launched {leg['k3']} times, "
+                     f"retreat {solver.lbfgs_retreat}")
+            if any(leg[k] for k in ("k1", "k2", "k1_bf16", "k2_bf16")):
+                fail(f"bf16 lbfgs: K1/K2 ran: {leg}")
+            if not (np.isfinite(best) and best < adam_last):
+                fail(f"bf16 lbfgs: best {best} not below {adam_last}")
+            res.update(lbfgs_launches=leg, ms_iter=ms_iter,
+                       retreat=solver.lbfgs_retreat)
+        # as phases 7 (the last iterate) and 8 (the best, after L-BFGS)
+        # measure it
+        u_pred, _ = solver.predict(X_star, best_model=minimax is None)
+        res["rel_l2"] = tdqt.find_L2_error(u_pred, usol.reshape(-1, 1))
+        ref, ph = ((paths["lbfgs"]["rel_l2"], 8) if minimax is None
+                   else (paths["unfused"]["rel_l2"], 7))
+        print(f"[bf16 {tag}] rel-L2 vs ETDRK4 {res['rel_l2']:.4f} (f32 "
+              f"phase {ph}: {ref:.4f}; reported, not gated)", flush=True)
+        out[tag] = res
+
+    for tag, minimax in (("minimax", None), ("unfused", False)):
+        graph, eager = _bf16_solver(minimax), _bf16_solver(minimax)
+        t_g = _timed_fit(graph, tf_iter=REFEREE_STEPS)
+        t_e = _timed_fit(eager, tf_iter=REFEREE_STEPS, _graphs=False)
+        diff = _state_diff(graph, eager)
+        print(f"[bf16 graph {tag}] {REFEREE_STEPS} steps each way: graphs "
+              f"{1e3 * t_g / REFEREE_STEPS:.3f} ms/step, eager "
+              f"{1e3 * t_e / REFEREE_STEPS:.3f} ms/step; graph vs eager: "
+              f"{'bit-identical' if diff == 0 else diff}; captures "
+              f"{graph._adam.graph.captures}/{eager._adam.graph.captures}",
+              flush=True)
+        if diff != 0 or graph._adam.graph.captures != 1 \
+                or eager._adam.graph.captures != 0:
+            fail(f"bf16 {tag}: graph vs eager {diff}")
+    return out
+
+
+def phase_mixed_serve(solver, serve: dict, card: str) -> dict:
+    """Phase 14(c): the trained bf16 net exported, loaded with no solver
+    and served by ``InferenceEngine(compute_dtype="bfloat16")`` on phase
+    10's ladder; the counts set to 0 just before the timed queries (every
+    rung already captured) and read just after."""
+    import tempfile
+
+    import torch
+    from tensordiffeq_tpu_torch.exact import allen_cahn_solution
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    from tensordiffeq_tpu_torch.serving import Surrogate
+
+    x, t, _ = allen_cahn_solution()
+    X_grid = np.ascontiguousarray(np.stack(
+        np.meshgrid(x, t, indexing="ij"), -1).reshape(-1, 2), np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        solver.export_surrogate().save(f"{tmp}/ac")
+        sur = Surrogate.load(f"{tmp}/ac", f_model=_ac_residual)
+    eng = sur.engine(compute_dtype="bfloat16", **SERVE_LADDER)
+    f32 = sur.engine(**SERVE_LADDER)
+    rng = np.random.default_rng(1)
+    sets = {b: (X_grid if b == SERVE_LADDER["max_bucket"] else np.stack(
+        [rng.uniform(-1, 1, b - 7), rng.uniform(0, 1, b - 7)],
+        1).astype(np.float32)) for b in SERVE_BF16_BUCKETS}
+    errs, mismatched = {}, []
+    for spec in SERVE_BF16_KINDS:
+        op, op32 = eng.op_for(spec), f32.op_for(spec)
+        for b, Xq in sets.items():
+            if eng.bucket_for(Xq.shape[0]) != b:
+                fail(f"{Xq.shape[0]} rows do not route to rung {b}")
+            got = op(Xq)
+            if not _bit_equal(got, _serve_eager(eng, spec, Xq, b)):
+                mismatched.append(f"{spec} b={b}")
+            if b == SERVE_LADDER["max_bucket"]:
+                errs[spec] = scaled_err(torch.from_numpy(got),
+                                        torch.from_numpy(op32(Xq)))[1]
+    ct.reset_launch_counts()
+    n_replays = 0
+    for spec in SERVE_BF16_KINDS:
+        for Xq in sets.values():
+            eng.op_for(spec)(Xq)
+            n_replays += 1
+    launches = _counts_all()
+    print(f"[serve bf16] graph vs eager on {len(sets)} rungs x "
+          f"{len(SERVE_BF16_KINDS)} kinds: "
+          f"{'bit-identical' if not mismatched else mismatched}; against "
+          f"the f32 engine on the grid: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (band {BF16_VALUE_BAND:g}); {n_replays} replays, launches "
+          f"{launches}; quarantined {eng.quarantined_buckets()}", flush=True)
+    if mismatched:
+        fail(f"bf16 rungs differ from their eager programs: {mismatched}")
+    if not all(0 < v <= BF16_VALUE_BAND for v in errs.values()):
+        fail(f"the bf16 engine is not within its band of the f32 one, or "
+             f"equal to it: {errs}")
+    if launches != dict({k: 0 for k in launches}, k1_bf16=n_replays):
+        fail(f"the bf16 engine launched {launches}, not K1-bf16 x "
+             f"{n_replays}")
+    if eng.quarantined_buckets():
+        fail(f"bf16 rungs quarantined: {eng.quarantined_buckets()}")
+    f32_ms = {(r["kind"], r["bucket"]): r["ms"] for r in serve["rungs"]}
+    for spec in SERVE_BF16_KINDS:
+        for b in SERVE_BF16_BUCKETS:
+            rung = eng._rungs[(eng.kind_key(spec), b)]
+            ms = cuda_ms(rung.graph.graph.replay)
+            ref = f32_ms.get((spec, b))
+            print(f"[serve bf16 {spec} b={b}] {ms:.4f} ms/replay (f32 "
+                  f"phase 10: {'not touched' if ref is None else f'{ref:.4f}'}"
+                  f" ms) ({card})", flush=True)
+    return dict(launches=dict(launches))
+
+
 def kernels_line(meas: dict, paths: dict) -> str:
     """``launches`` sums a kernel's launches over the runs of every path
     (``launches_by_path`` splits them: minimax, unfused, lbfgs, pool,
-    ascent, discovery, and phase 13's autotune, schedules, ntk, causal,
-    remat, families)."""
+    ascent, discovery, phase 13's autotune, schedules, ntk, causal, remat,
+    families, and phase 14's minimax-bf16, lbfgs-bf16, unfused-bf16,
+    serve-bf16)."""
     entries = []
     for key, name, source, replaces in (
             ("k1", "taylor_table_fwd (K1)", "csrc/taylor_table.cu",
@@ -2145,9 +2546,15 @@ def kernels_line(meas: dict, paths: dict) -> str:
             ("k2", "taylor_table_bwd (K2)", "csrc/taylor_table.cu",
              "pallas_taylor.py:171"),
             ("k3", "minimax_step (K3)", "csrc/minimax_step.cu",
-             "pallas_minimax.py:259")):
+             "pallas_minimax.py:259"),
+            ("k1_bf16", "taylor_table_fwd bf16 (K1-bf16)",
+             "csrc/taylor_table.cu", "pallas_taylor.py:154"),
+            ("k2_bf16", "taylor_table_bwd bf16 (K2-bf16)",
+             "csrc/taylor_table.cu", "pallas_taylor.py:171"),
+            ("k3_bf16", "minimax_step bf16 (K3-bf16)",
+             "csrc/minimax_step.cu", "pallas_minimax.py:259")):
         m = meas[key]
-        by_path = {tag: int(res["launches"][key])
+        by_path = {tag: int(res["launches"].get(key, 0))
                    for tag, res in paths.items()}
         entries.append({
             "name": name, "route": "cuda",
@@ -2199,12 +2606,19 @@ def main():
           f"unfused {paths['unfused']['ms_step']:.3f}", flush=True)
     paths["lbfgs"] = phase_refine(paths)
     phase_graphs()
-    phase_serve(paths["minimax"]["solver"], card)
+    serve = phase_serve(paths["minimax"]["solver"], card)
     resample = phase_resample(dev)
     paths["pool"] = resample["pool"]
     paths["ascent"] = resample["ascent"]
     paths["discovery"] = phase_discovery()
     paths.update(phase_options(paths["minimax"]["ms_step"]))
+    meas.update(phase_mixed_kernels(dev))
+    mixed = phase_mixed_training(paths)
+    paths["minimax-bf16"] = mixed["minimax"]
+    paths["lbfgs-bf16"] = dict(launches=mixed["minimax"]["lbfgs_launches"])
+    paths["unfused-bf16"] = mixed["unfused"]
+    paths["serve-bf16"] = phase_mixed_serve(mixed["minimax"]["solver"],
+                                            serve, card)
     if args.profile:
         phase_ab(paths)
         # in turns, so a slower stretch of the host does not land on one

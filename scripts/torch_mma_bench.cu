@@ -94,13 +94,13 @@ tile_products(const float* __restrict__ prm, float* __restrict__ part,
       float* in = (l & 1) ? b1 : b0;
       float* out = (l & 1) ? b0 : b1;
       if (which & 16) {
-        product_fwd(in, ld, R, 128, W, 128, W + 128 * 128, 4, out, wst, true);
+        product_fwd<false>(in, ld, R, 128, W, 128, W + 128 * 128, 4, out, wst, true);
         continue;
       }
       const bool how = prefetch_fwd(W, 128, 128, wst);
       __syncthreads();  // the kernels' activation pass ends in one
       if (which & 1) {
-        product_fwd(in, ld, R, 128, W, 128, W + 128 * 128, 4, out, wst, how);
+        product_fwd<false>(in, ld, R, 128, W, 128, W + 128 * 128, 4, out, wst, how);
       } else {
         cp_async_wait_all();
         __syncthreads();
@@ -109,11 +109,11 @@ tile_products(const float* __restrict__ prm, float* __restrict__ part,
     for (int l = 2; l >= 0 && (which & 6); --l) {
       const float* W = prm + l * (128 * 128 + 128);
       if (which & 4)
-        product_dw(b0, b2, ld, R, 128, 128, mypart + l * 128 * 128, first);
+        product_dw<false>(b0, b2, ld, R, 128, 128, mypart + l * 128 * 128, first);
       if (which & 2) {
         const bool how = prefetch_dh(W, 128, 128, wst);
         __syncthreads();
-        product_dh(b2, ld, R, 128, W, 128, b1, wst, how);
+        product_dh<false>(b2, ld, R, 128, W, 128, b1, wst, how);
       }
     }
     if (which & 32) {
@@ -126,7 +126,7 @@ tile_products(const float* __restrict__ prm, float* __restrict__ part,
       for (int l = 0; l < 3; ++l) {
         float acc[WFM][WFN][4];
         zero_acc(acc);
-        mma_run(acc, OpFwd(b0 + (wm0 + g) * ld + 2 * t, ld,
+        mma_run<false, false>(acc, OpFwd(b0 + (wm0 + g) * ld + 2 * t, ld,
                            wst + 2 * t * LDB_ROWS + wn0 + g),
                 16, nfm, WFN);
         for (int mf = 0; mf < WFM; ++mf)
@@ -194,7 +194,7 @@ static __device__ float wide_chunks(const float* A, int ld, int R,
         __syncthreads();
       }
       if (nfm > 0)
-        mma_run(acc, OpFwd(A + (wm0 + g) * ld + c * CH + 2 * t, ld,
+        mma_run<false, false>(acc, OpFwd(A + (wm0 + g) * ld + c * CH + 2 * t, ld,
                            B + 2 * t * LDB_ROWS + wn0 + g),
                 CH / 8, nfm, WFN);
       if (!ring) __syncthreads();
@@ -223,7 +223,7 @@ wide_forward(const float* __restrict__ W, float* __restrict__ out_g,
     if (how == 0) {
       const bool issued = prefetch_fwd(W, WIDE, WIDE, wst);
       __syncthreads();
-      product_fwd(in, ld, R, WIDE, W, WIDE, nullptr, 1, out, wst, issued);
+      product_fwd<false>(in, ld, R, WIDE, W, WIDE, nullptr, 1, out, wst, issued);
     } else {
       sink += wide_chunks(in, ld, R, W, wst, how == 1);
     }

@@ -56,6 +56,12 @@
 // one thread per point.  wgmma with TMA, the tensor cores' full rate, is
 // later work.
 //
+// The bf16-operand flavor (BF = true; the Pallas kernel under
+// compute_dtype=bfloat16) rounds every product's operands to bf16 as
+// taylor_common.cuh says, the epilogue staying f32: one TF32 pass per
+// forward product, two per dW/dH, and the network's share of gX and dW
+// rounded to bf16 (the tape's direct adjoints of X are not).
+//
 // Differences from the Pallas kernel:
 //   * Pallas accumulated the value and dW/db over a sequential grid
 //     (pl.when(i == 0) then +=).  Here each block owns one partial slot of
@@ -228,6 +234,9 @@ static __device__ void epilogue(float* T, int ld, const float* __restrict__ X,
 
 // K3: each block owns partial slot blockIdx.x (P_total + 1 values) and a
 // workspace slice, and walks tiles blockIdx.x, blockIdx.x + gridDim.x, ...
+// BF: the bf16-operand flavor (taylor_common.cuh); the epilogue is f32 in
+// both.
+template <bool BF>
 __global__ void __launch_bounds__(NTHREADS)
 minimax_step_kernel(const float* __restrict__ X, const float* __restrict__ w,
                     const float* __restrict__ prm, float* __restrict__ gw,
@@ -252,26 +261,27 @@ minimax_step_kernel(const float* __restrict__ X, const float* __restrict__ w,
     const bool first = (tile == blockIdx.x);
     const int p0 = tile * TP;
     bool head_issued = false;
-    float* cur = stage_forward(X, prm, N, p0, TP, net, s, myws, buf0, buf1,
-                               wst, &head_issued);
+    float* cur = stage_forward<BF>(X, prm, N, p0, TP, net, s, myws, buf0,
+                                   buf1, wst, &head_issued);
     float* oth = (cur == buf0) ? buf1 : buf0;
     // the reverse sweep's first staged layer, behind the head and epilogue
     ws_load(oth, myws + (size_t)(L - 2) * R * ld, R, ld, mbar);
     // the head's channels: the table rows of this tile
     float* T = buf2;
-    product_fwd(cur, ld, R, net.w_in[lh], prm + net.offW[lh], net.n_out,
-                prm + net.offb[lh], C, T, wst, head_issued);
+    product_fwd<BF>(cur, ld, R, net.w_in[lh], prm + net.offW[lh], net.n_out,
+                    prm + net.offb[lh], C, T, wst, head_issued);
     epilogue(T, ld, X, w, gw, gX, N, p0, TP, C, net.n_out, net.d, tp, wst,
              mypart + net.P_total, first);
-    reverse_sweep(X, prm, gX, true, mypart, myws, N, p0, TP, first, net, s,
-                  cur, oth, T, wst, mbar, phase);
+    reverse_sweep<BF>(X, prm, gX, true, mypart, myws, N, p0, TP, first, net,
+                      s, cur, oth, T, wst, mbar, phase);
   }
 }
 
 // ------------------------------------------------------------------------
 // C interface.  tape_h: [n_in, n_ops, n_eq, src[MAXTIN], op[MAXTOPS*3],
 // out[MAXEQ]];  cst_h: [MAXTCONST] floats.  out: P_total + 1 floats (the
-// parameter cotangents, then the value).
+// parameter cotangents, then the value).  bf16 != 0 launches the
+// bf16-operand flavor.
 
 static Tape unpack_tape(const int* h, const float* cst) {
   Tape t;
@@ -292,30 +302,41 @@ extern "C" int tdq_minimax_limits(int* out) {
   return 0;
 }
 
+template <bool BF>
+static int minimax_step(const float* X, const float* w, const float* prm,
+                        float* gw, float* gX, float* part, float* ws,
+                        float* out, int N, int TP, int G, const Net& net,
+                        const Sched& s, const Tape& tp, cudaStream_t st) {
+  const size_t smem = smem_bytes(3, TP * s.C, net.ld);
+  cudaError_t e = cudaFuncSetAttribute(
+      minimax_step_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_tiles = (N + TP - 1) / TP;
+  minimax_step_kernel<BF><<<G, NTHREADS, smem, st>>>(
+      X, w, prm, gw, gX, part, ws, N, TP, n_tiles, net, s, tp);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int P = net.P_total + 1;
+  reduce_partials<BF><<<(P + 255) / 256, 256, 0, st>>>(part, out, G, P, net);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int tdq_minimax_step(const float* X, const float* w,
                                 const float* prm, float* gw, float* gX,
                                 float* part, float* ws, float* out, int N,
                                 int TP, int G, const int* net_h,
                                 const int* sched_h, const int* tape_h,
-                                const float* cst_h, void* stream) {
+                                const float* cst_h, int bf16, void* stream) {
   const Net net = unpack_net(net_h);
   const Sched s = unpack_sched(sched_h);
   // layer 0 takes its operands into the weight stage
   if (!layer0_fits(net.d, net.w_out[0], TP))
     return (int)cudaErrorInvalidValue;
   const Tape tp = unpack_tape(tape_h, cst_h);
-  const size_t smem = smem_bytes(3, TP * s.C, net.ld);
-  cudaError_t e = cudaFuncSetAttribute(
-      minimax_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int n_tiles = (N + TP - 1) / TP;
   cudaStream_t st = (cudaStream_t)stream;
-  minimax_step_kernel<<<G, NTHREADS, smem, st>>>(X, w, prm, gw, gX, part, ws,
-                                                 N, TP, n_tiles, net, s, tp);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int P = net.P_total + 1;
-  reduce_partials<<<(P + 255) / 256, 256, 0, st>>>(part, out, G, P);
-  return (int)cudaGetLastError();
+  return bf16 ? minimax_step<true>(X, w, prm, gw, gX, part, ws, out, N, TP, G,
+                                   net, s, tp, st)
+              : minimax_step<false>(X, w, prm, gw, gX, part, ws, out, N, TP,
+                                    G, net, s, tp, st);
 }

@@ -10,6 +10,19 @@
 // of the one shared library carries its own copy and nothing collides at
 // link time.
 //
+// Two flavors, a template parameter BF of every routine from the products
+// up to the kernels: BF = false is the float32 flavor above; BF = true is
+// the mixed-precision flavor of the JAX package's
+// taylor_derivatives(compute_dtype=bfloat16), rounding where its jaxpr
+// rounds and nowhere else.  Every layer's product (layer 0 and the head
+// included) takes its input channels and W rounded to bf16 (to nearest
+// even) and sums in f32; biases, the tanh chain and the Faa di Bruno lines
+// stay f32.  The backward products take the f32 cotangent against the
+// rounded operand; each layer's input cotangent (dH, and dX at layer 0) is
+// rounded to bf16 per element, and each dW once, after reduce_partials'
+// slot-ordered sum over all points (db is not rounded).  See "bf16
+// operands" in the tensor-core section for how the products take it.
+//
 // Shared-memory layout of a block: n_buf wavefront buffers of Rp x ld floats
 // (Rp = TP*C rounded up to 16 rows for the m16 fragments; the pad rows are
 // zeroed once and never written, so they add nothing to a product over
@@ -21,6 +34,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -199,6 +213,28 @@ static __device__ __forceinline__ void split_tf32(float x, unsigned& hi,
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
+// bf16 operands.  x rounded to bf16 (to nearest even, as XLA's
+// convert_element_type) has 8 significant bits, so its f32 bit pattern is
+// exact in TF32, and the product of two such values is exact in f32.  So
+// one TF32 pass over two rounded operands is the bf16 x bf16 -> f32
+// product, and a rounded operand against an f32 one (a cotangent) takes two
+// passes, the f32 side split as above: lo*b + hi*b.  mma_steps' RA and RB
+// say which operand is rounded (true) or split (false); the f32 flavor
+// splits both (three passes).
+static __device__ __forceinline__ unsigned bf16_bits(float x) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(x)) << 16;
+}
+
+static __device__ __forceinline__ float bf16r(float x) {
+  return __uint_as_float(bf16_bits(x));
+}
+
+// x as the BF flavor's product operand: rounded to bf16, or as it is
+template <bool BF>
+static __device__ __forceinline__ float opnd(float x) {
+  return BF ? bf16r(x) : x;
+}
+
 // d += a*b on the tensor cores (not volatile: the compiler may interleave
 // independent products; each accumulator's order is fixed by its data flow)
 static __device__ __forceinline__ void mma_tf32(float* d, const unsigned* a,
@@ -310,7 +346,7 @@ static __device__ __forceinline__ void frag_load(const Op& op, int k0,
 // warp's fragments: NFM*WFN independent products between dependent ones.
 // (Holding two steps' sums, so that a step's sum is added behind the next
 // step's passes, is faster alone but spills inside K2/K3's body.)
-template <int NFM, bool FULL, class Op>
+template <int NFM, bool FULL, bool RA, bool RB, class Op>
 static __device__ __forceinline__ void mma_steps(float (&acc)[WFM][WFN][4],
                                                  const Op& op, int steps,
                                                  int nfm, int nfn) {
@@ -322,27 +358,44 @@ static __device__ __forceinline__ void mma_steps(float (&acc)[WFM][WFN][4],
 #pragma unroll
     for (int mf = 0; mf < NFM; ++mf)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) split_tf32(x[mf][q], ah[mf][q], al[mf][q]);
+      for (int q = 0; q < 4; ++q) {
+        if constexpr (RA) ah[mf][q] = bf16_bits(x[mf][q]);
+        else split_tf32(x[mf][q], ah[mf][q], al[mf][q]);
+      }
 #pragma unroll
-    for (int nf = 0; nf < WFN; ++nf) {
-      split_tf32(y[nf][0], bh[nf][0], bl[nf][0]);
-      split_tf32(y[nf][1], bh[nf][1], bl[nf][1]);
-    }
+    for (int nf = 0; nf < WFN; ++nf)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if constexpr (RB) bh[nf][q] = bf16_bits(y[nf][q]);
+        else split_tf32(y[nf][q], bh[nf][q], bl[nf][q]);
+      }
     if (s + 1 < steps) frag_load<NFM, FULL>(op, 8 * (s + 1), nfm, nfn, x, y);
     float st[NFM][WFN][4];
+    // the passes in the f32 flavor's order: lo*hi', hi*lo', hi*hi' (a
+    // rounded operand has no lo part)
+    if constexpr (!RA) {
+#pragma unroll
+      for (int mf = 0; mf < NFM; ++mf)
+#pragma unroll
+        for (int nf = 0; nf < WFN; ++nf)
+          mma_tf32_first(st[mf][nf], al[mf], bh[nf]);
+    }
+    if constexpr (!RB) {
+#pragma unroll
+      for (int mf = 0; mf < NFM; ++mf)
+#pragma unroll
+        for (int nf = 0; nf < WFN; ++nf) {
+          if constexpr (RA) mma_tf32_first(st[mf][nf], ah[mf], bl[nf]);
+          else mma_tf32(st[mf][nf], ah[mf], bl[nf]);
+        }
+    }
 #pragma unroll
     for (int mf = 0; mf < NFM; ++mf)
 #pragma unroll
-      for (int nf = 0; nf < WFN; ++nf)
-        mma_tf32_first(st[mf][nf], al[mf], bh[nf]);
-#pragma unroll
-    for (int mf = 0; mf < NFM; ++mf)
-#pragma unroll
-      for (int nf = 0; nf < WFN; ++nf) mma_tf32(st[mf][nf], ah[mf], bl[nf]);
-#pragma unroll
-    for (int mf = 0; mf < NFM; ++mf)
-#pragma unroll
-      for (int nf = 0; nf < WFN; ++nf) mma_tf32(st[mf][nf], ah[mf], bh[nf]);
+      for (int nf = 0; nf < WFN; ++nf) {
+        if constexpr (RA && RB) mma_tf32_first(st[mf][nf], ah[mf], bh[nf]);
+        else mma_tf32(st[mf][nf], ah[mf], bh[nf]);
+      }
 #pragma unroll
     for (int mf = 0; mf < NFM; ++mf)
 #pragma unroll
@@ -354,13 +407,16 @@ static __device__ __forceinline__ void mma_steps(float (&acc)[WFM][WFN][4],
 
 // The warp's fragments as the tile gives them: whole 4 x 4 or 3 x 4 (the
 // slice's 128- and 96-row tiles) take a loop with no guards.
-template <class Op>
+template <bool RA, bool RB, class Op>
 static __device__ __forceinline__ void mma_run(float (&acc)[WFM][WFN][4],
                                                const Op& op, int steps,
                                                int nfm, int nfn) {
-  if (nfn == WFN && nfm == 4) mma_steps<4, true>(acc, op, steps, nfm, nfn);
-  else if (nfn == WFN && nfm == 3) mma_steps<3, true>(acc, op, steps, nfm, nfn);
-  else mma_steps<WFM, false>(acc, op, steps, nfm, nfn);
+  if (nfn == WFN && nfm == 4)
+    mma_steps<4, true, RA, RB>(acc, op, steps, nfm, nfn);
+  else if (nfn == WFN && nfm == 3)
+    mma_steps<3, true, RA, RB>(acc, op, steps, nfm, nfn);
+  else
+    mma_steps<WFM, false, RA, RB>(acc, op, steps, nfm, nfn);
 }
 
 static __device__ __forceinline__ int clamp_frags(int v) {
@@ -425,8 +481,10 @@ static __device__ __forceinline__ void stage_load(const float* __restrict__ W,
 // columns K .. pad8(K)-1, which the last k8 step reads against the stage's
 // zero rows, are zeroed first, whatever the buffer held there (a staged
 // slice's pad, a wider layer's values).  The tile's row fragments split
-// between the two warp rows as evenly as they go.
-template <bool COLS>
+// between the two warp rows as evenly as they go.  BF: the forward takes
+// both operands rounded to bf16; dH takes W rounded against the f32 dP and
+// is itself rounded to bf16 as it is stored.
+template <bool COLS, bool BF>
 static __device__ __forceinline__ void mma_w(float* A, int ld, int R, int K,
                                              const float* __restrict__ W,
                                              int Nn,
@@ -460,11 +518,13 @@ static __device__ __forceinline__ void mma_w(float* A, int ld, int R, int K,
       if (nfm > 0 && nfn > 0) {
         const float* Ap = A + (wm0 + g) * ld + c * KT + 2 * t;
         if constexpr (COLS)
-          mma_run(acc, OpDh(Ap, ld, wst + (wn0 + g) * LDB_COLS + 2 * t),
-                  steps, nfm, nfn);
+          mma_run<false, BF>(
+              acc, OpDh(Ap, ld, wst + (wn0 + g) * LDB_COLS + 2 * t), steps,
+              nfm, nfn);
         else
-          mma_run(acc, OpFwd(Ap, ld, wst + 2 * t * LDB_ROWS + wn0 + g),
-                  steps, nfm, nfn);
+          mma_run<BF, BF>(
+              acc, OpFwd(Ap, ld, wst + 2 * t * LDB_ROWS + wn0 + g), steps,
+              nfm, nfn);
       }
       if (c + 1 < nK || n0 + BLK_N < Nn)
         __syncthreads();  // every warp is done with the stage
@@ -484,6 +544,7 @@ static __device__ __forceinline__ void mma_w(float* A, int ld, int R, int K,
           const int n = n0 + wn0 + nf * 8 + 2 * t;
           if (nf >= nfn || n >= Nn) continue;
           float v0 = acc[mf][nf][2 * h], v1 = acc[mf][nf][2 * h + 1];
+          if (COLS && BF) { v0 = bf16r(v0); v1 = bf16r(v1); }
           if (n + 1 < Nn) {
             if (prim) { v0 += bias[n]; v1 += bias[n + 1]; }
             *reinterpret_cast<float2*>(out + r * ld + n) = make_float2(v0, v1);
@@ -500,23 +561,27 @@ static __device__ __forceinline__ void mma_w(float* A, int ld, int R, int K,
 
 // The two weight products that go through mma_w (named apart so a
 // profile can tell them apart): the forward H W (+ bias), and dH = dP W^T.
+template <bool BF>
 static __device__ void mma_w_rows(float* A, int ld, int R, int K,
                                   const float* __restrict__ W, int Nn,
                                   const float* __restrict__ bias, int C,
                                   float* out, float* wst, bool issued) {
-  mma_w<false>(A, ld, R, K, W, Nn, bias, C, out, wst, issued);
+  mma_w<false, BF>(A, ld, R, K, W, Nn, bias, C, out, wst, issued);
 }
 
+template <bool BF>
 static __device__ void mma_w_cols(float* dP, int ld, int R, int K,
                                   const float* __restrict__ W, int Ni,
                                   float* out, float* wst, bool issued) {
-  mma_w<true>(dP, ld, R, K, W, Ni, nullptr, 1, out, wst, issued);
+  mma_w<true, BF>(dP, ld, R, K, W, Ni, nullptr, 1, out, wst, issued);
 }
 
 // part[i*Nn + n] (+)= sum_{r<R} H[r][i] * E[r][n], i < Ni, n < Nn: the
 // weight cotangent of one tile, both operands wavefront buffers (the pad
 // rows R..pad16(R)-1 are zero), into the block's global partial slot
-// (assigned on the block's first tile, else added to).
+// (assigned on the block's first tile, else added to).  BF: H rounded to
+// bf16 against the f32 E (the sum is rounded in reduce_partials).
+template <bool BF>
 static __device__ void mma_dw(const float* H, const float* E, int ld, int R,
                               int Ni, int Nn, float* __restrict__ part,
                               bool first) {
@@ -543,9 +608,9 @@ static __device__ void mma_dw(const float* H, const float* E, int ld, int R,
       }
       float acc[WFM][WFN][4];
       zero_acc(acc);
-      mma_run(acc, OpDw{H + t * ld + i0 + wm0 + g, E + t * ld + n0 + wn0 + g,
-                        ld},
-              steps, nfm, nfn);
+      mma_run<BF, false>(
+          acc, OpDw{H + t * ld + i0 + wm0 + g, E + t * ld + n0 + wn0 + g, ld},
+          steps, nfm, nfn);
       // into the slot, an m16 row of fragments at a time: its eight old
       // column pairs (c0,c1 and c2,c3) read together before any is added
       // (one round trip each; where the warp's block lies whole inside the
@@ -601,30 +666,34 @@ static __device__ void mma_dw(const float* H, const float* E, int ld, int R,
 // element, each summing k in order.
 
 // Copy n floats from global src into shared dst, every thread a share (the
-// caller's barrier makes them every warp's).
+// caller's barrier makes them every warp's); BF: rounded to bf16, as a
+// product's operand.
+template <bool BF = false>
 static __device__ __forceinline__ void to_shared(float* dst,
                                                  const float* __restrict__ src,
                                                  int n) {
-  for (int e = threadIdx.x; e < n; e += NTHREADS) dst[e] = src[e];
+  for (int e = threadIdx.x; e < n; e += NTHREADS) dst[e] = opnd<BF>(src[e]);
 }
 
 // out[r][n] = sum_k A[r][k] * W[k*Nn + n] (+ bias[n] on primal rows); W
 // and the bias are read from shared scratch (the weight stage), where one
-// pass of loads puts them, not each from global memory in the sums.
+// pass of loads puts them, not each from global memory in the sums.  BF:
+// A and W rounded to bf16 (their products are exact in f32).
+template <bool BF>
 static __device__ void narrow_fwd(const float* A, int ld, int R, int K,
                                   const float* __restrict__ W, int Nn,
                                   const float* __restrict__ bias, int C,
                                   float* out, float* scratch) {
   float* sW = scratch;
   float* sb = scratch + K * Nn;
-  to_shared(sW, W, K * Nn);
+  to_shared<BF>(sW, W, K * Nn);
   if (bias != nullptr) to_shared(sb, bias, Nn);
   __syncthreads();
   for (int e = threadIdx.x; e < R * Nn; e += NTHREADS) {
     const int r = e / Nn, n = e % Nn;
     float acc = 0.f;
     for (int k = 0; k < K; ++k)
-      acc = fmaf(A[r * ld + k], sW[k * Nn + n], acc);
+      acc = fmaf(opnd<BF>(A[r * ld + k]), sW[k * Nn + n], acc);
     if (bias != nullptr && r % C == 0) acc += sb[n];
     out[r * ld + n] = acc;
   }
@@ -632,23 +701,26 @@ static __device__ void narrow_fwd(const float* A, int ld, int R, int K,
 }
 
 // out[r][i] = sum_{n<K} dP[r][n] * W[i*K + n]  (dH through a narrow layer;
-// W from shared scratch)
+// W from shared scratch).  BF: W rounded to bf16, the sum rounded too.
+template <bool BF>
 static __device__ void narrow_dh(const float* dP, int ld, int R, int K,
                                  const float* __restrict__ W, int Ni,
                                  float* out, float* scratch) {
-  to_shared(scratch, W, Ni * K);
+  to_shared<BF>(scratch, W, Ni * K);
   __syncthreads();
   for (int e = threadIdx.x; e < R * Ni; e += NTHREADS) {
     const int r = e / Ni, i = e % Ni;
     float acc = 0.f;
     for (int n = 0; n < K; ++n)
       acc = fmaf(dP[r * ld + n], scratch[i * K + n], acc);
-    out[r * ld + i] = acc;
+    out[r * ld + i] = BF ? bf16r(acc) : acc;
   }
   __syncthreads();
 }
 
-// part[i*Nn + n] (+)= sum_r A[r][i] * E[r][n]  (dW of a narrow layer)
+// part[i*Nn + n] (+)= sum_r A[r][i] * E[r][n]  (dW of a narrow layer; BF:
+// A rounded to bf16)
+template <bool BF>
 static __device__ void narrow_dw(const float* A, int ld, int Ni,
                                  const float* E, int Nn, int R,
                                  float* __restrict__ part, bool first) {
@@ -656,7 +728,7 @@ static __device__ void narrow_dw(const float* A, int ld, int Ni,
     const int i = e / Nn, n = e % Nn;
     float acc = 0.f;
     for (int r = 0; r < R; ++r)
-      acc = fmaf(A[r * ld + i], E[r * ld + n], acc);
+      acc = fmaf(opnd<BF>(A[r * ld + i]), E[r * ld + n], acc);
     float* dst = part + (size_t)i * Nn + n;
     *dst = first ? acc : *dst + acc;
   }
@@ -686,26 +758,29 @@ static __device__ __forceinline__ bool prefetch_dh(
   return true;
 }
 
+template <bool BF>
 static __device__ __forceinline__ void product_fwd(
     float* A, int ld, int R, int K, const float* __restrict__ W, int Nn,
     const float* __restrict__ bias, int C, float* out, float* wst,
     bool issued) {
-  if (Nn <= NARROW_N) narrow_fwd(A, ld, R, K, W, Nn, bias, C, out, wst);
-  else mma_w_rows(A, ld, R, K, W, Nn, bias, C, out, wst, issued);
+  if (Nn <= NARROW_N) narrow_fwd<BF>(A, ld, R, K, W, Nn, bias, C, out, wst);
+  else mma_w_rows<BF>(A, ld, R, K, W, Nn, bias, C, out, wst, issued);
 }
 
+template <bool BF>
 static __device__ __forceinline__ void product_dh(
     float* dP, int ld, int R, int K, const float* __restrict__ W,
     int Ni, float* out, float* wst, bool issued) {
-  if (K <= NARROW_N) narrow_dh(dP, ld, R, K, W, Ni, out, wst);
-  else mma_w_cols(dP, ld, R, K, W, Ni, out, wst, issued);
+  if (K <= NARROW_N) narrow_dh<BF>(dP, ld, R, K, W, Ni, out, wst);
+  else mma_w_cols<BF>(dP, ld, R, K, W, Ni, out, wst, issued);
 }
 
+template <bool BF>
 static __device__ __forceinline__ void product_dw(
     const float* H, const float* E, int ld, int R, int Ni, int Nn,
     float* __restrict__ part, bool first) {
-  if (Nn <= NARROW_N) narrow_dw(H, ld, Ni, E, Nn, R, part, first);
-  else mma_dw(H, E, ld, R, Ni, Nn, part, first);
+  if (Nn <= NARROW_N) narrow_dw<BF>(H, ld, Ni, E, Nn, R, part, first);
+  else mma_dw<BF>(H, E, ld, R, Ni, Nn, part, first);
 }
 
 // part[j] (+)= sum_p G[p*C][j]: the bias sees only the primal channel.
@@ -733,7 +808,9 @@ static __device__ void zero_buffers(float* sm, int n) {
 // first-order channel along direction k is its seed e_k @ W0 = W0[k][:];
 // higher orders start at zero.  W0, b0 and the tile's rows of X (zero past
 // N) are read from shared scratch (the weight stage, free here; the
-// kernels' C interface checks they fit).
+// kernels' C interface checks they fit).  BF: W0 and X rounded to bf16 (the
+// seeds are then rows of the rounded W0), b0 not.
+template <bool BF>
 static __device__ void layer0_fwd(const float* __restrict__ X,
                                   const float* __restrict__ prm, int N,
                                   int p0, int TP, const Net& net,
@@ -742,10 +819,10 @@ static __device__ void layer0_fwd(const float* __restrict__ X,
   float* sW = scratch;
   float* sb = sW + d * w;
   float* sx = sb + w;
-  to_shared(sW, prm + net.offW[0], d * w);
+  to_shared<BF>(sW, prm + net.offW[0], d * w);
   to_shared(sb, prm + net.offb[0], w);
   for (int e = threadIdx.x; e < TP * d; e += NTHREADS)
-    sx[e] = (p0 + e / d < N) ? X[(size_t)p0 * d + e] : 0.f;
+    sx[e] = (p0 + e / d < N) ? opnd<BF>(X[(size_t)p0 * d + e]) : 0.f;
   __syncthreads();
   for (int e = threadIdx.x; e < TP * w; e += NTHREADS) {
     const int p = e / w, j = e % w;
@@ -998,6 +1075,7 @@ static __host__ __device__ __forceinline__ int ws_slices(int L) {
 // activation pass that precedes its product.  head_issued != nullptr: the
 // head's first chunk too (K3's head product); *head_issued says whether it
 // was.
+template <bool BF>
 static __device__ float* stage_forward(const float* __restrict__ X,
                                        const float* __restrict__ prm, int N,
                                        int p0, int TP, const Net& net,
@@ -1008,14 +1086,14 @@ static __device__ float* stage_forward(const float* __restrict__ X,
   const size_t slice = (size_t)R * ld;
   float* cur = buf0;
   float* oth = buf1;
-  layer0_fwd(X, prm, N, p0, TP, net, s, cur, wst);
+  layer0_fwd<BF>(X, prm, N, p0, TP, net, s, cur, wst);
   for (int l = 1; l < lh; ++l) {
     const bool issued = prefetch_fwd(prm + net.offW[l], net.w_in[l],
                                      net.w_out[l], wst);
     act_fwd(cur, ld, TP, net.w_out[l - 1], s, myws + (l - 1) * slice,
             myws + (lh + l - 1) * slice);
-    product_fwd(cur, ld, R, net.w_in[l], prm + net.offW[l], net.w_out[l],
-                prm + net.offb[l], C, oth, wst, issued);
+    product_fwd<BF>(cur, ld, R, net.w_in[l], prm + net.offW[l],
+                    net.w_out[l], prm + net.offb[l], C, oth, wst, issued);
     float* t = cur; cur = oth; oth = t;
   }
   if (head_issued != nullptr)
@@ -1030,7 +1108,9 @@ static __device__ float* stage_forward(const float* __restrict__ X,
 // dG: its input channels are X (the primal) and constant one-hot seeds, so
 // dW_0 sums X against the primal rows and the seeds' rows, and dX =
 // dG_primal W_0^T for points < N (dX = acc, or += acc when add_dX).  W0 and
-// the tile's rows of X come from shared scratch, as in layer0_fwd.
+// the tile's rows of X come from shared scratch, as in layer0_fwd (BF:
+// rounded to bf16, and acc rounded before it reaches dX).
+template <bool BF>
 static __device__ void layer0_bwd(const float* __restrict__ X,
                                   const float* __restrict__ prm,
                                   float* __restrict__ dX, bool add_dX,
@@ -1041,9 +1121,9 @@ static __device__ void layer0_bwd(const float* __restrict__ X,
   const int C = s.C, ld = net.ld, d = net.d, w = net.w_out[0];
   float* sW = scratch;
   float* sx = sW + d * w;
-  to_shared(sW, prm + net.offW[0], d * w);
+  to_shared<BF>(sW, prm + net.offW[0], d * w);
   for (int e = threadIdx.x; e < TP * d; e += NTHREADS)
-    sx[e] = (p0 + e / d < N) ? X[(size_t)p0 * d + e] : 0.f;
+    sx[e] = (p0 + e / d < N) ? opnd<BF>(X[(size_t)p0 * d + e]) : 0.f;
   __syncthreads();
   float* pW = mypart + net.offW[0];
   for (int e = threadIdx.x; e < d * w; e += NTHREADS) {
@@ -1063,6 +1143,7 @@ static __device__ void layer0_bwd(const float* __restrict__ X,
     float acc = 0.f;
     for (int j = 0; j < w; ++j)
       acc = fmaf(dG[(p * C) * ld + j], sW[k * w + j], acc);
+    if (BF) acc = bf16r(acc);
     float* dst = dX + (size_t)gp * d + k;
     *dst = add_dX ? *dst + acc : acc;
   }
@@ -1082,6 +1163,7 @@ static __device__ void layer0_bwd(const float* __restrict__ X,
 // staged pre-activations), dH holds the cotangent of H_l, dG receives dP_l.
 // Pb then receives the staged layer input H_l for dW_l, and P_{l-1} behind
 // the dH product, for layer l-1's act_vjp.
+template <bool BF>
 static __device__ void reverse_sweep(const float* __restrict__ X,
                                      const float* __restrict__ prm,
                                      float* __restrict__ dX, bool add_dX,
@@ -1093,11 +1175,11 @@ static __device__ void reverse_sweep(const float* __restrict__ X,
                                      unsigned& phase) {
   const int C = s.C, R = TP * C, ld = net.ld, L = net.L, n_out = net.n_out;
   const int lh = L - 1;
-  product_dw(cur, dP, ld, R, net.w_in[lh], n_out, mypart + net.offW[lh],
-             first);
+  product_dw<BF>(cur, dP, ld, R, net.w_in[lh], n_out, mypart + net.offW[lh],
+                 first);
   bias_accum(dP, ld, n_out, TP, C, mypart + net.offb[lh], first);
-  product_dh(dP, ld, R, n_out, prm + net.offW[lh], net.w_in[lh], cur, wst,
-             false);
+  product_dh<BF>(dP, ld, R, n_out, prm + net.offW[lh], net.w_in[lh], cur,
+                 wst, false);
 
   float* Pb = oth;
   float* dH = cur;
@@ -1113,15 +1195,16 @@ static __device__ void reverse_sweep(const float* __restrict__ X,
       // the layer input H_l, staged by stage_forward
       ws_load(Pb, myws + (size_t)(L - 2 + l) * R * ld, R, ld, mbar);
       ws_wait(mbar, phase);
-      product_dw(Pb, dG, ld, R, net.w_in[l], w, mypart + net.offW[l], first);
+      product_dw<BF>(Pb, dG, ld, R, net.w_in[l], w, mypart + net.offW[l],
+                     first);
       bias_accum(dG, ld, w, TP, C, mypart + net.offb[l], first);
       // P_{l-1} again, for the next act_vjp, behind the dH product
       ws_load(Pb, Pprev, R, ld, mbar);
-      product_dh(dG, ld, R, w, prm + net.offW[l], net.w_in[l], dH, wst,
-                 issued);
+      product_dh<BF>(dG, ld, R, w, prm + net.offW[l], net.w_in[l], dH, wst,
+                     issued);
     } else {
-      layer0_bwd(X, prm, dX, add_dX, mypart, N, p0, TP, first, net, s, dG,
-                 wst);
+      layer0_bwd<BF>(X, prm, dX, add_dX, mypart, N, p0, TP, first, net, s,
+                     dG, wst);
       bias_accum(dG, ld, w, TP, C, mypart + net.offb[0], first);
     }
   }
@@ -1134,15 +1217,27 @@ static __host__ __device__ __forceinline__ int slot_stride(int P) {
   return (P + 3) & ~3;
 }
 
+// Whether packed parameter e lies in a layer's W (not a bias, nor K3's
+// value after the parameters).
+static __device__ __forceinline__ bool is_weight(const Net& net, int e) {
+  for (int l = 0; l < net.L; ++l)
+    if (e >= net.offW[l] && e < net.offb[l]) return true;
+  return false;
+}
+
 // Sum the per-block partial slots (G slots of P values each) in slot
-// order: deterministic, no atomics.
+// order: deterministic, no atomics.  BF: each dW sum is then rounded to
+// bf16 (the JAX package's XLA flavor rounds dW once, over all points).
+template <bool BF>
 static __global__ void reduce_partials(const float* __restrict__ part,
-                                       float* __restrict__ out, int G, int P) {
+                                       float* __restrict__ out, int G, int P,
+                                       Net net) {
   int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= P) return;
   const size_t stride = slot_stride(P);
   float acc = 0.f;
   for (int g = 0; g < G; ++g) acc += part[g * stride + e];
+  if (BF && is_weight(net, e)) acc = bf16r(acc);
   out[e] = acc;
 }
 

@@ -61,6 +61,15 @@
 // times).  The device code is in taylor_common.cuh, which the fused
 // minimax step (minimax_step.cu, K3) shares.
 //
+// The bf16-operand flavor (template parameter BF = true; the Pallas pair
+// under compute_dtype=bfloat16) is the same kernel with every product's
+// operands rounded to bf16 as taylor_common.cuh says: the forward
+// products take one TF32 pass instead of three, dW and dH two, and dX and
+// dW leave rounded to bf16.  Its bound is those passes over the TF32 peak
+// (the products at the dense bf16 peak beside it); the rest of the work,
+// and what holds the f32 flavor back, is unchanged, so it runs only 5-12 %
+// faster (PERF.md).  Native bf16 fragments are later work.
+//
 // K2 differences from the Pallas kernel:
 //   * Pallas summed dW/db across a sequential grid (pl.when(i == 0) then
 //     +=).  CUDA blocks run in parallel and in no order, so each block owns
@@ -93,7 +102,9 @@
 #include "taylor_common.cuh"
 
 // ------------------------------------------------------------------------
-// K1: one block per tile of TP points.
+// K1: one block per tile of TP points.  BF: the bf16-operand flavor
+// (taylor_common.cuh).
+template <bool BF>
 __global__ void __launch_bounds__(NTHREADS)
 taylor_fwd_kernel(const float* __restrict__ X, const float* __restrict__ prm,
                   float* __restrict__ table, int N, int TP, Net net,
@@ -106,13 +117,13 @@ taylor_fwd_kernel(const float* __restrict__ X, const float* __restrict__ prm,
   const int p0 = blockIdx.x * TP;
 
   zero_buffers(sm, 2 * pad16(R) * ld);
-  layer0_fwd(X, prm, N, p0, TP, net, s, cur, wst);
+  layer0_fwd<BF>(X, prm, N, p0, TP, net, s, cur, wst);
   for (int l = 1; l < net.L; ++l) {
     const bool issued = prefetch_fwd(prm + net.offW[l], net.w_in[l],
                                      net.w_out[l], wst);
     act_fwd(cur, ld, TP, net.w_out[l - 1], s, nullptr, nullptr);
-    product_fwd(cur, ld, R, net.w_in[l], prm + net.offW[l], net.w_out[l],
-                prm + net.offb[l], C, nxt, wst, issued);
+    product_fwd<BF>(cur, ld, R, net.w_in[l], prm + net.offW[l],
+                    net.w_out[l], prm + net.offb[l], C, nxt, wst, issued);
     float* t = cur; cur = nxt; nxt = t;
   }
   const int n_out = net.n_out;
@@ -124,6 +135,7 @@ taylor_fwd_kernel(const float* __restrict__ X, const float* __restrict__ prm,
 
 // K2: each block owns partial slot blockIdx.x and a workspace slice, and
 // walks tiles blockIdx.x, blockIdx.x + gridDim.x, ...
+template <bool BF>
 __global__ void __launch_bounds__(NTHREADS)
 taylor_bwd_kernel(const float* __restrict__ X, const float* __restrict__ prm,
                   const float* __restrict__ gtab, float* __restrict__ dX,
@@ -146,8 +158,8 @@ taylor_bwd_kernel(const float* __restrict__ X, const float* __restrict__ prm,
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const bool first = (tile == blockIdx.x);
     const int p0 = tile * TP;
-    float* cur = stage_forward(X, prm, N, p0, TP, net, s, myws, buf0, buf1,
-                               wst, nullptr);
+    float* cur = stage_forward<BF>(X, prm, N, p0, TP, net, s, myws, buf0,
+                                   buf1, wst, nullptr);
     float* oth = (cur == buf0) ? buf1 : buf0;
     ws_load(oth, myws + (size_t)(L - 2) * R * ld, R, ld, mbar);
     // head: the table cotangents are its pre-activation cotangents
@@ -157,14 +169,15 @@ taylor_bwd_kernel(const float* __restrict__ X, const float* __restrict__ prm,
       dP[r * ld + o] = (gp < N) ? gtab[((size_t)c * N + gp) * n_out + o] : 0.f;
     }
     __syncthreads();
-    reverse_sweep(X, prm, dX, false, mypart, myws, N, p0, TP, first, net, s,
-                  cur, oth, dP, wst, mbar, phase);
+    reverse_sweep<BF>(X, prm, dX, false, mypart, myws, N, p0, TP, first, net,
+                      s, cur, oth, dP, wst, mbar, phase);
   }
 }
 
 // ------------------------------------------------------------------------
 // C interface (loaded with ctypes; the descriptor layouts are in
-// taylor_common.cuh).  Each entry point returns cudaGetLastError().
+// taylor_common.cuh).  Each entry point returns cudaGetLastError(); bf16 != 0
+// launches the bf16-operand flavor.
 
 extern "C" int tdq_limits(int* out) {
   out[0] = MAXL;
@@ -183,47 +196,67 @@ extern "C" int tdq_device_info(int device, int* out) {
                                      device);
 }
 
+template <bool BF>
+static int taylor_fwd(const float* X, const float* prm, float* table, int N,
+                      int TP, const Net& net, const Sched& s,
+                      cudaStream_t st) {
+  const size_t smem = smem_bytes(2, TP * s.C, net.ld);
+  cudaError_t e = cudaFuncSetAttribute(
+      taylor_fwd_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_tiles = (N + TP - 1) / TP;
+  taylor_fwd_kernel<BF><<<n_tiles, NTHREADS, smem, st>>>(X, prm, table, N,
+                                                         TP, net, s);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int tdq_taylor_fwd(const float* X, const float* prm, float* table,
                               int N, int TP, const int* net_h,
-                              const int* sched_h, void* stream) {
+                              const int* sched_h, int bf16, void* stream) {
   const Net net = unpack_net(net_h);
   const Sched s = unpack_sched(sched_h);
   // layer 0 takes its operands into the weight stage
   if (!layer0_fits(net.d, net.w_out[0], TP))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(2, TP * s.C, net.ld);
+  cudaStream_t st = (cudaStream_t)stream;
+  return bf16 ? taylor_fwd<true>(X, prm, table, N, TP, net, s, st)
+              : taylor_fwd<false>(X, prm, table, N, TP, net, s, st);
+}
+
+template <bool BF>
+static int taylor_bwd(const float* X, const float* prm, const float* gtab,
+                      float* dX, float* part, float* ws, float* grad, int N,
+                      int TP, int G, const Net& net, const Sched& s,
+                      cudaStream_t st) {
+  const size_t smem = smem_bytes(3, TP * s.C, net.ld);
   cudaError_t e = cudaFuncSetAttribute(
-      taylor_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      taylor_bwd_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int n_tiles = (N + TP - 1) / TP;
-  taylor_fwd_kernel<<<n_tiles, NTHREADS, smem, (cudaStream_t)stream>>>(
-      X, prm, table, N, TP, net, s);
+  taylor_bwd_kernel<BF><<<G, NTHREADS, smem, st>>>(X, prm, gtab, dX, part, ws,
+                                                   N, TP, n_tiles, net, s);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  reduce_partials<BF><<<(net.P_total + 255) / 256, 256, 0, st>>>(
+      part, grad, G, net.P_total, net);
   return (int)cudaGetLastError();
 }
 
 extern "C" int tdq_taylor_bwd(const float* X, const float* prm,
                               const float* gtab, float* dX, float* part,
                               float* ws, float* grad, int N, int TP, int G,
-                              const int* net_h, const int* sched_h,
+                              const int* net_h, const int* sched_h, int bf16,
                               void* stream) {
   const Net net = unpack_net(net_h);
   const Sched s = unpack_sched(sched_h);
   // layer 0 takes its operands into the weight stage
   if (!layer0_fits(net.d, net.w_out[0], TP))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(3, TP * s.C, net.ld);
-  cudaError_t e = cudaFuncSetAttribute(
-      taylor_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int n_tiles = (N + TP - 1) / TP;
   cudaStream_t st = (cudaStream_t)stream;
-  taylor_bwd_kernel<<<G, NTHREADS, smem, st>>>(X, prm, gtab, dX, part, ws, N,
-                                               TP, n_tiles, net, s);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  reduce_partials<<<(net.P_total + 255) / 256, 256, 0, st>>>(
-      part, grad, G, net.P_total);
-  return (int)cudaGetLastError();
+  return bf16 ? taylor_bwd<true>(X, prm, gtab, dX, part, ws, grad, N, TP, G,
+                                 net, s, st)
+              : taylor_bwd<false>(X, prm, gtab, dX, part, ws, grad, N, TP, G,
+                                  net, s, st);
 }

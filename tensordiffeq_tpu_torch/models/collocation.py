@@ -50,6 +50,14 @@ scored through the residual engine (K1 on ``fused="cuda"``), or the
 PACMANN ascent mover (``resample_mode="ascent"``), scored and moved by one
 K3 launch at w ≡ 1 per step when the minimax step is adopted.
 
+``compile(fused_dtype="bfloat16")`` is the mixed precision of the JAX
+solver: every fused engine takes its bf16-operand flavor (the products on
+operands rounded to bf16 with f32 sums; K1-bf16/K2-bf16 on ``fused="cuda"``
+and K3-bf16 for the minimax step on the card), the cross-checks take the
+reference's bf16 bands, and the L-BFGS leg starts on the bf16 loss and
+retreats to the f32 flavor of the same engines when its line search
+stagnates (:func:`~..training.lbfgs.lbfgs_minimize`'s ``fun_fallback``).
+
 Everything of the JAX solver that is not ported yet raises
 :class:`~..utils.NotPortedError` naming its ROADMAP item.
 """
@@ -60,6 +68,7 @@ import io
 import json
 import os
 import struct
+import warnings
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -74,7 +83,7 @@ from ..training.fit import (AdamStep, FitResult, fit_adam, make_optimizer,
                             relink_schedules)
 from ..training.lbfgs import fit_lbfgs
 from ..utils import (ieee_f32, initialize_lambdas, not_ported,
-                     resolve_device)
+                     resolve_compute_dtype, resolve_device)
 from .assembly import build_loss_fn
 
 
@@ -100,7 +109,6 @@ class AutotuneFailure(RuntimeError):
 # name -> (value that means "off", ROADMAP item)
 _UNPORTED_COMPILE = {
     "dist": (False, "queue 1, multi-GPU"),
-    "fused_dtype": (None, "queue 2, bf16-operand flavor of K1-K3"),
 }
 _UNPORTED_FIT = {
     "profile_dir": (None, "queue 1 item 7, telemetry"),
@@ -108,6 +116,11 @@ _UNPORTED_FIT = {
     "eval_every": (0, "queue 1 item 7, telemetry"),
     "telemetry": (None, "queue 1 item 7, telemetry"),
 }
+# the JAX solver's cross-check bands under fused_dtype (its
+# collocation.py:610-613, 812-820): bf16 keeps ~3 significant digits,
+# compounded across the layers, and twice in the backward pass
+BF16_VALUE_BAND = dict(rtol=5e-2, atol=1e-3)
+BF16_GRAD_BAND = dict(rtol=1.5e-1, atol=1e-3)
 
 
 def _reject_unported(table: dict, given: dict, where: str):
@@ -181,6 +194,9 @@ class CollocationSolverND:
         # L-BFGS iterations done so far (restored from checkpoints), so a
         # resumed run credits the refinement it already did
         self.newton_done = 0
+        # the absolute L-BFGS iteration at which the last leg retreated to
+        # the f32 loss (fused_dtype), else None
+        self.lbfgs_retreat = None
         # the least resample_uniform a redraw uses (a resilience remedy in
         # the JAX package); checkpoints carry it
         self._resample_uniform_floor = 0.0
@@ -201,9 +217,10 @@ class CollocationSolverND:
                 init_weights: Optional[dict] = None,
                 g: Optional[Callable] = None, network: Optional[MLP] = None,
                 lr=0.005, lr_weights=0.005,
-                fused=None, minimax: Optional[bool] = None,
-                causal_eps=None, causal_bins: int = 32,
-                causal_delta: float = 0.99, remat: bool = False,
+                fused=None, fused_dtype=None,
+                minimax: Optional[bool] = None, causal_eps=None,
+                causal_bins: int = 32, causal_delta: float = 0.99,
+                remat: bool = False,
                 ntk_max_ratio: Optional[float] = 100.0,
                 ntk_max_points: int = 256, **unported):
         """Assemble the problem (reference ``models.py:27-105``).
@@ -245,6 +262,13 @@ class CollocationSolverND:
             fastest is kept, and the minimax step is then adopted only if
             its own step beats the winner's.  ``autotune_report`` records
             the race.
+          fused_dtype: ``None``, or ``"bfloat16"``/``torch.bfloat16``:
+            the fused engines' mixed precision (module docstring), the
+            JAX solver's option.  The cross-checks then take its bands
+            (values 5e-2, gradients 1.5e-1, atol 1e-3).  Ignored with a
+            warning under ``fused=False``, and with a warning when no fused
+            engine is adopted.  ``loss_fn_refine`` is the f32 loss the
+            L-BFGS leg retreats to.
           minimax: the fused minimax step (module docstring).  ``None``
             adopts it when the fused residual is active, the ``f_model``
             lowers to the kernel's residual tape and the step passes the
@@ -267,10 +291,15 @@ class CollocationSolverND:
           ntk_max_ratio / ntk_max_points: NTK weighting's bound on the
             weights' range (``None``: unbounded) and per-term trace
             subsample.
-          **unported: ``dist`` and ``fused_dtype`` at anything but their
-            "off" value raise :class:`~..utils.NotPortedError`.
+          **unported: ``dist`` at anything but its "off" value raises
+            :class:`~..utils.NotPortedError`.
         """
         _reject_unported(_UNPORTED_COMPILE, unported, "compile")
+        if fused_dtype is not None and fused is False:
+            warnings.warn("fused_dtype is ignored with fused=False (the "
+                          "generic engine has no Taylor matmuls)")
+            fused_dtype = None
+        fused_dtype = resolve_compute_dtype(fused_dtype)
         if fused not in (None, False, True, "cuda", "autotune"):
             raise ValueError(f"fused={fused!r}: expected None, False, True, "
                              "'cuda' or 'autotune' ('pallas' is the JAX "
@@ -303,6 +332,7 @@ class CollocationSolverND:
         self.f_model = f_model
         self.g = g
         self.fused = fused
+        self.fused_dtype = fused_dtype
         self.minimax = minimax
         self.lr = lr
         self.lr_weights = lr_weights
@@ -428,22 +458,24 @@ class CollocationSolverND:
         self._fused_kind = "cuda" if self.fused == "cuda" else "plain"
         return self._fused_flavor(self._fused_kind)
 
-    def _fused_flavor(self, kind: str):
+    def _fused_flavor(self, kind: str, f32: bool = False):
         """The fused residual whose table comes from K1/K2 (``"cuda"``; the
         plain flavor on a CPU solver) or from the plain flavor
-        (``"plain"``)."""
+        (``"plain"``), in ``fused_dtype``'s flavor unless ``f32``."""
         from ..ops.fused import make_fused_residual
 
+        dtype = None if f32 else self.fused_dtype
         table_producer = None
         if kind == "cuda":
             from ..ops.cuda_taylor import build_cuda_table_fn
             table_producer = build_cuda_table_fn(
                 self._fuse_requests,
                 [tuple(W.shape) for W, _ in self.net.layers()],
-                device=self.device)
+                device=self.device, compute_dtype=dtype)
         return make_fused_residual(self.f_model, self.domain.vars, self.n_out,
                                    self._fuse_requests,
-                                   table_producer=table_producer)
+                                   table_producer=table_producer,
+                                   compute_dtype=dtype)
 
     def _generic_residual(self, params, X):
         u = make_ufn(self.apply_fn, params, self.domain.vars, self.n_out)
@@ -462,8 +494,9 @@ class CollocationSolverND:
         """Compare a fused residual engine (values AND the gradient of the
         squared residual w.r.t. the parameters) against the generic engine
         on a small sample of the collocation set; for ``fused="cuda"`` this
-        runs K1 and K2.  Returns ``(ok, reason)``; what running the engine
-        raises is a reason too, unless ``catch`` is false."""
+        runs K1 and K2.  Under ``fused_dtype`` the bands are the JAX
+        solver's bf16 ones.  Returns ``(ok, reason)``; what running the
+        engine raises is a reason too, unless ``catch`` is false."""
         from ..ops.fused import crosscheck_grads, crosscheck_residuals
 
         if residual_fn is None:
@@ -487,7 +520,9 @@ class CollocationSolverND:
             if not catch:
                 raise
             return False, e
-        ok, reason = crosscheck_residuals(generic, fused)
+        bf16 = self.fused_dtype is not None
+        ok, reason = crosscheck_residuals(
+            generic, fused, **(BF16_VALUE_BAND if bf16 else {}))
         if not ok:
             return ok, reason
         try:
@@ -497,7 +532,8 @@ class CollocationSolverND:
             if not catch:
                 raise
             return False, e
-        return crosscheck_grads(g_gen, g_fus)
+        return crosscheck_grads(g_gen, g_fus,
+                                **(BF16_GRAD_BAND if bf16 else {}))
 
     def _try_minimax(self):
         """Build and cross-check the fused minimax loss term
@@ -532,14 +568,14 @@ class CollocationSolverND:
             return decline(ValueError(
                 "remat wraps the residual evaluation; the fused minimax "
                 "loss already owns its memory layout"))
+        shapes = [tuple(W.shape) for W, _ in self.net.layers()]
         try:
             # the lowering to K3's tape: a MinimaxLoweringError when the
             # f_model does not lower, or the plan's caps refuse the network
             sq = mmx.build_minimax_sq_fn(
                 self.f_model, self.domain.vars, self.n_out,
-                self._fuse_requests,
-                [tuple(W.shape) for W, _ in self.net.layers()],
-                device=self.device)
+                self._fuse_requests, shapes, device=self.device,
+                compute_dtype=self.fused_dtype)
         except ValueError as e:
             return decline(e)
         mm = mmx.make_minimax_residual_loss(
@@ -575,6 +611,15 @@ class CollocationSolverND:
         self._minimax_kind = "cuda" if self.device.type == "cuda" else "plain"
         self._minimax_sq = sq
         self._minimax_n_eq = sq.n_equations
+        self._minimax_loss_refine = mm
+        if self.fused_dtype is not None:
+            # the f32 flavor of the same step (K3 on the card), for the
+            # L-BFGS leg's retreat
+            sq32 = mmx.build_minimax_sq_fn(
+                self.f_model, self.domain.vars, self.n_out,
+                self._fuse_requests, shapes, device=self.device)
+            self._minimax_loss_refine = mmx.make_minimax_residual_loss(
+                sq32, weight_outside_sum=self.weight_outside_sum, g=self.g)
         if self.verbose:
             print(f"[fuse] minimax engine adopted ({self._minimax_kind}: "
                   "residual + SA-λ loss + cotangents in one step)",
@@ -604,7 +649,9 @@ class CollocationSolverND:
     def _crosscheck_minimax(self, mm_loss, n_check: int = 32):
         """Compare the fused minimax loss term (value and gradients with
         respect to the parameters and λ) against the generic engine's
-        residual term on a sample of the collocation set, at rtol 5e-3.
+        residual term on a sample of the collocation set, at rtol 5e-3 (the
+        JAX solver's bf16 bands under ``fused_dtype``: 5e-2 on the value,
+        1.5e-1 with atol 1e-3 on the gradients).
         On a CUDA solver this launches K3, and a kernel that does not build
         or launch raises.  Returns ``(ok, reason)``."""
         from ..ops.fused import FusedMismatch, crosscheck_grads
@@ -636,11 +683,13 @@ class CollocationSolverND:
 
         v_m, g_m = val_grad(mm)
         v_g, g_g = val_grad(gen)
-        if not (abs(v_m - v_g) <= 1e-5 + 5e-3 * abs(v_g)):  # NaN-safe form
+        bf16 = self.fused_dtype is not None
+        rtol = BF16_VALUE_BAND["rtol"] if bf16 else 5e-3
+        if not (abs(v_m - v_g) <= 1e-5 + rtol * abs(v_g)):  # NaN-safe form
             return False, FusedMismatch(
                 f"minimax loss value {v_m:.6e} disagrees with the generic "
                 f"engine's {v_g:.6e}")
-        return crosscheck_grads(g_g, g_m)
+        return crosscheck_grads(g_g, g_m, **(BF16_GRAD_BAND if bf16 else {}))
 
     def _time_loss_step(self, residual_fn=None, residual_loss_fn=None,
                         reps: int = 3) -> float:
@@ -798,9 +847,20 @@ class CollocationSolverND:
             elif self.verbose:
                 print("[autotune] fused engine excluded; only the generic "
                       "engine was considered", flush=True)
+        if self.fused_dtype is not None and self._fused_residual is None:
+            warnings.warn(
+                "fused_dtype was requested but no fused engine is active "
+                "(the residual fell back to the generic autodiff engine); "
+                "training runs full precision")
+        # the L-BFGS leg's retreat: the f32 flavor of the adopted engine
+        self._refine_residual = self._fused_residual
+        if self.fused_dtype is not None and self._fused_residual is not None:
+            self._refine_residual = self._fused_flavor(self._fused_kind,
+                                                       f32=True)
         # the fused minimax step replaces the training loss's residual term
         # when it qualifies, behind the same numeric cross-check discipline
         self._minimax_loss = None
+        self._minimax_loss_refine = None
         self._minimax_kind = None
         self._minimax_sq = None
         self._minimax_n_eq = 1
@@ -823,13 +883,23 @@ class CollocationSolverND:
                     raise ValueError(f"minimax=True: {why}{detail}") \
                         from reason
         self._residual = self._fused_residual or self._generic_residual
+        loss_kw = dict(weight_outside_sum=self.weight_outside_sum, g=self.g,
+                       data_X=self.data_X, data_s=self.data_s,
+                       remat=self.remat, device=self.device,
+                       **self._causal_kw)
         self.loss_fn = build_loss_fn(
             self.apply_fn, self.domain.vars, self.n_out, self.f_model,
-            self.bcs, weight_outside_sum=self.weight_outside_sum, g=self.g,
-            data_X=self.data_X, data_s=self.data_s,
-            residual_fn=self._fused_residual,
-            residual_loss_fn=self._minimax_loss, remat=self.remat,
-            device=self.device, **self._causal_kw)
+            self.bcs, residual_fn=self._fused_residual,
+            residual_loss_fn=self._minimax_loss, **loss_kw)
+        # the f32 loss of the L-BFGS leg's retreat (the training loss
+        # itself without fused_dtype)
+        self.loss_fn_refine = self.loss_fn
+        if (self._refine_residual is not self._fused_residual
+                or self._minimax_loss_refine is not self._minimax_loss):
+            self.loss_fn_refine = build_loss_fn(
+                self.apply_fn, self.domain.vars, self.n_out, self.f_model,
+                self.bcs, residual_fn=self._refine_residual,
+                residual_loss_fn=self._minimax_loss_refine, **loss_kw)
         self._ntk_fn = None
         if self.use_ntk:
             from ..ops.ntk import build_error_fns, make_ntk_weight_fn
@@ -1088,12 +1158,19 @@ class CollocationSolverND:
                     save(layers, newton_prior + done,
                          ("l-bfgs", best[0], best[1],
                           newton_prior + best[2]))
-            final, best_params, best_loss, best_iter, history = fit_lbfgs(
+            # under fused_dtype the leg starts on the bf16 loss and
+            # retreats to the f32 one when its line search stagnates, as
+            # in the JAX solver
+            fallback = (self.loss_fn_refine
+                        if self.loss_fn_refine is not self.loss_fn else None)
+            (final, best_params, best_loss, best_iter, history,
+             self.lbfgs_retreat) = fit_lbfgs(
                 self.loss_fn, self.net.layers(), self.lambdas, self.X_f,
                 maxiter=newton_iter, verbose=self.verbose,
                 eager=bool(newton_eager), callback=callback,
                 callback_every=checkpoint_every if save else 0,
-                iter0=newton_prior, _graphs=_graphs)
+                iter0=newton_prior, loss_fn_fallback=fallback,
+                _graphs=_graphs)
             self.net.load_layers(final)
             self.losses.extend(history)
             # adopt-if-better, as in the Adam phase: a resumed leg keeps a

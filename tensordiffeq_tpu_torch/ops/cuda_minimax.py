@@ -10,7 +10,9 @@ through ``csrc/taylor_common.cuh`` and is built into the same shared
 library by :func:`.cuda_taylor.build`.
 
 :func:`k3_minimax` launches it for CUDA tensors or raises; nothing here
-falls back.  The plain flavor, the CPU path and the kernel's referee, is
+falls back.  :func:`k3_minimax_bf16` launches its bf16-operand flavor (the
+products of ``taylor_derivatives(compute_dtype=torch.bfloat16)``,
+``csrc/taylor_common.cuh``) and counts its own launches.  The plain flavor, the CPU path and the kernel's referee, is
 ``tile_sq`` in :mod:`.minimax`.
 """
 
@@ -57,12 +59,8 @@ def _check_k3_inputs(plan: MinimaxPlan, X: torch.Tensor, w: torch.Tensor,
                          f"{tuple(w.shape)}")
 
 
-def k3_minimax(plan: MinimaxPlan, X: torch.Tensor, w: torch.Tensor,
-               flat: torch.Tensor):
-    """Launch K3 (and its slot-ordered reduction of the per-block
-    partials).  Returns ``(value, dflat, gw, gX)``: the scalar ``Σ_e Σ_p
-    w[p,e]·f_e(p)²``, its parameter cotangent in the packed layout
-    ``[P_total]``, ``gw = f² [N, E]`` and ``gX [N, d]``."""
+def _k3(plan: MinimaxPlan, X: torch.Tensor, w: torch.Tensor,
+        flat: torch.Tensor, bf16: int):
     _check_k3_inputs(plan, X, w, flat)
     lib = ct.build()
     _, tp, n_sm = plan.tile_sizes(X.device)
@@ -81,14 +79,64 @@ def k3_minimax(plan: MinimaxPlan, X: torch.Tensor, w: torch.Tensor,
     ct._check(lib.tdq_minimax_step(
         X.data_ptr(), w.data_ptr(), flat.data_ptr(), gw.data_ptr(),
         gX.data_ptr(), part.data_ptr(), ws.data_ptr(), out.data_ptr(), N, tp,
-        G, plan.net_h, plan.sched_h, plan.tape_h, plan.cst_h, stream),
+        G, plan.net_h, plan.sched_h, plan.tape_h, plan.cst_h, bf16, stream),
         "minimax_step K3 launch")
-    k3_minimax.launches += 1
     return out[plan.P_total], out[:plan.P_total], gw, gX
 
 
+def k3_minimax(plan: MinimaxPlan, X: torch.Tensor, w: torch.Tensor,
+               flat: torch.Tensor):
+    """Launch K3 (and its slot-ordered reduction of the per-block
+    partials).  Returns ``(value, dflat, gw, gX)``: the scalar ``Σ_e Σ_p
+    w[p,e]·f_e(p)²``, its parameter cotangent in the packed layout
+    ``[P_total]``, ``gw = f² [N, E]`` and ``gX [N, d]``."""
+    out = _k3(plan, X, w, flat, 0)
+    k3_minimax.launches += 1
+    return out
+
+
+def k3_minimax_bf16(plan: MinimaxPlan, X: torch.Tensor, w: torch.Tensor,
+                    flat: torch.Tensor):
+    """Launch K3's bf16-operand flavor: :func:`k3_minimax` over the table
+    of ``taylor_derivatives(compute_dtype=torch.bfloat16)``, the stack's
+    cotangents (the network's share of ``gX`` included) and ``dW`` rounded
+    to bf16 as the reference's jaxpr rounds them."""
+    out = _k3(plan, X, w, flat, 1)
+    k3_minimax_bf16.launches += 1
+    return out
+
+
 k3_minimax.launches = 0
-ct.COUNTED.append(k3_minimax)
+k3_minimax_bf16.launches = 0
+ct.COUNTED.extend([k3_minimax, k3_minimax_bf16])
+# K3 of each flavor
+FLAVORS = {None: k3_minimax, torch.bfloat16: k3_minimax_bf16}
+
+
+def _with_head(plan: MinimaxPlan, k2_passes: float) -> float:
+    """K3's passes per tensor-core product: K2's, averaged with the head's
+    forward product at one pass (two rounded operands)."""
+    tc = ct._tensor_products(plan)
+    k2_tc = sum(tc[:-1]) + 2 * sum(tc)
+    head = tc[-1]
+    return ((k2_passes * k2_tc + head) / (k2_tc + head) if k2_tc + head
+            else 1.0)
+
+
+def tensor_passes(plan: MinimaxPlan, compute_dtype=None) -> float:
+    """TF32 passes per tensor-core product of K3, averaged over its
+    ``flop_count`` ``tensor`` share (:func:`.cuda_taylor.tensor_passes`:
+    K2's products and the head's forward product)."""
+    k2 = ct.tensor_passes(plan, compute_dtype)["k2"]
+    if k2 == 3.0:
+        return 3.0
+    return _with_head(plan, k2)
+
+
+def bf16_bound_passes(plan: MinimaxPlan) -> float:
+    """Dense-bf16 passes per tensor-core product of K3-bf16's work on the
+    card's fastest route (:func:`.cuda_taylor.bf16_bound_passes`)."""
+    return _with_head(plan, ct.bf16_bound_passes(plan)["k2"])
 
 
 def flop_count(plan: MinimaxPlan, n_points: int) -> dict:

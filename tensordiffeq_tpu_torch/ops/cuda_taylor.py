@@ -22,6 +22,14 @@ Dispatch is by the tensors' device, never by a fallback:
 Each kernel wrapper counts its launches in an integer attribute
 (``k1_forward.launches``, ``k2_backward.launches``), so a run can show that
 its main path went through the kernels.
+
+Both kernels have a second flavor, the mixed precision of the JAX package's
+``compute_dtype=jnp.bfloat16`` (``csrc/taylor_common.cuh``: every layer's
+product on operands rounded to bf16 with f32 sums, the stack's cotangent and
+``dW`` rounded to bf16 where the reference's jaxpr rounds them), launched by
+:func:`k1_forward_bf16` and :func:`k2_backward_bf16`, which count their own
+launches; ``build_cuda_table_fn(compute_dtype=torch.bfloat16)`` takes them,
+and its CPU flavor is ``taylor_derivatives(compute_dtype=torch.bfloat16)``.
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ from typing import Sequence
 
 import torch
 
-from ..utils import resolve_device
+from ..utils import resolve_compute_dtype, resolve_device
 from .taylor import canonical, channel_order, taylor_derivatives
 
 MAX_LAYERS = 16    # MAXL in csrc/taylor_common.cuh
@@ -151,10 +159,13 @@ def build() -> ctypes.CDLL:
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(so)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.tdq_taylor_fwd.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr, ptr]
+    # the int before the stream: 1 launches the bf16-operand flavor
+    lib.tdq_taylor_fwd.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr, i32,
+                                   ptr]
     lib.tdq_taylor_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
-                                   i32, i32, ptr, ptr, ptr]
-    lib.tdq_minimax_step.argtypes = [ptr] * 8 + [i32, i32, i32] + [ptr] * 5
+                                   i32, i32, ptr, ptr, i32, ptr]
+    lib.tdq_minimax_step.argtypes = [ptr] * 8 + [i32, i32, i32] + \
+        [ptr] * 4 + [i32, ptr]
     lib.tdq_device_info.argtypes = [i32, ptr]
     lib.tdq_limits.argtypes = [ptr]
     lib.tdq_minimax_limits.argtypes = [ptr]
@@ -326,8 +337,8 @@ def _check_cuda_inputs(plan: _Plan, X: torch.Tensor, flat: torch.Tensor):
                          f"expects {plan.P_total}")
 
 
-def k1_forward(plan: _Plan, X: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
-    """Launch K1: the ``[C, N, n_out]`` channel table at points ``X``."""
+def _k1(plan: _Plan, X: torch.Tensor, flat: torch.Tensor,
+        bf16: int) -> torch.Tensor:
     _check_cuda_inputs(plan, X, flat)
     lib = build()
     tp, _, _ = plan.tile_sizes(X.device)
@@ -336,20 +347,33 @@ def k1_forward(plan: _Plan, X: torch.Tensor, flat: torch.Tensor) -> torch.Tensor
                         dtype=torch.float32)
     stream = torch.cuda.current_stream(X.device).cuda_stream
     _check(lib.tdq_taylor_fwd(X.data_ptr(), flat.data_ptr(), table.data_ptr(),
-                              N, tp, plan.net_h, plan.sched_h, stream),
+                              N, tp, plan.net_h, plan.sched_h, bf16, stream),
            "taylor_table K1 launch")
+    return table
+
+
+def k1_forward(plan: _Plan, X: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+    """Launch K1: the ``[C, N, n_out]`` channel table at points ``X``."""
+    table = _k1(plan, X, flat, 0)
     k1_forward.launches += 1
     return table
 
 
+def k1_forward_bf16(plan: _Plan, X: torch.Tensor,
+                    flat: torch.Tensor) -> torch.Tensor:
+    """Launch K1's bf16-operand flavor (the module docstring): the table of
+    ``taylor_derivatives(compute_dtype=torch.bfloat16)``."""
+    table = _k1(plan, X, flat, 1)
+    k1_forward_bf16.launches += 1
+    return table
+
+
 k1_forward.launches = 0
+k1_forward_bf16.launches = 0
 
 
-def k2_backward(plan: _Plan, X: torch.Tensor, flat: torch.Tensor,
-                g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch K2 (and its deterministic cross-block reduction): returns
-    ``(dX [N, d], dflat [P_total])`` for table cotangents ``g [C, N,
-    n_out]``."""
+def _k2(plan: _Plan, X: torch.Tensor, flat: torch.Tensor, g: torch.Tensor,
+        bf16: int) -> tuple[torch.Tensor, torch.Tensor]:
     _check_cuda_inputs(plan, X, flat)
     N = X.shape[0]
     if tuple(g.shape) != (plan.C, N, plan.n_out) or g.dtype != torch.float32 \
@@ -371,18 +395,41 @@ def k2_backward(plan: _Plan, X: torch.Tensor, flat: torch.Tensor,
     _check(lib.tdq_taylor_bwd(X.data_ptr(), flat.data_ptr(), g.data_ptr(),
                               dX.data_ptr(), part.data_ptr(), ws.data_ptr(),
                               dflat.data_ptr(), N, tp, G, plan.net_h,
-                              plan.sched_h, stream),
+                              plan.sched_h, bf16, stream),
            "taylor_table K2 launch")
-    k2_backward.launches += 1
     return dX, dflat
 
 
-k2_backward.launches = 0
+def k2_backward(plan: _Plan, X: torch.Tensor, flat: torch.Tensor,
+                g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K2 (and its deterministic cross-block reduction): returns
+    ``(dX [N, d], dflat [P_total])`` for table cotangents ``g [C, N,
+    n_out]``."""
+    out = _k2(plan, X, flat, g, 0)
+    k2_backward.launches += 1
+    return out
 
+
+def k2_backward_bf16(plan: _Plan, X: torch.Tensor, flat: torch.Tensor,
+                     g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K2's bf16-operand flavor: the cotangents of
+    :func:`k1_forward_bf16`'s table, ``dX`` and ``dW`` rounded to bf16 as
+    the reference's jaxpr rounds them (``db`` not)."""
+    out = _k2(plan, X, flat, g, 1)
+    k2_backward_bf16.launches += 1
+    return out
+
+
+k2_backward.launches = 0
+k2_backward_bf16.launches = 0
+
+# (K1, K2) of each flavor
+FLAVORS = {None: (k1_forward, k2_backward),
+           torch.bfloat16: (k1_forward_bf16, k2_backward_bf16)}
 
 # every kernel wrapper of the package, K3's included once its module is
 # imported; reset_launch_counts() zeroes them all
-COUNTED = [k1_forward, k2_backward]
+COUNTED = [k1_forward, k2_backward, k1_forward_bf16, k2_backward_bf16]
 
 
 def reset_launch_counts():
@@ -395,22 +442,22 @@ class _TaylorTable(torch.autograd.Function):
     version as one autograd node over ``(X, W_0, b_0, W_1, ...)``."""
 
     @staticmethod
-    def forward(ctx, plan, X, *flat_layers):
+    def forward(ctx, plan, kernels, X, *flat_layers):
         flat = plan.pack(flat_layers)
-        ctx.plan = plan
+        ctx.plan, ctx.k2 = plan, kernels[1]
         ctx.save_for_backward(X, flat)
-        return k1_forward(plan, X, flat)
+        return kernels[0](plan, X, flat)
 
     @staticmethod
     def backward(ctx, g):
         X, flat = ctx.saved_tensors
-        dX, dflat = k2_backward(ctx.plan, X, flat, g.contiguous())
-        return (None, dX if ctx.needs_input_grad[1] else None,
+        dX, dflat = ctx.k2(ctx.plan, X, flat, g.contiguous())
+        return (None, None, dX if ctx.needs_input_grad[2] else None,
                 *ctx.plan.unpack(dflat))
 
 
 def build_cuda_table_fn(requests: set, layer_shapes: Sequence[tuple],
-                        device="cuda"):
+                        device="cuda", compute_dtype=None):
     """Build ``table_fn(layers, X) -> {mi: [N, n_out]}`` backed by the CUDA
     kernels (the primal ``()`` is implied).
 
@@ -422,20 +469,25 @@ def build_cuda_table_fn(requests: set, layer_shapes: Sequence[tuple],
         raises :class:`~..utils.CudaUnavailableError` without a card.  The
         returned function dispatches on each call's tensors: CPU tensors
         take the plain flavor, CUDA tensors launch the kernels.
+      compute_dtype: ``None`` (K1/K2) or ``"bfloat16"``/``torch.bfloat16``
+        (their bf16-operand flavor, and the plain bf16 flavor on the CPU).
     """
     resolve_device(device)
+    dtype = resolve_compute_dtype(compute_dtype)
     plan = _Plan(set(map(canonical, requests)), layer_shapes)
 
     def table_fn(layers, X):
         if X.device.type == "cpu":
             table = taylor_derivatives(layers, X, set(plan.mis),
-                                       flat_matmul=True)
+                                       flat_matmul=True, compute_dtype=dtype)
             return {mi: table[mi] for mi in plan.mis}
         flat_layers = [t for pair in layers for t in pair]
-        table = _TaylorTable.apply(plan, X.contiguous(), *flat_layers)
+        table = _TaylorTable.apply(plan, FLAVORS[dtype], X.contiguous(),
+                                   *flat_layers)
         return {mi: table[plan.pos[mi]] for mi in plan.mis}
 
     table_fn.plan = plan
+    table_fn.compute_dtype = dtype
     return table_fn
 
 
@@ -451,6 +503,47 @@ _ACT_FLOPS = {1: 1, 2: 4, 3: 12, 4: 19}
 _VJP_FLOPS = {1: 4, 2: 13, 3: 39, 4: 40}
 
 
+def _tensor_products(plan: _Plan) -> list:
+    """Per layer, the flops per point of its channel product when it runs
+    on the tensor cores (past layer 0, wider than ``NARROW_N``), else 0."""
+    return [0] + [2 * plan.C * fi * fo if fo > NARROW_N else 0
+                  for fi, fo in plan.layer_shapes[1:]]
+
+
+def _mean_passes(plan: _Plan, fwd_passes: int, back_passes: int) -> dict:
+    """Passes per tensor-core product of each kernel, averaged over its
+    ``flop_count`` ``tensor`` share, ``fwd_passes`` for a forward product
+    and ``back_passes`` for a dW or dH product."""
+    tc = _tensor_products(plan)
+    fwd, back = sum(tc[:-1]), 2 * sum(tc)
+    return {"k1": float(fwd_passes),
+            "k2": ((fwd * fwd_passes + back * back_passes) / (fwd + back)
+                   if fwd + back else float(back_passes))}
+
+
+def tensor_passes(plan: _Plan, compute_dtype=None) -> dict:
+    """TF32 passes per tensor-core product of each kernel, averaged over
+    its ``flop_count`` ``tensor`` share: 3 in the f32 flavor (3xTF32); in
+    the bf16 flavor 1 for a forward product (two rounded operands) and 2
+    for a dW or dH product (the f32 cotangent split in two).  The route
+    the kernel takes, not the least the card could take for the work:
+    :func:`bf16_bound_passes`."""
+    if resolve_compute_dtype(compute_dtype) is None:
+        return {"k1": 3.0, "k2": 3.0}
+    return _mean_passes(plan, 1, 2)
+
+
+def bf16_bound_passes(plan: _Plan) -> dict:
+    """Dense-bf16 passes per tensor-core product of the bf16 flavor's work
+    on the card's fastest route for its types, averaged as
+    :func:`tensor_passes` averages: 1 for a forward product (two bf16
+    operands), 3 for a dW or dH product (the f32 cotangent's 24 significand
+    bits in three bf16 pieces against an exact bf16 operand; three passes
+    at the bf16 peak take less time than two at the TF32 peak).  The bound
+    prices them at the dense bf16 peak."""
+    return _mean_passes(plan, 1, 3)
+
+
 def flop_count(plan: _Plan, n_points: int) -> dict:
     """Float operations the function of each kernel needs for ``n_points``
     points, not what the kernel happens to do, split by the route the kernel
@@ -458,7 +551,8 @@ def flop_count(plan: _Plan, n_points: int) -> dict:
 
     ``tensor``: the channel products of the layers past layer 0 that are
     wider than ``NARROW_N`` (the hidden layers' products, on the tensor
-    cores as 3xTF32; counted once, as the f32 products they stand for).
+    cores; counted once, as the products they stand for, whatever the
+    passes of the route: :func:`tensor_passes`).
     ``simt``: the rest, on the CUDA cores.  K1: the channel matmuls (2 per
     multiply-add; layer 0 is a product only in the primal channel, its
     seeds are copies) and, per hidden unit, the tanh chain up to the
@@ -474,8 +568,7 @@ def flop_count(plan: _Plan, n_points: int) -> dict:
     w0 = shapes[0][1]
     hidden = sum(fo for _, fo in shapes[:-1])
     mm = [2 * plan.d * w0] + [2 * plan.C * fi * fo for fi, fo in shapes[1:]]
-    tc = [0] + [m if fo > NARROW_N else 0
-                for m, (_, fo) in zip(mm[1:], shapes[1:])]
+    tc = _tensor_products(plan)
     act = hidden * (sum(_CHAIN_FLOPS[:top + 1])
                     + sum(_ACT_FLOPS[o] for o in orders))
     # d_{top+1}, then gz*d1 + sum_k gd_k*d_{k+1} added to the primal's

@@ -26,6 +26,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils import resolve_compute_dtype
 from .derivatives import UFn
 from .taylor import canonical, extract_mlp_layers, supported, taylor_derivatives
 
@@ -210,7 +211,8 @@ def make_fused_residual(f_model: Callable, varnames: Sequence[str],
                         n_out: int, requests: set,
                         table_producer: Optional[Callable] = None,
                         has_prefix_arg: bool = False,
-                        return_primal: bool = False) -> Callable:
+                        return_primal: bool = False,
+                        compute_dtype=None) -> Callable:
     """Build ``residual(params, X) -> [N] | tuple of [N]`` backed by one
     Taylor propagation.  ``params`` is an MLP or its ``[(W, b), ...]``.
 
@@ -223,8 +225,13 @@ def make_fused_residual(f_model: Callable, varnames: Sequence[str],
     trainable coefficients) multiplies the table's columns like any other
     batched value.  ``return_primal=True`` returns ``(residual, u)`` with
     ``u = table[()]``: a data loss at the same ``X`` takes the primal from
-    the propagation instead of a second network forward."""
+    the propagation instead of a second network forward.
+
+    ``compute_dtype`` (``None`` or ``"bfloat16"``/``torch.bfloat16``): the
+    plain propagation's flavor (:func:`~.taylor.taylor_derivatives`); a
+    ``table_producer`` carries its own."""
     ndim = len(varnames)
+    dtype = resolve_compute_dtype(compute_dtype)
 
     def residual(params, X, *prefix):
         layers = extract_mlp_layers(params)
@@ -235,7 +242,8 @@ def make_fused_residual(f_model: Callable, varnames: Sequence[str],
         if table_producer is not None:
             table = table_producer(layers, X)
         else:
-            table = taylor_derivatives(layers, X, requests)
+            table = taylor_derivatives(layers, X, requests,
+                                       compute_dtype=dtype)
         # ONE batched re-run of f_model: lookups return whole [N] columns
         coords = tuple(X[:, i] for i in range(ndim))
         u = SymbolicUFn(_TableEngine(coords, table), varnames, n_out)

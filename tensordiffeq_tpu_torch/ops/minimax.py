@@ -21,6 +21,12 @@ Two flavors, chosen by the tensors' device, never by a fallback:
   time (:mod:`.residual_tape`).  The lowering runs on both devices, so
   whether the step can be built does not depend on the device.
 
+``compute_dtype=torch.bfloat16`` builds the mixed-precision flavor of the
+JAX package's ``build_minimax_sq_fn(compute_dtype=jnp.bfloat16)``: the plain
+flavor over ``taylor_derivatives(compute_dtype=torch.bfloat16)`` on the CPU,
+K3's bf16-operand flavor (:func:`~.cuda_minimax.k3_minimax_bf16`) on the
+card.
+
 The λ modes map onto the ``w`` channels as in the JAX package
 (:func:`make_minimax_residual_loss`); their chain rule composes by
 ordinary autograd outside the fused unit.
@@ -32,8 +38,8 @@ from typing import Callable, Sequence
 
 import torch
 
-from ..utils import resolve_device
-from .cuda_minimax import MinimaxPlan, k3_minimax
+from ..utils import resolve_compute_dtype, resolve_device
+from .cuda_minimax import FLAVORS, MinimaxPlan
 from .fused import SymbolicUFn, _TableEngine
 from .residual_tape import lower_residual
 from .taylor import (canonical, channel_order, closure, extract_mlp_layers,
@@ -100,7 +106,7 @@ class _MinimaxSq(torch.autograd.Function):
 def build_minimax_sq_fn(f_model: Callable, varnames: Sequence[str],
                         n_out: int, requests: set,
                         layer_shapes: Sequence[tuple],
-                        device="cuda") -> Callable:
+                        device="cuda", compute_dtype=None) -> Callable:
     """Build ``sq_fn(layers, w, X) -> Σ_e Σ_p w_{p,e}·f_{p,e}(X)²`` (see
     the module docstring).
 
@@ -112,6 +118,8 @@ def build_minimax_sq_fn(f_model: Callable, varnames: Sequence[str],
       device: where the caller means to run; ``"cuda"`` (the default)
         raises :class:`~..utils.CudaUnavailableError` without a card.  The
         returned function dispatches on each call's tensors.
+      compute_dtype: ``None`` or ``"bfloat16"``/``torch.bfloat16``: the
+        flavor (module docstring).
 
     Raises :class:`ValueError` (a
     :class:`~.residual_tape.MinimaxLoweringError` when the ``f_model``
@@ -122,8 +130,10 @@ def build_minimax_sq_fn(f_model: Callable, varnames: Sequence[str],
     the plain flavor's ``(value, [dW_0, db_0, ...], gw, gX)`` on any
     device (biases as ``[1, fan_out]``); ``sq_fn.value_and_grads(flat, w,
     X)`` the same from the flavor the tensors' device takes (one K3 launch
-    for CUDA tensors), outside autograd."""
+    for CUDA tensors), outside autograd.  ``sq_fn.compute_dtype`` is the
+    flavor."""
     resolve_device(device)
+    dtype = resolve_compute_dtype(compute_dtype)
     mis = _sorted_mis(requests)
     ndim = len(varnames)
     # the lowering rejects any equation that is not one value per point and
@@ -133,7 +143,7 @@ def build_minimax_sq_fn(f_model: Callable, varnames: Sequence[str],
 
     def tile_sq(layers, w, x):
         table = taylor_derivatives(list(layers), x, set(mis),
-                                   flat_matmul=True)
+                                   flat_matmul=True, compute_dtype=dtype)
         coords = tuple(x[:, i] for i in range(ndim))
         u = SymbolicUFn(_TableEngine(coords, table), varnames, n_out)
         out = f_model(u, *coords)
@@ -155,7 +165,7 @@ def build_minimax_sq_fn(f_model: Callable, varnames: Sequence[str],
         return val.detach(), list(grads[:-2]), grads[-2], grads[-1]
 
     def kernel(flat, w, X):
-        val, dflat, gw, gX = k3_minimax(plan, X, w, plan.pack(flat))
+        val, dflat, gw, gX = FLAVORS[dtype](plan, X, w, plan.pack(flat))
         return (val, [g.view_as(t) for g, t in zip(plan.unpack(dflat), flat)],
                 gw, gX)
 
@@ -172,6 +182,7 @@ def build_minimax_sq_fn(f_model: Callable, varnames: Sequence[str],
                                 X.contiguous(), *flat)
 
     sq_fn.n_equations = plan.E
+    sq_fn.compute_dtype = dtype
     sq_fn.plan = plan
     sq_fn.plain = plain
     sq_fn.value_and_grads = value_and_grads

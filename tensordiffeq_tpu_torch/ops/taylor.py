@@ -14,6 +14,16 @@ This module is the plain PyTorch version of the Taylor-table kernels
 against on the card.  Its loss gradient is ordinary autograd through the
 propagation.
 
+``compute_dtype=torch.bfloat16`` is the mixed-precision flavor of the JAX
+package's ``taylor_derivatives(compute_dtype=jnp.bfloat16)``: each layer's
+product takes the channel stack and ``W`` rounded to bf16 and sums in f32
+(``preferred_element_type=float32`` there).  Written as a round trip
+through bf16 and an f32 product under IEEE f32: the product of two bf16
+values is exact in f32, and autograd of the round-trip casts rounds the
+stack's cotangent and each ``dW`` to bf16 exactly where the JAX jaxpr's
+casts do.  (A product of bf16 tensors would round the *output* to bf16,
+which the JAX flavor never does.)
+
 Derivative requests are canonical multi-indices: sorted tuples of coordinate
 positions, e.g. ``()`` primal, ``(0,)`` = u_x, ``(0, 1)`` = u_xt,
 ``(0, 0, 1)`` = u_xxt, ``(0, 0, 0, 0)`` = u_xxxx.
@@ -88,8 +98,15 @@ def extract_mlp_layers(params) -> Optional[list]:
     return None
 
 
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (to nearest even) and back to its dtype: a
+    product operand of the mixed-precision flavor."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
 def taylor_derivatives(layers: list, X: torch.Tensor, requests: set,
-                       flat_matmul: bool = False) -> dict:
+                       flat_matmul: bool = False,
+                       compute_dtype: Optional[torch.dtype] = None) -> dict:
     """Evaluate the MLP and all ``requests`` derivatives in one propagation.
 
     Args:
@@ -100,10 +117,17 @@ def taylor_derivatives(layers: list, X: torch.Tensor, requests: set,
       flat_matmul: collapse the channel stack into the point axis for each
         layer matmul (``[C·N, in] @ W`` instead of the batched
         ``[C, N, in] @ W``) — the layout the kernels use.
+      compute_dtype: ``None`` (float32 products) or ``torch.bfloat16``:
+        the mixed-precision flavor (module docstring); every pointwise op
+        stays float32.  Run it under IEEE f32 (``utils.ieee_f32``) on the
+        card, or TF32 rounds the products a second time.
 
     Returns ``{multi_index: [N, n_out] tensor}`` for every channel of the
     closure, including the primal ``()``.
     """
+    if compute_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"compute_dtype={compute_dtype!r}: expected None "
+                         "or torch.bfloat16")
     N, d = X.shape
     firsts, seconds, thirds, fourths = closure(set(map(canonical, requests)))
 
@@ -125,6 +149,8 @@ def taylor_derivatives(layers: list, X: torch.Tensor, requests: set,
             [Z] + [T[i] for i in firsts] + [S[i] for i in seconds]
             + [U[i] for i in thirds] + [F[i] for i in fourths],
             dim=0)  # [C, N, w_in]
+        if compute_dtype is not None:
+            stacked, W = bf16_round(stacked), bf16_round(W)
         if flat_matmul:
             C = stacked.shape[0]
             out = (stacked.reshape(C * N, -1) @ W).reshape(C, N, -1)

@@ -36,16 +36,26 @@ on the padding; across rungs (and against ``solver.predict``) the answers
 agree within float32 rounding, since a library matmul may choose another
 algorithm for another row count.
 
+``compute_dtype="bfloat16"`` serves the JAX engine's mixed-precision
+programs: ``u``, each derivative kind within the Taylor propagation's
+reach (:func:`~..ops.taylor.supported`) and ``residual`` (when the
+``f_model`` is analysable) come from the bf16-operand flavor of the Taylor
+table: on the card one launch of K1-bf16
+(:func:`~..ops.cuda_taylor.k1_forward_bf16`) inside the rung's graph, the
+residual the fused engine over that table; on the CPU the plain bf16
+flavor.  A kind outside the propagation's reach keeps the f32 program,
+bit-equal to the f32 engine's.  Results carry bf16 rounding (about three
+significant digits).
+
 A first-touch failure (the warm-up, the capture or the first replay)
 quarantines that rung for its kind; the chunk reroutes to the next larger
 rung, which is a graph too.  A rung is never run eagerly in place of its
 graph.  :class:`EngineDegraded` is raised when no usable rung is left.
 
-Not ported yet: ``compute_dtype`` (the bf16-operand flavor, ROADMAP queue
-2), ``shard=True`` (multi-GPU, queue 1 item 6), the cost gauges
+Not ported yet: ``shard=True`` (multi-GPU, queue 1 item 6), which raises
+:class:`~tensordiffeq_tpu_torch.utils.NotPortedError`, the cost gauges
 ``serving.engine.{flops,bytes}_per_point`` and the chaos and tracing hooks
-(queue 1 item 7); the first two raise
-:class:`~tensordiffeq_tpu_torch.utils.NotPortedError`.
+(queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -59,7 +69,7 @@ from torch.func import vmap
 from ..ops.derivatives import d, make_ufn, vmap_residual
 from ..telemetry import default_registry, log_event
 from ..training.graphs import CudaGraph, SharedPool, StepGraph
-from ..utils import ieee_f32, not_ported
+from ..utils import ieee_f32, not_ported, resolve_compute_dtype
 from .surrogate import Surrogate
 
 
@@ -149,16 +159,15 @@ class InferenceEngine:
         points served (``serving.engine.points``) and the padded fraction
         of each bucket (``serving.engine.pad_waste``).  Defaults to the
         process-wide registry.
-      compute_dtype: not ported (the bf16-operand flavor); anything but
-        ``None`` raises.
+      compute_dtype: ``None``, or ``"bfloat16"``/``torch.bfloat16``: the
+        mixed-precision programs (module docstring).  Requires the
+        standard float32 tanh MLP (raises :class:`ValueError` at
+        construction otherwise).
     """
 
     def __init__(self, surrogate: Surrogate, min_bucket: int = 256,
                  max_bucket: int = 1 << 20, shard: bool = False,
                  donate: bool = True, registry=None, compute_dtype=None):
-        if compute_dtype is not None:
-            raise not_ported("InferenceEngine(compute_dtype=...)",
-                             "queue 2, the bf16-operand flavor")
         if shard:
             raise not_ported("InferenceEngine(shard=True)",
                              "queue 1 item 6, multi-GPU")
@@ -170,6 +179,15 @@ class InferenceEngine:
             raise ValueError(f"min_bucket {min_bucket} > max_bucket "
                              f"{max_bucket}")
         self.surrogate = surrogate
+        self._compute_dtype = resolve_compute_dtype(compute_dtype)
+        self._mixed: dict = {}  # kind -> the bf16 program factory, or None
+        if self._compute_dtype is not None:
+            from ..ops.fused import mlp_qualifies
+            if mlp_qualifies(surrogate.net, surrogate.params) is None:
+                raise ValueError(
+                    "compute_dtype requires the standard float32 tanh MLP "
+                    "(the reduced-precision programs run the fused Taylor "
+                    "propagation, which cannot differentiate this network)")
         self._buckets = tuple(min_bucket << i for i in range(
             (max_bucket // min_bucket).bit_length()))
         self._rungs: dict = {}        # (kind, bucket) -> _Rung
@@ -281,16 +299,26 @@ class InferenceEngine:
 
     def _make_fn(self, key):
         sur = self.surrogate
+        if key == "residual" and sur.point_residual is None:
+            raise ValueError(
+                "this surrogate has no f_model attached; pass f_model= "
+                "to Surrogate.load (or export from a compiled solver) "
+                "to enable residual queries")
+        if not isinstance(key, str) and not 0 <= key[3] < sur.n_out:
+            # the scalar-output path below never consults UFn.__getitem__,
+            # which would otherwise catch this
+            raise ValueError(f"component {key[3]} out of range for an "
+                             f"n_out={sur.n_out} surrogate")
+        if self._compute_dtype is not None:
+            if key not in self._mixed:
+                self._mixed[key] = self._make_fn_mixed(key)
+            if self._mixed[key] is not None:
+                return self._mixed[key]
         if key == "u":
             apply_fn = sur.apply_fn
             return lambda: apply_fn
         if key == "residual":
             point_res = sur.point_residual
-            if point_res is None:
-                raise ValueError(
-                    "this surrogate has no f_model attached; pass f_model= "
-                    "to Surrogate.load (or export from a compiled solver) "
-                    "to enable residual queries")
 
             def make_res():
                 def batched(params, Xb):
@@ -301,11 +329,6 @@ class InferenceEngine:
 
             return make_res
         _, idx, order, component = key
-        if not 0 <= component < sur.n_out:
-            # the scalar-output path below never consults UFn.__getitem__,
-            # which would otherwise catch this
-            raise ValueError(f"component {component} out of range for an "
-                             f"n_out={sur.n_out} surrogate")
 
         def make_d():
             def batched(params, Xb):
@@ -316,6 +339,41 @@ class InferenceEngine:
             return batched
 
         return make_d
+
+    def _make_fn_mixed(self, key):
+        """The bf16 program factory of one kind (module docstring), or
+        ``None`` when the kind is outside the Taylor propagation's reach
+        (a derivative order it does not serve, an ``f_model`` it cannot
+        analyse): that kind keeps its f32 program."""
+        from ..ops.cuda_taylor import build_cuda_table_fn
+        from ..ops.fused import analyze_f_model, make_fused_residual
+        from ..ops.taylor import supported
+
+        sur = self.surrogate
+        shapes = [tuple(W.shape) for W, _ in sur.params]
+
+        def table_fn(requests):
+            return build_cuda_table_fn(requests, shapes, device=sur.device,
+                                       compute_dtype=self._compute_dtype)
+
+        if key == "u":
+            tab = table_fn({()})
+            return lambda: lambda params, Xb: tab(params, Xb)[()]
+        if key == "residual":
+            reqs = analyze_f_model(sur.point_residual, sur.varnames,
+                                   sur.n_out)
+            if reqs is None:
+                return None
+            fused = make_fused_residual(sur.point_residual, sur.varnames,
+                                        sur.n_out, reqs,
+                                        table_producer=table_fn(reqs))
+            return lambda: fused
+        _, idx, order, component = key
+        mi = (idx,) * int(order)
+        if not supported(mi):
+            return None
+        tab = table_fn({mi})
+        return lambda: lambda params, Xb: tab(params, Xb)[mi][:, component]
 
     # ------------------------------------------------------------------ #
     def install_aot(self, spec: str, bucket: int, fn) -> None:

@@ -475,6 +475,7 @@ def lbfgs_minimize(fun: Callable, x0: torch.Tensor, maxiter: int = 1000,
                    callback: Optional[Callable] = None,
                    callback_every: int = 0, iter0: int = 0,
                    fun_fallback: Optional[Callable] = None,
+                   on_retreat: Optional[Callable] = None,
                    verbose: bool = False, _graphs: bool = True):
     """Minimise ``fun(x) -> scalar tensor`` over a 1-D tensor ``x``.
 
@@ -499,7 +500,8 @@ def lbfgs_minimize(fun: Callable, x0: torch.Tensor, maxiter: int = 1000,
     ``fun_fallback``: the precision retreat.  A non-finite or stagnation
     stop with budget left restarts, once, from the best iterate with fresh
     memory (and its own graphs) on ``fun_fallback``, after re-measuring the
-    incumbent under it.
+    incumbent under it.  ``on_retreat(iteration)`` is then called with the
+    absolute iteration (``iter0`` counted) after which it retreated.
 
     ``iter0`` is the absolute iteration of the first one here; it only
     labels the stop messages."""
@@ -574,6 +576,8 @@ def lbfgs_minimize(fun: Callable, x0: torch.Tensor, maxiter: int = 1000,
             stop = "stagnation"
         if stop is not None and not retreated and done < maxiter:
             retreated = True
+            if on_retreat is not None:
+                on_retreat(iter0 + done)
             _log_stop(f"{stop} on the reduced-precision loss at iter "
                       f"{iter0 + done}; retreating to the full-precision "
                       f"objective for the remaining {maxiter - done} iters")
@@ -669,9 +673,10 @@ def fit_lbfgs(loss_fn: Callable, params, lambdas: dict, X_f: torch.Tensor,
     ``_graphs=False``: the eager referee of :func:`lbfgs_minimize`.
 
     Returns ``(params_final, params_best, best_loss, best_iter,
-    loss_dicts)``: layer lists of fresh tensors, the best loss and its
-    iteration within this call as Python numbers, and one
-    ``{"Total Loss": v}`` per iteration."""
+    loss_dicts, retreat)``: layer lists of fresh tensors, the best loss and
+    its iteration within this call as Python numbers, one ``{"Total Loss":
+    v}`` per iteration, and the absolute iteration after which the leg
+    retreated to ``loss_fn_fallback`` (``None``: it did not)."""
     shapes = layer_shapes(params)
     fun = lbfgs_objective(loss_fn, lambdas, X_f, shapes)
     fun_fallback = None
@@ -685,16 +690,19 @@ def fit_lbfgs(loss_fn: Callable, params, lambdas: dict, X_f: torch.Tensor,
             callback(done, unflatten_layers(x, shapes),
                      (unflatten_layers(best[0], shapes), best[1], best[2]))
 
+    retreat = []
     t0 = time.time()
     with ieee_f32():
         x, x_best, f_best, i_best, history = lbfgs_minimize(
             fun, flatten_layers(params), maxiter=maxiter,
             memory_size=memory_size, chunk=chunk, eager=eager, callback=cb,
             callback_every=callback_every, iter0=iter0,
-            fun_fallback=fun_fallback, verbose=verbose, _graphs=_graphs)
+            fun_fallback=fun_fallback, on_retreat=retreat.append,
+            verbose=verbose, _graphs=_graphs)
     f_best, i_best = float(f_best), int(i_best)
     if verbose:
         print(f"[l-bfgs] {len(history)} iters in {time.time() - t0:.1f}s, "
               f"best loss {f_best:.3e} @ iter {i_best}", flush=True)
     return (unflatten_layers(x, shapes), unflatten_layers(x_best, shapes),
-            f_best, i_best, [{"Total Loss": v} for v in history])
+            f_best, i_best, [{"Total Loss": v} for v in history],
+            retreat[0] if retreat else None)

@@ -41,6 +41,20 @@ def ieee_f32():
          torch.backends.cudnn.allow_tf32) = saved
 
 
+def resolve_compute_dtype(dtype) -> Optional[torch.dtype]:
+    """``None`` or ``torch.bfloat16`` for a ``fused_dtype=`` /
+    ``compute_dtype=`` argument (``None``, ``"bfloat16"`` or
+    ``torch.bfloat16``): the kernels' two flavors.  Anything else raises
+    :class:`ValueError`."""
+    if dtype is None:
+        return None
+    if dtype in ("bfloat16", torch.bfloat16):
+        return torch.bfloat16
+    raise ValueError(f"compute dtype {dtype!r}: expected None, 'bfloat16' "
+                     "or torch.bfloat16 (the mixed-precision flavor of the "
+                     "kernels)")
+
+
 def span(name: str):
     """A ``torch.profiler`` range named ``name`` while a profiler records,
     else a no-op: a range entered with no profiler still costs a dispatcher

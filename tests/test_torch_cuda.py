@@ -70,6 +70,16 @@ installed::
   K1 twice under ``remat``, whose first step equals the plain one's); the
   embedding families train graphed on the generic engine with no kernel
   launch, equal to eager, and serve ``u`` as ``predict`` does.
+* mixed precision (``chip_smoke.py`` phase 14, at small size): K1-bf16,
+  K2-bf16 and K3-bf16 against their plain bf16 flavors on every shape
+  above, within the reference's bf16 bands (5e-2 values, 1.5e-1 gradients,
+  scale-relative) and nearer (RMS) the plain bf16 flavor than the f32 one;
+  the bf16 launch differs from the f32 one; K2-bf16 and K3-bf16 bit for
+  bit run to run; ``compile(fused_dtype="bfloat16")`` trains graphed equal
+  to eager on both paths with only the bf16 kernels launched; the L-BFGS
+  retreat moves from K3-bf16 to the f32 K3; a bf16 serving rung equals its
+  eager program and launches K1-bf16 once per replay; a K1-bf16 the
+  runtime refuses raises out of ``compile``.
 """
 
 import warnings
@@ -250,6 +260,12 @@ def test_solver_through_kernels_tracks_plain_flavor_on_card(card):
     assert np.max(np.abs(fk - fp)) <= 5e-3 * np.max(np.abs(fp))
 
 
+# what PyTorch's sync debug mode says at each synchronising call; the notice
+# it gives once per process when the mode is first set ("... does not yet
+# detect all synchronizing operations") is no synchronising call
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
 def _n_syncs(solver, epochs):
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -258,7 +274,7 @@ def _n_syncs(solver, epochs):
             solver.fit(tf_iter=epochs, chunk=epochs)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return sum(SYNC_WARNING in str(w.message) for w in caught)
 
 
 def test_fit_does_not_sync_inside_a_chunk(card):
@@ -455,7 +471,7 @@ def _n_lbfgs_syncs(solver, iters):
             solver.fit(newton_iter=iters, newton_eager=True)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return sum(SYNC_WARNING in str(w.message) for w in caught)
 
 
 def test_fixed_step_lbfgs_launches_k3_per_iteration_without_syncs(card):
@@ -1040,3 +1056,238 @@ def test_fit_captures_with_an_update_loss_result_alive(card):
     assert s._adam.graph.captures == 1
     assert np.isfinite(float(total))
     assert np.isfinite(s.losses[-1]["Total Loss"])
+
+
+# --------------------------------------------------------------------------- #
+# mixed precision: the bf16-operand flavor of K1, K2 and K3
+# --------------------------------------------------------------------------- #
+# the reference's bf16 bands (the JAX solver's cross-check under
+# fused_dtype): scale-relative, values and gradients
+BF16_VALUES, BF16_GRADS = 5e-2, 1.5e-1
+
+
+def _rms(a, b):
+    return float(torch.sqrt(torch.mean((a - b).double() ** 2)))
+
+
+def _nearer_bf16(got, want_bf, want_f32):
+    """The kernel's RMS distance to the plain bf16 flavor is below its
+    distance to the plain f32 flavor, over every leaf together: it rounds
+    where the reference rounds."""
+    cat = lambda ts: torch.cat([t.reshape(-1) for t in ts])  # noqa: E731
+    return _rms(cat(got), cat(want_bf)) < _rms(cat(got), cat(want_f32))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_bf16_kernels_match_plain_bf16_flavor_on_card(card, case):
+    reqs, widths, N = CASES[case]
+    layers, _, g = _net(widths, card)
+    X = (2 * torch.rand(N, widths[0], generator=g) - 1).to(card)
+    shapes = [tuple(W.shape) for W, _ in layers]
+    producer = cuda_taylor.build_cuda_table_fn(reqs, shapes,
+                                               compute_dtype="bfloat16")
+    params = [t.clone().requires_grad_(True) for p in layers for t in p]
+    pairs = list(zip(params[0::2], params[1::2]))
+    Xg = X.clone().requires_grad_(True)
+    k1, k2 = cuda_taylor.k1_forward_bf16, cuda_taylor.k2_backward_bf16
+    before = (k1.launches, k2.launches, cuda_taylor.k1_forward.launches,
+              cuda_taylor.k2_backward.launches)
+    got = producer(pairs, Xg)
+    want = taylor_derivatives(pairs, Xg, reqs, flat_matmul=True,
+                              compute_dtype=torch.bfloat16)
+    want32 = taylor_derivatives(pairs, Xg, reqs, flat_matmul=True)
+    cot = {mi: torch.randn(got[mi].shape, generator=g).to(card) for mi in got}
+
+    def grads(tab):
+        return torch.autograd.grad(sum((tab[m] * cot[m]).sum() for m in got),
+                                   params + [Xg], retain_graph=True)
+
+    g_got, g_want, g_32 = grads(got), grads(want), grads(want32)
+    torch.cuda.synchronize()
+    assert (k1.launches, k2.launches, cuda_taylor.k1_forward.launches,
+            cuda_taylor.k2_backward.launches) \
+        == (before[0] + 1, before[1] + 1, before[2], before[3])
+    for mi in got:
+        assert _scaled(got[mi], want[mi]) <= BF16_VALUES, mi
+    for i, (a, b) in enumerate(zip(g_got, g_want)):
+        assert _scaled(a, b) <= BF16_GRADS, i
+    mis = sorted(got)
+    assert _nearer_bf16([got[m] for m in mis], [want[m] for m in mis],
+                        [want32[m] for m in mis])
+    assert _nearer_bf16(g_got, g_want, g_32)
+
+
+def test_bf16_flavor_differs_from_f32_flavor_on_card(card):
+    """The bf16 launch is not the f32 kernel: on the same inputs the two
+    tables differ, by about bf16's rounding."""
+    layers, _, g = _net([2, 64, 64, 1], card)
+    X = (2 * torch.rand(1000, 2, generator=g) - 1).to(card)
+    plan = cuda_taylor.build_cuda_table_fn(AC, [(2, 64), (64, 64),
+                                                (64, 1)]).plan
+    flat = plan.pack([t for p in layers for t in p])
+    t32 = cuda_taylor.k1_forward(plan, X, flat)
+    t16 = cuda_taylor.k1_forward_bf16(plan, X, flat)
+    err = _scaled(t16, t32)
+    assert 1e-4 < err <= BF16_VALUES, err
+
+
+def test_bf16_k2_is_bit_identical_run_to_run(card):
+    layers, _, g = _net([2, 64, 64, 1], card)
+    X = (2 * torch.rand(5000, 2, generator=g) - 1).to(card)
+    plan = cuda_taylor.build_cuda_table_fn(MIXED, [(2, 64), (64, 64),
+                                                   (64, 1)]).plan
+    flat = plan.pack([t for p in layers for t in p])
+    cot = torch.randn(plan.C, 5000, 1, generator=g).to(card)
+    a = cuda_taylor.k2_backward_bf16(plan, X, flat, cot)
+    b = cuda_taylor.k2_backward_bf16(plan, X, flat, cot)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_bf16_k3_matches_plain_bf16_flavor_on_card(card, case):
+    f, widths, _, _ = K3_CASES[case]
+    sq32, X, w, flat = _k3_setup(case, card)
+    sq = build_minimax_sq_fn(f, ("x", "t"), widths[-1],
+                             analyze_f_model(f, ("x", "t"), widths[-1]),
+                             sq32.plan.layer_shapes,
+                             compute_dtype=torch.bfloat16)
+    plan = sq.plan
+    k3 = cuda_minimax.k3_minimax_bf16
+    before = k3.launches, cuda_minimax.k3_minimax.launches
+    val, dflat, gw, gX = k3(plan, X, w, plan.pack(flat))
+    torch.cuda.synchronize()
+    assert (k3.launches, cuda_minimax.k3_minimax.launches) \
+        == (before[0] + 1, before[1])
+    got = [val.reshape(1)] + [t.reshape(-1) for t in plan.unpack(dflat)] \
+        + [gw, gX]
+
+    def leaves(out):
+        v, fl, w_, x_ = out
+        return [v.reshape(1)] + [t.reshape(-1) for t in fl] + [w_, x_]
+
+    want, want32 = leaves(sq.plain(flat, w, X)), leaves(sq32.plain(flat, w, X))
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert bool(torch.isfinite(a).all()), i
+        # the value and gw = f² are values, the rest gradients
+        band = BF16_VALUES if i in (0, len(got) - 2) else BF16_GRADS
+        assert _scaled(a, b) <= band, i
+    assert _nearer_bf16(got, want, want32)
+    # the autograd.Function routes a CUDA call to the bf16 launch
+    v = sq(list(zip(flat[0::2], flat[1::2])), w, X)
+    assert k3.launches == before[0] + 2
+    assert float(v) == float(val)
+
+
+def test_bf16_k3_is_bit_identical_run_to_run(card):
+    f, widths, _, _ = K3_CASES["ac"]
+    sq32, X, w, flat = _k3_setup("ac", card)
+    sq = build_minimax_sq_fn(f, ("x", "t"), widths[-1],
+                             analyze_f_model(f, ("x", "t"), widths[-1]),
+                             sq32.plan.layer_shapes,
+                             compute_dtype=torch.bfloat16)
+    X, w = X.repeat(5, 1).contiguous(), w.repeat(5, 1).contiguous()
+    packed = sq.plan.pack(flat)
+    a = cuda_minimax.k3_minimax_bf16(sq.plan, X, w, packed)
+    b = cuda_minimax.k3_minimax_bf16(sq.plan, X, w, packed)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# the solver and the serving engine under mixed precision
+@pytest.mark.parametrize("minimax", [None, False],
+                         ids=["minimax", "unfused"])
+def test_bf16_graph_adam_steps_equal_eager_steps(card, minimax):
+    kw = dict(n_f=1024, minimax=minimax, fused_dtype="bfloat16")
+    graph, eager = _ac_solver("cuda", **kw), _ac_solver("cuda", **kw)
+    assert graph.fused_dtype is torch.bfloat16
+    cuda_taylor.reset_launch_counts()
+    graph.fit(tf_iter=30, chunk=10)
+    counts = {fn.__name__: fn.launches for fn in cuda_taylor.COUNTED}
+    want = ({"k3_minimax_bf16": 30} if minimax is None else
+            {"k1_forward_bf16": 30, "k2_backward_bf16": 30})
+    assert counts == dict({k: 0 for k in counts}, **want)
+    eager.fit(tf_iter=30, chunk=10, _graphs=False)
+    assert graph._adam.graph.captures == 1
+    assert eager._adam.graph.captures == 0
+    assert _diff(graph, eager) == 0.0
+
+
+def test_bf16_lbfgs_retreats_from_k3_bf16_to_k3_on_card(card):
+    """The retreat, forced by a tol_fun no step beats: evaluations on the
+    bf16 objective launch K3-bf16, those after the retreat the f32 K3."""
+    from tensordiffeq_tpu_torch.training import lbfgs as tl
+    s = _ac_solver("cuda", n_f=1024, minimax=None, fused_dtype="bfloat16")
+    s.fit(tf_iter=5)
+    shapes = tl.layer_shapes(s.net.layers())
+    fun = tl.lbfgs_objective(s.loss_fn, s.lambdas, s.X_f, shapes)
+    fun32 = tl.lbfgs_objective(s.loss_fn_refine, s.lambdas, s.X_f, shapes)
+    x0 = tl.flatten_layers(s.net.layers())
+    k16, k32 = cuda_minimax.k3_minimax_bf16, cuda_minimax.k3_minimax
+    cuda_taylor.reset_launch_counts()
+    e0 = tl.lbfgs_minimize.evaluations
+    retreats = []
+    with tl.ieee_f32():
+        # two chunks of 2 on bf16, stagnation, then 2 on f32
+        tl.lbfgs_minimize(fun, x0, maxiter=6, chunk=2, tol_fun=1e300,
+                          fun_fallback=fun32, on_retreat=retreats.append)
+    torch.cuda.synchronize()
+    assert retreats == [4]
+    evals = tl.lbfgs_minimize.evaluations - e0
+    assert k16.launches > 0 and k32.launches > 0
+    assert k16.launches + k32.launches == evals
+    # and through fit: the leg starts on K3-bf16
+    cuda_taylor.reset_launch_counts()
+    s.fit(newton_iter=5)
+    assert k16.launches > 0
+    assert (k32.launches == 0) == (s.lbfgs_retreat is None)
+
+
+def test_bf16_serving_rungs_launch_k1_bf16_per_replay(card):
+    solver = _ac_solver("cuda", n_f=1024, minimax=None, fused_dtype="bfloat16")
+    solver.fit(tf_iter=5)
+    sur = solver.export_surrogate()
+    eng = sur.engine(min_bucket=64, max_bucket=1024, compute_dtype="bfloat16")
+    f32 = sur.engine(min_bucket=64, max_bucket=1024)
+    X = _serve_points(700, seed=3)
+    for spec in ("u", "d:x:2", "residual"):
+        got = eng.op_for(spec)(X)
+        assert _serve_equal(got, _serve_eager(eng, spec, X, 1024)), spec
+        ref = f32.op_for(spec)(X)
+        err = _scaled(torch.from_numpy(np.asarray(got)),
+                      torch.from_numpy(np.asarray(ref)))
+        assert 0 < err <= BF16_VALUES, (spec, err)
+        cuda_taylor.reset_launch_counts()
+        for _ in range(3):
+            eng.op_for(spec)(X)
+        counts = {fn.__name__: fn.launches for fn in cuda_taylor.COUNTED}
+        assert counts == dict({k: 0 for k in counts}, k1_forward_bf16=3)
+    # an order past the propagation's reach is the f32 program
+    np.testing.assert_array_equal(eng.derivative(X, "x", 5),
+                                  f32.derivative(X, "x", 5))
+    assert all(r.graph.captures == 1 for r in eng._rungs.values())
+
+
+@pytest.mark.parametrize("fused", ["cuda", "autotune"])
+def test_bf16_k1_launch_failure_raises_out_of_compile(card, monkeypatch,
+                                                      fused):
+    """A K1-bf16 the runtime refuses fails ``compile(fused_dtype=...)``
+    (``fused="cuda"``: the cross-check's error, caused by the launch's;
+    ``"autotune"``: the launch's own): the solver does not take the plain
+    flavor or the f32 kernel instead."""
+    fits = cuda_taylor._Plan.tile_sizes
+
+    def oversized(self, device):
+        tp_fwd, tp_bwd, n_sm = fits(self, device)
+        return 64 * tp_fwd, tp_bwd, n_sm
+
+    monkeypatch.setattr(cuda_taylor._Plan, "tile_sizes", oversized)
+    before = (cuda_taylor.k1_forward_bf16.launches,
+              cuda_taylor.k1_forward.launches)
+    with pytest.raises((cuda_taylor.KernelLaunchError, ValueError)) as info:
+        _ac_solver(fused, n_f=512, minimax=False, fused_dtype="bfloat16")
+    err = info.value
+    if not isinstance(err, cuda_taylor.KernelLaunchError):
+        err = err.__cause__
+    assert isinstance(err, cuda_taylor.KernelLaunchError)
+    assert "K1 launch" in str(err)
+    assert (cuda_taylor.k1_forward_bf16.launches,
+            cuda_taylor.k1_forward.launches) == before

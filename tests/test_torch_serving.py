@@ -570,20 +570,18 @@ def test_default_device_is_the_card(trained, tmp_path):
         networks.net_from_metadata(s._arch_meta())
 
 
-@pytest.mark.parametrize("what", ["compute_dtype", "shard",
-                                  "from_discovery"])
+@pytest.mark.parametrize("what", ["shard", "from_discovery"])
 def test_unported_options_raise(engine, what):
     """Serving options still left out, and the ``DiscoveryModel`` option
     its surrogates need that is still left out: the data-parallel layout
     (``"from_discovery"``).  The discovery contract itself is ported
     (``tests/test_torch_discovery.py``), and so are its lr schedules
-    (``tests/test_torch_schedules.py``)."""
+    (``tests/test_torch_schedules.py``) and the engine's ``compute_dtype``
+    (``tests/test_torch_mixed_precision.py``)."""
     sur = engine.surrogate
     X = np.zeros((8, 2))
     with pytest.raises(NotPortedError, match="ROADMAP"):
-        if what == "compute_dtype":
-            sur.engine(compute_dtype="bfloat16")
-        elif what == "shard":
+        if what == "shard":
             sur.engine(shard=True)
         else:
             tdqt.DiscoveryModel(device="cpu").compile(

@@ -131,9 +131,10 @@ def test_device_defaults_to_cuda():
 def test_unported_options_raise_typed_errors():
     d, b, f, _ = ac_problem(tdqt)
     s = tdqt.CollocationSolverND(verbose=False, device="cpu")
-    # fused="autotune", causal_eps, remat and Adaptive_type=3 are ported:
-    # tests/test_torch_autotune.py, test_torch_causal.py, test_torch_ntk.py
-    for kw in (dict(dist=True), dict(fused_dtype="bfloat16")):
+    # fused="autotune", causal_eps, remat, Adaptive_type=3 and fused_dtype
+    # are ported: tests/test_torch_autotune.py, test_torch_causal.py,
+    # test_torch_ntk.py, test_torch_mixed_precision.py
+    for kw in (dict(dist=True),):
         with pytest.raises(NotPortedError, match="ROADMAP"):
             s.compile([2, 8, 1], f, d, b, **kw)
     with pytest.raises(ValueError, match="cuda"):
