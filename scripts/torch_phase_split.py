@@ -1,15 +1,17 @@
 """Where K2 and K3 spend their time, phase by phase, on one NVIDIA GPU.
 
-    python3 scripts/torch_phase_split.py [--reps 5]
+    python3 scripts/torch_phase_split.py [--reps 5] [--tree DIR]
 
-Run from the root of the checkout (the script reads its
-``tensordiffeq_tpu_torch/csrc`` and uses its wrappers).  It copies the
-kernel sources into a scratch
-directory under the git-ignored ``_build/``, instruments the copy (the
-checkout's sources are not touched and carry no switch for it), builds the
-copy, and runs K2 and K3 at the Allen-Cahn slice (N = 50,000 points, net
-2-128x4-1, C = 4 channels; K3 also on the coupled system and the ``1/x``
-residual at N = 50,001).
+Run from the root of a checkout; ``--tree`` (default: this script's
+checkout) names the checkout whose ``tensordiffeq_tpu_torch`` package and
+``chip_smoke.py`` are split, so one call can split an older checkout
+beside this one.  It copies the kernel sources into a scratch directory
+under the git-ignored ``_build/``, instruments the copy (the checkout's
+sources are not touched and carry no switch for it), builds the copy, and
+runs K2 and K3 at the Allen-Cahn slice (N = 50,000 points, net 2-128x4-1,
+C = 4 channels; K3 also on the coupled system and the ``1/x`` residual at
+N = 50,001), then their bf16 flavors (K2-bf16, K3-bf16 on the AC set and
+the coupled system).
 
 The instrumentation: every device function named in ``PHASES`` gets a
 ``clock64()`` stamp at its entry and at each exit, and thread 0 of each
@@ -45,7 +47,7 @@ sys.path.insert(0, ROOT)
 LABELS = ["forward products", "head product", "K3 epilogue (tape)",
           "act_fwd", "act_vjp", "workspace copies", "dW (+ partials)",
           "dH", "bias sums", "layer 0 forward", "layer 0 backward",
-          "total"]
+          "cotangent split", "total"]
 P = {name: i for i, name in enumerate(LABELS)}
 PHASES = {
     "mma_w_rows": str(P["forward products"]),
@@ -61,7 +63,14 @@ PHASES = {
     "act_vjp": str(P["act_vjp"]),
     "bias_accum": str(P["bias sums"]),
     "epilogue": str(P["K3 epilogue (tape)"]),
+    # the bf16 flavor's own products and its cotangent split
+    "bmma_w_rows": str(P["forward products"]),
+    "bmma_w_cols": str(P["dH"]),
+    "bmma_dw": str(P["dW (+ partials)"]),
+    "split_pieces": str(P["cotangent split"]),
 }
+# functions a checkout from before the bf16 flavor's own route lacks
+OPTIONAL = {"bmma_w_rows", "bmma_w_cols", "bmma_dw", "split_pieces"}
 KERNELS = ("taylor_bwd_kernel", "minimax_step_kernel")
 MAXBLK = 1024
 NPH = len(LABELS)
@@ -117,7 +126,8 @@ def _instrument_fn(src: str, pattern: str, phase: str) -> tuple[str, bool]:
 def instrument(src_dir: str, dst_dir: str) -> list:
     """Copy ``src_dir`` into ``dst_dir`` with the stamps in; returns the
     names of the functions it instrumented, and raises if one of
-    ``PHASES`` or ``KERNELS`` is no longer in the sources."""
+    ``PHASES`` (but ``OPTIONAL``) or ``KERNELS`` is no longer in the
+    sources."""
     os.makedirs(dst_dir, exist_ok=True)
     done = []
     for name in sorted(os.listdir(src_dir)):
@@ -152,7 +162,7 @@ extern "C" int tdq_ps_read_{stem}(unsigned long long* out, int reset) {{
 """
         with open(os.path.join(dst_dir, name), "w") as fh:
             fh.write(src)
-    missing = sorted((set(PHASES) | set(KERNELS)) - set(done))
+    missing = sorted((set(PHASES) | set(KERNELS)) - set(done) - OPTIONAL)
     if missing:
         raise SystemExit(f"FAILED: not found in {src_dir}: "
                          f"{', '.join(missing)}")
@@ -169,7 +179,11 @@ def card_line() -> str:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--tree", default=ROOT,
+                    help="the checkout whose kernels are split")
     args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
 
     import torch
     if not torch.cuda.is_available():
@@ -177,6 +191,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
     from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    if not os.path.abspath(ct.__file__).startswith(tree):
+        sys.exit(f"FAILED: imported {ct.__file__}, not the package in {tree}")
 
     scratch = os.path.join(ct.BUILD_DIR, "phase_split")
     shutil.rmtree(scratch, ignore_errors=True)
@@ -185,7 +201,7 @@ def main():
     ct.BUILD_DIR = os.path.join(scratch, "build")
     lib = ct.build()
     print(card_line(), flush=True)
-    print(f"[phase-split] instrumented {', '.join(done)}", flush=True)
+    print(f"[phase-split] {tree}: instrumented {', '.join(done)}", flush=True)
 
     buf = (ctypes.c_ulonglong * (MAXBLK * NPH))()
 
@@ -226,7 +242,6 @@ def main():
                   f"{ms * c / total:.3f} ms  {name}", flush=True)
 
     # the same inputs as chip_smoke.py's phases 3-5
-    sys.path.insert(0, ROOT)
     import chip_smoke as cs
     from tensordiffeq_tpu_torch.networks import neural_net
     from tensordiffeq_tpu_torch.ops.fused import analyze_f_model
@@ -245,6 +260,8 @@ def main():
     g = torch.as_tensor(rng.randn(plan.C, n, 1), dtype=torch.float32,
                         device=dev)
     split("K2 ac", "taylor_table", lambda: ct.k2_backward(plan, X, flat, g))
+    split("K2-bf16 ac", "taylor_table",
+          lambda: ct.k2_backward_bf16(plan, X, flat, g))
 
     for label, f_model, widths, nk, (lo, hi) in (
             ("ac", cs._ac_residual, cs.WIDTHS, n, (-1.0, 1.0)),
@@ -267,6 +284,9 @@ def main():
                            for pair in lay for a in pair])
         split(f"K3 {label}", "minimax_step",
               lambda: cm.k3_minimax(sq.plan, Xk, w, fl))
+        if label != "singular":
+            split(f"K3-bf16 {label}", "minimax_step",
+                  lambda: cm.k3_minimax_bf16(sq.plan, Xk, w, fl))
     print(card_line(), flush=True)
 
 

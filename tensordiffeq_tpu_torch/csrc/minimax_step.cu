@@ -58,9 +58,12 @@
 //
 // The bf16-operand flavor (BF = true; the Pallas kernel under
 // compute_dtype=bfloat16) rounds every product's operands to bf16 as
-// taylor_common.cuh says, the epilogue staying f32: one TF32 pass per
-// forward product, two per dW/dH, and the network's share of gX and dW
-// rounded to bf16 (the tape's direct adjoints of X are not).
+// taylor_common.cuh says, the epilogue staying f32, and the network's share
+// of gX and dW rounded to bf16 (the tape's direct adjoints of X are not).
+// Its products run on the bf16 tensor cores as K2-bf16's do (taylor_table.cu
+// has the design): the head writes the table rows into slots 3-4, the
+// epilogue turns them into cotangents there, and reverse_sweep_bf goes on
+// from them.
 //
 // Differences from the Pallas kernel:
 //   * Pallas accumulated the value and dW/db over a sequential grid
@@ -84,7 +87,8 @@
 #define MAXTREG (MAXTIN + MAXTOPS)
 
 // the epilogue's block sum of the value uses the weight stage as scratch
-static_assert(STAGE_F >= NTHREADS, "the stage holds one float per thread");
+static_assert(STAGE_F >= NTHREADS && STAGE_BF_F >= NTHREADS,
+              "the stage holds one float per thread");
 
 // op codes (ops/residual_tape.py: OPS)
 #define OP_CONST 0  // r = cst[a]
@@ -246,6 +250,39 @@ minimax_step_kernel(const float* __restrict__ X, const float* __restrict__ w,
   extern __shared__ __align__(16) float sm[];
   const int C = s.C, R = TP * C, ld = net.ld, L = net.L, lh = net.L - 1;
   const int Rp = pad16(R);
+  if constexpr (BF) {
+    // five bf16 slots (taylor_common.cuh: reverse_sweep_bf)
+    float* mypart = part + (size_t)blockIdx.x * slot_stride(net.P_total + 1);
+    bf16* wst = stage_of_bf(sm, 5, R, ld);
+    uint64_t* mbar = mbar_of_bf(wst);
+    float* myws = ws + (size_t)blockIdx.x * ws_floats_bf(L, R, ld);
+    // the weights' bf16 copy, after every block's slice (round_weights)
+    const bf16* wbf = reinterpret_cast<const bf16*>(
+        ws + (size_t)gridDim.x * ws_floats_bf(L, R, ld));
+    zero_buffers(sm, 5 * Rp * ld / 2);
+    zero_ws_pads(myws, L, R, ld);
+    mbar_init(mbar);
+    unsigned phase = 0;
+    float* F = sm;
+    bf16* Hb = slot_of(sm, 2, Rp, ld);
+    float* T = reinterpret_cast<float*>(slot_of(sm, 3, Rp, ld));
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const bool first = (tile == blockIdx.x);
+      const int p0 = tile * TP;
+      stage_forward_bf(X, prm, wbf, N, p0, TP, net, s, myws, F, Hb, wst);
+      // the reverse sweep's first staged layer, behind the head and epilogue
+      ws_load(F, ws_P(myws, L - 2, R, ld), R, ld, mbar);
+      bproduct_fwd<true>(Hb, ld, R, net.w_in[lh], prm + net.offW[lh],
+                   wbf + wbf_offset(net, lh), net.n_out, prm + net.offb[lh], C,
+                   T, wst, false);
+      epilogue(T, ld, X, w, gw, gX, N, p0, TP, C, net.n_out, net.d, tp,
+               reinterpret_cast<float*>(wst), mypart + net.P_total, first);
+      reverse_sweep_bf(X, prm, wbf, gX, true, mypart, myws, N, p0, TP, first,
+                       net, s, sm, wst, mbar, phase);
+    }
+    bulk_wait();  // dW's last bulk adds are in the slot
+    return;
+  }
   float* buf0 = sm;
   float* buf1 = sm + Rp * ld;
   float* buf2 = sm + 2 * Rp * ld;
@@ -261,19 +298,19 @@ minimax_step_kernel(const float* __restrict__ X, const float* __restrict__ w,
     const bool first = (tile == blockIdx.x);
     const int p0 = tile * TP;
     bool head_issued = false;
-    float* cur = stage_forward<BF>(X, prm, N, p0, TP, net, s, myws, buf0,
-                                   buf1, wst, &head_issued);
+    float* cur = stage_forward(X, prm, N, p0, TP, net, s, myws, buf0, buf1,
+                               wst, &head_issued);
     float* oth = (cur == buf0) ? buf1 : buf0;
     // the reverse sweep's first staged layer, behind the head and epilogue
     ws_load(oth, myws + (size_t)(L - 2) * R * ld, R, ld, mbar);
     // the head's channels: the table rows of this tile
     float* T = buf2;
-    product_fwd<BF>(cur, ld, R, net.w_in[lh], prm + net.offW[lh], net.n_out,
-                    prm + net.offb[lh], C, T, wst, head_issued);
+    product_fwd(cur, ld, R, net.w_in[lh], prm + net.offW[lh], net.n_out,
+                prm + net.offb[lh], C, T, wst, head_issued);
     epilogue(T, ld, X, w, gw, gX, N, p0, TP, C, net.n_out, net.d, tp, wst,
              mypart + net.P_total, first);
-    reverse_sweep<BF>(X, prm, gX, true, mypart, myws, N, p0, TP, first, net,
-                      s, cur, oth, T, wst, mbar, phase);
+    reverse_sweep(X, prm, gX, true, mypart, myws, N, p0, TP, first, net, s,
+                  cur, oth, T, wst, mbar, phase);
   }
 }
 
@@ -307,12 +344,21 @@ static int minimax_step(const float* X, const float* w, const float* prm,
                         float* gw, float* gX, float* part, float* ws,
                         float* out, int N, int TP, int G, const Net& net,
                         const Sched& s, const Tape& tp, cudaStream_t st) {
-  const size_t smem = smem_bytes(3, TP * s.C, net.ld);
+  const size_t smem = BF ? smem_bytes_bf(5, TP * s.C, net.ld)
+                         : smem_bytes(3, TP * s.C, net.ld);
   cudaError_t e = cudaFuncSetAttribute(
       minimax_step_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int n_tiles = (N + TP - 1) / TP;
+  if (BF) {  // the weights' bf16 copy, after the blocks' workspace slices
+    round_weights<<<64, 256, 0, st>>>(
+        prm, reinterpret_cast<bf16*>(
+                 ws + (size_t)G * ws_floats_bf(net.L, TP * s.C, net.ld)),
+        net);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
   minimax_step_kernel<BF><<<G, NTHREADS, smem, st>>>(
       X, w, prm, gw, gX, part, ws, N, TP, n_tiles, net, s, tp);
   e = cudaGetLastError();
@@ -330,8 +376,8 @@ extern "C" int tdq_minimax_step(const float* X, const float* w,
                                 const float* cst_h, int bf16, void* stream) {
   const Net net = unpack_net(net_h);
   const Sched s = unpack_sched(sched_h);
-  // layer 0 takes its operands into the weight stage
-  if (!layer0_fits(net.d, net.w_out[0], TP))
+  // the SIMT loops take their operands into the weight stage
+  if (bf16 ? !scratch_fits_bf(net, TP) : !layer0_fits(net.d, net.w_out[0], TP))
     return (int)cudaErrorInvalidValue;
   const Tape tp = unpack_tape(tape_h, cst_h);
   cudaStream_t st = (cudaStream_t)stream;

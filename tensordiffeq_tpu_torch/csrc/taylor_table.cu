@@ -62,13 +62,21 @@
 // minimax step (minimax_step.cu, K3) shares.
 //
 // The bf16-operand flavor (template parameter BF = true; the Pallas pair
-// under compute_dtype=bfloat16) is the same kernel with every product's
-// operands rounded to bf16 as taylor_common.cuh says: the forward
-// products take one TF32 pass instead of three, dW and dH two, and dX and
-// dW leave rounded to bf16.  Its bound is those passes over the TF32 peak
-// (the products at the dense bf16 peak beside it); the rest of the work,
-// and what holds the f32 flavor back, is unchanged, so it runs only 5-12 %
-// faster (PERF.md).  Native bf16 fragments are later work.
+// under compute_dtype=bfloat16) rounds every product's operands to bf16 as
+// taylor_common.cuh says, and dX and dW leave rounded to bf16.  It is
+// built for the bf16 tensor cores: the stack is rounded once as act_fwd
+// writes it, into a bf16 plane (and K2's workspace keeps the layer inputs
+// as bf16), W as it lands in a bf16 stage of 32 KB, and K2's f32
+// cotangent is cut once per layer into three bf16 pieces that carry all
+// its 24 bits; fragments come by ldmatrix (.trans for dW's and the
+// forward's transposed operands) into mma.m16n8k16 bf16, one pass per
+// forward product and three per dW or dH, at most the passes the card's
+// fastest route for the types takes.  The halved stage and bf16 planes
+// give K2 tiles of 128 rows (five slots of 128 x ld bf16) where the f32
+// flavor fits 96, so a block updates its partial slot a quarter less
+// often, and past its first tile it adds a layer's dW into the slot by
+// bulk reduce-adds from shared memory (bmma_dw), not by reading the slot
+// into the SMs (PERF.md has the times and the split by phase).
 //
 // K2 differences from the Pallas kernel:
 //   * Pallas summed dW/db across a sequential grid (pl.when(i == 0) then
@@ -102,6 +110,17 @@
 #include "taylor_common.cuh"
 
 // ------------------------------------------------------------------------
+// The head's channels of a tile's rows (buf, R x ld) into table[C][N][n_out]
+// (the bf16 flavor's K1; the f32 one writes them inline).
+static __device__ void table_rows(const float* buf, float* __restrict__ table,
+                                  int N, int p0, int R, int C, int ld,
+                                  int n_out) {
+  for (int e = threadIdx.x; e < R * n_out; e += NTHREADS) {
+    int r = e / n_out, o = e % n_out, p = r / C, c = r % C, gp = p0 + p;
+    if (gp < N) table[((size_t)c * N + gp) * n_out + o] = buf[r * ld + o];
+  }
+}
+
 // K1: one block per tile of TP points.  BF: the bf16-operand flavor
 // (taylor_common.cuh).
 template <bool BF>
@@ -111,6 +130,23 @@ taylor_fwd_kernel(const float* __restrict__ X, const float* __restrict__ prm,
                   Sched s) {
   extern __shared__ __align__(16) float sm[];
   const int C = s.C, R = TP * C, ld = net.ld;
+  if constexpr (BF) {
+    // F (f32, slots 0-1) and the bf16 stack Hb (slot 2)
+    const int Rp = pad16(R), p0 = blockIdx.x * TP;
+    float* F = sm;
+    bf16* Hb = slot_of(sm, 2, Rp, ld);
+    bf16* wst = stage_of_bf(sm, 3, R, ld);
+    zero_buffers(sm, 3 * Rp * ld / 2);
+    layer0_fwd<true>(X, prm, N, p0, TP, net, s, F,
+                     reinterpret_cast<float*>(wst));
+    for (int l = 1; l < net.L; ++l) {
+      act_fwd<true>(F, ld, TP, net.w_out[l - 1], s, nullptr, nullptr, Hb);
+      bproduct_fwd<false>(Hb, ld, R, net.w_in[l], prm + net.offW[l], nullptr,
+                          net.w_out[l], prm + net.offb[l], C, F, wst, false);
+    }
+    table_rows(F, table, N, p0, R, C, ld, net.n_out);
+    return;
+  }
   float* cur = sm;
   float* nxt = sm + pad16(R) * ld;
   float* wst = stage_of(sm, 2, R, ld);
@@ -122,8 +158,8 @@ taylor_fwd_kernel(const float* __restrict__ X, const float* __restrict__ prm,
     const bool issued = prefetch_fwd(prm + net.offW[l], net.w_in[l],
                                      net.w_out[l], wst);
     act_fwd(cur, ld, TP, net.w_out[l - 1], s, nullptr, nullptr);
-    product_fwd<BF>(cur, ld, R, net.w_in[l], prm + net.offW[l],
-                    net.w_out[l], prm + net.offb[l], C, nxt, wst, issued);
+    product_fwd(cur, ld, R, net.w_in[l], prm + net.offW[l],
+                net.w_out[l], prm + net.offb[l], C, nxt, wst, issued);
     float* t = cur; cur = nxt; nxt = t;
   }
   const int n_out = net.n_out;
@@ -144,6 +180,39 @@ taylor_bwd_kernel(const float* __restrict__ X, const float* __restrict__ prm,
   extern __shared__ __align__(16) float sm[];
   const int C = s.C, R = TP * C, ld = net.ld, L = net.L, n_out = net.n_out;
   const int Rp = pad16(R);
+  if constexpr (BF) {
+    // five bf16 slots (taylor_common.cuh: reverse_sweep_bf)
+    float* mypart = part + (size_t)blockIdx.x * slot_stride(net.P_total);
+    bf16* wst = stage_of_bf(sm, 5, R, ld);
+    uint64_t* mbar = mbar_of_bf(wst);
+    float* myws = ws + (size_t)blockIdx.x * ws_floats_bf(L, R, ld);
+    // the weights' bf16 copy, after every block's slice (round_weights)
+    const bf16* wbf = reinterpret_cast<const bf16*>(
+        ws + (size_t)gridDim.x * ws_floats_bf(L, R, ld));
+    zero_buffers(sm, 5 * Rp * ld / 2);
+    zero_ws_pads(myws, L, R, ld);
+    mbar_init(mbar);
+    unsigned phase = 0;
+    float* F = sm;
+    float* dP = reinterpret_cast<float*>(slot_of(sm, 3, Rp, ld));
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const bool first = (tile == blockIdx.x);
+      const int p0 = tile * TP;
+      stage_forward_bf(X, prm, wbf, N, p0, TP, net, s, myws, F,
+                       slot_of(sm, 2, Rp, ld), wst);
+      ws_load(F, ws_P(myws, L - 2, R, ld), R, ld, mbar);
+      for (int e = threadIdx.x; e < R * n_out; e += NTHREADS) {
+        int r = e / n_out, o = e % n_out, p = r / C, c = r % C, gp = p0 + p;
+        dP[r * ld + o] =
+            (gp < N) ? gtab[((size_t)c * N + gp) * n_out + o] : 0.f;
+      }
+      __syncthreads();
+      reverse_sweep_bf(X, prm, wbf, dX, false, mypart, myws, N, p0, TP, first,
+                       net, s, sm, wst, mbar, phase);
+    }
+    bulk_wait();  // dW's last bulk adds are in the slot
+    return;
+  }
   float* buf0 = sm;
   float* buf1 = sm + Rp * ld;
   float* buf2 = sm + 2 * Rp * ld;
@@ -158,8 +227,8 @@ taylor_bwd_kernel(const float* __restrict__ X, const float* __restrict__ prm,
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const bool first = (tile == blockIdx.x);
     const int p0 = tile * TP;
-    float* cur = stage_forward<BF>(X, prm, N, p0, TP, net, s, myws, buf0,
-                                   buf1, wst, nullptr);
+    float* cur = stage_forward(X, prm, N, p0, TP, net, s, myws, buf0, buf1,
+                               wst, nullptr);
     float* oth = (cur == buf0) ? buf1 : buf0;
     ws_load(oth, myws + (size_t)(L - 2) * R * ld, R, ld, mbar);
     // head: the table cotangents are its pre-activation cotangents
@@ -169,8 +238,8 @@ taylor_bwd_kernel(const float* __restrict__ X, const float* __restrict__ prm,
       dP[r * ld + o] = (gp < N) ? gtab[((size_t)c * N + gp) * n_out + o] : 0.f;
     }
     __syncthreads();
-    reverse_sweep<BF>(X, prm, dX, false, mypart, myws, N, p0, TP, first, net,
-                      s, cur, oth, dP, wst, mbar, phase);
+    reverse_sweep(X, prm, dX, false, mypart, myws, N, p0, TP, first, net, s,
+                  cur, oth, dP, wst, mbar, phase);
   }
 }
 
@@ -185,7 +254,21 @@ extern "C" int tdq_limits(int* out) {
   out[2] = STAGE_BYTES;
   out[3] = NARROW_N;
   out[4] = BLK_M;
+  out[5] = STAGE_BF_BYTES;
   return 0;
+}
+
+// Floats of a K2/K3 launch's workspace for tiles of R rows on G blocks:
+// the blocks' slices and, in the bf16 flavor, the weights' bf16 copy after
+// them (ops/cuda_taylor.py::workspace_floats allocates it, and checks its
+// count against this one before a plan's first launch in a flavor).
+extern "C" long long tdq_workspace_floats(const int* net_h, int R, int G,
+                                          int bf16) {
+  const Net net = unpack_net(net_h);
+  if (bf16)
+    return (long long)G * (long long)ws_floats_bf(net.L, R, net.ld) +
+           (long long)wbf_floats(net);
+  return (long long)G * ws_slices(net.L) * R * net.ld;
 }
 
 extern "C" int tdq_device_info(int device, int* out) {
@@ -200,7 +283,8 @@ template <bool BF>
 static int taylor_fwd(const float* X, const float* prm, float* table, int N,
                       int TP, const Net& net, const Sched& s,
                       cudaStream_t st) {
-  const size_t smem = smem_bytes(2, TP * s.C, net.ld);
+  const size_t smem = BF ? smem_bytes_bf(3, TP * s.C, net.ld)
+                         : smem_bytes(2, TP * s.C, net.ld);
   cudaError_t e = cudaFuncSetAttribute(
       taylor_fwd_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -216,8 +300,8 @@ extern "C" int tdq_taylor_fwd(const float* X, const float* prm, float* table,
                               const int* sched_h, int bf16, void* stream) {
   const Net net = unpack_net(net_h);
   const Sched s = unpack_sched(sched_h);
-  // layer 0 takes its operands into the weight stage
-  if (!layer0_fits(net.d, net.w_out[0], TP))
+  // the SIMT loops take their operands into the weight stage
+  if (bf16 ? !scratch_fits_bf(net, TP) : !layer0_fits(net.d, net.w_out[0], TP))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   return bf16 ? taylor_fwd<true>(X, prm, table, N, TP, net, s, st)
@@ -229,12 +313,21 @@ static int taylor_bwd(const float* X, const float* prm, const float* gtab,
                       float* dX, float* part, float* ws, float* grad, int N,
                       int TP, int G, const Net& net, const Sched& s,
                       cudaStream_t st) {
-  const size_t smem = smem_bytes(3, TP * s.C, net.ld);
+  const size_t smem = BF ? smem_bytes_bf(5, TP * s.C, net.ld)
+                         : smem_bytes(3, TP * s.C, net.ld);
   cudaError_t e = cudaFuncSetAttribute(
       taylor_bwd_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int n_tiles = (N + TP - 1) / TP;
+  if (BF) {  // the weights' bf16 copy, after the blocks' workspace slices
+    round_weights<<<64, 256, 0, st>>>(
+        prm, reinterpret_cast<bf16*>(
+                 ws + (size_t)G * ws_floats_bf(net.L, TP * s.C, net.ld)),
+        net);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
   taylor_bwd_kernel<BF><<<G, NTHREADS, smem, st>>>(X, prm, gtab, dX, part, ws,
                                                    N, TP, n_tiles, net, s);
   e = cudaGetLastError();
@@ -251,8 +344,8 @@ extern "C" int tdq_taylor_bwd(const float* X, const float* prm,
                               void* stream) {
   const Net net = unpack_net(net_h);
   const Sched s = unpack_sched(sched_h);
-  // layer 0 takes its operands into the weight stage
-  if (!layer0_fits(net.d, net.w_out[0], TP))
+  // the SIMT loops take their operands into the weight stage
+  if (bf16 ? !scratch_fits_bf(net, TP) : !layer0_fits(net.d, net.w_out[0], TP))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   return bf16 ? taylor_bwd<true>(X, prm, gtab, dX, part, ws, grad, N, TP, G,

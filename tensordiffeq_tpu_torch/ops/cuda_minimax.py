@@ -63,17 +63,17 @@ def _k3(plan: MinimaxPlan, X: torch.Tensor, w: torch.Tensor,
         flat: torch.Tensor, bf16: int):
     _check_k3_inputs(plan, X, w, flat)
     lib = ct.build()
-    _, tp, n_sm = plan.tile_sizes(X.device)
+    flavor = ct.FLAVOR_OF[bf16]
+    _, tp, n_sm = plan.tile_sizes(X.device, flavor)
     N = X.shape[0]
     n_tiles = -(-N // tp)
     G = min(n_tiles, n_sm)
-    R = tp * plan.C
-    L = len(plan.layer_shapes)
     opts = dict(device=X.device, dtype=torch.float32)
     gw = torch.empty((N, plan.E), **opts)
     gX = torch.empty((N, plan.d), **opts)
     part = torch.empty((G, ct.slot_stride(plan.P_total + 1)), **opts)
-    ws = torch.empty((G * (2 * L - 3) * R * plan.ld,), **opts)
+    ws = torch.empty((ct.workspace_floats(plan.layer_shapes, tp * plan.C,
+                                          plan.ld, G, flavor),), **opts)
     out = torch.empty((plan.P_total + 1,), **opts)
     stream = torch.cuda.current_stream(X.device).cuda_stream
     ct._check(lib.tdq_minimax_step(
@@ -113,30 +113,18 @@ ct.COUNTED.extend([k3_minimax, k3_minimax_bf16])
 FLAVORS = {None: k3_minimax, torch.bfloat16: k3_minimax_bf16}
 
 
-def _with_head(plan: MinimaxPlan, k2_passes: float) -> float:
-    """K3's passes per tensor-core product: K2's, averaged with the head's
-    forward product at one pass (two rounded operands)."""
-    tc = ct._tensor_products(plan)
-    k2_tc = sum(tc[:-1]) + 2 * sum(tc)
-    head = tc[-1]
-    return ((k2_passes * k2_tc + head) / (k2_tc + head) if k2_tc + head
-            else 1.0)
-
-
 def tensor_passes(plan: MinimaxPlan, compute_dtype=None) -> float:
-    """TF32 passes per tensor-core product of K3, averaged over its
-    ``flop_count`` ``tensor`` share (:func:`.cuda_taylor.tensor_passes`:
-    K2's products and the head's forward product)."""
+    """Tensor-core passes per product of K3, averaged over its
+    ``flop_count`` ``tensor`` share (:func:`.cuda_taylor.tensor_passes`):
+    K2's products and the head's forward product, one pass in the bf16
+    flavor."""
     k2 = ct.tensor_passes(plan, compute_dtype)["k2"]
     if k2 == 3.0:
         return 3.0
-    return _with_head(plan, k2)
-
-
-def bf16_bound_passes(plan: MinimaxPlan) -> float:
-    """Dense-bf16 passes per tensor-core product of K3-bf16's work on the
-    card's fastest route (:func:`.cuda_taylor.bf16_bound_passes`)."""
-    return _with_head(plan, ct.bf16_bound_passes(plan)["k2"])
+    tc = ct._tensor_products(plan)
+    k2_tc = sum(tc[:-1]) + 2 * sum(tc)
+    head = tc[-1]
+    return (k2 * k2_tc + head) / (k2_tc + head) if k2_tc + head else 1.0
 
 
 def flop_count(plan: MinimaxPlan, n_points: int) -> dict:

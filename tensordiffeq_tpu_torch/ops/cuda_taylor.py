@@ -57,6 +57,12 @@ MAX_TAPE_CONSTS = 32  # MAXTCONST
 MAX_EQUATIONS = 8     # MAXEQ: residual equations E
 BLOCK_ROWS = 128  # BLK_M: rows of a product's block tile, the tile's cap
 NARROW_N = 16     # NARROW_N: products this narrow stay SIMT loops
+# the wavefront arrays a block holds, in slots of rows x ld bf16 (an f32
+# buffer is two): K1 two f32 buffers in both flavors; K2/K3 three f32
+# buffers, or the bf16 flavor's five slots (csrc/taylor_common.cuh:
+# reverse_sweep_bf)
+K1_SLOTS = 4
+BWD_SLOTS = {None: 6, torch.bfloat16: 5}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -169,10 +175,12 @@ def build() -> ctypes.CDLL:
     lib.tdq_device_info.argtypes = [i32, ptr]
     lib.tdq_limits.argtypes = [ptr]
     lib.tdq_minimax_limits.argtypes = [ptr]
+    lib.tdq_workspace_floats.argtypes = [ptr, i32, i32, i32]
+    lib.tdq_workspace_floats.restype = ctypes.c_longlong
     for fn in (lib.tdq_taylor_fwd, lib.tdq_taylor_bwd, lib.tdq_minimax_step,
                lib.tdq_device_info, lib.tdq_limits, lib.tdq_minimax_limits):
         fn.restype = i32
-    limits = (ctypes.c_int * 5)()
+    limits = (ctypes.c_int * 6)()
     lib.tdq_limits(limits)
     tape = (ctypes.c_int * 4)()
     lib.tdq_minimax_limits(tape)
@@ -182,8 +190,9 @@ def build() -> ctypes.CDLL:
     if got != want:
         raise KernelBuildError(
             f"kernel limits {got} disagree with the wrapper's {want}")
-    # the shared memory a block needs besides its wavefront buffers
-    lib.stage_bytes = int(limits[2])
+    # the shared memory a block needs besides its wavefront arrays: the
+    # f32 weight stage (K1 in both flavors, K2/K3 in f32) and the bf16 one
+    lib.stage_bytes = (int(limits[2]), int(limits[5]))
     _lib = lib
     return lib
 
@@ -193,6 +202,59 @@ def slot_stride(n: int) -> int:
     multiple of 4, so each slot starts 16-byte aligned (``slot_stride`` in
     ``csrc/taylor_common.cuh``)."""
     return -(-n // 4) * 4
+
+
+def tile_points(smem: int, stage_bytes: tuple, ld: int, C: int,
+                flavor=None) -> tuple[int, int]:
+    """Points per block tile ``(K1, K2/K3)`` for a card with ``smem``
+    bytes of opt-in shared memory, weight stages of ``stage_bytes = (f32,
+    bf16)`` bytes, wavefront rows of ``ld`` floats and ``C`` channels: the
+    most rows, a multiple of the tensor cores' 16 and at most one block
+    tile (``BLOCK_ROWS``), whose wavefront arrays fit beside the stage, over
+    ``C``.  K1 keeps the f32 flavor's tile in both flavors (its bf16 body
+    needs less); K2/K3 take the flavor's own layout (``BWD_SLOTS``) and
+    stage, so the bf16 flavor's tile is taller.  Raises
+    :class:`KernelLaunchError` when 16 rows do not fit."""
+    dtype = resolve_compute_dtype(flavor)
+    slot_row = 2 * ld  # bytes of one row of a bf16 slot
+    tps = []
+    for slots, stage in ((K1_SLOTS, stage_bytes[0]),
+                         (BWD_SLOTS[dtype],
+                          stage_bytes[0 if dtype is None else 1])):
+        rows = min((smem - stage) // (slots * slot_row), BLOCK_ROWS)
+        rows = rows // 16 * 16
+        if rows < C:
+            raise KernelLaunchError(
+                f"rows of {ld} floats x {C} channels do not fit 16 rows in "
+                f"{smem} B of shared memory")
+        tps.append(rows // C)
+    return tps[0], tps[1]
+
+
+def ws_floats(L: int, R: int, ld: int, flavor=None) -> int:
+    """Floats of one block's K2/K3 workspace slice for tiles of ``R`` rows
+    (``ws_slices`` and ``ws_floats_bf`` in ``csrc/taylor_common.cuh``): the
+    f32 flavor stages 2L-3 layers of R x ld floats; the bf16 flavor the L-1
+    pre-activation layers so and the L-2 layer inputs as bf16, pad16(R) x
+    ld each."""
+    if resolve_compute_dtype(flavor) is None:
+        return (2 * L - 3) * R * ld
+    return (L - 1) * R * ld + (L - 2) * (-(-R // 16) * 16) * ld // 2
+
+
+def workspace_floats(layer_shapes: Sequence[tuple], R: int, ld: int, G: int,
+                     flavor=None) -> int:
+    """Floats of a K2/K3 launch's workspace: ``G`` blocks' slices
+    (:func:`ws_floats`) and, in the bf16 flavor, the weights' bf16 copy
+    after them (``round_weights`` in ``csrc/taylor_common.cuh``: the W of
+    layers 1 .. L-1 as rows padded to 8 bf16, in a multiple of 4
+    floats)."""
+    L = len(layer_shapes)
+    floats = G * ws_floats(L, R, ld, flavor)
+    if resolve_compute_dtype(flavor) is not None:
+        copy = sum(fi * -(-fo // 8) * 8 for fi, fo in layer_shapes[1:])
+        floats += -(-copy // 8) * 4
+    return floats
 
 
 def _check(err: int, what: str):
@@ -284,32 +346,35 @@ class _Plan:
             sched += list(idx) + [0] * (6 - len(idx))
         sched += [0] * (6 * (MAX_CHANNELS - self.C))
         self.sched_h = (ctypes.c_int * len(sched))(*sched)
-        self.tiles = None  # (TP_fwd, TP_bwd, n_sm) after the first launch
+        self.tiles = {}  # flavor -> (TP_fwd, TP_bwd, n_sm), at first launch
 
-    def tile_sizes(self, device: torch.device) -> tuple[int, int, int]:
-        """Points per block for K1 (2 wavefront buffers) and K2/K3 (3): the
-        most whose rows, padded to the tensor cores' 16, fit the card's
-        opt-in shared memory beside the weight stage, at most one block tile
-        of rows."""
-        if self.tiles is None:
+    def tile_sizes(self, device: torch.device,
+                   compute_dtype=None) -> tuple[int, int, int]:
+        """Points per block for K1 and K2/K3 in a flavor
+        (:func:`tile_points` over the card's opt-in shared memory), and the
+        card's SM count."""
+        dtype = resolve_compute_dtype(compute_dtype)
+        if dtype not in self.tiles:
             lib = build()
             info = (ctypes.c_int * 2)()
             index = (device.index if device.index is not None
                      else torch.cuda.current_device())
             _check(lib.tdq_device_info(index, info), "cudaDeviceGetAttribute")
-            smem, n_sm = int(info[0]), int(info[1])
-            row_bytes = 4 * self.ld
-            tps = []
-            for n_buf in (2, 3):
-                rows = min((smem - lib.stage_bytes) // (n_buf * row_bytes),
-                           BLOCK_ROWS) // 16 * 16
-                if rows < self.C:
-                    raise KernelLaunchError(
-                        f"width {self.width} x {self.C} channels does not "
-                        f"fit 16 rows in {smem} B of shared memory")
-                tps.append(rows // self.C)
-            self.tiles = (tps[0], tps[1], n_sm)
-        return self.tiles
+            tiles = (*tile_points(int(info[0]), lib.stage_bytes, self.ld,
+                                  self.C, dtype), int(info[1]))
+            # the workspace the wrappers allocate is the one the kernels
+            # index: a drift between the two sizes would under-allocate it
+            for G in (1, 2):
+                want = workspace_floats(self.layer_shapes, tiles[1] * self.C,
+                                        self.ld, G, dtype)
+                got = lib.tdq_workspace_floats(
+                    self.net_h, tiles[1] * self.C, G, int(dtype is not None))
+                if got != want:
+                    raise KernelBuildError(
+                        f"the kernels' workspace is {got} floats for {G} "
+                        f"block(s), the wrapper's {want}")
+            self.tiles[dtype] = tiles
+        return self.tiles[dtype]
 
     def pack(self, flat_layers) -> torch.Tensor:
         """The parameters as one contiguous vector (W_0, b_0, W_1, ...)."""
@@ -337,11 +402,15 @@ def _check_cuda_inputs(plan: _Plan, X: torch.Tensor, flat: torch.Tensor):
                          f"expects {plan.P_total}")
 
 
+# the C interface's bf16 argument -> the flavor's compute dtype
+FLAVOR_OF = {0: None, 1: torch.bfloat16}
+
+
 def _k1(plan: _Plan, X: torch.Tensor, flat: torch.Tensor,
         bf16: int) -> torch.Tensor:
     _check_cuda_inputs(plan, X, flat)
     lib = build()
-    tp, _, _ = plan.tile_sizes(X.device)
+    tp, _, _ = plan.tile_sizes(X.device, FLAVOR_OF[bf16])
     N = X.shape[0]
     table = torch.empty((plan.C, N, plan.n_out), device=X.device,
                         dtype=torch.float32)
@@ -381,15 +450,14 @@ def _k2(plan: _Plan, X: torch.Tensor, flat: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"cotangent must be a contiguous float32 "
                          f"[{plan.C}, {N}, {plan.n_out}] on {X.device}")
     lib = build()
-    _, tp, n_sm = plan.tile_sizes(X.device)
+    _, tp, n_sm = plan.tile_sizes(X.device, FLAVOR_OF[bf16])
     n_tiles = -(-N // tp)
     G = min(n_tiles, n_sm)
-    R = tp * plan.C
-    L = len(plan.layer_shapes)
     opts = dict(device=X.device, dtype=torch.float32)
     dX = torch.empty((N, plan.d), **opts)
     part = torch.empty((G, slot_stride(plan.P_total)), **opts)
-    ws = torch.empty((G * (2 * L - 3) * R * plan.ld,), **opts)
+    ws = torch.empty((workspace_floats(plan.layer_shapes, tp * plan.C,
+                                       plan.ld, G, FLAVOR_OF[bf16]),), **opts)
     dflat = torch.empty((plan.P_total,), **opts)
     stream = torch.cuda.current_stream(X.device).cuda_stream
     _check(lib.tdq_taylor_bwd(X.data_ptr(), flat.data_ptr(), g.data_ptr(),
@@ -522,25 +590,16 @@ def _mean_passes(plan: _Plan, fwd_passes: int, back_passes: int) -> dict:
 
 
 def tensor_passes(plan: _Plan, compute_dtype=None) -> dict:
-    """TF32 passes per tensor-core product of each kernel, averaged over
-    its ``flop_count`` ``tensor`` share: 3 in the f32 flavor (3xTF32); in
-    the bf16 flavor 1 for a forward product (two rounded operands) and 2
-    for a dW or dH product (the f32 cotangent split in two).  The route
-    the kernel takes, not the least the card could take for the work:
-    :func:`bf16_bound_passes`."""
+    """Tensor-core passes per product of each kernel, averaged over its
+    ``flop_count`` ``tensor`` share: 3 TF32 passes in the f32 flavor
+    (3xTF32, priced at the TF32 peak); in the bf16 flavor bf16 passes
+    (priced at the dense bf16 peak), 1 for a forward product (two bf16
+    operands) and 3 for a dW or dH product (the f32 cotangent's 24
+    significand bits in three bf16 pieces against the bf16 operand): the
+    passes its kernels take, and the fewest the card's fastest route for
+    these types takes (``wgmma`` would take as many)."""
     if resolve_compute_dtype(compute_dtype) is None:
         return {"k1": 3.0, "k2": 3.0}
-    return _mean_passes(plan, 1, 2)
-
-
-def bf16_bound_passes(plan: _Plan) -> dict:
-    """Dense-bf16 passes per tensor-core product of the bf16 flavor's work
-    on the card's fastest route for its types, averaged as
-    :func:`tensor_passes` averages: 1 for a forward product (two bf16
-    operands), 3 for a dW or dH product (the f32 cotangent's 24 significand
-    bits in three bf16 pieces against an exact bf16 operand; three passes
-    at the bf16 peak take less time than two at the TF32 peak).  The bound
-    prices them at the dense bf16 peak."""
     return _mean_passes(plan, 1, 3)
 
 
@@ -552,7 +611,8 @@ def flop_count(plan: _Plan, n_points: int) -> dict:
     ``tensor``: the channel products of the layers past layer 0 that are
     wider than ``NARROW_N`` (the hidden layers' products, on the tensor
     cores; counted once, as the products they stand for, whatever the
-    passes of the route: :func:`tensor_passes`).
+    passes of the route: :func:`tensor_passes`; the bf16 flavor's head
+    cotangent products, SIMT at any width, are counted so too).
     ``simt``: the rest, on the CUDA cores.  K1: the channel matmuls (2 per
     multiply-add; layer 0 is a product only in the primal channel, its
     seeds are copies) and, per hidden unit, the tanh chain up to the

@@ -74,12 +74,17 @@ installed::
   K2-bf16 and K3-bf16 against their plain bf16 flavors on every shape
   above, within the reference's bf16 bands (5e-2 values, 1.5e-1 gradients,
   scale-relative) and nearer (RMS) the plain bf16 flavor than the f32 one;
-  the bf16 launch differs from the f32 one; K2-bf16 and K3-bf16 bit for
-  bit run to run; ``compile(fused_dtype="bfloat16")`` trains graphed equal
+  the bf16 launch differs from the f32 one; the same for the bf16 route's
+  edges (widths off the multiples of 16 at a ragged N, narrow hidden
+  layers, 256-wide layers, several tiles per block at width 128; K3-bf16
+  on E = 2 and the ``1/x`` residual);
+  K2-bf16 and K3-bf16 bit for bit run to run, at small widths and at the
+  slice's 128 with several tiles per block; ``compile(fused_dtype="bfloat16")`` trains graphed equal
   to eager on both paths with only the bf16 kernels launched; the L-BFGS
   retreat moves from K3-bf16 to the f32 K3; a bf16 serving rung equals its
   eager program and launches K1-bf16 once per replay; a K1-bf16 the
-  runtime refuses raises out of ``compile``.
+  runtime refuses raises out of ``compile``; the workspace the wrappers
+  allocate is the size the kernels index, in both flavors.
 """
 
 import warnings
@@ -320,8 +325,8 @@ K3_CASES = {
 }
 
 
-def _k3_setup(case, dev, seed=0):
-    f, widths, n, (lo, hi) = K3_CASES[case]
+def _k3_setup(case, dev, seed=0, cases=K3_CASES):
+    f, widths, n, (lo, hi) = cases[case]
     layers, _, g = _net(widths, dev, seed)
     sq = build_minimax_sq_fn(f, ("x", "t"), widths[-1],
                              analyze_f_model(f, ("x", "t"), widths[-1]),
@@ -419,8 +424,8 @@ def test_k3_launch_failure_raises_out_of_compile(card, monkeypatch):
     more shared memory than a block may have."""
     fits = cuda_minimax.MinimaxPlan.tile_sizes
 
-    def oversized(self, device):
-        tp_fwd, tp_bwd, n_sm = fits(self, device)
+    def oversized(self, device, compute_dtype=None):
+        tp_fwd, tp_bwd, n_sm = fits(self, device, compute_dtype)
         return tp_fwd, 64 * tp_bwd, n_sm
 
     monkeypatch.setattr(cuda_minimax.MinimaxPlan, "tile_sizes", oversized)
@@ -929,8 +934,8 @@ def test_autotune_raises_when_k1_does_not_launch_on_card(card, monkeypatch):
     The tile here asks for more shared memory than a block may have."""
     fits = cuda_taylor._Plan.tile_sizes
 
-    def oversized(self, device):
-        tp_fwd, tp_bwd, n_sm = fits(self, device)
+    def oversized(self, device, compute_dtype=None):
+        tp_fwd, tp_bwd, n_sm = fits(self, device, compute_dtype)
         return 64 * tp_fwd, tp_bwd, n_sm
 
     monkeypatch.setattr(cuda_taylor._Plan, "tile_sizes", oversized)
@@ -1078,9 +1083,37 @@ def _nearer_bf16(got, want_bf, want_f32):
     return _rms(cat(got), cat(want_bf)) < _rms(cat(got), cat(want_f32))
 
 
+# the bf16 route's edges: widths that are multiples of 8 but not of 16 (the
+# k16 pad of the forward's stack and of the cotangent's pieces) at a ragged
+# N, hidden layers narrow enough for the SIMT loops, 256-wide layers (two
+# stage windows per product, a ragged tail of the 128-row tile), and
+# several tiles per block at the slice's width (dW's bulk adds into the
+# slot past each block's first tile)
+BF16_EDGES = {
+    "k16-pad": (AC, [2, 40, 24, 1], 1001),
+    "narrow-hidden": (MIXED, [2, 16, 16, 1], 777),
+    "wide-256": (AC, [2, 256, 256, 1], 517),
+    "tiles-per-block": (AC, [2, 128, 128, 1], 20_001),
+}
+BF16_K3_EDGES = {
+    "k16-pad-E2": (_res_system, [2, 40, 24, 2], 1001, (-1.0, 1.0)),
+    "singular-k16-pad": (_res_singular, [2, 24, 40, 1], 1001, (0.5, 1.5)),
+    "wide-256": (_res_ac, [2, 256, 256, 1], 517, (-1.0, 1.0)),
+    "tiles-per-block": (_res_ac, [2, 128, 128, 1], 20_001, (-1.0, 1.0)),
+}
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_bf16_kernels_match_plain_bf16_flavor_on_card(card, case):
-    reqs, widths, N = CASES[case]
+    _bf16_table_case(card, *CASES[case])
+
+
+@pytest.mark.parametrize("case", list(BF16_EDGES))
+def test_bf16_kernels_at_the_bf16_routes_edges_on_card(card, case):
+    _bf16_table_case(card, *BF16_EDGES[case])
+
+
+def _bf16_table_case(card, reqs, widths, N):
     layers, _, g = _net(widths, card)
     X = (2 * torch.rand(N, widths[0], generator=g) - 1).to(card)
     shapes = [tuple(W.shape) for W, _ in layers]
@@ -1143,10 +1176,39 @@ def test_bf16_k2_is_bit_identical_run_to_run(card):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+@pytest.mark.parametrize("flavor", [None, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["ac", "deep", "one-point", "odd-widths",
+                                  "three-coords-wide"])
+def test_workspace_floats_match_the_kernels(card, case, flavor):
+    """The wrapper's workspace size (``workspace_floats``) is the kernels'
+    (``tdq_workspace_floats``) at several tile heights and grids."""
+    reqs, widths, _ = CASES[case]
+    plan = cuda_taylor.build_cuda_table_fn(
+        reqs, list(zip(widths[:-1], widths[1:]))).plan
+    lib = cuda_taylor.build()
+    for R in (1, 17, 126, 128):
+        for G in (1, 3, 132):
+            want = cuda_taylor.workspace_floats(plan.layer_shapes, R, plan.ld,
+                                                G, flavor)
+            got = lib.tdq_workspace_floats(plan.net_h, R, G,
+                                           int(flavor is not None))
+            assert got == want, (R, G, got, want)
+
+
 @pytest.mark.parametrize("case", list(K3_CASES))
 def test_bf16_k3_matches_plain_bf16_flavor_on_card(card, case):
-    f, widths, _, _ = K3_CASES[case]
-    sq32, X, w, flat = _k3_setup(case, card)
+    _bf16_k3_case(card, case, K3_CASES)
+
+
+@pytest.mark.parametrize("case", list(BF16_K3_EDGES))
+def test_bf16_k3_at_the_bf16_routes_edges_on_card(card, case):
+    _bf16_k3_case(card, case, BF16_K3_EDGES)
+
+
+def _bf16_k3_case(card, case, cases):
+    f, widths, _, _ = cases[case]
+    sq32, X, w, flat = _k3_setup(case, card, cases=cases)
     sq = build_minimax_sq_fn(f, ("x", "t"), widths[-1],
                              analyze_f_model(f, ("x", "t"), widths[-1]),
                              sq32.plan.layer_shapes,
@@ -1190,6 +1252,35 @@ def test_bf16_k3_is_bit_identical_run_to_run(card):
     a = cuda_minimax.k3_minimax_bf16(sq.plan, X, w, packed)
     b = cuda_minimax.k3_minimax_bf16(sq.plan, X, w, packed)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_bf16_k2_k3_bit_identical_at_full_width_on_card(card):
+    """At the slice's width (128, tiles of 128 rows) with several tiles per
+    block: two launches of K2-bf16 and of K3-bf16 give the same bits (a
+    block adds each tile's dW into its own slot in the tiles' order, by
+    bulk reduce-adds past its first tile, each waited for before the next;
+    the slots summed in slot order)."""
+    widths = [2, 128, 128, 128, 1]
+    layers, _, g = _net(widths, card)
+    X = (2 * torch.rand(20_000, 2, generator=g) - 1).to(card)
+    shapes = [tuple(W.shape) for W, _ in layers]
+    plan = cuda_taylor.build_cuda_table_fn(AC, shapes).plan
+    assert plan.tile_sizes(card, torch.bfloat16)[1] == 32
+    flat = plan.pack([t for p in layers for t in p])
+    cot = torch.randn(plan.C, 20_000, 1, generator=g).to(card)
+    a = cuda_taylor.k2_backward_bf16(plan, X, flat, cot)
+    b = cuda_taylor.k2_backward_bf16(plan, X, flat, cot)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    sq = build_minimax_sq_fn(_res_ac, ("x", "t"), 1,
+                             analyze_f_model(_res_ac, ("x", "t"), 1), shapes,
+                             compute_dtype=torch.bfloat16)
+    w = torch.rand(20_000, 1, generator=g).to(card)
+    packed = sq.plan.pack([a if a.ndim == 2 else a.reshape(1, -1)
+                           for pair in layers for a in pair])
+    a = cuda_minimax.k3_minimax_bf16(sq.plan, X, w, packed)
+    b = cuda_minimax.k3_minimax_bf16(sq.plan, X, w, packed)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert all(bool(torch.isfinite(x).all()) for x in a)
 
 
 # the solver and the serving engine under mixed precision
@@ -1275,8 +1366,8 @@ def test_bf16_k1_launch_failure_raises_out_of_compile(card, monkeypatch,
     flavor or the f32 kernel instead."""
     fits = cuda_taylor._Plan.tile_sizes
 
-    def oversized(self, device):
-        tp_fwd, tp_bwd, n_sm = fits(self, device)
+    def oversized(self, device, compute_dtype=None):
+        tp_fwd, tp_bwd, n_sm = fits(self, device, compute_dtype)
         return 64 * tp_fwd, tp_bwd, n_sm
 
     monkeypatch.setattr(cuda_taylor._Plan, "tile_sizes", oversized)

@@ -290,39 +290,38 @@ def test_bf16_wrappers_take_the_plain_bf16_flavor_on_cpu(net16):
 
 
 def test_route_passes_at_the_slice():
-    """The TF32 passes per tensor-core product the kernels' route takes: 3
-    in the f32 flavor; in the bf16 flavor 1 for K1 and (3 forward + 2x6 backward) / 9
-    for K2 and K3 at the AC slice (the head, 1 wide, stays SIMT)."""
+    """The tensor-core passes per product the kernels' route takes: 3 TF32
+    passes in the f32 flavor; in the bf16 flavor bf16 passes, 1 for K1
+    and (3 forward + 3x6 backward) / 9 for K2 and K3 at the AC slice (the
+    head, 1 wide, stays SIMT)."""
     shapes = [(2, 128)] + [(128, 128)] * 3 + [(128, 1)]
     plan = cuda_taylor.build_cuda_table_fn(REQUESTS["ac"], shapes,
                                            device="cpu").plan
     assert cuda_taylor.tensor_passes(plan) == {"k1": 3.0, "k2": 3.0}
     got = cuda_taylor.tensor_passes(plan, "bfloat16")
-    assert got["k1"] == 1.0 and got["k2"] == pytest.approx(15 / 9)
+    assert got["k1"] == 1.0 and got["k2"] == pytest.approx(21 / 9)
     sq = minimax.build_minimax_sq_fn(
         T_RES["ac"], VARS, 1, analyze_f_model(T_RES["ac"], VARS, 1), shapes,
         device="cpu")
     assert cuda_minimax.tensor_passes(sq.plan) == 3.0
-    assert cuda_minimax.tensor_passes(sq.plan, BF16) == pytest.approx(15 / 9)
+    assert cuda_minimax.tensor_passes(sq.plan, BF16) == pytest.approx(21 / 9)
 
 
 def test_bf16_bound_passes_at_the_slice():
     """The bf16 flavor's bound prices its work on the card's fastest route,
     at the dense bf16 peak: 1 pass per forward product, 3 per cotangent
-    product, so (3 + 3x6) / 9 for K2 and K3 at the AC slice; and that
-    bound lies below the route's (2 TF32 passes per cotangent product)."""
+    product, so (3 + 3x6) / 9 for K2 and K3 at the AC slice.  The kernels
+    take that route, so it is their route's bound too, and it lies below
+    the TF32-pass route the flavor took before (1 TF32 pass per forward
+    product, 2 per cotangent product)."""
     shapes = [(2, 128)] + [(128, 128)] * 3 + [(128, 1)]
     plan = cuda_taylor.build_cuda_table_fn(REQUESTS["ac"], shapes,
                                            device="cpu").plan
-    got = cuda_taylor.bf16_bound_passes(plan)
+    got = cuda_taylor.tensor_passes(plan, BF16)
     assert got["k1"] == 1.0 and got["k2"] == pytest.approx(21 / 9)
-    sq = minimax.build_minimax_sq_fn(
-        T_RES["ac"], VARS, 1, analyze_f_model(T_RES["ac"], VARS, 1), shapes,
-        device="cpu")
-    assert cuda_minimax.bf16_bound_passes(sq.plan) == pytest.approx(21 / 9)
-    route = cuda_taylor.tensor_passes(plan, BF16)
+    tf32_route = {"k1": 1.0, "k2": 15 / 9}
     for k in ("k1", "k2"):
-        assert got[k] / 989e12 < route[k] / 495e12
+        assert got[k] / 989e12 < tf32_route[k] / 495e12
 
 
 # --------------------------------------------------------------------------- #

@@ -363,3 +363,63 @@ def test_build_digest_covers_every_source(tmp_path, monkeypatch):
     with open(tmp_path / "taylor_common.cuh", "a") as fh:
         fh.write("// edited\n")
     assert cuda_taylor.source_digest() != before
+
+
+def test_tile_points_per_flavor():
+    """The shared-memory tile arithmetic (``tile_points``) on an H100's
+    227 KB of opt-in shared memory and the kernels' two weight stages (f32
+    69,648 B, bf16 34,832 B): K1 keeps two f32 buffers in both flavors;
+    K2/K3 hold three f32 buffers beside the f32 stage (96 rows of a
+    128-wide net: 24 points at C = 4) or, in the bf16 flavor, five bf16
+    slots beside the bf16 stage, capped at one block tile of 128 rows (32
+    points).  A 256-wide net (ld 264) fits 48 and 64 rows."""
+    smem, stages = 232_448, (69_648, 34_832)
+    tp = cuda_taylor.tile_points
+    assert tp(smem, stages, 136, 4) == (32, 24)
+    assert tp(smem, stages, 136, 4, "bfloat16") == (32, 32)
+    assert tp(smem, stages, 136, 4, torch.bfloat16) == (32, 32)
+    assert tp(smem, stages, 264, 4) == (16, 12)
+    assert tp(smem, stages, 264, 4, torch.bfloat16) == (16, 16)
+    # C = 3 channels: rows a multiple of 16, points the most whole ones
+    assert tp(smem, stages, 136, 3, torch.bfloat16) == (42, 42)
+    with pytest.raises(cuda_taylor.KernelLaunchError, match="16 rows"):
+        tp(smem, stages, 8192, 4, torch.bfloat16)
+    # the plan's ld at the slice is 136
+    plan = cuda_taylor.build_cuda_table_fn(
+        {(), (1,), (0, 0)}, [(2, 128)] + [(128, 128)] * 3 + [(128, 1)],
+        device="cpu").plan
+    assert plan.ld == 136 and plan.C == 4
+
+
+def test_workspace_floats_per_flavor():
+    """A block's K2/K3 workspace slice: 2L-3 f32 layers of R x ld in the
+    f32 flavor; in the bf16 flavor the L-1 pre-activation layers so and
+    the L-2 layer inputs as bf16 of pad16(R) rows (csrc/taylor_common.cuh:
+    ``ws_floats_bf``)."""
+    L, ld = 5, 136
+    assert cuda_taylor.ws_floats(L, 96, ld) == 7 * 96 * ld
+    assert cuda_taylor.ws_floats(L, 128, ld, torch.bfloat16) \
+        == 4 * 128 * ld + 3 * 128 * ld // 2
+    # a ragged R pads the bf16 layers to 16 rows
+    assert cuda_taylor.ws_floats(L, 126, ld, torch.bfloat16) \
+        == 4 * 126 * ld + 3 * 128 * ld // 2
+    # one hidden layer: no layer inputs to stage
+    assert cuda_taylor.ws_floats(2, 16, 40, torch.bfloat16) == 16 * 40
+
+
+def test_workspace_holds_the_bf16_weight_copy():
+    """A K2/K3 launch's workspace: the blocks' slices and, in the bf16
+    flavor, the weights' bf16 copy after them (layers 1 .. L-1, rows padded
+    to 8 bf16, in whole 16-byte groups)."""
+    shapes = [(2, 128)] + [(128, 128)] * 3 + [(128, 1)]
+    per = cuda_taylor.ws_floats(5, 96, 136)
+    assert cuda_taylor.workspace_floats(shapes, 96, 136, 132) == 132 * per
+    per = cuda_taylor.ws_floats(5, 128, 136, torch.bfloat16)
+    copy = 3 * 128 * 128 + 128 * 8  # the head's one column padded to 8
+    assert cuda_taylor.workspace_floats(shapes, 128, 136, 132,
+                                        torch.bfloat16) == 132 * per + copy // 2
+    odd = [(2, 37), (37, 53), (53, 1)]
+    copy = 37 * 56 + 53 * 8
+    assert cuda_taylor.workspace_floats(odd, 126, 72, 2, "bfloat16") \
+        == 2 * cuda_taylor.ws_floats(3, 126, 72, "bfloat16") \
+        + -(-copy // 8) * 4
