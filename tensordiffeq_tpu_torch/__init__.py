@@ -24,9 +24,14 @@ from .domains import DomainND  # noqa: F401
 from .helpers import find_L2_error  # noqa: F401
 from .models import (  # noqa: F401
     CollocationSolverND, DiscoveryModel, NotCompiledError)
-from .networks import MLP, neural_net  # noqa: F401
+from .networks import (MLP, FourierMLP, PeriodicMLP, fourier_net,  # noqa: F401
+                       neural_net, periodic_net)
 from .ops import MSE, UFn, d, g_MSE, grad, laplacian  # noqa: F401
 from .ops import set_default_grad_mode  # noqa: F401
+from .resilience import CircuitBreaker, RetryPolicy  # noqa: F401
+from .serving import (ArtifactVersionMismatch, InferenceEngine,  # noqa: F401
+                      RequestBatcher, Surrogate)
+from .telemetry import MetricsRegistry  # noqa: F401
 from .utils import CudaUnavailableError, NotPortedError  # noqa: F401
 from .weights import params_from_jax, params_to_numpy  # noqa: F401
 

@@ -1503,13 +1503,14 @@ class CollocationSolverND:
             fh.write(_SAVE_MAGIC + struct.pack("<Q", len(header)) + header
                      + blob.getvalue())
 
-    def load_model(self, path: str):
+    def load_model(self, path: str, compile_model: bool = False):
         """Read a network written by :meth:`save` (reference ``models.py:
         318-319``).  On a compiled solver the file's architecture must match
         the compiled one.  On an uncompiled solver the MLP is rebuilt from
         the file; ``predict`` then gives ``u`` (and ``None`` for the
         residual), and ``compile(layer_sizes=None, ...)`` trains on from the
-        loaded network (the transfer-learn flow)."""
+        loaded network (the transfer-learn flow).  ``compile_model`` is
+        accepted and ignored, as the JAX solver does."""
         from ..checkpoint import read_npz
         with open(path, "rb") as fh:
             raw = fh.read()
