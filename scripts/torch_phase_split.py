@@ -1,4 +1,4 @@
-"""Where K2 and K3 spend their time, phase by phase, on one NVIDIA GPU.
+"""Where K1, K2 and K3 spend their time, phase by phase, on one NVIDIA GPU.
 
     python3 scripts/torch_phase_split.py [--reps 5] [--tree DIR]
 
@@ -8,10 +8,11 @@ checkout) names the checkout whose ``tensordiffeq_tpu_torch`` package and
 beside this one.  It copies the kernel sources into a scratch directory
 under the git-ignored ``_build/``, instruments the copy (the checkout's
 sources are not touched and carry no switch for it), builds the copy, and
-runs K2 and K3 at the Allen-Cahn slice (N = 50,000 points, net 2-128x4-1,
-C = 4 channels; K3 also on the coupled system and the ``1/x`` residual at
-N = 50,001), then their bf16 flavors (K2-bf16, K3-bf16 on the AC set and
-the coupled system).
+runs K1 and K1-bf16 at the Allen-Cahn slice (N = 50,000 points, net
+2-128x4-1, C = 4 channels) and on the mixed request set (C = 8), then K2
+and K3 at the AC slice (K3 also on the coupled system and the ``1/x``
+residual at N = 50,001), then their bf16 flavors (K2-bf16, K3-bf16 on the
+AC set and the coupled system).  ``--only k1`` splits K1's flavors alone.
 
 The instrumentation: every device function named in ``PHASES`` gets a
 ``clock64()`` stamp at its entry and at each exit, and thread 0 of each
@@ -19,7 +20,11 @@ block adds the cycles to that block's counter of the function's phase;
 the kernels themselves add their whole run to ``total``.  Each of those
 functions ends in a ``__syncthreads()``, so thread 0's span is the block's.
 ``rest`` is ``total`` less the named phases (inline code in the kernels'
-bodies: K2's cotangent load, layer 0's backward, loop overhead).
+bodies: K2's cotangent load, layer 0's backward, loop overhead, and K1's
+f32 table store).  In K1's persistent wgmma route (``taylor_fwd_wg.cuh``)
+thread 0 is a thread of the first consumer warpgroup, and its phases are
+that warpgroup's: ``k1w_products`` holds its waits for the weight stages
+and for its products, while the other warpgroup may run its own pass.
 
 Printed per kernel and case: the kernel's ms by CUDA events over ``--reps``
 launches of the instrumented build, and per phase its share of the
@@ -47,7 +52,7 @@ sys.path.insert(0, ROOT)
 LABELS = ["forward products", "head product", "K3 epilogue (tape)",
           "act_fwd", "act_vjp", "workspace copies", "dW (+ partials)",
           "dH", "bias sums", "layer 0 forward", "layer 0 backward",
-          "cotangent split", "total"]
+          "cotangent split", "table store", "total"]
 P = {name: i for i, name in enumerate(LABELS)}
 PHASES = {
     "mma_w_rows": str(P["forward products"]),
@@ -68,10 +73,21 @@ PHASES = {
     "bmma_w_cols": str(P["dH"]),
     "bmma_dw": str(P["dW (+ partials)"]),
     "split_pieces": str(P["cotangent split"]),
+    "table_rows": str(P["table store"]),
+    # K1's persistent wgmma route: the head's products and the table store
+    # are one pass there
+    "k1w_layer0": str(P["layer 0 forward"]),
+    "k1w_act": str(P["act_fwd"]),
+    "k1w_products": str(P["forward products"]),
+    "k1w_head": str(P["head product"]),
 }
-# functions a checkout from before the bf16 flavor's own route lacks
-OPTIONAL = {"bmma_w_rows", "bmma_w_cols", "bmma_dw", "split_pieces"}
-KERNELS = ("taylor_bwd_kernel", "minimax_step_kernel")
+# functions a checkout from before the bf16 flavor's own route, or from
+# before K1's wgmma route, lacks
+OPTIONAL = {"bmma_w_rows", "bmma_w_cols", "bmma_dw", "split_pieces",
+            "k1w_layer0", "k1w_act", "k1w_products", "k1w_head",
+            "taylor_fwd_wg_kernel"}
+KERNELS = ("taylor_fwd_kernel", "taylor_fwd_wg_kernel", "taylor_bwd_kernel",
+           "minimax_step_kernel")
 MAXBLK = 1024
 NPH = len(LABELS)
 
@@ -181,6 +197,8 @@ def main():
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--tree", default=ROOT,
                     help="the checkout whose kernels are split")
+    ap.add_argument("--only", choices=("k1",), default=None,
+                    help="split K1's flavors alone")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -205,15 +223,24 @@ def main():
 
     buf = (ctypes.c_ulonglong * (MAXBLK * NPH))()
 
-    def read(stem):
-        fn = getattr(lib, f"tdq_ps_read_{stem}")
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
-        fn.restype = ctypes.c_int
+    def read(stems):
+        """The stamps of the translation units ``stems`` (those the build
+        has), summed, and reset."""
+        total = np.zeros((MAXBLK, NPH), dtype=np.uint64)
         torch.cuda.synchronize()
-        ct._check(fn(buf, 1), "reading the stamps")
-        return np.ctypeslib.as_array(buf).reshape(MAXBLK, NPH).copy()
+        for stem in stems:
+            try:
+                fn = getattr(lib, f"tdq_ps_read_{stem}")
+            except AttributeError:  # a checkout without this unit
+                continue
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+            fn.restype = ctypes.c_int
+            ct._check(fn(buf, 1), "reading the stamps")
+            total += np.ctypeslib.as_array(buf).reshape(MAXBLK, NPH)
+        return total
 
     def split(label, stem, launch):
+        stem = (stem,) if isinstance(stem, str) else stem
         for _ in range(2):
             launch()
         read(stem)  # reset
@@ -257,6 +284,19 @@ def main():
     plan = ct.build_cuda_table_fn(cs.AC_REQUESTS,
                                   [tuple(W.shape) for W, _ in layers]).plan
     flat = plan.pack(flat_layers)
+    for label, reqs in (("ac", cs.AC_REQUESTS), ("mixed", cs.MIXED_REQUESTS)):
+        p1 = ct.build_cuda_table_fn(reqs, [tuple(W.shape)
+                                           for W, _ in layers]).plan
+        f1 = p1.pack(flat_layers)
+        # K1's routes: the wgmma one (its flavors' units) where the
+        # checkout has it, else the kernel beside K2
+        units = ("taylor_table", "taylor_fwd_wg_f32", "taylor_fwd_wg_bf16")
+        split(f"K1 {label}", units, lambda: ct.k1_forward(p1, X, f1))
+        split(f"K1-bf16 {label}", units,
+              lambda: ct.k1_forward_bf16(p1, X, f1))
+    if args.only == "k1":
+        print(card_line(), flush=True)
+        return
     g = torch.as_tensor(rng.randn(plan.C, n, 1), dtype=torch.float32,
                         device=dev)
     split("K2 ac", "taylor_table", lambda: ct.k2_backward(plan, X, flat, g))

@@ -41,7 +41,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -177,8 +177,15 @@ def build() -> ctypes.CDLL:
     lib.tdq_minimax_limits.argtypes = [ptr]
     lib.tdq_workspace_floats.argtypes = [ptr, i32, i32, i32]
     lib.tdq_workspace_floats.restype = ctypes.c_longlong
+    # K1's wgmma route: its plan (net, sched, bf16, the card's shared
+    # memory and SMs, N, out), and its launch (X, prm, weight chunks, table,
+    # N, net, sched, bf16, plan, stream)
+    lib.tdq_k1wg_plan.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.tdq_taylor_fwd_wg.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, ptr,
+                                      i32, ptr, ptr]
     for fn in (lib.tdq_taylor_fwd, lib.tdq_taylor_bwd, lib.tdq_minimax_step,
-               lib.tdq_device_info, lib.tdq_limits, lib.tdq_minimax_limits):
+               lib.tdq_device_info, lib.tdq_limits, lib.tdq_minimax_limits,
+               lib.tdq_k1wg_plan, lib.tdq_taylor_fwd_wg):
         fn.restype = i32
     limits = (ctypes.c_int * 6)()
     lib.tdq_limits(limits)
@@ -257,6 +264,118 @@ def workspace_floats(layer_shapes: Sequence[tuple], R: int, ld: int, G: int,
     return floats
 
 
+# ------------------------------------------------------------------ #
+# K1's persistent wgmma route (csrc/taylor_fwd_wg.cuh): its plan and the
+# plain mirror of its weight preparation
+# ------------------------------------------------------------------ #
+WG_TILE_ROWS = 128  # WG_TILE: two consumer warpgroups of 64 rows
+WG_MAX_STAGES = 8   # WG_MAXS: weight stages in shared memory
+WG_MAX_D = 16       # WG_MAXD: inputs
+WG_MAX_OUT = 16     # WG_MAXOUT: the head's columns
+WG_MAX_C = 8        # WG_MAXC: a point's channels in one 8-row half of a tile
+WG_MAX_WIDTH = 128  # hidden widths, padded to 64 or 128
+
+
+class WgPlan(NamedTuple):
+    """The wgmma route's launch for one plan, flavor and N (``wg_plan`` in
+    ``csrc/taylor_fwd_wg.cuh``, in the same order)."""
+    NP: int           # hidden width padded to 64 or 128
+    CP: int           # channels padded to 4 or 8
+    KC: int           # k rows of a weight chunk
+    S: int            # weight stages in shared memory
+    P: int            # chunks per tile: all hidden products
+    resident: int     # P <= S: each chunk is copied once per block
+    stage_bytes: int
+    n_tiles: int      # tiles of WG_TILE_ROWS rows
+    grid: int         # persistent blocks: one per SM, at most one per tile
+    smem: int         # dynamic shared memory bytes
+
+
+def wg_plan(layer_shapes: Sequence[tuple], orders: Sequence[int], bf16: bool,
+            smem_optin: int, n_sm: int, N: int):
+    """The wgmma route's :class:`WgPlan` for these shapes, or ``None`` where
+    the shape is the other route's: more than ``WG_MAX_C`` channels, a
+    hidden width over ``WG_MAX_WIDTH``, more than ``WG_MAX_D`` inputs or
+    ``WG_MAX_OUT`` outputs, or a ring of fewer than two stages."""
+    L = len(layer_shapes)
+    d, n_out = layer_shapes[0][0], layer_shapes[-1][1]
+    C = len(orders)
+    width = max(fo for _, fo in layer_shapes[:-1])
+    if C > WG_MAX_C or width > WG_MAX_WIDTH or d > WG_MAX_D \
+            or n_out > WG_MAX_OUT:
+        return None
+    CP = 4 if C <= 4 else 8
+    NP = 64 if width <= 64 else 128
+    KC = NP if bf16 else 64
+    P = (L - 2) * (NP // KC)
+    stage_bytes = NP * KC * (2 if bf16 else 8)
+    misc = -(-4 * (NP * (d + L - 1 + n_out) + WG_MAX_OUT) // 16) * 16
+    bars = 2 * WG_MAX_STAGES * 8
+    if P == 0:
+        S = 0
+    else:
+        S = min(P, (smem_optin - misc - bars) // stage_bytes, WG_MAX_STAGES)
+        if S < P and S < 2:
+            return None
+    n_tiles = -(-N * CP // WG_TILE_ROWS)
+    return WgPlan(NP, CP, KC, S, P, int(P <= S), stage_bytes, n_tiles,
+                  min(n_tiles, n_sm), S * stage_bytes + misc + bars)
+
+
+def wg_kslots(KC: int, bf16: bool) -> list:
+    """The input column each k slot of a chunk holds (``wg_kslot`` in
+    ``csrc/wgmma.cuh``): the natural order for bf16; for tf32, within each
+    8 slots, slot t takes column 2t and slot t + 4 column 2t + 1."""
+    if bf16:
+        return list(range(KC))
+    return [8 * (q // 8) + (2 * (q % 8) if q % 8 < 4 else 2 * (q % 8 - 4) + 1)
+            for q in range(KC)]
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``split_tf32`` of ``csrc/taylor_common.cuh`` on float32 ``x``: ``hi``
+    rounded to TF32 (to nearest, ties away from zero: the bits plus 2^12,
+    the low 13 cleared), ``lo = x - hi`` (exact)."""
+    bits = x.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, x - hi
+
+
+def wg_prepare(flat_layers, wp: WgPlan, bf16: bool) -> torch.Tensor:
+    """The plain mirror of ``prep_wg_weights``: the bytes of the hidden
+    layers' weights as the route's chunks lay them out, ``P`` chunks of
+    ``stage_bytes``.  Chunk ``q`` holds layer ``1 + q // (NP // KC)``'s k
+    rows ``(q % (NP // KC)) * KC ..`` as W^T (N = NP rows, K = KC columns,
+    zero past the layer's shape), in :func:`wg_kslots` order, laid out in
+    core matrices (``wg_cm_offset``): one plane of bf16 rounded to nearest
+    even, or the two float32 planes of :func:`split_tf32`, ``hi`` then
+    ``lo``."""
+    NP, KC = wp.NP, wp.KC
+    epc = 8 if bf16 else 4
+    n = torch.arange(NP).view(NP, 1)
+    kq = torch.arange(KC).view(1, KC)
+    off = (((n // 8) * (KC // epc) + kq // epc) * (8 * epc) + (n % 8) * epc
+           + kq % epc).reshape(-1)
+    slots = torch.tensor(wg_kslots(KC, bf16))
+    chunks = []
+    for q in range(wp.P):
+        W = flat_layers[2 * (1 + q // (NP // KC))].detach().float().cpu()
+        fi, fo = W.shape
+        pad = torch.zeros(NP, NP)
+        pad[:fo, :fi] = W.t()
+        plane = pad[:, (q % (NP // KC)) * KC + slots].reshape(-1)
+        if bf16:
+            out = torch.empty(NP * KC, dtype=torch.bfloat16)
+            out[off] = plane.to(torch.bfloat16)
+            chunks.append(out.view(torch.uint8))
+        else:
+            hi, lo = split_tf32(plane)
+            out = torch.empty(2, NP * KC)
+            out[0, off], out[1, off] = hi, lo
+            chunks.append(out.reshape(-1).view(torch.uint8))
+    return torch.cat(chunks) if chunks else torch.empty(0, dtype=torch.uint8)
+
+
 def _check(err: int, what: str):
     if err != 0:
         raise KernelLaunchError(f"{what}: CUDA error {err}")
@@ -296,6 +415,10 @@ def channel_schedule(requests: set) -> tuple[list, list]:
     return channels, rows
 
 
+# device index -> (opt-in shared memory a block, SMs)
+_CARDS = {}
+
+
 class _Plan:
     """Everything a launch needs that depends only on the request set and
     the layer shapes: the schedule and net descriptors as C int arrays, and
@@ -315,6 +438,7 @@ class _Plan:
         self.n_out = self.layer_shapes[-1][1]
         self.channels, rows = channel_schedule(requests)
         self.C = len(self.channels)
+        self.orders = [o for o, _ in rows]
         if self.C > MAX_CHANNELS:
             raise ValueError(
                 f"request set needs {self.C} wavefront channels; the kernels "
@@ -347,6 +471,43 @@ class _Plan:
         sched += [0] * (6 * (MAX_CHANNELS - self.C))
         self.sched_h = (ctypes.c_int * len(sched))(*sched)
         self.tiles = {}  # flavor -> (TP_fwd, TP_bwd, n_sm), at first launch
+        self.k1_checked = set()  # flavors whose K1 route was cross-checked
+        self.k1_routes = {}  # flavor -> the route its last K1 launch took
+
+    def card(self, device: torch.device) -> tuple[int, int]:
+        """The card's opt-in shared memory a block and its SM count."""
+        index = (device.index if device.index is not None
+                 else torch.cuda.current_device())
+        if index not in _CARDS:
+            info = (ctypes.c_int * 2)()
+            _check(build().tdq_device_info(index, info),
+                   "cudaDeviceGetAttribute")
+            _CARDS[index] = (int(info[0]), int(info[1]))
+        return _CARDS[index]
+
+    def k1_route(self, device: torch.device, compute_dtype, N: int):
+        """K1's route for ``N`` points in a flavor: the wgmma route's
+        :class:`WgPlan` (``csrc/taylor_fwd_wg.cuh``), or ``None`` for the
+        kernel beside K2 (``csrc/taylor_table.cu``), chosen by shape
+        (:func:`wg_plan`).  Before a flavor's first launch the kernels' own
+        plan (``tdq_k1wg_plan``) is held to this one: a drift raises
+        :class:`KernelBuildError`."""
+        dtype = resolve_compute_dtype(compute_dtype)
+        smem, n_sm = self.card(device)
+        wp = wg_plan(self.layer_shapes, self.orders, dtype is not None, smem,
+                     n_sm, N)
+        if dtype not in self.k1_checked:
+            out = (ctypes.c_int * len(WgPlan._fields))()
+            took = build().tdq_k1wg_plan(self.net_h, self.sched_h,
+                                         int(dtype is not None), smem, n_sm,
+                                         N, out)
+            got = WgPlan(*out) if took else None
+            if got != wp:
+                raise KernelBuildError(
+                    f"the kernels' K1 route is {got}, the wrapper's {wp}")
+            self.k1_checked.add(dtype)
+        self.k1_routes[dtype] = "wide" if wp is None else "wgmma"
+        return wp
 
     def tile_sizes(self, device: torch.device,
                    compute_dtype=None) -> tuple[int, int, int]:
@@ -356,12 +517,9 @@ class _Plan:
         dtype = resolve_compute_dtype(compute_dtype)
         if dtype not in self.tiles:
             lib = build()
-            info = (ctypes.c_int * 2)()
-            index = (device.index if device.index is not None
-                     else torch.cuda.current_device())
-            _check(lib.tdq_device_info(index, info), "cudaDeviceGetAttribute")
-            tiles = (*tile_points(int(info[0]), lib.stage_bytes, self.ld,
-                                  self.C, dtype), int(info[1]))
+            smem, n_sm = self.card(device)
+            tiles = (*tile_points(smem, lib.stage_bytes, self.ld, self.C,
+                                  dtype), n_sm)
             # the workspace the wrappers allocate is the one the kernels
             # index: a drift between the two sizes would under-allocate it
             for G in (1, 2):
@@ -410,11 +568,22 @@ def _k1(plan: _Plan, X: torch.Tensor, flat: torch.Tensor,
         bf16: int) -> torch.Tensor:
     _check_cuda_inputs(plan, X, flat)
     lib = build()
-    tp, _, _ = plan.tile_sizes(X.device, FLAVOR_OF[bf16])
     N = X.shape[0]
     table = torch.empty((plan.C, N, plan.n_out), device=X.device,
                         dtype=torch.float32)
     stream = torch.cuda.current_stream(X.device).cuda_stream
+    wp = plan.k1_route(X.device, FLAVOR_OF[bf16], N)
+    if wp is not None:
+        # the weights' chunks, prepared by the launch itself
+        chunks = torch.empty((max(wp.P * wp.stage_bytes // 4, 1),),
+                             device=X.device, dtype=torch.float32)
+        _check(lib.tdq_taylor_fwd_wg(X.data_ptr(), flat.data_ptr(),
+                                     chunks.data_ptr(), table.data_ptr(), N,
+                                     plan.net_h, plan.sched_h, bf16,
+                                     (ctypes.c_int * len(wp))(*wp), stream),
+               "taylor_fwd_wg K1 launch")
+        return table
+    tp, _, _ = plan.tile_sizes(X.device, FLAVOR_OF[bf16])
     _check(lib.tdq_taylor_fwd(X.data_ptr(), flat.data_ptr(), table.data_ptr(),
                               N, tp, plan.net_h, plan.sched_h, bf16, stream),
            "taylor_table K1 launch")

@@ -87,6 +87,7 @@ installed::
   allocate is the size the kernels index, in both flavors.
 """
 
+import ctypes
 import warnings
 
 import numpy as np
@@ -928,17 +929,30 @@ def test_autotune_races_the_kernel_candidate_on_card(card):
     assert np.isfinite(s.losses[-1]["Total Loss"])
 
 
-def test_autotune_raises_when_k1_does_not_launch_on_card(card, monkeypatch):
-    """A K1 the runtime refuses fails ``compile(fused="autotune")``: the
-    race does not drop the kernel candidate and train on another engine.
-    The tile here asks for more shared memory than a block may have."""
+def _refuse_k1_launches(monkeypatch):
+    """Make every K1 launch ask for more shared memory than a block may
+    have, on either route: the tile of the kernel beside K2, and the
+    wgmma route's plan."""
     fits = cuda_taylor._Plan.tile_sizes
+    route = cuda_taylor._Plan.k1_route
 
     def oversized(self, device, compute_dtype=None):
         tp_fwd, tp_bwd, n_sm = fits(self, device, compute_dtype)
         return 64 * tp_fwd, tp_bwd, n_sm
 
+    def oversized_route(self, device, compute_dtype, N):
+        wp = route(self, device, compute_dtype, N)
+        return None if wp is None else wp._replace(smem=wp.smem + (1 << 20))
+
     monkeypatch.setattr(cuda_taylor._Plan, "tile_sizes", oversized)
+    monkeypatch.setattr(cuda_taylor._Plan, "k1_route", oversized_route)
+
+
+def test_autotune_raises_when_k1_does_not_launch_on_card(card, monkeypatch):
+    """A K1 the runtime refuses fails ``compile(fused="autotune")``: the
+    race does not drop the kernel candidate and train on another engine.
+    The tile here asks for more shared memory than a block may have."""
+    _refuse_k1_launches(monkeypatch)
     before = cuda_taylor.k1_forward.launches
     with pytest.raises(cuda_taylor.KernelLaunchError, match="K1 launch"):
         _ac_solver("autotune", n_f=512, minimax=None)
@@ -1364,13 +1378,7 @@ def test_bf16_k1_launch_failure_raises_out_of_compile(card, monkeypatch,
     (``fused="cuda"``: the cross-check's error, caused by the launch's;
     ``"autotune"``: the launch's own): the solver does not take the plain
     flavor or the f32 kernel instead."""
-    fits = cuda_taylor._Plan.tile_sizes
-
-    def oversized(self, device, compute_dtype=None):
-        tp_fwd, tp_bwd, n_sm = fits(self, device, compute_dtype)
-        return 64 * tp_fwd, tp_bwd, n_sm
-
-    monkeypatch.setattr(cuda_taylor._Plan, "tile_sizes", oversized)
+    _refuse_k1_launches(monkeypatch)
     before = (cuda_taylor.k1_forward_bf16.launches,
               cuda_taylor.k1_forward.launches)
     with pytest.raises((cuda_taylor.KernelLaunchError, ValueError)) as info:
@@ -1382,3 +1390,106 @@ def test_bf16_k1_launch_failure_raises_out_of_compile(card, monkeypatch,
     assert "K1 launch" in str(err)
     assert (cuda_taylor.k1_forward_bf16.launches,
             cuda_taylor.k1_forward.launches) == before
+
+
+# --------------------------------------------------------------------------- #
+# K1's two routes: the persistent wgmma one (csrc/taylor_fwd_wg.cuh) for
+# hidden widths up to 128 and up to 8 channels, the kernel beside K2 for
+# the rest
+# --------------------------------------------------------------------------- #
+# the wgmma route's tile edges (128 rows: 32 points at C = 4) and a layer
+# too wide for it
+K1_EDGES = {
+    "below-one-tile": (AC, [2, 128, 128, 1], 5),
+    "one-row-past-tiles": (AC, [2, 128, 128, 1], 32 * 40 + 1),
+    "fewer-tiles-than-sms": (MIXED, [2, 128, 128, 128, 1], 16 * 100 - 3),
+    "width-256": (AC, [2, 256, 256, 1], 517),
+}
+K1_ROUTE = {"three-coords-wide": "wide", "width-256": "wide"}
+
+
+def _k1_case(card, reqs, widths, N, flavor):
+    layers, _, g = _net(widths, card)
+    X = (2 * torch.rand(N, widths[0], generator=g) - 1).to(card)
+    plan = cuda_taylor.build_cuda_table_fn(
+        reqs, [tuple(W.shape) for W, _ in layers]).plan
+    flat = plan.pack([t for p in layers for t in p])
+    k1 = cuda_taylor.FLAVORS[flavor][0]
+    before = k1.launches
+    table = k1(plan, X, flat)
+    torch.cuda.synchronize()
+    assert k1.launches == before + 1
+    with torch.no_grad():
+        want = taylor_derivatives(layers, X, set(plan.channels),
+                                  flat_matmul=True, compute_dtype=flavor)
+        want32 = taylor_derivatives(layers, X, set(plan.channels),
+                                    flat_matmul=True)
+    return plan, table, [want[mi] for mi in plan.channels], \
+        [want32[mi] for mi in plan.channels]
+
+
+@pytest.mark.parametrize("flavor", [None, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(CASES) + list(K1_EDGES))
+def test_k1_routes_match_plain_flavor_on_card(card, case, flavor):
+    """Each flavor of K1 against its plain flavor on every shape, and the
+    route the host chose by shape: f32 within 1e-4 scale-relative; bf16
+    within the reference's band and nearer it by RMS than the f32 plain
+    flavor."""
+    reqs, widths, N = {**CASES, **K1_EDGES}[case]
+    plan, table, want, want32 = _k1_case(card, reqs, widths, N, flavor)
+    assert plan.k1_routes[flavor] == K1_ROUTE.get(case, "wgmma")
+    for c in range(plan.C):
+        assert table[c].shape == (N, widths[-1])
+        assert _scaled(table[c], want[c]) <= (
+            TOL if flavor is None else BF16_VALUES), plan.channels[c]
+    if flavor is not None:
+        assert _nearer_bf16(list(table), want, want32)
+
+
+@pytest.mark.parametrize("flavor", [None, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("widths", [[2, 128, 128, 128, 128, 1],
+                                    [2, 37, 53, 1]], ids=["ac", "odd"])
+def test_k1_rows_bit_identical_whatever_n_and_position(card, widths, flavor):
+    """K1 is the same bit for bit run to run, and a point's table row is
+    the same whatever N is and wherever the point sits in X (one route):
+    remat's bit equality and the served rungs rely on it."""
+    layers, _, g = _net(widths, card)
+    plan = cuda_taylor.build_cuda_table_fn(
+        MIXED, [tuple(W.shape) for W, _ in layers]).plan
+    flat = plan.pack([t for p in layers for t in p])
+    k1 = cuda_taylor.FLAVORS[flavor][0]
+    X = (2 * torch.rand(5000, 2, generator=g) - 1).to(card)
+    a, b = k1(plan, X, flat), k1(plan, X, flat)
+    assert torch.equal(a, b)
+    perm = torch.randperm(5000, generator=g).to(card)
+    assert torch.equal(k1(plan, X[perm].contiguous(), flat), a[:, perm])
+    for n in (1, 37, 129, 4097):
+        assert torch.equal(k1(plan, X[-n:].contiguous(), flat), a[:, -n:])
+    assert plan.k1_routes[flavor] == "wgmma"
+
+
+@pytest.mark.parametrize("flavor", [None, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(CASES) + list(K1_EDGES))
+def test_k1_route_plan_matches_the_kernels(card, case, flavor):
+    """The wrapper's plan of the wgmma route (``wg_plan``: shared memory,
+    grid, stages, ...) is the kernels' (``tdq_k1wg_plan``) for several N,
+    and both refuse the same shapes."""
+    reqs, widths, _ = {**CASES, **K1_EDGES}[case]
+    plan = cuda_taylor.build_cuda_table_fn(
+        reqs, list(zip(widths[:-1], widths[1:]))).plan
+    lib = cuda_taylor.build()
+    smem, n_sm = plan.card(card)
+    for N in (1, 31, 32, 33, 4223, 50_000, 200_000):
+        want = cuda_taylor.wg_plan(plan.layer_shapes, plan.orders,
+                                   flavor is not None, smem, n_sm, N)
+        out = (ctypes.c_int * len(cuda_taylor.WgPlan._fields))()
+        took = lib.tdq_k1wg_plan(plan.net_h, plan.sched_h,
+                                 int(flavor is not None), smem, n_sm, N, out)
+        got = cuda_taylor.WgPlan(*out) if took else None
+        assert got == want, (N, got, want)
+        assert (want is None) == (K1_ROUTE.get(case) == "wide")
+        if want is not None:
+            assert want.smem <= smem and want.grid <= n_sm
