@@ -9,7 +9,10 @@ Phases (each failure is fatal; exit code != 0, no result line):
 2. build the CUDA kernels from ``tensordiffeq_tpu_torch/csrc`` (nvcc).
 3. K1 (Taylor-table forward) against the plain flavor at the slice's full
    shapes (N = 50,000 points, net 2-128x4-1) for the Allen-Cahn request set
-   and for a mixed-3rd / unmixed-4th request set.
+   and for a mixed-3rd / unmixed-4th request set, with the route the host
+   chose by shape (the persistent wgmma route of ``csrc/taylor_fwd_wg.cuh``
+   at these shapes) and a second launch equal to the first bit for bit;
+   its ms over 20 launches beside its ms before the wgmma route (PERF.md).
 4. K2 (Taylor-table backward: dW, db, dX) against autograd of the plain
    flavor, same shapes.
 5. K3 (the fused minimax step: value, dW/db, gw, gX) against its plain
@@ -131,10 +134,11 @@ Phases (each failure is fatal; exit code != 0, no result line):
    (E = 1 and the coupled E = 2 system) against their plain bf16 flavors
    (``compute_dtype=torch.bfloat16``); gates: every leaf within the
    reference's bf16 bands (5e-2 values, 1.5e-1 gradients, scale-relative),
-   and nearer (RMS) the plain bf16 flavor than the plain f32 one; each
+   and nearer (RMS) the plain bf16 flavor than the plain f32 one, K1-bf16
+   bit for bit run to run (its route printed); each
    timed over 20 launches beside its f32 flavor and beside its time before
-   the flavor took the bf16 tensor cores (its TF32-pass route's, from
-   PERF.md), with its
+   the flavor took the bf16 tensor cores (its TF32-pass route's, and
+   K1-bf16's before the wgmma route, from PERF.md), with its
    bound (the products at the dense bf16 peak: 1 pass per forward product,
    3 per cotangent product, the passes its route takes);
    (b) ``compile(fused="cuda", fused_dtype="bfloat16")`` on AC-SA: the
@@ -160,7 +164,8 @@ Phases (each failure is fatal; exit code != 0, no result line):
    plain bf16 flavor shares to the digit; K1-bf16 once per replay and
    nothing else; ms per replay beside phase 10's.
 15. a ``{"kernels": [...]}`` line (K1, K2, K3 and their bf16 flavors, each
-   held to its plain version), the card line again, and the result line.
+   held to its plain version; K1's with the route it took), the card line
+   again, and the result line.
 
 Phases 6-9 and 11-14 train through CUDA graphs (``training/graphs.py``): each Adam
 step, each L-BFGS evaluation and two-loop sweep, and each fixed-step L-BFGS
@@ -205,9 +210,11 @@ TF32_PASSES = 3               # the f32 flavor's products are 3xTF32
 # over max |plain|, per table channel / gradient leaf).  The plain side is
 # IEEE f32; the kernels take the hidden-layer products as 3xTF32 (at worst
 # about 2^-20 relative per product, f32 sums) and sum in another order
-# (128-term dot products per layer for K1; K2's weight cotangents also sum
-# 50,000 points x C channels).  Measured on an H100 at these shapes: K1
-# 4.8e-6, K2 1.1e-6 (PERF.md).
+# (128-term dot products per layer for K1, its wgmma route summing all 48
+# passes of a layer in the tensor core's own accumulator; K2's weight
+# cotangents also sum 50,000 points x C channels).  Measured on an H100 at
+# these shapes: K1 7.6e-6 (4.8e-6 before its wgmma route), K2 1.1e-6
+# (PERF.md).
 K1_RTOL = 1e-4
 K2_RTOL = 1e-4
 # K3 vs its plain flavor, the same measure over the value, every dW/db leaf,
@@ -272,6 +279,11 @@ BF16_VALUE_BAND, BF16_GRAD_BAND = 5e-2, 1.5e-1
 # 80GB HBM3 at 700 W), printed beside this run's
 BF16_TF32_ROUTE_MS = {"K1-bf16 ac": 0.738, "K2-bf16 ac": 3.408,
                "K3-bf16 ac": 3.760, "K3-bf16 system": 3.853}
+# K1's ms before its persistent wgmma route (the kernel beside K2, which
+# stays the route for other shapes; PERF.md §6, an NVIDIA H100 80GB HBM3 at
+# 700 W), printed beside this run's; the same-call comparison is
+# scripts/torch_phase_split.py's and scripts/torch_step_ab.py's
+K1_BEFORE_WGMMA_MS = {"K1 ac": 0.844, "K1-bf16 ac": 0.583}
 SERVE_BF16_KINDS = ("u", "d:x:1", "d:x:2", "residual")
 SERVE_BF16_BUCKETS = (256, 4096, 131_072)
 # engine u against predict's u: the same forward at another row count
@@ -340,6 +352,20 @@ def bound_text(ms: float, bound: dict) -> str:
             f"{bound['fp32_ms']:.3f} ms ({100 * bound['fp32_ms'] / ms:.1f} %)")
 
 
+def _bit_identical_run_to_run(label: str, first, launch) -> bool:
+    """A kernel's output launched again on the same inputs equals the first
+    bit for bit (the served rungs and remat's first step rely on it)."""
+    import torch
+    again = launch()
+    torch.cuda.synchronize()
+    same = torch.equal(again, first)
+    print(f"[{label}] run to run: "
+          f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
+    if not same:
+        fail(f"{label} is not bit-identical run to run")
+    return same
+
+
 def scaled_err(got, want) -> tuple[float, float]:
     """(max abs error, max abs error / max |want|)."""
     err = float((got - want).abs().max())
@@ -381,11 +407,14 @@ def phase_kernels(dev) -> dict:
         for c in range(plan.C):
             a, r = scaled_err(table[c], ref[c])
             k1_abs, k1_rel = max(k1_abs, a), max(k1_rel, r)
-        print(f"[K1 {label}] C={plan.C} N={N_POINTS} max_abs_err={k1_abs:.3e}"
-              f" scale_rel_err={k1_rel:.3e} (tol {K1_RTOL:g} on it)",
-              flush=True)
+        route = plan.k1_routes[None]
+        print(f"[K1 {label}] C={plan.C} N={N_POINTS} route {route} "
+              f"max_abs_err={k1_abs:.3e} scale_rel_err={k1_rel:.3e} (tol "
+              f"{K1_RTOL:g} on it)", flush=True)
         if not k1_rel <= K1_RTOL:
             fail(f"K1 disagrees with the plain flavor ({label})")
+        k1_bits = _bit_identical_run_to_run(
+            f"K1 {label}", table, lambda: ct.k1_forward(plan, X, flat))
 
         g = torch.as_tensor(rng.randn(plan.C, N_POINTS, 1),
                             dtype=torch.float32, device=dev)
@@ -422,13 +451,17 @@ def phase_kernels(dev) -> dict:
         nbytes = ct.byte_count(plan, N_POINTS)
         b1 = bound_ms(flops["k1"], nbytes["k1"])
         b2 = bound_ms(flops["k2"], nbytes["k2"])
-        print(f"[time {label}] K1 {k1_ms:.3f} ms (plain {k1_plain_ms:.3f} ms)"
-              f", {bound_text(k1_ms, b1)}", flush=True)
+        before_ms = K1_BEFORE_WGMMA_MS.get(f"K1 {label}")
+        print(f"[time {label}] K1 {k1_ms:.3f} ms on the {route} route "
+              f"(before the wgmma route: "
+              f"{'not recorded' if before_ms is None else f'{before_ms:.3f} ms'}"
+              f"; plain {k1_plain_ms:.3f} ms), {bound_text(k1_ms, b1)}",
+              flush=True)
         print(f"[time {label}] K2 {k2_ms:.3f} ms (plain fwd+bwd "
               f"{k2_plain_ms:.3f} ms), {bound_text(k2_ms, b2)}", flush=True)
         out[label] = dict(
             k1=dict(max_abs_err=k1_abs, ms=k1_ms, plain_ms=k1_plain_ms,
-                    bound=b1),
+                    bound=b1, route=route, bit_identical=k1_bits),
             k2=dict(max_abs_err=k2_abs, ms=k2_ms, plain_ms=k2_plain_ms,
                     bound=b2))
     return out["ac"]
@@ -2255,15 +2288,19 @@ def phase_mixed_kernels(dev) -> dict:
     before = _counts_all()
     out = {}
 
-    def timed(label, kernel, ms32, plain_ms, flops, nbytes, passes):
+    def timed(label, kernel, ms32, plain_ms, flops, nbytes, passes,
+              route=None):
         ms = cuda_ms(kernel)
         b = bound_ms(flops, nbytes, passes, PEAK_BF16_FLOPS)
         before = BF16_TF32_ROUTE_MS.get(label)
-        print(f"[time {label}] {ms:.3f} ms (TF32-pass route: "
-              f"{'not recorded' if before is None else f'{before:.3f} ms'}) "
-              f"beside "
-              f"the f32 flavor's {ms32:.3f} ms (plain bf16 {plain_ms:.3f} "
-              f"ms); {bound_text(ms, b)}", flush=True)
+        wg = K1_BEFORE_WGMMA_MS.get(label)
+        print(f"[time {label}] {ms:.3f} ms "
+              f"{'' if route is None else f'on the {route} route '}"
+              f"(TF32-pass route: "
+              f"{'not recorded' if before is None else f'{before:.3f} ms'}"
+              f"{'' if wg is None else f'; before the wgmma route: {wg:.3f} ms'}"
+              f") beside the f32 flavor's {ms32:.3f} ms (plain bf16 "
+              f"{plain_ms:.3f} ms); {bound_text(ms, b)}", flush=True)
         return dict(ms=ms, f32_ms=ms32, plain_ms=plain_ms, bound=b)
 
     for label, reqs in (("ac", AC_REQUESTS), ("mixed", MIXED_REQUESTS)):
@@ -2287,6 +2324,10 @@ def phase_mixed_kernels(dev) -> dict:
         (t16, g16), (t32, g32) = plain(bf16), plain(None)
         k1 = _flavor_check(f"K1-bf16 {label}", list(table), list(t16),
                            list(t32), [BF16_VALUE_BAND] * plan.C)
+        k1["route"] = plan.k1_routes[bf16]
+        k1["bit_identical"] = _bit_identical_run_to_run(
+            f"K1-bf16 {label}", table,
+            lambda: ct.k1_forward_bf16(plan, X, flat))
         mine = plan.unpack(dflat) + [dX]
         k2 = _flavor_check(f"K2-bf16 {label}", mine, list(g16), list(g32),
                            [BF16_GRAD_BAND] * len(mine))
@@ -2300,7 +2341,8 @@ def phase_mixed_kernels(dev) -> dict:
         k1.update(timed(f"K1-bf16 {label}",
                         lambda: ct.k1_forward_bf16(plan, X, flat),
                         cuda_ms(lambda: ct.k1_forward(plan, X, flat)), p1,
-                        flops["k1"], nbytes["k1"], passes["k1"]))
+                        flops["k1"], nbytes["k1"], passes["k1"],
+                        k1["route"]))
         k2.update(timed(f"K2-bf16 {label}",
                         lambda: ct.k2_backward_bf16(plan, X, flat, g),
                         cuda_ms(lambda: ct.k2_backward(plan, X, flat, g)),
@@ -2580,14 +2622,14 @@ def kernels_line(meas: dict, paths: dict) -> str:
     serve-bf16)."""
     entries = []
     for key, name, source, replaces in (
-            ("k1", "taylor_table_fwd (K1)", "csrc/taylor_table.cu",
+            ("k1", "taylor_table_fwd (K1)", "csrc/taylor_fwd_wg.cuh",
              "pallas_taylor.py:154"),
             ("k2", "taylor_table_bwd (K2)", "csrc/taylor_table.cu",
              "pallas_taylor.py:171"),
             ("k3", "minimax_step (K3)", "csrc/minimax_step.cu",
              "pallas_minimax.py:259"),
             ("k1_bf16", "taylor_table_fwd bf16 (K1-bf16)",
-             "csrc/taylor_table.cu", "pallas_taylor.py:154"),
+             "csrc/taylor_fwd_wg.cuh", "pallas_taylor.py:154"),
             ("k2_bf16", "taylor_table_bwd bf16 (K2-bf16)",
              "csrc/taylor_table.cu", "pallas_taylor.py:171"),
             ("k3_bf16", "minimax_step bf16 (K3-bf16)",
@@ -2604,6 +2646,9 @@ def kernels_line(meas: dict, paths: dict) -> str:
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound"]["ms"],
             "bound_by": m["bound"]["by"],
+            # K1's route at the slice's shape (the wgmma route's
+            # csrc/taylor_fwd_wg.cuh, or csrc/taylor_table.cu)
+            **({"k1_route": m["route"]} if "route" in m else {}),
             # no single PyTorch call computes the Taylor table or the
             # fused minimax step
             "library_ms": None})

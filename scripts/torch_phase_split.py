@@ -161,8 +161,8 @@ def instrument(src_dir: str, dst_dir: str) -> list:
             if hit:
                 done.append(fn)
         for k in KERNELS:
-            pat = (r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
-                   + k + r"\s*\(")
+            pat = (r"__global__\s+void\s+(?:__launch_bounds__\("
+                   r"(?:[^()]|\([^()]*\))*\)\s*)?" + k + r"\s*\(")
             src, hit = _instrument_fn(src, pat, str(P["total"]))
             if hit:
                 done.append(k)
@@ -290,7 +290,8 @@ def main():
         f1 = p1.pack(flat_layers)
         # K1's routes: the wgmma one (its flavors' units) where the
         # checkout has it, else the kernel beside K2
-        units = ("taylor_table", "taylor_fwd_wg_f32", "taylor_fwd_wg_bf16")
+        units = ("taylor_table",) + tuple(
+            f"taylor_fwd_wg_{f}_{n}" for f in ("f32", "bf16") for n in (64, 128))
         split(f"K1 {label}", units, lambda: ct.k1_forward(p1, X, f1))
         split(f"K1-bf16 {label}", units,
               lambda: ct.k1_forward_bf16(p1, X, f1))

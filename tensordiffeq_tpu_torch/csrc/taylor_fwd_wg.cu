@@ -1,6 +1,6 @@
 // The C interface of K1's wgmma route (taylor_fwd_wg.cuh has the kernel,
-// its note and its plan; taylor_fwd_wg_f32.cu and taylor_fwd_wg_bf16.cu
-// its instances).  Loaded with ctypes; the descriptors as in
+// its note and its plan; taylor_fwd_wg_{f32,bf16}_{64,128}.cu its
+// instances).  Loaded with ctypes; the descriptors as in
 // taylor_common.cuh.
 #include "taylor_fwd_wg.cuh"
 
@@ -33,6 +33,11 @@ extern "C" int tdq_taylor_fwd_wg(const float* X, const float* prm,
                   plan_h[5], plan_h[6], plan_h[7], plan_h[8], plan_h[9]};
   cudaStream_t st = (cudaStream_t)stream;
   char* w = static_cast<char*>(wprep);
-  return bf16 ? k1wg_launch_bf16(X, prm, w, table, N, net, s, wp, st)
-              : k1wg_launch_f32(X, prm, w, table, N, net, s, wp, st);
+  if (wp.NP == 64)
+    return bf16 ? k1wg_bf16_64(X, prm, w, table, N, net, s, wp, st)
+                : k1wg_f32_64(X, prm, w, table, N, net, s, wp, st);
+  if (wp.NP == 128)
+    return bf16 ? k1wg_bf16_128(X, prm, w, table, N, net, s, wp, st)
+                : k1wg_f32_128(X, prm, w, table, N, net, s, wp, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -16,10 +16,10 @@
 // keeps the tensor cores fed and hides the pointwise pass behind them:
 //   * persistent blocks, one per SM (grid = min(SMs, tiles)), each walking
 //     tiles blockIdx.x, + gridDim.x, ...  A block is two consumer
-//     warpgroups and one producer warpgroup, whose registers go to the
-//     consumers (setmaxnreg: 232 and 40 a thread).  A tile is 128 rows
-//     (points x channels, C padded to CP = 4 or 8): each consumer
-//     warpgroup owns 64 of them, one m64 product tile.
+//     warpgroups (three in the bf16 flavor) and one producer warpgroup,
+//     whose registers go to the consumers (setmaxnreg, wg_consumers).  A
+//     tile is 64 rows (points x channels, C padded to CP, a power of two up
+//     to 8) per consumer warpgroup, one m64 product tile each.
 //   * the wavefront never leaves the registers: layer 0 (d inputs, SIMT)
 //     writes its pre-activations straight into the accumulator layout; the
 //     activation pass works on the accumulator in place.  A point's CP
@@ -56,10 +56,11 @@
 //         the weights is 384 KB shared by its 128 rows: 1,563 tiles take
 //         600 MB per launch from L2.
 //   bf16: NP = 128, chunks of 32 KB (one layer), P = 3, resident: 102,080
-//         bytes; 132 blocks x 96 KB = 12.7 MB per launch from L2.
+//         bytes; 132 blocks x 96 KB = 12.7 MB per launch from L2; tiles
+//         of 192 rows.
 // The device code is here; taylor_fwd_wg.cu has the C interface, and
-// taylor_fwd_wg_f32.cu / taylor_fwd_wg_bf16.cu build the two flavors'
-// instances (NP = 64, 128 by CP = 4, 8), so nvcc compiles them side by side.
+// taylor_fwd_wg_{f32,bf16}_{64,128}.cu build the instances of each flavor
+// and NP (CP = 1, 2, 4, 8 each), so nvcc compiles them side by side.
 // The routes (the host chooses by shape, ops/cuda_taylor.py::_Plan and
 // wg_plan below, which agree before a plan's first launch): this one for
 // C <= 8 channels, hidden widths <= 128, d <= 16 inputs, n_out <= 16
@@ -74,15 +75,32 @@
 #include "taylor_common.cuh"
 #include "wgmma.cuh"
 
-#define WG_CONSUMERS 2                      // consumer warpgroups per block
-#define WG_THREADS ((WG_CONSUMERS + 1) * 128)  // and the producer warpgroup
-#define WG_TILE (WG_CONSUMERS * 64)         // rows per block tile
-#define WG_MAXS 8                           // weight stages
-#define WG_MAXD 16                          // inputs
-#define WG_MAXOUT 16                        // the head's columns
-#define WG_MAXC 8                           // channels
-#define WG_REGS_CONSUMER 232                // setmaxnreg: 2 x 128 x 232
-#define WG_REGS_PRODUCER 40                 //   + 128 x 40 <= 65,536
+#define WG_MAXS 8     // weight stages
+#define WG_MAXD 16    // inputs
+#define WG_MAXOUT 16  // the head's columns
+#define WG_MAXC 8     // channels
+
+// Consumer warpgroups per block: two in the f32 flavor, whose products
+// hold the layer's input, its output and the A fragments of a chunk at
+// once (about 200 registers a thread), three in the bf16 flavor (under
+// 160), for more warps to hide the pointwise pass's latency.  The producer
+// warpgroup gives its registers to them (setmaxnreg): 2 x 128 x 232 + 128
+// x 40, or 3 x 128 x 160 + 128 x 24, within the SM's 65,536.
+static __host__ __device__ constexpr int wg_consumers(bool bf16) {
+  return bf16 ? 3 : 2;
+}
+static __host__ __device__ constexpr int wg_threads(bool bf16) {
+  return (wg_consumers(bf16) + 1) * 128;
+}
+static __host__ __device__ constexpr int wg_tile(bool bf16) {  // rows
+  return wg_consumers(bf16) * 64;
+}
+static __host__ __device__ constexpr int wg_regs_consumer(bool bf16) {
+  return bf16 ? 160 : 232;
+}
+static __host__ __device__ constexpr int wg_regs_producer(bool bf16) {
+  return bf16 ? 24 : 40;
+}
 
 // A launch of the route (ops/cuda_taylor.py::WgPlan, in the same order).
 struct WgPlan {
@@ -110,7 +128,8 @@ static inline int wg_plan(const Net& net, const Sched& s, int bf16,
   for (int l = 0; l + 1 < L; ++l) width = imax(width, net.w_out[l]);
   if (C > WG_MAXC || width > 128 || d > WG_MAXD || n_out > WG_MAXOUT)
     return 0;
-  const int CP = C <= 4 ? 4 : 8;
+  int CP = 1;
+  while (CP < C) CP *= 2;
   const int NP = width <= 64 ? 64 : 128;
   const int KC = bf16 ? NP : 64;
   const int P = (L - 2) * (NP / KC);
@@ -123,7 +142,8 @@ static inline int wg_plan(const Net& net, const Sched& s, int bf16,
     S = imin(imin(P, (smem_optin - misc - bars) / stage), WG_MAXS);
     if (S < P && S < 2) return 0;
   }
-  const int n_tiles = (int)(((long long)N * CP + WG_TILE - 1) / WG_TILE);
+  const int tile = wg_tile(bf16 != 0);
+  const int n_tiles = (int)(((long long)N * CP + tile - 1) / tile);
   *p = WgPlan{NP, CP, KC, S, P, P <= S ? 1 : 0, stage, n_tiles,
               imin(n_tiles, n_sm), S * stage + misc + bars};
   return 1;
@@ -205,7 +225,8 @@ static __device__ __forceinline__ float k1w_pick(const float* y, int k) {
 
 // The activation pass in place on the accumulator.  Each group of CP
 // registers is transposed (k1w_transpose) so that each lane holds all CP
-// channels of one item; then every group's tanh chain (z, d1, d2 of the
+// channels of one item; then, for up to 8 groups at a time, every group's
+// tanh chain (z, d1, d2 of the
 // primal; d3 and d4 derived where a line needs them, by tanh_chain's
 // expressions); then channel by channel, from the highest down (a line
 // reads only lower channels, so in place is safe), every group's Faa di
@@ -217,78 +238,85 @@ static __device__ __forceinline__ float k1w_pick(const float* y, int k) {
 template <int NP, int CP>
 static __device__ __forceinline__ void k1w_act(float (&acc)[NP / 2], int c,
                                                const Sched& s) {
-  constexpr int G = NP / 2 / CP;  // groups of CP registers
+  // groups of CP registers, taken GB at a time: GB items per lane in
+  // flight, their chains held in 3 * GB registers
+  constexpr int G = NP / 2 / CP, GB = G < 8 ? G : 8;
 #pragma unroll
-  for (int j = 0; j < G; ++j) {
-    float* y = acc + j * CP;
-    float x[CP];
+  for (int b = 0; b < G; b += GB) {
+    float* a = acc + b * CP;
 #pragma unroll
-    for (int q = 0; q < CP; ++q) x[q] = y[q];
-    k1w_transpose<CP>(x, c);
+    for (int j = 0; j < GB; ++j) {
+      float x[CP];
 #pragma unroll
-    for (int q = 0; q < CP; ++q) y[q] = x[q];
-  }
-  float z[G], d1[G], d2[G];
+      for (int q = 0; q < CP; ++q) x[q] = a[j * CP + q];
+      k1w_transpose<CP>(x, c);
 #pragma unroll
-  for (int j = 0; j < G; ++j) {
-    z[j] = tanhf(acc[j * CP]);
-    d1[j] = 1.f - z[j] * z[j];
-    d2[j] = -2.f * z[j] * d1[j];
-  }
+      for (int q = 0; q < CP; ++q) a[j * CP + q] = x[q];
+    }
+    float z[GB], d1[GB], d2[GB];
 #pragma unroll
-  for (int ch = CP - 1; ch >= 1; --ch) {
-    const int o = ch < s.C ? s.order[ch] : 0;
-    const int* ix = s.idx[ch];
-    if (o == 1) {
+    for (int j = 0; j < GB; ++j) {
+      z[j] = tanhf(a[j * CP]);
+      d1[j] = 1.f - z[j] * z[j];
+      d2[j] = -2.f * z[j] * d1[j];
+    }
 #pragma unroll
-      for (int j = 0; j < G; ++j) acc[j * CP + ch] = d1[j] * acc[j * CP + ch];
-    } else if (o == 2) {
+    for (int ch = CP - 1; ch >= 1; --ch) {
+      const int o = ch < s.C ? s.order[ch] : 0;
+      const int* ix = s.idx[ch];
+      if (o == 1) {
 #pragma unroll
-      for (int j = 0; j < G; ++j) {
-        const float* y = acc + j * CP;
-        acc[j * CP + ch] = d1[j] * y[ch] + d2[j] * k1w_pick<CP>(y, ix[0])
+        for (int j = 0; j < GB; ++j) a[j * CP + ch] = d1[j] * a[j * CP + ch];
+      } else if (o == 2) {
+#pragma unroll
+        for (int j = 0; j < GB; ++j) {
+          const float* y = a + j * CP;
+          a[j * CP + ch] = d1[j] * y[ch] + d2[j] * k1w_pick<CP>(y, ix[0])
                                                * k1w_pick<CP>(y, ix[1]);
-      }
-    } else if (o == 3) {
+        }
+      } else if (o == 3) {
 #pragma unroll
-      for (int j = 0; j < G; ++j) {
-        const float* y = acc + j * CP;
-        const float d3 = -2.f * d1[j] * (1.f - 3.f * z[j] * z[j]);
-        const float qi = k1w_pick<CP>(y, ix[0]), qj = k1w_pick<CP>(y, ix[1]),
-                    qk = k1w_pick<CP>(y, ix[2]), rij = k1w_pick<CP>(y, ix[3]),
-                    rik = k1w_pick<CP>(y, ix[4]), rjk = k1w_pick<CP>(y, ix[5]);
-        acc[j * CP + ch] = d3 * qi * qj * qk
+        for (int j = 0; j < GB; ++j) {
+          const float* y = a + j * CP;
+          const float d3 = -2.f * d1[j] * (1.f - 3.f * z[j] * z[j]);
+          const float qi = k1w_pick<CP>(y, ix[0]),
+                      qj = k1w_pick<CP>(y, ix[1]),
+                      qk = k1w_pick<CP>(y, ix[2]),
+                      rij = k1w_pick<CP>(y, ix[3]),
+                      rik = k1w_pick<CP>(y, ix[4]),
+                      rjk = k1w_pick<CP>(y, ix[5]);
+          a[j * CP + ch] = d3 * qi * qj * qk
                            + d2[j] * (rij * qk + rik * qj + rjk * qi)
                            + d1[j] * y[ch];
-      }
-    } else if (o == 4) {
+        }
+      } else if (o == 4) {
 #pragma unroll
-      for (int j = 0; j < G; ++j) {
-        const float* y = acc + j * CP;
-        const float e = 1.f - 3.f * z[j] * z[j];
-        const float d3 = -2.f * d1[j] * e;
-        const float d4 = -2.f * d2[j] * e + 12.f * z[j] * d1[j] * d1[j];
-        const float q = k1w_pick<CP>(y, ix[0]), r = k1w_pick<CP>(y, ix[1]),
-                    w = k1w_pick<CP>(y, ix[2]);
-        acc[j * CP + ch] = d1[j] * y[ch] + 4.f * d2[j] * w * q
+        for (int j = 0; j < GB; ++j) {
+          const float* y = a + j * CP;
+          const float e = 1.f - 3.f * z[j] * z[j];
+          const float d3 = -2.f * d1[j] * e;
+          const float d4 = -2.f * d2[j] * e + 12.f * z[j] * d1[j] * d1[j];
+          const float q = k1w_pick<CP>(y, ix[0]), r = k1w_pick<CP>(y, ix[1]),
+                      w = k1w_pick<CP>(y, ix[2]);
+          a[j * CP + ch] = d1[j] * y[ch] + 4.f * d2[j] * w * q
                            + 3.f * d2[j] * r * r + 6.f * d3 * r * q * q
                            + d4 * q * q * q * q;
+        }
+      } else {  // a pad channel
+#pragma unroll
+        for (int j = 0; j < GB; ++j) a[j * CP + ch] = 0.f;
       }
-    } else {  // a pad channel
-#pragma unroll
-      for (int j = 0; j < G; ++j) acc[j * CP + ch] = 0.f;
     }
-  }
 #pragma unroll
-  for (int j = 0; j < G; ++j) {
-    float* y = acc + j * CP;
-    float x[CP];
-    x[0] = z[j];
+    for (int j = 0; j < GB; ++j) {
+      float x[CP];
+      x[0] = z[j];
 #pragma unroll
-    for (int q = 1; q < CP; ++q) x[q] = y[q];
-    k1w_transpose<CP>(x, c);
+      for (int q = 1; q < CP; ++q) x[q] = a[j * CP + q];
+      k1w_transpose<CP>(x, c);
 #pragma unroll
-    for (int q = 0; q < CP; ++q) y[q] = x[q];
+      for (int q = 0; q < CP; ++q) a[j * CP + q] = x[q];
+    }
   }
 }
 
@@ -366,16 +394,17 @@ static __device__ __forceinline__ void k1w_head(
   }
 }
 
-// The route's kernel: threads 0 .. 255 the two consumer warpgroups, 256
-// .. 383 the producer warpgroup (its first thread issues the copies).
+// The route's kernel: the consumer warpgroups first, then the producer
+// warpgroup (its first thread issues the copies).
 template <bool BF, int NP, int CP>
-__global__ void __launch_bounds__(WG_THREADS, 1)
+__global__ void __launch_bounds__(wg_threads(BF), 1)
 taylor_fwd_wg_kernel(const float* __restrict__ X,
                      const float* __restrict__ prm,
                      const char* __restrict__ wprep,
                      float* __restrict__ table, int N, Net net, Sched s,
                      WgPlan wp) {
   extern __shared__ __align__(128) char smw[];
+  constexpr int NC = wg_consumers(BF), NT = wg_threads(BF);
   const int d = net.d, L = net.L, n_out = net.n_out;
   char* stages = smw;
   float* sW0 = reinterpret_cast<float*>(smw + (size_t)wp.S * wp.stage_bytes);
@@ -388,33 +417,33 @@ taylor_fwd_wg_kernel(const float* __restrict__ X,
   if (threadIdx.x == 0) {
     for (int i = 0; i < wp.S; ++i) {
       mbar_init_n(&full[i], 1);
-      mbar_init_n(&empty[i], 4 * WG_CONSUMERS);
+      mbar_init_n(&empty[i], 4 * NC);
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
   // the small operands, NP-wide rows zero past each layer's width
   const int w0 = net.w_out[0], wl = net.w_in[L - 1];
-  for (int e = threadIdx.x; e < d * NP; e += WG_THREADS) {
+  for (int e = threadIdx.x; e < d * NP; e += NT) {
     const int k = e / NP, n = e % NP;
     sW0[e] = n < w0 ? opnd<BF>(prm[net.offW[0] + k * w0 + n]) : 0.f;
   }
-  for (int e = threadIdx.x; e < (L - 1) * NP; e += WG_THREADS) {
+  for (int e = threadIdx.x; e < (L - 1) * NP; e += NT) {
     const int l = e / NP, n = e % NP;
     sB[e] = n < net.w_out[l] ? prm[net.offb[l] + n] : 0.f;
   }
-  for (int e = threadIdx.x; e < NP * n_out; e += WG_THREADS)
+  for (int e = threadIdx.x; e < NP * n_out; e += NT)
     sWh[e] = e / n_out < wl ? opnd<BF>(prm[net.offW[L - 1] + e]) : 0.f;
-  for (int o = threadIdx.x; o < n_out; o += WG_THREADS)
+  for (int o = threadIdx.x; o < n_out; o += NT)
     sBh[o] = prm[net.offb[L - 1] + o];
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp >= 4 * WG_CONSUMERS) {
+  if (warp >= 4 * NC) {
     // the producer: the block's chunks in the consumers' order, each into
     // the next stage once every consumer warp has released it
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
-                 :: "n"(WG_REGS_PRODUCER));
-    if (threadIdx.x == 4 * WG_CONSUMERS * 32 && wp.P > 0) {
+                 :: "n"(wg_regs_producer(BF)));
+    if (threadIdx.x == 128 * NC && wp.P > 0) {
       const int mine = (wp.n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
                        (int)gridDim.x;
       const long long total =
@@ -432,13 +461,13 @@ taylor_fwd_wg_kernel(const float* __restrict__ X,
   } else {
     // a consumer: rows 64 * wg + 16 * wq + g and + 8 of each tile
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
-                 :: "n"(WG_REGS_CONSUMER));
+                 :: "n"(wg_regs_consumer(BF)));
     const int wg = warp >> 2, wq = warp & 3, g = lane >> 2, t = lane & 3;
     const int C = s.C;
     const int c = g % CP;
     const int ord = c < C ? s.order[c] : -1;
     const int dir = ord == 1 ? s.idx[c][0] : 0;
-    const int ppt = WG_TILE / CP;
+    const int ppt = wg_tile(BF) / CP;
     const int row = 64 * wg + 16 * wq + g;
     const int pl0 = row / CP, pl1 = (row + 8) / CP;
     long long chunk = 0;
@@ -507,32 +536,31 @@ static int launch_wg(const float* X, const float* prm, char* wprep,
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  taylor_fwd_wg_kernel<BF, NP, CP><<<wp.grid, WG_THREADS, wp.smem, st>>>(
+  taylor_fwd_wg_kernel<BF, NP, CP><<<wp.grid, wg_threads(BF), wp.smem, st>>>(
       X, prm, wprep, table, N, net, s, wp);
   return (int)cudaGetLastError();
 }
 
-// One flavor's launch at its plan's NP and CP (taylor_fwd_wg_f32.cu and
-// taylor_fwd_wg_bf16.cu define the two; cudaErrorInvalidValue for a width
-// or channel count the route has no instance of).
-#define K1WG_FLAVOR(name, BF)                                               \
+// One flavor's launch at one NP, at its plan's CP (taylor_fwd_wg_*.cu
+// define the four; cudaErrorInvalidValue for a channel count the route has
+// no instance of).
+#define K1WG_INSTANCES(name, BF, NP)                                        \
   int name(const float* X, const float* prm, char* w, float* table, int N, \
            const Net& net, const Sched& s, const WgPlan& wp,                \
            cudaStream_t st) {                                               \
-    if (wp.NP == 64 && wp.CP == 4)                                          \
-      return launch_wg<BF, 64, 4>(X, prm, w, table, N, net, s, wp, st);     \
-    if (wp.NP == 64 && wp.CP == 8)                                          \
-      return launch_wg<BF, 64, 8>(X, prm, w, table, N, net, s, wp, st);     \
-    if (wp.NP == 128 && wp.CP == 4)                                         \
-      return launch_wg<BF, 128, 4>(X, prm, w, table, N, net, s, wp, st);    \
-    if (wp.NP == 128 && wp.CP == 8)                                         \
-      return launch_wg<BF, 128, 8>(X, prm, w, table, N, net, s, wp, st);    \
-    return (int)cudaErrorInvalidValue;                                      \
+    switch (wp.CP) {                                                        \
+      case 1: return launch_wg<BF, NP, 1>(X, prm, w, table, N, net, s, wp, st); \
+      case 2: return launch_wg<BF, NP, 2>(X, prm, w, table, N, net, s, wp, st); \
+      case 4: return launch_wg<BF, NP, 4>(X, prm, w, table, N, net, s, wp, st); \
+      case 8: return launch_wg<BF, NP, 8>(X, prm, w, table, N, net, s, wp, st); \
+      default: return (int)cudaErrorInvalidValue;                           \
+    }                                                                       \
   }
 
-int k1wg_launch_f32(const float* X, const float* prm, char* w, float* table,
-                    int N, const Net& net, const Sched& s, const WgPlan& wp,
-                    cudaStream_t st);
-int k1wg_launch_bf16(const float* X, const float* prm, char* w, float* table,
-                     int N, const Net& net, const Sched& s, const WgPlan& wp,
-                     cudaStream_t st);
+#define K1WG_DECLARE(name)                                                  \
+  int name(const float* X, const float* prm, char* w, float* table, int N, \
+           const Net& net, const Sched& s, const WgPlan& wp, cudaStream_t st);
+K1WG_DECLARE(k1wg_f32_64)
+K1WG_DECLARE(k1wg_f32_128)
+K1WG_DECLARE(k1wg_bf16_64)
+K1WG_DECLARE(k1wg_bf16_128)

@@ -1,0 +1,5 @@
+// The bf16 flavor's instances of K1's wgmma route at NP = 128
+// (taylor_fwd_wg.cuh).
+#include "taylor_fwd_wg.cuh"
+
+K1WG_INSTANCES(k1wg_bf16_128, true, 128)

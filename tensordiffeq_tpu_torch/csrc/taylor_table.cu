@@ -56,10 +56,12 @@
 //   * the pointwise tanh chain runs in place in shared memory, channels in
 //     descending order (a channel only reads lower-order channels and the
 //     primal, so in-place is safe), four items per thread at a time.
-// K1 keeps one block per tile and a non-persistent grid.  wgmma with TMA,
-// the tensor cores' full rate, is later work (PERF.md has the measured
-// times).  The device code is in taylor_common.cuh, which the fused
-// minimax step (minimax_step.cu, K3) shares.
+// This K1 is the route for the shapes the persistent wgmma route
+// (taylor_fwd_wg.cuh) does not take: a hidden layer wider than 128, more
+// than 8 channels, more than 16 inputs or outputs.  It keeps one block per
+// tile and a non-persistent grid.  The device code is in
+// taylor_common.cuh, which the fused minimax step (minimax_step.cu, K3)
+// shares.
 //
 // The bf16-operand flavor (template parameter BF = true; the Pallas pair
 // under compute_dtype=bfloat16) rounds every product's operands to bf16 as

@@ -4,11 +4,15 @@ fused residual engine.
 Counterpart of the JAX package's ``ops/pallas_taylor.py::
 build_pallas_table_fn``: :func:`build_cuda_table_fn` returns
 ``table_fn(layers, X) -> {mi: [N, n_out]}``, a drop-in ``table_producer``
-for :func:`~.fused.make_fused_residual`.  The kernels live in
-``csrc/taylor_table.cu`` (its header note says what bounds them on the H100
+for :func:`~.fused.make_fused_residual`.  K2 lives in
+``csrc/taylor_table.cu`` (its header note says what bounds it on the H100
 and how the design answers it) over the device code in
 ``csrc/taylor_common.cuh``, which the fused minimax step K3
-(``csrc/minimax_step.cu``, :mod:`.cuda_minimax`) shares.  :func:`build`
+(``csrc/minimax_step.cu``, :mod:`.cuda_minimax`) shares.  K1 has two
+routes, chosen by shape (:meth:`_Plan.k1_route`): a persistent kernel on
+Hopper's warpgroup products for hidden widths up to 128 and up to 8
+channels (``csrc/taylor_fwd_wg.cuh``, :func:`wg_plan`), and the kernel
+beside K2 for the other shapes.  :func:`build`
 compiles every source under ``csrc/`` with ``nvcc`` for ``sm_90a`` into
 one plain C-ABI shared library at first use and loads it with ``ctypes``.
 
@@ -268,7 +272,9 @@ def workspace_floats(layer_shapes: Sequence[tuple], R: int, ld: int, G: int,
 # K1's persistent wgmma route (csrc/taylor_fwd_wg.cuh): its plan and the
 # plain mirror of its weight preparation
 # ------------------------------------------------------------------ #
-WG_TILE_ROWS = 128  # WG_TILE: two consumer warpgroups of 64 rows
+# wg_tile: rows of a block's tile, 64 per consumer warpgroup (two in the
+# f32 flavor, three in the bf16 one)
+WG_TILE_ROWS = {False: 128, True: 192}
 WG_MAX_STAGES = 8   # WG_MAXS: weight stages in shared memory
 WG_MAX_D = 16       # WG_MAXD: inputs
 WG_MAX_OUT = 16     # WG_MAXOUT: the head's columns
@@ -280,13 +286,13 @@ class WgPlan(NamedTuple):
     """The wgmma route's launch for one plan, flavor and N (``wg_plan`` in
     ``csrc/taylor_fwd_wg.cuh``, in the same order)."""
     NP: int           # hidden width padded to 64 or 128
-    CP: int           # channels padded to 4 or 8
+    CP: int           # channels padded to a power of two
     KC: int           # k rows of a weight chunk
     S: int            # weight stages in shared memory
     P: int            # chunks per tile: all hidden products
     resident: int     # P <= S: each chunk is copied once per block
     stage_bytes: int
-    n_tiles: int      # tiles of WG_TILE_ROWS rows
+    n_tiles: int      # tiles of WG_TILE_ROWS[bf16] rows
     grid: int         # persistent blocks: one per SM, at most one per tile
     smem: int         # dynamic shared memory bytes
 
@@ -304,7 +310,9 @@ def wg_plan(layer_shapes: Sequence[tuple], orders: Sequence[int], bf16: bool,
     if C > WG_MAX_C or width > WG_MAX_WIDTH or d > WG_MAX_D \
             or n_out > WG_MAX_OUT:
         return None
-    CP = 4 if C <= 4 else 8
+    CP = 1
+    while CP < C:
+        CP *= 2
     NP = 64 if width <= 64 else 128
     KC = NP if bf16 else 64
     P = (L - 2) * (NP // KC)
@@ -317,7 +325,7 @@ def wg_plan(layer_shapes: Sequence[tuple], orders: Sequence[int], bf16: bool,
         S = min(P, (smem_optin - misc - bars) // stage_bytes, WG_MAX_STAGES)
         if S < P and S < 2:
             return None
-    n_tiles = -(-N * CP // WG_TILE_ROWS)
+    n_tiles = -(-N * CP // WG_TILE_ROWS[bool(bf16)])
     return WgPlan(NP, CP, KC, S, P, int(P <= S), stage_bytes, n_tiles,
                   min(n_tiles, n_sm), S * stage_bytes + misc + bars)
 

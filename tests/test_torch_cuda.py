@@ -1397,9 +1397,11 @@ def test_bf16_k1_launch_failure_raises_out_of_compile(card, monkeypatch,
 # hidden widths up to 128 and up to 8 channels, the kernel beside K2 for
 # the rest
 # --------------------------------------------------------------------------- #
-# the wgmma route's tile edges (128 rows: 32 points at C = 4) and a layer
-# too wide for it
+# the wgmma route's one- and two-channel instances, its tile edges (128
+# rows in the f32 flavor: 32 points at C = 4) and a layer too wide for it
 K1_EDGES = {
+    "one-channel": ({()}, [2, 128, 128, 1], 1001),
+    "two-channels": ({(), (0,)}, [2, 128, 64, 1], 1001),
     "below-one-tile": (AC, [2, 128, 128, 1], 5),
     "one-row-past-tiles": (AC, [2, 128, 128, 1], 32 * 40 + 1),
     "fewer-tiles-than-sms": (MIXED, [2, 128, 128, 128, 1], 16 * 100 - 3),

@@ -173,15 +173,16 @@ def test_route_choice_by_shape():
                             stage_bytes=65_536, n_tiles=1563, grid=132,
                             smem=200_384)
     bf = _plan(AC, [2, 128, 128, 128, 128, 1], True, 50_000)[1]
-    assert (bf.S, bf.P, bf.resident, bf.stage_bytes, bf.smem) \
-        == (3, 3, 1, 32_768, 102_080)
+    assert (bf.S, bf.P, bf.resident, bf.stage_bytes, bf.smem, bf.n_tiles) \
+        == (3, 3, 1, 32_768, 102_080, 1042)  # tiles of 48 points
     # the mixed request set: 8 channels, 16 points a tile
     mixed = _plan(MIXED, [2, 128, 128, 128, 128, 1], False, 50_000)[1]
     assert (mixed.CP, mixed.n_tiles) == (8, 3125)
-    # three channels pad to four, one channel too; narrow layers pad to 64
+    # channels pad to a power of two; narrow layers pad to 64
     odd = _plan({(), (1,), (1, 1)}, [2, 37, 53, 1], False, 1003)[1]
     assert (odd.CP, odd.NP, odd.P, odd.resident) == (4, 64, 1, 1)
-    assert _plan({()}, [2, 16, 16, 1], False, 5)[1].CP == 4
+    assert _plan({()}, [2, 16, 16, 1], False, 5)[1].CP == 1
+    assert _plan({(), (0,)}, [2, 16, 16, 1], True, 5)[1].CP == 2
     # a net with no hidden product: no stages
     assert _plan(MIXED, [2, 16, 1], True, 1)[1][3:6] == (0, 0, 1)
     # few points: one tile, one block
