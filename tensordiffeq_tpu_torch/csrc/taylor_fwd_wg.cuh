@@ -225,22 +225,23 @@ static __device__ __forceinline__ float k1w_pick(const float* y, int k) {
 
 // The activation pass in place on the accumulator.  Each group of CP
 // registers is transposed (k1w_transpose) so that each lane holds all CP
-// channels of one item; then, for up to 8 groups at a time, every group's
-// tanh chain (z, d1, d2 of the
-// primal; d3 and d4 derived where a line needs them, by tanh_chain's
-// expressions); then channel by channel, from the highest down (a line
-// reads only lower channels, so in place is safe), every group's Faa di
-// Bruno line (taylor_common.cuh's fdb_line: the same lines, the same
-// operand order); channels past C zero; then the primal's z, and the
-// transpose back.  A channel's order is the same in every lane, so the
-// branch on it is taken once per channel, outside the loops over groups,
-// and the groups' work interleaves freely.
-template <int NP, int CP>
+// channels of one item; then, a batch of groups at a time, every group's
+// tanh chain (z, d1, d2 of the primal; d3 and d4 derived where a line
+// needs them, by tanh_chain's expressions); then channel by channel, from
+// the highest down (a line reads only lower channels, so in place is
+// safe), every group's Faa di Bruno line (taylor_common.cuh's fdb_line:
+// the same lines, the same operand order); channels past C zero; then the
+// primal's z, and the transpose back.  A channel's order is the same in
+// every lane, so the branch on it is taken once per channel, outside the
+// loops over groups, and the groups' work interleaves freely.
+template <bool BF, int NP, int CP>
 static __device__ __forceinline__ void k1w_act(float (&acc)[NP / 2], int c,
                                                const Sched& s) {
   // groups of CP registers, taken GB at a time: GB items per lane in
-  // flight, their chains held in 3 * GB registers
-  constexpr int G = NP / 2 / CP, GB = G < 8 ? G : 8;
+  // flight, their chains held in 3 * GB registers (16 at most in the f32
+  // flavor's 232-register consumers, 8 in the bf16 flavor's 160)
+  constexpr int GBMAX = BF ? 8 : 16;
+  constexpr int G = NP / 2 / CP, GB = G < GBMAX ? G : GBMAX;
 #pragma unroll
   for (int b = 0; b < G; b += GB) {
     float* a = acc + b * CP;
@@ -476,7 +477,7 @@ taylor_fwd_wg_kernel(const float* __restrict__ X,
       float acc[NP / 2];
       k1w_layer0<BF, NP>(X, N, d, gp0, gp1, ord, dir, t, sW0, sB, acc);
       for (int l = 1; l < L; ++l) {
-        k1w_act<NP, CP>(acc, c, s);
+        k1w_act<BF, NP, CP>(acc, c, s);
         if (l + 1 < L)
           k1w_products<BF, NP>(acc, l, c, t, lane, sB, stages, full, empty,
                                wp.resident, wp.S, wp.stage_bytes, chunk);
