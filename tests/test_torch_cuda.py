@@ -85,6 +85,13 @@ installed::
   eager program and launches K1-bf16 once per replay; a K1-bf16 the
   runtime refuses raises out of ``compile``; the workspace the wrappers
   allocate is the size the kernels index, in both flavors.
+* K1's two routes (the persistent wgmma route of ``csrc/taylor_fwd_wg.cuh``
+  and the first kernel for wider shapes): both flavors against their plain
+  flavors on every shape above and on the route's edges (one and two
+  channels, N below one tile, one point past a tile multiple, fewer tiles
+  than SMs, a 256-wide layer), each asserting the route the host chose;
+  the wrapper's route plan equal to the kernels' for several N; K1 and
+  K1-bf16 bit for bit run to run and whatever N or a point's place in X.
 """
 
 import ctypes
