@@ -1,25 +1,26 @@
-"""Why K1-bf16 sits further from the plain bf16 flavor than PR 9's
-TF32-pass kernel did: the same K1-bf16 with each k16 product summed on the
-CUDA cores, beside the kernel as it is, on one NVIDIA GPU.
+"""Why K1-bf16 sits further from the plain bf16 flavor than the earlier
+TF32-pass route did (PERF.md §7): the same K1-bf16 with each k16 product
+summed on the CUDA cores, beside the kernel as it is, on one NVIDIA GPU.
 
     python3 scripts/torch_k1_bf16_fresh_acc.py --seeds 0 1 2 3 4 \\
-        --out chiprun_out/fresh_acc.jsonl
+        --out witness/fresh_acc.jsonl
 
 The kernel (``csrc/wgmma.cuh::wg_chunk``) adds every k16 step's bf16
 product into one accumulator inside the tensor core.  The variant, built
 from a copy of this checkout's ``csrc/`` under the git-ignored ``_build/``
 (the package is not touched), runs each k16 step into a fresh accumulator
-and adds it to the running sum in IEEE f32 on the CUDA cores, as PR 9's
-route added each k8 step's sum.  Everything else (operands, rounding
-points, the chain) is the same.  At the Allen-Cahn slice of
+and adds it to the running sum in IEEE f32 on the CUDA cores, as the
+TF32-pass route added each k8 step's sum.  Everything else (operands,
+rounding points, the chain) is the same.  At the Allen-Cahn slice of
 ``chip_smoke.py`` phase 14 (N = 50,000, 2-128x4-1, C = 4), per seed: the
 RMS over the whole table of the kernel and of the variant against the
 plain bf16 flavor on the card, beside the plain flavor rerun on the CPU
 (another BLAS's order of its f32 sums) and with the points permuted, and
 the kernel against the plain f32 flavor (as
 ``scripts/torch_bf16_order_witness.py``'s ``k1_bf16`` row).  If the
-variant sits where PR 9 did (about 1.6 times nearer) the tensor core's own
-accumulation is the cause; if it sits where the kernel does, it is not.
+variant sits where the TF32-pass route did (about 1.6 times nearer), the
+tensor core's own accumulation is the cause; if it sits where the kernel
+does, it is not.
 One JSON line per seed.
 """
 import argparse

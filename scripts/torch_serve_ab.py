@@ -1,9 +1,9 @@
 """Replay ms of the served rungs of one checkout of the repo; run it on two
-checkouts in turns (A, B, B, A) in one session on one card to compare
-their serving programs (the bf16 engine's one K1-bf16 launch per replay).
+checkouts in turns (A, B, B, A) on one card to compare their serving
+programs (the bf16 engine's one K1-bf16 launch per replay).
 
     python3 scripts/torch_serve_ab.py --tree . --tag change \\
-        --out chiprun_out/serve_ab.jsonl
+        --out ab/serve_ab.jsonl
 
 The AC-SA solver of ``chip_smoke.py`` (2-128x4-1, weights from seed 0,
 not trained: serving time does not depend on the values) is exported,

@@ -4,7 +4,7 @@ Hopper GPU, apart from the kernel: the weight chunks' layout
 fragments chained from a product's accumulator (``csrc/wgmma.cuh``:
 ``wg_chunk``).
 
-    python3 scripts/torch_wgmma_probe.py [--out chiprun_out/wgmma_probe.npz]
+    python3 scripts/torch_wgmma_probe.py [--out probe/wgmma_probe.npz]
 
 One warpgroup takes a 64 x NP matrix A into registers in the accumulator
 layout (as a layer's output lies there), runs ``wg_chunk`` over every
