@@ -13,6 +13,9 @@ Phases (each failure is fatal; exit code != 0, no result line):
    chose by shape (the persistent wgmma route of ``csrc/taylor_fwd_wg.cuh``
    at these shapes) and a second launch equal to the first bit for bit;
    its ms over 20 launches beside its ms before the wgmma route (PERF.md).
+   The same for K1's route for wider layers (the kernel beside K2 in
+   ``csrc/taylor_table.cu``) on the net at twice the width, 2-256x4-1,
+   with the Allen-Cahn set (``[K1 wide]``); phase 14 holds K1-bf16 there.
 4. K2 (Taylor-table backward: dW, db, dX) against autograd of the plain
    flavor, same shapes.
 5. K3 (the fused minimax step: value, dW/db, gw, gX) against its plain
@@ -130,7 +133,8 @@ Phases (each failure is fatal; exit code != 0, no result line):
    (periodic), no K1-K3 launch.
 14. mixed precision, the bf16-operand flavor of K1, K2 and K3 at full width
    (AC, N_f = 50,000, 2-128x4-1, the 512x201 grid):
-   (a) K1-bf16 and K2-bf16 (the AC and mixed request sets) and K3-bf16
+   (a) K1-bf16 and K2-bf16 (the AC and mixed request sets; K1-bf16 also
+   on phase 3's 2-256x4-1, its wide route) and K3-bf16
    (E = 1 and the coupled E = 2 system) against their plain bf16 flavors
    (``compute_dtype=torch.bfloat16``); gates: every leaf within the
    reference's bf16 bands (5e-2 values, 1.5e-1 gradients, scale-relative),
@@ -164,8 +168,9 @@ Phases (each failure is fatal; exit code != 0, no result line):
    plain bf16 flavor shares to the digit; K1-bf16 once per replay and
    nothing else; ms per replay beside phase 10's.
 15. a ``{"kernels": [...]}`` line (K1, K2, K3 and their bf16 flavors, each
-   held to its plain version; K1's with the route it took), the card line
-   again, and the result line.
+   held to its plain version; K1's with the route it took and its wide
+   route's measurements as ``wide_route``), the card line again, and the
+   result line.
 
 Phases 6-9 and 11-14 train through CUDA graphs (``training/graphs.py``): each Adam
 step, each L-BFGS evaluation and two-loop sweep, and each fixed-step L-BFGS
@@ -225,6 +230,11 @@ K3_RTOL = 1e-4
 AC_REQUESTS = {(), (1,), (0, 0)}
 MIXED_REQUESTS = {(), (0,), (1,), (0, 0), (0, 1), (0, 0, 1), (0, 0, 0, 0)}
 WIDTHS = [2, 128, 128, 128, 128, 1]
+# K1's shapes past its wgmma route (hidden widths over 128): the slice's
+# net at twice the width, which takes the kernel beside K2
+WIDE_WIDTHS = [2, 256, 256, 256, 256, 1]
+# the K1 route each case of phases 3 and 14 must take
+K1_ROUTES = {"ac": "wgmma", "mixed": "wgmma", "wide": "wide"}
 N_POINTS = 50_000
 TF_ITER = 200  # Adam steps of the slice
 LBFGS_ITER = 100  # line-search L-BFGS iterations of the refinement slice
@@ -281,9 +291,11 @@ BF16_TF32_ROUTE_MS = {"K1-bf16 ac": 0.738, "K2-bf16 ac": 3.408,
                "K3-bf16 ac": 3.760, "K3-bf16 system": 3.853}
 # K1's ms before its persistent wgmma route (the kernel beside K2, which
 # stays the route for other shapes; PERF.md §6, an NVIDIA H100 80GB HBM3 at
-# 700 W), printed beside this run's; the same-call comparison is
-# scripts/torch_phase_split.py's and scripts/torch_step_ab.py's
-K1_BEFORE_WGMMA_MS = {"K1 ac": 0.844, "K1-bf16 ac": 0.583}
+# 700 W: the Allen-Cahn set's from chip_smoke.py, the mixed set's from
+# scripts/torch_k1_route_ab.py), printed beside this run's; the same-call
+# comparison is those scripts' and scripts/torch_step_ab.py's
+K1_BEFORE_WGMMA_MS = {"K1 ac": 0.844, "K1-bf16 ac": 0.583,
+                      "K1 mixed": 1.735, "K1-bf16 mixed": 1.237}
 SERVE_BF16_KINDS = ("u", "d:x:1", "d:x:2", "residual")
 SERVE_BF16_BUCKETS = (256, 4096, 131_072)
 # engine u against predict's u: the same forward at another row count
@@ -372,11 +384,33 @@ def scaled_err(got, want) -> tuple[float, float]:
     return err, err / max(float(want.abs().max()), 1e-30)
 
 
+def _slice_net(widths, dev):
+    """The net of phases 3 and 14 at ``widths`` (seed 0): its layers, their
+    tensors flat and detached, leaf copies that take gradients, and those
+    as (W, b) pairs."""
+    from tensordiffeq_tpu_torch.networks import neural_net
+    layers = neural_net(widths, device=dev, seed=0).layers()
+    flat_layers = [t.detach() for pair in layers for t in pair]
+    params = [t.clone().requires_grad_(True) for t in flat_layers]
+    return layers, flat_layers, params, list(zip(params[0::2], params[1::2]))
+
+
+def _k1_route(plan, dtype, label: str) -> str:
+    """The route K1's last launch in a flavor took; it must be the one
+    ``K1_ROUTES`` names for the case."""
+    route = plan.k1_routes[dtype]
+    if route != K1_ROUTES[label]:
+        fail(f"K1 ({label}, {dtype}) took the {route} route, not the "
+             f"{K1_ROUTES[label]} one")
+    return route
+
+
 def phase_kernels(dev) -> dict:
     """Phases 3-4: each kernel against its plain flavor, at the slice's
-    shapes.  Returns the measurements of the Allen-Cahn request set."""
+    shapes, and K1 also on ``WIDE_WIDTHS`` (its route for wider layers).
+    Returns the measurements of the Allen-Cahn request set, the wide
+    route's under ``k1["wide"]``."""
     import torch
-    from tensordiffeq_tpu_torch.networks import neural_net
     from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
     from tensordiffeq_tpu_torch.ops.taylor import taylor_derivatives
 
@@ -384,14 +418,13 @@ def phase_kernels(dev) -> dict:
     X = torch.as_tensor(np.stack([rng.uniform(-1, 1, N_POINTS),
                                   rng.uniform(0, 1, N_POINTS)], 1),
                         dtype=torch.float32, device=dev)
-    layers = neural_net(WIDTHS, device=dev, seed=0).layers()
-    shapes = [tuple(W.shape) for W, _ in layers]
-    flat_layers = [t.detach() for pair in layers for t in pair]
-    params = [t.clone().requires_grad_(True) for t in flat_layers]
-    pairs = list(zip(params[0::2], params[1::2]))
     out = {}
-    for label, reqs in (("ac", AC_REQUESTS), ("mixed", MIXED_REQUESTS)):
-        plan = ct.build_cuda_table_fn(reqs, shapes).plan
+    for label, reqs, widths in (("ac", AC_REQUESTS, WIDTHS),
+                                ("mixed", MIXED_REQUESTS, WIDTHS),
+                                ("wide", AC_REQUESTS, WIDE_WIDTHS)):
+        layers, flat_layers, params, pairs = _slice_net(widths, dev)
+        plan = ct.build_cuda_table_fn(
+            reqs, [tuple(W.shape) for W, _ in layers]).plan
         flat = plan.pack(flat_layers)
         channels = plan.channels
 
@@ -407,14 +440,31 @@ def phase_kernels(dev) -> dict:
         for c in range(plan.C):
             a, r = scaled_err(table[c], ref[c])
             k1_abs, k1_rel = max(k1_abs, a), max(k1_rel, r)
-        route = plan.k1_routes[None]
-        print(f"[K1 {label}] C={plan.C} N={N_POINTS} route {route} "
-              f"max_abs_err={k1_abs:.3e} scale_rel_err={k1_rel:.3e} (tol "
-              f"{K1_RTOL:g} on it)", flush=True)
+        route = _k1_route(plan, None, label)
+        print(f"[K1 {label}] C={plan.C} N={N_POINTS} widths {widths} route "
+              f"{route} max_abs_err={k1_abs:.3e} scale_rel_err={k1_rel:.3e} "
+              f"(tol {K1_RTOL:g} on it)", flush=True)
         if not k1_rel <= K1_RTOL:
             fail(f"K1 disagrees with the plain flavor ({label})")
         k1_bits = _bit_identical_run_to_run(
             f"K1 {label}", table, lambda: ct.k1_forward(plan, X, flat))
+        flops = ct.flop_count(plan, N_POINTS)
+        nbytes = ct.byte_count(plan, N_POINTS)
+        b1 = bound_ms(flops["k1"], nbytes["k1"])
+        if label == "wide":
+            before = ct.k1_forward.launches
+            k1_ms = cuda_ms(lambda: ct.k1_forward(plan, X, flat))
+            with torch.no_grad():
+                k1_plain_ms = cuda_ms(plain_table)
+            # comparison launches are not the main path's
+            ct.k1_forward.launches = before
+            print(f"[time {label}] K1 {k1_ms:.3f} ms on the {route} route "
+                  f"(plain {k1_plain_ms:.3f} ms), {bound_text(k1_ms, b1)}",
+                  flush=True)
+            out[label] = dict(k1=dict(
+                max_abs_err=k1_abs, ms=k1_ms, plain_ms=k1_plain_ms,
+                bound=b1, route=route, bit_identical=k1_bits))
+            continue
 
         g = torch.as_tensor(rng.randn(plan.C, N_POINTS, 1),
                             dtype=torch.float32, device=dev)
@@ -447,9 +497,6 @@ def phase_kernels(dev) -> dict:
         k2_plain_ms = cuda_ms(plain_grads, reps=5)
         # comparison launches are not the main path's: restore the counts
         ct.k1_forward.launches, ct.k2_backward.launches = before
-        flops = ct.flop_count(plan, N_POINTS)
-        nbytes = ct.byte_count(plan, N_POINTS)
-        b1 = bound_ms(flops["k1"], nbytes["k1"])
         b2 = bound_ms(flops["k2"], nbytes["k2"])
         before_ms = K1_BEFORE_WGMMA_MS.get(f"K1 {label}")
         print(f"[time {label}] K1 {k1_ms:.3f} ms on the {route} route "
@@ -464,6 +511,7 @@ def phase_kernels(dev) -> dict:
                     bound=b1, route=route, bit_identical=k1_bits),
             k2=dict(max_abs_err=k2_abs, ms=k2_ms, plain_ms=k2_plain_ms,
                     bound=b2))
+    out["ac"]["k1"]["wide"] = out["wide"]["k1"]
     return out["ac"]
 
 
@@ -2266,7 +2314,8 @@ def _flavor_check(label: str, got: list, want: list, want32: list,
 
 def phase_mixed_kernels(dev) -> dict:
     """Phase 14(a): K1-bf16, K2-bf16 and K3-bf16 against their plain bf16
-    flavors at phases 3-5's shapes, timed beside their f32 flavors."""
+    flavors at phases 3-5's shapes (K1-bf16 also on ``WIDE_WIDTHS``, its
+    route for wider layers), timed beside their f32 flavors."""
     import torch
     from tensordiffeq_tpu_torch.networks import neural_net
     from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
@@ -2280,11 +2329,6 @@ def phase_mixed_kernels(dev) -> dict:
     X = torch.as_tensor(np.stack([rng.uniform(-1, 1, N_POINTS),
                                   rng.uniform(0, 1, N_POINTS)], 1),
                         dtype=torch.float32, device=dev)
-    layers = neural_net(WIDTHS, device=dev, seed=0).layers()
-    shapes = [tuple(W.shape) for W, _ in layers]
-    flat_layers = [t.detach() for pair in layers for t in pair]
-    params = [t.clone().requires_grad_(True) for t in flat_layers]
-    pairs = list(zip(params[0::2], params[1::2]))
     before = _counts_all()
     out = {}
 
@@ -2294,43 +2338,47 @@ def phase_mixed_kernels(dev) -> dict:
         b = bound_ms(flops, nbytes, passes, PEAK_BF16_FLOPS)
         before = BF16_TF32_ROUTE_MS.get(label)
         wg = K1_BEFORE_WGMMA_MS.get(label)
+        earlier = [] if before is None else [f"TF32-pass route: {before:.3f} ms"]
+        earlier += [] if wg is None else [f"before the wgmma route: {wg:.3f} ms"]
         print(f"[time {label}] {ms:.3f} ms "
               f"{'' if route is None else f'on the {route} route '}"
-              f"(TF32-pass route: "
-              f"{'not recorded' if before is None else f'{before:.3f} ms'}"
-              f"{'' if wg is None else f'; before the wgmma route: {wg:.3f} ms'}"
+              f"({'; '.join(earlier) or 'no earlier time recorded'}"
               f") beside the f32 flavor's {ms32:.3f} ms (plain bf16 "
               f"{plain_ms:.3f} ms); {bound_text(ms, b)}", flush=True)
         return dict(ms=ms, f32_ms=ms32, plain_ms=plain_ms, bound=b)
 
-    for label, reqs in (("ac", AC_REQUESTS), ("mixed", MIXED_REQUESTS)):
-        plan = ct.build_cuda_table_fn(reqs, shapes).plan
+    for label, reqs, widths in (("ac", AC_REQUESTS, WIDTHS),
+                                ("mixed", MIXED_REQUESTS, WIDTHS),
+                                ("wide", AC_REQUESTS, WIDE_WIDTHS)):
+        layers, flat_layers, params, pairs = _slice_net(widths, dev)
+        plan = ct.build_cuda_table_fn(
+            reqs, [tuple(W.shape) for W, _ in layers]).plan
         flat = plan.pack(flat_layers)
         channels = plan.channels
-        g = torch.as_tensor(rng.randn(plan.C, N_POINTS, 1),
-                            dtype=torch.float32, device=dev)
+        # the wide case holds K1-bf16 alone (and draws nothing, so K3's
+        # inputs below stay as they were)
+        g = None if label == "wide" else torch.as_tensor(
+            rng.randn(plan.C, N_POINTS, 1), dtype=torch.float32, device=dev)
         Xg = X.clone().requires_grad_(True)
 
         def plain(dtype):
             t = taylor_derivatives(pairs, Xg, set(channels), flat_matmul=True,
                                    compute_dtype=dtype)
             table = torch.stack([t[mi] for mi in channels])
+            if g is None:
+                return table.detach(), None
             loss = sum((t[mi] * g[c]).sum() for c, mi in enumerate(channels))
             return table.detach(), torch.autograd.grad(loss, params + [Xg])
 
         table = ct.k1_forward_bf16(plan, X, flat)
-        dX, dflat = ct.k2_backward_bf16(plan, X, flat, g)
         torch.cuda.synchronize()
         (t16, g16), (t32, g32) = plain(bf16), plain(None)
         k1 = _flavor_check(f"K1-bf16 {label}", list(table), list(t16),
                            list(t32), [BF16_VALUE_BAND] * plan.C)
-        k1["route"] = plan.k1_routes[bf16]
+        k1["route"] = _k1_route(plan, bf16, label)
         k1["bit_identical"] = _bit_identical_run_to_run(
             f"K1-bf16 {label}", table,
             lambda: ct.k1_forward_bf16(plan, X, flat))
-        mine = plan.unpack(dflat) + [dX]
-        k2 = _flavor_check(f"K2-bf16 {label}", mine, list(g16), list(g32),
-                           [BF16_GRAD_BAND] * len(mine))
         flops, nbytes = ct.flop_count(plan, N_POINTS), \
             ct.byte_count(plan, N_POINTS)
         passes = ct.tensor_passes(plan, bf16)
@@ -2343,6 +2391,14 @@ def phase_mixed_kernels(dev) -> dict:
                         cuda_ms(lambda: ct.k1_forward(plan, X, flat)), p1,
                         flops["k1"], nbytes["k1"], passes["k1"],
                         k1["route"]))
+        if label == "wide":
+            out[label] = dict(k1=k1)
+            continue
+        dX, dflat = ct.k2_backward_bf16(plan, X, flat, g)
+        torch.cuda.synchronize()
+        mine = plan.unpack(dflat) + [dX]
+        k2 = _flavor_check(f"K2-bf16 {label}", mine, list(g16), list(g32),
+                           [BF16_GRAD_BAND] * len(mine))
         k2.update(timed(f"K2-bf16 {label}",
                         lambda: ct.k2_backward_bf16(plan, X, flat, g),
                         cuda_ms(lambda: ct.k2_backward(plan, X, flat, g)),
@@ -2396,6 +2452,7 @@ def phase_mixed_kernels(dev) -> dict:
                     (ct.k2_backward_bf16, "k2_bf16"),
                     (cm.k3_minimax_bf16, "k3_bf16")):
         fn.launches = before[key]
+    out["ac"]["k1"]["wide"] = out["wide"]["k1"]
     return {"k1_bf16": out["ac"]["k1"], "k2_bf16": out["ac"]["k2"],
             "k3_bf16": k3["ac"]}
 
@@ -2647,8 +2704,17 @@ def kernels_line(meas: dict, paths: dict) -> str:
             "plain_ms": m["plain_ms"], "bound_ms": m["bound"]["ms"],
             "bound_by": m["bound"]["by"],
             # K1's route at the slice's shape (the wgmma route's
-            # csrc/taylor_fwd_wg.cuh, or csrc/taylor_table.cu)
-            **({"k1_route": m["route"]} if "route" in m else {}),
+            # csrc/taylor_fwd_wg.cuh), and its route for wider layers
+            # (csrc/taylor_table.cu), held to the plain flavor and timed
+            # in phases 3 and 14 at WIDE_WIDTHS; no main path takes it
+            **({"k1_route": m["route"], "wide_route": {
+                "source": "tensordiffeq_tpu_torch/csrc/taylor_table.cu",
+                "widths": WIDE_WIDTHS,
+                "max_abs_err": m["wide"]["max_abs_err"],
+                "ms": m["wide"]["ms"], "plain_ms": m["wide"]["plain_ms"],
+                "bound_ms": m["wide"]["bound"]["ms"],
+                "bound_by": m["wide"]["bound"]["by"]}}
+               if "route" in m else {}),
             # no single PyTorch call computes the Taylor table or the
             # fused minimax step
             "library_ms": None})

@@ -10,7 +10,9 @@ package and ``chip_smoke.py`` are used.  At the slice's net (2-128x4-1,
 weights from seed 0), for the Allen-Cahn request set at N = 50,000
 (``ac``), the mixed set (``mixed``), the 200,000-point pool (``pool``),
 b = 256 (``b256``), and the served ``u`` (C = 1) and ``d:x:1`` (C = 2)
-kinds at 131,072 points, each flavor: the route the host chose, its
+kinds at 131,072 points; and at N = 50,000 on nets whose hidden widths pad
+to 64 (the route's NP = 64 instances): 2-64x3-1 with the Allen-Cahn set
+(``np64``) and 2-37-53-1 with {u, u_t, u_tt} (``odd``); each flavor: the route the host chose, its
 scale-relative error against the plain flavor of its precision (and
 against the plain f32 flavor), the two routes' distance, whether a second
 launch is bit-identical, and the ms of each route over 20 launches
@@ -41,25 +43,29 @@ def main():
     ct.build()
     print(cs.card_line(), flush=True)
     rng = np.random.RandomState(0)
-    layers = neural_net(cs.WIDTHS, device=dev, seed=0).layers()
-    flat_layers = [t.detach() for pair in layers for t in pair]
-    shapes = [tuple(W.shape) for W, _ in layers]
     route = ct._Plan.k1_route
+    slice_net = cs.WIDTHS
 
     def scaled(a, ref, plan):
         return max(float((a[c] - ref[mi]).abs().max() / ref[mi].abs().max())
                    for c, mi in enumerate(plan.channels))
 
-    for label, reqs, n in (("ac", cs.AC_REQUESTS, 50_000),
-                           ("mixed", cs.MIXED_REQUESTS, 50_000),
-                           ("pool", cs.AC_REQUESTS, 200_000),
-                           ("b256", cs.AC_REQUESTS, 256),
-                           ("u131k", {()}, 131_072),
-                           ("dx131k", {(), (0,)}, 131_072)):
+    for label, reqs, n, widths in (
+            ("ac", cs.AC_REQUESTS, 50_000, slice_net),
+            ("mixed", cs.MIXED_REQUESTS, 50_000, slice_net),
+            ("pool", cs.AC_REQUESTS, 200_000, slice_net),
+            ("b256", cs.AC_REQUESTS, 256, slice_net),
+            ("u131k", {()}, 131_072, slice_net),
+            ("dx131k", {(), (0,)}, 131_072, slice_net),
+            ("np64", cs.AC_REQUESTS, 50_000, [2, 64, 64, 64, 1]),
+            ("odd", {(), (1,), (1, 1)}, 50_000, [2, 37, 53, 1])):
         X = torch.as_tensor(np.stack([rng.uniform(-1, 1, n),
                                       rng.uniform(0, 1, n)], 1),
                             dtype=torch.float32, device=dev)
-        plan = ct.build_cuda_table_fn(reqs, shapes).plan
+        layers = neural_net(widths, device=dev, seed=0).layers()
+        flat_layers = [t.detach() for pair in layers for t in pair]
+        plan = ct.build_cuda_table_fn(
+            reqs, [tuple(W.shape) for W, _ in layers]).plan
         flat = plan.pack(flat_layers)
         with torch.no_grad():
             ref32 = taylor_derivatives(layers, X, set(plan.channels),

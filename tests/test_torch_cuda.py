@@ -1502,3 +1502,40 @@ def test_k1_route_plan_matches_the_kernels(card, case, flavor):
         assert (want is None) == (K1_ROUTE.get(case) == "wide")
         if want is not None:
             assert want.smem <= smem and want.grid <= n_sm
+
+
+@pytest.mark.parametrize("flavor", [None, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [c for c in list(CASES) + list(K1_EDGES)
+                                  if K1_ROUTE.get(c) != "wide"])
+def test_k1_weight_chunks_match_the_plain_mirror(card, case, flavor):
+    """The chunks the wgmma route's launch prepares on the card
+    (``prep_wg_weights``) are, byte for byte, those of the plain mirror
+    ``wg_prepare`` that the CPU tests hold to the layout: W^T in core
+    matrices and the k-slot order, split into TF32 hi and lo planes (f32)
+    or rounded to bf16."""
+    reqs, widths, N = {**CASES, **K1_EDGES}[case]
+    layers, _, g = _net(widths, card)
+    X = (2 * torch.rand(N, widths[0], generator=g) - 1).to(card)
+    plan = cuda_taylor.build_cuda_table_fn(
+        reqs, [tuple(W.shape) for W, _ in layers]).plan
+    flat_layers = [t for p in layers for t in p]
+    flat = plan.pack(flat_layers)
+    bf16 = int(flavor is not None)
+    wp = plan.k1_route(card, flavor, N)
+    assert wp is not None
+    n_bytes = wp.P * wp.stage_bytes
+    chunks = torch.full((max(n_bytes // 4, 1),), float("nan"), device=card)
+    table = torch.empty((plan.C, N, plan.n_out), device=card)
+    err = cuda_taylor.build().tdq_taylor_fwd_wg(
+        X.data_ptr(), flat.data_ptr(), chunks.data_ptr(), table.data_ptr(), N,
+        plan.net_h, plan.sched_h, bf16,
+        (ctypes.c_int * len(wp))(*wp),
+        torch.cuda.current_stream(card).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    got = chunks.cpu().view(torch.uint8)[:n_bytes]
+    want = cuda_taylor.wg_prepare(flat_layers, wp, bool(bf16))
+    assert want.numel() == n_bytes
+    assert torch.equal(got, want)
+    assert torch.equal(table, cuda_taylor.FLAVORS[flavor][0](plan, X, flat))
