@@ -167,10 +167,33 @@ Phases (each failure is fatal; exit code != 0, no result line):
    f32-trained net): bf16's own distance on a trained net, which the
    plain bf16 flavor shares to the digit; K1-bf16 once per replay and
    nothing else; ms per replay beside phase 10's.
-15. a ``{"kernels": [...]}`` line (K1, K2, K3 and their bf16 flavors, each
+15. the PDE zoo (``tensordiffeq_tpu_torch/zoo``): each of its nine entries
+   at its ``full`` size (its own widths, N_f, d, n_out and E; only the
+   budget is cut) built by ``zoo.build_solver(entry, "full")`` on the card:
+   (a) the engine must be ``fused-minimax-cuda`` with E equations; compile
+   seconds and launches printed; (b) K3 (the solver's own lowered step, w
+   = λ²), K1 and K2 (the entry's requests) against their plain flavors at
+   the entry's N_f points within 1e-4 scale-relative, K1 and K3 bit for
+   bit run to run, each timed over 20 launches beside its bound; (c)
+   ``zoo.race_entry(entry, "full", arms=("fixed",), budget_cap=200)``: 200
+   Adam steps and up to 200 L-BFGS iterations with evaluations at the
+   scorecard's cadences and a ``TrainingTelemetry`` attached; gates: the
+   loss falls, every evaluation finite, K3 once in compile + once per Adam
+   step + once per L-BFGS evaluation and K1/K2 never, one capture of the
+   Adam step, ``flops_basis == "analytic-minimax"``; ms/step past the
+   capture, ms/iteration and the final rel-L2 (residual RMS for
+   ``burgers2d``) reported; ``allen-cahn-sa`` races all three arms at a
+   cap of 300 (one redraw swapped in), where the pool and ascent arms must
+   report a redraw and a finite stall p50; (d) on ``taylor-green`` (E =
+   3), 50 graphed steps with telemetry against 50 eager ones from one seed,
+   bit for bit, and 50 without telemetry: the same losses (but
+   ``Grad_norm``), parameters and λ, bit for bit; (e) ``fit(profile_dir=)``
+   on ``burgers`` writes a Chrome trace holding K3's kernel records.  The
+   phase's wall is printed.
+16. a ``{"kernels": [...]}`` line (K1, K2, K3 and their bf16 flavors, each
    held to its plain version; K1's with the route it took and its wide
-   route's measurements as ``wide_route``), the card line again, and the
-   result line.
+   route's measurements as ``wide_route``; ``launches_by_path`` has the
+   zoo's), the card line again, and the result line.
 
 Phases 6-9 and 11-14 train through CUDA graphs (``training/graphs.py``): each Adam
 step, each L-BFGS evaluation and two-loop sweep, and each fixed-step L-BFGS
@@ -2671,12 +2694,350 @@ def phase_mixed_serve(solver, solver32, serve: dict, card: str,
     return dict(launches=dict(launches))
 
 
+# --------------------------------------------------------------------- #
+# phase 15: the PDE zoo at its full sizes
+# --------------------------------------------------------------------- #
+# the capped race: Adam steps and L-BFGS iterations per phase; Allen-Cahn's
+# three arms run longer, so that one redraw is swapped in (dispatched at
+# the chunk boundary 100, adopted at 200; at 200 steps the one dispatched
+# at 100 trains no step and is discarded at the phase's end)
+ZOO_CAP = 200
+ZOO_CAP_ARMS = 300
+# the entry whose graph is held to eager with telemetry attached (E = 3)
+ZOO_GRAPH_ENTRY, ZOO_GRAPH_STEPS = "taylor-green", 50
+ZOO_PROFILE_ENTRY, ZOO_PROFILE_STEPS = "burgers", 20
+
+
+def _zoo_kernels(entry, solver, dev) -> dict:
+    """K3, K1 and K2 at the entry's own shape (its N_f collocation points,
+    widths, d, n_out and E) against their plain flavors, each timed over 20
+    launches beside its bound; the counts restored after."""
+    import torch
+    from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    from tensordiffeq_tpu_torch.ops.taylor import taylor_derivatives
+
+    before = _counts_all()
+    rng = np.random.RandomState(2)
+    X = solver.X_f.contiguous()
+    n = int(X.shape[0])
+    layers = [(W.detach(), b.detach()) for W, b in solver.net.layers()]
+    shapes = [tuple(W.shape) for W, _ in layers]
+    out = {}
+
+    # K3: the solver's own lowered step at w = lambda^2
+    sq = solver._minimax_sq
+    plan3 = sq.plan
+    w = torch.as_tensor(rng.rand(n, plan3.E) ** 2, dtype=torch.float32,
+                        device=dev)
+    fl = [a if a.ndim == 2 else a.reshape(1, -1) for pair in layers
+          for a in pair]
+    flat3 = plan3.pack(fl)
+    val, dflat, gw, gX = cm.k3_minimax(plan3, X, w, flat3)
+    torch.cuda.synchronize()
+    p_val, p_flat, p_gw, p_gX = sq.plain(fl, w, X)
+    got = [val.reshape(1)] + [g.reshape(-1) for g in plan3.unpack(dflat)] \
+        + [gw, gX]
+    want = [p_val.reshape(1)] + [g.reshape(-1) for g in p_flat] + [p_gw, p_gX]
+    if not all(bool(torch.isfinite(g).all()) for g in got):
+        fail(f"zoo {entry.id}: K3 output not finite")
+    k3_abs, k3_rel = 0.0, 0.0
+    for a_k, a_p in zip(got, want):
+        a, r = scaled_err(a_k, a_p)
+        k3_abs, k3_rel = max(k3_abs, a), max(k3_rel, r)
+    if not k3_rel <= K3_RTOL:
+        fail(f"zoo {entry.id}: K3 disagrees with its plain flavor "
+             f"({k3_rel:.3e})")
+    again = cm.k3_minimax(plan3, X, w, flat3)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(again, (val, dflat, gw, gX)))
+    if not same:
+        fail(f"zoo {entry.id}: K3 is not bit-identical run to run")
+    out["k3"] = dict(
+        max_abs_err=k3_abs, scale_rel_err=k3_rel, C=plan3.C, E=plan3.E,
+        ms=cuda_ms(lambda: cm.k3_minimax(plan3, X, w, flat3)),
+        plain_ms=cuda_ms(lambda: sq.plain(fl, w, X), reps=5),
+        bound=bound_ms(cm.flop_count(plan3, n)["k3"],
+                       cm.byte_count(plan3, n)["k3"]))
+
+    # K1 and K2: the Taylor table of the entry's requests
+    plan = ct.build_cuda_table_fn(solver._fuse_requests, shapes).plan
+    flat_layers = [t for pair in layers for t in pair]
+    flat = plan.pack(flat_layers)
+    params = [t.clone().requires_grad_(True) for t in flat_layers]
+    pairs = list(zip(params[0::2], params[1::2]))
+    channels = plan.channels
+
+    def plain_table():
+        t = taylor_derivatives(pairs, X, set(channels), flat_matmul=True)
+        return torch.stack([t[mi] for mi in channels])
+
+    table = ct.k1_forward(plan, X, flat)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        ref = plain_table()
+    k1_abs, k1_rel = 0.0, 0.0
+    for c in range(plan.C):
+        a, r = scaled_err(table[c], ref[c])
+        k1_abs, k1_rel = max(k1_abs, a), max(k1_rel, r)
+    if not k1_rel <= K1_RTOL:
+        fail(f"zoo {entry.id}: K1 disagrees with its plain flavor "
+             f"({k1_rel:.3e})")
+    again = ct.k1_forward(plan, X, flat)
+    torch.cuda.synchronize()
+    if not torch.equal(again, table):
+        fail(f"zoo {entry.id}: K1 is not bit-identical run to run")
+    route = plan.k1_routes.get(None)
+    g = torch.as_tensor(rng.randn(plan.C, n, plan.n_out), dtype=torch.float32,
+                        device=dev)
+    dX, dflat2 = ct.k2_backward(plan, X, flat, g)
+    torch.cuda.synchronize()
+    Xg = X.clone().requires_grad_(True)
+
+    def plain_grads():
+        t = taylor_derivatives(pairs, Xg, set(channels), flat_matmul=True)
+        loss = sum((t[mi] * g[c]).sum() for c, mi in enumerate(channels))
+        return torch.autograd.grad(loss, params + [Xg],
+                                   materialize_grads=True)
+
+    k2_abs, k2_rel = 0.0, 0.0
+    for a_k, a_p in zip(plan.unpack(dflat2) + [dX], plain_grads()):
+        a, r = scaled_err(a_k, a_p)
+        k2_abs, k2_rel = max(k2_abs, a), max(k2_rel, r)
+    if not k2_rel <= K2_RTOL:
+        fail(f"zoo {entry.id}: K2 disagrees with autograd of the plain "
+             f"flavor ({k2_rel:.3e})")
+    flops, nbytes = ct.flop_count(plan, n), ct.byte_count(plan, n)
+    with torch.no_grad():
+        k1_plain = cuda_ms(plain_table, reps=5)
+    out["k1"] = dict(max_abs_err=k1_abs, scale_rel_err=k1_rel, C=plan.C,
+                     route=route,
+                     ms=cuda_ms(lambda: ct.k1_forward(plan, X, flat)),
+                     plain_ms=k1_plain,
+                     bound=bound_ms(flops["k1"], nbytes["k1"]))
+    out["k2"] = dict(max_abs_err=k2_abs, scale_rel_err=k2_rel, C=plan.C,
+                     ms=cuda_ms(lambda: ct.k2_backward(plan, X, flat, g)),
+                     plain_ms=cuda_ms(plain_grads, reps=5),
+                     bound=bound_ms(flops["k2"], nbytes["k2"]))
+    # comparison launches are not the main path's: restore the counts
+    for fn, key in ((ct.k1_forward, "k1"), (ct.k2_backward, "k2"),
+                    (cm.k3_minimax, "k3")):
+        fn.launches = before[key]
+    for key in ("k3", "k1", "k2"):
+        m = out[key]
+        extra = (f" C={m['C']}" + (f" E={m['E']}" if key == "k3" else "")
+                 + (f" route {m['route']}" if key == "k1" else ""))
+        print(f"[zoo {entry.id} {key.upper()}]{extra} N={n} max_abs_err="
+              f"{m['max_abs_err']:.3e} scale_rel_err={m['scale_rel_err']:.3e}"
+              f" (tol 1e-4); {m['ms']:.3f} ms (plain {m['plain_ms']:.3f} ms),"
+              f" {bound_text(m['ms'], m['bound'])}", flush=True)
+    return out
+
+
+def _zoo_race(entry, arms: tuple, cap: int, compile_k3: int) -> dict:
+    """``race_entry`` at the full size, capped, with the counts set to 0
+    just before and read just after; the gates of each arm.  ``compile_k3``:
+    K3's launches in the entry's compile (its cross-check, once per build:
+    twice for an assimilation entry, whose ``compile_data`` builds
+    again)."""
+    import torch
+    from tensordiffeq_tpu_torch import zoo
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    from tensordiffeq_tpu_torch.training import graphs
+    from tensordiffeq_tpu_torch.training.lbfgs import lbfgs_minimize
+
+    fits = {}
+
+    def on_fit(arm, solver, tele, traj):
+        torch.cuda.synchronize()
+        fits[arm] = dict(solver=solver, tele=tele, traj=list(traj),
+                         counts=_counts(),
+                         evals=lbfgs_minimize.evaluations,
+                         captures=len(graphs.captures))
+
+    ct.reset_launch_counts()
+    e0, c0 = lbfgs_minimize.evaluations, len(graphs.captures)
+    t0 = time.perf_counter()
+    res = zoo.race_entry(entry, "full", arms=arms, budget_cap=cap,
+                         on_fit=on_fit)
+    wall = time.perf_counter() - t0
+    out = dict(result=res, wall_s=wall, arms={})
+    prev = dict(k1=0, k2=0, k3=0)
+    for arm in arms:
+        f = fits[arm]
+        s, tele, traj = f["solver"], f["tele"], f["traj"]
+        launches = {k: f["counts"][k] - prev[k] for k in prev}
+        prev = f["counts"]
+        evals, e0 = f["evals"] - e0, f["evals"]
+        new = graphs.captures[c0:f["captures"]]
+        c0 = f["captures"]
+        adam_caps = [c for c in new if c["name"] == "Adam step"]
+        a = res["arms"][arm]
+        n_adam = res["budget"]["adam"]
+        total = [r["Total Loss"] for r in s.losses]
+        # the fit's chunks of 100 steps: the first holds the warm-up and
+        # the capture
+        chunks = s._adam_result.chunk_seconds
+        hist = tele.registry.as_dict()["histograms"]
+        # the L-BFGS chunks' step-time split: per iteration, averaged
+        lb_disp = hist["step_time_dispatch_s{phase=l-bfgs}"]
+        lb_dev = hist["step_time_device_s{phase=l-bfgs}"]
+        ms_iter = 1e3 * (lb_disp["sum"] + lb_dev["sum"]) / lb_disp["count"]
+        metric = a.get("rel_l2_final", a.get("residual_final"))
+        rec = dict(launches=launches, evals=evals, captures=len(adam_caps),
+                   ms_step=1e3 * (sum(chunks[1:]) / (n_adam - 100)
+                                  if len(chunks) > 1 else chunks[0] / n_adam),
+                   ms_iter=ms_iter, metric=metric, redraws=a["redraws"],
+                   stall_p50_s=a["stall_p50_s"], basis=a["flops_basis"],
+                   iters=s.newton_done, loss=(total[0], total[-1]))
+        out["arms"][arm] = rec
+        kind = "rel-L2" if "rel_l2_final" in a else "residual RMS"
+        print(f"[zoo {entry.id} race {arm}] cap {cap}: {n_adam} Adam steps "
+              f"{rec['ms_step']:.3f} ms/step past the capture, {s.newton_done}"
+              f" L-BFGS iterations {ms_iter:.3f} ms/iteration ({evals} "
+              f"evaluations); loss {total[0]:.4e} -> "
+              f"{total[-1]:.4e}; {len(traj)} evals, final {kind} {metric} "
+              f"(the capped budget measures the contract, not the gate "
+              f"{res['gate']['value']:g}); launches {launches}; Adam "
+              f"captures {len(adam_caps)}; redraws {a['redraws']}, stall p50 "
+              f"{a['stall_p50_s']} s; flops {a['flops_per_step']:.4g}/step "
+              f"({a['flops_basis']})", flush=True)
+        if not (np.isfinite(total[-1]) and total[-1] < total[0]):
+            fail(f"zoo {entry.id} {arm}: the loss did not fall")
+        if not traj or not all(np.isfinite(m) for _, m in traj):
+            fail(f"zoo {entry.id} {arm}: an eval is not finite: {traj}")
+        if len(adam_caps) != 1:
+            fail(f"zoo {entry.id} {arm}: {len(adam_caps)} captures of the "
+                 "Adam step")
+        if a["flops_basis"] != "analytic-minimax":
+            fail(f"zoo {entry.id} {arm}: flops_basis {a['flops_basis']}")
+        if arm == "fixed":
+            # K3: compile's cross-check, each Adam step, each evaluation
+            want = dict(k1=0, k2=0, k3=compile_k3 + n_adam + evals)
+            if launches != want:
+                fail(f"zoo {entry.id}: launches {launches}, not {want}")
+        elif not (a["redraws"] >= 1 and a["stall_p50_s"] is not None
+                  and np.isfinite(a["stall_p50_s"])):
+            fail(f"zoo {entry.id} {arm}: redraws {a['redraws']}, stall "
+                 f"{a['stall_p50_s']}")
+    return out
+
+
+def phase_zoo(dev) -> dict:
+    """Phase 15: the nine zoo entries at their ``full`` sizes on the card
+    (``zoo.build_solver``: the minimax step K3 adopted), each kernel held
+    to its plain flavor at each entry's shape and timed, a capped race per
+    entry (the fixed arm; Allen-Cahn's three arms), graph against eager
+    with telemetry on ``taylor-green`` and ``fit(profile_dir=)``."""
+    import tempfile
+
+    import torch
+    from tensordiffeq_tpu_torch import zoo
+    from tensordiffeq_tpu_torch.telemetry import (MetricsRegistry,
+                                                  TrainingTelemetry)
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+
+    t_phase = time.perf_counter()
+    shapes, races = {}, {}
+    launches = dict(k1=0, k2=0, k3=0)
+    for entry in zoo.entries():
+        ct.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver = zoo.build_solver(entry, "full")
+        torch.cuda.synchronize()
+        t_compile = time.perf_counter() - t0
+        at_compile = _counts()
+        label = zoo.engine_label(solver)
+        spec = entry.spec("full")
+        print(f"[zoo {entry.id}] {list(solver.layer_sizes)} N_f={spec.n_f} "
+              f"E={solver._minimax_n_eq}: engine {label}, compile "
+              f"{t_compile:.2f} s, launches in compile {at_compile}",
+              flush=True)
+        if label != "fused-minimax-cuda":
+            fail(f"zoo {entry.id}: engine {label} "
+                 f"({solver._minimax_fail_reason!r})")
+        # K3 once per build's cross-check: compile_data builds again
+        builds = 1 + (solver.data_X is not None)
+        if at_compile != dict(k1=0, k2=0, k3=builds):
+            fail(f"zoo {entry.id}: launches in compile {at_compile}")
+        if int(solver._minimax_n_eq) != entry.n_components:
+            fail(f"zoo {entry.id}: n_eq {solver._minimax_n_eq} != "
+                 f"{entry.n_components}")
+        shapes[entry.id] = _zoo_kernels(entry, solver, dev)
+        del solver
+        arms, cap = (("fixed",), ZOO_CAP) if entry.id != "allen-cahn-sa" \
+            else (tuple(zoo.ARMS), ZOO_CAP_ARMS)
+        races[entry.id] = _zoo_race(entry, arms, cap, at_compile["k3"])
+        for rec in races[entry.id]["arms"].values():
+            for k in launches:
+                launches[k] += rec["launches"][k]
+
+    # graph against eager with telemetry attached, and the plain step
+    entry = zoo.get(ZOO_GRAPH_ENTRY)
+    runs = {}
+    for tag, tele, graphs_on in (("graph", True, True),
+                                 ("eager", True, False),
+                                 ("plain", False, True)):
+        s = zoo.build_solver(entry, "full")
+        t = _timed_fit(s, tf_iter=ZOO_GRAPH_STEPS, chunk=ZOO_GRAPH_STEPS,
+                       _graphs=graphs_on,
+                       telemetry=(TrainingTelemetry(registry=MetricsRegistry())
+                                  if tele else None))
+        runs[tag] = (s, 1e3 * t / ZOO_GRAPH_STEPS)
+    (g, g_ms), (e, e_ms), (p, p_ms) = runs["graph"], runs["eager"], \
+        runs["plain"]
+    diff = _state_diff(g, e)
+    # the plain step trains as the instrumented one: the losses without
+    # the gradient norm and every parameter and λ, bit for bit
+    strip = [{k: v for k, v in r.items() if k != "Grad_norm"}
+             for r in g.losses]
+    same_plain = strip == p.losses and _state_diff(p, g, len(g.losses)) == 0
+    norms = [r["Grad_norm"] for r in g.losses]
+    print(f"[zoo graph {entry.id}] {ZOO_GRAPH_STEPS} steps with telemetry: "
+          f"graphs {g_ms:.3f} ms/step, eager {e_ms:.3f} ms/step; graph vs "
+          f"eager: {'bit-identical' if diff == 0 else diff}; captures "
+          f"{g._adam.graph.captures}/{e._adam.graph.captures}; without "
+          f"telemetry {p_ms:.3f} ms/step, "
+          f"{'bit-identical' if same_plain else 'DIFFERENT'} to the "
+          f"instrumented run but Grad_norm; Grad_norm {norms[0]:.4e} -> "
+          f"{norms[-1]:.4e}", flush=True)
+    if diff != 0 or g._adam.graph.captures != 1 \
+            or e._adam.graph.captures != 0:
+        fail(f"zoo graph {entry.id}: graph vs eager {diff}")
+    if not same_plain or "Grad_norm" in p.losses[0] \
+            or not all(np.isfinite(norms)):
+        fail(f"zoo graph {entry.id}: the plain step trains otherwise")
+    del runs, g, e, p
+
+    # fit(profile_dir=): a Chrome trace that holds K3's kernel records
+    s = zoo.build_solver(zoo.get(ZOO_PROFILE_ENTRY), "full")
+    with tempfile.TemporaryDirectory() as tmp:
+        t = _timed_fit(s, tf_iter=ZOO_PROFILE_STEPS, chunk=10,
+                       profile_dir=tmp)
+        (name,) = os.listdir(tmp)
+        with open(os.path.join(tmp, name)) as fh:
+            events = json.load(fh)["traceEvents"]
+    k3_records = [ev for ev in events if ev.get("cat") == "kernel"
+                  and "minimax_step" in str(ev.get("name"))]
+    print(f"[zoo profile {ZOO_PROFILE_ENTRY}] fit(tf_iter="
+          f"{ZOO_PROFILE_STEPS}, profile_dir=...) {t:.2f} s: {len(events)} "
+          f"trace events, {len(k3_records)} K3 kernel records "
+          f"(captures {s._adam.graph.captures})", flush=True)
+    if not k3_records:
+        fail("the profile trace holds no K3 kernel record")
+    wall = time.perf_counter() - t_phase
+    print(f"[zoo] phase wall {wall:.1f} s; launches on the path {launches}",
+          flush=True)
+    return dict(launches=launches, shapes=shapes, races=races, wall_s=wall)
+
+
 def kernels_line(meas: dict, paths: dict) -> str:
     """``launches`` sums a kernel's launches over the runs of every path
     (``launches_by_path`` splits them: minimax, unfused, lbfgs, pool,
     ascent, discovery, phase 13's autotune, schedules, ntk, causal, remat,
-    families, and phase 14's minimax-bf16, lbfgs-bf16, unfused-bf16,
-    serve-bf16)."""
+    families, phase 14's minimax-bf16, lbfgs-bf16, unfused-bf16,
+    serve-bf16, and phase 15's zoo)."""
     entries = []
     for key, name, source, replaces in (
             ("k1", "taylor_table_fwd (K1)", "csrc/taylor_fwd_wg.cuh",
@@ -2730,6 +3091,9 @@ def main():
     ap.add_argument("--keep-nets", metavar="DIR",
                     help="keep phase 14's bf16-trained artifact and phase "
                     "10's f32-trained one under DIR (bf16/, f32/)")
+    ap.add_argument("--zoo-only", action="store_true",
+                    help="build the kernels and run phase 15 (the zoo) "
+                    "alone; prints no result line")
     args = ap.parse_args()
 
     import torch
@@ -2750,6 +3114,10 @@ def main():
     print(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {nvcc_s:.2f} s)", flush=True)
 
+    if args.zoo_only:
+        phase_zoo(dev)
+        print(card, flush=True)
+        return
     meas = phase_kernels(dev)
     meas["k3"] = phase_k3(dev)
     phase_yardstick(dev)
@@ -2773,6 +3141,7 @@ def main():
     paths["serve-bf16"] = phase_mixed_serve(mixed["minimax"]["solver"],
                                             paths["minimax"]["solver"],
                                             serve, card, args.keep_nets)
+    paths["zoo"] = phase_zoo(dev)
     if args.profile:
         phase_ab(paths)
         # in turns, so a slower stretch of the host does not land on one

@@ -9,8 +9,10 @@ engine's Taylor-table kernels (``compile(fused="cuda")``,
 in CUDA for the H100, and the serving path (``solver.export_surrogate()``
 → :class:`~.serving.Surrogate` → its bucketed engine, one CUDA graph per
 rung, → :class:`~.serving.RequestBatcher`), adaptive collocation
-(``fit(resample_every=...)``, :mod:`.ops.resampling`) and the inverse
-problem (:class:`~.models.DiscoveryModel`).  Entry points run on
+(``fit(resample_every=...)``, :mod:`.ops.resampling`), the inverse
+problem (:class:`~.models.DiscoveryModel`), training telemetry
+(``fit(telemetry=, eval_fn=, profile_dir=)``, :mod:`.telemetry`) and the
+PDE zoo with its scorecard (:mod:`.zoo`).  Entry points run on
 the card unless the caller passes ``device="cpu"``.  The port imports
 nothing of JAX and nothing of ``tensordiffeq_tpu``.
 """
@@ -18,6 +20,7 @@ nothing of JAX and nothing of ``tensordiffeq_tpu``.
 from . import boundaries, domains, exact, helpers, networks  # noqa: F401
 from . import models, ops, profiling, resilience, sampling  # noqa: F401
 from . import serving, telemetry, training, utils, weights  # noqa: F401
+from . import zoo  # noqa: F401
 from .boundaries import (  # noqa: F401
     BC, IC, FunctionDirichletBC, FunctionNeumannBC, dirichletBC, periodicBC)
 from .domains import DomainND  # noqa: F401
@@ -31,7 +34,8 @@ from .ops import set_default_grad_mode  # noqa: F401
 from .resilience import CircuitBreaker, RetryPolicy  # noqa: F401
 from .serving import (ArtifactVersionMismatch, InferenceEngine,  # noqa: F401
                       RequestBatcher, Surrogate)
-from .telemetry import MetricsRegistry  # noqa: F401
+from .telemetry import (MetricsRegistry, RunLogger,  # noqa: F401
+                        TrainingDiverged, TrainingTelemetry)
 from .utils import CudaUnavailableError, NotPortedError  # noqa: F401
 from .weights import params_from_jax, params_to_numpy  # noqa: F401
 

@@ -105,16 +105,10 @@ class AutotuneFailure(RuntimeError):
                         for k, e in failures.items()))
 
 
-# compile()/fit() options of the JAX solver that the port does not have yet:
+# compile() options of the JAX solver that the port does not have yet:
 # name -> (value that means "off", ROADMAP item)
 _UNPORTED_COMPILE = {
     "dist": (False, "queue 1, multi-GPU"),
-}
-_UNPORTED_FIT = {
-    "profile_dir": (None, "queue 1 item 7, telemetry"),
-    "eval_fn": (None, "queue 1 item 7, telemetry"),
-    "eval_every": (0, "queue 1 item 7, telemetry"),
-    "telemetry": (None, "queue 1 item 7, telemetry"),
 }
 # the JAX solver's cross-check bands under fused_dtype (its
 # collocation.py:610-613, 812-820): bf16 keeps ~3 significant digits,
@@ -138,18 +132,29 @@ class _DeviceResampleHook:
     (:class:`~..ops.resampling.DeviceResampler` or
     :class:`~..ops.resampling.AscentResampler`): re-bases the loop's
     call-relative epoch by the epochs already trained, so a warm-restarted
-    ``fit`` explores new pools instead of replaying the last one's draws.
-    The swap writes into the solver's ``X_f`` in place, so nothing else
-    needs syncing."""
+    ``fit`` explores new pools instead of replaying the last one's draws,
+    and prices a redraw's scoring for the live cost model
+    (:meth:`flops_info`).  The swap writes into the solver's ``X_f`` in
+    place, so nothing else needs syncing."""
 
     pipelined = True
 
-    def __init__(self, sampler, epoch_offset: int):
+    def __init__(self, sampler, epoch_offset: int, layer_sizes):
         self.sampler = sampler
         self.epoch_offset = int(epoch_offset)
+        self.layer_sizes = layer_sizes
 
     def redraw(self, layers, X_cur, epoch: int):
         return self.sampler.redraw(layers, X_cur, epoch + self.epoch_offset)
+
+    def flops_info(self):
+        """``(flops, basis)`` of one redraw's scoring: one forward pass of
+        the network over the pool (current points and fresh ones), the
+        JAX solver's ``"analytic-resample"`` floor."""
+        from ..telemetry.costmodel import analytic_mlp_flops
+        n_pool = self.sampler.n_f + self.sampler.n_fresh
+        return analytic_mlp_flops(self.layer_sizes, n_pool), \
+            "analytic-resample"
 
 
 def _flat(layers) -> list:
@@ -974,7 +979,9 @@ class CollocationSolverND:
             resample_temp: float = 1.0, resample_uniform: float = 0.1,
             resample_seed: int = 0, resample_device: Optional[bool] = None,
             resample_mode: str = "pool", resample_ascent_steps: int = 5,
-            _graphs: bool = True, **unported):
+            profile_dir: Optional[str] = None,
+            eval_fn: Optional[Callable] = None, eval_every: int = 0,
+            telemetry=None, _graphs: bool = True):
         """Adam with SA-λ ascent, then L-BFGS refinement (reference
         ``models.py:227`` → ``fit.py:17-102``).
 
@@ -1038,13 +1045,56 @@ class CollocationSolverND:
         already trained.  ``self.redraws`` gets one record per redraw
         (:func:`~..training.fit.fit_adam`).
 
-        The JAX solver's other fit options (telemetry, profiling, eval
-        hooks) raise :class:`~..utils.NotPortedError`.
+        ``profile_dir``: the whole call runs under
+        :func:`~..profiling.trace`, which writes a Chrome trace of it there
+        (``torch.profiler``, CUDA activity included: every kernel launch and
+        graph replay).
+
+        ``eval_fn(phase, step, params)`` + ``eval_every``: periodic
+        evaluation inside one continuous run (rel-L2 timelines), called at
+        the chunk boundaries of both phases that cross an ``eval_every``
+        boundary: ``("adam", epoch, layers)`` with the run-relative epoch,
+        and ``("l-bfgs", iteration, layers)`` with the iteration of this
+        leg; ``layers`` is the ``[(W, b), ...]`` that ``apply_fn`` takes.
+        It runs between chunks, so the captured steps never wait for it.
+
+        ``telemetry``: a :class:`~..telemetry.TrainingTelemetry` or a bare
+        :class:`~..telemetry.RunLogger` (wrapped with defaults).  The run
+        emits its config, per-epoch loss components with the gradient
+        global-norm (``"Grad_norm"`` in ``losses``: the Adam step that
+        records it is captured once, apart from the plain one), SA-λ
+        summaries, the step-time split of both phases, redraws
+        (``resample.*``), checkpoint writes and the cost gauges (an
+        analytic basis, ``"analytic-minimax"`` on the minimax step); the
+        NaN/Inf sentinel raises :class:`~..telemetry.TrainingDiverged`.
+
         ``_graphs=False`` runs every step eagerly: the referee the graphs
         are held to on the card, not an option of the training run."""
         if not self._compiled:
             raise NotCompiledError("Call compile(...) before fit(...)")
-        _reject_unported(_UNPORTED_FIT, unported, "fit")
+        if profile_dir is not None:
+            from ..profiling import trace
+            with trace(profile_dir):
+                return self.fit(
+                    tf_iter=tf_iter, newton_iter=newton_iter,
+                    newton_eager=newton_eager, chunk=chunk,
+                    checkpoint_dir=checkpoint_dir,
+                    checkpoint_every=checkpoint_every, batch_sz=batch_sz,
+                    grad_clip=grad_clip, resample_every=resample_every,
+                    resample_pool=resample_pool, resample_temp=resample_temp,
+                    resample_uniform=resample_uniform,
+                    resample_seed=resample_seed,
+                    resample_device=resample_device,
+                    resample_mode=resample_mode,
+                    resample_ascent_steps=resample_ascent_steps,
+                    eval_fn=eval_fn, eval_every=eval_every,
+                    telemetry=telemetry, _graphs=_graphs)
+        from ..telemetry import as_training_telemetry
+        tele = as_training_telemetry(telemetry)
+        epochs_at_entry = len(self.losses)
+        if tele is not None:
+            self._telemetry_start(tele, tf_iter, newton_iter, batch_sz,
+                                  resample_every, epochs_at_entry)
         if self.verbose:
             print(f"[fit] engine={self.engine} device={self.device} "
                   f"N_f={int(self.X_f.shape[0])} tf_iter={tf_iter} "
@@ -1054,6 +1104,11 @@ class CollocationSolverND:
         if checkpoint_dir is not None and checkpoint_every > 0:
             def save(layers, newton_done, live):
                 self._save_state(checkpoint_dir, layers, newton_done, live)
+                if tele is not None:
+                    # absolute: the restored history's epochs counted in
+                    tele.on_checkpoint(live[0], int(newton_done)
+                                       if live[0] == "l-bfgs"
+                                       else len(self.losses))
 
         resample_fn = None
         if resample_every > 0:
@@ -1071,14 +1126,20 @@ class CollocationSolverND:
                                            freeze_lambdas=self.use_ntk)
             self._opt_grad_clip = grad_clip
             eager = not _graphs
+            grad_norm = tele is not None and tele.grad_norm
             if self._adam is None or not self._adam.matches(
                     self.loss_fn, self._opt, self.X_f, batch_sz, grad_clip,
-                    eager):
+                    eager, grad_norm):
                 self._adam = AdamStep(self.loss_fn, params, self.lambdas,
                                       self.X_f, self._opt, batch_sz=batch_sz,
                                       grad_clip=grad_clip,
-                                      verbose=self.verbose, eager=eager)
+                                      verbose=self.verbose, eager=eager,
+                                      grad_norm=grad_norm)
             ntk_update = self._ntk_update(resample_fn is not None)
+            adam_eval = None
+            if eval_fn is not None:
+                def adam_eval(epoch, layers):
+                    eval_fn("adam", epoch, layers)
             hook = None
             if save is not None:
                 def hook(epoch, best):
@@ -1111,6 +1172,10 @@ class CollocationSolverND:
                              if k.startswith("Causal_w_last")]
                         return bool(w) and min(w) > _d
                 epochs_before = len(result.losses)
+                if tele is not None:
+                    # run-relative: the restored history and the epochs
+                    # earlier ε stages trained in this call
+                    tele.epoch_offset = epochs_at_entry + stage_off
                 with ieee_f32():
                     result = fit_adam(self._adam, remaining, chunk=chunk,
                                       verbose=self.verbose, result=result,
@@ -1120,7 +1185,10 @@ class CollocationSolverND:
                                       resample_every=resample_every,
                                       lambda_update_fn=ntk_update,
                                       stop_fn=stop_fn,
-                                      epoch_offset=stage_off)
+                                      epoch_offset=stage_off,
+                                      callback=adam_eval,
+                                      callback_every=eval_every,
+                                      telemetry=tele)
                 wall += result.wall_time["adam"]
                 stage_epochs = len(result.losses) - epochs_before
                 remaining -= stage_epochs
@@ -1150,14 +1218,28 @@ class CollocationSolverND:
                 self.best_epoch["adam"] = result.best_epoch["adam"]
 
         if newton_iter > 0:
+            # one callback serves the checkpoint and the evaluation hooks,
+            # each at its own cadence: fit_lbfgs fires at chunk boundaries
+            # that cross the smaller one, and each hook fires on crossing
+            # its own (the JAX solver's lb_callback)
+            evals = eval_every if eval_fn is not None else 0
+            saves = checkpoint_every if save is not None else 0
+            lb_every = min((v for v in (evals, saves) if v > 0), default=0)
+            lb_prev = {"i": 0}
             callback = None
-            if save is not None:
+            if lb_every > 0:
                 def callback(done, layers, best):
-                    # the live best counts iterations within this leg:
-                    # re-based to absolute beside the absolute newton_done
-                    save(layers, newton_prior + done,
-                         ("l-bfgs", best[0], best[1],
-                          newton_prior + best[2]))
+                    prev, lb_prev["i"] = lb_prev["i"], done
+                    # checkpoint before the evaluation, as in the Adam leg
+                    if saves and prev // saves != done // saves:
+                        # the live best counts iterations within this leg:
+                        # re-based to absolute beside the absolute
+                        # newton_done
+                        save(layers, newton_prior + done,
+                             ("l-bfgs", best[0], best[1],
+                              newton_prior + best[2]))
+                    if evals and prev // evals != done // evals:
+                        eval_fn("l-bfgs", done, layers)
             # under fused_dtype the leg starts on the bf16 loss and
             # retreats to the f32 one when its line search stagnates, as
             # in the JAX solver
@@ -1168,11 +1250,16 @@ class CollocationSolverND:
                 self.loss_fn, self.net.layers(), self.lambdas, self.X_f,
                 maxiter=newton_iter, verbose=self.verbose,
                 eager=bool(newton_eager), callback=callback,
-                callback_every=checkpoint_every if save else 0,
-                iter0=newton_prior, loss_fn_fallback=fallback,
-                _graphs=_graphs)
+                callback_every=lb_every, iter0=newton_prior,
+                loss_fn_fallback=fallback, telemetry=tele, _graphs=_graphs)
             self.net.load_layers(final)
             self.losses.extend(history)
+            if tele is not None:
+                # absolute refinement iterations; a NaN stop logs a
+                # divergence event (the leg already kept its best iterate)
+                tele.epoch_offset = 0
+                tele.on_lbfgs_history([d["Total Loss"] for d in history],
+                                      start_iter=newton_prior)
             # adopt-if-better, as in the Adam phase: a resumed leg keeps a
             # restored best that is better
             if (self.best_model["l-bfgs"] is None
@@ -1197,7 +1284,42 @@ class CollocationSolverND:
         self.min_loss["overall"] = self.min_loss[which]
         self.best_epoch["overall"] = self.best_epoch[which] + offset
         self.best_model["overall"] = self.best_model[which]
+        if tele is not None:
+            tele.on_fit_end(dict(
+                epochs_total=len(self.losses),
+                newton_done=int(self.newton_done),
+                min_loss={k: float(v) for k, v in self.min_loss.items()},
+                best_epoch={k: int(v) for k, v in self.best_epoch.items()},
+                wall_adam=float(getattr(self, "wall_time", {}).get(
+                    "adam", 0.0)) if tf_iter > 0 else 0.0))
         return self
+
+    def _telemetry_start(self, tele, tf_iter, newton_iter, batch_sz,
+                         resample_every, epochs_at_entry):
+        """Prime a fit's telemetry: the analytic price of one Adam step
+        (the floor over the step's batch; on the minimax step its
+        channel-exact count, basis ``"analytic-minimax"``) and the
+        ``run_config`` event."""
+        from ..ops.minimax import n_channels
+        from ..telemetry.costmodel import (analytic_minimax_flops,
+                                           analytic_step_floor)
+        n_f = int(self.X_f.shape[0])
+        points = n_f if batch_sz is None else min(int(batch_sz), n_f)
+        tele.cost_floor = analytic_step_floor(points, self.layer_sizes)
+        if self._minimax_kind is not None:
+            tele.cost_fallback = (
+                analytic_minimax_flops(self.layer_sizes, points,
+                                       n_channels(self._fuse_requests),
+                                       n_equations=self._minimax_n_eq),
+                "analytic-minimax")
+        tele.on_fit_start(dict(
+            tf_iter=tf_iter, newton_iter=newton_iter, batch_sz=batch_sz,
+            N_f=n_f, layer_sizes=list(self.layer_sizes),
+            Adaptive_type=self.Adaptive_type, dist=False,
+            engine=self.engine, resample_every=resample_every,
+            causal_ladder=list(self.causal_ladder),
+            prior_epochs=epochs_at_entry,
+            prior_newton=int(self.newton_done)))
 
     def _ntk_update(self, resampling: bool):
         """``fit_adam``'s ``lambda_update_fn`` under NTK weighting (else
@@ -1265,12 +1387,14 @@ class CollocationSolverND:
                 self._residual, xlimits, n_f, n_steps=ascent_steps,
                 fresh_frac=uniform_frac, seed=seed,
                 score_grad_fn=self._minimax_score_grad_fn())
-            return _DeviceResampleHook(sampler, epoch_offset)
+            return _DeviceResampleHook(sampler, epoch_offset,
+                                       self.layer_sizes)
         if device is not False:
             sampler = rs.DeviceResampler(
                 self._residual, xlimits, n_f, pool_factor=pool, temp=temp,
                 uniform_frac=uniform_frac, seed=seed)
-            return _DeviceResampleHook(sampler, epoch_offset)
+            return _DeviceResampleHook(sampler, epoch_offset,
+                                       self.layer_sizes)
         if per_point:
             raise ValueError(
                 "resample_device=False (the host-path redraw) is "
@@ -1563,18 +1687,34 @@ class CollocationSolverND:
         params = (self.best_model["overall"]
                   if best_model and self.best_model["overall"] is not None
                   else self.net.layers())
-        X = torch.as_tensor(np.ascontiguousarray(X_star, np.float32),
-                            device=self.device)
+        u = self._apply_eval(params, X_star)
+        if not self._compiled:
+            # loaded, not compiled: the solution network exists, the
+            # residual does not (no f_model yet)
+            return u, None
+        f = self._residual_eval(params, X_star)
+        if isinstance(f, tuple) and len(f) == 1:
+            f = f[0]
+        return u, f
+
+    def _query(self, X) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(X, np.float32),
+                               device=self.device)
+
+    def _apply_eval(self, params, X) -> np.ndarray:
+        """The network at ``params`` (``[(W, b), ...]``, what ``apply_fn``
+        takes) on the points ``X``, as NumPy: the counterpart of the JAX
+        solver's ``_apply_jit``, which evaluation hooks call between
+        chunks (the zoo's scorecard)."""
         with ieee_f32(), torch.no_grad():
-            u = self.net.apply(params, X)
-            if not self._compiled:
-                # loaded, not compiled: the solution network exists, the
-                # residual does not (no f_model yet)
-                return u.cpu().numpy(), None
-            f = self._residual(params, X)
+            return self.net.apply(params, self._query(X)).cpu().numpy()
+
+    def _residual_eval(self, params, X):
+        """The PDE residual at ``params`` on ``X`` through the adopted
+        residual engine, as NumPy (a tuple for a system): the counterpart
+        of the JAX solver's ``_residual_jit``."""
+        with ieee_f32(), torch.no_grad():
+            f = self._residual(params, self._query(X))
         if isinstance(f, tuple):
-            f_np = tuple(c.cpu().numpy() for c in f)
-            f_np = f_np[0] if len(f_np) == 1 else f_np
-        else:
-            f_np = f.cpu().numpy()
-        return u.cpu().numpy(), f_np
+            return tuple(c.cpu().numpy() for c in f)
+        return f.cpu().numpy()

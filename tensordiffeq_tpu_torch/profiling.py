@@ -1,22 +1,52 @@
-"""Timing helpers: a device-synchronised stopwatch and latency percentiles.
+"""Profiling and timing helpers: the profiler trace, a device-synchronised
+stopwatch, latency percentiles and the device's memory peak.
 
-Counterpart of the JAX package's ``profiling.py`` (``stopwatch``,
-``percentiles``).  An asynchronous CUDA launch returns before the card
-finishes, so a host clock around it measures the enqueue; ``stopwatch(sync=
-...)`` synchronises the device before it stops the clock.
+Counterpart of the JAX package's ``profiling.py`` (``trace``,
+``stopwatch``, ``percentiles``, ``device_memory_peak``).  Its ``trace``
+captures an XLA profile; here :func:`trace` runs ``torch.profiler`` with CUDA
+activity (kernels, graph replays and copies on the card, through CUPTI) and
+writes a Chrome trace (``chrome://tracing``, Perfetto).  An asynchronous
+CUDA launch returns before the card finishes, so a host clock around it
+measures the enqueue; ``stopwatch(sync=...)`` synchronises the device
+before it stops the clock.
 
-Not ported yet (ROADMAP queue 1 item 7, telemetry): the profiler trace,
-named annotations, ``timeit`` and the device-memory helpers.
+Not ported yet (ROADMAP queue 1 item 7, telemetry): named annotations and
+``timeit``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Any, Optional
 
 import numpy as np
 import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the block with ``torch.profiler`` and write a Chrome trace
+    into ``log_dir`` (created) as ``trace.<pid>.<ms>.json``: CPU activity
+    and, with a card, CUDA activity (each kernel a record by its name).
+    Usage::
+
+        with tdqt.profiling.trace("/tmp/prof"):
+            solver.fit(tf_iter=1000)
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace.{os.getpid()}.{int(time.time() * 1e3)}.json"))
 
 
 @contextlib.contextmanager
@@ -52,3 +82,15 @@ def percentiles(samples, qs=(50, 90, 99)) -> dict[str, Optional[float]]:
         return {f"p{int(q)}": None for q in qs}
     arr = np.asarray(samples, dtype=np.float64)
     return {f"p{int(q)}": float(np.percentile(arr, q)) for q in qs}
+
+
+def device_memory_peak() -> Optional[int]:
+    """The CUDA device's peak allocated bytes since the process started (or
+    since ``torch.cuda.reset_peak_memory_stats``), or ``None`` without a
+    card.  The one definition the telemetry ``fit_end`` event quotes."""
+    try:
+        if not torch.cuda.is_available():
+            return None
+        return int(torch.cuda.max_memory_allocated())
+    except Exception:
+        return None

@@ -1,33 +1,31 @@
-"""Observability: the metrics registry and the narration path.
+"""Observability: the metrics registry, the run log, training telemetry.
 
-Counterpart of the JAX package's ``telemetry/``, so far its registry
-(:class:`MetricsRegistry`, reservoir histograms, :func:`default_registry`)
-and :func:`log_event`.  The run logger, tracing, cost model, SLOs, the
-collector and the flight recorder are not ported yet (ROADMAP queue 1
-item 7).
+Counterpart of the JAX package's ``telemetry/``:
+
+* :class:`MetricsRegistry` (:mod:`.registry`) — counters, gauges and
+  reservoir histograms with labeled scopes, :func:`default_registry`;
+* :class:`RunLogger` + :func:`log_event` (:mod:`.runlog`) — the
+  schema-versioned JSONL event sink with its run manifest, and the one
+  narration path (quiet runs stay quiet; events land in the active sink
+  either way);
+* :class:`TrainingTelemetry` / :class:`TrainingDiverged` (:mod:`.hooks`) —
+  the subscriber ``solver.fit(telemetry=)`` threads through Adam and
+  L-BFGS: per-epoch loss rows with the gradient norm, SA-λ summaries, the
+  step-time split at the one host read per chunk, redraw statistics and
+  the NaN/Inf sentinel;
+* :mod:`.costmodel` — the analytic FLOP/MFU accounting (``flops_basis``
+  disclosed) with the H100's peaks.
+
+Not ported yet (ROADMAP queue 1 item 7): tracing, SLOs, the collector, the
+flight recorder and the report.
 """
-
-from __future__ import annotations
-
-import sys
-from typing import Optional
 
 from .registry import (Counter, Gauge, Histogram,  # noqa: F401
                        MetricsRegistry, MetricsScope, default_registry)
-
-
-def log_event(kind: str, message: Optional[str] = None, *,
-              level: str = "info", verbose: bool = True,
-              prefix: bool = True, **fields):
-    """Narrate one event.
-
-    ``message`` prints as ``[kind] message`` iff ``verbose`` (callers pass
-    their own ``verbose`` flags through); ``level`` in ``("warning",
-    "error")`` prints to stderr, everything else to stdout.  ``prefix=False``
-    prints the message bare.  ``fields`` are the event's structured record:
-    the JAX package appends them to the active ``RunLogger``; the port has
-    no run logger yet (ROADMAP queue 1 item 7), so they are dropped."""
-    if verbose and message is not None:
-        stream = sys.stderr if level in ("warning", "error") else sys.stdout
-        print(f"[{kind}] {message}" if prefix else message,
-              file=stream, flush=True)
+from .runlog import (EVENTS_FILE, MANIFEST_FILE,  # noqa: F401
+                     SCHEMA_VERSION, RunLogger, active_logger,
+                     event_segments, log_event, read_events, read_manifest)
+from . import costmodel  # noqa: F401
+from .costmodel import StepCostModel  # noqa: F401
+from .hooks import (TrainingDiverged, TrainingTelemetry,  # noqa: F401
+                    as_training_telemetry, lambda_summaries)

@@ -39,8 +39,14 @@ device step count before each update (:func:`optimizer_step`).  NTK weighting
 and a causal ε ladder ends a phase early (``stop_fn``): neither replaces a
 tensor the step's graph is keyed on.
 
-Not ported yet (ROADMAP queue 1): the mesh branch of ``make_batches``,
-telemetry.
+Telemetry (``telemetry=``, :mod:`..telemetry.hooks`) and the evaluation
+hook (``callback``) run at chunk boundaries, around the chunk's one host
+read: they add no synchronisation inside a chunk.  A subscriber that asks
+for the gradient norm gets a step that records it (``grad_norm=True``, a
+step and a capture of its own); without one the step is the plain one.
+
+Not ported yet (ROADMAP queue 1 item 6): the mesh branch of
+``make_batches``.
 """
 
 from __future__ import annotations
@@ -214,8 +220,11 @@ class AdamStep:
     the batches and the per-point λ), the loss and its backward, the
     optional global-norm clipping, Adam on the network, Adam ascent on the
     λ, the step's loss components into row ``row`` of the chunk's history,
-    and the best-iterate select.  :attr:`graph` runs it (captured and
-    replayed on a CUDA device, :mod:`.graphs`).
+    and the best-iterate select.  ``grad_norm=True`` adds the global norm
+    of the gradients (network and λ, before clipping) to the history as
+    ``"Grad_norm"``, the JAX chunk runner's ``with_grad_norm``.
+    :attr:`graph` runs it (captured and replayed on a CUDA device,
+    :mod:`.graphs`).
 
     ``loss_fn(layers, lam_bcs, lam_res, X) -> (total, components)``;
     ``params`` is the network's live parameter list (``[W_0, b_0, ...]``),
@@ -227,8 +236,10 @@ class AdamStep:
                  X_f: torch.Tensor, optimizers: tuple,
                  batch_sz: Optional[int] = None,
                  grad_clip: Optional[float] = None, verbose: bool = True,
-                 eager: bool = False, make_graph: Optional[Callable] = None):
+                 eager: bool = False, make_graph: Optional[Callable] = None,
+                 grad_norm: bool = False):
         self.loss_fn = loss_fn
+        self.grad_norm = bool(grad_norm)
         self.params = list(params)
         self.layers = list(zip(self.params[0::2], self.params[1::2]))
         self.lambdas = lambdas
@@ -258,13 +269,14 @@ class AdamStep:
                                eager=eager, make_graph=make_graph)
 
     def matches(self, loss_fn, optimizers, X_f, batch_sz, grad_clip,
-                eager) -> bool:
+                eager, grad_norm: bool = False) -> bool:
         """Whether this step serves a ``fit`` with these inputs."""
         return (self.loss_fn is loss_fn and self.optimizers is optimizers
                 and self.X_f is X_f and self.batch_sz == batch_sz
                 and self.grad_clip == (None if grad_clip is None
                                        else float(grad_clip))
-                and self.eager == eager)
+                and self.eager == eager
+                and self.grad_norm == bool(grad_norm))
 
     def _keyed(self) -> list:
         lams = [lam for terms in self.lambdas.values() for lam in terms
@@ -359,6 +371,13 @@ class AdamStep:
                 lam_data=self.lambdas.get("data", [None])[0])
         with span("fit_adam.backward"):
             total.backward()
+        if self.grad_norm:
+            # optax.global_norm of the step's gradients, before clipping
+            trained = self.params + (opt_lam.param_groups[0]["params"]
+                                     if opt_lam is not None else [])
+            grads = [t.grad for t in trained if t.grad is not None]
+            comps = dict(comps, Grad_norm=torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads))))
         with span("fit_adam.adam"):
             if self.grad_clip is not None:
                 clip_by_global_norm(self.params, self.grad_clip)
@@ -469,7 +488,7 @@ def dispatch_redraw(redraw: Callable, params: list, X_f: torch.Tensor,
 def _redraw_record(pending: PendingRedraw, adopted, stall_s, drift) -> dict:
     return {"epoch": pending.epoch, "adopted": adopted,
             "dispatch_s": pending.dispatch_s, "stall_s": stall_s,
-            "pending": pending, "drift": drift}
+            "pipelined": True, "pending": pending, "drift": drift}
 
 
 def _finish_records(records: list):
@@ -484,6 +503,25 @@ def _finish_records(records: list):
         if drift is not None:
             stats["lambda_drift"] = float(drift)
         rec["stats"] = stats
+
+
+def _report_redraws(telemetry, records: list, epoch_offset: int,
+                    flops_info: Optional[Callable]):
+    """``telemetry.on_resample`` for each adopted redraw, after the phase's
+    synchronisation: the stall is the host's (dispatch plus swap; the pool
+    scoring ran behind a chunk), the statistics are read without waiting.
+    Epochs are handed call-relative (the telemetry adds its own offset)."""
+    flops = flops_info() if flops_info is not None else (None, None)
+    for rec in records:
+        if rec["adopted"] is None:
+            continue
+        telemetry.on_resample(
+            "adam", rec["adopted"] - epoch_offset,
+            rec["dispatch_s"] + rec["stall_s"],
+            stats=rec["stats"] or None, pipelined=rec["pipelined"],
+            dispatched_epoch=(rec["epoch"] - epoch_offset
+                              if rec["pipelined"] else None),
+            flops=flops)
 
 
 def _write_lambdas(step: AdamStep, new: dict):
@@ -503,7 +541,9 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
              resample_every: int = 0,
              lambda_update_fn: Optional[Callable] = None,
              stop_fn: Optional[Callable] = None,
-             epoch_offset: int = 0) -> FitResult:
+             epoch_offset: int = 0,
+             callback: Optional[Callable] = None, callback_every: int = 0,
+             telemetry=None) -> FitResult:
     """Run ``tf_iter`` Adam(+SA) epochs of ``step`` in place on its
     parameters and λ: ``tf_iter · n_batches`` steps in chunks of ``chunk ·
     n_batches``, so the batch index restarts at each chunk as in the JAX
@@ -528,9 +568,9 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
     once.  Each redraw adds a record to ``result.redraws``: ``epoch``
     (dispatched), ``adopted`` (the epoch, or ``None`` if discarded),
     ``dispatch_s`` and ``stall_s`` (host seconds to issue it and to swap it
-    in), ``device_ms`` (CUDA events on its stream; ``None`` off the card)
-    and ``stats`` (kept fraction, score gain, λ drift).  The JAX package
-    calls the host seconds ``data_s``; its telemetry is not ported.
+    in), ``pipelined``, ``device_ms`` (CUDA events on its stream; ``None``
+    off the card) and ``stats`` (kept fraction, score gain, λ drift, ascent
+    steps).
 
     ``lambda_update_fn(layers) -> {"BCs": [...], "residual": [...][,
     "data": [...]]}`` (NTK weighting, :mod:`..ops.ntk`): called before the
@@ -543,9 +583,27 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
     the phase there (the causal ε ladder hands the rest of the budget to
     its next stage).
 
+    ``callback(epoch, layers)`` + ``callback_every``: called at a chunk
+    boundary that crosses a ``callback_every`` boundary, after
+    ``state_hook``, with the live ``[(W, b), ...]``: periodic evaluation
+    (rel-L2 timelines) inside one continuous run.
+
+    ``telemetry``: a :class:`~..telemetry.TrainingTelemetry`.  Each chunk
+    reports its step-time split (``dispatch_s``, the host's time to issue
+    the chunk's steps, against ``device_s``, its one history read, which
+    waits for the card; the redraws' host seconds as ``data_s``), its
+    per-epoch rows, the SA-λ summaries, and runs the NaN/Inf sentinel,
+    which may raise :class:`~..telemetry.TrainingDiverged`; each adopted
+    redraw is reported (``on_resample``, with its dispatch and swap host
+    seconds as the stall) once the phase has synchronised, so reading its
+    statistics waits for nothing.  The step records ``Grad_norm`` only if
+    it was built with ``grad_norm=True``.
+
     ``epoch_offset`` is added to every epoch the hooks are handed (and the
     redraw records keep): the epochs earlier stages of a causal ε ladder
-    trained.  The boundaries stay counted from this call's start."""
+    trained.  The boundaries stay counted from this call's start; so are
+    the epochs handed to ``telemetry``, which adds its own
+    ``epoch_offset``."""
     result = result or FitResult()
     n_b = step.n_batches
     total_steps = tf_iter * n_b
@@ -555,6 +613,11 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
     records = []
     t0 = time.time()
     done = 0
+    data_s = 0.0  # redraw host seconds, reported with the next chunk
+    if telemetry is not None and total_steps > 0:
+        # the analytic basis the solver set prices the step (no measured
+        # count: telemetry.costmodel)
+        telemetry.on_step_program("adam")
     if lambda_update_fn is not None and total_steps > 0:
         _write_lambdas(step, lambda_update_fn(step.layers))
     while done < total_steps:
@@ -565,6 +628,7 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
         for _ in range(n):
             with span("fit_adam.step"):
                 step.graph()
+        t_disp = time.perf_counter() - t_chunk
         with span("fit_adam.read"):
             hist = step.hist[:n].cpu().numpy()  # one host copy per chunk
         result.chunk_seconds.append(time.perf_counter() - t_chunk)
@@ -575,6 +639,14 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
         prev = done // n_b
         done += n
         epochs = done // n_b
+        if telemetry is not None:
+            rows = result.losses[len(result.losses) - (epochs - prev):]
+            telemetry.on_step_time("adam", n, t_disp,
+                                   result.chunk_seconds[-1] - t_disp, data_s)
+            data_s = 0.0
+            telemetry.on_epoch_rows("adam", prev, rows)
+            telemetry.on_lambda_stats(epochs, step.lambdas)
+            telemetry.check_rows("adam", prev, rows)
         if pending is not None and done >= total_steps:
             # the phase is over: the pending redraw trained no step
             pending.join(step.device)
@@ -585,9 +657,10 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
                 t_sw = time.perf_counter()
                 pending.join(step.device)
                 drift = step.adopt(pending.swap.X_new, pending.swap)
+                stall = time.perf_counter() - t_sw
                 records.append(_redraw_record(
-                    pending, epochs + epoch_offset,
-                    time.perf_counter() - t_sw, drift))
+                    pending, epochs + epoch_offset, stall, drift))
+                data_s += stall
             pending = None
         if (resample_fn is not None and resample_every > 0
                 and done < total_steps
@@ -595,8 +668,12 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
             with span("fit_adam.redraw"):
                 at = epochs + epoch_offset
                 if pipelined:
+                    flops_info = getattr(resample_fn, "flops_info", None)
+                    if telemetry is not None and flops_info is not None:
+                        telemetry.note_resample_flops(flops_info()[0])
                     pending = dispatch_redraw(resample_fn.redraw, step.params,
                                               step.X_f, at)
+                    data_s += pending.dispatch_s
                 else:
                     t_rd = time.perf_counter()
                     layers = [(W.detach(), b.detach()) for W, b in
@@ -604,8 +681,9 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
                     step.adopt(resample_fn(layers, at))
                     records.append({"epoch": at, "adopted": at,
                                     "dispatch_s": time.perf_counter() - t_rd,
-                                    "stall_s": 0.0, "device_ms": None,
-                                    "stats": {}})
+                                    "stall_s": 0.0, "pipelined": False,
+                                    "device_ms": None, "stats": {}})
+                    data_s += records[-1]["dispatch_s"]
         if lambda_update_fn is not None and done < total_steps:
             _write_lambdas(step, lambda_update_fn(step.layers))
         if (state_hook is not None and state_hook_every > 0
@@ -614,6 +692,9 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
                        (step.best_params, step.best_loss,
                         torch.div(step.best_step, n_b, rounding_mode="floor")
                         + epoch_offset))
+        if (callback is not None and callback_every > 0
+                and prev // callback_every != epochs // callback_every):
+            callback(epochs + epoch_offset, step.layers)
         if verbose:
             print(f"Adam epoch {epochs}/{tf_iter}: total loss "
                   f"{result.losses[-1]['Total Loss']:.6e}", flush=True)
@@ -626,6 +707,9 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
     if step.device.type == "cuda":
         torch.cuda.synchronize(step.device)
     _finish_records(records)
+    if telemetry is not None:
+        _report_redraws(telemetry, records, epoch_offset,
+                        getattr(resample_fn, "flops_info", None))
     result.redraws.extend(records)
     result.wall_time["adam"] = time.time() - t0
     result.best_params["adam"] = tree_copy(step.best_params)

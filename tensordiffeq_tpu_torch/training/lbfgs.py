@@ -38,10 +38,14 @@ profiler ranges ``lbfgs.evaluate``, ``lbfgs.direction``, ``lbfgs.step`` and
 L-BFGS optimizes the network parameters only; SA λ stay frozen (reference
 ``models.py:283-295``).
 
+``telemetry`` gets each chunk's step-time split as the JAX loop reports
+it: ``device_s`` is the host's time in its reads of the device (the line
+search's per-trial reads, or the fixed step's one read per chunk), which
+wait for the card, and ``dispatch_s`` the rest of the chunk's wall.
+
 Not ported yet: the line search on the device (JAX's ``while_loop``, which
-needs conditional graph nodes; ROADMAP queue 1 item 2), and the telemetry
-step-time split, the preemption flush and the cluster heartbeat of the JAX
-loop (ROADMAP queue 1 item 7).
+needs conditional graph nodes; ROADMAP queue 1 item 2), and the preemption
+flush and the cluster heartbeat of the JAX loop (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -74,10 +78,14 @@ def _log_stop(msg: str) -> None:
 
 def _read(*tensors) -> np.ndarray:
     """Scalars and vectors from the device in one copy (one host
-    synchronisation), concatenated."""
+    synchronisation), concatenated; its host seconds add to
+    ``lbfgs_minimize.read_s``."""
     lbfgs_minimize.host_syncs += 1
+    t0 = time.perf_counter()
     with span("lbfgs.read"):
-        return torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
+        got = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
+    lbfgs_minimize.read_s += time.perf_counter() - t0
+    return got
 
 
 class _Evaluator:
@@ -476,7 +484,8 @@ def lbfgs_minimize(fun: Callable, x0: torch.Tensor, maxiter: int = 1000,
                    callback_every: int = 0, iter0: int = 0,
                    fun_fallback: Optional[Callable] = None,
                    on_retreat: Optional[Callable] = None,
-                   verbose: bool = False, _graphs: bool = True):
+                   verbose: bool = False, telemetry=None,
+                   _graphs: bool = True):
     """Minimise ``fun(x) -> scalar tensor`` over a 1-D tensor ``x``.
 
     Returns ``(x_final, x_best, f_best, best_iter, history)`` as the JAX
@@ -504,7 +513,8 @@ def lbfgs_minimize(fun: Callable, x0: torch.Tensor, maxiter: int = 1000,
     absolute iteration (``iter0`` counted) after which it retreated.
 
     ``iter0`` is the absolute iteration of the first one here; it only
-    labels the stop messages."""
+    labels the stop messages.  ``telemetry``: each chunk's
+    ``on_step_time("l-bfgs", ...)`` (module docstring)."""
     x = x0.detach().clone()
     dt = np.dtype(str(x.dtype).replace("torch.", "")).type
     best = _Best(x0)
@@ -527,6 +537,7 @@ def lbfgs_minimize(fun: Callable, x0: torch.Tensor, maxiter: int = 1000,
     retreated = fun_fallback is None
     while done < maxiter:
         n = int(min(chunk, maxiter - done))
+        t_chunk, read0 = time.perf_counter(), lbfgs_minimize.read_s
         if eager:
             fixed = run["fixed"]
             run["ev"].aim(x)
@@ -561,6 +572,11 @@ def lbfgs_minimize(fun: Callable, x0: torch.Tensor, maxiter: int = 1000,
                 values.append(float(ls.value))
                 gnorms.append(ls.gnorm)
         history.extend(float(v) for v in values)
+        if telemetry is not None:
+            t_dev = lbfgs_minimize.read_s - read0
+            telemetry.on_step_time("l-bfgs", n,
+                                   time.perf_counter() - t_chunk - t_dev,
+                                   t_dev)
         prev_done = done
         done += n
         if (callback is not None and callback_every > 0
@@ -609,6 +625,7 @@ def lbfgs_minimize(fun: Callable, x0: torch.Tensor, maxiter: int = 1000,
 
 lbfgs_minimize.evaluations = 0
 lbfgs_minimize.host_syncs = 0
+lbfgs_minimize.read_s = 0.0
 
 
 def flatten_layers(layers) -> torch.Tensor:
@@ -659,7 +676,7 @@ def fit_lbfgs(loss_fn: Callable, params, lambdas: dict, X_f: torch.Tensor,
               verbose: bool = True, chunk: int = 100, eager: bool = False,
               callback: Optional[Callable] = None, callback_every: int = 0,
               iter0: int = 0, loss_fn_fallback: Optional[Callable] = None,
-              _graphs: bool = True):
+              telemetry=None, _graphs: bool = True):
     """L-BFGS phase over the network parameters with the SA λ frozen
     (reference ``fit.py:60-89``).
 
@@ -670,6 +687,7 @@ def fit_lbfgs(loss_fn: Callable, params, lambdas: dict, X_f: torch.Tensor,
     ``callback(done, layers, (best_layers, f_best, best_iter))`` receives
     the live iterate and best as layer lists.  ``loss_fn_fallback``: the
     full-precision objective of :func:`lbfgs_minimize`'s retreat.
+    ``telemetry``: the chunks' step-time split (:func:`lbfgs_minimize`).
     ``_graphs=False``: the eager referee of :func:`lbfgs_minimize`.
 
     Returns ``(params_final, params_best, best_loss, best_iter,
@@ -698,7 +716,7 @@ def fit_lbfgs(loss_fn: Callable, params, lambdas: dict, X_f: torch.Tensor,
             memory_size=memory_size, chunk=chunk, eager=eager, callback=cb,
             callback_every=callback_every, iter0=iter0,
             fun_fallback=fun_fallback, on_retreat=retreat.append,
-            verbose=verbose, _graphs=_graphs)
+            verbose=verbose, telemetry=telemetry, _graphs=_graphs)
     f_best, i_best = float(f_best), int(i_best)
     if verbose:
         print(f"[l-bfgs] {len(history)} iters in {time.time() - t0:.1f}s, "

@@ -92,6 +92,13 @@ installed::
   than SMs, a 256-wide layer), each asserting the route the host chose;
   the wrapper's route plan equal to the kernels' for several N; K1 and
   K1-bf16 bit for bit run to run and whatever N or a point's place in X.
+* the PDE zoo (``chip_smoke.py`` phase 15, at N = 4,096): K3 (each entry's
+  lowered step), K1 and K2 (its requests) against their plain flavors at
+  each of the nine entries' widths, d, n_out and E; a ``fit`` with
+  telemetry and an eval hook at every chunk boundary does not synchronise
+  inside a chunk and captures its (instrumented) step once; the step's
+  ``Grad_norm`` equals the norm of the eager gradients at the same
+  parameters.
 """
 
 import ctypes
@@ -1539,3 +1546,135 @@ def test_k1_weight_chunks_match_the_plain_mirror(card, case, flavor):
     assert want.numel() == n_bytes
     assert torch.equal(got, want)
     assert torch.equal(table, cuda_taylor.FLAVORS[flavor][0](plan, X, flat))
+
+
+# ------------------------------------------------------------------ #
+# the PDE zoo's shapes, and fit's telemetry and evaluation hooks
+# ------------------------------------------------------------------ #
+ZOO_N = 4096
+
+
+def _zoo_solver(entry_id, n_f=ZOO_N, device="cuda"):
+    """The zoo entry at its full widths, d, n_out and E, at ``n_f``
+    collocation points."""
+    import dataclasses
+    from tensordiffeq_tpu_torch import zoo
+    entry = zoo.get(entry_id)
+    spec = dataclasses.replace(entry.spec("full"), n_f=n_f)
+    return zoo.build_solver(entry, spec=spec, device=device)
+
+
+def _zoo_ids():
+    from tensordiffeq_tpu_torch import zoo
+    return list(zoo.ids())
+
+
+def _close(got, want):
+    """Every leaf finite and within ``TOL`` scale-relative."""
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.reshape(-1), b.reshape(-1)
+        assert bool(torch.isfinite(a).all()), i
+        assert _scaled(a, b) <= TOL, (i, _scaled(a, b))
+
+
+@pytest.mark.parametrize("entry_id", _zoo_ids())
+def test_zoo_shapes_kernels_match_plain_flavors_on_card(card, entry_id):
+    """K3 (the entry's lowered step), K1 and K2 (its requests) against
+    their plain flavors at the entry's full widths, d, n_out and E, at N =
+    4,096; the solver adopts K3 with E = n_components."""
+    from tensordiffeq_tpu_torch import zoo
+    s = _zoo_solver(entry_id)
+    assert zoo.engine_label(s) == "fused-minimax-cuda"
+    assert s._minimax_n_eq == zoo.get(entry_id).n_components
+    X = s.X_f.contiguous()
+    layers = [(W.detach(), b.detach()) for W, b in s.net.layers()]
+    fl = [a if a.ndim == 2 else a.reshape(1, -1) for p in layers for a in p]
+    sq = s._minimax_sq
+    w = torch.rand(X.shape[0], sq.plan.E, device=card) ** 2
+    got = cuda_minimax.k3_minimax(sq.plan, X, w, sq.plan.pack(fl))
+    want = sq.plain(fl, w, X)
+    _close([got[0].reshape(1)] + sq.plan.unpack(got[1]) + [got[2], got[3]],
+           [want[0].reshape(1)] + list(want[1]) + [want[2], want[3]])
+    plan = cuda_taylor.build_cuda_table_fn(
+        s._fuse_requests, [tuple(W.shape) for W, _ in layers]).plan
+    flat_layers = [t for p in layers for t in p]
+    flat = plan.pack(flat_layers)
+    table = cuda_taylor.k1_forward(plan, X, flat)
+    params = [t.clone().requires_grad_(True) for t in flat_layers]
+    pairs = list(zip(params[0::2], params[1::2]))
+    Xg = X.clone().requires_grad_(True)
+    ref = taylor_derivatives(pairs, Xg, set(plan.channels), flat_matmul=True)
+    _close(list(table), [ref[mi].detach() for mi in plan.channels])
+    g = torch.randn(plan.C, X.shape[0], plan.n_out, device=card)
+    dX, dflat = cuda_taylor.k2_backward(plan, X, flat, g)
+    loss = sum((ref[mi] * g[c]).sum() for c, mi in enumerate(plan.channels))
+    _close(plan.unpack(dflat) + [dX],
+           torch.autograd.grad(loss, params + [Xg], materialize_grads=True))
+
+
+def _n_syncs_with(solver, epochs, **kw):
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            solver.fit(tf_iter=epochs, chunk=epochs, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum(SYNC_WARNING in str(w.message) for w in caught)
+
+
+def test_fit_with_telemetry_and_eval_does_not_sync_inside_a_chunk(card):
+    """With a telemetry subscriber and an eval hook at every chunk
+    boundary, the synchronising calls of one ``fit`` (chunk = the whole
+    fit) do not grow with its epochs, and the instrumented step is
+    captured once."""
+    from tensordiffeq_tpu_torch.telemetry import (MetricsRegistry,
+                                                  TrainingTelemetry)
+    solver = _ac_solver("cuda", n_f=512, minimax=None)
+    tele = TrainingTelemetry(registry=MetricsRegistry())
+    seen = []
+
+    def eval_fn(phase, step, params):
+        seen.append((phase, step))
+        solver._apply_eval(params, np.zeros((4, 2), np.float32))
+
+    kw = dict(telemetry=tele, eval_fn=eval_fn, eval_every=1)
+    # the capture of the instrumented step, with room for 12 history rows
+    # (a longer chunk takes a new buffer, and so a new capture)
+    _n_syncs_with(solver, 12, **kw)
+    few, many = _n_syncs_with(solver, 3, **kw), _n_syncs_with(solver, 12,
+                                                             **kw)
+    assert few == many, (few, many)
+    assert solver._adam.graph.captures == 1 and solver._adam.grad_norm
+    assert seen[-1] == ("adam", 12) and len(seen) == 3
+    assert all("Grad_norm" in r for r in solver.losses[-12:])
+
+
+def test_grad_norm_equals_the_eager_steps_gradient_norm(card):
+    """``Grad_norm`` is the global norm of the gradients (network and λ):
+    the first step's equals the norm autograd gives at the initial
+    parameters, and the graphed steps' equal the eager steps' bit for
+    bit."""
+    from tensordiffeq_tpu_torch.telemetry import (MetricsRegistry,
+                                                  TrainingTelemetry)
+    s = _ac_solver("cuda", n_f=1024, minimax=None)
+    params = [t.detach().clone().requires_grad_(True)
+              for p in s.net.layers() for t in p]
+    lams = {k: [None if v is None else v.detach().clone().requires_grad_(
+        v.requires_grad) for v in vs] for k, vs in s.lambdas.items()}
+    total, _ = s.loss_fn(list(zip(params[0::2], params[1::2])), lams["BCs"],
+                         lams["residual"], s.X_f)
+    trained = params + [v for vs in lams.values() for v in vs
+                        if v is not None and v.requires_grad]
+    grads = torch.autograd.grad(total, trained, materialize_grads=True)
+    want = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads)))
+    eager = _ac_solver("cuda", n_f=1024, minimax=None)
+    for solver, graphs in ((s, True), (eager, False)):
+        solver.fit(tf_iter=10, chunk=10, _graphs=graphs,
+                   telemetry=TrainingTelemetry(registry=MetricsRegistry()))
+    assert s._adam.graph.captures == 1 and eager._adam.graph.captures == 0
+    got = s.losses[0]["Grad_norm"]
+    assert abs(got - want) <= 1e-5 * want, (got, want)
+    assert [r["Grad_norm"] for r in s.losses] \
+        == [r["Grad_norm"] for r in eager.losses]
