@@ -190,10 +190,38 @@ Phases (each failure is fatal; exit code != 0, no result line):
    ``Grad_norm``), parameters and λ, bit for bit; (e) ``fit(profile_dir=)``
    on ``burgers`` writes a Chrome trace holding K3's kernel records.  The
    phase's wall is printed.
-16. a ``{"kernels": [...]}`` line (K1, K2, K3 and their bf16 flavors, each
-   held to its plain version; K1's with the route it took and its wide
-   route's measurements as ``wide_route``; ``launches_by_path`` has the
-   zoo's), the card line again, and the result line.
+16. the network options: (a) K1, K2 and K3 in their single-pass TF32
+   flavor (precision ``None``) at the Allen-Cahn slice (N = 50,000,
+   2-128x4-1, C = 4, E = 1) and at ``burgers``' 2-20x8-1, each against the
+   TF32-emulating plain flavor (``taylor_derivatives(emulate_tf32=True)``)
+   and its float64-summed twin: the nearer within TF32_SPREAD times the
+   order spread of the same semantics (the two referees' distance, at
+   least 1e-4) by RMS, and by max also within TF32_FLIP of the
+   emulation's distance to the IEEE flavor; nearer the emulation than the
+   IEEE flavor; K1 and K3 bit for bit run to run;
+   each timed over 20 launches beside the 3xTF32 flavor and its one-pass
+   bound; the distance to the IEEE flavor printed.  (b) AC-SA full with
+   ``neural_net(WIDTHS, precision=None)`` on ``fused="cuda"``: the engine
+   compile adopts and the cross-check's distances; where the f32 band
+   refuses the flavor the next narrower width is tried (TF32_WIDTHS, each
+   printed); at the first that adopts the minimax step, 200 Adam steps with
+   K3-TF32 once per step and no other launch, 20 L-BFGS iterations with
+   K3-TF32 once per evaluation, the loss falling, graph = eager over 50
+   steps, ms/step beside phase 6's, and 50 unfused steps through
+   K1-TF32/K2-TF32.  (c) a custom ``nn.Module`` (a residual MLP with skip
+   connections) on AC-SA: the generic engine through the CUDA graphs, 200
+   Adam + 20 L-BFGS with no K1-K3 launch of any flavor, the loss falling,
+   graph = eager; ``save`` -> ``load_model(network=)`` -> 10 steps bit for
+   bit against the same steps from a copy of the module;
+   ``export_surrogate`` -> ``Surrogate.load(net=)`` -> the engine serves
+   ``u`` within 1e-6 of ``predict``.  (d) ``MLP(activation=torch.sin)``
+   and ``neural_net(dtype=torch.bfloat16)`` on AC-SA: the generic engine,
+   no launch, the loss falls over 200 steps, graph = eager, ms/step.
+17. a ``{"kernels": [...]}`` line (K1, K2, K3, their bf16 and their TF32
+   flavors, each held to its plain version; K1's with the route it took and
+   its wide route's measurements as ``wide_route``; the TF32 flavors with
+   their distances and the 3xTF32 flavor's ms; ``launches_by_path`` has
+   phase 16's paths), the card line again, and the result line.
 
 Phases 6-9 and 11-14 train through CUDA graphs (``training/graphs.py``): each Adam
 step, each L-BFGS evaluation and two-loop sweep, and each fixed-step L-BFGS
@@ -329,6 +357,29 @@ SERVE_RECOMBINE_BAND = 1e-4
 # the residual against predict's (K1's fused engine): the engines'
 # cross-check band (ops/fused.py::crosscheck_residuals)
 SERVE_CROSSCHECK_RTOL = 5e-3
+# phase 16, the network options.  The TF32 flavor's band: rounding each
+# layer's input to TF32 is discontinuous, so two sum orders of the same
+# single-pass semantics round the few operands that sit on a TF32 rounding
+# boundary a TF32 unit apart, and no referee of another order holds the
+# kernels to a fixed 1e-4 (scripts/torch_tf32_order_witness.py measures it
+# on the CPU: 2e-4 to 2.4e-3 scale-relative between f32 and f64 sums of
+# the same TF32 products).  Each kernel is held to the nearer of two
+# referees of the same semantics (the emulation, and its float64-summed
+# twin) within TF32_SPREAD times their distance on the same inputs (the
+# order spread), at least TF32_FLOOR, in the RMS metric; in the max metric,
+# where one flipped operand decides, also within TF32_FLIP of the
+# emulation's own max distance to the IEEE flavor (a flip moves one
+# operand by one TF32 unit, rounding every operand moves the table that
+# far); and nearer the emulation than the IEEE flavor.
+TF32_SPREAD, TF32_FLIP = 3.0, 0.5
+TF32_FLOOR = 1e-4
+BURGERS_WIDTHS = [2] + [20] * 8 + [1]  # the zoo's burgers entry, full size
+# the widths phase 16(b) tries in turn: the slice's first; the next ones
+# only if the f32 cross-check band refuses the TF32 flavor at a width
+TF32_WIDTHS = ([2, 128, 128, 128, 128, 1], [2, 64, 64, 64, 64, 1],
+               [2, 32, 32, 32, 32, 1], BURGERS_WIDTHS)
+TF32_LBFGS = 20  # L-BFGS iterations of the TF32 and custom-module legs
+TF32_UNFUSED_STEPS = 50  # the TF32 flavor's unfused steps (K1/K2)
 
 
 def fail(msg: str):
@@ -1072,14 +1123,15 @@ def _state_diff(a, b, since: int = 0) -> float:
         return float("inf")
     pairs = [(np.array([r[k] for r in rows_a for k in sorted(r)]),
               np.array([r[k] for r in rows_b for k in sorted(r)]))]
-    for sa, sb in ((a.net.layers(), b.net.layers()),
+    for sa, sb in ((a.net.params(), b.net.params()),
                    (a.lambdas["residual"] + a.lambdas["BCs"],
                     b.lambdas["residual"] + b.lambdas["BCs"])):
         flat_a = [t for x in sa for t in (x if isinstance(x, tuple) else (x,))
                   if t is not None]
         flat_b = [t for x in sb for t in (x if isinstance(x, tuple) else (x,))
                   if t is not None]
-        pairs += [(p.detach().cpu().numpy(), q.detach().cpu().numpy())
+        pairs += [(p.detach().float().cpu().numpy(),
+                   q.detach().float().cpu().numpy())
                   for p, q in zip(flat_a, flat_b)]
     worst = 0.0
     for x, y in pairs:
@@ -2292,13 +2344,27 @@ def _phase_families() -> dict:
 # --------------------------------------------------------------------- #
 # phase 14: mixed precision, the bf16-operand flavor of K1, K2 and K3
 # --------------------------------------------------------------------- #
-def _counts_all() -> dict:
-    """Both flavors' launch counts: ``_counts()`` and the bf16 ones."""
+def _wrappers() -> dict:
+    """Every kernel wrapper, by its key in the launch counts."""
     from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
     from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
-    return dict(_counts(), k1_bf16=ct.k1_forward_bf16.launches,
-                k2_bf16=ct.k2_backward_bf16.launches,
-                k3_bf16=cm.k3_minimax_bf16.launches)
+    return {"k1": ct.k1_forward, "k2": ct.k2_backward, "k3": cm.k3_minimax,
+            "k1_bf16": ct.k1_forward_bf16, "k2_bf16": ct.k2_backward_bf16,
+            "k3_bf16": cm.k3_minimax_bf16, "k1_tf32": ct.k1_forward_tf32,
+            "k2_tf32": ct.k2_backward_tf32, "k3_tf32": cm.k3_minimax_tf32}
+
+
+def _counts_all() -> dict:
+    """Every flavor's launch counts: ``_counts()``, the bf16 and the TF32
+    ones."""
+    return {k: fn.launches for k, fn in _wrappers().items()}
+
+
+def _set_counts(saved: dict):
+    """Put back the counts of a ``_counts_all()`` snapshot: comparison
+    launches are not the main path's."""
+    for k, fn in _wrappers().items():
+        fn.launches = saved[k]
 
 
 def _rms(a, b) -> float:
@@ -3032,12 +3098,485 @@ def phase_zoo(dev) -> dict:
     return dict(launches=launches, shapes=shapes, races=races, wall_s=wall)
 
 
+# --------------------------------------------------------------------- #
+# phase 16: the network options (precision=None and the TF32 flavor of
+# the kernels, a custom nn.Module, another activation, a bf16 dtype)
+# --------------------------------------------------------------------- #
+def _burgers_residual(u, x, t):
+    from tensordiffeq_tpu_torch import grad
+    u_x = grad(u, "x")
+    return (grad(u, "t")(x, t) + u(x, t) * u_x(x, t)
+            - (0.01 / np.pi) * grad(u_x, "x")(x, t))
+
+
+def _rms_rel(a, b) -> float:
+    import torch
+    return _rms(a, b) / max(float(torch.sqrt(torch.mean(b.double() ** 2))),
+                            1e-30)
+
+
+def _tf32_check(label: str, got: list, emu: list, twin: list,
+                ieee: list) -> dict:
+    """A TF32 kernel's leaves against the TF32-emulating plain flavor and
+    its float64-summed twin (two referees of the same semantics): each
+    leaf's RMS scale-relative distance to the nearer referee within
+    TF32_SPREAD times the order spread (the two referees' distance, the
+    largest over the leaves; at least TF32_FLOOR), its max distance within
+    the larger of that band in the max metric and TF32_FLIP of the
+    emulation's own max distance to the IEEE flavor (where one flipped
+    operand decides the max), and the whole nearer (RMS) the emulation
+    than the IEEE flavor.  Prints the distances to the emulation, to the
+    twin and to the IEEE flavor, and the spread."""
+    import torch
+    worst = dict(max_abs_err=0.0, scale_rel_err=0.0, rms_rel=0.0,
+                 twin_max=0.0, twin_rms=0.0, near_max=0.0, near_rms=0.0,
+                 spread_max=0.0, spread_rms=0.0, ieee_max=0.0, ieee_rms=0.0)
+    for a, e, t, i in zip(got, emu, twin, ieee):
+        if not bool(torch.isfinite(a).all()):
+            fail(f"{label}: non-finite output")
+        ab, rel = scaled_err(a, e)
+        worst["max_abs_err"] = max(worst["max_abs_err"], ab)
+        worst["scale_rel_err"] = max(worst["scale_rel_err"], rel)
+        worst["rms_rel"] = max(worst["rms_rel"], _rms_rel(a, e))
+        t_max, t_rms = scaled_err(a, t)[1], _rms_rel(a, t)
+        worst["twin_max"] = max(worst["twin_max"], t_max)
+        worst["twin_rms"] = max(worst["twin_rms"], t_rms)
+        worst["near_max"] = max(worst["near_max"], min(rel, t_max))
+        worst["near_rms"] = max(worst["near_rms"],
+                                min(_rms_rel(a, e), t_rms))
+        worst["spread_max"] = max(worst["spread_max"], scaled_err(t, e)[1])
+        worst["spread_rms"] = max(worst["spread_rms"], _rms_rel(t, e))
+        worst["ieee_max"] = max(worst["ieee_max"], scaled_err(a, i)[1])
+        worst["emu_ieee_max"] = max(worst.get("emu_ieee_max", 0.0),
+                                    scaled_err(e, i)[1])
+        worst["ieee_rms"] = max(worst["ieee_rms"], _rms_rel(a, i))
+    cat = lambda ts: torch.cat([t.reshape(-1) for t in ts])  # noqa: E731
+    r_emu, r_ieee = _rms(cat(got), cat(emu)), _rms(cat(got), cat(ieee))
+    band_max = max(TF32_FLOOR, TF32_SPREAD * worst["spread_max"],
+                   TF32_FLIP * worst["emu_ieee_max"])
+    band_rms = max(TF32_FLOOR, TF32_SPREAD * worst["spread_rms"])
+    print(f"[{label}] to the TF32 emulation: scale_rel_err="
+          f"{worst['scale_rel_err']:.3e}, RMS-relative {worst['rms_rel']:.3e};"
+          f" to its float64-summed twin {worst['twin_max']:.3e} max, "
+          f"{worst['twin_rms']:.3e} RMS; to the nearer (gated) "
+          f"{worst['near_max']:.3e} max (band {band_max:.3e}), "
+          f"{worst['near_rms']:.3e} RMS (band {band_rms:.3e}); order spread "
+          f"(emulation vs twin) {worst['spread_max']:.3e} max, "
+          f"{worst['spread_rms']:.3e} RMS; to the IEEE flavor "
+          f"{worst['ieee_max']:.3e} max, {worst['ieee_rms']:.3e} RMS",
+          flush=True)
+    if not (worst["near_max"] <= band_max and worst["near_rms"] <= band_rms):
+        fail(f"{label} is outside the TF32 flavor's band")
+    if not r_emu < r_ieee:
+        fail(f"{label} is not nearer the TF32 emulation than the IEEE "
+             "flavor")
+    return worst
+
+
+def phase_tf32_kernels(dev) -> dict:
+    """Phase 16(a): K1-TF32, K2-TF32 and K3-TF32 against the
+    TF32-emulating plain flavor at the Allen-Cahn slice (N = 50,000,
+    2-128x4-1, C = 4, E = 1) and at ``burgers``' 2-20x8-1, K1 and K3 bit
+    for bit run to run, each timed over 20 launches beside the 3xTF32
+    flavor and its one-pass bound.  Returns the Allen-Cahn measurements."""
+    import torch
+    from tensordiffeq_tpu_torch.networks import neural_net
+    from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    from tensordiffeq_tpu_torch.ops.fused import analyze_f_model
+    from tensordiffeq_tpu_torch.ops.minimax import build_minimax_sq_fn
+    from tensordiffeq_tpu_torch.ops.taylor import taylor_derivatives
+
+    rng = np.random.RandomState(2)
+    before = _counts_all()
+    out = {}
+    for label, f_model, widths in (("ac", _ac_residual, WIDTHS),
+                                   ("burgers", _burgers_residual,
+                                    BURGERS_WIDTHS)):
+        X = torch.as_tensor(np.stack([rng.uniform(-1, 1, N_POINTS),
+                                      rng.uniform(0, 1, N_POINTS)], 1),
+                            dtype=torch.float32, device=dev)
+        reqs = analyze_f_model(f_model, ("x", "t"), 1)
+        layers, flat_layers, params, pairs = _slice_net(widths, dev)
+        shapes = [tuple(W.shape) for W, _ in layers]
+        plan = ct.build_cuda_table_fn(reqs, shapes, precision=None).plan
+        flat = plan.pack(flat_layers)
+        channels = plan.channels
+        g = torch.as_tensor(rng.randn(plan.C, N_POINTS, 1),
+                            dtype=torch.float32, device=dev)
+        Xg = X.clone().requires_grad_(True)
+
+        def plain(mode):
+            t = taylor_derivatives(pairs, Xg, set(channels), flat_matmul=True,
+                                   emulate_tf32=mode)
+            table = torch.stack([t[mi] for mi in channels])
+            loss = sum((t[mi] * g[c]).sum() for c, mi in enumerate(channels))
+            return table.detach(), torch.autograd.grad(loss, params + [Xg])
+
+        table = ct.k1_forward_tf32(plan, X, flat)
+        torch.cuda.synchronize()
+        (te, ge), (tt, gt), (ti, gi) = plain(True), plain("float64"), \
+            plain(False)
+        k1 = _tf32_check(f"K1-TF32 {label}", list(table), list(te),
+                         list(tt), list(ti))
+        k1["route"] = plan.k1_routes[ct.TF32]
+        k1["bit_identical"] = _bit_identical_run_to_run(
+            f"K1-TF32 {label}", table,
+            lambda: ct.k1_forward_tf32(plan, X, flat))
+        dX, dflat = ct.k2_backward_tf32(plan, X, flat, g)
+        torch.cuda.synchronize()
+        k2 = _tf32_check(f"K2-TF32 {label}", plan.unpack(dflat) + [dX],
+                         list(ge), list(gt), list(gi))
+        flops, nbytes = ct.flop_count(plan, N_POINTS), \
+            ct.byte_count(plan, N_POINTS)
+        passes = ct.tensor_passes(plan, ct.TF32)
+        for name, res, kern, ref, key in (
+                ("K1", k1, lambda: ct.k1_forward_tf32(plan, X, flat),
+                 lambda: ct.k1_forward(plan, X, flat), "k1"),
+                ("K2", k2, lambda: ct.k2_backward_tf32(plan, X, flat, g),
+                 lambda: ct.k2_backward(plan, X, flat, g), "k2")):
+            res["ms"] = cuda_ms(kern)
+            res["f32_ms"] = cuda_ms(ref)
+            res["plain_ms"] = cuda_ms(lambda: plain(True), reps=5)
+            res["bound"] = bound_ms(flops[key], nbytes[key], passes[key])
+            print(f"[time {name}-TF32 {label}] {res['ms']:.3f} ms"
+                  f"{' on the ' + res['route'] + ' route' if key == 'k1' else ''}"
+                  f" beside the 3xTF32 flavor's {res['f32_ms']:.3f} ms (plain "
+                  f"TF32 emulation {res['plain_ms']:.3f} ms); "
+                  f"{bound_text(res['ms'], res['bound'])}", flush=True)
+
+        sq32 = build_minimax_sq_fn(f_model, ("x", "t"), 1, reqs, shapes,
+                                   device=dev)
+        sq = build_minimax_sq_fn(f_model, ("x", "t"), 1, reqs, shapes,
+                                 device=dev, precision=None)
+        w = torch.as_tensor(rng.rand(N_POINTS, 1) ** 2, dtype=torch.float32,
+                            device=dev)
+        fl = [a.detach() if a.ndim == 2 else a.detach().reshape(1, -1)
+              for pair in layers for a in pair]
+        kflat = sq.plan.pack(fl)
+
+        def leaves(res):
+            v, d, gw, gX = res
+            return [v.reshape(1)] + [t.reshape(-1) for t in d] + [gw, gX]
+
+        got = cm.k3_minimax_tf32(sq.plan, X, w, kflat)
+        torch.cuda.synchronize()
+        k3 = _tf32_check(
+            f"K3-TF32 {label}",
+            leaves((got[0], sq.plan.unpack(got[1]), got[2], got[3])),
+            leaves(sq.plain(fl, w, X, emulate_tf32=True)),
+            leaves(sq.plain(fl, w, X, emulate_tf32="float64")),
+            leaves(sq32.plain(fl, w, X)))
+        k3["bit_identical"] = _bit_identical_run_to_run(
+            f"K3-TF32 {label}", got[1],
+            lambda: cm.k3_minimax_tf32(sq.plan, X, w, kflat)[1])
+        k3["ms"] = cuda_ms(lambda: cm.k3_minimax_tf32(sq.plan, X, w, kflat))
+        k3["f32_ms"] = cuda_ms(lambda: cm.k3_minimax(sq.plan, X, w, kflat))
+        k3["plain_ms"] = cuda_ms(
+            lambda: sq.plain(fl, w, X, emulate_tf32=True), reps=5)
+        k3["bound"] = bound_ms(cm.flop_count(sq.plan, N_POINTS)["k3"],
+                               cm.byte_count(sq.plan, N_POINTS)["k3"],
+                               cm.tensor_passes(sq.plan, ct.TF32))
+        print(f"[time K3-TF32 {label}] {k3['ms']:.3f} ms beside the 3xTF32 "
+              f"flavor's {k3['f32_ms']:.3f} ms (plain TF32 emulation "
+              f"{k3['plain_ms']:.3f} ms); {bound_text(k3['ms'], k3['bound'])}",
+              flush=True)
+        out[label] = dict(k1_tf32=k1, k2_tf32=k2, k3_tf32=k3)
+    _set_counts(before)  # comparison launches are not the main path's
+    return out["ac"]
+
+
+def _crosscheck_distances(solver) -> dict:
+    """The adopted engines' distances to the generic engine on the
+    cross-check's 32 points (the measures of ``ops/fused.py``'s
+    cross-check): the fused residual's values and its squared residual's
+    parameter gradients, and the minimax loss value."""
+    import torch
+    from tensordiffeq_tpu_torch.ops.fused import _leaves
+
+    X_s = solver.X_f[:32]
+    params = solver.net.params()
+
+    def sumsq(out):
+        comps = out if isinstance(out, tuple) else (out,)
+        return sum(torch.sum(c ** 2) for c in comps)
+
+    with torch.enable_grad():
+        gen = solver._generic_residual(params, X_s)
+        fus = solver._fused_residual(params, X_s)
+        g_gen = torch.autograd.grad(sumsq(gen), params,
+                                    materialize_grads=True)
+        g_fus = torch.autograd.grad(sumsq(fus), params,
+                                    materialize_grads=True)
+    values = max(scaled_err(f.detach(), g.detach())[1] for f, g in
+                 zip(_leaves(fus), _leaves(gen)))
+    grads = max(float((a - b).abs().max()) / (float(b.abs().max()) + 1e-5)
+                for a, b in zip(g_fus, g_gen))
+    return dict(values=values, grads=grads)
+
+
+def _phase_tf32_training(phase6_ms: float) -> dict:
+    """Phase 16(b): AC-SA full with ``neural_net(WIDTHS, precision=None)``
+    on ``fused="cuda"``: the engine compile adopts and the cross-check's
+    distances; if the f32 band refuses the TF32 flavor at a width, the
+    next narrower width (the widest where compile adopts it) trains: 200
+    Adam steps and 20 L-BFGS iterations with K3-TF32 once per step and per
+    evaluation and no other launch, graph = eager over 50 steps, and 50
+    unfused steps through K1-TF32/K2-TF32."""
+    import torch
+    import tensordiffeq_tpu_torch as tdqt
+    from tensordiffeq_tpu_torch.networks import neural_net
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    from tensordiffeq_tpu_torch.training import graphs
+
+    def make(widths, minimax=None, seed=0):
+        domain, bcs, f_model, kw = ac_sa_problem()
+        s = tdqt.CollocationSolverND(verbose=False, seed=seed)
+        s.compile(widths, f_model, domain, bcs, fused="cuda",
+                  minimax=minimax,
+                  network=neural_net(widths, precision=None, seed=seed), **kw)
+        return s
+
+    widths = None
+    for cand in TF32_WIDTHS:
+        ct.reset_launch_counts()
+        try:
+            s = make(cand)
+        except ValueError as e:  # the cross-check's band refused the flavor
+            cause = e.__cause__
+            print(f"[tf32 compile] widths {cand}: refused ({e}; "
+                  f"{type(cause).__name__}: {cause})", flush=True)
+            continue
+        at_compile = _counts_all()
+        dist = _crosscheck_distances(s)
+        _set_counts(at_compile)  # the distances' launches are not the path's
+        print(f"[tf32 compile] widths {cand}: engine {s.engine}; "
+              f"cross-check distances to the generic engine (TF32 matmuls): "
+              f"values {dist['values']:.3e}, gradients {dist['grads']:.3e} "
+              f"(band 5e-3); minimax "
+              f"{'adopted' if s._minimax_kind else 'declined'}"
+              f"{'' if s._minimax_kind else f' ({s._minimax_fail_reason!r})'}"
+              f"; launches in compile {_nonzero(at_compile)}", flush=True)
+        if s.engine == "fused-minimax-cuda":
+            widths = cand
+            break
+    if widths is None:
+        fail("no width adopts the TF32 flavor's minimax step")
+    if s._minimax_sq.flavor != ct.TF32:
+        fail(f"K3's flavor is {s._minimax_sq.flavor!r}, not TF32")
+    c0 = len(graphs.captures)
+    t_fit, launches_adam, caps = _fit_counted(s, tf_iter=TF_ITER)
+    launches_adam = _counts_all()
+    rows = np.array([r["Total Loss"] for r in s.losses])
+    e0 = _lbfgs_counts()[0]
+    ct.reset_launch_counts()
+    t_lb = _timed_fit(s, newton_iter=TF32_LBFGS)
+    launches_lbfgs = _counts_all()
+    evals = _lbfgs_counts()[0] - e0
+    ms_step = 1e3 * t_fit / TF_ITER
+    print(f"[tf32 minimax] {TF_ITER} steps {ms_step:.3f} ms/step "
+          f"({_steady_ms(s, 100):.3f} past the first chunk) beside phase 6's "
+          f"{phase6_ms:.3f}; loss {rows[0]:.6e} -> {rows[-1]:.6e}; launches "
+          f"{_nonzero(launches_adam)}; captures {caps}; L-BFGS "
+          f"{TF32_LBFGS} iterations {1e3 * t_lb / TF32_LBFGS:.3f} ms each, "
+          f"{evals} evaluations, launches {_nonzero(launches_lbfgs)}, best "
+          f"{s.min_loss['l-bfgs']:.6e}", flush=True)
+    _captures_since("tf32 minimax", c0)
+    if _nonzero(launches_adam) != {"k3_tf32": TF_ITER} or caps != 1:
+        fail(f"tf32 Adam leg: launches {launches_adam}, captures {caps}")
+    if _nonzero(launches_lbfgs) != {"k3_tf32": evals}:
+        fail(f"tf32 L-BFGS leg: launches {launches_lbfgs}, evaluations "
+             f"{evals}")
+    if not (np.all(np.isfinite(rows)) and rows[-1] < rows[0]
+            and s.min_loss["l-bfgs"] < rows[-1]):
+        fail("tf32 minimax: the loss did not fall")
+    _graph_vs_eager("tf32 minimax", lambda: make(widths), REFEREE_STEPS,
+                    REFEREE_STEPS)
+    # the unfused loss on the same flavor: K1-TF32 and K2-TF32 per step
+    un = make(widths, minimax=False)
+    ct.reset_launch_counts()
+    t_un = _timed_fit(un, tf_iter=TF32_UNFUSED_STEPS)
+    launches_un = _counts_all()
+    want = {"k1_tf32": TF32_UNFUSED_STEPS, "k2_tf32": TF32_UNFUSED_STEPS}
+    print(f"[tf32 unfused] {TF32_UNFUSED_STEPS} steps "
+          f"{1e3 * t_un / TF32_UNFUSED_STEPS:.3f} ms/step; engine "
+          f"{un.engine}; launches {_nonzero(launches_un)}", flush=True)
+    if un.engine != "fused-cuda" or _nonzero(launches_un) != want:
+        fail(f"tf32 unfused: engine {un.engine}, launches {launches_un}")
+    return {"tf32-minimax": dict(launches={
+                k: at_compile[k] + launches_adam[k] for k in at_compile}),
+            "tf32-lbfgs": dict(launches=launches_lbfgs),
+            "tf32-unfused": dict(launches=launches_un),
+            "widths": widths, "ms_step": ms_step}
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _residual_mlp_class():
+    """A custom ``nn.Module``: a residual MLP with skip connections, ``h
+    <- h + tanh(W h + b)`` over ``n_blocks`` blocks between an input and an
+    output ``nn.Linear``; ``seed`` fixes its init."""
+    import torch
+    from torch import nn
+
+    class ResidualMLP(nn.Module):
+        def __init__(self, width: int = 128, n_blocks: int = 3,
+                     seed: int = 0):
+            super().__init__()
+            torch.manual_seed(seed)
+            self.inp = nn.Linear(2, width)
+            self.blocks = nn.ModuleList(nn.Linear(width, width)
+                                        for _ in range(n_blocks))
+            self.out = nn.Linear(width, 1)
+
+        def forward(self, x):
+            h = torch.tanh(self.inp(x))
+            for blk in self.blocks:
+                h = h + torch.tanh(blk(h))
+            return self.out(h)
+
+    return ResidualMLP
+
+
+def _phase_custom_module() -> dict:
+    """Phase 16(c): a custom residual MLP on AC-SA: the generic engine
+    through the CUDA graphs, 200 Adam + 20 L-BFGS with no K1-K3 launch,
+    graph = eager, ``save`` -> ``load_model(network=)`` -> 10 more steps
+    bit for bit, and ``export_surrogate`` -> ``Surrogate.load(net=)`` ->
+    the engine serving ``u`` as ``predict`` does."""
+    import copy
+    import tempfile
+
+    import tensordiffeq_tpu_torch as tdqt
+    from tensordiffeq_tpu_torch.serving import Surrogate
+
+    Res = _residual_mlp_class()
+
+    def make(module):
+        domain, bcs, f_model, kw = ac_sa_problem()
+        s = tdqt.CollocationSolverND(verbose=False, seed=0)
+        s.compile(WIDTHS, f_model, domain, bcs, network=module, **kw)
+        return s
+
+    s = make(Res())
+    t, launches, caps = _fit_counted(s, tf_iter=TF_ITER)
+    launches = _counts_all()
+    ct_lb = _timed_fit(s, newton_iter=TF32_LBFGS)
+    lb_launches = _counts_all()
+    rows = np.array([r["Total Loss"] for r in s.losses])
+    print(f"[custom] {type(s.net.module).__name__} "
+          f"({sum(p.numel() for p in s.net.params()):,} parameters) engine "
+          f"{s.engine}; {TF_ITER} steps {1e3 * t / TF_ITER:.3f} ms/step "
+          f"({_steady_ms(s, 100):.3f} past the first chunk), captures "
+          f"{caps}; L-BFGS {TF32_LBFGS} iterations "
+          f"{1e3 * ct_lb / TF32_LBFGS:.3f} ms each; loss {rows[0]:.6e} -> "
+          f"{rows[TF_ITER - 1]:.6e} -> {rows[-1]:.6e}; launches "
+          f"{_nonzero(launches)}, {_nonzero(lb_launches)}", flush=True)
+    if s.engine != "generic" or caps != 1:
+        fail(f"custom module: engine {s.engine}, captures {caps}")
+    if any(launches.values()) or any(lb_launches.values()):
+        fail(f"custom module launched kernels: {launches} {lb_launches}")
+    if not (np.all(np.isfinite(rows)) and rows[TF_ITER - 1] < rows[0]
+            and s.min_loss["l-bfgs"] < rows[TF_ITER - 1]):
+        fail("custom module: the loss did not fall")
+    _graph_vs_eager("custom", lambda: make(Res()), REFEREE_STEPS,
+                    REFEREE_STEPS)
+    grid = np.stack(np.meshgrid(np.linspace(-1, 1, 512),
+                                np.linspace(0, 1, 201), indexing="ij"),
+                    -1).reshape(-1, 2).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        s.save(f"{tmp}/model.tdq")
+        ref = make(copy.deepcopy(s.net.module))
+        domain, bcs, f_model, kw = ac_sa_problem()
+        b = tdqt.CollocationSolverND(verbose=False, seed=0)
+        b.load_model(f"{tmp}/model.tdq", network=Res(seed=123))
+        b.compile(None, f_model, domain, bcs, **kw)
+        ref.fit(tf_iter=RESUME_STEPS, chunk=RESUME_STEPS)
+        b.fit(tf_iter=RESUME_STEPS, chunk=RESUME_STEPS)
+        diff = _state_diff(ref, b)
+        s.export_surrogate().save(f"{tmp}/art")
+        sur = Surrogate.load(f"{tmp}/art", f_model=f_model, net=Res(seed=7))
+    u_pred = s.predict(grid)[0]
+    u_srv = np.asarray(sur.engine(**SERVE_LADDER).u(grid)).reshape(
+        u_pred.shape)
+    err = float(np.abs(u_srv - u_pred).max())
+    scale = float(np.abs(u_pred).max())
+    print(f"[custom save] load_model(network=) then {RESUME_STEPS} steps vs "
+          f"the same steps from a copy of the module: "
+          f"{'bit-identical' if diff == 0 else f'differs by {diff:.3e}'}; "
+          f"served u vs predict max_abs_err {err:.3e} (scale {scale:.3f})",
+          flush=True)
+    if diff != 0:
+        fail(f"custom module: load_model's steps differ by {diff:.3e}")
+    if not err <= SERVE_U_BAND * max(1.0, scale):
+        fail(f"custom module: served u differs from predict by {err:.3e}")
+    return {"custom": dict(launches=launches),
+            "custom-lbfgs": dict(launches=lb_launches)}
+
+
+def _phase_knobs(phase6_ms: float) -> dict:
+    """Phase 16(d): ``MLP(activation=torch.sin)`` and ``neural_net(...,
+    dtype=torch.bfloat16)`` on AC-SA: the generic engine, no kernel launch,
+    the loss falls over 200 steps, graph = eager over 50."""
+    import torch
+    import tensordiffeq_tpu_torch as tdqt
+    from tensordiffeq_tpu_torch import networks
+
+    out = {}
+    for tag, build in (
+            ("sin", lambda: networks.MLP(
+                WIDTHS, generator=networks.init_generator(0),
+                activation=torch.sin)),
+            ("bf16", lambda: networks.neural_net(WIDTHS, seed=0,
+                                                 dtype=torch.bfloat16))):
+        def make():
+            domain, bcs, f_model, kw = ac_sa_problem()
+            s = tdqt.CollocationSolverND(verbose=False, seed=0)
+            s.compile(WIDTHS, f_model, domain, bcs, network=build(), **kw)
+            return s
+
+        s = make()
+        t, launches, caps = _fit_counted(s, tf_iter=TF_ITER)
+        launches = _counts_all()
+        rows = np.array([r["Total Loss"] for r in s.losses])
+        print(f"[knob {tag}] engine {s.engine}; {TF_ITER} steps "
+              f"{1e3 * t / TF_ITER:.3f} ms/step ({_steady_ms(s, 100):.3f} "
+              f"past the first chunk; phase 6: {phase6_ms:.3f}); captures "
+              f"{caps}; loss {rows[0]:.6e} -> {rows[-1]:.6e}; launches "
+              f"{_nonzero(launches)}", flush=True)
+        if s.engine != "generic" or caps != 1 or any(launches.values()):
+            fail(f"knob {tag}: engine {s.engine}, captures {caps}, "
+                 f"launches {launches}")
+        if not (np.all(np.isfinite(rows)) and rows[-1] < rows[0]):
+            fail(f"knob {tag}: the loss did not fall")
+        _graph_vs_eager(f"knob {tag}", make, REFEREE_STEPS, REFEREE_STEPS)
+        out[f"knob-{tag}"] = dict(launches=launches)
+    return out
+
+
+def phase_network_options(dev, phase6_ms: float) -> tuple:
+    """Phase 16: the network options.  Returns the TF32 kernels'
+    measurements and the paths' launches."""
+    t0 = time.perf_counter()
+    meas = phase_tf32_kernels(dev)
+    paths = _phase_tf32_training(phase6_ms)
+    paths.update(_phase_custom_module())
+    paths.update(_phase_knobs(phase6_ms))
+    print(f"[network options] phase wall {time.perf_counter() - t0:.1f} s; "
+          f"TF32 training widths {paths.pop('widths')}", flush=True)
+    paths.pop("ms_step")
+    return meas, paths
+
+
 def kernels_line(meas: dict, paths: dict) -> str:
     """``launches`` sums a kernel's launches over the runs of every path
     (``launches_by_path`` splits them: minimax, unfused, lbfgs, pool,
     ascent, discovery, phase 13's autotune, schedules, ntk, causal, remat,
     families, phase 14's minimax-bf16, lbfgs-bf16, unfused-bf16,
-    serve-bf16, and phase 15's zoo)."""
+    serve-bf16, phase 15's zoo, and phase 16's tf32-minimax, tf32-lbfgs,
+    tf32-unfused, custom, custom-lbfgs, knob-sin and knob-bf16)."""
     entries = []
     for key, name, source, replaces in (
             ("k1", "taylor_table_fwd (K1)", "csrc/taylor_fwd_wg.cuh",
@@ -3051,6 +3590,12 @@ def kernels_line(meas: dict, paths: dict) -> str:
             ("k2_bf16", "taylor_table_bwd bf16 (K2-bf16)",
              "csrc/taylor_table.cu", "pallas_taylor.py:171"),
             ("k3_bf16", "minimax_step bf16 (K3-bf16)",
+             "csrc/minimax_step.cu", "pallas_minimax.py:259"),
+            ("k1_tf32", "taylor_table_fwd tf32 (K1-TF32)",
+             "csrc/taylor_fwd_wg.cuh", "pallas_taylor.py:154"),
+            ("k2_tf32", "taylor_table_bwd tf32 (K2-TF32)",
+             "csrc/taylor_table.cu", "pallas_taylor.py:171"),
+            ("k3_tf32", "minimax_step tf32 (K3-TF32)",
              "csrc/minimax_step.cu", "pallas_minimax.py:259")):
         m = meas[key]
         by_path = {tag: int(res["launches"].get(key, 0))
@@ -3064,18 +3609,24 @@ def kernels_line(meas: dict, paths: dict) -> str:
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound"]["ms"],
             "bound_by": m["bound"]["by"],
+            # the TF32 flavors: held to the TF32-emulating plain flavor
+            # (phase 16's band), timed beside the 3xTF32 flavor
+            **({"scale_rel_err": m["scale_rel_err"],
+                "rms_rel": m["rms_rel"], "order_spread": m["spread_max"],
+                "f32_ms": m["f32_ms"]} if key.endswith("tf32") else {}),
             # K1's route at the slice's shape (the wgmma route's
             # csrc/taylor_fwd_wg.cuh), and its route for wider layers
             # (csrc/taylor_table.cu), held to the plain flavor and timed
             # in phases 3 and 14 at WIDE_WIDTHS; no main path takes it
-            **({"k1_route": m["route"], "wide_route": {
+            **({"k1_route": m["route"]} if "route" in m else {}),
+            **({"wide_route": {
                 "source": "tensordiffeq_tpu_torch/csrc/taylor_table.cu",
                 "widths": WIDE_WIDTHS,
                 "max_abs_err": m["wide"]["max_abs_err"],
                 "ms": m["wide"]["ms"], "plain_ms": m["wide"]["plain_ms"],
                 "bound_ms": m["wide"]["bound"]["ms"],
                 "bound_by": m["wide"]["bound"]["by"]}}
-               if "route" in m else {}),
+               if "wide" in m else {}),
             # no single PyTorch call computes the Taylor table or the
             # fused minimax step
             "library_ms": None})
@@ -3142,6 +3693,10 @@ def main():
                                             paths["minimax"]["solver"],
                                             serve, card, args.keep_nets)
     paths["zoo"] = phase_zoo(dev)
+    tf32_meas, option_paths = phase_network_options(
+        dev, paths["minimax"]["ms_step"])
+    meas.update(tf32_meas)
+    paths.update(option_paths)
     if args.profile:
         phase_ab(paths)
         # in turns, so a slower stretch of the host does not land on one

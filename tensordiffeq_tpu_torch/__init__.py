@@ -13,12 +13,19 @@ rung, → :class:`~.serving.RequestBatcher`), adaptive collocation
 problem (:class:`~.models.DiscoveryModel`), training telemetry
 (``fit(telemetry=, eval_fn=, profile_dir=)``, :mod:`.telemetry`) and the
 PDE zoo with its scorecard (:mod:`.zoo`).  Entry points run on
-the card unless the caller passes ``device="cpu"``.  The port imports
-nothing of JAX and nothing of ``tensordiffeq_tpu``.
+the card unless the caller passes ``device="cpu"``.  ``network=`` takes any
+``nn.Module`` and the MLP takes the JAX package's knobs (``activation``,
+``precision`` — ``None`` runs the kernels' single-pass TF32 flavor —
+``dtype``, ``param_dtype``); the reference's helpers resolve at their
+paths (:mod:`.utils`, :mod:`.plotting`, :mod:`.output`).  Of the JAX
+solver only ``dist=`` and ``save_checkpoint(sharded=True)`` still raise
+:class:`~.utils.NotPortedError`.  The port imports nothing of JAX and
+nothing of ``tensordiffeq_tpu``.
 """
 
 from . import boundaries, domains, exact, helpers, networks  # noqa: F401
-from . import models, ops, profiling, resilience, sampling  # noqa: F401
+from . import models, ops, output, plotting, profiling  # noqa: F401
+from . import resilience, sampling  # noqa: F401
 from . import serving, telemetry, training, utils, weights  # noqa: F401
 from . import zoo  # noqa: F401
 from .boundaries import (  # noqa: F401
@@ -27,8 +34,8 @@ from .domains import DomainND  # noqa: F401
 from .helpers import find_L2_error  # noqa: F401
 from .models import (  # noqa: F401
     CollocationSolverND, DiscoveryModel, NotCompiledError)
-from .networks import (MLP, FourierMLP, PeriodicMLP, fourier_net,  # noqa: F401
-                       neural_net, periodic_net)
+from .networks import (MLP, FourierMLP, ModuleNet,  # noqa: F401
+                       PeriodicMLP, fourier_net, neural_net, periodic_net)
 from .ops import MSE, UFn, d, g_MSE, grad, laplacian  # noqa: F401
 from .ops import set_default_grad_mode  # noqa: F401
 from .resilience import CircuitBreaker, RetryPolicy  # noqa: F401

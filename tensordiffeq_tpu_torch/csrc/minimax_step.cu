@@ -238,9 +238,9 @@ static __device__ void epilogue(float* T, int ld, const float* __restrict__ X,
 
 // K3: each block owns partial slot blockIdx.x (P_total + 1 values) and a
 // workspace slice, and walks tiles blockIdx.x, blockIdx.x + gridDim.x, ...
-// BF: the bf16-operand flavor (taylor_common.cuh); the epilogue is f32 in
-// both.
-template <bool BF>
+// FL: the flavor (taylor_common.cuh: FL_F32, FL_BF16 or FL_TF32); the
+// epilogue is f32 in all three.
+template <int FL>
 __global__ void __launch_bounds__(NTHREADS)
 minimax_step_kernel(const float* __restrict__ X, const float* __restrict__ w,
                     const float* __restrict__ prm, float* __restrict__ gw,
@@ -250,7 +250,7 @@ minimax_step_kernel(const float* __restrict__ X, const float* __restrict__ w,
   extern __shared__ __align__(16) float sm[];
   const int C = s.C, R = TP * C, ld = net.ld, L = net.L, lh = net.L - 1;
   const int Rp = pad16(R);
-  if constexpr (BF) {
+  if constexpr (FL == FL_BF16) {
     // five bf16 slots (taylor_common.cuh: reverse_sweep_bf)
     float* mypart = part + (size_t)blockIdx.x * slot_stride(net.P_total + 1);
     bf16* wst = stage_of_bf(sm, 5, R, ld);
@@ -298,27 +298,27 @@ minimax_step_kernel(const float* __restrict__ X, const float* __restrict__ w,
     const bool first = (tile == blockIdx.x);
     const int p0 = tile * TP;
     bool head_issued = false;
-    float* cur = stage_forward(X, prm, N, p0, TP, net, s, myws, buf0, buf1,
-                               wst, &head_issued);
+    float* cur = stage_forward<FL>(X, prm, N, p0, TP, net, s, myws, buf0,
+                                   buf1, wst, &head_issued);
     float* oth = (cur == buf0) ? buf1 : buf0;
     // the reverse sweep's first staged layer, behind the head and epilogue
     ws_load(oth, myws + (size_t)(L - 2) * R * ld, R, ld, mbar);
     // the head's channels: the table rows of this tile
     float* T = buf2;
-    product_fwd(cur, ld, R, net.w_in[lh], prm + net.offW[lh], net.n_out,
+    product_fwd<FL>(cur, ld, R, net.w_in[lh], prm + net.offW[lh], net.n_out,
                 prm + net.offb[lh], C, T, wst, head_issued);
     epilogue(T, ld, X, w, gw, gX, N, p0, TP, C, net.n_out, net.d, tp, wst,
              mypart + net.P_total, first);
-    reverse_sweep(X, prm, gX, true, mypart, myws, N, p0, TP, first, net, s,
-                  cur, oth, T, wst, mbar, phase);
+    reverse_sweep<FL>(X, prm, gX, true, mypart, myws, N, p0, TP, first, net,
+                      s, cur, oth, T, wst, mbar, phase);
   }
 }
 
 // ------------------------------------------------------------------------
 // C interface.  tape_h: [n_in, n_ops, n_eq, src[MAXTIN], op[MAXTOPS*3],
 // out[MAXEQ]];  cst_h: [MAXTCONST] floats.  out: P_total + 1 floats (the
-// parameter cotangents, then the value).  bf16 != 0 launches the
-// bf16-operand flavor.
+// parameter cotangents, then the value).  flavor: FL_F32 (0), FL_BF16 (1)
+// or FL_TF32 (2); any other value returns cudaErrorInvalidValue.
 
 static Tape unpack_tape(const int* h, const float* cst) {
   Tape t;
@@ -339,15 +339,16 @@ extern "C" int tdq_minimax_limits(int* out) {
   return 0;
 }
 
-template <bool BF>
+template <int FL>
 static int minimax_step(const float* X, const float* w, const float* prm,
                         float* gw, float* gX, float* part, float* ws,
                         float* out, int N, int TP, int G, const Net& net,
                         const Sched& s, const Tape& tp, cudaStream_t st) {
+  constexpr bool BF = FL == FL_BF16;
   const size_t smem = BF ? smem_bytes_bf(5, TP * s.C, net.ld)
                          : smem_bytes(3, TP * s.C, net.ld);
   cudaError_t e = cudaFuncSetAttribute(
-      minimax_step_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      minimax_step_kernel<FL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int n_tiles = (N + TP - 1) / TP;
@@ -359,7 +360,7 @@ static int minimax_step(const float* X, const float* w, const float* prm,
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  minimax_step_kernel<BF><<<G, NTHREADS, smem, st>>>(
+  minimax_step_kernel<FL><<<G, NTHREADS, smem, st>>>(
       X, w, prm, gw, gX, part, ws, N, TP, n_tiles, net, s, tp);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -373,16 +374,24 @@ extern "C" int tdq_minimax_step(const float* X, const float* w,
                                 float* part, float* ws, float* out, int N,
                                 int TP, int G, const int* net_h,
                                 const int* sched_h, const int* tape_h,
-                                const float* cst_h, int bf16, void* stream) {
+                                const float* cst_h, int flavor,
+                                void* stream) {
   const Net net = unpack_net(net_h);
   const Sched s = unpack_sched(sched_h);
   // the SIMT loops take their operands into the weight stage
-  if (bf16 ? !scratch_fits_bf(net, TP) : !layer0_fits(net.d, net.w_out[0], TP))
-    return (int)cudaErrorInvalidValue;
+  const bool fits = flavor == FL_BF16
+                        ? scratch_fits_bf(net, TP)
+                        : (flavor == FL_F32 || flavor == FL_TF32) &&
+                              layer0_fits(net.d, net.w_out[0], TP);
+  if (!fits) return (int)cudaErrorInvalidValue;
   const Tape tp = unpack_tape(tape_h, cst_h);
   cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? minimax_step<true>(X, w, prm, gw, gX, part, ws, out, N, TP, G,
-                                   net, s, tp, st)
-              : minimax_step<false>(X, w, prm, gw, gX, part, ws, out, N, TP,
-                                    G, net, s, tp, st);
+  if (flavor == FL_BF16)
+    return minimax_step<FL_BF16>(X, w, prm, gw, gX, part, ws, out, N, TP, G,
+                                 net, s, tp, st);
+  if (flavor == FL_TF32)
+    return minimax_step<FL_TF32>(X, w, prm, gw, gX, part, ws, out, N, TP, G,
+                                 net, s, tp, st);
+  return minimax_step<FL_F32>(X, w, prm, gw, gX, part, ws, out, N, TP, G,
+                              net, s, tp, st);
 }

@@ -11,9 +11,17 @@
 // of the one shared library carries its own copy and nothing collides at
 // link time.
 //
-// Two flavors, a template parameter BF of the kernels and of the routines
-// they share: BF = false is the float32 flavor above; BF = true is the
-// mixed-precision flavor of the JAX package's
+// Three flavors, a template parameter FL of the kernels and of the routines
+// that depend on it (FL_F32, FL_BF16, FL_TF32 below).  FL_F32 is the
+// float32 flavor above (3xTF32 products, the counterpart of precision
+// HIGHEST and HIGH, and the nearest to a TPU's bf16x3).  FL_TF32 is the
+// single-pass flavor of precision DEFAULT, what XLA gives an f32 DEFAULT
+// product on a GPU: every product (the forward's, dH's and dW's, on the
+// tensor cores and in the SIMT loops alike) takes both operands rounded
+// to TF32 as cvt.rna.tf32.f32 rounds them (split_tf32's hi part) in one
+// pass, with f32 sums; its buffers, stage and sweeps are the float32
+// flavor's, and only the product loops differ, at compile time.  FL_BF16
+// is the mixed-precision flavor of the JAX package's
 // taylor_derivatives(compute_dtype=bfloat16), rounding where its jaxpr
 // rounds and nowhere else.  Every layer's product (layer 0 and the head
 // included) takes its input channels and W rounded to bf16 (to nearest
@@ -75,6 +83,10 @@
 static_assert(KT == BLK_N, "one bf16 stage window serves both products");
 
 typedef __nv_bfloat16 bf16;
+
+// The kernels' flavors (the header note); the C interface's flavor
+// argument takes these values.
+enum : int { FL_F32 = 0, FL_BF16 = 1, FL_TF32 = 2 };
 
 // products at most this many columns wide (the head's n_out), or this deep
 // (the head's dH), stay SIMT loops, one thread per output element: an n8
@@ -219,7 +231,7 @@ static __device__ void ws_wait(uint64_t* mbar, unsigned& phase) {
 // truncates, so one accumulator through all 48 passes of a 128-deep
 // product would drift toward zero): about 2^-20 relative error per product
 // at worst, the counterpart of the JAX package's precision=HIGHEST.
-// Single-pass TF32 is not used.
+// The TF32 flavor takes the hi*hi pass alone (tf32_bits below).
 //
 // A block tile is up to 128 x 128: the 8 warps as 2 rows x 4 columns, each
 // warp up to WFM m16 by WFN n8 fragments.  mma.m16n8k8.tf32 fragments,
@@ -239,6 +251,16 @@ static __device__ __forceinline__ void split_tf32(float x, unsigned& hi,
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (split_tf32's hi), as
+// the tensor core's operand bits, and as an f32
+static __device__ __forceinline__ unsigned tf32_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+static __device__ __forceinline__ float tf32r(float x) {
+  return __uint_as_float(tf32_bits(x));
+}
+
 // x rounded to bf16 (to nearest even, as XLA's convert_element_type),
 // as an f32
 static __device__ __forceinline__ float bf16r(float x) {
@@ -246,16 +268,24 @@ static __device__ __forceinline__ float bf16r(float x) {
                          << 16);
 }
 
-// x as the BF flavor's product operand: rounded to bf16, or as it is (a
-// bf16 value is one already)
-template <bool BF>
+// x as flavor FL's product operand: rounded to bf16 or to TF32, or as it
+// is (a bf16 value is one already)
+template <int FL>
 static __device__ __forceinline__ float opnd(float x) {
-  return BF ? bf16r(x) : x;
+  return FL == FL_BF16 ? bf16r(x) : (FL == FL_TF32 ? tf32r(x) : x);
 }
 
-template <bool BF>
+template <int FL>
 static __device__ __forceinline__ float opnd(bf16 x) {
   return __bfloat162float(x);
+}
+
+// an f32 cotangent as flavor FL's product operand: rounded to TF32 in the
+// TF32 flavor, as it is in the others (the bf16 flavor's backward products
+// take the f32 cotangent against the rounded operand)
+template <int FL>
+static __device__ __forceinline__ float gopnd(float x) {
+  return FL == FL_TF32 ? tf32r(x) : x;
 }
 
 // a value as f32, from f32 or bf16
@@ -374,13 +404,44 @@ static __device__ __forceinline__ void frag_load(const Op& op, int k0,
 // this step's passes run.  The passes run pass by pass across all the
 // warp's fragments: NFM*WFN independent products between dependent ones.
 // (Holding two steps' sums, so that a step's sum is added behind the next
-// step's passes, is faster alone but spills inside K2/K3's body.)
-template <int NFM, bool FULL, class Op>
+// step's passes, is faster alone but spills inside K2/K3's body.)  T1: the
+// TF32 flavor's single pass, hi*hi, into the step's fresh accumulator.
+template <int NFM, bool FULL, bool T1, class Op>
 static __device__ __forceinline__ void mma_steps(float (&acc)[WFM][WFN][4],
                                                  const Op& op, int steps,
                                                  int nfm, int nfn) {
   float x[NFM][4], y[WFN][2];
   frag_load<NFM, FULL>(op, 0, nfm, nfn, x, y);
+  if constexpr (T1) {
+#pragma unroll 1
+    for (int s = 0; s < steps; ++s) {
+      unsigned ah[NFM][4], bh[WFN][2];
+#pragma unroll
+      for (int mf = 0; mf < NFM; ++mf)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) ah[mf][q] = tf32_bits(x[mf][q]);
+#pragma unroll
+      for (int nf = 0; nf < WFN; ++nf) {
+        bh[nf][0] = tf32_bits(y[nf][0]);
+        bh[nf][1] = tf32_bits(y[nf][1]);
+      }
+      if (s + 1 < steps)
+        frag_load<NFM, FULL>(op, 8 * (s + 1), nfm, nfn, x, y);
+      float st[NFM][WFN][4];
+#pragma unroll
+      for (int mf = 0; mf < NFM; ++mf)
+#pragma unroll
+        for (int nf = 0; nf < WFN; ++nf)
+          mma_tf32_first(st[mf][nf], ah[mf], bh[nf]);
+#pragma unroll
+      for (int mf = 0; mf < NFM; ++mf)
+#pragma unroll
+        for (int nf = 0; nf < WFN; ++nf)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mf][nf][q] += st[mf][nf][q];
+    }
+    return;
+  }
 #pragma unroll 1
   for (int s = 0; s < steps; ++s) {
     unsigned ah[NFM][4], al[NFM][4], bh[WFN][2], bl[WFN][2];
@@ -419,13 +480,15 @@ static __device__ __forceinline__ void mma_steps(float (&acc)[WFM][WFN][4],
 
 // The warp's fragments as the tile gives them: whole 4 x 4 or 3 x 4 (the
 // slice's 128- and 96-row tiles) take a loop with no guards.
-template <class Op>
+template <bool T1 = false, class Op>
 static __device__ __forceinline__ void mma_run(float (&acc)[WFM][WFN][4],
                                                const Op& op, int steps,
                                                int nfm, int nfn) {
-  if (nfn == WFN && nfm == 4) mma_steps<4, true>(acc, op, steps, nfm, nfn);
-  else if (nfn == WFN && nfm == 3) mma_steps<3, true>(acc, op, steps, nfm, nfn);
-  else mma_steps<WFM, false>(acc, op, steps, nfm, nfn);
+  if (nfn == WFN && nfm == 4)
+    mma_steps<4, true, T1>(acc, op, steps, nfm, nfn);
+  else if (nfn == WFN && nfm == 3)
+    mma_steps<3, true, T1>(acc, op, steps, nfm, nfn);
+  else mma_steps<WFM, false, T1>(acc, op, steps, nfm, nfn);
 }
 
 static __device__ __forceinline__ int clamp_frags(int v) {
@@ -490,8 +553,8 @@ static __device__ __forceinline__ void stage_load(const float* __restrict__ W,
 // columns K .. pad8(K)-1, which the last k8 step reads against the stage's
 // zero rows, are zeroed first, whatever the buffer held there (a staged
 // slice's pad, a wider layer's values).  The tile's row fragments split
-// between the two warp rows as evenly as they go.
-template <bool COLS>
+// between the two warp rows as evenly as they go.  T1: one TF32 pass.
+template <bool COLS, bool T1 = false>
 static __device__ __forceinline__ void mma_w(float* A, int ld, int R, int K,
                                              const float* __restrict__ W,
                                              int Nn,
@@ -525,11 +588,13 @@ static __device__ __forceinline__ void mma_w(float* A, int ld, int R, int K,
       if (nfm > 0 && nfn > 0) {
         const float* Ap = A + (wm0 + g) * ld + c * KT + 2 * t;
         if constexpr (COLS)
-          mma_run(acc, OpDh(Ap, ld, wst + (wn0 + g) * LDB_COLS + 2 * t),
-                  steps, nfm, nfn);
+          mma_run<T1>(acc,
+                      OpDh(Ap, ld, wst + (wn0 + g) * LDB_COLS + 2 * t),
+                      steps, nfm, nfn);
         else
-          mma_run(acc, OpFwd(Ap, ld, wst + 2 * t * LDB_ROWS + wn0 + g),
-                  steps, nfm, nfn);
+          mma_run<T1>(acc,
+                      OpFwd(Ap, ld, wst + 2 * t * LDB_ROWS + wn0 + g),
+                      steps, nfm, nfn);
       }
       if (c + 1 < nK || n0 + BLK_N < Nn)
         __syncthreads();  // every warp is done with the stage
@@ -565,17 +630,19 @@ static __device__ __forceinline__ void mma_w(float* A, int ld, int R, int K,
 
 // The two weight products that go through mma_w (named apart so a
 // profile can tell them apart): the forward H W (+ bias), and dH = dP W^T.
+template <bool T1 = false>
 static __device__ void mma_w_rows(float* A, int ld, int R, int K,
                                   const float* __restrict__ W, int Nn,
                                   const float* __restrict__ bias, int C,
                                   float* out, float* wst, bool issued) {
-  mma_w<false>(A, ld, R, K, W, Nn, bias, C, out, wst, issued);
+  mma_w<false, T1>(A, ld, R, K, W, Nn, bias, C, out, wst, issued);
 }
 
+template <bool T1 = false>
 static __device__ void mma_w_cols(float* dP, int ld, int R, int K,
                                   const float* __restrict__ W, int Ni,
                                   float* out, float* wst, bool issued) {
-  mma_w<true>(dP, ld, R, K, W, Ni, nullptr, 1, out, wst, issued);
+  mma_w<true, T1>(dP, ld, R, K, W, Ni, nullptr, 1, out, wst, issued);
 }
 
 // bmma_dw's slot update, the same code as mma_dw's (which keeps it inline:
@@ -651,7 +718,8 @@ static __device__ __forceinline__ void slot_update(
 // part[i*Nn + n] (+)= sum_{r<R} H[r][i] * E[r][n], i < Ni, n < Nn: the
 // weight cotangent of one tile, both operands wavefront buffers (the pad
 // rows R..pad16(R)-1 are zero), into the block's global partial slot
-// (assigned on the block's first tile, else added to).
+// (assigned on the block's first tile, else added to).  T1: one TF32 pass.
+template <bool T1 = false>
 static __device__ void mma_dw(const float* H, const float* E, int ld, int R,
                               int Ni, int Nn, float* __restrict__ part,
                               bool first) {
@@ -678,9 +746,10 @@ static __device__ void mma_dw(const float* H, const float* E, int ld, int R,
       }
       float acc[WFM][WFN][4];
       zero_acc(acc);
-      mma_run(acc, OpDw{H + t * ld + i0 + wm0 + g, E + t * ld + n0 + wn0 + g,
-                        ld},
-              steps, nfm, nfn);
+      mma_run<T1>(acc,
+                  OpDw{H + t * ld + i0 + wm0 + g, E + t * ld + n0 + wn0 + g,
+                       ld},
+                  steps, nfm, nfn);
       // into the slot, an m16 row of fragments at a time: its eight old
       // column pairs (c0,c1 and c2,c3) read together before any is added
       // (one round trip each; where the warp's block lies whole inside the
@@ -1270,35 +1339,35 @@ static __device__ void split_pieces(const float* G, int ld, int R, int w,
 // element, each summing k in order.
 
 // Copy n floats from global src into shared dst, every thread a share (the
-// caller's barrier makes them every warp's); BF: rounded to bf16, as a
-// product's operand.
-template <bool BF = false>
+// caller's barrier makes them every warp's); rounded as flavor FL's
+// product operand (opnd).
+template <int FL = FL_F32>
 static __device__ __forceinline__ void to_shared(float* dst,
                                                  const float* __restrict__ src,
                                                  int n) {
-  for (int e = threadIdx.x; e < n; e += NTHREADS) dst[e] = opnd<BF>(src[e]);
+  for (int e = threadIdx.x; e < n; e += NTHREADS) dst[e] = opnd<FL>(src[e]);
 }
 
 // out[r][n] = sum_k A[r][k] * W[k*Nn + n] (+ bias[n] on primal rows); W
 // and the bias are read from shared scratch (the weight stage), where one
-// pass of loads puts them, not each from global memory in the sums.  BF:
-// A and W rounded to bf16 (their products are exact in f32; A may be a
-// bf16 plane, rounded already).
-template <bool BF, class TA>
+// pass of loads puts them, not each from global memory in the sums.  A and
+// W rounded as flavor FL's operands (opnd: to bf16 or TF32, whose
+// products are exact in f32; A may be a bf16 plane, rounded already).
+template <int FL, class TA>
 static __device__ void narrow_fwd(const TA* A, int ld, int R, int K,
                                   const float* __restrict__ W, int Nn,
                                   const float* __restrict__ bias, int C,
                                   float* out, float* scratch) {
   float* sW = scratch;
   float* sb = scratch + K * Nn;
-  to_shared<BF>(sW, W, K * Nn);
+  to_shared<FL>(sW, W, K * Nn);
   if (bias != nullptr) to_shared(sb, bias, Nn);
   __syncthreads();
   for (int e = threadIdx.x; e < R * Nn; e += NTHREADS) {
     const int r = e / Nn, n = e % Nn;
     float acc = 0.f;
     for (int k = 0; k < K; ++k)
-      acc = fmaf(opnd<BF>(A[r * ld + k]), sW[k * Nn + n], acc);
+      acc = fmaf(opnd<FL>(A[r * ld + k]), sW[k * Nn + n], acc);
     if (bias != nullptr && r % C == 0) acc += sb[n];
     out[r * ld + n] = acc;
   }
@@ -1306,30 +1375,30 @@ static __device__ void narrow_fwd(const TA* A, int ld, int R, int K,
 }
 
 // out[r][i] = sum_{n<K} dP[r][n] * W[i*K + n]  (dH through a narrow layer;
-// W from shared scratch).  BF: W rounded to bf16, the sum rounded too (out
-// may be a bf16 plane).
-template <bool BF, class TO>
+// W from shared scratch).  BF16: W rounded to bf16, the sum rounded too
+// (out may be a bf16 plane); TF32: W and dP rounded to TF32.
+template <int FL, class TO>
 static __device__ void narrow_dh(const float* dP, int ld, int R, int K,
                                  const float* __restrict__ W, int Ni,
                                  TO* out, float* scratch) {
-  to_shared<BF>(scratch, W, Ni * K);
+  to_shared<FL>(scratch, W, Ni * K);
   __syncthreads();
   for (int e = threadIdx.x; e < R * Ni; e += NTHREADS) {
     const int r = e / Ni, i = e % Ni;
     float acc = 0.f;
     for (int n = 0; n < K; ++n)
-      acc = fmaf(dP[r * ld + n], scratch[i * K + n], acc);
+      acc = fmaf(gopnd<FL>(dP[r * ld + n]), scratch[i * K + n], acc);
     if constexpr (std::is_same_v<TO, bf16>)
       out[r * ld + i] = __float2bfloat16_rn(acc);
     else
-      out[r * ld + i] = BF ? bf16r(acc) : acc;
+      out[r * ld + i] = FL == FL_BF16 ? bf16r(acc) : acc;
   }
   __syncthreads();
 }
 
-// part[i*Nn + n] (+)= sum_r A[r][i] * E[r][n]  (dW of a narrow layer; BF:
-// A rounded to bf16, or a bf16 plane)
-template <bool BF, class TA>
+// part[i*Nn + n] (+)= sum_r A[r][i] * E[r][n]  (dW of a narrow layer;
+// BF16: A rounded to bf16, or a bf16 plane; TF32: A and E rounded to TF32)
+template <int FL, class TA>
 static __device__ void narrow_dw(const TA* A, int ld, int Ni,
                                  const float* E, int Nn, int R,
                                  float* __restrict__ part, bool first) {
@@ -1337,7 +1406,7 @@ static __device__ void narrow_dw(const TA* A, int ld, int Ni,
     const int i = e / Nn, n = e % Nn;
     float acc = 0.f;
     for (int r = 0; r < R; ++r)
-      acc = fmaf(opnd<BF>(A[r * ld + i]), E[r * ld + n], acc);
+      acc = fmaf(opnd<FL>(A[r * ld + i]), gopnd<FL>(E[r * ld + n]), acc);
     float* dst = part + (size_t)i * Nn + n;
     *dst = first ? acc : *dst + acc;
   }
@@ -1367,26 +1436,30 @@ static __device__ __forceinline__ bool prefetch_dh(
   return true;
 }
 
+// FL: the f32 layout's flavors, FL_F32 (3xTF32) or FL_TF32 (one pass).
+template <int FL = FL_F32>
 static __device__ __forceinline__ void product_fwd(
     float* A, int ld, int R, int K, const float* __restrict__ W, int Nn,
     const float* __restrict__ bias, int C, float* out, float* wst,
     bool issued) {
-  if (Nn <= NARROW_N) narrow_fwd<false>(A, ld, R, K, W, Nn, bias, C, out, wst);
-  else mma_w_rows(A, ld, R, K, W, Nn, bias, C, out, wst, issued);
+  if (Nn <= NARROW_N) narrow_fwd<FL>(A, ld, R, K, W, Nn, bias, C, out, wst);
+  else mma_w_rows<FL == FL_TF32>(A, ld, R, K, W, Nn, bias, C, out, wst, issued);
 }
 
+template <int FL = FL_F32>
 static __device__ __forceinline__ void product_dh(
     float* dP, int ld, int R, int K, const float* __restrict__ W,
     int Ni, float* out, float* wst, bool issued) {
-  if (K <= NARROW_N) narrow_dh<false>(dP, ld, R, K, W, Ni, out, wst);
-  else mma_w_cols(dP, ld, R, K, W, Ni, out, wst, issued);
+  if (K <= NARROW_N) narrow_dh<FL>(dP, ld, R, K, W, Ni, out, wst);
+  else mma_w_cols<FL == FL_TF32>(dP, ld, R, K, W, Ni, out, wst, issued);
 }
 
+template <int FL = FL_F32>
 static __device__ __forceinline__ void product_dw(
     const float* H, const float* E, int ld, int R, int Ni, int Nn,
     float* __restrict__ part, bool first) {
-  if (Nn <= NARROW_N) narrow_dw<false>(H, ld, Ni, E, Nn, R, part, first);
-  else mma_dw(H, E, ld, R, Ni, Nn, part, first);
+  if (Nn <= NARROW_N) narrow_dw<FL>(H, ld, Ni, E, Nn, R, part, first);
+  else mma_dw<FL == FL_TF32>(H, E, ld, R, Ni, Nn, part, first);
 }
 
 // The bf16 flavor's forward product: A the bf16 stack, W through the bf16
@@ -1429,9 +1502,10 @@ static __device__ void zero_buffers(float* sm, int n) {
 // first-order channel along direction k is its seed e_k @ W0 = W0[k][:];
 // higher orders start at zero.  W0, b0 and the tile's rows of X (zero past
 // N) are read from shared scratch (the weight stage, free here; the
-// kernels' C interface checks they fit).  BF: W0 and X rounded to bf16 (the
-// seeds are then rows of the rounded W0), b0 not.
-template <bool BF>
+// kernels' C interface checks they fit).  W0 and X rounded as flavor FL's
+// operands (to bf16 or TF32; the seeds are then rows of the rounded W0),
+// b0 not.
+template <int FL>
 static __device__ void layer0_fwd(const float* __restrict__ X,
                                   const float* __restrict__ prm, int N,
                                   int p0, int TP, const Net& net,
@@ -1440,10 +1514,10 @@ static __device__ void layer0_fwd(const float* __restrict__ X,
   float* sW = scratch;
   float* sb = sW + d * w;
   float* sx = sb + w;
-  to_shared<BF>(sW, prm + net.offW[0], d * w);
+  to_shared<FL>(sW, prm + net.offW[0], d * w);
   to_shared(sb, prm + net.offb[0], w);
   for (int e = threadIdx.x; e < TP * d; e += NTHREADS)
-    sx[e] = (p0 + e / d < N) ? opnd<BF>(X[(size_t)p0 * d + e]) : 0.f;
+    sx[e] = (p0 + e / d < N) ? opnd<FL>(X[(size_t)p0 * d + e]) : 0.f;
   __syncthreads();
   for (int e = threadIdx.x; e < TP * w; e += NTHREADS) {
     const int p = e / w, j = e % w;
@@ -1723,7 +1797,8 @@ static __host__ __device__ __forceinline__ int ws_slices(int L) {
 // post-activations.  Each layer's first weight chunk is issued before the
 // activation pass that precedes its product.  head_issued != nullptr: the
 // head's first chunk too (K3's head product); *head_issued says whether it
-// was.
+// was.  FL: FL_F32 or FL_TF32 (the f32 layout's flavors).
+template <int FL = FL_F32>
 static __device__ float* stage_forward(const float* __restrict__ X,
                                        const float* __restrict__ prm, int N,
                                        int p0, int TP, const Net& net,
@@ -1734,13 +1809,13 @@ static __device__ float* stage_forward(const float* __restrict__ X,
   const size_t slice = (size_t)R * ld;
   float* cur = buf0;
   float* oth = buf1;
-  layer0_fwd<false>(X, prm, N, p0, TP, net, s, cur, wst);
+  layer0_fwd<FL>(X, prm, N, p0, TP, net, s, cur, wst);
   for (int l = 1; l < lh; ++l) {
     const bool issued = prefetch_fwd(prm + net.offW[l], net.w_in[l],
                                      net.w_out[l], wst);
     act_fwd(cur, ld, TP, net.w_out[l - 1], s, myws + (l - 1) * slice,
             myws + (lh + l - 1) * slice);
-    product_fwd(cur, ld, R, net.w_in[l], prm + net.offW[l],
+    product_fwd<FL>(cur, ld, R, net.w_in[l], prm + net.offW[l],
                     net.w_out[l], prm + net.offb[l], C, oth, wst, issued);
     float* t = cur; cur = oth; oth = t;
   }
@@ -1756,9 +1831,10 @@ static __device__ float* stage_forward(const float* __restrict__ X,
 // dG: its input channels are X (the primal) and constant one-hot seeds, so
 // dW_0 sums X against the primal rows and the seeds' rows, and dX =
 // dG_primal W_0^T for points < N (dX = acc, or += acc when add_dX).  W0 and
-// the tile's rows of X come from shared scratch, as in layer0_fwd (BF:
-// rounded to bf16, and acc rounded before it reaches dX).
-template <bool BF>
+// the tile's rows of X come from shared scratch, as in layer0_fwd (BF16:
+// rounded to bf16, and acc rounded before it reaches dX; TF32: rounded to
+// TF32, and dG too where it is a product's operand).
+template <int FL>
 static __device__ void layer0_bwd(const float* __restrict__ X,
                                   const float* __restrict__ prm,
                                   float* __restrict__ dX, bool add_dX,
@@ -1769,19 +1845,19 @@ static __device__ void layer0_bwd(const float* __restrict__ X,
   const int C = s.C, ld = net.ld, d = net.d, w = net.w_out[0];
   float* sW = scratch;
   float* sx = sW + d * w;
-  to_shared<BF>(sW, prm + net.offW[0], d * w);
+  to_shared<FL>(sW, prm + net.offW[0], d * w);
   for (int e = threadIdx.x; e < TP * d; e += NTHREADS)
-    sx[e] = (p0 + e / d < N) ? opnd<BF>(X[(size_t)p0 * d + e]) : 0.f;
+    sx[e] = (p0 + e / d < N) ? opnd<FL>(X[(size_t)p0 * d + e]) : 0.f;
   __syncthreads();
   float* pW = mypart + net.offW[0];
   for (int e = threadIdx.x; e < d * w; e += NTHREADS) {
     int k = e / w, j = e % w;
     float acc = 0.f;
     for (int p = 0; p < TP; ++p)
-      acc = fmaf(sx[p * d + k], dG[(p * C) * ld + j], acc);
+      acc = fmaf(sx[p * d + k], gopnd<FL>(dG[(p * C) * ld + j]), acc);
     for (int c = 1; c < C; ++c) {
       if (s.order[c] != 1 || s.idx[c][0] != k) continue;
-      for (int p = 0; p < TP; ++p) acc += dG[(p * C + c) * ld + j];
+      for (int p = 0; p < TP; ++p) acc += gopnd<FL>(dG[(p * C + c) * ld + j]);
     }
     pW[e] = first ? acc : pW[e] + acc;
   }
@@ -1790,8 +1866,8 @@ static __device__ void layer0_bwd(const float* __restrict__ X,
     if (gp >= N) continue;
     float acc = 0.f;
     for (int j = 0; j < w; ++j)
-      acc = fmaf(dG[(p * C) * ld + j], sW[k * w + j], acc);
-    if (BF) acc = bf16r(acc);
+      acc = fmaf(gopnd<FL>(dG[(p * C) * ld + j]), sW[k * w + j], acc);
+    if (FL == FL_BF16) acc = bf16r(acc);
     float* dst = dX + (size_t)gp * d + k;
     *dst = add_dX ? *dst + acc : acc;
   }
@@ -1810,7 +1886,8 @@ static __device__ void layer0_bwd(const float* __restrict__ X,
 // Per hidden layer l the buffers keep their roles: Pb receives P_l (the
 // staged pre-activations), dH holds the cotangent of H_l, dG receives dP_l.
 // Pb then receives the staged layer input H_l for dW_l, and P_{l-1} behind
-// the dH product, for layer l-1's act_vjp.
+// the dH product, for layer l-1's act_vjp.  FL: FL_F32 or FL_TF32.
+template <int FL = FL_F32>
 static __device__ void reverse_sweep(const float* __restrict__ X,
                                      const float* __restrict__ prm,
                                      float* __restrict__ dX, bool add_dX,
@@ -1822,10 +1899,10 @@ static __device__ void reverse_sweep(const float* __restrict__ X,
                                      unsigned& phase) {
   const int C = s.C, R = TP * C, ld = net.ld, L = net.L, n_out = net.n_out;
   const int lh = L - 1;
-  product_dw(cur, dP, ld, R, net.w_in[lh], n_out, mypart + net.offW[lh],
+  product_dw<FL>(cur, dP, ld, R, net.w_in[lh], n_out, mypart + net.offW[lh],
                  first);
   bias_accum(dP, ld, n_out, TP, C, mypart + net.offb[lh], first);
-  product_dh(dP, ld, R, n_out, prm + net.offW[lh], net.w_in[lh], cur,
+  product_dh<FL>(dP, ld, R, n_out, prm + net.offW[lh], net.w_in[lh], cur,
                  wst, false);
 
   float* Pb = oth;
@@ -1842,15 +1919,15 @@ static __device__ void reverse_sweep(const float* __restrict__ X,
       // the layer input H_l, staged by stage_forward
       ws_load(Pb, myws + (size_t)(L - 2 + l) * R * ld, R, ld, mbar);
       ws_wait(mbar, phase);
-      product_dw(Pb, dG, ld, R, net.w_in[l], w, mypart + net.offW[l],
+      product_dw<FL>(Pb, dG, ld, R, net.w_in[l], w, mypart + net.offW[l],
                      first);
       bias_accum(dG, ld, w, TP, C, mypart + net.offb[l], first);
       // P_{l-1} again, for the next act_vjp, behind the dH product
       ws_load(Pb, Pprev, R, ld, mbar);
-      product_dh(dG, ld, R, w, prm + net.offW[l], net.w_in[l], dH, wst,
+      product_dh<FL>(dG, ld, R, w, prm + net.offW[l], net.w_in[l], dH, wst,
                      issued);
     } else {
-      layer0_bwd<false>(X, prm, dX, add_dX, mypart, N, p0, TP, first, net, s,
+      layer0_bwd<FL>(X, prm, dX, add_dX, mypart, N, p0, TP, first, net, s,
                      dG, wst);
       bias_accum(dG, ld, w, TP, C, mypart + net.offb[0], first);
     }

@@ -5,8 +5,11 @@
 // Replaces the JAX package's ops/pallas_taylor.py::fwd_kernel (pallas_call
 // at :154), as taylor_table.cu's taylor_fwd_kernel does for the shapes this
 // route does not take (taylor_table.cu's header note says what the table
-// is).  Both flavors: BF = false (f32) and BF = true (the bf16 operands of
-// compute_dtype=bfloat16, rounded where taylor_common.cuh says).
+// is).  The three flavors FL of taylor_common.cuh: FL_F32 (3xTF32),
+// FL_BF16 (the bf16 operands of compute_dtype=bfloat16) and FL_TF32 (one
+// TF32 pass on the operands' cvt.rna hi parts: the hi weight plane alone,
+// half the f32 flavor's weight bytes), each rounding where
+// taylor_common.cuh says.
 //
 // What bounds it.  The channel products of the hidden layers: on the AC
 // slice (N = 50,000, 2-128x4-1, C = 4) 19.7 GFLOP, 0.119 ms at the TF32
@@ -116,13 +119,15 @@ static __host__ __device__ __forceinline__ int imax(int a, int b) {
   return a > b ? a : b;
 }
 
-// The route's plan for a net, schedule and N on a card with smem_optin
-// bytes of shared memory a block and n_sm SMs; 0 where the shape is the
-// other route's.  Shared memory: the S stages, then the small operands
+// The route's plan for a net, schedule, flavor and N on a card with
+// smem_optin bytes of shared memory a block and n_sm SMs; 0 where the shape
+// is the other route's.  The TF32 flavor takes the f32 flavor's tiles and
+// chunks with the hi plane only.  Shared memory: the S stages, then the small operands
 // (W0 and the biases of layers 0 .. L-2 as NP-wide rows, the head's W and
 // bias), then the full and empty mbarriers.
-static inline int wg_plan(const Net& net, const Sched& s, int bf16,
+static inline int wg_plan(const Net& net, const Sched& s, int flavor,
                           int smem_optin, int n_sm, int N, WgPlan* p) {
+  const bool bf16 = flavor == FL_BF16;
   const int L = net.L, d = net.d, n_out = net.n_out, C = s.C;
   int width = 0;
   for (int l = 0; l + 1 < L; ++l) width = imax(width, net.w_out[l]);
@@ -133,7 +138,7 @@ static inline int wg_plan(const Net& net, const Sched& s, int bf16,
   const int NP = width <= 64 ? 64 : 128;
   const int KC = bf16 ? NP : 64;
   const int P = (L - 2) * (NP / KC);
-  const int stage = NP * KC * (bf16 ? 2 : 8);
+  const int stage = NP * KC * (bf16 ? 2 : (flavor == FL_TF32 ? 4 : 8));
   const int misc =
       (4 * (NP * (d + L - 1 + n_out) + WG_MAXOUT) + 15) / 16 * 16;
   const int bars = 2 * WG_MAXS * 8;
@@ -142,7 +147,7 @@ static inline int wg_plan(const Net& net, const Sched& s, int bf16,
     S = imin(imin(P, (smem_optin - misc - bars) / stage), WG_MAXS);
     if (S < P && S < 2) return 0;
   }
-  const int tile = wg_tile(bf16 != 0);
+  const int tile = wg_tile(bf16);
   const int n_tiles = (int)(((long long)N * CP + tile - 1) / tile);
   *p = WgPlan{NP, CP, KC, S, P, P <= S ? 1 : 0, stage, n_tiles,
               imin(n_tiles, n_sm), S * stage + misc + bars};
@@ -170,16 +175,17 @@ static __device__ __forceinline__ int acc_col(int i, int t) {
 // its channel of order ord; -1 a pad channel): the primal X W0 + b0 (the k
 // terms in order, as taylor_common.cuh's layer0_fwd), a first-order
 // channel's seed row W0[dir], zero for higher orders and pad channels.
-// BF: X and W0 rounded to bf16 (sW0 holds them so), b0 not.
-template <bool BF, int NP>
+// FL: X and W0 rounded as the flavor's operands (sW0 holds them so), b0
+// not.
+template <int FL, int NP>
 static __device__ __forceinline__ void k1w_layer0(
     const float* __restrict__ X, int N, int d, int gp0, int gp1, int ord,
     int dir, int t, const float* sW0, const float* sB, float (&acc)[NP / 2]) {
 #pragma unroll
   for (int i = 0; i < NP / 2; ++i) acc[i] = 0.f;
   for (int k = 0; k < d; ++k) {
-    const float x0 = gp0 < N ? opnd<BF>(X[(size_t)gp0 * d + k]) : 0.f;
-    const float x1 = gp1 < N ? opnd<BF>(X[(size_t)gp1 * d + k]) : 0.f;
+    const float x0 = gp0 < N ? opnd<FL>(X[(size_t)gp0 * d + k]) : 0.f;
+    const float x1 = gp1 < N ? opnd<FL>(X[(size_t)gp1 * d + k]) : 0.f;
     const float* w = sW0 + k * NP;
 #pragma unroll
     for (int i = 0; i < NP / 2; ++i)
@@ -234,9 +240,10 @@ static __device__ __forceinline__ float k1w_pick(const float* y, int k) {
 // primal's z, and the transpose back.  A channel's order is the same in
 // every lane, so the branch on it is taken once per channel, outside the
 // loops over groups, and the groups' work interleaves freely.
-template <bool BF, int NP, int CP>
+template <int FL, int NP, int CP>
 static __device__ __forceinline__ void k1w_act(float (&acc)[NP / 2], int c,
                                                const Sched& s) {
+  constexpr bool BF = FL == FL_BF16;
   // groups of CP registers, taken GB at a time: GB items per lane in
   // flight, their chains held in 3 * GB registers (16 at most in the f32
   // flavor's 232-register consumers, 8 in the bf16 flavor's 160)
@@ -325,12 +332,12 @@ static __device__ __forceinline__ void k1w_act(float (&acc)[NP / 2], int c,
 // accumulator layout) becomes H W_l + b_l (the bias on primal rows), chunk
 // by chunk through the stages.  chunk counts the block's chunks taken, the
 // ring's position.
-template <bool BF, int NP>
+template <int FL, int NP>
 static __device__ __forceinline__ void k1w_products(
     float (&acc)[NP / 2], int l, int c, int t, int lane, const float* sB,
     char* stages, uint64_t* full, uint64_t* empty, int resident, int S,
     int stage_bytes, long long& chunk) {
-  constexpr int KC = BF ? NP : 64, NCH = NP / KC;
+  constexpr int KC = FL == FL_BF16 ? NP : 64, NCH = NP / KC;
   float nacc[NP / 2];
 #pragma unroll
   for (int h = 0; h < NCH; ++h) {
@@ -341,7 +348,7 @@ static __device__ __forceinline__ void k1w_products(
       parity = (unsigned)((chunk / S) & 1);
     }
     mbar_wait(&full[st], parity);
-    wg_chunk<BF, NP, KC>(nacc, acc, h,
+    wg_chunk<FL, NP, KC>(nacc, acc, h,
                          smem_addr(stages + (size_t)st * stage_bytes),
                          h == 0);
     if (!resident) {
@@ -359,15 +366,16 @@ static __device__ __forceinline__ void k1w_products(
 // The head: each of the n_out columns a dot product over the lane's
 // columns, summed over the row's 4 lanes (every lane then holds the same
 // sum), plus the bias on primal rows; lane o % 4 stores column o of its
-// two rows into table[c][point][o].  BF: the post-activations rounded to
-// bf16 first (sWh is rounded), sums in f32.
-template <bool BF, int NP>
+// two rows into table[c][point][o].  FL_BF16 / FL_TF32: the
+// post-activations rounded to the flavor's operand first (sWh is rounded),
+// sums in f32.
+template <int FL, int NP>
 static __device__ __forceinline__ void k1w_head(
     float (&acc)[NP / 2], float* __restrict__ table, int N, int n_out, int C,
     int c, int t, int gp0, int gp1, const float* sWh, const float* sBh) {
-  if constexpr (BF) {
+  if constexpr (FL != FL_F32) {
 #pragma unroll
-    for (int i = 0; i < NP / 2; ++i) acc[i] = bf16r(acc[i]);
+    for (int i = 0; i < NP / 2; ++i) acc[i] = opnd<FL>(acc[i]);
   }
   for (int o = 0; o < n_out; ++o) {
     float s0 = 0.f, s1 = 0.f;
@@ -397,13 +405,14 @@ static __device__ __forceinline__ void k1w_head(
 
 // The route's kernel: the consumer warpgroups first, then the producer
 // warpgroup (its first thread issues the copies).
-template <bool BF, int NP, int CP>
-__global__ void __launch_bounds__(wg_threads(BF), 1)
+template <int FL, int NP, int CP>
+__global__ void __launch_bounds__(wg_threads(FL == FL_BF16), 1)
 taylor_fwd_wg_kernel(const float* __restrict__ X,
                      const float* __restrict__ prm,
                      const char* __restrict__ wprep,
                      float* __restrict__ table, int N, Net net, Sched s,
                      WgPlan wp) {
+  constexpr bool BF = FL == FL_BF16;
   extern __shared__ __align__(128) char smw[];
   constexpr int NC = wg_consumers(BF), NT = wg_threads(BF);
   const int d = net.d, L = net.L, n_out = net.n_out;
@@ -426,14 +435,14 @@ taylor_fwd_wg_kernel(const float* __restrict__ X,
   const int w0 = net.w_out[0], wl = net.w_in[L - 1];
   for (int e = threadIdx.x; e < d * NP; e += NT) {
     const int k = e / NP, n = e % NP;
-    sW0[e] = n < w0 ? opnd<BF>(prm[net.offW[0] + k * w0 + n]) : 0.f;
+    sW0[e] = n < w0 ? opnd<FL>(prm[net.offW[0] + k * w0 + n]) : 0.f;
   }
   for (int e = threadIdx.x; e < (L - 1) * NP; e += NT) {
     const int l = e / NP, n = e % NP;
     sB[e] = n < net.w_out[l] ? prm[net.offb[l] + n] : 0.f;
   }
   for (int e = threadIdx.x; e < NP * n_out; e += NT)
-    sWh[e] = e / n_out < wl ? opnd<BF>(prm[net.offW[L - 1] + e]) : 0.f;
+    sWh[e] = e / n_out < wl ? opnd<FL>(prm[net.offW[L - 1] + e]) : 0.f;
   for (int o = threadIdx.x; o < n_out; o += NT)
     sBh[o] = prm[net.offb[L - 1] + o];
   __syncthreads();
@@ -475,14 +484,14 @@ taylor_fwd_wg_kernel(const float* __restrict__ X,
     for (int tile = blockIdx.x; tile < wp.n_tiles; tile += gridDim.x) {
       const int gp0 = tile * ppt + pl0, gp1 = tile * ppt + pl1;
       float acc[NP / 2];
-      k1w_layer0<BF, NP>(X, N, d, gp0, gp1, ord, dir, t, sW0, sB, acc);
+      k1w_layer0<FL, NP>(X, N, d, gp0, gp1, ord, dir, t, sW0, sB, acc);
       for (int l = 1; l < L; ++l) {
-        k1w_act<BF, NP, CP>(acc, c, s);
+        k1w_act<FL, NP, CP>(acc, c, s);
         if (l + 1 < L)
-          k1w_products<BF, NP>(acc, l, c, t, lane, sB, stages, full, empty,
+          k1w_products<FL, NP>(acc, l, c, t, lane, sB, stages, full, empty,
                                wp.resident, wp.S, wp.stage_bytes, chunk);
         else
-          k1w_head<BF, NP>(acc, table, N, n_out, C, c, t, gp0, gp1, sWh,
+          k1w_head<FL, NP>(acc, table, N, n_out, C, c, t, gp0, gp1, sWh,
                            sBh);
       }
     }
@@ -493,9 +502,9 @@ taylor_fwd_wg_kernel(const float* __restrict__ X,
 // ops/cuda_taylor.py::wg_prepare): chunk q holds layer 1 + q / (NP/KC)'s k
 // rows (q % (NP/KC)) * KC .. as W^T, zero past the layer's shape, in
 // core-matrix order (wg_cm_offset) and, for tf32, the k-slot order
-// (wg_kslot); f32: the hi plane then the lo plane of split_tf32; bf16: W
-// rounded to nearest even.
-template <bool BF>
+// (wg_kslot); f32: the hi plane then the lo plane of split_tf32; tf32: the
+// hi plane alone; bf16: W rounded to nearest even.
+template <int FL>
 static __global__ void prep_wg_weights(const float* __restrict__ prm,
                                        char* __restrict__ out, Net net,
                                        WgPlan wp) {
@@ -505,14 +514,17 @@ static __global__ void prep_wg_weights(const float* __restrict__ prm,
        e += gridDim.x * blockDim.x) {
     const int q = e / per, r = e % per, n = r / KC, kq = r % KC;
     const int l = 1 + q / nch;
-    const int k = (q % nch) * KC + (BF ? kq : 8 * (kq / 8) + wg_kslot(kq % 8));
+    const int k = (q % nch) * KC +
+                  (FL == FL_BF16 ? kq : 8 * (kq / 8) + wg_kslot(kq % 8));
     const float w = (k < net.w_in[l] && n < net.w_out[l])
                         ? prm[net.offW[l] + k * net.w_out[l] + n]
                         : 0.f;
     char* chunk = out + (size_t)q * wp.stage_bytes;
-    if constexpr (BF) {
+    if constexpr (FL == FL_BF16) {
       reinterpret_cast<bf16*>(chunk)[wg_cm_offset(n, kq, KC, 8)] =
           __float2bfloat16_rn(w);
+    } else if constexpr (FL == FL_TF32) {
+      reinterpret_cast<float*>(chunk)[wg_cm_offset(n, kq, KC, 4)] = tf32r(w);
     } else {
       unsigned hi, lo;
       split_tf32(w, hi, lo);
@@ -524,20 +536,21 @@ static __global__ void prep_wg_weights(const float* __restrict__ prm,
   }
 }
 
-template <bool BF, int NP, int CP>
+template <int FL, int NP, int CP>
 static int launch_wg(const float* X, const float* prm, char* wprep,
                      float* table, int N, const Net& net, const Sched& s,
                      const WgPlan& wp, cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
-      taylor_fwd_wg_kernel<BF, NP, CP>,
+      taylor_fwd_wg_kernel<FL, NP, CP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, wp.smem);
   if (e != cudaSuccess) return (int)e;
   if (wp.P > 0) {
-    prep_wg_weights<BF><<<64, 256, 0, st>>>(prm, wprep, net, wp);
+    prep_wg_weights<FL><<<64, 256, 0, st>>>(prm, wprep, net, wp);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  taylor_fwd_wg_kernel<BF, NP, CP><<<wp.grid, wg_threads(BF), wp.smem, st>>>(
+  taylor_fwd_wg_kernel<FL, NP, CP>
+      <<<wp.grid, wg_threads(FL == FL_BF16), wp.smem, st>>>(
       X, prm, wprep, table, N, net, s, wp);
   return (int)cudaGetLastError();
 }
@@ -545,15 +558,15 @@ static int launch_wg(const float* X, const float* prm, char* wprep,
 // One flavor's launch at one NP, at its plan's CP (taylor_fwd_wg_*.cu
 // define the four; cudaErrorInvalidValue for a channel count the route has
 // no instance of).
-#define K1WG_INSTANCES(name, BF, NP)                                        \
+#define K1WG_INSTANCES(name, FL, NP)                                        \
   int name(const float* X, const float* prm, char* w, float* table, int N, \
            const Net& net, const Sched& s, const WgPlan& wp,                \
            cudaStream_t st) {                                               \
     switch (wp.CP) {                                                        \
-      case 1: return launch_wg<BF, NP, 1>(X, prm, w, table, N, net, s, wp, st); \
-      case 2: return launch_wg<BF, NP, 2>(X, prm, w, table, N, net, s, wp, st); \
-      case 4: return launch_wg<BF, NP, 4>(X, prm, w, table, N, net, s, wp, st); \
-      case 8: return launch_wg<BF, NP, 8>(X, prm, w, table, N, net, s, wp, st); \
+      case 1: return launch_wg<FL, NP, 1>(X, prm, w, table, N, net, s, wp, st); \
+      case 2: return launch_wg<FL, NP, 2>(X, prm, w, table, N, net, s, wp, st); \
+      case 4: return launch_wg<FL, NP, 4>(X, prm, w, table, N, net, s, wp, st); \
+      case 8: return launch_wg<FL, NP, 8>(X, prm, w, table, N, net, s, wp, st); \
       default: return (int)cudaErrorInvalidValue;                           \
     }                                                                       \
   }
@@ -565,3 +578,5 @@ K1WG_DECLARE(k1wg_f32_64)
 K1WG_DECLARE(k1wg_f32_128)
 K1WG_DECLARE(k1wg_bf16_64)
 K1WG_DECLARE(k1wg_bf16_128)
+K1WG_DECLARE(k1wg_tf32_64)
+K1WG_DECLARE(k1wg_tf32_128)

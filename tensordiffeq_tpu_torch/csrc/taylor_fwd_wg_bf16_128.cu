@@ -2,4 +2,4 @@
 // (taylor_fwd_wg.cuh).
 #include "taylor_fwd_wg.cuh"
 
-K1WG_INSTANCES(k1wg_bf16_128, true, 128)
+K1WG_INSTANCES(k1wg_bf16_128, FL_BF16, 128)

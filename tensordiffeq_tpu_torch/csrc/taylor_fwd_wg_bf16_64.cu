@@ -2,4 +2,4 @@
 // (taylor_fwd_wg.cuh).
 #include "taylor_fwd_wg.cuh"
 
-K1WG_INSTANCES(k1wg_bf16_64, true, 64)
+K1WG_INSTANCES(k1wg_bf16_64, FL_BF16, 64)

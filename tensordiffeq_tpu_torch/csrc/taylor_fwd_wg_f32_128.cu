@@ -2,4 +2,4 @@
 // (taylor_fwd_wg.cuh).
 #include "taylor_fwd_wg.cuh"
 
-K1WG_INSTANCES(k1wg_f32_128, false, 128)
+K1WG_INSTANCES(k1wg_f32_128, FL_F32, 128)

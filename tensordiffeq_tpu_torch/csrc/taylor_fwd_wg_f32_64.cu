@@ -2,4 +2,4 @@
 // (taylor_fwd_wg.cuh).
 #include "taylor_fwd_wg.cuh"
 
-K1WG_INSTANCES(k1wg_f32_64, false, 64)
+K1WG_INSTANCES(k1wg_f32_64, FL_F32, 64)

@@ -1,0 +1,5 @@
+// The tf32 flavor's instances of K1's wgmma route at NP = 64
+// (taylor_fwd_wg.cuh).
+#include "taylor_fwd_wg.cuh"
+
+K1WG_INSTANCES(k1wg_tf32_64, FL_TF32, 64)

@@ -123,16 +123,16 @@ static __device__ void table_rows(const float* buf, float* __restrict__ table,
   }
 }
 
-// K1: one block per tile of TP points.  BF: the bf16-operand flavor
-// (taylor_common.cuh).
-template <bool BF>
+// K1: one block per tile of TP points, in flavor FL (taylor_common.cuh:
+// FL_F32, FL_BF16 or FL_TF32).
+template <int FL>
 __global__ void __launch_bounds__(NTHREADS)
 taylor_fwd_kernel(const float* __restrict__ X, const float* __restrict__ prm,
                   float* __restrict__ table, int N, int TP, Net net,
                   Sched s) {
   extern __shared__ __align__(16) float sm[];
   const int C = s.C, R = TP * C, ld = net.ld;
-  if constexpr (BF) {
+  if constexpr (FL == FL_BF16) {
     // F (f32, slots 0-1) and the bf16 stack Hb (slot 2)
     const int Rp = pad16(R), p0 = blockIdx.x * TP;
     float* F = sm;
@@ -155,12 +155,12 @@ taylor_fwd_kernel(const float* __restrict__ X, const float* __restrict__ prm,
   const int p0 = blockIdx.x * TP;
 
   zero_buffers(sm, 2 * pad16(R) * ld);
-  layer0_fwd<BF>(X, prm, N, p0, TP, net, s, cur, wst);
+  layer0_fwd<FL>(X, prm, N, p0, TP, net, s, cur, wst);
   for (int l = 1; l < net.L; ++l) {
     const bool issued = prefetch_fwd(prm + net.offW[l], net.w_in[l],
                                      net.w_out[l], wst);
     act_fwd(cur, ld, TP, net.w_out[l - 1], s, nullptr, nullptr);
-    product_fwd(cur, ld, R, net.w_in[l], prm + net.offW[l],
+    product_fwd<FL>(cur, ld, R, net.w_in[l], prm + net.offW[l],
                 net.w_out[l], prm + net.offb[l], C, nxt, wst, issued);
     float* t = cur; cur = nxt; nxt = t;
   }
@@ -172,8 +172,8 @@ taylor_fwd_kernel(const float* __restrict__ X, const float* __restrict__ prm,
 }
 
 // K2: each block owns partial slot blockIdx.x and a workspace slice, and
-// walks tiles blockIdx.x, blockIdx.x + gridDim.x, ...
-template <bool BF>
+// walks tiles blockIdx.x, blockIdx.x + gridDim.x, ...  FL: the flavor.
+template <int FL>
 __global__ void __launch_bounds__(NTHREADS)
 taylor_bwd_kernel(const float* __restrict__ X, const float* __restrict__ prm,
                   const float* __restrict__ gtab, float* __restrict__ dX,
@@ -182,7 +182,7 @@ taylor_bwd_kernel(const float* __restrict__ X, const float* __restrict__ prm,
   extern __shared__ __align__(16) float sm[];
   const int C = s.C, R = TP * C, ld = net.ld, L = net.L, n_out = net.n_out;
   const int Rp = pad16(R);
-  if constexpr (BF) {
+  if constexpr (FL == FL_BF16) {
     // five bf16 slots (taylor_common.cuh: reverse_sweep_bf)
     float* mypart = part + (size_t)blockIdx.x * slot_stride(net.P_total);
     bf16* wst = stage_of_bf(sm, 5, R, ld);
@@ -229,8 +229,8 @@ taylor_bwd_kernel(const float* __restrict__ X, const float* __restrict__ prm,
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const bool first = (tile == blockIdx.x);
     const int p0 = tile * TP;
-    float* cur = stage_forward(X, prm, N, p0, TP, net, s, myws, buf0, buf1,
-                               wst, nullptr);
+    float* cur = stage_forward<FL>(X, prm, N, p0, TP, net, s, myws, buf0,
+                                   buf1, wst, nullptr);
     float* oth = (cur == buf0) ? buf1 : buf0;
     ws_load(oth, myws + (size_t)(L - 2) * R * ld, R, ld, mbar);
     // head: the table cotangents are its pre-activation cotangents
@@ -240,15 +240,16 @@ taylor_bwd_kernel(const float* __restrict__ X, const float* __restrict__ prm,
       dP[r * ld + o] = (gp < N) ? gtab[((size_t)c * N + gp) * n_out + o] : 0.f;
     }
     __syncthreads();
-    reverse_sweep(X, prm, dX, false, mypart, myws, N, p0, TP, first, net, s,
-                  cur, oth, dP, wst, mbar, phase);
+    reverse_sweep<FL>(X, prm, dX, false, mypart, myws, N, p0, TP, first, net,
+                      s, cur, oth, dP, wst, mbar, phase);
   }
 }
 
 // ------------------------------------------------------------------------
 // C interface (loaded with ctypes; the descriptor layouts are in
-// taylor_common.cuh).  Each entry point returns cudaGetLastError(); bf16 != 0
-// launches the bf16-operand flavor.
+// taylor_common.cuh).  Each entry point returns cudaGetLastError(); the
+// flavor argument is FL_F32 (0), FL_BF16 (1) or FL_TF32 (2), and any other
+// value returns cudaErrorInvalidValue.
 
 extern "C" int tdq_limits(int* out) {
   out[0] = MAXL;
@@ -265,9 +266,9 @@ extern "C" int tdq_limits(int* out) {
 // them (ops/cuda_taylor.py::workspace_floats allocates it, and checks its
 // count against this one before a plan's first launch in a flavor).
 extern "C" long long tdq_workspace_floats(const int* net_h, int R, int G,
-                                          int bf16) {
+                                          int flavor) {
   const Net net = unpack_net(net_h);
-  if (bf16)
+  if (flavor == FL_BF16)
     return (long long)G * (long long)ws_floats_bf(net.L, R, net.ld) +
            (long long)wbf_floats(net);
   return (long long)G * ws_slices(net.L) * R * net.ld;
@@ -281,44 +282,56 @@ extern "C" int tdq_device_info(int device, int* out) {
                                      device);
 }
 
-template <bool BF>
+// Whether the SIMT loops' operands fit the weight stage they take as
+// scratch, in a flavor's layout; false for an unknown flavor.
+static inline bool fits(int flavor, const Net& net, int TP) {
+  if (flavor == FL_BF16) return scratch_fits_bf(net, TP);
+  if (flavor == FL_F32 || flavor == FL_TF32)
+    return layer0_fits(net.d, net.w_out[0], TP);
+  return false;
+}
+
+template <int FL>
 static int taylor_fwd(const float* X, const float* prm, float* table, int N,
                       int TP, const Net& net, const Sched& s,
                       cudaStream_t st) {
-  const size_t smem = BF ? smem_bytes_bf(3, TP * s.C, net.ld)
-                         : smem_bytes(2, TP * s.C, net.ld);
+  const size_t smem = FL == FL_BF16 ? smem_bytes_bf(3, TP * s.C, net.ld)
+                                    : smem_bytes(2, TP * s.C, net.ld);
   cudaError_t e = cudaFuncSetAttribute(
-      taylor_fwd_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      taylor_fwd_kernel<FL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int n_tiles = (N + TP - 1) / TP;
-  taylor_fwd_kernel<BF><<<n_tiles, NTHREADS, smem, st>>>(X, prm, table, N,
+  taylor_fwd_kernel<FL><<<n_tiles, NTHREADS, smem, st>>>(X, prm, table, N,
                                                          TP, net, s);
   return (int)cudaGetLastError();
 }
 
 extern "C" int tdq_taylor_fwd(const float* X, const float* prm, float* table,
                               int N, int TP, const int* net_h,
-                              const int* sched_h, int bf16, void* stream) {
+                              const int* sched_h, int flavor, void* stream) {
   const Net net = unpack_net(net_h);
   const Sched s = unpack_sched(sched_h);
   // the SIMT loops take their operands into the weight stage
-  if (bf16 ? !scratch_fits_bf(net, TP) : !layer0_fits(net.d, net.w_out[0], TP))
-    return (int)cudaErrorInvalidValue;
+  if (!fits(flavor, net, TP)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? taylor_fwd<true>(X, prm, table, N, TP, net, s, st)
-              : taylor_fwd<false>(X, prm, table, N, TP, net, s, st);
+  if (flavor == FL_BF16)
+    return taylor_fwd<FL_BF16>(X, prm, table, N, TP, net, s, st);
+  if (flavor == FL_TF32)
+    return taylor_fwd<FL_TF32>(X, prm, table, N, TP, net, s, st);
+  return taylor_fwd<FL_F32>(X, prm, table, N, TP, net, s, st);
 }
 
-template <bool BF>
+template <int FL>
 static int taylor_bwd(const float* X, const float* prm, const float* gtab,
                       float* dX, float* part, float* ws, float* grad, int N,
                       int TP, int G, const Net& net, const Sched& s,
                       cudaStream_t st) {
+  constexpr bool BF = FL == FL_BF16;
   const size_t smem = BF ? smem_bytes_bf(5, TP * s.C, net.ld)
                          : smem_bytes(3, TP * s.C, net.ld);
   cudaError_t e = cudaFuncSetAttribute(
-      taylor_bwd_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      taylor_bwd_kernel<FL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int n_tiles = (N + TP - 1) / TP;
@@ -330,7 +343,7 @@ static int taylor_bwd(const float* X, const float* prm, const float* gtab,
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  taylor_bwd_kernel<BF><<<G, NTHREADS, smem, st>>>(X, prm, gtab, dX, part, ws,
+  taylor_bwd_kernel<FL><<<G, NTHREADS, smem, st>>>(X, prm, gtab, dX, part, ws,
                                                    N, TP, n_tiles, net, s);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -342,16 +355,19 @@ static int taylor_bwd(const float* X, const float* prm, const float* gtab,
 extern "C" int tdq_taylor_bwd(const float* X, const float* prm,
                               const float* gtab, float* dX, float* part,
                               float* ws, float* grad, int N, int TP, int G,
-                              const int* net_h, const int* sched_h, int bf16,
-                              void* stream) {
+                              const int* net_h, const int* sched_h,
+                              int flavor, void* stream) {
   const Net net = unpack_net(net_h);
   const Sched s = unpack_sched(sched_h);
   // the SIMT loops take their operands into the weight stage
-  if (bf16 ? !scratch_fits_bf(net, TP) : !layer0_fits(net.d, net.w_out[0], TP))
-    return (int)cudaErrorInvalidValue;
+  if (!fits(flavor, net, TP)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? taylor_bwd<true>(X, prm, gtab, dX, part, ws, grad, N, TP, G,
-                                 net, s, st)
-              : taylor_bwd<false>(X, prm, gtab, dX, part, ws, grad, N, TP, G,
-                                  net, s, st);
+  if (flavor == FL_BF16)
+    return taylor_bwd<FL_BF16>(X, prm, gtab, dX, part, ws, grad, N, TP, G,
+                               net, s, st);
+  if (flavor == FL_TF32)
+    return taylor_bwd<FL_TF32>(X, prm, gtab, dX, part, ws, grad, N, TP, G,
+                               net, s, st);
+  return taylor_bwd<FL_F32>(X, prm, gtab, dX, part, ws, grad, N, TP, G, net,
+                            s, st);
 }

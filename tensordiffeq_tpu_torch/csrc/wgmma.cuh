@@ -206,18 +206,43 @@ struct WgMma<true, 128> {
 // of A, taken from h (the previous layer's output, in the accumulator
 // layout; the chunk covers its columns chunk*KC .. chunk*KC + KC - 1),
 // against the chunk's B at shared address base, added into d (first: the
-// layer's first chunk, which starts d afresh).  BF: one bf16 pass per k16
-// step, A rounded to bf16 (to nearest even) as it is packed.  Else three
-// tf32 passes per k8 step, A_lo B_hi + A_hi B_lo + A_hi B_hi (3xTF32, the
-// hi plane at base and the lo plane after it): A is split in registers
-// (split_tf32), once per element.  The A registers and d are held past the
-// wait, so nothing reuses or reads them while the products run.
-template <bool BF, int NP, int KC>
+// layer's first chunk, which starts d afresh).  FL_BF16: one bf16 pass per
+// k16 step, A rounded to bf16 (to nearest even) as it is packed.  FL_F32:
+// three tf32 passes per k8 step, A_lo B_hi + A_hi B_lo + A_hi B_hi
+// (3xTF32, the hi plane at base and the lo plane after it): A is split in
+// registers (split_tf32), once per element.  FL_TF32: the A_hi B_hi pass
+// alone (the chunk holds the hi plane only).  The A registers and d are
+// held past the wait, so nothing reuses or reads them while the products
+// run.
+template <int FL, int NP, int KC>
 static __device__ __forceinline__ void wg_chunk(float (&d)[NP / 2],
                                                 const float (&h)[NP / 2],
                                                 int chunk, unsigned base,
                                                 bool first) {
-  if constexpr (BF) {
+  if constexpr (FL == FL_TF32) {
+    constexpr int S8 = KC / 8;
+    unsigned ahi[S8][4];
+#pragma unroll
+    for (int s = 0; s < S8; ++s) {
+      const int j = chunk * S8 + s;
+      ahi[s][0] = tf32_bits(h[4 * j]);
+      ahi[s][1] = tf32_bits(h[4 * j + 2]);
+      ahi[s][2] = tf32_bits(h[4 * j + 1]);
+      ahi[s][3] = tf32_bits(h[4 * j + 3]);
+    }
+    wg_fence();
+    constexpr unsigned sbo = (KC / 4) * 128;
+#pragma unroll
+    for (int s = 0; s < S8; ++s)
+      WgMma<false, NP>::run(d, ahi[s], wg_desc(base + 256 * s, 128, sbo),
+                            (first && s == 0) ? 0 : 1);
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int s = 0; s < S8; ++s)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) wg_keep(ahi[s][q]);
+  } else if constexpr (FL == FL_BF16) {
     constexpr int S16 = KC / 16;
     unsigned a[S16][4];
 #pragma unroll

@@ -36,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from ..boundaries import BC
 from ..ops.derivatives import UFn, make_ufn, vmap_residual
 from ..ops.losses import MSE, causal_residual_loss, g_MSE
-from ..utils import resolve_device, span
+from ..utils import param_leaves, params_like, resolve_device, span
 
 
 def _as_tuple(x):
@@ -72,6 +72,9 @@ def build_loss_fn(apply_fn: Callable,
                   remat: bool = False,
                   device="cuda") -> Callable:
     """Assemble ``loss(params, lam_bcs, lam_res, X_batch, lam_data=None)``.
+
+    ``params`` is what ``apply_fn`` takes: the network's flat parameter
+    list (its ``params()``; the MLP family also takes ``[(W, b), ...]``).
 
     Args:
       apply_fn: batched network apply ``(params, x[..., d]) -> y[..., n_out]``.
@@ -144,9 +147,8 @@ def build_loss_fn(apply_fn: Callable,
 
         def residual_eval(params, X_batch):
             def run(X, *flat):
-                return evaluate(list(zip(flat[0::2], flat[1::2])), X)
-            return checkpoint(run, X_batch,
-                              *[t for pair in params for t in pair],
+                return evaluate(params_like(params, flat), X)
+            return checkpoint(run, X_batch, *param_leaves(params),
                               use_reentrant=False, preserve_rng_state=False)
 
     def loss(params, lam_bcs, lam_res, X_batch, lam_data=None):

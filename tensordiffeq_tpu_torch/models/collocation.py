@@ -44,6 +44,12 @@ engine), NTK weighting (``Adaptive_type=3``, :mod:`..ops.ntk`), causal
 weighting with its ε ladder (``causal_eps``), ``remat``, and
 ``fused="autotune"``, which times each residual engine's graphed
 loss-and-gradient step and races the minimax step against the winner.
+``network=`` takes any ``nn.Module`` (through the network protocol of
+:mod:`..networks`; a custom module, another activation or a bf16 ``dtype``
+trains on the generic engine), and the network's ``precision`` runs
+through every engine: ``None``/``"default"`` takes the single-pass TF32
+flavor of K1, K2 and K3 and TF32 matmuls outside them on the card, as
+XLA's f32 DEFAULT product does on a GPU.
 ``fit(resample_every=...)`` redraws the collocation
 set during the Adam phase (:mod:`..ops.resampling`): the pool redraw,
 scored through the residual engine (K1 on ``fused="cuda"``), or the
@@ -58,8 +64,9 @@ reference's bf16 bands, and the L-BFGS leg starts on the bf16 loss and
 retreats to the f32 flavor of the same engines when its line search
 stagnates (:func:`~..training.lbfgs.lbfgs_minimize`'s ``fun_fallback``).
 
-Everything of the JAX solver that is not ported yet raises
-:class:`~..utils.NotPortedError` naming its ROADMAP item.
+Of the JAX solver only ``dist=`` (and ``save_checkpoint(sharded=True)``)
+is not ported yet; both raise :class:`~..utils.NotPortedError` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -76,14 +83,14 @@ import torch
 
 from ..boundaries import BC
 from ..domains import DomainND
-from ..networks import (MLP, init_generator, net_buffers, net_from_metadata,
-                        net_metadata)
+from ..networks import (MLP, ModuleNet, as_network, init_generator,
+                        net_buffers, net_from_metadata, net_metadata)
 from ..ops.derivatives import make_ufn, vmap_residual
 from ..training.fit import (AdamStep, FitResult, fit_adam, make_optimizer,
                             relink_schedules)
 from ..training.lbfgs import fit_lbfgs
-from ..utils import (ieee_f32, initialize_lambdas, not_ported,
-                     resolve_compute_dtype, resolve_device)
+from ..utils import (initialize_lambdas, matmul_precision, not_ported,
+                     param_leaves, resolve_compute_dtype, resolve_device)
 from .assembly import build_loss_fn
 
 
@@ -157,14 +164,6 @@ class _DeviceResampleHook:
             "analytic-resample"
 
 
-def _flat(layers) -> list:
-    return [t for pair in layers for t in pair]
-
-
-def _pairs(flat) -> list:
-    return list(zip(flat[0::2], flat[1::2]))
-
-
 _SAVE_MAGIC = b"TDQM"
 
 
@@ -212,15 +211,26 @@ class CollocationSolverND:
 
     @property
     def params(self) -> list:
-        """The network's live ``[(W, b), ...]``."""
-        return self.net.layers()
+        """The network's live parameters in its structure (``param_tree``):
+        ``[(W, b), ...]`` for the MLP family, the flat list of a custom
+        module's parameters."""
+        return self.net.param_tree(self.net.params())
+
+    def _tree(self, params) -> list:
+        """The checkpoint's layout of parameters (a flat list or the
+        network's structure): ``[[W, b], ...]`` for the MLP family, as
+        before custom modules, else the flat list."""
+        tree = self.net.param_tree(param_leaves(params))
+        return ([list(pair) for pair in tree] if isinstance(self.net, MLP)
+                else list(tree))
 
     # ------------------------------------------------------------------ #
     def compile(self, layer_sizes: Sequence[int], f_model: Callable,
                 domain: DomainND, bcs: Sequence[BC], Adaptive_type: int = 0,
                 dict_adaptive: Optional[dict] = None,
                 init_weights: Optional[dict] = None,
-                g: Optional[Callable] = None, network: Optional[MLP] = None,
+                g: Optional[Callable] = None,
+                network: Optional[torch.nn.Module] = None,
                 lr=0.005, lr_weights=0.005,
                 fused=None, fused_dtype=None,
                 minimax: Optional[bool] = None, causal_eps=None,
@@ -246,12 +256,17 @@ class CollocationSolverND:
           dict_adaptive/init_weights: SA contract — which loss terms carry λ
             and their initial values.
           g: optional λ transform for residual terms.
-          network: an :class:`~..networks.MLP` (or a
-            :class:`~..networks.FourierMLP`/:class:`~..networks.PeriodicMLP`)
-            to train instead of a fresh MLP; its parameters are moved to the
-            solver's device.  The embedding families take the generic
-            engine, as in the JAX package (the fused engines qualify only
-            a plain MLP).
+          network: any ``nn.Module`` mapping ``[N, n_in]`` to ``[N,
+            n_out]`` to train instead of a fresh MLP: the MLP family (with
+            its knobs: ``activation``, ``precision``, ``dtype``,
+            ``param_dtype``) or a custom module (adapted by
+            :class:`~..networks.ModuleNet`; it trains in place); its
+            parameters are moved to the solver's device.  Only the plain
+            float32 tanh MLP qualifies for the fused engines, as in the JAX
+            package; the rest takes the generic engine (``fused=True`` or
+            ``"cuda"`` then raises).  The network's ``precision`` is the
+            solver's: ``None``/``"default"`` takes the kernels' TF32
+            flavor and TF32 matmuls on the card.
           lr, lr_weights: the Adam rates of the network and of the SA λ: a
             float, or a schedule (:mod:`..training.schedules`, or any
             callable of a 0-d integer device tensor returning a 0-d float32
@@ -297,7 +312,8 @@ class CollocationSolverND:
             weights' range (``None``: unbounded) and per-term trace
             subsample.
           **unported: ``dist`` at anything but its "off" value raises
-            :class:`~..utils.NotPortedError`.
+            :class:`~..utils.NotPortedError` (multi-GPU, the only option
+            of the JAX solver's ``compile`` not ported yet).
         """
         _reject_unported(_UNPORTED_COMPILE, unported, "compile")
         if fused_dtype is not None and fused is False:
@@ -371,12 +387,9 @@ class CollocationSolverND:
         if network is None:
             network = MLP(layer_sizes, device=self.device,
                           generator=init_generator(self.seed))
-        elif not isinstance(network, MLP):
-            raise not_ported("custom network modules (other than the MLP, "
-                             "FourierMLP and PeriodicMLP families)",
-                             "queue 1, solver features")
-        self.net = network.to(self.device)
+        self.net = as_network(network).to(self.device)
         self.apply_fn = self.net.apply
+        self.precision = self.net.precision
         self._opt = None
         self._adam = None
 
@@ -437,7 +450,7 @@ class CollocationSolverND:
             self.lambdas = {
                 "residual": [one() for _ in range(self._count_residuals())],
                 "BCs": [one() for _ in self.bcs]}
-        with ieee_f32():
+        with matmul_precision(self.precision):
             self._build()
         self._compiled = True
         return self
@@ -476,11 +489,13 @@ class CollocationSolverND:
             table_producer = build_cuda_table_fn(
                 self._fuse_requests,
                 [tuple(W.shape) for W, _ in self.net.layers()],
-                device=self.device, compute_dtype=dtype)
+                device=self.device, compute_dtype=dtype,
+                precision=self.precision)
         return make_fused_residual(self.f_model, self.domain.vars, self.n_out,
                                    self._fuse_requests,
                                    table_producer=table_producer,
-                                   compute_dtype=dtype)
+                                   compute_dtype=dtype,
+                                   precision=self.precision)
 
     def _generic_residual(self, params, X):
         u = make_ufn(self.apply_fn, params, self.domain.vars, self.n_out)
@@ -490,7 +505,7 @@ class CollocationSolverND:
         """The number of residual components ``f_model`` returns (a system
         returns a tuple), from one point."""
         with torch.no_grad():
-            out = self._generic_residual(self.net.layers(),
+            out = self._generic_residual(self.net.params(),
                                          self.X_f[:1])
         return len(out) if isinstance(out, tuple) else 1
 
@@ -507,8 +522,7 @@ class CollocationSolverND:
         if residual_fn is None:
             residual_fn = self._fused_residual
         X_s = self.X_f[:min(n_check, int(self.X_f.shape[0]))]
-        params = self.net.layers()
-        flat = _flat(params)
+        params = flat = self.net.params()
 
         def sumsq(out):
             comps = out if isinstance(out, tuple) else (out,)
@@ -580,7 +594,7 @@ class CollocationSolverND:
             sq = mmx.build_minimax_sq_fn(
                 self.f_model, self.domain.vars, self.n_out,
                 self._fuse_requests, shapes, device=self.device,
-                compute_dtype=self.fused_dtype)
+                compute_dtype=self.fused_dtype, precision=self.precision)
         except ValueError as e:
             return decline(e)
         mm = mmx.make_minimax_residual_loss(
@@ -622,7 +636,8 @@ class CollocationSolverND:
             # L-BFGS leg's retreat
             sq32 = mmx.build_minimax_sq_fn(
                 self.f_model, self.domain.vars, self.n_out,
-                self._fuse_requests, shapes, device=self.device)
+                self._fuse_requests, shapes, device=self.device,
+                precision=self.precision)
             self._minimax_loss_refine = mmx.make_minimax_residual_loss(
                 sq32, weight_outside_sum=self.weight_outside_sum, g=self.g)
         if self.verbose:
@@ -642,9 +657,11 @@ class CollocationSolverND:
             return None
         n_eq = int(sq.n_equations)
 
-        def score_grad(layers, X):
+        from ..ops.taylor import extract_mlp_layers
+
+        def score_grad(params, X):
             flat = [a if a.ndim == 2 else a.reshape(1, -1)
-                    for pair in layers for a in pair]
+                    for pair in extract_mlp_layers(params) for a in pair]
             w = torch.ones((X.shape[0], n_eq), dtype=X.dtype, device=X.device)
             _, _, gw, gX = sq.value_and_grads(flat, w, X.contiguous())
             return torch.sum(gw.reshape(X.shape[0], -1), 1), gX
@@ -675,13 +692,12 @@ class CollocationSolverND:
 
         def val_grad(loss_fn):
             params = [t.detach().clone().requires_grad_(True)
-                      for t in _flat(self.net.layers())]
+                      for t in self.net.params()]
             lams = [None if lam is None else
                     (lam[:n_s] if lam.ndim >= 1 and lam.shape[0] == n_f
                      else lam).detach().clone().requires_grad_(True)
                     for lam in self.lambdas["residual"]]
-            val = loss_fn(list(zip(params[0::2], params[1::2])), [], lams,
-                          X_s)[0]
+            val = loss_fn(params, [], lams, X_s)[0]
             leaves = params + [lam for lam in lams if lam is not None]
             return float(val.detach()), torch.autograd.grad(
                 val, leaves, materialize_grads=True)
@@ -717,8 +733,7 @@ class CollocationSolverND:
             residual_loss_fn=residual_loss_fn, remat=self.remat,
             device=self.device, **self._causal_kw)
         params = [t.detach().clone().requires_grad_(True)
-                  for t in _flat(self.net.layers())]
-        layers = _pairs(params)
+                  for t in self.net.params()]
         lam = {k: [None if v is None else v.detach() for v in vs]
                for k, vs in self.lambdas.items()}
         lam_data = lam.get("data", [None])[0]
@@ -726,7 +741,7 @@ class CollocationSolverND:
         total_buf = torch.zeros((), device=self.device)
 
         def step():
-            total = loss_fn(layers, lam["BCs"], lam["residual"], self.X_f,
+            total = loss_fn(params, lam["BCs"], lam["residual"], self.X_f,
                             lam_data=lam_data)[0]
             gs = torch.autograd.grad(total, params, materialize_grads=True)
             with torch.no_grad():
@@ -823,9 +838,11 @@ class CollocationSolverND:
                                 else None)
         if self.fused in (True, "cuda") and self._fused_residual is None:
             msg = ("fused=%r but the residual cannot be fused: it requires "
-                   "the standard float32 tanh MLP and an f_model using "
+                   "the standard float32 tanh MLP (this network: %s) and an "
+                   "f_model using "
                    "grad() combinators on untransformed coordinates with "
-                   "derivative orders <= 3 (or unmixed 4th)" % (self.fused,))
+                   "derivative orders <= 3 (or unmixed 4th)"
+                   % (self.fused, self._net_description()))
             reason = getattr(self, "_fuse_fail_reason", None)
             if reason is not None:
                 raise ValueError(f"{msg}; analysis stopped on: "
@@ -953,7 +970,7 @@ class CollocationSolverND:
         self.data_X = np.hstack([x, t]).astype(np.float32)
         self.data_s = np.reshape(y, (-1, self.n_out)).astype(np.float32)
         if self._compiled:
-            with ieee_f32():
+            with matmul_precision(self.precision):
                 self._build()
 
     # ------------------------------------------------------------------ #
@@ -965,8 +982,8 @@ class CollocationSolverND:
         Adam step on the card would fail on them."""
         if not self._compiled:
             raise NotCompiledError("Call compile(...) before update_loss()")
-        with ieee_f32(), torch.no_grad():
-            return self.loss_fn(self.net.layers(), self.lambdas["BCs"],
+        with matmul_precision(self.precision), torch.no_grad():
+            return self.loss_fn(self.net.params(), self.lambdas["BCs"],
                                 self.lambdas["residual"], self.X_f,
                                 lam_data=self.lambdas.get("data", [None])[0])
 
@@ -1054,8 +1071,9 @@ class CollocationSolverND:
         evaluation inside one continuous run (rel-L2 timelines), called at
         the chunk boundaries of both phases that cross an ``eval_every``
         boundary: ``("adam", epoch, layers)`` with the run-relative epoch,
-        and ``("l-bfgs", iteration, layers)`` with the iteration of this
-        leg; ``layers`` is the ``[(W, b), ...]`` that ``apply_fn`` takes.
+        and ``("l-bfgs", iteration, params)`` with the iteration of this
+        leg; ``params`` is the network's structure (:attr:`params`), which
+        ``apply_fn`` takes.
         It runs between chunks, so the captured steps never wait for it.
 
         ``telemetry``: a :class:`~..telemetry.TrainingTelemetry` or a bare
@@ -1096,6 +1114,8 @@ class CollocationSolverND:
             self._telemetry_start(tele, tf_iter, newton_iter, batch_sz,
                                   resample_every, epochs_at_entry)
         if self.verbose:
+            from ..output import print_screen
+            print_screen(self)
             print(f"[fit] engine={self.engine} device={self.device} "
                   f"N_f={int(self.X_f.shape[0])} tf_iter={tf_iter} "
                   f"newton_iter={newton_iter}", flush=True)
@@ -1118,7 +1138,7 @@ class CollocationSolverND:
                 resample_ascent_steps)
 
         if tf_iter > 0:
-            params = _flat(self.net.layers())
+            params = self.net.params()
             if self._opt is None or (grad_clip is None) != (
                     self._opt_grad_clip is None):
                 self._opt = make_optimizer(params, self.lambdas, self.lr,
@@ -1138,13 +1158,13 @@ class CollocationSolverND:
             ntk_update = self._ntk_update(resample_fn is not None)
             adam_eval = None
             if eval_fn is not None:
-                def adam_eval(epoch, layers):
-                    eval_fn("adam", epoch, layers)
+                def adam_eval(epoch, params):
+                    eval_fn("adam", epoch, self.net.param_tree(params))
             hook = None
             if save is not None:
                 def hook(epoch, best):
-                    save(self.net.layers(), newton_prior,
-                         ("adam", _pairs(best[0]), best[1], best[2]))
+                    save(self.net.params(), newton_prior,
+                         ("adam", best[0], best[1], best[2]))
             # the causal ε ladder (Wang et al. 2203.07404, Alg. 1): Adam at
             # each ε in ascending order, the next once the gate opens (min
             # Causal_w_last > causal_delta at a chunk boundary); the epochs
@@ -1176,7 +1196,7 @@ class CollocationSolverND:
                     # run-relative: the restored history and the epochs
                     # earlier ε stages trained in this call
                     tele.epoch_offset = epochs_at_entry + stage_off
-                with ieee_f32():
+                with matmul_precision(self.precision):
                     result = fit_adam(self._adam, remaining, chunk=chunk,
                                       verbose=self.verbose, result=result,
                                       state_hook=hook,
@@ -1213,7 +1233,8 @@ class CollocationSolverND:
             if (self.best_model["adam"] is None or resample_fn is not None
                     or multi_stage
                     or result.min_loss["adam"] <= self.min_loss["adam"]):
-                self.best_model["adam"] = _pairs(result.best_params["adam"])
+                self.best_model["adam"] = self.net.param_tree(
+                    result.best_params["adam"])
                 self.min_loss["adam"] = result.min_loss["adam"]
                 self.best_epoch["adam"] = result.best_epoch["adam"]
 
@@ -1228,18 +1249,18 @@ class CollocationSolverND:
             lb_prev = {"i": 0}
             callback = None
             if lb_every > 0:
-                def callback(done, layers, best):
+                def callback(done, params, best):
                     prev, lb_prev["i"] = lb_prev["i"], done
                     # checkpoint before the evaluation, as in the Adam leg
                     if saves and prev // saves != done // saves:
                         # the live best counts iterations within this leg:
                         # re-based to absolute beside the absolute
                         # newton_done
-                        save(layers, newton_prior + done,
+                        save(params, newton_prior + done,
                              ("l-bfgs", best[0], best[1],
                               newton_prior + best[2]))
                     if evals and prev // evals != done // evals:
-                        eval_fn("l-bfgs", done, layers)
+                        eval_fn("l-bfgs", done, self.net.param_tree(params))
             # under fused_dtype the leg starts on the bf16 loss and
             # retreats to the f32 one when its line search stagnates, as
             # in the JAX solver
@@ -1247,12 +1268,13 @@ class CollocationSolverND:
                         if self.loss_fn_refine is not self.loss_fn else None)
             (final, best_params, best_loss, best_iter, history,
              self.lbfgs_retreat) = fit_lbfgs(
-                self.loss_fn, self.net.layers(), self.lambdas, self.X_f,
+                self.loss_fn, self.net.params(), self.lambdas, self.X_f,
                 maxiter=newton_iter, verbose=self.verbose,
                 eager=bool(newton_eager), callback=callback,
                 callback_every=lb_every, iter0=newton_prior,
-                loss_fn_fallback=fallback, telemetry=tele, _graphs=_graphs)
-            self.net.load_layers(final)
+                loss_fn_fallback=fallback, telemetry=tele,
+                precision=self.precision, _graphs=_graphs)
+            self.net.load_params(final)
             self.losses.extend(history)
             if tele is not None:
                 # absolute refinement iterations; a NaN stop logs a
@@ -1264,8 +1286,8 @@ class CollocationSolverND:
             # restored best that is better
             if (self.best_model["l-bfgs"] is None
                     or best_loss <= self.min_loss["l-bfgs"]):
-                self.best_model["l-bfgs"] = [
-                    (W.clone(), b.clone()) for W, b in best_params]
+                self.best_model["l-bfgs"] = self.net.param_tree(
+                    [t.clone() for t in best_params])
                 self.min_loss["l-bfgs"] = best_loss
                 self.best_epoch["l-bfgs"] = newton_prior + best_iter
             # the iterations that ran, not the budget: the loop may stop
@@ -1336,7 +1358,7 @@ class CollocationSolverND:
         from ..ops.ntk import residual_subsample
         cuda = self.device.type == "cuda"
 
-        def update(layers):
+        def update(params):
             t0 = time.perf_counter()
             if cuda:
                 start = torch.cuda.Event(enable_timing=True)
@@ -1344,8 +1366,7 @@ class CollocationSolverND:
                 start.record()
             X_sub = (residual_subsample(self.X_f, self.ntk_max_points)
                      if resampling else None)
-            new = self._ntk_fn([(W.detach(), b.detach()) for W, b in layers],
-                               X_sub)
+            new = self._ntk_fn([t.detach() for t in params], X_sub)
             rec = {"host_s": time.perf_counter() - t0, "device_ms": None,
                    "weights": new}
             if cuda:
@@ -1434,10 +1455,11 @@ class CollocationSolverND:
 
     def _state_and_meta(self, layers, newton_done: int, live=None):
         """The checkpoint's state tree and meta (the JAX solver's keys).
-        ``live = (phase, best_layers, best_loss, best_iter)`` is the running
+        ``layers`` are the parameters (flat, or the network's structure);
+        ``live = (phase, best_params, best_loss, best_iter)`` is the running
         best of a phase in progress, which competes with the stored phase
         bests for the saved best iterate."""
-        state = {"params": [list(pair) for pair in layers],
+        state = {"params": self._tree(layers),
                  "lambdas": self.lambdas}
         buffers = net_buffers(self.net)
         if buffers:
@@ -1483,7 +1505,7 @@ class CollocationSolverND:
             # best) or, in a plain save, to the phase bucket before
             # "overall", which mirrors one of them
             bl, bi, ph, bp = min(cand, key=lambda c: c[0])
-            state["best_params"] = [list(pair) for pair in bp]
+            state["best_params"] = self._tree(bp)
             meta.update(has_best=True, best_phase=ph, best_loss=bl,
                         best_iter=bi)
         return state, meta
@@ -1502,7 +1524,7 @@ class CollocationSolverND:
         ``sharded=True`` (the multi-process layout) is not ported."""
         if not self._compiled:
             raise NotCompiledError("Call compile(...) before save_checkpoint")
-        self._save_state(path, self.net.layers(), self.newton_done,
+        self._save_state(path, self.net.params(), self.newton_done,
                          sharded=sharded)
 
     def restore_checkpoint(self, path: str):
@@ -1518,10 +1540,10 @@ class CollocationSolverND:
         with open(os.path.join(resolve_checkpoint_dir(path),
                                "tdq_meta.json")) as fh:
             peek = json.load(fh)["meta"]
-        layers = self.net.layers()
-        template = {"params": [list(pair) for pair in layers],
+        params = self.net.params()
+        template = {"params": self._tree(params),
                     "lambdas": self.lambdas}
-        fresh = make_optimizer(_flat(layers), self.lambdas, self.lr,
+        fresh = make_optimizer(params, self.lambdas, self.lr,
                                self.lr_weights, freeze_lambdas=self.use_ntk)
         if peek.get("has_opt_state", False):
             template["opt_state"] = self._opt_tree(fresh)
@@ -1536,10 +1558,11 @@ class CollocationSolverND:
         def dev(a):
             return torch.as_tensor(np.array(a), device=self.device)
 
-        self.net.load_layers([(dev(W), dev(b)) for W, b in state["params"]])
+        self.net.load_params([dev(a) for a in param_leaves(state["params"])])
         with torch.no_grad():
+            live = net_buffers(self.net)
             for name, saved in state.get("net_buffers", {}).items():
-                getattr(self.net, name).copy_(dev(saved))
+                live[name].copy_(dev(saved))
             for key, lams in self.lambdas.items():
                 for lam, saved in zip(lams, state["lambdas"][key]):
                     if lam is not None:
@@ -1568,7 +1591,8 @@ class CollocationSolverND:
         for k, v in meta.get("best_epoch", {}).items():
             self.best_epoch[k] = int(v)
         if "best_params" in state:
-            best = [(dev(W), dev(b)) for W, b in state["best_params"]]
+            best = self.net.param_tree(
+                [dev(a) for a in param_leaves(state["best_params"])])
             ph = meta.get("best_phase", "adam")
             if ph in ("adam", "l-bfgs"):
                 self.best_model[ph] = best
@@ -1603,22 +1627,37 @@ class CollocationSolverND:
     def _arch_meta(self) -> dict:
         return net_metadata(self.net, self.layer_sizes, self.n_out)
 
+    def _net_description(self) -> str:
+        net = self.net
+        if isinstance(net, ModuleNet):
+            return f"a custom {type(net.module).__name__} module"
+        act = getattr(net.activation, "__name__", str(net.activation))
+        return (f"{type(net).__name__}(activation={act}, dtype={net.dtype}, "
+                f"param_dtype={net.param_dtype})")
+
     def save(self, path: str):
         """Write the network, self-describing (reference ``models.py:315-
         316``): ``TDQM``, the JSON architecture header's length (8 bytes,
-        little-endian) and the header, then the parameters as an ``.npz``
-        in the flax layout of :func:`~..weights.params_to_numpy`."""
+        little-endian) and the header, then the parameters as an ``.npz``:
+        the MLP family's in the flax layout of
+        :func:`~..weights.params_to_numpy`, a custom module's by their
+        ``named_parameters()`` names (``params/<name>``)."""
         from ..checkpoint import write_npz
         from ..weights import params_to_numpy
         if not (self._compiled or self._loaded):
             raise NotCompiledError("Call compile(...) or load_model(...) "
                                    "before save(...)")
         header = json.dumps(self._arch_meta()).encode("utf-8")
-        tree = params_to_numpy(self.net)["params"]
-        arrays = {f"params/{name}/{leaf}": arr
-                  for name, layer in tree.items()
-                  for leaf, arr in layer.items()}
-        # a FourierMLP's frequency matrix: the network's function needs it
+        if isinstance(self.net, MLP):
+            tree = params_to_numpy(self.net)["params"]
+            arrays = {f"params/{name}/{leaf}": arr
+                      for name, layer in tree.items()
+                      for leaf, arr in layer.items()}
+        else:
+            arrays = {f"params/{name}": p.detach().cpu().numpy()
+                      for name, p in zip(self.net.names, self.net.params())}
+        # a FourierMLP's frequency matrix, a custom module's buffers: the
+        # network's function needs them
         arrays.update({f"buffers/{name}": t.detach().cpu().numpy()
                        for name, t in net_buffers(self.net).items()})
         blob = io.BytesIO()
@@ -1627,14 +1666,19 @@ class CollocationSolverND:
             fh.write(_SAVE_MAGIC + struct.pack("<Q", len(header)) + header
                      + blob.getvalue())
 
-    def load_model(self, path: str, compile_model: bool = False):
+    def load_model(self, path: str, compile_model: bool = False,
+                   network: Optional[torch.nn.Module] = None):
         """Read a network written by :meth:`save` (reference ``models.py:
         318-319``).  On a compiled solver the file's architecture must match
-        the compiled one.  On an uncompiled solver the MLP is rebuilt from
-        the file; ``predict`` then gives ``u`` (and ``None`` for the
-        residual), and ``compile(layer_sizes=None, ...)`` trains on from the
-        loaded network (the transfer-learn flow).  ``compile_model`` is
-        accepted and ignored, as the JAX solver does."""
+        the compiled one.  On an uncompiled solver the standard tanh MLP
+        family is rebuilt from the file; any other network (a custom
+        module, another activation) is the caller's to build, as in the JAX
+        package: pass it as ``network=`` (its type must match the file's),
+        or ``compile(..., network=...)`` first.  ``predict`` then gives
+        ``u`` (and ``None`` for the residual), and ``compile(layer_sizes=
+        None, ...)`` trains on from the loaded network (the transfer-learn
+        flow).  ``compile_model`` is accepted and ignored, as the JAX solver
+        does."""
         from ..checkpoint import read_npz
         with open(path, "rb") as fh:
             raw = fh.read()
@@ -1644,10 +1688,6 @@ class CollocationSolverND:
         hlen = struct.unpack("<Q", raw[4:12])[0]
         meta = json.loads(raw[12:12 + hlen].decode("utf-8"))
         arrays = read_npz(io.BytesIO(raw[12 + hlen:]))
-        n_layers = len(meta["layer_sizes"]) - 1
-        layers = [(torch.from_numpy(arrays[f"params/Dense_{i}/kernel"]),
-                   torch.from_numpy(arrays[f"params/Dense_{i}/bias"]))
-                  for i in range(n_layers)]
         if self._compiled:
             if list(meta["layer_sizes"]) != list(self.layer_sizes):
                 raise ValueError(
@@ -1660,9 +1700,30 @@ class CollocationSolverND:
                         f"saved model has {key} {meta.get(key)!r} but this "
                         f"solver was compiled with {mine.get(key)!r}")
             net = self.net
+        elif network is not None:
+            net = as_network(network).to(self.device)
+            mine = net_metadata(net, meta["layer_sizes"],
+                                meta.get("n_out", meta["layer_sizes"][-1]))
+            for key in ("network_type", "net_config"):
+                if meta.get(key) != mine.get(key):
+                    raise ValueError(
+                        f"saved model has {key} {meta.get(key)!r} but the "
+                        f"network passed has {mine.get(key)!r}")
         else:
-            net = net_from_metadata(meta, device=self.device)
-        net.load_layers(layers)
+            try:
+                net = net_from_metadata(meta, device=self.device)
+            except ValueError as e:
+                raise ValueError(f"{e}: load_model(path, network=...) or "
+                                 "compile(..., network=...) first") from None
+        if isinstance(net, MLP):
+            n_layers = len(meta["layer_sizes"]) - 1
+            net.load_layers([
+                (torch.from_numpy(arrays[f"params/Dense_{i}/kernel"]),
+                 torch.from_numpy(arrays[f"params/Dense_{i}/bias"]))
+                for i in range(n_layers)])
+        else:
+            net.load_params([torch.from_numpy(arrays[f"params/{name}"])
+                             for name in net.names])
         with torch.no_grad():
             for name, t in net_buffers(net).items():
                 t.copy_(torch.from_numpy(arrays[f"buffers/{name}"]))
@@ -1670,6 +1731,7 @@ class CollocationSolverND:
             return self
         self.net = net
         self.apply_fn = net.apply
+        self.precision = net.precision
         self.layer_sizes = list(meta["layer_sizes"])
         self.n_out = int(meta.get("n_out", self.layer_sizes[-1]))
         self._loaded = True
@@ -1686,7 +1748,7 @@ class CollocationSolverND:
                                    "before predict(...)")
         params = (self.best_model["overall"]
                   if best_model and self.best_model["overall"] is not None
-                  else self.net.layers())
+                  else self.net.params())
         u = self._apply_eval(params, X_star)
         if not self._compiled:
             # loaded, not compiled: the solution network exists, the
@@ -1702,19 +1764,21 @@ class CollocationSolverND:
                                device=self.device)
 
     def _apply_eval(self, params, X) -> np.ndarray:
-        """The network at ``params`` (``[(W, b), ...]``, what ``apply_fn``
-        takes) on the points ``X``, as NumPy: the counterpart of the JAX
+        """The network at ``params`` (what ``apply_fn`` takes: the flat
+        list or the network's structure) on the points ``X``, as NumPy
+        (float32): the counterpart of the JAX
         solver's ``_apply_jit``, which evaluation hooks call between
         chunks (the zoo's scorecard)."""
-        with ieee_f32(), torch.no_grad():
-            return self.net.apply(params, self._query(X)).cpu().numpy()
+        with matmul_precision(self.precision), torch.no_grad():
+            return self.net.apply(params, self._query(X)).float().cpu() \
+                .numpy()
 
     def _residual_eval(self, params, X):
         """The PDE residual at ``params`` on ``X`` through the adopted
         residual engine, as NumPy (a tuple for a system): the counterpart
         of the JAX solver's ``_residual_jit``."""
-        with ieee_f32(), torch.no_grad():
+        with matmul_precision(self.precision), torch.no_grad():
             f = self._residual(params, self._query(X))
         if isinstance(f, tuple):
-            return tuple(c.cpu().numpy() for c in f)
-        return f.cpu().numpy()
+            return tuple(c.float().cpu().numpy() for c in f)
+        return f.float().cpu().numpy()

@@ -35,8 +35,10 @@ per-point engine.  Each Adam step is one step over static buffers
 
 Every rate (``lr``, ``lr_weights``, each of ``lr_vars``) is a float or a
 schedule (:mod:`..training.schedules`), evaluated on the device inside the
-step; ``network=`` takes a :class:`~..networks.FourierMLP` or
-:class:`~..networks.PeriodicMLP`, which trains on the generic engine.
+step; ``network=`` takes any ``nn.Module`` (the MLP family with its
+knobs, or a custom module through :class:`~..networks.ModuleNet`), which
+trains on the generic engine unless it is the plain float32 tanh MLP, and
+the network's ``precision`` is the step's matmul precision on the card.
 Not ported (ROADMAP queue 1): ``dist=True`` (item 6); it raises
 :class:`~..utils.NotPortedError`.
 """
@@ -50,13 +52,15 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..networks import MLP, init_generator, net_buffers
+from ..networks import MLP, as_network, init_generator, net_buffers
 from ..ops.derivatives import make_ufn, vmap_residual
 from ..ops.losses import MSE, default_g, g_MSE
 from ..training.fit import (adam, make_batches, optimizer_step,
                             relink_schedules, schedule_tensors)
 from ..training.graphs import StepGraph
-from ..utils import ieee_f32, not_ported, resolve_device
+from ..training.progress import progress_bar
+from ..utils import (matmul_precision, not_ported, param_leaves,
+                     resolve_device)
 from .collocation import NotCompiledError
 
 
@@ -141,7 +145,7 @@ class _DiscoveryStep:
             if opt is not None:
                 opt.zero_grad(set_to_none=True)
         X_b, u_b, cw_b = self._batch()
-        total, _ = m._loss(m.net.layers(), m._vars, cw_b, X_b, u_b)
+        total, _ = m._loss(m._params(), m._vars, cw_b, X_b, u_b)
         total.backward()
         for opt in m._opts:
             if opt is not None:
@@ -203,18 +207,16 @@ class DiscoveryModel:
             cross-check, ``False`` the generic engine, ``True`` the fused
             engine or raise.
           g: the λ transform (default ``λ²``).
-          network: an :class:`~..networks.MLP` family member to train
-            instead of a fresh MLP (``layer_sizes`` must match it); the
-            embedding families take the generic engine.
+          network: any ``nn.Module`` to train instead of a fresh MLP
+            (``layer_sizes`` must describe it): the MLP family with its
+            knobs, or a custom module (:class:`~..networks.ModuleNet`, as
+            the JAX package's custom Flax module); all but the plain
+            float32 tanh MLP take the generic engine.
           dist: not ported (raises :class:`~..utils.NotPortedError`).
         """
         if dist:
             raise not_ported("DiscoveryModel.compile(dist=True)",
                              "queue 1 item 6, multi-GPU and multi-host")
-        if network is not None and not isinstance(network, MLP):
-            raise not_ported("custom network modules (other than the MLP, "
-                             "FourierMLP and PeriodicMLP families)",
-                             "queue 1, solver features")
         if getattr(lr_vars, "ndim", 0) > 0:  # an array of rates
             lr_vars = [float(v) for v in np.asarray(lr_vars)]
         per_var = isinstance(lr_vars, (list, tuple))
@@ -247,8 +249,10 @@ class DiscoveryModel:
         self.g = g
         self.net = (MLP(layer_sizes, device=self.device,
                         generator=init_generator(seed))
-                    if network is None else network.to(self.device))
+                    if network is None
+                    else as_network(network).to(self.device))
         self.apply_fn = self.net.apply
+        self.precision = self.net.precision
         self._vars = [torch.full((), float(np.asarray(v)), device=self.device)
                       .requires_grad_(True) for v in var]
         self._cw = (None if col_weights is None else torch.as_tensor(
@@ -258,7 +262,7 @@ class DiscoveryModel:
         self._opts = self._make_optimizers()
         self._step_obj = None
         self.losses, self.var_history = [], []
-        with ieee_f32():
+        with matmul_precision(self.precision):
             self._build()
         self._compiled = True
         return self
@@ -276,7 +280,7 @@ class DiscoveryModel:
         return opt_net, opt_vars, opt_lam
 
     def _params(self) -> list:
-        return [t for pair in self.net.layers() for t in pair]
+        return self.net.params()
 
     # ------------------------------------------------------------------ #
     def _try_fuse(self):
@@ -298,7 +302,8 @@ class DiscoveryModel:
             return None
         return make_fused_residual(self.f_model, self.varnames, self.n_out,
                                    requests, has_prefix_arg=True,
-                                   return_primal=True)
+                                   return_primal=True,
+                                   precision=self.precision)
 
     def _generic_residual(self, params, vars_, X):
         """The one generic construction of ``f_model(u, var, ·)``: the
@@ -315,7 +320,7 @@ class DiscoveryModel:
         from ..ops.fused import crosscheck_residuals
 
         X_s = self.X[:min(n_check, int(self.X.shape[0]))]
-        layers = self.net.layers()
+        layers = self.net.params()
         with torch.no_grad():
             generic = self._generic_residual(layers, self._vars, X_s)
             try:
@@ -419,6 +424,8 @@ class DiscoveryModel:
         if step is None or step.batch_sz != batch_sz or step.eager != eager:
             step = self._step_obj = _DiscoveryStep(self, batch_sz, eager)
         if self.verbose:
+            from ..output import print_screen
+            print_screen(self, discovery_model=True)
             print(f"[discovery] engine={self.engine} device={self.device} "
                   f"n={int(self.X.shape[0])} tf_iter={tf_iter} "
                   f"batches={step.n_batches}", flush=True)
@@ -427,7 +434,9 @@ class DiscoveryModel:
         step.begin(chunk * n_b, len(self.losses) * n_b)
         t0 = time.time()
         done = 0
-        with ieee_f32():
+        pbar = progress_bar(tf_iter, desc="Discovery") if self.verbose \
+            else None
+        with matmul_precision(self.precision):
             while done < total_steps:
                 n = min(chunk * n_b, total_steps - done)
                 step.graph.check()
@@ -439,17 +448,19 @@ class DiscoveryModel:
                     self.losses.append(float(row[0]))
                     self.var_history.append([float(v) for v in row[1:]])
                 done += n
-                if self.verbose:
-                    print(f"Discovery epoch {done // n_b}/{tf_iter}: loss "
-                          f"{self.losses[-1]:.6e} vars "
-                          f"{[round(v, 6) for v in self.var_history[-1]]}",
-                          flush=True)
+                if pbar is not None:
+                    pbar.update(n // n_b)
+                    pbar.set_postfix(loss=self.losses[-1],
+                                     vars=[round(v, 6) for v in
+                                           self.var_history[-1]])
+        if pbar is not None:
+            pbar.close()
         self.wall_time = time.time() - t0
 
     # ------------------------------------------------------------------ #
     def _state(self) -> dict:
         state = {"trainables": {
-                     "params": [list(pair) for pair in self.net.layers()],
+                     "params": self._tree(),
                      "vars": list(self._vars), "col_weights": self._cw},
                  "opt_state": {name: _opt_entries(opt) for name, opt in
                                zip(("net", "vars", "lam"), self._opts)
@@ -458,6 +469,13 @@ class DiscoveryModel:
         if buffers:  # a FourierMLP's B: the function depends on it
             state["net_buffers"] = buffers
         return state
+
+    def _tree(self) -> list:
+        """The parameters in the checkpoint's layout: ``[[W, b], ...]`` for
+        the MLP family, the flat list of a custom module's."""
+        tree = self.net.param_tree(self.net.params())
+        return ([list(pair) for pair in tree] if isinstance(self.net, MLP)
+                else list(tree))
 
     def save_checkpoint(self, path: str):
         """The full inverse-problem state under the directory ``path``
@@ -486,9 +504,10 @@ class DiscoveryModel:
 
         tr = state["trainables"]
         with torch.no_grad():
-            self.net.load_layers([(dev(W), dev(b)) for W, b in tr["params"]])
+            self.net.load_params([dev(a) for a in param_leaves(tr["params"])])
+            live = net_buffers(self.net)
             for name, saved in state.get("net_buffers", {}).items():
-                getattr(self.net, name).copy_(dev(saved))
+                live[name].copy_(dev(saved))
             for v, saved in zip(self._vars, tr["vars"]):
                 v.copy_(dev(saved))
             if self._cw is not None:
@@ -527,8 +546,8 @@ class DiscoveryModel:
         """The network's ``u`` at ``X_star`` (NumPy)."""
         X = torch.as_tensor(np.ascontiguousarray(X_star, np.float32),
                             device=self.device)
-        with ieee_f32(), torch.no_grad():
-            return self.apply_fn(self.net.layers(), X).cpu().numpy()
+        with matmul_precision(self.precision), torch.no_grad():
+            return self.apply_fn(self.net.params(), X).float().cpu().numpy()
 
     def predict_f(self, X_star):
         """The learned PDE's residual at ``X_star`` under the current
@@ -536,8 +555,8 @@ class DiscoveryModel:
         equation (a tuple for systems)."""
         X = torch.as_tensor(np.ascontiguousarray(X_star, np.float32),
                             device=self.device)
-        with ieee_f32(), torch.no_grad():
-            f = self._generic_residual(self.net.layers(), self._vars, X)
+        with matmul_precision(self.precision), torch.no_grad():
+            f = self._generic_residual(self.net.params(), self._vars, X)
         if isinstance(f, tuple):
             return tuple(p.cpu().numpy().reshape(-1, 1) for p in f)
         return f.cpu().numpy().reshape(-1, 1)

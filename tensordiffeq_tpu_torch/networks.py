@@ -9,31 +9,51 @@ transform the coordinates ahead of the same dense stack, and the
 architecture record that the solver's ``save`` and the serving artifact
 share.
 
-Every network applies its ``[(W, b), ...]`` dense layers through
-:meth:`MLP.apply` (``apply(layers, x)``): the solver, the residual engines
-and the serving engine call that, so an embedding family runs wherever the
-MLP does.  Only the plain :class:`MLP` qualifies for the fused engines
-(``ops/fused.py::mlp_qualifies`` gates on ``type(net) is MLP``, as in the
-JAX package); the families train on the generic engine.
+The network protocol.  The solver, its training loops, the checkpoints
+and the serving path see a network through these:
 
+* ``params()``: the flat list of its parameter tensors (the live ones);
+* ``apply(params, x)``: the network at ``x [..., n_in]`` with those
+  parameters (the live ones, or any others of the same shapes);
+* ``load_params(params)``: copy values into the parameters;
+* ``param_tree(params)``: the structure the solver hands its users and
+  writes to disk (``[(W, b), ...]`` for the MLP family, the flat list for
+  any other module), and :func:`net_buffers`, the arrays its function
+  depends on beyond the parameters.
+
+The MLP family keeps ``layers()`` (``[(W, b), ...]``) for the Taylor
+propagation and the kernels; its ``apply`` takes either form.  Any other
+``nn.Module`` that maps ``[N, n_in]`` to ``[N, n_out]`` is adapted by
+:class:`ModuleNet` through ``torch.func.functional_call`` over its
+``named_parameters()`` (registration order; a tied parameter once), with
+its buffers carried.  Only the plain float32 tanh :class:`MLP` qualifies for
+the fused engines (``ops/fused.py::mlp_qualifies`` gates on ``type(net) is
+MLP``, the activation and both dtypes, as in the JAX package); the
+families, the other knobs and custom modules train on the generic engine.
+
+The MLP's knobs are the JAX package's: ``activation`` (any callable,
+default ``torch.tanh``), ``precision`` (default ``"highest"``;
+:func:`~.utils.resolve_precision`: its products run at it on the card, and
+``None``/``"default"`` takes the single-pass TF32 flavor of the kernels),
+``param_dtype`` (the parameters' storage) and ``dtype`` (flax ``Dense``
+semantics: each layer casts its input, kernel and bias to ``dtype`` and
+computes there; the network's output comes back as float32 for the loss).
 Weights are stored as ``[in, out]`` matrices — the flax ``Dense`` layout —
 so a JAX parameter tree converts layer for layer
-(:mod:`tensordiffeq_tpu_torch.weights`), and a layer computes
-``x @ W + b``.  Float32 only: derivatives through tanh are
-precision-sensitive, and the JAX package's default is
-``precision=HIGHEST`` (full float32 matmuls), which is what PyTorch's
-float32 matmul does with TF32 off.
+(:mod:`tensordiffeq_tpu_torch.weights`), and a layer computes ``x @ W +
+b``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from .utils import resolve_device
+from .utils import matmul_precision, resolve_device, resolve_precision
 
 # flax's glorot_normal is a variance-scaling truncated normal on [-2σ, 2σ];
 # σ is divided by the std of a unit normal truncated there so the variance
@@ -41,37 +61,84 @@ from .utils import resolve_device
 _TRUNC_STD = 0.87962566103423978
 
 
-def mlp_forward(layers, x: torch.Tensor) -> torch.Tensor:
-    """Apply ``[(W [in, out], b [out]), ...]`` as a tanh MLP with a linear
-    head; ``x`` is ``[..., in]``."""
-    *hidden, (W_out, b_out) = layers
+# the tanh the fused engines' Taylor propagation differentiates
+TANH = (torch.tanh, F.tanh)
+
+
+def as_layers(params) -> list:
+    """``[(W, b), ...]`` from an MLP-family network, its ``[(W, b), ...]``
+    or its flat parameter list ``[W_0, b_0, W_1, ...]``."""
+    if hasattr(params, "layers") and callable(params.layers):
+        return params.layers()
+    params = list(params)
+    if params and isinstance(params[0], torch.Tensor):
+        return list(zip(params[0::2], params[1::2]))
+    return [tuple(p) for p in params]
+
+
+def mlp_forward(layers, x: torch.Tensor, activation: Callable = torch.tanh,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Apply ``[(W [in, out], b [out]), ...]`` (or the flat list) as an MLP
+    with ``activation`` between the layers and a linear head; ``x`` is
+    ``[..., in]``.  ``dtype`` other than float32: each layer casts its
+    input, W and b to it and computes there (flax ``Dense``), and the
+    output comes back as float32."""
+    *hidden, (W_out, b_out) = as_layers(layers)
+    if dtype is None or dtype == torch.float32:
+        for W, b in hidden:
+            x = activation(x @ W + b)
+        return x @ W_out + b_out
     for W, b in hidden:
-        x = torch.tanh(x @ W + b)
-    return x @ W_out + b_out
+        x = activation(x.to(dtype) @ W.to(dtype) + b.to(dtype))
+    out = x.to(dtype) @ W_out.to(dtype) + b_out.to(dtype)
+    return out.to(torch.float32)
+
+
+def _dtype(d) -> torch.dtype:
+    """A ``dtype=``/``param_dtype=`` argument as a torch dtype: a torch
+    dtype or its name (``"bfloat16"``, ``"float32"``)."""
+    if isinstance(d, torch.dtype):
+        return d
+    if isinstance(d, str) and isinstance(getattr(torch, d, None),
+                                         torch.dtype):
+        return getattr(torch, d)
+    raise ValueError(f"dtype {d!r}: expected a torch dtype or its name")
 
 
 class MLP(nn.Module):
-    """``layer_sizes = [n_in, h1, ..., hk, n_out]`` tanh MLP.
+    """``layer_sizes = [n_in, h1, ..., hk, n_out]`` MLP (tanh by default).
 
     ``weights[i]`` is layer ``i``'s ``[in, out]`` kernel, ``biases[i]`` its
     bias; :meth:`layers` returns them as the ``[(W, b), ...]`` list the
-    Taylor propagation and the kernels consume."""
+    Taylor propagation and the kernels consume, :meth:`params` as the flat
+    list of the network protocol.  ``activation``, ``precision``,
+    ``param_dtype`` and ``dtype`` are the JAX package's knobs (module
+    docstring)."""
 
     def __init__(self, layer_sizes: Sequence[int], device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 activation: Callable = torch.tanh, precision="highest",
+                 param_dtype=torch.float32, dtype=torch.float32):
         super().__init__()
         self.layer_sizes = tuple(int(s) for s in layer_sizes)
         if len(self.layer_sizes) < 2:
             raise ValueError("layer_sizes needs at least [n_in, n_out]")
+        if not callable(activation):
+            raise ValueError(f"activation {activation!r} is not callable")
+        self.activation = activation
+        self.precision = resolve_precision(precision)
+        self.param_dtype = _dtype(param_dtype)
+        self.dtype = _dtype(dtype)
         dev = resolve_device(device)
         self.weights = nn.ParameterList()
         self.biases = nn.ParameterList()
         # the first dense layer reads the embedding's width
         widths = (self.embed_width(),) + self.layer_sizes[1:]
         for fan_in, fan_out in zip(widths[:-1], widths[1:]):
-            self.weights.append(nn.Parameter(
-                torch.empty(fan_in, fan_out, device=dev)))
-            self.biases.append(nn.Parameter(torch.zeros(fan_out, device=dev)))
+            self.weights.append(nn.Parameter(torch.empty(
+                fan_in, fan_out, device=dev, dtype=self.param_dtype)))
+            self.biases.append(nn.Parameter(torch.zeros(
+                fan_out, device=dev, dtype=self.param_dtype)))
         self.reset_parameters(generator)
 
     @torch.no_grad()
@@ -99,14 +166,33 @@ class MLP(nn.Module):
         package's ``_embed``); the identity for the MLP."""
         return x
 
-    def apply(self, layers, x: torch.Tensor) -> torch.Tensor:
+    def apply(self, params, x: torch.Tensor) -> torch.Tensor:
         """The network at ``x [..., n_in]`` with the dense layers
-        ``layers`` (the live ones, or any others of the same shapes)."""
-        return mlp_forward(layers, self.embed(x))
+        ``params`` (the flat list or ``[(W, b), ...]``; the live ones, or
+        any others of the same shapes), its products at the network's
+        precision."""
+        with matmul_precision(self.precision):
+            return mlp_forward(params, self.embed(x), self.activation,
+                               self.dtype)
 
     def layers(self) -> list:
         """``[(W, b), ...]`` — the live parameters, not copies."""
         return list(zip(self.weights, self.biases))
+
+    def params(self) -> list:
+        """The flat parameter list ``[W_0, b_0, W_1, ...]`` (the live
+        tensors): the network protocol's."""
+        return [t for pair in self.layers() for t in pair]
+
+    def param_tree(self, params) -> list:
+        """``[(W, b), ...]`` from the flat list (or the pairs): the
+        structure the solver hands out and checkpoints."""
+        return as_layers(params)
+
+    def load_params(self, params) -> "MLP":
+        """Copy the flat list's (or the pairs') values into the
+        parameters."""
+        return self.load_layers(as_layers(params))
 
     @torch.no_grad()
     def load_layers(self, layers) -> "MLP":
@@ -128,11 +214,83 @@ class MLP(nn.Module):
         return self.apply(self.layers(), x)
 
 
-def neural_net(layer_sizes: Sequence[int], device="cuda",
-               seed: Optional[int] = None) -> MLP:
-    """Build the standard PINN MLP (parity: reference ``networks.py:10``);
-    ``seed`` makes the init reproducible."""
-    return MLP(layer_sizes, device=device, generator=init_generator(seed))
+def neural_net(layer_sizes: Sequence[int], activation: Callable = torch.tanh,
+               precision="highest", dtype=torch.float32, device="cuda",
+               seed: Optional[int] = None,
+               param_dtype=torch.float32) -> MLP:
+    """Build the standard PINN MLP (parity: reference ``networks.py:10``;
+    the JAX package's ``neural_net(layer_sizes, activation, precision,
+    dtype)``); ``seed`` makes the init reproducible."""
+    return MLP(layer_sizes, device=device, generator=init_generator(seed),
+               activation=activation, precision=precision,
+               param_dtype=param_dtype, dtype=dtype)
+
+
+class ModuleNet(nn.Module):
+    """Any ``nn.Module`` mapping ``[N, n_in]`` to ``[N, n_out]``, adapted to
+    the network protocol (module docstring): ``params()`` is the module's
+    ``named_parameters()`` in registration order (a tied or shared
+    parameter once, under its first name), ``apply(params, x)`` runs the
+    module through ``torch.func.functional_call`` with those tensors and
+    its own buffers (tied names follow their first), and a point ``x
+    [n_in]`` is taken as ``[1, n_in]``.  The module is held, not copied:
+    training updates its parameters in place.  ``precision`` (or the
+    module's own ``precision`` attribute) is its products' matmul
+    precision on the card."""
+
+    def __init__(self, module: nn.Module, precision="highest"):
+        super().__init__()
+        if not isinstance(module, nn.Module):
+            raise TypeError(f"network must be a torch.nn.Module, got "
+                            f"{type(module).__name__}")
+        self.module = module
+        self.precision = resolve_precision(
+            getattr(module, "precision", precision))
+        self.names = [n for n, _ in module.named_parameters()]
+        if not self.names:
+            raise ValueError(f"{type(module).__name__} has no parameters "
+                             "to train")
+
+    def params(self) -> list:
+        return [p for _, p in self.module.named_parameters()]
+
+    def param_tree(self, params) -> list:
+        return list(params)
+
+    @torch.no_grad()
+    def load_params(self, params) -> "ModuleNet":
+        params = list(params)
+        live = self.params()
+        if len(params) != len(live):
+            raise ValueError(f"expected {len(live)} parameter tensors, got "
+                             f"{len(params)}")
+        for name, p, new in zip(self.names, live, params):
+            if tuple(new.shape) != tuple(p.shape):
+                raise ValueError(f"parameter {name!r} has shape "
+                                 f"{tuple(p.shape)}, got {tuple(new.shape)}")
+            p.copy_(new)
+        return self
+
+    def apply(self, params, x: torch.Tensor) -> torch.Tensor:
+        mapping = dict(zip(self.names, params))
+        mapping.update(self.module.named_buffers())
+        lead = x.shape[:-1]
+        with matmul_precision(self.precision):
+            y = torch.func.functional_call(
+                self.module, mapping, (x.reshape(-1, x.shape[-1]),))
+        return y.reshape(*lead, y.shape[-1])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.apply(self.params(), x)
+
+
+def as_network(network: nn.Module) -> nn.Module:
+    """``network`` under the protocol: the MLP family (and a
+    :class:`ModuleNet`) as it is, any other ``nn.Module`` wrapped in a
+    :class:`ModuleNet`."""
+    if isinstance(network, (MLP, ModuleNet)):
+        return network
+    return ModuleNet(network)
 
 
 class FourierMLP(MLP):
@@ -153,11 +311,12 @@ class FourierMLP(MLP):
     def __init__(self, layer_sizes: Sequence[int], n_frequencies: int = 64,
                  sigma: float = 1.0, feature_seed: int = 0,
                  B: Optional[torch.Tensor] = None, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, **knobs):
         self.n_frequencies = int(n_frequencies)
         self.sigma = float(sigma)
         self.feature_seed = int(feature_seed)
-        super().__init__(layer_sizes, device=device, generator=generator)
+        super().__init__(layer_sizes, device=device, generator=generator,
+                         **knobs)
         n_in = self.layer_sizes[0]
         if B is None:
             g = torch.Generator()
@@ -188,11 +347,12 @@ class PeriodicMLP(MLP):
 
     def __init__(self, layer_sizes: Sequence[int], periodic=(),
                  n_harmonics: int = 4, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, **knobs):
         self.periodic = tuple((int(d), float(lb), float(p))
                               for d, lb, p in periodic)
         self.n_harmonics = int(n_harmonics)
-        super().__init__(layer_sizes, device=device, generator=generator)
+        super().__init__(layer_sizes, device=device, generator=generator,
+                         **knobs)
         self.register_buffer("ks", torch.arange(
             1, self.n_harmonics + 1, dtype=torch.float32,
             device=self.weights[0].device))
@@ -267,15 +427,16 @@ REBUILDABLE_NETS = ("MLP", "FourierMLP", "PeriodicMLP")
 def net_metadata(net: nn.Module, layer_sizes: Sequence[int],
                  n_out: int) -> dict:
     """JSON-serialisable architecture record for ``net`` (the JAX
-    package's keys; the port's networks are always tanh).  The embedding
-    families add ``net_config``: loading weights into another embedding
-    would be another function."""
-    act = "tanh" if isinstance(net, MLP) else getattr(
-        getattr(net, "activation", None), "__name__", "None")
+    package's keys: the activation's name, the network's type — a
+    :class:`ModuleNet`'s is its module's).  The embedding families add
+    ``net_config``: loading weights into another embedding would be
+    another function."""
+    inner = net.module if isinstance(net, ModuleNet) else net
+    act = getattr(inner, "activation", None)
     meta = {"format": 1,
             "layer_sizes": list(layer_sizes),
-            "activation": act,
-            "network_type": type(net).__name__,
+            "activation": getattr(act, "__name__", str(act)),
+            "network_type": type(inner).__name__,
             "n_out": int(n_out)}
     if type(net) is FourierMLP:
         meta["net_config"] = {"n_frequencies": net.n_frequencies,
@@ -288,8 +449,11 @@ def net_metadata(net: nn.Module, layer_sizes: Sequence[int],
 
 
 def net_buffers(net: nn.Module) -> dict:
-    """The arrays a network's function depends on beyond its dense layers
-    (a :class:`FourierMLP`'s ``B``), for checkpoints and artifacts."""
+    """The arrays a network's function depends on beyond its parameters (a
+    :class:`FourierMLP`'s ``B``, a :class:`ModuleNet`'s module buffers by
+    name), the live tensors, for checkpoints and artifacts."""
+    if isinstance(net, ModuleNet):
+        return dict(net.module.named_buffers())
     return {"B": net.B} if type(net) is FourierMLP else {}
 
 
@@ -300,7 +464,8 @@ def net_from_metadata(meta: dict, device="cuda") -> MLP:
     (:data:`REBUILDABLE_NETS`); a custom module must be rebuilt by the
     caller and handed in directly.  A :class:`FourierMLP` comes back with
     the ``B`` its seed draws here; the caller restores the saved ``B``
-    (:func:`net_buffers`) over it."""
+    (:func:`net_buffers`) over it.  The knobs take their defaults, as in
+    the JAX package (a tanh float32 net at precision HIGHEST)."""
     ntype = meta.get("network_type")
     if ntype not in REBUILDABLE_NETS \
             or "tanh" not in str(meta.get("activation", "")):

@@ -12,7 +12,9 @@ library by :func:`.cuda_taylor.build`.
 :func:`k3_minimax` launches it for CUDA tensors or raises; nothing here
 falls back.  :func:`k3_minimax_bf16` launches its bf16-operand flavor (the
 products of ``taylor_derivatives(compute_dtype=torch.bfloat16)``,
-``csrc/taylor_common.cuh``) and counts its own launches.  The plain flavor, the CPU path and the kernel's referee, is
+``csrc/taylor_common.cuh``) and counts its own launches, and
+:func:`k3_minimax_tf32` its single-pass TF32 flavor (precision
+``"default"``).  The plain flavor, the CPU path and the kernel's referee, is
 ``tile_sq`` in :mod:`.minimax`.
 """
 
@@ -106,11 +108,24 @@ def k3_minimax_bf16(plan: MinimaxPlan, X: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def k3_minimax_tf32(plan: MinimaxPlan, X: torch.Tensor, w: torch.Tensor,
+                    flat: torch.Tensor):
+    """Launch K3's single-pass TF32 flavor (precision ``"default"``): every
+    product on TF32-rounded operands in one tensor-core pass, f32 sums; its
+    referee is the plain flavor over ``taylor_derivatives(emulate_tf32=
+    True)``."""
+    out = _k3(plan, X, w, flat, 2)
+    k3_minimax_tf32.launches += 1
+    return out
+
+
 k3_minimax.launches = 0
 k3_minimax_bf16.launches = 0
-ct.COUNTED.extend([k3_minimax, k3_minimax_bf16])
+k3_minimax_tf32.launches = 0
+ct.COUNTED.extend([k3_minimax, k3_minimax_bf16, k3_minimax_tf32])
 # K3 of each flavor
-FLAVORS = {None: k3_minimax, torch.bfloat16: k3_minimax_bf16}
+FLAVORS = {None: k3_minimax, torch.bfloat16: k3_minimax_bf16,
+           ct.TF32: k3_minimax_tf32}
 
 
 def tensor_passes(plan: MinimaxPlan, compute_dtype=None) -> float:
@@ -119,8 +134,8 @@ def tensor_passes(plan: MinimaxPlan, compute_dtype=None) -> float:
     K2's products and the head's forward product, one pass in the bf16
     flavor."""
     k2 = ct.tensor_passes(plan, compute_dtype)["k2"]
-    if k2 == 3.0:
-        return 3.0
+    if ct.flavor_of(compute_dtype) != torch.bfloat16:
+        return k2
     tc = ct._tensor_products(plan)
     k2_tc = sum(tc[:-1]) + 2 * sum(tc)
     head = tc[-1]

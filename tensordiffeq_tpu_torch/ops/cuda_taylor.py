@@ -34,6 +34,18 @@ product on operands rounded to bf16 with f32 sums, the stack's cotangent and
 :func:`k1_forward_bf16` and :func:`k2_backward_bf16`, which count their own
 launches; ``build_cuda_table_fn(compute_dtype=torch.bfloat16)`` takes them,
 and its CPU flavor is ``taylor_derivatives(compute_dtype=torch.bfloat16)``.
+
+A third flavor is the single-pass TF32 product of precision ``"default"``
+(the network's ``precision=None``; :func:`~..utils.resolve_flavor`):
+every product on its operands' TF32 hi parts (``cvt.rna``) in one
+tensor-core pass, f32 sums, in the float32 flavor's layout; K1's wgmma
+route streams the hi weight plane alone.  :func:`k1_forward_tf32` and
+:func:`k2_backward_tf32` launch it and count their own launches; its
+referee is ``taylor_derivatives(emulate_tf32=True)``.  ``"high"`` and
+``"highest"`` keep the 3xTF32 float32 flavor, f32-grade and the nearest to
+a TPU's bf16x3.  A ``compute_dtype=bfloat16`` request overrides the
+precision.  The flavors are keyed ``None``, ``torch.bfloat16`` and
+:data:`~..utils.TF32`; the C interface takes them as 0, 1 and 2.
 """
 
 from __future__ import annotations
@@ -49,8 +61,8 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from ..utils import resolve_compute_dtype, resolve_device
-from .taylor import canonical, channel_order, taylor_derivatives
+from ..utils import TF32, resolve_compute_dtype, resolve_device, resolve_flavor
+from .taylor import canonical, channel_order, rna_tf32, taylor_derivatives
 
 MAX_LAYERS = 16    # MAXL in csrc/taylor_common.cuh
 MAX_CHANNELS = 16  # MAXC in csrc/taylor_common.cuh
@@ -169,7 +181,7 @@ def build() -> ctypes.CDLL:
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(so)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    # the int before the stream: 1 launches the bf16-operand flavor
+    # the int before the stream: the flavor (FLAVOR_CODE)
     lib.tdq_taylor_fwd.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr, i32,
                                    ptr]
     lib.tdq_taylor_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
@@ -181,9 +193,9 @@ def build() -> ctypes.CDLL:
     lib.tdq_minimax_limits.argtypes = [ptr]
     lib.tdq_workspace_floats.argtypes = [ptr, i32, i32, i32]
     lib.tdq_workspace_floats.restype = ctypes.c_longlong
-    # K1's wgmma route: its plan (net, sched, bf16, the card's shared
+    # K1's wgmma route: its plan (net, sched, flavor, the card's shared
     # memory and SMs, N, out), and its launch (X, prm, weight chunks, table,
-    # N, net, sched, bf16, plan, stream)
+    # N, net, sched, flavor, plan, stream)
     lib.tdq_k1wg_plan.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
     lib.tdq_taylor_fwd_wg.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, ptr,
                                       i32, ptr, ptr]
@@ -208,6 +220,27 @@ def build() -> ctypes.CDLL:
     return lib
 
 
+def flavor_of(flavor):
+    """The flavor key (``None``, ``torch.bfloat16`` or :data:`TF32`) of a
+    ``flavor``/``compute_dtype`` argument: those, ``"bfloat16"``, or
+    ``"tf32"``."""
+    if isinstance(flavor, str) and flavor == TF32:
+        return TF32
+    return resolve_compute_dtype(flavor)
+
+
+def _layout(flavor):
+    """The buffer layout a flavor's kernels use: the bf16 flavor's own, or
+    the float32 one (``None``), which the TF32 flavor shares."""
+    return torch.bfloat16 if flavor_of(flavor) is torch.bfloat16 else None
+
+
+# the C interface's flavor argument (FL_F32, FL_BF16, FL_TF32 in
+# csrc/taylor_common.cuh), and back
+FLAVOR_CODE = {None: 0, torch.bfloat16: 1, TF32: 2}
+FLAVOR_OF = {code: key for key, code in FLAVOR_CODE.items()}
+
+
 def slot_stride(n: int) -> int:
     """Floats between the per-block partial slots of ``n`` values: a
     multiple of 4, so each slot starts 16-byte aligned (``slot_stride`` in
@@ -222,11 +255,12 @@ def tile_points(smem: int, stage_bytes: tuple, ld: int, C: int,
     bf16)`` bytes, wavefront rows of ``ld`` floats and ``C`` channels: the
     most rows, a multiple of the tensor cores' 16 and at most one block
     tile (``BLOCK_ROWS``), whose wavefront arrays fit beside the stage, over
-    ``C``.  K1 keeps the f32 flavor's tile in both flavors (its bf16 body
+    ``C``.  K1 keeps the f32 flavor's tile in every flavor (its bf16 body
     needs less); K2/K3 take the flavor's own layout (``BWD_SLOTS``) and
-    stage, so the bf16 flavor's tile is taller.  Raises
-    :class:`KernelLaunchError` when 16 rows do not fit."""
-    dtype = resolve_compute_dtype(flavor)
+    stage, so the bf16 flavor's tile is taller (the TF32 flavor's is the
+    f32 one's).  Raises :class:`KernelLaunchError` when 16 rows do not
+    fit."""
+    dtype = _layout(flavor)
     slot_row = 2 * ld  # bytes of one row of a bf16 slot
     tps = []
     for slots, stage in ((K1_SLOTS, stage_bytes[0]),
@@ -247,8 +281,8 @@ def ws_floats(L: int, R: int, ld: int, flavor=None) -> int:
     (``ws_slices`` and ``ws_floats_bf`` in ``csrc/taylor_common.cuh``): the
     f32 flavor stages 2L-3 layers of R x ld floats; the bf16 flavor the L-1
     pre-activation layers so and the L-2 layer inputs as bf16, pad16(R) x
-    ld each."""
-    if resolve_compute_dtype(flavor) is None:
+    ld each.  The TF32 flavor's is the f32 one's."""
+    if _layout(flavor) is None:
         return (2 * L - 3) * R * ld
     return (L - 1) * R * ld + (L - 2) * (-(-R // 16) * 16) * ld // 2
 
@@ -262,7 +296,7 @@ def workspace_floats(layer_shapes: Sequence[tuple], R: int, ld: int, G: int,
     floats)."""
     L = len(layer_shapes)
     floats = G * ws_floats(L, R, ld, flavor)
-    if resolve_compute_dtype(flavor) is not None:
+    if _layout(flavor) is not None:
         copy = sum(fi * -(-fo // 8) * 8 for fi, fo in layer_shapes[1:])
         floats += -(-copy // 8) * 4
     return floats
@@ -273,7 +307,7 @@ def workspace_floats(layer_shapes: Sequence[tuple], R: int, ld: int, G: int,
 # plain mirror of its weight preparation
 # ------------------------------------------------------------------ #
 # wg_tile: rows of a block's tile, 64 per consumer warpgroup (two in the
-# f32 flavor, three in the bf16 one)
+# f32 and TF32 flavors, three in the bf16 one); keyed by "is bf16"
 WG_TILE_ROWS = {False: 128, True: 192}
 WG_MAX_STAGES = 8   # WG_MAXS: weight stages in shared memory
 WG_MAX_D = 16       # WG_MAXD: inputs
@@ -297,12 +331,26 @@ class WgPlan(NamedTuple):
     smem: int         # dynamic shared memory bytes
 
 
-def wg_plan(layer_shapes: Sequence[tuple], orders: Sequence[int], bf16: bool,
+def _wg_code(flavor) -> int:
+    """The route's flavor code from a flavor key or a bool (``True``: the
+    bf16 flavor, ``False``: the f32 one), or the code itself."""
+    if isinstance(flavor, bool):
+        return int(flavor)
+    if isinstance(flavor, int):
+        return flavor
+    return FLAVOR_CODE[flavor_of(flavor)]
+
+
+def wg_plan(layer_shapes: Sequence[tuple], orders: Sequence[int], flavor,
             smem_optin: int, n_sm: int, N: int):
-    """The wgmma route's :class:`WgPlan` for these shapes, or ``None`` where
-    the shape is the other route's: more than ``WG_MAX_C`` channels, a
-    hidden width over ``WG_MAX_WIDTH``, more than ``WG_MAX_D`` inputs or
-    ``WG_MAX_OUT`` outputs, or a ring of fewer than two stages."""
+    """The wgmma route's :class:`WgPlan` for these shapes in a flavor (a
+    key, a code, or a bool for bf16), or ``None`` where the shape is the
+    other route's: more than ``WG_MAX_C`` channels, a hidden width over
+    ``WG_MAX_WIDTH``, more than ``WG_MAX_D`` inputs or ``WG_MAX_OUT``
+    outputs, or a ring of fewer than two stages.  The TF32 flavor's chunks
+    are the f32 flavor's with the hi plane alone."""
+    code = _wg_code(flavor)
+    bf16 = code == 1
     L = len(layer_shapes)
     d, n_out = layer_shapes[0][0], layer_shapes[-1][1]
     C = len(orders)
@@ -316,7 +364,7 @@ def wg_plan(layer_shapes: Sequence[tuple], orders: Sequence[int], bf16: bool,
     NP = 64 if width <= 64 else 128
     KC = NP if bf16 else 64
     P = (L - 2) * (NP // KC)
-    stage_bytes = NP * KC * (2 if bf16 else 8)
+    stage_bytes = NP * KC * (2 if bf16 else (4 if code == 2 else 8))
     misc = -(-4 * (NP * (d + L - 1 + n_out) + WG_MAX_OUT) // 16) * 16
     bars = 2 * WG_MAX_STAGES * 8
     if P == 0:
@@ -343,21 +391,24 @@ def wg_kslots(KC: int, bf16: bool) -> list:
 def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``split_tf32`` of ``csrc/taylor_common.cuh`` on float32 ``x``: ``hi``
     rounded to TF32 (to nearest, ties away from zero: the bits plus 2^12,
-    the low 13 cleared), ``lo = x - hi`` (exact)."""
-    bits = x.contiguous().view(torch.int32)
-    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    the low 13 cleared; :func:`~.taylor.rna_tf32`), ``lo = x - hi``
+    (exact)."""
+    hi = rna_tf32(x)
     return hi, x - hi
 
 
-def wg_prepare(flat_layers, wp: WgPlan, bf16: bool) -> torch.Tensor:
+def wg_prepare(flat_layers, wp: WgPlan, flavor) -> torch.Tensor:
     """The plain mirror of ``prep_wg_weights``: the bytes of the hidden
     layers' weights as the route's chunks lay them out, ``P`` chunks of
     ``stage_bytes``.  Chunk ``q`` holds layer ``1 + q // (NP // KC)``'s k
     rows ``(q % (NP // KC)) * KC ..`` as W^T (N = NP rows, K = KC columns,
     zero past the layer's shape), in :func:`wg_kslots` order, laid out in
     core matrices (``wg_cm_offset``): one plane of bf16 rounded to nearest
-    even, or the two float32 planes of :func:`split_tf32`, ``hi`` then
-    ``lo``."""
+    even (``flavor`` the bf16 one, or ``True``), the two float32 planes of
+    :func:`split_tf32`, ``hi`` then ``lo`` (the f32 flavor, or ``False``),
+    or the ``hi`` plane alone (the TF32 flavor)."""
+    code = _wg_code(flavor)
+    bf16, tf32 = code == 1, code == 2
     NP, KC = wp.NP, wp.KC
     epc = 8 if bf16 else 4
     n = torch.arange(NP).view(NP, 1)
@@ -375,6 +426,10 @@ def wg_prepare(flat_layers, wp: WgPlan, bf16: bool) -> torch.Tensor:
         if bf16:
             out = torch.empty(NP * KC, dtype=torch.bfloat16)
             out[off] = plane.to(torch.bfloat16)
+            chunks.append(out.view(torch.uint8))
+        elif tf32:
+            out = torch.empty(NP * KC)
+            out[off] = rna_tf32(plane)
             chunks.append(out.view(torch.uint8))
         else:
             hi, lo = split_tf32(plane)
@@ -500,14 +555,14 @@ class _Plan:
         (:func:`wg_plan`).  Before a flavor's first launch the kernels' own
         plan (``tdq_k1wg_plan``) is held to this one: a drift raises
         :class:`KernelBuildError`."""
-        dtype = resolve_compute_dtype(compute_dtype)
+        dtype = flavor_of(compute_dtype)
         smem, n_sm = self.card(device)
-        wp = wg_plan(self.layer_shapes, self.orders, dtype is not None, smem,
+        wp = wg_plan(self.layer_shapes, self.orders, FLAVOR_CODE[dtype], smem,
                      n_sm, N)
         if dtype not in self.k1_checked:
             out = (ctypes.c_int * len(WgPlan._fields))()
             took = build().tdq_k1wg_plan(self.net_h, self.sched_h,
-                                         int(dtype is not None), smem, n_sm,
+                                         FLAVOR_CODE[dtype], smem, n_sm,
                                          N, out)
             got = WgPlan(*out) if took else None
             if got != wp:
@@ -522,7 +577,7 @@ class _Plan:
         """Points per block for K1 and K2/K3 in a flavor
         (:func:`tile_points` over the card's opt-in shared memory), and the
         card's SM count."""
-        dtype = resolve_compute_dtype(compute_dtype)
+        dtype = flavor_of(compute_dtype)
         if dtype not in self.tiles:
             lib = build()
             smem, n_sm = self.card(device)
@@ -534,7 +589,7 @@ class _Plan:
                 want = workspace_floats(self.layer_shapes, tiles[1] * self.C,
                                         self.ld, G, dtype)
                 got = lib.tdq_workspace_floats(
-                    self.net_h, tiles[1] * self.C, G, int(dtype is not None))
+                    self.net_h, tiles[1] * self.C, G, FLAVOR_CODE[dtype])
                 if got != want:
                     raise KernelBuildError(
                         f"the kernels' workspace is {got} floats for {G} "
@@ -566,10 +621,6 @@ def _check_cuda_inputs(plan: _Plan, X: torch.Tensor, flat: torch.Tensor):
     if flat.numel() != plan.P_total:
         raise ValueError(f"layers hold {flat.numel()} values, the plan "
                          f"expects {plan.P_total}")
-
-
-# the C interface's bf16 argument -> the flavor's compute dtype
-FLAVOR_OF = {0: None, 1: torch.bfloat16}
 
 
 def _k1(plan: _Plan, X: torch.Tensor, flat: torch.Tensor,
@@ -614,8 +665,18 @@ def k1_forward_bf16(plan: _Plan, X: torch.Tensor,
     return table
 
 
+def k1_forward_tf32(plan: _Plan, X: torch.Tensor,
+                    flat: torch.Tensor) -> torch.Tensor:
+    """Launch K1's single-pass TF32 flavor (precision ``"default"``): the
+    table of ``taylor_derivatives(emulate_tf32=True)``."""
+    table = _k1(plan, X, flat, 2)
+    k1_forward_tf32.launches += 1
+    return table
+
+
 k1_forward.launches = 0
 k1_forward_bf16.launches = 0
+k1_forward_tf32.launches = 0
 
 
 def _k2(plan: _Plan, X: torch.Tensor, flat: torch.Tensor, g: torch.Tensor,
@@ -665,16 +726,29 @@ def k2_backward_bf16(plan: _Plan, X: torch.Tensor, flat: torch.Tensor,
     return out
 
 
+def k2_backward_tf32(plan: _Plan, X: torch.Tensor, flat: torch.Tensor,
+                     g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K2's single-pass TF32 flavor: the cotangents of
+    :func:`k1_forward_tf32`'s table, each product on TF32-rounded
+    operands (the cotangent's included)."""
+    out = _k2(plan, X, flat, g, 2)
+    k2_backward_tf32.launches += 1
+    return out
+
+
 k2_backward.launches = 0
 k2_backward_bf16.launches = 0
+k2_backward_tf32.launches = 0
 
 # (K1, K2) of each flavor
 FLAVORS = {None: (k1_forward, k2_backward),
-           torch.bfloat16: (k1_forward_bf16, k2_backward_bf16)}
+           torch.bfloat16: (k1_forward_bf16, k2_backward_bf16),
+           TF32: (k1_forward_tf32, k2_backward_tf32)}
 
 # every kernel wrapper of the package, K3's included once its module is
 # imported; reset_launch_counts() zeroes them all
-COUNTED = [k1_forward, k2_backward, k1_forward_bf16, k2_backward_bf16]
+COUNTED = [k1_forward, k2_backward, k1_forward_bf16, k2_backward_bf16,
+           k1_forward_tf32, k2_backward_tf32]
 
 
 def reset_launch_counts():
@@ -702,7 +776,8 @@ class _TaylorTable(torch.autograd.Function):
 
 
 def build_cuda_table_fn(requests: set, layer_shapes: Sequence[tuple],
-                        device="cuda", compute_dtype=None):
+                        device="cuda", compute_dtype=None,
+                        precision="highest"):
     """Build ``table_fn(layers, X) -> {mi: [N, n_out]}`` backed by the CUDA
     kernels (the primal ``()`` is implied).
 
@@ -716,9 +791,14 @@ def build_cuda_table_fn(requests: set, layer_shapes: Sequence[tuple],
         take the plain flavor, CUDA tensors launch the kernels.
       compute_dtype: ``None`` (K1/K2) or ``"bfloat16"``/``torch.bfloat16``
         (their bf16-operand flavor, and the plain bf16 flavor on the CPU).
+      precision: the network's (:func:`~..utils.resolve_precision`):
+        ``"default"`` (``None``) takes the single-pass TF32 flavor,
+        ``"high"``/``"highest"`` the 3xTF32 one; a bf16 ``compute_dtype``
+        overrides it.  On the CPU every precision computes IEEE float32.
     """
     resolve_device(device)
     dtype = resolve_compute_dtype(compute_dtype)
+    flavor = resolve_flavor(dtype, precision)
     plan = _Plan(set(map(canonical, requests)), layer_shapes)
 
     def table_fn(layers, X):
@@ -727,12 +807,13 @@ def build_cuda_table_fn(requests: set, layer_shapes: Sequence[tuple],
                                        flat_matmul=True, compute_dtype=dtype)
             return {mi: table[mi] for mi in plan.mis}
         flat_layers = [t for pair in layers for t in pair]
-        table = _TaylorTable.apply(plan, FLAVORS[dtype], X.contiguous(),
+        table = _TaylorTable.apply(plan, FLAVORS[flavor], X.contiguous(),
                                    *flat_layers)
         return {mi: table[plan.pos[mi]] for mi in plan.mis}
 
     table_fn.plan = plan
     table_fn.compute_dtype = dtype
+    table_fn.flavor = flavor
     return table_fn
 
 
@@ -769,14 +850,18 @@ def _mean_passes(plan: _Plan, fwd_passes: int, back_passes: int) -> dict:
 def tensor_passes(plan: _Plan, compute_dtype=None) -> dict:
     """Tensor-core passes per product of each kernel, averaged over its
     ``flop_count`` ``tensor`` share: 3 TF32 passes in the f32 flavor
-    (3xTF32, priced at the TF32 peak); in the bf16 flavor bf16 passes
+    (3xTF32, priced at the TF32 peak), 1 in the TF32 flavor; in the bf16
+    flavor bf16 passes
     (priced at the dense bf16 peak), 1 for a forward product (two bf16
     operands) and 3 for a dW or dH product (the f32 cotangent's 24
     significand bits in three bf16 pieces against the bf16 operand): the
     passes its kernels take, and the fewest the card's fastest route for
     these types takes (``wgmma`` would take as many)."""
-    if resolve_compute_dtype(compute_dtype) is None:
+    flavor = flavor_of(compute_dtype)
+    if flavor is None:
         return {"k1": 3.0, "k2": 3.0}
+    if flavor == TF32:
+        return {"k1": 1.0, "k2": 1.0}
     return _mean_passes(plan, 1, 3)
 
 

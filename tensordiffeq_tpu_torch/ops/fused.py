@@ -111,12 +111,18 @@ class SymbolicUFn(UFn):
 
 def mlp_qualifies(net, params=None):
     """The ``[(W, b), ...]`` layers when ``net`` is exactly the port's
-    float32 tanh :class:`~tensordiffeq_tpu_torch.networks.MLP` the Taylor
-    propagation can differentiate, else ``None`` (a subclass may override
-    ``forward``, so it is excluded)."""
-    from ..networks import MLP
+    standard float32 tanh :class:`~tensordiffeq_tpu_torch.networks.MLP`
+    the Taylor propagation can differentiate, else ``None``: the JAX
+    package's gate.  A subclass may override ``forward`` (and the
+    embedding families transform the coordinates), another activation is
+    another chain rule, and a bf16 ``dtype`` or ``param_dtype`` would
+    diverge from the generic engine's numerics, so all are excluded; the
+    ``precision`` is no part of the gate."""
+    from ..networks import MLP, TANH
 
-    if type(net) is not MLP:
+    if (type(net) is not MLP or net.activation not in TANH
+            or net.dtype != torch.float32
+            or net.param_dtype != torch.float32):
         return None
     layers = extract_mlp_layers(net if params is None else params)
     if layers is None or any(W.dtype != torch.float32 for W, _ in layers):
@@ -212,9 +218,11 @@ def make_fused_residual(f_model: Callable, varnames: Sequence[str],
                         table_producer: Optional[Callable] = None,
                         has_prefix_arg: bool = False,
                         return_primal: bool = False,
-                        compute_dtype=None) -> Callable:
+                        compute_dtype=None,
+                        precision="highest") -> Callable:
     """Build ``residual(params, X) -> [N] | tuple of [N]`` backed by one
-    Taylor propagation.  ``params`` is an MLP or its ``[(W, b), ...]``.
+    Taylor propagation.  ``params`` is an MLP, its flat parameter list or
+    its ``[(W, b), ...]``.
 
     ``table_producer(layers, X) -> {mi: [N, n_out]}`` replaces the plain
     propagation — the hook the CUDA kernels plug into
@@ -229,7 +237,9 @@ def make_fused_residual(f_model: Callable, varnames: Sequence[str],
 
     ``compute_dtype`` (``None`` or ``"bfloat16"``/``torch.bfloat16``): the
     plain propagation's flavor (:func:`~.taylor.taylor_derivatives`); a
-    ``table_producer`` carries its own."""
+    ``table_producer`` carries its own.  ``precision``: the network's, for
+    the plain propagation's products (on the card; IEEE float32 on the
+    CPU at every precision)."""
     ndim = len(varnames)
     dtype = resolve_compute_dtype(compute_dtype)
 
@@ -238,12 +248,13 @@ def make_fused_residual(f_model: Callable, varnames: Sequence[str],
         if layers is None:
             raise ValueError(
                 "fused residual requires the standard MLP parameters "
-                "[(W, b), ...]")
+                "(its flat list, or [(W, b), ...])")
         if table_producer is not None:
             table = table_producer(layers, X)
         else:
             table = taylor_derivatives(layers, X, requests,
-                                       compute_dtype=dtype)
+                                       compute_dtype=dtype,
+                                       precision=precision)
         # ONE batched re-run of f_model: lookups return whole [N] columns
         coords = tuple(X[:, i] for i in range(ndim))
         u = SymbolicUFn(_TableEngine(coords, table), varnames, n_out)

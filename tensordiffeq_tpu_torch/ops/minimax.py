@@ -25,7 +25,12 @@ Two flavors, chosen by the tensors' device, never by a fallback:
 JAX package's ``build_minimax_sq_fn(compute_dtype=jnp.bfloat16)``: the plain
 flavor over ``taylor_derivatives(compute_dtype=torch.bfloat16)`` on the CPU,
 K3's bf16-operand flavor (:func:`~.cuda_minimax.k3_minimax_bf16`) on the
-card.
+card.  The network's ``precision=`` picks K3's flavor on the card
+(:func:`~..utils.resolve_flavor`): ``"default"`` the single-pass TF32 one
+(:func:`~.cuda_minimax.k3_minimax_tf32`), ``"high"``/``"highest"`` the
+3xTF32 one; the plain flavor computes IEEE float32 on the CPU at every
+precision, and ``plain(..., emulate_tf32=True)`` is the TF32 flavor's
+referee.
 
 The λ modes map onto the ``w`` channels as in the JAX package
 (:func:`make_minimax_residual_loss`); their chain rule composes by
@@ -38,7 +43,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from ..utils import resolve_compute_dtype, resolve_device
+from ..utils import resolve_compute_dtype, resolve_device, resolve_flavor
 from .cuda_minimax import FLAVORS, MinimaxPlan
 from .fused import SymbolicUFn, _TableEngine
 from .residual_tape import lower_residual
@@ -106,7 +111,8 @@ class _MinimaxSq(torch.autograd.Function):
 def build_minimax_sq_fn(f_model: Callable, varnames: Sequence[str],
                         n_out: int, requests: set,
                         layer_shapes: Sequence[tuple],
-                        device="cuda", compute_dtype=None) -> Callable:
+                        device="cuda", compute_dtype=None,
+                        precision="highest") -> Callable:
     """Build ``sq_fn(layers, w, X) -> Σ_e Σ_p w_{p,e}·f_{p,e}(X)²`` (see
     the module docstring).
 
@@ -120,6 +126,8 @@ def build_minimax_sq_fn(f_model: Callable, varnames: Sequence[str],
         returned function dispatches on each call's tensors.
       compute_dtype: ``None`` or ``"bfloat16"``/``torch.bfloat16``: the
         flavor (module docstring).
+      precision: the network's; ``"default"`` takes K3's TF32 flavor on the
+        card (module docstring).  A bf16 ``compute_dtype`` overrides it.
 
     Raises :class:`ValueError` (a
     :class:`~.residual_tape.MinimaxLoweringError` when the ``f_model``
@@ -128,12 +136,14 @@ def build_minimax_sq_fn(f_model: Callable, varnames: Sequence[str],
     block.  ``sq_fn.n_equations`` is E, ``sq_fn.plan`` the kernel's
     :class:`~.cuda_minimax.MinimaxPlan`, and ``sq_fn.plain(flat, w, X)``
     the plain flavor's ``(value, [dW_0, db_0, ...], gw, gX)`` on any
-    device (biases as ``[1, fan_out]``); ``sq_fn.value_and_grads(flat, w,
-    X)`` the same from the flavor the tensors' device takes (one K3 launch
-    for CUDA tensors), outside autograd.  ``sq_fn.compute_dtype`` is the
-    flavor."""
+    device (biases as ``[1, fan_out]``; ``emulate_tf32=True``: the TF32
+    flavor's referee); ``sq_fn.value_and_grads(flat, w, X)`` the same from
+    the flavor the tensors' device takes (one K3 launch for CUDA tensors),
+    outside autograd.  ``sq_fn.compute_dtype`` is the mixed-precision
+    dtype, ``sq_fn.flavor`` the kernel's flavor key."""
     resolve_device(device)
     dtype = resolve_compute_dtype(compute_dtype)
+    flavor = resolve_flavor(dtype, precision)
     mis = _sorted_mis(requests)
     ndim = len(varnames)
     # the lowering rejects any equation that is not one value per point and
@@ -141,9 +151,10 @@ def build_minimax_sq_fn(f_model: Callable, varnames: Sequence[str],
     tape = lower_residual(f_model, varnames, n_out, channel_order(requests))
     plan = MinimaxPlan(set(map(canonical, requests)), layer_shapes, tape)
 
-    def tile_sq(layers, w, x):
+    def tile_sq(layers, w, x, emulate_tf32=False):
         table = taylor_derivatives(list(layers), x, set(mis),
-                                   flat_matmul=True, compute_dtype=dtype)
+                                   flat_matmul=True, compute_dtype=dtype,
+                                   emulate_tf32=emulate_tf32)
         coords = tuple(x[:, i] for i in range(ndim))
         u = SymbolicUFn(_TableEngine(coords, table), varnames, n_out)
         out = f_model(u, *coords)
@@ -152,12 +163,13 @@ def build_minimax_sq_fn(f_model: Callable, varnames: Sequence[str],
         stacked = cols[0] if len(cols) == 1 else torch.cat(cols, 1)
         return torch.sum(w * torch.square(stacked))
 
-    def plain(flat, w, X):
+    def plain(flat, w, X, emulate_tf32=False):
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(True) for t in flat]
             wl = w.detach().requires_grad_(True)
             Xl = X.detach().requires_grad_(True)
-            val = tile_sq(list(zip(leaves[0::2], leaves[1::2])), wl, Xl)
+            val = tile_sq(list(zip(leaves[0::2], leaves[1::2])), wl, Xl,
+                          emulate_tf32)
             # a residual that never reads the primal leaves the head's bias
             # out of the graph: its cotangent is zero, as in JAX
             grads = torch.autograd.grad(val, leaves + [wl, Xl],
@@ -165,7 +177,7 @@ def build_minimax_sq_fn(f_model: Callable, varnames: Sequence[str],
         return val.detach(), list(grads[:-2]), grads[-2], grads[-1]
 
     def kernel(flat, w, X):
-        val, dflat, gw, gX = FLAVORS[dtype](plan, X, w, plan.pack(flat))
+        val, dflat, gw, gX = FLAVORS[flavor](plan, X, w, plan.pack(flat))
         return (val, [g.view_as(t) for g, t in zip(plan.unpack(dflat), flat)],
                 gw, gX)
 
@@ -183,6 +195,7 @@ def build_minimax_sq_fn(f_model: Callable, varnames: Sequence[str],
 
     sq_fn.n_equations = plan.E
     sq_fn.compute_dtype = dtype
+    sq_fn.flavor = flavor
     sq_fn.plan = plan
     sq_fn.plain = plain
     sq_fn.value_and_grads = value_and_grads
@@ -225,7 +238,7 @@ def make_minimax_residual_loss(sq_fn: Callable,
         if layers is None:
             raise ValueError(
                 "minimax residual loss requires the standard MLP parameters "
-                "[(W, b), ...]")
+                "(its flat list, or [(W, b), ...])")
         N = X.shape[0]
         if n_eq == 1:
             lam = lam_res[0] if len(lam_res) > 0 else None

@@ -12,7 +12,7 @@ points (no N×N kernel is formed).  The weights are recomputed between
 training chunks, outside the step, and enter the loss as frozen scalars
 (the SA type-2 position); ``max_ratio`` clips every λ to ``max_ratio ×
 min(λ)``.  The Jacobians are ``torch.func.jacrev`` over the network's
-``[(W, b), ...]`` layers.
+parameters (its flat list, or ``[(W, b), ...]``).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 from torch.func import jacrev, vmap
 
 from ..boundaries import BC
+from ..utils import param_leaves, params_like
 from .derivatives import make_ufn, vmap_residual
 
 
@@ -143,11 +144,12 @@ def build_error_fns(apply_fn: Callable, varnames: Sequence[str], n_out: int,
     return bc_fns, res_all_fn, data_fn
 
 
-def _jac_leaves(e_fn: Callable, layers) -> list:
-    flat = [t.detach() for pair in layers for t in pair]
+def _jac_leaves(e_fn: Callable, params) -> list:
+    params = list(params)
+    flat = [t.detach() for t in param_leaves(params)]
 
     def of_flat(*ts):
-        return e_fn(list(zip(ts[0::2], ts[1::2])))
+        return e_fn(params_like(params, ts))
 
     return list(jacrev(of_flat, argnums=tuple(range(len(flat))))(*flat))
 

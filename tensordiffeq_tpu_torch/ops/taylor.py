@@ -24,6 +24,22 @@ stack's cotangent and each ``dW`` to bf16 exactly where the JAX jaxpr's
 casts do.  (A product of bf16 tensors would round the *output* to bf16,
 which the JAX flavor never does.)
 
+``precision=`` is the network's (:func:`~..utils.resolve_precision`):
+on CUDA tensors the products run at it (TF32 for ``"default"``, IEEE
+float32 for ``"high"``/``"highest"``); on the CPU every precision computes
+IEEE float32, as the JAX package does on its CPU.  ``emulate_tf32=True`` is
+the TF32-emulating mode, the referee of the kernels' single-pass TF32
+flavor: every product (the forward's, and in the backward pass the
+cotangent's products) takes both operands rounded as ``cvt.rna.tf32.f32``
+rounds them (:func:`rna_tf32`) and sums in float32; the product of two
+TF32 values is exact in float32, so it computes the same on any device.
+``emulate_tf32="float64"`` sums the same products in float64: the order
+witness.  Rounding every layer's input to TF32 is discontinuous, so two
+sum orders of the same semantics (the kernels', this mode's, the
+witness's) round a few operands that sit on a TF32 rounding boundary to
+neighbouring values, a TF32 unit apart; the witness measures how far that
+alone takes two tables apart on given inputs.
+
 Derivative requests are canonical multi-indices: sorted tuples of coordinate
 positions, e.g. ``()`` primal, ``(0,)`` = u_x, ``(0, 1)`` = u_xt,
 ``(0, 0, 1)`` = u_xxt, ``(0, 0, 0, 0)`` = u_xxxx.
@@ -34,6 +50,8 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+
+from ..utils import matmul_precision
 
 MultiIndex = tuple  # sorted tuple of coordinate indices
 
@@ -87,14 +105,22 @@ def channel_order(requests: set) -> list:
 
 
 def extract_mlp_layers(params) -> Optional[list]:
-    """``[(W, b), ...]`` from an :class:`~..networks.MLP` or a list of
-    ``(W, b)`` pairs; ``None`` if the structure doesn't match."""
+    """``[(W, b), ...]`` from an :class:`~..networks.MLP`, a list of ``(W,
+    b)`` pairs, or the MLP's flat parameter list ``[W_0, b_0, W_1, ...]``
+    (what its ``params()`` gives and ``apply`` takes); ``None`` if the
+    structure doesn't match."""
     if hasattr(params, "layers") and callable(params.layers):
         return params.layers()
-    if isinstance(params, (list, tuple)) and params and all(
-            isinstance(p, (list, tuple)) and len(p) == 2
-            and all(isinstance(a, torch.Tensor) for a in p) for p in params):
+    if not isinstance(params, (list, tuple)) or not params:
+        return None
+    if all(isinstance(p, (list, tuple)) and len(p) == 2
+           and all(isinstance(a, torch.Tensor) for a in p) for p in params):
         return [tuple(p) for p in params]
+    if len(params) % 2 == 0 and all(
+            isinstance(a, torch.Tensor) for a in params) and all(
+            W.ndim == 2 and b.ndim == 1 and b.shape[0] == W.shape[1]
+            for W, b in zip(params[0::2], params[1::2])):
+        return list(zip(params[0::2], params[1::2]))
     return None
 
 
@@ -104,9 +130,66 @@ def bf16_round(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(t.dtype)
 
 
+def rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on float32 ``x``: the magnitude rounded half
+    away from zero to 10 mantissa bits (half of the 13 dropped bits' unit
+    added to the magnitude bits, then those bits cleared; the sign bit is
+    untouched), as the kernels' ``tf32_bits``/``split_tf32`` do."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def trunc_tf32(x: torch.Tensor) -> torch.Tensor:
+    """What the tensor core reads of an f32 register given as a TF32
+    operand: its low 13 bits cleared (toward zero)."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+class _Tf32Matmul(torch.autograd.Function):
+    """``a @ b`` with both operands rounded by :func:`rna_tf32`, the sums in
+    ``sums`` (IEEE float32, or float64 for the order witness); its backward
+    takes the cotangent rounded too, against the rounded operands (a TF32
+    product's transposes are TF32 products)."""
+
+    @staticmethod
+    def forward(ctx, a, b, sums):
+        ar, br = rna_tf32(a), rna_tf32(b)
+        ctx.save_for_backward(ar, br)
+        ctx.sums = sums
+        with matmul_precision("highest"):
+            return (ar.to(sums) @ br.to(sums)).to(a.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        ar, br = ctx.saved_tensors
+        s = ctx.sums
+        gr = rna_tf32(g).to(s)
+        da = db = None
+        with matmul_precision("highest"):
+            if ctx.needs_input_grad[0]:
+                da = (gr @ br.to(s).transpose(-1, -2)).to(g.dtype)
+            if ctx.needs_input_grad[1]:
+                db = (ar.reshape(-1, ar.shape[-1]).to(s).t()
+                      @ gr.reshape(-1, gr.shape[-1])).to(g.dtype)
+        return da, db, None
+
+
+def tf32_matmul(a: torch.Tensor, b: torch.Tensor,
+                sums: torch.dtype = torch.float32) -> torch.Tensor:
+    """``a [..., k] @ b [k, n]`` as one TF32 pass takes it: both operands
+    rounded to TF32, float32 sums (``sums=torch.float64``: the same
+    products summed in float64, the witness of how far two sum orders of
+    the same TF32 semantics fall apart), and the same rule for the
+    cotangent's products (the TF32-emulating mode of
+    :func:`taylor_derivatives`)."""
+    return _Tf32Matmul.apply(a, b, sums)
+
+
 def taylor_derivatives(layers: list, X: torch.Tensor, requests: set,
                        flat_matmul: bool = False,
-                       compute_dtype: Optional[torch.dtype] = None) -> dict:
+                       compute_dtype: Optional[torch.dtype] = None,
+                       precision="highest",
+                       emulate_tf32: bool = False) -> dict:
     """Evaluate the MLP and all ``requests`` derivatives in one propagation.
 
     Args:
@@ -119,8 +202,14 @@ def taylor_derivatives(layers: list, X: torch.Tensor, requests: set,
         ``[C, N, in] @ W``) — the layout the kernels use.
       compute_dtype: ``None`` (float32 products) or ``torch.bfloat16``:
         the mixed-precision flavor (module docstring); every pointwise op
-        stays float32.  Run it under IEEE f32 (``utils.ieee_f32``) on the
-        card, or TF32 rounds the products a second time.
+        stays float32.  Its products run in IEEE float32 whatever the
+        precision (TF32 would round them a second time).
+      precision: the network's matmul precision (module docstring); it
+        matters only for CUDA tensors.
+      emulate_tf32: the TF32-emulating mode (module docstring), the
+        referee of the kernels' TF32 flavor; ``"float64"``: its products
+        summed in float64 (the order witness).  Not with
+        ``compute_dtype``.
 
     Returns ``{multi_index: [N, n_out] tensor}`` for every channel of the
     closure, including the primal ``()``.
@@ -128,6 +217,18 @@ def taylor_derivatives(layers: list, X: torch.Tensor, requests: set,
     if compute_dtype not in (None, torch.bfloat16):
         raise ValueError(f"compute_dtype={compute_dtype!r}: expected None "
                          "or torch.bfloat16")
+    if emulate_tf32 and compute_dtype is not None:
+        raise ValueError("emulate_tf32 is the float32 products' TF32 "
+                         "flavor; it does not combine with compute_dtype")
+    if compute_dtype is not None or emulate_tf32:
+        precision = "highest"  # the operands carry the rounding
+    with matmul_precision(precision):
+        return _propagate(layers, X, requests, flat_matmul, compute_dtype,
+                          emulate_tf32)
+
+
+def _propagate(layers, X, requests, flat_matmul, compute_dtype,
+               emulate_tf32) -> dict:
     N, d = X.shape
     firsts, seconds, thirds, fourths = closure(set(map(canonical, requests)))
 
@@ -151,7 +252,13 @@ def taylor_derivatives(layers: list, X: torch.Tensor, requests: set,
             dim=0)  # [C, N, w_in]
         if compute_dtype is not None:
             stacked, W = bf16_round(stacked), bf16_round(W)
-        if flat_matmul:
+        if emulate_tf32:
+            C = stacked.shape[0]
+            sums = torch.float64 if emulate_tf32 == "float64" \
+                else torch.float32
+            out = tf32_matmul(stacked.reshape(C * N, -1), W,
+                              sums).reshape(C, N, -1)
+        elif flat_matmul:
             C = stacked.shape[0]
             out = (stacked.reshape(C * N, -1) @ W).reshape(C, N, -1)
         else:

@@ -25,8 +25,14 @@ The programs are the JAX engine's generic ones: ``u`` is the MLP forward,
 ``d:<var>:<order>:<comp>`` the per-point derivative chain of
 :func:`~..ops.derivatives.d` vmapped over the rows, ``residual``
 :func:`~..ops.derivatives.vmap_residual` of the surrogate's ``f_model`` —
-the referee every training engine is cross-checked against.  They run in
-IEEE float32 (TF32 off, as ``solver.predict``) without autograd.
+the referee every training engine is cross-checked against.  They run at
+the network's matmul precision (IEEE float32 unless its ``precision`` is
+``None``/``"default"``, then TF32 on the card; as ``solver.predict``)
+without autograd.  A ``precision=None`` standard tanh MLP serves its
+derivative kinds within the Taylor propagation's reach from the table of
+K1's single-pass TF32 flavor (:func:`~..ops.cuda_taylor.k1_forward_tf32`,
+one launch per replay on the card; the plain flavor on the CPU), as the
+training solver's fused engine at that precision does.
 
 Every kind is pointwise along the rows, so padding is sound and a row's
 answer does not depend on the other rows of its rung.  The contracts:
@@ -69,7 +75,8 @@ from torch.func import vmap
 from ..ops.derivatives import d, make_ufn, vmap_residual
 from ..telemetry import default_registry, log_event
 from ..training.graphs import CudaGraph, SharedPool, StepGraph
-from ..utils import ieee_f32, not_ported, resolve_compute_dtype
+from ..utils import (matmul_precision, not_ported, param_leaves,
+                     resolve_compute_dtype)
 from .surrogate import Surrogate
 
 
@@ -117,11 +124,11 @@ class _Rung:
                                make_graph=engine._make_graph)
 
     def _step(self):
-        with ieee_f32(), torch.no_grad():
+        with matmul_precision(self.surrogate.net.precision), torch.no_grad():
             self.out = self.program(self.surrogate.params, self.X)
 
     def _keyed(self) -> list:
-        return [t for pair in self.surrogate.params for t in pair] + [self.X]
+        return param_leaves(self.surrogate.params) + [self.X]
 
     def run(self, X: np.ndarray):
         """The program's answer on the rows ``X`` (at most ``bucket``):
@@ -180,14 +187,17 @@ class InferenceEngine:
                              f"{max_bucket}")
         self.surrogate = surrogate
         self._compute_dtype = resolve_compute_dtype(compute_dtype)
-        self._mixed: dict = {}  # kind -> the bf16 program factory, or None
-        if self._compute_dtype is not None:
-            from ..ops.fused import mlp_qualifies
-            if mlp_qualifies(surrogate.net, surrogate.params) is None:
-                raise ValueError(
-                    "compute_dtype requires the standard float32 tanh MLP "
-                    "(the reduced-precision programs run the fused Taylor "
-                    "propagation, which cannot differentiate this network)")
+        self._mixed: dict = {}  # kind -> the table program factory, or None
+        from ..ops.fused import mlp_qualifies
+        qualifies = mlp_qualifies(surrogate.net, surrogate.params) is not None
+        if self._compute_dtype is not None and not qualifies:
+            raise ValueError(
+                "compute_dtype requires the standard float32 tanh MLP "
+                "(the reduced-precision programs run the fused Taylor "
+                "propagation, which cannot differentiate this network)")
+        # a precision=None standard MLP: its derivative kinds from K1-TF32
+        self._tf32 = (self._compute_dtype is None and qualifies
+                      and surrogate.net.precision == "default")
         self._buckets = tuple(min_bucket << i for i in range(
             (max_bucket // min_bucket).bit_length()))
         self._rungs: dict = {}        # (kind, bucket) -> _Rung
@@ -309,7 +319,8 @@ class InferenceEngine:
             # which would otherwise catch this
             raise ValueError(f"component {key[3]} out of range for an "
                              f"n_out={sur.n_out} surrogate")
-        if self._compute_dtype is not None:
+        if self._compute_dtype is not None or (
+                self._tf32 and not isinstance(key, str)):
             if key not in self._mixed:
                 self._mixed[key] = self._make_fn_mixed(key)
             if self._mixed[key] is not None:
@@ -341,20 +352,22 @@ class InferenceEngine:
         return make_d
 
     def _make_fn_mixed(self, key):
-        """The bf16 program factory of one kind (module docstring), or
-        ``None`` when the kind is outside the Taylor propagation's reach
-        (a derivative order it does not serve, an ``f_model`` it cannot
-        analyse): that kind keeps its f32 program."""
+        """The Taylor-table program factory of one kind (module docstring:
+        the bf16 flavor, or the TF32 flavor of a ``precision=None`` net's
+        derivative kinds), or ``None`` when the kind is outside the Taylor
+        propagation's reach (a derivative order it does not serve, an
+        ``f_model`` it cannot analyse): that kind keeps its f32 program."""
         from ..ops.cuda_taylor import build_cuda_table_fn
         from ..ops.fused import analyze_f_model, make_fused_residual
         from ..ops.taylor import supported
 
         sur = self.surrogate
-        shapes = [tuple(W.shape) for W, _ in sur.params]
+        shapes = [tuple(W.shape) for W, _ in sur.net.param_tree(sur.params)]
 
         def table_fn(requests):
             return build_cuda_table_fn(requests, shapes, device=sur.device,
-                                       compute_dtype=self._compute_dtype)
+                                       compute_dtype=self._compute_dtype,
+                                       precision=sur.net.precision)
 
         if key == "u":
             tab = table_fn({()})
@@ -459,7 +472,8 @@ class InferenceEngine:
         Xd = torch.zeros(bucket, X.shape[1], dtype=torch.float32,
                          device=self.surrogate.device)
         Xd[:n].copy_(torch.from_numpy(X))
-        with ieee_f32(), torch.no_grad():
+        with matmul_precision(self.surrogate.net.precision), \
+                torch.no_grad():
             out = aot(self.surrogate.params, Xd)
         return _tree_map(lambda a: a[:n].cpu().numpy(), out)
 

@@ -45,8 +45,9 @@ import torch
 
 from ..checkpoint import (resolve_checkpoint_dir, restore_checkpoint,
                           save_checkpoint)
-from ..networks import net_buffers, net_from_metadata, net_metadata
-from ..utils import resolve_device
+from ..networks import (MLP, as_network, net_buffers, net_from_metadata,
+                        net_metadata)
+from ..utils import param_leaves, resolve_device
 
 _FORMAT = 1
 # Artifact schema version (distinct from _FORMAT, the original marker
@@ -79,8 +80,10 @@ class ArtifactVersionMismatch(ValueError):
 class Surrogate:
     """Inference-only extract of a trained solver: net + params + closures.
 
-    ``params`` is the ``[(W, b), ...]`` list the engine serves (its device
-    is the engine's); ``net`` is the architecture they belong to.  Build
+    ``params`` are the parameters the engine serves, in the network's
+    structure (``[(W, b), ...]`` for the MLP family, a custom module's flat
+    list; their device is the engine's); ``net`` is the architecture they
+    belong to (any network of the protocol in :mod:`..networks`).  Build
     one with :meth:`from_solver` (or the solver's ``export_surrogate()``)
     or :meth:`load`; evaluate through :meth:`engine`.
     """
@@ -92,8 +95,8 @@ class Surrogate:
         if contract not in _CONTRACTS:
             raise ValueError(f"contract must be one of {_CONTRACTS}, "
                              f"got {contract!r}")
-        self.net = net
-        self.params = [tuple(pair) for pair in params]
+        self.net = net = as_network(net)
+        self.params = list(net.param_tree(param_leaves(params)))
         self.varnames = tuple(varnames)
         self.ndim = len(self.varnames)
         self.n_out = int(n_out)
@@ -118,7 +121,13 @@ class Surrogate:
 
     @property
     def device(self) -> torch.device:
-        return self.params[0][0].device
+        return param_leaves(self.params)[0].device
+
+    def _tree(self) -> list:
+        """The parameters in the artifact's layout: ``[[W, b], ...]`` for
+        the MLP family, the flat list of a custom module's."""
+        return ([list(p) for p in self.params]
+                if isinstance(self.net, MLP) else list(self.params))
 
     @property
     def point_residual(self) -> Optional[Callable]:
@@ -152,8 +161,7 @@ class Surrogate:
         params = solver.params
         if best_model and solver.best_model.get("overall") is not None:
             params = solver.best_model["overall"]
-        params = [(W.detach().clone(), b.detach().clone())
-                  for W, b in params]
+        params = [t.detach().clone() for t in param_leaves(params)]
         if getattr(solver, "_compiled", False):
             varnames = tuple(solver.domain.vars)
             f_model = solver.f_model
@@ -170,8 +178,7 @@ class Surrogate:
         network's parameters, with the learned coefficient values frozen
         into the artifact, so the surrogate evaluates the *learned* PDE's
         residual."""
-        params = [(W.detach().clone(), b.detach().clone())
-                  for W, b in model.net.layers()]
+        params = [t.detach().clone() for t in model.net.params()]
         return cls(model.net, params, model.varnames, n_out=model.n_out,
                    f_model=model.f_model, coefficients=model.vars,
                    contract="discovery")
@@ -202,7 +209,7 @@ class Surrogate:
             meta["coefficients"] = [c.tolist() for c in self.coefficients]
         if extra_meta:
             meta.update(extra_meta)
-        state = {"params": [list(p) for p in self.params]}
+        state = {"params": self._tree()}
         buffers = net_buffers(self.net)
         if buffers:
             state["net_buffers"] = buffers
@@ -216,7 +223,10 @@ class Surrogate:
         domain and no training state.  ``f_model`` re-attaches the residual
         (user code is never serialised); omit it to serve ``u`` and
         derivatives only.  ``net`` re-attaches a network built by the
-        caller, with the architecture the training run used."""
+        caller, with the architecture the training run used: needed for
+        anything but the standard tanh MLP family (a custom module, another
+        activation), as in the JAX package; its type must be the
+        artifact's."""
         dev = resolve_device(device)
         artifact_dir = resolve_checkpoint_dir(path)
         with open(os.path.join(artifact_dir, "tdq_meta.json")) as fh:
@@ -238,20 +248,29 @@ class Surrogate:
                     f"{e}; here: Surrogate.load(path, f_model=..., "
                     "net=<the network module the training run compiled "
                     "with>)") from None
+        else:
+            net = as_network(net)
+            mine = net_metadata(net, meta["layer_sizes"], meta["n_out"])
+            if mine["network_type"] != meta.get("network_type"):
+                raise ValueError(
+                    f"{path} holds a {meta.get('network_type')} network; "
+                    f"net= is a {mine['network_type']}")
         net = net.to(dev)
-        template = {"params": [list(p) for p in net.layers()]}
+        tree = net.param_tree(net.params())
+        template = {"params": ([list(p) for p in tree]
+                               if isinstance(net, MLP) else list(tree))}
         buffers = net_buffers(net)
         if buffers:
             template["net_buffers"] = buffers
         state, _ = restore_checkpoint(path, template)
-        net.load_layers([(torch.from_numpy(np.asarray(W)),
-                          torch.from_numpy(np.asarray(b)))
-                         for W, b in state["params"]])
+        net.load_params([torch.from_numpy(np.asarray(a))
+                         for a in param_leaves(state["params"])])
         with torch.no_grad():
+            live = net_buffers(net)
             for name, saved in state.get("net_buffers", {}).items():
-                getattr(net, name).copy_(torch.from_numpy(np.asarray(saved)))
+                live[name].copy_(torch.from_numpy(np.asarray(saved)))
         # the served tensors share the net's storage
-        params = [(W.detach(), b.detach()) for W, b in net.layers()]
+        params = [t.detach() for t in net.params()]
         sur = cls(net, params, meta["varnames"], n_out=int(meta["n_out"]),
                   f_model=f_model, coefficients=meta.get("coefficients"),
                   contract=meta.get("contract", "forward"))

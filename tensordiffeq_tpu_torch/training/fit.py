@@ -61,6 +61,7 @@ import torch
 from ..ops.resampling import carry_rows
 from ..utils import span, tree_copy
 from .graphs import StepGraph
+from .progress import progress_bar
 from .schedules import DeviceLR
 
 
@@ -226,8 +227,9 @@ class AdamStep:
     :attr:`graph` runs it (captured and replayed on a CUDA device,
     :mod:`.graphs`).
 
-    ``loss_fn(layers, lam_bcs, lam_res, X) -> (total, components)``;
-    ``params`` is the network's live parameter list (``[W_0, b_0, ...]``),
+    ``loss_fn(params, lam_bcs, lam_res, X) -> (total, components)``;
+    ``params`` is the network's live flat parameter list (its
+    ``params()``: ``[W_0, b_0, ...]`` for an MLP), which the loss takes,
     ``optimizers`` the :func:`make_optimizer` pair (kept by the caller so
     the moments persist).  A solver keeps its step across ``fit`` calls, so
     its graph is captured once."""
@@ -241,7 +243,6 @@ class AdamStep:
         self.loss_fn = loss_fn
         self.grad_norm = bool(grad_norm)
         self.params = list(params)
-        self.layers = list(zip(self.params[0::2], self.params[1::2]))
         self.lambdas = lambdas
         self.X_f = X_f
         self.optimizers = optimizers
@@ -367,7 +368,7 @@ class AdamStep:
         X_b, lam_res = self._batch()
         with span("fit_adam.loss"):
             total, comps = self.loss_fn(
-                self.layers, self.lambdas["BCs"], lam_res, X_b,
+                self.params, self.lambdas["BCs"], lam_res, X_b,
                 lam_data=self.lambdas.get("data", [None])[0])
         with span("fit_adam.backward"):
             total.backward()
@@ -455,7 +456,8 @@ class PendingRedraw:
 
 def dispatch_redraw(redraw: Callable, params: list, X_f: torch.Tensor,
                     epoch: int) -> PendingRedraw:
-    """Dispatch ``redraw(layers, X_f, epoch) -> ResampleSwap`` at a chunk
+    """Dispatch ``redraw(params, X_f, epoch) -> ResampleSwap`` (``params``
+    the flat parameter list, detached) at a chunk
     boundary.  On a CUDA device: the parameters are snapshot on the current
     stream (the next chunk's replays update the live ones in place), the
     redraw stream waits for that and runs the redraw, and the snapshot is
@@ -465,9 +467,7 @@ def dispatch_redraw(redraw: Callable, params: list, X_f: torch.Tensor,
     t0 = time.perf_counter()
     dev = X_f.device
     if dev.type != "cuda":
-        layers = list(zip(params[0::2], params[1::2]))
-        swap = redraw([(W.detach(), b.detach()) for W, b in layers], X_f,
-                      epoch)
+        swap = redraw([p.detach() for p in params], X_f, epoch)
         return PendingRedraw(swap, epoch, time.perf_counter() - t0)
     main = torch.cuda.current_stream(dev)
     side = redraw_stream(dev)
@@ -478,7 +478,7 @@ def dispatch_redraw(redraw: Callable, params: list, X_f: torch.Tensor,
     done = torch.cuda.Event(enable_timing=True)
     with torch.cuda.stream(side):
         start.record(side)
-        swap = redraw(list(zip(snap[0::2], snap[1::2])), X_f, epoch)
+        swap = redraw(snap, X_f, epoch)
         done.record(side)
     for t in snap:
         t.record_stream(side)
@@ -558,13 +558,13 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
 
     ``resample_fn`` + ``resample_every``: adaptive collocation at the chunk
     boundaries that cross a ``resample_every`` boundary, never at the last.
-    A pipelined hook (``resample_fn.pipelined``, with ``redraw(layers,
+    A pipelined hook (``resample_fn.pipelined``, with ``redraw(params,
     X_f, epoch) -> ResampleSwap``) is dispatched there
     (:func:`dispatch_redraw`) and adopted at the NEXT boundary, λ carried
     (:meth:`AdamStep.adopt`), so its work runs behind the chunk between
     them; a redraw still pending when the phase ends is discarded (it
     trained no step), after it has finished on its stream.  Any other hook
-    is called as ``resample_fn(layers, epoch) -> X_new`` and adopted at
+    is called as ``resample_fn(params, epoch) -> X_new`` and adopted at
     once.  Each redraw adds a record to ``result.redraws``: ``epoch``
     (dispatched), ``adopted`` (the epoch, or ``None`` if discarded),
     ``dispatch_s`` and ``stall_s`` (host seconds to issue it and to swap it
@@ -572,7 +572,7 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
     off the card) and ``stats`` (kept fraction, score gain, λ drift, ascent
     steps).
 
-    ``lambda_update_fn(layers) -> {"BCs": [...], "residual": [...][,
+    ``lambda_update_fn(params) -> {"BCs": [...], "residual": [...][,
     "data": [...]]}`` (NTK weighting, :mod:`..ops.ntk`): called before the
     first step and at every chunk boundary with steps left (after any
     redraw, so the balance follows the points being trained); its 0-d
@@ -583,9 +583,9 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
     the phase there (the causal ε ladder hands the rest of the budget to
     its next stage).
 
-    ``callback(epoch, layers)`` + ``callback_every``: called at a chunk
+    ``callback(epoch, params)`` + ``callback_every``: called at a chunk
     boundary that crosses a ``callback_every`` boundary, after
-    ``state_hook``, with the live ``[(W, b), ...]``: periodic evaluation
+    ``state_hook``, with the live flat parameter list: periodic evaluation
     (rel-L2 timelines) inside one continuous run.
 
     ``telemetry``: a :class:`~..telemetry.TrainingTelemetry`.  Each chunk
@@ -619,7 +619,8 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
         # count: telemetry.costmodel)
         telemetry.on_step_program("adam")
     if lambda_update_fn is not None and total_steps > 0:
-        _write_lambdas(step, lambda_update_fn(step.layers))
+        _write_lambdas(step, lambda_update_fn(step.params))
+    pbar = progress_bar(tf_iter, desc="Adam") if verbose else None
     while done < total_steps:
         n = min(chunk * n_b, total_steps - done)
         t_chunk = time.perf_counter()
@@ -676,16 +677,15 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
                     data_s += pending.dispatch_s
                 else:
                     t_rd = time.perf_counter()
-                    layers = [(W.detach(), b.detach()) for W, b in
-                              zip(step.params[0::2], step.params[1::2])]
-                    step.adopt(resample_fn(layers, at))
+                    step.adopt(resample_fn([p.detach() for p in step.params],
+                                           at))
                     records.append({"epoch": at, "adopted": at,
                                     "dispatch_s": time.perf_counter() - t_rd,
                                     "stall_s": 0.0, "pipelined": False,
                                     "device_ms": None, "stats": {}})
                     data_s += records[-1]["dispatch_s"]
         if lambda_update_fn is not None and done < total_steps:
-            _write_lambdas(step, lambda_update_fn(step.layers))
+            _write_lambdas(step, lambda_update_fn(step.params))
         if (state_hook is not None and state_hook_every > 0
                 and prev // state_hook_every != epochs // state_hook_every):
             state_hook(epochs + epoch_offset,
@@ -694,16 +694,18 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
                         + epoch_offset))
         if (callback is not None and callback_every > 0
                 and prev // callback_every != epochs // callback_every):
-            callback(epochs + epoch_offset, step.layers)
-        if verbose:
-            print(f"Adam epoch {epochs}/{tf_iter}: total loss "
-                  f"{result.losses[-1]['Total Loss']:.6e}", flush=True)
+            callback(epochs + epoch_offset, step.params)
+        if pbar is not None:
+            pbar.update(epochs - prev)
+            pbar.set_postfix(loss=result.losses[-1]["Total Loss"])
         if stop_fn is not None and done < total_steps and stop_fn(result):
             if pending is not None:
                 pending.join(step.device)
                 records.append(_redraw_record(pending, None, None, None))
                 pending = None
             break
+    if pbar is not None:
+        pbar.close()
     if step.device.type == "cuda":
         torch.cuda.synchronize(step.device)
     _finish_records(records)

@@ -57,8 +57,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..utils import ieee_f32, span
+from ..utils import ieee_f32  # noqa: F401  (the scope callers give a
+#   bare lbfgs_minimize: IEEE float32, as fit_lbfgs at precision HIGHEST)
+from ..utils import matmul_precision, param_leaves, span
 from .graphs import StepGraph
+from .progress import progress_bar
 
 # optax.scale_by_zoom_linesearch's defaults, as the JAX package calls it
 MAX_LINESEARCH_STEPS = 30
@@ -535,6 +538,7 @@ def lbfgs_minimize(fun: Callable, x0: torch.Tensor, maxiter: int = 1000,
     f_prev = np.inf
     done = 0
     retreated = fun_fallback is None
+    pbar = progress_bar(maxiter, desc="L-BFGS") if verbose else None
     while done < maxiter:
         n = int(min(chunk, maxiter - done))
         t_chunk, read0 = time.perf_counter(), lbfgs_minimize.read_s
@@ -583,8 +587,9 @@ def lbfgs_minimize(fun: Callable, x0: torch.Tensor, maxiter: int = 1000,
                 and prev_done // callback_every != done // callback_every):
             callback(done, x, (best.x, best.f, best.i))
         f_now = float(values[-1])
-        if verbose:
-            print(f"L-BFGS iter {iter0 + done}: loss {f_now:.6e}", flush=True)
+        if pbar is not None:
+            pbar.update(n)
+            pbar.set_postfix(loss=f_now)
         stop = None
         if not np.isfinite(f_now):
             stop = "non-finite"
@@ -620,6 +625,8 @@ def lbfgs_minimize(fun: Callable, x0: torch.Tensor, maxiter: int = 1000,
                       f"|g|={float(gnorms[-1]):.3e} < tol_grad={tol_grad:g}")
             break
         f_prev = f_now
+    if pbar is not None:
+        pbar.close()
     return x.clone(), best.x, best.f, best.i, history
 
 
@@ -628,31 +635,43 @@ lbfgs_minimize.host_syncs = 0
 lbfgs_minimize.read_s = 0.0
 
 
-def flatten_layers(layers) -> torch.Tensor:
-    """``[(W, b), ...]`` as one contiguous 1-D float32 copy."""
-    return torch.cat([t.detach().reshape(-1) for pair in layers
-                      for t in pair])
+def flatten_layers(params) -> torch.Tensor:
+    """The parameters (the network's flat list, or ``[(W, b), ...]``) as
+    one contiguous 1-D copy."""
+    return torch.cat([t.detach().reshape(-1) for t in param_leaves(params)])
+
+
+def _is_pair(s) -> bool:
+    return len(s) == 2 and all(isinstance(e, tuple) for e in s)
 
 
 def unflatten_layers(x: torch.Tensor, shapes) -> list:
-    """``[(W, b), ...]`` as views of the 1-D ``x`` (contiguous pieces, so
-    the kernel wrappers take them as they are; autograd through the views
-    gives ``x``'s gradient in one piece)."""
-    sizes = [int(np.prod(s)) for pair in shapes for s in pair]
-    pieces = x.split(sizes)
-    flat = [p.view(s) for p, s in zip(pieces,
-                                       [s for pair in shapes for s in pair])]
-    return list(zip(flat[0::2], flat[1::2]))
+    """The parameters as views of the 1-D ``x``, in the structure of
+    ``shapes`` (:func:`layer_shapes`: a flat list, or ``[(W, b), ...]``;
+    contiguous pieces, so the kernel wrappers take them as they are;
+    autograd through the views gives ``x``'s gradient in one piece)."""
+    pairs = bool(shapes) and _is_pair(shapes[0])
+    leaf_shapes = [s for pair in shapes for s in pair] if pairs \
+        else list(shapes)
+    pieces = x.split([int(np.prod(s)) for s in leaf_shapes])
+    flat = [p.view(s) for p, s in zip(pieces, leaf_shapes)]
+    return list(zip(flat[0::2], flat[1::2])) if pairs else flat
 
 
-def layer_shapes(layers) -> list:
-    return [(tuple(W.shape), tuple(b.shape)) for W, b in layers]
+def layer_shapes(params) -> list:
+    """The shapes of the parameters in their structure: one per tensor of
+    a flat list, ``(W, b)`` pairs of ``[(W, b), ...]``."""
+    params = list(params)
+    if params and isinstance(params[0], (list, tuple)):
+        return [(tuple(W.shape), tuple(b.shape)) for W, b in params]
+    return [tuple(t.shape) for t in params]
 
 
 def lbfgs_objective(loss_fn: Callable, lambdas: dict, X_f: torch.Tensor,
                     shapes) -> Callable:
     """``fun(x)``: the total of ``loss_fn`` at the flat parameters ``x``
-    (layers of ``shapes``, :func:`unflatten_layers`), with the λ entering
+    (in the structure of ``shapes``, :func:`unflatten_layers`), with the λ
+    entering
     detached (frozen: no gradient is computed for them)."""
     lam_bcs = [None if lam is None else lam.detach()
                for lam in lambdas["BCs"]]
@@ -676,22 +695,24 @@ def fit_lbfgs(loss_fn: Callable, params, lambdas: dict, X_f: torch.Tensor,
               verbose: bool = True, chunk: int = 100, eager: bool = False,
               callback: Optional[Callable] = None, callback_every: int = 0,
               iter0: int = 0, loss_fn_fallback: Optional[Callable] = None,
-              telemetry=None, _graphs: bool = True):
+              telemetry=None, precision="highest", _graphs: bool = True):
     """L-BFGS phase over the network parameters with the SA λ frozen
     (reference ``fit.py:60-89``).
 
-    ``params`` is ``[(W, b), ...]``; ``loss_fn(params, lam_bcs, lam_res, X)
-    -> (total, components)``.  The λ enter detached (no gradient is
-    computed for them); the objective runs under IEEE float32.  The
-    parameters travel as one flat buffer whose views are the layers.
-    ``callback(done, layers, (best_layers, f_best, best_iter))`` receives
-    the live iterate and best as layer lists.  ``loss_fn_fallback``: the
+    ``params`` is the network's flat parameter list (or ``[(W, b),
+    ...]``); ``loss_fn(params, lam_bcs, lam_res, X) -> (total,
+    components)``.  The λ enter detached (no gradient is computed for
+    them); the objective runs at ``precision`` (the network's: IEEE
+    float32 unless ``"default"``).  The parameters travel as one flat
+    buffer whose views are the parameters, in ``params``' structure.
+    ``callback(done, params, (best_params, f_best, best_iter))`` receives
+    the live iterate and best so.  ``loss_fn_fallback``: the
     full-precision objective of :func:`lbfgs_minimize`'s retreat.
     ``telemetry``: the chunks' step-time split (:func:`lbfgs_minimize`).
     ``_graphs=False``: the eager referee of :func:`lbfgs_minimize`.
 
     Returns ``(params_final, params_best, best_loss, best_iter,
-    loss_dicts, retreat)``: layer lists of fresh tensors, the best loss and
+    loss_dicts, retreat)``: parameters of fresh tensors, the best loss and
     its iteration within this call as Python numbers, one ``{"Total Loss":
     v}`` per iteration, and the absolute iteration after which the leg
     retreated to ``loss_fn_fallback`` (``None``: it did not)."""
@@ -710,7 +731,7 @@ def fit_lbfgs(loss_fn: Callable, params, lambdas: dict, X_f: torch.Tensor,
 
     retreat = []
     t0 = time.time()
-    with ieee_f32():
+    with matmul_precision(precision):
         x, x_best, f_best, i_best, history = lbfgs_minimize(
             fun, flatten_layers(params), maxiter=maxiter,
             memory_size=memory_size, chunk=chunk, eager=eager, callback=cb,

@@ -1678,3 +1678,241 @@ def test_grad_norm_equals_the_eager_steps_gradient_norm(card):
     assert abs(got - want) <= 1e-5 * want, (got, want)
     assert [r["Grad_norm"] for r in s.losses] \
         == [r["Grad_norm"] for r in eager.losses]
+
+
+# --------------------------------------------------------------------------- #
+# the single-pass TF32 flavor of K1, K2 and K3 (precision "default")
+# --------------------------------------------------------------------------- #
+# the route's edges beside CASES: the slice's width on the wgmma route
+# (hi plane alone, resident chunks) with several tiles per SM, and a
+# 256-wide layer on the first kernel
+TF32_EDGES = {
+    "ac-128": (AC, [2, 128, 128, 128, 128, 1], 50_001),
+    "wide-256": (AC, [2, 256, 256, 1], 517),
+}
+
+
+def _nearer(got, want_a, want_b):
+    """``got``'s RMS distance to ``want_a`` is below its distance to
+    ``want_b``, over every leaf together."""
+    cat = lambda ts: torch.cat([t.reshape(-1) for t in ts])  # noqa: E731
+    return _rms(cat(got), cat(want_a)) < _rms(cat(got), cat(want_b))
+
+
+# The TF32 flavor's band.  Rounding each layer's input to TF32 is
+# discontinuous: two sum orders of the same single-pass semantics round the
+# few operands that sit on a TF32 rounding boundary to neighbouring values,
+# a TF32 unit apart, so no referee with another order holds a kernel to a
+# fixed 1e-4 everywhere (ops/taylor.py; scripts/torch_tf32_order_witness.py
+# measures it on the CPU).  Two referees of the same semantics stand beside
+# the kernel: the emulation (float32 sums) and its float64-summed twin.
+# Each leaf's RMS scale-relative distance to the nearer of them is held
+# within TF32_SPREAD times the largest RMS distance between the two
+# referees on any leaf (the order spread on these inputs), at least TOL;
+# the whole is nearer (RMS) the emulation than the IEEE flavor.  A leaf's
+# max distance, where one flipped operand decides it, is held within the
+# larger of that band in the max metric and TF32_FLIP of the emulation's
+# own max distance to the IEEE flavor (a flip moves one operand by one
+# TF32 unit; rounding every operand moves the table that far).
+TF32_SPREAD, TF32_FLIP = 3.0, 0.5
+
+
+def _rms_rel(a, b):
+    return _rms(a, b) / max(float(torch.sqrt(torch.mean(b.double() ** 2))),
+                            1e-30)
+
+
+def _within_tf32_spread(got, emu, twin, ieee):
+    flip = TF32_FLIP * max(_scaled(e, i) for e, i in zip(emu, ieee))
+    for metric, extra in ((_rms_rel, 0.0), (_scaled, flip)):
+        spread = max(metric(t, e) for t, e in zip(twin, emu))
+        band = max(TOL, TF32_SPREAD * spread, extra)
+        for i, (a, e, t) in enumerate(zip(got, emu, twin)):
+            assert bool(torch.isfinite(a).all()), i
+            d = min(metric(a, e), metric(a, t))
+            assert d <= band, (metric.__name__, i, d, band)
+    assert _nearer(got, emu, ieee)
+
+
+@pytest.mark.parametrize("case", list(CASES) + list(TF32_EDGES))
+def test_tf32_kernels_match_tf32_emulation_on_card(card, case):
+    """K1-TF32 and K2-TF32 against the plain flavor's TF32-emulating mode
+    (every product on cvt.rna-rounded operands, f32 sums) within 1e-4
+    scale-relative, nearer to it than to the IEEE flavor, and launched
+    alone."""
+    reqs, widths, N = {**CASES, **TF32_EDGES}[case]
+    layers, _, g = _net(widths, card)
+    X = (2 * torch.rand(N, widths[0], generator=g) - 1).to(card)
+    shapes = [tuple(W.shape) for W, _ in layers]
+    producer = cuda_taylor.build_cuda_table_fn(reqs, shapes, precision=None)
+    assert producer.flavor == cuda_taylor.TF32
+    params = [t.clone().requires_grad_(True) for p in layers for t in p]
+    pairs = list(zip(params[0::2], params[1::2]))
+    Xg = X.clone().requires_grad_(True)
+    k1, k2 = cuda_taylor.k1_forward_tf32, cuda_taylor.k2_backward_tf32
+    before = (k1.launches, k2.launches, cuda_taylor.k1_forward.launches,
+              cuda_taylor.k2_backward.launches)
+    got = producer(pairs, Xg)
+    want = taylor_derivatives(pairs, Xg, reqs, flat_matmul=True,
+                              emulate_tf32=True)
+    twin = taylor_derivatives(pairs, Xg, reqs, flat_matmul=True,
+                              emulate_tf32="float64")
+    want32 = taylor_derivatives(pairs, Xg, reqs, flat_matmul=True)
+    cot = {mi: torch.randn(got[mi].shape, generator=g).to(card) for mi in got}
+
+    def grads(tab):
+        return torch.autograd.grad(sum((tab[m] * cot[m]).sum() for m in got),
+                                   params + [Xg], retain_graph=True)
+
+    g_got, g_want, g_twin, g_32 = (grads(got), grads(want), grads(twin),
+                                   grads(want32))
+    torch.cuda.synchronize()
+    assert (k1.launches, k2.launches, cuda_taylor.k1_forward.launches,
+            cuda_taylor.k2_backward.launches) \
+        == (before[0] + 1, before[1] + 1, before[2], before[3])
+    mis = sorted(got)
+    _within_tf32_spread([got[m] for m in mis], [want[m] for m in mis],
+                        [twin[m] for m in mis], [want32[m] for m in mis])
+    _within_tf32_spread(list(g_got), list(g_want), list(g_twin), list(g_32))
+
+
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_tf32_k3_matches_tf32_emulation_on_card(card, case):
+    f, widths, _, _ = K3_CASES[case]
+    sq32, X, w, flat = _k3_setup(case, card)
+    sq = build_minimax_sq_fn(f, ("x", "t"), widths[-1],
+                             analyze_f_model(f, ("x", "t"), widths[-1]),
+                             sq32.plan.layer_shapes, precision=None)
+    assert sq.flavor == cuda_taylor.TF32
+    plan = sq.plan
+    k3 = cuda_minimax.k3_minimax_tf32
+    before = k3.launches, cuda_minimax.k3_minimax.launches
+    val, dflat, gw, gX = k3(plan, X, w, plan.pack(flat))
+    torch.cuda.synchronize()
+    assert (k3.launches, cuda_minimax.k3_minimax.launches) \
+        == (before[0] + 1, before[1])
+    got = [val.reshape(1)] + [t.reshape(-1) for t in plan.unpack(dflat)] \
+        + [gw, gX]
+
+    def leaves(out):
+        v, fl, w_, x_ = out
+        return [v.reshape(1)] + [t.reshape(-1) for t in fl] + [w_, x_]
+
+    want = leaves(sq.plain(flat, w, X, emulate_tf32=True))
+    twin = leaves(sq.plain(flat, w, X, emulate_tf32="float64"))
+    want32 = leaves(sq32.plain(flat, w, X))
+    _within_tf32_spread(got, want, twin, want32)
+    # the autograd.Function routes a CUDA call to the TF32 launch
+    v = sq(list(zip(flat[0::2], flat[1::2])), w, X)
+    assert k3.launches == before[0] + 2
+    assert float(v) == float(val)
+
+
+def test_tf32_kernels_are_bit_identical_run_to_run(card):
+    widths = [2, 128, 128, 128, 1]
+    layers, _, g = _net(widths, card)
+    X = (2 * torch.rand(20_000, 2, generator=g) - 1).to(card)
+    plan = cuda_taylor.build_cuda_table_fn(
+        AC, [tuple(W.shape) for W, _ in layers]).plan
+    flat = plan.pack([t for p in layers for t in p])
+    a = cuda_taylor.k1_forward_tf32(plan, X, flat)
+    assert plan.k1_routes[cuda_taylor.TF32] == "wgmma"
+    assert torch.equal(a, cuda_taylor.k1_forward_tf32(plan, X, flat))
+    cot = torch.randn(plan.C, 20_000, 1, generator=g).to(card)
+    a = cuda_taylor.k2_backward_tf32(plan, X, flat, cot)
+    b = cuda_taylor.k2_backward_tf32(plan, X, flat, cot)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    sq, Xk, w, kflat = _k3_setup("ac", card)
+    Xk, w = Xk.repeat(5, 1).contiguous(), w.repeat(5, 1).contiguous()
+    packed = sq.plan.pack(kflat)
+    a = cuda_minimax.k3_minimax_tf32(sq.plan, Xk, w, packed)
+    b = cuda_minimax.k3_minimax_tf32(sq.plan, Xk, w, packed)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_tf32_wgmma_chunks_are_the_hi_plane(card):
+    """K1-TF32's wgmma route prepares the hi plane of the f32 route's
+    chunks, byte for byte with ``wg_prepare``, half the f32 bytes."""
+    widths = [2, 128, 128, 128, 1]
+    layers, _, g = _net(widths, card)
+    plan = cuda_taylor.build_cuda_table_fn(
+        AC, [tuple(W.shape) for W, _ in layers]).plan
+    flat_layers = [t for p in layers for t in p]
+    smem, n_sm = plan.card(card)
+    wp = cuda_taylor.wg_plan(plan.layer_shapes, plan.orders, 2, smem, n_sm,
+                             1000)
+    wp32 = cuda_taylor.wg_plan(plan.layer_shapes, plan.orders, 0, smem, n_sm,
+                               1000)
+    assert wp.stage_bytes * 2 == wp32.stage_bytes and wp.resident
+    chunks = torch.zeros(wp.P * wp.stage_bytes // 4, device=card)
+    table = torch.empty(plan.C, 1000, 1, device=card)
+    X = (2 * torch.rand(1000, 2, generator=g) - 1).to(card)
+    lib = cuda_taylor.build()
+    err = lib.tdq_taylor_fwd_wg(
+        X.data_ptr(), plan.pack(flat_layers).data_ptr(), chunks.data_ptr(),
+        table.data_ptr(), 1000, plan.net_h, plan.sched_h, 2,
+        (ctypes.c_int * len(wp))(*wp),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    want = cuda_taylor.wg_prepare(flat_layers, wp, cuda_taylor.TF32)
+    assert torch.equal(chunks.cpu().view(torch.uint8), want)
+
+
+def test_tf32_graph_capture_keeps_each_solvers_precision(card):
+    """A ``precision=None`` solver's step is captured under TF32 and a
+    ``"highest"`` one's under IEEE float32, side by side: each solver's
+    replays (before and after the other's capture) equal its eager steps
+    bit for bit, and the two trajectories differ (TF32 against IEEE)."""
+    def make(precision):
+        net = tdqt.neural_net([2, 32, 32, 1], seed=0, precision=precision)
+        return _ac_solver(False, n_f=1024, minimax=False, widths=(32, 32),
+                          network=lambda domain: net)
+
+    tf_g, tf_e, hi_g, hi_e = (make(None), make(None), make("highest"),
+                              make("highest"))
+    assert tf_g.precision == "default" and hi_g.precision == "highest"
+    for graphs in (True, False):
+        tf, hi = (tf_g, hi_g) if graphs else (tf_e, hi_e)
+        tf.fit(tf_iter=10, chunk=10, _graphs=graphs)
+        hi.fit(tf_iter=10, chunk=10, _graphs=graphs)
+        tf.fit(tf_iter=10, chunk=10, _graphs=graphs)
+        hi.fit(tf_iter=10, chunk=10, _graphs=graphs)
+    assert tf_g._adam.graph.captures == hi_g._adam.graph.captures == 1
+    assert _diff(tf_g, tf_e) == 0.0 and _diff(hi_g, hi_e) == 0.0
+    assert [r["Total Loss"] for r in tf_g.losses] != \
+        [r["Total Loss"] for r in hi_g.losses]
+
+
+def test_tf32_serving_derivative_rungs_launch_k1_tf32_per_replay(card):
+    """A served ``precision=None`` MLP answers its derivative kinds from
+    K1-TF32, one launch per replay of each rung's graph, within the TF32
+    flavor's distance of the same net served at ``"highest"``; ``u`` is
+    the forward at TF32 matmuls, with no launch."""
+    from tensordiffeq_tpu_torch.serving import Surrogate
+    net = tdqt.neural_net([2, 32, 32, 1], seed=0, precision=None)
+    solver = _ac_solver("cuda", n_f=1024, minimax=None, widths=(32, 32),
+                        network=lambda domain: net)
+    assert solver._minimax_sq.flavor == cuda_taylor.TF32
+    solver.fit(tf_iter=5)
+    sur = solver.export_surrogate()
+    eng = sur.engine(min_bucket=64, max_bucket=1024)
+    assert eng._tf32
+    hi = Surrogate(tdqt.neural_net([2, 32, 32, 1], seed=0),
+                   sur.params, sur.varnames, f_model=sur.f_model)
+    ref = hi.engine(min_bucket=64, max_bucket=1024)
+    X = _serve_points(700, seed=3)
+    for spec, launches in (("u", 0), ("d:x:1", 3), ("d:x:2", 3)):
+        got = eng.op_for(spec)(X)
+        assert _serve_equal(got, _serve_eager(eng, spec, X, 1024)), spec
+        err = _scaled(torch.from_numpy(np.asarray(got)),
+                      torch.from_numpy(np.asarray(ref.op_for(spec)(X))))
+        assert err <= 2e-2, (spec, err)
+        cuda_taylor.reset_launch_counts()
+        for _ in range(3):
+            eng.op_for(spec)(X)
+        counts = {fn.__name__: fn.launches for fn in cuda_taylor.COUNTED}
+        assert counts == dict({k: 0 for k in counts},
+                              **({"k1_forward_tf32": 3} if launches
+                                 else {})), spec
+    assert all(r.graph.captures == 1 for r in eng._rungs.values())

@@ -19,19 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-
-def rna_tf32(x: torch.Tensor) -> torch.Tensor:
-    """``cvt.rna.tf32.f32``: round the f32 magnitude half away from zero to
-    10 mantissa bits (adding half of the 13 dropped bits' unit to the
-    magnitude bits, then clearing them; the sign bit is untouched)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def trunc_tf32(x: torch.Tensor) -> torch.Tensor:
-    """What the tensor core reads of an f32 register given as a TF32
-    operand: its low 13 bits cleared (toward zero)."""
-    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+from tensordiffeq_tpu_torch.ops.taylor import rna_tf32, trunc_tf32
 
 
 def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
