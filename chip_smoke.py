@@ -243,8 +243,15 @@ Phases (each failure is fatal; exit code != 0, no result line):
    checkpoint restored at world 1 for 10 more steps; ms/step, two
    processes sharing one card, not a scaling figure.  The world-1
    reference runs in rank 0's process after its gloo steps, through its
-   CUDA graph: one capture, bit for bit its eager run.  Every process runs
-   under DIST_TIMEOUT_S.  ``--dist-only`` runs the build and this phase.
+   CUDA graph: one capture, bit for bit its eager run.  (d) The options
+   whose statistic spans the ranks at N_f = 50,000: causal weighting (its
+   bin sums all-reduced inside the captured step; the unfused path, K1 and
+   K2 once per step) and NTK weighting (its residual trace over the global
+   subsample; K3 once per step), each 50 steps at world 1 over NCCL bit for
+   bit the non-dist solver and its eager steps, one capture; and 20 steps
+   of each at world 2 over gloo within DIST_TRAJ_RTOL of world 1, the
+   ranks' parameters bit-identical.  Every process runs under
+   DIST_TIMEOUT_S.  ``--dist-only`` runs the build and this phase.
 18. the operational planes around the K3 training path, on AC-SA full
    (the JAX package's ``examples/ac_resilient.py``).  (a) ``ResilientFit(
    checkpoint_every=50, max_retries=3, resume_on_preemption=True)`` under
@@ -281,11 +288,36 @@ Phases (each failure is fatal; exit code != 0, no result line):
    ring ends in the chunk it died in; the recovery wall.  (c)'s process
    and (e) run in threads beside (a) and (d); every process under
    RES_TIMEOUT_S.  ``--resilience-only`` runs the build and this phase.
-19. a ``{"kernels": [...]}`` line (K1, K2, K3, their bf16 and their TF32
+19. the surrogate factory (``tensordiffeq_tpu_torch.factory``).  (a) A
+   1-member family at AC-SA full (2-128x4-1, N_f = 50,000, SA λ) on
+   ``fused="cuda"``: 200 steps bit for bit its solo solver, K3 once per
+   step, one capture.  (b) The JAX package's factory benchmark
+   (``bench.py --mode factory``): 64 Allen-Cahn members, theta_m =
+   1e-4 (0.5 + m/63), N_f = 2,048 each, 2-64-64-1: K3 exactly 64 per
+   family step and no K1/K2, one capture; 50 steps bit for bit the same
+   steps run eagerly; a member filled with NaN frozen at epoch 0 and the
+   other 63 bit for bit; members 0 and 63 within FAC_SOLO_TOL of
+   matched-seed solo solvers over 20 steps; 200 steps in all, the loss
+   falling; ms per family step, points/s, and the solo member's ms/step
+   x 64, the sequential baseline, both over the same 150 replayed steps
+   in chunks of 50 with no capture inside the timed window; then members
+   0 and 63's K3, each through its own lowered tape, on their live rows,
+   parameters and w = λ², against the plain flavor at K3_RTOL.  (c) A pool redraw (K1 per member) and
+   an ascent redraw (K3 six times per member) at M = 64 in a fit: device
+   ms on the redraw stream; then one redraw adopted directly, each
+   member's λ and λ moments carried bit for bit.  (d) A checkpoint round
+   trip: 10 more steps bit for bit.  (e) Members 0 and 63 served
+   (``member_surrogate(m)``): ``u`` within FAC_SERVE_TOL of the member's
+   network.  ``--factory-only`` runs the build and this phase.
+20. the sixteen ``examples_torch/`` scripts, in this process, with
+   ``--quick`` on the card: rc 0 each, its wall.  ``--examples-only`` runs
+   the build and this phase.
+21. a ``{"kernels": [...]}`` line (K1, K2, K3, their bf16 and their TF32
    flavors, each held to its plain version; K1's with the route it took and
    its wide route's measurements as ``wide_route``; the TF32 flavors with
    their distances and the 3xTF32 flavor's ms; ``launches_by_path`` has
-   phases 17's and 18's paths), the card line again, and the result line.
+   every path's launches, phases 17-20's included), the card line again,
+   and the result line.
 
 Phases 6-9 and 11-14 train through CUDA graphs (``training/graphs.py``): each Adam
 step, each L-BFGS evaluation and two-loop sweep, and each fixed-step L-BFGS
@@ -3649,6 +3681,13 @@ DIST_W2_STEPS, DIST_W2_RESUME = 20, 10
 # at 1.2e-07 on an H100 (PERF.md), the band about a hundred times that
 DIST_EVAL_TOL, DIST_TRAJ_RTOL = 1e-5, 1e-5
 DIST_TIMEOUT_S = 300
+# phase 17(d): the options whose statistic spans the ranks, at the slice's
+# N_f: causal weighting (the unfused path: the minimax step declines it)
+# and NTK weighting (K3); steps at world 1 over NCCL and at world 2
+DIST_OPTIONS = {"causal": dict(causal_eps=1e-2),
+                "ntk": dict(Adaptive_type=3, dict_adaptive=None,
+                            init_weights=None)}
+DIST_OPT_STEPS, DIST_OPT_W2_STEPS = 50, 20
 
 
 def _params_digest(solver) -> str:
@@ -3724,34 +3763,51 @@ def _held_k3(label: str, solver) -> dict:
     import torch
     from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
     from tensordiffeq_tpu_torch.ops.minimax import build_minimax_sq_fn
-    saved = _counts_all()
     sq, X = solver._minimax_sq, solver.X_f
-    plan = sq.plan
     lam = solver.lambdas["residual"][0].detach()
-    w = (lam * lam).reshape(-1, 1)
     fl = _solver_layers(solver)
-    flat = plan.pack(fl)
-    bf16 = solver.fused_dtype is not None
-    kernel = cm.k3_minimax_bf16 if bf16 else cm.k3_minimax
-
-    def leaves(v, dW, gw, gX):
-        return ([v.reshape(1)] + [t.reshape(-1) for t in dW]
-                + [gw, 2.0 * lam * gw, gX])
-
-    v, dflat, gw, gX = kernel(plan, X, w, flat)
+    if solver.fused_dtype is None:
+        return _k3_against_plain(label, sq, X, lam, fl)
+    saved = _counts_all()
+    plan = sq.plan
+    w = (lam * lam).reshape(-1, 1)
+    v, dflat, gw, gX = cm.k3_minimax_bf16(plan, X, w, plan.pack(fl))
     torch.cuda.synchronize()
-    got = leaves(v, plan.unpack(dflat), gw, gX)
-    want = leaves(*sq.plain(fl, w, X))
-    if bf16:
-        sq32 = build_minimax_sq_fn(
-            solver.f_model, solver.domain.vars, solver.n_out,
-            solver._fuse_requests, plan.layer_shapes, device=X.device)
-        bands = [BF16_VALUE_BAND] + [BF16_GRAD_BAND] * (len(got) - 4) \
-            + [BF16_VALUE_BAND, BF16_VALUE_BAND, BF16_GRAD_BAND]
-        res = _flavor_check(f"{label} K3-bf16 at N={X.shape[0]:,}", got,
-                            want, leaves(*sq32.plain(fl, w, X)), bands)
-        _set_counts(saved)
-        return res
+    got = _k3_leaves(lam, v, plan.unpack(dflat), gw, gX)
+    sq32 = build_minimax_sq_fn(
+        solver.f_model, solver.domain.vars, solver.n_out,
+        solver._fuse_requests, plan.layer_shapes, device=X.device)
+    bands = [BF16_VALUE_BAND] + [BF16_GRAD_BAND] * (len(got) - 4) \
+        + [BF16_VALUE_BAND, BF16_VALUE_BAND, BF16_GRAD_BAND]
+    res = _flavor_check(f"{label} K3-bf16 at N={X.shape[0]:,}", got,
+                        _k3_leaves(lam, *sq.plain(fl, w, X)),
+                        _k3_leaves(lam, *sq32.plain(fl, w, X)), bands)
+    _set_counts(saved)
+    return res
+
+
+def _k3_leaves(lam, v, dW, gw, gX) -> list:
+    """K3's outputs as the held checks compare them: the value, every
+    dW/db, gw, the per-point λ gradient 2λ·gw and gX."""
+    return ([v.reshape(1)] + [t.reshape(-1) for t in dW]
+            + [gw, 2.0 * lam * gw, gX])
+
+
+def _k3_against_plain(label: str, sq, X, lam, fl) -> dict:
+    """The f32 K3 of ``sq`` (a ``build_minimax_sq_fn`` function) launched
+    once on card tensors (the rows ``X``, w = λ² of the per-point ``lam``,
+    the 2-D layers ``fl``) against its plain flavor on the same tensors,
+    every leaf of :func:`_k3_leaves` scale-relative at K3_RTOL.  The launch
+    is not the main path's: the counts are put back."""
+    import torch
+    from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
+    saved = _counts_all()
+    plan = sq.plan
+    w = (lam * lam).reshape(-1, 1)
+    v, dflat, gw, gX = cm.k3_minimax(plan, X, w, plan.pack(fl))
+    torch.cuda.synchronize()
+    got = _k3_leaves(lam, v, plan.unpack(dflat), gw, gX)
+    want = _k3_leaves(lam, *sq.plain(fl, w, X))
     if not all(bool(torch.isfinite(t).all()) for t in got):
         fail(f"{label}: K3 gave a non-finite output")
     errs = [scaled_err(a, b) for a, b in zip(got, want)]
@@ -3960,6 +4016,66 @@ def _dist_world_1(card: str) -> dict:
                 share=share, peak=peak)
 
 
+def _dist_options_w1(card: str) -> dict:
+    """Phase 17(d): causal and NTK weighting under ``compile(dist=True)`` at
+    world 1 over NCCL: each option's 50 steps bit for bit the non-dist
+    solver and its eager steps, one capture, and the kernels of its path
+    (K1 and K2 once per step for causal, K3 once per step for NTK)."""
+    import torch
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+
+    saved = _counts_all()
+    paths = {}
+    for tag, extra in DIST_OPTIONS.items():
+        ct.reset_launch_counts()
+        a = _dist_solver(N_POINTS, True, **extra)
+        at_compile = _counts()
+        a.fit(tf_iter=DIST_OPT_STEPS, chunk=DIST_OPT_STEPS)
+        torch.cuda.synchronize()
+        launches = _counts()
+        in_fit = {k: launches[k] - at_compile[k] for k in launches}
+        ms = 1e3 * a._adam_result.chunk_seconds[-1] / DIST_OPT_STEPS
+        # the referees' launches are not the path's
+        path_counts = _counts_all()
+        b = _dist_solver(N_POINTS, False, **extra)
+        b.fit(tf_iter=DIST_OPT_STEPS, chunk=DIST_OPT_STEPS)
+        c = _dist_solver(N_POINTS, True, **extra)
+        c.fit(tf_iter=DIST_OPT_STEPS, chunk=DIST_OPT_STEPS, _graphs=False)
+        d_nondist, d_eager = _state_diff(a, b), _state_diff(a, c)
+        _set_counts(path_counts)
+        hist = [r["Total Loss"] for r in a.losses]
+        if tag == "causal":
+            extra_txt = (f"Causal_w_last "
+                         f"{a.losses[-1]['Causal_w_last_0']:.4f}")
+        else:
+            weights = [round(float(v), 4)
+                       for v in a.lambdas["BCs"] + a.lambdas["residual"]]
+            extra_txt = (f"NTK updates {len(a.ntk_updates)}, weights "
+                         f"{weights}")
+        print(f"[dist w1 {tag}] NCCL world 1, AC N_f={N_POINTS:,}, engine "
+              f"{a.engine}: {DIST_OPT_STEPS} steps, loss {hist[0]:.6e} -> "
+              f"{hist[-1]:.6e}, {extra_txt}; launches in fit {in_fit}; "
+              f"captures {a._adam.graph.captures}; against the non-dist "
+              f"solver: "
+              f"{'bit-identical' if d_nondist == 0 else d_nondist}; graph "
+              f"against eager: "
+              f"{'bit-identical' if d_eager == 0 else d_eager}; "
+              f"{ms:.3f} ms/step (the capture's chunk); {card}", flush=True)
+        if d_nondist != 0 or d_eager != 0 or a._adam.graph.captures != 1:
+            fail(f"dist w1 {tag}: not bit for bit the non-dist solver "
+                 f"({d_nondist}) or its eager steps ({d_eager}), or not one "
+                 "capture")
+        want = ({"k1": DIST_OPT_STEPS, "k2": DIST_OPT_STEPS, "k3": 0}
+                if tag == "causal" else
+                {"k1": 0, "k2": 0, "k3": DIST_OPT_STEPS})
+        if in_fit != want or not np.all(np.isfinite(hist)):
+            fail(f"dist w1 {tag}: launches in fit {in_fit}, want {want}")
+        paths[f"dist-w1-{tag}"] = dict(launches=launches)
+        del a, b, c
+    _set_counts(saved)
+    return paths
+
+
 def _dist_serve(solver) -> None:
     """Phase 17(c): ``InferenceEngine(shard=True)`` at world 1 serves ``u``
     bit for bit like ``shard=False``."""
@@ -4036,6 +4152,18 @@ def dist_worker(rank: int, world: int, store: str, out: str):
     res["hist"] = [r["Total Loss"] for r in s.losses]
     res["params"] = _params_digest(s)
     s.save_checkpoint(os.path.join(store, "ck_w2"))
+    # phase 17(d): causal and NTK weighting at world 2, against world 1
+    for tag, extra in DIST_OPTIONS.items():
+        so = _dist_solver(N_POINTS, True, **extra)
+        so.fit(tf_iter=DIST_OPT_W2_STEPS, chunk=DIST_OPT_W2_STEPS)
+        res[f"{tag}_hist"] = [r["Total Loss"] for r in so.losses]
+        res[f"{tag}_params"] = _params_digest(so)
+        if rank == 0:
+            ref = _dist_solver(N_POINTS, False, **extra)
+            ref.fit(tf_iter=DIST_OPT_W2_STEPS, chunk=DIST_OPT_W2_STEPS)
+            res[f"{tag}_ref_hist"] = [r["Total Loss"] for r in ref.losses]
+            del ref
+        del so
     if rank == 0:
         # the world-1 reference, in this process whose gloo group has
         # moved CUDA tensors: graphed, then its eager twin
@@ -4137,6 +4265,19 @@ def _dist_world_2(store: str, card: str) -> dict:
         fail(f"dist w2: K3 not once per step on each rank: {ranks}")
     if not all(q["eager"] and q["backend"] == "gloo" for q in ranks):
         fail("dist w2: the gloo step did not take its eager route")
+    for tag in DIST_OPTIONS:
+        got, want = np.array(r0[f"{tag}_hist"]), np.array(
+            r0[f"{tag}_ref_hist"])
+        err = float(np.max(np.abs(got - want) / np.abs(want)))
+        same = (ranks[0][f"{tag}_params"] == ranks[1][f"{tag}_params"]
+                and ranks[0][f"{tag}_hist"] == ranks[1][f"{tag}_hist"])
+        print(f"[dist w2 {tag}] {DIST_OPT_W2_STEPS} steps at world 2 over "
+              f"gloo against world 1: {err:.3e} relative (band "
+              f"{DIST_TRAJ_RTOL:g}); ranks' parameters "
+              f"{'bit-identical' if same else 'DIFFER'}", flush=True)
+        if not (err <= DIST_TRAJ_RTOL and same):
+            fail(f"dist w2 {tag}: world 2 is {err:.3e} from world 1, or "
+                 "the ranks differ")
     launches = {k: sum(q["launches"][k] for q in ranks)
                 for k in r0["launches"]}
     # the world-2 checkpoint at world 1 (no process group): 10 more steps
@@ -4175,6 +4316,7 @@ def phase_dist(card: str) -> dict:
         try:
             w1 = _dist_world_1(card)
             _dist_serve(w1["solver"])
+            w1["paths"].update(_dist_options_w1(card))
         finally:
             tdist.destroy_process_group()
         del w1["solver"]
@@ -4947,6 +5089,421 @@ def phase_resilience(card: str) -> dict:
             "resilience-cluster": dict(launches=e["launches"])}
 
 
+# --------------------------------------------------------------------- #
+# phase 19: the surrogate factory
+# --------------------------------------------------------------------- #
+# (b)-(e): the JAX package's factory benchmark (bench.py --mode factory):
+# 64 Allen-Cahn members, theta_m = 1e-4 (0.5 + m/63), N_f = 2,048 per
+# member, 2-64-64-1, SA lambda on the residual (ones)
+FAC_M, FAC_NF, FAC_WIDTHS, FAC_STEPS = 64, 2_048, [2, 64, 64, 1], 200
+FAC_BIT, FAC_SOLO_STEPS, FAC_CKPT_STEPS, FAC_RESAMPLE_STEPS = 50, 20, 10, 30
+FAC_POISONED = 5  # the member (b) fills with NaN
+# (b): a member against its matched-seed solo solver, scale-relative over
+# 20 steps: the same kernel on the same rows; the BC terms and Adam run on
+# the stacked tensors (measured 1.1e-7-1.5e-7 on the CPU)
+FAC_SOLO_TOL = 1e-5
+# (e): the served u against the member's network on the same points
+FAC_SERVE_TOL = 1e-6
+
+
+def _fac_f_model(u, x, t, th):
+    from tensordiffeq_tpu_torch import grad
+    uv = u(x, t)
+    return (grad(u, "t")(x, t) - th * grad(grad(u, "x"), "x")(x, t)
+            + 5.0 * uv ** 3 - 5.0 * uv)
+
+
+def _fac_problem():
+    """bench.py's factory problem: AC on the 512x201 IC/periodic meshes,
+    N_f = 2,048, λ_res = 1 per point, no BC λ."""
+    domain, bcs, _, _ = ac_sa_problem(n_f=FAC_NF)
+    kw = dict(Adaptive_type=1,
+              dict_adaptive={"residual": [True], "BCs": [False, False]},
+              init_weights={"residual": [np.ones((FAC_NF, 1))],
+                            "BCs": [None, None]})
+    return domain, bcs, kw
+
+
+def _fac_thetas():
+    return [1e-4 * (0.5 + m / (FAC_M - 1)) for m in range(FAC_M)]
+
+
+def _fac_build(**extra):
+    from tensordiffeq_tpu_torch.factory import SurrogateFactory
+    domain, bcs, kw = _fac_problem()
+    return SurrogateFactory(FAC_WIDTHS, _fac_f_model, domain, bcs,
+                            thetas=_fac_thetas(), fused="cuda",
+                            verbose=False, **dict(kw, **extra))
+
+
+def _fac_bits(tensors) -> list:
+    return [t.detach().cpu().numpy().tobytes() for t in tensors]
+
+
+def _fac_hist(fac, member=None, rows=None) -> np.ndarray:
+    rows = fac.losses if rows is None else fac.losses[:rows]
+    h = np.stack([r["Total Loss"] for r in rows])
+    return h if member is None else h[:, member]
+
+
+def _fac_one_member(card: str) -> dict:
+    """Phase 19(a): a 1-member family at AC-SA full is its solo solver."""
+    import torch
+    import tensordiffeq_tpu_torch as tdqt
+    from tensordiffeq_tpu_torch.factory import SurrogateFactory
+    from tensordiffeq_tpu_torch.factory.family import _as_theta
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+
+    domain, bcs, _, kw = ac_sa_problem()
+    th = 1e-4
+    ct.reset_launch_counts()
+    fac = SurrogateFactory(WIDTHS, _fac_f_model, domain, bcs, thetas=[th],
+                           fused="cuda", verbose=False, **kw)
+    at_compile = _counts()
+    fac.fit(tf_iter=TF_ITER, chunk=TF_ITER // 2)
+    torch.cuda.synchronize()
+    launches = _counts()
+    in_fit = {k: launches[k] - at_compile[k] for k in launches}
+    saved = _counts_all()
+    solo = tdqt.CollocationSolverND(verbose=False, seed=0)
+    th0 = _as_theta(th, "cpu")
+    solo.compile(WIDTHS, lambda u, x, t: _fac_f_model(u, x, t, th0), domain,
+                 bcs, fused="cuda", **kw)
+    solo.fit(tf_iter=TF_ITER, chunk=TF_ITER // 2)
+    _set_counts(saved)
+    tpl = fac._template
+    same = (_fac_hist(fac, 0).tolist() == [r["Total Loss"]
+                                           for r in solo.losses]
+            and _fac_bits(tpl.net.params()) == _fac_bits(solo.net.params())
+            and _fac_bits(tpl.lambdas["residual"] + [
+                lam for lam in tpl.lambdas["BCs"] if lam is not None])
+            == _fac_bits(solo.lambdas["residual"] + [
+                lam for lam in solo.lambdas["BCs"] if lam is not None]))
+    caps = tpl._adam.graph.captures
+    print(f"[factory 1] a 1-member family at AC-SA full ({WIDTHS}, "
+          f"N_f={N_POINTS:,}, SA λ): engine {tpl.engine}, {TF_ITER} steps "
+          f"against the solo solver: "
+          f"{'bit-identical' if same else 'DIFFER'}; launches in fit "
+          f"{in_fit}; captures {caps}; loss {_fac_hist(fac, 0)[0]:.6e} -> "
+          f"{_fac_hist(fac, 0)[-1]:.6e}", flush=True)
+    if not same:
+        fail("factory 1: the 1-member family is not its solo solver")
+    if in_fit != {"k1": 0, "k2": 0, "k3": TF_ITER} or caps != 1:
+        fail(f"factory 1: launches in fit {in_fit}, captures {caps}")
+    return dict(launches=launches)
+
+
+def _fac_carry_check(fac, mode: str) -> float:
+    """One family redraw at the current state, timed by CUDA events, then
+    adopted: every member's kept rows carry their λ and λ moments bit for
+    bit, fresh rows the kept mean and zero moments.  Returns the redraw's
+    device ms."""
+    import torch
+    kw = dict(resample_mode=mode, resample_ascent_steps=5,
+              resample_uniform=0.1, resample_pool=4, resample_temp=1.0,
+              resample_seed=7)
+    sampler = fac._make_sampler(kw, FAC_NF)
+    step = fac._step
+    lam = fac.lambdas["residual"][0]
+    st = fac._opt[1].state[lam]
+    before = [lam.detach().clone(), st["exp_avg"].clone(),
+              st["exp_avg_sq"].clone()]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    swap = sampler.redraw([p.detach() for p in fac.params], fac.X_f,
+                          list(fac._members), 10_000)
+    end.record()
+    step.adopt(swap.X_new, swap)
+    torch.cuda.synchronize()
+    ok = True
+    for m in range(FAC_M):
+        kept = swap.kept[m]
+        idx = swap.idx[m][kept]
+        for now, old in zip([lam.detach(), st["exp_avg"],
+                             st["exp_avg_sq"]], before):
+            ok &= bool(torch.equal(now[m][kept], old[m][idx]))
+        fresh = ~kept
+        if bool(fresh.any()):
+            mean = before[0][m][idx].mean(0)
+            ok &= bool(torch.allclose(lam.detach()[m][fresh],
+                                      mean.expand(int(fresh.sum()), 1),
+                                      rtol=1e-6, atol=0.0))
+            ok &= bool((st["exp_avg"][m][fresh] == 0).all())
+        ok &= bool(torch.equal(fac.X_f[m], swap.X_new[m]))
+    if not ok:
+        fail(f"factory {mode}: a member's λ or moments were not carried")
+    return start.elapsed_time(end)
+
+
+def phase_factory(card: str) -> dict:
+    """Phase 19 (module docstring)."""
+    import tempfile
+    import torch
+    import tensordiffeq_tpu_torch as tdqt
+    from tensordiffeq_tpu_torch.factory.family import _as_theta
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    from tensordiffeq_tpu_torch.training import graphs
+
+    t_phase = time.perf_counter()
+    paths = {"factory-1": _fac_one_member(card)}
+
+    # (b) the 64-member sweep
+    ct.reset_launch_counts()
+    t0 = time.perf_counter()
+    fac = _fac_build()
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    at_compile = _counts()
+    c0 = len(graphs.captures)
+    t_first = _timed_fit(fac, tf_iter=FAC_BIT, chunk=FAC_BIT)
+    at_bit = _counts()
+    in_fit = {k: at_bit[k] - at_compile[k] for k in at_bit}
+    caps = _captures_since("factory", c0)
+    state_bit = (_fac_bits(fac.params), _fac_hist(fac).copy())
+    print(f"[factory] {FAC_M} members, AC theta 5e-5..1.5e-4, N_f={FAC_NF:,} "
+          f"each, {FAC_WIDTHS}: engine {fac._template.engine} "
+          f"(family {fac.engine}), built in {t_build:.2f} s; launches "
+          f"after compile {at_compile}, in {FAC_BIT} steps {in_fit}; "
+          f"captures {len(caps)}", flush=True)
+    if in_fit != {"k1": 0, "k2": 0, "k3": FAC_M * FAC_BIT}:
+        fail(f"factory: K3 not {FAC_M} per step, or K1/K2 ran: {in_fit}")
+    if len(caps) != 1 or fac._step.graph.captures != 1:
+        fail(f"factory: {len(caps)} captures, want one family step")
+    saved = _counts_all()
+    # graph against eager, and a poisoned member, over FAC_BIT steps
+    twin = _fac_build()
+    twin.fit(tf_iter=FAC_BIT, chunk=FAC_BIT, _graphs=False)
+    d_eager = (twin.losses and _fac_bits(twin.params) == state_bit[0]
+               and np.array_equal(_fac_hist(twin), state_bit[1]))
+    pois = _fac_build()
+    with torch.no_grad():
+        for p in pois.params:
+            p[FAC_POISONED].fill_(float("nan"))
+    pois.fit(tf_iter=FAC_BIT, chunk=FAC_BIT)
+    others = [m for m in range(FAC_M) if m != FAC_POISONED]
+    h_p = _fac_hist(pois)
+    d_pois = (pois.frozen_at == {FAC_POISONED: 0}
+              and pois.alive.tolist() == [m != FAC_POISONED
+                                          for m in range(FAC_M)]
+              and np.array_equal(h_p[:, others], state_bit[1][:, others])
+              and all(np.array_equal(
+                  p.detach().cpu().numpy()[others],
+                  np.frombuffer(b, np.float32).reshape(p.shape)[others])
+                  for p, b in zip(pois.params, state_bit[0])))
+    print(f"[factory] graph against eager over {FAC_BIT} steps: "
+          f"{'bit-identical' if d_eager else 'DIFFER'}; member "
+          f"{FAC_POISONED} poisoned with NaN: frozen_at {pois.frozen_at}, "
+          f"the other {FAC_M - 1} "
+          f"{'bit-identical' if d_pois else 'DIFFER'}", flush=True)
+    if not (d_eager and d_pois):
+        fail("factory: graph != eager, or a NaN member reached another")
+    del pois
+    # two members against matched-seed solo solvers
+    domain, bcs, kw = _fac_problem()
+    rest = FAC_STEPS - FAC_BIT  # the timed window, family and solo alike
+    worst, solo_ms, solo_caps = 0.0, None, None
+    for m in (0, FAC_M - 1):
+        th = _as_theta(_fac_thetas()[m], "cpu")
+        solo = tdqt.CollocationSolverND(verbose=False, seed=m)
+        solo.compile(FAC_WIDTHS, lambda u, x, t, _t=th: _fac_f_model(
+            u, x, t, _t), domain, bcs, fused="cuda", **kw)
+        solo.fit(tf_iter=FAC_SOLO_STEPS, chunk=FAC_SOLO_STEPS)
+        want = np.array([r["Total Loss"] for r in solo.losses])
+        got = state_bit[1][:FAC_SOLO_STEPS, m]
+        worst = max(worst, float(np.abs(got - want).max()
+                                 / np.abs(want).max()))
+        if m == 0:
+            # timed as the family step is: a fit in chunks of FAC_BIT first
+            # (its history buffer, so its capture), then replays only
+            solo.fit(tf_iter=FAC_BIT, chunk=FAC_BIT)
+            caps = solo._adam.graph.captures
+            solo_ms = 1e3 * _timed_fit(solo, tf_iter=rest,
+                                       chunk=FAC_BIT) / rest
+            solo_caps = solo._adam.graph.captures - caps
+    _set_counts(saved)
+    print(f"[factory] members 0 and {FAC_M - 1} against matched-seed solo "
+          f"solvers over {FAC_SOLO_STEPS} steps: {worst:.3e} scale-relative "
+          f"(band {FAC_SOLO_TOL:g})", flush=True)
+    if not worst <= FAC_SOLO_TOL:
+        fail("factory: members drift from their solo solvers")
+    if solo_caps != 0:
+        fail(f"factory: the solo baseline captured {solo_caps} graphs in "
+             "its timed window")
+    # the rest of the budget: ms per family step past the capture
+    # chunks of FAC_BIT: the captured step replays on (a longer chunk would
+    # take a larger history buffer and a capture of its own)
+    wall = _timed_fit(fac, tf_iter=rest, chunk=FAC_BIT)
+    ms = 1e3 * wall / rest
+    h = _fac_hist(fac)
+    print(f"[factory] {FAC_STEPS} steps: mean member loss {h[0].mean():.6e} "
+          f"-> {h[-1].mean():.6e}, all alive {bool(fac.alive.all())}; "
+          f"{ms:.3f} ms per family step ({rest} replayed steps in chunks "
+          f"of {FAC_BIT}; the first {FAC_BIT}, with the capture, "
+          f"{1e3 * t_first / FAC_BIT:.3f}; captures "
+          f"{fac._step.graph.captures})"
+          f", {FAC_M * FAC_NF / ms * 1e3:.4g} points/s; the solo member "
+          f"{solo_ms:.3f} ms/step ({rest} replayed steps in chunks of "
+          f"{FAC_BIT}, no capture) x {FAC_M} = {solo_ms * FAC_M:.3f} ms "
+          f"sequential ({solo_ms * FAC_M / ms:.2f}x); {card}", flush=True)
+    if not (np.all(np.isfinite(h)) and h[-1].mean() < h[0].mean()
+            and bool(fac.alive.all())):
+        fail("factory: the family's loss did not fall")
+    paths["factory"] = dict(launches=_counts())
+    # K3 at the family's own shapes: the first and the last member, each
+    # through its own lowered tape, on its live rows, parameters and λ
+    for m in (0, FAC_M - 1):
+        i = fac._local(m)
+        _k3_against_plain(
+            f"factory member {m}", fac._member_sq[m], fac.X_f[i],
+            fac.lambdas["residual"][0][i].detach(),
+            [p[i].detach() if p.ndim == 3 else p[i].detach().reshape(1, -1)
+             for p in fac.params])
+
+    # (c) a pool and an ascent redraw at M = 64
+    for mode in ("pool", "ascent"):
+        ct.reset_launch_counts()
+        n0 = len(fac.redraws)
+        caps0 = fac._step.graph.captures
+        fac.fit(tf_iter=FAC_RESAMPLE_STEPS, chunk=10, resample_every=10,
+                resample_mode=mode)
+        torch.cuda.synchronize()
+        launches = _counts()
+        recs = fac.redraws[n0:]
+        saved = _counts_all()
+        direct_ms = _fac_carry_check(fac, mode)
+        _set_counts(saved)
+        n_rd = len(recs)
+        want = ({"k1": FAC_M * n_rd, "k2": 0,
+                 "k3": FAC_M * FAC_RESAMPLE_STEPS} if mode == "pool" else
+                {"k1": 0, "k2": 0,
+                 "k3": FAC_M * (FAC_RESAMPLE_STEPS + 6 * n_rd)})
+        print(f"[factory {mode}] {FAC_RESAMPLE_STEPS} steps, redraws "
+              + ", ".join(f"at {r['epoch']} (adopted {r['adopted']}, device "
+                          f"{r['device_ms'] or float('nan'):.3f} ms on its "
+                          f"stream, kept "
+                          f"{r['stats']['kept_fraction']:.3f})"
+                          for r in recs)
+              + f"; launches {launches} (want {want}); dispatch host ms "
+              f"{[round(1e3 * r['dispatch_s'], 1) for r in recs]}; one "
+              f"redraw alone {direct_ms:.3f} ms, λ and moments carried bit "
+              f"for bit; new captures across the swaps "
+              f"{fac._step.graph.captures - caps0}", flush=True)
+        if launches != want or n_rd != 2 or recs[0]["adopted"] is None \
+                or fac._step.graph.captures != caps0:
+            fail(f"factory {mode}: launches {launches}, redraws {recs}")
+        paths[f"factory-{mode}"] = dict(launches=launches)
+
+    # (d) a checkpoint round trip, then 10 more steps bit for bit
+    saved = _counts_all()
+    ck = tempfile.mkdtemp(prefix="tdq_factory_")
+    t0 = time.perf_counter()
+    fac.save_checkpoint(ck)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    twin.restore_checkpoint(ck)
+    t_restore = time.perf_counter() - t0
+    for f in (fac, twin):
+        f.fit(tf_iter=FAC_CKPT_STEPS, chunk=FAC_CKPT_STEPS)
+    same = (_fac_bits(fac.params) == _fac_bits(twin.params)
+            and np.array_equal(_fac_hist(fac), _fac_hist(twin)))
+    print(f"[factory checkpoint] save {t_save:.3f} s, restore "
+          f"{t_restore:.3f} s, {FAC_CKPT_STEPS} more steps "
+          f"{'bit-identical' if same else 'DIFFER'}", flush=True)
+    if not same:
+        fail("factory: the restored family does not resume bit for bit")
+    # (e) a member served
+    X = np.random.RandomState(3).uniform(
+        [-1.0, 0.0], [1.0, 1.0], (4096, 2)).astype(np.float32)
+    worst = 0.0
+    for m in (0, FAC_M - 1):
+        served = np.asarray(fac.member_surrogate(m).engine(
+            min_bucket=4096, max_bucket=4096).u(X)).reshape(-1)
+        want = fac.apply_fn(fac.member_params(m), torch.from_numpy(X).to(
+            fac.device)).detach().cpu().numpy().reshape(-1)
+        worst = max(worst, float(np.abs(served - want).max()
+                                 / np.abs(want).max()))
+    _set_counts(saved)
+    print(f"[factory serve] members 0 and {FAC_M - 1}: served u against the "
+          f"member's network {worst:.3e} scale-relative (band "
+          f"{FAC_SERVE_TOL:g})", flush=True)
+    if not worst <= FAC_SERVE_TOL:
+        fail("factory: a served member differs from its network")
+    print(f"[factory] phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return paths
+
+
+# --------------------------------------------------------------------- #
+# phase 20: the port's example scripts
+# --------------------------------------------------------------------- #
+EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "examples_torch")
+N_EXAMPLES = 16
+
+
+def _run_example(name: str) -> tuple:
+    """``examples_torch/<name> --quick`` in this process, on the card:
+    ``(rc, output)``, the output captured (the subprocess of
+    ``ac_serving.py`` writes to this process's own output)."""
+    import contextlib
+    import io
+    import runpy
+    import traceback
+
+    old_argv, old_path = sys.argv, list(sys.path)
+    sys.argv = [name, "--quick"]
+    sys.path.insert(0, EXAMPLES_DIR)
+    buf = io.StringIO()
+    rc = 0
+    try:
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+            runpy.run_path(os.path.join(EXAMPLES_DIR, name),
+                           run_name="__main__")
+    except SystemExit as e:
+        rc = 0 if e.code in (None, 0) else (
+            e.code if isinstance(e.code, int) else 1)
+    except Exception:  # noqa: BLE001 - reported with its traceback
+        rc = 1
+        buf.write(traceback.format_exc())
+    finally:
+        sys.argv, sys.path = old_argv, old_path
+        for mod in ("_common", "ac_baseline"):
+            sys.modules.pop(mod, None)
+    return rc, buf.getvalue()
+
+
+def phase_examples(card: str) -> dict:
+    """Phase 20: every ``examples_torch/`` script with ``--quick`` on the
+    card, in this process; each must return 0."""
+    import torch
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+
+    scripts = sorted(f for f in os.listdir(EXAMPLES_DIR)
+                     if f.endswith(".py") and not f.startswith("_"))
+    if len(scripts) != N_EXAMPLES:
+        fail(f"examples: {len(scripts)} scripts, want {N_EXAMPLES}")
+    ct.reset_launch_counts()
+    t_phase = time.perf_counter()
+    walls = {}
+    for name in scripts:
+        t0 = time.perf_counter()
+        rc, out = _run_example(name)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        lines = [ln for ln in out.strip().splitlines() if ln.strip()]
+        print(f"[example {name}] rc {rc}, {walls[name]:.1f} s: "
+              f"{lines[-1][:160] if lines else ''}", flush=True)
+        if rc != 0:
+            print(out[-4000:], flush=True)
+            fail(f"examples: {name} returned {rc}")
+    launches = _counts_all()
+    print(f"[examples] {len(scripts)} scripts, rc 0 each, wall "
+          f"{time.perf_counter() - t_phase:.1f} s; launches "
+          f"{_nonzero(launches)}; {card}", flush=True)
+    return {"examples": dict(launches=launches)}
+
+
 def kernels_line(meas: dict, paths: dict) -> str:
     """``launches`` sums a kernel's launches over the runs of every path
     (``launches_by_path`` splits them: minimax, unfused, lbfgs, pool,
@@ -4954,9 +5511,11 @@ def kernels_line(meas: dict, paths: dict) -> str:
     families, phase 14's minimax-bf16, lbfgs-bf16, unfused-bf16,
     serve-bf16, phase 15's zoo, phase 16's tf32-minimax, tf32-lbfgs,
     tf32-unfused, custom, custom-lbfgs, knob-sin and knob-bf16, phase
-    17's dist-w1, dist-w1-unfused, dist-w1-bf16 and dist-w2, and phase
-    18's resilience, resilience-off, resilience-resume, resilience-serve
-    and resilience-cluster, the last the relaunched worker's)."""
+    17's dist-w1, dist-w1-unfused, dist-w1-bf16, dist-w1-causal,
+    dist-w1-ntk and dist-w2, phase 18's resilience, resilience-off,
+    resilience-resume, resilience-serve and resilience-cluster, the last
+    the relaunched worker's, phase 19's factory-1, factory, factory-pool
+    and factory-ascent, and phase 20's examples)."""
     entries = []
     for key, name, source, replaces in (
             ("k1", "taylor_table_fwd (K1)", "csrc/taylor_fwd_wg.cuh",
@@ -5031,6 +5590,12 @@ def main():
     ap.add_argument("--resilience-only", action="store_true",
                     help="build the kernels and run phase 18 (the "
                     "operational planes) alone; prints no result line")
+    ap.add_argument("--factory-only", action="store_true",
+                    help="build the kernels and run phase 19 (the "
+                    "surrogate factory) alone; prints no result line")
+    ap.add_argument("--examples-only", action="store_true",
+                    help="build the kernels and run phase 20 (the example "
+                    "scripts) alone; prints no result line")
     ap.add_argument("--dist-worker", nargs=4,
                     metavar=("RANK", "WORLD", "STORE", "OUT"),
                     help=argparse.SUPPRESS)
@@ -5082,6 +5647,14 @@ def main():
         phase_resilience(card)
         print(card, flush=True)
         return
+    if args.factory_only:
+        phase_factory(card)
+        print(card, flush=True)
+        return
+    if args.examples_only:
+        phase_examples(card)
+        print(card, flush=True)
+        return
     meas = phase_kernels(dev)
     meas["k3"] = phase_k3(dev)
     phase_yardstick(dev)
@@ -5112,6 +5685,8 @@ def main():
     paths.update(option_paths)
     paths.update(phase_dist(card))
     paths.update(phase_resilience(card))
+    paths.update(phase_factory(card))
+    paths.update(phase_examples(card))
     if args.profile:
         phase_ab(paths)
         # in turns, so a slower stretch of the host does not land on one

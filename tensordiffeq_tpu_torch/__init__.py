@@ -25,11 +25,15 @@ paths (:mod:`.utils`, :mod:`.plotting`, :mod:`.output`).  Data-parallel
 training over ``torch.distributed`` (:mod:`.parallel`: ``compile(dist=
 ...)``, sharded checkpoints that restore onto another world size,
 ``DiscoveryModel.compile(dist=True)``, ``InferenceEngine(shard=True)``)
-runs one process per GPU.  The port imports nothing of JAX and nothing of
-``tensordiffeq_tpu``.
+runs one process per GPU.  The surrogate factory
+(:class:`~.factory.SurrogateFactory`) trains a parametric family of PINNs
+as one captured step, each member's residual through the template
+solver's engine (K3 per member on the card).  The port imports nothing of
+JAX and nothing of ``tensordiffeq_tpu``.
 """
 
-from . import boundaries, domains, exact, helpers, networks  # noqa: F401
+from . import boundaries, domains, exact, factory, helpers  # noqa: F401
+from . import networks  # noqa: F401
 from . import models, ops, output, parallel, plotting, profiling  # noqa: F401
 from . import resilience, sampling  # noqa: F401
 from . import serving, telemetry, training, utils, weights  # noqa: F401
@@ -37,6 +41,7 @@ from . import zoo  # noqa: F401
 from .boundaries import (  # noqa: F401
     BC, IC, FunctionDirichletBC, FunctionNeumannBC, dirichletBC, periodicBC)
 from .domains import DomainND  # noqa: F401
+from .factory import SurrogateFactory  # noqa: F401
 from .helpers import find_L2_error  # noqa: F401
 from .models import (  # noqa: F401
     CollocationSolverND, DiscoveryModel, NotCompiledError)

@@ -70,6 +70,7 @@ def build_loss_fn(apply_fn: Callable,
                   time_index: Optional[int] = None,
                   time_bounds: Optional[tuple] = None,
                   remat: bool = False,
+                  mesh=None,
                   device="cuda") -> Callable:
     """Assemble ``loss(params, lam_bcs, lam_res, X_batch, lam_data=None)``.
 
@@ -99,7 +100,11 @@ def build_loss_fn(apply_fn: Callable,
         steps); ``time_index`` is the time column of ``X_batch`` and
         ``time_bounds`` its range.  Each term reports ``Causal_w_last_j``.
         Per-point λ fold into the squared errors as the plain term does;
-        a type-2 scalar λ scales the causal term.
+        a type-2 scalar λ scales the causal term.  Under ``mesh`` (data
+        parallelism) the bins span the ranks
+        (:func:`~..ops.losses.causal_residual_loss`); the rank's term is its
+        share of the global one times the world size, so that
+        :func:`~..parallel.scale_loss_fn`'s division leaves the share.
       remat: recompute the residual evaluation in the backward pass
         (``torch.utils.checkpoint``, non-reentrant, without saving the RNG
         state: the residual draws no random numbers, and a capture may
@@ -207,7 +212,9 @@ def build_loss_fn(apply_fn: Callable,
                     outer = lam
                 loss_r, w_last = causal_residual_loss(
                     sq, X_batch[:, time_index], time_bounds, causal_eps,
-                    causal_bins)
+                    causal_bins, mesh=mesh)
+                if mesh is not None and mesh.size > 1:
+                    loss_r = loss_r * mesh.size
                 if outer is not None:
                     loss_r = torch.reshape(outer, ()) * loss_r
                 components[f"Causal_w_last_{j}"] = w_last

@@ -70,8 +70,8 @@ on its rank block of ``X_f`` and of the per-point λ with the loss's share
 and gradient summed over the ranks at every Adam step and L-BFGS
 evaluation; checkpoints then take the sharded, topology-portable layout
 and restore onto another world size.  The options that need a global
-statistic the port does not reduce (``causal_eps``, NTK weighting) raise
-:class:`~..utils.NotPortedError` under ``dist``.
+statistic reduce it over the ranks: causal weighting's bin sums inside
+the step, NTK weighting's residual trace over the global subsample.
 """
 
 from __future__ import annotations
@@ -94,7 +94,7 @@ from ..ops.derivatives import make_ufn, vmap_residual
 from ..training.fit import (AdamStep, FitResult, fit_adam, make_optimizer,
                             relink_schedules, set_rates)
 from ..training.lbfgs import fit_lbfgs
-from ..utils import (initialize_lambdas, matmul_precision, not_ported,
+from ..utils import (initialize_lambdas, matmul_precision,
                      param_leaves, resolve_compute_dtype, resolve_device)
 from .assembly import build_loss_fn
 
@@ -316,18 +316,10 @@ class CollocationSolverND:
             each rank keeps its block, with its rows of the per-point λ
             (``init_weights`` gives the global λ; each rank slices it);
             parameters, optimizer state, BC λ and meshes are replicated.
-            ``causal_eps`` and NTK weighting raise
-            :class:`~..utils.NotPortedError` under ``dist``.
+            Causal weighting sums its bins over the ranks inside the step,
+            and NTK weighting takes its residual trace over the global
+            subsample, each rank over its rows of it (:mod:`..ops.ntk`).
         """
-        if dist:
-            if causal_eps is not None:
-                raise not_ported("compile(dist=..., causal_eps=...) (the "
-                                 "causal bins' sums span ranks)",
-                                 "queue 1, causal weighting under dist")
-            if Adaptive_type == 3:
-                raise not_ported("compile(dist=..., Adaptive_type=3) (the "
-                                 "NTK trace subsample spans ranks)",
-                                 "queue 1, NTK weighting under dist")
         if fused_dtype is not None and fused is False:
             warnings.warn("fused_dtype is ignored with fused=False (the "
                           "generic engine has no Taylor matmuls)")
@@ -948,7 +940,7 @@ class CollocationSolverND:
         loss_kw = dict(weight_outside_sum=self.weight_outside_sum, g=self.g,
                        data_X=self.data_X, data_s=self.data_s,
                        remat=self.remat, device=self.device,
-                       **self._causal_kw)
+                       mesh=self.mesh, **self._causal_kw)
         self.loss_fn = build_loss_fn(
             self.apply_fn, self.domain.vars, self.n_out, self.f_model,
             self.bcs, residual_fn=self._fused_residual,
@@ -977,10 +969,11 @@ class CollocationSolverND:
                 self.apply_fn, self.domain.vars, self.n_out, self.f_model,
                 self.bcs, self.X_f, n_residuals=n_res,
                 max_points=self.ntk_max_points, data_X=self.data_X,
-                data_s=self.data_s)
+                data_s=self.data_s, mesh=self.mesh)
             self._ntk_fn = make_ntk_weight_fn(bc_fns, res_all_fn, n_res,
                                               data_fn=data_fn,
-                                              max_ratio=self.ntk_max_ratio)
+                                              max_ratio=self.ntk_max_ratio,
+                                              mesh=self.mesh)
             if data_fn is not None and "data" not in self.lambdas:
                 self.lambdas["data"] = [torch.ones((), device=self.device)]
 
@@ -1482,7 +1475,8 @@ class CollocationSolverND:
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-            X_sub = (residual_subsample(self.X_f, self.ntk_max_points)
+            X_sub = (residual_subsample(self.X_f, self.ntk_max_points,
+                                        mesh=self.mesh)
                      if resampling else None)
             new = self._ntk_fn([t.detach() for t in params], X_sub)
             rec = {"host_s": time.perf_counter() - t0, "device_ms": None,

@@ -44,7 +44,8 @@ def default_g(lam):
     return torch.square(lam)
 
 
-def causal_residual_loss(sq_errors, t_column, t_bounds, eps, n_bins: int):
+def causal_residual_loss(sq_errors, t_column, t_bounds, eps, n_bins: int,
+                         mesh=None):
     """Temporal-causality-weighted residual loss (Wang, Sankaran &
     Perdikaris, arXiv:2203.07404; the JAX package's
     ``causal_residual_loss``): the points are binned uniformly along time,
@@ -59,7 +60,16 @@ def causal_residual_loss(sq_errors, t_column, t_bounds, eps, n_bins: int):
     CUDA that scatters by atomics, whose order changes from run to run,
     and a replayed graph would then not equal the eager step bit for bit.
     The mask depends only on the time column, so it also follows a
-    minibatch or a redraw without any state."""
+    minibatch or a redraw without any state.
+
+    ``mesh`` (a :class:`~..parallel.DataMesh` with a process group: the
+    points are split over ranks): the bins' sums and counts span the ranks,
+    so their detached values are summed over the group by one all-reduce
+    (inside the step, and so inside its CUDA graph under NCCL), ``w`` comes
+    from the global bin means, and the rank's term is ``Σ_b w_b ·
+    local_sum_b / max(global_count_b, 1) / n_bins``, which sums over the
+    ranks to the global loss; ``w_last`` is the global one on every rank.
+    At world 1 this is bit for bit the single-process loss."""
     t0, t1 = t_bounds
     sq = sq_errors.reshape(-1)
     pos = (t_column.reshape(-1) - t0) / (t1 - t0)
@@ -67,10 +77,19 @@ def causal_residual_loss(sq_errors, t_column, t_bounds, eps, n_bins: int):
     onehot = (bins[:, None] == torch.arange(
         n_bins, dtype=torch.int32, device=sq.device)[None, :]).to(sq.dtype)
     counts = torch.sum(onehot, 0)
-    per_bin = torch.sum(sq[:, None] * onehot, 0) / torch.clamp(counts,
-                                                                 min=1.0)
+    sums = torch.sum(sq[:, None] * onehot, 0)
+    means = None
+    if mesh is not None and mesh.group is not None:
+        from ..parallel import all_reduce_
+        glob = torch.cat([sums.detach(), counts])
+        all_reduce_([glob], mesh)
+        counts = glob[n_bins:]
+        means = glob[:n_bins] / torch.clamp(counts, min=1.0)
+    per_bin = sums / torch.clamp(counts, min=1.0)
+    if means is None:
+        means = per_bin
     cum = torch.cat([torch.zeros(1, dtype=per_bin.dtype, device=sq.device),
-                     torch.cumsum(per_bin, 0)[:-1]])
+                     torch.cumsum(means, 0)[:-1]])
     w = torch.exp(-eps * cum).detach()
     return torch.mean(w * per_bin), w[-1]
 

@@ -52,24 +52,41 @@ def _f32(a, device) -> torch.Tensor:
         a, torch.Tensor) else a, dtype=torch.float32).to(device)
 
 
-def residual_subsample(X_f: torch.Tensor, max_points: int = 256):
+def residual_subsample(X_f: torch.Tensor, max_points: int = 256,
+                       mesh=None):
     """The residual term's trace points: the stride subsample
     :func:`build_error_fns` takes at build time, from the *current*
-    collocation set (a redraw changes it)."""
-    return _subsample(X_f.to(torch.float32), max_points)
+    collocation set (a redraw changes it).  Under ``mesh`` (data
+    parallelism, more than one rank) ``X_f`` is this rank's block of the
+    group's set, and the result is the rows of the GLOBAL subsample that
+    fall in it (possibly none): the ranks' traces over them sum to the
+    trace over the global subsample (:func:`make_ntk_weight_fn`)."""
+    X_f = X_f.to(torch.float32)
+    if mesh is None or mesh.size == 1:
+        return _subsample(X_f, max_points)
+    n = int(X_f.shape[0])
+    idx = _subsample_index(n * mesh.size, max_points)
+    if idx is None:
+        return X_f
+    start = mesh.rank * n
+    mine = idx[(idx >= start) & (idx < start + n)] - start
+    return X_f.index_select(0, torch.as_tensor(mine, dtype=torch.long,
+                                               device=X_f.device))
 
 
 def build_error_fns(apply_fn: Callable, varnames: Sequence[str], n_out: int,
                     f_model: Callable, bcs: Sequence[BC], X_f: torch.Tensor,
                     n_residuals: int, max_points: int = 256,
-                    data_X=None, data_s=None, device=None):
+                    data_X=None, data_s=None, device=None, mesh=None):
     """Per-term error functions ``e(layers) -> [m]`` on fixed subsampled
     points, in the term order of :func:`..models.assembly.build_loss_fn`.
 
     Returns ``(bc_fns, res_all_fn, data_fn)``; ``res_all_fn(layers,
     X_sub=None) -> [n_residuals, m]`` stacks every residual equation
     (``X_sub`` overrides the build-time subsample); ``data_fn`` is ``None``
-    without assimilation data."""
+    without assimilation data.  Under ``mesh`` ``X_f`` is the rank's block
+    and the residual's subsample its rows of the global one
+    (:func:`residual_subsample`); the BC and data terms are replicated."""
     device = X_f.device if device is None else device
     ndim = len(varnames)
 
@@ -121,7 +138,7 @@ def build_error_fns(apply_fn: Callable, varnames: Sequence[str], n_out: int,
 
             bc_fns.append(e_value)
 
-    X_sub0 = residual_subsample(X_f, max_points)
+    X_sub0 = residual_subsample(X_f, max_points, mesh=mesh)
 
     def res_all_fn(layers, X_sub=None):
         pts = X_sub0 if X_sub is None else X_sub
@@ -133,6 +150,7 @@ def build_error_fns(apply_fn: Callable, varnames: Sequence[str], n_out: int,
                              f"components, expected {n_residuals}")
         return torch.stack([o.reshape(-1) for o in out])
 
+    res_all_fn.points = X_sub0
     data_fn = None
     if data_X is not None:
         dX = _subsample(_f32(data_X, device), max_points)
@@ -161,14 +179,18 @@ def trace_K(e_fn: Callable, layers) -> torch.Tensor:
 
 def make_ntk_weight_fn(bc_fns, res_all_fn, n_residuals: int, data_fn=None,
                        eps: float = 1e-12,
-                       max_ratio: Optional[float] = None) -> Callable:
+                       max_ratio: Optional[float] = None,
+                       mesh=None) -> Callable:
     """``ntk_weights(layers[, X_sub]) -> {"BCs": [...], "residual": [...][,
     "data": [...]]}``, each weight a 0-d tensor ``λ_i = Σ tr K / tr K_i``
     in the layout of the solver's λ.  ``X_sub`` re-points the residual
     traces at the current collocation subsample
     (:func:`residual_subsample`).  ``max_ratio`` clips every λ to
     ``max_ratio × min(λ)`` (uncapped terms keep ``λ_i·tr K_i =
-    Σ tr K``)."""
+    Σ tr K``).  ``mesh``: each rank's residual trace covers its rows of
+    the global subsample, and the ranks' traces are summed by one
+    all-reduce (every rank calls the update); the BC and data traces are
+    replicated and computed once on every rank, never summed."""
 
     def ntk_weights(layers, X_sub=None):
         bc_traces = [trace_K(f, layers) for f in bc_fns]
@@ -176,9 +198,19 @@ def make_ntk_weight_fn(bc_fns, res_all_fn, n_residuals: int, data_fn=None,
                   else (lambda p: res_all_fn(p, X_sub)))
         # one Jacobian of the stacked [n_res, m] residuals; per-row
         # Frobenius norms give every equation's trace in one pass
-        res_vec = sum(torch.sum(torch.square(J),
-                                dim=tuple(range(1, J.ndim)))
-                      for J in _jac_leaves(res_fn, layers))
+        pts = X_sub if X_sub is not None else getattr(res_all_fn,
+                                                      "points", None)
+        if pts is not None and int(pts.shape[0]) == 0:
+            # this rank holds none of the global subsample's rows
+            res_vec = torch.zeros(n_residuals, device=pts.device)
+        else:
+            res_vec = sum(torch.sum(torch.square(J),
+                                    dim=tuple(range(1, J.ndim)))
+                          for J in _jac_leaves(res_fn, layers))
+        if mesh is not None and mesh.group is not None:
+            from ..parallel import all_reduce_
+            res_vec = res_vec.detach().clone()
+            all_reduce_([res_vec], mesh)
         res_traces = [res_vec[j] for j in range(n_residuals)]
         data_traces = [trace_K(data_fn, layers)] if data_fn else []
         traces = bc_traces + res_traces + data_traces

@@ -46,8 +46,10 @@ pool (:func:`_scores_multihost`).  :func:`_allgather_by_row` assembles a
 global host array from row slices through one float64 lane that carries
 each row's index, so the result is bit-identical on every rank.
 
-Not ported (ROADMAP queue 1 item 7): the surrogate-factory family
-resamplers; they raise :class:`~..utils.NotPortedError`.
+The surrogate factory's members redraw one by one
+(:class:`FamilyResampler`, :class:`FamilyAscentResampler`): each member
+scores with its own residual (its θ bound) and draws its own stream
+``(seed, epoch, member)``; :func:`carry_rows_family` carries their λ.
 """
 
 from __future__ import annotations
@@ -59,10 +61,9 @@ import torch
 
 from ..parallel import all_gather_rows, all_reduce_value
 from ..sampling import LatinHypercubeSample
-from ..utils import not_ported, resolve_device
+from ..utils import resolve_device
 
 _TINY = float(np.finfo(np.float32).tiny)
-_FAMILY_ITEM = "queue 1 item 7, factory/"
 
 
 def importance_select(scores: np.ndarray, n_keep: int, temp: float = 1.0,
@@ -132,13 +133,16 @@ class ResampleSwap(NamedTuple):
     block: Optional[tuple] = None
 
 
-def redraw_generator(seed: int, epoch: int,
-                     device: torch.device) -> torch.Generator:
+def redraw_generator(seed: int, epoch: int, device: torch.device,
+                     member: Optional[int] = None) -> torch.Generator:
     """The ``torch.Generator`` of one redraw: on ``device``, seeded from
     ``(seed, epoch)`` through NumPy's ``SeedSequence`` so that neighbouring
-    epochs draw decorrelated streams."""
-    state = np.random.SeedSequence([int(seed), int(epoch)]).generate_state(
-        2, np.uint32)
+    epochs draw decorrelated streams; a surrogate-factory ``member`` draws
+    its own stream, from ``(seed, epoch, member)`` (the JAX package's
+    ``fold_in(fold_in(seed, epoch), member)``)."""
+    entropy = [int(seed), int(epoch)] + ([] if member is None
+                                         else [int(member)])
+    state = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(state[0]) << 32 | int(state[1]))
     return gen
@@ -265,8 +269,9 @@ class DeviceResampler:
         _check_tiles(self.n_f, mesh)
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
 
-    def redraw(self, params, X_cur: torch.Tensor, epoch: int) -> ResampleSwap:
-        gen = redraw_generator(self.seed, epoch, X_cur.device)
+    def redraw(self, params, X_cur: torch.Tensor, epoch: int,
+               member: Optional[int] = None) -> ResampleSwap:
+        gen = redraw_generator(self.seed, epoch, X_cur.device, member)
         fresh = _stratified_pool(gen, self.n_fresh, self.xlimits)
         if self.mesh is None:
             pool = torch.cat([X_cur, fresh], 0)
@@ -377,14 +382,15 @@ class AscentResampler:
             (g,) = torch.autograd.grad(s.sum(), Xg)
         return s.detach(), g
 
-    def redraw(self, params, X_cur: torch.Tensor, epoch: int) -> ResampleSwap:
+    def redraw(self, params, X_cur: torch.Tensor, epoch: int,
+               member: Optional[int] = None) -> ResampleSwap:
         X, s_first, s_last = _ascent_move(
             lambda Xv: self._score_grad(params, Xv), X_cur, self.xlimits,
             self.n_steps, self.step_frac)
         n_f = self.n_f
         row = torch.arange(n_f, device=X.device)
         if self.n_fresh:
-            gen = redraw_generator(self.seed, epoch, X.device)
+            gen = redraw_generator(self.seed, epoch, X.device, member)
             if self.mesh is None:
                 fresh = _stratified_pool(gen, self.n_fresh, self.xlimits)
             else:
@@ -558,17 +564,98 @@ def gather_rows_multihost(X_local: torch.Tensor, mesh) -> np.ndarray:
 
 
 # --------------------------------------------------------------------- #
-# not ported: the factory families (item 7)
+# the surrogate factory's families (factory/family.py)
 # --------------------------------------------------------------------- #
-def carry_rows_family(*args, **kwargs):
-    raise not_ported("carry_rows_family", _FAMILY_ITEM)
+def _stack_swaps(swaps: list) -> ResampleSwap:
+    """Members' redraws stacked on a leading member axis: ``X_new [M, n_f,
+    d]``, ``idx``/``kept`` ``[M, n_f]``, each statistic ``[M]``."""
+    return ResampleSwap(
+        torch.stack([sw.X_new for sw in swaps]),
+        torch.stack([sw.idx for sw in swaps]),
+        torch.stack([sw.kept for sw in swaps]),
+        {k: torch.stack([sw.stats[k] for sw in swaps])
+         for k in swaps[0].stats})
 
 
 class FamilyResampler:
-    def __init__(self, *args, **kwargs):
-        raise not_ported("FamilyResampler", _FAMILY_ITEM)
+    """:class:`DeviceResampler` over a surrogate factory's members: each
+    member redraws its own collocation set, the pool of ``[its X_f ;
+    fresh]`` scored by its own residual (``residual_fn(m, params_m, X)``:
+    the member's engine with its θ bound; on ``fused="cuda"`` one K1
+    launch per member), from its own stream ``(seed, epoch, m)``
+    (:func:`redraw_generator`).  ``redraw(params, X_cur, members, epoch)``
+    takes the stacked parameter leaves ``[M_local, ...]``, the stacked
+    ``X_cur [M_local, n_f, d]`` and the members' global indices, and
+    returns the members' :class:`ResampleSwap` stacked on the member axis
+    (:func:`carry_rows_family` carries λ through it).  The factory
+    dispatches it on the redraw stream behind the next chunk, as the solo
+    solver does (``training.fit.dispatch_redraw``)."""
+
+    pipelined = True
+
+    def __init__(self, residual_fn: Callable, xlimits: np.ndarray, n_f: int,
+                 n_members: int, *, pool_factor: int = 4, temp: float = 1.0,
+                 uniform_frac: float = 0.1, seed: int = 0):
+        self.residual_fn = residual_fn
+        self.n_members = int(n_members)
+        self._one = DeviceResampler(None, xlimits, n_f,
+                                    pool_factor=pool_factor, temp=temp,
+                                    uniform_frac=uniform_frac, seed=seed)
+        self.n_f, self.n_fresh = self._one.n_f, self._one.n_fresh
+
+    def redraw(self, params, X_cur: torch.Tensor, members, epoch: int
+               ) -> ResampleSwap:
+        swaps = []
+        for i, m in enumerate(members):
+            self._one.residual_fn = (
+                lambda p, X, _m=m: self.residual_fn(_m, p, X))
+            swaps.append(self._one.redraw([t[i] for t in params], X_cur[i],
+                                          epoch, member=m))
+        return _stack_swaps(swaps)
 
 
 class FamilyAscentResampler:
-    def __init__(self, *args, **kwargs):
-        raise not_ported("FamilyAscentResampler", _FAMILY_ITEM)
+    """:class:`AscentResampler` over a surrogate factory's members: each
+    member moves its own points up its own residual landscape and takes
+    its own fresh coverage draw from ``(seed, epoch, m)``.
+    ``score_grad_fn(m, params_m, X) -> (scores, gX)`` plugs in the
+    member's minimax step (one K3 launch at w ≡ 1 per member and ascent
+    step on the card); without one, autograd over ``residual_fn(m,
+    params_m, X)``.  :class:`FamilyResampler`'s contract and layout."""
+
+    pipelined = True
+
+    def __init__(self, residual_fn: Callable, xlimits: np.ndarray, n_f: int,
+                 n_members: int, *, n_steps: int = 5,
+                 step_frac: float = 0.005, fresh_frac: float = 0.1,
+                 seed: int = 0, score_grad_fn: Optional[Callable] = None):
+        self.residual_fn = residual_fn
+        self.score_grad_fn = score_grad_fn
+        self.n_members = int(n_members)
+        self._one = AscentResampler(None, xlimits, n_f, n_steps=n_steps,
+                                    step_frac=step_frac,
+                                    fresh_frac=fresh_frac, seed=seed)
+        self.n_f, self.n_fresh = self._one.n_f, self._one.n_fresh
+
+    def redraw(self, params, X_cur: torch.Tensor, members, epoch: int
+               ) -> ResampleSwap:
+        swaps = []
+        for i, m in enumerate(members):
+            one = self._one
+            one.residual_fn = lambda p, X, _m=m: self.residual_fn(_m, p, X)
+            one.score_grad_fn = (
+                None if self.score_grad_fn is None else
+                (lambda p, X, _m=m: self.score_grad_fn(_m, p, X)))
+            swaps.append(one.redraw([t[i] for t in params], X_cur[i], epoch,
+                                    member=m))
+        return _stack_swaps(swaps)
+
+
+def carry_rows_family(rows: torch.Tensor, idx: torch.Tensor,
+                      kept: torch.Tensor, fresh_zero: bool = False):
+    """:func:`carry_rows` over the member axis: ``rows [M, n_f, ...]``
+    row-aligned with each member's OLD set, gathered through that member's
+    ``idx [M, n_f]``.  Returns ``(new_rows, drift)``, ``drift [M]``."""
+    from torch.func import vmap
+    return vmap(lambda r, i, k: carry_rows(r, i, k, fresh_zero=fresh_zero)
+                )(rows, idx, kept)

@@ -296,9 +296,8 @@ class TrainingTelemetry:
                         newly_frozen: int = 0,
                         converge_loss: Optional[float] = None,
                         pts_per_s: Optional[float] = None):
-        """One surrogate-factory chunk's family summary (the JAX package's
-        ``factory.SurrogateFactory``; the port's factory is still to come,
-        ROADMAP queue 1 item 7, and will call this):
+        """One surrogate-factory chunk's family summary
+        (:class:`~..factory.SurrogateFactory` calls it at each boundary):
         per-member loss quantiles over the LIVE members, frozen /
         converged member gauges, and the aggregate family throughput —
         the ``factory.*`` instruments (docs/metrics.md).  ``losses`` and

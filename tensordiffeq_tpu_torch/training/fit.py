@@ -73,7 +73,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..ops.resampling import carry_rows
+from ..ops.resampling import carry_rows, carry_rows_family
 from ..parallel import all_gather_rows, sum_components
 from ..resilience.chaos import active_chaos
 from ..resilience.cluster import beat
@@ -161,6 +161,27 @@ def make_optimizer(params, lambdas: dict, lr=0.005, lr_weights=0.005,
     opt_lam = (adam([(lams, lr_weights)], dev, b1, maximize=True)
                if lams and not freeze_lambdas else None)
     return opt_net, opt_lam
+
+
+def init_adam_state(opt):
+    """Make the state ``torch.optim.Adam`` makes at its first step now, so
+    a member-stacked step can hold a frozen member's moments from its
+    first step on."""
+    if opt is None:
+        return
+    for group in opt.param_groups:
+        for p in group["params"]:
+            st = opt.state[p]
+            if st:
+                continue
+            st["step"] = (torch.zeros((), dtype=torch.float32,
+                                      device=p.device)
+                          if group["capturable"] or group["fused"]
+                          else torch.tensor(0.0, dtype=torch.float32))
+            st["exp_avg"] = torch.zeros_like(
+                p, memory_format=torch.preserve_format)
+            st["exp_avg_sq"] = torch.zeros_like(
+                p, memory_format=torch.preserve_format)
 
 
 def set_rates(opts, lr, lr_weights):
@@ -285,6 +306,11 @@ def make_batches(X_f: torch.Tensor, batch_sz: Optional[int],
     return X_batched, take.reshape(n_batches, bsz), n_batches
 
 
+def _masked(mask: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A member mask ``[M]`` shaped to broadcast over ``t [M, ...]``."""
+    return mask.reshape((-1,) + (1,) * (t.ndim - 1))
+
+
 @dataclass
 class FitResult:
     """Host-side training record (parity with the reference's ``self.losses``
@@ -323,16 +349,33 @@ class AdamStep:
     ``params()``: ``[W_0, b_0, ...]`` for an MLP), which the loss takes,
     ``optimizers`` the :func:`make_optimizer` pair (kept by the caller so
     the moments persist).  A solver keeps its step across ``fit`` calls, so
-    its graph is captured once."""
+    its graph is captured once.
+
+    ``alive`` (a ``[M]`` bool device mask) gives the step a leading
+    **member axis** (the surrogate factory, :mod:`..factory`): every
+    parameter, λ, moment and ``X_f`` is stacked over ``M`` independent
+    members, ``loss_fn`` returns ``(totals [M], components {name: [M]})``
+    and the members' totals are summed before the one backward pass (a
+    member's gradient is its own loss's).  ``Grad_norm`` is then each
+    member's norm; a member whose total or norm is non-finite is frozen
+    (its parameters, λ and moments selected back after Adam, a
+    ``torch.where`` on ``alive``, no host read) and the history records
+    ``Alive``; the best iterate is per member, and persists across fits
+    with the counter at the global epoch (:meth:`begin`).  Under a
+    ``mesh`` each rank holds whole members: no collective runs in the
+    step, and :meth:`read` gathers the chunk's history."""
 
     def __init__(self, loss_fn: Callable, params: list, lambdas: dict,
                  X_f: torch.Tensor, optimizers: tuple,
                  batch_sz: Optional[int] = None,
                  grad_clip: Optional[float] = None, verbose: bool = True,
                  eager: bool = False, make_graph: Optional[Callable] = None,
-                 grad_norm: bool = False, mesh=None):
+                 grad_norm: bool = False, mesh=None,
+                 alive: Optional[torch.Tensor] = None):
         self.loss_fn = loss_fn
-        self.grad_norm = bool(grad_norm)
+        self.alive = alive
+        self.members = None if alive is None else int(alive.shape[0])
+        self.grad_norm = bool(grad_norm) or alive is not None
         self.params = list(params)
         self.lambdas = lambdas
         self.X_f = X_f
@@ -343,11 +386,12 @@ class AdamStep:
         self.grad_clip = None if grad_clip is None else float(grad_clip)
         self.X_batched, self.idx_batched, self.n_batches = make_batches(
             X_f, batch_sz, verbose, mesh=mesh)
-        n_f = int(X_f.shape[0])
+        ax = 0 if alive is None else 1  # the rows' axis
+        n_f = int(X_f.shape[ax])
         # per-point λ ride the batch's rows; scalar (type-2) λ apply to the
         # whole term and pass through untouched
-        self.per_point = [lam is not None and lam.ndim >= 1
-                          and lam.shape[0] == n_f
+        self.per_point = [lam is not None and lam.ndim > ax
+                          and lam.shape[ax] == n_f
                           for lam in lambdas["residual"]]
         pp = {id(lam) for lam, p in zip(lambdas["residual"],
                                         self.per_point) if p}
@@ -358,7 +402,7 @@ class AdamStep:
         self._lam_local = [t for t in lam_params if id(t) in pp]
         self._lam_shared = [t for t in lam_params if id(t) not in pp]
         dev = self.device = X_f.device
-        if host_bound(mesh, dev) and not eager:
+        if host_bound(mesh, dev) and not eager and alive is None:
             log_event("parallel", f"the {mesh.backend} backend's all-reduce "
                       "cannot be captured in a CUDA graph; the "
                       "data-parallel Adam step runs eagerly",
@@ -367,13 +411,26 @@ class AdamStep:
         self.graph_eager = eager
         self.counter = torch.zeros((), dtype=torch.long, device=dev)
         self.row = torch.zeros((), dtype=torch.long, device=dev)
+        m_shape = () if alive is None else (self.members,)
         self.best_params = tree_copy(self.params)
-        self.best_loss = torch.full((), float("inf"), device=dev)
-        self.best_step = torch.full((), -1, dtype=torch.long, device=dev)
+        self.best_loss = torch.full(m_shape, float("inf"), device=dev)
+        self.best_step = torch.full(m_shape, -1, dtype=torch.long,
+                                    device=dev)
+        self.tracked = []
+        if alive is not None:
+            for opt in optimizers:
+                init_adam_state(opt)
+            # what a frozen member keeps: its leaves and their moments
+            self.tracked = [t for opt in optimizers if opt is not None
+                            for p in opt.param_groups[0]["params"]
+                            for t in (p, opt.state[p]["exp_avg"],
+                                      opt.state[p]["exp_avg_sq"])]
         self.keys = None
         self.hist = None
         self.rows = 0
-        self.graph = StepGraph(self._step, self._keyed, dev, "Adam step",
+        self.graph = StepGraph(self._step, self._keyed, dev,
+                               "Adam step" if alive is None
+                               else "family step",
                                eager=eager, make_graph=make_graph)
 
     def matches(self, loss_fn, optimizers, X_f, batch_sz, grad_clip,
@@ -396,6 +453,8 @@ class AdamStep:
                   for t in schedule_tensors(opt)]
         bufs = [self.X_f, self.X_batched, self.idx_batched, self.counter,
                 self.row, self.best_loss, self.best_step]
+        if self.alive is not None:
+            bufs.append(self.alive)
         if self.hist is not None:
             bufs.append(self.hist)
         return (self.params + lams + state + scheds + bufs
@@ -414,9 +473,12 @@ class AdamStep:
         (``_carry_point_state``).  A swap with a ``block`` (the group's
         global selection under data parallelism) carries the λ and moments
         gathered over the ranks and keeps this rank's block of the result,
-        so a kept row that changed owner brings its λ along.  Returns the
-        largest λ drift (a 0-d tensor), or ``None`` when nothing was
-        carried."""
+        so a kept row that changed owner brings its λ along.  With a member
+        axis each member's rows ride its own map
+        (:func:`~..ops.resampling.carry_rows_family`) and the per-member
+        best is kept (the JAX package's family does not reset it).
+        Returns the largest λ drift (a 0-d tensor), or ``None`` when
+        nothing was carried."""
         if tuple(X_new.shape) != tuple(self.X_f.shape):
             raise ValueError(
                 f"resample redraw changed the collocation shape "
@@ -430,6 +492,10 @@ class AdamStep:
                     else slice(None)
 
                 def carry(rows, fresh_zero=False):
+                    if self.members is not None:
+                        new, d = carry_rows_family(rows, swap.idx, swap.kept,
+                                                   fresh_zero=fresh_zero)
+                        return new, torch.max(d)
                     if swap.block is not None:
                         rows = all_gather_rows(rows, self.mesh)
                     new, d = carry_rows(rows, swap.idx, swap.kept,
@@ -452,23 +518,41 @@ class AdamStep:
                 self.X_batched.copy_(self.X_f.index_select(
                     0, self.idx_batched.reshape(-1)).reshape(
                         self.X_batched.shape))
-            self.best_loss.fill_(float("inf"))
+            if self.members is None:
+                self.best_loss.fill_(float("inf"))
         return drift
 
-    def begin(self, rows: int):
+    def begin(self, rows: int, epoch0: int = 0):
         """Start a ``fit``: step counter 0, the best reset to the current
         parameters, room for ``rows`` history rows per chunk (a chunk's
-        worth, so shorter fits keep the buffer and the graph)."""
+        worth, so shorter fits keep the buffer and the graph).  With a
+        member axis the counter starts at the global epoch ``epoch0`` and
+        the per-member best carries on."""
         with torch.no_grad():
-            self.counter.zero_()
-            for bp, p in zip(self.best_params, self.params):
-                bp.copy_(p)
-            self.best_loss.fill_(float("inf"))
-            self.best_step.fill_(-1)
+            if self.members is not None:
+                self.counter.fill_(int(epoch0))
+            else:
+                self.counter.zero_()
+                for bp, p in zip(self.best_params, self.params):
+                    bp.copy_(p)
+                self.best_loss.fill_(float("inf"))
+                self.best_step.fill_(-1)
         if self.hist is not None and self.hist.shape[0] < rows:
             # a new buffer: the graph's key moves and it is captured again
-            self.hist = torch.zeros((rows, len(self.keys)), device=self.device)
+            self.hist = torch.zeros((rows,) + tuple(self.hist.shape[1:]),
+                                    device=self.device)
         self.rows = max(self.rows, rows)
+
+    def read(self, n: int) -> np.ndarray:
+        """The chunk's first ``n`` history rows on the host, one copy
+        (``[n, K]``, or ``[n, K, M]`` with a member axis: under a mesh the
+        ranks' member blocks gathered, a collective at the boundary)."""
+        h = self.hist[:n]
+        if (self.members is not None and self.mesh is not None
+                and self.mesh.size > 1):
+            h = all_gather_rows(h.permute(2, 0, 1).contiguous(),
+                                self.mesh).permute(1, 2, 0)
+        return h.cpu().numpy()
 
     def _batch(self):
         lam_res = self.lambdas["residual"]
@@ -490,10 +574,13 @@ class AdamStep:
             total, comps = self.loss_fn(
                 self.params, self.lambdas["BCs"], lam_res, X_b,
                 lam_data=self.lambdas.get("data", [None])[0])
+        M = self.members
         with span("fit_adam.backward"):
-            total.backward()
+            # the members' totals summed: each gradient is its own loss's
+            (total if M is None else torch.sum(total)).backward()
         lam_norm = None
-        if self.mesh is not None and self.mesh.group is not None:
+        if (self.mesh is not None and self.mesh.group is not None
+                and M is None):
             total, comps, lam_norm = self._all_reduce(total, comps)
         if self.grad_norm:
             # optax.global_norm of the step's gradients, before clipping;
@@ -502,11 +589,24 @@ class AdamStep:
                                      if opt_lam is not None and lam_norm is
                                      None else [])
             grads = [t.grad for t in trained if t.grad is not None]
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)))
+            if M is not None:
+                with torch.no_grad():
+                    sq = torch.zeros(M, device=self.device)
+                    for g in grads:
+                        sq = sq + torch.sum(torch.square(g.reshape(M, -1)), 1)
+                    norm = torch.sqrt(sq)
+            else:
+                norm = torch.linalg.vector_norm(
+                    torch.stack(torch._foreach_norm(grads)))
             if lam_norm is not None:
                 norm = torch.sqrt(torch.square(norm) + torch.square(lam_norm))
             comps = dict(comps, Grad_norm=norm)
+        ok = None
+        if M is not None:
+            with torch.no_grad():
+                total = total.detach()
+                ok = self.alive & torch.isfinite(total) & torch.isfinite(norm)
+                old = [t.detach().clone() for t in self.tracked]
         with span("fit_adam.adam"):
             if self.grad_clip is not None:
                 clip_by_global_norm(self.params, self.grad_clip)
@@ -520,19 +620,31 @@ class AdamStep:
             if opt_lam is not None:
                 optimizer_step(opt_lam)
         with span("fit_adam.record"), torch.no_grad():
+            if ok is not None:
+                # the frozen members keep their parameters, λ and moments
+                for t, o in zip(self.tracked, old):
+                    t.copy_(torch.where(_masked(ok, t), t, o))
+                self.alive.copy_(ok)
+                comps = dict(comps, Alive=ok.to(torch.float32))
             if self.hist is None:  # the first step, always an eager one
                 self.keys = list(comps)
-                self.hist = torch.zeros((self.rows, len(self.keys)),
-                                        device=self.device)
+                self.hist = torch.zeros(
+                    (self.rows, len(self.keys)) + (() if M is None else (M,)),
+                    device=self.device)
             vals = torch.stack([device_scalar(comps[k], self.device)
+                                if M is None else comps[k].detach().reshape(M)
                                 for k in self.keys])
             self.hist.index_copy_(0, self.row.reshape(1), vals[None])
             # best iterate: the params after this step, kept when the
             # step's loss improves — a device-side select, no host sync
-            total = total.detach().reshape(())
-            improved = total < self.best_loss
+            if M is None:
+                total = total.detach().reshape(())
+                improved = total < self.best_loss
+            else:
+                improved = ok & (total < self.best_loss)
             for bp, p in zip(self.best_params, self.params):
-                bp.copy_(torch.where(improved, p, bp))
+                bp.copy_(torch.where(improved if M is None
+                                     else _masked(improved, p), p, bp))
             self.best_loss.copy_(torch.where(improved, total,
                                              self.best_loss))
             self.best_step.copy_(torch.where(improved, self.counter,
@@ -684,7 +796,10 @@ def _finish_records(records: list):
         if pending is None:
             continue
         rec["device_ms"] = pending.device_ms()
-        stats = {k: float(v) for k, v in pending.swap.stats.items()}
+        # a family's statistics are per member: their means
+        stats = {k: float(v) if v.numel() == 1
+                 else float(v.to(torch.float32).mean())
+                 for k, v in pending.swap.stats.items()}
         drift = rec.pop("drift", None)
         if drift is not None:
             stats["lambda_drift"] = float(drift)
@@ -756,7 +871,8 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
              stop_fn: Optional[Callable] = None,
              epoch_offset: int = 0,
              callback: Optional[Callable] = None, callback_every: int = 0,
-             telemetry=None, epoch0: int = 0) -> FitResult:
+             telemetry=None, epoch0: int = 0,
+             chunk_fn: Optional[Callable] = None) -> FitResult:
     """Run ``tf_iter`` Adam(+SA) epochs of ``step`` in place on its
     parameters and λ: ``tf_iter · n_batches`` steps in chunks of ``chunk ·
     n_batches``, so the batch index restarts at each chunk as in the JAX
@@ -823,11 +939,18 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
     docstring): the heartbeat, the chaos plan's triggers and the epoch a
     :class:`~..resilience.Preempted` carries.  With a tracer active, two
     CUDA events around the chunk's replays give the ``train.device``
-    span the card's time, read after the chunk's host read."""
+    span the card's time, read after the chunk's host read.
+
+    ``chunk_fn(rows, prev, t_disp, t_dev)``: called after each chunk's
+    host read with its new per-epoch rows, the epochs trained before it
+    and its dispatch and read seconds; what it raises ends the phase (a
+    pending redraw joined first).  A step with a member axis (the
+    surrogate factory) records each epoch's components as ``[M]`` arrays
+    and keeps no best in the result: its owner reads them per member."""
     result = result or FitResult()
     n_b = step.n_batches
     total_steps = tf_iter * n_b
-    step.begin(chunk * n_b)
+    step.begin(chunk * n_b, epoch0)
     pipelined = bool(getattr(resample_fn, "pipelined", False))
     pending = None
     records = []
@@ -858,11 +981,12 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
             events[1].record()
         t_disp = time.perf_counter() - t_chunk
         with span("fit_adam.read"):
-            hist = step.hist[:n].cpu().numpy()  # one host copy per chunk
+            hist = step.read(n)  # one host copy per chunk
         result.chunk_seconds.append(time.perf_counter() - t_chunk)
         # one entry per epoch: its last batch's
         for row in hist[n_b - 1::n_b]:
-            result.losses.append({k: float(v)
+            result.losses.append({k: float(v) if step.members is None
+                                  else v.copy()
                                   for k, v in zip(step.keys, row)})
         prev = done // n_b
         done += n
@@ -883,6 +1007,14 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
             telemetry.on_epoch_rows("adam", prev, rows)
             telemetry.on_lambda_stats(epochs, step.gathered_lambdas())
             telemetry.check_rows("adam", prev, rows)
+        if chunk_fn is not None:
+            try:
+                chunk_fn(result.losses[len(result.losses) - (epochs - prev):],
+                         prev, t_disp, result.chunk_seconds[-1] - t_disp)
+            except Exception:
+                if pending is not None:
+                    pending.join(step.device)
+                raise
         if pending is not None and done >= total_steps:
             # the phase is over: the pending redraw trained no step
             pending.join(step.device)
@@ -958,6 +1090,8 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
                         getattr(resample_fn, "flops_info", None))
     result.redraws.extend(records)
     result.wall_time["adam"] = time.time() - t0
+    if step.members is not None:
+        return result
     result.best_params["adam"] = tree_copy(step.best_params)
     result.min_loss["adam"] = float(step.best_loss)
     result.best_epoch["adam"] = int(step.best_step) // n_b

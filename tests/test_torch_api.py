@@ -49,11 +49,12 @@ def _ported_top_level_names() -> list:
 def test_the_list_holds_the_names_of_ported_modules():
     names = _ported_top_level_names()
     # modules the port has: the list is not empty, and the JAX package's
-    # names from modules the port lacks (fleet, factory) are not in it
+    # names from modules the port lacks (fleet) are not in it
     assert {"CollocationSolverND", "FourierMLP", "InferenceEngine",
             "MetricsRegistry", "RetryPolicy", "Chaos", "Preempted",
-            "PreemptionHandler", "ResilientFit"} <= set(names)
-    assert not {"FleetRouter", "SurrogateFactory"} & set(names)
+            "PreemptionHandler", "ResilientFit", "SurrogateFactory",
+            "factory"} <= set(names)
+    assert not {"FleetRouter", "TenantPolicy"} & set(names)
 
 
 @pytest.mark.parametrize("name", _ported_top_level_names())

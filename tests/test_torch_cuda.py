@@ -2204,3 +2204,180 @@ def test_rollback_restores_into_the_captured_step(card, tmp_path):
     # new capture
     adam = [c for c in graphs.captures[before:] if c["name"] == "Adam step"]
     assert len(adam) == 2 and s._adam.graph.captures == 1
+
+
+# --------------------------------------------------------------------------- #
+# causal and NTK weighting under dist; the surrogate factory
+# --------------------------------------------------------------------------- #
+def test_dist_world_1_nccl_causal_and_ntk_are_the_non_dist_solver(card,
+                                                                 tmp_path):
+    """The options whose statistic spans the ranks (the causal bins'
+    all-reduce inside the captured step, NTK's summed traces between
+    chunks) at world 1 over NCCL: 20 steps bit for bit the non-dist
+    solver, one capture, K1/K2 per step (causal) or K3 per step (NTK)."""
+    got = _nccl_run(tmp_path, '''
+import hashlib
+from tensordiffeq_tpu_torch import grad
+from tensordiffeq_tpu_torch.ops import cuda_minimax, cuda_taylor
+
+
+def solver(dist, **kw):
+    domain = tdqt.DomainND(["x", "t"], time_var="t")
+    domain.add("x", [-1.0, 1.0], 64)
+    domain.add("t", [0.0, 1.0], 21)
+    domain.generate_collocation_points(4096, seed=0)
+    bcs = [tdqt.IC(domain, [lambda x: x ** 2 * np.cos(np.pi * x)],
+                   var=[["x"]]),
+           tdqt.periodicBC(domain, ["x"], [lambda u, x, t: (
+               u(x, t), grad(u, "x")(x, t))])]
+
+    def f_model(u, x, t):
+        uv = u(x, t)
+        return (grad(u, "t")(x, t) - 1e-4 * grad(grad(u, "x"), "x")(x, t)
+                + 5.0 * uv ** 3 - 5.0 * uv)
+
+    s = tdqt.CollocationSolverND(verbose=False)
+    s.compile([2, 32, 32, 1], f_model, domain, bcs, fused="cuda", dist=dist,
+              **kw)
+    cuda_taylor.reset_launch_counts()
+    s.fit(tf_iter=20, chunk=10)
+    h = hashlib.sha256()
+    for t in s.net.params():
+        h.update(t.detach().cpu().numpy().tobytes())
+    return dict(hist=[r["Total Loss"] for r in s.losses],
+                params=h.hexdigest(), captures=s._adam.graph.captures,
+                launches=[cuda_taylor.k1_forward.launches,
+                          cuda_taylor.k2_backward.launches,
+                          cuda_minimax.k3_minimax.launches])
+
+
+for tag, kw in (("causal", dict(causal_eps=1e-2)),
+                ("ntk", dict(Adaptive_type=3, ntk_max_points=64))):
+    RESULT[tag] = [solver(True, **kw), solver(False, **kw)]
+''')
+    for tag, launches in (("causal", [20, 20, 0]), ("ntk", [0, 0, 20])):
+        dist, plain = got[tag]
+        assert dist["hist"] == plain["hist"], tag
+        assert dist["params"] == plain["params"], tag
+        assert dist["captures"] == 1 and dist["launches"] == launches, tag
+
+
+def _fac_problem(n_f=1024):
+    domain = tdqt.DomainND(["x", "t"], time_var="t")
+    domain.add("x", [-1.0, 1.0], 64)
+    domain.add("t", [0.0, 1.0], 21)
+    domain.generate_collocation_points(n_f, seed=0)
+    grad = tdqt.grad
+    bcs = [tdqt.IC(domain, [lambda x: x ** 2 * np.cos(np.pi * x)],
+                   var=[["x"]]),
+           tdqt.periodicBC(domain, ["x"], [lambda u, x, t: (
+               u(x, t), grad(u, "x")(x, t))])]
+
+    def f_model(u, x, t, th):
+        uv = u(x, t)
+        return (grad(u, "t")(x, t) - th * grad(grad(u, "x"), "x")(x, t)
+                + 5.0 * uv ** 3 - 5.0 * uv)
+
+    kw = dict(Adaptive_type=1,
+              dict_adaptive={"residual": [True], "BCs": [False, False]},
+              init_weights={"residual": [np.ones((n_f, 1))],
+                            "BCs": [None, None]})
+    return domain, bcs, f_model, kw
+
+
+def _factory(thetas, **extra):
+    from tensordiffeq_tpu_torch.factory import SurrogateFactory
+    domain, bcs, f_model, kw = _fac_problem()
+    return SurrogateFactory([2, 32, 32, 1], f_model, domain, bcs,
+                            thetas=thetas, fused="cuda", verbose=False,
+                            **dict(kw, **extra))
+
+
+def _bits(tensors):
+    return [t.detach().cpu().numpy().tobytes() for t in tensors]
+
+
+def test_one_member_family_is_its_solo_solver_on_card(card):
+    fac = _factory([1e-4])
+    cuda_minimax.k3_minimax.launches = 0
+    fac.fit(tf_iter=40, chunk=20)
+    assert cuda_minimax.k3_minimax.launches == 40
+    domain, bcs, f_model, kw = _fac_problem()
+    solo = tdqt.CollocationSolverND(verbose=False, seed=0)
+    th = float(np.float32(1e-4))
+    solo.compile([2, 32, 32, 1], lambda u, x, t: f_model(u, x, t, th),
+                 domain, bcs, fused="cuda", **kw)
+    solo.fit(tf_iter=40, chunk=20)
+    assert fac._template.engine == solo.engine == "fused-minimax-cuda"
+    assert [float(r["Total Loss"][0]) for r in fac.losses] == \
+        [r["Total Loss"] for r in solo.losses]
+    assert _bits(fac._template.net.params()) == _bits(solo.net.params())
+    assert fac._template._adam.graph.captures == 1
+
+
+def test_family_step_launches_k3_per_member_and_equals_eager(card):
+    thetas = [1e-4 * (0.5 + m / 7) for m in range(8)]
+    fac = _factory(thetas)
+    cuda_taylor.reset_launch_counts()
+    fac.fit(tf_iter=20, chunk=10)
+    assert (cuda_taylor.k1_forward.launches, cuda_taylor.k2_backward.launches,
+            cuda_minimax.k3_minimax.launches) == (0, 0, 8 * 20)
+    assert fac._step.graph.captures == 1
+    eager = _factory(thetas)
+    eager.fit(tf_iter=20, chunk=10, _graphs=False)
+    assert _bits(fac.params) == _bits(eager.params)
+    assert [r["Total Loss"].tolist() for r in fac.losses] == \
+        [r["Total Loss"].tolist() for r in eager.losses]
+
+
+def test_family_members_k3_match_plain_flavor_on_card(card):
+    """Each member's K3, through its own lowered tape, against the plain
+    flavor on the member's live rows, parameters and w = λ² after a few
+    family steps."""
+    thetas = [1e-4 * (0.5 + m / 3) for m in range(4)]
+    fac = _factory(thetas)
+    fac.fit(tf_iter=10, chunk=10)
+    for m in range(len(thetas)):
+        sq = fac._member_sq[m]
+        X = fac.X_f[m].contiguous()
+        lam = fac.lambdas["residual"][0][m].detach()
+        w = (lam * lam).reshape(-1, 1)
+        fl = [p[m].detach() if p.ndim == 3 else p[m].detach().reshape(1, -1)
+              for p in fac.params]
+        got = cuda_minimax.k3_minimax(sq.plan, X, w, sq.plan.pack(fl))
+        want = sq.plain(fl, w, X)
+        _close([got[0].reshape(1)] + sq.plan.unpack(got[1])
+               + [got[2], got[3]],
+               [want[0].reshape(1)] + list(want[1]) + [want[2], want[3]])
+
+
+def test_family_nan_member_leaves_the_others_bit_for_bit_on_card(card):
+    thetas = [1e-4 * (0.5 + m / 3) for m in range(4)]
+    a, b = _factory(thetas), _factory(thetas)
+    with torch.no_grad():
+        for p in b.params:
+            p[2].fill_(float("nan"))
+    for f in (a, b):
+        f.fit(tf_iter=20, chunk=10)
+    assert b.frozen_at == {2: 0} and b.alive.tolist() == [True, True,
+                                                           False, True]
+    keep = [0, 1, 3]
+    for p, q in zip(a.params, b.params):
+        assert torch.equal(p[keep], q[keep])
+    ha = np.stack([r["Total Loss"] for r in a.losses])
+    hb = np.stack([r["Total Loss"] for r in b.losses])
+    assert np.array_equal(ha[:, keep], hb[:, keep])
+
+
+def test_family_checkpoint_resumes_bit_for_bit_on_card(card, tmp_path):
+    thetas = [1e-4 * (0.5 + m / 3) for m in range(4)]
+    a = _factory(thetas)
+    a.fit(tf_iter=20, chunk=10)
+    a.save_checkpoint(str(tmp_path / "ck"))
+    b = _factory(thetas)
+    b.restore_checkpoint(str(tmp_path / "ck"))
+    assert _bits(a.params) == _bits(b.params)
+    for f in (a, b):
+        f.fit(tf_iter=10, chunk=10)
+    assert _bits(a.params) == _bits(b.params)
+    assert b._step.graph.captures == 1

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of ``tensordiffeq_tpu_torch``, no
-line of ``chip_smoke.py`` and no line of the card tests
+script of ``examples_torch/``, no line of ``chip_smoke.py`` and no line of
+the card tests
 (``tests/test_torch_cuda.py``, run where only PyTorch is installed) imports
 JAX, flax, optax or the JAX package (whose ``__init__`` imports jax, even for
 its NumPy-only modules)."""
@@ -15,8 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tensordiffeq_tpu")
 
 def _port_files():
     files = sorted((ROOT / "tensordiffeq_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py",
-                    ROOT / "tests" / "test_torch_cuda.py"]
+    return files + sorted((ROOT / "examples_torch").glob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -57,6 +58,9 @@ def test_port_has_modules():
                  "tensordiffeq_tpu_torch/training/schedules.py",
                  "tensordiffeq_tpu_torch/ops/ntk.py",
                  "tensordiffeq_tpu_torch/native/__init__.py",
+                 "tensordiffeq_tpu_torch/factory/family.py",
+                 "examples_torch/_common.py",
+                 "examples_torch/ac_dist.py",
                  "chip_smoke.py"):
         assert want in names
 

@@ -21,8 +21,8 @@
   loss), also for a group without rank 0;
 * world 1 (``dist=True`` with no process group) is bit for bit the
   non-dist solver;
-* the options that need a global statistic the port does not reduce raise
-  :class:`NotPortedError` under ``dist``.
+* the options that need a global statistic (causal bins, NTK traces)
+  compile and train under ``dist``.
 """
 
 import hashlib
@@ -41,7 +41,6 @@ from tensordiffeq_tpu_torch.telemetry import (RunLogger, TrainingTelemetry,
                                               read_events)
 from tensordiffeq_tpu_torch.training.fit import (batch_index_map,
                                                  make_batches)
-from tensordiffeq_tpu_torch.utils import NotPortedError
 from tensordiffeq_tpu_torch.weights import params_from_jax
 
 from test_torch_solver import LAYERS, N_F, RTOL, ac_problem
@@ -356,12 +355,22 @@ def test_world_1_is_bit_for_bit_the_non_dist_solver(minimax):
 @pytest.mark.parametrize("kw", [dict(causal_eps=1.0),
                                 dict(Adaptive_type=3)])
 def test_options_without_a_global_reduction_raise_under_dist(kw):
+    """The options whose statistic spans the whole collocation set (the
+    causal bins, the NTK traces) reduce it over the group: they compile
+    and train under ``dist`` (two ranks against JAX:
+    ``tests/test_torch_dist_options.py``)."""
     d, b, f, skw = ac_problem(tdqt)
     if kw.get("Adaptive_type") == 3:
         skw = {}
     s = tdqt.CollocationSolverND(verbose=False, device="cpu")
-    with pytest.raises(NotPortedError, match="ROADMAP"):
-        s.compile(LAYERS, f, d, b, dist=True, **dict(skw, **kw))
+    s.compile(LAYERS, f, d, b, dist=True, **dict(skw, **kw))
+    assert s.mesh is not None and s.mesh.size == 1
+    s.fit(tf_iter=2, chunk=2)
+    assert np.isfinite(_history(s)).all()
+    if "causal_eps" in kw:
+        assert 0.0 < s.losses[-1]["Causal_w_last_0"] <= 1.0
+    else:
+        assert len(s.ntk_updates) == 1
 
 
 def test_mesh_and_resampler_default_to_the_card():

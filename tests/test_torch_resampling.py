@@ -40,7 +40,6 @@ import tensordiffeq_tpu_torch as tdqt
 from tensordiffeq_tpu.ops import resampling as jrs
 from tensordiffeq_tpu_torch.ops import resampling as trs
 from tensordiffeq_tpu_torch.training import fit as tfit
-from tensordiffeq_tpu_torch.utils import NotPortedError
 from tensordiffeq_tpu_torch.weights import params_from_jax
 from test_torch_chunk import StandInGraph
 from test_torch_minimax_solver import burgers
@@ -465,10 +464,12 @@ def test_resample_validation():
                                   "carry_rows_family", "gather_rows_multihost",
                                   "_scores_multihost", "_allgather_by_row"])
 def test_unported_resamplers_raise(name):
-    """The factory families are not ported; the group's host arrays are
-    (tests/test_torch_dist_resample_serve.py): with no process group they
+    """The factory families redraw member by member, each from its own
+    stream (tests/test_torch_factory.py trains them); the group's host
+    arrays (tests/test_torch_dist_resample_serve.py) with no process group
     are the one rank's rows, in float64."""
     X = torch.arange(10, dtype=torch.float32).reshape(5, 2)
+    xl = np.array([[0.0, 10.0], [0.0, 10.0]])
     if name == "gather_rows_multihost":
         np.testing.assert_array_equal(trs.gather_rows_multihost(X, None),
                                       X.numpy())
@@ -481,6 +482,25 @@ def test_unported_resamplers_raise(name):
         np.testing.assert_array_equal(
             trs._scores_multihost(res, None, X, 0, 5, None),
             trs.residual_scores(res, None, X))
+    elif name == "carry_rows_family":
+        rows = torch.arange(10, dtype=torch.float32).reshape(2, 5, 1)
+        idx = torch.tensor([[4, 0, 9, 1, 2], [0, 1, 2, 3, 4]])
+        got, drift = trs.carry_rows_family(rows, idx, idx < 5)
+        for m in range(2):
+            want, d = trs.carry_rows(rows[m], idx[m], idx[m] < 5)
+            assert torch.equal(got[m], want) and torch.equal(drift[m], d)
     else:
-        with pytest.raises(NotPortedError, match="ROADMAP"):
-            getattr(trs, name)(None)
+        def res(m, params, Xv):  # member m's residual: its own landscape
+            return (Xv[:, :1] - 2.0 * m) * params[0]
+
+        cls = getattr(trs, name)
+        sampler = cls(res, xl, 5, 2, seed=1)
+        Xs = torch.stack([X, X])
+        swap = sampler.redraw([torch.ones(2, 1)], Xs, [0, 1], 3)
+        assert swap.X_new.shape == (2, 5, 2)
+        assert swap.idx.shape == swap.kept.shape == (2, 5)
+        assert all(v.shape == (2,) for v in swap.stats.values())
+        # each member draws its own stream from (seed, epoch, member)
+        assert not torch.equal(swap.X_new[0], swap.X_new[1])
+        again = sampler.redraw([torch.ones(2, 1)], Xs, [0, 1], 3)
+        assert torch.equal(again.X_new, swap.X_new)

@@ -16,7 +16,7 @@ import torch
 import tensordiffeq_tpu as tdq
 import tensordiffeq_tpu_torch as tdqt
 from tensordiffeq_tpu_torch.ops import cuda_taylor
-from tensordiffeq_tpu_torch.utils import CudaUnavailableError, NotPortedError
+from tensordiffeq_tpu_torch.utils import CudaUnavailableError
 from tensordiffeq_tpu_torch.weights import params_from_jax, params_to_numpy
 
 torch.set_num_threads(1)
@@ -134,10 +134,12 @@ def test_unported_options_raise_typed_errors():
     # fused="autotune", causal_eps, remat, Adaptive_type=3, fused_dtype and
     # dist are ported: tests/test_torch_autotune.py, test_torch_causal.py,
     # test_torch_ntk.py, test_torch_mixed_precision.py,
-    # test_torch_parallel.py; under dist, causal weighting is not
+    # test_torch_parallel.py; under dist causal weighting too
+    # (test_torch_dist_options.py)
     for kw in (dict(dist=True, causal_eps=1.0),):
-        with pytest.raises(NotPortedError, match="ROADMAP"):
-            s.compile([2, 8, 1], f, d, b, **kw)
+        s_dist = tdqt.CollocationSolverND(verbose=False, device="cpu")
+        s_dist.compile([2, 8, 1], f, d, b, **kw)
+        assert s_dist.mesh.size == 1 and s_dist._causal_kw
     with pytest.raises(ValueError, match="cuda"):
         s.compile([2, 8, 1], f, d, b, fused="pallas")
     with pytest.raises(tdqt.NotCompiledError):
