@@ -309,14 +309,56 @@ Phases (each failure is fatal; exit code != 0, no result line):
    trip: 10 more steps bit for bit.  (e) Members 0 and 63 served
    (``member_surrogate(m)``): ``u`` within FAC_SERVE_TOL of the member's
    network.  ``--factory-only`` runs the build and this phase.
-20. the sixteen ``examples_torch/`` scripts, in this process, with
+20. the nineteen ``examples_torch/`` scripts, in this process, with
    ``--quick`` on the card: rc 0 each, its wall.  ``--examples-only`` runs
    the build and this phase.
-21. a ``{"kernels": [...]}`` line (K1, K2, K3, their bf16 and their TF32
+21. the serving fleet (``tensordiffeq_tpu_torch.fleet``).  (a) The JAX
+   package's fleet benchmark (``bench.py --mode fleet``): four AC-SA
+   tenants at full width (2-128x4-1, N_f = 50,000, FLEET_STEPS Adam steps
+   each), exported at the ladder 256-4096 with the kinds ``u`` and
+   ``residual``, served in a fresh process (``--fleet-child``) by a
+   ``FleetRouter(max_loaded=3)`` with t2 and t3 loaded with no f_model
+   (their residual from the lowered tape: K1's table, then the tape,
+   captured as each rung's graph).  Gates: every rung captured once at
+   load; the warm tenant's first query captures nothing; the tape within
+   the cross-check band of the generic program; K1 at 4,096 rows against
+   its plain flavor within K1_RTOL; one tape query per rung launches K1
+   once each; 2,000 mixed requests (1-4,096 rows, 70 % u) through the
+   batchers behind admission, in segments that evict and reload: 0
+   request-time captures (captures beyond the reloads' warm starts),
+   every 10th answer (a synchronous query) bit for bit a direct engine
+   over the same artifact warm-started alike, the batched answers within
+   FLEET_CROSS_RUNG of it, none hung, K1 exactly once per tape-rung run
+   (plus three warm-ups per capture) and no K2 or K3; a rate-limit burst
+   shed as ``AdmissionRejected``; one tenant through three evict-reload
+   cycles, its quarantine kept and its rungs captured again each time;
+   two hot swaps while another thread queries, no error, no dropped
+   waiter.  Printed: the cold first query (capture included) against the
+   warm one, each tenant's load wall, requests/s, the tape rung's replay
+   ms against the generic rung's at 4,096.  (b) The JAX package's
+   closed-loop benchmark (``bench.py --mode closedloop``): 4 members
+   (2-64-64-1, N_f = 2,048), 600 steps, ``export_family``, served; drift
+   0.8 in place trips the monitor; a 600-step retrain warm-started from
+   the served parameters with pool redraws, and a hot swap of all four.
+   Gates: K3 exactly 4 per family step and K1 4 per redraw in the
+   retrain, one capture of the family step, every tenant swapped, the
+   probe residual below the drifted one, no capture at request time
+   across the cutover.  Printed: queries to trip, detection and retrain
+   wall, cutover stall p50, MTTR.  (c) The JAX package's replicated
+   benchmark (``bench.py --mode fleetha``): a ``ReplicaGroup`` of two
+   replica processes on the card (ladder 64-128), 200 queries through a
+   ``FrontRouter`` under ``TDQ_CHAOS=host_loss_at=50,host_loss_rank=1``,
+   in a thread beside (b).  Gates: no request lost, answers bit for bit
+   direct engines, no request-time capture on the survivor, the slot
+   respawned warm at the same endpoint.  Printed: p50/p99 across the
+   incident and the respawn wall (two processes on one card: not a
+   scaling figure).  Every process under FLEET_TIMEOUT_S.
+   ``--fleet-only`` runs the build and this phase.
+22. a ``{"kernels": [...]}`` line (K1, K2, K3, their bf16 and their TF32
    flavors, each held to its plain version; K1's with the route it took and
    its wide route's measurements as ``wide_route``; the TF32 flavors with
    their distances and the 3xTF32 flavor's ms; ``launches_by_path`` has
-   every path's launches, phases 17-20's included), the card line again,
+   every path's launches, phases 17-21's included), the card line again,
    and the result line.
 
 Phases 6-9 and 11-14 train through CUDA graphs (``training/graphs.py``): each Adam
@@ -5439,7 +5481,7 @@ def phase_factory(card: str) -> dict:
 # --------------------------------------------------------------------- #
 EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "examples_torch")
-N_EXAMPLES = 16
+N_EXAMPLES = 19
 
 
 def _run_example(name: str) -> tuple:
@@ -5504,6 +5546,823 @@ def phase_examples(card: str) -> dict:
     return {"examples": dict(launches=launches)}
 
 
+# --------------------------------------------------------------------- #
+# phase 21: the serving fleet
+# --------------------------------------------------------------------- #
+# where the phase runs (a CPU rehearsal of the control flow sets "cpu")
+FLEET_DEVICE = "cuda"
+# (a) the JAX package's fleet benchmark (bench.py --mode fleet): 4 AC-SA
+# tenants at full width (2-128x4-1, N_f = 50,000, trained FLEET_STEPS Adam
+# steps each so the residuals are not trivial), ladder 256-4096, mixed
+# u/residual traffic; t2 and t3 served with no f_model (the lowered tape)
+FLEET_TENANTS, FLEET_STEPS = 4, 20
+FLEET_LADDER = dict(min_bucket=256, max_bucket=4096)
+FLEET_NO_F = ("t2", "t3")
+FLEET_MAX_LOADED = 3  # four tenants: the traffic evicts
+# 2,000 requests of 1-4,096 rows (log-uniform), 70 % u, in 10 segments of
+# 200 over three tenants each (a rotating tenant sits a segment out, so
+# each boundary evicts and reloads); every 10th request is a synchronous
+# query, alone in its batch (the tenant flushed first), held to the
+# direct engine bit for bit
+FLEET_REQUESTS, FLEET_SEGMENTS, FLEET_SYNC_EVERY = 2_000, 10, 10
+FLEET_U_SHARE = 0.7
+# a batched answer against the direct engine: the same program at another
+# rung of the ladder (a coalesced batch pads to its own rung), so float32
+# rounding apart, not bit for bit
+FLEET_CROSS_RUNG = 1e-5
+FLEET_RATE, FLEET_BURST, FLEET_BURST_REQUESTS = 100.0, 10.0, 60
+FLEET_CYCLES = 3  # evict-reload cycles of one tenant, its quarantine kept
+FLEET_TIMEOUT_S = 300  # each process the phase starts
+# (b) the JAX package's closed-loop benchmark (bench.py --mode
+# closedloop): 4 Allen-Cahn members, theta_m = 0.0009 + 0.0002 m, N_f =
+# 2,048, 2-64-64-1, 600 + 600 steps in chunks of 100, drift 0.8 in place;
+# the retrain in supervisor chunks of 300, each fit in chunks of 100 with
+# a pool redraw dispatched every 100 (two adopted, two discarded)
+CL_M, CL_NF, CL_WIDTHS = 4, 2_048, [2, 64, 64, 1]
+CL_STEPS, CL_CHUNK, CL_DRIFT = 600, 100, 0.8
+CL_RETRAIN_CHUNK, CL_RESAMPLE = 300, 100
+# (c) the JAX package's replicated-serving benchmark (bench.py --mode
+# fleetha): 2 replica processes, ladder 64-128, 200 queries, rank 1 lost
+# at its 50th request; the tenants with no f_model (the tape: a respawned
+# replica's warm start then takes no generic program's first run)
+HA_LADDER = dict(min_bucket=64, max_bucket=128)
+HA_QUERIES, HA_LOSS_AT = 200, 50
+
+HA_BOOT = '''\
+"""Replica bootstrap of chip_smoke.py phase 21(c): the tenants with no
+f_model (their residual from the artifacts' lowered tape)."""
+from tensordiffeq_tpu_torch.fleet import FleetRouter, TenantPolicy
+
+ART = {arts!r}
+
+
+def make_router(device="cuda"):
+    router = FleetRouter(max_loaded=4, device=device)
+    for name, art in sorted(ART.items()):
+        router.register(name, art, policy=TenantPolicy(
+            min_bucket={min_b}, max_bucket={max_b}, max_batch=256,
+            max_latency_s=0.005))
+    return router
+'''
+
+
+def _fleet_f_model(u, x, t):
+    """AC-SA's residual (``ac_sa_problem``'s), at module level: the fleet's
+    child process and replicas re-attach it by name."""
+    from tensordiffeq_tpu_torch import grad
+    u_xx = grad(grad(u, "x"), "x")
+    u_t = grad(u, "t")
+    uv = u(x, t)
+    return u_t(x, t) - 0.0001 * u_xx(x, t) + 5.0 * uv ** 3 - 5.0 * uv
+
+
+def _sync():
+    import torch
+    if torch.device(FLEET_DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _fleet_draw(rng, n: int) -> np.ndarray:
+    return np.stack([rng.uniform(-1.0, 1.0, n), rng.uniform(0.0, 1.0, n)],
+                    -1).astype(np.float32)
+
+
+def _counter(reg, prefix: str, **labels) -> float:
+    """The sum of a registry's counters named ``prefix`` whose labels
+    include ``labels``."""
+    total = 0.0
+    for key, v in reg.as_dict()["counters"].items():
+        name, _, rest = key.partition("{")
+        if name != prefix:
+            continue
+        if all(f"{k}={val}" in rest for k, val in labels.items()):
+            total += v
+    return total
+
+
+def _leaves_scaled(got, want) -> float:
+    """Scale-relative max difference over an answer's arrays."""
+    g = got if isinstance(got, tuple) else (got,)
+    w = want if isinstance(want, tuple) else (want,)
+    worst = 0.0
+    for a, b in zip(g, w):
+        a, b = np.asarray(a), np.asarray(b)
+        worst = max(worst, float(np.abs(a - b).max())
+                    / max(float(np.abs(b).max()), 1e-30))
+    return worst
+
+
+def _same_bits(a, b) -> bool:
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return len(a) == len(b) and all(
+        np.asarray(x).tobytes() == np.asarray(y).tobytes()
+        for x, y in zip(a, b))
+
+
+def fleet_child(work: str, out: str):
+    """Phase 21(a) in a fresh process: the four artifacts under ``work``
+    served by a ``FleetRouter`` (t2 and t3 with no f_model), every gate of
+    (a) checked here (``fail`` exits non-zero), the figures written to
+    ``out`` as JSON."""
+    import threading
+    import torch
+    from tensordiffeq_tpu_torch import fleet, telemetry
+    from tensordiffeq_tpu_torch.checkpoint import resolve_checkpoint_dir
+    from tensordiffeq_tpu_torch.fleet.warmstart import TAPE_FILE
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    from tensordiffeq_tpu_torch.ops.fused import crosscheck_residuals
+    from tensordiffeq_tpu_torch.resilience import Chaos
+    from tensordiffeq_tpu_torch.serving import Surrogate
+    from tensordiffeq_tpu_torch.telemetry import MetricsRegistry
+
+    dev = torch.device(FLEET_DEVICE)
+    if dev.type == "cuda":
+        torch.cuda.init()
+    marks = {"imports_and_cuda_init": _process_age()}
+    ct.build()
+    marks["kernel_library"] = _process_age()
+    res = {"marks": marks}
+    names = [f"t{i}" for i in range(FLEET_TENANTS)]
+    arts = {t: os.path.join(work, t) for t in names}
+    fm = {t: (None if t in FLEET_NO_F else _fleet_f_model) for t in names}
+    reg = telemetry.default_registry()
+    rng = np.random.RandomState(21)
+
+    def compiles(r=reg):
+        return _counter(r, "serving.engine.compiles")
+
+    # cold: an engine that was not warm-started, its first query captures
+    cold = Surrogate.load(arts["t0"], f_model=_fleet_f_model,
+                          device=dev).engine(**FLEET_LADDER)
+    Xc = _fleet_draw(rng, FLEET_LADDER["min_bucket"])
+    _sync()
+    t0 = time.perf_counter()
+    cold.u(Xc)
+    _sync()
+    res["cold_first_query_ms"] = 1e3 * (time.perf_counter() - t0)
+    cold.release()
+    del cold
+
+    policy = dict(max_batch=FLEET_LADDER["max_bucket"], max_latency_s=0.005,
+                  **FLEET_LADDER)
+    router = fleet.FleetRouter(max_loaded=FLEET_MAX_LOADED, registry=reg,
+                               device=dev)
+    for t in names:
+        router.register(t, arts[t], f_model=fm[t],
+                        policy=fleet.TenantPolicy(**policy))
+    ladder = [FLEET_LADDER["min_bucket"] << i for i in range(
+        (FLEET_LADDER["max_bucket"] // FLEET_LADDER["min_bucket"])
+        .bit_length())]
+    res["load_s"], res["warm"] = {}, {}
+    for t in names:
+        _sync()
+        t0 = time.perf_counter()
+        lt = router.load(t)
+        _sync()
+        res["load_s"][t] = time.perf_counter() - t0
+        res["warm"][t] = {k: lt.warm[k] for k in ("aot", "jit", "failed")}
+        want = ((len(ladder), len(ladder)) if t in FLEET_NO_F
+                else (0, 2 * len(ladder)))
+        caps = [r.graph.captures if r.graph.make_graph is not None else 1
+                for r in lt.engine._rungs.values()]
+        if (lt.warm["aot"], lt.warm["jit"]) != want or lt.warm["failed"] \
+                or len(caps) != 2 * len(ladder) or set(caps) != {1}:
+            fail(f"fleet: tenant {t} loaded with warm {lt.warm}, rung "
+                 f"captures {caps} (want tape/own {want}, one capture a "
+                 "rung)")
+        if t == "t1":
+            Xw = _fleet_draw(rng, FLEET_LADDER["min_bucket"])
+            pre = compiles()
+            _sync()
+            t0 = time.perf_counter()
+            router.query("t1", Xw)
+            _sync()
+            res["warm_first_query_ms"] = 1e3 * (time.perf_counter() - t0)
+            if compiles() != pre:
+                fail("fleet: the warm-started tenant captured at its first "
+                     "query")
+    print(f"[fleet] {FLEET_TENANTS} AC-SA tenants ({WIDTHS}), ladder "
+          f"{ladder}, t2/t3 with no f_model; load wall per tenant "
+          + ", ".join(f"{t} {s:.3f} s" for t, s in res["load_s"].items())
+          + f"; warm {res['warm']}; every rung captured once at load; "
+          f"first query cold {res['cold_first_query_ms']:.2f} ms (capture "
+          f"included) against warm {res['warm_first_query_ms']:.3f} ms "
+          f"({res['cold_first_query_ms'] / res['warm_first_query_ms']:.1f}"
+          f"x); process marks {marks}", flush=True)
+
+    # the referees: a direct engine per tenant over the same artifact,
+    # loaded and warm-started alike, each with a registry of its own
+    direct, dreg = {}, {}
+    for t in names:
+        dreg[t] = MetricsRegistry()
+        eng = Surrogate.load(arts[t], f_model=fm[t], device=dev).engine(
+            registry=dreg[t], **FLEET_LADDER)
+        fleet.warm_start(eng, registry=dreg[t])
+        direct[t] = eng
+
+    # the tape against the generic program (the same artifact served with
+    # its f_model), and K1 at the top rung against its plain flavor
+    Xp = _fleet_draw(rng, FLEET_LADDER["max_bucket"])
+    top = FLEET_LADDER["max_bucket"]
+    saved = _counts_all()
+    worst_tape = 0.0
+    for t in FLEET_NO_F:
+        gen = Surrogate.load(arts[t], f_model=_fleet_f_model,
+                             device=dev).engine(**FLEET_LADDER)
+        f_gen, f_tape = gen.residual(Xp), direct[t].residual(Xp)
+        ok, why = crosscheck_residuals(f_gen, f_tape,
+                                       rtol=SERVE_CROSSCHECK_RTOL)
+        worst_tape = max(worst_tape, _leaves_scaled(f_tape, f_gen))
+        if not ok:
+            fail(f"fleet: {t}'s tape residual outside the cross-check "
+                 f"band of its generic program: {why}")
+        if t == FLEET_NO_F[0] and dev.type == "cuda":
+            res["tape_rung_ms"] = cuda_ms(
+                direct[t]._rungs[("residual", top)].graph)
+            res["generic_rung_ms"] = cuda_ms(
+                gen._rungs[("residual", top)].graph)
+        gen.release()
+    with open(os.path.join(resolve_checkpoint_dir(arts["t2"]),
+                           TAPE_FILE)) as fh:
+        blob = json.load(fh)
+    sur2 = direct["t2"].surrogate
+    tab = ct.build_cuda_table_fn({tuple(r) for r in blob["requests"]},
+                                 [tuple(W.shape) for W, _ in sur2.params],
+                                 device=dev)
+    Xd = torch.from_numpy(Xp).to(dev)
+    got = tab(sur2.params, Xd)
+    plain = tab([(W.cpu(), b.cpu()) for W, b in sur2.params], Xd.cpu())
+    k1_err = max(scaled_err(got[mi].cpu(), plain[mi])[1] for mi in plain)
+    # through its wrapper, eagerly: the packing of the layers included
+    res["k1_ms"] = (cuda_ms(lambda: tab(sur2.params, Xd))
+                    if dev.type == "cuda" else None)
+    _set_counts(saved)
+    res["tape_vs_generic"] = worst_tape
+    res["k1_scale_rel_err"] = k1_err
+    print(f"[fleet tape] t2/t3's residual from the lowered tape against the "
+          f"generic program (f_model attached) on {top} points: "
+          f"{worst_tape:.3e} scale-relative (band rtol "
+          f"{SERVE_CROSSCHECK_RTOL:g}); rung {top} replay: tape "
+          f"{res.get('tape_rung_ms') or float('nan'):.3f} ms against generic "
+          f"{res.get('generic_rung_ms') or float('nan'):.3f} ms; K1 at "
+          f"{top} rows against its plain flavor {k1_err:.3e} (tol "
+          f"{K1_RTOL:g}), {res['k1_ms'] or float('nan'):.3f} ms through "
+          "its wrapper, eagerly (packing included)", flush=True)
+    if not k1_err <= K1_RTOL:
+        fail("fleet: K1 at the top rung disagrees with its plain flavor")
+
+    # K1 once per tape-rung replay: one query at each rung
+    ct.reset_launch_counts()
+    for b in ladder:
+        router.query("t2", _fleet_draw(rng, b), kind="residual")
+    _sync()
+    per_rung = _counts()
+    if per_rung != {"k1": len(ladder), "k2": 0, "k3": 0}:
+        fail(f"fleet: one tape query per rung launched {per_rung}")
+
+    # the traffic: admission, batchers, evictions, reloads
+    ct.reset_launch_counts()
+    pre = {"compiles": compiles(),
+           "warm": _counter(reg, "fleet.warmstart.programs"),
+           "runs": sum(_counter(reg, "serving.engine.runs", tenant=t,
+                                kind="residual") for t in FLEET_NO_F)
+           + sum(_counter(dreg[t], "serving.engine.runs", kind="residual")
+                 for t in FLEET_NO_F),
+           "tape_caps": sum(_counter(reg, "serving.engine.compiles",
+                                     tenant=t, kind="residual")
+                            for t in FLEET_NO_F),
+           "evictions": router.stats()["evictions"]}
+    per_seg = FLEET_REQUESTS // FLEET_SEGMENTS
+    handles, sync_bad, sync_n = [], 0, 0
+    _sync()
+    t0 = time.perf_counter()
+    for seg in range(FLEET_SEGMENTS):
+        active = [t for i, t in enumerate(names)
+                  if i != seg % FLEET_TENANTS]
+        for j in range(per_seg):
+            i = seg * per_seg + j
+            t = active[rng.randint(len(active))]
+            n = int(min(FLEET_LADDER["max_bucket"], max(1, round(np.exp(
+                rng.uniform(0.0, np.log(FLEET_LADDER["max_bucket"])))))))
+            kind = "u" if rng.uniform() < FLEET_U_SHARE else "residual"
+            X = _fleet_draw(rng, n)
+            if i % FLEET_SYNC_EVERY == 0:
+                # alone in its batch, so at the rung the direct engine takes
+                router.flush(t)
+                ans = router.query(t, X, kind=kind)
+                sync_n += 1
+                sync_bad += not _same_bits(
+                    ans, direct[t].op_for(kind)(X))
+            else:
+                handles.append((t, kind, X, router.submit(t, X, kind=kind)))
+                router.poll()
+    router.flush()
+    _sync()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    stats = router.stats()
+    request_caps = (compiles() - pre["compiles"]
+                    - (_counter(reg, "fleet.warmstart.programs")
+                       - pre["warm"]))
+    tape_runs = (sum(_counter(reg, "serving.engine.runs", tenant=t,
+                              kind="residual") for t in FLEET_NO_F)
+                 + sum(_counter(dreg[t], "serving.engine.runs",
+                                kind="residual") for t in FLEET_NO_F)
+                 - pre["runs"])
+    tape_caps = (sum(_counter(reg, "serving.engine.compiles", tenant=t,
+                              kind="residual") for t in FLEET_NO_F)
+                 - pre["tape_caps"])
+    hung = sum(not h.done for _, _, _, h in handles)
+    worst = 0.0
+    for t, kind, X, h in handles:
+        if h.done:
+            worst = max(worst, _leaves_scaled(h.result(),
+                                              direct[t].op_for(kind)(X)))
+    want_k1 = tape_runs + 3 * tape_caps  # a capture's three warm-ups
+    res.update(requests=FLEET_REQUESTS, wall_s=wall,
+               qps=FLEET_REQUESTS / wall, request_time_captures=request_caps,
+               evictions=stats["evictions"] - pre["evictions"],
+               launches=launches, tape_runs=tape_runs, tape_captures=tape_caps,
+               batched_worst=worst, sync_checked=sync_n)
+    print(f"[fleet traffic] {FLEET_REQUESTS} requests (1-"
+          f"{FLEET_LADDER['max_bucket']:,} rows, {FLEET_U_SHARE:.0%} u) over "
+          f"{FLEET_TENANTS} tenants in {wall:.2f} s: {res['qps']:.1f} "
+          f"requests/s (host-bound: batchers, admission, "
+          f"{res['evictions']} evictions and their reloads included); "
+          f"request-time captures {request_caps:g}; {sync_n} synchronous "
+          f"answers bit for bit the direct engines ({sync_bad} differ); "
+          f"batched answers within {worst:.3e} of them (band "
+          f"{FLEET_CROSS_RUNG:g}); hung {hung}; launches {launches} (K1 "
+          f"want {want_k1:g}: {tape_runs:g} tape-rung runs + 3 x "
+          f"{tape_caps:g} captures' warm-ups)", flush=True)
+    if request_caps != 0 or sync_bad or hung or not worst <= FLEET_CROSS_RUNG:
+        fail("fleet: request-time captures, a differing answer or a hung "
+             "waiter")
+    if launches["k2"] or launches["k3"] or launches["k1"] != want_k1 \
+            or res["evictions"] < FLEET_SEGMENTS - 1:
+        fail(f"fleet: launches {launches}, K1 want {want_k1}, evictions "
+             f"{res['evictions']}")
+
+    # a rate-limit burst on one tenant: shed, none hung
+    router.register("t0-burst", arts["t0"], f_model=_fleet_f_model,
+                    policy=fleet.TenantPolicy(rate_qps=FLEET_RATE,
+                                              burst=FLEET_BURST, **policy))
+    shed, admitted = [], []
+    for _ in range(FLEET_BURST_REQUESTS):
+        try:
+            admitted.append(router.submit("t0-burst", _fleet_draw(
+                rng, int(rng.randint(1, 17)))))
+        except fleet.AdmissionRejected as e:
+            shed.append(e.reason)
+    router.flush()
+    print(f"[fleet admission] a burst of {FLEET_BURST_REQUESTS} on one "
+          f"tenant at {FLEET_RATE:g}/s (burst {FLEET_BURST:g}): "
+          f"{len(shed)} shed as AdmissionRejected ({sorted(set(shed))}), "
+          f"{len(admitted)} admitted, "
+          f"{sum(not h.done for h in admitted)} hung", flush=True)
+    if not shed or set(shed) != {"rate_limit"} \
+            or not all(h.done for h in admitted):
+        fail("fleet: the burst was not shed as rate_limit, or a waiter hung")
+
+    # one tenant cycled through eviction and reload, its quarantine kept
+    dead = ladder[1]
+    router.evict("t1")
+    with Chaos(compile_fail_buckets=(dead,)):
+        lt = router.load("t1")
+    quarantined = lt.engine.quarantined_buckets()
+    Xq = _fleet_draw(rng, dead - 10)  # routes past the dead rung
+    first = router.query("t1", Xq)
+    cycles = []
+    for _ in range(FLEET_CYCLES):
+        router.evict("t1")
+        lt = router.load("t1")
+        caps = sum(r.graph.captures if r.graph.make_graph is not None else 1
+                   for r in lt.engine._rungs.values())
+        cycles.append((lt.engine.quarantined_buckets() == quarantined, caps,
+                       _same_bits(router.query("t1", Xq), first)))
+    print(f"[fleet evict-reload] t1 quarantined {quarantined} at a chaos "
+          f"load, then {FLEET_CYCLES} evict-reload cycles: (quarantine "
+          f"kept, rungs captured again, answer bit for bit) {cycles}",
+          flush=True)
+    if quarantined != {"u": [dead], "residual": [dead]} or any(
+            c != (True, 2 * len(ladder) - 2, True) for c in cycles):
+        fail("fleet: an evict-reload cycle lost the quarantine or did not "
+             "capture again")
+
+    # a hot swap while another thread queries the same router
+    Xh = _fleet_draw(rng, 1000)
+    want = {_fleet_bytes(direct[a].op_for(k)(Xh)) for a in ("t0", "t1")
+            for k in ("u", "residual")}
+    stop, errs, seen = threading.Event(), [], []
+
+    def hammer():
+        i = 0
+        try:
+            while not stop.is_set():
+                kind = ("u", "residual")[i % 2]
+                seen.append(_fleet_bytes(router.query("t0", Xh, kind=kind)))
+                i += 1
+        except Exception as e:  # noqa: BLE001 - reported below
+            errs.append(f"{type(e).__name__}: {e}")
+
+    router.load("t0")
+    th = threading.Thread(target=hammer, daemon=True)
+    th.start()
+    verdicts = []
+    try:
+        for art in (arts["t1"], arts["t0"]):
+            v = router.hot_swap("t0", art, f_model=_fleet_f_model,
+                                probe_X=_fleet_draw(rng, 256),
+                                gate=float("inf"))
+            verdicts.append((v["swapped"], round(v.get("cutover_stall_s",
+                                                       -1), 6)))
+    finally:
+        stop.set()
+        th.join(timeout=120.0)
+    print(f"[fleet swap] two hot swaps of t0 beside a querying thread: "
+          f"(swapped, cutover stall s) {verdicts}; {len(seen)} answers "
+          f"during them, each one of the two artifacts' own bit for bit: "
+          f"{set(seen) <= want}; errors {errs}; pending "
+          f"{router.pending_points()}", flush=True)
+    if th.is_alive() or errs or not seen or not set(seen) <= want \
+            or not all(s for s, _ in verdicts) or router.pending_points():
+        fail("fleet: a swap beside live queries failed")
+    with open(out, "w") as fh:
+        json.dump(res, fh)
+
+
+def _fleet_bytes(ans) -> bytes:
+    return b"".join(np.asarray(a).tobytes() for a in (
+        ans if isinstance(ans, tuple) else (ans,)))
+
+
+def _fleet_train(work: str) -> dict:
+    """Phase 21(a)'s training side: four AC-SA tenants at full width,
+    FLEET_STEPS Adam steps each, exported at the ladder 256-4096 (and at
+    (c)'s 64-128 for the replicas)."""
+    import tensordiffeq_tpu_torch as tdqt
+    from tensordiffeq_tpu_torch import fleet
+
+    walls = []
+    for i in range(FLEET_TENANTS):
+        t0 = time.perf_counter()
+        domain, bcs, f_model, kw = ac_sa_problem(seed=i)
+        s = tdqt.CollocationSolverND(verbose=False, seed=i,
+                                     device=FLEET_DEVICE)
+        s.compile(WIDTHS, f_model, domain, bcs, fused="cuda", **kw)
+        s.fit(tf_iter=FLEET_STEPS, chunk=FLEET_STEPS)
+        sur = s.export_surrogate()
+        fleet.export_fleet_artifact(sur, os.path.join(work, f"t{i}"),
+                                    **FLEET_LADDER)
+        if i < 2:
+            fleet.export_fleet_artifact(sur, os.path.join(work, f"ha{i}"),
+                                        **HA_LADDER)
+        walls.append(time.perf_counter() - t0)
+    return {"train_export_s": walls}
+
+
+def _fleet_serving(work: str, card: str) -> dict:
+    """Phase 21(a): the child process (``--fleet-child``)."""
+    out = os.path.join(work, "fleet_child.json")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("LOCAL_RANK", "RANK", "WORLD_SIZE", "TDQ_CHAOS")}
+    t0 = time.perf_counter()
+    try:
+        p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--fleet-child", work, out], env=env,
+                           timeout=FLEET_TIMEOUT_S)
+        rc = p.returncode
+    except subprocess.TimeoutExpired:
+        rc = None
+    wall = time.perf_counter() - t0
+    if rc != 0 or not os.path.exists(out):
+        fail(f"fleet: the serving child returned {rc} after {wall:.1f} s")
+    with open(out) as fh:
+        res = json.load(fh)
+    res["child_wall_s"] = wall
+    print(f"[fleet] serving child: {wall:.1f} s; {card}", flush=True)
+    return res
+
+
+def _cl_problem():
+    import tensordiffeq_tpu_torch as tdqt
+    from tensordiffeq_tpu_torch import grad
+
+    domain = tdqt.DomainND(["x", "t"], time_var="t")
+    domain.add("x", [-1.0, 1.0], 512)
+    domain.add("t", [0.0, 1.0], 201)
+    domain.generate_collocation_points(CL_NF, seed=0)
+
+    def deriv_model(u, x, t):
+        return u(x, t), grad(u, "x")(x, t)
+
+    bcs = [tdqt.IC(domain, [lambda x: x ** 2 * np.cos(np.pi * x)],
+                   var=[["x"]]),
+           tdqt.periodicBC(domain, ["x"], [deriv_model])]
+    return domain, bcs
+
+
+def _closedloop(work: str, card: str) -> dict:
+    """Phase 21(b): the JAX package's closed-loop benchmark on the card."""
+    import torch
+    from tensordiffeq_tpu_torch import fleet, telemetry
+    from tensordiffeq_tpu_torch.factory import SurrogateFactory
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+
+    thetas = [0.0009 + 0.0002 * m for m in range(CL_M)]
+    domain, bcs = _cl_problem()
+    made = []
+
+    def build_factory(init_params=None):
+        fac = SurrogateFactory(CL_WIDTHS, _fac_f_model, domain, bcs, thetas,
+                               init_params=init_params, fused="cuda",
+                               verbose=False, device=FLEET_DEVICE)
+        _sync()
+        made.append((fac, _counts()))
+        return fac
+
+    reg = telemetry.default_registry()
+    rng = np.random.RandomState(4)
+    t0 = time.perf_counter()
+    factory = build_factory()
+    factory.fit(tf_iter=CL_STEPS, chunk=CL_CHUNK)
+    v1 = os.path.join(work, "cl_v1")
+    factory.export_family(v1, **FLEET_LADDER)
+    pre_s = time.perf_counter() - t0
+    router = fleet.FleetRouter(max_loaded=CL_M + 1, device=FLEET_DEVICE)
+    policy = fleet.TenantPolicy(max_batch=1024, max_latency_s=0.005,
+                                **FLEET_LADDER)
+    members = router.register_family(
+        v1, policy=policy, prefix="m",
+        f_models={m: factory.member_f_model(m) for m in range(CL_M)})
+    monitor = fleet.DriftMonitor(router, sample_fraction=0.5, window=2,
+                                 seed=0)
+    probe = _fleet_draw(rng, FLEET_LADDER["min_bucket"])
+    for t in members.values():
+        router.load(t)
+        monitor.attach(t, probe)
+
+    def compiles():
+        return _counter(reg, "serving.engine.compiles")
+
+    def probe_residual():
+        return float(np.mean([np.mean(np.abs(np.asarray(
+            router.load(t).engine.residual(probe))))
+            for t in members.values()]))
+
+    # drift: every tenant's served tensors scaled in place
+    pre_drift = compiles()
+    with torch.no_grad():
+        for t in members.values():
+            for W, b in router.load(t).surrogate.params:
+                W.mul_(1.0 + CL_DRIFT)
+                b.mul_(1.0 + CL_DRIFT)
+    drifted = probe_residual()
+    t0 = time.perf_counter()
+    queries = 0
+    while not monitor.tripped() and queries < 500:
+        monitor.query(list(members.values())[queries % CL_M],
+                      _fleet_draw(rng, int(rng.randint(1, 33))))
+        queries += 1
+    detect_s = time.perf_counter() - t0
+    drift_caps = compiles() - pre_drift
+    controller = fleet.RetrainController(
+        router, monitor, build_factory, members, retrain_iters=CL_STEPS,
+        chunk=CL_RETRAIN_CHUNK, fit_chunk=CL_CHUNK,
+        resample_every=CL_RESAMPLE, gate_ratio=10.0,
+        export_kw=dict(FLEET_LADDER), workdir=work)
+    ct.reset_launch_counts()
+    pre = compiles()
+    cycle = controller.run_cycle()
+    _sync()
+    fac, at_build = made[-1]
+    launches = _counts()
+    in_fit = {k: launches[k] - at_build[k] for k in launches}
+    cycle_caps = compiles() - pre
+    warm_caps = sum(v["warm"]["aot"] + v["warm"]["jit"]
+                    for v in cycle["swapped"] + cycle["rolled_back"]
+                    if "warm" in v)
+    post = probe_residual()
+    pre2 = compiles()
+    for t in members.values():
+        router.query(t, _fleet_draw(rng, 16))
+        router.query(t, _fleet_draw(rng, 16), kind="residual")
+    after_caps = compiles() - pre2
+    stalls = sorted(v["cutover_stall_s"] for v in cycle["swapped"])
+    n_rd = len(fac.redraws)
+    caps = fac._step.graph.captures if fac._step.graph.make_graph else 1
+    res = dict(queries_to_trip=queries, detect_s=detect_s,
+               retrain_s=cycle["retrain_wall_s"],
+               stall_p50_s=stalls[len(stalls) // 2] if stalls else None,
+               mttr_s=detect_s + cycle["retrain_wall_s"] + sum(stalls),
+               drifted=drifted, post=post, launches=launches,
+               redraws=n_rd, pre_s=pre_s)
+    print(f"[closedloop] {CL_M} members ({CL_WIDTHS}, N_f={CL_NF:,}, theta "
+          f"{thetas[0]:g}..{thetas[-1]:g}), {CL_STEPS} steps and export in "
+          f"{pre_s:.1f} s; drift {CL_DRIFT:g} in place (captures "
+          f"{drift_caps:g}); tripped after {queries} queries in "
+          f"{detect_s:.3f} s; retrain {cycle['retrain_wall_s']:.2f} s "
+          f"({cycle['retrain_epochs']} steps, {n_rd} redraws: "
+          f"{[r['adopted'] for r in fac.redraws]}); launches in the retrain's "
+          f"fit {in_fit} (K3 want {CL_M * CL_STEPS}, K1 want "
+          f"{CL_M * n_rd}); family step captures {caps}; swapped "
+          f"{len(cycle['swapped'])}/{CL_M}, cutover stall p50 "
+          f"{1e3 * (res['stall_p50_s'] or float('nan')):.3f} ms; probe "
+          f"residual {drifted:.4e} drifted -> {post:.4e}; captures in the "
+          f"cycle {cycle_caps:g} (the candidates' warm starts "
+          f"{warm_caps}), after it {after_caps:g}; MTTR "
+          f"{res['mttr_s']:.2f} s; {card}", flush=True)
+    if in_fit != {"k1": CL_M * n_rd, "k2": 0, "k3": CL_M * CL_STEPS} \
+            or caps != 1 or n_rd < 2:
+        fail(f"closedloop: launches in the retrain {in_fit}, family step "
+             f"captures {caps}, redraws {n_rd}")
+    if len(cycle["swapped"]) != CL_M or not post < drifted \
+            or drift_caps or after_caps or cycle_caps != warm_caps:
+        fail("closedloop: a tenant not swapped, the residual not healed, or "
+             "a request-time capture")
+    return {"closedloop": dict(launches=launches), **res}
+
+
+def _ha_reference(work: str) -> tuple:
+    """Phase 21(c)'s queries and the answers of direct engines over the
+    replicas' artifacts, computed before any other part of the phase runs
+    beside the replicas (their captures would share this process)."""
+    from tensordiffeq_tpu_torch import fleet
+    from tensordiffeq_tpu_torch.serving import Surrogate
+    from tensordiffeq_tpu_torch.telemetry import MetricsRegistry
+
+    rng = np.random.RandomState(50)
+    engines = {}
+    for i in range(2):
+        eng = Surrogate.load(os.path.join(work, f"ha{i}"),
+                             device=FLEET_DEVICE).engine(
+            registry=MetricsRegistry(), **HA_LADDER)
+        fleet.warm_start(eng, registry=MetricsRegistry())
+        engines[f"ha{i}"] = eng
+    queries = []
+    for i in range(HA_QUERIES):
+        t = f"ha{i % 2}"
+        kind = "u" if i % 3 else "residual"
+        X = _fleet_draw(rng, int(rng.randint(1, 129)))
+        queries.append((t, kind, X, _fleet_bytes(engines[t].op_for(kind)(X))))
+    for eng in engines.values():
+        eng.release()
+    return queries
+
+
+def _ha_run(work: str, queries: list, out: dict):
+    """Phase 21(c), run in a thread beside (b): a ``ReplicaGroup`` of two
+    replica processes on the card under host loss; only HTTP and numpy
+    here (never ``fail``: the main thread checks ``out``)."""
+    from tensordiffeq_tpu_torch.fleet import FrontRouter, ReplicaGroup
+    from tensordiffeq_tpu_torch.telemetry import MetricsRegistry
+    from tensordiffeq_tpu_torch.telemetry.collector import SNAPSHOT_FILE
+
+    boot = os.path.join(work, "ha_boot")
+    os.makedirs(boot, exist_ok=True)
+    with open(os.path.join(boot, "tdqt_fleet_boot.py"), "w") as fh:
+        fh.write(HA_BOOT.format(
+            arts={f"ha{i}": os.path.join(work, f"ha{i}") for i in range(2)},
+            min_b=HA_LADDER["min_bucket"], max_b=HA_LADDER["max_bucket"]))
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {"PYTHONPATH": os.pathsep.join([boot, root]),
+           "TDQ_CHAOS": f"host_loss_at={HA_LOSS_AT},host_loss_rank=1"}
+
+    def live_caps(run_dir):
+        try:
+            with open(os.path.join(run_dir, SNAPSHOT_FILE)) as fh:
+                snap = json.load(fh)
+        except (OSError, ValueError):
+            return None
+        return sum(v for k, v in snap["metrics"]["counters"].items()
+                   if k.startswith("serving.engine.compiles"))
+
+    t0 = time.perf_counter()
+    g = ReplicaGroup("tdqt_fleet_boot:make_router", nproc=2,
+                     workdir=os.path.join(work, "replicas"),
+                     heartbeat_timeout_s=180.0, max_relaunches=1, env=env,
+                     registry=MetricsRegistry(), device=FLEET_DEVICE)
+    try:
+        g.start(timeout_s=FLEET_TIMEOUT_S)
+        ready = g.wait_ready(timeout_s=FLEET_TIMEOUT_S)
+        out["ready_s"] = time.perf_counter() - t0
+        out["warm_at_ready"] = {n: sorted(b["tenants"])
+                                for n, b in ready.items()}
+        survivor = os.path.join(g.workdir, "replica0.gen0")
+        deadline = time.perf_counter() + 60.0
+        base = None
+        while base is None and time.perf_counter() < deadline:
+            base = live_caps(survivor)
+            time.sleep(0.1)
+        front = FrontRouter(g.endpoints(), deadline_s=60.0,
+                            breaker_reset_timeout_s=1.0,
+                            registry=MetricsRegistry())
+        lat, bad, lost, avail = [], 0, 0, 1.0
+        for t, kind, X, want in queries:
+            q0 = time.perf_counter()
+            try:
+                got = front.query(t, X, kind=kind)
+            except Exception:  # noqa: BLE001 - a lost request is counted
+                lost += 1
+                continue
+            lat.append(time.perf_counter() - q0)
+            bad += _fleet_bytes(got) != want
+            avail = min(avail, front.availability())
+        out.update(lost=lost, differ=bad, availability_min=avail,
+                   p50_ms=1e3 * float(np.percentile(lat, 50)),
+                   p99_ms=1e3 * float(np.percentile(lat, 99)),
+                   primary={t: front.candidates(t)[0]
+                            for t in ("ha0", "ha1")})
+        time.sleep(1.0)  # one beat: the survivor's snapshot catches up
+        after = live_caps(survivor)
+        out["survivor_captures"] = (None if base is None or after is None
+                                    else after - base)
+        ready = g.wait_ready(timeout_s=FLEET_TIMEOUT_S)
+        out["warm_after"] = {n: sorted(b["tenants"])
+                             for n, b in ready.items()}
+        out["endpoints"] = g.endpoints()
+        front.close()
+    except Exception as e:  # noqa: BLE001 - checked by the main thread
+        out["error"] = f"{type(e).__name__}: {e}"
+    finally:
+        try:
+            result = g.shutdown(timeout_s=120.0)
+            out.update(hosts_lost=getattr(result, "hosts_lost", None),
+                       relaunches=getattr(result, "relaunches", None),
+                       respawn_s=list(getattr(result, "recovery_wall_s",
+                                              []) or []),
+                       ok=getattr(result, "ok", None))
+        except Exception as e:  # noqa: BLE001
+            out["shutdown_error"] = f"{type(e).__name__}: {e}"
+    out["wall_s"] = time.perf_counter() - t0
+
+
+def phase_fleet(card: str) -> dict:
+    """Phase 21 (module docstring)."""
+    import shutil
+    import tempfile
+    import threading
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="tdq_fleet_")
+    try:
+        saved = _counts_all()
+        trained = _fleet_train(work)
+        _set_counts(saved)
+        print(f"[fleet] {FLEET_TENANTS} tenants trained {FLEET_STEPS} steps "
+              f"and exported: "
+              f"{[round(s, 2) for s in trained['train_export_s']]} s",
+              flush=True)
+        paths = {}
+        # (a) alone, so its figures are not shared with (b) and (c)
+        res_a = _fleet_serving(work, card)
+        paths["fleet-residual"] = dict(launches=res_a["launches"])
+        # (c) beside (b): its reference answers first, then the replicas
+        saved = _counts_all()
+        queries = _ha_reference(work)
+        _set_counts(saved)
+        ha: dict = {}
+        th = threading.Thread(target=_ha_run, args=(work, queries, ha),
+                              daemon=True)
+        th.start()
+        ct.reset_launch_counts()
+        res_b = _closedloop(work, card)
+        paths["closedloop"] = {"launches": res_b["launches"]}
+        th.join(timeout=FLEET_TIMEOUT_S + 180)
+        print(f"[fleetha] 2 replica processes on the one card (not a "
+              f"scaling figure: two processes share one card), ladder "
+              f"{HA_LADDER}, {HA_QUERIES} queries through a FrontRouter, "
+              f"rank 1 lost at its {HA_LOSS_AT}th request: lost "
+              f"{ha.get('lost')}, answers differing from direct engines "
+              f"{ha.get('differ')}, availability min "
+              f"{ha.get('availability_min')}, p50 "
+              f"{ha.get('p50_ms', float('nan')):.3f} ms, p99 "
+              f"{ha.get('p99_ms', float('nan')):.3f} ms across the "
+              f"incident; survivor request-time captures "
+              f"{ha.get('survivor_captures')}; respawn wall "
+              f"{ha.get('respawn_s')} s; hosts lost {ha.get('hosts_lost')}, "
+              f"relaunches {ha.get('relaunches')}; warm at ready "
+              f"{ha.get('warm_at_ready')}, after the respawn "
+              f"{ha.get('warm_after')}; group ready in "
+              f"{ha.get('ready_s', float('nan')):.1f} s, wall "
+              f"{ha.get('wall_s', float('nan')):.1f} s; {card}", flush=True)
+        warm = {f"replica{i}": ["ha0", "ha1"] for i in range(2)}
+        if th.is_alive() or ha.get("error") or ha.get("shutdown_error") \
+                or ha.get("lost") != 0 or ha.get("differ") != 0 \
+                or ha.get("survivor_captures") != 0 \
+                or ha.get("hosts_lost") != 1 or ha.get("relaunches") != 1 \
+                or ha.get("warm_at_ready") != warm \
+                or ha.get("warm_after") != warm or not ha.get("ok"):
+            fail(f"fleetha: {ha}")
+        print(f"[fleet] phase wall {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+        return paths
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def kernels_line(meas: dict, paths: dict) -> str:
     """``launches`` sums a kernel's launches over the runs of every path
     (``launches_by_path`` splits them: minimax, unfused, lbfgs, pool,
@@ -5515,7 +6374,9 @@ def kernels_line(meas: dict, paths: dict) -> str:
     dist-w1-ntk and dist-w2, phase 18's resilience, resilience-off,
     resilience-resume, resilience-serve and resilience-cluster, the last
     the relaunched worker's, phase 19's factory-1, factory, factory-pool
-    and factory-ascent, and phase 20's examples)."""
+    and factory-ascent, phase 20's examples, and phase 21's
+    fleet-residual, the fleet's traffic in its serving process, and
+    closedloop, the closed loop's retrain)."""
     entries = []
     for key, name, source, replaces in (
             ("k1", "taylor_table_fwd (K1)", "csrc/taylor_fwd_wg.cuh",
@@ -5596,6 +6457,11 @@ def main():
     ap.add_argument("--examples-only", action="store_true",
                     help="build the kernels and run phase 20 (the example "
                     "scripts) alone; prints no result line")
+    ap.add_argument("--fleet-only", action="store_true",
+                    help="build the kernels and run phase 21 (the serving "
+                    "fleet) alone; prints no result line")
+    ap.add_argument("--fleet-child", nargs=2, metavar=("WORK", "OUT"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--dist-worker", nargs=4,
                     metavar=("RANK", "WORLD", "STORE", "OUT"),
                     help=argparse.SUPPRESS)
@@ -5619,6 +6485,9 @@ def main():
     if args.cluster_worker:
         pid, nproc, port, ck, runs = args.cluster_worker
         cluster_worker(int(pid), int(nproc), int(port), ck, runs)
+        return
+    if args.fleet_child:
+        fleet_child(*args.fleet_child)
         return
     card = card_line()
     print(card, flush=True)
@@ -5655,6 +6524,10 @@ def main():
         phase_examples(card)
         print(card, flush=True)
         return
+    if args.fleet_only:
+        phase_fleet(card)
+        print(card, flush=True)
+        return
     meas = phase_kernels(dev)
     meas["k3"] = phase_k3(dev)
     phase_yardstick(dev)
@@ -5687,6 +6560,7 @@ def main():
     paths.update(phase_resilience(card))
     paths.update(phase_factory(card))
     paths.update(phase_examples(card))
+    paths.update(phase_fleet(card))
     if args.profile:
         phase_ab(paths)
         # in turns, so a slower stretch of the host does not land on one

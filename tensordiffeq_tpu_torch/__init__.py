@@ -28,11 +28,15 @@ training over ``torch.distributed`` (:mod:`.parallel`: ``compile(dist=
 runs one process per GPU.  The surrogate factory
 (:class:`~.factory.SurrogateFactory`) trains a parametric family of PINNs
 as one captured step, each member's residual through the template
-solver's engine (K3 per member on the card).  The port imports nothing of
-JAX and nothing of ``tensordiffeq_tpu``.
+solver's engine (K3 per member on the card).  The serving fleet
+(:mod:`.fleet`: :class:`~.fleet.FleetRouter` with admission control and
+warm start, replicated serving, the closed drift → retrain → hot-swap
+loop) serves many surrogates from one process, a residual with no
+``f_model`` from the artifact's lowered tape through K1.  The port imports
+nothing of JAX and nothing of ``tensordiffeq_tpu``.
 """
 
-from . import boundaries, domains, exact, factory, helpers  # noqa: F401
+from . import boundaries, domains, exact, factory, fleet, helpers  # noqa: F401
 from . import networks  # noqa: F401
 from . import models, ops, output, parallel, plotting, profiling  # noqa: F401
 from . import resilience, sampling  # noqa: F401
@@ -42,6 +46,8 @@ from .boundaries import (  # noqa: F401
     BC, IC, FunctionDirichletBC, FunctionNeumannBC, dirichletBC, periodicBC)
 from .domains import DomainND  # noqa: F401
 from .factory import SurrogateFactory  # noqa: F401
+from .fleet import (AdmissionController, AdmissionRejected,  # noqa: F401
+                    FleetRouter, TenantPolicy)
 from .helpers import find_L2_error  # noqa: F401
 from .models import (  # noqa: F401
     CollocationSolverND, DiscoveryModel, NotCompiledError)

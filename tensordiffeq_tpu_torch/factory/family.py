@@ -59,8 +59,11 @@ step; the chunk's history is gathered at its boundary, so every rank holds
 the family's rows.  The checkpoint is sharded by member block
 (:class:`~..checkpoint.RowBlock`) and restores at another world size.
 
-Exporting the family as fleet artifacts (``export_family``) waits for the
-fleet (ROADMAP queue 1 item 7c).
+``export_family`` writes every live member as a v2 fleet artifact
+(:func:`~..fleet.export_fleet_artifact`: the ladder spec and the member's
+residual lowered to its tape, so a replica serves it with no ``f_model``)
+and a ``family_manifest.json`` that :meth:`~..fleet.FleetRouter.
+register_family` loads; frozen members are skipped and recorded.
 """
 
 from __future__ import annotations
@@ -79,10 +82,10 @@ from ..models.collocation import CollocationSolverND
 from ..networks import MLP, as_layers, init_generator
 from ..telemetry import as_training_telemetry, log_event
 from ..training.fit import AdamStep, fit_adam, init_adam_state, make_optimizer
-from ..utils import device_scalar, not_ported, resolve_device
+from ..utils import device_scalar, resolve_device
 
-#: the family manifest's file name (written by the JAX package's
-#: ``export_family``, which the port does not have yet)
+#: the family manifest's file name (written by ``export_family``, read by
+#: ``fleet.FleetRouter.register_family``)
 FAMILY_MANIFEST = "family_manifest.json"
 
 
@@ -901,13 +904,66 @@ class SurrogateFactory:
                          self.varnames, n_out=self.n_out,
                          f_model=self.member_f_model(m), contract="forward")
 
-    def export_family(self, path: str, **kw) -> dict:
-        """The JAX package writes every live member as a v2 fleet artifact
-        here (``fleet.export_fleet_artifact``); the port has no fleet
-        yet."""
-        raise not_ported("SurrogateFactory.export_family (v2 fleet "
-                         "artifacts: fleet.export_fleet_artifact)",
-                         "queue 1 item 7c, fleet/")
+    def export_family(self, path: str, *, min_bucket: int = 256,
+                      max_bucket: int = 4096, kinds=None,
+                      best: bool = False, aot: bool = True,
+                      registry=None) -> dict:
+        """Slice every LIVE member into a v2 fleet artifact under
+        ``path/member_<m:03d>`` (:func:`~..fleet.export_fleet_artifact`)
+        and write ``family_manifest.json`` — the artifact batch
+        :meth:`~..fleet.FleetRouter.register_family` loads directly.
+        Frozen (diverged) members are skipped and recorded in the manifest
+        (member index → the global epoch it froze at) instead of shipping
+        a poisoned surrogate.  A family sharded over more than one rank
+        holds only its own members on each: restore its checkpoint at
+        world 1 and export from there.  ``registry`` receives the
+        ``factory.exports`` counter (default: the process registry).
+        Returns the manifest dict (the JAX package's keys)."""
+        from ..fleet import export_fleet_artifact
+        from ..telemetry import default_registry
+
+        if self.mesh is not None and self.mesh.size > 1:
+            raise ValueError(
+                "export_family needs every member's parameters in this "
+                f"process; this family is sharded over {self.mesh.size} "
+                "ranks (restore its checkpoint at world 1 and export "
+                "there)")
+
+        kw = {"min_bucket": min_bucket, "max_bucket": max_bucket,
+              "aot": aot}
+        if kinds is not None:
+            kw["kinds"] = kinds
+        os.makedirs(path, exist_ok=True)
+        alive = self.alive.detach().cpu().numpy()
+        members, frozen = {}, {}
+        for m in range(self.n_members):
+            if not bool(alive[self._local(m)]):
+                frozen[str(m)] = int(self.frozen_at.get(m, -1))
+                continue
+            rel = f"member_{m:03d}"
+            export_fleet_artifact(self.member_surrogate(m, best=best),
+                                  os.path.join(path, rel), **kw)
+            members[str(m)] = rel
+        manifest = {
+            "format": 1,
+            "n_members": self.n_members,
+            "members": members,
+            "frozen": frozen,
+            "thetas": [[float(v) for v in np.ravel(t)]
+                       for t in self.thetas],
+            "layer_sizes": list(self.layer_sizes),
+            "varnames": list(self.varnames),
+        }
+        with open(os.path.join(path, FAMILY_MANIFEST), "w") as fh:
+            json.dump(manifest, fh, indent=1)
+        registry = registry if registry is not None else default_registry()
+        registry.counter("factory.exports").inc(len(members))
+        log_event("factory", f"exported {len(members)} member artifact(s) "
+                  f"-> {path}" + (f" ({len(frozen)} frozen member(s) "
+                                  "skipped)" if frozen else ""),
+                  verbose=self.verbose, path=str(path),
+                  members=len(members), frozen=len(frozen))
+        return manifest
 
     # ------------------------------------------------------------------ #
     # checkpoints

@@ -53,6 +53,20 @@ flavor.  A kind outside the propagation's reach keeps the f32 program,
 bit-equal to the f32 engine's.  Results carry bf16 rounding (about three
 significant digits).
 
+A rung may run a program installed for it (:meth:`InferenceEngine.
+install_program`) in place of the kind's own: the fleet's residual served
+from an artifact's lowered tape with no ``f_model`` attached
+(:mod:`..fleet.warmstart`).  It is the rung's program like any other:
+warmed up, captured and replayed.
+
+Every device operation of every engine in the process (a chunk's copy in,
+warm-up, capture, replay and copy out; a new graph pool; dropping an
+engine's graphs) runs under one lock, :data:`device_lock`.  A capture in
+``"global"`` mode fails if another thread calls the CUDA runtime while it
+runs, and a fleet captures a tenant's rungs while other threads query
+other tenants: the lock serialises them (what one thread holds, a query
+of another waits for).
+
 A first-touch failure (the warm-up, the capture or the first replay)
 quarantines that rung for its kind; the chunk reroutes to the next larger
 rung, which is a graph too.  A rung is never run eagerly in place of its
@@ -82,6 +96,7 @@ the card) children.  Neither changes a served bit.
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Union
 
 import numpy as np
@@ -96,6 +111,10 @@ from ..telemetry.tracing import active_tracer
 from ..training.graphs import CudaGraph, SharedPool, StepGraph
 from ..utils import matmul_precision, param_leaves, resolve_compute_dtype
 from .surrogate import Surrogate
+
+
+#: held around every device operation of every engine (module docstring)
+device_lock = threading.RLock()
 
 
 def _next_pow2(n: int) -> int:
@@ -233,7 +252,9 @@ class InferenceEngine:
         capture on the card, the first eager run on the CPU), installed
         programs loaded or failed (``serving.engine.aot_loads``,
         ``.aot_failed``), quarantines (``serving.engine.quarantined``),
-        points served (``serving.engine.points``) and the padded fraction
+        points served (``serving.engine.points``), chunks run per (kind,
+        bucket) (``serving.engine.runs``: on the card one replay each, its
+        first touch's warm-up and capture besides) and the padded fraction
         of each bucket (``serving.engine.pad_waste``).  Defaults to the
         process-wide registry.
       compute_dtype: ``None``, or ``"bfloat16"``/``torch.bfloat16``: the
@@ -279,6 +300,10 @@ class InferenceEngine:
         self._priced: set = set()  # kinds whose cost gauges are set
         self._quarantined: set = set()  # (kind, bucket) that failed then
         self._aot: dict = {}  # (kind, bucket) -> installed program
+        # (kind, bucket) -> the factory of a program the rung captures in
+        # place of the kind's own (install_program)
+        self._programs: dict = {}
+        self._released = False
         self._metrics = registry if registry is not None \
             else default_registry()
         # how a rung's graph is made: None runs the programs eagerly (the
@@ -288,7 +313,8 @@ class InferenceEngine:
         self._pool: list = []
         if surrogate.device.type == "cuda":
             pool = self._pool
-            pool.append(SharedPool(surrogate.device))
+            with device_lock:
+                pool.append(SharedPool(surrogate.device))
             self._make_graph = lambda stream: CudaGraph(stream, pool[0].id)
 
     # ------------------------------------------------------------------ #
@@ -481,6 +507,33 @@ class InferenceEngine:
         a first-use failure dropped it.)"""
         return (self.kind_key(spec), int(bucket)) in self._aot
 
+    def install_program(self, spec: str, bucket: int, make: Callable) -> None:
+        """Install ``make`` (``make() -> (params, X) -> out``) as one
+        (kind, bucket) rung's program in place of the kind's own: the rung
+        warms it up, captures it and replays it like its own.  A program
+        that fails its first touch quarantines the rung, as the kind's own
+        would.  Installed before the rung's first touch; a rung already
+        built keeps the program it has."""
+        bucket = int(bucket)
+        if bucket not in self._buckets:
+            raise ValueError(f"bucket {bucket} is not on this engine's "
+                             f"ladder {self._buckets}")
+        self._programs[(self.kind_key(spec), bucket)] = make
+
+    def has_program(self, spec: str, bucket: int) -> bool:
+        """Does this rung run an installed program (:meth:`install_program`)
+        in place of its kind's own?"""
+        return (self.kind_key(spec), int(bucket)) in self._programs
+
+    def release(self) -> None:
+        """Drop every rung's graph and the graph pool now, under
+        :data:`device_lock` (an engine a fleet evicts or swaps out).  The
+        engine serves nothing afterwards."""
+        with device_lock:
+            self._released = True
+            self._rungs.clear()
+            self._pool.clear()
+
     # ------------------------------------------------------------------ #
     def _rung_for(self, kind, bucket: int, make_fn: Callable) -> _Rung:
         rung = self._rungs.get((kind, bucket))
@@ -524,11 +577,16 @@ class InferenceEngine:
         failure on a proven rung is a runtime fault and propagates (the
         batcher's retry and breaker own those)."""
         tr = active_tracer()  # ONE probe on the untraced path
-        if tr is None:
-            return self._run_inner(kind, make_fn, X, None)
-        with tr.span("serving.engine.run", kind=_label(kind),
-                     n=int(X.shape[0])):
-            return self._run_inner(kind, make_fn, X, tr)
+        with device_lock:
+            if self._released:
+                raise RuntimeError("this engine was released (its tenant "
+                                   "was evicted or swapped out); it serves "
+                                   "nothing")
+            if tr is None:
+                return self._run_inner(kind, make_fn, X, None)
+            with tr.span("serving.engine.run", kind=_label(kind),
+                         n=int(X.shape[0])):
+                return self._run_inner(kind, make_fn, X, tr)
 
     def _run_inner(self, kind, make_fn: Callable, X: np.ndarray, tr):
         n = X.shape[0]
@@ -549,6 +607,8 @@ class InferenceEngine:
                       verbose=False, kind_label=klabel, bucket=bucket,
                       aot=used_aot, programs=len(self._cache_keys))
         self._metrics.counter("serving.engine.points").inc(int(n))
+        self._metrics.counter("serving.engine.runs", kind=_label(kind),
+                              bucket=bucket).inc()
         self._metrics.histogram("serving.engine.pad_waste").observe(
             (bucket - n) / bucket)
         return out
@@ -650,8 +710,9 @@ class InferenceEngine:
                                 "serving.engine.compiles",
                                 kind=klabel, bucket=bucket).inc()
                 else:
-                    out = self._rung_for(kind, bucket, make_fn).run(X,
-                                                                    spans)
+                    out = self._rung_for(
+                        kind, bucket, self._programs.get(key, make_fn)).run(
+                            X, spans)
             except Exception as e:
                 if spans is not None:
                     spans.close(e)
@@ -709,12 +770,13 @@ class InferenceEngine:
     def residual(self, X):
         """PDE residual ``f(X) -> [N]`` (tuple of ``[N]`` for systems)
         through the generic per-point engine.  With installed residual
-        programs the query also works with no ``f_model`` attached: rungs
-        they cover serve, and a rung without one fails its first touch and
-        is quarantined."""
+        programs (:meth:`install_aot`, :meth:`install_program`) the query
+        also works with no ``f_model`` attached: rungs they cover serve,
+        and a rung without one fails its first touch and is
+        quarantined."""
         if self.surrogate.point_residual is not None:
             return self._query("residual", self._make_fn("residual"), X)
-        if any(k == "residual" for (k, _b) in self._aot):
+        if any(k == "residual" for (k, _b) in (*self._aot, *self._programs)):
             def make_unavailable():
                 def batched(params, Xb):
                     raise ValueError(

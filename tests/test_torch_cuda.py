@@ -116,6 +116,14 @@ installed::
   flight recorder on; a supervised fit with chaos off is bit for bit a
   plain one through the graphs; a rollback restores into the live buffers
   and keeps the captured step.
+* the serving fleet (``chip_smoke.py`` phase 21, at small size): a
+  surrogate loaded with no f_model serves its residual from the
+  artifact's lowered tape, each rung a captured graph that launches K1
+  once per replay, equal to its program run eagerly bit for bit and
+  within the cross-check band of the generic program; two hot swaps while
+  another thread queries drop no waiter and answer with one of the two
+  artifacts' own bits; a tenant cycled through eviction and reload three
+  times captures again each time and keeps its quarantined rung.
 """
 
 import contextlib
@@ -2381,3 +2389,152 @@ def test_family_checkpoint_resumes_bit_for_bit_on_card(card, tmp_path):
         f.fit(tf_iter=10, chunk=10)
     assert _bits(a.params) == _bits(b.params)
     assert b._step.graph.captures == 1
+
+
+# --------------------------------------------------------------------------- #
+# the serving fleet: the tape rung, swaps beside live traffic, evict-reload
+# --------------------------------------------------------------------------- #
+def _fleet_artifacts(served, tmp_path):
+    """Two fleet artifacts of the served solver's problem: its weights, and
+    the same net 5 steps further."""
+    from tensordiffeq_tpu_torch import fleet
+    arts = {}
+    for name in ("a", "b"):
+        if name == "b":
+            served.fit(tf_iter=5)
+        arts[name] = str(tmp_path / name)
+        fleet.export_fleet_artifact(served.export_surrogate(), arts[name],
+                                    min_bucket=64, max_bucket=1024)
+    return arts
+
+
+def _fleet_policy():
+    from tensordiffeq_tpu_torch.fleet import TenantPolicy
+    return TenantPolicy(min_bucket=64, max_bucket=1024, max_batch=1024,
+                        max_latency_s=0.005)
+
+
+def test_fleet_tape_rung_is_captured_launches_k1_per_replay_equals_eager(
+        served, tmp_path):
+    """A surrogate loaded with no f_model serves its residual from the
+    artifact's lowered tape: each residual rung is a captured graph that
+    launches K1 (f32) once per replay and nothing else, equals its program
+    run eagerly at the padded shape bit for bit, and sits within the
+    cross-check band of the generic program (f_model attached)."""
+    from tensordiffeq_tpu_torch import fleet
+    from tensordiffeq_tpu_torch.ops.fused import crosscheck_residuals
+    from tensordiffeq_tpu_torch.serving import Surrogate
+    from tensordiffeq_tpu_torch.utils import ieee_f32
+    art = str(tmp_path / "tape")
+    fleet.export_fleet_artifact(served.export_surrogate(), art,
+                                min_bucket=64, max_bucket=1024)
+    eng = Surrogate.load(art).engine(min_bucket=64, max_bucket=1024)
+    warm = fleet.warm_start(eng)
+    assert warm["aot"] == 5 and warm["jit"] == 5 and not warm["failed"]
+    gen = Surrogate.load(art, f_model=served.f_model).engine(
+        min_bucket=64, max_bucket=1024)
+    for n in (1, 64, 100, 700, 1024):
+        X = _serve_points(n, seed=n)
+        b = eng.bucket_for(n)
+        cuda_taylor.reset_launch_counts()
+        got = eng.residual(X)
+        counts = {fn.__name__: fn.launches for fn in cuda_taylor.COUNTED}
+        assert counts == dict({k: 0 for k in counts}, k1_forward=1), n
+        Xp = torch.zeros(b, 2, device=card_device())
+        Xp[:n] = torch.from_numpy(X)
+        with ieee_f32(), torch.no_grad():
+            want = eng._programs[("residual", b)]()(eng.surrogate.params, Xp)
+        assert np.array_equal(got, want[:n].cpu().numpy()), n
+        ok, why = crosscheck_residuals(gen.residual(X), got)
+        assert ok, (n, why)
+    assert all(r.graph.captures == 1 and r.graph.graph is not None
+               for r in eng._rungs.values())
+    assert len(eng._rungs) == 10
+
+
+def card_device():
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def test_fleet_hot_swap_beside_a_querying_thread_on_card(served, tmp_path):
+    """Two hot swaps while another thread queries the same tenant: the
+    candidates capture beside the live engine (the engines' device lock
+    serialises captures and replays), no query fails, no waiter is left,
+    every answer is one of the two artifacts' own bit for bit, and the
+    swapped-out engines dropped their graphs."""
+    import threading
+    from tensordiffeq_tpu_torch import fleet
+    from tensordiffeq_tpu_torch.serving import Surrogate
+    arts = _fleet_artifacts(served, tmp_path)
+    f = served.f_model
+    router = fleet.FleetRouter(max_loaded=2)
+    router.register("t", arts["a"], f_model=f, policy=_fleet_policy())
+    router.load("t")
+    X = _serve_points(500, seed=1)
+    want = set()
+    for a in arts.values():
+        eng = Surrogate.load(a, f_model=f).engine(min_bucket=64,
+                                                  max_bucket=1024)
+        want |= {np.asarray(eng.u(X)).tobytes(),
+                 np.asarray(eng.residual(X)).tobytes()}
+    stop, errs, seen = threading.Event(), [], []
+
+    def hammer():
+        i = 0
+        try:
+            while not stop.is_set():
+                kind = ("u", "residual")[i % 2]
+                seen.append(np.asarray(router.query("t", X,
+                                                    kind=kind)).tobytes())
+                i += 1
+        except Exception as e:  # surfaced below
+            errs.append(e)
+
+    th = threading.Thread(target=hammer, daemon=True)
+    th.start()
+    olds = []
+    try:
+        for a in (arts["b"], arts["a"]):
+            olds.append(router._loaded["t"])
+            v = router.hot_swap("t", a, f_model=f,
+                                probe_X=_serve_points(64, seed=2),
+                                gate=float("inf"))
+            assert v["swapped"], v
+    finally:
+        stop.set()
+        th.join(timeout=120.0)
+    assert not th.is_alive() and not errs, errs
+    assert seen and set(seen) <= want
+    assert router.pending_points() == 0
+    assert all(o.engine._released and not o.engine._rungs for o in olds)
+
+
+def test_fleet_evict_reload_captures_again_three_times(served, tmp_path):
+    """A tenant cycled through eviction and reload three times on the card:
+    each reload captures every live rung again in a pool of its own, the
+    quarantined rung stays quarantined, the evicted engine dropped its
+    graphs, and the answers stay bit for bit."""
+    from tensordiffeq_tpu_torch import fleet
+    from tensordiffeq_tpu_torch.resilience import Chaos
+    arts = _fleet_artifacts(served, tmp_path)
+    router = fleet.FleetRouter(max_loaded=1)
+    for t in ("a", "b"):
+        router.register(t, arts[t], f_model=served.f_model,
+                        policy=_fleet_policy())
+    with Chaos(compile_fail_buckets=(128,)):
+        lt = router.load("a")
+    dead = {"u": [128], "residual": [128]}
+    assert lt.engine.quarantined_buckets() == dead
+    X = _serve_points(100, seed=5)  # routes past the dead 128 rung
+    first = (router.query("a", X), router.query("a", X, kind="residual"))
+    for _ in range(3):
+        old = lt
+        router.load("b")  # evicts "a"
+        assert old.engine._released and not old.engine._rungs
+        lt = router.load("a")
+        assert lt is not old and lt.engine.quarantined_buckets() == dead
+        assert len(lt.engine._rungs) == 8 and all(
+            r.graph.captures == 1 and r.graph.graph is not None
+            for r in lt.engine._rungs.values())
+        again = (router.query("a", X), router.query("a", X, kind="residual"))
+        assert all(np.array_equal(x, y) for x, y in zip(first, again))

@@ -33,7 +33,6 @@ import tensordiffeq_tpu_torch as tdqt
 from tensordiffeq_tpu.factory import member_slice as jax_member_slice
 from tensordiffeq_tpu_torch.factory import (SurrogateFactory, member_slice,
                                             stack_members)
-from tensordiffeq_tpu_torch.utils import NotPortedError
 from tensordiffeq_tpu_torch.weights import params_from_jax
 
 from test_torch_chunk import StandInGraph
@@ -496,6 +495,57 @@ def test_validation_errors():
                              thetas=[0.1], verbose=False)
 
 
-def test_export_family_raises_not_ported(family_fit, tmp_path):
-    with pytest.raises(NotPortedError, match="ROADMAP"):
-        family_fit.export_family(str(tmp_path / "fam"))
+def test_export_family_roundtrips_through_register_family(family_fit,
+                                                          tmp_path):
+    """export_family writes each live member as a v2 fleet artifact and a
+    manifest with the JAX package's keys; a frozen member is skipped and
+    recorded; ``FleetRouter.register_family`` loads the batch keyed by
+    the original member index, and each member serves its own ``u`` bit
+    for bit a direct engine over its artifact, and its residual from the
+    lowered tape with no f_model attached."""
+    from tensordiffeq_tpu_torch.factory import FAMILY_MANIFEST
+    from tensordiffeq_tpu_torch.fleet import FleetRouter, TenantPolicy
+
+    reg = tdqt.telemetry.MetricsRegistry()
+    path = str(tmp_path / "fam")
+    manifest = family_fit.export_family(path, min_bucket=64, max_bucket=128,
+                                        registry=reg)
+    assert set(manifest) == {"format", "n_members", "members", "frozen",
+                             "thetas", "layer_sizes", "varnames"}
+    assert manifest["members"] == {"0": "member_000", "1": "member_001"}
+    assert manifest["frozen"] == {} and manifest["n_members"] == 2
+    assert manifest["layer_sizes"] == LAYERS
+    assert manifest["varnames"] == ["x", "t"]
+    assert reg.as_dict()["counters"]["factory.exports"] == 2
+    import json
+    import os
+    with open(os.path.join(path, FAMILY_MANIFEST)) as fh:
+        assert json.load(fh) == manifest
+
+    router = FleetRouter(max_loaded=2, device="cpu")
+    pol = TenantPolicy(min_bucket=64, max_bucket=128, max_batch=256,
+                       max_latency_s=0.005)
+    names = router.register_family(path, policy=pol, prefix="m")
+    assert names == {0: "m000", 1: "m001"}
+    X = np.random.RandomState(2).uniform(-1, 1, (40, 2)).astype(np.float32)
+    for m, t in names.items():
+        lt = router.load(t)
+        assert lt.warm["aot"] == 2  # the residual rungs run the tape
+        u = router.query(t, X)
+        want = family_fit.member_surrogate(m).engine(
+            min_bucket=64, max_bucket=128).u(X)
+        assert np.array_equal(u, want)
+        f = router.query(t, X, kind="residual")
+        generic = family_fit.member_surrogate(m).engine(
+            min_bucket=64, max_bucket=128).residual(X)
+        ok, why = tdqt.ops.fused.crosscheck_residuals(generic, f)
+        assert ok, why
+
+    # a frozen member is skipped and recorded with its epoch
+    fac = make_factory([0.001, 0.01, 0.02])
+    poison(fac, 1)
+    fac.fit(tf_iter=4, chunk=2)
+    manifest = fac.export_family(str(tmp_path / "fam2"), min_bucket=64,
+                                 max_bucket=64, kinds=("u",))
+    assert sorted(manifest["members"]) == ["0", "2"]
+    assert manifest["frozen"] == {"1": fac.frozen_at[1]}

@@ -59,6 +59,14 @@ def test_port_has_modules():
                  "tensordiffeq_tpu_torch/ops/ntk.py",
                  "tensordiffeq_tpu_torch/native/__init__.py",
                  "tensordiffeq_tpu_torch/factory/family.py",
+                 "tensordiffeq_tpu_torch/fleet/router.py",
+                 "tensordiffeq_tpu_torch/fleet/admission.py",
+                 "tensordiffeq_tpu_torch/fleet/warmstart.py",
+                 "tensordiffeq_tpu_torch/fleet/replica.py",
+                 "tensordiffeq_tpu_torch/fleet/closedloop.py",
+                 "examples_torch/ac_factory.py",
+                 "examples_torch/ac_fleet.py",
+                 "examples_torch/ac_closedloop.py",
                  "examples_torch/_common.py",
                  "examples_torch/ac_dist.py",
                  "chip_smoke.py"):
