@@ -354,11 +354,30 @@ Phases (each failure is fatal; exit code != 0, no result line):
    incident and the respawn wall (two processes on one card: not a
    scaling figure).  Every process under FLEET_TIMEOUT_S.
    ``--fleet-only`` runs the build and this phase.
-22. a ``{"kernels": [...]}`` line (K1, K2, K3, their bf16 and their TF32
+22. static analysis on the port (``tensordiffeq_tpu_torch.analysis``).
+   (a) The AST rules over the checkout, in this process: zero findings.
+   (b) Each captured step at full width, captured once more as a
+   debug-mode twin (``dispatch_audit.audit_graph``: ``CUDAGraph(keep_graph=
+   True)``, ``enable_debug_mode``, ``debug_dump``) and read: AC-SA full's
+   minimax Adam step (K3), its unfused step (K1 + K2) and its L-BFGS
+   evaluation (K3); the serving rungs ``u`` and ``residual`` at 4,096 and
+   the fleet's tape rung (K1, the residual from the lowered tape of a
+   surrogate with no f_model); the closed loop's 4-member family,
+   2-64-64-1 at N_f = 2,048 (K3 four times).  One line per graph: its
+   nodes, the port's kernel nodes by name, memcpy nodes by direction, host
+   nodes.  Gates: no host-to-device or device-to-host memcpy node and no
+   host node in any graph; each wrapper's kernel nodes equal the launches
+   per replay the capture recorded, and those are the step's; a 50-step
+   chunk of each Adam step synchronises once (its history read) and 10
+   line-search iterations as often as ``lbfgs_minimize.host_syncs`` says
+   (``torch.cuda.set_sync_debug_mode``); a device-to-host copy into pinned
+   memory planted in a captured toy step is flagged; the phase within
+   AUDIT_WALL_S.  ``--audit-only`` runs the build and this phase.
+23. a ``{"kernels": [...]}`` line (K1, K2, K3, their bf16 and their TF32
    flavors, each held to its plain version; K1's with the route it took and
    its wide route's measurements as ``wide_route``; the TF32 flavors with
    their distances and the 3xTF32 flavor's ms; ``launches_by_path`` has
-   every path's launches, phases 17-21's included), the card line again,
+   every path's launches, phases 17-22's included), the card line again,
    and the result line.
 
 Phases 6-9 and 11-14 train through CUDA graphs (``training/graphs.py``): each Adam
@@ -6362,6 +6381,152 @@ def phase_fleet(card: str) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+# phase 22, the audit: the serving rungs' bucket, the counted chunk's steps,
+# the line-search iterations whose syncs are counted, and the phase's budget
+AUDIT_BUCKET = 4_096
+AUDIT_CHUNK = 50
+AUDIT_LBFGS = 10
+AUDIT_WALL_S = 30.0
+# each audited graph's kernel launches per replay: the wrappers the step
+# must launch, by counter key
+AUDIT_EXPECT = {"minimax": {"k3": 1}, "unfused": {"k1": 1, "k2": 1},
+                "lbfgs-evaluator": {"k3": 1}, "serve-u": {},
+                "serve-residual": {}, "tape-residual": {"k1": 1},
+                "family": {"k3": CL_M}}
+
+
+def _audit_gate(tag: str, rep, expect: dict):
+    """A graph's gates: no memcpy node across the host boundary, no host
+    node, the launches per replay the step must make, the twin's launches
+    those of the graph that replays, and each f32 wrapper's kernel nodes
+    equal to its launches."""
+    print(f"[audit graph {tag}] {rep.line()}", flush=True)
+    if any(d != "DtoD" for d in rep.memcpy) or rep.host:
+        fail(f"audit {tag}: memcpy {rep.memcpy}, host nodes {rep.host}")
+    if rep.launches != expect or rep.captured != rep.launches:
+        fail(f"audit {tag}: launches per replay {rep.launches} (the "
+             f"twin's {rep.captured}), expected {expect}")
+    nodes = {k: rep.kernel_nodes(k) for k in ("k1", "k2", "k3")}
+    if any(nodes[k] != rep.launches.get(k, 0) for k in nodes):
+        fail(f"audit {tag}: kernel nodes {nodes} against launches "
+             f"{rep.launches}")
+
+
+def phase_audit(card: str) -> dict:
+    """Phase 22: static analysis on the port (module docstring)."""
+    import torch
+    from tensordiffeq_tpu_torch.analysis import run_analysis
+    from tensordiffeq_tpu_torch.analysis import dispatch_audit as da
+    from tensordiffeq_tpu_torch.factory import SurrogateFactory
+    from tensordiffeq_tpu_torch.fleet.warmstart import _lower, _tape_program
+    from tensordiffeq_tpu_torch.serving import Surrogate
+    from tensordiffeq_tpu_torch.training import graphs
+    from tensordiffeq_tpu_torch.training import lbfgs as lb
+
+    t0 = time.perf_counter()
+    # (a) the AST pass over the checkout, in this process
+    findings, modules = run_analysis()
+    allows = sum(len(m.suppressions) for m in modules)
+    print(f"[audit lint] {len(modules)} files, {len(findings)} findings, "
+          f"{allows} reasoned allows ({time.perf_counter() - t0:.2f} s)",
+          flush=True)
+    if findings:
+        fail("tdqlint-torch findings:\n" + "\n".join(
+            f.format() for f in findings))
+
+    # (b) the steps at full width, each captured, then its debug twin read
+    saved = _counts_all()
+    _set_counts({k: 0 for k in saved})
+    mm = _fresh_solver(minimax=None)
+    un = _fresh_solver(minimax=False)
+    for s in (mm, un):
+        s.fit(tf_iter=AUDIT_CHUNK, chunk=AUDIT_CHUNK)
+    syncs = {"minimax": da.chunk_syncs(mm._adam, AUDIT_CHUNK),
+             "unfused": da.chunk_syncs(un._adam, AUDIT_CHUNK)}
+    n_ls, declared = da.lbfgs_syncs(mm, AUDIT_LBFGS)
+    print(f"[audit syncs] a {AUDIT_CHUNK}-step chunk: minimax "
+          f"{syncs['minimax']}, unfused {syncs['unfused']} (declared 1: "
+          f"the history read); {AUDIT_LBFGS} line-search iterations: "
+          f"{n_ls} (declared {declared}: lbfgs_minimize.host_syncs)",
+          flush=True)
+    if syncs != {"minimax": 1, "unfused": 1} or n_ls != declared:
+        fail(f"audit: undeclared syncs {syncs}, L-BFGS {n_ls} vs {declared}")
+
+    reports = {}
+
+    def audit(tag, graph):
+        reports[tag] = rep = da.audit_graph(graph)
+        _audit_gate(tag, rep, AUDIT_EXPECT[tag])
+
+    audit("minimax", mm._adam.graph)
+    audit("unfused", un._adam.graph)
+    params = mm.net.params()
+    fun = lb.lbfgs_objective(mm.loss_fn, mm.lambdas, mm.X_f,
+                             lb.layer_shapes(params))
+    x = lb.flatten_layers(params)
+    with lb.matmul_precision(mm.precision):
+        ev = lb._Evaluator(fun, x)
+        ev.aim(x)
+        for _ in range(graphs.WARMUP_RUNS + 1):
+            ev()
+        audit("lbfgs-evaluator", ev.graph)
+
+    rng = np.random.RandomState(22)
+    X = (rng.rand(AUDIT_BUCKET, 2) * [2.0, 1.0] - [1.0, 0.0]).astype(
+        np.float32)
+    sur = mm.export_surrogate()
+    eng = sur.engine(min_bucket=AUDIT_BUCKET, max_bucket=AUDIT_BUCKET)
+    for kind in ("u", "residual"):
+        eng.op_for(kind)(X)
+        audit(f"serve-{kind}",
+              eng._rungs[(eng.kind_key(kind), AUDIT_BUCKET)].graph)
+    bare = Surrogate(sur.net, sur.params, sur.varnames, sur.n_out)
+    tape = bare.engine(min_bucket=AUDIT_BUCKET, max_bucket=AUDIT_BUCKET)
+    tape.install_program("residual", AUDIT_BUCKET,
+                         _tape_program(bare, _lower(sur)))
+    tape.residual(X)
+    audit("tape-residual",
+          tape._rungs[(tape.kind_key("residual"), AUDIT_BUCKET)].graph)
+
+    domain, bcs = _cl_problem()
+    fac = SurrogateFactory(CL_WIDTHS, _fac_f_model, domain, bcs,
+                           [0.0009 + 0.0002 * m for m in range(CL_M)],
+                           fused="cuda", verbose=False)
+    fac.fit(tf_iter=5, chunk=5)
+    audit("family", fac._step.graph)
+    torch.cuda.synchronize()
+    launches = _counts_all()
+    _set_counts({k: saved[k] + launches[k] for k in saved})
+    if not (launches["k1"] and launches["k2"] and launches["k3"]):
+        fail(f"audit: the phase's steps launched {launches}")
+
+    # the negative control: a D2H copy into pinned memory, planted in a
+    # captured toy step, must be flagged
+    dev = torch.device("cuda", 0)
+    a = torch.ones(1024, device=dev)
+    b = torch.empty_like(a)
+    pinned = torch.empty(1024, pin_memory=True)
+
+    def planted():
+        b.copy_(a * 2.0)
+        pinned.copy_(b, non_blocking=True)
+
+    toy = graphs.StepGraph(planted, lambda: [a, b, pinned], dev,
+                           "planted toy step")
+    toy.prime()
+    rep = da.audit_graph(toy)
+    print(f"[audit planted] {rep.line()}: "
+          f"{'flagged' if not rep.ok else 'NOT FLAGGED'}", flush=True)
+    if rep.ok or rep.memcpy.get("DtoH") != 1:
+        fail("audit: the planted device-to-host copy was not flagged")
+    wall = time.perf_counter() - t0
+    print(f"[audit] {len(reports)} graphs, nodes "
+          f"{ {t: r.nodes for t, r in reports.items()} }, phase wall "
+          f"{wall:.1f} s ({card})", flush=True)
+    if wall > AUDIT_WALL_S:
+        fail(f"audit: phase wall {wall:.1f} s over {AUDIT_WALL_S} s")
+    return {"audit": {"launches": launches}}
+
 
 def kernels_line(meas: dict, paths: dict) -> str:
     """``launches`` sums a kernel's launches over the runs of every path
@@ -6375,8 +6540,9 @@ def kernels_line(meas: dict, paths: dict) -> str:
     resilience-resume, resilience-serve and resilience-cluster, the last
     the relaunched worker's, phase 19's factory-1, factory, factory-pool
     and factory-ascent, phase 20's examples, and phase 21's
-    fleet-residual, the fleet's traffic in its serving process, and
-    closedloop, the closed loop's retrain)."""
+    fleet-residual, the fleet's traffic in its serving process,
+    closedloop, the closed loop's retrain, and phase 22's audit, its
+    steps at full width)."""
     entries = []
     for key, name, source, replaces in (
             ("k1", "taylor_table_fwd (K1)", "csrc/taylor_fwd_wg.cuh",
@@ -6460,6 +6626,9 @@ def main():
     ap.add_argument("--fleet-only", action="store_true",
                     help="build the kernels and run phase 21 (the serving "
                     "fleet) alone; prints no result line")
+    ap.add_argument("--audit-only", action="store_true",
+                    help="build the kernels and run phase 22 (the audit) "
+                    "alone; prints no result line")
     ap.add_argument("--fleet-child", nargs=2, metavar=("WORK", "OUT"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--dist-worker", nargs=4,
@@ -6528,6 +6697,10 @@ def main():
         phase_fleet(card)
         print(card, flush=True)
         return
+    if args.audit_only:
+        phase_audit(card)
+        print(card, flush=True)
+        return
     meas = phase_kernels(dev)
     meas["k3"] = phase_k3(dev)
     phase_yardstick(dev)
@@ -6561,6 +6734,7 @@ def main():
     paths.update(phase_factory(card))
     paths.update(phase_examples(card))
     paths.update(phase_fleet(card))
+    paths.update(phase_audit(card))
     if args.profile:
         phase_ab(paths)
         # in turns, so a slower stretch of the host does not land on one

@@ -49,7 +49,6 @@ import itertools
 import json
 import os
 import shutil
-import sys
 import time
 import zipfile
 from typing import Any, Optional
@@ -116,10 +115,14 @@ class TemplateMismatch(ValueError):
     configuration error (other layer sizes, another λ setup), not
     corruption.  Never absorbed by the previous-generation fallback."""
 
+    trace_id = None
+
 
 class CheckpointCorrupted(RuntimeError):
     """No checkpoint generation under this path survived validation.
     ``failures`` maps each candidate directory to why it was rejected."""
+
+    trace_id = None
 
     def __init__(self, path: str, failures: dict):
         self.path = path
@@ -542,9 +545,10 @@ def restore_checkpoint(path: str, template: dict) -> tuple[dict, dict]:
             failures[cand] = f"{type(e).__name__}: {e}"
         else:
             if i > 0 or failures:
-                print(f"[checkpoint] restored the previous generation "
-                      f"{cand} (newer one rejected: "
-                      f"{'; '.join(failures.values()) or 'missing'})",
-                      file=sys.stderr, flush=True)
+                log_event("checkpoint",
+                          f"restored the previous generation {cand} "
+                          f"(newer one rejected: "
+                          f"{'; '.join(failures.values()) or 'missing'})",
+                          level="warning", restored=cand, failures=failures)
             return state, meta
     raise CheckpointCorrupted(path, failures)

@@ -671,11 +671,18 @@ class SurrogateFactory:
                          epochs_at_entry):
         from ..ops.minimax import n_channels
         from ..telemetry.costmodel import (analytic_minimax_flops,
-                                           analytic_step_floor)
+                                           analytic_step_bytes,
+                                           analytic_step_floor,
+                                           per_point_lambda_columns)
         M, tpl = self.n_members, self._template
         # one family step on this process: its members
         k = len(self._members)
         tele.cost_floor = k * analytic_step_floor(N, self.layer_sizes)
+        tele.cost_bytes = k * analytic_step_bytes(
+            self.layer_sizes, N,
+            n_lambdas=per_point_lambda_columns(tpl.lambdas["residual"], N),
+            n_outputs=(tpl._minimax_n_eq if self.engine == "fused-minimax"
+                       else self.layer_sizes[-1]))
         if self.engine == "fused-minimax":
             tele.cost_fallback = (
                 k * analytic_minimax_flops(

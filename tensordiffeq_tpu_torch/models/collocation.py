@@ -91,6 +91,7 @@ from ..domains import DomainND
 from ..networks import (MLP, ModuleNet, as_network, init_generator,
                         net_buffers, net_from_metadata, net_metadata)
 from ..ops.derivatives import make_ufn, vmap_residual
+from ..telemetry import log_event
 from ..training.fit import (AdamStep, FitResult, fit_adam, make_optimizer,
                             relink_schedules, set_rates)
 from ..training.lbfgs import fit_lbfgs
@@ -103,11 +104,15 @@ class NotCompiledError(RuntimeError):
     """A method that needs the compiled training graph ran before
     ``compile(...)``."""
 
+    trace_id = None
+
 
 class AutotuneFailure(RuntimeError):
     """``fused="autotune"`` had no surviving residual-engine candidate:
     every engine failed to run.  ``failures`` maps each candidate's name to
     its exception."""
+
+    trace_id = None
 
     def __init__(self, failures: dict):
         self.failures = dict(failures)
@@ -587,10 +592,9 @@ class CollocationSolverND:
             if self.minimax is True:
                 raise ValueError("minimax=True but the fused minimax engine "
                                  "cannot be adopted") from reason
-            if self.verbose:
-                print(f"[fuse] minimax engine not adopted ("
+            log_event("fuse", f"minimax engine not adopted ("
                       f"{type(reason).__name__}: {reason}); keeping the "
-                      "unfused loss", flush=True)
+                      "unfused loss", verbose=self.verbose)
 
         if self._causal_kw:
             return decline(ValueError(
@@ -636,10 +640,11 @@ class CollocationSolverND:
                     f"autotune: minimax step measured slower than the "
                     f"selected residual engine ({t_mm * 1e3:.3f} ms vs "
                     f"{t_un * 1e3:.3f} ms)"))
-            if self.verbose:
-                print(f"[autotune] minimax loss step: {t_mm * 1e3:.3f} ms "
+            log_event("autotune", f"minimax loss step: {t_mm * 1e3:.3f} ms "
                       f"vs unfused {t_un * 1e3:.3f} ms; adopting",
-                      flush=True)
+                      verbose=self.verbose,
+                      timings_ms={"minimax": t_mm * 1e3,
+                                  "unfused": t_un * 1e3})
         self._minimax_loss = mm
         # the kernel follows the device, as the JAX solver takes Pallas
         # whenever a TPU is present
@@ -656,10 +661,9 @@ class CollocationSolverND:
                 precision=self.precision)
             self._minimax_loss_refine = mmx.make_minimax_residual_loss(
                 sq32, weight_outside_sum=self.weight_outside_sum, g=self.g)
-        if self.verbose:
-            print(f"[fuse] minimax engine adopted ({self._minimax_kind}: "
+        log_event("fuse", f"minimax engine adopted ({self._minimax_kind}: "
                   "residual + SA-λ loss + cotangents in one step)",
-                  flush=True)
+                  verbose=self.verbose, engine=self._minimax_kind)
 
     def _minimax_score_grad_fn(self):
         """``score_grad(layers, X) -> (scores [N], gX [N, d])`` for the
@@ -815,9 +819,9 @@ class CollocationSolverND:
                 candidates["cuda"] = res
             else:
                 report["excluded"]["cuda"] = reason
-                if self.verbose:
-                    print(f"[autotune] cuda excluded ({type(reason).__name__}"
-                          f": {reason})", flush=True)
+                log_event("autotune", f"cuda excluded ("
+                          f"{type(reason).__name__}: {reason})",
+                          verbose=self.verbose)
         for name, res in candidates.items():
             try:
                 report["timings_ms"][name] = 1e3 * self._time_loss_step(
@@ -835,11 +839,11 @@ class CollocationSolverND:
             raise AutotuneFailure(report["failures"])
         best = min(timings, key=timings.get)
         report["choice"] = best
-        if self.verbose:
-            shown = ", ".join(f"{k}={v:.3f}ms" for k, v in timings.items())
-            for k, e in report["failures"].items():
-                shown += f", {k}=FAILED({type(e).__name__})"
-            print(f"[autotune] residual engine: {best} ({shown})", flush=True)
+        shown = ", ".join(f"{k}={v:.3f}ms" for k, v in timings.items())
+        for k, e in report["failures"].items():
+            shown += f", {k}=FAILED({type(e).__name__})"
+        log_event("autotune", f"residual engine: {best} ({shown})",
+                  verbose=self.verbose, engine=best, timings_ms=timings)
         self._fused_kind = kinds[best]
         return candidates[best]
 
@@ -891,16 +895,16 @@ class CollocationSolverND:
                 self._fuse_fail_reason = reason
                 self._fused_residual = None
                 self._fused_kind = None
-                if self.verbose:
-                    print(f"[fuse] cross-check failed ({type(reason).__name__}"
-                          f": {reason}); using the generic autodiff engine",
-                          flush=True)
+                log_event("fuse", f"cross-check failed ("
+                          f"{type(reason).__name__}: {reason}); using the "
+                          "generic autodiff engine", verbose=self.verbose)
         if self.fused == "autotune":
             if self._fused_residual is not None:
                 self._fused_residual = self._autotune_engine()
-            elif self.verbose:
-                print("[autotune] fused engine excluded; only the generic "
-                      "engine was considered", flush=True)
+            else:
+                log_event("autotune", "fused engine excluded; only the "
+                          "generic engine was considered",
+                          verbose=self.verbose)
         if self.fused_dtype is not None and self._fused_residual is None:
             warnings.warn(
                 "fused_dtype was requested but no fused engine is active "
@@ -1192,6 +1196,7 @@ class CollocationSolverND:
         if self.verbose:
             from ..output import print_screen
             print_screen(self)
+            # tdq: allow[no-bare-print] the verbose run's banner beside print_screen's, with no JAX log_event counterpart
             print(f"[fit] engine={self.engine} device={self.device} "
                   f"N_f={int(self.X_f.shape[0])} tf_iter={tf_iter} "
                   f"newton_iter={newton_iter}", flush=True)
@@ -1264,10 +1269,10 @@ class CollocationSolverND:
             wall = 0.0
             for si, eps in enumerate(stages):
                 if eps is not None and eps != self.causal_eps:
-                    if self.verbose:
-                        why = "ladder restart" if si == 0 else "gate open"
-                        print(f"[causal] {why}: eps -> {eps:g} ({remaining} "
-                              "Adam epochs left)", flush=True)
+                    why = "ladder restart" if si == 0 else "gate open"
+                    log_event("causal", f"{why}: eps -> {eps:g} ({remaining} "
+                              "Adam epochs left)", verbose=self.verbose,
+                              eps=eps, remaining=remaining)
                     self._set_causal_eps(eps)
                 stop_fn = None
                 if si < len(stages) - 1:
@@ -1415,16 +1420,24 @@ class CollocationSolverND:
                          resample_every, epochs_at_entry):
         """Prime a fit's telemetry: the analytic price of one Adam step
         (the floor over the step's batch; on the minimax step its
-        channel-exact count, basis ``"analytic-minimax"``) and the
-        ``run_config`` event."""
+        channel-exact count, basis ``"analytic-minimax"``), its analytic
+        bytes, and the ``run_config`` event."""
         from ..ops.minimax import n_channels
         from ..telemetry.costmodel import (analytic_minimax_flops,
-                                           analytic_step_floor)
+                                           analytic_step_bytes,
+                                           analytic_step_floor,
+                                           per_point_lambda_columns)
         n_f = self._n_f_global()
         w = 1 if self.mesh is None else self.mesh.size
         # one rank's step: its share of the rows
         points = (n_f if batch_sz is None else min(int(batch_sz), n_f)) // w
         tele.cost_floor = analytic_step_floor(points, self.layer_sizes)
+        tele.cost_bytes = analytic_step_bytes(
+            self.layer_sizes, points,
+            n_lambdas=per_point_lambda_columns(self.lambdas["residual"],
+                                               int(self.X_f.shape[0])),
+            n_outputs=(self._minimax_n_eq if self._minimax_kind is not None
+                       else self.layer_sizes[-1]))
         if self._minimax_kind is not None:
             tele.cost_fallback = (
                 analytic_minimax_flops(self.layer_sizes, points,
@@ -1737,7 +1750,6 @@ class CollocationSolverND:
         block = slice(None)
         if elastic:
             # this rank's block of the saved rows, trimmed to tile the group
-            from ..telemetry import log_event
             w, n_saved = self.mesh.size, int(saved_nf)
             keep = n_saved - n_saved % w
             if keep != n_saved:

@@ -66,6 +66,7 @@ from ..training.fit import (adam, make_batches, optimizer_step,
 from ..training.graphs import StepGraph, host_bound
 from ..training.progress import progress_bar
 from ..parallel import all_reduce_, scale_loss_fn, sum_components
+from ..telemetry import log_event
 from ..utils import matmul_precision, param_leaves, resolve_device
 from .collocation import NotCompiledError
 
@@ -288,7 +289,6 @@ class DiscoveryModel:
         ``col_weights`` (trimmed to a multiple of the world size, logged);
         the network and the coefficients stay replicated."""
         from ..parallel import resolve_mesh
-        from ..telemetry import log_event
         self.mesh = mesh = resolve_mesh(dist, device=self.device)
         n = int(self.X.shape[0])
         keep = n - n % mesh.size
@@ -395,10 +395,9 @@ class DiscoveryModel:
                                      "numeric cross-check") from reason
                 self._fuse_fail_reason = reason
                 self._fused_residual = None
-                if self.verbose:
-                    print(f"[fuse] discovery cross-check failed "
+                log_event("fuse", f"discovery cross-check failed "
                           f"({type(reason).__name__}); using the generic "
-                          "engine", flush=True)
+                          "engine", verbose=self.verbose)
 
     @property
     def engine(self) -> str:
@@ -487,6 +486,7 @@ class DiscoveryModel:
         if self.verbose:
             from ..output import print_screen
             print_screen(self, discovery_model=True)
+            # tdq: allow[no-bare-print] the verbose run's banner beside print_screen's, with no JAX log_event counterpart
             print(f"[discovery] engine={self.engine} device={self.device} "
                   f"n={int(self.X.shape[0])} tf_iter={tf_iter} "
                   f"batches={step.n_batches}", flush=True)

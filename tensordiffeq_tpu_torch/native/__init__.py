@@ -53,6 +53,8 @@ class NativeUnavailable(RuntimeError):
     """The native library could not be loaded (no compiler, a build error,
     or ``TDQ_NO_NATIVE=1``) and the caller did not fall back."""
 
+    trace_id = None
+
     def __init__(self):
         super().__init__("native library unavailable")
 

@@ -91,10 +91,14 @@ build_seconds = None  # wall time of the nvcc build this process ran
 class KernelBuildError(RuntimeError):
     """``nvcc`` is missing or refused the kernel source."""
 
+    trace_id = None
+
 
 class KernelLaunchError(RuntimeError):
     """A kernel launch returned a CUDA error (refused configuration,
     too much shared memory, or a fault reported by the runtime)."""
+
+    trace_id = None
 
 
 def find_nvcc() -> str:

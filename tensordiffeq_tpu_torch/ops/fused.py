@@ -69,6 +69,7 @@ class _TableEngine:
     def lookup(self, multi_index, component, coords, n_out):
         if len(coords) != len(self.tokens) or any(
                 c is not t for c, t in zip(coords, self.tokens)):
+            # tdq: allow[bare-raise-discipline] internal invariant guard — unreachable once analyze_f_model accepted the f_model
             raise RuntimeError(
                 "fused residual: u evaluated at unexpected coordinates "
                 "(analysis should have rejected this f_model)")
@@ -134,6 +135,8 @@ class FusedMismatch(ValueError):
     """The fused engine's values disagree with the generic engine's beyond
     the legitimate contraction-order band — the engine is computing
     different math, not merely failing to compile."""
+
+    trace_id = None
 
 
 def _to_numpy(x):

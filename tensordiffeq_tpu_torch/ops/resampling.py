@@ -75,6 +75,7 @@ def importance_select(scores: np.ndarray, n_keep: int, temp: float = 1.0,
     their maximum first, so ``s**temp`` cannot overflow; a zero row keeps a
     tiny floor so it stays reachable."""
     rng = rng or np.random.default_rng(0)
+    # tdq: allow[dtype-discipline] host-side selection math (the host path): float64 keeps the Gumbel keys exact and never reaches the card
     s = np.abs(np.asarray(scores, np.float64)).ravel()
     if n_keep >= s.size:
         return np.arange(s.size)
@@ -88,6 +89,7 @@ def importance_select(scores: np.ndarray, n_keep: int, temp: float = 1.0,
     else:
         p = (1.0 - uniform_frac) * p / tot + uniform_frac / s.size
     gumbel = rng.gumbel(size=s.size)
+    # tdq: allow[dtype-discipline] host-side float64 tiny-floor keeps zero-score rows reachable without log(0)
     keys = np.log(np.maximum(p, np.finfo(np.float64).tiny)) + gumbel
     return np.argpartition(-keys, n_keep)[:n_keep]
 
@@ -96,6 +98,7 @@ def _row_scores(values) -> np.ndarray:
     """Per-row |f| in float64, summed over output columns."""
     if isinstance(values, torch.Tensor):
         values = values.detach().cpu().numpy()
+    # tdq: allow[dtype-discipline] host-side score accumulation in float64 so summed |f| never saturates
     a = np.abs(np.asarray(values, np.float64))
     return a.reshape(a.shape[0], -1).sum(axis=1)
 
@@ -156,6 +159,7 @@ def _stratified_pool(gen: Optional[torch.Generator], n: int, xlimits,
     arrays of ``n``) replace the generator's draws (the tests inject the
     JAX package's); else each dimension draws a permutation, then its
     uniforms, from ``gen``."""
+    # tdq: allow[dtype-discipline] domain limits held in float64 on the host; each bound enters the device draw as a Python float
     xl = np.asarray(xlimits, np.float64)
     dev = torch.device(device) if device is not None else gen.device
     cols = []
@@ -260,6 +264,7 @@ class DeviceResampler:
                  *, pool_factor: int = 4, temp: float = 1.0,
                  uniform_frac: float = 0.1, seed: int = 0, mesh=None):
         self.residual_fn = residual_fn
+        # tdq: allow[dtype-discipline] domain limits held in float64 on the host; the pool draw takes each bound as a Python float
         self.xlimits = np.asarray(xlimits, np.float64)
         self.n_f = int(n_f)
         self.temp = float(temp)
@@ -310,6 +315,7 @@ def _ascent_move(score_grad: Callable, X: torch.Tensor, xlimits,
     ``score_grad(X) -> (s [N], g [N, d])`` gives the per-point scores
     ``Σ_e f_e²`` and their point gradient; each dimension steps
     ``step_frac`` of its extent.  Returns ``(X_new, s_first, s_last)``."""
+    # tdq: allow[dtype-discipline] domain limits held in float64 on the host; the ascent move fills each bound into a float32 scalar
     xl = np.asarray(xlimits, np.float64)
 
     def column(vals):  # fills, not a host-to-device copy that would wait
@@ -355,6 +361,7 @@ class AscentResampler:
                  fresh_frac: float = 0.1, seed: int = 0,
                  score_grad_fn: Optional[Callable] = None, mesh=None):
         self.residual_fn = residual_fn
+        # tdq: allow[dtype-discipline] domain limits held in float64 on the host; the ascent move fills each bound into a float32 scalar
         self.xlimits = np.asarray(xlimits, np.float64)
         _check_tiles(int(n_f), mesh)
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
@@ -518,8 +525,10 @@ def _allgather_by_row(local: dict, n: int, mesh) -> np.ndarray:
     every rank; the JAX package's packing."""
     rows = np.concatenate([np.arange(s, s + v.shape[0])
                            for s, v in sorted(local.items())])
+    # tdq: allow[dtype-discipline] the multi-rank row-lane packing contract: one float64 all-gather lane, exact to 2^53 (the JAX package's)
     vals = np.concatenate([np.asarray(v, np.float64).reshape(v.shape[0], -1)
                            for _, v in sorted(local.items())])
+    # tdq: allow[dtype-discipline] row indices ride the same float64 lane (exact integers up to 2^53)
     packed = np.concatenate([rows[:, None].astype(np.float64), vals], 1)
     if mesh is None or mesh.group is None:
         packed_all = packed
@@ -534,6 +543,7 @@ def _allgather_by_row(local: dict, n: int, mesh) -> np.ndarray:
         got = all_gather_rows(pad, mesh).reshape(mesh.size, k, -1)
         packed_all = torch.cat([got[r, :int(sizes[r])]
                                 for r in range(mesh.size)]).cpu().numpy()
+    # tdq: allow[dtype-discipline] host-side scatter target of the float64 all-gather lane
     out = np.zeros((n, vals.shape[1]), np.float64)
     out[packed_all[:, 0].astype(np.int64)] = packed_all[:, 1:]
     return out
@@ -558,6 +568,7 @@ def gather_rows_multihost(X_local: torch.Tensor, mesh) -> np.ndarray:
     k = int(X_local.shape[0])
     w = 1 if mesh is None else mesh.size
     r = 0 if mesh is None else mesh.rank
+    # tdq: allow[dtype-discipline] feeds the float64 row-lane packing contract of _allgather_by_row
     host = X_local.detach().cpu().numpy().astype(np.float64)
     out = _allgather_by_row({r * k: host}, k * w, mesh)
     return out.reshape((k * w,) + tuple(X_local.shape[1:]))

@@ -64,6 +64,8 @@ class MinimaxLoweringError(ValueError):
     """The ``f_model`` cannot be lowered to the residual tape that the
     fused minimax kernel interprets."""
 
+    trace_id = None
+
 
 @dataclass(frozen=True)
 class ResidualTape:

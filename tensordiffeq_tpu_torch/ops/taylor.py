@@ -254,6 +254,7 @@ def _propagate(layers, X, requests, flat_matmul, compute_dtype,
             stacked, W = bf16_round(stacked), bf16_round(W)
         if emulate_tf32:
             C = stacked.shape[0]
+            # tdq: allow[dtype-discipline] the float64-summed twin of the TF32 flavor's referee (the order witness); never a kernel's path
             sums = torch.float64 if emulate_tf32 == "float64" \
                 else torch.float32
             out = tf32_matmul(stacked.reshape(C * N, -1), W,

@@ -36,6 +36,8 @@ class CircuitOpenError(RuntimeError):
     the remaining cool-down — a structured backpressure hint for callers
     (and the batcher's timeout sweep)."""
 
+    trace_id = None
+
     def __init__(self, name: str, retry_after_s: float):
         self.breaker = name
         self.retry_after_s = max(0.0, float(retry_after_s))

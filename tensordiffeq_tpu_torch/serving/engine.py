@@ -131,9 +131,18 @@ def _tree_map(fn: Callable, out):
     return fn(out)
 
 
+class EngineReleased(RuntimeError):
+    """A query reached an engine whose tenant was evicted or swapped out:
+    its rungs and graphs are gone and it serves nothing."""
+
+    trace_id = None
+
+
 class EngineDegraded(RuntimeError):
     """Every bucket a query could route to is quarantined for this query
     kind — the engine cannot serve it (other kinds keep serving)."""
+
+    trace_id = None
 
     def __init__(self, kind, buckets):
         self.kind = kind
@@ -579,9 +588,9 @@ class InferenceEngine:
         tr = active_tracer()  # ONE probe on the untraced path
         with device_lock:
             if self._released:
-                raise RuntimeError("this engine was released (its tenant "
-                                   "was evicted or swapped out); it serves "
-                                   "nothing")
+                raise EngineReleased("this engine was released (its tenant "
+                                     "was evicted or swapped out); it serves "
+                                     "nothing")
             if tr is None:
                 return self._run_inner(kind, make_fn, X, None)
             with tr.span("serving.engine.run", kind=_label(kind),

@@ -67,6 +67,8 @@ class ArtifactVersionMismatch(ValueError):
     loading would drop or mis-read fields the producer relied on.  Upgrade
     the serving build, or re-export the artifact."""
 
+    trace_id = None
+
     def __init__(self, path: str, found: int, supported: int):
         self.path = path
         self.found = int(found)

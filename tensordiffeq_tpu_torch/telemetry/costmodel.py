@@ -90,6 +90,35 @@ def analytic_step_floor(n_points: int, dims: Sequence[int]) -> float:
     return analytic_mlp_flops(dims, n_points, passes=STEP_FORWARD_PASSES)
 
 
+def analytic_step_bytes(dims: Sequence[int], n_points: int,
+                        n_lambdas: int = 1, n_outputs: int = 1) -> float:
+    """Bytes one float32 training step must move at least: each point's
+    inputs, its ``n_lambdas`` per-point λ columns and its ``n_outputs``
+    outputs (the residual of each equation) read or written once, plus one
+    read of the weights and biases — the per-point count of
+    :func:`analytic_serving_cost`, over the step's points."""
+    dims = list(dims)
+    weights = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    per_point = dims[0] + int(n_lambdas) + int(n_outputs)
+    return 4.0 * (int(n_points) * per_point + weights)
+
+
+def per_point_lambda_columns(lambdas, n_rows: int) -> int:
+    """The per-point λ columns among a term's ``lambdas``: a λ of ``n_rows``
+    rows (``[n_rows]`` or ``[n_rows, E]``) counts its columns, a scalar λ
+    none — what a step reads once per point (:func:`analytic_step_bytes`'s
+    ``n_lambdas``)."""
+    cols = 0
+    for lam in lambdas:
+        if lam is None or lam.ndim == 0 or int(lam.shape[0]) != n_rows:
+            continue
+        n = 1
+        for s in lam.shape[1:]:
+            n *= int(s)
+        cols += n
+    return cols
+
+
 def analytic_minimax_flops(dims: Sequence[int], n_points: int,
                            n_channels: int,
                            passes: float = STEP_FORWARD_PASSES,
@@ -159,18 +188,21 @@ class StepCostModel:
     known peak (:func:`default_peak`), ``cost.mfu`` per chunk.  The price
     is ``fallback = (flops, label)`` when given (the minimax step's
     channel-exact count), else the analytic ``floor`` itself
-    (``"analytic-floor"``)."""
+    (``"analytic-floor"``); ``bytes_per_step`` (:func:`analytic_step_bytes`)
+    sets ``cost.bytes_per_step`` beside it."""
 
     def __init__(self, registry: Optional[MetricsRegistry] = None,
                  phase: str = "train", floor: Optional[float] = None,
                  peak: Optional[float] = None, n_chips: int = 1,
-                 fallback: Optional[Tuple[float, str]] = None):
+                 fallback: Optional[Tuple[float, str]] = None,
+                 bytes_per_step: Optional[float] = None):
         self.registry = registry if registry is not None else default_registry()
         self.phase = str(phase)
         self.floor = floor
         self.fallback = fallback
         self.peak = peak if peak is not None else default_peak()
         self.n_chips = max(int(n_chips), 1)
+        self.bytes_per_step = bytes_per_step
         self.flops_per_step: Optional[float] = None
         self.basis: Optional[str] = None
         self._extra_flops = 0.0
@@ -181,16 +213,19 @@ class StepCostModel:
     def observe_program(self) -> dict:
         """Price the step analytically (the JAX package prices a lowered
         program here and falls back to the same analytic counts; the port
-        has no program to ask) and set the per-step gauge.  Returns
-        ``{"flops_per_step", "basis"}``."""
+        has no program to ask) and set the per-step gauges.  Returns
+        ``{"flops_per_step", "bytes_per_step", "basis"}``."""
         self.flops_per_step, self.basis = resolve_flop_basis(
             None, 0.0, fallback=lambda: (self.fallback
                                          if self.fallback is not None
                                          else (self.floor, "analytic-floor")))
+        scope = self._scope()
         if self.flops_per_step is not None:
-            self._scope().gauge("cost.flops_per_step").set(
-                self.flops_per_step)
-        return {"flops_per_step": self.flops_per_step, "basis": self.basis}
+            scope.gauge("cost.flops_per_step").set(self.flops_per_step)
+        if self.bytes_per_step is not None:
+            scope.gauge("cost.bytes_per_step").set(self.bytes_per_step)
+        return {"flops_per_step": self.flops_per_step,
+                "bytes_per_step": self.bytes_per_step, "basis": self.basis}
 
     def note_extra_flops(self, flops: Optional[float]):
         """Credit off-step device work that runs inside the next timed

@@ -138,6 +138,9 @@ class TrainingTelemetry:
         # count — the solver sets the channel-exact "analytic-minimax"
         # count here for minimax-engine steps
         self.cost_fallback = None
+        # the step's analytic bytes (costmodel.analytic_step_bytes), set by
+        # the solver beside the floor: the cost.bytes_per_step gauge
+        self.cost_bytes: Optional[float] = None
         self._cost: Optional[StepCostModel] = None
         # run-relative rebasing across causal-ε stages / resumed legs:
         # the solver sets this so event epochs stay monotonic
@@ -171,12 +174,14 @@ class TrainingTelemetry:
         """Price the phase's step (the JAX package's hook prices a lowered
         program; the port's steps have none, so the analytic basis set in
         ``cost_floor`` / ``cost_fallback`` prices them) and publish the
-        per-step ``cost.flops_per_step`` gauge and a ``step_cost`` event."""
+        per-step ``cost.flops_per_step`` and ``cost.bytes_per_step`` gauges
+        and a ``step_cost`` event."""
         if not self.cost_model:
             return
         self._cost = StepCostModel(registry=self.registry, phase=phase,
                                    floor=self.cost_floor,
-                                   fallback=self.cost_fallback)
+                                   fallback=self.cost_fallback,
+                                   bytes_per_step=self.cost_bytes)
         cost = self._cost.observe_program()
         if cost["flops_per_step"] is not None:
             self.event("step_cost", phase=phase, **cost)

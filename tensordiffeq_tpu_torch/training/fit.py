@@ -296,9 +296,9 @@ def make_batches(X_f: torch.Tensor, batch_sz: Optional[int],
     bsz = int(batch_sz)
     n_batches = -(-n_f // bsz)  # ceil: keep every row
     take = np.arange(n_batches * bsz) % n_f
-    if take.size != n_f and verbose:
-        print(f"[fit] tail batch wraps {take.size - n_f} rows so "
-              f"{bsz}-point batches cover every point", flush=True)
+    if take.size != n_f:
+        log_event("fit", f"tail batch wraps {take.size - n_f} rows so "
+                  f"{bsz}-point batches cover every point", verbose=verbose)
     if permute:
         take = np.random.RandomState(0).permutation(n_f)[take]
     take = torch.as_tensor(take, device=X_f.device)
@@ -552,7 +552,7 @@ class AdamStep:
                 and self.mesh.size > 1):
             h = all_gather_rows(h.permute(2, 0, 1).contiguous(),
                                 self.mesh).permute(1, 2, 0)
-        return h.cpu().numpy()
+        return h.cpu().numpy()  # tdq: allow[host-sync-in-hot-path] the chunk's one history read: one copy per chunk, not per step
 
     def _batch(self):
         lam_res = self.lambdas["residual"]
@@ -1083,6 +1083,7 @@ def fit_adam(step: AdamStep, tf_iter: int, chunk: int = 100,
     if pbar is not None:
         pbar.close()
     if step.device.type == "cuda":
+        # tdq: allow[host-sync-in-hot-path] phase-final fence: the wall clock includes the last chunk's device time
         torch.cuda.synchronize(step.device)
     _finish_records(records)
     if telemetry is not None:

@@ -61,6 +61,8 @@ class GraphCaptureError(RuntimeError):
     """Capturing a step as a CUDA graph failed (an operation that
     synchronises with the host or allocates outside the graph's pool)."""
 
+    trace_id = None
+
 
 def storage_key(tensors) -> tuple:
     """The storage addresses a graph over ``tensors`` reads and writes."""

@@ -61,7 +61,6 @@ needs conditional graph nodes; ROADMAP, queue 1's performance items).
 
 from __future__ import annotations
 
-import sys
 import time
 from typing import Callable, Optional
 
@@ -74,6 +73,7 @@ from ..parallel import all_reduce_
 from ..resilience.cluster import beat
 from ..resilience.preemption import (Preempted, note_final_flush,
                                      preemption_requested)
+from ..telemetry import log_event
 from ..utils import matmul_precision, param_leaves, span
 from .graphs import StepGraph, host_bound
 from .progress import progress_bar
@@ -90,8 +90,9 @@ TOL = 0.0
 
 def _log_stop(msg: str) -> None:
     """Early stops print to stderr unconditionally, as in the JAX loop: a
-    silent stop inside a long run reads like a completed phase."""
-    print(f"[l-bfgs] {msg}", file=sys.stderr, flush=True)
+    silent stop inside a long run reads like a completed phase; the stop
+    is mirrored into any active run log."""
+    log_event("l-bfgs", msg, level="warning")
 
 
 def _read(*tensors) -> np.ndarray:
@@ -101,6 +102,7 @@ def _read(*tensors) -> np.ndarray:
     lbfgs_minimize.host_syncs += 1
     t0 = time.perf_counter()
     with span("lbfgs.read"):
+        # tdq: allow[host-sync-in-hot-path] the declared read, counted in lbfgs_minimize.host_syncs: the line search's per trial, the fixed step's per chunk
         got = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
     lbfgs_minimize.read_s += time.perf_counter() - t0
     return got
@@ -801,9 +803,8 @@ def fit_lbfgs(loss_fn: Callable, params, lambdas: dict, X_f: torch.Tensor,
             mesh=mesh, preempt_flush=structured(preempt_flush),
             _graphs=_graphs)
     f_best, i_best = float(f_best), int(i_best)
-    if verbose:
-        print(f"[l-bfgs] {len(history)} iters in {time.time() - t0:.1f}s, "
-              f"best loss {f_best:.3e} @ iter {i_best}", flush=True)
+    log_event("l-bfgs", f"{len(history)} iters in {time.time() - t0:.1f}s, "
+              f"best loss {f_best:.3e} @ iter {i_best}", verbose=verbose)
     return (unflatten_layers(x, shapes), unflatten_layers(x_best, shapes),
             f_best, i_best, [{"Total Loss": v} for v in history],
             retreat[0] if retreat else None)

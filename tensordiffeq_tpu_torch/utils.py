@@ -32,6 +32,8 @@ class NotPortedError(NotImplementedError):
     message names its ROADMAP item.  Raised instead of ignoring the
     option."""
 
+    trace_id = None
+
 
 def not_ported(what: str, item: str) -> NotPortedError:
     return NotPortedError(f"{what} is not ported to tensordiffeq_tpu_torch "
@@ -145,6 +147,8 @@ class CudaUnavailableError(RuntimeError):
     """An entry point was asked for (or defaulted to) a CUDA device on a
     machine where ``torch.cuda.is_available()`` is false.  The port never
     carries on quietly on the CPU: pass ``device="cpu"`` to ask for it."""
+
+    trace_id = None
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -116,6 +116,12 @@ installed::
   flight recorder on; a supervised fit with chaos off is bit for bit a
   plain one through the graphs; a rollback restores into the live buffers
   and keeps the captured step.
+* static analysis (``chip_smoke.py`` phase 22, at small size): the
+  minimax Adam step's captured graph, dumped in debug mode and read,
+  holds no host-boundary memcpy node and no host node, and its K3 kernel
+  nodes equal its launches per replay; a 20-step chunk synchronises once
+  (its history read); a device-to-host copy into pinned memory planted in
+  a captured toy step is flagged.
 * the serving fleet (``chip_smoke.py`` phase 21, at small size): a
   surrogate loaded with no f_model serves its residual from the
   artifact's lowered tape, each rung a captured graph that launches K1
@@ -2538,3 +2544,48 @@ def test_fleet_evict_reload_captures_again_three_times(served, tmp_path):
             for r in lt.engine._rungs.values())
         again = (router.query("a", X), router.query("a", X, kind="residual"))
         assert all(np.array_equal(x, y) for x, y in zip(first, again))
+
+
+# ------------------------------------------------------------------ #
+# static analysis: what a captured graph holds
+# ------------------------------------------------------------------ #
+def test_audit_of_the_minimax_steps_graph(card):
+    """The minimax Adam step's graph holds K3 once, no copy across the
+    host boundary and no host node; its chunk syncs once."""
+    from tensordiffeq_tpu_torch.analysis import dispatch_audit as da
+    solver = _ac_solver("cuda", n_f=1024, minimax=None)
+    solver.fit(tf_iter=20, chunk=20)
+    assert solver._adam.graph.captures == 1
+    assert da.chunk_syncs(solver._adam, 20) == 1
+    rep = da.audit_graph(solver._adam.graph)
+    assert rep.launches == rep.captured == {"k3": 1}
+    assert rep.kernel_nodes("k3") == 1
+    assert rep.kernel_nodes("k1") == rep.kernel_nodes("k2") == 0
+    assert set(rep.memcpy) <= {"DtoD"} and rep.host == 0
+    assert rep.ok and rep.nodes > rep.kinds.get("MEMCPY", 0)
+    # the audited graph is dropped: the next fit captures it anew
+    assert solver._adam.graph.graph is None
+    solver.fit(tf_iter=5, chunk=5)
+    assert solver._adam.graph.captures == 2
+    assert np.isfinite(solver.losses[-1]["Total Loss"])
+
+
+def test_audit_flags_a_planted_device_to_host_copy(card):
+    from tensordiffeq_tpu_torch.analysis import dispatch_audit as da
+    from tensordiffeq_tpu_torch.training.graphs import StepGraph
+    a = torch.ones(256, device=card)
+    b = torch.empty_like(a)
+    pinned = torch.empty(256, pin_memory=True)
+
+    def planted():
+        b.copy_(a * 3.0)
+        pinned.copy_(b, non_blocking=True)
+
+    graph = StepGraph(planted, lambda: [a, b, pinned], card, "planted")
+    graph.prime()
+    rep = da.audit_graph(graph)
+    assert rep.memcpy.get("DtoH") == 1 and not rep.ok
+    assert graph.graph is None
+    graph()  # the step runs again after its audit
+    torch.cuda.synchronize()
+    assert torch.equal(pinned, torch.full((256,), 3.0))

@@ -64,6 +64,9 @@ def test_port_has_modules():
                  "tensordiffeq_tpu_torch/fleet/warmstart.py",
                  "tensordiffeq_tpu_torch/fleet/replica.py",
                  "tensordiffeq_tpu_torch/fleet/closedloop.py",
+                 "tensordiffeq_tpu_torch/analysis/engine.py",
+                 "tensordiffeq_tpu_torch/analysis/rules.py",
+                 "tensordiffeq_tpu_torch/analysis/dispatch_audit.py",
                  "examples_torch/ac_factory.py",
                  "examples_torch/ac_fleet.py",
                  "examples_torch/ac_closedloop.py",

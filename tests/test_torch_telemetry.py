@@ -9,6 +9,7 @@ package's.
 * a fit with a ``RunLogger``: the run config, one ``epoch`` event per Adam
   epoch with the gradient norm, λ summaries, the step-time split of both
   phases, ``step_cost`` on the ``"analytic-minimax"`` basis, ``fit_end``;
+* ``cost.bytes_per_step`` equals the analytic count of the step's bytes;
 * the NaN/Inf sentinel: ``TrainingDiverged`` on a diverging fit (with the
   divergence event, strict JSON) and on a NaN row, and the event alone
   without the raise;
@@ -156,6 +157,27 @@ def test_fit_produces_the_run_log(tmp_path):
     end = telemetry.read_events(d, kind="fit_end")[-1]
     assert end["epochs_total"] == 60 and end["newton_done"] == 20
     assert not telemetry.read_events(d, kind="divergence")
+
+
+def test_step_bytes_gauge_is_the_analytic_count():
+    """``cost.bytes_per_step`` (labelled ``phase``, as the JAX package's):
+    the step's points × (inputs + per-point λ + outputs) plus one read of
+    the weights and biases, in float32 bytes, beside
+    ``cost.flops_per_step``."""
+    from tensordiffeq_tpu_torch.telemetry.costmodel import \
+        analytic_step_bytes
+    reg = MetricsRegistry()
+    s = _solver()  # Burgers SA: 2-10-10-1, N_f = 128, λ per point
+    s.fit(tf_iter=2, chunk=2, telemetry=TrainingTelemetry(registry=reg))
+    dims = s.layer_sizes
+    weights = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    want = 4.0 * (128 * (2 + 1 + 1) + weights)
+    assert analytic_step_bytes(dims, 128, n_lambdas=1, n_outputs=1) == want
+    gauges = reg.as_dict()["gauges"]
+    got = {k: v for k, v in gauges.items()
+           if k.startswith("cost.bytes_per_step")}
+    assert list(got.values()) == [want] and "adam" in next(iter(got))
+    assert any(k.startswith("cost.flops_per_step") for k in gauges)
 
 
 def test_sentinel_raises_on_a_diverging_fit(tmp_path):
