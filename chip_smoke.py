@@ -25,8 +25,8 @@ Phases (each failure is fatal; exit code != 0, no result line):
    Each kernel's time is printed beside two bounds: the route it takes
    (its tensor-core products as 3 TF32 passes over the TF32 peak, the rest
    over the FP32 peak, its bytes over the HBM rate) and, for continuity,
-   every operation on the FP32 CUDA cores.  A ``[yardstick]`` line times
-   the same hidden-layer products as cuBLAS f32 matmuls.
+   every operation on the FP32 CUDA cores.  Two ``[yardstick]`` lines time
+   the same hidden-layer products as cuBLAS matmuls, f32 and TF32.
 6. the minimax slice, the main path: the Allen-Cahn SA-PINN at its full
    size trained through ``compile(fused="cuda")`` with the default
    ``minimax``, which adopts K3; ``fit(tf_iter=200)`` and ``predict`` on the
@@ -192,15 +192,21 @@ Phases (each failure is fatal; exit code != 0, no result line):
    phase's wall is printed.
 16. the network options: (a) K1, K2 and K3 in their single-pass TF32
    flavor (precision ``None``) at the Allen-Cahn slice (N = 50,000,
-   2-128x4-1, C = 4, E = 1) and at ``burgers``' 2-20x8-1, each against the
-   TF32-emulating plain flavor (``taylor_derivatives(emulate_tf32=True)``)
-   and its float64-summed twin: the nearer within TF32_SPREAD times the
-   order spread of the same semantics (the two referees' distance, at
-   least 1e-4) by RMS, and by max also within TF32_FLIP of the
-   emulation's distance to the IEEE flavor; nearer the emulation than the
-   IEEE flavor; K1 and K3 bit for bit run to run;
-   each timed over 20 launches beside the 3xTF32 flavor and its one-pass
-   bound; the distance to the IEEE flavor printed.  (b) AC-SA full with
+   2-128x4-1, C = 4, E = 1), at ``burgers``' 2-20x8-1 and at WIDE_WIDTHS,
+   each against the TF32-emulating plain flavor
+   (``taylor_derivatives(emulate_tf32=True)``) and its float64-summed
+   twin: the nearer within TF32_SPREAD times the order spread of the same
+   semantics (the two referees' distance, at least 1e-4) by RMS, and by
+   max also within TF32_FLIP of the emulation's distance to the IEEE
+   flavor; nearer the emulation than the IEEE flavor; bit for bit run to
+   run; K2-TF32 and K3-TF32 on the route K2_TF32_ROUTES and
+   K3_TF32_ROUTES name for the case (``[route ...]``: the persistent
+   wgmma route of ``csrc/wg_backward.cuh`` at the slice and ``burgers``,
+   the mma.sync kernels at WIDE_WIDTHS; another route fails the phase);
+   each timed over 20 launches beside the 3xTF32 flavor, its one-pass
+   bound and the mma.sync route's earlier ms (TF32_BEFORE_WGMMA_MS); the
+   distance to the IEEE flavor printed.  ``--tf32-only`` runs the build,
+   the yardstick and this part alone.  (b) AC-SA full with
    ``neural_net(WIDTHS, precision=None)`` on ``fused="cuda"``: the engine
    compile adopts and the cross-check's distances; where the f32 band
    refuses the flavor the next narrower width is tried (TF32_WIDTHS, each
@@ -376,7 +382,10 @@ Phases (each failure is fatal; exit code != 0, no result line):
 23. a ``{"kernels": [...]}`` line (K1, K2, K3, their bf16 and their TF32
    flavors, each held to its plain version; K1's with the route it took and
    its wide route's measurements as ``wide_route``; the TF32 flavors with
-   their distances and the 3xTF32 flavor's ms; ``launches_by_path`` has
+   their distances and the 3xTF32 flavor's ms, K2-TF32's and K3-TF32's
+   with the route they took at the slice (``tf32_route``), their mma.sync
+   route at WIDE_WIDTHS (``old_route``) and the TF32 products'
+   ``torch.matmul`` ms (``yardstick_ms``); ``launches_by_path`` has
    every path's launches, phases 17-22's included), the card line again,
    and the result line.
 
@@ -537,6 +546,22 @@ TF32_WIDTHS = ([2, 128, 128, 128, 128, 1], [2, 64, 64, 64, 64, 1],
                [2, 32, 32, 32, 32, 1], BURGERS_WIDTHS)
 TF32_LBFGS = 20  # L-BFGS iterations of the TF32 and custom-module legs
 TF32_UNFUSED_STEPS = 50  # the TF32 flavor's unfused steps (K1/K2)
+# the route K2-TF32 and K3-TF32 must take in each case of phase 16(a): the
+# persistent wgmma route (csrc/wg_backward.cuh) at the slice's and burgers'
+# shapes, the mma.sync kernels (csrc/taylor_table.cu, minimax_step.cu) at
+# WIDE_WIDTHS, past the wgmma route's widths
+K2_TF32_ROUTES = {"ac": "wgmma", "burgers": "wgmma", "wide": "mma"}
+K3_TF32_ROUTES = {"ac": "wgmma", "burgers": "wgmma", "wide": "mma"}
+TF32_ROUTE_SOURCES = {("k2", "wgmma"): "csrc/wg_backward.cuh",
+                      ("k3", "wgmma"): "csrc/wg_backward.cuh",
+                      ("k2", "mma"): "csrc/taylor_table.cu",
+                      ("k3", "mma"): "csrc/minimax_step.cu"}
+# K2-TF32's and K3-TF32's ms before their wgmma route, on the mma.sync
+# kernels (PERF.md §6, an NVIDIA H100 80GB HBM3 at 700 W), printed beside
+# this run's; the same-call comparison is scripts/torch_phase_split.py's
+# with --tree on an older checkout
+TF32_BEFORE_WGMMA_MS = {"K2-TF32 ac": 3.177, "K3-TF32 ac": 3.528,
+                        "K2-TF32 burgers": 2.203, "K3-TF32 burgers": 2.381}
 
 
 def fail(msg: str):
@@ -842,10 +867,11 @@ def phase_k3(dev) -> dict:
 
 
 def phase_yardstick(dev) -> dict:
-    """What the card's own f32 GEMM does on the slice's hidden-layer
-    products: torch.matmul with TF32 off on [N*C, 128] x [128, 128] (C = 4),
-    the forward H W, dW = H^T dP and dH = dP W^T, three of each as in one
-    K2 or K3 launch (K1 takes the three forward ones).  A yardstick only:
+    """What the card's own GEMM does on the slice's hidden-layer products:
+    torch.matmul on [N*C, 128] x [128, 128] (C = 4), the forward H W, dW =
+    H^T dP and dH = dP W^T, three of each as in one K2 or K3 launch (K1
+    takes the three forward ones), with TF32 off (the f32 flavors'
+    yardstick) and on (the TF32 flavor's: one pass).  A yardstick only:
     the port never calls it."""
     import torch
     g = torch.Generator(device=dev).manual_seed(0)
@@ -853,15 +879,24 @@ def phase_yardstick(dev) -> dict:
     H = torch.rand(rows, 128, generator=g, device=dev) * 2 - 1
     dP = torch.randn(rows, 128, generator=g, device=dev)
     W = torch.randn(128, 128, generator=g, device=dev) / 128 ** 0.5
-    fwd = cuda_ms(lambda: [H @ W for _ in range(3)], reps=10)
-    dw = cuda_ms(lambda: [H.t() @ dP for _ in range(3)], reps=10)
-    dh = cuda_ms(lambda: [dP @ W.t() for _ in range(3)], reps=10)
-    print(f"[yardstick] torch.matmul f32 (allow_tf32=False), [{rows}, 128] x "
-          f"[128, 128], three of each: forward {fwd:.3f} ms, dW {dw:.3f} ms,"
-          f" dH {dh:.3f} ms; the nine of K2/K3 {fwd + dw + dh:.3f} ms, the "
-          f"three of K1 {fwd:.3f} ms (cuBLAS, not used by the port)",
-          flush=True)
-    return dict(fwd_ms=fwd, dw_ms=dw, dh_ms=dh)
+    out = {}
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            fwd = cuda_ms(lambda: [H @ W for _ in range(3)], reps=10)
+            dw = cuda_ms(lambda: [H.t() @ dP for _ in range(3)], reps=10)
+            dh = cuda_ms(lambda: [dP @ W.t() for _ in range(3)], reps=10)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        kind = "TF32 (allow_tf32=True)" if tf32 else "f32 (allow_tf32=False)"
+        print(f"[yardstick] torch.matmul {kind}, [{rows}, 128] x [128, 128], "
+              f"three of each: forward {fwd:.3f} ms, dW {dw:.3f} ms, dH "
+              f"{dh:.3f} ms; the nine of K2/K3 {fwd + dw + dh:.3f} ms, the "
+              f"three of K1 {fwd:.3f} ms (cuBLAS, not used by the port)",
+              flush=True)
+        out["tf32" if tf32 else "f32"] = dict(fwd_ms=fwd, dw_ms=dw, dh_ms=dh,
+                                              nine_ms=fwd + dw + dh)
+    return out
 
 
 def ac_sa_problem(n_f: int = N_POINTS, grid=(512, 201), seed: int = 0):
@@ -1407,7 +1442,7 @@ def _kernel_group(name: str) -> str:
         return "K1 taylor_fwd_kernel"
     if "taylor_bwd" in low:
         return "K2 taylor_bwd_kernel"
-    if "minimax_step" in low:
+    if "minimax_step" in low or "minimax_wg" in low:
         return "K3 minimax_step_kernel"
     if "reduce_partials" in low:
         return "reduce_partials (K2's or K3's slot-ordered sum)"
@@ -3330,14 +3365,30 @@ def _tf32_check(label: str, got: list, emu: list, twin: list,
     return worst
 
 
+def _tf32_route(plan, kernel: str, label: str) -> str:
+    """The route K2-TF32's or K3-TF32's last launch took (``kernel`` "k2"
+    or "k3"); it must be the one ``K2_TF32_ROUTES``/``K3_TF32_ROUTES``
+    names for the case."""
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    got = (plan.k2_routes if kernel == "k2" else plan.k3_routes)[ct.TF32]
+    want = (K2_TF32_ROUTES if kernel == "k2" else K3_TF32_ROUTES)[label]
+    print(f"[route {kernel.upper()}-TF32 {label}] {got} "
+          f"({TF32_ROUTE_SOURCES[(kernel, got)]})", flush=True)
+    if got != want:
+        fail(f"{kernel.upper()}-TF32 ({label}) took the {got} route, not the "
+             f"{want} one")
+    return got
+
+
 def phase_tf32_kernels(dev) -> dict:
     """Phase 16(a): K1-TF32, K2-TF32 and K3-TF32 against the
     TF32-emulating plain flavor at the Allen-Cahn slice (N = 50,000,
-    2-128x4-1, C = 4, E = 1) and at ``burgers``' 2-20x8-1, K1 and K3 bit
-    for bit run to run, each timed over 20 launches beside the 3xTF32
-    flavor and its one-pass bound.  Returns the Allen-Cahn measurements."""
+    2-128x4-1, C = 4, E = 1), at ``burgers``' 2-20x8-1 (K2 and K3 on their
+    wgmma route at both) and at WIDE_WIDTHS (their mma.sync route), each
+    kernel bit for bit run to run, each timed over 20 launches beside the
+    3xTF32 flavor and its one-pass bound.  Returns the Allen-Cahn
+    measurements, with the wide case's K2/K3 as ``old_route``."""
     import torch
-    from tensordiffeq_tpu_torch.networks import neural_net
     from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
     from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
     from tensordiffeq_tpu_torch.ops.fused import analyze_f_model
@@ -3349,7 +3400,8 @@ def phase_tf32_kernels(dev) -> dict:
     out = {}
     for label, f_model, widths in (("ac", _ac_residual, WIDTHS),
                                    ("burgers", _burgers_residual,
-                                    BURGERS_WIDTHS)):
+                                    BURGERS_WIDTHS),
+                                   ("wide", _ac_residual, WIDE_WIDTHS)):
         X = torch.as_tensor(np.stack([rng.uniform(-1, 1, N_POINTS),
                                       rng.uniform(0, 1, N_POINTS)], 1),
                             dtype=torch.float32, device=dev)
@@ -3384,6 +3436,11 @@ def phase_tf32_kernels(dev) -> dict:
         torch.cuda.synchronize()
         k2 = _tf32_check(f"K2-TF32 {label}", plan.unpack(dflat) + [dX],
                          list(ge), list(gt), list(gi))
+        k2["route"] = _tf32_route(plan, "k2", label)
+        k2["bit_identical"] = _bit_identical_run_to_run(
+            f"K2-TF32 {label}", torch.cat([dflat, dX.reshape(-1)]),
+            lambda: torch.cat([t.reshape(-1) for t in
+                               ct.k2_backward_tf32(plan, X, flat, g)[::-1]]))
         flops, nbytes = ct.flop_count(plan, N_POINTS), \
             ct.byte_count(plan, N_POINTS)
         passes = ct.tensor_passes(plan, ct.TF32)
@@ -3396,8 +3453,10 @@ def phase_tf32_kernels(dev) -> dict:
             res["f32_ms"] = cuda_ms(ref)
             res["plain_ms"] = cuda_ms(lambda: plain(True), reps=5)
             res["bound"] = bound_ms(flops[key], nbytes[key], passes[key])
-            print(f"[time {name}-TF32 {label}] {res['ms']:.3f} ms"
-                  f"{' on the ' + res['route'] + ' route' if key == 'k1' else ''}"
+            was = TF32_BEFORE_WGMMA_MS.get(f"{name}-TF32 {label}")
+            print(f"[time {name}-TF32 {label}] {res['ms']:.3f} ms on the "
+                  f"{res['route']} route"
+                  f"{'' if was is None else f' (mma.sync route: {was:.3f} ms)'}"
                   f" beside the 3xTF32 flavor's {res['f32_ms']:.3f} ms (plain "
                   f"TF32 emulation {res['plain_ms']:.3f} ms); "
                   f"{bound_text(res['ms'], res['bound'])}", flush=True)
@@ -3424,9 +3483,11 @@ def phase_tf32_kernels(dev) -> dict:
             leaves(sq.plain(fl, w, X, emulate_tf32=True)),
             leaves(sq.plain(fl, w, X, emulate_tf32="float64")),
             leaves(sq32.plain(fl, w, X)))
+        k3["route"] = _tf32_route(sq.plan, "k3", label)
         k3["bit_identical"] = _bit_identical_run_to_run(
-            f"K3-TF32 {label}", got[1],
-            lambda: cm.k3_minimax_tf32(sq.plan, X, w, kflat)[1])
+            f"K3-TF32 {label}", torch.cat([t.reshape(-1) for t in got]),
+            lambda: torch.cat([t.reshape(-1) for t in
+                               cm.k3_minimax_tf32(sq.plan, X, w, kflat)]))
         k3["ms"] = cuda_ms(lambda: cm.k3_minimax_tf32(sq.plan, X, w, kflat))
         k3["f32_ms"] = cuda_ms(lambda: cm.k3_minimax(sq.plan, X, w, kflat))
         k3["plain_ms"] = cuda_ms(
@@ -3434,13 +3495,19 @@ def phase_tf32_kernels(dev) -> dict:
         k3["bound"] = bound_ms(cm.flop_count(sq.plan, N_POINTS)["k3"],
                                cm.byte_count(sq.plan, N_POINTS)["k3"],
                                cm.tensor_passes(sq.plan, ct.TF32))
-        print(f"[time K3-TF32 {label}] {k3['ms']:.3f} ms beside the 3xTF32 "
-              f"flavor's {k3['f32_ms']:.3f} ms (plain TF32 emulation "
-              f"{k3['plain_ms']:.3f} ms); {bound_text(k3['ms'], k3['bound'])}",
-              flush=True)
+        was = TF32_BEFORE_WGMMA_MS.get(f"K3-TF32 {label}")
+        print(f"[time K3-TF32 {label}] {k3['ms']:.3f} ms on the "
+              f"{k3['route']} route"
+              f"{'' if was is None else f' (mma.sync route: {was:.3f} ms)'}"
+              f" beside the 3xTF32 flavor's {k3['f32_ms']:.3f} ms (plain TF32 "
+              f"emulation {k3['plain_ms']:.3f} ms); "
+              f"{bound_text(k3['ms'], k3['bound'])}", flush=True)
         out[label] = dict(k1_tf32=k1, k2_tf32=k2, k3_tf32=k3)
     _set_counts(before)  # comparison launches are not the main path's
-    return out["ac"]
+    res = out["ac"]
+    for key in ("k2_tf32", "k3_tf32"):
+        res[key]["old_route"] = dict(out["wide"][key], widths=WIDE_WIDTHS)
+    return res
 
 
 def _crosscheck_distances(solver) -> dict:
@@ -6560,9 +6627,9 @@ def kernels_line(meas: dict, paths: dict) -> str:
             ("k1_tf32", "taylor_table_fwd tf32 (K1-TF32)",
              "csrc/taylor_fwd_wg.cuh", "pallas_taylor.py:154"),
             ("k2_tf32", "taylor_table_bwd tf32 (K2-TF32)",
-             "csrc/taylor_table.cu", "pallas_taylor.py:171"),
+             "csrc/wg_backward.cuh", "pallas_taylor.py:171"),
             ("k3_tf32", "minimax_step tf32 (K3-TF32)",
-             "csrc/minimax_step.cu", "pallas_minimax.py:259")):
+             "csrc/wg_backward.cuh", "pallas_minimax.py:259")):
         m = meas[key]
         by_path = {tag: int(res["launches"].get(key, 0))
                    for tag, res in paths.items()}
@@ -6584,7 +6651,25 @@ def kernels_line(meas: dict, paths: dict) -> str:
             # csrc/taylor_fwd_wg.cuh), and its route for wider layers
             # (csrc/taylor_table.cu), held to the plain flavor and timed
             # in phases 3 and 14 at WIDE_WIDTHS; no main path takes it
-            **({"k1_route": m["route"]} if "route" in m else {}),
+            **({"k1_route": m["route"]}
+               if "route" in m and key.startswith("k1") else {}),
+            # K2-TF32's and K3-TF32's route at the slice's shape (the wgmma
+            # route of csrc/wg_backward.cuh), its mma.sync route at
+            # WIDE_WIDTHS (held and timed in phase 16(a); no main path takes
+            # it), and the TF32 products' torch.matmul time (the yardstick)
+            **({"tf32_route": m["route"],
+                "yardstick_ms": m.get("yardstick_ms"),
+                "old_route": {
+                    "route": m["old_route"]["route"],
+                    "source": "tensordiffeq_tpu_torch/" + TF32_ROUTE_SOURCES[
+                        (key[:2], m["old_route"]["route"])],
+                    "widths": WIDE_WIDTHS,
+                    "max_abs_err": m["old_route"]["max_abs_err"],
+                    "ms": m["old_route"]["ms"],
+                    "plain_ms": m["old_route"]["plain_ms"],
+                    "bound_ms": m["old_route"]["bound"]["ms"],
+                    "bound_by": m["old_route"]["bound"]["by"]}}
+               if "old_route" in m else {}),
             **({"wide_route": {
                 "source": "tensordiffeq_tpu_torch/csrc/taylor_table.cu",
                 "widths": WIDE_WIDTHS,
@@ -6629,6 +6714,10 @@ def main():
     ap.add_argument("--audit-only", action="store_true",
                     help="build the kernels and run phase 22 (the audit) "
                     "alone; prints no result line")
+    ap.add_argument("--tf32-only", action="store_true",
+                    help="build the kernels and run the yardstick and phase "
+                    "16(a) (the TF32 kernels on both routes) alone; prints "
+                    "no result line")
     ap.add_argument("--fleet-child", nargs=2, metavar=("WORK", "OUT"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--dist-worker", nargs=4,
@@ -6701,9 +6790,14 @@ def main():
         phase_audit(card)
         print(card, flush=True)
         return
+    if args.tf32_only:
+        phase_yardstick(dev)
+        phase_tf32_kernels(dev)
+        print(card, flush=True)
+        return
     meas = phase_kernels(dev)
     meas["k3"] = phase_k3(dev)
-    phase_yardstick(dev)
+    yard = phase_yardstick(dev)
     paths = {"minimax": phase_slice(TF_ITER, minimax=None),
              "unfused": phase_slice(TF_ITER, minimax=False)}
     print(f"[paths] ms/step minimax {paths['minimax']['ms_step']:.3f}, "
@@ -6727,6 +6821,8 @@ def main():
     paths["zoo"] = phase_zoo(dev)
     tf32_meas, option_paths = phase_network_options(
         dev, paths["minimax"]["ms_step"])
+    for key in ("k2_tf32", "k3_tf32"):
+        tf32_meas[key]["yardstick_ms"] = yard["tf32"]["nine_ms"]
     meas.update(tf32_meas)
     paths.update(option_paths)
     paths.update(phase_dist(card))

@@ -12,7 +12,11 @@ runs K1 and K1-bf16 at the Allen-Cahn slice (N = 50,000 points, net
 2-128x4-1, C = 4 channels) and on the mixed request set (C = 8), then K2
 and K3 at the AC slice (K3 also on the coupled system and the ``1/x``
 residual at N = 50,001), then their bf16 flavors (K2-bf16, K3-bf16 on the
-AC set and the coupled system).  ``--only k1`` splits K1's flavors alone.
+AC set and the coupled system) and K2-TF32, K3-TF32 at the AC slice, each
+on the route its shape takes in the checkout (the wgmma route of
+``wg_backward.cuh``, or in an older checkout the mma.sync kernels: run
+``--tree`` on one for the split before it).  ``--only k1`` splits K1's
+flavors alone.
 
 The instrumentation: every device function named in ``PHASES`` gets a
 ``clock64()`` stamp at its entry and at each exit, and thread 0 of each
@@ -25,6 +29,8 @@ f32 table store).  In K1's persistent wgmma route (``taylor_fwd_wg.cuh``)
 thread 0 is a thread of the first consumer warpgroup, and its phases are
 that warpgroup's: ``k1w_products`` holds its waits for the weight stages
 and for its products, while the other warpgroup may run its own pass.
+The same holds in K2-TF32's and K3-TF32's wgmma route, whose phases
+(``wb_*``) end in no block-wide barrier either.
 
 Printed per kernel and case: the kernel's ms by CUDA events over ``--reps``
 launches of the instrumented build, and per phase its share of the
@@ -52,7 +58,8 @@ sys.path.insert(0, ROOT)
 LABELS = ["forward products", "head product", "K3 epilogue (tape)",
           "act_fwd", "act_vjp", "workspace copies", "dW (+ partials)",
           "dH", "bias sums", "layer 0 forward", "layer 0 backward",
-          "cotangent split", "table store", "total"]
+          "cotangent split", "table store", "dW slot adds",
+          "K-major operand writes", "head cotangents", "total"]
 P = {name: i for i, name in enumerate(LABELS)}
 PHASES = {
     "mma_w_rows": str(P["forward products"]),
@@ -80,14 +87,34 @@ PHASES = {
     "k1w_act": str(P["act_fwd"]),
     "k1w_products": str(P["forward products"]),
     "k1w_head": str(P["head product"]),
+    # K2-TF32's and K3-TF32's persistent wgmma route (wg_backward.cuh):
+    # its forward is K1's route's (k1w_*: the recomputed layer inputs of
+    # the reverse sweep are counted with the forward's passes)
+    "wb_products": str(P["forward products"]),
+    "wb_act": str(P["act_fwd"]),
+    "wb_layer0": str(P["layer 0 forward"]),
+    "wb_act_vjp": str(P["act_vjp"]),
+    "wb_dh": str(P["dH"]),
+    "wb_dw_product": str(P["dW (+ partials)"]),
+    "wb_dw_update": str(P["dW slot adds"]),
+    "wb_put_kmajor": str(P["K-major operand writes"]),
+    "wb_load_p": str(P["workspace copies"]),
+    "wb_bias_partial": str(P["bias sums"]),
+    "wb_bias": str(P["bias sums"]),
+    "wb_head": str(P["head product"]),
+    "wb_head_bwd": str(P["head cotangents"]),
+    "wb_epilogue": str(P["K3 epilogue (tape)"]),
+    "wb_layer0_bwd": str(P["layer 0 backward"]),
 }
 # functions a checkout from before the bf16 flavor's own route, or from
 # before K1's wgmma route, lacks
 OPTIONAL = {"bmma_w_rows", "bmma_w_cols", "bmma_dw", "split_pieces",
             "k1w_layer0", "k1w_act", "k1w_products", "k1w_head",
-            "taylor_fwd_wg_kernel"}
+            "taylor_fwd_wg_kernel", "taylor_bwd_wg_kernel",
+            "minimax_wg_kernel"} | {fn for fn in PHASES
+                                    if fn.startswith("wb_")}
 KERNELS = ("taylor_fwd_kernel", "taylor_fwd_wg_kernel", "taylor_bwd_kernel",
-           "minimax_step_kernel")
+           "minimax_step_kernel", "taylor_bwd_wg_kernel", "minimax_wg_kernel")
 MAXBLK = 1024
 NPH = len(LABELS)
 
@@ -303,6 +330,14 @@ def main():
     split("K2 ac", "taylor_table", lambda: ct.k2_backward(plan, X, flat, g))
     split("K2-bf16 ac", "taylor_table",
           lambda: ct.k2_backward_bf16(plan, X, flat, g))
+    # the TF32 flavor on the route its shape takes: the wgmma route
+    # (wg_backward.cuh's instances) where the checkout has it, else the
+    # mma.sync kernels
+    k2_units = ("taylor_table",) + tuple(f"taylor_bwd_wg_tf32_{n}"
+                                         for n in (64, 128))
+    k3_units = ("minimax_step",) + tuple(f"minimax_wg_tf32_{n}"
+                                         for n in (64, 128))
+    split("K2-TF32 ac", k2_units, lambda: ct.k2_backward_tf32(plan, X, flat, g))
 
     for label, f_model, widths, nk, (lo, hi) in (
             ("ac", cs._ac_residual, cs.WIDTHS, n, (-1.0, 1.0)),
@@ -325,6 +360,9 @@ def main():
                            for pair in lay for a in pair])
         split(f"K3 {label}", "minimax_step",
               lambda: cm.k3_minimax(sq.plan, Xk, w, fl))
+        if label == "ac":
+            split("K3-TF32 ac", k3_units,
+                  lambda: cm.k3_minimax_tf32(sq.plan, Xk, w, fl))
         if label != "singular":
             split(f"K3-bf16 {label}", "minimax_step",
                   lambda: cm.k3_minimax_bf16(sq.plan, Xk, w, fl))

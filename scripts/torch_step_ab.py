@@ -5,7 +5,9 @@ one session on one card to compare them.
 AC-SA at its ``full`` size (N_f = 50,000, 2-128x4-1, the 512x201 grid,
 ``chip_smoke.ac_sa_problem``) on ``compile(fused="cuda")``: the minimax
 path (K3 per step) and ``minimax=False`` (K1 + K2 per step), and, where
-the checkout has it, each again under ``fused_dtype="bfloat16"``.  Each
+the checkout has it, each again under ``fused_dtype="bfloat16"`` and the
+minimax path with ``neural_net(..., precision=None)`` (K3-TF32 per step;
+``minimax-tf32``); ``--paths`` picks some of them.  Each
 solver first takes ``--steps`` Adam steps that hold the graph's warm-ups
 and capture (not timed); then ``--turns`` turns of ``--steps`` more,
 the paths in the order given and back, each turn one ``fit(tf_iter=steps,
@@ -28,9 +30,12 @@ import time
 
 import numpy as np
 
-PATHS = (("minimax", None, None), ("unfused", False, None),
-         ("minimax-bf16", None, "bfloat16"),
-         ("unfused-bf16", False, "bfloat16"))
+# (tag, minimax, fused_dtype, the network's precision)
+PATHS = (("minimax", None, None, "highest"),
+         ("unfused", False, None, "highest"),
+         ("minimax-bf16", None, "bfloat16", "highest"),
+         ("unfused-bf16", False, "bfloat16", "highest"),
+         ("minimax-tf32", None, None, None))
 
 
 def main():
@@ -41,6 +46,8 @@ def main():
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--turns", type=int, default=4)
     ap.add_argument("--out", default=None, help="append the line here")
+    ap.add_argument("--paths", default=",".join(p[0] for p in PATHS),
+                    help="the paths to time, comma-separated")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -61,15 +68,21 @@ def main():
         timeout=60).stdout.strip()
 
     solvers = {}
-    for tag, minimax, dtype in PATHS:
+    wanted = args.paths.split(",")
+    for tag, minimax, dtype, precision in PATHS:
+        if tag not in wanted:
+            continue
         domain, bcs, f_model, kw = chip_smoke.ac_sa_problem()
         s = tdqt.CollocationSolverND(verbose=False, seed=0)
         extra = {} if dtype is None else dict(fused_dtype=dtype)
+        if precision is None:
+            extra["network"] = tdqt.neural_net(chip_smoke.WIDTHS, seed=0,
+                                               precision=None)
         try:
             s.compile(chip_smoke.WIDTHS, f_model, domain, bcs, fused="cuda",
                       minimax=minimax, **extra, **kw)
-        except tdqt.NotPortedError:
-            continue  # a checkout without the bf16 flavor
+        except (tdqt.NotPortedError, TypeError):
+            continue  # a checkout without the bf16 flavor or the option
         s.fit(tf_iter=args.steps, chunk=args.steps)
         solvers[tag] = s
     turns = {tag: [] for tag in solvers}

@@ -1,0 +1,73 @@
+"""K2-TF32 and K3-TF32 at the Allen-Cahn slice of one checkout, on one
+NVIDIA GPU: the ms of each by CUDA events over 20 launches, three times.
+
+    python3 scripts/torch_tf32_time.py --tree DIR
+
+Run from the root of a checkout; ``--tree`` (default: this script's
+checkout) names the checkout whose ``tensordiffeq_tpu_torch`` package and
+``chip_smoke.py`` are timed, so one call can time several checkouts (or
+copies of one with a kernel constant edited) in turns.  The inputs are
+``chip_smoke.py`` phase 16(a)'s: N = 50,000 points, the net 2-128x4-1 from
+seed 0, the Allen-Cahn residual, per-point weights and table cotangents
+from ``numpy.random.RandomState(2)``.  Prints one line: the card, the
+checkout, the routes the kernels took and the three ms of each.
+"""
+import argparse
+import os
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tree", default=ROOT,
+                    help="the checkout whose kernels are timed")
+    args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("FAILED: no CUDA device")
+    import chip_smoke as cs
+    from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    from tensordiffeq_tpu_torch.ops.fused import analyze_f_model
+    from tensordiffeq_tpu_torch.ops.minimax import build_minimax_sq_fn
+    if not os.path.abspath(ct.__file__).startswith(tree):
+        sys.exit(f"FAILED: imported {ct.__file__}, not the package in {tree}")
+    ct.build()
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(2)
+    n = cs.N_POINTS
+    X = torch.as_tensor(np.stack([rng.uniform(-1, 1, n),
+                                  rng.uniform(0, 1, n)], 1),
+                        dtype=torch.float32, device=dev)
+    reqs = analyze_f_model(cs._ac_residual, ("x", "t"), 1)
+    layers, flat_layers, _, _ = cs._slice_net(cs.WIDTHS, dev)
+    shapes = [tuple(W.shape) for W, _ in layers]
+    plan = ct.build_cuda_table_fn(reqs, shapes, precision=None).plan
+    flat = plan.pack(flat_layers)
+    g = torch.as_tensor(rng.randn(plan.C, n, 1), dtype=torch.float32,
+                        device=dev)
+    sq = build_minimax_sq_fn(cs._ac_residual, ("x", "t"), 1, reqs, shapes,
+                             device=dev, precision=None)
+    w = torch.as_tensor(rng.rand(n, 1) ** 2, dtype=torch.float32, device=dev)
+    fl = [a.detach() if a.ndim == 2 else a.detach().reshape(1, -1)
+          for pair in layers for a in pair]
+    kflat = sq.plan.pack(fl)
+    k2 = [cs.cuda_ms(lambda: ct.k2_backward_tf32(plan, X, flat, g))
+          for _ in range(3)]
+    k3 = [cs.cuda_ms(lambda: cm.k3_minimax_tf32(sq.plan, X, w, kflat))
+          for _ in range(3)]
+    fmt = lambda v: ", ".join(f"{x:.3f}" for x in v)  # noqa: E731
+    print(f"[tf32 time] {cs.card_line()}; {tree}: K3-TF32 "
+          f"({sq.plan.k3_routes[ct.TF32]} route) {fmt(k3)} ms; K2-TF32 "
+          f"({plan.k2_routes[ct.TF32]} route) {fmt(k2)} ms", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -511,8 +511,8 @@ def audit_all():
 
 #: a kernel wrapper's main kernel, by the wrapper's counter key
 KERNEL_NODES = {"k1": re.compile(r"taylor_fwd(?:_wg)?_kernel"),
-                "k2": re.compile(r"taylor_bwd_kernel"),
-                "k3": re.compile(r"minimax_step_kernel")}
+                "k2": re.compile(r"taylor_bwd(?:_wg)?_kernel"),
+                "k3": re.compile(r"minimax_(?:step|wg)_kernel")}
 _LABEL = re.compile(r'label="(.*)"', re.S)
 
 
@@ -572,7 +572,9 @@ class GraphReport:
 #: the port's own kernels (csrc/), by name
 PORT_KERNELS = {"minimax_step_kernel", "taylor_fwd_kernel",
                 "taylor_fwd_wg_kernel", "taylor_bwd_kernel",
-                "reduce_partials", "round_weights", "prep_wg_weights"}
+                "reduce_partials", "round_weights", "prep_wg_weights",
+                "taylor_bwd_wg_kernel", "minimax_wg_kernel",
+                "prep_wb_weights"}
 
 
 def short_name(mangled: str) -> str:

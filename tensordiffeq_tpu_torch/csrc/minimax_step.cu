@@ -78,49 +78,11 @@
 //     writes zero table cotangents (a select, not a multiply), so nothing
 //     of it reaches the sums.
 
-#include "taylor_common.cuh"
-
-#define MAXTIN 48     // tape inputs (table columns and coordinates used)
-#define MAXTOPS 96    // tape ops
-#define MAXTCONST 32  // tape constants
-#define MAXEQ 8       // residual equations
-#define MAXTREG (MAXTIN + MAXTOPS)
+#include "minimax_tape.cuh"  // Tape, its op codes (taylor_common.cuh)
 
 // the epilogue's block sum of the value uses the weight stage as scratch
 static_assert(STAGE_F >= NTHREADS && STAGE_BF_F >= NTHREADS,
               "the stage holds one float per thread");
-
-// op codes (ops/residual_tape.py: OPS)
-#define OP_CONST 0  // r = cst[a]
-#define OP_ADD 1
-#define OP_SUB 2
-#define OP_MUL 3
-#define OP_DIV 4
-#define OP_NEG 5
-#define OP_POW 6    // r = r[a] ** cst[b]
-#define OP_SIN 7
-#define OP_COS 8
-#define OP_EXP 9
-#define OP_TANH 10
-#define OP_LOG 11
-#define OP_SQRT 12
-#define OP_RECIP 13
-
-struct Tape {
-  int n_in, n_ops, n_eq;
-  // input i: table column c*n_out + o for src < C*n_out, else coordinate
-  // src - C*n_out
-  int src[MAXTIN];
-  int op[MAXTOPS][3];  // (code, a, b); op k writes register n_in + k
-  int out[MAXEQ];      // the register of each equation
-  float cst[MAXTCONST];
-};
-
-static __device__ __forceinline__ float pow_c(float a, float c) {
-  if (c == 2.f) return a * a;
-  if (c == 3.f) return a * a * a;
-  return powf(a, c);
-}
 
 // The epilogue of one tile: T holds the table rows [TP*C][ld] (columns <
 // n_out) and is overwritten with their cotangents; gX rows of real points
@@ -319,17 +281,6 @@ minimax_step_kernel(const float* __restrict__ X, const float* __restrict__ w,
 // out[MAXEQ]];  cst_h: [MAXTCONST] floats.  out: P_total + 1 floats (the
 // parameter cotangents, then the value).  flavor: FL_F32 (0), FL_BF16 (1)
 // or FL_TF32 (2); any other value returns cudaErrorInvalidValue.
-
-static Tape unpack_tape(const int* h, const float* cst) {
-  Tape t;
-  t.n_in = h[0]; t.n_ops = h[1]; t.n_eq = h[2];
-  for (int i = 0; i < MAXTIN; ++i) t.src[i] = h[3 + i];
-  for (int k = 0; k < MAXTOPS; ++k)
-    for (int j = 0; j < 3; ++j) t.op[k][j] = h[3 + MAXTIN + 3 * k + j];
-  for (int e = 0; e < MAXEQ; ++e) t.out[e] = h[3 + MAXTIN + 3 * MAXTOPS + e];
-  for (int i = 0; i < MAXTCONST; ++i) t.cst[i] = cst[i];
-  return t;
-}
 
 extern "C" int tdq_minimax_limits(int* out) {
   out[0] = MAXTIN;

@@ -1,0 +1,1176 @@
+// K2 and K3 in their single-pass TF32 flavor on Hopper's warpgroup
+// products: the route for hidden widths up to 128, up to 8 channels and
+// up to 16 inputs and outputs (K1's wgmma route's shapes, wg_plan in
+// taylor_fwd_wg.cuh), the device code; taylor_bwd_wg.cu and minimax_wg.cu
+// hold the C interfaces, taylor_bwd_wg_tf32_{64,128}.cu and
+// minimax_wg_tf32_{64,128}.cu the instances.
+//
+// Replaces, for those shapes and this flavor, the JAX package's
+// ops/pallas_taylor.py::bwd_kernel (pallas_call at :171) as
+// taylor_table.cu's taylor_bwd_kernel<FL_TF32> does, and ops/pallas_minimax
+// .py::build_minimax_sq_fn's kernel (pallas_call at :259) as
+// minimax_step.cu's minimax_step_kernel<FL_TF32> does; those stay the
+// route for every other shape (the host chooses by shape,
+// ops/cuda_taylor.py::wb_plan and wb_plan below, which agree before a
+// plan's first launch).  It computes what they compute: K2 dW/db and dX
+// from the table cotangents; K3 the value sum_e sum_p w f_e^2, dW/db,
+// gw = f^2 and gX through the residual tape.  The interfaces, the packed
+// layouts and the partial slots are theirs, so reduce_partials sums the
+// slots after it as after them.
+//
+// What bounds it.  Operations: the nine 128-wide products of a tile on the
+// AC slice (three forward, three dH, three dW; 58.98 GFLOP at N = 50,000,
+// C = 4), 0.119 ms at one TF32 pass over 495 TFLOP/s; the tanh chains, the
+// Faa di Bruno lines and their transposes on the CUDA cores are the rest.
+// The mma.sync route (taylor_table.cu's K2 note) lost its time to its SIMT
+// passes over a wavefront in shared memory, to dW's read-modify-write of
+// the partial slot from the SMs, to mma.sync's instruction stream and to
+// tiles of 96 rows.  So this route:
+//   * runs persistent blocks, one per SM, each two warpgroups of 64 tile
+//     rows (a tile is 128 rows: points x CP channels, C padded to a power
+//     of two, as K1's route lays them), the weights streaming through a
+//     ring of stages (cp.async.bulk onto "full" mbarriers; each warp
+//     releases a stage on its "empty" one, and thread 0 refills it with
+//     the chunk S ahead).  No producer warp: ptxas gives a block of 9 warps
+//     the registers of 12 (168 a thread, and the NP = 128 instances spilled
+//     up to 4.4 KB), a block of 8 warps up to 255.
+//   * keeps the wavefront in registers, in the accumulator layout of K1's
+//     route: layer 0, the activation pass (wb_act, k1w_act's butterfly),
+//     the forward products chained through the accumulator; the reverse
+//     sweep's pass (wb_act_vjp) is the transpose of the activation pass on
+//     the same butterfly, in place on the cotangent registers.
+//   * runs every hidden product on wgmma, one TF32 pass, operands rounded
+//     by cvt.rna as the referee rounds them (taylor_derivatives(
+//     emulate_tf32=True); the tensor cores would truncate): the forward
+//     H W and dH = dP W^T with A the registers (wgmma.cuh's chaining) and B
+//     a weight chunk, prepared once per launch by prep_wb_weights in
+//     core-matrix, k-slot order (the forward plane W^T, K = in, and the
+//     backward plane W, K = out); dW = H^T dP with both operands in shared
+//     memory, where wgmma reads tf32 only K-major: the producer of each
+//     operand writes it so (wb_put_kmajor: feature rows, tile rows along K,
+//     TF32-rounded), H_l recomputed from the staged Q_{l-1} (no second
+//     staged slice), dP_l from the registers.
+//     No transpose pass runs.
+//   * stages in the workspace only Q_0 .. Q_{L-2}, each hidden layer's
+//     pre-activation channels with the primal's tanh in place of the
+//     primal, as the activation pass holds them between its butterflies:
+//     each thread its own registers, 16 bytes at a time, streaming; (L-1) x
+//     64 KB a block on the AC net, 33.8 MB for 132 blocks (the mma.sync
+//     route's 48.3).  The reverse sweep's recompute of a layer's input and
+//     its VJP start from Q with no butterfly and no tanh.
+//   * is short: the kernel's code runs once per tile, so its length, not
+//     its arithmetic, set the pace at first (a phase of a few hundred
+//     straight-line instructions took ~40 cycles each, the instruction
+//     cache missing).  Each pass is one loop body (a batch of groups, the
+//     registers rotated between batches), layer 0 runs in the forward only
+//     and the reverse sweep's layers, layer 0's included, are one loop.
+//     The batches are small (4 groups in the activation pass, 2 in the
+//     VJP) for the same reason: larger ones ran slower at the AC slice
+//     (PERF.md, scripts/torch_tf32_time.py on copies with them).
+//   * adds dW into the block's own partial slot by bulk reduce-adds
+//     (cp.reduce.async.bulk .add.f32) from a staging copy in shared memory,
+//     one slot row per thread, each after the same thread's add to that
+//     row one tile before completed (and nothing else: the other layers'
+//     adds stay in flight); the block's first tile stores by bulk copies
+//     instead.  The slot's rows are then summed in the tiles' order: no
+//     float atomics across blocks, bit-identical run to run.  Where a
+//     layer's slot rows are not 16-byte pieces (a width or offset not a
+//     multiple of 4) the warpgroup's threads add the staged values from the
+//     SMs instead.
+//   * keeps the tile's rows of X in shared memory for layer 0 (forward and
+//     backward) and the tape.
+//   * the head's narrow product (n_out <= 16 columns) and its cotangent
+//     products, layer 0 and the bias sums stay SIMT, as in the mma.sync
+//     route; K3's epilogue interprets the tape one thread per point
+//     (minimax_tape.cuh), rows past N predicated.
+// Shared memory at the AC slice (NP = 128, C = 4, d = 2, n_out = 1): a
+// ring of two 32 KB weight chunks, the operands H^T and dP^T (64 KB each),
+// the table rows (the bias partials in the reverse sweep, 4 KB), X's rows,
+// the small operands: 205,536 bytes of the H100's 232,448.  Registers
+// (nvcc -Xptxas -v, CUDA 12.8): NP = 128 180-255 (255 at CP = 4, no
+// spills; 8 B of spill stores at CP = 8), NP = 64 114-207, no spills.  A
+// kernel is 7-25 thousand SASS instructions (14,112 for K3 and 12,184 for
+// K2 at NP = 128, CP = 4).
+// The products of a tile are summed in the tensor cores' order and its
+// sums over rows in fixed orders, so a point's contribution is the same
+// bit for bit run to run, but not the same sum as the mma.sync route's.
+
+#pragma once
+
+#include "minimax_tape.cuh"
+#include "taylor_fwd_wg.cuh"
+
+#define WB_ROWS 128       // rows of a tile: two warpgroups of 64
+#define WB_THREADS 256    // the block: the two warpgroups
+#define WB_KC 64          // k rows of a weight chunk
+
+// A launch of the route (ops/cuda_taylor.py::WbPlan, in the same order).
+// P: chunks per tile (each hidden layer's forward plane, then the backward
+// planes in the sweep's order); bulk: dW's slot rows take bulk adds;
+// ws_floats: the launch's workspace (the blocks' slices, then the planes).
+struct WbPlan {
+  int NP, CP, KC, S, P, stage_bytes, n_tiles, grid, smem, bulk, ws_floats;
+};
+#define WB_PLAN_INTS 11
+
+// The C interface's plan: WbPlan's fields in order.
+static inline WbPlan unpack_wb(const int* h) {
+  return WbPlan{h[0], h[1], h[2], h[3], h[4], h[5],
+                h[6], h[7], h[8], h[9], h[10]};
+}
+
+static __host__ __device__ __forceinline__ int pad4(int n) {
+  return (n + 3) & ~3;
+}
+
+// Floats of the small operands (K1's route's: W0, the biases of layers 0 ..
+// L-2 as NP-wide rows, the head's W and bias), a multiple of 4.
+static __host__ __device__ __forceinline__ int wb_misc_floats(const Net& net,
+                                                              int NP) {
+  return pad4(NP * (net.d + net.L - 1 + net.n_out) + WG_MAXOUT);
+}
+
+// Floats of the table rows (128 x n_out) and, in the same place, the bias
+// partials of the reverse sweep (8 warps x NP): the table's cotangents are
+// spent by then.
+static __host__ __device__ __forceinline__ int wb_rows_floats(const Net& net,
+                                                              int NP) {
+  return pad4(imax(WB_ROWS * net.n_out, 8 * NP));
+}
+
+// Dynamic shared memory besides the ring: H^T and dP^T (NP x 128 floats
+// each), the table rows (or the bias partials), the tile's rows of X (128 x
+// d at most), the small operands, the value's 8 warp sums, the 2 x WG_MAXS
+// mbarriers.
+static __host__ __device__ __forceinline__ int wb_fixed_bytes(const Net& net,
+                                                              int NP) {
+  return 4 * (2 * NP * WB_ROWS + wb_rows_floats(net, NP) +
+              pad4(WB_ROWS * net.d) + wb_misc_floats(net, NP) + 8) +
+         2 * WG_MAXS * 8;
+}
+
+// The route's plan for a net and schedule and N on a card with smem_optin
+// bytes of shared memory a block and n_sm SMs; 0 where the shape is the
+// mma.sync route's: K1's route's conditions (wg_plan), and a ring of at
+// least two stages.
+static inline int wb_plan(const Net& net, const Sched& s, int smem_optin,
+                          int n_sm, int N, WbPlan* p) {
+  const int L = net.L, C = s.C;
+  int width = 0;
+  for (int l = 0; l + 1 < L; ++l) width = imax(width, net.w_out[l]);
+  if (C > WG_MAXC || width > 128 || net.d > WG_MAXD ||
+      net.n_out > WG_MAXOUT)
+    return 0;
+  int CP = 1;
+  while (CP < C) CP *= 2;
+  const int NP = width <= 64 ? 64 : 128;
+  const int P = 2 * (L - 2) * (NP / WB_KC);
+  const int stage = NP * WB_KC * 4;
+  const int fixed = wb_fixed_bytes(net, NP);
+  int S = 0;
+  if (P > 0) {
+    S = imin(imin(P, (smem_optin - fixed) / stage), WG_MAXS);
+    if (S < 2) return 0;
+  }
+  int bulk = 1;
+  for (int l = 1; l + 1 < L; ++l)
+    if (net.offW[l] % 4 != 0 || net.w_out[l] % 4 != 0) bulk = 0;
+  const int n_tiles = (int)(((long long)N * CP + WB_ROWS - 1) / WB_ROWS);
+  const int grid = imin(n_tiles, n_sm);
+  *p = WbPlan{NP, CP, WB_KC, S, P, stage, n_tiles, grid, S * stage + fixed,
+              bulk, grid * (L - 1) * WB_ROWS * NP + P * NP * WB_KC};
+  return 1;
+}
+
+// The weights' planes of one launch (the plain mirror is
+// ops/cuda_taylor.py::wb_prepare), chunks of KC k rows, NP rows each, in
+// core-matrix order (wg_cm_offset) and the tf32 k-slot order (wg_kslot),
+// rounded to TF32 (cvt.rna): first the forward planes of layers 1 .. L-2
+// (row n, k the input: W^T, K1's TF32 chunks), then the backward planes of
+// layers L-2 .. 1 (row i, k the output: W as it lies), zero past each
+// layer's shape.
+static __global__ void prep_wb_weights(const float* __restrict__ prm,
+                                       float* __restrict__ out, Net net,
+                                       WbPlan wp) {
+  const int NP = wp.NP, KC = wp.KC, per = NP * KC, nch = NP / KC;
+  const int half = wp.P / 2, total = wp.P * per;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += gridDim.x * blockDim.x) {
+    const int q = e / per, r = e % per, n = r / KC, kq = r % KC;
+    const int k = 8 * (kq / 8) + wg_kslot(kq % 8);
+    float v;
+    if (q < half) {
+      const int l = 1 + q / nch, kk = (q % nch) * KC + k;
+      v = (kk < net.w_in[l] && n < net.w_out[l])
+              ? prm[net.offW[l] + kk * net.w_out[l] + n]
+              : 0.f;
+    } else {
+      const int qb = q - half, l = net.L - 2 - qb / nch;
+      const int kk = (qb % nch) * KC + k;
+      v = (n < net.w_in[l] && kk < net.w_out[l])
+              ? prm[net.offW[l] + n * net.w_out[l] + kk]
+              : 0.f;
+    }
+    out[(size_t)q * per + wg_cm_offset(n, kq, KC, 4)] = tf32r(v);
+  }
+}
+
+// The two warpgroups together, and one warpgroup alone (named barriers).
+static __device__ __forceinline__ void wb_sync_all() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+static __device__ __forceinline__ void wb_sync_wg(int wg) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(2 + wg) : "memory");
+}
+
+// bytes from shared src to global dst (16-byte aligned, a multiple of 16),
+// in the thread's bulk group
+static __device__ __forceinline__ void bulk_store(float* dst, const float* src,
+                                                  unsigned bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      :: "l"(dst), "r"(smem_addr(src)), "r"(bytes) : "memory");
+}
+
+static __device__ __forceinline__ void slot_rmw(float* p, float v,
+                                                bool first) {
+  *p = first ? v : *p + v;
+}
+
+// Wait until at most n of the thread's latest bulk groups are pending (n
+// above 7 waits as for 7, which waits for more).
+static __device__ __forceinline__ void bulk_wait_pending(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.bulk.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.bulk.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.bulk.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.bulk.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.bulk.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.bulk.wait_group 6;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.bulk.wait_group 7;\n" ::: "memory");
+  }
+}
+
+// A column index n < 256 for thread ctid that alternates the warpgroups
+// (even columns to the first, odd to the second), so a pass over fewer
+// columns than threads keeps both busy.
+static __device__ __forceinline__ int wb_spread(int ctid) {
+  return 2 * (ctid & 127) + (ctid >> 7);
+}
+
+// A thread's share of a staged layer (wb_act's Q) back into its registers:
+// register r at slice[((r / 4) * 256 + ctid) * 4 + r % 4], 16 bytes at a
+// time, consecutive threads on consecutive 16 bytes.
+template <int NP>
+static __device__ __forceinline__ void wb_load_p(float (&a)[NP / 2],
+                                                 const float* slice,
+                                                 int ctid) {
+  const float4* p = reinterpret_cast<const float4*>(slice) + ctid;
+#pragma unroll
+  for (int q = 0; q < NP / 8; ++q) {
+    const float4 v = __ldcg(p + q * WB_THREADS);
+    a[4 * q] = v.x;
+    a[4 * q + 1] = v.y;
+    a[4 * q + 2] = v.z;
+    a[4 * q + 3] = v.w;
+  }
+}
+
+// The lane's two tile rows (row0, row0 + 8) of a (rows x NP) operand, the
+// accumulator layout, into buf transposed and K-major: feature n's 128 tile
+// rows r at wg_cm_offset(n, r, 128, 4), rounded to TF32, the operand of a
+// product over the tile's rows.
+template <int NP>
+static __device__ __forceinline__ void wb_put_kmajor(const float (&a)[NP / 2],
+                                                     float* buf, int row0,
+                                                     int t) {
+#pragma unroll
+  for (int i = 0; i < NP / 2; ++i) {
+    const int r = row0 + ((i & 2) ? 8 : 0);
+    buf[wg_cm_offset(acc_col(i, t), r, WB_ROWS, 4)] = tf32r(a[i]);
+  }
+}
+
+// y[k] += v for a channel index k that is the same in every lane (selects,
+// not a register array indexed at run time).
+template <int CP>
+static __device__ __forceinline__ void wb_add_at(float* y, int k, float v) {
+#pragma unroll
+  for (int q = 0; q < CP; ++q) y[q] = q == k ? y[q] + v : y[q];
+}
+
+// Rotate a register array left by R: the passes below take their groups
+// R registers at a time from the front, in a loop that is not unrolled, so
+// their code is one batch long (the kernel's code, executed once per tile,
+// is what bounds it from the instruction cache); NB rotations of R bring
+// the array back.
+template <int N, int R>
+static __device__ __forceinline__ void wb_rotate(float (&a)[N]) {
+  if constexpr (R < N) {
+    float tmp[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) tmp[i] = a[i];
+#pragma unroll
+    for (int i = 0; i < N - R; ++i) a[i] = a[i + R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) a[N - R + i] = tmp[i];
+  }
+}
+
+// The transpose of the activation pass in place.  gr holds the cotangents
+// dH of a layer's post-activation channels (the accumulator layout) and
+// becomes the cotangents dG of its pre-activation channels P; q holds the
+// layer's staged Q (wb_act's lane-transposed layout: the primal's tanh z
+// in place of P's primal), so neither P's transpose nor the tanh is
+// redone.  Each group of CP registers of gr is transposed (k1w_transpose)
+// so that a lane holds all CP channels of one item; then, GB groups at a
+// time, taylor_common.cuh's act_vjp_items on them: the chain z, d1 .. d5,
+// then the channels in ascending order, each line's transpose (the same
+// expressions, the same order).  In place is safe in that order: channel
+// c's own cotangent is read before any line writes it (a line writes only
+// lower channels, and channel 0 never: its cotangent closes the chain
+// last).  Pad channels get zero.  q is spent (rotated).
+template <int NP, int CP, int GB = 2>
+static __device__ __forceinline__ void wb_act_vjp(float (&q)[NP / 2],
+                                                  float (&gr)[NP / 2], int c,
+                                                  const Sched& s) {
+  constexpr int G = NP / 2 / CP, B = G < GB ? G : GB, R = B * CP;
+#pragma unroll 1
+  for (int it = 0; it < G / B; ++it) {
+    float* pa = q;
+    float* ga = gr;
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      float y[CP];
+#pragma unroll
+      for (int k = 0; k < CP; ++k) y[k] = ga[j * CP + k];
+      k1w_transpose<CP>(y, c);
+#pragma unroll
+      for (int k = 0; k < CP; ++k) ga[j * CP + k] = y[k];
+    }
+    float d1[B], d2[B], d3[B], d4[B], d5[B];
+    float gz[B], g1[B], g2[B], g3[B], g4[B];
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      const float z = pa[j * CP];
+      d1[j] = 1.f - z * z;
+      d2[j] = -2.f * z * d1[j];
+      d3[j] = -2.f * d1[j] * (1.f - 3.f * z * z);
+      d4[j] = -2.f * d2[j] * (1.f - 3.f * z * z) + 12.f * z * d1[j] * d1[j];
+      const float z2 = z * z;
+      d5[j] = d1[j] * (16.f - z2 * (120.f - 120.f * z2));
+      gz[j] = ga[j * CP];
+      g1[j] = g2[j] = g3[j] = g4[j] = 0.f;
+    }
+#pragma unroll
+    for (int ch = 1; ch < CP; ++ch) {
+      const int o = ch < s.C ? s.order[ch] : 0;
+      const int* ix = s.idx[ch];
+      if (o == 1) {
+#pragma unroll
+        for (int j = 0; j < B; ++j) {
+          const float g = ga[j * CP + ch];
+          g1[j] += g * pa[j * CP + ch];
+          ga[j * CP + ch] = g * d1[j];
+        }
+      } else if (o == 2) {
+#pragma unroll
+        for (int j = 0; j < B; ++j) {
+          const float* y = pa + j * CP;
+          float* gc = ga + j * CP;
+          const float g = gc[ch];
+          g1[j] += g * y[ch];
+          gc[ch] = g * d1[j];
+          const float a = k1w_pick<CP>(y, ix[0]), bb = k1w_pick<CP>(y, ix[1]);
+          g2[j] += g * a * bb;
+          wb_add_at<CP>(gc, ix[0], g * d2[j] * bb);
+          wb_add_at<CP>(gc, ix[1], g * d2[j] * a);
+        }
+      } else if (o == 3) {
+#pragma unroll
+        for (int j = 0; j < B; ++j) {
+          const float* y = pa + j * CP;
+          float* gc = ga + j * CP;
+          const float g = gc[ch];
+          g1[j] += g * y[ch];
+          gc[ch] = g * d1[j];
+          const float qi = k1w_pick<CP>(y, ix[0]), qj = k1w_pick<CP>(y, ix[1]),
+                      qk = k1w_pick<CP>(y, ix[2]),
+                      rij = k1w_pick<CP>(y, ix[3]),
+                      rik = k1w_pick<CP>(y, ix[4]),
+                      rjk = k1w_pick<CP>(y, ix[5]);
+          g3[j] += g * qi * qj * qk;
+          g2[j] += g * (rij * qk + rik * qj + rjk * qi);
+          wb_add_at<CP>(gc, ix[0], g * (d3[j] * qj * qk + d2[j] * rjk));
+          wb_add_at<CP>(gc, ix[1], g * (d3[j] * qi * qk + d2[j] * rik));
+          wb_add_at<CP>(gc, ix[2], g * (d3[j] * qi * qj + d2[j] * rij));
+          wb_add_at<CP>(gc, ix[3], g * d2[j] * qk);
+          wb_add_at<CP>(gc, ix[4], g * d2[j] * qj);
+          wb_add_at<CP>(gc, ix[5], g * d2[j] * qi);
+        }
+      } else if (o == 4) {
+#pragma unroll
+        for (int j = 0; j < B; ++j) {
+          const float* y = pa + j * CP;
+          float* gc = ga + j * CP;
+          const float g = gc[ch];
+          g1[j] += g * y[ch];
+          gc[ch] = g * d1[j];
+          const float q = k1w_pick<CP>(y, ix[0]), r = k1w_pick<CP>(y, ix[1]),
+                      v = k1w_pick<CP>(y, ix[2]);
+          g2[j] += g * (4.f * v * q + 3.f * r * r);
+          g3[j] += g * 6.f * r * q * q;
+          g4[j] += g * q * q * q * q;
+          wb_add_at<CP>(gc, ix[0], g * (4.f * d2[j] * v + 12.f * d3[j] * r * q
+                                        + 4.f * d4[j] * q * q * q));
+          wb_add_at<CP>(gc, ix[1], g * (6.f * d2[j] * r + 6.f * d3[j] * q * q));
+          wb_add_at<CP>(gc, ix[2], g * 4.f * d2[j] * q);
+        }
+      } else {  // a pad channel
+#pragma unroll
+        for (int j = 0; j < B; ++j) ga[j * CP + ch] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      ga[j * CP] = gz[j] * d1[j] + g1[j] * d2[j] + g2[j] * d3[j]
+                   + g3[j] * d4[j] + g4[j] * d5[j];
+      float y[CP];
+#pragma unroll
+      for (int k = 0; k < CP; ++k) y[k] = ga[j * CP + k];
+      k1w_transpose<CP>(y, c);
+#pragma unroll
+      for (int k = 0; k < CP; ++k) ga[j * CP + k] = y[k];
+    }
+    wb_rotate<NP / 2, R>(q);
+    wb_rotate<NP / 2, R>(gr);
+  }
+}
+
+// The activation pass in place, K1's route's k1w_act (kept apart, so K1's
+// code stays as it is) with the layer's Q staged or taken back.  From P
+// (FROM_Q false: the pre-activations in the accumulator layout): each
+// group of CP registers is transposed
+// (k1w_transpose) so that a lane holds all CP channels of one item, the
+// primal's chain z = tanh, d1, d2 derived, and Q, those groups with z in
+// place of P's primal, written to the workspace slice (16 bytes a group of
+// four registers, streaming): the reverse sweep's recompute and VJP start
+// from it with no butterfly and no tanh.  From Q (a staged slice, loaded by
+// wb_load_p): no transpose in, no tanh.  Then the lines, from the highest
+// channel down (a line reads only lower channels), in place; pad channels
+// zero; the transpose back.  GB groups at a time, in a loop that is not
+// unrolled (wb_rotate).
+template <int NP, int CP, bool FROM_Q, int GB = 4>
+static __device__ __forceinline__ void wb_act(float (&acc)[NP / 2], int c,
+                                              const Sched& s,
+                                              float* __restrict__ slice,
+                                              int ctid) {
+  constexpr int G = NP / 2 / CP, B = G < GB ? G : GB, R = B * CP;
+#pragma unroll 1
+  for (int it = 0; it < G / B; ++it) {
+    float* a = acc;
+    if constexpr (!FROM_Q) {
+#pragma unroll
+      for (int j = 0; j < B; ++j) {
+        float x[CP];
+#pragma unroll
+        for (int q = 0; q < CP; ++q) x[q] = a[j * CP + q];
+        k1w_transpose<CP>(x, c);
+#pragma unroll
+        for (int q = 0; q < CP; ++q) a[j * CP + q] = x[q];
+      }
+    }
+    float z[B], d1[B], d2[B];
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      z[j] = FROM_Q ? a[j * CP] : tanhf(a[j * CP]);
+      d1[j] = 1.f - z[j] * z[j];
+      d2[j] = -2.f * z[j] * d1[j];
+    }
+    if constexpr (!FROM_Q) {
+      // register r of the thread at slice[((r / 4) * 256 + ctid) * 4 + r % 4]
+#pragma unroll
+      for (int j = 0; j < B; ++j) {
+        float v[CP];
+        v[0] = z[j];
+#pragma unroll
+        for (int q = 1; q < CP; ++q) v[q] = a[j * CP + q];
+        const int r0 = (it * B + j) * CP;
+        if constexpr (CP % 4 == 0) {
+#pragma unroll
+          for (int q = 0; q < CP; q += 4)
+            __stcs(reinterpret_cast<float4*>(slice) +
+                       (size_t)((r0 + q) / 4) * WB_THREADS + ctid,
+                   make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]));
+        } else {
+#pragma unroll
+          for (int q = 0; q < CP; ++q) {
+            const int r = r0 + q;
+            __stcs(slice + ((size_t)(r / 4) * WB_THREADS + ctid) * 4 + r % 4,
+                   v[q]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int ch = CP - 1; ch >= 1; --ch) {
+      const int o = ch < s.C ? s.order[ch] : 0;
+      const int* ix = s.idx[ch];
+      if (o == 1) {
+#pragma unroll
+        for (int j = 0; j < B; ++j) a[j * CP + ch] = d1[j] * a[j * CP + ch];
+      } else if (o == 2) {
+#pragma unroll
+        for (int j = 0; j < B; ++j) {
+          const float* y = a + j * CP;
+          a[j * CP + ch] = d1[j] * y[ch] + d2[j] * k1w_pick<CP>(y, ix[0])
+                                               * k1w_pick<CP>(y, ix[1]);
+        }
+      } else if (o == 3) {
+#pragma unroll
+        for (int j = 0; j < B; ++j) {
+          const float* y = a + j * CP;
+          const float d3 = -2.f * d1[j] * (1.f - 3.f * z[j] * z[j]);
+          const float qi = k1w_pick<CP>(y, ix[0]),
+                      qj = k1w_pick<CP>(y, ix[1]),
+                      qk = k1w_pick<CP>(y, ix[2]),
+                      rij = k1w_pick<CP>(y, ix[3]),
+                      rik = k1w_pick<CP>(y, ix[4]),
+                      rjk = k1w_pick<CP>(y, ix[5]);
+          a[j * CP + ch] = d3 * qi * qj * qk
+                           + d2[j] * (rij * qk + rik * qj + rjk * qi)
+                           + d1[j] * y[ch];
+        }
+      } else if (o == 4) {
+#pragma unroll
+        for (int j = 0; j < B; ++j) {
+          const float* y = a + j * CP;
+          const float e = 1.f - 3.f * z[j] * z[j];
+          const float d3 = -2.f * d1[j] * e;
+          const float d4 = -2.f * d2[j] * e + 12.f * z[j] * d1[j] * d1[j];
+          const float q = k1w_pick<CP>(y, ix[0]), r = k1w_pick<CP>(y, ix[1]),
+                      w = k1w_pick<CP>(y, ix[2]);
+          a[j * CP + ch] = d1[j] * y[ch] + 4.f * d2[j] * w * q
+                           + 3.f * d2[j] * r * r + 6.f * d3 * r * q * q
+                           + d4 * q * q * q * q;
+        }
+      } else {  // a pad channel
+#pragma unroll
+        for (int j = 0; j < B; ++j) a[j * CP + ch] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      float x[CP];
+      x[0] = z[j];
+#pragma unroll
+      for (int q = 1; q < CP; ++q) x[q] = a[j * CP + q];
+      k1w_transpose<CP>(x, c);
+#pragma unroll
+      for (int q = 0; q < CP; ++q) a[j * CP + q] = x[q];
+    }
+    wb_rotate<NP / 2, R>(acc);
+  }
+}
+
+// The bias cotangent's share of a warp: each column's sum over the warp's
+// primal rows (the bias sees only the primal channel) into sDb[warp][col].
+// A lane's two rows are one channel (g % CP); the lanes of one channel and
+// column differ in the bits of g at and above CP, which the shuffles sum.
+template <int NP, int CP>
+static __device__ __forceinline__ void wb_bias_partial(
+    const float (&a)[NP / 2], float* sDb, int warp, int g, int t, int c) {
+#pragma unroll
+  for (int j = 0; j < NP / 8; ++j)
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      float v = c == 0 ? a[4 * j + b] + a[4 * j + 2 + b] : 0.f;
+      if (CP < 8) v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (CP < 4) v += __shfl_xor_sync(0xffffffffu, v, 8);
+      if (CP < 2) v += __shfl_xor_sync(0xffffffffu, v, 4);
+      if (g == 0) sDb[warp * NP + 8 * j + 2 * t + b] = v;
+    }
+}
+
+// db of a layer of w <= 128 columns: the 8 warps' partials summed in warp
+// order, into the slot (assigned on the block's first tile), a column a
+// thread (wb_spread).
+static __device__ __forceinline__ void wb_bias(const float* sDb, int NP,
+                                               int w, float* __restrict__ slot,
+                                               bool first, int ctid) {
+  const int n = wb_spread(ctid);
+  if (n >= w) return;
+  float v = sDb[n];
+  for (int k = 1; k < 8; ++k) v += sDb[k * NP + n];
+  slot_rmw(slot + n, v, first);
+}
+
+// The weight ring: S stages of stage_bytes, each with a "full" mbarrier
+// (the chunk's bytes landed) and an "empty" one (the 8 warps released it);
+// the block's chunks are the planes' P in order, once per tile, total in
+// all.  Thread 0 fills it: the first S chunks before the tiles, then chunk
+// i + S into chunk i's stage as soon as every warp released chunk i.
+struct WbRing {
+  char* stages;
+  const char* planes;
+  uint64_t* full;
+  uint64_t* empty;
+  int S, P, stage_bytes;
+  long long total;
+};
+
+static __device__ __forceinline__ void wb_fill(const WbRing& r, long long i) {
+  const int st = (int)(i % r.S);
+  mbar_expect(&r.full[st], (unsigned)r.stage_bytes);
+  bulk_copy(r.stages + (size_t)st * r.stage_bytes,
+            r.planes + (size_t)(i % r.P) * r.stage_bytes,
+            (unsigned)r.stage_bytes, &r.full[st]);
+}
+
+// Wait for chunk i; returns its stage's shared address.
+static __device__ __forceinline__ unsigned wb_acquire(const WbRing& r,
+                                                      long long i) {
+  const int st = (int)(i % r.S);
+  mbar_wait(&r.full[st], (unsigned)((i / r.S) & 1));
+  return smem_addr(r.stages + (size_t)st * r.stage_bytes);
+}
+
+// The warp is done with chunk i (its products waited for); thread 0 then
+// waits for the other warps and refills the stage with chunk i + S.
+static __device__ __forceinline__ void wb_release(const WbRing& r,
+                                                  long long i, int lane) {
+  const int st = (int)(i % r.S);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&r.empty[st]);
+  if (threadIdx.x == 0 && i + r.S < r.total) {
+    mbar_wait(&r.empty[st], (unsigned)((i / r.S) & 1));
+    wb_fill(r, i + r.S);
+  }
+}
+
+// Hidden layer l's forward product in place (K1's route's k1w_products on
+// this ring): acc (the layer's input) becomes H W_l + b_l, the bias on
+// primal rows.
+template <int NP>
+static __device__ __forceinline__ void wb_products(float (&acc)[NP / 2],
+                                                   int l, int c, int t,
+                                                   int lane, const float* sB,
+                                                   const WbRing& r,
+                                                   long long& chunk) {
+  float nacc[NP / 2];
+#pragma unroll
+  for (int h = 0; h < NP / WB_KC; ++h) {
+    wg_chunk<FL_TF32, NP, WB_KC>(nacc, acc, h, wb_acquire(r, chunk), h == 0);
+    wb_release(r, chunk, lane);
+    ++chunk;
+  }
+  const float* b = sB + l * NP;
+#pragma unroll
+  for (int i = 0; i < NP / 2; ++i)
+    acc[i] = c == 0 ? nacc[i] + b[acc_col(i, t)] : nacc[i];
+}
+
+// dH_l = dP_l W_l^T into out: A the cotangent registers (rounded to TF32 as
+// they are packed, wg_chunk), B layer l's backward plane, chunk by chunk
+// through the ring.
+template <int NP>
+static __device__ __forceinline__ void wb_dh(float (&out)[NP / 2],
+                                             const float (&in)[NP / 2],
+                                             int lane, const WbRing& r,
+                                             long long& chunk) {
+#pragma unroll
+  for (int h = 0; h < NP / WB_KC; ++h) {
+    wg_chunk<FL_TF32, NP, WB_KC>(out, in, h, wb_acquire(r, chunk), h == 0);
+    wb_release(r, chunk, lane);
+    ++chunk;
+  }
+}
+
+// dW_l = H_l^T dP_l over the tile's 128 rows into acc: warpgroup wg takes
+// the columns wg*NP/2 .., all NP rows (NP/64 m64 products per k step), A
+// from Ht, B from its half of dPt, both K-major.
+template <int NP>
+static __device__ __forceinline__ void wb_dw_product(
+    float (&acc)[NP / 64][NP / 4], const float* Ht, const float* dPt,
+    int wg) {
+  constexpr int H2 = NP / 2, MT = NP / 64, NR = NP / 4;
+  constexpr unsigned SBO = (WB_ROWS / 4) * 128;  // an 8-row group's bytes
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < NR; ++i) acc[m][i] = 0.f;
+  const unsigned a0 = smem_addr(Ht);
+  const unsigned b0 = smem_addr(dPt) + (unsigned)(wg * (H2 / 8)) * SBO;
+  wg_fence();
+#pragma unroll
+  for (int s = 0; s < WB_ROWS / 8; ++s)
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+      WgMmaSS<H2>::run(acc[m], wg_desc(a0 + m * 8 * SBO + 256 * s, 128, SBO),
+                       wg_desc(b0 + 256 * s, 128, SBO), s > 0 ? 1 : 0);
+  wg_commit();
+  wg_wait_all();
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < NR; ++i) wg_keep(acc[m][i]);
+}
+
+// The warpgroup's dW block (wb_dw_product) into the block's slot rows
+// (slot: the layer's W in the slot, Ni x Nn): row-major [NP][NP/2] over the
+// warpgroup's half of dPt (no other warpgroup reads it), then one slot row
+// per thread by a bulk copy on the block's first tile, else a bulk
+// reduce-add (bulk), or, where the rows are not 16-byte pieces, element by
+// element.  A thread's add to a row waits for its add to the same row one
+// tile before, which lies `behind` bulk groups back (its groups of a tile
+// less one), so the row's sums are taken in the tiles' order; the staging
+// is read before dPt is written again (bulk_wait_read before the block's
+// next barrier).
+template <int NP>
+static __device__ __forceinline__ void wb_dw_update(
+    const float (&acc)[NP / 64][NP / 4], float* dPt,
+    float* __restrict__ slot, int Ni, int Nn, bool first, int bulk,
+    int behind, int wg, int wt, int wq, int g, int t) {
+  constexpr int H2 = NP / 2, MT = NP / 64;
+  float* st = dPt + wg * H2 * WB_ROWS;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < H2 / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 64 * m + 16 * wq + g + 8 * h;
+        *reinterpret_cast<float2*>(st + i * H2 + 8 * j + 2 * t) =
+            make_float2(acc[m][4 * j + 2 * h], acc[m][4 * j + 2 * h + 1]);
+      }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  wb_sync_wg(wg);
+  const int n0 = wg * H2, len = imin(H2, Nn - n0);
+  if (len <= 0) return;
+  if (bulk) {
+    if (wt < Ni) {
+      bulk_wait_pending(behind);
+      float* dst = slot + (size_t)wt * Nn + n0;
+      if (first) bulk_store(dst, st + wt * H2, 4u * (unsigned)len);
+      else bulk_reduce_add(dst, st + wt * H2, 4u * (unsigned)len);
+      bulk_commit();
+    }
+  } else {
+    for (int e = wt; e < NP * H2; e += 128) {
+      const int i = e / H2, n = e % H2;
+      if (i < Ni && n < len) slot_rmw(slot + (size_t)i * Nn + n0 + n, st[e],
+                                      first);
+    }
+  }
+}
+
+// The head's table rows T[row][o] (K3): K1's route's head (k1w_head) into
+// shared memory, every row (a pad channel's is zero).  acc (the
+// post-activations) is rounded to TF32 in place.
+template <int NP>
+static __device__ __forceinline__ void wb_head(float (&acc)[NP / 2],
+                                               float* T, int n_out, int c,
+                                               int t, int row0,
+                                               const float* sWh,
+                                               const float* sBh) {
+#pragma unroll
+  for (int i = 0; i < NP / 2; ++i) acc[i] = tf32r(acc[i]);
+  for (int o = 0; o < n_out; ++o) {
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NP / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      const float w0 = sWh[col * n_out + o], w1 = sWh[(col + 1) * n_out + o];
+      s0 = fmaf(acc[4 * j], w0, s0);
+      s0 = fmaf(acc[4 * j + 1], w1, s0);
+      s1 = fmaf(acc[4 * j + 2], w0, s1);
+      s1 = fmaf(acc[4 * j + 3], w1, s1);
+    }
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+    if (c == 0) {
+      s0 += sBh[o];
+      s1 += sBh[o];
+    }
+    if ((o & 3) == t) {
+      T[row0 * n_out + o] = s0;
+      T[(row0 + 8) * n_out + o] = s1;
+    }
+  }
+}
+
+// Layer 0's pre-activations of the lane's two rows (points pl0, pl1 of the
+// tile; its channel of order ord, -1 a pad channel): K1's route's
+// k1w_layer0 with X's rows from shared memory (sx: the tile's, zero past
+// N), rounded to TF32 as operands.
+template <int NP>
+static __device__ __forceinline__ void wb_layer0(const float* sx, int d,
+                                                 int pl0, int pl1, int ord,
+                                                 int dir, int t,
+                                                 const float* sW0,
+                                                 const float* sB,
+                                                 float (&acc)[NP / 2]) {
+#pragma unroll
+  for (int i = 0; i < NP / 2; ++i) acc[i] = 0.f;
+  for (int k = 0; k < d; ++k) {
+    const float x0 = tf32r(sx[pl0 * d + k]), x1 = tf32r(sx[pl1 * d + k]);
+    const float* w = sW0 + k * NP;
+#pragma unroll
+    for (int i = 0; i < NP / 2; ++i)
+      acc[i] = fmaf((i & 2) ? x1 : x0, w[acc_col(i, t)], acc[i]);
+  }
+  const float* seed = sW0 + dir * NP;
+#pragma unroll
+  for (int i = 0; i < NP / 2; ++i) {
+    const int col = acc_col(i, t);
+    acc[i] = ord == 0 ? acc[i] + sB[col] : (ord == 1 ? seed[col] : 0.f);
+  }
+}
+
+// K3's epilogue of one tile: one thread per point interprets the
+// tape (tape_point, the point's coordinates from sx) on its rows of T,
+// which become the table
+// cotangents (a row past N gets zeros and runs no tape); the value's sum
+// over the tile (a warp's by shuffles, the 8 warps' in order) into the
+// slot's last element.  Ends with the block's barrier.
+template <int CP>
+static __device__ __forceinline__ void wb_epilogue(
+    float* T, const float* sx, const float* __restrict__ w,
+    float* __restrict__ gw, float* __restrict__ gX, int N, int p0, int C,
+    int n_out, int d, const Tape& tp, float* sRed, float* vslot, bool first,
+    int ctid, int lane, int warp) {
+  constexpr int TP = WB_ROWS / CP;
+  float v = 0.f;
+  if (ctid < TP) {
+    const int gp = p0 + ctid;
+    float* rows = T + ctid * CP * n_out;
+    if (gp < N) {
+      v = tape_point(rows, n_out, sx + ctid * d, w, gw, gX, gp, C, n_out, d,
+                     tp);
+    } else {
+      for (int cc = 0; cc < C; ++cc)
+        for (int o = 0; o < n_out; ++o) rows[cc * n_out + o] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  if (lane == 0) sRed[warp] = v;
+  wb_sync_all();
+  if (ctid == 0) {
+    float sum = sRed[0];
+    for (int k = 1; k < 8; ++k) sum += sRed[k];
+    slot_rmw(vslot, sum, first);
+  }
+  wb_sync_all();
+}
+
+// The head's cotangent products from T (its pre-activation cotangents,
+// rows x n_out) and Ht (its input, TF32, K-major): db and dW into the
+// slot, one output element a thread, summed over the tile's rows in order
+// (taylor_common.cuh's narrow_dw, bias_accum); dH, the cotangent of the
+// last hidden layer's post-activations, into the lane's registers
+// (narrow_dh), W from sWh (rounded).  Operands rounded to TF32.
+template <int NP, int CP>
+static __device__ __forceinline__ void wb_head_bwd(
+    float (&dh)[NP / 2], const float* T, const float* Ht, const float* sWh,
+    int n_out, int wl, float* __restrict__ pW, float* __restrict__ pb,
+    bool first, int ctid, int row0, int t) {
+  constexpr int TP = WB_ROWS / CP;
+  for (int o = ctid; o < n_out; o += WB_THREADS) {
+    float v = 0.f;
+    for (int p = 0; p < TP; ++p) v += T[p * CP * n_out + o];
+    slot_rmw(pb + o, v, first);
+  }
+  for (int base = 0; base < wl * n_out; base += WB_THREADS) {
+    const int e = base + wb_spread(ctid);
+    if (e >= wl * n_out) break;
+    const int i = e / n_out, o = e % n_out;
+    float v = 0.f;
+    for (int r = 0; r < WB_ROWS; ++r)
+      v = fmaf(Ht[wg_cm_offset(i, r, WB_ROWS, 4)], tf32r(T[r * n_out + o]), v);
+    slot_rmw(pW + e, v, first);
+  }
+#pragma unroll
+  for (int i = 0; i < NP / 2; ++i) dh[i] = 0.f;
+  for (int o = 0; o < n_out; ++o) {
+    const float a0 = tf32r(T[row0 * n_out + o]);
+    const float a1 = tf32r(T[(row0 + 8) * n_out + o]);
+#pragma unroll
+    for (int i = 0; i < NP / 2; ++i)
+      dh[i] = fmaf((i & 2) ? a1 : a0, sWh[acc_col(i, t) * n_out + o], dh[i]);
+  }
+}
+
+// Layer 0's weight and input cotangents from dP_0 (in dPt, TF32, K-major)
+// and the tile's rows of X (sx, rounded here): taylor_common.cuh's
+// layer0_bwd, one
+// output element a thread.  dX = the sum (K2), or += it (K3: the tape's
+// direct adjoints are there).
+template <int CP, bool K3>
+static __device__ __forceinline__ void wb_layer0_bwd(
+    const float* dPt, const float* sx, const float* sW0, int NP,
+    float* __restrict__ dX, float* __restrict__ pW, int N, int p0, int d,
+    int w0, const Sched& s, bool first, int ctid) {
+  constexpr int TP = WB_ROWS / CP;
+  for (int e = ctid; e < d * w0; e += WB_THREADS) {
+    const int k = e / w0, j = e % w0;
+    float v = 0.f;
+    for (int p = 0; p < TP; ++p)
+      v = fmaf(tf32r(sx[p * d + k]), dPt[wg_cm_offset(j, p * CP, WB_ROWS, 4)],
+               v);
+    for (int cc = 1; cc < s.C; ++cc) {
+      if (s.order[cc] != 1 || s.idx[cc][0] != k) continue;
+      for (int p = 0; p < TP; ++p)
+        v += dPt[wg_cm_offset(j, p * CP + cc, WB_ROWS, 4)];
+    }
+    slot_rmw(pW + e, v, first);
+  }
+  for (int e = ctid; e < TP * d; e += WB_THREADS) {
+    const int p = e / d, k = e % d, gp = p0 + p;
+    if (gp >= N) continue;
+    float v = 0.f;
+    for (int j = 0; j < w0; ++j)
+      v = fmaf(dPt[wg_cm_offset(j, p * CP, WB_ROWS, 4)], sW0[k * NP + j], v);
+    float* dst = dX + (size_t)gp * d + k;
+    *dst = K3 ? *dst + v : v;
+  }
+}
+
+// The route's body, shared by K2 (K3 false: the table cotangents gtab in,
+// dX out) and K3 (the tape's epilogue on the head's rows; w in, gw and gX
+// out).
+template <int NP, int CP, bool K3>
+static __device__ __forceinline__ void wb_body(
+    const float* __restrict__ X, const float* __restrict__ w,
+    const float* __restrict__ prm, const float* __restrict__ gtab,
+    float* __restrict__ gw, float* __restrict__ dX, float* __restrict__ part,
+    float* __restrict__ ws, int N, const Net& net, const Sched& s,
+    const Tape* tp, const WbPlan& wp) {
+  constexpr int H2 = NP / 2, TP = WB_ROWS / CP;
+  extern __shared__ __align__(128) char smw[];
+  const int d = net.d, L = net.L, n_out = net.n_out, C = s.C;
+  char* stages = smw;
+  float* Ht = reinterpret_cast<float*>(smw + (size_t)wp.S * wp.stage_bytes);
+  float* dPt = Ht + NP * WB_ROWS;
+  float* T = dPt + NP * WB_ROWS;
+  float* sDb = T;  // the reverse sweep's bias partials
+  float* sx = T + wb_rows_floats(net, NP);
+  float* sW0 = sx + pad4(WB_ROWS * d);
+  float* sB = sW0 + d * NP;
+  float* sWh = sB + (L - 1) * NP;
+  float* sBh = sWh + NP * n_out;
+  float* sRed = sW0 + wb_misc_floats(net, NP);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smw + (wp.smem - 2 * WG_MAXS * 8));
+  uint64_t* empty = full + WG_MAXS;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < wp.S; ++i) {
+      mbar_init_n(&full[i], 1);
+      mbar_init_n(&empty[i], 8);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  const int w0 = net.w_out[0], wl = net.w_in[L - 1];
+  for (int e = threadIdx.x; e < d * NP; e += WB_THREADS) {
+    const int k = e / NP, n = e % NP;
+    sW0[e] = n < w0 ? tf32r(prm[net.offW[0] + k * w0 + n]) : 0.f;
+  }
+  for (int e = threadIdx.x; e < (L - 1) * NP; e += WB_THREADS) {
+    const int l = e / NP, n = e % NP;
+    sB[e] = n < net.w_out[l] ? prm[net.offb[l] + n] : 0.f;
+  }
+  for (int e = threadIdx.x; e < NP * n_out; e += WB_THREADS)
+    sWh[e] = e / n_out < wl ? tf32r(prm[net.offW[L - 1] + e]) : 0.f;
+  for (int o = threadIdx.x; o < n_out; o += WB_THREADS)
+    sBh[o] = prm[net.offb[L - 1] + o];
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t slice = (size_t)WB_ROWS * NP;
+  const int mine = (wp.n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
+                   (int)gridDim.x;
+  const WbRing ring{stages,
+                    reinterpret_cast<const char*>(
+                        ws + (size_t)wp.grid * (L - 1) * slice),
+                    full, empty, wp.S, wp.P, wp.stage_bytes,
+                    (long long)mine * wp.P};
+  if (threadIdx.x == 0)
+    for (long long i = 0; i < imin(wp.S, (int)ring.total); ++i)
+      wb_fill(ring, i);
+  const int ctid = threadIdx.x, wg = warp >> 2, wq = warp & 3;
+  const int g = lane >> 2, t = lane & 3, wt = ctid & 127;
+  const int c = g % CP;
+  const int ord = c < C ? s.order[c] : -1;
+  const int dir = ord == 1 ? s.idx[c][0] : 0;
+  const int row0 = 64 * wg + 16 * wq + g;
+  const int pl0 = row0 / CP, pl1 = (row0 + 8) / CP;
+  const int P_all = K3 ? net.P_total + 1 : net.P_total;
+  float* mypart = part + (size_t)blockIdx.x * slot_stride(P_all);
+  float* myws = ws + (size_t)blockIdx.x * (L - 1) * slice;
+  long long chunk = 0;
+  // the bulk groups this thread issues a tile (wb_dw_update), less one
+  int behind = -1;
+  for (int l = 1; l + 1 < L; ++l)
+    behind += wt < net.w_in[l] && wg * H2 < net.w_out[l];
+  for (int tile = blockIdx.x; tile < wp.n_tiles; tile += gridDim.x) {
+    const bool first = tile == (int)blockIdx.x;
+    const int p0 = tile * TP;
+    for (int e = ctid; e < TP * d; e += WB_THREADS)
+      sx[e] = p0 + e / d < N ? X[(size_t)p0 * d + e] : 0.f;
+    wb_sync_all();
+    // the forward, staging Q_0 .. Q_{L-2}
+    float acc[H2];
+    wb_layer0<NP>(sx, d, pl0, pl1, ord, dir, t, sW0, sB, acc);
+    for (int l = 1; l < L; ++l) {
+      wb_act<NP, CP, false>(acc, c, s, myws + (l - 1) * slice, ctid);
+      if (l + 1 < L) wb_products<NP>(acc, l, c, t, lane, sB, ring, chunk);
+    }
+    // the head: acc holds its input H_{L-1}
+    wb_put_kmajor<NP>(acc, Ht, row0, t);
+    if constexpr (K3) {
+      wb_head<NP>(acc, T, n_out, c, t, row0, sWh, sBh);
+      wb_sync_all();
+      wb_epilogue<CP>(T, sx, w, gw, dX, N, p0, C, n_out, d, *tp, sRed,
+                      mypart + net.P_total, first, ctid, lane, warp);
+    } else {
+      for (int e = ctid; e < WB_ROWS * n_out; e += WB_THREADS) {
+        const int r = e / n_out, o = e % n_out, p = r / CP, cc = r % CP;
+        const int gp = p0 + p;
+        T[e] = (cc < C && gp < N) ? gtab[((size_t)cc * N + gp) * n_out + o]
+                                  : 0.f;
+      }
+      wb_sync_all();
+    }
+    float dh[H2];
+    wb_head_bwd<NP, CP>(dh, T, Ht, sWh, n_out, wl,
+                        mypart + net.offW[L - 1], mypart + net.offb[L - 1],
+                        first, ctid, row0, t);
+    // the reverse sweep, last hidden layer to layer 0
+    for (int l = L - 2; l >= 0; --l) {
+      bulk_wait_read();
+      wb_sync_all();  // Ht, dPt (the staged dW read), sDb free
+      float x[H2];
+      if (l >= 1) {  // H_l, the layer's input, from Q_{l-1}
+        wb_load_p<NP>(x, myws + (l - 1) * slice, ctid);
+        wb_act<NP, CP, true>(x, c, s, nullptr, ctid);
+        wb_put_kmajor<NP>(x, Ht, row0, t);
+      }
+      wb_load_p<NP>(x, myws + l * slice, ctid);  // Q_l
+      wb_act_vjp<NP, CP>(x, dh, c, s);          // dh = dP_l
+      wb_bias_partial<NP, CP>(dh, sDb, warp, g, t, c);
+      wb_put_kmajor<NP>(dh, dPt, row0, t);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      wb_sync_all();
+      wb_bias(sDb, NP, net.w_out[l], mypart + net.offb[l], first, ctid);
+      if (l == 0) {
+        wb_layer0_bwd<CP, K3>(dPt, sx, sW0, NP, dX, mypart + net.offW[0], N,
+                              p0, d, w0, s, first, ctid);
+        break;
+      }
+      float nh[H2];
+      wb_dh<NP>(nh, dh, lane, ring, chunk);
+      {
+        float dw[NP / 64][NP / 4];
+        wb_dw_product<NP>(dw, Ht, dPt, wg);
+        wb_dw_update<NP>(dw, dPt, mypart + net.offW[l], net.w_in[l],
+                         net.w_out[l], first, wp.bulk, behind, wg, wt, wq, g,
+                         t);
+      }
+#pragma unroll
+      for (int i = 0; i < H2; ++i) dh[i] = nh[i];
+    }
+    wb_sync_all();  // sx, sDb and dPt read before the next tile
+  }
+  bulk_wait();  // this thread's last bulk adds are in the slot
+}
+
+template <int NP, int CP>
+__global__ void __launch_bounds__(WB_THREADS, 1)
+taylor_bwd_wg_kernel(const float* __restrict__ X,
+                     const float* __restrict__ prm,
+                     const float* __restrict__ gtab, float* __restrict__ dX,
+                     float* __restrict__ part, float* __restrict__ ws, int N,
+                     Net net, Sched s, WbPlan wp) {
+  wb_body<NP, CP, false>(X, nullptr, prm, gtab, nullptr, dX, part, ws, N,
+                         net, s, nullptr, wp);
+}
+
+template <int NP, int CP>
+__global__ void __launch_bounds__(WB_THREADS, 1)
+minimax_wg_kernel(const float* __restrict__ X, const float* __restrict__ w,
+                  const float* __restrict__ prm, float* __restrict__ gw,
+                  float* __restrict__ gX, float* __restrict__ part,
+                  float* __restrict__ ws, int N, Net net, Sched s,
+                  const __grid_constant__ Tape tp, WbPlan wp) {
+  wb_body<NP, CP, true>(X, w, prm, nullptr, gw, gX, part, ws, N, net, s,
+                        &tp, wp);
+}
+
+// The planes, then the route's kernel, then the slots' sum: K2 (gtab in,
+// dX out) or K3 (tp and w in, gw and dX = gX out).
+template <int NP, int CP, bool K3>
+static int launch_wb(const float* X, const float* w, const float* prm,
+                     const float* gtab, float* gw, float* dX, float* part,
+                     float* ws, float* out, int N, const Net& net,
+                     const Sched& s, const Tape* tp, const WbPlan& wp,
+                     cudaStream_t st) {
+  cudaError_t e;
+  if constexpr (K3)
+    e = cudaFuncSetAttribute(minimax_wg_kernel<NP, CP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             wp.smem);
+  else
+    e = cudaFuncSetAttribute(taylor_bwd_wg_kernel<NP, CP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             wp.smem);
+  if (e != cudaSuccess) return (int)e;
+  if (wp.P > 0) {
+    prep_wb_weights<<<64, 256, 0, st>>>(
+        prm, ws + (size_t)wp.grid * (net.L - 1) * WB_ROWS * NP, net, wp);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if constexpr (K3)
+    minimax_wg_kernel<NP, CP><<<wp.grid, WB_THREADS, wp.smem, st>>>(
+        X, w, prm, gw, dX, part, ws, N, net, s, *tp, wp);
+  else
+    taylor_bwd_wg_kernel<NP, CP><<<wp.grid, WB_THREADS, wp.smem, st>>>(
+        X, prm, gtab, dX, part, ws, N, net, s, wp);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int P = K3 ? net.P_total + 1 : net.P_total;
+  reduce_partials<false><<<(P + 255) / 256, 256, 0, st>>>(part, out, wp.grid,
+                                                          P, net);
+  return (int)cudaGetLastError();
+}
+
+// One kernel's launches at one NP, at the plan's CP
+// (taylor_bwd_wg_tf32_*.cu and minimax_wg_tf32_*.cu define them, so nvcc
+// builds the four side by side; cudaErrorInvalidValue for a channel count
+// the route has no instance of).
+#define WB_ARGS                                                              \
+  const float *X, const float *w, const float *prm, const float *gtab,      \
+      float *gw, float *dX, float *part, float *ws, float *out, int N,      \
+      const Net &net, const Sched &s, const Tape *tp, const WbPlan &wp,    \
+      cudaStream_t st
+#define WB_CALL(NP, CP, K3)                                                  \
+  launch_wb<NP, CP, K3>(X, w, prm, gtab, gw, dX, part, ws, out, N, net, s,  \
+                        tp, wp, st)
+#define WB_INSTANCES(name, NP, K3)                                           \
+  int name(WB_ARGS) {                                                        \
+    switch (wp.CP) {                                                         \
+      case 1: return WB_CALL(NP, 1, K3);                                     \
+      case 2: return WB_CALL(NP, 2, K3);                                     \
+      case 4: return WB_CALL(NP, 4, K3);                                     \
+      case 8: return WB_CALL(NP, 8, K3);                                     \
+      default: return (int)cudaErrorInvalidValue;                            \
+    }                                                                        \
+  }
+int k2wb_tf32_64(WB_ARGS);
+int k2wb_tf32_128(WB_ARGS);
+int k3wb_tf32_64(WB_ARGS);
+int k3wb_tf32_128(WB_ARGS);

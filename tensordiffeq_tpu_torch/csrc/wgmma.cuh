@@ -1,6 +1,8 @@
 // Hopper's warpgroup products (wgmma.mma_async, sm_90a) as the new K1
 // route takes them (taylor_fwd_wg.cu): B from shared memory through a
-// matrix descriptor, A from registers, the sum in registers.
+// matrix descriptor, A from registers, the sum in registers; and the tf32
+// products with A in shared memory too (WgMmaSS), which the TF32 backward
+// route's dW takes (wg_backward.cuh).
 //
 // B's layout.  K-major ("no swizzle" canonical layout): the N x K operand
 // is cut into core matrices of 8 rows (n) by 16 bytes of k (4 tf32 or 8
@@ -201,6 +203,56 @@ struct WgMma<true, 128> {
   }
 };
 
+
+// d (+)= A B over one tf32 k8 step with both operands in shared memory
+// (m64nNk8), A through its own K-major descriptor: the backward route's dW
+// = H^T dP (wg_backward.cuh), whose operands are written K-major there
+// (wgmma reads tf32 from shared memory only K-major).  N = 32 or 64.
+template <int N>
+struct WgMmaSS;
+
+template <>
+struct WgMmaSS<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgMmaSS<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
 
 // One weight chunk's products, issued and waited for: the chunk's k steps
 // of A, taken from h (the previous layer's output, in the accumulator

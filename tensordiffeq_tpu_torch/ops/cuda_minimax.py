@@ -14,7 +14,8 @@ falls back.  :func:`k3_minimax_bf16` launches its bf16-operand flavor (the
 products of ``taylor_derivatives(compute_dtype=torch.bfloat16)``,
 ``csrc/taylor_common.cuh``) and counts its own launches, and
 :func:`k3_minimax_tf32` its single-pass TF32 flavor (precision
-``"default"``).  The plain flavor, the CPU path and the kernel's referee, is
+``"default"``), on the persistent wgmma route of ``csrc/wg_backward.cuh``
+where its shape allows (:func:`.cuda_taylor.wb_plan`).  The plain flavor, the CPU path and the kernel's referee, is
 ``tile_sq`` in :mod:`.minimax`.
 """
 
@@ -66,18 +67,29 @@ def _k3(plan: MinimaxPlan, X: torch.Tensor, w: torch.Tensor,
     _check_k3_inputs(plan, X, w, flat)
     lib = ct.build()
     flavor = ct.FLAVOR_OF[bf16]
-    _, tp, n_sm = plan.tile_sizes(X.device, flavor)
     N = X.shape[0]
-    n_tiles = -(-N // tp)
-    G = min(n_tiles, n_sm)
     opts = dict(device=X.device, dtype=torch.float32)
     gw = torch.empty((N, plan.E), **opts)
     gX = torch.empty((N, plan.d), **opts)
+    out = torch.empty((plan.P_total + 1,), **opts)
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    wp = plan.wb_route(X.device, flavor, N, "k3")
+    if wp is not None:
+        part = torch.empty((wp.grid, ct.slot_stride(plan.P_total + 1)),
+                           **opts)
+        ws = torch.empty((max(wp.ws_floats, 1),), **opts)
+        ct._check(lib.tdq_minimax_wg(
+            X.data_ptr(), w.data_ptr(), flat.data_ptr(), gw.data_ptr(),
+            gX.data_ptr(), part.data_ptr(), ws.data_ptr(), out.data_ptr(), N,
+            plan.net_h, plan.sched_h, plan.tape_h, plan.cst_h,
+            (ctypes.c_int * len(wp))(*wp), stream), "minimax_wg K3 launch")
+        return out[plan.P_total], out[:plan.P_total], gw, gX
+    _, tp, n_sm = plan.tile_sizes(X.device, flavor)
+    n_tiles = -(-N // tp)
+    G = min(n_tiles, n_sm)
     part = torch.empty((G, ct.slot_stride(plan.P_total + 1)), **opts)
     ws = torch.empty((ct.workspace_floats(plan.layer_shapes, tp * plan.C,
                                           plan.ld, G, flavor),), **opts)
-    out = torch.empty((plan.P_total + 1,), **opts)
-    stream = torch.cuda.current_stream(X.device).cuda_stream
     ct._check(lib.tdq_minimax_step(
         X.data_ptr(), w.data_ptr(), flat.data_ptr(), gw.data_ptr(),
         gX.data_ptr(), part.data_ptr(), ws.data_ptr(), out.data_ptr(), N, tp,
@@ -113,7 +125,10 @@ def k3_minimax_tf32(plan: MinimaxPlan, X: torch.Tensor, w: torch.Tensor,
     """Launch K3's single-pass TF32 flavor (precision ``"default"``): every
     product on TF32-rounded operands in one tensor-core pass, f32 sums; its
     referee is the plain flavor over ``taylor_derivatives(emulate_tf32=
-    True)``."""
+    True)``.  Its route is chosen by shape as K2-TF32's
+    (:meth:`~.cuda_taylor._Plan.wb_route`, recorded in
+    ``plan.k3_routes``): the persistent wgmma kernel of
+    ``csrc/wg_backward.cuh``, or ``minimax_step.cu``'s."""
     out = _k3(plan, X, w, flat, 2)
     k3_minimax_tf32.launches += 1
     return out

@@ -12,7 +12,10 @@ and how the design answers it) over the device code in
 routes, chosen by shape (:meth:`_Plan.k1_route`): a persistent kernel on
 Hopper's warpgroup products for hidden widths up to 128 and up to 8
 channels (``csrc/taylor_fwd_wg.cuh``, :func:`wg_plan`), and the kernel
-beside K2 for the other shapes.  :func:`build`
+beside K2 for the other shapes.  K2 and K3 in the TF32 flavor have two
+routes chosen the same way (:meth:`_Plan.wb_route`): a persistent wgmma
+kernel for those shapes (``csrc/wg_backward.cuh``, :func:`wb_plan`) and
+the mma.sync kernels for the others.  :func:`build`
 compiles every source under ``csrc/`` with ``nvcc`` for ``sm_90a`` into
 one plain C-ABI shared library at first use and loads it with ``ctypes``.
 
@@ -203,9 +206,17 @@ def build() -> ctypes.CDLL:
     lib.tdq_k1wg_plan.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
     lib.tdq_taylor_fwd_wg.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, ptr,
                                       i32, ptr, ptr]
+    # K2-TF32's and K3-TF32's wgmma route: its plan (net, sched, the card's
+    # shared memory and SMs, N, out), K2 (X, prm, gtab, dX, part, ws, grad,
+    # N, net, sched, plan, stream) and K3 (X, w, prm, gw, gX, part, ws, out,
+    # N, net, sched, tape, constants, plan, stream)
+    lib.tdq_wb_plan.argtypes = [ptr, ptr, i32, i32, i32, ptr]
+    lib.tdq_taylor_bwd_wg.argtypes = [ptr] * 7 + [i32] + [ptr] * 4
+    lib.tdq_minimax_wg.argtypes = [ptr] * 8 + [i32] + [ptr] * 6
     for fn in (lib.tdq_taylor_fwd, lib.tdq_taylor_bwd, lib.tdq_minimax_step,
                lib.tdq_device_info, lib.tdq_limits, lib.tdq_minimax_limits,
-               lib.tdq_k1wg_plan, lib.tdq_taylor_fwd_wg):
+               lib.tdq_k1wg_plan, lib.tdq_taylor_fwd_wg, lib.tdq_wb_plan,
+               lib.tdq_taylor_bwd_wg, lib.tdq_minimax_wg):
         fn.restype = i32
     limits = (ctypes.c_int * 6)()
     lib.tdq_limits(limits)
@@ -401,6 +412,40 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, x - hi
 
 
+def _cm_chunk(pad: torch.Tensor, h: int, KC: int, code: int) -> torch.Tensor:
+    """Chunk ``h`` of the padded ``[NP, NP]`` plane ``pad`` (row n, column
+    k): its k columns ``h * KC ..`` in :func:`wg_kslots` order, laid out in
+    core matrices (``wg_cm_offset``), as bytes: bf16 rounded to nearest even
+    (code 1), the two float32 planes of :func:`split_tf32`, ``hi`` then
+    ``lo`` (code 0), or the ``hi`` plane alone (code 2)."""
+    NP = pad.shape[0]
+    bf16 = code == 1
+    epc = 8 if bf16 else 4
+    n = torch.arange(NP).view(NP, 1)
+    kq = torch.arange(KC).view(1, KC)
+    off = (((n // 8) * (KC // epc) + kq // epc) * (8 * epc) + (n % 8) * epc
+           + kq % epc).reshape(-1)
+    plane = pad[:, h * KC + torch.tensor(wg_kslots(KC, bf16))].reshape(-1)
+    if bf16:
+        out = torch.empty(NP * KC, dtype=torch.bfloat16)
+        out[off] = plane.to(torch.bfloat16)
+        return out.view(torch.uint8)
+    if code == 2:
+        out = torch.empty(NP * KC)
+        out[off] = rna_tf32(plane)
+        return out.view(torch.uint8)
+    hi, lo = split_tf32(plane)
+    out = torch.empty(2, NP * KC)
+    out[0, off], out[1, off] = hi, lo
+    return out.reshape(-1).view(torch.uint8)
+
+
+def _padded(M: torch.Tensor, NP: int) -> torch.Tensor:
+    pad = torch.zeros(NP, NP)
+    pad[:M.shape[0], :M.shape[1]] = M.detach().float().cpu()
+    return pad
+
+
 def wg_prepare(flat_layers, wp: WgPlan, flavor) -> torch.Tensor:
     """The plain mirror of ``prep_wg_weights``: the bytes of the hidden
     layers' weights as the route's chunks lay them out, ``P`` chunks of
@@ -412,34 +457,95 @@ def wg_prepare(flat_layers, wp: WgPlan, flavor) -> torch.Tensor:
     :func:`split_tf32`, ``hi`` then ``lo`` (the f32 flavor, or ``False``),
     or the ``hi`` plane alone (the TF32 flavor)."""
     code = _wg_code(flavor)
-    bf16, tf32 = code == 1, code == 2
-    NP, KC = wp.NP, wp.KC
-    epc = 8 if bf16 else 4
-    n = torch.arange(NP).view(NP, 1)
-    kq = torch.arange(KC).view(1, KC)
-    off = (((n // 8) * (KC // epc) + kq // epc) * (8 * epc) + (n % 8) * epc
-           + kq % epc).reshape(-1)
-    slots = torch.tensor(wg_kslots(KC, bf16))
-    chunks = []
-    for q in range(wp.P):
-        W = flat_layers[2 * (1 + q // (NP // KC))].detach().float().cpu()
-        fi, fo = W.shape
-        pad = torch.zeros(NP, NP)
-        pad[:fo, :fi] = W.t()
-        plane = pad[:, (q % (NP // KC)) * KC + slots].reshape(-1)
-        if bf16:
-            out = torch.empty(NP * KC, dtype=torch.bfloat16)
-            out[off] = plane.to(torch.bfloat16)
-            chunks.append(out.view(torch.uint8))
-        elif tf32:
-            out = torch.empty(NP * KC)
-            out[off] = rna_tf32(plane)
-            chunks.append(out.view(torch.uint8))
-        else:
-            hi, lo = split_tf32(plane)
-            out = torch.empty(2, NP * KC)
-            out[0, off], out[1, off] = hi, lo
-            chunks.append(out.reshape(-1).view(torch.uint8))
+    nch = wp.NP // wp.KC
+    chunks = [_cm_chunk(_padded(flat_layers[2 * (1 + q // nch)].t(), wp.NP),
+                        q % nch, wp.KC, code) for q in range(wp.P)]
+    return torch.cat(chunks) if chunks else torch.empty(0, dtype=torch.uint8)
+
+
+# ------------------------------------------------------------------ #
+# K2's and K3's TF32 wgmma route (csrc/wg_backward.cuh): its plan and the
+# plain mirror of its weight planes
+# ------------------------------------------------------------------ #
+WB_ROWS = 128  # rows of the route's tile: two consumer warpgroups of 64
+WB_KC = 64     # k rows of a weight chunk
+
+
+class WbPlan(NamedTuple):
+    """The TF32 backward route's launch for one plan and N (``wb_plan`` in
+    ``csrc/wg_backward.cuh``, in the same order); K2's and K3's alike."""
+    NP: int           # hidden width padded to 64 or 128
+    CP: int           # channels padded to a power of two
+    KC: int           # k rows of a weight chunk
+    S: int            # weight stages in shared memory
+    P: int            # chunks per tile: forward planes, then backward ones
+    stage_bytes: int
+    n_tiles: int      # tiles of WB_ROWS rows
+    grid: int         # persistent blocks: one per SM, at most one per tile
+    smem: int         # dynamic shared memory bytes
+    bulk: int         # dW's slot rows take bulk reduce-adds (16-byte rows)
+    ws_floats: int    # the workspace: the blocks' Q slices, then the planes
+
+
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def wb_plan(layer_shapes: Sequence[tuple], orders: Sequence[int],
+            smem_optin: int, n_sm: int, N: int):
+    """The TF32 backward route's :class:`WbPlan` (K2-TF32 and K3-TF32) for
+    these shapes, or ``None`` where the shape is the mma.sync route's:
+    K1's route's conditions (:func:`wg_plan`: at most ``WG_MAX_C``
+    channels, hidden widths up to ``WG_MAX_WIDTH``, at most ``WG_MAX_D``
+    inputs and ``WG_MAX_OUT`` outputs) and a ring of at least two stages.
+    Shared memory: the ring, H^T and dP^T (NP x 128 floats each), the table
+    rows (the bias partials in the reverse sweep), X's rows, the small
+    operands, the value's warp sums and the mbarriers."""
+    L = len(layer_shapes)
+    d, n_out = layer_shapes[0][0], layer_shapes[-1][1]
+    C = len(orders)
+    width = max(fo for _, fo in layer_shapes[:-1])
+    if C > WG_MAX_C or width > WG_MAX_WIDTH or d > WG_MAX_D \
+            or n_out > WG_MAX_OUT:
+        return None
+    CP = 1
+    while CP < C:
+        CP *= 2
+    NP = 64 if width <= 64 else 128
+    P = 2 * (L - 2) * (NP // WB_KC)
+    stage = NP * WB_KC * 4
+    misc = _pad4(NP * (d + L - 1 + n_out) + WG_MAX_OUT)
+    fixed = 4 * (2 * NP * WB_ROWS + _pad4(max(WB_ROWS * n_out, 8 * NP))
+                 + _pad4(WB_ROWS * d) + misc + 8) + 2 * WG_MAX_STAGES * 8
+    S = 0
+    if P > 0:
+        S = min(P, (smem_optin - fixed) // stage, WG_MAX_STAGES)
+        if S < 2:
+            return None
+    offW, o = [], 0
+    for fi, fo in layer_shapes:
+        offW.append(o)
+        o += fi * fo + fo
+    bulk = int(all(offW[l] % 4 == 0 and layer_shapes[l][1] % 4 == 0
+                   for l in range(1, L - 1)))
+    n_tiles = -(-N * CP // WB_ROWS)
+    grid = min(n_tiles, n_sm)
+    return WbPlan(NP, CP, WB_KC, S, P, stage, n_tiles, grid, S * stage + fixed,
+                  bulk, grid * (L - 1) * WB_ROWS * NP + P * NP * WB_KC)
+
+
+def wb_prepare(flat_layers, wp: WbPlan) -> torch.Tensor:
+    """The plain mirror of ``prep_wb_weights``: the route's ``P`` chunks
+    of ``stage_bytes``, TF32 (``cvt.rna``) in core-matrix and k-slot order
+    (:func:`wg_prepare`'s layout): the forward planes of layers 1 .. L-2
+    (W^T: row n, k the input; K1-TF32's chunks), then the backward planes
+    of layers L-2 .. 1 (W as it lies: row i, k the output)."""
+    nch = wp.NP // wp.KC
+    L = len(flat_layers) // 2
+    hidden = [flat_layers[2 * l] for l in range(1, L - 1)]
+    planes = [W.t() for W in hidden] + [W for W in reversed(hidden)]
+    chunks = [_cm_chunk(_padded(M, wp.NP), h, wp.KC, 2)
+              for M in planes for h in range(nch)]
     return torch.cat(chunks) if chunks else torch.empty(0, dtype=torch.uint8)
 
 
@@ -540,6 +646,11 @@ class _Plan:
         self.tiles = {}  # flavor -> (TP_fwd, TP_bwd, n_sm), at first launch
         self.k1_checked = set()  # flavors whose K1 route was cross-checked
         self.k1_routes = {}  # flavor -> the route its last K1 launch took
+        # flavor -> the route the last K2 / K3 launch took: "wgmma" (the
+        # TF32 flavor's, csrc/wg_backward.cuh) or "mma" (the mma.sync
+        # kernels, every other flavor and shape)
+        self.k2_routes, self.k3_routes = {}, {}
+        self.wb_checked = False  # the route's plan was cross-checked
 
     def card(self, device: torch.device) -> tuple[int, int]:
         """The card's opt-in shared memory a block and its SM count."""
@@ -574,6 +685,34 @@ class _Plan:
                     f"the kernels' K1 route is {got}, the wrapper's {wp}")
             self.k1_checked.add(dtype)
         self.k1_routes[dtype] = "wide" if wp is None else "wgmma"
+        return wp
+
+    def wb_route(self, device: torch.device, flavor, N: int, kernel: str):
+        """K2's (``kernel="k2"``) or K3's (``"k3"``) route for ``N``
+        points in a flavor: the TF32 flavor's wgmma route's :class:`WbPlan`
+        (``csrc/wg_backward.cuh``), or ``None`` for the mma.sync kernels
+        (every other flavor, and the TF32 flavor at the shapes
+        :func:`wb_plan` declines).  Before the first launch the kernels' own
+        plan (``tdq_wb_plan``) is held to this one: a drift raises
+        :class:`KernelBuildError`.  Records the route in ``k2_routes`` /
+        ``k3_routes``."""
+        dtype = flavor_of(flavor)
+        wp = None
+        if dtype == TF32:
+            smem, n_sm = self.card(device)
+            wp = wb_plan(self.layer_shapes, self.orders, smem, n_sm, N)
+            if not self.wb_checked:
+                out = (ctypes.c_int * len(WbPlan._fields))()
+                took = build().tdq_wb_plan(self.net_h, self.sched_h, smem,
+                                           n_sm, N, out)
+                got = WbPlan(*out) if took else None
+                if got != wp:
+                    raise KernelBuildError(
+                        f"the kernels' TF32 backward route is {got}, the "
+                        f"wrapper's {wp}")
+                self.wb_checked = True
+        routes = self.k2_routes if kernel == "k2" else self.k3_routes
+        routes[dtype] = "mma" if wp is None else "wgmma"
         return wp
 
     def tile_sizes(self, device: torch.device,
@@ -692,16 +831,28 @@ def _k2(plan: _Plan, X: torch.Tensor, flat: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"cotangent must be a contiguous float32 "
                          f"[{plan.C}, {N}, {plan.n_out}] on {X.device}")
     lib = build()
+    opts = dict(device=X.device, dtype=torch.float32)
+    dX = torch.empty((N, plan.d), **opts)
+    dflat = torch.empty((plan.P_total,), **opts)
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    wp = plan.wb_route(X.device, FLAVOR_OF[bf16], N, "k2")
+    if wp is not None:
+        part = torch.empty((wp.grid, slot_stride(plan.P_total)), **opts)
+        ws = torch.empty((max(wp.ws_floats, 1),), **opts)
+        _check(lib.tdq_taylor_bwd_wg(X.data_ptr(), flat.data_ptr(),
+                                     g.data_ptr(), dX.data_ptr(),
+                                     part.data_ptr(), ws.data_ptr(),
+                                     dflat.data_ptr(), N, plan.net_h,
+                                     plan.sched_h,
+                                     (ctypes.c_int * len(wp))(*wp), stream),
+               "taylor_bwd_wg K2 launch")
+        return dX, dflat
     _, tp, n_sm = plan.tile_sizes(X.device, FLAVOR_OF[bf16])
     n_tiles = -(-N // tp)
     G = min(n_tiles, n_sm)
-    opts = dict(device=X.device, dtype=torch.float32)
-    dX = torch.empty((N, plan.d), **opts)
     part = torch.empty((G, slot_stride(plan.P_total)), **opts)
     ws = torch.empty((workspace_floats(plan.layer_shapes, tp * plan.C,
                                        plan.ld, G, FLAVOR_OF[bf16]),), **opts)
-    dflat = torch.empty((plan.P_total,), **opts)
-    stream = torch.cuda.current_stream(X.device).cuda_stream
     _check(lib.tdq_taylor_bwd(X.data_ptr(), flat.data_ptr(), g.data_ptr(),
                               dX.data_ptr(), part.data_ptr(), ws.data_ptr(),
                               dflat.data_ptr(), N, tp, G, plan.net_h,
@@ -734,7 +885,10 @@ def k2_backward_tf32(plan: _Plan, X: torch.Tensor, flat: torch.Tensor,
                      g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K2's single-pass TF32 flavor: the cotangents of
     :func:`k1_forward_tf32`'s table, each product on TF32-rounded
-    operands (the cotangent's included)."""
+    operands (the cotangent's included).  Its route is chosen by shape
+    (:meth:`_Plan.wb_route`, recorded in ``plan.k2_routes``): the
+    persistent wgmma kernel of ``csrc/wg_backward.cuh`` where
+    :func:`wb_plan` takes the shape, else the mma.sync kernel."""
     out = _k2(plan, X, flat, g, 2)
     k2_backward_tf32.launches += 1
     return out

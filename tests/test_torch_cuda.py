@@ -1894,6 +1894,126 @@ def test_tf32_wgmma_chunks_are_the_hi_plane(card):
     assert torch.equal(chunks.cpu().view(torch.uint8), want)
 
 
+# K2-TF32's and K3-TF32's routes by shape: the persistent wgmma route
+# (csrc/wg_backward.cuh) where cuda_taylor.wb_plan takes the shape (the
+# slice's, burgers', and widths whose slot rows are not 16-byte pieces,
+# which add dW from the SMs), the mma.sync kernels past it
+TF32_ROUTE_CASES = {
+    # name: (K2's requests, widths, N, route)
+    "ac-128": (AC, [2, 128, 128, 128, 128, 1], 20_011, "wgmma"),
+    "burgers": (AC, [2] + [20] * 8 + [1], 3_001, "wgmma"),
+    "odd-widths": ({(), (1,), (1, 1)}, [2, 37, 53, 1], 1003, "wgmma"),
+    "wide-256": (AC, [2, 256, 256, 256, 256, 1], 2_000, "mma"),
+}
+
+
+@pytest.mark.parametrize("case", list(TF32_ROUTE_CASES))
+def test_tf32_backward_routes_by_shape_on_card(card, case):
+    """K2-TF32 and K3-TF32 take the route their shape names, stay within
+    the TF32 flavor's band of the TF32 referees there, and are bit for bit
+    run to run."""
+    reqs, widths, N, route = TF32_ROUTE_CASES[case]
+    layers, _, g = _net(widths, card)
+    X = (2 * torch.rand(N, 2, generator=g) - 1).to(card)
+    shapes = [tuple(W.shape) for W, _ in layers]
+    plan = cuda_taylor.build_cuda_table_fn(reqs, shapes, precision=None).plan
+    flat = plan.pack([t for p in layers for t in p])
+    cot = torch.randn(plan.C, N, widths[-1], generator=g).to(card)
+    dX, dflat = cuda_taylor.k2_backward_tf32(plan, X, flat, cot)
+    assert plan.k2_routes[cuda_taylor.TF32] == route
+    again = cuda_taylor.k2_backward_tf32(plan, X, flat, cot)
+    assert torch.equal(again[0], dX) and torch.equal(again[1], dflat)
+    params = [t.clone().requires_grad_(True) for p in layers for t in p]
+    pairs = list(zip(params[0::2], params[1::2]))
+    Xg = X.clone().requires_grad_(True)
+
+    def grads(**kw):
+        t = taylor_derivatives(pairs, Xg, reqs, flat_matmul=True, **kw)
+        loss = sum((t[mi] * cot[c]).sum()
+                   for c, mi in enumerate(plan.channels))
+        return list(torch.autograd.grad(loss, params + [Xg]))
+
+    _within_tf32_spread(plan.unpack(dflat) + [dX], grads(emulate_tf32=True),
+                        grads(emulate_tf32="float64"), grads())
+    sq32 = build_minimax_sq_fn(_res_ac, ("x", "t"), 1,
+                               analyze_f_model(_res_ac, ("x", "t"), 1),
+                               shapes)
+    sq = build_minimax_sq_fn(_res_ac, ("x", "t"), 1,
+                             analyze_f_model(_res_ac, ("x", "t"), 1), shapes,
+                             precision=None)
+    w = torch.rand(N, 1, generator=g).to(card)
+    fl = [a if a.ndim == 2 else a.reshape(1, -1) for p in layers for a in p]
+    got = cuda_minimax.k3_minimax_tf32(sq.plan, X, w, sq.plan.pack(fl))
+    assert sq.plan.k3_routes[cuda_taylor.TF32] == route
+    again = cuda_minimax.k3_minimax_tf32(sq.plan, X, w, sq.plan.pack(fl))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+    def leaves(out):
+        v, d, gw_, gx_ = out
+        return [v.reshape(1)] + [t.reshape(-1) for t in d] + [gw_, gx_]
+
+    _within_tf32_spread(leaves((got[0], sq.plan.unpack(got[1]), got[2],
+                                got[3])),
+                        leaves(sq.plain(fl, w, X, emulate_tf32=True)),
+                        leaves(sq.plain(fl, w, X, emulate_tf32="float64")),
+                        leaves(sq32.plain(fl, w, X)))
+
+
+def test_tf32_backward_planes_match_the_plain_mirror(card):
+    """The wgmma route's weight prep writes its planes (the forward W^T,
+    then the backward W in the sweep's order, TF32) byte for byte as
+    ``wb_prepare`` lays them out, after the blocks' workspace slices."""
+    widths = [2, 128, 128, 128, 1]
+    layers, _, g = _net(widths, card)
+    plan = cuda_taylor.build_cuda_table_fn(
+        AC, [tuple(W.shape) for W, _ in layers], precision=None).plan
+    flat_layers = [t for p in layers for t in p]
+    N = 1000
+    wp = plan.wb_route(card, cuda_taylor.TF32, N, "k2")
+    assert wp is not None and wp.P == 8
+    ws = torch.zeros(wp.ws_floats, device=card)
+    part = torch.empty(wp.grid, cuda_taylor.slot_stride(plan.P_total),
+                       device=card)
+    X = (2 * torch.rand(N, 2, generator=g) - 1).to(card)
+    cot = torch.randn(plan.C, N, 1, generator=g).to(card)
+    dX = torch.empty(N, 2, device=card)
+    grad = torch.empty(plan.P_total, device=card)
+    err = cuda_taylor.build().tdq_taylor_bwd_wg(
+        X.data_ptr(), plan.pack(flat_layers).data_ptr(), cot.data_ptr(),
+        dX.data_ptr(), part.data_ptr(), ws.data_ptr(), grad.data_ptr(), N,
+        plan.net_h, plan.sched_h, (ctypes.c_int * len(wp))(*wp),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    slices = wp.grid * (len(widths) - 2) * cuda_taylor.WB_ROWS * wp.NP
+    want = cuda_taylor.wb_prepare(flat_layers, wp)
+    assert torch.equal(ws[slices:].cpu().view(torch.uint8), want)
+
+
+def test_tf32_minimax_step_on_the_wgmma_route_graph_equals_eager(card):
+    """A ``precision=None`` minimax solver steps through K3-TF32 on its
+    wgmma route, once per Adam step and nothing else, one capture, and its
+    replays equal the same steps run eagerly bit for bit."""
+    def make():
+        net = tdqt.neural_net([2, 32, 32, 1], seed=0, precision=None)
+        return _ac_solver("cuda", n_f=1024, minimax=None, widths=(32, 32),
+                          network=lambda domain: net)
+
+    graph, eager = make(), make()
+    assert graph._minimax_sq.flavor == cuda_taylor.TF32
+    before = {fn.__name__: fn.launches for fn in cuda_taylor.COUNTED}
+    graph.fit(tf_iter=30, chunk=10)
+    after = {fn.__name__: fn.launches for fn in cuda_taylor.COUNTED}
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert moved == {"k3_minimax_tf32": 30}
+    assert graph._minimax_sq.plan.k3_routes[cuda_taylor.TF32] == "wgmma"
+    eager.fit(tf_iter=30, chunk=10, _graphs=False)
+    assert graph._adam.graph.captures == 1
+    assert _diff(graph, eager) == 0.0
+    rows = [r["Total Loss"] for r in graph.losses]
+    assert rows[-1] < rows[0]
+
+
 def test_tf32_graph_capture_keeps_each_solvers_precision(card):
     """A ``precision=None`` solver's step is captured under TF32 and a
     ``"highest"`` one's under IEEE float32, side by side: each solver's

@@ -1,0 +1,409 @@
+"""K2-TF32's and K3-TF32's persistent wgmma route
+(``csrc/wg_backward.cuh``), the parts that live on the host and the
+algorithm it runs, on the CPU:
+
+* the plan's mirror (``ops/cuda_taylor.py::wb_plan``): tile rows, stages,
+  shared memory, workspace, and the choice of route by shape;
+* the plain mirror of the weight planes (``wb_prepare``): the forward
+  planes are K1-TF32's chunks (W^T), the backward planes W in the sweep's
+  order, both TF32 (``cvt.rna``) in core-matrix and k-slot order;
+* the route's K2 step for step in PyTorch (tiles of 128 rows with the
+  channels padded, the operands of dW written K-major as the kernel writes
+  them, the block's slot added to in tile order, the slots summed in slot
+  order): in float64 it is autograd's gradient to 1e-10; with TF32
+  operands and float32 sums it stays within the TF32 flavor's band of the
+  TF32-emulating referee, and the JAX package's float32 (HIGHEST) result is
+  printed beside it;
+* the register VJP's in-place order (``wb_act_vjp``) against the
+  activation pass's autograd.
+
+The kernels run only on the card: ``tests/test_torch_cuda.py`` and
+``chip_smoke.py`` phase 16.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tensordiffeq_tpu.ops.taylor import taylor_derivatives as jax_table
+from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+from tensordiffeq_tpu_torch.ops.taylor import (channel_order, rna_tf32,
+                                                taylor_derivatives)
+
+SMEM, SMS = 232_448, 132  # an H100's opt-in shared memory a block, SMs
+AC = {(), (1,), (0, 0)}
+MIXED = {(), (0,), (1,), (0, 0), (0, 1), (0, 0, 1), (0, 0, 0, 0)}
+# the TF32 flavor's band (tests/test_torch_cuda.py, chip_smoke.py)
+TF32_SPREAD, TF32_FLOOR = 3.0, 1e-4
+
+
+def _plan(reqs, widths, N=50_000, smem=SMEM, n_sm=SMS):
+    plan = ct.build_cuda_table_fn(reqs, list(zip(widths[:-1], widths[1:])),
+                                  device="cpu").plan
+    return plan, ct.wb_plan(plan.layer_shapes, plan.orders, smem, n_sm, N)
+
+
+def test_plan_at_the_slice_and_at_burgers():
+    _, ac = _plan(AC, [2, 128, 128, 128, 128, 1])
+    # tiles of 32 points at C = 4; two 32 KB chunks a hidden layer and
+    # direction, twelve a tile through two stages; four staged Q slices
+    assert ac == ct.WbPlan(NP=128, CP=4, KC=64, S=2, P=12, stage_bytes=32_768,
+                           n_tiles=1563, grid=132, smem=205_536, bulk=1,
+                           ws_floats=132 * 4 * 128 * 128 + 12 * 128 * 64)
+    _, bu = _plan(AC, [2] + [20] * 8 + [1])
+    assert (bu.NP, bu.CP, bu.P, bu.S, bu.stage_bytes, bu.bulk) \
+        == (64, 4, 14, 8, 16_384, 1)
+    assert bu.ws_floats == 132 * 8 * 128 * 64 + 14 * 64 * 64
+    # the mixed request set: 8 channels, 16 points a tile
+    _, mx = _plan(MIXED, [2, 128, 128, 128, 128, 1])
+    assert (mx.CP, mx.n_tiles) == (8, 3125)
+    # few points: one tile, one block; a net with no hidden product: no ring
+    assert _plan(AC, [2, 64, 64, 1], N=5)[1][6:8] == (1, 1)
+    assert _plan(AC, [2, 16, 1])[1][3:5] == (0, 0)
+    # slot rows that are not 16-byte pieces: dW added from the SMs
+    assert _plan(AC, [3, 50, 50, 50, 1])[1].bulk == 0
+    assert _plan(AC, [2, 20, 30, 20, 1])[1].bulk == 0
+
+
+def test_route_choice_by_shape():
+    assert _plan(AC, [2, 128, 128, 128, 128, 1])[1] is not None
+    assert _plan(AC, [2] + [20] * 8 + [1])[1] is not None
+    # the mma.sync route: a hidden layer over 128, more than 8 channels,
+    # more than 16 inputs or outputs, a card with room for one stage
+    assert _plan(AC, [2, 256, 256, 256, 256, 1])[1] is None
+    assert _plan({(), (0,), (2,), (1, 1), (0, 1, 2)}, [3, 64, 64, 1])[1] \
+        is None
+    assert _plan(AC, [17, 64, 64, 1])[1] is None
+    assert _plan(AC, [2, 64, 64, 17])[1] is None
+    assert _plan(AC, [2, 128, 128, 128, 1], smem=190_000)[1] is None
+    # every plan fits the card it was made for
+    for reqs in (AC, MIXED):
+        for widths in ([2, 128, 128, 128, 128, 1], [2, 64, 64, 1],
+                       [2] + [32] * 14 + [1], [16, 128, 128, 16]):
+            wp = _plan(reqs, widths, 200_000)[1]
+            assert wp.smem <= SMEM and 2 <= wp.S <= ct.WG_MAX_STAGES
+            assert wp.P == 2 * (len(widths) - 3) * wp.NP // wp.KC
+
+
+def _layers(widths, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    flat = []
+    for a, b in zip(widths[:-1], widths[1:]):
+        flat += [torch.randn(a, b, generator=g) / a ** 0.5,
+                 0.1 * torch.randn(b, generator=g)]
+    return flat
+
+
+def _cm(n, k, KC, epc=4):
+    """``wg_cm_offset`` (csrc/wgmma.cuh)."""
+    return ((n // 8) * (KC // epc) + k // epc) * (8 * epc) + (n % 8) * epc \
+        + k % epc
+
+
+@pytest.mark.parametrize("widths", [[2, 128, 128, 128, 1], [2, 37, 53, 1],
+                                    [3, 20, 20, 20, 20, 2]],
+                         ids=["ac", "odd", "burgers-like"])
+def test_weight_planes_round_trip(widths):
+    flat = _layers(widths)
+    _, wp = _plan(AC, widths)
+    raw = ct.wb_prepare(flat, wp)
+    assert raw.numel() == wp.P * wp.stage_bytes
+    chunks = raw.view(torch.float32).numpy().reshape(wp.P, wp.NP * wp.KC)
+    assert not (chunks.view(np.uint32) & 0x1FFF).any()  # TF32
+    slots = np.array(ct.wg_kslots(wp.KC, False))
+    n, kq = np.arange(wp.NP)[:, None], np.arange(wp.KC)[None, :]
+    off = _cm(n, kq, wp.KC)
+    nch, L = wp.NP // wp.KC, len(widths) - 1
+    hidden = list(range(1, L - 1))
+    planes = [flat[2 * l].t() for l in hidden] \
+        + [flat[2 * l] for l in reversed(hidden)]
+    # the forward half is K1-TF32's chunks, byte for byte
+    wg = ct.WgPlan(wp.NP, wp.CP, wp.KC, 0, wp.P // 2, 0, wp.stage_bytes, 0,
+                   0, 0)
+    assert torch.equal(raw[:wp.P // 2 * wp.stage_bytes],
+                       ct.wg_prepare(flat, wg, ct.TF32))
+    for q in range(wp.P):
+        M = planes[q // nch]
+        pad = np.zeros((wp.NP, wp.NP), np.float32)
+        pad[:M.shape[0], :M.shape[1]] = rna_tf32(M.contiguous()).numpy()
+        # k slot j of the chunk holds column h * KC + slots[j]
+        want = pad[:, (q % nch) * wp.KC + slots]
+        np.testing.assert_array_equal(chunks[q][off], want)
+
+
+# ------------------------------------------------------------------ #
+# the route's K2, step for step
+# ------------------------------------------------------------------ #
+def _chain(u):
+    z = torch.tanh(u)
+    d1 = 1 - z * z
+    d2 = -2 * z * d1
+    d3 = -2 * d1 * (1 - 3 * z * z)
+    d4 = -2 * d2 * (1 - 3 * z * z) + 12 * z * d1 * d1
+    z2 = z * z
+    return z, d1, d2, d3, d4, d1 * (16 - z2 * (120 - 120 * z2))
+
+
+def _act(P, rows):
+    """k1w_act on [points, CP, width]: channels past len(rows) zero."""
+    z, d1, d2, d3, d4, _ = _chain(P[:, 0])
+    H = torch.zeros_like(P)
+    for c in range(len(rows) - 1, 0, -1):
+        o, ix = rows[c]
+        Pc = P[:, c]
+        if o == 1:
+            h = d1 * Pc
+        elif o == 2:
+            h = d1 * Pc + d2 * P[:, ix[0]] * P[:, ix[1]]
+        elif o == 3:
+            qi, qj, qk, rij, rik, rjk = (P[:, i] for i in ix)
+            h = (d3 * qi * qj * qk + d2 * (rij * qk + rik * qj + rjk * qi)
+                 + d1 * Pc)
+        else:
+            q, r, v = (P[:, i] for i in ix)
+            h = (d1 * Pc + 4 * d2 * v * q + 3 * d2 * r * r
+                 + 6 * d3 * r * q * q + d4 * q ** 4)
+        H[:, c] = h
+    H[:, 0] = z
+    return H
+
+
+def _act_vjp_in_place(P, dH, rows):
+    """``wb_act_vjp``: the cotangents overwritten channel by channel in
+    ascending order (a channel's own read before any line writes it);
+    channel 0 closes the chain last; pad channels zero."""
+    z, d1, d2, d3, d4, d5 = _chain(P[:, 0])
+    G = dH.clone()
+    gz, g1, g2, g3, g4 = G[:, 0].clone(), 0, 0, 0, 0
+    for c in range(1, G.shape[1]):
+        if c >= len(rows):
+            G[:, c] = 0
+            continue
+        o, ix = rows[c]
+        g = G[:, c].clone()
+        g1 = g1 + g * P[:, c]
+        G[:, c] = g * d1
+        if o == 2:
+            a, b = P[:, ix[0]], P[:, ix[1]]
+            g2 = g2 + g * a * b
+            G[:, ix[0]] += g * d2 * b
+            G[:, ix[1]] += g * d2 * a
+        elif o == 3:
+            qi, qj, qk, rij, rik, rjk = (P[:, i] for i in ix)
+            g3 = g3 + g * qi * qj * qk
+            g2 = g2 + g * (rij * qk + rik * qj + rjk * qi)
+            G[:, ix[0]] += g * (d3 * qj * qk + d2 * rjk)
+            G[:, ix[1]] += g * (d3 * qi * qk + d2 * rik)
+            G[:, ix[2]] += g * (d3 * qi * qj + d2 * rij)
+            G[:, ix[3]] += g * d2 * qk
+            G[:, ix[4]] += g * d2 * qj
+            G[:, ix[5]] += g * d2 * qi
+        elif o == 4:
+            q, r, v = (P[:, i] for i in ix)
+            g2 = g2 + g * (4 * v * q + 3 * r * r)
+            g3 = g3 + g * 6 * r * q * q
+            g4 = g4 + g * q ** 4
+            G[:, ix[0]] += g * (4 * d2 * v + 12 * d3 * r * q + 4 * d4 * q ** 3)
+            G[:, ix[1]] += g * (6 * d2 * r + 6 * d3 * q * q)
+            G[:, ix[2]] += g * 4 * d2 * q
+    G[:, 0] = gz * d1 + g1 * d2 + g2 * d3 + g3 * d4 + g4 * d5
+    return G
+
+
+@pytest.mark.parametrize("reqs", [AC, MIXED], ids=["ac", "mixed"])
+def test_register_vjp_in_place_is_the_activation_pass_transpose(reqs):
+    _, rows = ct.channel_schedule(reqs)
+    CP = 1
+    while CP < len(rows):
+        CP *= 2
+    g = torch.Generator().manual_seed(1)
+    P = torch.randn(9, CP, 5, generator=g, dtype=torch.float64)
+    P[:, len(rows):] = 0
+    dH = torch.randn(9, CP, 5, generator=g, dtype=torch.float64)
+    Pg = P.clone().requires_grad_(True)
+    want = torch.autograd.grad((_act(Pg, rows) * dH).sum(), Pg)[0]
+    got = _act_vjp_in_place(P, dH, rows)
+    want[:, len(rows):] = 0  # pad channels carry nothing
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
+def _kmajor(M):
+    """A tile's [128 rows, NP] operand as wb_put_kmajor writes it (feature
+    n's rows r at wg_cm_offset(n, r, 128, 4)), read back as [NP, 128]."""
+    NP = M.shape[1]
+    buf = torch.zeros(NP * ct.WB_ROWS, dtype=M.dtype)
+    r, n = np.meshgrid(np.arange(ct.WB_ROWS), np.arange(NP), indexing="ij")
+    off = torch.from_numpy(_cm(n, r, ct.WB_ROWS).reshape(-1))
+    buf[off] = M.reshape(-1)
+    back = torch.from_numpy(_cm(np.arange(NP)[:, None],
+                                np.arange(ct.WB_ROWS)[None, :], ct.WB_ROWS))
+    return buf[back.reshape(-1)].view(NP, ct.WB_ROWS)
+
+
+def _route_k2(flat, X, g, reqs, n_sm, tf32):
+    """The route's K2 for layers ``flat``, points ``X [N, d]`` and table
+    cotangents ``g [C, N, n_out]``: ``(dflat, dX)``.  Tiles of 128 rows
+    (point p's channel c at row (p % TP) * CP + c), blocks walking tiles b,
+    b + G, ...; rounding (``tf32``) where the kernel rounds: every product
+    operand, the bias sums not."""
+    rnd = rna_tf32 if tf32 else (lambda t: t)
+    _, rows = ct.channel_schedule(reqs)
+    C, N, d = len(rows), X.shape[0], X.shape[1]
+    L = len(flat) // 2
+    Ws, bs = flat[0::2], flat[1::2]
+    shapes = [tuple(W.shape) for W in Ws]
+    wp = ct.wb_plan(shapes, [o for o, _ in rows], SMEM, n_sm, N)
+    NP, CP = wp.NP, wp.CP
+    TP = ct.WB_ROWS // CP
+    dt = X.dtype
+    # the small operands as the kernel holds them, NP wide
+    Wp = [torch.zeros(NP if l else d, NP, dtype=dt) for l in range(L - 1)]
+    for l in range(L - 1):
+        Wp[l][:Ws[l].shape[0], :Ws[l].shape[1]] = rnd(Ws[l])
+    bp = [torch.zeros(NP, dtype=dt) for _ in range(L - 1)]
+    for l in range(L - 1):
+        bp[l][:bs[l].shape[0]] = bs[l]
+    Wh = torch.zeros(NP, Ws[-1].shape[1], dtype=dt)
+    Wh[:Ws[-1].shape[0]] = rnd(Ws[-1])
+    slots = [[torch.zeros_like(t) for t in flat] for _ in range(wp.grid)]
+    dX = torch.zeros_like(X)
+
+    def layer0(p0):
+        pts = torch.arange(p0, p0 + TP)
+        x = torch.zeros(TP, d, dtype=dt)
+        x[pts < N] = rnd(X[pts[pts < N]])
+        P = torch.zeros(TP, CP, NP, dtype=dt)
+        P[:, 0] = x @ Wp[0] + bp[0]
+        for c, (o, ix) in enumerate(rows):
+            if o == 1:
+                P[:, c] = Wp[0][ix[0]]
+        return P, x
+
+    def add(blk, i, v, first):
+        slots[blk][i] = v.clone() if first else slots[blk][i] + v
+
+    for tile in range(wp.n_tiles):
+        blk, first = tile % wp.grid, tile < wp.grid
+        p0 = tile * TP
+        P0, x = layer0(p0)
+        Ps, H = [P0], _act(P0, rows)
+        for l in range(1, L - 1):
+            P = rnd(H) @ Wp[l]
+            P[:, 0] += bp[l]
+            Ps.append(P)
+            H = _act(P, rows)
+        # the head's cotangents: the table cotangents, zero past N and C
+        T = torch.zeros(TP, CP, g.shape[2], dtype=dt)
+        live = torch.arange(p0, p0 + TP) < N
+        T[live, :C] = g[:, p0:p0 + int(live.sum())].transpose(0, 1)
+        Tr = T.reshape(ct.WB_ROWS, -1)
+        Ht = _kmajor(rnd(H).reshape(ct.WB_ROWS, NP))
+        add(blk, 2 * L - 1, T[:, 0].sum(0), first)
+        add(blk, 2 * L - 2, (Ht @ rnd(Tr))[:Ws[-1].shape[0]], first)
+        dH = (rnd(Tr) @ Wh.t()).reshape(TP, CP, NP)
+        for l in range(L - 2, 0, -1):
+            dP = _act_vjp_in_place(Ps[l], dH, rows)
+            Ht = _kmajor(rnd(_act(Ps[l - 1], rows)).reshape(ct.WB_ROWS, NP))
+            dPt = _kmajor(rnd(dP).reshape(ct.WB_ROWS, NP))
+            fi, fo = shapes[l]
+            add(blk, 2 * l + 1, dP[:, 0].sum(0)[:fo], first)
+            add(blk, 2 * l, (Ht @ dPt.t())[:fi, :fo], first)
+            dH = (rnd(dP) @ Wp[l].t())
+        dP = _act_vjp_in_place(Ps[0], dH, rows)
+        w0 = shapes[0][1]
+        gW = x.t() @ rnd(dP[:, 0])
+        for c, (o, ix) in enumerate(rows):
+            if o == 1:
+                gW[ix[0]] += rnd(dP[:, c]).sum(0)
+        add(blk, 1, dP[:, 0].sum(0)[:w0], first)
+        add(blk, 0, gW[:, :w0], first)
+        dx = rnd(dP[:, 0]) @ Wp[0].t()
+        n_live = int(live.sum())
+        dX[p0:p0 + n_live] = dx[:n_live]
+    total = []  # reduce_partials: the slots in slot order
+    for i in range(len(flat)):
+        acc = slots[0][i].clone()
+        for s in slots[1:]:
+            acc = acc + s[i]
+        total.append(acc)
+    return total, dX
+
+
+def _case(widths, N, seed=3):
+    flat = _layers(widths, seed)
+    rng = np.random.RandomState(seed)
+    X = torch.from_numpy(rng.uniform(-1, 1, (N, widths[0])).astype(np.float32))
+    return flat, X
+
+
+def _referee(flat, X, g, reqs, **kw):
+    params = [t.clone().requires_grad_(True) for t in flat]
+    Xg = X.clone().requires_grad_(True)
+    table = taylor_derivatives(list(zip(params[0::2], params[1::2])), Xg,
+                               reqs, flat_matmul=True, **kw)
+    chans = channel_order(reqs)
+    loss = sum((table[mi] * g[c]).sum() for c, mi in enumerate(chans))
+    return [t.detach() for t in torch.autograd.grad(loss, params + [Xg])]
+
+
+@pytest.mark.parametrize("reqs", [AC, MIXED], ids=["ac", "mixed"])
+def test_route_k2_is_autograds_gradient_in_float64(reqs):
+    widths = [2, 24, 24, 24, 1]
+    flat, X = _case(widths, 77)
+    flat = [t.double() for t in flat]
+    X = X.double()
+    C = len(channel_order(reqs))
+    g = torch.randn(C, 77, 1, generator=torch.Generator().manual_seed(2),
+                    dtype=torch.float64)
+    got, dX = _route_k2(flat, X, g, reqs, n_sm=2, tf32=False)
+    want = _referee(flat, X, g, reqs)
+    for a, b in zip(got + [dX], want):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-12)
+
+
+def _rms_rel(a, b):
+    a, b = a.double(), b.double()
+    return float(torch.sqrt(torch.mean((a - b) ** 2))
+                 / max(float(torch.sqrt(torch.mean(b ** 2))), 1e-30))
+
+
+def test_route_k2_dw_order_within_the_tf32_band_of_the_referee():
+    """The route's dW order (tiles of 128 rows, K-major TF32 operands,
+    float32 sums, slot adds in tile order, slots in slot order) against
+    ``taylor_derivatives(emulate_tf32=True)``, within TF32_SPREAD times the
+    referee's own order spread (its float64-summed twin) by RMS, at least
+    TF32_FLOOR, and nearer it than the JAX package's float32 result."""
+    reqs, widths, N = AC, [2, 48, 48, 48, 1], 300
+    flat, X = _case(widths, N)
+    C = len(channel_order(reqs))
+    rng = np.random.RandomState(4)
+    g = torch.from_numpy(rng.randn(C, N, 1).astype(np.float32))
+    got, dX = _route_k2(flat, X, g, reqs, n_sm=3, tf32=True)
+    got = got + [dX]
+    emu = _referee(flat, X, g, reqs, emulate_tf32=True)
+    twin = _referee(flat, X, g, reqs, emulate_tf32="float64")
+    # the JAX package's table and its gradient (HIGHEST: IEEE float32)
+    jl = [(jnp.asarray(W.numpy()), jnp.asarray(b.numpy()))
+          for W, b in zip(flat[0::2], flat[1::2])]
+    chans = channel_order(reqs)
+
+    def loss(layers, x):
+        t = jax_table(layers, x, reqs)
+        return sum(jnp.sum(t[mi] * jnp.asarray(g[c].numpy()))
+                   for c, mi in enumerate(chans))
+
+    gl, gx = jax.grad(loss, argnums=(0, 1))(jl, jnp.asarray(X.numpy()))
+    ieee = [torch.from_numpy(np.array(a)) for pair in gl for a in pair] \
+        + [torch.from_numpy(np.array(gx))]
+    spread = max(_rms_rel(t, e) for t, e in zip(twin, emu))
+    band = max(TF32_FLOOR, TF32_SPREAD * spread)
+    for i, (a, e, t, j) in enumerate(zip(got, emu, twin, ieee)):
+        near = min(_rms_rel(a, e), _rms_rel(a, t))
+        print(f"leaf {i}: to the TF32 referee {_rms_rel(a, e):.3e} (nearer "
+              f"{near:.3e}, band {band:.3e}); to JAX HIGHEST "
+              f"{_rms_rel(a, j):.3e}")
+        assert near <= band, (i, near, band)
+    cat = lambda ts: torch.cat([t.reshape(-1) for t in ts])  # noqa: E731
+    assert _rms_rel(cat(got), cat(emu)) < _rms_rel(cat(got), cat(ieee))
