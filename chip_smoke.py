@@ -22,6 +22,11 @@ Phases (each failure is fatal; exit code != 0, no result line):
    flavor, for the Allen-Cahn residual (E = 1, N = 50,000, 2-128x4-1), the
    coupled 2-equation system (E = 2, 2-128x4-2) and a ``1/x`` residual at a
    ragged N = 50,001 (everything finite).
+   K2 and K3 take the route K2_ROUTES/K3_ROUTES name (``[route K2 ac]``:
+   the persistent wgmma route of ``csrc/wg_backward.cuh`` in its 3xTF32
+   flavor at these shapes; another route fails the phase), each a second
+   launch equal to the first bit for bit, each timed beside its ms on the
+   mma.sync route before (F32_BEFORE_WGMMA_MS).
    Each kernel's time is printed beside two bounds: the route it takes
    (its tensor-core products as 3 TF32 passes over the TF32 peak, the rest
    over the FP32 peak, its bytes over the HBM rate) and, for continuity,
@@ -173,7 +178,7 @@ Phases (each failure is fatal; exit code != 0, no result line):
    (a) the engine must be ``fused-minimax-cuda`` with E equations; compile
    seconds and launches printed; (b) K3 (the solver's own lowered step, w
    = λ²), K1 and K2 (the entry's requests) against their plain flavors at
-   the entry's N_f points within 1e-4 scale-relative, K1 and K3 bit for
+   the entry's N_f points within 1e-4 scale-relative, K1, K2 and K3 bit for
    bit run to run, each timed over 20 launches beside its bound; (c)
    ``zoo.race_entry(entry, "full", arms=("fixed",), budget_cap=200)``: 200
    Adam steps and up to 200 L-BFGS iterations with evaluations at the
@@ -205,8 +210,11 @@ Phases (each failure is fatal; exit code != 0, no result line):
    the mma.sync kernels at WIDE_WIDTHS; another route fails the phase);
    each timed over 20 launches beside the 3xTF32 flavor, its one-pass
    bound and the mma.sync route's earlier ms (TF32_BEFORE_WGMMA_MS); the
-   distance to the IEEE flavor printed.  ``--tf32-only`` runs the build,
-   the yardstick and this part alone.  (b) AC-SA full with
+   distance to the IEEE flavor printed.  The f32 (3xTF32) K2 and K3 at the
+   same three shapes against the IEEE plain flavor (K2_RTOL, K3_RTOL), on
+   the route K2_ROUTES/K3_ROUTES name (wgmma at the slice and ``burgers``,
+   mma.sync at WIDE_WIDTHS), bit for bit run to run, timed.
+   ``--tf32-only`` runs the build, the yardstick and this part alone.  (b) AC-SA full with
    ``neural_net(WIDTHS, precision=None)`` on ``fused="cuda"``: the engine
    compile adopts and the cross-check's distances; where the f32 band
    refuses the flavor the next narrower width is tried (TF32_WIDTHS, each
@@ -382,12 +390,13 @@ Phases (each failure is fatal; exit code != 0, no result line):
 23. a ``{"kernels": [...]}`` line (K1, K2, K3, their bf16 and their TF32
    flavors, each held to its plain version; K1's with the route it took and
    its wide route's measurements as ``wide_route``; the TF32 flavors with
-   their distances and the 3xTF32 flavor's ms, K2-TF32's and K3-TF32's
-   with the route they took at the slice (``tf32_route``), their mma.sync
-   route at WIDE_WIDTHS (``old_route``) and the TF32 products'
-   ``torch.matmul`` ms (``yardstick_ms``); ``launches_by_path`` has
-   every path's launches, phases 17-22's included), the card line again,
-   and the result line.
+   their distances and the 3xTF32 flavor's ms; K2's and K3's (f32 and
+   TF32) with the route they took at the slice (``k2_route``/``k3_route``,
+   ``tf32_route``) and its source, their mma.sync route at WIDE_WIDTHS
+   (``old_route``) and their flavor's nine products' ``torch.matmul`` ms
+   (``yardstick_ms``: f32, or TF32); ``launches_by_path`` has every
+   path's launches, phases 17-22's included), the card line again, and the
+   result line.
 
 Phases 6-9 and 11-14 train through CUDA graphs (``training/graphs.py``): each Adam
 step, each L-BFGS evaluation and two-loop sweep, and each fixed-step L-BFGS
@@ -435,13 +444,17 @@ TF32_PASSES = 3               # the f32 flavor's products are 3xTF32
 # (128-term dot products per layer for K1, its wgmma route summing all 48
 # passes of a layer in the tensor core's own accumulator; K2's weight
 # cotangents also sum 50,000 points x C channels).  Measured on an H100 at
-# these shapes: K1 7.6e-6 (4.8e-6 before its wgmma route), K2 1.1e-6
-# (PERF.md).
+# these shapes: K1 7.6e-6 (4.8e-6 before its wgmma route), K2 3.2e-6 on
+# its wgmma route (1.1e-6 on the mma.sync one) (PERF.md).
 K1_RTOL = 1e-4
 K2_RTOL = 1e-4
 # K3 vs its plain flavor, the same measure over the value, every dW/db leaf,
 # gw and gX: the same product numerics, another summation order (the value
-# and dW/db sum 50,000 points)
+# and dW/db sum 50,000 points).  The head bias's gradient is one sum over
+# every point that cancels, so a drift of the hidden activations toward
+# zero shows in it first: the wgmma route's forward sums each weight
+# chunk's passes in an accumulator of its own for that reason
+# (csrc/wg_backward.cuh, scripts/torch_tc_accumulation_witness.py)
 K3_RTOL = 1e-4
 
 AC_REQUESTS = {(), (1,), (0, 0)}
@@ -552,10 +565,23 @@ TF32_UNFUSED_STEPS = 50  # the TF32 flavor's unfused steps (K1/K2)
 # WIDE_WIDTHS, past the wgmma route's widths
 K2_TF32_ROUTES = {"ac": "wgmma", "burgers": "wgmma", "wide": "mma"}
 K3_TF32_ROUTES = {"ac": "wgmma", "burgers": "wgmma", "wide": "mma"}
-TF32_ROUTE_SOURCES = {("k2", "wgmma"): "csrc/wg_backward.cuh",
-                      ("k3", "wgmma"): "csrc/wg_backward.cuh",
-                      ("k2", "mma"): "csrc/taylor_table.cu",
-                      ("k3", "mma"): "csrc/minimax_step.cu"}
+# the route the f32 (3xTF32) K2 and K3 must take in each case of phases 3-5
+# and 16(a): the same wgmma route in its f32 flavor at the slice's (the AC
+# and mixed request sets; E = 2 and the 1/x residual) and burgers' shapes,
+# the mma.sync kernels at WIDE_WIDTHS
+K2_ROUTES = {"ac": "wgmma", "mixed": "wgmma", "burgers": "wgmma",
+             "wide": "mma"}
+K3_ROUTES = {"ac": "wgmma", "system": "wgmma", "singular": "wgmma",
+             "burgers": "wgmma", "wide": "mma"}
+ROUTE_SOURCES = {("k2", "wgmma"): "csrc/wg_backward.cuh",
+                 ("k3", "wgmma"): "csrc/wg_backward.cuh",
+                 ("k2", "mma"): "csrc/taylor_table.cu",
+                 ("k3", "mma"): "csrc/minimax_step.cu"}
+# the f32 K2's and K3's ms on the mma.sync route at the slice (PERF.md §6,
+# an NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's; the
+# same-call comparison is scripts/torch_tf32_time.py's --flavor f32 on an
+# older checkout
+F32_BEFORE_WGMMA_MS = {"K2 ac": 3.672, "K3 ac": 3.932}
 # K2-TF32's and K3-TF32's ms before their wgmma route, on the mma.sync
 # kernels (PERF.md §6, an NVIDIA H100 80GB HBM3 at 700 W), printed beside
 # this run's; the same-call comparison is scripts/torch_phase_split.py's
@@ -744,6 +770,11 @@ def phase_kernels(dev) -> dict:
               flush=True)
         if not k2_rel <= K2_RTOL:
             fail(f"K2 disagrees with autograd of the plain flavor ({label})")
+        k2_route = _wb_route(plan, "k2", label)
+        k2_bits = _bit_identical_run_to_run(
+            f"K2 {label}", torch.cat([dflat, dX.reshape(-1)]),
+            lambda: torch.cat([t.reshape(-1) for t in
+                               ct.k2_backward(plan, X, flat, g)[::-1]]))
 
         before = (ct.k1_forward.launches, ct.k2_backward.launches)
         k1_ms = cuda_ms(lambda: ct.k1_forward(plan, X, flat))
@@ -760,13 +791,16 @@ def phase_kernels(dev) -> dict:
               f"{'not recorded' if before_ms is None else f'{before_ms:.3f} ms'}"
               f"; plain {k1_plain_ms:.3f} ms), {bound_text(k1_ms, b1)}",
               flush=True)
-        print(f"[time {label}] K2 {k2_ms:.3f} ms (plain fwd+bwd "
-              f"{k2_plain_ms:.3f} ms), {bound_text(k2_ms, b2)}", flush=True)
+        was = F32_BEFORE_WGMMA_MS.get(f"K2 {label}")
+        print(f"[time {label}] K2 {k2_ms:.3f} ms on the {k2_route} route"
+              f"{'' if was is None else f' (mma.sync route: {was:.3f} ms)'}"
+              f" (plain fwd+bwd {k2_plain_ms:.3f} ms), "
+              f"{bound_text(k2_ms, b2)}", flush=True)
         out[label] = dict(
             k1=dict(max_abs_err=k1_abs, ms=k1_ms, plain_ms=k1_plain_ms,
                     bound=b1, route=route, bit_identical=k1_bits),
             k2=dict(max_abs_err=k2_abs, ms=k2_ms, plain_ms=k2_plain_ms,
-                    bound=b2))
+                    bound=b2, route=k2_route, bit_identical=k2_bits))
     out["ac"]["k1"]["wide"] = out["wide"]["k1"]
     return out["ac"]
 
@@ -853,16 +887,25 @@ def phase_k3(dev) -> dict:
               flush=True)
         if not k3_rel <= K3_RTOL:
             fail(f"K3 disagrees with its plain flavor ({label})")
+        route = _wb_route(plan, "k3", label)
+        bits = _bit_identical_run_to_run(
+            f"K3 {label}", torch.cat([t.reshape(-1) for t in
+                                      (val, dflat, gw, gX)]),
+            lambda: torch.cat([t.reshape(-1) for t in
+                               cm.k3_minimax(plan, X, w, flat)]))
         ms = cuda_ms(lambda: cm.k3_minimax(plan, X, w, flat))
         plain_ms = cuda_ms(lambda: sq.plain(flat_layers, w, X), reps=5)
         # comparison launches are not the main path's: restore the count
         cm.k3_minimax.launches = before
         bound = bound_ms(cm.flop_count(plan, n)["k3"],
                          cm.byte_count(plan, n)["k3"])
-        print(f"[time K3 {label}] K3 {ms:.3f} ms (plain fwd+bwd "
-              f"{plain_ms:.3f} ms), {bound_text(ms, bound)}", flush=True)
+        was = F32_BEFORE_WGMMA_MS.get(f"K3 {label}")
+        print(f"[time K3 {label}] K3 {ms:.3f} ms on the {route} route"
+              f"{'' if was is None else f' (mma.sync route: {was:.3f} ms)'}"
+              f" (plain fwd+bwd {plain_ms:.3f} ms), {bound_text(ms, bound)}",
+              flush=True)
         out[label] = dict(max_abs_err=k3_abs, ms=ms, plain_ms=plain_ms,
-                          bound=bound)
+                          bound=bound, route=route, bit_identical=bits)
     return out["ac"]
 
 
@@ -1443,7 +1486,7 @@ def _kernel_group(name: str) -> str:
     if "taylor_bwd" in low:
         return "K2 taylor_bwd_kernel"
     if "minimax_step" in low or "minimax_wg" in low:
-        return "K3 minimax_step_kernel"
+        return "K3 minimax_step_kernel / minimax_wg_kernel"
     if "reduce_partials" in low:
         return "reduce_partials (K2's or K3's slot-ordered sum)"
     if "gemm" in low or "gemv" in low or "cutlass" in low:
@@ -3013,6 +3056,7 @@ def _zoo_kernels(entry, solver, dev) -> dict:
         fail(f"zoo {entry.id}: K3 is not bit-identical run to run")
     out["k3"] = dict(
         max_abs_err=k3_abs, scale_rel_err=k3_rel, C=plan3.C, E=plan3.E,
+        route=plan3.k3_routes[None],
         ms=cuda_ms(lambda: cm.k3_minimax(plan3, X, w, flat3)),
         plain_ms=cuda_ms(lambda: sq.plain(fl, w, X), reps=5),
         bound=bound_ms(cm.flop_count(plan3, n)["k3"],
@@ -3065,6 +3109,10 @@ def _zoo_kernels(entry, solver, dev) -> dict:
     if not k2_rel <= K2_RTOL:
         fail(f"zoo {entry.id}: K2 disagrees with autograd of the plain "
              f"flavor ({k2_rel:.3e})")
+    again = ct.k2_backward(plan, X, flat, g)
+    torch.cuda.synchronize()
+    if not (torch.equal(again[0], dX) and torch.equal(again[1], dflat2)):
+        fail(f"zoo {entry.id}: K2 is not bit-identical run to run")
     flops, nbytes = ct.flop_count(plan, n), ct.byte_count(plan, n)
     with torch.no_grad():
         k1_plain = cuda_ms(plain_table, reps=5)
@@ -3074,6 +3122,7 @@ def _zoo_kernels(entry, solver, dev) -> dict:
                      plain_ms=k1_plain,
                      bound=bound_ms(flops["k1"], nbytes["k1"]))
     out["k2"] = dict(max_abs_err=k2_abs, scale_rel_err=k2_rel, C=plan.C,
+                     route=plan.k2_routes[None],
                      ms=cuda_ms(lambda: ct.k2_backward(plan, X, flat, g)),
                      plain_ms=cuda_ms(plain_grads, reps=5),
                      bound=bound_ms(flops["k2"], nbytes["k2"]))
@@ -3084,7 +3133,7 @@ def _zoo_kernels(entry, solver, dev) -> dict:
     for key in ("k3", "k1", "k2"):
         m = out[key]
         extra = (f" C={m['C']}" + (f" E={m['E']}" if key == "k3" else "")
-                 + (f" route {m['route']}" if key == "k1" else ""))
+                 + f" route {m['route']}")
         print(f"[zoo {entry.id} {key.upper()}]{extra} N={n} max_abs_err="
               f"{m['max_abs_err']:.3e} scale_rel_err={m['scale_rel_err']:.3e}"
               f" (tol 1e-4); {m['ms']:.3f} ms (plain {m['plain_ms']:.3f} ms),"
@@ -3276,8 +3325,9 @@ def phase_zoo(dev) -> dict:
         (name,) = os.listdir(tmp)
         with open(os.path.join(tmp, name)) as fh:
             events = json.load(fh)["traceEvents"]
+    # K3's kernel on either route (minimax_step_kernel, minimax_wg_kernel)
     k3_records = [ev for ev in events if ev.get("cat") == "kernel"
-                  and "minimax_step" in str(ev.get("name"))]
+                  and _kernel_group(str(ev.get("name"))).startswith("K3")]
     print(f"[zoo profile {ZOO_PROFILE_ENTRY}] fit(tf_iter="
           f"{ZOO_PROFILE_STEPS}, profile_dir=...) {t:.2f} s: {len(events)} "
           f"trace events, {len(k3_records)} K3 kernel records "
@@ -3365,19 +3415,37 @@ def _tf32_check(label: str, got: list, emu: list, twin: list,
     return worst
 
 
-def _tf32_route(plan, kernel: str, label: str) -> str:
-    """The route K2-TF32's or K3-TF32's last launch took (``kernel`` "k2"
-    or "k3"); it must be the one ``K2_TF32_ROUTES``/``K3_TF32_ROUTES``
+def _wb_route(plan, kernel: str, label: str, flavor=None) -> str:
+    """The route K2's or K3's last launch in a flavor took (``kernel`` "k2"
+    or "k3"; ``flavor`` None, the f32 one, or ``ct.TF32``); it must be the
+    one ``K2_ROUTES``/``K3_ROUTES`` (``K2_TF32_ROUTES``/``K3_TF32_ROUTES``)
     names for the case."""
     from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
-    got = (plan.k2_routes if kernel == "k2" else plan.k3_routes)[ct.TF32]
-    want = (K2_TF32_ROUTES if kernel == "k2" else K3_TF32_ROUTES)[label]
-    print(f"[route {kernel.upper()}-TF32 {label}] {got} "
-          f"({TF32_ROUTE_SOURCES[(kernel, got)]})", flush=True)
+    got = (plan.k2_routes if kernel == "k2" else plan.k3_routes)[flavor]
+    tf32 = flavor == ct.TF32
+    want = ((K2_TF32_ROUTES if tf32 else K2_ROUTES) if kernel == "k2" else
+            (K3_TF32_ROUTES if tf32 else K3_ROUTES))[label]
+    name = kernel.upper() + ("-TF32" if tf32 else "")
+    print(f"[route {name} {label}] {got} ({ROUTE_SOURCES[(kernel, got)]})",
+          flush=True)
     if got != want:
-        fail(f"{kernel.upper()}-TF32 ({label}) took the {got} route, not the "
-             f"{want} one")
+        fail(f"{name} ({label}) took the {got} route, not the {want} one")
     return got
+
+
+def _f32_check(label: str, got: list, want: list, tol: float) -> dict:
+    """Every leaf of an f32 kernel's output finite and within ``tol``
+    scale-relative of the IEEE plain flavor's (``want``)."""
+    import torch
+    if not all(bool(torch.isfinite(t).all()) for t in got):
+        fail(f"{label}: non-finite output")
+    errs = [scaled_err(a, b) for a, b in zip(got, want)]
+    err_abs, err_rel = max(e[0] for e in errs), max(e[1] for e in errs)
+    print(f"[{label}] max_abs_err={err_abs:.3e} scale_rel_err={err_rel:.3e} "
+          f"(tol {tol:g} on it)", flush=True)
+    if not err_rel <= tol:
+        fail(f"{label} disagrees with its plain flavor")
+    return dict(max_abs_err=err_abs, scale_rel_err=err_rel)
 
 
 def phase_tf32_kernels(dev) -> dict:
@@ -3386,8 +3454,11 @@ def phase_tf32_kernels(dev) -> dict:
     2-128x4-1, C = 4, E = 1), at ``burgers``' 2-20x8-1 (K2 and K3 on their
     wgmma route at both) and at WIDE_WIDTHS (their mma.sync route), each
     kernel bit for bit run to run, each timed over 20 launches beside the
-    3xTF32 flavor and its one-pass bound.  Returns the Allen-Cahn
-    measurements, with the wide case's K2/K3 as ``old_route``."""
+    3xTF32 flavor and its one-pass bound.  The 3xTF32 (f32) K2 and K3 at
+    the same three shapes against the IEEE plain flavor (K2_RTOL, K3_RTOL),
+    on the route K2_ROUTES/K3_ROUTES name, bit for bit run to run.  Returns
+    the Allen-Cahn measurements, with the wide case's K2/K3 as
+    ``old_route`` and the f32 K2/K3 of the wide case under ``f32_wide``."""
     import torch
     from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
     from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
@@ -3436,11 +3507,21 @@ def phase_tf32_kernels(dev) -> dict:
         torch.cuda.synchronize()
         k2 = _tf32_check(f"K2-TF32 {label}", plan.unpack(dflat) + [dX],
                          list(ge), list(gt), list(gi))
-        k2["route"] = _tf32_route(plan, "k2", label)
+        k2["route"] = _wb_route(plan, "k2", label, ct.TF32)
         k2["bit_identical"] = _bit_identical_run_to_run(
             f"K2-TF32 {label}", torch.cat([dflat, dX.reshape(-1)]),
             lambda: torch.cat([t.reshape(-1) for t in
                                ct.k2_backward_tf32(plan, X, flat, g)[::-1]]))
+        # the f32 (3xTF32) K2 on its route for the case
+        dX32, dflat32 = ct.k2_backward(plan, X, flat, g)
+        torch.cuda.synchronize()
+        k2f = _f32_check(f"K2 {label}", plan.unpack(dflat32) + [dX32],
+                         list(gi), K2_RTOL)
+        k2f["route"] = _wb_route(plan, "k2", label)
+        k2f["bit_identical"] = _bit_identical_run_to_run(
+            f"K2 {label}", torch.cat([dflat32, dX32.reshape(-1)]),
+            lambda: torch.cat([t.reshape(-1) for t in
+                               ct.k2_backward(plan, X, flat, g)[::-1]]))
         flops, nbytes = ct.flop_count(plan, N_POINTS), \
             ct.byte_count(plan, N_POINTS)
         passes = ct.tensor_passes(plan, ct.TF32)
@@ -3460,6 +3541,9 @@ def phase_tf32_kernels(dev) -> dict:
                   f" beside the 3xTF32 flavor's {res['f32_ms']:.3f} ms (plain "
                   f"TF32 emulation {res['plain_ms']:.3f} ms); "
                   f"{bound_text(res['ms'], res['bound'])}", flush=True)
+        k2f.update(ms=k2["f32_ms"], plain_ms=cuda_ms(lambda: plain(False),
+                                                     reps=5),
+                   bound=bound_ms(flops["k2"], nbytes["k2"]))
 
         sq32 = build_minimax_sq_fn(f_model, ("x", "t"), 1, reqs, shapes,
                                    device=dev)
@@ -3483,11 +3567,23 @@ def phase_tf32_kernels(dev) -> dict:
             leaves(sq.plain(fl, w, X, emulate_tf32=True)),
             leaves(sq.plain(fl, w, X, emulate_tf32="float64")),
             leaves(sq32.plain(fl, w, X)))
-        k3["route"] = _tf32_route(sq.plan, "k3", label)
+        k3["route"] = _wb_route(sq.plan, "k3", label, ct.TF32)
         k3["bit_identical"] = _bit_identical_run_to_run(
             f"K3-TF32 {label}", torch.cat([t.reshape(-1) for t in got]),
             lambda: torch.cat([t.reshape(-1) for t in
                                cm.k3_minimax_tf32(sq.plan, X, w, kflat)]))
+        # the f32 (3xTF32) K3 on its route for the case
+        got32 = cm.k3_minimax(sq.plan, X, w, kflat)
+        torch.cuda.synchronize()
+        k3f = _f32_check(
+            f"K3 {label}",
+            leaves((got32[0], sq.plan.unpack(got32[1]), got32[2], got32[3])),
+            leaves(sq32.plain(fl, w, X)), K3_RTOL)
+        k3f["route"] = _wb_route(sq.plan, "k3", label)
+        k3f["bit_identical"] = _bit_identical_run_to_run(
+            f"K3 {label}", torch.cat([t.reshape(-1) for t in got32]),
+            lambda: torch.cat([t.reshape(-1) for t in
+                               cm.k3_minimax(sq.plan, X, w, kflat)]))
         k3["ms"] = cuda_ms(lambda: cm.k3_minimax_tf32(sq.plan, X, w, kflat))
         k3["f32_ms"] = cuda_ms(lambda: cm.k3_minimax(sq.plan, X, w, kflat))
         k3["plain_ms"] = cuda_ms(
@@ -3495,6 +3591,17 @@ def phase_tf32_kernels(dev) -> dict:
         k3["bound"] = bound_ms(cm.flop_count(sq.plan, N_POINTS)["k3"],
                                cm.byte_count(sq.plan, N_POINTS)["k3"],
                                cm.tensor_passes(sq.plan, ct.TF32))
+        k3f.update(ms=k3["f32_ms"],
+                   plain_ms=cuda_ms(lambda: sq32.plain(fl, w, X), reps=5),
+                   bound=bound_ms(cm.flop_count(sq.plan, N_POINTS)["k3"],
+                                  cm.byte_count(sq.plan, N_POINTS)["k3"]))
+        for name, m in (("K2", k2f), ("K3", k3f)):
+            was = F32_BEFORE_WGMMA_MS.get(f"{name} {label}")
+            print(f"[time {name} {label}] {m['ms']:.3f} ms on the "
+                  f"{m['route']} route"
+                  f"{'' if was is None else f' (mma.sync route: {was:.3f} ms)'}"
+                  f" (plain {m['plain_ms']:.3f} ms); "
+                  f"{bound_text(m['ms'], m['bound'])}", flush=True)
         was = TF32_BEFORE_WGMMA_MS.get(f"K3-TF32 {label}")
         print(f"[time K3-TF32 {label}] {k3['ms']:.3f} ms on the "
               f"{k3['route']} route"
@@ -3502,11 +3609,13 @@ def phase_tf32_kernels(dev) -> dict:
               f" beside the 3xTF32 flavor's {k3['f32_ms']:.3f} ms (plain TF32 "
               f"emulation {k3['plain_ms']:.3f} ms); "
               f"{bound_text(k3['ms'], k3['bound'])}", flush=True)
-        out[label] = dict(k1_tf32=k1, k2_tf32=k2, k3_tf32=k3)
+        out[label] = dict(k1_tf32=k1, k2_tf32=k2, k3_tf32=k3, k2=k2f, k3=k3f)
     _set_counts(before)  # comparison launches are not the main path's
-    res = out["ac"]
+    res = {k: out["ac"][k] for k in ("k1_tf32", "k2_tf32", "k3_tf32")}
     for key in ("k2_tf32", "k3_tf32"):
         res[key]["old_route"] = dict(out["wide"][key], widths=WIDE_WIDTHS)
+    res["f32_wide"] = {key: dict(out["wide"][key], widths=WIDE_WIDTHS)
+                       for key in ("k2", "k3")}
     return res
 
 
@@ -3938,6 +4047,9 @@ def _k3_against_plain(label: str, sq, X, lam, fl) -> dict:
     want = _k3_leaves(lam, *sq.plain(fl, w, X))
     if not all(bool(torch.isfinite(t).all()) for t in got):
         fail(f"{label}: K3 gave a non-finite output")
+    again = cm.k3_minimax(plan, X, w, plan.pack(fl))
+    torch.cuda.synchronize()
+    bits = all(torch.equal(a, b) for a, b in zip(again, (v, dflat, gw, gX)))
     errs = [scaled_err(a, b) for a, b in zip(got, want)]
     worst = max(errs, key=lambda e: e[1])
     print(f"[{label}] K3 at N={X.shape[0]:,} against its plain flavor: "
@@ -3945,10 +4057,15 @@ def _k3_against_plain(label: str, sq, X, lam, fl) -> dict:
           f"scale_rel_err value {errs[0][1]:.3e}, dW/db "
           f"{max(e[1] for e in errs[1:-3]):.3e}, gw {errs[-3][1]:.3e}, "
           f"λ gradient {errs[-2][1]:.3e}, gX {errs[-1][1]:.3e}; max_abs_err "
-          f"{max(e[0] for e in errs):.3e} (tol {K3_RTOL:g})", flush=True)
+          f"{max(e[0] for e in errs):.3e} (tol {K3_RTOL:g}); route "
+          f"{plan.k3_routes[None]}; run to run: "
+          f"{'bit-identical' if bits else 'DIFFERENT'}", flush=True)
     _set_counts(saved)
     if not worst[1] <= K3_RTOL:
         fail(f"{label}: K3 disagrees with its plain flavor at "
+             f"N={X.shape[0]:,}")
+    if not bits:
+        fail(f"{label}: K3 is not bit-identical run to run at "
              f"N={X.shape[0]:,}")
     return dict(max_abs_err=max(e[0] for e in errs), scale_rel_err=worst[1])
 
@@ -6633,6 +6750,9 @@ def kernels_line(meas: dict, paths: dict) -> str:
         m = meas[key]
         by_path = {tag: int(res["launches"].get(key, 0))
                    for tag, res in paths.items()}
+        if key[:2] in ("k2", "k3") and "route" in m:
+            # K2's and K3's route at the slice's shape (f32 and TF32)
+            source = ROUTE_SOURCES[(key[:2], m["route"])]
         entries.append({
             "name": name, "route": "cuda",
             "source": f"tensordiffeq_tpu_torch/{source}",
@@ -6653,15 +6773,18 @@ def kernels_line(meas: dict, paths: dict) -> str:
             # in phases 3 and 14 at WIDE_WIDTHS; no main path takes it
             **({"k1_route": m["route"]}
                if "route" in m and key.startswith("k1") else {}),
-            # K2-TF32's and K3-TF32's route at the slice's shape (the wgmma
-            # route of csrc/wg_backward.cuh), its mma.sync route at
-            # WIDE_WIDTHS (held and timed in phase 16(a); no main path takes
-            # it), and the TF32 products' torch.matmul time (the yardstick)
-            **({"tf32_route": m["route"],
+            # K2's and K3's route at the slice's shape (the wgmma route of
+            # csrc/wg_backward.cuh; "k2_route"/"k3_route" for the f32
+            # flavor, "tf32_route" for the TF32 one), their mma.sync route
+            # at WIDE_WIDTHS (held and timed in phase 16(a); no main path
+            # takes it), and the flavor's products' torch.matmul time (the
+            # yardstick)
+            **({("tf32_route" if key.endswith("tf32") else f"{key}_route"):
+                m["route"],
                 "yardstick_ms": m.get("yardstick_ms"),
                 "old_route": {
                     "route": m["old_route"]["route"],
-                    "source": "tensordiffeq_tpu_torch/" + TF32_ROUTE_SOURCES[
+                    "source": "tensordiffeq_tpu_torch/" + ROUTE_SOURCES[
                         (key[:2], m["old_route"]["route"])],
                     "widths": WIDE_WIDTHS,
                     "max_abs_err": m["old_route"]["max_abs_err"],
@@ -6716,8 +6839,8 @@ def main():
                     "alone; prints no result line")
     ap.add_argument("--tf32-only", action="store_true",
                     help="build the kernels and run the yardstick and phase "
-                    "16(a) (the TF32 kernels on both routes) alone; prints "
-                    "no result line")
+                    "16(a) (the TF32 kernels, and the f32 K2 and K3, on both "
+                    "routes) alone; prints no result line")
     ap.add_argument("--fleet-child", nargs=2, metavar=("WORK", "OUT"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--dist-worker", nargs=4,
@@ -6823,6 +6946,9 @@ def main():
         dev, paths["minimax"]["ms_step"])
     for key in ("k2_tf32", "k3_tf32"):
         tf32_meas[key]["yardstick_ms"] = yard["tf32"]["nine_ms"]
+    for key, wide in tf32_meas.pop("f32_wide").items():
+        meas[key]["old_route"] = wide
+        meas[key]["yardstick_ms"] = yard["f32"]["nine_ms"]
     meas.update(tf32_meas)
     paths.update(option_paths)
     paths.update(phase_dist(card))

@@ -1,6 +1,7 @@
 """Where K1, K2 and K3 spend their time, phase by phase, on one NVIDIA GPU.
 
-    python3 scripts/torch_phase_split.py [--reps 5] [--tree DIR]
+    python3 scripts/torch_phase_split.py [--reps 5] [--tree DIR] \
+        [--flavor all|f32|tf32]
 
 Run from the root of a checkout; ``--tree`` (default: this script's
 checkout) names the checkout whose ``tensordiffeq_tpu_torch`` package and
@@ -14,9 +15,10 @@ and K3 at the AC slice (K3 also on the coupled system and the ``1/x``
 residual at N = 50,001), then their bf16 flavors (K2-bf16, K3-bf16 on the
 AC set and the coupled system) and K2-TF32, K3-TF32 at the AC slice, each
 on the route its shape takes in the checkout (the wgmma route of
-``wg_backward.cuh``, or in an older checkout the mma.sync kernels: run
-``--tree`` on one for the split before it).  ``--only k1`` splits K1's
-flavors alone.
+``wg_backward.cuh`` for the f32 and TF32 flavors, or in an older checkout
+the mma.sync kernels: run ``--tree`` on one for the split before it).
+``--only k1`` splits K1's flavors alone; ``--flavor f32`` (``tf32``) splits
+K2 and K3 at the AC slice in that flavor alone.
 
 The instrumentation: every device function named in ``PHASES`` gets a
 ``clock64()`` stamp at its entry and at each exit, and thread 0 of each
@@ -59,7 +61,8 @@ LABELS = ["forward products", "head product", "K3 epilogue (tape)",
           "act_fwd", "act_vjp", "workspace copies", "dW (+ partials)",
           "dH", "bias sums", "layer 0 forward", "layer 0 backward",
           "cotangent split", "table store", "dW slot adds",
-          "K-major operand writes", "head cotangents", "total"]
+          "K-major operand writes", "head cotangents",
+          "dW lo planes (in place)", "total"]
 P = {name: i for i, name in enumerate(LABELS)}
 PHASES = {
     "mma_w_rows": str(P["forward products"]),
@@ -105,6 +108,9 @@ PHASES = {
     "wb_head_bwd": str(P["head cotangents"]),
     "wb_epilogue": str(P["K3 epilogue (tape)"]),
     "wb_layer0_bwd": str(P["layer 0 backward"]),
+    # the f32 flavor's dW: its operands' lo parts made in place between
+    # passes (wb_dw3's products and rewrite count as above)
+    "wb_lo_in_place": str(P["dW lo planes (in place)"]),
 }
 # functions a checkout from before the bf16 flavor's own route, or from
 # before K1's wgmma route, lacks
@@ -226,6 +232,10 @@ def main():
                     help="the checkout whose kernels are split")
     ap.add_argument("--only", choices=("k1",), default=None,
                     help="split K1's flavors alone")
+    ap.add_argument("--flavor", choices=("all", "f32", "tf32"),
+                    default="all",
+                    help="split K2 and K3 at the AC slice in this flavor "
+                    "alone (default: every kernel and flavor)")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -311,7 +321,8 @@ def main():
     plan = ct.build_cuda_table_fn(cs.AC_REQUESTS,
                                   [tuple(W.shape) for W, _ in layers]).plan
     flat = plan.pack(flat_layers)
-    for label, reqs in (("ac", cs.AC_REQUESTS), ("mixed", cs.MIXED_REQUESTS)):
+    for label, reqs in ((("ac", cs.AC_REQUESTS), ("mixed", cs.MIXED_REQUESTS))
+                        if args.flavor == "all" else ()):
         p1 = ct.build_cuda_table_fn(reqs, [tuple(W.shape)
                                            for W, _ in layers]).plan
         f1 = p1.pack(flat_layers)
@@ -327,24 +338,31 @@ def main():
         return
     g = torch.as_tensor(rng.randn(plan.C, n, 1), dtype=torch.float32,
                         device=dev)
-    split("K2 ac", "taylor_table", lambda: ct.k2_backward(plan, X, flat, g))
-    split("K2-bf16 ac", "taylor_table",
-          lambda: ct.k2_backward_bf16(plan, X, flat, g))
-    # the TF32 flavor on the route its shape takes: the wgmma route
-    # (wg_backward.cuh's instances) where the checkout has it, else the
-    # mma.sync kernels
-    k2_units = ("taylor_table",) + tuple(f"taylor_bwd_wg_tf32_{n}"
+    # the f32 and TF32 flavors on the route their shape takes: the wgmma
+    # route (wg_backward.cuh's instances) where the checkout has it, else
+    # the mma.sync kernels
+    k2_units = ("taylor_table",) + tuple(f"taylor_bwd_wg_{f}_{n}"
+                                         for f in ("f32", "tf32")
                                          for n in (64, 128))
-    k3_units = ("minimax_step",) + tuple(f"minimax_wg_tf32_{n}"
+    k3_units = ("minimax_step",) + tuple(f"minimax_wg_{f}_{n}"
+                                         for f in ("f32", "tf32")
                                          for n in (64, 128))
-    split("K2-TF32 ac", k2_units, lambda: ct.k2_backward_tf32(plan, X, flat, g))
+    f32, tf32 = args.flavor in ("all", "f32"), args.flavor in ("all", "tf32")
+    if f32:
+        split("K2 ac", k2_units, lambda: ct.k2_backward(plan, X, flat, g))
+    if args.flavor == "all":
+        split("K2-bf16 ac", "taylor_table",
+              lambda: ct.k2_backward_bf16(plan, X, flat, g))
+    if tf32:
+        split("K2-TF32 ac", k2_units,
+              lambda: ct.k2_backward_tf32(plan, X, flat, g))
 
     for label, f_model, widths, nk, (lo, hi) in (
             ("ac", cs._ac_residual, cs.WIDTHS, n, (-1.0, 1.0)),
             ("system", cs._coupled_residual, cs.WIDTHS[:-1] + [2], n,
              (-1.0, 1.0)),
             ("singular", cs._singular_residual, cs.WIDTHS, n + 1,
-             (0.5, 1.5))):
+             (0.5, 1.5)))[:3 if args.flavor == "all" else 1]:
         lay = neural_net(widths, device=dev, seed=0).layers()
         sq = build_minimax_sq_fn(f_model, ("x", "t"), widths[-1],
                                  analyze_f_model(f_model, ("x", "t"),
@@ -358,12 +376,13 @@ def main():
         fl = sq.plan.pack([a.detach() if a.ndim == 2 else
                            a.detach().reshape(1, -1)
                            for pair in lay for a in pair])
-        split(f"K3 {label}", "minimax_step",
-              lambda: cm.k3_minimax(sq.plan, Xk, w, fl))
-        if label == "ac":
+        if f32:
+            split(f"K3 {label}", k3_units,
+                  lambda: cm.k3_minimax(sq.plan, Xk, w, fl))
+        if label == "ac" and tf32:
             split("K3-TF32 ac", k3_units,
                   lambda: cm.k3_minimax_tf32(sq.plan, Xk, w, fl))
-        if label != "singular":
+        if label != "singular" and args.flavor == "all":
             split(f"K3-bf16 {label}", "minimax_step",
                   lambda: cm.k3_minimax_bf16(sq.plan, Xk, w, fl))
     print(card_line(), flush=True)

@@ -1,7 +1,8 @@
-"""K2-TF32 and K3-TF32 at the Allen-Cahn slice of one checkout, on one
-NVIDIA GPU: the ms of each by CUDA events over 20 launches, three times.
+"""K2 and K3 in the TF32 (or f32) flavor at the Allen-Cahn slice of one
+checkout, on one NVIDIA GPU: the ms of each by CUDA events over 20
+launches, three times.
 
-    python3 scripts/torch_tf32_time.py --tree DIR
+    python3 scripts/torch_tf32_time.py --tree DIR [--flavor tf32|f32]
 
 Run from the root of a checkout; ``--tree`` (default: this script's
 checkout) names the checkout whose ``tensordiffeq_tpu_torch`` package and
@@ -9,8 +10,10 @@ checkout) names the checkout whose ``tensordiffeq_tpu_torch`` package and
 copies of one with a kernel constant edited) in turns.  The inputs are
 ``chip_smoke.py`` phase 16(a)'s: N = 50,000 points, the net 2-128x4-1 from
 seed 0, the Allen-Cahn residual, per-point weights and table cotangents
-from ``numpy.random.RandomState(2)``.  Prints one line: the card, the
-checkout, the routes the kernels took and the three ms of each.
+from ``numpy.random.RandomState(2)``.  ``--flavor f32`` times the 3xTF32
+flavor (``k2_backward``, ``k3_minimax``) instead of the single-pass one.
+Prints one line: the card, the checkout, the flavor, the routes the
+kernels took and the three ms of each.
 """
 import argparse
 import os
@@ -25,6 +28,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=ROOT,
                     help="the checkout whose kernels are timed")
+    ap.add_argument("--flavor", choices=("tf32", "f32"), default="tf32",
+                    help="the kernels' flavor (default: the TF32 one)")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -59,14 +64,18 @@ def main():
     fl = [a.detach() if a.ndim == 2 else a.detach().reshape(1, -1)
           for pair in layers for a in pair]
     kflat = sq.plan.pack(fl)
-    k2 = [cs.cuda_ms(lambda: ct.k2_backward_tf32(plan, X, flat, g))
-          for _ in range(3)]
-    k3 = [cs.cuda_ms(lambda: cm.k3_minimax_tf32(sq.plan, X, w, kflat))
-          for _ in range(3)]
+    tf32 = args.flavor == "tf32"
+    k2_fn = ct.k2_backward_tf32 if tf32 else ct.k2_backward
+    k3_fn = cm.k3_minimax_tf32 if tf32 else cm.k3_minimax
+    key, tag = (ct.TF32, "-TF32") if tf32 else (None, "")
+    k2 = [cs.cuda_ms(lambda: k2_fn(plan, X, flat, g)) for _ in range(3)]
+    k3 = [cs.cuda_ms(lambda: k3_fn(sq.plan, X, w, kflat)) for _ in range(3)]
+    # an older checkout records no route for a flavor it had one route for
+    routes = [r.get(key, "mma") for r in (sq.plan.k3_routes, plan.k2_routes)]
     fmt = lambda v: ", ".join(f"{x:.3f}" for x in v)  # noqa: E731
-    print(f"[tf32 time] {cs.card_line()}; {tree}: K3-TF32 "
-          f"({sq.plan.k3_routes[ct.TF32]} route) {fmt(k3)} ms; K2-TF32 "
-          f"({plan.k2_routes[ct.TF32]} route) {fmt(k2)} ms", flush=True)
+    print(f"[{args.flavor} time] {cs.card_line()}; {tree}: K3{tag} "
+          f"({routes[0]} route) {fmt(k3)} ms; K2{tag} ({routes[1]} route) "
+          f"{fmt(k2)} ms", flush=True)
 
 
 if __name__ == "__main__":

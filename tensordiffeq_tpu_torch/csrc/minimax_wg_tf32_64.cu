@@ -1,4 +1,4 @@
 // The instances of K3-TF32's wgmma route at NP = 64 (wg_backward.cuh).
 #include "wg_backward.cuh"
 
-WB_INSTANCES(k3wb_tf32_64, 64, true)
+WB_INSTANCES(k3wb_tf32_64, FL_TF32, 64, true)

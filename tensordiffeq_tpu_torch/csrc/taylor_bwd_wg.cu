@@ -1,17 +1,18 @@
-// The C interface of K2-TF32's wgmma route and of the route's plan
-// (wg_backward.cuh has the kernels, their note and the plan;
-// taylor_bwd_wg_tf32_{64,128}.cu the instances).  Loaded with ctypes; the
-// descriptors as in taylor_common.cuh.
+// The C interface of K2's wgmma route, in its f32 (3xTF32) and TF32
+// flavors, and of the route's plan (wg_backward.cuh has the kernels, their
+// note and the plan; taylor_bwd_wg_{f32,tf32}_{64,128}.cu the instances).
+// Loaded with ctypes; the descriptors as in taylor_common.cuh, the flavor
+// as taylor_common.cuh's FL_F32 / FL_TF32.
 #include "wg_backward.cuh"
 
-// The route's plan (K2's and K3's alike) into out[0 .. WB_PLAN_INTS)
-// (WbPlan's fields in order); returns 1, or 0 where the shape is the
-// mma.sync route's.
-extern "C" int tdq_wb_plan(const int* net_h, const int* sched_h,
+// The route's plan (K2's and K3's alike) in a flavor into out[0 ..
+// WB_PLAN_INTS) (WbPlan's fields in order); returns 1, or 0 where the
+// shape or the flavor is the mma.sync route's.
+extern "C" int tdq_wb_plan(const int* net_h, const int* sched_h, int flavor,
                            int smem_optin, int n_sm, int N, int* out) {
   WbPlan wp;
-  if (!wb_plan(unpack_net(net_h), unpack_sched(sched_h), smem_optin, n_sm, N,
-               &wp))
+  if (!wb_plan(unpack_net(net_h), unpack_sched(sched_h), flavor, smem_optin,
+               n_sm, N, &wp))
     return 0;
   const int v[WB_PLAN_INTS] = {wp.NP, wp.CP, wp.KC, wp.S, wp.P,
                                wp.stage_bytes, wp.n_tiles, wp.grid, wp.smem,
@@ -20,29 +21,31 @@ extern "C" int tdq_wb_plan(const int* net_h, const int* sched_h,
   return 1;
 }
 
-// K2-TF32 on this route at the plan plan_h (as tdq_wb_plan gives it; the
-// wrapper holds its own plan to that before the first launch): the weight
-// planes into the workspace after the blocks' slices (ws: ws_floats
-// floats), the kernel (dW/db into the G = grid partial slots of P_total
-// values, dX), then reduce_partials into grad.  Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a plan the route has no
-// instance of or a slot array not 16-byte aligned.
+// K2 on this route in a flavor, at the plan plan_h (as tdq_wb_plan gives
+// it for that flavor; the wrapper holds its own plan to that before the
+// flavor's first launch): the weight planes into the workspace after the
+// blocks' slices (ws: ws_floats floats), the kernel (dW/db into the G =
+// grid partial slots of P_total values, dX), then reduce_partials into
+// grad.  Returns cudaGetLastError(), or cudaErrorInvalidValue for a flavor
+// or plan the route has no instance of or a slot array not 16-byte
+// aligned.
 extern "C" int tdq_taylor_bwd_wg(const float* X, const float* prm,
                                  const float* gtab, float* dX, float* part,
                                  float* ws, float* grad, int N,
                                  const int* net_h, const int* sched_h,
-                                 const int* plan_h, void* stream) {
+                                 int flavor, const int* plan_h,
+                                 void* stream) {
   const Net net = unpack_net(net_h);
   const Sched s = unpack_sched(sched_h);
   const WbPlan wp = unpack_wb(plan_h);
   if (reinterpret_cast<uintptr_t>(part) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (wp.NP == 64)
-    return k2wb_tf32_64(X, nullptr, prm, gtab, nullptr, dX, part, ws, grad,
-                        N, net, s, nullptr, wp, st);
-  if (wp.NP == 128)
-    return k2wb_tf32_128(X, nullptr, prm, gtab, nullptr, dX, part, ws, grad,
-                         N, net, s, nullptr, wp, st);
-  return (int)cudaErrorInvalidValue;
+  int (*launch)(WB_ARGS) = nullptr;
+  if (flavor == FL_F32) launch = wp.NP == 64 ? k2wb_f32_64 : k2wb_f32_128;
+  if (flavor == FL_TF32) launch = wp.NP == 64 ? k2wb_tf32_64 : k2wb_tf32_128;
+  if (launch == nullptr || (wp.NP != 64 && wp.NP != 128))
+    return (int)cudaErrorInvalidValue;
+  return launch(X, nullptr, prm, gtab, nullptr, dX, part, ws, grad, N, net,
+                s, nullptr, wp, st);
 }

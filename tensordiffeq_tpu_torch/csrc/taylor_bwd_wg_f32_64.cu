@@ -1,0 +1,4 @@
+// The f32 (3xTF32) instances of K2's wgmma route at NP = 64 (wg_backward.cuh).
+#include "wg_backward.cuh"
+
+WB_INSTANCES(k2wb_f32_64, FL_F32, 64, false)

@@ -1,4 +1,4 @@
 // The instances of K2-TF32's wgmma route at NP = 128 (wg_backward.cuh).
 #include "wg_backward.cuh"
 
-WB_INSTANCES(k2wb_tf32_128, 128, false)
+WB_INSTANCES(k2wb_tf32_128, FL_TF32, 128, false)

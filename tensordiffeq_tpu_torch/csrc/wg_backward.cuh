@@ -1,31 +1,32 @@
-// K2 and K3 in their single-pass TF32 flavor on Hopper's warpgroup
-// products: the route for hidden widths up to 128, up to 8 channels and
-// up to 16 inputs and outputs (K1's wgmma route's shapes, wg_plan in
-// taylor_fwd_wg.cuh), the device code; taylor_bwd_wg.cu and minimax_wg.cu
-// hold the C interfaces, taylor_bwd_wg_tf32_{64,128}.cu and
-// minimax_wg_tf32_{64,128}.cu the instances.
+// K2 and K3 on Hopper's warpgroup products, in two flavors: FL_F32 (the
+// 3xTF32 products of precision HIGHEST, the default) and FL_TF32 (one TF32
+// pass, precision DEFAULT).  The route for hidden widths up to 128, up to 8
+// channels and up to 16 inputs and outputs (K1's wgmma route's shapes,
+// wg_plan in taylor_fwd_wg.cuh), the device code; taylor_bwd_wg.cu and
+// minimax_wg.cu hold the C interfaces, taylor_bwd_wg_{f32,tf32}_{64,128}.cu
+// and minimax_wg_{f32,tf32}_{64,128}.cu the instances.
 //
-// Replaces, for those shapes and this flavor, the JAX package's
-// ops/pallas_taylor.py::bwd_kernel (pallas_call at :171) as
-// taylor_table.cu's taylor_bwd_kernel<FL_TF32> does, and ops/pallas_minimax
-// .py::build_minimax_sq_fn's kernel (pallas_call at :259) as
-// minimax_step.cu's minimax_step_kernel<FL_TF32> does; those stay the
-// route for every other shape (the host chooses by shape,
-// ops/cuda_taylor.py::wb_plan and wb_plan below, which agree before a
-// plan's first launch).  It computes what they compute: K2 dW/db and dX
-// from the table cotangents; K3 the value sum_e sum_p w f_e^2, dW/db,
-// gw = f^2 and gX through the residual tape.  The interfaces, the packed
-// layouts and the partial slots are theirs, so reduce_partials sums the
-// slots after it as after them.
+// Replaces, for those shapes, the JAX package's ops/pallas_taylor.py::
+// bwd_kernel (pallas_call at :171) as taylor_table.cu's taylor_bwd_kernel
+// does, and ops/pallas_minimax.py::build_minimax_sq_fn's kernel
+// (pallas_call at :259) as minimax_step.cu's minimax_step_kernel does;
+// those stay the route for every other shape and for the bf16 flavor (the
+// host chooses by shape and flavor, ops/cuda_taylor.py::wb_plan and
+// wb_plan below, which agree before a flavor's first launch).  It computes
+// what they compute: K2 dW/db and dX from the table cotangents; K3 the
+// value sum_e sum_p w f_e^2, dW/db, gw = f^2 and gX through the residual
+// tape.  The interfaces, the packed layouts and the partial slots are
+// theirs, so reduce_partials sums the slots after it as after them.
 //
 // What bounds it.  Operations: the nine 128-wide products of a tile on the
 // AC slice (three forward, three dH, three dW; 58.98 GFLOP at N = 50,000,
-// C = 4), 0.119 ms at one TF32 pass over 495 TFLOP/s; the tanh chains, the
-// Faa di Bruno lines and their transposes on the CUDA cores are the rest.
-// The mma.sync route (taylor_table.cu's K2 note) lost its time to its SIMT
-// passes over a wavefront in shared memory, to dW's read-modify-write of
-// the partial slot from the SMs, to mma.sync's instruction stream and to
-// tiles of 96 rows.  So this route:
+// C = 4), 0.357 ms at three TF32 passes (f32) and 0.119 ms at one (TF32)
+// over 495 TFLOP/s; the tanh chains, the Faa di Bruno lines and their
+// transposes on the CUDA cores are the rest.  The mma.sync route
+// (taylor_table.cu's K2 note) lost its time to its SIMT passes over a
+// wavefront in shared memory, to dW's read-modify-write of the partial
+// slot from the SMs, to mma.sync's instruction stream and to tiles of 96
+// rows.  So this route:
 //   * runs persistent blocks, one per SM, each two warpgroups of 64 tile
 //     rows (a tile is 128 rows: points x CP channels, C padded to a power
 //     of two, as K1's route lays them), the weights streaming through a
@@ -39,18 +40,49 @@
 //     the forward products chained through the accumulator; the reverse
 //     sweep's pass (wb_act_vjp) is the transpose of the activation pass on
 //     the same butterfly, in place on the cotangent registers.
-//   * runs every hidden product on wgmma, one TF32 pass, operands rounded
-//     by cvt.rna as the referee rounds them (taylor_derivatives(
-//     emulate_tf32=True); the tensor cores would truncate): the forward
-//     H W and dH = dP W^T with A the registers (wgmma.cuh's chaining) and B
-//     a weight chunk, prepared once per launch by prep_wb_weights in
-//     core-matrix, k-slot order (the forward plane W^T, K = in, and the
-//     backward plane W, K = out); dW = H^T dP with both operands in shared
-//     memory, where wgmma reads tf32 only K-major: the producer of each
-//     operand writes it so (wb_put_kmajor: feature rows, tile rows along K,
-//     TF32-rounded), H_l recomputed from the staged Q_{l-1} (no second
-//     staged slice), dP_l from the registers.
-//     No transpose pass runs.
+//   * runs every hidden product on wgmma: the forward H W and dH = dP W^T
+//     with A the registers (wgmma.cuh's chaining) and B a weight chunk,
+//     prepared once per launch by prep_wb_weights in core-matrix, k-slot
+//     order (the forward plane W^T, K = in, and the backward plane W, K =
+//     out); dW = H^T dP with both operands in shared memory, where wgmma
+//     reads tf32 only K-major: the producer of each operand writes it so
+//     (wb_put_kmajor: feature rows, tile rows along K), H_l recomputed from
+//     the staged Q_{l-1} (no second staged slice), dP_l from the
+//     registers.  No transpose pass runs.
+//     FL_TF32: one pass, operands rounded by cvt.rna as the referee rounds
+//     them (taylor_derivatives(emulate_tf32=True); the tensor cores would
+//     truncate), chunks of KC = 64 k rows (the hi plane: 32 KB at NP =
+//     128).
+//     FL_F32: the forward and dH products take K1's three passes a k step,
+//     A_lo B_hi + A_hi B_lo + A_hi B_hi, A split in registers (split_tf32,
+//     a k step at a time), B the chunk's hi and lo planes of split_tf32
+//     (KC = 32: the same 32 KB a stage); a chunk's small passes go first
+//     (wb_chunk3).  The tensor cores round each pass's sum into the
+//     accumulator toward zero, so 48 passes into one accumulator shrink a
+//     128-deep product by several ulps: every hidden activation drifts
+//     the same way, and a sum over points that cancels (the head bias's
+//     gradient in K3) sat ten times further from the IEEE flavor than the
+//     mma.sync kernels', which add each k step on the CUDA cores.  So the
+//     forward sums each chunk in an accumulator of its own and adds the
+//     chunks rounded to nearest (scripts/torch_tc_accumulation_witness.py
+//     emulates the orders).  dH and dW keep one accumulator each (dH with
+//     the small passes first): K2's leaves (its cotangents come in, not
+//     from sums over the forward) stayed within 6e-6 of the plain flavor
+//     over 16 input seeds on the card (PERF.md), and a second accumulator
+//     costs 64 registers where the sweep has none.
+//     dW's operands hold the f32 values, which the tensor cores read as
+//     their truncated hi parts (tf32_trunc); its lo parts x - tf32_trunc(x)
+//     (exact) are made in place between passes (wb_dw3): hi hi, then
+//     dP^T's lo parts (the warpgroup's own half), hi lo, then H^T's lo
+//     parts and dP^T written again from the registers, lo hi.  This split
+//     truncates where split_tf32 rounds: |lo| < 2^-10 |x| against 2^-11, so
+//     a dW term is within about 2^-19 of the f32 product (the dropped lo lo
+//     and lo's own truncation 2^-20 each) against about 2^-21 for the
+//     forward's and dH's split; both far inside the 1e-4 band the kernels
+//     are held to against the IEEE plain flavor.  Everything outside the
+//     hidden products (layer 0, the head and its cotangent products, the
+//     tape, the bias sums) is IEEE f32 on the CUDA cores, reading the f32
+//     values of H^T and dP^T, as in the mma.sync f32 kernels.
 //   * stages in the workspace only Q_0 .. Q_{L-2}, each hidden layer's
 //     pre-activation channels with the primal's tanh in place of the
 //     primal, as the activation pass holds them between its butterflies:
@@ -83,14 +115,21 @@
 //     products, layer 0 and the bias sums stay SIMT, as in the mma.sync
 //     route; K3's epilogue interprets the tape one thread per point
 //     (minimax_tape.cuh), rows past N predicated.
-// Shared memory at the AC slice (NP = 128, C = 4, d = 2, n_out = 1): a
-// ring of two 32 KB weight chunks, the operands H^T and dP^T (64 KB each),
-// the table rows (the bias partials in the reverse sweep, 4 KB), X's rows,
-// the small operands: 205,536 bytes of the H100's 232,448.  Registers
-// (nvcc -Xptxas -v, CUDA 12.8): NP = 128 180-255 (255 at CP = 4, no
-// spills; 8 B of spill stores at CP = 8), NP = 64 114-207, no spills.  A
-// kernel is 7-25 thousand SASS instructions (14,112 for K3 and 12,184 for
-// K2 at NP = 128, CP = 4).
+// Shared memory at the AC slice (NP = 128, C = 4, d = 2, n_out = 1), both
+// flavors: a ring of two 32 KB weight chunks (65,536), the operands H^T
+// and dP^T (65,536 each), the table rows (the bias partials in the reverse
+// sweep, 4,096), X's rows (1,024), the small operands (3,648), the value's
+// warp sums (32), the mbarriers (128): 205,536 bytes of the H100's
+// 232,448.  The f32 flavor's sum, were its operands' lo planes resident:
+// the hi and lo weight planes at KC = 64 would take 64 KB a stage (two
+// stages and the fixed 140,000: 271,072), and dW's lo planes of H^T and
+// dP^T another 131,072 (at KC = 32: 336,608); so KC = 32, and dW's lo
+// planes are made in place over H^T and dP^T (three passes, two more
+// block barriers and two warpgroup barriers a hidden layer).
+// Registers (nvcc -Xptxas -v, CUDA 12.8): TF32 NP = 128 180-255 (255 at
+// CP = 4, no spills; 8 B of spill stores at CP = 8), NP = 64 114-207, no
+// spills; f32: PERF.md section 6.  A TF32 kernel is 7-25 thousand SASS
+// instructions (14,112 for K3 and 12,184 for K2 at NP = 128, CP = 4).
 // The products of a tile are summed in the tensor cores' order and its
 // sums over rows in fixed orders, so a point's contribution is the same
 // bit for bit run to run, but not the same sum as the mma.sync route's.
@@ -102,7 +141,12 @@
 
 #define WB_ROWS 128       // rows of a tile: two warpgroups of 64
 #define WB_THREADS 256    // the block: the two warpgroups
-#define WB_KC 64          // k rows of a weight chunk
+
+// k rows of a weight chunk: 64 in the TF32 flavor (the hi plane alone), 32
+// in the f32 flavor (the hi and lo planes: the same bytes a stage)
+static __host__ __device__ constexpr int wb_kc(int flavor) {
+  return flavor == FL_F32 ? 32 : 64;
+}
 
 // A launch of the route (ops/cuda_taylor.py::WbPlan, in the same order).
 // P: chunks per tile (each hidden layer's forward plane, then the backward
@@ -149,13 +193,14 @@ static __host__ __device__ __forceinline__ int wb_fixed_bytes(const Net& net,
          2 * WG_MAXS * 8;
 }
 
-// The route's plan for a net and schedule and N on a card with smem_optin
-// bytes of shared memory a block and n_sm SMs; 0 where the shape is the
-// mma.sync route's: K1's route's conditions (wg_plan), and a ring of at
-// least two stages.
-static inline int wb_plan(const Net& net, const Sched& s, int smem_optin,
-                          int n_sm, int N, WbPlan* p) {
+// The route's plan for a net, schedule, flavor (FL_F32 or FL_TF32) and N
+// on a card with smem_optin bytes of shared memory a block and n_sm SMs; 0
+// where the shape is the mma.sync route's: K1's route's conditions
+// (wg_plan), and a ring of at least two stages.
+static inline int wb_plan(const Net& net, const Sched& s, int flavor,
+                          int smem_optin, int n_sm, int N, WbPlan* p) {
   const int L = net.L, C = s.C;
+  if (flavor != FL_F32 && flavor != FL_TF32) return 0;
   int width = 0;
   for (int l = 0; l + 1 < L; ++l) width = imax(width, net.w_out[l]);
   if (C > WG_MAXC || width > 128 || net.d > WG_MAXD ||
@@ -164,8 +209,9 @@ static inline int wb_plan(const Net& net, const Sched& s, int smem_optin,
   int CP = 1;
   while (CP < C) CP *= 2;
   const int NP = width <= 64 ? 64 : 128;
-  const int P = 2 * (L - 2) * (NP / WB_KC);
-  const int stage = NP * WB_KC * 4;
+  const int KC = wb_kc(flavor);
+  const int P = 2 * (L - 2) * (NP / KC);
+  const int stage = NP * KC * (flavor == FL_F32 ? 8 : 4);
   const int fixed = wb_fixed_bytes(net, NP);
   int S = 0;
   if (P > 0) {
@@ -177,18 +223,20 @@ static inline int wb_plan(const Net& net, const Sched& s, int smem_optin,
     if (net.offW[l] % 4 != 0 || net.w_out[l] % 4 != 0) bulk = 0;
   const int n_tiles = (int)(((long long)N * CP + WB_ROWS - 1) / WB_ROWS);
   const int grid = imin(n_tiles, n_sm);
-  *p = WbPlan{NP, CP, WB_KC, S, P, stage, n_tiles, grid, S * stage + fixed,
-              bulk, grid * (L - 1) * WB_ROWS * NP + P * NP * WB_KC};
+  *p = WbPlan{NP, CP, KC, S, P, stage, n_tiles, grid, S * stage + fixed,
+              bulk, grid * (L - 1) * WB_ROWS * NP + P * (stage / 4)};
   return 1;
 }
 
 // The weights' planes of one launch (the plain mirror is
 // ops/cuda_taylor.py::wb_prepare), chunks of KC k rows, NP rows each, in
-// core-matrix order (wg_cm_offset) and the tf32 k-slot order (wg_kslot),
-// rounded to TF32 (cvt.rna): first the forward planes of layers 1 .. L-2
-// (row n, k the input: W^T, K1's TF32 chunks), then the backward planes of
-// layers L-2 .. 1 (row i, k the output: W as it lies), zero past each
-// layer's shape.
+// core-matrix order (wg_cm_offset) and the tf32 k-slot order (wg_kslot):
+// first the forward planes of layers 1 .. L-2 (row n, k the input: W^T,
+// K1's chunks of the flavor), then the backward planes of layers L-2 .. 1
+// (row i, k the output: W as it lies), zero past each layer's shape.  FL_TF32:
+// W rounded to TF32 (cvt.rna); FL_F32: the hi plane, then the lo plane, of
+// split_tf32 (K1's f32 chunks).
+template <int FL>
 static __global__ void prep_wb_weights(const float* __restrict__ prm,
                                        float* __restrict__ out, Net net,
                                        WbPlan wp) {
@@ -211,7 +259,38 @@ static __global__ void prep_wb_weights(const float* __restrict__ prm,
               ? prm[net.offW[l] + n * net.w_out[l] + kk]
               : 0.f;
     }
-    out[(size_t)q * per + wg_cm_offset(n, kq, KC, 4)] = tf32r(v);
+    if constexpr (FL == FL_F32) {
+      unsigned hi, lo;
+      split_tf32(v, hi, lo);
+      float* chunk = out + (size_t)q * 2 * per;
+      chunk[wg_cm_offset(n, kq, KC, 4)] = __uint_as_float(hi);
+      chunk[per + wg_cm_offset(n, kq, KC, 4)] = __uint_as_float(lo);
+    } else {
+      out[(size_t)q * per + wg_cm_offset(n, kq, KC, 4)] = tf32r(v);
+    }
+  }
+}
+
+// x's TF32 part as the tensor cores read an f32 operand: its low 13 bits
+// dropped (truncation)
+static __device__ __forceinline__ float tf32_trunc(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xFFFFE000u);
+}
+
+// n floats at p (16-byte aligned, n a multiple of 4) replaced by their lo
+// parts x - tf32_trunc(x) (exact), threads id, id + nt, ... 16 bytes at a
+// time: the f32 flavor's dW operands, which hold x, become the lo operand
+// of a pass.
+static __device__ __forceinline__ void wb_lo_in_place(float* p, int n, int id,
+                                                      int nt) {
+  float4* q = reinterpret_cast<float4*>(p);
+  for (int i = id; i < n / 4; i += nt) {
+    float4 v = q[i];
+    v.x -= tf32_trunc(v.x);
+    v.y -= tf32_trunc(v.y);
+    v.z -= tf32_trunc(v.z);
+    v.w -= tf32_trunc(v.w);
+    q[i] = v;
   }
 }
 
@@ -280,16 +359,17 @@ static __device__ __forceinline__ void wb_load_p(float (&a)[NP / 2],
 
 // The lane's two tile rows (row0, row0 + 8) of a (rows x NP) operand, the
 // accumulator layout, into buf transposed and K-major: feature n's 128 tile
-// rows r at wg_cm_offset(n, r, 128, 4), rounded to TF32, the operand of a
-// product over the tile's rows.
-template <int NP>
+// rows r at wg_cm_offset(n, r, 128, 4), the operand of a product over the
+// tile's rows: rounded to TF32 (FL_TF32), or as it is (FL_F32: the
+// tensor cores read its truncated hi part, wb_dw3 its lo part).
+template <int FL, int NP>
 static __device__ __forceinline__ void wb_put_kmajor(const float (&a)[NP / 2],
                                                      float* buf, int row0,
                                                      int t) {
 #pragma unroll
   for (int i = 0; i < NP / 2; ++i) {
     const int r = row0 + ((i & 2) ? 8 : 0);
-    buf[wg_cm_offset(acc_col(i, t), r, WB_ROWS, 4)] = tf32r(a[i]);
+    buf[wg_cm_offset(acc_col(i, t), r, WB_ROWS, 4)] = opnd<FL>(a[i]);
   }
 }
 
@@ -650,19 +730,82 @@ static __device__ __forceinline__ void wb_release(const WbRing& r,
   }
 }
 
+// One f32 (3xTF32) weight chunk's products into d (first: d afresh),
+// issued and waited for: A (h's columns chunk*KC ..) split in registers as
+// wg_chunk<FL_F32> splits it, then the small passes of every k step
+// (A_lo B_hi, A_hi B_lo), then the A_hi B_hi passes.  The tensor cores
+// round each sum into the accumulator toward zero, so a pass costs up to
+// an ulp of what the accumulator holds: the small passes go in while it
+// is small.
+template <int NP, int KC>
+static __device__ __forceinline__ void wb_chunk3(float (&d)[NP / 2],
+                                                 const float (&h)[NP / 2],
+                                                 int chunk, unsigned base,
+                                                 bool first) {
+  constexpr int S8 = KC / 8;
+  unsigned ahi[S8][4], alo[S8][4];
+#pragma unroll
+  for (int s = 0; s < S8; ++s) {
+    const int j = chunk * S8 + s;
+    const float x[4] = {h[4 * j], h[4 * j + 2], h[4 * j + 1], h[4 * j + 3]};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) split_tf32(x[q], ahi[s][q], alo[s][q]);
+  }
+  wg_fence();
+  constexpr unsigned sbo = (KC / 4) * 128;
+  const unsigned lo = base + NP * KC * 4;
+#pragma unroll
+  for (int s = 0; s < S8; ++s) {
+    WgMma<false, NP>::run(d, alo[s], wg_desc(base + 256 * s, 128, sbo),
+                          (first && s == 0) ? 0 : 1);
+    WgMma<false, NP>::run(d, ahi[s], wg_desc(lo + 256 * s, 128, sbo), 1);
+  }
+#pragma unroll
+  for (int s = 0; s < S8; ++s)
+    WgMma<false, NP>::run(d, ahi[s], wg_desc(base + 256 * s, 128, sbo), 1);
+  wg_commit();
+  wg_wait_all();
+#pragma unroll
+  for (int s = 0; s < S8; ++s)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      wg_keep(ahi[s][q]);
+      wg_keep(alo[s][q]);
+    }
+#pragma unroll
+  for (int i = 0; i < NP / 2; ++i) wg_keep(d[i]);
+}
+
 // Hidden layer l's forward product in place (K1's route's k1w_products on
 // this ring): acc (the layer's input) becomes H W_l + b_l, the bias on
-// primal rows.
-template <int NP>
+// primal rows.  FL_TF32: one pass a k step (wg_chunk).  FL_F32: three on
+// the chunk's hi and lo planes (wb_chunk3), each chunk into an accumulator
+// of its own, the chunks' sums added on the CUDA cores (rounded to
+// nearest): the hidden activations, which every later sum over points
+// reads, carry no drift toward zero from 48 truncating passes into one
+// accumulator.
+template <int FL, int NP>
 static __device__ __forceinline__ void wb_products(float (&acc)[NP / 2],
                                                    int l, int c, int t,
                                                    int lane, const float* sB,
                                                    const WbRing& r,
                                                    long long& chunk) {
+  constexpr int KC = wb_kc(FL);
   float nacc[NP / 2];
 #pragma unroll
-  for (int h = 0; h < NP / WB_KC; ++h) {
-    wg_chunk<FL_TF32, NP, WB_KC>(nacc, acc, h, wb_acquire(r, chunk), h == 0);
+  for (int h = 0; h < NP / KC; ++h) {
+    if constexpr (FL == FL_F32) {
+      if (h == 0) {
+        wb_chunk3<NP, KC>(nacc, acc, h, wb_acquire(r, chunk), true);
+      } else {
+        float part[NP / 2];
+        wb_chunk3<NP, KC>(part, acc, h, wb_acquire(r, chunk), true);
+#pragma unroll
+        for (int i = 0; i < NP / 2; ++i) nacc[i] += part[i];
+      }
+    } else {
+      wg_chunk<FL, NP, KC>(nacc, acc, h, wb_acquire(r, chunk), h == 0);
+    }
     wb_release(r, chunk, lane);
     ++chunk;
   }
@@ -672,35 +815,42 @@ static __device__ __forceinline__ void wb_products(float (&acc)[NP / 2],
     acc[i] = c == 0 ? nacc[i] + b[acc_col(i, t)] : nacc[i];
 }
 
-// dH_l = dP_l W_l^T into out: A the cotangent registers (rounded to TF32 as
-// they are packed, wg_chunk), B layer l's backward plane, chunk by chunk
-// through the ring.
-template <int NP>
+// dH_l = dP_l W_l^T into out: A the cotangent registers (rounded to TF32
+// as they are packed, wg_chunk; or split into hi and lo in the f32 flavor,
+// wb_chunk3, into the one accumulator), B layer l's backward plane, chunk
+// by chunk through the ring.
+template <int FL, int NP>
 static __device__ __forceinline__ void wb_dh(float (&out)[NP / 2],
                                              const float (&in)[NP / 2],
                                              int lane, const WbRing& r,
                                              long long& chunk) {
+  constexpr int KC = wb_kc(FL);
 #pragma unroll
-  for (int h = 0; h < NP / WB_KC; ++h) {
-    wg_chunk<FL_TF32, NP, WB_KC>(out, in, h, wb_acquire(r, chunk), h == 0);
+  for (int h = 0; h < NP / KC; ++h) {
+    if constexpr (FL == FL_F32)
+      wb_chunk3<NP, KC>(out, in, h, wb_acquire(r, chunk), h == 0);
+    else
+      wg_chunk<FL, NP, KC>(out, in, h, wb_acquire(r, chunk), h == 0);
     wb_release(r, chunk, lane);
     ++chunk;
   }
 }
 
-// dW_l = H_l^T dP_l over the tile's 128 rows into acc: warpgroup wg takes
-// the columns wg*NP/2 .., all NP rows (NP/64 m64 products per k step), A
-// from Ht, B from its half of dPt, both K-major.
-template <int NP>
+// dW_l = H_l^T dP_l over the tile's 128 rows into acc (ADD: added to it):
+// warpgroup wg takes the columns wg*NP/2 .., all NP rows (NP/64 m64
+// products per k step), A from Ht, B from its half of dPt, both K-major.
+template <int NP, bool ADD = false>
 static __device__ __forceinline__ void wb_dw_product(
     float (&acc)[NP / 64][NP / 4], const float* Ht, const float* dPt,
     int wg) {
   constexpr int H2 = NP / 2, MT = NP / 64, NR = NP / 4;
   constexpr unsigned SBO = (WB_ROWS / 4) * 128;  // an 8-row group's bytes
+  if constexpr (!ADD) {
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int i = 0; i < NR; ++i) acc[m][i] = 0.f;
+      for (int i = 0; i < NR; ++i) acc[m][i] = 0.f;
+  }
   const unsigned a0 = smem_addr(Ht);
   const unsigned b0 = smem_addr(dPt) + (unsigned)(wg * (H2 / 8)) * SBO;
   wg_fence();
@@ -709,13 +859,42 @@ static __device__ __forceinline__ void wb_dw_product(
 #pragma unroll
     for (int m = 0; m < MT; ++m)
       WgMmaSS<H2>::run(acc[m], wg_desc(a0 + m * 8 * SBO + 256 * s, 128, SBO),
-                       wg_desc(b0 + 256 * s, 128, SBO), s > 0 ? 1 : 0);
+                       wg_desc(b0 + 256 * s, 128, SBO),
+                       (ADD || s > 0) ? 1 : 0);
   wg_commit();
   wg_wait_all();
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int i = 0; i < NR; ++i) wg_keep(acc[m][i]);
+}
+
+// dW_l = H_l^T dP_l in the f32 flavor (3xTF32) into acc.  Ht and dPt hold
+// the f32 values (wb_put_kmajor<FL_F32>), which the tensor cores read as
+// their truncated TF32 hi parts; the lo parts are made in place
+// (wb_lo_in_place), so the three passes run over the one pair of buffers:
+// hi hi; then the warpgroup's half of dPt (which no other warpgroup reads)
+// turned into its lo parts, hi lo; then Ht turned into its lo parts and
+// dPt written again from the cotangent registers dp (the lane's rows of
+// dP_l, as wb_put_kmajor wrote them), lo hi.  Every pass waits for its
+// products, so the barriers order the rewrites after the reads.
+template <int NP>
+static __device__ __forceinline__ void wb_dw3(
+    float (&acc)[NP / 64][NP / 4], float* Ht, float* dPt,
+    const float (&dp)[NP / 2], int wg, int wt, int ctid, int row0, int t) {
+  constexpr int H2 = NP / 2;
+  wb_dw_product<NP>(acc, Ht, dPt, wg);
+  wb_sync_wg(wg);
+  wb_lo_in_place(dPt + wg * H2 * WB_ROWS, H2 * WB_ROWS, wt, 128);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  wb_sync_wg(wg);
+  wb_dw_product<NP, true>(acc, Ht, dPt, wg);
+  wb_sync_all();
+  wb_lo_in_place(Ht, NP * WB_ROWS, ctid, WB_THREADS);
+  wb_put_kmajor<FL_F32, NP>(dp, dPt, row0, t);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  wb_sync_all();
+  wb_dw_product<NP, true>(acc, Ht, dPt, wg);
 }
 
 // The warpgroup's dW block (wb_dw_product) into the block's slot rows
@@ -767,16 +946,18 @@ static __device__ __forceinline__ void wb_dw_update(
 }
 
 // The head's table rows T[row][o] (K3): K1's route's head (k1w_head) into
-// shared memory, every row (a pad channel's is zero).  acc (the
+// shared memory, every row (a pad channel's is zero).  FL_TF32: acc (the
 // post-activations) is rounded to TF32 in place.
-template <int NP>
+template <int FL, int NP>
 static __device__ __forceinline__ void wb_head(float (&acc)[NP / 2],
                                                float* T, int n_out, int c,
                                                int t, int row0,
                                                const float* sWh,
                                                const float* sBh) {
+  if constexpr (FL == FL_TF32) {
 #pragma unroll
-  for (int i = 0; i < NP / 2; ++i) acc[i] = tf32r(acc[i]);
+    for (int i = 0; i < NP / 2; ++i) acc[i] = tf32r(acc[i]);
+  }
   for (int o = 0; o < n_out; ++o) {
     float s0 = 0.f, s1 = 0.f;
 #pragma unroll
@@ -806,8 +987,8 @@ static __device__ __forceinline__ void wb_head(float (&acc)[NP / 2],
 // Layer 0's pre-activations of the lane's two rows (points pl0, pl1 of the
 // tile; its channel of order ord, -1 a pad channel): K1's route's
 // k1w_layer0 with X's rows from shared memory (sx: the tile's, zero past
-// N), rounded to TF32 as operands.
-template <int NP>
+// N), rounded as the flavor's operands (opnd: to TF32, or not at all).
+template <int FL, int NP>
 static __device__ __forceinline__ void wb_layer0(const float* sx, int d,
                                                  int pl0, int pl1, int ord,
                                                  int dir, int t,
@@ -817,7 +998,8 @@ static __device__ __forceinline__ void wb_layer0(const float* sx, int d,
 #pragma unroll
   for (int i = 0; i < NP / 2; ++i) acc[i] = 0.f;
   for (int k = 0; k < d; ++k) {
-    const float x0 = tf32r(sx[pl0 * d + k]), x1 = tf32r(sx[pl1 * d + k]);
+    const float x0 = opnd<FL>(sx[pl0 * d + k]),
+                x1 = opnd<FL>(sx[pl1 * d + k]);
     const float* w = sW0 + k * NP;
 #pragma unroll
     for (int i = 0; i < NP / 2; ++i)
@@ -869,12 +1051,13 @@ static __device__ __forceinline__ void wb_epilogue(
 }
 
 // The head's cotangent products from T (its pre-activation cotangents,
-// rows x n_out) and Ht (its input, TF32, K-major): db and dW into the
-// slot, one output element a thread, summed over the tile's rows in order
-// (taylor_common.cuh's narrow_dw, bias_accum); dH, the cotangent of the
-// last hidden layer's post-activations, into the lane's registers
-// (narrow_dh), W from sWh (rounded).  Operands rounded to TF32.
-template <int NP, int CP>
+// rows x n_out) and Ht (its input, the flavor's operand, K-major): db and
+// dW into the slot, one output element a thread, summed over the tile's
+// rows in order (taylor_common.cuh's narrow_dw, bias_accum); dH, the
+// cotangent of the last hidden layer's post-activations, into the lane's
+// registers (narrow_dh), W from sWh.  Operands rounded as the flavor's
+// (opnd: to TF32, or IEEE f32 in the f32 flavor).
+template <int FL, int NP, int CP>
 static __device__ __forceinline__ void wb_head_bwd(
     float (&dh)[NP / 2], const float* T, const float* Ht, const float* sWh,
     int n_out, int wl, float* __restrict__ pW, float* __restrict__ pb,
@@ -891,26 +1074,27 @@ static __device__ __forceinline__ void wb_head_bwd(
     const int i = e / n_out, o = e % n_out;
     float v = 0.f;
     for (int r = 0; r < WB_ROWS; ++r)
-      v = fmaf(Ht[wg_cm_offset(i, r, WB_ROWS, 4)], tf32r(T[r * n_out + o]), v);
+      v = fmaf(Ht[wg_cm_offset(i, r, WB_ROWS, 4)], opnd<FL>(T[r * n_out + o]),
+               v);
     slot_rmw(pW + e, v, first);
   }
 #pragma unroll
   for (int i = 0; i < NP / 2; ++i) dh[i] = 0.f;
   for (int o = 0; o < n_out; ++o) {
-    const float a0 = tf32r(T[row0 * n_out + o]);
-    const float a1 = tf32r(T[(row0 + 8) * n_out + o]);
+    const float a0 = opnd<FL>(T[row0 * n_out + o]);
+    const float a1 = opnd<FL>(T[(row0 + 8) * n_out + o]);
 #pragma unroll
     for (int i = 0; i < NP / 2; ++i)
       dh[i] = fmaf((i & 2) ? a1 : a0, sWh[acc_col(i, t) * n_out + o], dh[i]);
   }
 }
 
-// Layer 0's weight and input cotangents from dP_0 (in dPt, TF32, K-major)
-// and the tile's rows of X (sx, rounded here): taylor_common.cuh's
-// layer0_bwd, one
-// output element a thread.  dX = the sum (K2), or += it (K3: the tape's
-// direct adjoints are there).
-template <int CP, bool K3>
+// Layer 0's weight and input cotangents from dP_0 (in dPt, the flavor's
+// operand, K-major) and the tile's rows of X (sx, rounded here as the
+// flavor's operands): taylor_common.cuh's layer0_bwd, one output element a
+// thread.  dX = the sum (K2), or += it (K3: the tape's direct adjoints are
+// there).
+template <int FL, int CP, bool K3>
 static __device__ __forceinline__ void wb_layer0_bwd(
     const float* dPt, const float* sx, const float* sW0, int NP,
     float* __restrict__ dX, float* __restrict__ pW, int N, int p0, int d,
@@ -920,8 +1104,8 @@ static __device__ __forceinline__ void wb_layer0_bwd(
     const int k = e / w0, j = e % w0;
     float v = 0.f;
     for (int p = 0; p < TP; ++p)
-      v = fmaf(tf32r(sx[p * d + k]), dPt[wg_cm_offset(j, p * CP, WB_ROWS, 4)],
-               v);
+      v = fmaf(opnd<FL>(sx[p * d + k]),
+               dPt[wg_cm_offset(j, p * CP, WB_ROWS, 4)], v);
     for (int cc = 1; cc < s.C; ++cc) {
       if (s.order[cc] != 1 || s.idx[cc][0] != k) continue;
       for (int p = 0; p < TP; ++p)
@@ -942,8 +1126,8 @@ static __device__ __forceinline__ void wb_layer0_bwd(
 
 // The route's body, shared by K2 (K3 false: the table cotangents gtab in,
 // dX out) and K3 (the tape's epilogue on the head's rows; w in, gw and gX
-// out).
-template <int NP, int CP, bool K3>
+// out), in flavor FL (FL_F32 or FL_TF32).
+template <int FL, int NP, int CP, bool K3>
 static __device__ __forceinline__ void wb_body(
     const float* __restrict__ X, const float* __restrict__ w,
     const float* __restrict__ prm, const float* __restrict__ gtab,
@@ -977,14 +1161,14 @@ static __device__ __forceinline__ void wb_body(
   const int w0 = net.w_out[0], wl = net.w_in[L - 1];
   for (int e = threadIdx.x; e < d * NP; e += WB_THREADS) {
     const int k = e / NP, n = e % NP;
-    sW0[e] = n < w0 ? tf32r(prm[net.offW[0] + k * w0 + n]) : 0.f;
+    sW0[e] = n < w0 ? opnd<FL>(prm[net.offW[0] + k * w0 + n]) : 0.f;
   }
   for (int e = threadIdx.x; e < (L - 1) * NP; e += WB_THREADS) {
     const int l = e / NP, n = e % NP;
     sB[e] = n < net.w_out[l] ? prm[net.offb[l] + n] : 0.f;
   }
   for (int e = threadIdx.x; e < NP * n_out; e += WB_THREADS)
-    sWh[e] = e / n_out < wl ? tf32r(prm[net.offW[L - 1] + e]) : 0.f;
+    sWh[e] = e / n_out < wl ? opnd<FL>(prm[net.offW[L - 1] + e]) : 0.f;
   for (int o = threadIdx.x; o < n_out; o += WB_THREADS)
     sBh[o] = prm[net.offb[L - 1] + o];
   __syncthreads();
@@ -1024,15 +1208,16 @@ static __device__ __forceinline__ void wb_body(
     wb_sync_all();
     // the forward, staging Q_0 .. Q_{L-2}
     float acc[H2];
-    wb_layer0<NP>(sx, d, pl0, pl1, ord, dir, t, sW0, sB, acc);
+    wb_layer0<FL, NP>(sx, d, pl0, pl1, ord, dir, t, sW0, sB, acc);
     for (int l = 1; l < L; ++l) {
       wb_act<NP, CP, false>(acc, c, s, myws + (l - 1) * slice, ctid);
-      if (l + 1 < L) wb_products<NP>(acc, l, c, t, lane, sB, ring, chunk);
+      if (l + 1 < L)
+        wb_products<FL, NP>(acc, l, c, t, lane, sB, ring, chunk);
     }
     // the head: acc holds its input H_{L-1}
-    wb_put_kmajor<NP>(acc, Ht, row0, t);
+    wb_put_kmajor<FL, NP>(acc, Ht, row0, t);
     if constexpr (K3) {
-      wb_head<NP>(acc, T, n_out, c, t, row0, sWh, sBh);
+      wb_head<FL, NP>(acc, T, n_out, c, t, row0, sWh, sBh);
       wb_sync_all();
       wb_epilogue<CP>(T, sx, w, gw, dX, N, p0, C, n_out, d, *tp, sRed,
                       mypart + net.P_total, first, ctid, lane, warp);
@@ -1046,7 +1231,7 @@ static __device__ __forceinline__ void wb_body(
       wb_sync_all();
     }
     float dh[H2];
-    wb_head_bwd<NP, CP>(dh, T, Ht, sWh, n_out, wl,
+    wb_head_bwd<FL, NP, CP>(dh, T, Ht, sWh, n_out, wl,
                         mypart + net.offW[L - 1], mypart + net.offb[L - 1],
                         first, ctid, row0, t);
     // the reverse sweep, last hidden layer to layer 0
@@ -1057,28 +1242,37 @@ static __device__ __forceinline__ void wb_body(
       if (l >= 1) {  // H_l, the layer's input, from Q_{l-1}
         wb_load_p<NP>(x, myws + (l - 1) * slice, ctid);
         wb_act<NP, CP, true>(x, c, s, nullptr, ctid);
-        wb_put_kmajor<NP>(x, Ht, row0, t);
+        wb_put_kmajor<FL, NP>(x, Ht, row0, t);
       }
       wb_load_p<NP>(x, myws + l * slice, ctid);  // Q_l
       wb_act_vjp<NP, CP>(x, dh, c, s);          // dh = dP_l
       wb_bias_partial<NP, CP>(dh, sDb, warp, g, t, c);
-      wb_put_kmajor<NP>(dh, dPt, row0, t);
+      wb_put_kmajor<FL, NP>(dh, dPt, row0, t);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       wb_sync_all();
       wb_bias(sDb, NP, net.w_out[l], mypart + net.offb[l], first, ctid);
       if (l == 0) {
-        wb_layer0_bwd<CP, K3>(dPt, sx, sW0, NP, dX, mypart + net.offW[0], N,
-                              p0, d, w0, s, first, ctid);
+        wb_layer0_bwd<FL, CP, K3>(dPt, sx, sW0, NP, dX, mypart + net.offW[0],
+                                  N, p0, d, w0, s, first, ctid);
         break;
       }
       float nh[H2];
-      wb_dh<NP>(nh, dh, lane, ring, chunk);
-      {
+      if constexpr (FL == FL_TF32) {
+        wb_dh<FL, NP>(nh, dh, lane, ring, chunk);
         float dw[NP / 64][NP / 4];
         wb_dw_product<NP>(dw, Ht, dPt, wg);
         wb_dw_update<NP>(dw, dPt, mypart + net.offW[l], net.w_in[l],
                          net.w_out[l], first, wp.bulk, behind, wg, wt, wq, g,
                          t);
+      } else {  // dW first: its passes write dPt again from dh
+        {
+          float dw[NP / 64][NP / 4];
+          wb_dw3<NP>(dw, Ht, dPt, dh, wg, wt, ctid, row0, t);
+          wb_dw_update<NP>(dw, dPt, mypart + net.offW[l], net.w_in[l],
+                           net.w_out[l], first, wp.bulk, behind, wg, wt, wq,
+                           g, t);
+        }
+        wb_dh<FL, NP>(nh, dh, lane, ring, chunk);
       }
 #pragma unroll
       for (int i = 0; i < H2; ++i) dh[i] = nh[i];
@@ -1088,31 +1282,31 @@ static __device__ __forceinline__ void wb_body(
   bulk_wait();  // this thread's last bulk adds are in the slot
 }
 
-template <int NP, int CP>
+template <int FL, int NP, int CP>
 __global__ void __launch_bounds__(WB_THREADS, 1)
 taylor_bwd_wg_kernel(const float* __restrict__ X,
                      const float* __restrict__ prm,
                      const float* __restrict__ gtab, float* __restrict__ dX,
                      float* __restrict__ part, float* __restrict__ ws, int N,
                      Net net, Sched s, WbPlan wp) {
-  wb_body<NP, CP, false>(X, nullptr, prm, gtab, nullptr, dX, part, ws, N,
-                         net, s, nullptr, wp);
+  wb_body<FL, NP, CP, false>(X, nullptr, prm, gtab, nullptr, dX, part, ws, N,
+                             net, s, nullptr, wp);
 }
 
-template <int NP, int CP>
+template <int FL, int NP, int CP>
 __global__ void __launch_bounds__(WB_THREADS, 1)
 minimax_wg_kernel(const float* __restrict__ X, const float* __restrict__ w,
                   const float* __restrict__ prm, float* __restrict__ gw,
                   float* __restrict__ gX, float* __restrict__ part,
                   float* __restrict__ ws, int N, Net net, Sched s,
                   const __grid_constant__ Tape tp, WbPlan wp) {
-  wb_body<NP, CP, true>(X, w, prm, nullptr, gw, gX, part, ws, N, net, s,
-                        &tp, wp);
+  wb_body<FL, NP, CP, true>(X, w, prm, nullptr, gw, gX, part, ws, N, net, s,
+                            &tp, wp);
 }
 
 // The planes, then the route's kernel, then the slots' sum: K2 (gtab in,
-// dX out) or K3 (tp and w in, gw and dX = gX out).
-template <int NP, int CP, bool K3>
+// dX out) or K3 (tp and w in, gw and dX = gX out), in flavor FL.
+template <int FL, int NP, int CP, bool K3>
 static int launch_wb(const float* X, const float* w, const float* prm,
                      const float* gtab, float* gw, float* dX, float* part,
                      float* ws, float* out, int N, const Net& net,
@@ -1120,25 +1314,25 @@ static int launch_wb(const float* X, const float* w, const float* prm,
                      cudaStream_t st) {
   cudaError_t e;
   if constexpr (K3)
-    e = cudaFuncSetAttribute(minimax_wg_kernel<NP, CP>,
+    e = cudaFuncSetAttribute(minimax_wg_kernel<FL, NP, CP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              wp.smem);
   else
-    e = cudaFuncSetAttribute(taylor_bwd_wg_kernel<NP, CP>,
+    e = cudaFuncSetAttribute(taylor_bwd_wg_kernel<FL, NP, CP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              wp.smem);
   if (e != cudaSuccess) return (int)e;
   if (wp.P > 0) {
-    prep_wb_weights<<<64, 256, 0, st>>>(
+    prep_wb_weights<FL><<<64, 256, 0, st>>>(
         prm, ws + (size_t)wp.grid * (net.L - 1) * WB_ROWS * NP, net, wp);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   if constexpr (K3)
-    minimax_wg_kernel<NP, CP><<<wp.grid, WB_THREADS, wp.smem, st>>>(
+    minimax_wg_kernel<FL, NP, CP><<<wp.grid, WB_THREADS, wp.smem, st>>>(
         X, w, prm, gw, dX, part, ws, N, net, s, *tp, wp);
   else
-    taylor_bwd_wg_kernel<NP, CP><<<wp.grid, WB_THREADS, wp.smem, st>>>(
+    taylor_bwd_wg_kernel<FL, NP, CP><<<wp.grid, WB_THREADS, wp.smem, st>>>(
         X, prm, gtab, dX, part, ws, N, net, s, wp);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -1148,28 +1342,32 @@ static int launch_wb(const float* X, const float* w, const float* prm,
   return (int)cudaGetLastError();
 }
 
-// One kernel's launches at one NP, at the plan's CP
-// (taylor_bwd_wg_tf32_*.cu and minimax_wg_tf32_*.cu define them, so nvcc
-// builds the four side by side; cudaErrorInvalidValue for a channel count
-// the route has no instance of).
+// One kernel's launches in one flavor at one NP, at the plan's CP
+// (taylor_bwd_wg_{f32,tf32}_*.cu and minimax_wg_{f32,tf32}_*.cu define
+// them, so nvcc builds the eight side by side; cudaErrorInvalidValue for a
+// channel count the route has no instance of).
 #define WB_ARGS                                                              \
   const float *X, const float *w, const float *prm, const float *gtab,      \
       float *gw, float *dX, float *part, float *ws, float *out, int N,      \
       const Net &net, const Sched &s, const Tape *tp, const WbPlan &wp,    \
       cudaStream_t st
-#define WB_CALL(NP, CP, K3)                                                  \
-  launch_wb<NP, CP, K3>(X, w, prm, gtab, gw, dX, part, ws, out, N, net, s,  \
-                        tp, wp, st)
-#define WB_INSTANCES(name, NP, K3)                                           \
+#define WB_CALL(FL, NP, CP, K3)                                              \
+  launch_wb<FL, NP, CP, K3>(X, w, prm, gtab, gw, dX, part, ws, out, N, net, \
+                            s, tp, wp, st)
+#define WB_INSTANCES(name, FL, NP, K3)                                       \
   int name(WB_ARGS) {                                                        \
     switch (wp.CP) {                                                         \
-      case 1: return WB_CALL(NP, 1, K3);                                     \
-      case 2: return WB_CALL(NP, 2, K3);                                     \
-      case 4: return WB_CALL(NP, 4, K3);                                     \
-      case 8: return WB_CALL(NP, 8, K3);                                     \
+      case 1: return WB_CALL(FL, NP, 1, K3);                                 \
+      case 2: return WB_CALL(FL, NP, 2, K3);                                 \
+      case 4: return WB_CALL(FL, NP, 4, K3);                                 \
+      case 8: return WB_CALL(FL, NP, 8, K3);                                 \
       default: return (int)cudaErrorInvalidValue;                            \
     }                                                                        \
   }
+int k2wb_f32_64(WB_ARGS);
+int k2wb_f32_128(WB_ARGS);
+int k3wb_f32_64(WB_ARGS);
+int k3wb_f32_128(WB_ARGS);
 int k2wb_tf32_64(WB_ARGS);
 int k2wb_tf32_128(WB_ARGS);
 int k3wb_tf32_64(WB_ARGS);

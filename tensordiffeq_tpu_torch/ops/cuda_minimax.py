@@ -14,9 +14,10 @@ falls back.  :func:`k3_minimax_bf16` launches its bf16-operand flavor (the
 products of ``taylor_derivatives(compute_dtype=torch.bfloat16)``,
 ``csrc/taylor_common.cuh``) and counts its own launches, and
 :func:`k3_minimax_tf32` its single-pass TF32 flavor (precision
-``"default"``), on the persistent wgmma route of ``csrc/wg_backward.cuh``
-where its shape allows (:func:`.cuda_taylor.wb_plan`).  The plain flavor, the CPU path and the kernel's referee, is
-``tile_sq`` in :mod:`.minimax`.
+``"default"``).  The f32 and TF32 flavors run on the persistent wgmma
+route of ``csrc/wg_backward.cuh`` where their shape allows
+(:func:`.cuda_taylor.wb_plan`).  The plain flavor, the CPU path and the
+kernel's referee, is ``tile_sq`` in :mod:`.minimax`.
 """
 
 from __future__ import annotations
@@ -81,7 +82,7 @@ def _k3(plan: MinimaxPlan, X: torch.Tensor, w: torch.Tensor,
         ct._check(lib.tdq_minimax_wg(
             X.data_ptr(), w.data_ptr(), flat.data_ptr(), gw.data_ptr(),
             gX.data_ptr(), part.data_ptr(), ws.data_ptr(), out.data_ptr(), N,
-            plan.net_h, plan.sched_h, plan.tape_h, plan.cst_h,
+            plan.net_h, plan.sched_h, plan.tape_h, plan.cst_h, bf16,
             (ctypes.c_int * len(wp))(*wp), stream), "minimax_wg K3 launch")
         return out[plan.P_total], out[:plan.P_total], gw, gX
     _, tp, n_sm = plan.tile_sizes(X.device, flavor)
@@ -103,7 +104,10 @@ def k3_minimax(plan: MinimaxPlan, X: torch.Tensor, w: torch.Tensor,
     """Launch K3 (and its slot-ordered reduction of the per-block
     partials).  Returns ``(value, dflat, gw, gX)``: the scalar ``Σ_e Σ_p
     w[p,e]·f_e(p)²``, its parameter cotangent in the packed layout
-    ``[P_total]``, ``gw = f² [N, E]`` and ``gX [N, d]``."""
+    ``[P_total]``, ``gw = f² [N, E]`` and ``gX [N, d]``.  Its route is
+    chosen by shape as K2's (:meth:`~.cuda_taylor._Plan.wb_route`, recorded
+    in ``plan.k3_routes[None]``): the persistent wgmma kernel of
+    ``csrc/wg_backward.cuh``, or ``minimax_step.cu``'s."""
     out = _k3(plan, X, w, flat, 0)
     k3_minimax.launches += 1
     return out

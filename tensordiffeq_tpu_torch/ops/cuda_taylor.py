@@ -12,12 +12,13 @@ and how the design answers it) over the device code in
 routes, chosen by shape (:meth:`_Plan.k1_route`): a persistent kernel on
 Hopper's warpgroup products for hidden widths up to 128 and up to 8
 channels (``csrc/taylor_fwd_wg.cuh``, :func:`wg_plan`), and the kernel
-beside K2 for the other shapes.  K2 and K3 in the TF32 flavor have two
-routes chosen the same way (:meth:`_Plan.wb_route`): a persistent wgmma
-kernel for those shapes (``csrc/wg_backward.cuh``, :func:`wb_plan`) and
-the mma.sync kernels for the others.  :func:`build`
-compiles every source under ``csrc/`` with ``nvcc`` for ``sm_90a`` into
-one plain C-ABI shared library at first use and loads it with ``ctypes``.
+beside K2 for the other shapes.  K2 and K3 in the f32 and TF32 flavors
+have two routes chosen the same way (:meth:`_Plan.wb_route`): a persistent
+wgmma kernel for those shapes (``csrc/wg_backward.cuh``, :func:`wb_plan`)
+and the mma.sync kernels for the others (and for the bf16 flavor).
+:func:`build` compiles every source under ``csrc/`` with ``nvcc`` for
+``sm_90a`` into one plain C-ABI shared library at first use and loads it
+with ``ctypes``.
 
 Dispatch is by the tensors' device, never by a fallback:
 
@@ -206,13 +207,16 @@ def build() -> ctypes.CDLL:
     lib.tdq_k1wg_plan.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
     lib.tdq_taylor_fwd_wg.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, ptr,
                                       i32, ptr, ptr]
-    # K2-TF32's and K3-TF32's wgmma route: its plan (net, sched, the card's
-    # shared memory and SMs, N, out), K2 (X, prm, gtab, dX, part, ws, grad,
-    # N, net, sched, plan, stream) and K3 (X, w, prm, gw, gX, part, ws, out,
-    # N, net, sched, tape, constants, plan, stream)
-    lib.tdq_wb_plan.argtypes = [ptr, ptr, i32, i32, i32, ptr]
-    lib.tdq_taylor_bwd_wg.argtypes = [ptr] * 7 + [i32] + [ptr] * 4
-    lib.tdq_minimax_wg.argtypes = [ptr] * 8 + [i32] + [ptr] * 6
+    # K2's and K3's wgmma route (the f32 and TF32 flavors): its plan (net,
+    # sched, flavor, the card's shared memory and SMs, N, out), K2 (X, prm,
+    # gtab, dX, part, ws, grad, N, net, sched, flavor, plan, stream) and K3
+    # (X, w, prm, gw, gX, part, ws, out, N, net, sched, tape, constants,
+    # flavor, plan, stream)
+    lib.tdq_wb_plan.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.tdq_taylor_bwd_wg.argtypes = [ptr] * 7 + [i32, ptr, ptr, i32, ptr,
+                                                  ptr]
+    lib.tdq_minimax_wg.argtypes = [ptr] * 8 + [i32] + [ptr] * 4 + [i32, ptr,
+                                                                    ptr]
     for fn in (lib.tdq_taylor_fwd, lib.tdq_taylor_bwd, lib.tdq_minimax_step,
                lib.tdq_device_info, lib.tdq_limits, lib.tdq_minimax_limits,
                lib.tdq_k1wg_plan, lib.tdq_taylor_fwd_wg, lib.tdq_wb_plan,
@@ -464,16 +468,23 @@ def wg_prepare(flat_layers, wp: WgPlan, flavor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ #
-# K2's and K3's TF32 wgmma route (csrc/wg_backward.cuh): its plan and the
-# plain mirror of its weight planes
+# K2's and K3's wgmma route (csrc/wg_backward.cuh) in the f32 and TF32
+# flavors: its plan and the plain mirror of its weight planes
 # ------------------------------------------------------------------ #
 WB_ROWS = 128  # rows of the route's tile: two consumer warpgroups of 64
-WB_KC = 64     # k rows of a weight chunk
+
+
+def wb_kc(code: int) -> int:
+    """k rows of a weight chunk (``wb_kc`` in ``csrc/wg_backward.cuh``): 32
+    in the f32 flavor (code 0: the hi and lo planes), 64 in the TF32 flavor
+    (code 2: the hi plane alone), 32 KB a stage either way at NP = 128."""
+    return 32 if code == 0 else 64
 
 
 class WbPlan(NamedTuple):
-    """The TF32 backward route's launch for one plan and N (``wb_plan`` in
-    ``csrc/wg_backward.cuh``, in the same order); K2's and K3's alike."""
+    """The backward route's launch for one plan, flavor and N (``wb_plan``
+    in ``csrc/wg_backward.cuh``, in the same order); K2's and K3's
+    alike."""
     NP: int           # hidden width padded to 64 or 128
     CP: int           # channels padded to a power of two
     KC: int           # k rows of a weight chunk
@@ -491,16 +502,21 @@ def _pad4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def wb_plan(layer_shapes: Sequence[tuple], orders: Sequence[int],
+def wb_plan(layer_shapes: Sequence[tuple], orders: Sequence[int], code: int,
             smem_optin: int, n_sm: int, N: int):
-    """The TF32 backward route's :class:`WbPlan` (K2-TF32 and K3-TF32) for
-    these shapes, or ``None`` where the shape is the mma.sync route's:
-    K1's route's conditions (:func:`wg_plan`: at most ``WG_MAX_C``
-    channels, hidden widths up to ``WG_MAX_WIDTH``, at most ``WG_MAX_D``
-    inputs and ``WG_MAX_OUT`` outputs) and a ring of at least two stages.
-    Shared memory: the ring, H^T and dP^T (NP x 128 floats each), the table
-    rows (the bias partials in the reverse sweep), X's rows, the small
-    operands, the value's warp sums and the mbarriers."""
+    """The backward route's :class:`WbPlan` (K2 and K3) for these shapes in
+    the flavor of C code ``code`` (:data:`FLAVOR_CODE`: 0 the f32 flavor, 2
+    the TF32 one), or ``None`` where the shape or the flavor (the bf16
+    one, code 1) is the mma.sync route's: K1's route's conditions
+    (:func:`wg_plan`: at most ``WG_MAX_C`` channels, hidden widths up to
+    ``WG_MAX_WIDTH``, at most ``WG_MAX_D`` inputs and ``WG_MAX_OUT``
+    outputs) and a ring of at least two stages.  Shared memory: the ring
+    (chunks of :func:`wb_kc` k rows, the f32 flavor's with the hi and lo
+    planes), H^T and dP^T (NP x 128 floats each), the table rows (the bias
+    partials in the reverse sweep), X's rows, the small operands, the
+    value's warp sums and the mbarriers."""
+    if code not in (0, 2):
+        return None
     L = len(layer_shapes)
     d, n_out = layer_shapes[0][0], layer_shapes[-1][1]
     C = len(orders)
@@ -512,8 +528,9 @@ def wb_plan(layer_shapes: Sequence[tuple], orders: Sequence[int],
     while CP < C:
         CP *= 2
     NP = 64 if width <= 64 else 128
-    P = 2 * (L - 2) * (NP // WB_KC)
-    stage = NP * WB_KC * 4
+    KC = wb_kc(code)
+    P = 2 * (L - 2) * (NP // KC)
+    stage = NP * KC * (8 if code == 0 else 4)
     misc = _pad4(NP * (d + L - 1 + n_out) + WG_MAX_OUT)
     fixed = 4 * (2 * NP * WB_ROWS + _pad4(max(WB_ROWS * n_out, 8 * NP))
                  + _pad4(WB_ROWS * d) + misc + 8) + 2 * WG_MAX_STAGES * 8
@@ -530,21 +547,24 @@ def wb_plan(layer_shapes: Sequence[tuple], orders: Sequence[int],
                    for l in range(1, L - 1)))
     n_tiles = -(-N * CP // WB_ROWS)
     grid = min(n_tiles, n_sm)
-    return WbPlan(NP, CP, WB_KC, S, P, stage, n_tiles, grid, S * stage + fixed,
-                  bulk, grid * (L - 1) * WB_ROWS * NP + P * NP * WB_KC)
+    return WbPlan(NP, CP, KC, S, P, stage, n_tiles, grid, S * stage + fixed,
+                  bulk, grid * (L - 1) * WB_ROWS * NP + P * stage // 4)
 
 
-def wb_prepare(flat_layers, wp: WbPlan) -> torch.Tensor:
+def wb_prepare(flat_layers, wp: WbPlan, flavor) -> torch.Tensor:
     """The plain mirror of ``prep_wb_weights``: the route's ``P`` chunks
-    of ``stage_bytes``, TF32 (``cvt.rna``) in core-matrix and k-slot order
-    (:func:`wg_prepare`'s layout): the forward planes of layers 1 .. L-2
-    (W^T: row n, k the input; K1-TF32's chunks), then the backward planes
-    of layers L-2 .. 1 (W as it lies: row i, k the output)."""
+    of ``stage_bytes`` in core-matrix and k-slot order (:func:`wg_prepare`'s
+    layout), the forward planes of layers 1 .. L-2 (W^T: row n, k the
+    input; K1's chunks of the flavor), then the backward planes of layers
+    L-2 .. 1 (W as it lies: row i, k the output).  The TF32 flavor's chunks
+    are the ``hi`` plane (``cvt.rna``), the f32 flavor's the ``hi`` then
+    the ``lo`` plane of :func:`split_tf32`."""
+    code = FLAVOR_CODE[flavor_of(flavor)]
     nch = wp.NP // wp.KC
     L = len(flat_layers) // 2
     hidden = [flat_layers[2 * l] for l in range(1, L - 1)]
     planes = [W.t() for W in hidden] + [W for W in reversed(hidden)]
-    chunks = [_cm_chunk(_padded(M, wp.NP), h, wp.KC, 2)
+    chunks = [_cm_chunk(_padded(M, wp.NP), h, wp.KC, code)
               for M in planes for h in range(nch)]
     return torch.cat(chunks) if chunks else torch.empty(0, dtype=torch.uint8)
 
@@ -646,11 +666,11 @@ class _Plan:
         self.tiles = {}  # flavor -> (TP_fwd, TP_bwd, n_sm), at first launch
         self.k1_checked = set()  # flavors whose K1 route was cross-checked
         self.k1_routes = {}  # flavor -> the route its last K1 launch took
-        # flavor -> the route the last K2 / K3 launch took: "wgmma" (the
-        # TF32 flavor's, csrc/wg_backward.cuh) or "mma" (the mma.sync
-        # kernels, every other flavor and shape)
+        # flavor -> the route the last K2 / K3 launch took: "wgmma" (the f32
+        # and TF32 flavors' at wb_plan's shapes, csrc/wg_backward.cuh) or
+        # "mma" (the mma.sync kernels, the bf16 flavor and other shapes)
         self.k2_routes, self.k3_routes = {}, {}
-        self.wb_checked = False  # the route's plan was cross-checked
+        self.wb_checked = set()  # flavors whose route plan was cross-checked
 
     def card(self, device: torch.device) -> tuple[int, int]:
         """The card's opt-in shared memory a block and its SM count."""
@@ -689,28 +709,27 @@ class _Plan:
 
     def wb_route(self, device: torch.device, flavor, N: int, kernel: str):
         """K2's (``kernel="k2"``) or K3's (``"k3"``) route for ``N``
-        points in a flavor: the TF32 flavor's wgmma route's :class:`WbPlan`
-        (``csrc/wg_backward.cuh``), or ``None`` for the mma.sync kernels
-        (every other flavor, and the TF32 flavor at the shapes
-        :func:`wb_plan` declines).  Before the first launch the kernels' own
-        plan (``tdq_wb_plan``) is held to this one: a drift raises
-        :class:`KernelBuildError`.  Records the route in ``k2_routes`` /
-        ``k3_routes``."""
+        points in a flavor: the wgmma route's :class:`WbPlan`
+        (``csrc/wg_backward.cuh``) for the f32 and TF32 flavors at the
+        shapes :func:`wb_plan` takes, or ``None`` for the mma.sync kernels
+        (the bf16 flavor, and the other shapes).  Before a flavor's first
+        launch the kernels' own plan (``tdq_wb_plan``) is held to this one:
+        a drift raises :class:`KernelBuildError`.  Records the route in
+        ``k2_routes`` / ``k3_routes``."""
         dtype = flavor_of(flavor)
-        wp = None
-        if dtype == TF32:
-            smem, n_sm = self.card(device)
-            wp = wb_plan(self.layer_shapes, self.orders, smem, n_sm, N)
-            if not self.wb_checked:
-                out = (ctypes.c_int * len(WbPlan._fields))()
-                took = build().tdq_wb_plan(self.net_h, self.sched_h, smem,
-                                           n_sm, N, out)
-                got = WbPlan(*out) if took else None
-                if got != wp:
-                    raise KernelBuildError(
-                        f"the kernels' TF32 backward route is {got}, the "
-                        f"wrapper's {wp}")
-                self.wb_checked = True
+        code = FLAVOR_CODE[dtype]
+        smem, n_sm = self.card(device)
+        wp = wb_plan(self.layer_shapes, self.orders, code, smem, n_sm, N)
+        if dtype not in self.wb_checked:
+            out = (ctypes.c_int * len(WbPlan._fields))()
+            took = build().tdq_wb_plan(self.net_h, self.sched_h, code, smem,
+                                       n_sm, N, out)
+            got = WbPlan(*out) if took else None
+            if got != wp:
+                raise KernelBuildError(
+                    f"the kernels' backward route is {got}, the wrapper's "
+                    f"{wp} (flavor {dtype})")
+            self.wb_checked.add(dtype)
         routes = self.k2_routes if kernel == "k2" else self.k3_routes
         routes[dtype] = "mma" if wp is None else "wgmma"
         return wp
@@ -843,7 +862,7 @@ def _k2(plan: _Plan, X: torch.Tensor, flat: torch.Tensor, g: torch.Tensor,
                                      g.data_ptr(), dX.data_ptr(),
                                      part.data_ptr(), ws.data_ptr(),
                                      dflat.data_ptr(), N, plan.net_h,
-                                     plan.sched_h,
+                                     plan.sched_h, bf16,
                                      (ctypes.c_int * len(wp))(*wp), stream),
                "taylor_bwd_wg K2 launch")
         return dX, dflat
@@ -865,7 +884,10 @@ def k2_backward(plan: _Plan, X: torch.Tensor, flat: torch.Tensor,
                 g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K2 (and its deterministic cross-block reduction): returns
     ``(dX [N, d], dflat [P_total])`` for table cotangents ``g [C, N,
-    n_out]``."""
+    n_out]``.  Its route is chosen by shape (:meth:`_Plan.wb_route`,
+    recorded in ``plan.k2_routes[None]``): the persistent wgmma kernel of
+    ``csrc/wg_backward.cuh`` in its 3xTF32 flavor where :func:`wb_plan`
+    takes the shape, else the mma.sync kernel."""
     out = _k2(plan, X, flat, g, 0)
     k2_backward.launches += 1
     return out

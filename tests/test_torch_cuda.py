@@ -467,15 +467,22 @@ def test_minimax_solver_on_card_tracks_cpu_plain_flavor(card):
 
 def test_k3_launch_failure_raises_out_of_compile(card, monkeypatch):
     """A K3 the runtime refuses fails ``compile(minimax=None)``; the solver
-    does not train on the unfused loss instead.  The tile here asks for
-    more shared memory than a block may have."""
+    does not train on the unfused loss instead.  The tile (the mma.sync
+    route) or the plan (the wgmma route) here asks for more shared memory
+    than a block may have."""
     fits = cuda_minimax.MinimaxPlan.tile_sizes
+    route = cuda_minimax.MinimaxPlan.wb_route
 
     def oversized(self, device, compute_dtype=None):
         tp_fwd, tp_bwd, n_sm = fits(self, device, compute_dtype)
         return tp_fwd, 64 * tp_bwd, n_sm
 
+    def oversized_route(self, device, flavor, N, kernel):
+        wp = route(self, device, flavor, N, kernel)
+        return None if wp is None else wp._replace(smem=wp.smem + (1 << 20))
+
     monkeypatch.setattr(cuda_minimax.MinimaxPlan, "tile_sizes", oversized)
+    monkeypatch.setattr(cuda_minimax.MinimaxPlan, "wb_route", oversized_route)
     before = cuda_minimax.k3_minimax.launches
     with pytest.raises(cuda_taylor.KernelLaunchError, match="K3 launch"):
         _ac_solver("cuda", n_f=512, minimax=None)
@@ -1617,7 +1624,8 @@ def _close(got, want):
 def test_zoo_shapes_kernels_match_plain_flavors_on_card(card, entry_id):
     """K3 (the entry's lowered step), K1 and K2 (its requests) against
     their plain flavors at the entry's full widths, d, n_out and E, at N =
-    4,096; the solver adopts K3 with E = n_components."""
+    4,096; the solver adopts K3 with E = n_components.  ``w`` and the
+    table cotangents come from a seeded generator on the card."""
     from tensordiffeq_tpu_torch import zoo
     s = _zoo_solver(entry_id)
     assert zoo.engine_label(s) == "fused-minimax-cuda"
@@ -1626,7 +1634,8 @@ def test_zoo_shapes_kernels_match_plain_flavors_on_card(card, entry_id):
     layers = [(W.detach(), b.detach()) for W, b in s.net.layers()]
     fl = [a if a.ndim == 2 else a.reshape(1, -1) for p in layers for a in p]
     sq = s._minimax_sq
-    w = torch.rand(X.shape[0], sq.plan.E, device=card) ** 2
+    gen = torch.Generator(device=card).manual_seed(0)
+    w = torch.rand(X.shape[0], sq.plan.E, generator=gen, device=card) ** 2
     got = cuda_minimax.k3_minimax(sq.plan, X, w, sq.plan.pack(fl))
     want = sq.plain(fl, w, X)
     _close([got[0].reshape(1)] + sq.plan.unpack(got[1]) + [got[2], got[3]],
@@ -1641,7 +1650,8 @@ def test_zoo_shapes_kernels_match_plain_flavors_on_card(card, entry_id):
     Xg = X.clone().requires_grad_(True)
     ref = taylor_derivatives(pairs, Xg, set(plan.channels), flat_matmul=True)
     _close(list(table), [ref[mi].detach() for mi in plan.channels])
-    g = torch.randn(plan.C, X.shape[0], plan.n_out, device=card)
+    g = torch.randn(plan.C, X.shape[0], plan.n_out, generator=gen,
+                    device=card)
     dX, dflat = cuda_taylor.k2_backward(plan, X, flat, g)
     loss = sum((ref[mi] * g[c]).sum() for c, mi in enumerate(plan.channels))
     _close(plan.unpack(dflat) + [dX],
@@ -1981,12 +1991,83 @@ def test_tf32_backward_planes_match_the_plain_mirror(card):
     err = cuda_taylor.build().tdq_taylor_bwd_wg(
         X.data_ptr(), plan.pack(flat_layers).data_ptr(), cot.data_ptr(),
         dX.data_ptr(), part.data_ptr(), ws.data_ptr(), grad.data_ptr(), N,
-        plan.net_h, plan.sched_h, (ctypes.c_int * len(wp))(*wp),
+        plan.net_h, plan.sched_h, cuda_taylor.FLAVOR_CODE[cuda_taylor.TF32],
+        (ctypes.c_int * len(wp))(*wp),
         torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert err == 0
     slices = wp.grid * (len(widths) - 2) * cuda_taylor.WB_ROWS * wp.NP
-    want = cuda_taylor.wb_prepare(flat_layers, wp)
+    want = cuda_taylor.wb_prepare(flat_layers, wp, cuda_taylor.TF32)
+    assert torch.equal(ws[slices:].cpu().view(torch.uint8), want)
+
+
+@pytest.mark.parametrize("case", list(TF32_ROUTE_CASES))
+def test_f32_backward_routes_by_shape_on_card(card, case):
+    """K2 and K3 in the f32 flavor (3xTF32) take the route their shape
+    names (the wgmma route of ``csrc/wg_backward.cuh`` where ``wb_plan``
+    takes the shape, the mma.sync kernels past it), are within TOL
+    scale-relative of the IEEE plain flavor there, and are bit for bit run
+    to run."""
+    reqs, widths, N, route = TF32_ROUTE_CASES[case]
+    layers, _, g = _net(widths, card)
+    X = (2 * torch.rand(N, 2, generator=g) - 1).to(card)
+    shapes = [tuple(W.shape) for W, _ in layers]
+    plan = cuda_taylor.build_cuda_table_fn(reqs, shapes).plan
+    flat = plan.pack([t for p in layers for t in p])
+    cot = torch.randn(plan.C, N, widths[-1], generator=g).to(card)
+    dX, dflat = cuda_taylor.k2_backward(plan, X, flat, cot)
+    assert plan.k2_routes[None] == route
+    again = cuda_taylor.k2_backward(plan, X, flat, cot)
+    assert torch.equal(again[0], dX) and torch.equal(again[1], dflat)
+    params = [t.clone().requires_grad_(True) for p in layers for t in p]
+    pairs = list(zip(params[0::2], params[1::2]))
+    Xg = X.clone().requires_grad_(True)
+    t = taylor_derivatives(pairs, Xg, reqs, flat_matmul=True)
+    loss = sum((t[mi] * cot[c]).sum() for c, mi in enumerate(plan.channels))
+    _close(plan.unpack(dflat) + [dX],
+           torch.autograd.grad(loss, params + [Xg]))
+    sq = build_minimax_sq_fn(_res_ac, ("x", "t"), 1,
+                             analyze_f_model(_res_ac, ("x", "t"), 1), shapes)
+    w = torch.rand(N, 1, generator=g).to(card)
+    fl = [a if a.ndim == 2 else a.reshape(1, -1) for p in layers for a in p]
+    got = cuda_minimax.k3_minimax(sq.plan, X, w, sq.plan.pack(fl))
+    assert sq.plan.k3_routes[None] == route
+    again = cuda_minimax.k3_minimax(sq.plan, X, w, sq.plan.pack(fl))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = sq.plain(fl, w, X)
+    _close([got[0].reshape(1)] + sq.plan.unpack(got[1]) + [got[2], got[3]],
+           [want[0].reshape(1)] + list(want[1]) + [want[2], want[3]])
+
+
+def test_f32_backward_planes_match_the_plain_mirror(card):
+    """The f32 flavor's weight prep writes each chunk's hi and lo planes
+    (split_tf32; chunks of 32 k rows) byte for byte as ``wb_prepare``
+    lays them out, after the blocks' workspace slices."""
+    widths = [2, 128, 128, 128, 1]
+    layers, _, g = _net(widths, card)
+    plan = cuda_taylor.build_cuda_table_fn(
+        AC, [tuple(W.shape) for W, _ in layers]).plan
+    flat_layers = [t for p in layers for t in p]
+    N = 1000
+    wp = plan.wb_route(card, None, N, "k2")
+    assert wp is not None and (wp.P, wp.KC) == (16, 32)
+    ws = torch.zeros(wp.ws_floats, device=card)
+    part = torch.empty(wp.grid, cuda_taylor.slot_stride(plan.P_total),
+                       device=card)
+    X = (2 * torch.rand(N, 2, generator=g) - 1).to(card)
+    cot = torch.randn(plan.C, N, 1, generator=g).to(card)
+    dX = torch.empty(N, 2, device=card)
+    grad = torch.empty(plan.P_total, device=card)
+    err = cuda_taylor.build().tdq_taylor_bwd_wg(
+        X.data_ptr(), plan.pack(flat_layers).data_ptr(), cot.data_ptr(),
+        dX.data_ptr(), part.data_ptr(), ws.data_ptr(), grad.data_ptr(), N,
+        plan.net_h, plan.sched_h, cuda_taylor.FLAVOR_CODE[None],
+        (ctypes.c_int * len(wp))(*wp),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    slices = wp.grid * (len(widths) - 2) * cuda_taylor.WB_ROWS * wp.NP
+    want = cuda_taylor.wb_prepare(flat_layers, wp, None)
     assert torch.equal(ws[slices:].cpu().view(torch.uint8), want)
 
 

@@ -1,24 +1,32 @@
-"""K2-TF32's and K3-TF32's persistent wgmma route
-(``csrc/wg_backward.cuh``), the parts that live on the host and the
+"""K2's and K3's persistent wgmma route (``csrc/wg_backward.cuh``) in its
+TF32 and f32 (3xTF32) flavors, the parts that live on the host and the
 algorithm it runs, on the CPU:
 
 * the plan's mirror (``ops/cuda_taylor.py::wb_plan``): tile rows, stages,
-  shared memory, workspace, and the choice of route by shape;
+  shared memory, workspace, and the choice of route by shape and flavor;
 * the plain mirror of the weight planes (``wb_prepare``): the forward
-  planes are K1-TF32's chunks (W^T), the backward planes W in the sweep's
-  order, both TF32 (``cvt.rna``) in core-matrix and k-slot order;
+  planes are K1's chunks of the flavor (W^T), the backward planes W in the
+  sweep's order, in core-matrix and k-slot order; TF32 (``cvt.rna``), or
+  the f32 flavor's hi and lo planes, which sum back to W;
 * the route's K2 step for step in PyTorch (tiles of 128 rows with the
   channels padded, the operands of dW written K-major as the kernel writes
   them, the block's slot added to in tile order, the slots summed in slot
   order): in float64 it is autograd's gradient to 1e-10; with TF32
   operands and float32 sums it stays within the TF32 flavor's band of the
   TF32-emulating referee, and the JAX package's float32 (HIGHEST) result is
-  printed beside it;
+  printed beside it; in the f32 flavor's order (three passes a product:
+  split_tf32 for the forward and dH, the truncating split of dW's in-place
+  lo planes) it is within the f32 band (1e-4 scale-relative) of the float64
+  referee and within the cross-check's rtol 5e-3 of the JAX package;
+* K3 on the route in the f32 flavor (the route's forward, the tape's
+  epilogue, the route's K2 on the tape's cotangents): within the f32 band
+  of the float64 plain flavor and within rtol 5e-3 of the JAX package's
+  ``build_minimax_sq_fn`` (XLA) on the same weights;
 * the register VJP's in-place order (``wb_act_vjp``) against the
   activation pass's autograd.
 
 The kernels run only on the card: ``tests/test_torch_cuda.py`` and
-``chip_smoke.py`` phase 16.
+``chip_smoke.py`` phases 3-5, 15 and 16.
 """
 
 import jax
@@ -27,22 +35,36 @@ import numpy as np
 import pytest
 import torch
 
+import tensordiffeq_tpu as tdq
+from tensordiffeq_tpu.networks import neural_net as jax_net
+from tensordiffeq_tpu.ops import pallas_minimax as jmm
+from tensordiffeq_tpu.ops.fused import analyze_f_model as jax_analyze
+from tensordiffeq_tpu.ops.taylor import extract_mlp_layers
 from tensordiffeq_tpu.ops.taylor import taylor_derivatives as jax_table
+from tensordiffeq_tpu_torch import grad
 from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+from tensordiffeq_tpu_torch.ops import minimax
+from tensordiffeq_tpu_torch.ops.fused import analyze_f_model, crosscheck_grads
 from tensordiffeq_tpu_torch.ops.taylor import (channel_order, rna_tf32,
                                                 taylor_derivatives)
+from tensordiffeq_tpu_torch.weights import params_from_jax
 
 SMEM, SMS = 232_448, 132  # an H100's opt-in shared memory a block, SMs
 AC = {(), (1,), (0, 0)}
 MIXED = {(), (0,), (1,), (0, 0), (0, 1), (0, 0, 1), (0, 0, 0, 0)}
 # the TF32 flavor's band (tests/test_torch_cuda.py, chip_smoke.py)
 TF32_SPREAD, TF32_FLOOR = 3.0, 1e-4
+# the f32 flavor's band against the IEEE plain flavor, scale-relative
+# (chip_smoke.py's K2_RTOL/K3_RTOL), and the engines' cross-check rtol
+F32_BAND, CROSSCHECK_RTOL = 1e-4, 5e-3
+F32, TF32 = ct.FLAVOR_CODE[None], ct.FLAVOR_CODE[ct.TF32]
 
 
-def _plan(reqs, widths, N=50_000, smem=SMEM, n_sm=SMS):
+def _plan(reqs, widths, N=50_000, smem=SMEM, n_sm=SMS, code=TF32):
     plan = ct.build_cuda_table_fn(reqs, list(zip(widths[:-1], widths[1:])),
                                   device="cpu").plan
-    return plan, ct.wb_plan(plan.layer_shapes, plan.orders, smem, n_sm, N)
+    return plan, ct.wb_plan(plan.layer_shapes, plan.orders, code, smem, n_sm,
+                            N)
 
 
 def test_plan_at_the_slice_and_at_burgers():
@@ -108,7 +130,7 @@ def _cm(n, k, KC, epc=4):
 def test_weight_planes_round_trip(widths):
     flat = _layers(widths)
     _, wp = _plan(AC, widths)
-    raw = ct.wb_prepare(flat, wp)
+    raw = ct.wb_prepare(flat, wp, ct.TF32)
     assert raw.numel() == wp.P * wp.stage_bytes
     chunks = raw.view(torch.float32).numpy().reshape(wp.P, wp.NP * wp.KC)
     assert not (chunks.view(np.uint32) & 0x1FFF).any()  # TF32
@@ -242,19 +264,57 @@ def _kmajor(M):
     return buf[back.reshape(-1)].view(NP, ct.WB_ROWS)
 
 
-def _route_k2(flat, X, g, reqs, n_sm, tf32):
+def _tc(t):
+    """A float32 operand as the tensor cores read it: its low 13 bits
+    dropped (``tf32_trunc`` in ``csrc/wg_backward.cuh``)."""
+    return (t.view(torch.int32) & -8192).view(torch.float32)
+
+
+def _mm3(A, B, split):
+    """A B as the f32 flavor's three TF32 passes, lo hi + hi lo + hi hi,
+    each lo read by the tensor cores (``_tc``)."""
+    (ah, al), (bh, bl) = split(A), split(B)
+    return _tc(al) @ bh + ah @ _tc(bl) + ah @ bh
+
+
+def _rna_split(t):  # split_tf32: the forward's and dH's operands
+    hi = rna_tf32(t)
+    return hi, t - hi
+
+
+def _trunc_split(t):  # dW's operands: f32 values, lo made in place
+    hi = _tc(t)
+    return hi, t - hi
+
+
+def _arith(mode):
+    """``(rnd, mm, dw)`` of the route in a mode: the SIMT operands'
+    rounding, the forward's and dH's product, dW's product.  ``"f64"``:
+    exact; ``"tf32"``: every operand ``cvt.rna``-rounded, one pass;
+    ``"f32"``: IEEE SIMT, three passes on the tensor cores."""
+    if mode == "tf32":
+        return rna_tf32, (lambda A, B: rna_tf32(A) @ rna_tf32(B)), \
+            (lambda A, B: rna_tf32(A) @ rna_tf32(B))
+    if mode == "f32":
+        return (lambda t: t), (lambda A, B: _mm3(A, B, _rna_split)), \
+            (lambda A, B: _mm3(A, B, _trunc_split))
+    return (lambda t: t), torch.matmul, torch.matmul
+
+
+def _route_k2(flat, X, g, reqs, n_sm, mode):
     """The route's K2 for layers ``flat``, points ``X [N, d]`` and table
     cotangents ``g [C, N, n_out]``: ``(dflat, dX)``.  Tiles of 128 rows
     (point p's channel c at row (p % TP) * CP + c), blocks walking tiles b,
-    b + G, ...; rounding (``tf32``) where the kernel rounds: every product
-    operand, the bias sums not."""
-    rnd = rna_tf32 if tf32 else (lambda t: t)
+    b + G, ...; the arithmetic of ``mode`` (:func:`_arith`) where the
+    kernel rounds or splits: every product operand, the bias sums not."""
+    rnd, mm, dw = _arith(mode)
     _, rows = ct.channel_schedule(reqs)
     C, N, d = len(rows), X.shape[0], X.shape[1]
     L = len(flat) // 2
     Ws, bs = flat[0::2], flat[1::2]
     shapes = [tuple(W.shape) for W in Ws]
-    wp = ct.wb_plan(shapes, [o for o, _ in rows], SMEM, n_sm, N)
+    wp = ct.wb_plan(shapes, [o for o, _ in rows], F32 if mode == "f32"
+                    else TF32, SMEM, n_sm, N)
     NP, CP = wp.NP, wp.CP
     TP = ct.WB_ROWS // CP
     dt = X.dtype
@@ -290,7 +350,7 @@ def _route_k2(flat, X, g, reqs, n_sm, tf32):
         P0, x = layer0(p0)
         Ps, H = [P0], _act(P0, rows)
         for l in range(1, L - 1):
-            P = rnd(H) @ Wp[l]
+            P = mm(H, Wp[l])
             P[:, 0] += bp[l]
             Ps.append(P)
             H = _act(P, rows)
@@ -309,8 +369,8 @@ def _route_k2(flat, X, g, reqs, n_sm, tf32):
             dPt = _kmajor(rnd(dP).reshape(ct.WB_ROWS, NP))
             fi, fo = shapes[l]
             add(blk, 2 * l + 1, dP[:, 0].sum(0)[:fo], first)
-            add(blk, 2 * l, (Ht @ dPt.t())[:fi, :fo], first)
-            dH = (rnd(dP) @ Wp[l].t())
+            add(blk, 2 * l, dw(Ht, dPt.t())[:fi, :fo], first)
+            dH = mm(dP, Wp[l].t())
         dP = _act_vjp_in_place(Ps[0], dH, rows)
         w0 = shapes[0][1]
         gW = x.t() @ rnd(dP[:, 0])
@@ -357,7 +417,7 @@ def test_route_k2_is_autograds_gradient_in_float64(reqs):
     C = len(channel_order(reqs))
     g = torch.randn(C, 77, 1, generator=torch.Generator().manual_seed(2),
                     dtype=torch.float64)
-    got, dX = _route_k2(flat, X, g, reqs, n_sm=2, tf32=False)
+    got, dX = _route_k2(flat, X, g, reqs, n_sm=2, mode="f64")
     want = _referee(flat, X, g, reqs)
     for a, b in zip(got + [dX], want):
         torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-12)
@@ -380,7 +440,7 @@ def test_route_k2_dw_order_within_the_tf32_band_of_the_referee():
     C = len(channel_order(reqs))
     rng = np.random.RandomState(4)
     g = torch.from_numpy(rng.randn(C, N, 1).astype(np.float32))
-    got, dX = _route_k2(flat, X, g, reqs, n_sm=3, tf32=True)
+    got, dX = _route_k2(flat, X, g, reqs, n_sm=3, mode="tf32")
     got = got + [dX]
     emu = _referee(flat, X, g, reqs, emulate_tf32=True)
     twin = _referee(flat, X, g, reqs, emulate_tf32="float64")
@@ -407,3 +467,213 @@ def test_route_k2_dw_order_within_the_tf32_band_of_the_referee():
         assert near <= band, (i, near, band)
     cat = lambda ts: torch.cat([t.reshape(-1) for t in ts])  # noqa: E731
     assert _rms_rel(cat(got), cat(emu)) < _rms_rel(cat(got), cat(ieee))
+
+
+# ------------------------------------------------------------------ #
+# the f32 flavor (3xTF32) on the route
+# ------------------------------------------------------------------ #
+def test_f32_plan_at_the_slice_and_at_burgers():
+    """The f32 flavor's chunks carry the hi and lo planes at KC = 32: the
+    TF32 flavor's 32 KB a stage, twice its chunks, the same shared memory
+    (dW's lo planes are made in place over H^T and dP^T)."""
+    _, ac = _plan(AC, [2, 128, 128, 128, 128, 1], code=F32)
+    assert ac == ct.WbPlan(NP=128, CP=4, KC=32, S=2, P=24, stage_bytes=32_768,
+                           n_tiles=1563, grid=132, smem=205_536, bulk=1,
+                           ws_floats=132 * 4 * 128 * 128 + 24 * 128 * 32 * 2)
+    assert ac.smem == _plan(AC, [2, 128, 128, 128, 128, 1])[1].smem
+    _, bu = _plan(AC, [2] + [20] * 8 + [1], code=F32)
+    assert (bu.NP, bu.CP, bu.KC, bu.P, bu.S, bu.stage_bytes, bu.bulk) \
+        == (64, 4, 32, 28, 8, 16_384, 1)
+    assert bu.ws_floats == 132 * 8 * 128 * 64 + 28 * 64 * 32 * 2
+    for wp in (ac, bu):
+        assert wp.smem <= SMEM and wp.S >= 2
+        assert wp.stage_bytes == wp.NP * wp.KC * 8  # hi and lo planes
+    # the shapes the TF32 flavor declines, the f32 flavor declines; the
+    # bf16 flavor (code 1) is the mma.sync route's at every shape
+    assert _plan(AC, [2, 256, 256, 256, 256, 1], code=F32)[1] is None
+    assert _plan(AC, [2, 128, 128, 128, 1], smem=190_000, code=F32)[1] \
+        is None
+    assert _plan(AC, [2, 128, 128, 128, 128, 1], code=1)[1] is None
+
+
+@pytest.mark.parametrize("widths", [[2, 128, 128, 128, 1], [2, 37, 53, 1],
+                                    [3, 20, 20, 20, 20, 2]],
+                         ids=["ac", "odd", "burgers-like"])
+def test_f32_weight_planes_sum_back_to_w(widths):
+    flat = _layers(widths)
+    _, wp = _plan(AC, widths, code=F32)
+    raw = ct.wb_prepare(flat, wp, None)
+    assert raw.numel() == wp.P * wp.stage_bytes
+    per = wp.NP * wp.KC
+    chunks = raw.view(torch.float32).reshape(wp.P, 2, per)
+    hi, lo = chunks[:, 0], chunks[:, 1]
+    assert not (hi.numpy().view(np.uint32) & 0x1FFF).any()  # TF32
+    # the forward half is K1's f32 chunks of the same depth, byte for byte
+    wg = ct.WgPlan(wp.NP, wp.CP, wp.KC, 0, wp.P // 2, 0, wp.stage_bytes, 0,
+                   0, 0)
+    assert torch.equal(raw[:wp.P // 2 * wp.stage_bytes],
+                       ct.wg_prepare(flat, wg, None))
+    slots = np.array(ct.wg_kslots(wp.KC, False))
+    n, kq = np.arange(wp.NP)[:, None], np.arange(wp.KC)[None, :]
+    off = torch.from_numpy(_cm(n, kq, wp.KC).reshape(-1))
+    nch, L = wp.NP // wp.KC, len(widths) - 1
+    hidden = list(range(1, L - 1))
+    planes = [flat[2 * l].t() for l in hidden] \
+        + [flat[2 * l] for l in reversed(hidden)]
+    for q in range(wp.P):
+        M = planes[q // nch]
+        pad = torch.zeros(wp.NP, wp.NP)
+        pad[:M.shape[0], :M.shape[1]] = M
+        want = pad[:, (q % nch) * wp.KC + torch.from_numpy(slots)].reshape(-1)
+        h, lw = hi[q][off], lo[q][off]
+        assert torch.equal(h + lw, want)  # lo = W - hi, exact
+        # what the tensor cores read of the two planes: W within 2^-21
+        err = (h + _tc(lw) - want).abs()
+        assert bool((err <= 2.0 ** -21 * want.abs()).all())
+
+
+def _crosscheck(got, want):
+    ok, why = crosscheck_grads([t.double() for t in want],
+                               [t.double() for t in got],
+                               rtol=CROSSCHECK_RTOL)
+    assert ok, why
+
+
+def test_route_k2_f32_order_within_the_f32_band():
+    """The route's K2 in the f32 flavor's order (three passes a product,
+    dW's truncating split, float32 sums, the slot order) against autograd
+    of the float64 plain flavor: every leaf within F32_BAND scale-relative;
+    and within the cross-check's rtol of the JAX package's float32
+    (HIGHEST) gradient on the same numpy-seeded inputs."""
+    reqs, widths, N = AC, [2, 48, 48, 48, 1], 300
+    flat, X = _case(widths, N)
+    C = len(channel_order(reqs))
+    g = torch.from_numpy(np.random.RandomState(4).randn(C, N, 1)
+                         .astype(np.float32))
+    got, dX = _route_k2(flat, X, g, reqs, n_sm=3, mode="f32")
+    got = got + [dX]
+    ref = _referee([t.double() for t in flat], X.double(), g.double(), reqs)
+    for i, (a, r) in enumerate(zip(got, ref)):
+        err = float((a.double() - r).abs().max() / r.abs().max())
+        print(f"leaf {i}: to the float64 referee {err:.3e}")
+        assert err <= F32_BAND, (i, err)
+    jl = [(jnp.asarray(W.numpy()), jnp.asarray(b.numpy()))
+          for W, b in zip(flat[0::2], flat[1::2])]
+    chans = channel_order(reqs)
+
+    def loss(layers, x):
+        t = jax_table(layers, x, reqs)
+        return sum(jnp.sum(t[mi] * jnp.asarray(g[c].numpy()))
+                   for c, mi in enumerate(chans))
+
+    gl, gx = jax.grad(loss, argnums=(0, 1))(jl, jnp.asarray(X.numpy()))
+    ieee = [torch.from_numpy(np.array(a)) for pair in gl for a in pair] \
+        + [torch.from_numpy(np.array(gx))]
+    _crosscheck(got, ieee)
+
+
+VARS = ("x", "t")
+
+
+def _residuals(g):
+    def ac(u, x, t):
+        return (g(u, "t")(x, t) - 0.05 * g(g(u, "x"), "x")(x, t)
+                + u(x, t) ** 3 - u(x, t))
+
+    def system(u, x, t):
+        uv, vv = u[0](x, t), u[1](x, t)
+        sq = uv ** 2 + vv ** 2
+        f_u = g(u[0], "t")(x, t) + 0.5 * g(g(u[1], "x"), "x")(x, t) + sq * vv
+        f_v = g(u[1], "t")(x, t) - 0.5 * g(g(u[0], "x"), "x")(x, t) - sq * uv
+        return f_u, f_v
+
+    return dict(ac=ac, system=system)
+
+
+T_RES, J_RES = _residuals(grad), _residuals(tdq.grad)
+N_OUT = dict(ac=1, system=2)
+
+
+def _route_k3(sq, flat, X, w, n_sm):
+    """K3 on the route in the f32 flavor: the route's forward gives the
+    head's rows (per point: its rows do not depend on the tile), the tape
+    runs on them per point (``minimax_tape.cuh``'s interpreter, mirrored by
+    ``ResidualTape``), and its cotangents (seeds 2 w f) go through the
+    route's K2, whose dX the tape's direct coordinate adjoints are added
+    to.  Returns ``(value, [dW_0, db_0, ...], gw, gX)``."""
+    plan = sq.plan
+    _, rows = ct.channel_schedule(set(plan.mis))
+    _, mm, _ = _arith("f32")
+    Ws, bs = flat[0::2], flat[1::2]
+    H = torch.zeros(X.shape[0], len(rows), Ws[0].shape[1])
+    H[:, 0] = X @ Ws[0] + bs[0]
+    for c, (o, ix) in enumerate(rows):
+        if o == 1:
+            H[:, c] = Ws[0][ix[0]]
+    H = _act(H, rows)
+    for l in range(1, len(Ws) - 1):
+        P = mm(H, Ws[l])
+        P[:, 0] += bs[l]
+        H = _act(P, rows)
+    table = H @ Ws[-1]
+    table[:, 0] += bs[-1]
+    cols = [table[:, c, o] for c in range(plan.C) for o in range(plan.n_out)]
+    coords = [X[:, k] for k in range(plan.d)]
+    regs = plan.tape.forward(cols, coords)
+    f = [regs[r] for r in plan.tape.outputs]
+    value = sum((w[:, e] * f[e] ** 2).sum() for e in range(plan.E))
+    gw = torch.stack([fe ** 2 for fe in f], 1)
+    g_tab, g_coord = plan.tape.reverse(regs, [2 * w[:, e] * f[e]
+                                              for e in range(plan.E)])
+    g = torch.zeros(plan.C, X.shape[0], plan.n_out)
+    for s, gs in g_tab.items():
+        g[s // plan.n_out, :, s % plan.n_out] = gs
+    dflat, dX = _route_k2(flat, X, g, set(plan.mis), n_sm, "f32")
+    for k, gc in g_coord.items():
+        dX[:, k] += gc
+    return value, dflat, gw, dX
+
+
+@pytest.mark.parametrize("case", ["ac", "system"])
+def test_route_k3_f32_within_the_f32_band_and_jax(case):
+    """K3 on the route in the f32 flavor against the float64 plain flavor
+    (within F32_BAND scale-relative, every leaf) and against the JAX
+    package's ``build_minimax_sq_fn`` (XLA) on the same weights
+    (``weights.params_from_jax``) and numpy-seeded points and weights
+    (within the cross-check's rtol)."""
+    n_out, N = N_OUT[case], 300
+    net = jax_net([2, 40, 40, 40, n_out])
+    params = net.init(jax.random.PRNGKey(0), jnp.zeros((1, 2)))
+    rng = np.random.RandomState(0)
+    X = (rng.randn(N, 2) * 0.5).astype(np.float32)
+    E = 2 if case == "system" else 1
+    w = rng.rand(N, E).astype(np.float32)
+    tl = params_from_jax(jax.tree_util.tree_map(np.asarray, params),
+                         device="cpu")
+    flat = [t.detach().float() for p in tl for t in p]
+    shapes = [tuple(W.shape) for W, _ in tl]
+    f = T_RES[case]
+    sq = minimax.build_minimax_sq_fn(f, VARS, n_out,
+                                     analyze_f_model(f, VARS, n_out), shapes,
+                                     device="cpu")
+    Xt, wt = torch.from_numpy(X), torch.from_numpy(w)
+    val, dflat, gw, gX = _route_k3(sq, flat, Xt, wt, n_sm=3)
+    got = [val.reshape(1)] + [t.reshape(-1) for t in dflat] + [gw, gX]
+    pv, pflat, pgw, pgX = sq.plain([t.double() for t in flat], wt.double(),
+                                   Xt.double())
+    ref = [pv.reshape(1)] + [t.reshape(-1) for t in pflat] + [pgw, pgX]
+    for i, (a, r) in enumerate(zip(got, ref)):
+        err = float((a.double() - r).abs().max()
+                    / r.abs().max().clamp_min(1e-30))
+        print(f"{case} leaf {i}: to the float64 plain flavor {err:.3e}")
+        assert err <= F32_BAND, (i, err)
+    jf = J_RES[case]
+    jl = extract_mlp_layers(params)
+    jsq = jmm.build_minimax_sq_fn(jf, VARS, n_out,
+                                  jax_analyze(jf, VARS, n_out), shapes)
+    jv, vjp = jax.vjp(jsq, jl, jnp.asarray(w), jnp.asarray(X))
+    jg, jgw, jgx = vjp(jnp.ones((), jv.dtype))
+    jax_leaves = [np.asarray(jv).reshape(1)] + \
+        [np.asarray(a).reshape(-1) for p in jg for a in p] + \
+        [np.asarray(jgw), np.asarray(jgx)]
+    _crosscheck(got, [torch.from_numpy(np.array(a)) for a in jax_leaves])
