@@ -138,18 +138,23 @@ Phases (each failure is fatal; exit code != 0, no result line):
    (periodic), no K1-K3 launch.
 14. mixed precision, the bf16-operand flavor of K1, K2 and K3 at full width
    (AC, N_f = 50,000, 2-128x4-1, the 512x201 grid):
-   (a) K1-bf16 and K2-bf16 (the AC and mixed request sets; K1-bf16 also
-   on phase 3's 2-256x4-1, its wide route) and K3-bf16
-   (E = 1 and the coupled E = 2 system) against their plain bf16 flavors
+   (a) K1-bf16 and K2-bf16 (the AC and mixed request sets, and phase 3's
+   2-256x4-1, their routes for wider layers) and K3-bf16 (E = 1, the
+   coupled E = 2 system, the ``1/x`` residual at N = 50,001, and the AC
+   residual at 2-256x4-1) against their plain bf16 flavors
    (``compute_dtype=torch.bfloat16``); gates: every leaf within the
    reference's bf16 bands (5e-2 values, 1.5e-1 gradients, scale-relative),
-   and nearer (RMS) the plain bf16 flavor than the plain f32 one, K1-bf16
-   bit for bit run to run (its route printed); each
-   timed over 20 launches beside its f32 flavor and beside its time before
-   the flavor took the bf16 tensor cores (its TF32-pass route's, and
-   K1-bf16's before the wgmma route, from PERF.md), with its
-   bound (the products at the dense bf16 peak: 1 pass per forward product,
-   3 per cotangent product, the passes its route takes);
+   and nearer (RMS) the plain bf16 flavor than the plain f32 one, each bit
+   for bit run to run; K2-bf16 and K3-bf16 on the route
+   K2_BF16_ROUTES/K3_BF16_ROUTES name (``[route K2-bf16 ac]``: the
+   persistent wgmma route of ``csrc/wg_backward.cuh`` in its bf16 flavor up
+   to 128 wide, the mma.sync kernels at 2-256x4-1; another route fails the
+   phase); each timed over 20 launches beside its f32 flavor and beside
+   its times before (the TF32-pass route's, and K1-bf16's, K2-bf16's and
+   K3-bf16's before the wgmma route, from PERF.md), with its bound (the
+   products at the dense bf16 peak: 1 pass per forward product, 3 per
+   cotangent product, the passes its route takes); ``--bf16-only`` runs
+   the build, the yardstick and this part alone;
    (b) ``compile(fused="cuda", fused_dtype="bfloat16")`` on AC-SA: the
    minimax path ``fit(tf_iter=200)`` then ``fit(newton_iter=100)``, and
    ``minimax=False`` ``fit(tf_iter=200)``, then 50 graphed against 50
@@ -245,7 +250,8 @@ Phases (each failure is fatal; exit code != 0, no result line):
    (``torch.profiler``); then 50 steps of ``minimax=False`` (K1 and K2 once
    each per step) and 20 of ``fused_dtype="bfloat16"`` (K3-bf16 per
    step), each path's kernels held to their plain flavor at 500,000 rows
-   (K1/K2 at K1_RTOL/K2_RTOL, K3-bf16 within the bf16 bands).
+   (K1/K2 at K1_RTOL/K2_RTOL, K3-bf16 within the bf16 bands, on the
+   route K3_BF16_ROUTES names).
    (c) ``InferenceEngine(shard=True)`` at world 1 serves ``u`` bit for
    bit like ``shard=False``.  (b) Two processes on the one card over
    gloo (``--dist-worker``; NCCL refuses two ranks on one device) at
@@ -390,11 +396,12 @@ Phases (each failure is fatal; exit code != 0, no result line):
 23. a ``{"kernels": [...]}`` line (K1, K2, K3, their bf16 and their TF32
    flavors, each held to its plain version; K1's with the route it took and
    its wide route's measurements as ``wide_route``; the TF32 flavors with
-   their distances and the 3xTF32 flavor's ms; K2's and K3's (f32 and
-   TF32) with the route they took at the slice (``k2_route``/``k3_route``,
-   ``tf32_route``) and its source, their mma.sync route at WIDE_WIDTHS
-   (``old_route``) and their flavor's nine products' ``torch.matmul`` ms
-   (``yardstick_ms``: f32, or TF32); ``launches_by_path`` has every
+   their distances and the 3xTF32 flavor's ms; K2's and K3's (f32, bf16
+   and TF32) with the route they took at the slice (``k2_route``/
+   ``k3_route``, ``tf32_route``) and its source, their mma.sync route at
+   WIDE_WIDTHS (``old_route``) and their flavor's nine products'
+   ``torch.matmul`` ms (``yardstick_ms``: f32, bf16 or TF32);
+   ``launches_by_path`` has every
    path's launches, phases 17-22's included), the card line again, and the
    result line.
 
@@ -526,6 +533,12 @@ BF16_TF32_ROUTE_MS = {"K1-bf16 ac": 0.738, "K2-bf16 ac": 3.408,
 # comparison is those scripts' and scripts/torch_step_ab.py's
 K1_BEFORE_WGMMA_MS = {"K1 ac": 0.844, "K1-bf16 ac": 0.583,
                       "K1 mixed": 1.735, "K1-bf16 mixed": 1.237}
+# K2-bf16's and K3-bf16's ms on the mma.sync kernels, before their wgmma
+# route (PERF.md §6, an NVIDIA H100 80GB HBM3 at 700 W), printed beside
+# this run's; the same-call comparison is scripts/torch_tf32_time.py's
+# --flavor bf16 on an older checkout
+BF16_BEFORE_WGMMA_MS = {"K2-bf16 ac": 2.403, "K3-bf16 ac": 2.677,
+                        "K3-bf16 system": 2.753}
 SERVE_BF16_KINDS = ("u", "d:x:1", "d:x:2", "residual")
 SERVE_BF16_BUCKETS = (256, 4096, 131_072)
 # engine u against predict's u: the same forward at another row count
@@ -573,6 +586,13 @@ K2_ROUTES = {"ac": "wgmma", "mixed": "wgmma", "burgers": "wgmma",
              "wide": "mma"}
 K3_ROUTES = {"ac": "wgmma", "system": "wgmma", "singular": "wgmma",
              "burgers": "wgmma", "wide": "mma"}
+# the route K2-bf16 and K3-bf16 must take in each case of phases 14 and 17:
+# the wgmma route in its bf16 flavor at the slice's shapes (the AC and
+# mixed request sets; E = 2, the 1/x residual, 500,000 rows), the mma.sync
+# kernels at WIDE_WIDTHS
+K2_BF16_ROUTES = {"ac": "wgmma", "mixed": "wgmma", "wide": "mma"}
+K3_BF16_ROUTES = {"ac": "wgmma", "system": "wgmma", "singular": "wgmma",
+                  "dist": "wgmma", "wide": "mma"}
 ROUTE_SOURCES = {("k2", "wgmma"): "csrc/wg_backward.cuh",
                  ("k3", "wgmma"): "csrc/wg_backward.cuh",
                  ("k2", "mma"): "csrc/taylor_table.cu",
@@ -914,8 +934,8 @@ def phase_yardstick(dev) -> dict:
     torch.matmul on [N*C, 128] x [128, 128] (C = 4), the forward H W, dW =
     H^T dP and dH = dP W^T, three of each as in one K2 or K3 launch (K1
     takes the three forward ones), with TF32 off (the f32 flavors'
-    yardstick) and on (the TF32 flavor's: one pass).  A yardstick only:
-    the port never calls it."""
+    yardstick), on (the TF32 flavor's: one pass), and on bf16 operands
+    (the bf16 flavor's).  A yardstick only: the port never calls it."""
     import torch
     g = torch.Generator(device=dev).manual_seed(0)
     rows = N_POINTS * 4
@@ -923,22 +943,26 @@ def phase_yardstick(dev) -> dict:
     dP = torch.randn(rows, 128, generator=g, device=dev)
     W = torch.randn(128, 128, generator=g, device=dev) / 128 ** 0.5
     out = {}
-    for tf32 in (False, True):
-        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for kind in ("f32", "tf32", "bf16"):
+        torch.backends.cuda.matmul.allow_tf32 = kind == "tf32"
+        h, p, w = ((H, dP, W) if kind != "bf16" else
+                   (t.to(torch.bfloat16) for t in (H, dP, W)))
         try:
-            fwd = cuda_ms(lambda: [H @ W for _ in range(3)], reps=10)
-            dw = cuda_ms(lambda: [H.t() @ dP for _ in range(3)], reps=10)
-            dh = cuda_ms(lambda: [dP @ W.t() for _ in range(3)], reps=10)
+            fwd = cuda_ms(lambda: [h @ w for _ in range(3)], reps=10)
+            dw = cuda_ms(lambda: [h.t() @ p for _ in range(3)], reps=10)
+            dh = cuda_ms(lambda: [p @ w.t() for _ in range(3)], reps=10)
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
-        kind = "TF32 (allow_tf32=True)" if tf32 else "f32 (allow_tf32=False)"
-        print(f"[yardstick] torch.matmul {kind}, [{rows}, 128] x [128, 128], "
+        text = {"f32": "f32 (allow_tf32=False)",
+                "tf32": "TF32 (allow_tf32=True)",
+                "bf16": "bf16 (bf16 operands)"}[kind]
+        print(f"[yardstick] torch.matmul {text}, [{rows}, 128] x [128, 128], "
               f"three of each: forward {fwd:.3f} ms, dW {dw:.3f} ms, dH "
               f"{dh:.3f} ms; the nine of K2/K3 {fwd + dw + dh:.3f} ms, the "
               f"three of K1 {fwd:.3f} ms (cuBLAS, not used by the port)",
               flush=True)
-        out["tf32" if tf32 else "f32"] = dict(fwd_ms=fwd, dw_ms=dw, dh_ms=dh,
-                                              nine_ms=fwd + dw + dh)
+        out[kind] = dict(fwd_ms=fwd, dw_ms=dw, dh_ms=dh,
+                         nine_ms=fwd + dw + dh)
     return out
 
 
@@ -2638,8 +2662,11 @@ def _flavor_check(label: str, got: list, want: list, want32: list,
 
 def phase_mixed_kernels(dev) -> dict:
     """Phase 14(a): K1-bf16, K2-bf16 and K3-bf16 against their plain bf16
-    flavors at phases 3-5's shapes (K1-bf16 also on ``WIDE_WIDTHS``, its
-    route for wider layers), timed beside their f32 flavors."""
+    flavors at phases 3-5's shapes and on ``WIDE_WIDTHS`` (their routes for
+    wider layers), K2-bf16 and K3-bf16 on the routes K2_BF16_ROUTES and
+    K3_BF16_ROUTES name, timed beside their f32 flavors.  The AC case's
+    measurements carry the wide case's under ``wide`` (K1-bf16) or
+    ``old_route`` (K2-bf16, K3-bf16)."""
     import torch
     from tensordiffeq_tpu_torch.networks import neural_net
     from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
@@ -2661,7 +2688,7 @@ def phase_mixed_kernels(dev) -> dict:
         ms = cuda_ms(kernel)
         b = bound_ms(flops, nbytes, passes, PEAK_BF16_FLOPS)
         before = BF16_TF32_ROUTE_MS.get(label)
-        wg = K1_BEFORE_WGMMA_MS.get(label)
+        wg = K1_BEFORE_WGMMA_MS.get(label, BF16_BEFORE_WGMMA_MS.get(label))
         earlier = [] if before is None else [f"TF32-pass route: {before:.3f} ms"]
         earlier += [] if wg is None else [f"before the wgmma route: {wg:.3f} ms"]
         print(f"[time {label}] {ms:.3f} ms "
@@ -2679,18 +2706,17 @@ def phase_mixed_kernels(dev) -> dict:
             reqs, [tuple(W.shape) for W, _ in layers]).plan
         flat = plan.pack(flat_layers)
         channels = plan.channels
-        # the wide case holds K1-bf16 alone (and draws nothing, so K3's
-        # inputs below stay as they were)
-        g = None if label == "wide" else torch.as_tensor(
-            rng.randn(plan.C, N_POINTS, 1), dtype=torch.float32, device=dev)
+        # the wide case draws from a stream of its own, so the other
+        # cases' inputs stay as they were
+        g = torch.as_tensor(
+            (np.random.RandomState(3) if label == "wide" else rng).randn(
+                plan.C, N_POINTS, 1), dtype=torch.float32, device=dev)
         Xg = X.clone().requires_grad_(True)
 
         def plain(dtype):
             t = taylor_derivatives(pairs, Xg, set(channels), flat_matmul=True,
                                    compute_dtype=dtype)
             table = torch.stack([t[mi] for mi in channels])
-            if g is None:
-                return table.detach(), None
             loss = sum((t[mi] * g[c]).sum() for c, mi in enumerate(channels))
             return table.detach(), torch.autograd.grad(loss, params + [Xg])
 
@@ -2715,25 +2741,30 @@ def phase_mixed_kernels(dev) -> dict:
                         cuda_ms(lambda: ct.k1_forward(plan, X, flat)), p1,
                         flops["k1"], nbytes["k1"], passes["k1"],
                         k1["route"]))
-        if label == "wide":
-            out[label] = dict(k1=k1)
-            continue
         dX, dflat = ct.k2_backward_bf16(plan, X, flat, g)
         torch.cuda.synchronize()
         mine = plan.unpack(dflat) + [dX]
         k2 = _flavor_check(f"K2-bf16 {label}", mine, list(g16), list(g32),
                            [BF16_GRAD_BAND] * len(mine))
+        k2["route"] = _wb_route(plan, "k2", label, bf16)
+        k2["bit_identical"] = _bit_identical_run_to_run(
+            f"K2-bf16 {label}", torch.cat([dX.reshape(-1), dflat]),
+            lambda: torch.cat([t.reshape(-1) for t in
+                               ct.k2_backward_bf16(plan, X, flat, g)]))
         k2.update(timed(f"K2-bf16 {label}",
                         lambda: ct.k2_backward_bf16(plan, X, flat, g),
                         cuda_ms(lambda: ct.k2_backward(plan, X, flat, g)),
                         cuda_ms(lambda: plain(bf16), reps=5),
-                        flops["k2"], nbytes["k2"], passes["k2"]))
+                        flops["k2"], nbytes["k2"], passes["k2"],
+                        k2["route"]))
         out[label] = dict(k1=k1, k2=k2)
 
     k3 = {}
     for label, f_model, widths in (("ac", _ac_residual, WIDTHS),
                                    ("system", _coupled_residual,
-                                    WIDTHS[:-1] + [2])):
+                                    WIDTHS[:-1] + [2]),
+                                   ("singular", _singular_residual, WIDTHS),
+                                   ("wide", _ac_residual, WIDE_WIDTHS)):
         n_out = widths[-1]
         reqs = analyze_f_model(f_model, ("x", "t"), n_out)
         layers = neural_net(widths, device=dev, seed=0).layers()
@@ -2744,8 +2775,21 @@ def phase_mixed_kernels(dev) -> dict:
                                  sq32.plan.layer_shapes, compute_dtype=bf16,
                                  **kw)
         plan = sq.plan
-        w = torch.as_tensor(rng.rand(N_POINTS, plan.E) ** 2,
-                            dtype=torch.float32, device=dev)
+        Xk = X
+        if label in ("singular", "wide"):
+            # phase 5's 1/x residual at a ragged N, away from x = 0; its
+            # inputs and the wide case's from streams of their own
+            sub = np.random.RandomState(5 if label == "wide" else 4)
+            lo, hi, n = ((0.5, 1.5, N_POINTS + 1) if label == "singular"
+                         else (-1.0, 1.0, N_POINTS))
+            Xk = torch.as_tensor(np.stack([sub.uniform(lo, hi, n),
+                                           sub.uniform(0, 1, n)], 1),
+                                 dtype=torch.float32, device=dev)
+            w = torch.as_tensor(sub.rand(n, plan.E) ** 2,
+                                dtype=torch.float32, device=dev)
+        else:
+            w = torch.as_tensor(rng.rand(N_POINTS, plan.E) ** 2,
+                                dtype=torch.float32, device=dev)
         fl = [a.detach() if a.ndim == 2 else a.detach().reshape(1, -1)
               for pair in layers for a in pair]
         flat = plan.pack(fl)
@@ -2754,21 +2798,26 @@ def phase_mixed_kernels(dev) -> dict:
             v, d, gw, gX = res
             return [v.reshape(1)] + [t.reshape(-1) for t in d] + [gw, gX]
 
-        got = cm.k3_minimax_bf16(plan, X, w, flat)
+        first = cm.k3_minimax_bf16(plan, Xk, w, flat)
         torch.cuda.synchronize()
-        got = leaves((got[0], plan.unpack(got[1]), got[2], got[3]))
+        got = leaves((first[0], plan.unpack(first[1]), first[2], first[3]))
         bands = [BF16_VALUE_BAND] + [BF16_GRAD_BAND] * (len(got) - 3) \
             + [BF16_VALUE_BAND, BF16_GRAD_BAND]
         res = _flavor_check(f"K3-bf16 {label}", got,
-                            leaves(sq.plain(fl, w, X)),
-                            leaves(sq32.plain(fl, w, X)), bands)
+                            leaves(sq.plain(fl, w, Xk)),
+                            leaves(sq32.plain(fl, w, Xk)), bands)
+        res["route"] = _wb_route(plan, "k3", label, bf16)
+        res["bit_identical"] = _bit_identical_run_to_run(
+            f"K3-bf16 {label}", torch.cat([t.reshape(-1) for t in first]),
+            lambda: torch.cat([t.reshape(-1) for t in
+                               cm.k3_minimax_bf16(plan, Xk, w, flat)]))
         res.update(timed(f"K3-bf16 {label}",
-                         lambda: cm.k3_minimax_bf16(plan, X, w, flat),
-                         cuda_ms(lambda: cm.k3_minimax(plan, X, w, flat)),
-                         cuda_ms(lambda: sq.plain(fl, w, X), reps=5),
-                         cm.flop_count(plan, N_POINTS)["k3"],
-                         cm.byte_count(plan, N_POINTS)["k3"],
-                         cm.tensor_passes(plan, bf16)))
+                         lambda: cm.k3_minimax_bf16(plan, Xk, w, flat),
+                         cuda_ms(lambda: cm.k3_minimax(plan, Xk, w, flat)),
+                         cuda_ms(lambda: sq.plain(fl, w, Xk), reps=5),
+                         cm.flop_count(plan, Xk.shape[0])["k3"],
+                         cm.byte_count(plan, Xk.shape[0])["k3"],
+                         cm.tensor_passes(plan, bf16), res["route"]))
         k3[label] = res
     # comparison launches are not the main path's: restore the counts
     for fn, key in ((ct.k1_forward, "k1"), (ct.k2_backward, "k2"),
@@ -2777,6 +2826,10 @@ def phase_mixed_kernels(dev) -> dict:
                     (cm.k3_minimax_bf16, "k3_bf16")):
         fn.launches = before[key]
     out["ac"]["k1"]["wide"] = out["wide"]["k1"]
+    # K2-bf16's and K3-bf16's mma.sync route at WIDE_WIDTHS (no main path
+    # takes it), as the kernels line reports the f32 and TF32 flavors'
+    out["ac"]["k2"]["old_route"] = out["wide"]["k2"]
+    k3["ac"]["old_route"] = k3["wide"]
     return {"k1_bf16": out["ac"]["k1"], "k2_bf16": out["ac"]["k2"],
             "k3_bf16": k3["ac"]}
 
@@ -3417,15 +3470,19 @@ def _tf32_check(label: str, got: list, emu: list, twin: list,
 
 def _wb_route(plan, kernel: str, label: str, flavor=None) -> str:
     """The route K2's or K3's last launch in a flavor took (``kernel`` "k2"
-    or "k3"; ``flavor`` None, the f32 one, or ``ct.TF32``); it must be the
-    one ``K2_ROUTES``/``K3_ROUTES`` (``K2_TF32_ROUTES``/``K3_TF32_ROUTES``)
-    names for the case."""
+    or "k3"; ``flavor`` None, the f32 one, ``ct.TF32`` or
+    ``torch.bfloat16``); it must be the one ``K2_ROUTES``/``K3_ROUTES``
+    (``K2_TF32_ROUTES``/``K3_TF32_ROUTES``, ``K2_BF16_ROUTES``/
+    ``K3_BF16_ROUTES``) names for the case."""
+    import torch
     from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
     got = (plan.k2_routes if kernel == "k2" else plan.k3_routes)[flavor]
-    tf32 = flavor == ct.TF32
-    want = ((K2_TF32_ROUTES if tf32 else K2_ROUTES) if kernel == "k2" else
-            (K3_TF32_ROUTES if tf32 else K3_ROUTES))[label]
-    name = kernel.upper() + ("-TF32" if tf32 else "")
+    routes, tag = {None: ((K2_ROUTES, K3_ROUTES), ""),
+                   ct.TF32: ((K2_TF32_ROUTES, K3_TF32_ROUTES), "-TF32"),
+                   torch.bfloat16: ((K2_BF16_ROUTES, K3_BF16_ROUTES),
+                                    "-bf16")}[flavor]
+    want = routes[kernel == "k3"][label]
+    name = kernel.upper() + tag
     print(f"[route {name} {label}] {got} ({ROUTE_SOURCES[(kernel, got)]})",
           flush=True)
     if got != want:
@@ -3995,8 +4052,9 @@ def _held_k3(label: str, solver) -> dict:
     per-point λ) against the plain flavor on the same card tensors: the
     value, every dW/db, gw and its per-point λ gradient 2λ·gw, and gX,
     scale-relative, at K3_RTOL (the bf16 flavor: within the bf16 bands and
-    nearer the plain bf16 flavor than the f32 one).  The launch is not the
-    main path's: the counts are put back."""
+    nearer the plain bf16 flavor than the f32 one, on the route
+    K3_BF16_ROUTES names for "dist").  The launch is not the main path's:
+    the counts are put back."""
     import torch
     from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
     from tensordiffeq_tpu_torch.ops.minimax import build_minimax_sq_fn
@@ -4010,6 +4068,7 @@ def _held_k3(label: str, solver) -> dict:
     w = (lam * lam).reshape(-1, 1)
     v, dflat, gw, gX = cm.k3_minimax_bf16(plan, X, w, plan.pack(fl))
     torch.cuda.synchronize()
+    _wb_route(plan, "k3", "dist", torch.bfloat16)
     got = _k3_leaves(lam, v, plan.unpack(dflat), gw, gX)
     sq32 = build_minimax_sq_fn(
         solver.f_model, solver.domain.vars, solver.n_out,
@@ -6774,13 +6833,13 @@ def kernels_line(meas: dict, paths: dict) -> str:
             **({"k1_route": m["route"]}
                if "route" in m and key.startswith("k1") else {}),
             # K2's and K3's route at the slice's shape (the wgmma route of
-            # csrc/wg_backward.cuh; "k2_route"/"k3_route" for the f32
-            # flavor, "tf32_route" for the TF32 one), their mma.sync route
-            # at WIDE_WIDTHS (held and timed in phase 16(a); no main path
-            # takes it), and the flavor's products' torch.matmul time (the
-            # yardstick)
-            **({("tf32_route" if key.endswith("tf32") else f"{key}_route"):
-                m["route"],
+            # csrc/wg_backward.cuh; "k2_route"/"k3_route" for the f32 and
+            # bf16 flavors, "tf32_route" for the TF32 one), their mma.sync
+            # route at WIDE_WIDTHS (held and timed in phases 14 and 16(a);
+            # no main path takes it), and the flavor's products'
+            # torch.matmul time (the yardstick)
+            **({("tf32_route" if key.endswith("tf32") else
+                 f"{key[:2]}_route"): m["route"],
                 "yardstick_ms": m.get("yardstick_ms"),
                 "old_route": {
                     "route": m["old_route"]["route"],
@@ -6841,6 +6900,10 @@ def main():
                     help="build the kernels and run the yardstick and phase "
                     "16(a) (the TF32 kernels, and the f32 K2 and K3, on both "
                     "routes) alone; prints no result line")
+    ap.add_argument("--bf16-only", action="store_true",
+                    help="build the kernels and run the yardstick and phase "
+                    "14(a) (the bf16 kernels, on both routes) alone; prints "
+                    "no result line")
     ap.add_argument("--fleet-child", nargs=2, metavar=("WORK", "OUT"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--dist-worker", nargs=4,
@@ -6918,6 +6981,11 @@ def main():
         phase_tf32_kernels(dev)
         print(card, flush=True)
         return
+    if args.bf16_only:
+        phase_yardstick(dev)
+        phase_mixed_kernels(dev)
+        print(card, flush=True)
+        return
     meas = phase_kernels(dev)
     meas["k3"] = phase_k3(dev)
     yard = phase_yardstick(dev)
@@ -6949,6 +7017,8 @@ def main():
     for key, wide in tf32_meas.pop("f32_wide").items():
         meas[key]["old_route"] = wide
         meas[key]["yardstick_ms"] = yard["f32"]["nine_ms"]
+    for key in ("k2_bf16", "k3_bf16"):
+        meas[key]["yardstick_ms"] = yard["bf16"]["nine_ms"]
     meas.update(tf32_meas)
     paths.update(option_paths)
     paths.update(phase_dist(card))

@@ -1,7 +1,7 @@
 """Where K1, K2 and K3 spend their time, phase by phase, on one NVIDIA GPU.
 
     python3 scripts/torch_phase_split.py [--reps 5] [--tree DIR] \
-        [--flavor all|f32|tf32]
+        [--flavor all|f32|tf32|bf16]
 
 Run from the root of a checkout; ``--tree`` (default: this script's
 checkout) names the checkout whose ``tensordiffeq_tpu_torch`` package and
@@ -15,10 +15,10 @@ and K3 at the AC slice (K3 also on the coupled system and the ``1/x``
 residual at N = 50,001), then their bf16 flavors (K2-bf16, K3-bf16 on the
 AC set and the coupled system) and K2-TF32, K3-TF32 at the AC slice, each
 on the route its shape takes in the checkout (the wgmma route of
-``wg_backward.cuh`` for the f32 and TF32 flavors, or in an older checkout
-the mma.sync kernels: run ``--tree`` on one for the split before it).
-``--only k1`` splits K1's flavors alone; ``--flavor f32`` (``tf32``) splits
-K2 and K3 at the AC slice in that flavor alone.
+``wg_backward.cuh``, or in an older checkout the mma.sync kernels: run
+``--tree`` on one for the split before it).  ``--only k1`` splits K1's
+flavors alone; ``--flavor f32`` (``tf32``, ``bf16``) splits K2 and K3 at
+the AC slice in that flavor alone.
 
 The instrumentation: every device function named in ``PHASES`` gets a
 ``clock64()`` stamp at its entry and at each exit, and thread 0 of each
@@ -111,6 +111,10 @@ PHASES = {
     # the f32 flavor's dW: its operands' lo parts made in place between
     # passes (wb_dw3's products and rewrite count as above)
     "wb_lo_in_place": str(P["dW lo planes (in place)"]),
+    # the bf16 flavor's dW: H and the cotangent's three pieces as bf16
+    # planes (the pieces' writes count as the cotangent split)
+    "wb_dw_pieces": str(P["dW (+ partials)"]),
+    "wb_put_pieces": str(P["cotangent split"]),
 }
 # functions a checkout from before the bf16 flavor's own route, or from
 # before K1's wgmma route, lacks
@@ -232,7 +236,7 @@ def main():
                     help="the checkout whose kernels are split")
     ap.add_argument("--only", choices=("k1",), default=None,
                     help="split K1's flavors alone")
-    ap.add_argument("--flavor", choices=("all", "f32", "tf32"),
+    ap.add_argument("--flavor", choices=("all", "f32", "tf32", "bf16"),
                     default="all",
                     help="split K2 and K3 at the AC slice in this flavor "
                     "alone (default: every kernel and flavor)")
@@ -338,20 +342,21 @@ def main():
         return
     g = torch.as_tensor(rng.randn(plan.C, n, 1), dtype=torch.float32,
                         device=dev)
-    # the f32 and TF32 flavors on the route their shape takes: the wgmma
-    # route (wg_backward.cuh's instances) where the checkout has it, else
-    # the mma.sync kernels
+    # every flavor on the route its shape takes: the wgmma route
+    # (wg_backward.cuh's instances) where the checkout has it, else the
+    # mma.sync kernels
     k2_units = ("taylor_table",) + tuple(f"taylor_bwd_wg_{f}_{n}"
-                                         for f in ("f32", "tf32")
+                                         for f in ("f32", "tf32", "bf16")
                                          for n in (64, 128))
     k3_units = ("minimax_step",) + tuple(f"minimax_wg_{f}_{n}"
-                                         for f in ("f32", "tf32")
+                                         for f in ("f32", "tf32", "bf16")
                                          for n in (64, 128))
     f32, tf32 = args.flavor in ("all", "f32"), args.flavor in ("all", "tf32")
+    bf16 = args.flavor in ("all", "bf16")
     if f32:
         split("K2 ac", k2_units, lambda: ct.k2_backward(plan, X, flat, g))
-    if args.flavor == "all":
-        split("K2-bf16 ac", "taylor_table",
+    if bf16:
+        split("K2-bf16 ac", k2_units,
               lambda: ct.k2_backward_bf16(plan, X, flat, g))
     if tf32:
         split("K2-TF32 ac", k2_units,
@@ -382,8 +387,8 @@ def main():
         if label == "ac" and tf32:
             split("K3-TF32 ac", k3_units,
                   lambda: cm.k3_minimax_tf32(sq.plan, Xk, w, fl))
-        if label != "singular" and args.flavor == "all":
-            split(f"K3-bf16 {label}", "minimax_step",
+        if label != "singular" and bf16:
+            split(f"K3-bf16 {label}", k3_units,
                   lambda: cm.k3_minimax_bf16(sq.plan, Xk, w, fl))
     print(card_line(), flush=True)
 

@@ -1,8 +1,8 @@
-"""K2 and K3 in the TF32 (or f32) flavor at the Allen-Cahn slice of one
-checkout, on one NVIDIA GPU: the ms of each by CUDA events over 20
+"""K2 and K3 in the TF32 (or f32, or bf16) flavor at the Allen-Cahn slice
+of one checkout, on one NVIDIA GPU: the ms of each by CUDA events over 20
 launches, three times.
 
-    python3 scripts/torch_tf32_time.py --tree DIR [--flavor tf32|f32]
+    python3 scripts/torch_tf32_time.py --tree DIR [--flavor tf32|f32|bf16]
 
 Run from the root of a checkout; ``--tree`` (default: this script's
 checkout) names the checkout whose ``tensordiffeq_tpu_torch`` package and
@@ -11,7 +11,9 @@ copies of one with a kernel constant edited) in turns.  The inputs are
 ``chip_smoke.py`` phase 16(a)'s: N = 50,000 points, the net 2-128x4-1 from
 seed 0, the Allen-Cahn residual, per-point weights and table cotangents
 from ``numpy.random.RandomState(2)``.  ``--flavor f32`` times the 3xTF32
-flavor (``k2_backward``, ``k3_minimax``) instead of the single-pass one.
+flavor (``k2_backward``, ``k3_minimax``) instead of the single-pass one,
+``--flavor bf16`` the bf16-operand flavor (``k2_backward_bf16``,
+``k3_minimax_bf16``).
 Prints one line: the card, the checkout, the flavor, the routes the
 kernels took and the three ms of each.
 """
@@ -28,7 +30,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=ROOT,
                     help="the checkout whose kernels are timed")
-    ap.add_argument("--flavor", choices=("tf32", "f32"), default="tf32",
+    ap.add_argument("--flavor", choices=("tf32", "f32", "bf16"),
+                    default="tf32",
                     help="the kernels' flavor (default: the TF32 one)")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
@@ -64,10 +67,11 @@ def main():
     fl = [a.detach() if a.ndim == 2 else a.detach().reshape(1, -1)
           for pair in layers for a in pair]
     kflat = sq.plan.pack(fl)
-    tf32 = args.flavor == "tf32"
-    k2_fn = ct.k2_backward_tf32 if tf32 else ct.k2_backward
-    k3_fn = cm.k3_minimax_tf32 if tf32 else cm.k3_minimax
-    key, tag = (ct.TF32, "-TF32") if tf32 else (None, "")
+    k2_fn, k3_fn, key, tag = {
+        "tf32": (ct.k2_backward_tf32, cm.k3_minimax_tf32, ct.TF32, "-TF32"),
+        "f32": (ct.k2_backward, cm.k3_minimax, None, ""),
+        "bf16": (ct.k2_backward_bf16, cm.k3_minimax_bf16, torch.bfloat16,
+                 "-bf16")}[args.flavor]
     k2 = [cs.cuda_ms(lambda: k2_fn(plan, X, flat, g)) for _ in range(3)]
     k3 = [cs.cuda_ms(lambda: k3_fn(sq.plan, X, w, kflat)) for _ in range(3)]
     # an older checkout records no route for a flavor it had one route for

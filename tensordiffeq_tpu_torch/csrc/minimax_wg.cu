@@ -1,9 +1,9 @@
-// The C interface of K3's wgmma route, in its f32 (3xTF32) and TF32
+// The C interface of K3's wgmma route, in its f32 (3xTF32), TF32 and bf16
 // flavors (wg_backward.cuh has the kernel and its note;
-// minimax_wg_{f32,tf32}_{64,128}.cu the instances; its plan is
+// minimax_wg_{f32,tf32,bf16}_{64,128}.cu the instances; its plan is
 // taylor_bwd_wg.cu's tdq_wb_plan).  Loaded with ctypes; the descriptors and
 // the tape as in minimax_step.cu's C interface, the flavor as
-// taylor_common.cuh's FL_F32 / FL_TF32.
+// taylor_common.cuh's FL_F32 / FL_TF32 / FL_BF16.
 #include "wg_backward.cuh"
 
 // K3 on this route in a flavor at the plan plan_h: the weight planes into
@@ -28,6 +28,7 @@ extern "C" int tdq_minimax_wg(const float* X, const float* w,
   int (*launch)(WB_ARGS) = nullptr;
   if (flavor == FL_F32) launch = wp.NP == 64 ? k3wb_f32_64 : k3wb_f32_128;
   if (flavor == FL_TF32) launch = wp.NP == 64 ? k3wb_tf32_64 : k3wb_tf32_128;
+  if (flavor == FL_BF16) launch = wp.NP == 64 ? k3wb_bf16_64 : k3wb_bf16_128;
   if (launch == nullptr || (wp.NP != 64 && wp.NP != 128))
     return (int)cudaErrorInvalidValue;
   return launch(X, w, prm, nullptr, gw, gX, part, ws, out, N, net, s, &tp,

@@ -1,13 +1,13 @@
-// The C interface of K2's wgmma route, in its f32 (3xTF32) and TF32
+// The C interface of K2's wgmma route, in its f32 (3xTF32), TF32 and bf16
 // flavors, and of the route's plan (wg_backward.cuh has the kernels, their
-// note and the plan; taylor_bwd_wg_{f32,tf32}_{64,128}.cu the instances).
-// Loaded with ctypes; the descriptors as in taylor_common.cuh, the flavor
-// as taylor_common.cuh's FL_F32 / FL_TF32.
+// note and the plan; taylor_bwd_wg_{f32,tf32,bf16}_{64,128}.cu the
+// instances).  Loaded with ctypes; the descriptors as in taylor_common.cuh,
+// the flavor as taylor_common.cuh's FL_F32 / FL_TF32 / FL_BF16.
 #include "wg_backward.cuh"
 
 // The route's plan (K2's and K3's alike) in a flavor into out[0 ..
 // WB_PLAN_INTS) (WbPlan's fields in order); returns 1, or 0 where the
-// shape or the flavor is the mma.sync route's.
+// shape is the mma.sync route's.
 extern "C" int tdq_wb_plan(const int* net_h, const int* sched_h, int flavor,
                            int smem_optin, int n_sm, int N, int* out) {
   WbPlan wp;
@@ -44,6 +44,7 @@ extern "C" int tdq_taylor_bwd_wg(const float* X, const float* prm,
   int (*launch)(WB_ARGS) = nullptr;
   if (flavor == FL_F32) launch = wp.NP == 64 ? k2wb_f32_64 : k2wb_f32_128;
   if (flavor == FL_TF32) launch = wp.NP == 64 ? k2wb_tf32_64 : k2wb_tf32_128;
+  if (flavor == FL_BF16) launch = wp.NP == 64 ? k2wb_bf16_64 : k2wb_bf16_128;
   if (launch == nullptr || (wp.NP != 64 && wp.NP != 128))
     return (int)cudaErrorInvalidValue;
   return launch(X, nullptr, prm, gtab, nullptr, dX, part, ws, grad, N, net,

@@ -1,22 +1,23 @@
-// K2 and K3 on Hopper's warpgroup products, in two flavors: FL_F32 (the
-// 3xTF32 products of precision HIGHEST, the default) and FL_TF32 (one TF32
-// pass, precision DEFAULT).  The route for hidden widths up to 128, up to 8
+// K2 and K3 on Hopper's warpgroup products, in three flavors: FL_F32 (the
+// 3xTF32 products of precision HIGHEST, the default), FL_TF32 (one TF32
+// pass, precision DEFAULT) and FL_BF16 (the mixed precision of
+// compute_dtype=bfloat16).  The route for hidden widths up to 128, up to 8
 // channels and up to 16 inputs and outputs (K1's wgmma route's shapes,
 // wg_plan in taylor_fwd_wg.cuh), the device code; taylor_bwd_wg.cu and
-// minimax_wg.cu hold the C interfaces, taylor_bwd_wg_{f32,tf32}_{64,128}.cu
-// and minimax_wg_{f32,tf32}_{64,128}.cu the instances.
+// minimax_wg.cu hold the C interfaces, taylor_bwd_wg_{f32,tf32,bf16}_{64,
+// 128}.cu and minimax_wg_{f32,tf32,bf16}_{64,128}.cu the instances.
 //
 // Replaces, for those shapes, the JAX package's ops/pallas_taylor.py::
 // bwd_kernel (pallas_call at :171) as taylor_table.cu's taylor_bwd_kernel
 // does, and ops/pallas_minimax.py::build_minimax_sq_fn's kernel
 // (pallas_call at :259) as minimax_step.cu's minimax_step_kernel does;
-// those stay the route for every other shape and for the bf16 flavor (the
-// host chooses by shape and flavor, ops/cuda_taylor.py::wb_plan and
-// wb_plan below, which agree before a flavor's first launch).  It computes
-// what they compute: K2 dW/db and dX from the table cotangents; K3 the
-// value sum_e sum_p w f_e^2, dW/db, gw = f^2 and gX through the residual
-// tape.  The interfaces, the packed layouts and the partial slots are
-// theirs, so reduce_partials sums the slots after it as after them.
+// those stay the route for every other shape (the host chooses by shape,
+// ops/cuda_taylor.py::wb_plan and wb_plan below, which agree before a
+// flavor's first launch).  It computes what they compute: K2 dW/db and dX
+// from the table cotangents; K3 the value sum_e sum_p w f_e^2, dW/db, gw =
+// f^2 and gX through the residual tape.  The interfaces, the packed
+// layouts and the partial slots are theirs, so reduce_partials sums the
+// slots after it as after them.
 //
 // What bounds it.  Operations: the nine 128-wide products of a tile on the
 // AC slice (three forward, three dH, three dW; 58.98 GFLOP at N = 50,000,
@@ -83,6 +84,39 @@
 //     hidden products (layer 0, the head and its cotangent products, the
 //     tape, the bias sums) is IEEE f32 on the CUDA cores, reading the f32
 //     values of H^T and dP^T, as in the mma.sync f32 kernels.
+//     FL_BF16: the rounding points of taylor_common.cuh's bf16 flavor (the
+//     mma.sync kernels', which stay its referee with the JAX package's
+//     taylor_derivatives(compute_dtype=bfloat16)) on bf16 wgmma
+//     (m64nNk16).  The forward: one pass a k16 step, A the layer's input
+//     rounded to nearest even as it is packed from the registers
+//     (wg_chunk<FL_BF16>, K1-bf16's chain), B W^T in bf16 chunks of KC =
+//     64 k rows (16 KB at NP = 128; wb_kc).  dH = dP W^T: A the f32
+//     cotangent cut in the registers into split_pieces' three bf16 pieces
+//     (hi = rn(x), mid = rn(x - hi), lo = rn(x - hi - mid): their sum is x),
+//     three passes a k16 step, smallest first (wb_chunk_pieces, two k steps
+//     of pieces at a time: 24 registers), B W in bf16; dH then rounded to
+//     bf16 per element, as the reference's bf16 plane holds it.  dW = H^T
+//     dP: both operands in shared memory, H_l as one bf16 plane and dP_l's
+//     three pieces as planes (wb_put_pieces; each warpgroup's half of the
+//     columns of all three together, so that its dW block's staging for the
+//     bulk adds lies over its own pieces), three passes (lo, mid, hi:
+//     wb_dw_pieces).  H (32 KB at NP = 128) and the pieces (96 KB) take the
+//     bytes of the f32 flavor's H^T and dP^T, so the ring's 16 KB stages
+//     get the rest (five at the AC slice) and nothing is made in place.
+//     wgmma reads 16-bit operands from shared memory MN-major too (the
+//     instruction's transpose bits), so these planes are written MN-major
+//     (wb_mn_offset): a lane's two neighbouring columns are one 4-byte
+//     store, a warp's stores of a register pair one 128-byte line.  Against
+//     K-major writes (2-byte stores, tf32's layout) in turns on the H100
+//     (scripts/torch_tf32_time.py --flavor bf16 on both): K3-bf16 1.554-
+//     1.582 against 1.600-1.605 ms and K2-bf16 1.353-1.372 against
+//     1.428-1.434, and at CP = 4 no spill (K-major: 20-32 B of spill
+//     stores).  Layer 0, the head and its cotangent products, the tape
+//     and the bias sums are f32 on the CUDA cores, their operands rounded as
+//     the reference rounds them (X, W_0, the head's input and W; not the
+//     cotangents); dX's network share and dH at the head rounded to bf16;
+//     each dW rounded once, after reduce_partials<true>'s slot-ordered sum;
+//     db not.
 //   * stages in the workspace only Q_0 .. Q_{L-2}, each hidden layer's
 //     pre-activation channels with the primal's tanh in place of the
 //     primal, as the activation pass holds them between its butterflies:
@@ -115,8 +149,9 @@
 //     products, layer 0 and the bias sums stay SIMT, as in the mma.sync
 //     route; K3's epilogue interprets the tape one thread per point
 //     (minimax_tape.cuh), rows past N predicated.
-// Shared memory at the AC slice (NP = 128, C = 4, d = 2, n_out = 1), both
-// flavors: a ring of two 32 KB weight chunks (65,536), the operands H^T
+// Shared memory at the AC slice (NP = 128, C = 4, d = 2, n_out = 1), the
+// f32 and TF32 flavors: a ring of two 32 KB weight chunks (65,536), the
+// operands H^T
 // and dP^T (65,536 each), the table rows (the bias partials in the reverse
 // sweep, 4,096), X's rows (1,024), the small operands (3,648), the value's
 // warp sums (32), the mbarriers (128): 205,536 bytes of the H100's
@@ -125,11 +160,13 @@
 // stages and the fixed 140,000: 271,072), and dW's lo planes of H^T and
 // dP^T another 131,072 (at KC = 32: 336,608); so KC = 32, and dW's lo
 // planes are made in place over H^T and dP^T (three passes, two more
-// block barriers and two warpgroup barriers a hidden layer).
+// block barriers and two warpgroup barriers a hidden layer).  The bf16
+// flavor: five 16 KB stages (81,920) and the same fixed 140,000: 221,920.
 // Registers (nvcc -Xptxas -v, CUDA 12.8): TF32 NP = 128 180-255 (255 at
 // CP = 4, no spills; 8 B of spill stores at CP = 8), NP = 64 114-207, no
-// spills; f32: PERF.md section 6.  A TF32 kernel is 7-25 thousand SASS
-// instructions (14,112 for K3 and 12,184 for K2 at NP = 128, CP = 4).
+// spills; f32: PERF.md section 6; bf16 NP = 128 247-255, no spill at CP <=
+// 4 (40-96 B of spill stores at CP = 8).  A TF32 kernel is 7-25 thousand
+// SASS instructions (14,112 for K3 and 12,184 for K2 at NP = 128, CP = 4).
 // The products of a tile are summed in the tensor cores' order and its
 // sums over rows in fixed orders, so a point's contribution is the same
 // bit for bit run to run, but not the same sum as the mma.sync route's.
@@ -143,7 +180,9 @@
 #define WB_THREADS 256    // the block: the two warpgroups
 
 // k rows of a weight chunk: 64 in the TF32 flavor (the hi plane alone), 32
-// in the f32 flavor (the hi and lo planes: the same bytes a stage)
+// in the f32 flavor (the hi and lo planes: the same bytes a stage), 64 in
+// the bf16 flavor (16 KB a stage at NP = 128: dH's three pieces a k step
+// take their A registers a batch of k steps at a time, wb_chunk_pieces)
 static __host__ __device__ constexpr int wb_kc(int flavor) {
   return flavor == FL_F32 ? 32 : 64;
 }
@@ -193,14 +232,14 @@ static __host__ __device__ __forceinline__ int wb_fixed_bytes(const Net& net,
          2 * WG_MAXS * 8;
 }
 
-// The route's plan for a net, schedule, flavor (FL_F32 or FL_TF32) and N
-// on a card with smem_optin bytes of shared memory a block and n_sm SMs; 0
-// where the shape is the mma.sync route's: K1's route's conditions
-// (wg_plan), and a ring of at least two stages.
+// The route's plan for a net, schedule, flavor (FL_F32, FL_TF32 or
+// FL_BF16) and N on a card with smem_optin bytes of shared memory a block
+// and n_sm SMs; 0 where the shape is the mma.sync route's: K1's route's
+// conditions (wg_plan), and a ring of at least two stages.
 static inline int wb_plan(const Net& net, const Sched& s, int flavor,
                           int smem_optin, int n_sm, int N, WbPlan* p) {
   const int L = net.L, C = s.C;
-  if (flavor != FL_F32 && flavor != FL_TF32) return 0;
+  if (flavor != FL_F32 && flavor != FL_TF32 && flavor != FL_BF16) return 0;
   int width = 0;
   for (int l = 0; l + 1 < L; ++l) width = imax(width, net.w_out[l]);
   if (C > WG_MAXC || width > 128 || net.d > WG_MAXD ||
@@ -211,7 +250,8 @@ static inline int wb_plan(const Net& net, const Sched& s, int flavor,
   const int NP = width <= 64 ? 64 : 128;
   const int KC = wb_kc(flavor);
   const int P = 2 * (L - 2) * (NP / KC);
-  const int stage = NP * KC * (flavor == FL_F32 ? 8 : 4);
+  const int stage =
+      NP * KC * (flavor == FL_F32 ? 8 : (flavor == FL_TF32 ? 4 : 2));
   const int fixed = wb_fixed_bytes(net, NP);
   int S = 0;
   if (P > 0) {
@@ -235,7 +275,9 @@ static inline int wb_plan(const Net& net, const Sched& s, int flavor,
 // K1's chunks of the flavor), then the backward planes of layers L-2 .. 1
 // (row i, k the output: W as it lies), zero past each layer's shape.  FL_TF32:
 // W rounded to TF32 (cvt.rna); FL_F32: the hi plane, then the lo plane, of
-// split_tf32 (K1's f32 chunks).
+// split_tf32 (K1's f32 chunks); FL_BF16: W rounded to bf16 (to nearest
+// even), 8 to a core-matrix row and the k rows in their natural order
+// (K1-bf16's chunks).
 template <int FL>
 static __global__ void prep_wb_weights(const float* __restrict__ prm,
                                        float* __restrict__ out, Net net,
@@ -245,7 +287,7 @@ static __global__ void prep_wb_weights(const float* __restrict__ prm,
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += gridDim.x * blockDim.x) {
     const int q = e / per, r = e % per, n = r / KC, kq = r % KC;
-    const int k = 8 * (kq / 8) + wg_kslot(kq % 8);
+    const int k = FL == FL_BF16 ? kq : 8 * (kq / 8) + wg_kslot(kq % 8);
     float v;
     if (q < half) {
       const int l = 1 + q / nch, kk = (q % nch) * KC + k;
@@ -265,6 +307,9 @@ static __global__ void prep_wb_weights(const float* __restrict__ prm,
       float* chunk = out + (size_t)q * 2 * per;
       chunk[wg_cm_offset(n, kq, KC, 4)] = __uint_as_float(hi);
       chunk[per + wg_cm_offset(n, kq, KC, 4)] = __uint_as_float(lo);
+    } else if constexpr (FL == FL_BF16) {
+      bf16* chunk = reinterpret_cast<bf16*>(out) + (size_t)q * per;
+      chunk[wg_cm_offset(n, kq, KC, 8)] = __float2bfloat16_rn(v);
     } else {
       out[(size_t)q * per + wg_cm_offset(n, kq, KC, 4)] = tf32r(v);
     }
@@ -357,11 +402,22 @@ static __device__ __forceinline__ void wb_load_p(float (&a)[NP / 2],
   }
 }
 
+// Element (n, r) of a bf16 tile operand (NP features x the tile's 128 rows,
+// the rows the product's K) laid out MN-major for wgmma (no swizzle): core
+// matrices of 8 rows r by 8 features n (16 bytes a row, the features
+// contiguous), LBO = 128 bytes along r, SBO = 2048 along n; the bf16
+// flavor's dW operands and the head's input.
+static __device__ __forceinline__ int wb_mn_offset(int n, int r) {
+  return (n >> 3) * (WB_ROWS / 8) * 64 + (r >> 3) * 64 + (r & 7) * 8 + (n & 7);
+}
+
 // The lane's two tile rows (row0, row0 + 8) of a (rows x NP) operand, the
 // accumulator layout, into buf transposed and K-major: feature n's 128 tile
 // rows r at wg_cm_offset(n, r, 128, 4), the operand of a product over the
 // tile's rows: rounded to TF32 (FL_TF32), or as it is (FL_F32: the
-// tensor cores read its truncated hi part, wb_dw3 its lo part).
+// tensor cores read its truncated hi part, wb_dw3 its lo part); FL_BF16:
+// rounded to bf16 into a bf16 plane, MN-major (wb_mn_offset), a register
+// pair (columns 2t, 2t + 1) a store.
 template <int FL, int NP>
 static __device__ __forceinline__ void wb_put_kmajor(const float (&a)[NP / 2],
                                                      float* buf, int row0,
@@ -369,8 +425,64 @@ static __device__ __forceinline__ void wb_put_kmajor(const float (&a)[NP / 2],
 #pragma unroll
   for (int i = 0; i < NP / 2; ++i) {
     const int r = row0 + ((i & 2) ? 8 : 0);
-    buf[wg_cm_offset(acc_col(i, t), r, WB_ROWS, 4)] = opnd<FL>(a[i]);
+    if constexpr (FL == FL_BF16) {
+      if ((i & 1) == 0)
+        *reinterpret_cast<__nv_bfloat162*>(
+            reinterpret_cast<bf16*>(buf) + wb_mn_offset(acc_col(i, t), r)) =
+            __floats2bfloat162_rn(a[i], a[i + 1]);
+    } else {
+      buf[wg_cm_offset(acc_col(i, t), r, WB_ROWS, 4)] = opnd<FL>(a[i]);
+    }
   }
+}
+
+// split_pieces' three bf16 pieces of the pair (x0, x1): p[2] = hi = rn(x),
+// p[1] = mid = rn(x - hi), p[0] = lo = rn(x - hi - mid) (the subtractions
+// are exact, the three sum to x).
+static __device__ __forceinline__ void wb_pieces2(float x0, float x1,
+                                                  __nv_bfloat162 (&p)[3]) {
+  p[2] = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(p[2]);
+  const float r0 = x0 - hf.x, r1 = x1 - hf.y;
+  p[1] = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(p[1]);
+  p[0] = __floats2bfloat162_rn(r0 - mf.x, r1 - mf.y);
+}
+
+// The bf16 flavor's dW operand dP_l: the lane's two tile rows of the f32
+// cotangent cut into split_pieces' three bf16 pieces (wb_pieces2), each
+// MN-major as wb_put_kmajor<FL_BF16> writes, in planes of NP/2 columns: the
+// columns of warpgroup half h (wb_dw_pieces' B) at pc + (3 h + p) NP/2 x
+// 128, piece p = 0 lo, 1 mid, 2 hi, so a warpgroup's three planes lie
+// together.
+template <int NP>
+static __device__ __forceinline__ void wb_put_pieces(const float (&a)[NP / 2],
+                                                     bf16* pc, int row0,
+                                                     int t) {
+  constexpr int H2 = NP / 2, PL = H2 * WB_ROWS;
+#pragma unroll
+  for (int i = 0; i < NP / 2; i += 2) {
+    const int r = row0 + ((i & 2) ? 8 : 0), n = acc_col(i, t);
+    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(
+        pc + (n / H2) * 3 * PL + wb_mn_offset(n % H2, r));
+    __nv_bfloat162 v[3];
+    wb_pieces2(a[i], a[i + 1], v);
+    p[0] = v[0];
+    p[PL / 2] = v[1];
+    p[PL] = v[2];
+  }
+}
+
+// Element (i, r) of the head operand Ht as the flavor holds it: f32,
+// K-major (rounded to TF32 in the TF32 flavor), or the bf16 flavor's bf16
+// plane, MN-major.
+template <int FL>
+static __device__ __forceinline__ float wb_ht(const float* Ht, int i, int r) {
+  if constexpr (FL == FL_BF16)
+    return __bfloat162float(
+        reinterpret_cast<const bf16*>(Ht)[wb_mn_offset(i, r)]);
+  else
+    return Ht[wg_cm_offset(i, r, WB_ROWS, 4)];
 }
 
 // y[k] += v for a channel index k that is the same in every lane (selects,
@@ -776,6 +888,58 @@ static __device__ __forceinline__ void wb_chunk3(float (&d)[NP / 2],
   for (int i = 0; i < NP / 2; ++i) wg_keep(d[i]);
 }
 
+// One bf16 weight chunk's dH products into d (first: d afresh), issued
+// and waited for: A the f32 cotangent h (its columns chunk*KC ..) cut in
+// the registers into split_pieces' three bf16 pieces, a k16 step's pairs
+// packed as wg_chunk<FL_BF16> packs them, then per k16 step the passes
+// lo, mid, hi (the smallest first, as taylor_common.cuh's bmma_steps takes
+// them) against the chunk's B.  SB k steps of pieces at a time (12
+// registers a step), each batch waited for before the next is packed (SB =
+// 4, one batch a chunk, ran no faster and spilled more).
+template <int NP, int KC>
+static __device__ __forceinline__ void wb_chunk_pieces(
+    float (&d)[NP / 2], const float (&h)[NP / 2], int chunk, unsigned base,
+    bool first) {
+  constexpr int S16 = KC / 16, SB = 2;
+  constexpr unsigned sbo = (KC / 8) * 128;
+  static_assert(S16 % SB == 0, "whole batches of k steps");
+#pragma unroll
+  for (int b = 0; b < S16; b += SB) {
+    unsigned a[SB][3][4];
+#pragma unroll
+    for (int s = 0; s < SB; ++s) {
+      const int j = chunk * S16 + b + s;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        __nv_bfloat162 v[3];
+        wb_pieces2(h[8 * j + 2 * q], h[8 * j + 2 * q + 1], v);
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+          a[s][p][q] = *reinterpret_cast<const unsigned*>(&v[p]);
+      }
+    }
+    wg_fence();
+#pragma unroll
+    for (int s = 0; s < SB; ++s) {
+      const uint64_t bd = wg_desc(base + 256 * (b + s), 128, sbo);
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        WgMma<true, NP>::run(d, a[s][p], bd,
+                             (first && b + s == 0 && p == 0) ? 0 : 1);
+    }
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int s = 0; s < SB; ++s)
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) wg_keep(a[s][p][q]);
+  }
+#pragma unroll
+  for (int i = 0; i < NP / 2; ++i) wg_keep(d[i]);
+}
+
 // Hidden layer l's forward product in place (K1's route's k1w_products on
 // this ring): acc (the layer's input) becomes H W_l + b_l, the bias on
 // primal rows.  FL_TF32: one pass a k step (wg_chunk).  FL_F32: three on
@@ -817,8 +981,9 @@ static __device__ __forceinline__ void wb_products(float (&acc)[NP / 2],
 
 // dH_l = dP_l W_l^T into out: A the cotangent registers (rounded to TF32
 // as they are packed, wg_chunk; or split into hi and lo in the f32 flavor,
-// wb_chunk3, into the one accumulator), B layer l's backward plane, chunk
-// by chunk through the ring.
+// wb_chunk3, into the one accumulator; or cut into three bf16 pieces in
+// the bf16 flavor, wb_chunk_pieces, and the sums rounded to bf16), B layer
+// l's backward plane, chunk by chunk through the ring.
 template <int FL, int NP>
 static __device__ __forceinline__ void wb_dh(float (&out)[NP / 2],
                                              const float (&in)[NP / 2],
@@ -829,10 +994,16 @@ static __device__ __forceinline__ void wb_dh(float (&out)[NP / 2],
   for (int h = 0; h < NP / KC; ++h) {
     if constexpr (FL == FL_F32)
       wb_chunk3<NP, KC>(out, in, h, wb_acquire(r, chunk), h == 0);
+    else if constexpr (FL == FL_BF16)
+      wb_chunk_pieces<NP, KC>(out, in, h, wb_acquire(r, chunk), h == 0);
     else
       wg_chunk<FL, NP, KC>(out, in, h, wb_acquire(r, chunk), h == 0);
     wb_release(r, chunk, lane);
     ++chunk;
+  }
+  if constexpr (FL == FL_BF16) {
+#pragma unroll
+    for (int i = 0; i < NP / 2; ++i) out[i] = bf16r(out[i]);
   }
 }
 
@@ -897,6 +1068,93 @@ static __device__ __forceinline__ void wb_dw3(
   wb_dw_product<NP, true>(acc, Ht, dPt, wg);
 }
 
+// d (+)= A B over one bf16 k16 step with both operands in shared memory
+// (m64nNk16), both MN-major (the instruction's transpose bits 1,
+// wb_mn_offset's layout): the bf16 flavor's dW.  N = 32 or 64.
+template <int N>
+struct WgMmaSSbf;
+
+template <>
+struct WgMmaSSbf<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgMmaSSbf<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+// dW_l = H_l^T dP_l in the bf16 flavor over the tile's 128 rows into acc:
+// warpgroup wg takes the columns wg*NP/2 .., all NP rows; A the bf16 plane
+// Hb (wb_put_kmajor<FL_BF16>), B its three piece planes at pc
+// (wb_put_pieces), both MN-major (a k16 step two core matrices along the
+// rows, 256 bytes), three passes lo, mid, hi over every k16 step.  A bf16
+// product is exact in f32, so the three are H^T dP up to the order of the
+// sums.
+template <int NP>
+static __device__ __forceinline__ void wb_dw_pieces(
+    float (&acc)[NP / 64][NP / 4], const bf16* Hb, const bf16* pc, int wg) {
+  constexpr int H2 = NP / 2, MT = NP / 64, NR = NP / 4;
+  constexpr unsigned SBO = (WB_ROWS / 8) * 128;  // an 8-row group's bytes
+  constexpr unsigned PB = H2 * WB_ROWS * 2;      // a piece plane's bytes
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < NR; ++i) acc[m][i] = 0.f;
+  const unsigned a0 = smem_addr(Hb);
+  const unsigned b0 = smem_addr(pc) + (unsigned)wg * 3 * PB;
+  wg_fence();
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int s = 0; s < WB_ROWS / 16; ++s)
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        WgMmaSSbf<H2>::run(acc[m],
+                           wg_desc(a0 + m * 8 * SBO + 256 * s, 128, SBO),
+                           wg_desc(b0 + p * PB + 256 * s, 128, SBO),
+                           (p > 0 || s > 0) ? 1 : 0);
+  wg_commit();
+  wg_wait_all();
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < NR; ++i) wg_keep(acc[m][i]);
+}
+
 // The warpgroup's dW block (wb_dw_product) into the block's slot rows
 // (slot: the layer's W in the slot, Ni x Nn): row-major [NP][NP/2] over the
 // warpgroup's half of dPt (no other warpgroup reads it), then one slot row
@@ -906,14 +1164,16 @@ static __device__ __forceinline__ void wb_dw3(
 // tile before, which lies `behind` bulk groups back (its groups of a tile
 // less one), so the row's sums are taken in the tiles' order; the staging
 // is read before dPt is written again (bulk_wait_read before the block's
-// next barrier).
-template <int NP>
+// next barrier).  PIECES (the bf16 flavor): dPt is the piece planes
+// (wb_put_pieces), and the staging lies over the warpgroup's own three.
+template <int NP, bool PIECES = false>
 static __device__ __forceinline__ void wb_dw_update(
     const float (&acc)[NP / 64][NP / 4], float* dPt,
     float* __restrict__ slot, int Ni, int Nn, bool first, int bulk,
     int behind, int wg, int wt, int wq, int g, int t) {
   constexpr int H2 = NP / 2, MT = NP / 64;
-  float* st = dPt + wg * H2 * WB_ROWS;
+  float* st = PIECES ? dPt + wg * (3 * H2 * WB_ROWS / 2)
+                     : dPt + wg * H2 * WB_ROWS;
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -946,8 +1206,8 @@ static __device__ __forceinline__ void wb_dw_update(
 }
 
 // The head's table rows T[row][o] (K3): K1's route's head (k1w_head) into
-// shared memory, every row (a pad channel's is zero).  FL_TF32: acc (the
-// post-activations) is rounded to TF32 in place.
+// shared memory, every row (a pad channel's is zero).  FL_TF32 (FL_BF16):
+// acc (the post-activations) is rounded to TF32 (bf16) in place.
 template <int FL, int NP>
 static __device__ __forceinline__ void wb_head(float (&acc)[NP / 2],
                                                float* T, int n_out, int c,
@@ -957,6 +1217,9 @@ static __device__ __forceinline__ void wb_head(float (&acc)[NP / 2],
   if constexpr (FL == FL_TF32) {
 #pragma unroll
     for (int i = 0; i < NP / 2; ++i) acc[i] = tf32r(acc[i]);
+  } else if constexpr (FL == FL_BF16) {
+#pragma unroll
+    for (int i = 0; i < NP / 2; ++i) acc[i] = bf16r(acc[i]);
   }
   for (int o = 0; o < n_out; ++o) {
     float s0 = 0.f, s1 = 0.f;
@@ -1051,12 +1314,13 @@ static __device__ __forceinline__ void wb_epilogue(
 }
 
 // The head's cotangent products from T (its pre-activation cotangents,
-// rows x n_out) and Ht (its input, the flavor's operand, K-major): db and
-// dW into the slot, one output element a thread, summed over the tile's
-// rows in order (taylor_common.cuh's narrow_dw, bias_accum); dH, the
+// rows x n_out) and Ht (its input, the flavor's operand, K-major: wb_ht):
+// db and dW into the slot, one output element a thread, summed over the
+// tile's rows in order (taylor_common.cuh's narrow_dw, bias_accum); dH, the
 // cotangent of the last hidden layer's post-activations, into the lane's
-// registers (narrow_dh), W from sWh.  Operands rounded as the flavor's
-// (opnd: to TF32, or IEEE f32 in the f32 flavor).
+// registers (narrow_dh), W from sWh.  T rounded as the flavor's cotangent
+// operands (gopnd: to TF32, or as it is in the f32 and bf16 flavors); the
+// bf16 flavor's dH rounded to bf16, as narrow_dh<true> rounds it.
 template <int FL, int NP, int CP>
 static __device__ __forceinline__ void wb_head_bwd(
     float (&dh)[NP / 2], const float* T, const float* Ht, const float* sWh,
@@ -1074,26 +1338,30 @@ static __device__ __forceinline__ void wb_head_bwd(
     const int i = e / n_out, o = e % n_out;
     float v = 0.f;
     for (int r = 0; r < WB_ROWS; ++r)
-      v = fmaf(Ht[wg_cm_offset(i, r, WB_ROWS, 4)], opnd<FL>(T[r * n_out + o]),
-               v);
+      v = fmaf(wb_ht<FL>(Ht, i, r), gopnd<FL>(T[r * n_out + o]), v);
     slot_rmw(pW + e, v, first);
   }
 #pragma unroll
   for (int i = 0; i < NP / 2; ++i) dh[i] = 0.f;
   for (int o = 0; o < n_out; ++o) {
-    const float a0 = opnd<FL>(T[row0 * n_out + o]);
-    const float a1 = opnd<FL>(T[(row0 + 8) * n_out + o]);
+    const float a0 = gopnd<FL>(T[row0 * n_out + o]);
+    const float a1 = gopnd<FL>(T[(row0 + 8) * n_out + o]);
 #pragma unroll
     for (int i = 0; i < NP / 2; ++i)
       dh[i] = fmaf((i & 2) ? a1 : a0, sWh[acc_col(i, t) * n_out + o], dh[i]);
   }
+  if constexpr (FL == FL_BF16) {
+#pragma unroll
+    for (int i = 0; i < NP / 2; ++i) dh[i] = bf16r(dh[i]);
+  }
 }
 
 // Layer 0's weight and input cotangents from dP_0 (in dPt, the flavor's
-// operand, K-major) and the tile's rows of X (sx, rounded here as the
-// flavor's operands): taylor_common.cuh's layer0_bwd, one output element a
-// thread.  dX = the sum (K2), or += it (K3: the tape's direct adjoints are
-// there).
+// operand, K-major; f32 in the bf16 flavor) and the tile's rows of X (sx,
+// rounded here as the flavor's operands): taylor_common.cuh's layer0_bwd,
+// one output element a thread.  dX = the sum (K2), or += it (K3: the
+// tape's direct adjoints are there); the bf16 flavor's sum rounded to bf16
+// first.
 template <int FL, int CP, bool K3>
 static __device__ __forceinline__ void wb_layer0_bwd(
     const float* dPt, const float* sx, const float* sW0, int NP,
@@ -1119,6 +1387,7 @@ static __device__ __forceinline__ void wb_layer0_bwd(
     float v = 0.f;
     for (int j = 0; j < w0; ++j)
       v = fmaf(dPt[wg_cm_offset(j, p * CP, WB_ROWS, 4)], sW0[k * NP + j], v);
+    if constexpr (FL == FL_BF16) v = bf16r(v);
     float* dst = dX + (size_t)gp * d + k;
     *dst = K3 ? *dst + v : v;
   }
@@ -1126,7 +1395,9 @@ static __device__ __forceinline__ void wb_layer0_bwd(
 
 // The route's body, shared by K2 (K3 false: the table cotangents gtab in,
 // dX out) and K3 (the tape's epilogue on the head's rows; w in, gw and gX
-// out), in flavor FL (FL_F32 or FL_TF32).
+// out), in flavor FL (FL_F32, FL_TF32 or FL_BF16).  The bf16 flavor's
+// operands of dW take the bytes of H^T and dP^T as four bf16 planes: Hb,
+// then the pieces (wb_put_pieces); layer 0's dP_0 goes to dPt in f32.
 template <int FL, int NP, int CP, bool K3>
 static __device__ __forceinline__ void wb_body(
     const float* __restrict__ X, const float* __restrict__ w,
@@ -1140,6 +1411,8 @@ static __device__ __forceinline__ void wb_body(
   char* stages = smw;
   float* Ht = reinterpret_cast<float*>(smw + (size_t)wp.S * wp.stage_bytes);
   float* dPt = Ht + NP * WB_ROWS;
+  bf16* const Hb = reinterpret_cast<bf16*>(Ht);
+  bf16* const pc = Hb + NP * WB_ROWS;
   float* T = dPt + NP * WB_ROWS;
   float* sDb = T;  // the reverse sweep's bias partials
   float* sx = T + wb_rows_floats(net, NP);
@@ -1247,7 +1520,12 @@ static __device__ __forceinline__ void wb_body(
       wb_load_p<NP>(x, myws + l * slice, ctid);  // Q_l
       wb_act_vjp<NP, CP>(x, dh, c, s);          // dh = dP_l
       wb_bias_partial<NP, CP>(dh, sDb, warp, g, t, c);
-      wb_put_kmajor<FL, NP>(dh, dPt, row0, t);
+      if constexpr (FL == FL_BF16) {
+        if (l == 0) wb_put_kmajor<FL_F32, NP>(dh, dPt, row0, t);
+        else wb_put_pieces<NP>(dh, pc, row0, t);
+      } else {
+        wb_put_kmajor<FL, NP>(dh, dPt, row0, t);
+      }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       wb_sync_all();
       wb_bias(sDb, NP, net.w_out[l], mypart + net.offb[l], first, ctid);
@@ -1264,6 +1542,14 @@ static __device__ __forceinline__ void wb_body(
         wb_dw_update<NP>(dw, dPt, mypart + net.offW[l], net.w_in[l],
                          net.w_out[l], first, wp.bulk, behind, wg, wt, wq, g,
                          t);
+      } else if constexpr (FL == FL_BF16) {
+        wb_dh<FL, NP>(nh, dh, lane, ring, chunk);
+        float dw[NP / 64][NP / 4];
+        wb_dw_pieces<NP>(dw, Hb, pc, wg);
+        wb_dw_update<NP, true>(dw, reinterpret_cast<float*>(pc),
+                               mypart + net.offW[l], net.w_in[l],
+                               net.w_out[l], first, wp.bulk, behind, wg, wt,
+                               wq, g, t);
       } else {  // dW first: its passes write dPt again from dh
         {
           float dw[NP / 64][NP / 4];
@@ -1337,15 +1623,15 @@ static int launch_wb(const float* X, const float* w, const float* prm,
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int P = K3 ? net.P_total + 1 : net.P_total;
-  reduce_partials<false><<<(P + 255) / 256, 256, 0, st>>>(part, out, wp.grid,
-                                                          P, net);
+  reduce_partials<FL == FL_BF16><<<(P + 255) / 256, 256, 0, st>>>(
+      part, out, wp.grid, P, net);
   return (int)cudaGetLastError();
 }
 
 // One kernel's launches in one flavor at one NP, at the plan's CP
-// (taylor_bwd_wg_{f32,tf32}_*.cu and minimax_wg_{f32,tf32}_*.cu define
-// them, so nvcc builds the eight side by side; cudaErrorInvalidValue for a
-// channel count the route has no instance of).
+// (taylor_bwd_wg_{f32,tf32,bf16}_*.cu and minimax_wg_{f32,tf32,bf16}_*.cu
+// define them, so nvcc builds the twelve side by side;
+// cudaErrorInvalidValue for a channel count the route has no instance of).
 #define WB_ARGS                                                              \
   const float *X, const float *w, const float *prm, const float *gtab,      \
       float *gw, float *dX, float *part, float *ws, float *out, int N,      \
@@ -1372,3 +1658,7 @@ int k2wb_tf32_64(WB_ARGS);
 int k2wb_tf32_128(WB_ARGS);
 int k3wb_tf32_64(WB_ARGS);
 int k3wb_tf32_128(WB_ARGS);
+int k2wb_bf16_64(WB_ARGS);
+int k2wb_bf16_128(WB_ARGS);
+int k3wb_bf16_64(WB_ARGS);
+int k3wb_bf16_128(WB_ARGS);

@@ -14,8 +14,8 @@ falls back.  :func:`k3_minimax_bf16` launches its bf16-operand flavor (the
 products of ``taylor_derivatives(compute_dtype=torch.bfloat16)``,
 ``csrc/taylor_common.cuh``) and counts its own launches, and
 :func:`k3_minimax_tf32` its single-pass TF32 flavor (precision
-``"default"``).  The f32 and TF32 flavors run on the persistent wgmma
-route of ``csrc/wg_backward.cuh`` where their shape allows
+``"default"``).  Every flavor runs on the persistent wgmma route of
+``csrc/wg_backward.cuh`` where its shape allows
 (:func:`.cuda_taylor.wb_plan`).  The plain flavor, the CPU path and the
 kernel's referee, is ``tile_sq`` in :mod:`.minimax`.
 """
@@ -118,7 +118,10 @@ def k3_minimax_bf16(plan: MinimaxPlan, X: torch.Tensor, w: torch.Tensor,
     """Launch K3's bf16-operand flavor: :func:`k3_minimax` over the table
     of ``taylor_derivatives(compute_dtype=torch.bfloat16)``, the stack's
     cotangents (the network's share of ``gX`` included) and ``dW`` rounded
-    to bf16 as the reference's jaxpr rounds them."""
+    to bf16 as the reference's jaxpr rounds them.  Its route is chosen by
+    shape as K2-bf16's (:meth:`~.cuda_taylor._Plan.wb_route`, recorded in
+    ``plan.k3_routes[torch.bfloat16]``): the persistent wgmma kernel of
+    ``csrc/wg_backward.cuh``, or ``minimax_step.cu``'s."""
     out = _k3(plan, X, w, flat, 1)
     k3_minimax_bf16.launches += 1
     return out

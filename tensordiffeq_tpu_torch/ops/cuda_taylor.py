@@ -12,10 +12,10 @@ and how the design answers it) over the device code in
 routes, chosen by shape (:meth:`_Plan.k1_route`): a persistent kernel on
 Hopper's warpgroup products for hidden widths up to 128 and up to 8
 channels (``csrc/taylor_fwd_wg.cuh``, :func:`wg_plan`), and the kernel
-beside K2 for the other shapes.  K2 and K3 in the f32 and TF32 flavors
-have two routes chosen the same way (:meth:`_Plan.wb_route`): a persistent
-wgmma kernel for those shapes (``csrc/wg_backward.cuh``, :func:`wb_plan`)
-and the mma.sync kernels for the others (and for the bf16 flavor).
+beside K2 for the other shapes.  K2 and K3 in every flavor have two
+routes chosen the same way (:meth:`_Plan.wb_route`): a persistent wgmma
+kernel for those shapes (``csrc/wg_backward.cuh``, :func:`wb_plan`) and
+the mma.sync kernels for the others.
 :func:`build` compiles every source under ``csrc/`` with ``nvcc`` for
 ``sm_90a`` into one plain C-ABI shared library at first use and loads it
 with ``ctypes``.
@@ -207,7 +207,7 @@ def build() -> ctypes.CDLL:
     lib.tdq_k1wg_plan.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
     lib.tdq_taylor_fwd_wg.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, ptr,
                                       i32, ptr, ptr]
-    # K2's and K3's wgmma route (the f32 and TF32 flavors): its plan (net,
+    # K2's and K3's wgmma route (every flavor): its plan (net,
     # sched, flavor, the card's shared memory and SMs, N, out), K2 (X, prm,
     # gtab, dX, part, ws, grad, N, net, sched, flavor, plan, stream) and K3
     # (X, w, prm, gw, gX, part, ws, out, N, net, sched, tape, constants,
@@ -468,8 +468,8 @@ def wg_prepare(flat_layers, wp: WgPlan, flavor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ #
-# K2's and K3's wgmma route (csrc/wg_backward.cuh) in the f32 and TF32
-# flavors: its plan and the plain mirror of its weight planes
+# K2's and K3's wgmma route (csrc/wg_backward.cuh) in the f32, TF32 and
+# bf16 flavors: its plan and the plain mirror of its weight planes
 # ------------------------------------------------------------------ #
 WB_ROWS = 128  # rows of the route's tile: two consumer warpgroups of 64
 
@@ -477,7 +477,8 @@ WB_ROWS = 128  # rows of the route's tile: two consumer warpgroups of 64
 def wb_kc(code: int) -> int:
     """k rows of a weight chunk (``wb_kc`` in ``csrc/wg_backward.cuh``): 32
     in the f32 flavor (code 0: the hi and lo planes), 64 in the TF32 flavor
-    (code 2: the hi plane alone), 32 KB a stage either way at NP = 128."""
+    (code 2: the hi plane alone), 32 KB a stage either way at NP = 128; 64
+    in the bf16 flavor (code 1: 16 KB a stage at NP = 128)."""
     return 32 if code == 0 else 64
 
 
@@ -505,17 +506,18 @@ def _pad4(n: int) -> int:
 def wb_plan(layer_shapes: Sequence[tuple], orders: Sequence[int], code: int,
             smem_optin: int, n_sm: int, N: int):
     """The backward route's :class:`WbPlan` (K2 and K3) for these shapes in
-    the flavor of C code ``code`` (:data:`FLAVOR_CODE`: 0 the f32 flavor, 2
-    the TF32 one), or ``None`` where the shape or the flavor (the bf16
-    one, code 1) is the mma.sync route's: K1's route's conditions
+    the flavor of C code ``code`` (:data:`FLAVOR_CODE`: 0 the f32 flavor, 1
+    the bf16 one, 2 the TF32 one), or ``None`` where the shape is the
+    mma.sync route's: K1's route's conditions
     (:func:`wg_plan`: at most ``WG_MAX_C`` channels, hidden widths up to
     ``WG_MAX_WIDTH``, at most ``WG_MAX_D`` inputs and ``WG_MAX_OUT``
     outputs) and a ring of at least two stages.  Shared memory: the ring
     (chunks of :func:`wb_kc` k rows, the f32 flavor's with the hi and lo
-    planes), H^T and dP^T (NP x 128 floats each), the table rows (the bias
-    partials in the reverse sweep), X's rows, the small operands, the
-    value's warp sums and the mbarriers."""
-    if code not in (0, 2):
+    planes, the bf16 flavor's of bf16), H^T and dP^T (NP x 128 floats each;
+    in the bf16 flavor the same bytes hold H and dP's three pieces in
+    bf16), the table rows (the bias partials in the reverse sweep), X's
+    rows, the small operands, the value's warp sums and the mbarriers."""
+    if code not in (0, 1, 2):
         return None
     L = len(layer_shapes)
     d, n_out = layer_shapes[0][0], layer_shapes[-1][1]
@@ -530,7 +532,7 @@ def wb_plan(layer_shapes: Sequence[tuple], orders: Sequence[int], code: int,
     NP = 64 if width <= 64 else 128
     KC = wb_kc(code)
     P = 2 * (L - 2) * (NP // KC)
-    stage = NP * KC * (8 if code == 0 else 4)
+    stage = NP * KC * {0: 8, 1: 2, 2: 4}[code]
     misc = _pad4(NP * (d + L - 1 + n_out) + WG_MAX_OUT)
     fixed = 4 * (2 * NP * WB_ROWS + _pad4(max(WB_ROWS * n_out, 8 * NP))
                  + _pad4(WB_ROWS * d) + misc + 8) + 2 * WG_MAX_STAGES * 8
@@ -558,7 +560,8 @@ def wb_prepare(flat_layers, wp: WbPlan, flavor) -> torch.Tensor:
     input; K1's chunks of the flavor), then the backward planes of layers
     L-2 .. 1 (W as it lies: row i, k the output).  The TF32 flavor's chunks
     are the ``hi`` plane (``cvt.rna``), the f32 flavor's the ``hi`` then
-    the ``lo`` plane of :func:`split_tf32`."""
+    the ``lo`` plane of :func:`split_tf32`, the bf16 flavor's W rounded to
+    bf16 (to nearest even) with the k rows in their natural order."""
     code = FLAVOR_CODE[flavor_of(flavor)]
     nch = wp.NP // wp.KC
     L = len(flat_layers) // 2
@@ -666,9 +669,9 @@ class _Plan:
         self.tiles = {}  # flavor -> (TP_fwd, TP_bwd, n_sm), at first launch
         self.k1_checked = set()  # flavors whose K1 route was cross-checked
         self.k1_routes = {}  # flavor -> the route its last K1 launch took
-        # flavor -> the route the last K2 / K3 launch took: "wgmma" (the f32
-        # and TF32 flavors' at wb_plan's shapes, csrc/wg_backward.cuh) or
-        # "mma" (the mma.sync kernels, the bf16 flavor and other shapes)
+        # flavor -> the route the last K2 / K3 launch took: "wgmma" (at
+        # wb_plan's shapes, csrc/wg_backward.cuh) or "mma" (the mma.sync
+        # kernels, the other shapes)
         self.k2_routes, self.k3_routes = {}, {}
         self.wb_checked = set()  # flavors whose route plan was cross-checked
 
@@ -710,9 +713,9 @@ class _Plan:
     def wb_route(self, device: torch.device, flavor, N: int, kernel: str):
         """K2's (``kernel="k2"``) or K3's (``"k3"``) route for ``N``
         points in a flavor: the wgmma route's :class:`WbPlan`
-        (``csrc/wg_backward.cuh``) for the f32 and TF32 flavors at the
-        shapes :func:`wb_plan` takes, or ``None`` for the mma.sync kernels
-        (the bf16 flavor, and the other shapes).  Before a flavor's first
+        (``csrc/wg_backward.cuh``) at the shapes :func:`wb_plan` takes, or
+        ``None`` for the mma.sync kernels (the other shapes).  Before a
+        flavor's first
         launch the kernels' own plan (``tdq_wb_plan``) is held to this one:
         a drift raises :class:`KernelBuildError`.  Records the route in
         ``k2_routes`` / ``k3_routes``."""
@@ -897,7 +900,11 @@ def k2_backward_bf16(plan: _Plan, X: torch.Tensor, flat: torch.Tensor,
                      g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K2's bf16-operand flavor: the cotangents of
     :func:`k1_forward_bf16`'s table, ``dX`` and ``dW`` rounded to bf16 as
-    the reference's jaxpr rounds them (``db`` not)."""
+    the reference's jaxpr rounds them (``db`` not).  Its route is chosen by
+    shape (:meth:`_Plan.wb_route`, recorded in
+    ``plan.k2_routes[torch.bfloat16]``): the persistent wgmma kernel of
+    ``csrc/wg_backward.cuh`` where :func:`wb_plan` takes the shape, else
+    the mma.sync kernel."""
     out = _k2(plan, X, flat, g, 1)
     k2_backward_bf16.launches += 1
     return out

@@ -1171,6 +1171,13 @@ BF16_K3_EDGES = {
     "wide-256": (_res_ac, [2, 256, 256, 1], 517, (-1.0, 1.0)),
     "tiles-per-block": (_res_ac, [2, 128, 128, 1], 20_001, (-1.0, 1.0)),
 }
+# the route K2-bf16 and K3-bf16 take at each edge: the persistent wgmma
+# route of csrc/wg_backward.cuh up to 128 wide (cuda_taylor.wb_plan), the
+# mma.sync kernels past it
+BF16_EDGE_ROUTES = {"k16-pad": "wgmma", "narrow-hidden": "wgmma",
+                    "wide-256": "mma", "tiles-per-block": "wgmma"}
+BF16_K3_EDGE_ROUTES = {"k16-pad-E2": "wgmma", "singular-k16-pad": "wgmma",
+                       "wide-256": "mma", "tiles-per-block": "wgmma"}
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -1180,7 +1187,8 @@ def test_bf16_kernels_match_plain_bf16_flavor_on_card(card, case):
 
 @pytest.mark.parametrize("case", list(BF16_EDGES))
 def test_bf16_kernels_at_the_bf16_routes_edges_on_card(card, case):
-    _bf16_table_case(card, *BF16_EDGES[case])
+    plan = _bf16_table_case(card, *BF16_EDGES[case])
+    assert plan.k2_routes[torch.bfloat16] == BF16_EDGE_ROUTES[case]
 
 
 def _bf16_table_case(card, reqs, widths, N):
@@ -1218,6 +1226,7 @@ def _bf16_table_case(card, reqs, widths, N):
     assert _nearer_bf16([got[m] for m in mis], [want[m] for m in mis],
                         [want32[m] for m in mis])
     assert _nearer_bf16(g_got, g_want, g_32)
+    return producer.plan
 
 
 def test_bf16_flavor_differs_from_f32_flavor_on_card(card):
@@ -1273,7 +1282,8 @@ def test_bf16_k3_matches_plain_bf16_flavor_on_card(card, case):
 
 @pytest.mark.parametrize("case", list(BF16_K3_EDGES))
 def test_bf16_k3_at_the_bf16_routes_edges_on_card(card, case):
-    _bf16_k3_case(card, case, BF16_K3_EDGES)
+    plan = _bf16_k3_case(card, case, BF16_K3_EDGES)
+    assert plan.k3_routes[torch.bfloat16] == BF16_K3_EDGE_ROUTES[case]
 
 
 def _bf16_k3_case(card, case, cases):
@@ -1308,6 +1318,7 @@ def _bf16_k3_case(card, case, cases):
     v = sq(list(zip(flat[0::2], flat[1::2])), w, X)
     assert k3.launches == before[0] + 2
     assert float(v) == float(val)
+    return plan
 
 
 def test_bf16_k3_is_bit_identical_run_to_run(card):
@@ -1851,6 +1862,7 @@ def test_tf32_k3_matches_tf32_emulation_on_card(card, case):
     v = sq(list(zip(flat[0::2], flat[1::2])), w, X)
     assert k3.launches == before[0] + 2
     assert float(v) == float(val)
+    return plan
 
 
 def test_tf32_kernels_are_bit_identical_run_to_run(card):
@@ -2068,6 +2080,39 @@ def test_f32_backward_planes_match_the_plain_mirror(card):
     assert err == 0
     slices = wp.grid * (len(widths) - 2) * cuda_taylor.WB_ROWS * wp.NP
     want = cuda_taylor.wb_prepare(flat_layers, wp, None)
+    assert torch.equal(ws[slices:].cpu().view(torch.uint8), want)
+
+
+def test_bf16_backward_planes_match_the_plain_mirror(card):
+    """The bf16 flavor's weight prep writes its chunks (W rounded to bf16,
+    64 k rows in their natural order) byte for byte as ``wb_prepare`` lays
+    them out, after the blocks' workspace slices."""
+    widths = [2, 128, 128, 128, 1]
+    layers, _, g = _net(widths, card)
+    plan = cuda_taylor.build_cuda_table_fn(
+        AC, [tuple(W.shape) for W, _ in layers],
+        compute_dtype="bfloat16").plan
+    flat_layers = [t for p in layers for t in p]
+    N = 1000
+    wp = plan.wb_route(card, torch.bfloat16, N, "k2")
+    assert wp is not None and (wp.P, wp.KC, wp.stage_bytes) == (8, 64, 16384)
+    ws = torch.zeros(wp.ws_floats, device=card)
+    part = torch.empty(wp.grid, cuda_taylor.slot_stride(plan.P_total),
+                       device=card)
+    X = (2 * torch.rand(N, 2, generator=g) - 1).to(card)
+    cot = torch.randn(plan.C, N, 1, generator=g).to(card)
+    dX = torch.empty(N, 2, device=card)
+    grad = torch.empty(plan.P_total, device=card)
+    err = cuda_taylor.build().tdq_taylor_bwd_wg(
+        X.data_ptr(), plan.pack(flat_layers).data_ptr(), cot.data_ptr(),
+        dX.data_ptr(), part.data_ptr(), ws.data_ptr(), grad.data_ptr(), N,
+        plan.net_h, plan.sched_h, cuda_taylor.FLAVOR_CODE[torch.bfloat16],
+        (ctypes.c_int * len(wp))(*wp),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    slices = wp.grid * (len(widths) - 2) * cuda_taylor.WB_ROWS * wp.NP
+    want = cuda_taylor.wb_prepare(flat_layers, wp, torch.bfloat16)
     assert torch.equal(ws[slices:].cpu().view(torch.uint8), want)
 
 

@@ -1,13 +1,14 @@
 """K2's and K3's persistent wgmma route (``csrc/wg_backward.cuh``) in its
-TF32 and f32 (3xTF32) flavors, the parts that live on the host and the
-algorithm it runs, on the CPU:
+TF32, f32 (3xTF32) and bf16 flavors, the parts that live on the host and
+the algorithm it runs, on the CPU:
 
 * the plan's mirror (``ops/cuda_taylor.py::wb_plan``): tile rows, stages,
   shared memory, workspace, and the choice of route by shape and flavor;
 * the plain mirror of the weight planes (``wb_prepare``): the forward
   planes are K1's chunks of the flavor (W^T), the backward planes W in the
   sweep's order, in core-matrix and k-slot order; TF32 (``cvt.rna``), or
-  the f32 flavor's hi and lo planes, which sum back to W;
+  the f32 flavor's hi and lo planes, which sum back to W; the bf16
+  flavor's W rounded to bf16 in natural k order;
 * the route's K2 step for step in PyTorch (tiles of 128 rows with the
   channels padded, the operands of dW written K-major as the kernel writes
   them, the block's slot added to in tile order, the slots summed in slot
@@ -22,11 +23,17 @@ algorithm it runs, on the CPU:
   epilogue, the route's K2 on the tape's cotangents): within the f32 band
   of the float64 plain flavor and within rtol 5e-3 of the JAX package's
   ``build_minimax_sq_fn`` (XLA) on the same weights;
+* K2 and K3 on the route in the bf16 flavor's order (one bf16 pass a
+  forward product; the f32 cotangent's three bf16 pieces for dH and dW;
+  dH, dX's network share and, after the slot sum, dW rounded to bf16):
+  within the reference's bf16 bands of the plain bf16 flavor and of the
+  JAX package's (``compute_dtype=bfloat16``) on the same weights, and
+  nearer each than its f32 flavor by RMS;
 * the register VJP's in-place order (``wb_act_vjp``) against the
   activation pass's autograd.
 
 The kernels run only on the card: ``tests/test_torch_cuda.py`` and
-``chip_smoke.py`` phases 3-5, 15 and 16.
+``chip_smoke.py`` phases 3-5 and 14-17.
 """
 
 import jax
@@ -58,6 +65,11 @@ TF32_SPREAD, TF32_FLOOR = 3.0, 1e-4
 # (chip_smoke.py's K2_RTOL/K3_RTOL), and the engines' cross-check rtol
 F32_BAND, CROSSCHECK_RTOL = 1e-4, 5e-3
 F32, TF32 = ct.FLAVOR_CODE[None], ct.FLAVOR_CODE[ct.TF32]
+BF16 = ct.FLAVOR_CODE[torch.bfloat16]
+# the reference's bf16 bands (the JAX solver's cross-check under
+# fused_dtype; chip_smoke.py's BF16_VALUE_BAND, BF16_GRAD_BAND),
+# scale-relative
+BF16_VALUES, BF16_GRADS = 5e-2, 1.5e-1
 
 
 def _plan(reqs, widths, N=50_000, smem=SMEM, n_sm=SMS, code=TF32):
@@ -287,18 +299,51 @@ def _trunc_split(t):  # dW's operands: f32 values, lo made in place
     return hi, t - hi
 
 
+def _bf(t):
+    """t rounded to bf16 (to nearest even), in its own dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _pieces(t):
+    """``split_pieces`` (csrc/taylor_common.cuh): the bf16 pieces lo, mid,
+    hi of float32 ``t`` (hi = rn(t), mid = rn(t - hi), lo = rn(t - hi -
+    mid); their sum is t)."""
+    hi = _bf(t)
+    mid = _bf(t - hi)
+    return _bf(t - hi - mid), mid, hi
+
+
 def _arith(mode):
-    """``(rnd, mm, dw)`` of the route in a mode: the SIMT operands'
-    rounding, the forward's and dH's product, dW's product.  ``"f64"``:
+    """``(rnd, grnd, mm, dh, dw, out)`` of the route in a mode: the SIMT
+    operands' rounding (X, the weights, the head's input), a cotangent's as
+    a SIMT operand, the forward's product, dH's product (its sums rounded
+    as the next cotangent), dW's product (A the K-major H, rounded by
+    ``rnd``; B dP), and the rounding of dX and the head's dH.  ``"f64"``:
     exact; ``"tf32"``: every operand ``cvt.rna``-rounded, one pass;
-    ``"f32"``: IEEE SIMT, three passes on the tensor cores."""
+    ``"f32"``: IEEE SIMT, three passes on the tensor cores; ``"bf16"``:
+    products on bf16-rounded operands with float32 sums, the cotangent as
+    its three bf16 pieces (smallest first), dH, dX and the head's dH
+    rounded to bf16."""
+    keep = lambda t: t  # noqa: E731
     if mode == "tf32":
-        return rna_tf32, (lambda A, B: rna_tf32(A) @ rna_tf32(B)), \
-            (lambda A, B: rna_tf32(A) @ rna_tf32(B))
+        mm = lambda A, B: rna_tf32(A) @ rna_tf32(B)  # noqa: E731
+        return rna_tf32, rna_tf32, mm, mm, mm, keep
     if mode == "f32":
-        return (lambda t: t), (lambda A, B: _mm3(A, B, _rna_split)), \
-            (lambda A, B: _mm3(A, B, _trunc_split))
-    return (lambda t: t), torch.matmul, torch.matmul
+        mm = lambda A, B: _mm3(A, B, _rna_split)  # noqa: E731
+        return keep, keep, mm, mm, \
+            (lambda A, B: _mm3(A, B, _trunc_split)), keep
+    if mode == "bf16":
+        def dh(A, B):
+            lo, mid, hi = _pieces(A)
+            Bb = _bf(B)
+            return _bf(lo @ Bb + mid @ Bb + hi @ Bb)
+
+        def dw(A, B):
+            lo, mid, hi = _pieces(B)
+            return A @ lo + A @ mid + A @ hi
+
+        return _bf, keep, (lambda A, B: _bf(A) @ _bf(B)), dh, dw, _bf
+    return keep, keep, torch.matmul, torch.matmul, torch.matmul, keep
 
 
 def _route_k2(flat, X, g, reqs, n_sm, mode):
@@ -306,15 +351,17 @@ def _route_k2(flat, X, g, reqs, n_sm, mode):
     cotangents ``g [C, N, n_out]``: ``(dflat, dX)``.  Tiles of 128 rows
     (point p's channel c at row (p % TP) * CP + c), blocks walking tiles b,
     b + G, ...; the arithmetic of ``mode`` (:func:`_arith`) where the
-    kernel rounds or splits: every product operand, the bias sums not."""
-    rnd, mm, dw = _arith(mode)
+    kernel rounds or splits: every product operand, the bias sums not; in
+    the bf16 flavor each dW rounded to bf16 after the slots' sum."""
+    rnd, grnd, mm, dh_mm, dw, out = _arith(mode)
     _, rows = ct.channel_schedule(reqs)
     C, N, d = len(rows), X.shape[0], X.shape[1]
     L = len(flat) // 2
     Ws, bs = flat[0::2], flat[1::2]
     shapes = [tuple(W.shape) for W in Ws]
-    wp = ct.wb_plan(shapes, [o for o, _ in rows], F32 if mode == "f32"
-                    else TF32, SMEM, n_sm, N)
+    wp = ct.wb_plan(shapes, [o for o, _ in rows],
+                    {"f32": F32, "bf16": BF16}.get(mode, TF32), SMEM, n_sm,
+                    N)
     NP, CP = wp.NP, wp.CP
     TP = ct.WB_ROWS // CP
     dt = X.dtype
@@ -361,25 +408,25 @@ def _route_k2(flat, X, g, reqs, n_sm, mode):
         Tr = T.reshape(ct.WB_ROWS, -1)
         Ht = _kmajor(rnd(H).reshape(ct.WB_ROWS, NP))
         add(blk, 2 * L - 1, T[:, 0].sum(0), first)
-        add(blk, 2 * L - 2, (Ht @ rnd(Tr))[:Ws[-1].shape[0]], first)
-        dH = (rnd(Tr) @ Wh.t()).reshape(TP, CP, NP)
+        add(blk, 2 * L - 2, (Ht @ grnd(Tr))[:Ws[-1].shape[0]], first)
+        dH = out(grnd(Tr) @ Wh.t()).reshape(TP, CP, NP)
         for l in range(L - 2, 0, -1):
             dP = _act_vjp_in_place(Ps[l], dH, rows)
             Ht = _kmajor(rnd(_act(Ps[l - 1], rows)).reshape(ct.WB_ROWS, NP))
-            dPt = _kmajor(rnd(dP).reshape(ct.WB_ROWS, NP))
+            dPt = _kmajor(grnd(dP).reshape(ct.WB_ROWS, NP))
             fi, fo = shapes[l]
             add(blk, 2 * l + 1, dP[:, 0].sum(0)[:fo], first)
             add(blk, 2 * l, dw(Ht, dPt.t())[:fi, :fo], first)
-            dH = mm(dP, Wp[l].t())
+            dH = dh_mm(dP, Wp[l].t())
         dP = _act_vjp_in_place(Ps[0], dH, rows)
         w0 = shapes[0][1]
-        gW = x.t() @ rnd(dP[:, 0])
+        gW = x.t() @ grnd(dP[:, 0])
         for c, (o, ix) in enumerate(rows):
             if o == 1:
-                gW[ix[0]] += rnd(dP[:, c]).sum(0)
+                gW[ix[0]] += grnd(dP[:, c]).sum(0)
         add(blk, 1, dP[:, 0].sum(0)[:w0], first)
         add(blk, 0, gW[:, :w0], first)
-        dx = rnd(dP[:, 0]) @ Wp[0].t()
+        dx = out(grnd(dP[:, 0]) @ Wp[0].t())
         n_live = int(live.sum())
         dX[p0:p0 + n_live] = dx[:n_live]
     total = []  # reduce_partials: the slots in slot order
@@ -387,7 +434,7 @@ def _route_k2(flat, X, g, reqs, n_sm, mode):
         acc = slots[0][i].clone()
         for s in slots[1:]:
             acc = acc + s[i]
-        total.append(acc)
+        total.append(_bf(acc) if mode == "bf16" and i % 2 == 0 else acc)
     return total, dX
 
 
@@ -488,12 +535,14 @@ def test_f32_plan_at_the_slice_and_at_burgers():
     for wp in (ac, bu):
         assert wp.smem <= SMEM and wp.S >= 2
         assert wp.stage_bytes == wp.NP * wp.KC * 8  # hi and lo planes
-    # the shapes the TF32 flavor declines, the f32 flavor declines; the
-    # bf16 flavor (code 1) is the mma.sync route's at every shape
+    # the shapes the TF32 flavor declines, the f32 flavor declines, and the
+    # bf16 flavor (code 1) too; it takes the route at the slice
     assert _plan(AC, [2, 256, 256, 256, 256, 1], code=F32)[1] is None
     assert _plan(AC, [2, 128, 128, 128, 1], smem=190_000, code=F32)[1] \
         is None
-    assert _plan(AC, [2, 128, 128, 128, 128, 1], code=1)[1] is None
+    bf = _plan(AC, [2, 128, 128, 128, 128, 1], code=1)[1]
+    assert bf is not None and (bf.KC, bf.stage_bytes) == (64, 16_384)
+    assert _plan(AC, [2, 256, 256, 256, 256, 1], code=1)[1] is None
 
 
 @pytest.mark.parametrize("widths", [[2, 128, 128, 128, 1], [2, 37, 53, 1],
@@ -594,28 +643,29 @@ T_RES, J_RES = _residuals(grad), _residuals(tdq.grad)
 N_OUT = dict(ac=1, system=2)
 
 
-def _route_k3(sq, flat, X, w, n_sm):
-    """K3 on the route in the f32 flavor: the route's forward gives the
-    head's rows (per point: its rows do not depend on the tile), the tape
-    runs on them per point (``minimax_tape.cuh``'s interpreter, mirrored by
-    ``ResidualTape``), and its cotangents (seeds 2 w f) go through the
-    route's K2, whose dX the tape's direct coordinate adjoints are added
-    to.  Returns ``(value, [dW_0, db_0, ...], gw, gX)``."""
+def _route_k3(sq, flat, X, w, n_sm, mode="f32"):
+    """K3 on the route in the flavor ``mode`` ("f32" or "bf16"): the
+    route's forward gives the head's rows (per point: its rows do not
+    depend on the tile), the tape runs on them per point
+    (``minimax_tape.cuh``'s interpreter, mirrored by ``ResidualTape``), and
+    its cotangents (seeds 2 w f) go through the route's K2, whose dX the
+    tape's direct coordinate adjoints are added to.  Returns ``(value,
+    [dW_0, db_0, ...], gw, gX)``."""
     plan = sq.plan
     _, rows = ct.channel_schedule(set(plan.mis))
-    _, mm, _ = _arith("f32")
+    rnd, _, mm, _, _, _ = _arith(mode)
     Ws, bs = flat[0::2], flat[1::2]
     H = torch.zeros(X.shape[0], len(rows), Ws[0].shape[1])
-    H[:, 0] = X @ Ws[0] + bs[0]
+    H[:, 0] = rnd(X) @ rnd(Ws[0]) + bs[0]
     for c, (o, ix) in enumerate(rows):
         if o == 1:
-            H[:, c] = Ws[0][ix[0]]
+            H[:, c] = rnd(Ws[0])[ix[0]]
     H = _act(H, rows)
     for l in range(1, len(Ws) - 1):
         P = mm(H, Ws[l])
         P[:, 0] += bs[l]
         H = _act(P, rows)
-    table = H @ Ws[-1]
+    table = rnd(H) @ rnd(Ws[-1])
     table[:, 0] += bs[-1]
     cols = [table[:, c, o] for c in range(plan.C) for o in range(plan.n_out)]
     coords = [X[:, k] for k in range(plan.d)]
@@ -628,7 +678,7 @@ def _route_k3(sq, flat, X, w, n_sm):
     g = torch.zeros(plan.C, X.shape[0], plan.n_out)
     for s, gs in g_tab.items():
         g[s // plan.n_out, :, s % plan.n_out] = gs
-    dflat, dX = _route_k2(flat, X, g, set(plan.mis), n_sm, "f32")
+    dflat, dX = _route_k2(flat, X, g, set(plan.mis), n_sm, mode)
     for k, gc in g_coord.items():
         dX[:, k] += gc
     return value, dflat, gw, dX
@@ -677,3 +727,177 @@ def test_route_k3_f32_within_the_f32_band_and_jax(case):
         [np.asarray(a).reshape(-1) for p in jg for a in p] + \
         [np.asarray(jgw), np.asarray(jgx)]
     _crosscheck(got, [torch.from_numpy(np.array(a)) for a in jax_leaves])
+
+
+# ------------------------------------------------------------------ #
+# the bf16 flavor on the route
+# ------------------------------------------------------------------ #
+def test_bf16_plan_at_the_slice_and_at_burgers():
+    """The bf16 flavor's chunks are KC = 64 k rows of bf16: 16 KB a stage
+    at NP = 128, five stages beside the f32 flavor's fixed bytes (its H
+    and dP's three pieces take the bytes of H^T and dP^T)."""
+    _, ac = _plan(AC, [2, 128, 128, 128, 128, 1], code=BF16)
+    assert ac == ct.WbPlan(NP=128, CP=4, KC=64, S=5, P=12, stage_bytes=16_384,
+                           n_tiles=1563, grid=132, smem=221_920, bulk=1,
+                           ws_floats=132 * 4 * 128 * 128 + 12 * 128 * 64 // 2)
+    f32 = _plan(AC, [2, 128, 128, 128, 128, 1], code=F32)[1]
+    assert ac.smem - ac.S * ac.stage_bytes == f32.smem - f32.S * f32.stage_bytes
+    _, bu = _plan(AC, [2] + [20] * 8 + [1], code=BF16)
+    assert (bu.NP, bu.CP, bu.KC, bu.P, bu.S, bu.stage_bytes, bu.bulk) \
+        == (64, 4, 64, 14, 8, 8_192, 1)
+    assert bu.ws_floats == 132 * 8 * 128 * 64 + 14 * 64 * 64 // 2
+    # the edges the card tests hold: the route to 128 wide, not past it
+    for widths in ([2, 40, 24, 1], [2, 16, 16, 1], [2, 128, 128, 1],
+                   [2, 24, 40, 1]):
+        wp = _plan(AC, widths, code=BF16)[1]
+        assert wp is not None and wp.smem <= SMEM and wp.S >= 2
+    assert _plan(AC, [2, 256, 256, 1], code=BF16)[1] is None
+    assert _plan(MIXED, [2, 16, 16, 1], code=BF16)[1].CP == 8
+
+
+@pytest.mark.parametrize("widths", [[2, 128, 128, 128, 1], [2, 37, 53, 1],
+                                    [3, 20, 20, 20, 20, 2]],
+                         ids=["ac", "odd", "burgers-like"])
+def test_bf16_weight_planes_are_w_rounded(widths):
+    """The bf16 chunks: W rounded to bf16 (to nearest even), the k rows in
+    their natural order, in core-matrix order (8 bf16 a core-matrix row);
+    read back, each is the layer's rounded W^T (forward) or W (backward)."""
+    flat = _layers(widths)
+    _, wp = _plan(AC, widths, code=BF16)
+    raw = ct.wb_prepare(flat, wp, torch.bfloat16)
+    assert raw.numel() == wp.P * wp.stage_bytes
+    chunks = raw.view(torch.bfloat16).reshape(wp.P, wp.NP * wp.KC)
+    n, kq = np.arange(wp.NP)[:, None], np.arange(wp.KC)[None, :]
+    off = torch.from_numpy(_cm(n, kq, wp.KC, 8).reshape(-1))
+    nch, L = wp.NP // wp.KC, len(widths) - 1
+    hidden = list(range(1, L - 1))
+    planes = [flat[2 * l].t() for l in hidden] \
+        + [flat[2 * l] for l in reversed(hidden)]
+    if wp.KC == wp.NP:  # the forward half is K1-bf16's chunks
+        wg = ct.WgPlan(wp.NP, wp.CP, wp.KC, 0, wp.P // 2, 0, wp.stage_bytes,
+                       0, 0, 0)
+        assert torch.equal(raw[:wp.P // 2 * wp.stage_bytes],
+                           ct.wg_prepare(flat, wg, torch.bfloat16))
+    for q in range(wp.P):
+        M = planes[q // nch]
+        pad = torch.zeros(wp.NP, wp.NP)
+        pad[:M.shape[0], :M.shape[1]] = M
+        want = pad[:, (q % nch) * wp.KC:(q % nch + 1) * wp.KC].reshape(-1)
+        got = chunks[q][off].float()
+        assert torch.equal(got, _bf(want))
+        assert bool(((got - want).abs() <= 2.0 ** -8 * want.abs()).all())
+
+
+def _cat(ts):
+    return torch.cat([t.reshape(-1).double() for t in ts])
+
+
+def _scaled(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _bf16_check(label, got, refs, bands):
+    """Each leaf of ``got`` within its band (scale-relative) of the bf16
+    referee of each pair in ``refs`` (name -> (bf16 leaves, f32 leaves)),
+    and nearer it than the f32 one by RMS over every leaf together."""
+    for name, (want, want32) in refs.items():
+        for i, (a, b, band) in enumerate(zip(got, want, bands)):
+            err = _scaled(a, b)
+            assert err <= band, (label, name, i, err, band)
+        r16 = _rms_rel(_cat(got), _cat(want))
+        r32 = _rms_rel(_cat(got), _cat(want32))
+        print(f"{label}: RMS to {name} bf16 {r16:.3e}, f32 {r32:.3e}")
+        assert r16 < r32, (label, name, r16, r32)
+
+
+@pytest.mark.parametrize("reqs", [AC, MIXED], ids=["ac", "mixed"])
+def test_route_k2_bf16_order_within_the_bf16_bands(reqs):
+    """The route's K2 in the bf16 flavor's order against the plain bf16
+    flavor (``taylor_derivatives(compute_dtype=torch.bfloat16)``'s
+    autograd) and the JAX package's (``compute_dtype=jnp.bfloat16``) on the
+    same numpy-seeded inputs: every leaf within the bf16 gradient band,
+    nearer each than its f32 flavor by RMS."""
+    widths, N = [2, 48, 48, 48, 1], 300
+    flat, X = _case(widths, N)
+    C = len(channel_order(reqs))
+    g = torch.from_numpy(np.random.RandomState(4).randn(C, N, 1)
+                         .astype(np.float32))
+    got, dX = _route_k2(flat, X, g, reqs, n_sm=3, mode="bf16")
+    got = got + [dX]
+    plain = _referee(flat, X, g, reqs, compute_dtype=torch.bfloat16)
+    plain32 = _referee(flat, X, g, reqs)
+    jl = [(jnp.asarray(W.numpy()), jnp.asarray(b.numpy()))
+          for W, b in zip(flat[0::2], flat[1::2])]
+    chans = channel_order(reqs)
+
+    def jgrads(**kw):
+        def loss(layers, x):
+            t = jax_table(layers, x, reqs, flat_matmul=True, **kw)
+            return sum(jnp.sum(t[mi] * jnp.asarray(g[c].numpy()))
+                       for c, mi in enumerate(chans))
+        gl, gx = jax.grad(loss, argnums=(0, 1))(jl, jnp.asarray(X.numpy()))
+        return [torch.from_numpy(np.array(a, np.float32)) for pair in gl
+                for a in pair] + [torch.from_numpy(np.array(gx, np.float32))]
+
+    _bf16_check("K2-bf16 route", got,
+                {"plain": (plain, plain32),
+                 "jax": (jgrads(compute_dtype=jnp.bfloat16), jgrads())},
+                [BF16_GRADS] * len(got))
+
+
+@pytest.mark.parametrize("case", ["ac", "system"])
+def test_route_k3_bf16_within_the_bf16_bands_and_jax(case):
+    """K3 on the route in the bf16 flavor's order against the plain bf16
+    flavor (``build_minimax_sq_fn(compute_dtype=torch.bfloat16)``) and the
+    JAX package's ``build_minimax_sq_fn(compute_dtype=jnp.bfloat16)`` on
+    the same weights and numpy-seeded points and weights: the value and gw
+    within the bf16 value band, every gradient within the gradient band,
+    nearer each than its f32 flavor by RMS."""
+    n_out, N = N_OUT[case], 300
+    net = jax_net([2, 40, 40, 40, n_out])
+    params = net.init(jax.random.PRNGKey(0), jnp.zeros((1, 2)))
+    rng = np.random.RandomState(0)
+    X = (rng.randn(N, 2) * 0.5).astype(np.float32)
+    E = 2 if case == "system" else 1
+    w = rng.rand(N, E).astype(np.float32)
+    tl = params_from_jax(jax.tree_util.tree_map(np.asarray, params),
+                         device="cpu")
+    flat = [t.detach().float() for p in tl for t in p]
+    shapes = [tuple(W.shape) for W, _ in tl]
+    f = T_RES[case]
+    reqs = analyze_f_model(f, VARS, n_out)
+    sq32 = minimax.build_minimax_sq_fn(f, VARS, n_out, reqs, shapes,
+                                       device="cpu")
+    sq = minimax.build_minimax_sq_fn(f, VARS, n_out, reqs, shapes,
+                                     device="cpu",
+                                     compute_dtype=torch.bfloat16)
+    Xt, wt = torch.from_numpy(X), torch.from_numpy(w)
+    val, dflat, gw, gX = _route_k3(sq, flat, Xt, wt, n_sm=3, mode="bf16")
+
+    def leaves(v, fl, gw_, gx_):
+        return [v.reshape(1)] + [t.reshape(-1) for t in fl] + [gw_, gx_]
+
+    got = leaves(val, dflat, gw, gX)
+    jf = J_RES[case]
+    jl = extract_mlp_layers(params)
+
+    def jax_leaves(**kw):
+        jsq = jmm.build_minimax_sq_fn(jf, VARS, n_out,
+                                      jax_analyze(jf, VARS, n_out), shapes,
+                                      **kw)
+        jv, vjp = jax.vjp(jsq, jl, jnp.asarray(w), jnp.asarray(X))
+        jg, jgw, jgx = vjp(jnp.ones((), jv.dtype))
+        return [torch.from_numpy(np.array(a, np.float32)) for a in
+                [np.asarray(jv).reshape(1)]
+                + [np.asarray(a).reshape(-1) for p in jg for a in p]
+                + [np.asarray(jgw), np.asarray(jgx)]]
+
+    bands = [BF16_VALUES] + [BF16_GRADS] * (len(got) - 3) \
+        + [BF16_VALUES, BF16_GRADS]
+    _bf16_check(f"K3-bf16 route {case}", got,
+                {"plain": (leaves(*sq.plain(flat, wt, Xt)),
+                           leaves(*sq32.plain(flat, wt, Xt))),
+                 "jax": (jax_leaves(compute_dtype=jnp.bfloat16),
+                         jax_leaves())},
+                bands)
