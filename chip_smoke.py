@@ -313,8 +313,10 @@ Phases (each failure is fatal; exit code != 0, no result line):
    ``fused="cuda"``: 200 steps bit for bit its solo solver, K3 once per
    step, one capture.  (b) The JAX package's factory benchmark
    (``bench.py --mode factory``): 64 Allen-Cahn members, theta_m =
-   1e-4 (0.5 + m/63), N_f = 2,048 each, 2-64-64-1: K3 exactly 64 per
-   family step and no K1/K2, one capture; 50 steps bit for bit the same
+   1e-4 (0.5 + m/63), N_f = 2,048 each, 2-64-64-1: K3 over the member axis
+   (``k3_minimax_family``) once per family step and tape group (the sweep
+   is one group), no member's own K3 and no K1/K2, one capture; 50 steps
+   bit for bit the same
    steps run eagerly; a member filled with NaN frozen at epoch 0 and the
    other 63 bit for bit; members 0 and 63 within FAC_SOLO_TOL of
    matched-seed solo solvers over 20 steps; 200 steps in all, the loss
@@ -322,8 +324,16 @@ Phases (each failure is fatal; exit code != 0, no result line):
    x 64, the sequential baseline, both over the same 150 replayed steps
    in chunks of 50 with no capture inside the timed window; then members
    0 and 63's K3, each through its own lowered tape, on their live rows,
-   parameters and w = λ², against the plain flavor at K3_RTOL.  (c) A pool redraw (K1 per member) and
-   an ascent redraw (K3 six times per member) at M = 64 in a fit: device
+   parameters and w = λ², against the plain flavor at K3_RTOL; then the
+   member-axis K3 at the same tensors in the f32, bf16 and TF32 flavors
+   (``_fac_member_k3``): every member's value, dW/db, gw and gX bit for
+   bit its single launch's, bit for bit run to run, members 0 and 63
+   within K3_RTOL (f32) or the bf16 bands of the plain flavor (TF32: its
+   distances to its emulation and phase 16's band reported); the launch
+   and the 64 single launches by CUDA events over 20, its bound, and the
+   yardstick (the family's products as ``torch.bmm``, f32).  (c) A pool
+   redraw (K1 per member) and an ascent redraw (the member-axis K3 six
+   times) at M = 64 in a fit: device
    ms on the redraw stream; then one redraw adopted directly, each
    member's λ and λ moments carried bit for bit.  (d) A checkpoint round
    trip: 10 more steps bit for bit.  (e) Members 0 and 63 served
@@ -360,7 +370,8 @@ Phases (each failure is fatal; exit code != 0, no result line):
    (2-64-64-1, N_f = 2,048), 600 steps, ``export_family``, served; drift
    0.8 in place trips the monitor; a 600-step retrain warm-started from
    the served parameters with pool redraws, and a hot swap of all four.
-   Gates: K3 exactly 4 per family step and K1 4 per redraw in the
+   Gates: the member-axis K3 once per family step (no member's own K3)
+   and K1 4 per redraw in the
    retrain, one capture of the family step, every tenant swapped, the
    probe residual below the drifted one, no capture at request time
    across the cutover.  Printed: queries to trip, detection and retrain
@@ -383,7 +394,8 @@ Phases (each failure is fatal; exit code != 0, no result line):
    evaluation (K3); the serving rungs ``u`` and ``residual`` at 4,096 and
    the fleet's tape rung (K1, the residual from the lowered tape of a
    surrogate with no f_model); the closed loop's 4-member family,
-   2-64-64-1 at N_f = 2,048 (K3 four times).  One line per graph: its
+   2-64-64-1 at N_f = 2,048 (the member-axis K3 once).  One line per
+   graph: its
    nodes, the port's kernel nodes by name, memcpy nodes by direction, host
    nodes.  Gates: no host-to-device or device-to-host memcpy node and no
    host node in any graph; each wrapper's kernel nodes equal the launches
@@ -2610,7 +2622,10 @@ def _wrappers() -> dict:
     return {"k1": ct.k1_forward, "k2": ct.k2_backward, "k3": cm.k3_minimax,
             "k1_bf16": ct.k1_forward_bf16, "k2_bf16": ct.k2_backward_bf16,
             "k3_bf16": cm.k3_minimax_bf16, "k1_tf32": ct.k1_forward_tf32,
-            "k2_tf32": ct.k2_backward_tf32, "k3_tf32": cm.k3_minimax_tf32}
+            "k2_tf32": ct.k2_backward_tf32, "k3_tf32": cm.k3_minimax_tf32,
+            "k3f": cm.k3_minimax_family,
+            "k3f_bf16": cm.k3_minimax_family_bf16,
+            "k3f_tf32": cm.k3_minimax_family_tf32}
 
 
 def _counts_all() -> dict:
@@ -3411,7 +3426,7 @@ def _rms_rel(a, b) -> float:
 
 
 def _tf32_check(label: str, got: list, emu: list, twin: list,
-                ieee: list) -> dict:
+                ieee: list, gate: bool = True) -> dict:
     """A TF32 kernel's leaves against the TF32-emulating plain flavor and
     its float64-summed twin (two referees of the same semantics): each
     leaf's RMS scale-relative distance to the nearer referee within
@@ -3421,7 +3436,9 @@ def _tf32_check(label: str, got: list, emu: list, twin: list,
     emulation's own max distance to the IEEE flavor (where one flipped
     operand decides the max), and the whole nearer (RMS) the emulation
     than the IEEE flavor.  Prints the distances to the emulation, to the
-    twin and to the IEEE flavor, and the spread."""
+    twin and to the IEEE flavor, and the spread.  ``gate=False``: reports
+    whether the leaves are within the band (``worst["in_band"]``) and
+    does not fail."""
     import torch
     worst = dict(max_abs_err=0.0, scale_rel_err=0.0, rms_rel=0.0,
                  twin_max=0.0, twin_rms=0.0, near_max=0.0, near_rms=0.0,
@@ -3460,9 +3477,13 @@ def _tf32_check(label: str, got: list, emu: list, twin: list,
           f"{worst['spread_rms']:.3e} RMS; to the IEEE flavor "
           f"{worst['ieee_max']:.3e} max, {worst['ieee_rms']:.3e} RMS",
           flush=True)
-    if not (worst["near_max"] <= band_max and worst["near_rms"] <= band_rms):
+    worst["in_band"] = bool(worst["near_max"] <= band_max
+                            and worst["near_rms"] <= band_rms
+                            and r_emu < r_ieee)
+    if gate and not (worst["near_max"] <= band_max
+                     and worst["near_rms"] <= band_rms):
         fail(f"{label} is outside the TF32 flavor's band")
-    if not r_emu < r_ieee:
+    if gate and not r_emu < r_ieee:
         fail(f"{label} is not nearer the TF32 emulation than the IEEE "
              "flavor")
     return worst
@@ -5408,6 +5429,165 @@ FAC_POISONED = 5  # the member (b) fills with NaN
 FAC_SOLO_TOL = 1e-5
 # (e): the served u against the member's network on the same points
 FAC_SERVE_TOL = 1e-6
+# (b): the member-axis K3's flavors, by counter key (the f32 one is the
+# family step's; the bf16 and TF32 ones are held at the same tensors)
+FAC_FLAVORS = (("k3f", {}), ("k3f_bf16", dict(compute_dtype="bfloat16")),
+               ("k3f_tf32", dict(precision="default")))
+
+
+def _fac_counts() -> dict:
+    """``_counts()`` and the member-axis K3's (``k3f``)."""
+    from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
+    return {**_counts(), "k3f": cm.k3_minimax_family.launches}
+
+
+def _fac_member_k3(fac, key: str, flavor: dict) -> dict:
+    """Phase 19(b): K3 over the member axis in one flavor at the family's
+    live tensors (X_f, w = λ², the parameters): every member's outputs bit
+    for bit its single launch's, bit for bit run to run, members 0 and M-1
+    against the plain flavor (f32 at K3_RTOL, bf16 in the bf16 bands; the
+    TF32 flavor's distances to its emulation and phase 16's band for them
+    reported, not gated: at this shape K3-TF32's single launch, which the
+    member axis equals bit for bit, sits outside that band's RMS for
+    member 63); CUDA events over 20 launches of the member-axis
+    launch and of the M single launches, the plain flavor over 3, the
+    bound (the members' work at the flavor's passes), and in the f32 flavor
+    the yardstick: the family's products as ``torch.bmm`` over the members
+    (the hidden layer's forward, dH and dW at N·C rows), f32.  Comparison
+    launches: the counts are put back."""
+    import torch
+    from tensordiffeq_tpu_torch.factory.family import _bind
+    from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
+    from tensordiffeq_tpu_torch.ops.minimax import (build_family_sq_fn,
+                                                    build_minimax_sq_fn)
+    saved = _counts_all()
+    tpl = fac._template
+    M, N = fac.n_members, int(fac.X_f.shape[1])
+    shapes = [tuple(W.shape) for W, _ in tpl.net.layers()]
+    if key == "k3f":
+        sqs = [fac._member_sq[m] for m in range(M)]
+    else:
+        sqs = [build_minimax_sq_fn(
+            _bind(fac.f_model, fac.member_thetas[m]), fac.varnames,
+            fac.n_out, tpl._fuse_requests, shapes, **flavor)
+            for m in range(M)]
+    fam = build_family_sq_fn(sqs)
+    plan = sqs[0].plan
+    launch = cm.FAMILY_FLAVORS[fam.flavor]
+    single = cm.FLAVORS[fam.flavor]
+    lam = fac.lambdas["residual"][0].detach()
+    w = (lam * lam).contiguous()
+    X = fac.X_f.contiguous()
+    leaves = [p.detach() if p.ndim == 3 else p.detach().reshape(M, 1, -1)
+              for p in fac.params]
+    flat = torch.cat([t.reshape(M, -1) for t in leaves], 1)
+    table = fam.constants[0].to(X.device)
+    if fam.groups != [list(range(M))]:
+        fail(f"factory {key}: the sweep's tapes are not one group: "
+             f"{fam.groups}")
+    got = launch(plan, X, w, flat, table)
+    again = launch(plan, X, w, flat, table)
+    packed = [sqs[m].plan.pack([t[m] for t in leaves]) for m in range(M)]
+    Xs = [X[m].contiguous() for m in range(M)]
+    ws = [w[m].contiguous() for m in range(M)]
+    torch.cuda.synchronize()
+    run_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+    same = 0
+    for m in range(M):
+        one = single(sqs[m].plan, Xs[m], ws[m], packed[m])
+        same += all(torch.equal(a, b) for a, b in zip(
+            (got[0][m], got[1][m], got[2][m], got[3][m]), one))
+    bf16, tf32 = key == "k3f_bf16", key == "k3f_tf32"
+    errs, worst = [], 0.0
+    for m in (0, M - 1):
+        fl = [t[m] for t in leaves]
+        if tf32:  # the TF32 flavor's referees and band (phase 16), reported
+
+            def four(res):
+                v, d, gw_, gX_ = res
+                return ([v.reshape(1)] + [t.reshape(-1) for t in d]
+                        + [gw_, gX_])
+
+            _tf32_check(
+                f"factory {key} member {m}",
+                four((got[0][m], sqs[m].plan.unpack(got[1][m]), got[2][m],
+                      got[3][m])),
+                four(sqs[m].plain(fl, ws[m], Xs[m], emulate_tf32=True)),
+                four(sqs[m].plain(fl, ws[m], Xs[m],
+                                  emulate_tf32="float64")),
+                four(fac._member_sq[m].plain(fl, ws[m], Xs[m])), gate=False)
+        want = _k3_leaves(lam[m], *sqs[m].plain(fl, ws[m], Xs[m],
+                                                emulate_tf32=tf32))
+        mine = _k3_leaves(lam[m], got[0][m], sqs[m].plan.unpack(got[1][m]),
+                          got[2][m], got[3][m])
+        if not all(bool(torch.isfinite(t).all()) for t in mine):
+            fail(f"factory {key}: member {m} has a non-finite output")
+        for i, (a, b) in enumerate(zip(mine, want)):
+            e = scaled_err(a, b)
+            errs.append(e)
+            # bf16: the value, gw and the λ gradient 2λ·gw are values
+            band = (K3_RTOL if not bf16 else BF16_VALUE_BAND
+                    if i in (0, len(want) - 3, len(want) - 2)
+                    else BF16_GRAD_BAND)
+            worst = max(worst, e[1] / band)
+    ms = cuda_ms(lambda: launch(plan, X, w, flat, table))
+
+    def singles():
+        for m in range(M):
+            single(sqs[m].plan, Xs[m], ws[m], packed[m])
+
+    singles_ms = cuda_ms(singles)
+    plain_ms = cuda_ms(lambda: fam.plain(leaves, w, X), reps=3, warmup=1)
+    flops = cm.flop_count(plan, N)["k3"]
+    flops = {k: M * v for k, v in flops.items()}
+    nbytes = M * cm.byte_count(plan, N)["k3"]
+    if bf16:
+        bound = bound_ms(flops, nbytes, cm.tensor_passes(plan,
+                                                         torch.bfloat16),
+                         PEAK_BF16_FLOPS)
+    else:
+        bound = bound_ms(flops, nbytes, 1 if tf32 else TF32_PASSES)
+    yard = None
+    if key == "k3f":
+        rows, width = N * plan.C, shapes[1][0]
+        g = torch.Generator(device=X.device).manual_seed(0)
+        H = torch.randn(M, rows, width, device=X.device, generator=g)
+        dP = torch.randn(M, rows, width, device=X.device, generator=g)
+        W = torch.randn(M, width, width, device=X.device, generator=g)
+
+        def products():
+            torch.bmm(H, W)
+            torch.bmm(dP, W.transpose(1, 2))
+            torch.bmm(H.transpose(1, 2), dP)
+
+        yard = cuda_ms(products)
+    _set_counts(saved)
+    max_abs = max(e[0] for e in errs)
+    rel = max(e[1] for e in errs)
+    print(f"[factory {key}] K3 over {M} members (N={N:,} each, "
+          f"{fac.layer_sizes}, flavor {fam.flavor or 'f32'}): one launch "
+          f"{ms:.3f} ms against the {M} single launches {singles_ms:.3f} "
+          f"ms ({singles_ms / ms:.2f}x); members bit for bit their single "
+          f"launch {same}/{M}; run to run "
+          f"{'bit-identical' if run_bits else 'DIFFERENT'}; members 0 and "
+          f"{M - 1} against the plain flavor"
+          f"{' (its TF32 emulation)' if tf32 else ''}: "
+          f"scale_rel_err {rel:.3e}, max_abs_err {max_abs:.3e}; plain "
+          f"{plain_ms:.3f} ms; {bound_text(ms, bound)}"
+          + ("" if yard is None else
+             f"; yardstick (the products as torch.bmm, f32) {yard:.3f} ms"),
+          flush=True)
+    if same != M or not run_bits:
+        fail(f"factory {key}: a member's outputs are not its single "
+             "launch's bit for bit, or the launch is not bit-identical run "
+             "to run")
+    if not tf32 and not worst <= 1.0:
+        fail(f"factory {key}: members 0 and {M - 1} disagree with the "
+             "plain flavor")
+    return dict(max_abs_err=max_abs, scale_rel_err=rel, ms=ms,
+                singles_ms=singles_ms, plain_ms=plain_ms, bound=bound,
+                yardstick_ms=yard, route=plan.k3_routes[fam.flavor],
+                members=M, bit_identical=bool(same == M and run_bits))
 
 
 def _fac_f_model(u, x, t, th):
@@ -5558,20 +5738,26 @@ def phase_factory(card: str) -> dict:
     fac = _fac_build()
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
-    at_compile = _counts()
+    at_compile = _fac_counts()
     c0 = len(graphs.captures)
     t_first = _timed_fit(fac, tf_iter=FAC_BIT, chunk=FAC_BIT)
-    at_bit = _counts()
+    at_bit = _fac_counts()
     in_fit = {k: at_bit[k] - at_compile[k] for k in at_bit}
     caps = _captures_since("factory", c0)
     state_bit = (_fac_bits(fac.params), _fac_hist(fac).copy())
+    fam = fac._family_res.family
+    n_groups = len(fam.groups)
     print(f"[factory] {FAC_M} members, AC theta 5e-5..1.5e-4, N_f={FAC_NF:,} "
           f"each, {FAC_WIDTHS}: engine {fac._template.engine} "
-          f"(family {fac.engine}), built in {t_build:.2f} s; launches "
+          f"(family {fac.engine}, tape groups {n_groups}, K3 route "
+          f"{fam.k3_routes}), built in {t_build:.2f} s; launches "
           f"after compile {at_compile}, in {FAC_BIT} steps {in_fit}; "
           f"captures {len(caps)}", flush=True)
-    if in_fit != {"k1": 0, "k2": 0, "k3": FAC_M * FAC_BIT}:
-        fail(f"factory: K3 not {FAC_M} per step, or K1/K2 ran: {in_fit}")
+    if n_groups != 1 or in_fit != {"k1": 0, "k2": 0, "k3": 0,
+                                   "k3f": n_groups * FAC_BIT} \
+            or fam.k3_routes != {None: "wgmma"}:
+        fail(f"factory: the member-axis K3 not once per step, a member's own "
+             f"K3 or K1/K2 ran: {in_fit} ({n_groups} tape groups)")
     if len(caps) != 1 or fac._step.graph.captures != 1:
         fail(f"factory: {len(caps)} captures, want one family step")
     saved = _counts_all()
@@ -5653,7 +5839,7 @@ def phase_factory(card: str) -> dict:
     if not (np.all(np.isfinite(h)) and h[-1].mean() < h[0].mean()
             and bool(fac.alive.all())):
         fail("factory: the family's loss did not fall")
-    paths["factory"] = dict(launches=_counts())
+    paths["factory"] = dict(launches=_fac_counts(), ms_step=ms)
     # K3 at the family's own shapes: the first and the last member, each
     # through its own lowered tape, on its live rows, parameters and λ
     for m in (0, FAC_M - 1):
@@ -5663,6 +5849,9 @@ def phase_factory(card: str) -> dict:
             fac.lambdas["residual"][0][i].detach(),
             [p[i].detach() if p.ndim == 3 else p[i].detach().reshape(1, -1)
              for p in fac.params])
+    # the member-axis K3 at the same tensors, in its three flavors
+    meas = {key: _fac_member_k3(fac, key, flavor)
+            for key, flavor in FAC_FLAVORS}
 
     # (c) a pool and an ascent redraw at M = 64
     for mode in ("pool", "ascent"):
@@ -5672,16 +5861,18 @@ def phase_factory(card: str) -> dict:
         fac.fit(tf_iter=FAC_RESAMPLE_STEPS, chunk=10, resample_every=10,
                 resample_mode=mode)
         torch.cuda.synchronize()
-        launches = _counts()
+        launches = _fac_counts()
         recs = fac.redraws[n0:]
         saved = _counts_all()
         direct_ms = _fac_carry_check(fac, mode)
         _set_counts(saved)
         n_rd = len(recs)
-        want = ({"k1": FAC_M * n_rd, "k2": 0,
-                 "k3": FAC_M * FAC_RESAMPLE_STEPS} if mode == "pool" else
-                {"k1": 0, "k2": 0,
-                 "k3": FAC_M * (FAC_RESAMPLE_STEPS + 6 * n_rd)})
+        # the pool redraw scores with K1 per member; the ascent mover's 5
+        # steps and last score are one member-axis K3 each
+        want = ({"k1": FAC_M * n_rd, "k2": 0, "k3": 0,
+                 "k3f": FAC_RESAMPLE_STEPS} if mode == "pool" else
+                {"k1": 0, "k2": 0, "k3": 0,
+                 "k3f": FAC_RESAMPLE_STEPS + 6 * n_rd})
         print(f"[factory {mode}] {FAC_RESAMPLE_STEPS} steps, redraws "
               + ", ".join(f"at {r['epoch']} (adopted {r['adopted']}, device "
                           f"{r['device_ms'] or float('nan'):.3f} ms on its "
@@ -5735,7 +5926,7 @@ def phase_factory(card: str) -> dict:
         fail("factory: a served member differs from its network")
     print(f"[factory] phase wall {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return paths
+    return paths, meas
 
 
 # --------------------------------------------------------------------- #
@@ -6341,7 +6532,7 @@ def _closedloop(work: str, card: str) -> dict:
                                init_params=init_params, fused="cuda",
                                verbose=False, device=FLEET_DEVICE)
         _sync()
-        made.append((fac, _counts()))
+        made.append((fac, _fac_counts()))
         return fac
 
     reg = telemetry.default_registry()
@@ -6399,7 +6590,7 @@ def _closedloop(work: str, card: str) -> dict:
     cycle = controller.run_cycle()
     _sync()
     fac, at_build = made[-1]
-    launches = _counts()
+    launches = _fac_counts()
     in_fit = {k: launches[k] - at_build[k] for k in launches}
     cycle_caps = compiles() - pre
     warm_caps = sum(v["warm"]["aot"] + v["warm"]["jit"]
@@ -6427,7 +6618,7 @@ def _closedloop(work: str, card: str) -> dict:
           f"{detect_s:.3f} s; retrain {cycle['retrain_wall_s']:.2f} s "
           f"({cycle['retrain_epochs']} steps, {n_rd} redraws: "
           f"{[r['adopted'] for r in fac.redraws]}); launches in the retrain's "
-          f"fit {in_fit} (K3 want {CL_M * CL_STEPS}, K1 want "
+          f"fit {in_fit} (the member-axis K3 want {CL_STEPS}, K1 want "
           f"{CL_M * n_rd}); family step captures {caps}; swapped "
           f"{len(cycle['swapped'])}/{CL_M}, cutover stall p50 "
           f"{1e3 * (res['stall_p50_s'] or float('nan')):.3f} ms; probe "
@@ -6435,7 +6626,7 @@ def _closedloop(work: str, card: str) -> dict:
           f"cycle {cycle_caps:g} (the candidates' warm starts "
           f"{warm_caps}), after it {after_caps:g}; MTTR "
           f"{res['mttr_s']:.2f} s; {card}", flush=True)
-    if in_fit != {"k1": CL_M * n_rd, "k2": 0, "k3": CL_M * CL_STEPS} \
+    if in_fit != {"k1": CL_M * n_rd, "k2": 0, "k3": 0, "k3f": CL_STEPS} \
             or caps != 1 or n_rd < 2:
         fail(f"closedloop: launches in the retrain {in_fit}, family step "
              f"captures {caps}, redraws {n_rd}")
@@ -6635,7 +6826,7 @@ AUDIT_WALL_S = 30.0
 AUDIT_EXPECT = {"minimax": {"k3": 1}, "unfused": {"k1": 1, "k2": 1},
                 "lbfgs-evaluator": {"k3": 1}, "serve-u": {},
                 "serve-residual": {}, "tape-residual": {"k1": 1},
-                "family": {"k3": CL_M}}
+                "family": {"k3f": 1}}
 
 
 def _audit_gate(tag: str, rep, expect: dict):
@@ -6649,8 +6840,10 @@ def _audit_gate(tag: str, rep, expect: dict):
     if rep.launches != expect or rep.captured != rep.launches:
         fail(f"audit {tag}: launches per replay {rep.launches} (the "
              f"twin's {rep.captured}), expected {expect}")
+    # a main kernel's nodes are its wrappers' launches (K3's wgmma kernel:
+    # k3 and the member axis's k3f)
     nodes = {k: rep.kernel_nodes(k) for k in ("k1", "k2", "k3")}
-    if any(nodes[k] != rep.launches.get(k, 0) for k in nodes):
+    if any(nodes[k] != rep.node_launches(k) for k in nodes):
         fail(f"audit {tag}: kernel nodes {nodes} against launches "
              f"{rep.launches}")
 
@@ -6782,7 +6975,9 @@ def kernels_line(meas: dict, paths: dict) -> str:
     dist-w1-ntk and dist-w2, phase 18's resilience, resilience-off,
     resilience-resume, resilience-serve and resilience-cluster, the last
     the relaunched worker's, phase 19's factory-1, factory, factory-pool
-    and factory-ascent, phase 20's examples, and phase 21's
+    and factory-ascent (``k3f``, the member-axis K3, on these and on the
+    closed loop's and the audit's family step), phase 20's examples, and
+    phase 21's
     fleet-residual, the fleet's traffic in its serving process,
     closedloop, the closed loop's retrain, and phase 22's audit, its
     steps at full width)."""
@@ -6805,6 +7000,8 @@ def kernels_line(meas: dict, paths: dict) -> str:
             ("k2_tf32", "taylor_table_bwd tf32 (K2-TF32)",
              "csrc/wg_backward.cuh", "pallas_taylor.py:171"),
             ("k3_tf32", "minimax_step tf32 (K3-TF32)",
+             "csrc/wg_backward.cuh", "pallas_minimax.py:259"),
+            ("k3f", "minimax_step member axis (K3 over a family's members)",
              "csrc/wg_backward.cuh", "pallas_minimax.py:259")):
         m = meas[key]
         by_path = {tag: int(res["launches"].get(key, 0))
@@ -6860,9 +7057,33 @@ def kernels_line(meas: dict, paths: dict) -> str:
                 "bound_ms": m["wide"]["bound"]["ms"],
                 "bound_by": m["wide"]["bound"]["by"]}}
                if "wide" in m else {}),
+            # the member-axis K3 (phase 19(b), the factory's 64 members):
+            # the members' single launches in the same call, and the
+            # family's products as torch.bmm (the yardstick)
+            **({"members": m["members"], "singles_ms": m["singles_ms"],
+                "yardstick_ms": m["yardstick_ms"],
+                "scale_rel_err": m["scale_rel_err"]}
+               if key == "k3f" else {}),
             # no single PyTorch call computes the Taylor table or the
             # fused minimax step
             "library_ms": None})
+    # the member-axis K3's bf16 and TF32 flavors: the same kernel as
+    # K3-bf16 / K3-TF32 with a member axis; no entry point trains a bf16 or
+    # TF32 family, so they are held and timed in phase 19(b) at the
+    # factory's tensors and reported beside their single-network flavor
+    by_name = {e["name"]: e for e in entries}
+    for key, single_name in (
+            ("k3f_bf16", "minimax_step bf16 (K3-bf16)"),
+            ("k3f_tf32", "minimax_step tf32 (K3-TF32)")):
+        m = meas[key]
+        by_name[single_name]["member_axis"] = {
+            "launches": sum(int(res["launches"].get(key, 0))
+                            for res in paths.values()),
+            "members": m["members"], "max_abs_err": m["max_abs_err"],
+            "scale_rel_err": m["scale_rel_err"], "ms": m["ms"],
+            "singles_ms": m["singles_ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound"]["ms"], "bound_by": m["bound"]["by"],
+            "bit_identical": m["bit_identical"], "library_ms": None}
     return json.dumps({"kernels": entries})
 
 
@@ -7023,7 +7244,9 @@ def main():
     paths.update(option_paths)
     paths.update(phase_dist(card))
     paths.update(phase_resilience(card))
-    paths.update(phase_factory(card))
+    fac_paths, fac_meas = phase_factory(card)
+    paths.update(fac_paths)
+    meas.update(fac_meas)
     paths.update(phase_examples(card))
     paths.update(phase_fleet(card))
     paths.update(phase_audit(card))

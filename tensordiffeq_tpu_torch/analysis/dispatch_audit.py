@@ -513,6 +513,9 @@ def audit_all():
 KERNEL_NODES = {"k1": re.compile(r"taylor_fwd(?:_wg)?_kernel"),
                 "k2": re.compile(r"taylor_bwd(?:_wg)?_kernel"),
                 "k3": re.compile(r"minimax_(?:step|wg)_kernel")}
+#: the counter keys of the wrappers that launch each main kernel: K3 over
+#: a member axis (``k3f``) launches K3's wgmma kernel once per launch
+NODE_KEYS = {"k1": ("k1",), "k2": ("k2",), "k3": ("k3", "k3f")}
 _LABEL = re.compile(r'label="(.*)"', re.S)
 
 
@@ -540,14 +543,19 @@ class GraphReport:
         pat = KERNEL_NODES[key]
         return sum(n for k, n in self.kernels.items() if pat.search(k))
 
+    def node_launches(self, key: str) -> int:
+        """The launches per replay of the wrappers that launch ``key``'s
+        main kernel (:data:`NODE_KEYS`)."""
+        return sum(self.launches.get(k, 0) for k in NODE_KEYS[key])
+
     @property
     def ok(self) -> bool:
         """No copy across the host boundary, no host node, the twin's
-        launches those of the graph that replays, and each wrapper's kernel
-        nodes equal to its launches per replay."""
+        launches those of the graph that replays, and each main kernel's
+        nodes equal to its wrappers' launches per replay."""
         return (not any(d != "DtoD" for d in self.memcpy) and not self.host
                 and self.captured == self.launches
-                and all(self.kernel_nodes(k) == self.launches.get(k, 0)
+                and all(self.kernel_nodes(k) == self.node_launches(k)
                         for k in KERNEL_NODES))
 
     def by_name(self) -> dict:
@@ -708,7 +716,8 @@ def _counters() -> dict:
     """The f32 kernel wrappers by counter key."""
     from ..ops import cuda_minimax as cm
     from ..ops import cuda_taylor as ct
-    return {"k1": ct.k1_forward, "k2": ct.k2_backward, "k3": cm.k3_minimax}
+    return {"k1": ct.k1_forward, "k2": ct.k2_backward, "k3": cm.k3_minimax,
+            "k3f": cm.k3_minimax_family}
 
 
 #: what PyTorch's sync debug mode says at each synchronising call

@@ -51,12 +51,14 @@ static __device__ __forceinline__ float pow_c(float a, float c) {
 // One point gp < N of a tile: rows holds its table rows (channel c, output
 // o at rows[c*ld + o], c < C) and is overwritten with their cotangents, x
 // its d coordinates; gw[gp] gets f_e^2 and gX[gp] the coordinates' direct
-// adjoints.  Returns the point's sum_e w_e * f_e^2.  Registers live in
-// per-thread local arrays (dynamically indexed).
+// adjoints.  The tape's constants are read from cst (tp.cst itself, or the
+// member's row of a family's constant table: the members of a tape group
+// share tp's ops).  Returns the point's sum_e w_e * f_e^2.  Registers live
+// in per-thread local arrays (dynamically indexed).
 static __device__ __forceinline__ float tape_point(
     float* rows, int ld, const float* x, const float* __restrict__ w,
     float* __restrict__ gw, float* __restrict__ gX, int gp, int C,
-    int n_out, int d, const Tape& tp) {
+    int n_out, int d, const Tape& tp, const float* cst) {
   const int n_tab = C * n_out, E = tp.n_eq;
   float r[MAXTREG], g[MAXTREG];
   for (int i = 0; i < tp.n_in; ++i) {
@@ -67,13 +69,13 @@ static __device__ __forceinline__ float tape_point(
     const int a = tp.op[k][1], b = tp.op[k][2];
     float v;
     switch (tp.op[k][0]) {
-      case OP_CONST: v = tp.cst[a]; break;
+      case OP_CONST: v = cst[a]; break;
       case OP_ADD: v = r[a] + r[b]; break;
       case OP_SUB: v = r[a] - r[b]; break;
       case OP_MUL: v = r[a] * r[b]; break;
       case OP_DIV: v = r[a] / r[b]; break;
       case OP_NEG: v = -r[a]; break;
-      case OP_POW: v = pow_c(r[a], tp.cst[b]); break;
+      case OP_POW: v = pow_c(r[a], cst[b]); break;
       case OP_SIN: v = sinf(r[a]); break;
       case OP_COS: v = cosf(r[a]); break;
       case OP_EXP: v = expf(r[a]); break;
@@ -115,7 +117,7 @@ static __device__ __forceinline__ float tape_point(
       }
       case OP_NEG: g[a] -= go; break;
       case OP_POW: {
-        const float c = tp.cst[b];
+        const float c = cst[b];
         if (c != 0.f) g[a] += go * c * pow_c(r[a], c - 1.f);
         break;
       }

@@ -48,5 +48,5 @@ extern "C" int tdq_taylor_bwd_wg(const float* X, const float* prm,
   if (launch == nullptr || (wp.NP != 64 && wp.NP != 128))
     return (int)cudaErrorInvalidValue;
   return launch(X, nullptr, prm, gtab, nullptr, dX, part, ws, grad, N, net,
-                s, nullptr, wp, st);
+                s, nullptr, nullptr, 1, wp.grid, wp, st);
 }

@@ -17,7 +17,11 @@
 // from the table cotangents; K3 the value sum_e sum_p w f_e^2, dW/db, gw =
 // f^2 and gX through the residual tape.  The interfaces, the packed
 // layouts and the partial slots are theirs, so reduce_partials sums the
-// slots after it as after them.
+// slots after it as after them.  K3 also runs over a member axis (a
+// surrogate factory's members, whose tapes share their ops): one launch,
+// each member keeping the single launch's partition and slot order, so
+// its outputs are that launch's bit for bit (wb_body_k3; M = 1 is the
+// single launch).
 //
 // What bounds it.  Operations: the nine 128-wide products of a tile on the
 // AC slice (three forward, three dH, three dW; 58.98 GFLOP at N = 50,000,
@@ -154,14 +158,15 @@
 // operands H^T
 // and dP^T (65,536 each), the table rows (the bias partials in the reverse
 // sweep, 4,096), X's rows (1,024), the small operands (3,648), the value's
-// warp sums (32), the mbarriers (128): 205,536 bytes of the H100's
-// 232,448.  The f32 flavor's sum, were its operands' lo planes resident:
-// the hi and lo weight planes at KC = 64 would take 64 KB a stage (two
-// stages and the fixed 140,000: 271,072), and dW's lo planes of H^T and
-// dP^T another 131,072 (at KC = 32: 336,608); so KC = 32, and dW's lo
-// planes are made in place over H^T and dP^T (three passes, two more
-// block barriers and two warpgroup barriers a hidden layer).  The bf16
-// flavor: five 16 KB stages (81,920) and the same fixed 140,000: 221,920.
+// warp sums (32), K3's work item state (64), the mbarriers (128): 205,600
+// bytes of the H100's 232,448.  The f32 flavor's sum, were its operands'
+// lo planes resident: the hi and lo weight planes at KC = 64 would take 64
+// KB a stage (two stages and the fixed 140,064: 271,136), and dW's lo
+// planes of H^T and dP^T another 131,072 (at KC = 32: 336,672); so KC =
+// 32, and dW's lo planes are made in place over H^T and dP^T (three
+// passes, two more block barriers and two warpgroup barriers a hidden
+// layer).  The bf16 flavor: five 16 KB stages (81,920) and the same fixed
+// 140,064: 221,984.
 // Registers (nvcc -Xptxas -v, CUDA 12.8): TF32 NP = 128 180-255 (255 at
 // CP = 4, no spills; 8 B of spill stores at CP = 8), NP = 64 114-207, no
 // spills; f32: PERF.md section 6; bf16 NP = 128 247-255, no spill at CP <=
@@ -178,6 +183,7 @@
 
 #define WB_ROWS 128       // rows of a tile: two warpgroups of 64
 #define WB_THREADS 256    // the block: the two warpgroups
+#define WB_ITEM_FLOATS 16 // K3's work item state (WbItem), 64 bytes
 
 // k rows of a weight chunk: 64 in the TF32 flavor (the hi plane alone), 32
 // in the f32 flavor (the hi and lo planes: the same bytes a stage), 64 in
@@ -223,12 +229,13 @@ static __host__ __device__ __forceinline__ int wb_rows_floats(const Net& net,
 
 // Dynamic shared memory besides the ring: H^T and dP^T (NP x 128 floats
 // each), the table rows (or the bias partials), the tile's rows of X (128 x
-// d at most), the small operands, the value's 8 warp sums, the 2 x WG_MAXS
-// mbarriers.
+// d at most), the small operands, the value's 8 warp sums, K3's work item
+// state (WbItem), the 2 x WG_MAXS mbarriers.
 static __host__ __device__ __forceinline__ int wb_fixed_bytes(const Net& net,
                                                               int NP) {
   return 4 * (2 * NP * WB_ROWS + wb_rows_floats(net, NP) +
-              pad4(WB_ROWS * net.d) + wb_misc_floats(net, NP) + 8) +
+              pad4(WB_ROWS * net.d) + wb_misc_floats(net, NP) + 8 +
+              WB_ITEM_FLOATS) +
          2 * WG_MAXS * 8;
 }
 
@@ -279,9 +286,10 @@ static inline int wb_plan(const Net& net, const Sched& s, int flavor,
 // even), 8 to a core-matrix row and the k rows in their natural order
 // (K1-bf16's chunks).
 template <int FL>
-static __global__ void prep_wb_weights(const float* __restrict__ prm,
-                                       float* __restrict__ out, Net net,
-                                       WbPlan wp) {
+static __device__ __forceinline__ void wb_prep(const float* __restrict__ prm,
+                                               float* __restrict__ out,
+                                               const Net& net,
+                                               const WbPlan& wp) {
   const int NP = wp.NP, KC = wp.KC, per = NP * KC, nch = NP / KC;
   const int half = wp.P / 2, total = wp.P * per;
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total;
@@ -314,6 +322,41 @@ static __global__ void prep_wb_weights(const float* __restrict__ prm,
       out[(size_t)q * per + wg_cm_offset(n, kq, KC, 4)] = tf32r(v);
     }
   }
+}
+
+template <int FL>
+static __global__ void prep_wb_weights(const float* __restrict__ prm,
+                                       float* __restrict__ out, Net net,
+                                       WbPlan wp) {
+  wb_prep<FL>(prm, out, net, wp);
+}
+
+// K3's planes for a member axis: member blockIdx.y's parameters (prm rows
+// of P_total) into its planes, P * stage_bytes after the previous member's.
+template <int FL>
+static __global__ void prep_wb_weights_m(const float* __restrict__ prm,
+                                         float* __restrict__ out, Net net,
+                                         WbPlan wp) {
+  wb_prep<FL>(prm + (size_t)blockIdx.y * net.P_total,
+              out + (size_t)blockIdx.y * wp.P * (wp.stage_bytes / 4), net,
+              wp);
+}
+
+// reduce_partials over a member axis: member blockIdx.y's G slots (the
+// slots of members before it first) summed in slot order into its row of
+// out (P values a member), as reduce_partials sums a single launch's.
+template <bool BF>
+static __global__ void reduce_member_partials(const float* __restrict__ part,
+                                              float* __restrict__ out, int G,
+                                              int P, Net net) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= P) return;
+  const size_t stride = slot_stride(P);
+  const float* mine = part + (size_t)blockIdx.y * G * stride;
+  float acc = 0.f;
+  for (int g = 0; g < G; ++g) acc += mine[g * stride + e];
+  if (BF && is_weight(net, e)) acc = bf16r(acc);
+  out[(size_t)blockIdx.y * P + e] = acc;
 }
 
 // x's TF32 part as the tensor cores read an f32 operand: its low 13 bits
@@ -822,7 +865,8 @@ static __device__ __forceinline__ void wb_fill(const WbRing& r, long long i) {
 }
 
 // Wait for chunk i; returns its stage's shared address.
-static __device__ __forceinline__ unsigned wb_acquire(const WbRing& r,
+template <class R>
+static __device__ __forceinline__ unsigned wb_acquire(const R& r,
                                                       long long i) {
   const int st = (int)(i % r.S);
   mbar_wait(&r.full[st], (unsigned)((i / r.S) & 1));
@@ -837,6 +881,53 @@ static __device__ __forceinline__ void wb_release(const WbRing& r,
   __syncwarp();
   if (lane == 0) mbar_arrive(&r.empty[st]);
   if (threadIdx.x == 0 && i + r.S < r.total) {
+    mbar_wait(&r.empty[st], (unsigned)((i / r.S) & 1));
+    wb_fill(r, i + r.S);
+  }
+}
+
+// K3's work item over a member axis (wb_body_k3), in shared memory: thread
+// 0 writes it at the item's start, before the block's barrier, and every
+// thread reads it where it needs it (registers are the kernel's scarcest
+// resource).  The ring's chunks run through the block's items in turn, each
+// item's a whole number of tiles' P chunks (so i % P is still a chunk's
+// plane): chunks before boundary come from planes (this item's member's),
+// the rest, up to total (the end of the next item's), from next (the next
+// item's member's), so thread 0 fills on across an item's end.
+struct WbItem {
+  const char* planes;
+  const char* next;
+  long long boundary, total;
+  float* slot;  // its partial slot, m*G + b
+  int j, m, b;  // the item, its member and virtual block
+  int items;    // the launch's M*G
+};
+static_assert(sizeof(WbItem) <= 4 * WB_ITEM_FLOATS, "WbItem's bytes");
+
+struct WbRingF {
+  char* stages;
+  uint64_t* full;
+  uint64_t* empty;
+  int S, P, stage_bytes;
+  const WbItem* it;
+};
+
+static __device__ __forceinline__ void wb_fill(const WbRingF& r,
+                                               long long i) {
+  const int st = (int)(i % r.S);
+  const char* planes = i < r.it->boundary ? r.it->planes : r.it->next;
+  mbar_expect(&r.full[st], (unsigned)r.stage_bytes);
+  bulk_copy(r.stages + (size_t)st * r.stage_bytes,
+            planes + (size_t)(i % r.P) * r.stage_bytes,
+            (unsigned)r.stage_bytes, &r.full[st]);
+}
+
+static __device__ __forceinline__ void wb_release(const WbRingF& r,
+                                                  long long i, int lane) {
+  const int st = (int)(i % r.S);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&r.empty[st]);
+  if (threadIdx.x == 0 && i + r.S < r.it->total) {
     mbar_wait(&r.empty[st], (unsigned)((i / r.S) & 1));
     wb_fill(r, i + r.S);
   }
@@ -948,11 +1039,11 @@ static __device__ __forceinline__ void wb_chunk_pieces(
 // nearest): the hidden activations, which every later sum over points
 // reads, carry no drift toward zero from 48 truncating passes into one
 // accumulator.
-template <int FL, int NP>
+template <int FL, int NP, class R>
 static __device__ __forceinline__ void wb_products(float (&acc)[NP / 2],
                                                    int l, int c, int t,
                                                    int lane, const float* sB,
-                                                   const WbRing& r,
+                                                   const R& r,
                                                    long long& chunk) {
   constexpr int KC = wb_kc(FL);
   float nacc[NP / 2];
@@ -984,10 +1075,10 @@ static __device__ __forceinline__ void wb_products(float (&acc)[NP / 2],
 // wb_chunk3, into the one accumulator; or cut into three bf16 pieces in
 // the bf16 flavor, wb_chunk_pieces, and the sums rounded to bf16), B layer
 // l's backward plane, chunk by chunk through the ring.
-template <int FL, int NP>
+template <int FL, int NP, class R>
 static __device__ __forceinline__ void wb_dh(float (&out)[NP / 2],
                                              const float (&in)[NP / 2],
-                                             int lane, const WbRing& r,
+                                             int lane, const R& r,
                                              long long& chunk) {
   constexpr int KC = wb_kc(FL);
 #pragma unroll
@@ -1286,8 +1377,8 @@ template <int CP>
 static __device__ __forceinline__ void wb_epilogue(
     float* T, const float* sx, const float* __restrict__ w,
     float* __restrict__ gw, float* __restrict__ gX, int N, int p0, int C,
-    int n_out, int d, const Tape& tp, float* sRed, float* vslot, bool first,
-    int ctid, int lane, int warp) {
+    int n_out, int d, const Tape& tp, const float* cst, float* sRed,
+    float* vslot, bool first, int ctid, int lane, int warp) {
   constexpr int TP = WB_ROWS / CP;
   float v = 0.f;
   if (ctid < TP) {
@@ -1295,7 +1386,7 @@ static __device__ __forceinline__ void wb_epilogue(
     float* rows = T + ctid * CP * n_out;
     if (gp < N) {
       v = tape_point(rows, n_out, sx + ctid * d, w, gw, gX, gp, C, n_out, d,
-                     tp);
+                     tp, cst);
     } else {
       for (int cc = 0; cc < C; ++cc)
         for (int o = 0; o < n_out; ++o) rows[cc * n_out + o] = 0.f;
@@ -1393,18 +1484,18 @@ static __device__ __forceinline__ void wb_layer0_bwd(
   }
 }
 
-// The route's body, shared by K2 (K3 false: the table cotangents gtab in,
-// dX out) and K3 (the tape's epilogue on the head's rows; w in, gw and gX
-// out), in flavor FL (FL_F32, FL_TF32 or FL_BF16).  The bf16 flavor's
-// operands of dW take the bytes of H^T and dP^T as four bf16 planes: Hb,
-// then the pieces (wb_put_pieces); layer 0's dP_0 goes to dPt in f32.
-template <int FL, int NP, int CP, bool K3>
+// K2's body on the route (the table cotangents gtab in, dX out), in flavor
+// FL (FL_F32, FL_TF32 or FL_BF16).  The bf16 flavor's operands of dW take
+// the bytes of H^T and dP^T as four bf16 planes: Hb, then the pieces
+// (wb_put_pieces); layer 0's dP_0 goes to dPt in f32.  K3's body
+// (wb_body_k3, over a member axis) runs the same tile; this one keeps its
+// own copy so that K2's instructions stay as they were.
+template <int FL, int NP, int CP>
 static __device__ __forceinline__ void wb_body(
-    const float* __restrict__ X, const float* __restrict__ w,
-    const float* __restrict__ prm, const float* __restrict__ gtab,
-    float* __restrict__ gw, float* __restrict__ dX, float* __restrict__ part,
-    float* __restrict__ ws, int N, const Net& net, const Sched& s,
-    const Tape* tp, const WbPlan& wp) {
+    const float* __restrict__ X, const float* __restrict__ prm,
+    const float* __restrict__ gtab, float* __restrict__ dX,
+    float* __restrict__ part, float* __restrict__ ws, int N, const Net& net,
+    const Sched& s, const WbPlan& wp) {
   constexpr int H2 = NP / 2, TP = WB_ROWS / CP;
   extern __shared__ __align__(128) char smw[];
   const int d = net.d, L = net.L, n_out = net.n_out, C = s.C;
@@ -1420,7 +1511,6 @@ static __device__ __forceinline__ void wb_body(
   float* sB = sW0 + d * NP;
   float* sWh = sB + (L - 1) * NP;
   float* sBh = sWh + NP * n_out;
-  float* sRed = sW0 + wb_misc_floats(net, NP);
   uint64_t* full =
       reinterpret_cast<uint64_t*>(smw + (wp.smem - 2 * WG_MAXS * 8));
   uint64_t* empty = full + WG_MAXS;
@@ -1465,8 +1555,7 @@ static __device__ __forceinline__ void wb_body(
   const int dir = ord == 1 ? s.idx[c][0] : 0;
   const int row0 = 64 * wg + 16 * wq + g;
   const int pl0 = row0 / CP, pl1 = (row0 + 8) / CP;
-  const int P_all = K3 ? net.P_total + 1 : net.P_total;
-  float* mypart = part + (size_t)blockIdx.x * slot_stride(P_all);
+  float* mypart = part + (size_t)blockIdx.x * slot_stride(net.P_total);
   float* myws = ws + (size_t)blockIdx.x * (L - 1) * slice;
   long long chunk = 0;
   // the bulk groups this thread issues a tile (wb_dw_update), less one
@@ -1489,20 +1578,13 @@ static __device__ __forceinline__ void wb_body(
     }
     // the head: acc holds its input H_{L-1}
     wb_put_kmajor<FL, NP>(acc, Ht, row0, t);
-    if constexpr (K3) {
-      wb_head<FL, NP>(acc, T, n_out, c, t, row0, sWh, sBh);
-      wb_sync_all();
-      wb_epilogue<CP>(T, sx, w, gw, dX, N, p0, C, n_out, d, *tp, sRed,
-                      mypart + net.P_total, first, ctid, lane, warp);
-    } else {
-      for (int e = ctid; e < WB_ROWS * n_out; e += WB_THREADS) {
-        const int r = e / n_out, o = e % n_out, p = r / CP, cc = r % CP;
-        const int gp = p0 + p;
-        T[e] = (cc < C && gp < N) ? gtab[((size_t)cc * N + gp) * n_out + o]
-                                  : 0.f;
-      }
-      wb_sync_all();
+    for (int e = ctid; e < WB_ROWS * n_out; e += WB_THREADS) {
+      const int r = e / n_out, o = e % n_out, p = r / CP, cc = r % CP;
+      const int gp = p0 + p;
+      T[e] = (cc < C && gp < N) ? gtab[((size_t)cc * N + gp) * n_out + o]
+                                : 0.f;
     }
+    wb_sync_all();
     float dh[H2];
     wb_head_bwd<FL, NP, CP>(dh, T, Ht, sWh, n_out, wl,
                         mypart + net.offW[L - 1], mypart + net.offb[L - 1],
@@ -1530,8 +1612,9 @@ static __device__ __forceinline__ void wb_body(
       wb_sync_all();
       wb_bias(sDb, NP, net.w_out[l], mypart + net.offb[l], first, ctid);
       if (l == 0) {
-        wb_layer0_bwd<FL, CP, K3>(dPt, sx, sW0, NP, dX, mypart + net.offW[0],
-                                  N, p0, d, w0, s, first, ctid);
+        wb_layer0_bwd<FL, CP, false>(dPt, sx, sW0, NP, dX,
+                                     mypart + net.offW[0], N, p0, d, w0, s,
+                                     first, ctid);
         break;
       }
       float nh[H2];
@@ -1568,6 +1651,230 @@ static __device__ __forceinline__ void wb_body(
   bulk_wait();  // this thread's last bulk adds are in the slot
 }
 
+// K3's body on the route (the tape's epilogue on the head's rows; w in, gw
+// and gX out), in flavor FL, over a member axis of M networks (a family's
+// members, which share N, the architecture and the tape's ops tp; M = 1 is
+// the single network): X, w, prm, gw and gX hold the members one after
+// another, cst_tab their tape constants (MAXTCONST a member; nullptr:
+// tp's own), and the members' weight planes follow the blocks' slices, one
+// member's after another's.  Member m keeps the single launch's partition:
+// G = wp.grid virtual blocks, b running its tiles b, b + G, ... into its
+// slot m*G + b.  The launch's persistent blocks walk the M*G work items
+// (m, b) in turn (block k the items k, k + gridDim.x, ...), so each slot
+// gets the single launch's adds in its order and every member's outputs
+// are that launch's bit for bit.  An item's state (WbItem) lives in shared
+// memory, its small operands are loaded after the previous item's last
+// barrier, and the ring fills on across items (WbRingF).  The tile is
+// K2's (wb_body) with the head's table rows from the forward and the tape.
+template <int FL, int NP, int CP>
+static __device__ __forceinline__ void wb_body_k3(
+    const float* __restrict__ X, const float* __restrict__ w,
+    const float* __restrict__ prm, float* __restrict__ gw,
+    float* __restrict__ gX, float* __restrict__ part,
+    float* __restrict__ ws, int N, const Net& net, const Sched& s,
+    const Tape& tp, const float* __restrict__ cst_tab, int M,
+    const WbPlan& wp) {
+  constexpr int H2 = NP / 2, TP = WB_ROWS / CP;
+  extern __shared__ __align__(128) char smw[];
+  const int d = net.d, L = net.L, n_out = net.n_out, C = s.C;
+  char* stages = smw;
+  float* Ht = reinterpret_cast<float*>(smw + (size_t)wp.S * wp.stage_bytes);
+  float* dPt = Ht + NP * WB_ROWS;
+  bf16* const Hb = reinterpret_cast<bf16*>(Ht);
+  bf16* const pc = Hb + NP * WB_ROWS;
+  float* T = dPt + NP * WB_ROWS;
+  float* sDb = T;  // the reverse sweep's bias partials
+  float* sx = T + wb_rows_floats(net, NP);
+  float* sW0 = sx + pad4(WB_ROWS * d);
+  float* sB = sW0 + d * NP;
+  float* sWh = sB + (L - 1) * NP;
+  float* sBh = sWh + NP * n_out;
+  float* sRed = sW0 + wb_misc_floats(net, NP);
+  WbItem* it = reinterpret_cast<WbItem*>(sRed + 8);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smw + (wp.smem - 2 * WG_MAXS * 8));
+  uint64_t* empty = full + WG_MAXS;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < wp.S; ++i) {
+      mbar_init_n(&full[i], 1);
+      mbar_init_n(&empty[i], 8);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  const int w0 = net.w_out[0], wl = net.w_in[L - 1];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t slice = (size_t)WB_ROWS * NP;
+  const WbRingF ring{stages, full, empty, wp.S, wp.P, wp.stage_bytes, it};
+  const int ctid = threadIdx.x, wg = warp >> 2, wq = warp & 3;
+  const int g = lane >> 2, t = lane & 3, wt = ctid & 127;
+  const int c = g % CP;
+  const int ord = c < C ? s.order[c] : -1;
+  const int dir = ord == 1 ? s.idx[c][0] : 0;
+  const int row0 = 64 * wg + 16 * wq + g;
+  const int pl0 = row0 / CP, pl1 = (row0 + 8) / CP;
+  const int P_all = net.P_total + 1, E = tp.n_eq, G = wp.grid;
+  float* myws = ws + (size_t)blockIdx.x * (L - 1) * slice;
+  long long chunk = 0;
+  // the bulk groups this thread issues a tile (wb_dw_update), less one
+  int behind = -1;
+  for (int l = 1; l + 1 < L; ++l)
+    behind += wt < net.w_in[l] && wg * H2 < net.w_out[l];
+  // the block's items j, j + gridDim.x, ... (j < M*G as grid <= M*G), their
+  // tiles in one loop: tile < 0 starts item -1 - tile.  The item's values
+  // are read from its state where they are needed, so the tiles hold no
+  // more registers than the single launch's did
+  int tile = -1 - (int)blockIdx.x;
+  for (;;) {
+    if (tile < 0) {
+      const int j = -1 - tile, b = j % G;
+      __syncthreads();  // every thread has read the previous item's state
+      if (threadIdx.x == 0) {  // the item's state; its ring (WbItem)
+        const char* planes0 = reinterpret_cast<const char*>(
+            ws + (size_t)gridDim.x * (L - 1) * slice);
+        const size_t bytes = (size_t)wp.P * wp.stage_bytes;  // a member's
+        const int jn = j + gridDim.x;
+        it->j = j;
+        it->m = j / G;
+        it->b = b;
+        it->items = M * G;
+        it->slot = part + (size_t)j * slot_stride(P_all);
+        it->planes = planes0 + (size_t)(j / G) * bytes;
+        it->next = jn < M * G ? planes0 + (size_t)(jn / G) * bytes
+                              : it->planes;
+        // the chunks of an item: its tiles' P each
+        it->boundary =
+            chunk + (long long)((wp.n_tiles - b + G - 1) / G) * wp.P;
+        it->total = it->boundary +
+                    (jn < M * G ? (long long)((wp.n_tiles - jn % G + G - 1) /
+                                              G) * wp.P
+                                : 0);
+      }
+      {  // the member's small operands
+        const float* pm = prm + (size_t)(j / G) * net.P_total;
+        for (int e = threadIdx.x; e < d * NP; e += WB_THREADS) {
+          const int k = e / NP, n = e % NP;
+          sW0[e] = n < w0 ? opnd<FL>(pm[net.offW[0] + k * w0 + n]) : 0.f;
+        }
+        for (int e = threadIdx.x; e < (L - 1) * NP; e += WB_THREADS) {
+          const int l = e / NP, n = e % NP;
+          sB[e] = n < net.w_out[l] ? pm[net.offb[l] + n] : 0.f;
+        }
+        for (int e = threadIdx.x; e < NP * n_out; e += WB_THREADS)
+          sWh[e] = e / n_out < wl ? opnd<FL>(pm[net.offW[L - 1] + e]) : 0.f;
+        for (int o = threadIdx.x; o < n_out; o += WB_THREADS)
+          sBh[o] = pm[net.offb[L - 1] + o];
+      }
+      __syncthreads();
+      if (j == (int)blockIdx.x && threadIdx.x == 0)
+        for (long long i = 0; i < imin(wp.S, (int)it->total); ++i)
+          wb_fill(ring, i);
+      tile = b;
+    }
+    {
+      const bool first = tile == it->b;
+      const int p0 = tile * TP;
+      const size_t x0 = (size_t)it->m * N;  // the member's first point
+      for (int e = ctid; e < TP * d; e += WB_THREADS)
+        sx[e] = p0 + e / d < N ? X[(x0 + p0) * d + e] : 0.f;
+      wb_sync_all();
+      // the forward, staging Q_0 .. Q_{L-2}
+      float acc[H2];
+      wb_layer0<FL, NP>(sx, d, pl0, pl1, ord, dir, t, sW0, sB, acc);
+      for (int l = 1; l < L; ++l) {
+        wb_act<NP, CP, false>(acc, c, s, myws + (l - 1) * slice, ctid);
+        if (l + 1 < L)
+          wb_products<FL, NP>(acc, l, c, t, lane, sB, ring, chunk);
+      }
+      // the head: acc holds its input H_{L-1}
+      wb_put_kmajor<FL, NP>(acc, Ht, row0, t);
+      wb_head<FL, NP>(acc, T, n_out, c, t, row0, sWh, sBh);
+      wb_sync_all();
+      {
+        const size_t xm = (size_t)it->m * N;
+        wb_epilogue<CP>(T, sx, w + xm * E, gw + xm * E, gX + xm * d, N, p0,
+                        C, n_out, d, tp,
+                        cst_tab != nullptr
+                            ? cst_tab + (size_t)it->m * MAXTCONST
+                            : tp.cst,
+                        sRed, it->slot + net.P_total, first, ctid, lane,
+                        warp);
+      }
+      float dh[H2];
+      wb_head_bwd<FL, NP, CP>(dh, T, Ht, sWh, n_out, wl,
+                              it->slot + net.offW[L - 1],
+                              it->slot + net.offb[L - 1], first, ctid, row0,
+                              t);
+      // the reverse sweep, last hidden layer to layer 0
+      for (int l = L - 2; l >= 0; --l) {
+        bulk_wait_read();
+        wb_sync_all();  // Ht, dPt (the staged dW read), sDb free
+        float x[H2];
+        if (l >= 1) {  // H_l, the layer's input, from Q_{l-1}
+          wb_load_p<NP>(x, myws + (l - 1) * slice, ctid);
+          wb_act<NP, CP, true>(x, c, s, nullptr, ctid);
+          wb_put_kmajor<FL, NP>(x, Ht, row0, t);
+        }
+        wb_load_p<NP>(x, myws + l * slice, ctid);  // Q_l
+        wb_act_vjp<NP, CP>(x, dh, c, s);          // dh = dP_l
+        wb_bias_partial<NP, CP>(dh, sDb, warp, g, t, c);
+        if constexpr (FL == FL_BF16) {
+          if (l == 0) wb_put_kmajor<FL_F32, NP>(dh, dPt, row0, t);
+          else wb_put_pieces<NP>(dh, pc, row0, t);
+        } else {
+          wb_put_kmajor<FL, NP>(dh, dPt, row0, t);
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        wb_sync_all();
+        wb_bias(sDb, NP, net.w_out[l], it->slot + net.offb[l], first,
+                ctid);
+        if (l == 0) {
+          wb_layer0_bwd<FL, CP, true>(dPt, sx, sW0, NP,
+                                      gX + (size_t)it->m * N * d,
+                                      it->slot + net.offW[0], N, p0, d, w0,
+                                      s, first, ctid);
+          break;
+        }
+        float nh[H2];
+        if constexpr (FL == FL_TF32) {
+          wb_dh<FL, NP>(nh, dh, lane, ring, chunk);
+          float dw[NP / 64][NP / 4];
+          wb_dw_product<NP>(dw, Ht, dPt, wg);
+          wb_dw_update<NP>(dw, dPt, it->slot + net.offW[l], net.w_in[l],
+                           net.w_out[l], first, wp.bulk, behind, wg, wt, wq,
+                           g, t);
+        } else if constexpr (FL == FL_BF16) {
+          wb_dh<FL, NP>(nh, dh, lane, ring, chunk);
+          float dw[NP / 64][NP / 4];
+          wb_dw_pieces<NP>(dw, Hb, pc, wg);
+          wb_dw_update<NP, true>(dw, reinterpret_cast<float*>(pc),
+                                 it->slot + net.offW[l], net.w_in[l],
+                                 net.w_out[l], first, wp.bulk, behind, wg,
+                                 wt, wq, g, t);
+        } else {  // dW first: its passes write dPt again from dh
+          {
+            float dw[NP / 64][NP / 4];
+            wb_dw3<NP>(dw, Ht, dPt, dh, wg, wt, ctid, row0, t);
+            wb_dw_update<NP>(dw, dPt, it->slot + net.offW[l], net.w_in[l],
+                             net.w_out[l], first, wp.bulk, behind, wg, wt,
+                             wq, g, t);
+          }
+          wb_dh<FL, NP>(nh, dh, lane, ring, chunk);
+        }
+#pragma unroll
+        for (int i = 0; i < H2; ++i) dh[i] = nh[i];
+      }
+      wb_sync_all();  // sx, sDb and dPt read before the next tile
+    }
+    tile += G;
+    if (tile >= wp.n_tiles) {  // the item's last tile: the next item
+      const int jn = it->j + gridDim.x;
+      if (jn >= it->items) break;
+      tile = -1 - jn;
+    }
+  }
+  bulk_wait();  // this thread's last bulk adds are in the slots
+}
+
 template <int FL, int NP, int CP>
 __global__ void __launch_bounds__(WB_THREADS, 1)
 taylor_bwd_wg_kernel(const float* __restrict__ X,
@@ -1575,8 +1882,7 @@ taylor_bwd_wg_kernel(const float* __restrict__ X,
                      const float* __restrict__ gtab, float* __restrict__ dX,
                      float* __restrict__ part, float* __restrict__ ws, int N,
                      Net net, Sched s, WbPlan wp) {
-  wb_body<FL, NP, CP, false>(X, nullptr, prm, gtab, nullptr, dX, part, ws, N,
-                             net, s, nullptr, wp);
+  wb_body<FL, NP, CP>(X, prm, gtab, dX, part, ws, N, net, s, wp);
 }
 
 template <int FL, int NP, int CP>
@@ -1585,28 +1891,21 @@ minimax_wg_kernel(const float* __restrict__ X, const float* __restrict__ w,
                   const float* __restrict__ prm, float* __restrict__ gw,
                   float* __restrict__ gX, float* __restrict__ part,
                   float* __restrict__ ws, int N, Net net, Sched s,
-                  const __grid_constant__ Tape tp, WbPlan wp) {
-  wb_body<FL, NP, CP, true>(X, w, prm, nullptr, gw, gX, part, ws, N, net, s,
-                            &tp, wp);
+                  const __grid_constant__ Tape tp,
+                  const float* __restrict__ cst, int M, WbPlan wp) {
+  wb_body_k3<FL, NP, CP>(X, w, prm, gw, gX, part, ws, N, net, s, tp, cst, M,
+                         wp);
 }
-
-// The planes, then the route's kernel, then the slots' sum: K2 (gtab in,
-// dX out) or K3 (tp and w in, gw and dX = gX out), in flavor FL.
-template <int FL, int NP, int CP, bool K3>
-static int launch_wb(const float* X, const float* w, const float* prm,
-                     const float* gtab, float* gw, float* dX, float* part,
-                     float* ws, float* out, int N, const Net& net,
-                     const Sched& s, const Tape* tp, const WbPlan& wp,
-                     cudaStream_t st) {
-  cudaError_t e;
-  if constexpr (K3)
-    e = cudaFuncSetAttribute(minimax_wg_kernel<FL, NP, CP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             wp.smem);
-  else
-    e = cudaFuncSetAttribute(taylor_bwd_wg_kernel<FL, NP, CP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             wp.smem);
+// K2 on the route: the planes, the kernel (dW/db into the G = grid slots,
+// dX), the slots' sum into out.
+template <int FL, int NP, int CP>
+static int launch_k2wb(const float* X, const float* prm, const float* gtab,
+                       float* dX, float* part, float* ws, float* out, int N,
+                       const Net& net, const Sched& s, const WbPlan& wp,
+                       cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(
+      taylor_bwd_wg_kernel<FL, NP, CP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, wp.smem);
   if (e != cudaSuccess) return (int)e;
   if (wp.P > 0) {
     prep_wb_weights<FL><<<64, 256, 0, st>>>(
@@ -1614,17 +1913,41 @@ static int launch_wb(const float* X, const float* w, const float* prm,
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  if constexpr (K3)
-    minimax_wg_kernel<FL, NP, CP><<<wp.grid, WB_THREADS, wp.smem, st>>>(
-        X, w, prm, gw, dX, part, ws, N, net, s, *tp, wp);
-  else
-    taylor_bwd_wg_kernel<FL, NP, CP><<<wp.grid, WB_THREADS, wp.smem, st>>>(
-        X, prm, gtab, dX, part, ws, N, net, s, wp);
+  taylor_bwd_wg_kernel<FL, NP, CP><<<wp.grid, WB_THREADS, wp.smem, st>>>(
+      X, prm, gtab, dX, part, ws, N, net, s, wp);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int P = K3 ? net.P_total + 1 : net.P_total;
-  reduce_partials<FL == FL_BF16><<<(P + 255) / 256, 256, 0, st>>>(
-      part, out, wp.grid, P, net);
+  reduce_partials<FL == FL_BF16><<<(net.P_total + 255) / 256, 256, 0, st>>>(
+      part, out, wp.grid, net.P_total, net);
+  return (int)cudaGetLastError();
+}
+
+// K3 on the route over M members (M = 1: the single network) on grid
+// persistent blocks: the members' planes, the kernel (value, dW/db into
+// the M*G slots; gw, gX), the members' slot sums into out [M, P_total + 1].
+template <int FL, int NP, int CP>
+static int launch_k3wb(const float* X, const float* w, const float* prm,
+                       float* gw, float* gX, float* part, float* ws,
+                       float* out, int N, const Net& net, const Sched& s,
+                       const Tape& tp, const float* cst, int M, int grid,
+                       const WbPlan& wp, cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(
+      minimax_wg_kernel<FL, NP, CP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, wp.smem);
+  if (e != cudaSuccess) return (int)e;
+  if (wp.P > 0) {
+    prep_wb_weights_m<FL><<<dim3(64, M), 256, 0, st>>>(
+        prm, ws + (size_t)grid * (net.L - 1) * WB_ROWS * NP, net, wp);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  minimax_wg_kernel<FL, NP, CP><<<grid, WB_THREADS, wp.smem, st>>>(
+      X, w, prm, gw, gX, part, ws, N, net, s, tp, cst, M, wp);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int P = net.P_total + 1;
+  reduce_member_partials<FL == FL_BF16>
+      <<<dim3((P + 255) / 256, M), 256, 0, st>>>(part, out, wp.grid, P, net);
   return (int)cudaGetLastError();
 }
 
@@ -1632,14 +1955,25 @@ static int launch_wb(const float* X, const float* w, const float* prm,
 // (taylor_bwd_wg_{f32,tf32,bf16}_*.cu and minimax_wg_{f32,tf32,bf16}_*.cu
 // define them, so nvcc builds the twelve side by side;
 // cudaErrorInvalidValue for a channel count the route has no instance of).
+// K2 takes gtab and dX = its input cotangent; K3 w, gw, dX = gX, tp, cst
+// (the members' constants, or nullptr), M members on grid blocks.
 #define WB_ARGS                                                              \
   const float *X, const float *w, const float *prm, const float *gtab,      \
       float *gw, float *dX, float *part, float *ws, float *out, int N,      \
-      const Net &net, const Sched &s, const Tape *tp, const WbPlan &wp,    \
-      cudaStream_t st
+      const Net &net, const Sched &s, const Tape *tp, const float *cst,     \
+      int M, int grid, const WbPlan &wp, cudaStream_t st
+template <int FL, int NP, int CP, bool K3>
+static int launch_wb(WB_ARGS) {
+  if constexpr (K3)
+    return launch_k3wb<FL, NP, CP>(X, w, prm, gw, dX, part, ws, out, N, net,
+                                   s, *tp, cst, M, grid, wp, st);
+  else
+    return launch_k2wb<FL, NP, CP>(X, prm, gtab, dX, part, ws, out, N, net,
+                                   s, wp, st);
+}
 #define WB_CALL(FL, NP, CP, K3)                                              \
   launch_wb<FL, NP, CP, K3>(X, w, prm, gtab, gw, dX, part, ws, out, N, net, \
-                            s, tp, wp, st)
+                            s, tp, cst, M, grid, wp, st)
 #define WB_INSTANCES(name, FL, NP, K3)                                       \
   int name(WB_ARGS) {                                                        \
     switch (wp.CP) {                                                         \

@@ -10,15 +10,17 @@ underfills a card, so the factory trains the whole family together:
   [M, N, 1]``, ``X_f [M, N, d]``); a non-adaptive λ slot stays ``None``;
 * the loss engine is the one the **template solver** adopted: a
   :class:`~..models.CollocationSolverND` compiled with member 0's θ baked
-  in, behind its own gates and cross-checks.  Each member's residual term
-  goes through that engine with the member's θ bound, one call per member
-  inside the step, on its slice of the stacked tensors: on the minimax
-  step K3 (``_MinimaxSq``, one launch per member), on the fused engine
-  K1 and K2 (``fused="cuda"``; the plain table otherwise), on the generic
-  engine autograd.  The plain flavor never runs on a CUDA tensor: it is
-  the kernels' referee.  (JAX vmaps the XLA flavor over the member axis
-  with θ traced; a hand-written kernel takes its θ from its residual
-  tape's constant pool instead.)
+  in, behind its own gates and cross-checks.  On the minimax step the
+  members' residual terms are one call on the stacked tensors
+  (:func:`~..ops.minimax.build_family_sq_fn`): one K3 launch over the
+  member axis per tape group (a group shares its tape's ops, each member
+  its own constants), each member's outputs bit for bit its own launch's,
+  as JAX vmaps its XLA flavor over the member axis with θ traced.  On the
+  fused engine (K1 and K2 under ``fused="cuda"``; the plain table
+  otherwise) and the generic engine (autograd) each member's term goes
+  through the engine with its θ bound, one call per member on its slice.
+  The plain flavor never runs on a CUDA tensor: it is the kernels'
+  referee.
 * K3's tape is data, so a member's θ is another constant of its pool.
   Each member's ``f_model`` is lowered on its own at build
   (:mod:`..ops.residual_tape`): the lowering folds and pools constants
@@ -355,13 +357,12 @@ class SurrogateFactory:
     # the member engine
     # ------------------------------------------------------------------ #
     def _member_fns(self, theta):
-        """``(term, residual, score_grad, sq)`` of one member: its residual
-        term through the template's engine with ``theta`` bound (a loss over
-        no BC, :func:`~..models.assembly.build_loss_fn`), its batched
-        residual (the redraws' scores) and, on the minimax step, its
-        ``(scores, gX)`` at w ≡ 1 (the ascent mover; one K3 launch on the
-        card) and its K3 function (:func:`~..ops.minimax.build_minimax_sq_fn`,
-        ``None`` off that step)."""
+        """``(term, residual, sq)`` of one member: its residual term through
+        the template's engine with ``theta`` bound (a loss over no BC,
+        :func:`~..models.assembly.build_loss_fn`), its batched residual (the
+        redraws' scores) and, on the minimax step, its K3 function
+        (:func:`~..ops.minimax.build_minimax_sq_fn`, ``None`` off that
+        step)."""
         from ..ops import minimax as mmx
         from ..ops.derivatives import make_ufn, vmap_residual
         from ..ops.fused import make_fused_residual
@@ -377,7 +378,7 @@ class SurrogateFactory:
                 f_m, names, n_out, tpl._fuse_requests,
                 table_producer=self._table_producer,
                 compute_dtype=tpl.fused_dtype, precision=tpl.precision)
-        score_grad = sq = None
+        sq = None
         if self.engine == "fused-minimax":
             sq = mmx.build_minimax_sq_fn(
                 f_m, names, n_out, tpl._fuse_requests,
@@ -388,15 +389,6 @@ class SurrogateFactory:
                 sq, weight_outside_sum=tpl.weight_outside_sum, g=tpl.g)
             term = build_loss_fn(self.apply_fn, names, n_out, f_m, [],
                                  residual_loss_fn=mm, **kw)
-            n_eq = int(sq.n_equations)
-
-            def score_grad(params, X):
-                flat = [a if a.ndim == 2 else a.reshape(1, -1)
-                        for a in params]
-                w = torch.ones((X.shape[0], n_eq), dtype=X.dtype,
-                               device=X.device)
-                _, _, gw, gX = sq.value_and_grads(flat, w, X.contiguous())
-                return torch.sum(gw.reshape(X.shape[0], -1), 1), gX
         else:
             term = build_loss_fn(self.apply_fn, names, n_out, f_m, [],
                                  residual_fn=residual, **kw)
@@ -407,7 +399,34 @@ class SurrogateFactory:
                 u = make_ufn(self.apply_fn, params, names, n_out)
                 return vmap_residual(f_m, u, ndim)(X)
 
-        return term, residual, score_grad, sq
+        return term, residual, sq
+
+    def _family_engine(self, sqs):
+        """The minimax step over the member axis of ``sqs`` (the members'
+        K3 functions): ``(residual, score_grad)``, the members' residual
+        terms as one call returning ``[M]``
+        (:func:`~..ops.minimax.make_minimax_residual_loss` over the
+        member-axis unit, ``residual.family``) and their ``(scores [M, N],
+        gX [M, N, d])`` at w ≡ 1 (the ascent mover); each one K3 launch
+        over the member axis per tape group on the card."""
+        from ..ops import minimax as mmx
+
+        tpl = self._template
+        fam = mmx.build_family_sq_fn(sqs, device=self.device)
+        res = mmx.make_minimax_residual_loss(
+            fam, weight_outside_sum=tpl.weight_outside_sum, g=tpl.g)
+        n_eq = int(fam.n_equations)
+
+        def score_grad(params, X):
+            flat = [a if a.ndim == 3 else a.reshape(a.shape[0], 1, -1)
+                    for a in params]
+            w = torch.ones(tuple(X.shape[:2]) + (n_eq,), dtype=X.dtype,
+                           device=X.device)
+            _, _, gw, gX = fam.value_and_grads(flat, w, X.contiguous())
+            return torch.sum(gw, 2), gX
+
+        res.family = fam
+        return res, score_grad
 
     def _build_member_fns(self):
         tpl = self._template
@@ -422,8 +441,12 @@ class SurrogateFactory:
         fns = [self._member_fns(self.member_thetas[m]) for m in self._members]
         self._terms = [f[0] for f in fns]
         self._residuals = {m: f[1] for m, f in zip(self._members, fns)}
-        self._score_grads = {m: f[2] for m, f in zip(self._members, fns)}
-        self._member_sq = {m: f[3] for m, f in zip(self._members, fns)}
+        self._member_sq = {m: f[2] for m, f in zip(self._members, fns)}
+        # the minimax step: the members' terms as one member-axis call
+        self._family_res = self._family_score_grad = None
+        if self.engine == "fused-minimax":
+            self._family_res, self._family_score_grad = self._family_engine(
+                [self._member_sq[m] for m in self._members])
         # the BC terms of the template, vmapped over the member axis
         self._n_bc = len(tpl.bcs)
         self._bc_adaptive = [lam is not None for lam in tpl.lambdas["BCs"]]
@@ -444,11 +467,15 @@ class SurrogateFactory:
                      terms=None):
         """``(totals [M], components {name: [M]})`` of the members'
         losses (the member-axis step's ``loss_fn``; the family has no data
-        term): the BC terms vmapped over the member axis, each member's
-        residual term through its own engine call on its slice, and each
+        term): the BC terms vmapped over the member axis, the residual
+        terms (on the minimax step one member-axis call, ``terms`` then a
+        :meth:`_family_engine` residual; else each member's term, ``terms``
+        their list, through its own engine call on its slice), and each
         total summed in :func:`~..models.assembly.build_loss_fn`'s order
         (BC terms, then the residual terms)."""
-        terms = self._terms if terms is None else terms
+        if terms is None:
+            terms = (self._family_res if self._family_res is not None
+                     else self._terms)
         comps = {}
         loss_bcs = 0.0
         if self._n_bc:
@@ -457,6 +484,14 @@ class SurrogateFactory:
             for i, v in enumerate(bcs):
                 comps[f"BC_{i}"] = v
                 loss_bcs = loss_bcs + v
+        if callable(terms):
+            # the member-axis minimax step: build_loss_fn's lone residual
+            # component, Residual_0, for every member at once
+            res = terms(list(params), list(lam_res), X)
+            comps["Residual_0"] = res.detach()
+            totals = loss_bcs + res
+            comps["Total Loss"] = totals
+            return totals, comps
         Ps = [p.unbind(0) for p in params]
         Ls = [None if lam is None else lam.unbind(0) for lam in lam_res]
         Xs = X.unbind(0)
@@ -522,8 +557,14 @@ class SurrogateFactory:
         want = torch.autograd.grad(
             v_t, leaves + [lam for lam in res_leaves if lam is not None],
             materialize_grads=True)
-        term0 = (self._terms[0] if self._members[0] == 0
-                 else self._member_fns(self.member_thetas[0])[0])
+        fns0 = (None if self._members[0] == 0
+                else self._member_fns(self.member_thetas[0]))
+        if self._family_res is not None:
+            # member 0 alone through the member-axis step
+            term0 = self._family_engine(
+                [self._member_sq[0] if fns0 is None else fns0[2]])[0]
+        else:
+            term0 = [self._terms[0] if fns0 is None else fns0[0]]
         try:
             totals, g_p, g_l = self._family_value_and_grads(
                 [t[None] for t in p0],
@@ -531,7 +572,7 @@ class SurrogateFactory:
                               for lam in lam_res],
                  "BCs": [None if lam is None else lam[None]
                          for lam in lam_bcs]},
-                X_s[None], terms=[term0])
+                X_s[None], terms=term0)
         except Exception as e:  # noqa: BLE001 - the reason is reported
             return False, e
         v_f, v_t = float(totals[0]), float(v_t.detach())
@@ -796,13 +837,12 @@ class SurrogateFactory:
         xl = self.domain.xlimits
         residual = lambda m, p, X: self._residuals[m](p, X)  # noqa: E731
         if kw["resample_mode"] == "ascent":
-            grads = (None if self.engine != "fused-minimax" else
-                     (lambda m, p, X: self._score_grads[m](p, X)))
             return FamilyAscentResampler(
                 residual, xl, N, len(self._members),
                 n_steps=kw["resample_ascent_steps"],
                 fresh_frac=kw["resample_uniform"],
-                seed=kw["resample_seed"], score_grad_fn=grads)
+                seed=kw["resample_seed"],
+                family_score_grad_fn=self._family_score_grad)
         return FamilyResampler(
             residual, xl, N, len(self._members),
             pool_factor=kw["resample_pool"], temp=kw["resample_temp"],

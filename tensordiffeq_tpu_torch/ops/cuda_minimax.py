@@ -18,12 +18,18 @@ products of ``taylor_derivatives(compute_dtype=torch.bfloat16)``,
 ``csrc/wg_backward.cuh`` where its shape allows
 (:func:`.cuda_taylor.wb_plan`).  The plain flavor, the CPU path and the
 kernel's referee, is ``tile_sq`` in :mod:`.minimax`.
+
+On that route K3 also runs over a member axis: :func:`k3_minimax_family`
+(and its bf16 and TF32 flavors) launches it once for ``M`` networks of one
+architecture whose residual tapes share their ops (a surrogate factory's
+tape group, :func:`.minimax.build_family_sq_fn`), each member's outputs
+bit for bit its single launch's (:class:`FamilyLaunch`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -148,6 +154,134 @@ ct.COUNTED.extend([k3_minimax, k3_minimax_bf16, k3_minimax_tf32])
 # K3 of each flavor
 FLAVORS = {None: k3_minimax, torch.bfloat16: k3_minimax_bf16,
            ct.TF32: k3_minimax_tf32}
+
+
+# ------------------------------------------------------------------ #
+# K3 over a member axis: one launch for M networks of one architecture
+# and one tape's ops (a surrogate factory's tape group)
+# ------------------------------------------------------------------ #
+class FamilyLaunch(NamedTuple):
+    """The member-axis launch of K3's wgmma route (``csrc/wg_backward.cuh``,
+    ``wb_body_k3``): each member keeps the single launch's partition into
+    ``G`` virtual blocks (its :class:`~.cuda_taylor.WbPlan`'s ``grid``);
+    ``grid`` persistent blocks walk the ``items = M·G`` work items (member
+    ``j // G``, virtual block ``j % G``), block ``k`` the items ``k, k +
+    grid, ...``; item ``j`` writes slot ``j``."""
+    G: int          # virtual blocks a member (the single launch's grid)
+    items: int      # work items: M·G, one partial slot each
+    grid: int       # persistent blocks: min(items, SMs)
+    ws_floats: int  # the blocks' Q slices, then the M members' planes
+
+
+def family_launch(plan: MinimaxPlan, wp: ct.WbPlan, M: int,
+                  n_sm: int) -> FamilyLaunch:
+    """:class:`FamilyLaunch` of ``M`` members at the route's plan ``wp``
+    on a card of ``n_sm`` SMs."""
+    grid = min(M * wp.grid, n_sm)
+    L = len(plan.layer_shapes)
+    return FamilyLaunch(wp.grid, M * wp.grid, grid,
+                        grid * (L - 1) * ct.WB_ROWS * wp.NP
+                        + M * wp.P * wp.stage_bytes // 4)
+
+
+def family_items(fl: FamilyLaunch, block: int) -> list:
+    """The work items ``(member, virtual block)`` persistent block
+    ``block`` runs, in its order."""
+    return [divmod(j, fl.G) for j in range(block, fl.items, fl.grid)]
+
+
+def _k3_family(plan: MinimaxPlan, X: torch.Tensor, w: torch.Tensor,
+               flat: torch.Tensor, cst: torch.Tensor, code: int):
+    if X.device.type != "cuda" or any(t.device != X.device
+                                      for t in (w, flat, cst)):
+        raise ValueError("the member-axis minimax kernel needs X, w, the "
+                         "parameters and the constants on one CUDA device")
+    if any(t.dtype != torch.float32 for t in (X, w, flat, cst)):
+        raise TypeError("the minimax kernel takes float32 only")
+    if X.ndim != 3 or X.shape[0] == 0 or X.shape[1] == 0 \
+            or X.shape[2] != plan.d:
+        raise ValueError(f"X must be [M>0, N>0, {plan.d}], got "
+                         f"{tuple(X.shape)}")
+    M, N = int(X.shape[0]), int(X.shape[1])
+    for name, t, shape in (("w", w, (M, N, plan.E)),
+                           ("the parameters", flat, (M, plan.P_total)),
+                           ("the constants", cst,
+                            (M, ct.MAX_TAPE_CONSTS))):
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {list(shape)}, "
+                             f"got {tuple(t.shape)}")
+    if not X.is_contiguous():
+        raise ValueError("X must be contiguous")
+    flavor = ct.FLAVOR_OF[code]
+    wp = plan.wb_route(X.device, flavor, N, "k3")
+    if wp is None:
+        raise ct.KernelLaunchError(
+            "the member-axis minimax kernel runs on the wgmma route only; "
+            f"{plan.layer_shapes} with {plan.C} channels is off it (launch "
+            "each member's K3)")
+    fl = family_launch(plan, wp, M, plan.card(X.device)[1])
+    lib = ct.build()
+    opts = dict(device=X.device, dtype=torch.float32)
+    gw = torch.empty((M, N, plan.E), **opts)
+    gX = torch.empty((M, N, plan.d), **opts)
+    out = torch.empty((M, plan.P_total + 1), **opts)
+    part = torch.empty((fl.items, ct.slot_stride(plan.P_total + 1)), **opts)
+    ws = torch.empty((max(fl.ws_floats, 1),), **opts)
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    ct._check(lib.tdq_minimax_wg_family(
+        X.data_ptr(), w.data_ptr(), flat.data_ptr(), gw.data_ptr(),
+        gX.data_ptr(), part.data_ptr(), ws.data_ptr(), out.data_ptr(), N, M,
+        fl.grid, plan.net_h, plan.sched_h, plan.tape_h, cst.data_ptr(), code,
+        (ctypes.c_int * len(wp))(*wp), stream),
+        "minimax_wg member-axis K3 launch")
+    return out[:, plan.P_total], out[:, :plan.P_total], gw, gX
+
+
+def k3_minimax_family(plan: MinimaxPlan, X: torch.Tensor, w: torch.Tensor,
+                      flat: torch.Tensor, cst: torch.Tensor):
+    """Launch K3 over a member axis (:class:`FamilyLaunch`): ``M``
+    networks of ``plan``'s architecture whose tapes share ``plan``'s ops,
+    on ``X [M, N, d]``, ``w [M, N, E]``, their packed parameters ``flat
+    [M, P_total]`` and tape constants ``cst [M, MAX_TAPE_CONSTS]`` (each
+    member's ``ResidualTape.encode()`` floats), all on the card.  Returns
+    ``(value [M], dflat [M, P_total], gw [M, N, E], gX [M, N, d])``, each
+    member's bit for bit :func:`k3_minimax`'s on its slice.  The wgmma
+    route's shapes only: elsewhere it raises
+    :class:`~.cuda_taylor.KernelLaunchError`."""
+    out = _k3_family(plan, X, w, flat, cst, 0)
+    k3_minimax_family.launches += 1
+    return out
+
+
+def k3_minimax_family_bf16(plan: MinimaxPlan, X: torch.Tensor,
+                           w: torch.Tensor, flat: torch.Tensor,
+                           cst: torch.Tensor):
+    """:func:`k3_minimax_family` in K3's bf16-operand flavor: each member's
+    outputs bit for bit :func:`k3_minimax_bf16`'s."""
+    out = _k3_family(plan, X, w, flat, cst, 1)
+    k3_minimax_family_bf16.launches += 1
+    return out
+
+
+def k3_minimax_family_tf32(plan: MinimaxPlan, X: torch.Tensor,
+                           w: torch.Tensor, flat: torch.Tensor,
+                           cst: torch.Tensor):
+    """:func:`k3_minimax_family` in K3's single-pass TF32 flavor: each
+    member's outputs bit for bit :func:`k3_minimax_tf32`'s."""
+    out = _k3_family(plan, X, w, flat, cst, 2)
+    k3_minimax_family_tf32.launches += 1
+    return out
+
+
+k3_minimax_family.launches = 0
+k3_minimax_family_bf16.launches = 0
+k3_minimax_family_tf32.launches = 0
+ct.COUNTED.extend([k3_minimax_family, k3_minimax_family_bf16,
+                   k3_minimax_family_tf32])
+# the member-axis K3 of each flavor
+FAMILY_FLAVORS = {None: k3_minimax_family,
+                  torch.bfloat16: k3_minimax_family_bf16,
+                  ct.TF32: k3_minimax_family_tf32}
 
 
 def tensor_passes(plan: MinimaxPlan, compute_dtype=None) -> float:

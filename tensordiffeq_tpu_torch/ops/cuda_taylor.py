@@ -217,10 +217,15 @@ def build() -> ctypes.CDLL:
                                                   ptr]
     lib.tdq_minimax_wg.argtypes = [ptr] * 8 + [i32] + [ptr] * 4 + [i32, ptr,
                                                                     ptr]
+    # K3 over a member axis: (X, w, prm, gw, gX, part, ws, out, N, M, grid,
+    # net, sched, tape, the members' constants, flavor, plan, stream)
+    lib.tdq_minimax_wg_family.argtypes = [ptr] * 8 + [i32] * 3 + \
+        [ptr] * 4 + [i32, ptr, ptr]
     for fn in (lib.tdq_taylor_fwd, lib.tdq_taylor_bwd, lib.tdq_minimax_step,
                lib.tdq_device_info, lib.tdq_limits, lib.tdq_minimax_limits,
                lib.tdq_k1wg_plan, lib.tdq_taylor_fwd_wg, lib.tdq_wb_plan,
-               lib.tdq_taylor_bwd_wg, lib.tdq_minimax_wg):
+               lib.tdq_taylor_bwd_wg, lib.tdq_minimax_wg,
+               lib.tdq_minimax_wg_family):
         fn.restype = i32
     limits = (ctypes.c_int * 6)()
     lib.tdq_limits(limits)
@@ -472,6 +477,7 @@ def wg_prepare(flat_layers, wp: WgPlan, flavor) -> torch.Tensor:
 # bf16 flavors: its plan and the plain mirror of its weight planes
 # ------------------------------------------------------------------ #
 WB_ROWS = 128  # rows of the route's tile: two consumer warpgroups of 64
+WB_ITEM_FLOATS = 16  # K3's work item state over a member axis (WbItem)
 
 
 def wb_kc(code: int) -> int:
@@ -516,7 +522,8 @@ def wb_plan(layer_shapes: Sequence[tuple], orders: Sequence[int], code: int,
     planes, the bf16 flavor's of bf16), H^T and dP^T (NP x 128 floats each;
     in the bf16 flavor the same bytes hold H and dP's three pieces in
     bf16), the table rows (the bias partials in the reverse sweep), X's
-    rows, the small operands, the value's warp sums and the mbarriers."""
+    rows, the small operands, the value's warp sums, K3's work item state
+    and the mbarriers."""
     if code not in (0, 1, 2):
         return None
     L = len(layer_shapes)
@@ -535,7 +542,8 @@ def wb_plan(layer_shapes: Sequence[tuple], orders: Sequence[int], code: int,
     stage = NP * KC * {0: 8, 1: 2, 2: 4}[code]
     misc = _pad4(NP * (d + L - 1 + n_out) + WG_MAX_OUT)
     fixed = 4 * (2 * NP * WB_ROWS + _pad4(max(WB_ROWS * n_out, 8 * NP))
-                 + _pad4(WB_ROWS * d) + misc + 8) + 2 * WG_MAX_STAGES * 8
+                 + _pad4(WB_ROWS * d) + misc + 8 + WB_ITEM_FLOATS) \
+        + 2 * WG_MAX_STAGES * 8
     S = 0
     if P > 0:
         S = min(P, (smem_optin - fixed) // stage, WG_MAX_STAGES)

@@ -49,7 +49,10 @@ each row's index, so the result is bit-identical on every rank.
 The surrogate factory's members redraw one by one
 (:class:`FamilyResampler`, :class:`FamilyAscentResampler`): each member
 scores with its own residual (its θ bound) and draws its own stream
-``(seed, epoch, member)``; :func:`carry_rows_family` carries their λ.
+``(seed, epoch, member)``; :func:`carry_rows_family` carries their λ.  On
+the minimax step the ascent mover moves every member at once, each step
+one member-axis score (one K3 launch over the members per tape group on
+the card).
 """
 
 from __future__ import annotations
@@ -314,7 +317,9 @@ def _ascent_move(score_grad: Callable, X: torch.Tensor, xlimits,
     residual landscape, clipped to the domain box after each step.
     ``score_grad(X) -> (s [N], g [N, d])`` gives the per-point scores
     ``Σ_e f_e²`` and their point gradient; each dimension steps
-    ``step_frac`` of its extent.  Returns ``(X_new, s_first, s_last)``."""
+    ``step_frac`` of its extent.  Returns ``(X_new, s_first, s_last)``.
+    Members' sets ``X [M, N, d]`` move at once, each row on its own, with
+    ``score_grad`` over the member axis (``s [M, N]``, ``g [M, N, d]``)."""
     # tdq: allow[dtype-discipline] domain limits held in float64 on the host; the ascent move fills each bound into a float32 scalar
     xl = np.asarray(xlimits, np.float64)
 
@@ -329,7 +334,7 @@ def _ascent_move(score_grad: Callable, X: torch.Tensor, xlimits,
         s, g = score_grad(X)
         if s_first is None:
             s_first = s
-        gn = torch.sqrt(torch.sum(g * g, 1, keepdim=True))
+        gn = torch.sqrt(torch.sum(g * g, -1, keepdim=True))
         X = torch.clamp(X + step * g / torch.clamp_min(gn, _TINY), lo, hi)
     s_last, _ = score_grad(X)
     if s_first is None:  # n_steps=0: a scoring pass and nothing else
@@ -394,6 +399,14 @@ class AscentResampler:
         X, s_first, s_last = _ascent_move(
             lambda Xv: self._score_grad(params, Xv), X_cur, self.xlimits,
             self.n_steps, self.step_frac)
+        return self.swap(X, s_first, s_last, epoch, member)
+
+    def swap(self, X: torch.Tensor, s_first: torch.Tensor,
+             s_last: torch.Tensor, epoch: int,
+             member: Optional[int] = None) -> ResampleSwap:
+        """The redraw's swap after the move (``X`` moved, its scores before
+        and after): the fresh coverage draw into the lowest-score rows, and
+        the statistics."""
         n_f = self.n_f
         row = torch.arange(n_f, device=X.device)
         if self.n_fresh:
@@ -629,19 +642,23 @@ class FamilyAscentResampler:
     """:class:`AscentResampler` over a surrogate factory's members: each
     member moves its own points up its own residual landscape and takes
     its own fresh coverage draw from ``(seed, epoch, m)``.
-    ``score_grad_fn(m, params_m, X) -> (scores, gX)`` plugs in the
-    member's minimax step (one K3 launch at w ≡ 1 per member and ascent
-    step on the card); without one, autograd over ``residual_fn(m,
-    params_m, X)``.  :class:`FamilyResampler`'s contract and layout."""
+    ``family_score_grad_fn(params, X) -> (scores [M, N], gX [M, N, d])``
+    plugs in the members' minimax step over the member axis (the stacked
+    parameter leaves and sets; one K3 launch over the members per tape
+    group and ascent step on the card): every member moves at once, then
+    each takes its swap.  Without one, each member moves on its own by
+    autograd over ``residual_fn(m, params_m, X)``.
+    :class:`FamilyResampler`'s contract and layout."""
 
     pipelined = True
 
     def __init__(self, residual_fn: Callable, xlimits: np.ndarray, n_f: int,
                  n_members: int, *, n_steps: int = 5,
                  step_frac: float = 0.005, fresh_frac: float = 0.1,
-                 seed: int = 0, score_grad_fn: Optional[Callable] = None):
+                 seed: int = 0,
+                 family_score_grad_fn: Optional[Callable] = None):
         self.residual_fn = residual_fn
-        self.score_grad_fn = score_grad_fn
+        self.family_score_grad_fn = family_score_grad_fn
         self.n_members = int(n_members)
         self._one = AscentResampler(None, xlimits, n_f, n_steps=n_steps,
                                     step_frac=step_frac,
@@ -650,13 +667,17 @@ class FamilyAscentResampler:
 
     def redraw(self, params, X_cur: torch.Tensor, members, epoch: int
                ) -> ResampleSwap:
+        one = self._one
+        if self.family_score_grad_fn is not None:
+            X, s_first, s_last = _ascent_move(
+                lambda Xv: self.family_score_grad_fn(params, Xv), X_cur,
+                one.xlimits, one.n_steps, one.step_frac)
+            return _stack_swaps([
+                one.swap(X[i], s_first[i], s_last[i], epoch, member=m)
+                for i, m in enumerate(members)])
         swaps = []
         for i, m in enumerate(members):
-            one = self._one
             one.residual_fn = lambda p, X, _m=m: self.residual_fn(_m, p, X)
-            one.score_grad_fn = (
-                None if self.score_grad_fn is None else
-                (lambda p, X, _m=m: self.score_grad_fn(_m, p, X)))
             swaps.append(one.redraw([t[i] for t in params], X_cur[i], epoch,
                                     member=m))
         return _stack_swaps(swaps)

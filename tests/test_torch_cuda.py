@@ -2576,18 +2576,166 @@ def test_one_member_family_is_its_solo_solver_on_card(card):
 
 
 def test_family_step_launches_k3_per_member_and_equals_eager(card):
+    """The family step launches K3 over the member axis once per step (the
+    AC sweep is one tape group) and no member's own K3."""
     thetas = [1e-4 * (0.5 + m / 7) for m in range(8)]
     fac = _factory(thetas)
     cuda_taylor.reset_launch_counts()
     fac.fit(tf_iter=20, chunk=10)
     assert (cuda_taylor.k1_forward.launches, cuda_taylor.k2_backward.launches,
-            cuda_minimax.k3_minimax.launches) == (0, 0, 8 * 20)
+            cuda_minimax.k3_minimax.launches,
+            cuda_minimax.k3_minimax_family.launches) == (0, 0, 0, 20)
+    assert fac._family_res.family.k3_routes == {None: "wgmma"}
     assert fac._step.graph.captures == 1
     eager = _factory(thetas)
     eager.fit(tf_iter=20, chunk=10, _graphs=False)
     assert _bits(fac.params) == _bits(eager.params)
     assert [r["Total Loss"].tolist() for r in fac.losses] == \
         [r["Total Loss"].tolist() for r in eager.losses]
+
+
+# K3 over the member axis: the factory's shape (2-64-64-1, N_f = 2,048,
+# 8 members) and AC-SA full (2-128x4-1, N_f = 50,000, 2 members)
+FAMILY_K3_CASES = {"factory": ([2, 64, 64, 1], 2048, 8),
+                   "ac-full": ([2, 128, 128, 128, 128, 1], 50_000, 2)}
+FAMILY_K3_FLAVORS = {"f32": {}, "tf32": dict(precision="default"),
+                     "bf16": dict(compute_dtype="bfloat16")}
+
+
+def _family_k3_setup(card, case, flavor, seed=0):
+    """Each member's K3 function (AC with θ_m), the member-axis unit over
+    them, and seeded stacked X [M, N, 2], w [M, N, 1] and 2-D layers."""
+    from tensordiffeq_tpu_torch.ops.minimax import build_family_sq_fn
+    widths, N, M = FAMILY_K3_CASES[case]
+    shapes = list(zip(widths[:-1], widths[1:]))
+    sqs = []
+    for m in range(M):
+        th = float(np.float32(1e-4 * (0.5 + m / max(M - 1, 1))))
+
+        def f(u, x, t, _th=th):
+            g = tdqt.grad
+            uv = u(x, t)
+            return (g(u, "t")(x, t) - _th * g(g(u, "x"), "x")(x, t)
+                    + 5.0 * uv ** 3 - 5.0 * uv)
+        sqs.append(build_minimax_sq_fn(f, ("x", "t"), 1, AC, shapes,
+                                       **FAMILY_K3_FLAVORS[flavor]))
+    fam = build_family_sq_fn(sqs, device=card)
+    g = torch.Generator().manual_seed(seed)
+    nets = [_net(widths, "cpu", seed + m)[0] for m in range(M)]
+    flat = [torch.stack([(a if a.ndim == 2 else a.reshape(1, -1))
+                         for a in leaves]).to(card)
+            for leaves in zip(*[[a for pair in net for a in pair]
+                                for net in nets])]
+    X = torch.stack([2 * torch.rand(M, N, generator=g) - 1,
+                     torch.rand(M, N, generator=g)], 2).to(card)
+    w = torch.rand(M, N, 1, generator=g).to(card)
+    return sqs, fam, X, w, flat
+
+
+def _family_launch(fam, X, w, flat):
+    launch = cuda_minimax.FAMILY_FLAVORS[fam.flavor]
+    M = X.shape[0]
+    packed = torch.cat([t.reshape(M, -1) for t in flat], 1)
+    out = launch(fam.members[0].plan, X, w, packed,
+                 fam.constants[0].to(X.device))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("flavor", list(FAMILY_K3_FLAVORS))
+@pytest.mark.parametrize("case", list(FAMILY_K3_CASES))
+def test_family_k3_is_each_members_single_launch_on_card(card, case, flavor):
+    """One launch over the member axis: each member's value, dW/db, gw and
+    gX bit for bit its own single launch of the same flavor, bit for bit
+    run to run; members 0 and M-1 within the flavor's band of the plain
+    flavor (the f32 one at TOL, the bf16 one at the bf16 bands; the TF32
+    flavor's referee is its single launch, held to the emulation in phase
+    16 and by its own tests)."""
+    sqs, fam, X, w, flat = _family_k3_setup(card, case, flavor)
+    assert fam.groups == [list(range(len(sqs)))]
+    single = cuda_minimax.FLAVORS[fam.flavor]
+    key = cuda_minimax.FAMILY_FLAVORS[fam.flavor]
+    before = key.launches, single.launches
+    got = _family_launch(fam, X, w, flat)
+    assert (key.launches, single.launches) == (before[0] + 1, before[1])
+    again = _family_launch(fam, X, w, flat)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    M = X.shape[0]
+    for m, sq in enumerate(sqs):
+        fl = [t[m] for t in flat]
+        want = single(sq.plan, X[m].contiguous(), w[m].contiguous(),
+                      sq.plan.pack(fl))
+        for a, b in zip((got[0][m], got[1][m], got[2][m], got[3][m]), want):
+            assert torch.equal(a, b), m
+    if flavor == "tf32":
+        return
+    for m in (0, M - 1):
+        fl = [t[m] for t in flat]
+        p_val, p_flat, p_gw, p_gX = sqs[m].plain(fl, w[m], X[m])
+        leaves = [got[0][m].reshape(1)] + [
+            t.reshape(-1) for t in sqs[m].plan.unpack(got[1][m])] + [
+            got[2][m], got[3][m]]
+        want = [p_val.reshape(1)] + [t.reshape(-1) for t in p_flat] + [
+            p_gw, p_gX]
+        for i, (a, b) in enumerate(zip(leaves, want)):
+            assert bool(torch.isfinite(a).all()), (m, i)
+            band = (TOL if flavor == "f32" else
+                    BF16_VALUES if i in (0, len(want) - 2) else BF16_GRADS)
+            assert _scaled(a.reshape(-1), b.reshape(-1)) <= band, (m, i)
+
+
+def test_family_k3_nan_member_leaves_the_others_bit_for_bit_on_card(card):
+    """A member whose weights are all NaN: the other members' outputs of
+    the member-axis launch are bit for bit those of the clean family."""
+    sqs, fam, X, w, flat = _family_k3_setup(card, "factory", "f32")
+    clean = _family_launch(fam, X, w, flat)
+    poisoned = [t.clone() for t in flat]
+    for t in poisoned:
+        t[3].fill_(float("nan"))
+    got = _family_launch(fam, X, w, poisoned)
+    keep = [m for m in range(X.shape[0]) if m != 3]
+    for a, b in zip(got, clean):
+        assert torch.equal(a[keep], b[keep])
+    assert not bool(torch.isfinite(got[0][3]))
+
+
+def test_family_unit_through_autograd_and_tape_groups_on_card(card):
+    """The member-axis unit through autograd scales each member's saved
+    cotangents by its entry of the incoming [M]; a member whose θ equals a
+    constant of its residual (5.0) takes a launch of its own group, and
+    every member's outputs still equal its single launch bit for bit."""
+    from tensordiffeq_tpu_torch.ops.minimax import build_family_sq_fn
+    sqs, _, X, w, flat = _family_k3_setup(card, "factory", "f32")
+
+    def f5(u, x, t):
+        g = tdqt.grad
+        uv = u(x, t)
+        return (g(u, "t")(x, t) - 5.0 * g(g(u, "x"), "x")(x, t)
+                + 5.0 * uv ** 3 - 5.0 * uv)
+    sqs[2] = build_minimax_sq_fn(f5, ("x", "t"), 1, AC,
+                                 sqs[0].plan.layer_shapes)
+    fam = build_family_sq_fn(sqs, device=card)
+    M = X.shape[0]
+    assert fam.groups == [[m for m in range(M) if m != 2], [2]]
+    cuda_minimax.k3_minimax_family.launches = 0
+    val, gflat, gw, gX = fam.value_and_grads(flat, w, X)
+    torch.cuda.synchronize()
+    assert cuda_minimax.k3_minimax_family.launches == 2
+    for m, sq in enumerate(sqs):
+        fl = [t[m] for t in flat]
+        v, dfl, gwm, gXm = cuda_minimax.k3_minimax(
+            sq.plan, X[m].contiguous(), w[m].contiguous(), sq.plan.pack(fl))
+        assert torch.equal(val[m], v) and torch.equal(gw[m], gwm)
+        assert torch.equal(gX[m], gXm)
+        for a, b in zip(gflat, sq.plan.unpack(dfl)):
+            assert torch.equal(a[m].reshape(-1), b.reshape(-1))
+    leaves = [t.clone().requires_grad_(True) for t in flat]
+    scale = torch.arange(1, M + 1, dtype=torch.float32, device=card)
+    v = fam(list(zip(leaves[0::2], leaves[1::2])), w, X)
+    grads = torch.autograd.grad(torch.sum(scale * v), leaves)
+    for a, b in zip(grads, gflat):
+        assert torch.equal(a, b * scale.reshape((-1,) + (1,) * (b.ndim - 1)))
 
 
 def test_family_members_k3_match_plain_flavor_on_card(card):

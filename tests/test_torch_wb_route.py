@@ -84,7 +84,7 @@ def test_plan_at_the_slice_and_at_burgers():
     # tiles of 32 points at C = 4; two 32 KB chunks a hidden layer and
     # direction, twelve a tile through two stages; four staged Q slices
     assert ac == ct.WbPlan(NP=128, CP=4, KC=64, S=2, P=12, stage_bytes=32_768,
-                           n_tiles=1563, grid=132, smem=205_536, bulk=1,
+                           n_tiles=1563, grid=132, smem=205_600, bulk=1,
                            ws_floats=132 * 4 * 128 * 128 + 12 * 128 * 64)
     _, bu = _plan(AC, [2] + [20] * 8 + [1])
     assert (bu.NP, bu.CP, bu.P, bu.S, bu.stage_bytes, bu.bulk) \
@@ -346,13 +346,15 @@ def _arith(mode):
     return keep, keep, torch.matmul, torch.matmul, torch.matmul, keep
 
 
-def _route_k2(flat, X, g, reqs, n_sm, mode):
+def _route_k2(flat, X, g, reqs, n_sm, mode, visit=None):
     """The route's K2 for layers ``flat``, points ``X [N, d]`` and table
     cotangents ``g [C, N, n_out]``: ``(dflat, dX)``.  Tiles of 128 rows
     (point p's channel c at row (p % TP) * CP + c), blocks walking tiles b,
     b + G, ...; the arithmetic of ``mode`` (:func:`_arith`) where the
     kernel rounds or splits: every product operand, the bias sums not; in
-    the bf16 flavor each dW rounded to bf16 after the slots' sum."""
+    the bf16 flavor each dW rounded to bf16 after the slots' sum.
+    ``visit``: the tiles in the order the kernel's blocks run them (each
+    once; tile t adds to slot t % G), tile order by default."""
     rnd, grnd, mm, dh_mm, dw, out = _arith(mode)
     _, rows = ct.channel_schedule(reqs)
     C, N, d = len(rows), X.shape[0], X.shape[1]
@@ -391,7 +393,9 @@ def _route_k2(flat, X, g, reqs, n_sm, mode):
     def add(blk, i, v, first):
         slots[blk][i] = v.clone() if first else slots[blk][i] + v
 
-    for tile in range(wp.n_tiles):
+    tiles = range(wp.n_tiles) if visit is None else list(visit)
+    assert sorted(tiles) == list(range(wp.n_tiles))
+    for tile in tiles:
         blk, first = tile % wp.grid, tile < wp.grid
         p0 = tile * TP
         P0, x = layer0(p0)
@@ -525,7 +529,7 @@ def test_f32_plan_at_the_slice_and_at_burgers():
     (dW's lo planes are made in place over H^T and dP^T)."""
     _, ac = _plan(AC, [2, 128, 128, 128, 128, 1], code=F32)
     assert ac == ct.WbPlan(NP=128, CP=4, KC=32, S=2, P=24, stage_bytes=32_768,
-                           n_tiles=1563, grid=132, smem=205_536, bulk=1,
+                           n_tiles=1563, grid=132, smem=205_600, bulk=1,
                            ws_floats=132 * 4 * 128 * 128 + 24 * 128 * 32 * 2)
     assert ac.smem == _plan(AC, [2, 128, 128, 128, 128, 1])[1].smem
     _, bu = _plan(AC, [2] + [20] * 8 + [1], code=F32)
@@ -643,14 +647,15 @@ T_RES, J_RES = _residuals(grad), _residuals(tdq.grad)
 N_OUT = dict(ac=1, system=2)
 
 
-def _route_k3(sq, flat, X, w, n_sm, mode="f32"):
+def _route_k3(sq, flat, X, w, n_sm, mode="f32", visit=None):
     """K3 on the route in the flavor ``mode`` ("f32" or "bf16"): the
     route's forward gives the head's rows (per point: its rows do not
     depend on the tile), the tape runs on them per point
     (``minimax_tape.cuh``'s interpreter, mirrored by ``ResidualTape``), and
     its cotangents (seeds 2 w f) go through the route's K2, whose dX the
-    tape's direct coordinate adjoints are added to.  Returns ``(value,
-    [dW_0, db_0, ...], gw, gX)``."""
+    tape's direct coordinate adjoints are added to (``visit``: its tiles'
+    order, :func:`_route_k2`).  Returns ``(value, [dW_0, db_0, ...], gw,
+    gX)``."""
     plan = sq.plan
     _, rows = ct.channel_schedule(set(plan.mis))
     rnd, _, mm, _, _, _ = _arith(mode)
@@ -678,7 +683,7 @@ def _route_k3(sq, flat, X, w, n_sm, mode="f32"):
     g = torch.zeros(plan.C, X.shape[0], plan.n_out)
     for s, gs in g_tab.items():
         g[s // plan.n_out, :, s % plan.n_out] = gs
-    dflat, dX = _route_k2(flat, X, g, set(plan.mis), n_sm, mode)
+    dflat, dX = _route_k2(flat, X, g, set(plan.mis), n_sm, mode, visit)
     for k, gc in g_coord.items():
         dX[:, k] += gc
     return value, dflat, gw, dX
@@ -729,6 +734,52 @@ def test_route_k3_f32_within_the_f32_band_and_jax(case):
     _crosscheck(got, [torch.from_numpy(np.array(a)) for a in jax_leaves])
 
 
+def _route_k3_members(sqs, flats, Xs, ws, n_sm, mode="f32"):
+    """K3 over a member axis on the route: the launch's persistent blocks
+    (:func:`~cuda_minimax.family_launch`) walk the work items (member m,
+    virtual block b) in turn, each running member m's tiles b, b + G, ...
+    into its slot; each member's tiles are visited in the order that walk
+    reaches them.  Returns each member's :func:`_route_k3` outputs."""
+    from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
+    plan = sqs[0].plan
+    N = Xs[0].shape[0]
+    wp = ct.wb_plan(plan.layer_shapes, plan.orders, {"f32": F32,
+                    "bf16": BF16}.get(mode, TF32), SMEM, n_sm, N)
+    fl = cm.family_launch(plan, wp, len(sqs), n_sm)
+    visits = [[] for _ in sqs]
+    for blk in range(fl.grid):
+        for m, b in cm.family_items(fl, blk):
+            visits[m] += list(range(b, wp.n_tiles, fl.G))
+    return [_route_k3(sq, flat, X, w, n_sm, mode, visit=v)
+            for sq, flat, X, w, v in zip(sqs, flats, Xs, ws, visits)]
+
+
+def test_route_k3_member_axis_is_each_members_route_bit_for_bit():
+    """The route's K3 over 3 members in the f32 order (their θ differ; one
+    tape group) equals each member's single-launch mirror bit for bit."""
+    N, n_sm = 300, 4
+    shapes = [(2, 40), (40, 40), (40, 40), (40, 1)]
+    rng = np.random.RandomState(1)
+    sqs, flats, Xs, ws = [], [], [], []
+    for m, th in enumerate((0.05, 0.02, 0.11)):
+        def f(u, x, t, _th=th):
+            return (grad(u, "t")(x, t) - _th * grad(grad(u, "x"), "x")(x, t)
+                    + u(x, t) ** 3 - u(x, t))
+        sqs.append(minimax.build_minimax_sq_fn(
+            f, VARS, 1, analyze_f_model(f, VARS, 1), shapes, device="cpu"))
+        flats.append(_layers([2, 40, 40, 40, 1], seed=m))
+        Xs.append(torch.from_numpy((rng.randn(N, 2) * 0.5).astype(
+            np.float32)))
+        ws.append(torch.from_numpy(rng.rand(N, 1).astype(np.float32)))
+    assert minimax.tape_groups(sqs) == [[0, 1, 2]]
+    got = _route_k3_members(sqs, flats, Xs, ws, n_sm)
+    for sq, flat, X, w, out in zip(sqs, flats, Xs, ws, got):
+        want = _route_k3(sq, flat, X, w, n_sm)
+        assert torch.equal(out[0], want[0])
+        assert all(torch.equal(a, b) for a, b in zip(out[1], want[1]))
+        assert torch.equal(out[2], want[2]) and torch.equal(out[3], want[3])
+
+
 # ------------------------------------------------------------------ #
 # the bf16 flavor on the route
 # ------------------------------------------------------------------ #
@@ -738,7 +789,7 @@ def test_bf16_plan_at_the_slice_and_at_burgers():
     and dP's three pieces take the bytes of H^T and dP^T)."""
     _, ac = _plan(AC, [2, 128, 128, 128, 128, 1], code=BF16)
     assert ac == ct.WbPlan(NP=128, CP=4, KC=64, S=5, P=12, stage_bytes=16_384,
-                           n_tiles=1563, grid=132, smem=221_920, bulk=1,
+                           n_tiles=1563, grid=132, smem=221_984, bulk=1,
                            ws_floats=132 * 4 * 128 * 128 + 12 * 128 * 64 // 2)
     f32 = _plan(AC, [2, 128, 128, 128, 128, 1], code=F32)[1]
     assert ac.smem - ac.S * ac.stage_bytes == f32.smem - f32.S * f32.stage_bytes
