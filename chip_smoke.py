@@ -479,9 +479,14 @@ K3_RTOL = 1e-4
 AC_REQUESTS = {(), (1,), (0, 0)}
 MIXED_REQUESTS = {(), (0,), (1,), (0, 0), (0, 1), (0, 0, 1), (0, 0, 0, 0)}
 WIDTHS = [2, 128, 128, 128, 128, 1]
-# K1's shapes past its wgmma route (hidden widths over 128): the slice's
-# net at twice the width, which takes the kernel beside K2
+# the slice's net at twice the width: K1's shapes past its wgmma route
+# (hidden widths over 128), which take the kernel beside K2; the f32 K2's
+# and K3's NP = 256 design (csrc/wg_backward_wide.cuh); the TF32 and bf16
+# K2/K3's mma.sync kernels
 WIDE_WIDTHS = [2, 256, 256, 256, 256, 1]
+# the wide path (AC-SA full at WIDE_WIDTHS): minimax Adam steps, L-BFGS
+# iterations after them, unfused steps
+WIDE_TF_ITER, WIDE_LBFGS, WIDE_UNFUSED = 200, 20, 50
 # the K1 route each case of phases 3 and 14 must take
 K1_ROUTES = {"ac": "wgmma", "mixed": "wgmma", "wide": "wide"}
 N_POINTS = 50_000
@@ -593,11 +598,11 @@ K3_TF32_ROUTES = {"ac": "wgmma", "burgers": "wgmma", "wide": "mma"}
 # the route the f32 (3xTF32) K2 and K3 must take in each case of phases 3-5
 # and 16(a): the same wgmma route in its f32 flavor at the slice's (the AC
 # and mixed request sets; E = 2 and the 1/x residual) and burgers' shapes,
-# the mma.sync kernels at WIDE_WIDTHS
+# and at WIDE_WIDTHS its NP = 256 design (csrc/wg_backward_wide.cuh)
 K2_ROUTES = {"ac": "wgmma", "mixed": "wgmma", "burgers": "wgmma",
-             "wide": "mma"}
+             "wide": "wgmma"}
 K3_ROUTES = {"ac": "wgmma", "system": "wgmma", "singular": "wgmma",
-             "burgers": "wgmma", "wide": "mma"}
+             "burgers": "wgmma", "wide": "wgmma"}
 # the route K2-bf16 and K3-bf16 must take in each case of phases 14 and 17:
 # the wgmma route in its bf16 flavor at the slice's shapes (the AC and
 # mixed request sets; E = 2, the 1/x residual, 500,000 rows), the mma.sync
@@ -609,6 +614,10 @@ ROUTE_SOURCES = {("k2", "wgmma"): "csrc/wg_backward.cuh",
                  ("k3", "wgmma"): "csrc/wg_backward.cuh",
                  ("k2", "mma"): "csrc/taylor_table.cu",
                  ("k3", "mma"): "csrc/minimax_step.cu"}
+# each kernel's route at WIDE_WIDTHS in the f32 flavor
+WIDE_ROUTE_SOURCES = {"k1": "csrc/taylor_table.cu",
+                      "k2": "csrc/wg_backward_wide.cuh",
+                      "k3": "csrc/wg_backward_wide.cuh"}
 # the f32 K2's and K3's ms on the mma.sync route at the slice (PERF.md §6,
 # an NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's; the
 # same-call comparison is scripts/torch_tf32_time.py's --flavor f32 on an
@@ -719,11 +728,22 @@ def _k1_route(plan, dtype, label: str) -> str:
     return route
 
 
+def _errs(got, want) -> tuple:
+    """The largest absolute and scale-relative errors over leaf pairs."""
+    worst_a, worst_r = 0.0, 0.0
+    for a_k, a_p in zip(got, want):
+        a, r = scaled_err(a_k, a_p)
+        worst_a, worst_r = max(worst_a, a), max(worst_r, r)
+    return worst_a, worst_r
+
+
 def phase_kernels(dev) -> dict:
     """Phases 3-4: each kernel against its plain flavor, at the slice's
-    shapes, and K1 also on ``WIDE_WIDTHS`` (its route for wider layers).
-    Returns the measurements of the Allen-Cahn request set, the wide
-    route's under ``k1["wide"]``."""
+    shapes and on ``WIDE_WIDTHS`` (K1's route for wider layers, K2's NP =
+    256 design, timed beside the mma.sync kernel it replaced on the same
+    inputs).  Returns the measurements of the Allen-Cahn request set, the
+    wide case's under ``k1["wide"]`` and ``k2["wide"]``, K2's mma.sync
+    kernel there under ``k2["old_route"]``."""
     import torch
     from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
     from tensordiffeq_tpu_torch.ops.taylor import taylor_derivatives
@@ -775,9 +795,11 @@ def phase_kernels(dev) -> dict:
             print(f"[time {label}] K1 {k1_ms:.3f} ms on the {route} route "
                   f"(plain {k1_plain_ms:.3f} ms), {bound_text(k1_ms, b1)}",
                   flush=True)
-            out[label] = dict(k1=dict(
-                max_abs_err=k1_abs, ms=k1_ms, plain_ms=k1_plain_ms,
-                bound=b1, route=route, bit_identical=k1_bits))
+            out[label] = dict(
+                k1=dict(max_abs_err=k1_abs, ms=k1_ms, plain_ms=k1_plain_ms,
+                        bound=b1, route=route, bit_identical=k1_bits),
+                k2=_wide_k2(plan, X, flat, params, pairs, rng, flops,
+                            nbytes))
             continue
 
         g = torch.as_tensor(rng.randn(plan.C, N_POINTS, 1),
@@ -834,7 +856,65 @@ def phase_kernels(dev) -> dict:
             k2=dict(max_abs_err=k2_abs, ms=k2_ms, plain_ms=k2_plain_ms,
                     bound=b2, route=k2_route, bit_identical=k2_bits))
     out["ac"]["k1"]["wide"] = out["wide"]["k1"]
+    out["ac"]["k2"]["wide"] = out["wide"]["k2"]
+    out["ac"]["k2"]["old_route"] = out["wide"]["k2"].pop("old_route")
     return out["ac"]
+
+
+def _wide_k2(plan, X, flat, params, pairs, rng, flops, nbytes) -> dict:
+    """Phase 4 at WIDE_WIDTHS: K2 on the route K2_ROUTES["wide"] names
+    against autograd of the plain flavor (K2_RTOL), bit for bit run to
+    run, timed beside its plain flavor and beside the mma.sync kernel on
+    the same inputs (``old_route``: held to the same band)."""
+    import torch
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    from tensordiffeq_tpu_torch.ops.taylor import taylor_derivatives
+    channels = plan.channels
+    g = torch.as_tensor(rng.randn(plan.C, N_POINTS, 1), dtype=torch.float32,
+                        device=X.device)
+    Xg = X.clone().requires_grad_(True)
+
+    def plain_grads():
+        t = taylor_derivatives(pairs, Xg, set(channels), flat_matmul=True)
+        loss = sum((t[mi] * g[c]).sum() for c, mi in enumerate(channels))
+        return torch.autograd.grad(loss, params + [Xg])
+
+    before = ct.k2_backward.launches
+    dX, dflat = ct.k2_backward(plan, X, flat, g)
+    torch.cuda.synchronize()
+    ref = plain_grads()
+    k2_abs, k2_rel = _errs(plan.unpack(dflat) + [dX], ref)
+    odX, odflat = ct.k2_mma(plan, X, flat, g, 0)
+    torch.cuda.synchronize()
+    old_abs, old_rel = _errs(plan.unpack(odflat) + [odX], ref)
+    print(f"[K2 wide] max_abs_err={k2_abs:.3e} scale_rel_err={k2_rel:.3e}; "
+          f"the mma.sync kernel max_abs_err={old_abs:.3e} "
+          f"scale_rel_err={old_rel:.3e} (tol {K2_RTOL:g} on each)",
+          flush=True)
+    if not (k2_rel <= K2_RTOL and old_rel <= K2_RTOL):
+        fail("K2 disagrees with autograd of the plain flavor (wide)")
+    route = _wb_route(plan, "k2", "wide")
+    bits = _bit_identical_run_to_run(
+        "K2 wide", torch.cat([dflat, dX.reshape(-1)]),
+        lambda: torch.cat([t.reshape(-1) for t in
+                           ct.k2_backward(plan, X, flat, g)[::-1]]))
+    # in turns: the new route, the mma.sync kernel, twice
+    ms, old_ms = [], []
+    for _ in range(2):
+        ms.append(cuda_ms(lambda: ct.k2_backward(plan, X, flat, g)))
+        old_ms.append(cuda_ms(lambda: ct.k2_mma(plan, X, flat, g, 0)))
+    plain_ms = cuda_ms(plain_grads, reps=3)
+    ct.k2_backward.launches = before  # not the main path's launches
+    b2 = bound_ms(flops["k2"], nbytes["k2"])
+    print(f"[time wide] K2 {min(ms):.3f} ms on the {route} route (turns "
+          f"{', '.join(f'{v:.3f}' for v in ms)}), the mma.sync kernel "
+          f"{min(old_ms):.3f} ms ({', '.join(f'{v:.3f}' for v in old_ms)}), "
+          f"plain fwd+bwd {plain_ms:.3f} ms; {bound_text(min(ms), b2)}",
+          flush=True)
+    return dict(max_abs_err=k2_abs, ms=min(ms), plain_ms=plain_ms,
+                bound=b2, route=route, bit_identical=bits,
+                old_route=dict(route="mma", max_abs_err=old_abs,
+                               ms=min(old_ms), plain_ms=plain_ms, bound=b2))
 
 
 def _ac_residual(u, x, t):
@@ -864,8 +944,11 @@ def _singular_residual(u, x, t):
 
 
 def phase_k3(dev) -> dict:
-    """Phase 5: K3 against its plain flavor.  Returns the measurements of
-    the Allen-Cahn case (the slice's shapes)."""
+    """Phase 5: K3 against its plain flavor, at the slice's shapes and at
+    WIDE_WIDTHS (the NP = 256 design, timed beside the mma.sync kernel on
+    the same inputs).  Returns the measurements of the Allen-Cahn case (the
+    slice's shapes), the wide case's under ``wide``, the mma.sync kernel's
+    there under ``old_route``."""
     import torch
     from tensordiffeq_tpu_torch.networks import neural_net
     from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
@@ -876,7 +959,8 @@ def phase_k3(dev) -> dict:
         ("ac", _ac_residual, WIDTHS, N_POINTS, (-1.0, 1.0)),
         ("system", _coupled_residual, WIDTHS[:-1] + [2], N_POINTS,
          (-1.0, 1.0)),
-        ("singular", _singular_residual, WIDTHS, N_POINTS + 1, (0.5, 1.5)))
+        ("singular", _singular_residual, WIDTHS, N_POINTS + 1, (0.5, 1.5)),
+        ("wide", _ac_residual, WIDE_WIDTHS, N_POINTS, (-1.0, 1.0)))
     rng = np.random.RandomState(1)
     out = {}
     for label, f_model, widths, n, (lo, hi) in cases:
@@ -938,7 +1022,40 @@ def phase_k3(dev) -> dict:
               flush=True)
         out[label] = dict(max_abs_err=k3_abs, ms=ms, plain_ms=plain_ms,
                           bound=bound, route=route, bit_identical=bits)
+        if label == "wide":
+            out[label]["old_route"] = _wide_k3_old(plan, X, w, flat, want,
+                                                   ms, plain_ms, bound)
+    out["ac"]["wide"] = out["wide"]
+    out["ac"]["old_route"] = out["wide"].pop("old_route")
     return out["ac"]
+
+
+def _wide_k3_old(plan, X, w, flat, want, ms, plain_ms, bound) -> dict:
+    """K3's mma.sync kernel at WIDE_WIDTHS on phase 5's inputs: held to the
+    plain flavor (K3_RTOL) and timed in turns with the NP = 256 design."""
+    import torch
+    from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
+    val, dflat, gw, gX = cm.k3_mma(plan, X, w, flat, 0)
+    torch.cuda.synchronize()
+    got = [val.reshape(1)] + [g.reshape(-1) for g in plan.unpack(dflat)] \
+        + [gw, gX]
+    old_abs, old_rel = _errs(got, want)
+    if not old_rel <= K3_RTOL:
+        fail(f"K3's mma.sync kernel disagrees with its plain flavor (wide): "
+             f"{old_rel:.3e}")
+    before = cm.k3_minimax.launches
+    new_ms, old_ms = [ms], []
+    for _ in range(2):
+        old_ms.append(cuda_ms(lambda: cm.k3_mma(plan, X, w, flat, 0)))
+        new_ms.append(cuda_ms(lambda: cm.k3_minimax(plan, X, w, flat)))
+    cm.k3_minimax.launches = before  # not the main path's launches
+    print(f"[time K3 wide] in turns: the NP = 256 design "
+          f"{', '.join(f'{v:.3f}' for v in new_ms)} ms, the mma.sync kernel "
+          f"{', '.join(f'{v:.3f}' for v in old_ms)} ms (its scale_rel_err "
+          f"{old_rel:.3e}, plain fwd+bwd {plain_ms:.3f} ms); "
+          f"{bound_text(min(old_ms), bound)}", flush=True)
+    return dict(route="mma", max_abs_err=old_abs, ms=min(old_ms),
+                plain_ms=plain_ms, bound=bound)
 
 
 def phase_yardstick(dev) -> dict:
@@ -947,7 +1064,8 @@ def phase_yardstick(dev) -> dict:
     H^T dP and dH = dP W^T, three of each as in one K2 or K3 launch (K1
     takes the three forward ones), with TF32 off (the f32 flavors'
     yardstick), on (the TF32 flavor's: one pass), and on bf16 operands
-    (the bf16 flavor's).  A yardstick only: the port never calls it."""
+    (the bf16 flavor's); and the f32 nine at 256 wide (WIDE_WIDTHS, the NP
+    = 256 design's).  A yardstick only: the port never calls it."""
     import torch
     g = torch.Generator(device=dev).manual_seed(0)
     rows = N_POINTS * 4
@@ -975,6 +1093,20 @@ def phase_yardstick(dev) -> dict:
               flush=True)
         out[kind] = dict(fwd_ms=fwd, dw_ms=dw, dh_ms=dh,
                          nine_ms=fwd + dw + dh)
+    # the f32 nine at WIDE_WIDTHS' 256 (the NP = 256 design's yardstick)
+    H = torch.rand(rows, 256, generator=g, device=dev) * 2 - 1
+    dP = torch.randn(rows, 256, generator=g, device=dev)
+    W = torch.randn(256, 256, generator=g, device=dev) / 256 ** 0.5
+    fwd = cuda_ms(lambda: [H @ W for _ in range(3)], reps=10)
+    dw = cuda_ms(lambda: [H.t() @ dP for _ in range(3)], reps=10)
+    dh = cuda_ms(lambda: [dP @ W.t() for _ in range(3)], reps=10)
+    print(f"[yardstick] torch.matmul f32 (allow_tf32=False), [{rows}, 256] "
+          f"x [256, 256], three of each: forward {fwd:.3f} ms, dW "
+          f"{dw:.3f} ms, dH {dh:.3f} ms; the nine of K2/K3 at WIDE_WIDTHS "
+          f"{fwd + dw + dh:.3f} ms (cuBLAS, not used by the port)",
+          flush=True)
+    out["f32_wide"] = dict(fwd_ms=fwd, dw_ms=dw, dh_ms=dh,
+                           nine_ms=fwd + dw + dh)
     return out
 
 
@@ -1410,6 +1542,108 @@ def _state_diff(a, b, since: int = 0) -> float:
             worst = max(worst, float(np.abs(x - y).max())
                         / max(float(np.abs(y).max()), 1e-30))
     return worst
+
+
+def phase_wide() -> dict:
+    """The wide path: AC-SA full (N_f = 50,000, SA λ) at WIDE_WIDTHS, where
+    the f32 K3 and K2 take their NP = 256 design (csrc/wg_backward_wide.cuh)
+    and K1 its kernel beside K2.  WIDE_TF_ITER minimax Adam steps (K3 once
+    per step, no K1/K2), graphed and eager from one seed, held bit for bit
+    with one capture; then WIDE_LBFGS L-BFGS iterations on the graphed
+    solver (K3 once per evaluation, no K1/K2); then WIDE_UNFUSED unfused
+    steps (K1 and K2 once per step), graphed and eager bit for bit, and
+    their loss history held to the minimax leg's over the same steps (one
+    loss by two engines: within SERVE_CROSSCHECK_RTOL, the engines'
+    cross-check rtol).  Each leg's counts are set to 0 just before it and
+    read just after; the minimax leg's loss falls and L-BFGS's best is
+    below it; K3 (and K1/K2) are held to the plain flavor on the path's own
+    tensors.  Returns the paths "wide", "wide-lbfgs", "wide-unfused"."""
+    import torch
+    import tensordiffeq_tpu_torch as tdqt
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+
+    def make(minimax=None):
+        def build():
+            domain, bcs, f_model, kw = ac_sa_problem()
+            s = tdqt.CollocationSolverND(verbose=False, seed=0)
+            if minimax is not None:
+                kw = dict(kw, minimax=minimax)
+            s.compile(WIDE_WIDTHS, f_model, domain, bcs, fused="cuda", **kw)
+            return s
+        return build
+
+    out = {}
+    r = _graph_vs_eager("wide minimax", make(), WIDE_TF_ITER, 50)
+    solver = r["graph"]
+    route = solver._minimax_sq.plan.k3_routes.get(None)
+    loss = np.array([row["Total Loss"] for row in solver.losses])
+    ms_step = 1e3 * r["seconds"] / WIDE_TF_ITER
+    print(f"[wide minimax] engine {solver.engine}, K3 on the {route} route; "
+          f"{WIDE_TF_ITER} steps {ms_step:.3f} ms/step (the fit's wall, its "
+          f"capture included; replays {_steady_ms(solver, 50):.3f} ms/step);"
+          f" loss {loss[0]:.6e} -> {loss[-1]:.6e}; launches {r['launches']}",
+          flush=True)
+    if solver.engine != "fused-minimax-cuda" or route != K3_ROUTES["wide"]:
+        fail(f"the wide path ran {solver.engine}, K3 on {route}")
+    if not (np.all(np.isfinite(loss)) and loss[-1] < loss[0]):
+        fail("wide minimax: the loss did not fall (or is not finite)")
+    if r["launches"] != {"k1": 0, "k2": 0, "k3": WIDE_TF_ITER}:
+        fail(f"wide minimax: launches {r['launches']}, not K3 x "
+             f"{WIDE_TF_ITER} alone")
+    _held_k3("wide minimax held", solver)
+    out["wide"] = dict(launches=r["launches"], ms_step=ms_step,
+                       steady_ms=_steady_ms(solver, 50))
+    minimax_loss = loss
+    del r
+    # the L-BFGS leg after it
+    ct.reset_launch_counts()
+    e0, _ = _lbfgs_counts()
+    n_adam = len(solver.losses)
+    t = _timed_fit(solver, newton_iter=WIDE_LBFGS)
+    lb = _counts()
+    evals = _lbfgs_counts()[0] - e0
+    iters = len(solver.losses) - n_adam
+    hist = np.array([row["Total Loss"] for row in solver.losses[n_adam:]])
+    print(f"[wide lbfgs] {iters} iterations {1e3 * t / max(iters, 1):.3f} "
+          f"ms/iteration, {evals} evaluations; loss {loss[-1]:.6e} (last "
+          f"Adam step) -> {hist[-1]:.6e}, best "
+          f"{solver.min_loss['l-bfgs']:.6e}; launches {lb}", flush=True)
+    if not (lb["k3"] == evals > 0 and lb["k1"] == lb["k2"] == 0):
+        fail(f"wide lbfgs: launches {lb} for {evals} evaluations")
+    if not (np.all(np.isfinite(hist))
+            and solver.min_loss["l-bfgs"] < loss[-1]):
+        fail("wide lbfgs: the best loss is not below the Adam leg's last")
+    out["wide-lbfgs"] = dict(launches=lb, ms_iter=1e3 * t / max(iters, 1))
+    del solver
+    # the unfused steps: K1 (its wide route) and K2 (the NP = 256 design)
+    r = _graph_vs_eager("wide unfused", make(False), WIDE_UNFUSED, 25)
+    s2 = r["graph"]
+    loss = np.array([row["Total Loss"] for row in s2.losses])
+    ms_step = 1e3 * r["seconds"] / WIDE_UNFUSED
+    plan = ct.build_cuda_table_fn(
+        s2._fuse_requests, [tuple(W.shape) for W, _ in s2.net.layers()],
+        device=s2.X_f.device).plan
+    k2_route = "mma" if plan.wb_route(s2.X_f.device, None, s2.X_f.shape[0],
+                                      "k2") is None else "wgmma"
+    ref = minimax_loss[:WIDE_UNFUSED]
+    apart = float(np.max(np.abs(loss - ref) / np.abs(ref)))
+    print(f"[wide unfused] engine {s2.engine}, K2 on the {k2_route} route; "
+          f"{WIDE_UNFUSED} steps {ms_step:.3f} ms/step (the fit's wall); "
+          f"loss {loss[0]:.6e} -> {loss[-1]:.6e} (the minimax leg "
+          f"{ref[-1]:.6e} at that step; the histories {apart:.3e} apart, "
+          f"tol {SERVE_CROSSCHECK_RTOL:g}); launches {r['launches']}",
+          flush=True)
+    if s2.engine != "fused-cuda" or k2_route != K2_ROUTES["wide"]:
+        fail(f"the wide unfused path ran {s2.engine}, K2 on {k2_route}")
+    if not (np.all(np.isfinite(loss)) and apart <= SERVE_CROSSCHECK_RTOL):
+        fail("wide unfused: the loss history left the minimax leg's (or is "
+             "not finite)")
+    if r["launches"] != {"k1": WIDE_UNFUSED, "k2": WIDE_UNFUSED, "k3": 0}:
+        fail(f"wide unfused: launches {r['launches']}, not K1/K2 x "
+             f"{WIDE_UNFUSED}")
+    _held_k1_k2("wide unfused held", s2)
+    out["wide-unfused"] = dict(launches=r["launches"], ms_step=ms_step)
+    return out
 
 
 def phase_graphs():
@@ -2277,7 +2511,7 @@ def _graph_vs_eager(tag: str, make, steps: int, chunk: int) -> dict:
     if diff != 0 or caps != 1:
         fail(f"{tag}: graphed steps differ from eager ones ({diff:.3e}) or "
              f"the step was captured {caps} times")
-    return dict(graph=graph, eager=eager, launches=launches)
+    return dict(graph=graph, eager=eager, launches=launches, seconds=t_g)
 
 
 def _log_eps(solver) -> list:
@@ -3535,8 +3769,8 @@ def phase_tf32_kernels(dev) -> dict:
     3xTF32 flavor and its one-pass bound.  The 3xTF32 (f32) K2 and K3 at
     the same three shapes against the IEEE plain flavor (K2_RTOL, K3_RTOL),
     on the route K2_ROUTES/K3_ROUTES name, bit for bit run to run.  Returns
-    the Allen-Cahn measurements, with the wide case's K2/K3 as
-    ``old_route`` and the f32 K2/K3 of the wide case under ``f32_wide``."""
+    the Allen-Cahn measurements, with the wide case's K2-TF32/K3-TF32 as
+    ``old_route``."""
     import torch
     from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
     from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
@@ -3692,8 +3926,6 @@ def phase_tf32_kernels(dev) -> dict:
     res = {k: out["ac"][k] for k in ("k1_tf32", "k2_tf32", "k3_tf32")}
     for key in ("k2_tf32", "k3_tf32"):
         res[key]["old_route"] = dict(out["wide"][key], widths=WIDE_WIDTHS)
-    res["f32_wide"] = {key: dict(out["wide"][key], widths=WIDE_WIDTHS)
-                       for key in ("k2", "k3")}
     return res
 
 
@@ -7032,9 +7264,10 @@ def kernels_line(meas: dict, paths: dict) -> str:
             # K2's and K3's route at the slice's shape (the wgmma route of
             # csrc/wg_backward.cuh; "k2_route"/"k3_route" for the f32 and
             # bf16 flavors, "tf32_route" for the TF32 one), their mma.sync
-            # route at WIDE_WIDTHS (held and timed in phases 14 and 16(a);
-            # no main path takes it), and the flavor's products'
-            # torch.matmul time (the yardstick)
+            # kernels at WIDE_WIDTHS (held and timed in phases 3-5, 14 and
+            # 16(a); in the f32 flavor beside the NP = 256 design that
+            # replaced them there; no main path takes them), and the
+            # flavor's products' torch.matmul time (the yardstick)
             **({("tf32_route" if key.endswith("tf32") else
                  f"{key[:2]}_route"): m["route"],
                 "yardstick_ms": m.get("yardstick_ms"),
@@ -7049,13 +7282,21 @@ def kernels_line(meas: dict, paths: dict) -> str:
                     "bound_ms": m["old_route"]["bound"]["ms"],
                     "bound_by": m["old_route"]["bound"]["by"]}}
                if "old_route" in m else {}),
+            # the f32 kernels at WIDE_WIDTHS (phases 3-5): K1's kernel
+            # beside K2 (csrc/taylor_table.cu), K2's and K3's NP = 256
+            # design (csrc/wg_backward_wide.cuh; the wide path takes it)
+            # with its products' torch.matmul time
             **({"wide_route": {
-                "source": "tensordiffeq_tpu_torch/csrc/taylor_table.cu",
+                "source": "tensordiffeq_tpu_torch/"
+                          + WIDE_ROUTE_SOURCES[key[:2]],
                 "widths": WIDE_WIDTHS,
                 "max_abs_err": m["wide"]["max_abs_err"],
                 "ms": m["wide"]["ms"], "plain_ms": m["wide"]["plain_ms"],
                 "bound_ms": m["wide"]["bound"]["ms"],
-                "bound_by": m["wide"]["bound"]["by"]}}
+                "bound_by": m["wide"]["bound"]["by"],
+                **({"route": m["wide"]["route"],
+                    "yardstick_ms": m["wide"].get("yardstick_ms")}
+                   if key in ("k2", "k3") else {})}}
                if "wide" in m else {}),
             # the member-axis K3 (phase 19(b), the factory's 64 members):
             # the members' single launches in the same call, and the
@@ -7121,6 +7362,11 @@ def main():
                     help="build the kernels and run the yardstick and phase "
                     "16(a) (the TF32 kernels, and the f32 K2 and K3, on both "
                     "routes) alone; prints no result line")
+    ap.add_argument("--wide-only", action="store_true",
+                    help="build the kernels and run phases 3-5 (the kernels "
+                    "against their plain flavors, at WIDE_WIDTHS too), the "
+                    "yardstick and the wide path alone; prints no result "
+                    "line")
     ap.add_argument("--bf16-only", action="store_true",
                     help="build the kernels and run the yardstick and phase "
                     "14(a) (the bf16 kernels, on both routes) alone; prints "
@@ -7197,6 +7443,13 @@ def main():
         phase_audit(card)
         print(card, flush=True)
         return
+    if args.wide_only:
+        phase_kernels(dev)
+        phase_k3(dev)
+        phase_yardstick(dev)
+        phase_wide()
+        print(card, flush=True)
+        return
     if args.tf32_only:
         phase_yardstick(dev)
         phase_tf32_kernels(dev)
@@ -7215,6 +7468,7 @@ def main():
     print(f"[paths] ms/step minimax {paths['minimax']['ms_step']:.3f}, "
           f"unfused {paths['unfused']['ms_step']:.3f}", flush=True)
     paths["lbfgs"] = phase_refine(paths)
+    paths.update(phase_wide())
     phase_graphs()
     serve = phase_serve(paths["minimax"]["solver"], card)
     resample = phase_resample(dev)
@@ -7235,9 +7489,9 @@ def main():
         dev, paths["minimax"]["ms_step"])
     for key in ("k2_tf32", "k3_tf32"):
         tf32_meas[key]["yardstick_ms"] = yard["tf32"]["nine_ms"]
-    for key, wide in tf32_meas.pop("f32_wide").items():
-        meas[key]["old_route"] = wide
+    for key in ("k2", "k3"):
         meas[key]["yardstick_ms"] = yard["f32"]["nine_ms"]
+        meas[key]["wide"]["yardstick_ms"] = yard["f32_wide"]["nine_ms"]
     for key in ("k2_bf16", "k3_bf16"):
         meas[key]["yardstick_ms"] = yard["bf16"]["nine_ms"]
     meas.update(tf32_meas)

@@ -1,7 +1,7 @@
 """Where K1, K2 and K3 spend their time, phase by phase, on one NVIDIA GPU.
 
     python3 scripts/torch_phase_split.py [--reps 5] [--tree DIR] \
-        [--flavor all|f32|tf32|bf16]
+        [--flavor all|f32|tf32|bf16] [--widths 2,256,256,256,256,1]
 
 Run from the root of a checkout; ``--tree`` (default: this script's
 checkout) names the checkout whose ``tensordiffeq_tpu_torch`` package and
@@ -18,7 +18,11 @@ on the route its shape takes in the checkout (the wgmma route of
 ``wg_backward.cuh``, or in an older checkout the mma.sync kernels: run
 ``--tree`` on one for the split before it).  ``--only k1`` splits K1's
 flavors alone; ``--flavor f32`` (``tf32``, ``bf16``) splits K2 and K3 at
-the AC slice in that flavor alone.
+the AC slice in that flavor alone.  ``--widths`` splits K2 and K3 on
+another net (default: the slice's 2-128x4-1), such as WIDE_WIDTHS, whose
+f32 flavor runs ``wg_backward_wide.cuh``'s NP = 256 design (its phases are
+thread 0's, warpgroup 0's: ``wbw_products`` and ``wbw_dh`` hold the waits
+for the other warpgroup's half of the exchange).
 
 The instrumentation: every device function named in ``PHASES`` gets a
 ``clock64()`` stamp at its entry and at each exit, and thread 0 of each
@@ -115,16 +119,32 @@ PHASES = {
     # planes (the pieces' writes count as the cotangent split)
     "wb_dw_pieces": str(P["dW (+ partials)"]),
     "wb_put_pieces": str(P["cotangent split"]),
+    # the f32 flavor's NP = 256 design (wg_backward_wide.cuh): its
+    # products with the exchange of the other warpgroup's half inside, dW
+    # in its passes (their A loads inside) and its staged slot adds
+    "wbw_products": str(P["forward products"]),
+    "wbw_dh": str(P["dH"]),
+    "wbw_dw_passes": str(P["dW (+ partials)"]),
+    "wbw_dw_stage": str(P["dW slot adds"]),
+    "wbw_put_ht": str(P["K-major operand writes"]),
+    "wbw_put_pt": str(P["K-major operand writes"]),
+    "wbw_layer0": str(P["layer 0 forward"]),
+    "wbw_head": str(P["head product"]),
+    "wbw_head_bwd": str(P["head cotangents"]),
+    "wbw_bias": str(P["bias sums"]),
+    "wbw_layer0_bwd": str(P["layer 0 backward"]),
 }
 # functions a checkout from before the bf16 flavor's own route, or from
 # before K1's wgmma route, lacks
 OPTIONAL = {"bmma_w_rows", "bmma_w_cols", "bmma_dw", "split_pieces",
             "k1w_layer0", "k1w_act", "k1w_products", "k1w_head",
             "taylor_fwd_wg_kernel", "taylor_bwd_wg_kernel",
-            "minimax_wg_kernel"} | {fn for fn in PHASES
-                                    if fn.startswith("wb_")}
+            "minimax_wg_kernel", "taylor_bwd_wbw_kernel",
+            "minimax_wbw_kernel"} | {fn for fn in PHASES
+                                     if fn.startswith(("wb_", "wbw_"))}
 KERNELS = ("taylor_fwd_kernel", "taylor_fwd_wg_kernel", "taylor_bwd_kernel",
-           "minimax_step_kernel", "taylor_bwd_wg_kernel", "minimax_wg_kernel")
+           "minimax_step_kernel", "taylor_bwd_wg_kernel", "minimax_wg_kernel",
+           "taylor_bwd_wbw_kernel", "minimax_wbw_kernel")
 MAXBLK = 1024
 NPH = len(LABELS)
 
@@ -240,6 +260,9 @@ def main():
                     default="all",
                     help="split K2 and K3 at the AC slice in this flavor "
                     "alone (default: every kernel and flavor)")
+    ap.add_argument("--widths", default=None,
+                    help="K2's and K3's net, comma-separated (default: "
+                    "chip_smoke.WIDTHS)")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -320,7 +343,9 @@ def main():
     X = torch.as_tensor(np.stack([rng.uniform(-1, 1, n),
                                   rng.uniform(0, 1, n)], 1),
                         dtype=torch.float32, device=dev)
-    layers = neural_net(cs.WIDTHS, device=dev, seed=0).layers()
+    widths0 = (cs.WIDTHS if args.widths is None
+               else [int(v) for v in args.widths.split(",")])
+    layers = neural_net(widths0, device=dev, seed=0).layers()
     flat_layers = [t.detach() for pair in layers for t in pair]
     plan = ct.build_cuda_table_fn(cs.AC_REQUESTS,
                                   [tuple(W.shape) for W, _ in layers]).plan
@@ -345,12 +370,12 @@ def main():
     # every flavor on the route its shape takes: the wgmma route
     # (wg_backward.cuh's instances) where the checkout has it, else the
     # mma.sync kernels
-    k2_units = ("taylor_table",) + tuple(f"taylor_bwd_wg_{f}_{n}"
-                                         for f in ("f32", "tf32", "bf16")
-                                         for n in (64, 128))
-    k3_units = ("minimax_step",) + tuple(f"minimax_wg_{f}_{n}"
-                                         for f in ("f32", "tf32", "bf16")
-                                         for n in (64, 128))
+    k2_units = ("taylor_table", "taylor_bwd_wg_f32_256") + tuple(
+        f"taylor_bwd_wg_{f}_{n}" for f in ("f32", "tf32", "bf16")
+        for n in (64, 128))
+    k3_units = ("minimax_step", "minimax_wg_f32_256") + tuple(
+        f"minimax_wg_{f}_{n}" for f in ("f32", "tf32", "bf16")
+        for n in (64, 128))
     f32, tf32 = args.flavor in ("all", "f32"), args.flavor in ("all", "tf32")
     bf16 = args.flavor in ("all", "bf16")
     if f32:
@@ -363,10 +388,10 @@ def main():
               lambda: ct.k2_backward_tf32(plan, X, flat, g))
 
     for label, f_model, widths, nk, (lo, hi) in (
-            ("ac", cs._ac_residual, cs.WIDTHS, n, (-1.0, 1.0)),
-            ("system", cs._coupled_residual, cs.WIDTHS[:-1] + [2], n,
+            ("ac", cs._ac_residual, widths0, n, (-1.0, 1.0)),
+            ("system", cs._coupled_residual, widths0[:-1] + [2], n,
              (-1.0, 1.0)),
-            ("singular", cs._singular_residual, cs.WIDTHS, n + 1,
+            ("singular", cs._singular_residual, widths0, n + 1,
              (0.5, 1.5)))[:3 if args.flavor == "all" else 1]:
         lay = neural_net(widths, device=dev, seed=0).layers()
         sq = build_minimax_sq_fn(f_model, ("x", "t"), widths[-1],

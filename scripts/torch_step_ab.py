@@ -7,7 +7,10 @@ AC-SA at its ``full`` size (N_f = 50,000, 2-128x4-1, the 512x201 grid,
 path (K3 per step) and ``minimax=False`` (K1 + K2 per step), and, where
 the checkout has it, each again under ``fused_dtype="bfloat16"`` and the
 minimax path with ``neural_net(..., precision=None)`` (K3-TF32 per step;
-``minimax-tf32``); ``--paths`` picks some of them.  Each
+``minimax-tf32``); ``--paths`` picks some of them, and ``--widths``
+another net for them (``--widths 2,256,256,256,256,1``: the wide path of
+``chip_smoke.py``, where the f32 K3 and K2 take their NP = 256 design;
+default the slice's 2-128x4-1).  Each
 solver first takes ``--steps`` Adam steps that hold the graph's warm-ups
 and capture (not timed); then ``--turns`` turns of ``--steps`` more,
 the paths in the order given and back, each turn one ``fit(tf_iter=steps,
@@ -19,7 +22,7 @@ times its paths.
         --out chiprun_out/step_ab.jsonl
 
 One JSON line per run: the tag, the card's name and power limit, the
-checkout's path and, per path, the ms/step of each turn.
+checkout's path, the widths and, per path, the ms/step of each turn.
 """
 import argparse
 import json
@@ -48,6 +51,9 @@ def main():
     ap.add_argument("--out", default=None, help="append the line here")
     ap.add_argument("--paths", default=",".join(p[0] for p in PATHS),
                     help="the paths to time, comma-separated")
+    ap.add_argument("--widths", default=None,
+                    help="the net's widths, comma-separated (default: "
+                    "chip_smoke.WIDTHS)")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -67,6 +73,8 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
 
+    widths = (chip_smoke.WIDTHS if args.widths is None
+              else [int(v) for v in args.widths.split(",")])
     solvers = {}
     wanted = args.paths.split(",")
     for tag, minimax, dtype, precision in PATHS:
@@ -76,10 +84,10 @@ def main():
         s = tdqt.CollocationSolverND(verbose=False, seed=0)
         extra = {} if dtype is None else dict(fused_dtype=dtype)
         if precision is None:
-            extra["network"] = tdqt.neural_net(chip_smoke.WIDTHS, seed=0,
+            extra["network"] = tdqt.neural_net(widths, seed=0,
                                                precision=None)
         try:
-            s.compile(chip_smoke.WIDTHS, f_model, domain, bcs, fused="cuda",
+            s.compile(widths, f_model, domain, bcs, fused="cuda",
                       minimax=minimax, **extra, **kw)
         except (tdqt.NotPortedError, TypeError):
             continue  # a checkout without the bf16 flavor or the option
@@ -94,8 +102,8 @@ def main():
             solvers[tag].fit(tf_iter=args.steps, chunk=args.steps)
             torch.cuda.synchronize()
             turns[tag].append(1e3 * (time.perf_counter() - t0) / args.steps)
-    line = dict(tag=args.tag, card=card, tree=tree, steps=args.steps,
-                ms_per_step=turns,
+    line = dict(tag=args.tag, card=card, tree=tree, widths=widths,
+                steps=args.steps, ms_per_step=turns,
                 mean={k: float(np.mean(v)) for k, v in turns.items()})
     print(json.dumps(line), flush=True)
     if args.out:

@@ -3,6 +3,7 @@ of one checkout, on one NVIDIA GPU: the ms of each by CUDA events over 20
 launches, three times.
 
     python3 scripts/torch_tf32_time.py --tree DIR [--flavor tf32|f32|bf16]
+        [--widths 2,256,256,256,256,1]
 
 Run from the root of a checkout; ``--tree`` (default: this script's
 checkout) names the checkout whose ``tensordiffeq_tpu_torch`` package and
@@ -13,7 +14,8 @@ seed 0, the Allen-Cahn residual, per-point weights and table cotangents
 from ``numpy.random.RandomState(2)``.  ``--flavor f32`` times the 3xTF32
 flavor (``k2_backward``, ``k3_minimax``) instead of the single-pass one,
 ``--flavor bf16`` the bf16-operand flavor (``k2_backward_bf16``,
-``k3_minimax_bf16``).
+``k3_minimax_bf16``).  ``--widths`` times another net from seed 0 (default:
+the slice's 2-128x4-1), such as ``chip_smoke.py``'s WIDE_WIDTHS.
 Prints one line: the card, the checkout, the flavor, the routes the
 kernels took and the three ms of each.
 """
@@ -33,6 +35,9 @@ def main():
     ap.add_argument("--flavor", choices=("tf32", "f32", "bf16"),
                     default="tf32",
                     help="the kernels' flavor (default: the TF32 one)")
+    ap.add_argument("--widths", default=None,
+                    help="the net's widths, comma-separated (default: "
+                    "chip_smoke.WIDTHS)")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -55,7 +60,9 @@ def main():
                                   rng.uniform(0, 1, n)], 1),
                         dtype=torch.float32, device=dev)
     reqs = analyze_f_model(cs._ac_residual, ("x", "t"), 1)
-    layers, flat_layers, _, _ = cs._slice_net(cs.WIDTHS, dev)
+    widths = (cs.WIDTHS if args.widths is None
+              else [int(v) for v in args.widths.split(",")])
+    layers, flat_layers, _, _ = cs._slice_net(widths, dev)
     shapes = [tuple(W.shape) for W, _ in layers]
     plan = ct.build_cuda_table_fn(reqs, shapes, precision=None).plan
     flat = plan.pack(flat_layers)
@@ -77,7 +84,8 @@ def main():
     # an older checkout records no route for a flavor it had one route for
     routes = [r.get(key, "mma") for r in (sq.plan.k3_routes, plan.k2_routes)]
     fmt = lambda v: ", ".join(f"{x:.3f}" for x in v)  # noqa: E731
-    print(f"[{args.flavor} time] {cs.card_line()}; {tree}: K3{tag} "
+    print(f"[{args.flavor} time] {cs.card_line()}; {tree} at "
+          f"{'-'.join(map(str, widths))}: K3{tag} "
           f"({routes[0]} route) {fmt(k3)} ms; K2{tag} ({routes[1]} route) "
           f"{fmt(k2)} ms", flush=True)
 

@@ -1,0 +1,5 @@
+// The f32 (3xTF32) instances of K2's wgmma route at NP = 256
+// (wg_backward_wide.cuh).
+#include "wg_backward_wide.cuh"
+
+WBW_INSTANCES(k2wb_f32_256, false)

@@ -5,7 +5,9 @@
 // channels and up to 16 inputs and outputs (K1's wgmma route's shapes,
 // wg_plan in taylor_fwd_wg.cuh), the device code; taylor_bwd_wg.cu and
 // minimax_wg.cu hold the C interfaces, taylor_bwd_wg_{f32,tf32,bf16}_{64,
-// 128}.cu and minimax_wg_{f32,tf32,bf16}_{64,128}.cu the instances.
+// 128}.cu and minimax_wg_{f32,tf32,bf16}_{64,128}.cu the instances.  The
+// f32 flavor's hidden widths 129-256 have a design of their own
+// (wg_backward_wide.cuh, NP = 256), which wb_plan below also plans.
 //
 // Replaces, for those shapes, the JAX package's ops/pallas_taylor.py::
 // bwd_kernel (pallas_call at :171) as taylor_table.cu's taylor_bwd_kernel
@@ -239,21 +241,77 @@ static __host__ __device__ __forceinline__ int wb_fixed_bytes(const Net& net,
          2 * WG_MAXS * 8;
 }
 
+// The f32 flavor's design for hidden widths 129 .. 256 (NP = 256,
+// wg_backward_wide.cuh): tiles of 64 rows, each warpgroup 128 columns.
+#define WBW_ROWS 64    // rows of a tile: both warpgroups' 64 rows
+#define WBW_H 128      // columns a warpgroup holds
+#define WBW_KC 16      // k rows of a weight chunk (hi and lo: 32 KB)
+#define WBW_NCH 16     // chunks of a layer's plane
+#define WBW_HALF 8192  // floats of a warpgroup's half of a 64-row operand
+#define WBW_LDS 132    // floats of a row of dW's staging
+
+// The region the ring shares with dW's operands: the exchange buffer and
+// H^T (64 KB), then dP^T (64 KB) and dW's staging (two warpgroups' 64 rows
+// of WBW_LDS floats), or the ring's stages.
+static __host__ __device__ __forceinline__ int wbw_region_bytes(int S,
+                                                                int stage) {
+  return 65536 + imax(65536 + 2 * WBW_ROWS * WBW_LDS * 4, S * stage);
+}
+
+// Floats of the rows area: the head's table rows (64 x n_out) and the two
+// warpgroups' row sums, or the reverse sweep's bias partials (8 warps x
+// 128 columns).
+static __host__ __device__ __forceinline__ int wbw_rows_floats(
+    const Net& net) {
+  return pad4(imax(3 * WBW_ROWS * net.n_out, 8 * WBW_H));
+}
+
+// Dynamic shared memory besides the region: the rows area, X's rows, the
+// small operands at NP = 256, the value's warp sums, the work item, the
+// mbarriers.
+static __host__ __device__ __forceinline__ int wbw_fixed_bytes(
+    const Net& net) {
+  return 4 * (wbw_rows_floats(net) + pad4(WBW_ROWS * net.d) +
+              wb_misc_floats(net, 256) + 8 + WB_ITEM_FLOATS) +
+         2 * WG_MAXS * 8;
+}
+
 // The route's plan for a net, schedule, flavor (FL_F32, FL_TF32 or
 // FL_BF16) and N on a card with smem_optin bytes of shared memory a block
 // and n_sm SMs; 0 where the shape is the mma.sync route's: K1's route's
-// conditions (wg_plan), and a ring of at least two stages.
+// conditions (wg_plan) and a ring of at least two stages; past 128 wide,
+// the f32 flavor up to 256 (NP = 256: wg_backward_wide.cuh's layout, 64-row
+// tiles, chunks of KC = 16) where its region and the rest fit.
 static inline int wb_plan(const Net& net, const Sched& s, int flavor,
                           int smem_optin, int n_sm, int N, WbPlan* p) {
   const int L = net.L, C = s.C;
   if (flavor != FL_F32 && flavor != FL_TF32 && flavor != FL_BF16) return 0;
   int width = 0;
   for (int l = 0; l + 1 < L; ++l) width = imax(width, net.w_out[l]);
-  if (C > WG_MAXC || width > 128 || net.d > WG_MAXD ||
-      net.n_out > WG_MAXOUT)
+  if (C > WG_MAXC || width > (flavor == FL_F32 ? 256 : 128) ||
+      net.d > WG_MAXD || net.n_out > WG_MAXOUT)
     return 0;
   int CP = 1;
   while (CP < C) CP *= 2;
+  if (width > 128) {
+    const int KC = WBW_KC, stage = 256 * KC * 8, P = 2 * (L - 2) * WBW_NCH;
+    const int fixed = wbw_fixed_bytes(net);
+    int S = 0;
+    if (P > 0) {
+      S = imin(imin(P, (smem_optin - fixed - 65536) / stage), WG_MAXS);
+      if (S < 2) return 0;
+    }
+    const int smem = wbw_region_bytes(S, stage) + fixed;
+    if (smem > smem_optin) return 0;
+    int bulk = 1;
+    for (int l = 1; l + 1 < L; ++l)
+      if (net.offW[l] % 4 != 0 || net.w_out[l] % 4 != 0) bulk = 0;
+    const int n_tiles = (int)(((long long)N * CP + WBW_ROWS - 1) / WBW_ROWS);
+    const int grid = imin(n_tiles, n_sm);
+    *p = WbPlan{256, CP, KC, S, P, stage, n_tiles, grid, smem, bulk,
+                grid * (L - 1) * WBW_ROWS * 256 + P * (stage / 4)};
+    return 1;
+  }
   const int NP = width <= 64 ? 64 : 128;
   const int KC = wb_kc(flavor);
   const int P = 2 * (L - 2) * (NP / KC);
@@ -1367,19 +1425,19 @@ static __device__ __forceinline__ void wb_layer0(const float* sx, int d,
   }
 }
 
-// K3's epilogue of one tile: one thread per point interprets the
+// K3's epilogue of one tile of ROWS rows: one thread per point interprets the
 // tape (tape_point, the point's coordinates from sx) on its rows of T,
 // which become the table
 // cotangents (a row past N gets zeros and runs no tape); the value's sum
 // over the tile (a warp's by shuffles, the 8 warps' in order) into the
 // slot's last element.  Ends with the block's barrier.
-template <int CP>
+template <int CP, int ROWS = WB_ROWS>
 static __device__ __forceinline__ void wb_epilogue(
     float* T, const float* sx, const float* __restrict__ w,
     float* __restrict__ gw, float* __restrict__ gX, int N, int p0, int C,
     int n_out, int d, const Tape& tp, const float* cst, float* sRed,
     float* vslot, bool first, int ctid, int lane, int warp) {
-  constexpr int TP = WB_ROWS / CP;
+  constexpr int TP = ROWS / CP;
   float v = 0.f;
   if (ctid < TP) {
     const int gp = p0 + ctid;
@@ -1996,3 +2054,5 @@ int k2wb_bf16_64(WB_ARGS);
 int k2wb_bf16_128(WB_ARGS);
 int k3wb_bf16_64(WB_ARGS);
 int k3wb_bf16_128(WB_ARGS);
+int k2wb_f32_256(WB_ARGS);  // wg_backward_wide.cuh's design
+int k3wb_f32_256(WB_ARGS);

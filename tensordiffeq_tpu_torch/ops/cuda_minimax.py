@@ -16,7 +16,8 @@ products of ``taylor_derivatives(compute_dtype=torch.bfloat16)``,
 :func:`k3_minimax_tf32` its single-pass TF32 flavor (precision
 ``"default"``).  Every flavor runs on the persistent wgmma route of
 ``csrc/wg_backward.cuh`` where its shape allows
-(:func:`.cuda_taylor.wb_plan`).  The plain flavor, the CPU path and the
+(:func:`.cuda_taylor.wb_plan`), the f32 one at hidden widths 129-256 on
+``csrc/wg_backward_wide.cuh``.  The plain flavor, the CPU path and the
 kernel's referee, is ``tile_sq`` in :mod:`.minimax`.
 
 On that route K3 also runs over a member axis: :func:`k3_minimax_family`
@@ -72,35 +73,50 @@ def _check_k3_inputs(plan: MinimaxPlan, X: torch.Tensor, w: torch.Tensor,
 def _k3(plan: MinimaxPlan, X: torch.Tensor, w: torch.Tensor,
         flat: torch.Tensor, bf16: int):
     _check_k3_inputs(plan, X, w, flat)
-    lib = ct.build()
-    flavor = ct.FLAVOR_OF[bf16]
+    N = X.shape[0]
+    wp = plan.wb_route(X.device, ct.FLAVOR_OF[bf16], N, "k3")
+    if wp is None:
+        return k3_mma(plan, X, w, flat, bf16)
+    opts = dict(device=X.device, dtype=torch.float32)
+    gw = torch.empty((N, plan.E), **opts)
+    gX = torch.empty((N, plan.d), **opts)
+    out = torch.empty((plan.P_total + 1,), **opts)
+    part = torch.empty((wp.grid, ct.slot_stride(plan.P_total + 1)), **opts)
+    ws = torch.empty((max(wp.ws_floats, 1),), **opts)
+    ct._check(ct.build().tdq_minimax_wg(
+        X.data_ptr(), w.data_ptr(), flat.data_ptr(), gw.data_ptr(),
+        gX.data_ptr(), part.data_ptr(), ws.data_ptr(), out.data_ptr(), N,
+        plan.net_h, plan.sched_h, plan.tape_h, plan.cst_h, bf16,
+        (ctypes.c_int * len(wp))(*wp),
+        torch.cuda.current_stream(X.device).cuda_stream),
+        "minimax_wg K3 launch")
+    return out[plan.P_total], out[:plan.P_total], gw, gX
+
+
+def k3_mma(plan: MinimaxPlan, X: torch.Tensor, w: torch.Tensor,
+           flat: torch.Tensor, code: int):
+    """K3 in flavor ``code`` on its ``mma.sync`` kernel
+    (``csrc/minimax_step.cu``): the launch the wrappers make where the
+    wgmma route declines the shape.  ``chip_smoke.py`` also calls it at a
+    shape the route takes, to time the kernel the route replaced; it
+    counts no launch.  Returns ``(value, dflat, gw, gX)``."""
     N = X.shape[0]
     opts = dict(device=X.device, dtype=torch.float32)
     gw = torch.empty((N, plan.E), **opts)
     gX = torch.empty((N, plan.d), **opts)
     out = torch.empty((plan.P_total + 1,), **opts)
-    stream = torch.cuda.current_stream(X.device).cuda_stream
-    wp = plan.wb_route(X.device, flavor, N, "k3")
-    if wp is not None:
-        part = torch.empty((wp.grid, ct.slot_stride(plan.P_total + 1)),
-                           **opts)
-        ws = torch.empty((max(wp.ws_floats, 1),), **opts)
-        ct._check(lib.tdq_minimax_wg(
-            X.data_ptr(), w.data_ptr(), flat.data_ptr(), gw.data_ptr(),
-            gX.data_ptr(), part.data_ptr(), ws.data_ptr(), out.data_ptr(), N,
-            plan.net_h, plan.sched_h, plan.tape_h, plan.cst_h, bf16,
-            (ctypes.c_int * len(wp))(*wp), stream), "minimax_wg K3 launch")
-        return out[plan.P_total], out[:plan.P_total], gw, gX
+    flavor = ct.FLAVOR_OF[code]
     _, tp, n_sm = plan.tile_sizes(X.device, flavor)
     n_tiles = -(-N // tp)
     G = min(n_tiles, n_sm)
     part = torch.empty((G, ct.slot_stride(plan.P_total + 1)), **opts)
     ws = torch.empty((ct.workspace_floats(plan.layer_shapes, tp * plan.C,
                                           plan.ld, G, flavor),), **opts)
-    ct._check(lib.tdq_minimax_step(
+    ct._check(ct.build().tdq_minimax_step(
         X.data_ptr(), w.data_ptr(), flat.data_ptr(), gw.data_ptr(),
         gX.data_ptr(), part.data_ptr(), ws.data_ptr(), out.data_ptr(), N, tp,
-        G, plan.net_h, plan.sched_h, plan.tape_h, plan.cst_h, bf16, stream),
+        G, plan.net_h, plan.sched_h, plan.tape_h, plan.cst_h, code,
+        torch.cuda.current_stream(X.device).cuda_stream),
         "minimax_step K3 launch")
     return out[plan.P_total], out[:plan.P_total], gw, gX
 
@@ -180,7 +196,7 @@ def family_launch(plan: MinimaxPlan, wp: ct.WbPlan, M: int,
     grid = min(M * wp.grid, n_sm)
     L = len(plan.layer_shapes)
     return FamilyLaunch(wp.grid, M * wp.grid, grid,
-                        grid * (L - 1) * ct.WB_ROWS * wp.NP
+                        grid * (L - 1) * ct.wb_tile_rows(wp.NP) * wp.NP
                         + M * wp.P * wp.stage_bytes // 4)
 
 

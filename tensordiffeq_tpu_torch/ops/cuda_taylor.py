@@ -478,6 +478,20 @@ def wg_prepare(flat_layers, wp: WgPlan, flavor) -> torch.Tensor:
 # ------------------------------------------------------------------ #
 WB_ROWS = 128  # rows of the route's tile: two consumer warpgroups of 64
 WB_ITEM_FLOATS = 16  # K3's work item state over a member axis (WbItem)
+# the f32 flavor past 128 wide (csrc/wg_backward_wide.cuh): hidden widths up
+# to 256 (NP = 256), tiles of 64 rows (each warpgroup 128 of the columns),
+# chunks of 16 k rows, a region of 64 KB + the larger of dW's 128 KB and
+# the ring; K1's limit stays WG_MAX_WIDTH
+WB_MAX_WIDTH = 256
+WBW_ROWS = 64
+WBW_KC = 16
+WBW_LDS = 132  # floats of a row of dW's staging
+
+
+def wb_tile_rows(NP: int) -> int:
+    """Rows of the backward route's tile at ``NP``: 128, or 64 at NP =
+    256."""
+    return WBW_ROWS if NP == 256 else WB_ROWS
 
 
 def wb_kc(code: int) -> int:
@@ -492,13 +506,13 @@ class WbPlan(NamedTuple):
     """The backward route's launch for one plan, flavor and N (``wb_plan``
     in ``csrc/wg_backward.cuh``, in the same order); K2's and K3's
     alike."""
-    NP: int           # hidden width padded to 64 or 128
+    NP: int           # hidden width padded to 64, 128 or 256 (f32 only)
     CP: int           # channels padded to a power of two
     KC: int           # k rows of a weight chunk
     S: int            # weight stages in shared memory
     P: int            # chunks per tile: forward planes, then backward ones
     stage_bytes: int
-    n_tiles: int      # tiles of WB_ROWS rows
+    n_tiles: int      # tiles of wb_tile_rows(NP) rows
     grid: int         # persistent blocks: one per SM, at most one per tile
     smem: int         # dynamic shared memory bytes
     bulk: int         # dW's slot rows take bulk reduce-adds (16-byte rows)
@@ -517,7 +531,11 @@ def wb_plan(layer_shapes: Sequence[tuple], orders: Sequence[int], code: int,
     mma.sync route's: K1's route's conditions
     (:func:`wg_plan`: at most ``WG_MAX_C`` channels, hidden widths up to
     ``WG_MAX_WIDTH``, at most ``WG_MAX_D`` inputs and ``WG_MAX_OUT``
-    outputs) and a ring of at least two stages.  Shared memory: the ring
+    outputs) and a ring of at least two stages; the f32 flavor (code 0)
+    also takes hidden widths up to ``WB_MAX_WIDTH`` (NP = 256, the layout
+    of ``csrc/wg_backward_wide.cuh``: tiles of 64 rows, chunks of 16 k
+    rows, 32 KB stages over dW's operands) where that fits.  Shared memory
+    at NP <= 128: the ring
     (chunks of :func:`wb_kc` k rows, the f32 flavor's with the hi and lo
     planes, the bf16 flavor's of bf16), H^T and dP^T (NP x 128 floats each;
     in the bf16 flavor the same bytes hold H and dP's three pieces in
@@ -530,12 +548,20 @@ def wb_plan(layer_shapes: Sequence[tuple], orders: Sequence[int], code: int,
     d, n_out = layer_shapes[0][0], layer_shapes[-1][1]
     C = len(orders)
     width = max(fo for _, fo in layer_shapes[:-1])
-    if C > WG_MAX_C or width > WG_MAX_WIDTH or d > WG_MAX_D \
-            or n_out > WG_MAX_OUT:
+    if C > WG_MAX_C or width > (WB_MAX_WIDTH if code == 0 else WG_MAX_WIDTH) \
+            or d > WG_MAX_D or n_out > WG_MAX_OUT:
         return None
     CP = 1
     while CP < C:
         CP *= 2
+    offW, o = [], 0
+    for fi, fo in layer_shapes:
+        offW.append(o)
+        o += fi * fo + fo
+    bulk = int(all(offW[l] % 4 == 0 and layer_shapes[l][1] % 4 == 0
+                   for l in range(1, L - 1)))
+    if width > WG_MAX_WIDTH:
+        return _wbw_plan(L, d, n_out, CP, bulk, smem_optin, n_sm, N)
     NP = 64 if width <= 64 else 128
     KC = wb_kc(code)
     P = 2 * (L - 2) * (NP // KC)
@@ -549,16 +575,40 @@ def wb_plan(layer_shapes: Sequence[tuple], orders: Sequence[int], code: int,
         S = min(P, (smem_optin - fixed) // stage, WG_MAX_STAGES)
         if S < 2:
             return None
-    offW, o = [], 0
-    for fi, fo in layer_shapes:
-        offW.append(o)
-        o += fi * fo + fo
-    bulk = int(all(offW[l] % 4 == 0 and layer_shapes[l][1] % 4 == 0
-                   for l in range(1, L - 1)))
     n_tiles = -(-N * CP // WB_ROWS)
     grid = min(n_tiles, n_sm)
     return WbPlan(NP, CP, KC, S, P, stage, n_tiles, grid, S * stage + fixed,
                   bulk, grid * (L - 1) * WB_ROWS * NP + P * stage // 4)
+
+
+def _wbw_plan(L: int, d: int, n_out: int, CP: int, bulk: int,
+              smem_optin: int, n_sm: int, N: int):
+    """The f32 flavor's :class:`WbPlan` at NP = 256 (``wb_plan``'s wide
+    branch in ``csrc/wg_backward.cuh``), or ``None``.  Shared memory: the
+    region (64 KB for the exchange buffer and H^T, then the larger of dW's
+    dP^T and staging, 64 KB and 2 x 64 rows of ``WBW_LDS`` floats, and the
+    ring's S stages of 32 KB), the rows
+    (the head's table rows and its two halves' sums, or 8 warps' bias
+    partials of 128 columns), X's rows, the small operands (256 wide), the
+    value's warp sums, the work item and the mbarriers."""
+    stage = 256 * WBW_KC * 8
+    P = 2 * (L - 2) * (256 // WBW_KC)
+    misc = _pad4(256 * (d + L - 1 + n_out) + WG_MAX_OUT)
+    fixed = 4 * (_pad4(max(3 * WBW_ROWS * n_out, 8 * 128))
+                 + _pad4(WBW_ROWS * d) + misc + 8 + WB_ITEM_FLOATS) \
+        + 2 * WG_MAX_STAGES * 8
+    S = 0
+    if P > 0:
+        S = min(P, (smem_optin - fixed - 65536) // stage, WG_MAX_STAGES)
+        if S < 2:
+            return None
+    smem = 65536 + max(65536 + 2 * WBW_ROWS * WBW_LDS * 4, S * stage) + fixed
+    if smem > smem_optin:
+        return None
+    n_tiles = -(-N * CP // WBW_ROWS)
+    grid = min(n_tiles, n_sm)
+    return WbPlan(256, CP, WBW_KC, S, P, stage, n_tiles, grid, smem, bulk,
+                  grid * (L - 1) * WBW_ROWS * 256 + P * stage // 4)
 
 
 def wb_prepare(flat_layers, wp: WbPlan, flavor) -> torch.Tensor:
@@ -860,13 +910,13 @@ def _k2(plan: _Plan, X: torch.Tensor, flat: torch.Tensor, g: torch.Tensor,
             or g.device != X.device or not g.is_contiguous():
         raise ValueError(f"cotangent must be a contiguous float32 "
                          f"[{plan.C}, {N}, {plan.n_out}] on {X.device}")
-    lib = build()
-    opts = dict(device=X.device, dtype=torch.float32)
-    dX = torch.empty((N, plan.d), **opts)
-    dflat = torch.empty((plan.P_total,), **opts)
-    stream = torch.cuda.current_stream(X.device).cuda_stream
     wp = plan.wb_route(X.device, FLAVOR_OF[bf16], N, "k2")
     if wp is not None:
+        lib = build()
+        opts = dict(device=X.device, dtype=torch.float32)
+        dX = torch.empty((N, plan.d), **opts)
+        dflat = torch.empty((plan.P_total,), **opts)
+        stream = torch.cuda.current_stream(X.device).cuda_stream
         part = torch.empty((wp.grid, slot_stride(plan.P_total)), **opts)
         ws = torch.empty((max(wp.ws_floats, 1),), **opts)
         _check(lib.tdq_taylor_bwd_wg(X.data_ptr(), flat.data_ptr(),
@@ -877,17 +927,32 @@ def _k2(plan: _Plan, X: torch.Tensor, flat: torch.Tensor, g: torch.Tensor,
                                      (ctypes.c_int * len(wp))(*wp), stream),
                "taylor_bwd_wg K2 launch")
         return dX, dflat
-    _, tp, n_sm = plan.tile_sizes(X.device, FLAVOR_OF[bf16])
+    return k2_mma(plan, X, flat, g, bf16)
+
+
+def k2_mma(plan: _Plan, X: torch.Tensor, flat: torch.Tensor,
+           g: torch.Tensor, code: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2 in flavor ``code`` on its ``mma.sync`` kernel
+    (``csrc/taylor_table.cu``): the launch the wrappers make where
+    :func:`wb_plan` declines the shape.  ``chip_smoke.py`` also calls it
+    at a shape the wgmma route takes, to time the kernel that route
+    replaced; it counts no launch.  Returns ``(dX, dflat)``."""
+    N = X.shape[0]
+    opts = dict(device=X.device, dtype=torch.float32)
+    dX = torch.empty((N, plan.d), **opts)
+    dflat = torch.empty((plan.P_total,), **opts)
+    _, tp, n_sm = plan.tile_sizes(X.device, FLAVOR_OF[code])
     n_tiles = -(-N // tp)
     G = min(n_tiles, n_sm)
     part = torch.empty((G, slot_stride(plan.P_total)), **opts)
     ws = torch.empty((workspace_floats(plan.layer_shapes, tp * plan.C,
-                                       plan.ld, G, FLAVOR_OF[bf16]),), **opts)
-    _check(lib.tdq_taylor_bwd(X.data_ptr(), flat.data_ptr(), g.data_ptr(),
-                              dX.data_ptr(), part.data_ptr(), ws.data_ptr(),
-                              dflat.data_ptr(), N, tp, G, plan.net_h,
-                              plan.sched_h, bf16, stream),
-           "taylor_table K2 launch")
+                                       plan.ld, G, FLAVOR_OF[code]),), **opts)
+    _check(build().tdq_taylor_bwd(
+        X.data_ptr(), flat.data_ptr(), g.data_ptr(), dX.data_ptr(),
+        part.data_ptr(), ws.data_ptr(), dflat.data_ptr(), N, tp, G,
+        plan.net_h, plan.sched_h, code,
+        torch.cuda.current_stream(X.device).cuda_stream),
+        "taylor_table K2 launch")
     return dX, dflat
 
 
@@ -898,7 +963,8 @@ def k2_backward(plan: _Plan, X: torch.Tensor, flat: torch.Tensor,
     n_out]``.  Its route is chosen by shape (:meth:`_Plan.wb_route`,
     recorded in ``plan.k2_routes[None]``): the persistent wgmma kernel of
     ``csrc/wg_backward.cuh`` in its 3xTF32 flavor where :func:`wb_plan`
-    takes the shape, else the mma.sync kernel."""
+    takes the shape (``csrc/wg_backward_wide.cuh`` at hidden widths
+    129-256), else the mma.sync kernel."""
     out = _k2(plan, X, flat, g, 0)
     k2_backward.launches += 1
     return out

@@ -2013,14 +2013,28 @@ def test_tf32_backward_planes_match_the_plain_mirror(card):
     assert torch.equal(ws[slices:].cpu().view(torch.uint8), want)
 
 
-@pytest.mark.parametrize("case", list(TF32_ROUTE_CASES))
+# K2's and K3's routes by shape in the f32 flavor: TF32_ROUTE_CASES'
+# shapes, where the wgmma route also takes hidden widths up to 256
+# (csrc/wg_backward_wide.cuh: NP = 256, tiles of 64 rows), at one tile a
+# block (wide-256), several (wide-256-tiles), a ragged width whose last
+# dW block is partial (ragged-200) and slot rows that are not 16-byte
+# pieces (ragged-201, dW added from the SMs)
+F32_ROUTE_CASES = {
+    **{k: v[:3] + ("wgmma",) for k, v in TF32_ROUTE_CASES.items()},
+    "wide-256-tiles": (AC, [2, 256, 256, 256, 256, 1], 20_011, "wgmma"),
+    "ragged-200": (AC, [2, 200, 256, 1], 3_001, "wgmma"),
+    "ragged-201": ({(), (1,), (1, 1)}, [2, 150, 201, 1], 3_001, "wgmma"),
+}
+
+
+@pytest.mark.parametrize("case", list(F32_ROUTE_CASES))
 def test_f32_backward_routes_by_shape_on_card(card, case):
     """K2 and K3 in the f32 flavor (3xTF32) take the route their shape
     names (the wgmma route of ``csrc/wg_backward.cuh`` where ``wb_plan``
-    takes the shape, the mma.sync kernels past it), are within TOL
-    scale-relative of the IEEE plain flavor there, and are bit for bit run
-    to run."""
-    reqs, widths, N, route = TF32_ROUTE_CASES[case]
+    takes the shape, up to 256 wide; the mma.sync kernels past it), are
+    within TOL scale-relative of the IEEE plain flavor there, and are bit
+    for bit run to run."""
+    reqs, widths, N, route = F32_ROUTE_CASES[case]
     layers, _, g = _net(widths, card)
     X = (2 * torch.rand(N, 2, generator=g) - 1).to(card)
     shapes = [tuple(W.shape) for W, _ in layers]
@@ -2079,6 +2093,39 @@ def test_f32_backward_planes_match_the_plain_mirror(card):
     torch.cuda.synchronize()
     assert err == 0
     slices = wp.grid * (len(widths) - 2) * cuda_taylor.WB_ROWS * wp.NP
+    want = cuda_taylor.wb_prepare(flat_layers, wp, None)
+    assert torch.equal(ws[slices:].cpu().view(torch.uint8), want)
+
+
+def test_f32_backward_planes_match_the_plain_mirror_at_256(card):
+    """At NP = 256 (csrc/wg_backward_wide.cuh) the f32 weight prep writes
+    its chunks of 16 k rows (hi and lo planes, 256 n rows) byte for byte
+    as ``wb_prepare`` lays them out, after the blocks' 64-row slices."""
+    widths = [2, 256, 200, 1]
+    layers, _, g = _net(widths, card)
+    plan = cuda_taylor.build_cuda_table_fn(
+        AC, [tuple(W.shape) for W, _ in layers]).plan
+    flat_layers = [t for p in layers for t in p]
+    N = 1000
+    wp = plan.wb_route(card, None, N, "k2")
+    assert wp is not None and (wp.NP, wp.P, wp.KC) == (256, 32, 16)
+    ws = torch.zeros(wp.ws_floats, device=card)
+    part = torch.empty(wp.grid, cuda_taylor.slot_stride(plan.P_total),
+                       device=card)
+    X = (2 * torch.rand(N, 2, generator=g) - 1).to(card)
+    cot = torch.randn(plan.C, N, 1, generator=g).to(card)
+    dX = torch.empty(N, 2, device=card)
+    grad = torch.empty(plan.P_total, device=card)
+    err = cuda_taylor.build().tdq_taylor_bwd_wg(
+        X.data_ptr(), plan.pack(flat_layers).data_ptr(), cot.data_ptr(),
+        dX.data_ptr(), part.data_ptr(), ws.data_ptr(), grad.data_ptr(), N,
+        plan.net_h, plan.sched_h, cuda_taylor.FLAVOR_CODE[None],
+        (ctypes.c_int * len(wp))(*wp),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    slices = wp.grid * (len(widths) - 2) * cuda_taylor.wb_tile_rows(wp.NP) \
+        * wp.NP
     want = cuda_taylor.wb_prepare(flat_layers, wp, None)
     assert torch.equal(ws[slices:].cpu().view(torch.uint8), want)
 
@@ -2595,9 +2642,12 @@ def test_family_step_launches_k3_per_member_and_equals_eager(card):
 
 
 # K3 over the member axis: the factory's shape (2-64-64-1, N_f = 2,048,
-# 8 members) and AC-SA full (2-128x4-1, N_f = 50,000, 2 members)
+# 8 members), AC-SA full (2-128x4-1, N_f = 50,000, 2 members) and a
+# 256-wide factory (2-256-256-1, N_f = 2,048, 2 members: the f32 flavor's
+# NP = 256 design; the TF32 and bf16 flavors take the mma.sync route there)
 FAMILY_K3_CASES = {"factory": ([2, 64, 64, 1], 2048, 8),
-                   "ac-full": ([2, 128, 128, 128, 128, 1], 50_000, 2)}
+                   "ac-full": ([2, 128, 128, 128, 128, 1], 50_000, 2),
+                   "wide-256": ([2, 256, 256, 1], 2048, 2)}
 FAMILY_K3_FLAVORS = {"f32": {}, "tf32": dict(precision="default"),
                      "bf16": dict(compute_dtype="bfloat16")}
 
@@ -2653,6 +2703,15 @@ def test_family_k3_is_each_members_single_launch_on_card(card, case, flavor):
     16 and by its own tests)."""
     sqs, fam, X, w, flat = _family_k3_setup(card, case, flavor)
     assert fam.groups == [list(range(len(sqs)))]
+    if case == "wide-256" and flavor != "f32":
+        # no member-axis launch off the wgmma route: each member's K3 on
+        # the mma.sync kernels
+        plan = sqs[0].plan
+        assert plan.wb_route(card, fam.flavor, X.shape[1], "k3") is None
+        assert plan.k3_routes[fam.flavor] == "mma"
+        with pytest.raises(cuda_taylor.KernelLaunchError):
+            _family_launch(fam, X, w, flat)
+        return
     single = cuda_minimax.FLAVORS[fam.flavor]
     key = cuda_minimax.FAMILY_FLAVORS[fam.flavor]
     before = key.launches, single.launches

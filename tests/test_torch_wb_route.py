@@ -104,8 +104,9 @@ def test_plan_at_the_slice_and_at_burgers():
 def test_route_choice_by_shape():
     assert _plan(AC, [2, 128, 128, 128, 128, 1])[1] is not None
     assert _plan(AC, [2] + [20] * 8 + [1])[1] is not None
-    # the mma.sync route: a hidden layer over 128, more than 8 channels,
-    # more than 16 inputs or outputs, a card with room for one stage
+    # the mma.sync route: a hidden layer over 128 (the TF32 flavor; the
+    # f32 one takes up to 256), more than 8 channels, more than 16 inputs
+    # or outputs, a card with room for one stage
     assert _plan(AC, [2, 256, 256, 256, 256, 1])[1] is None
     assert _plan({(), (0,), (2,), (1, 1), (0, 1, 2)}, [3, 64, 64, 1])[1] \
         is None
@@ -137,11 +138,16 @@ def _cm(n, k, KC, epc=4):
 
 
 @pytest.mark.parametrize("widths", [[2, 128, 128, 128, 1], [2, 37, 53, 1],
-                                    [3, 20, 20, 20, 20, 2]],
-                         ids=["ac", "odd", "burgers-like"])
+                                    [3, 20, 20, 20, 20, 2],
+                                    [2, 256, 200, 256, 1]],
+                         ids=["ac", "odd", "burgers-like", "wide-256"])
 def test_weight_planes_round_trip(widths):
     flat = _layers(widths)
     _, wp = _plan(AC, widths)
+    if wp is None:  # past 128 the TF32 flavor has no plan: the mirror's
+        # hi planes at the f32 flavor's NP = 256 geometry (16 k rows)
+        wp = _plan(AC, widths, code=F32)[1]
+        wp = wp._replace(stage_bytes=wp.stage_bytes // 2)
     raw = ct.wb_prepare(flat, wp, ct.TF32)
     assert raw.numel() == wp.P * wp.stage_bytes
     chunks = raw.view(torch.float32).numpy().reshape(wp.P, wp.NP * wp.KC)
@@ -264,16 +270,62 @@ def test_register_vjp_in_place_is_the_activation_pass_transpose(reqs):
 
 
 def _kmajor(M):
-    """A tile's [128 rows, NP] operand as wb_put_kmajor writes it (feature
-    n's rows r at wg_cm_offset(n, r, 128, 4)), read back as [NP, 128]."""
-    NP = M.shape[1]
-    buf = torch.zeros(NP * ct.WB_ROWS, dtype=M.dtype)
-    r, n = np.meshgrid(np.arange(ct.WB_ROWS), np.arange(NP), indexing="ij")
-    off = torch.from_numpy(_cm(n, r, ct.WB_ROWS).reshape(-1))
+    """A tile's [R rows, NP] operand as wb_put_kmajor (R = 128) or
+    wbw_put_pt (R = 64, NP = 256) writes it (feature n's rows r at
+    wg_cm_offset(n, r, R, 4)), read back as [NP, R]."""
+    R, NP = M.shape
+    buf = torch.zeros(NP * R, dtype=M.dtype)
+    r, n = np.meshgrid(np.arange(R), np.arange(NP), indexing="ij")
+    off = torch.from_numpy(_cm(n, r, R).reshape(-1))
     buf[off] = M.reshape(-1)
     back = torch.from_numpy(_cm(np.arange(NP)[:, None],
-                                np.arange(ct.WB_ROWS)[None, :], ct.WB_ROWS))
-    return buf[back.reshape(-1)].view(NP, ct.WB_ROWS)
+                                np.arange(R)[None, :], R))
+    return buf[back.reshape(-1)].view(NP, R)
+
+
+def _wbw_ht_offset(f, r):
+    """``wbw_ht_offset`` (csrc/wg_backward_wide.cuh): element (f, r) of the
+    NP = 256 route's H^T, feature f's 64 rows in float4s of rows t, t + 4,
+    t + 8, t + 12 of each 16, swizzled by f."""
+    q = 4 * (r >> 4) + (r & 3)
+    sw = 4 * ((f ^ (f >> 1)) & 1)
+    return f * 64 + 4 * (q ^ sw) + ((r >> 2) & 3)
+
+
+def _ht_wide(M):
+    """A tile's [64 rows, 256] layer input as wbw_put_ht writes H^T and
+    wbw_load_a reads dW's A fragments back (the float4 at feature f's
+    offset of row 16 s + t holds rows 16 s + t + 4 v), as [256, 64]."""
+    R, NP = M.shape
+    buf = torch.zeros(NP * R, dtype=M.dtype)
+    r, f = np.meshgrid(np.arange(R), np.arange(NP), indexing="ij")
+    buf[torch.from_numpy(_wbw_ht_offset(f, r).reshape(-1))] = M.reshape(-1)
+    out = torch.empty(NP, R, dtype=M.dtype)
+    for sg in range(R // 16):
+        for t in range(4):
+            base = _wbw_ht_offset(np.arange(NP), 16 * sg + t) & ~3
+            for v in range(4):
+                out[:, 16 * sg + t + 4 * v] = buf[torch.from_numpy(base + v)]
+    return out
+
+
+def test_wide_operand_layouts_feed_the_products():
+    """NP = 256 (csrc/wg_backward_wide.cuh): H^T's swizzled layout is a
+    permutation of the 256 x 64 elements and dW's A loads read each
+    feature's rows back; the exchange buffer's k slots (wbw_put_rows) are
+    the weight planes' (wg_kslot), so register i of lane t lands on the k
+    row that holds its column."""
+    f, r = np.meshgrid(np.arange(256), np.arange(64), indexing="ij")
+    off = _wbw_ht_offset(f, r).reshape(-1)
+    assert sorted(off.tolist()) == list(range(256 * 64))
+    M = torch.randn(64, 256, generator=torch.Generator().manual_seed(5))
+    assert torch.equal(_ht_wide(M), M.t())
+    slots = ct.wg_kslots(128, False)
+    for i in range(64):
+        for t in range(4):
+            col = 8 * (i >> 2) + 2 * t + (i & 1)  # acc_col
+            k = 8 * (i >> 2) + (t + 4 if i & 1 else t)
+            assert slots[k] == col
 
 
 def _tc(t):
@@ -299,6 +351,25 @@ def _trunc_split(t):  # dW's operands: f32 values, lo made in place
     return hi, t - hi
 
 
+def _mm3s(A, B, split_a, split_b):
+    """``_mm3`` with A and B split each its own way: the NP = 256 route's
+    dW, A (H^T) split in registers (split_tf32), B (dP^T) its f32 values
+    and their lo parts made in place."""
+    (ah, al), (bh, bl) = split_a(A), split_b(B)
+    return _tc(al) @ bh + ah @ _tc(bl) + ah @ bh
+
+
+def _mm3_by32(A, B):
+    """The NP = 256 route's forward in the f32 flavor: each 32 k rows (two
+    chunks of 16) in an accumulator of its own (``_mm3``), the sums added
+    in order."""
+    out = None
+    for k0 in range(0, A.shape[-1], 32):
+        p = _mm3(A[..., k0:k0 + 32], B[k0:k0 + 32], _rna_split)
+        out = p if out is None else out + p
+    return out
+
+
 def _bf(t):
     """t rounded to bf16 (to nearest even), in its own dtype."""
     return t.to(torch.bfloat16).to(t.dtype)
@@ -313,7 +384,7 @@ def _pieces(t):
     return _bf(t - hi - mid), mid, hi
 
 
-def _arith(mode):
+def _arith(mode, wide=False):
     """``(rnd, grnd, mm, dh, dw, out)`` of the route in a mode: the SIMT
     operands' rounding (X, the weights, the head's input), a cotangent's as
     a SIMT operand, the forward's product, dH's product (its sums rounded
@@ -323,13 +394,17 @@ def _arith(mode):
     ``"f32"``: IEEE SIMT, three passes on the tensor cores; ``"bf16"``:
     products on bf16-rounded operands with float32 sums, the cotangent as
     its three bf16 pieces (smallest first), dH, dX and the head's dH
-    rounded to bf16."""
+    rounded to bf16.  ``wide``: the f32 flavor's NP = 256 design (the
+    forward's 32-row accumulators, dW's A split by split_tf32)."""
     keep = lambda t: t  # noqa: E731
     if mode == "tf32":
         mm = lambda A, B: rna_tf32(A) @ rna_tf32(B)  # noqa: E731
         return rna_tf32, rna_tf32, mm, mm, mm, keep
     if mode == "f32":
         mm = lambda A, B: _mm3(A, B, _rna_split)  # noqa: E731
+        if wide:
+            return keep, keep, _mm3_by32, mm, \
+                (lambda A, B: _mm3s(A, B, _rna_split, _trunc_split)), keep
         return keep, keep, mm, mm, \
             (lambda A, B: _mm3(A, B, _trunc_split)), keep
     if mode == "bf16":
@@ -354,8 +429,9 @@ def _route_k2(flat, X, g, reqs, n_sm, mode, visit=None):
     kernel rounds or splits: every product operand, the bias sums not; in
     the bf16 flavor each dW rounded to bf16 after the slots' sum.
     ``visit``: the tiles in the order the kernel's blocks run them (each
-    once; tile t adds to slot t % G), tile order by default."""
-    rnd, grnd, mm, dh_mm, dw, out = _arith(mode)
+    once; tile t adds to slot t % G), tile order by default.  At NP = 256
+    (the f32 flavor past 128 wide) tiles of 64 rows, H^T through its
+    swizzled layout and ``_arith``'s wide order."""
     _, rows = ct.channel_schedule(reqs)
     C, N, d = len(rows), X.shape[0], X.shape[1]
     L = len(flat) // 2
@@ -365,7 +441,10 @@ def _route_k2(flat, X, g, reqs, n_sm, mode, visit=None):
                     {"f32": F32, "bf16": BF16}.get(mode, TF32), SMEM, n_sm,
                     N)
     NP, CP = wp.NP, wp.CP
-    TP = ct.WB_ROWS // CP
+    R = ct.wb_tile_rows(NP)
+    TP = R // CP
+    rnd, grnd, mm, dh_mm, dw, out = _arith(mode, wide=NP == 256)
+    ht = _ht_wide if NP == 256 else _kmajor
     dt = X.dtype
     # the small operands as the kernel holds them, NP wide
     Wp = [torch.zeros(NP if l else d, NP, dtype=dt) for l in range(L - 1)]
@@ -409,15 +488,15 @@ def _route_k2(flat, X, g, reqs, n_sm, mode, visit=None):
         T = torch.zeros(TP, CP, g.shape[2], dtype=dt)
         live = torch.arange(p0, p0 + TP) < N
         T[live, :C] = g[:, p0:p0 + int(live.sum())].transpose(0, 1)
-        Tr = T.reshape(ct.WB_ROWS, -1)
-        Ht = _kmajor(rnd(H).reshape(ct.WB_ROWS, NP))
+        Tr = T.reshape(R, -1)
+        Ht = ht(rnd(H).reshape(R, NP))
         add(blk, 2 * L - 1, T[:, 0].sum(0), first)
         add(blk, 2 * L - 2, (Ht @ grnd(Tr))[:Ws[-1].shape[0]], first)
         dH = out(grnd(Tr) @ Wh.t()).reshape(TP, CP, NP)
         for l in range(L - 2, 0, -1):
             dP = _act_vjp_in_place(Ps[l], dH, rows)
-            Ht = _kmajor(rnd(_act(Ps[l - 1], rows)).reshape(ct.WB_ROWS, NP))
-            dPt = _kmajor(grnd(dP).reshape(ct.WB_ROWS, NP))
+            Ht = ht(rnd(_act(Ps[l - 1], rows)).reshape(R, NP))
+            dPt = _kmajor(grnd(dP).reshape(R, NP))
             fi, fo = shapes[l]
             add(blk, 2 * l + 1, dP[:, 0].sum(0)[:fo], first)
             add(blk, 2 * l, dw(Ht, dPt.t())[:fi, :fo], first)
@@ -539,19 +618,46 @@ def test_f32_plan_at_the_slice_and_at_burgers():
     for wp in (ac, bu):
         assert wp.smem <= SMEM and wp.S >= 2
         assert wp.stage_bytes == wp.NP * wp.KC * 8  # hi and lo planes
-    # the shapes the TF32 flavor declines, the f32 flavor declines, and the
-    # bf16 flavor (code 1) too; it takes the route at the slice
-    assert _plan(AC, [2, 256, 256, 256, 256, 1], code=F32)[1] is None
+    # past 128 wide the f32 flavor takes the NP = 256 design
+    # (csrc/wg_backward_wide.cuh): tiles of 64 rows, chunks of 16 k rows
+    # (hi and lo planes, 32 KB), four stages; the region (64 KB + dP^T's
+    # 64 KB + two warpgroups' staging of 64 rows x 132 floats) and the
+    # rest: rows 4,096, X's rows 512, the small operands 7,232, 32 + 64 +
+    # 128
+    _, wide = _plan(AC, [2, 256, 256, 256, 256, 1], code=F32)
+    assert wide == ct.WbPlan(NP=256, CP=4, KC=16, S=4, P=96,
+                             stage_bytes=32_768, n_tiles=3125, grid=132,
+                             smem=210_720, bulk=1,
+                             ws_floats=132 * 4 * 64 * 256 + 96 * 256 * 16 * 2)
+    assert wide.smem == 65_536 + 65_536 + 2 * 64 * 132 * 4 + 4_096 + 512 \
+        + 7_232 + 32 + 64 + 128
+    _, ragged = _plan(AC, [2, 200, 256, 1], N=517, code=F32)
+    assert ragged == ct.WbPlan(NP=256, CP=4, KC=16, S=4, P=32,
+                               stage_bytes=32_768, n_tiles=33, grid=33,
+                               smem=208_672, bulk=1,
+                               ws_floats=33 * 2 * 64 * 256 + 32 * 256 * 16 * 2)
+    assert _plan(AC, [2, 150, 201, 1], code=F32)[1].bulk == 0
+    # a tile of 64 rows: N * CP / 64 tiles
+    assert _plan(MIXED, [2, 256, 256, 1], N=1000, code=F32)[1].n_tiles == 125
+    # the mma.sync kernels: widths over 256, more than 8 channels, a card
+    # without room for the region and two stages
+    assert _plan(AC, [2, 257, 256, 1], code=F32)[1] is None
+    assert _plan({(), (0,), (2,), (1, 1), (0, 1, 2)}, [3, 256, 64, 1],
+                 code=F32)[1] is None
+    assert _plan(AC, [2, 256, 256, 1], smem=200_000, code=F32)[1] is None
     assert _plan(AC, [2, 128, 128, 128, 1], smem=190_000, code=F32)[1] \
         is None
     bf = _plan(AC, [2, 128, 128, 128, 128, 1], code=1)[1]
     assert bf is not None and (bf.KC, bf.stage_bytes) == (64, 16_384)
     assert _plan(AC, [2, 256, 256, 256, 256, 1], code=1)[1] is None
+    assert _plan(AC, [2, 200, 256, 1], code=1)[1] is None
+    assert _plan(AC, [2, 200, 256, 1])[1] is None  # TF32
 
 
 @pytest.mark.parametrize("widths", [[2, 128, 128, 128, 1], [2, 37, 53, 1],
-                                    [3, 20, 20, 20, 20, 2]],
-                         ids=["ac", "odd", "burgers-like"])
+                                    [3, 20, 20, 20, 20, 2],
+                                    [2, 256, 200, 256, 1]],
+                         ids=["ac", "odd", "burgers-like", "wide-256"])
 def test_f32_weight_planes_sum_back_to_w(widths):
     flat = _layers(widths)
     _, wp = _plan(AC, widths, code=F32)
@@ -598,12 +704,25 @@ def test_route_k2_f32_order_within_the_f32_band():
     of the float64 plain flavor: every leaf within F32_BAND scale-relative;
     and within the cross-check's rtol of the JAX package's float32
     (HIGHEST) gradient on the same numpy-seeded inputs."""
-    reqs, widths, N = AC, [2, 48, 48, 48, 1], 300
+    _k2_f32_case([2, 48, 48, 48, 1], 300, n_sm=3)
+
+
+def test_route_k2_f32_at_256_within_the_f32_band():
+    """The same at NP = 256 (csrc/wg_backward_wide.cuh, 2-256-256-1, N =
+    517: tiles of 64 rows, the forward's 32-row accumulators, dW's A split
+    by split_tf32 and B truncated, 9 tiles over 4 blocks)."""
+    _, wp = _plan(AC, [2, 256, 256, 1], N=517, n_sm=4, code=F32)
+    assert (wp.NP, wp.n_tiles, wp.grid) == (256, 33, 4)
+    _k2_f32_case([2, 256, 256, 1], 517, n_sm=4)
+
+
+def _k2_f32_case(widths, N, n_sm):
+    reqs = AC
     flat, X = _case(widths, N)
     C = len(channel_order(reqs))
     g = torch.from_numpy(np.random.RandomState(4).randn(C, N, 1)
                          .astype(np.float32))
-    got, dX = _route_k2(flat, X, g, reqs, n_sm=3, mode="f32")
+    got, dX = _route_k2(flat, X, g, reqs, n_sm=n_sm, mode="f32")
     got = got + [dX]
     ref = _referee([t.double() for t in flat], X.double(), g.double(), reqs)
     for i, (a, r) in enumerate(zip(got, ref)):
@@ -658,7 +777,11 @@ def _route_k3(sq, flat, X, w, n_sm, mode="f32", visit=None):
     gX)``."""
     plan = sq.plan
     _, rows = ct.channel_schedule(set(plan.mis))
-    rnd, _, mm, _, _, _ = _arith(mode)
+    wp = ct.wb_plan(plan.layer_shapes, plan.orders,
+                    {"f32": F32, "bf16": BF16}.get(mode, TF32), SMEM, n_sm,
+                    X.shape[0])
+    wide = wp is not None and wp.NP == 256
+    rnd, _, mm, _, _, _ = _arith(mode, wide)
     Ws, bs = flat[0::2], flat[1::2]
     H = torch.zeros(X.shape[0], len(rows), Ws[0].shape[1])
     H[:, 0] = rnd(X) @ rnd(Ws[0]) + bs[0]
@@ -670,7 +793,14 @@ def _route_k3(sq, flat, X, w, n_sm, mode="f32", visit=None):
         P = mm(H, Ws[l])
         P[:, 0] += bs[l]
         H = _act(P, rows)
-    table = rnd(H) @ rnd(Ws[-1])
+    if wide:  # each warpgroup's 128 columns, the two sums added
+        Hp = torch.zeros(*H.shape[:2], 256)
+        Hp[..., :H.shape[2]] = rnd(H)
+        Wp = torch.zeros(256, Ws[-1].shape[1])
+        Wp[:Ws[-1].shape[0]] = rnd(Ws[-1])
+        table = Hp[..., :128] @ Wp[:128] + Hp[..., 128:] @ Wp[128:]
+    else:
+        table = rnd(H) @ rnd(Ws[-1])
     table[:, 0] += bs[-1]
     cols = [table[:, c, o] for c in range(plan.C) for o in range(plan.n_out)]
     coords = [X[:, k] for k in range(plan.d)]
@@ -696,8 +826,19 @@ def test_route_k3_f32_within_the_f32_band_and_jax(case):
     package's ``build_minimax_sq_fn`` (XLA) on the same weights
     (``weights.params_from_jax``) and numpy-seeded points and weights
     (within the cross-check's rtol)."""
-    n_out, N = N_OUT[case], 300
-    net = jax_net([2, 40, 40, 40, n_out])
+    _k3_f32_case(case, [2, 40, 40, 40], 300, n_sm=3)
+
+
+@pytest.mark.parametrize("case", ["ac", "system"])
+def test_route_k3_f32_at_256_within_the_f32_band_and_jax(case):
+    """The same at NP = 256 (2-256-256-n_out, N = 517; the head's row sums
+    each warpgroup's 128 columns, the two added)."""
+    _k3_f32_case(case, [2, 256, 256], 517, n_sm=4)
+
+
+def _k3_f32_case(case, hidden, N, n_sm):
+    n_out = N_OUT[case]
+    net = jax_net(hidden + [n_out])
     params = net.init(jax.random.PRNGKey(0), jnp.zeros((1, 2)))
     rng = np.random.RandomState(0)
     X = (rng.randn(N, 2) * 0.5).astype(np.float32)
@@ -712,7 +853,7 @@ def test_route_k3_f32_within_the_f32_band_and_jax(case):
                                      analyze_f_model(f, VARS, n_out), shapes,
                                      device="cpu")
     Xt, wt = torch.from_numpy(X), torch.from_numpy(w)
-    val, dflat, gw, gX = _route_k3(sq, flat, Xt, wt, n_sm=3)
+    val, dflat, gw, gX = _route_k3(sq, flat, Xt, wt, n_sm=n_sm)
     got = [val.reshape(1)] + [t.reshape(-1) for t in dflat] + [gw, gX]
     pv, pflat, pgw, pgX = sq.plain([t.double() for t in flat], wt.double(),
                                    Xt.double())
@@ -757,21 +898,30 @@ def _route_k3_members(sqs, flats, Xs, ws, n_sm, mode="f32"):
 def test_route_k3_member_axis_is_each_members_route_bit_for_bit():
     """The route's K3 over 3 members in the f32 order (their θ differ; one
     tape group) equals each member's single-launch mirror bit for bit."""
-    N, n_sm = 300, 4
-    shapes = [(2, 40), (40, 40), (40, 40), (40, 1)]
+    _members_case([2, 40, 40, 40, 1], 300, (0.05, 0.02, 0.11), n_sm=4)
+
+
+def test_route_k3_member_axis_at_256_is_each_members_route_bit_for_bit():
+    """The same at NP = 256 (2-256-256-1, 2 members, N = 517): the member
+    axis walks 2 x 9 items of 64-row tiles over 5 blocks."""
+    _members_case([2, 256, 256, 1], 517, (0.05, 0.02), n_sm=5)
+
+
+def _members_case(widths, N, thetas, n_sm):
+    shapes = list(zip(widths[:-1], widths[1:]))
     rng = np.random.RandomState(1)
     sqs, flats, Xs, ws = [], [], [], []
-    for m, th in enumerate((0.05, 0.02, 0.11)):
+    for m, th in enumerate(thetas):
         def f(u, x, t, _th=th):
             return (grad(u, "t")(x, t) - _th * grad(grad(u, "x"), "x")(x, t)
                     + u(x, t) ** 3 - u(x, t))
         sqs.append(minimax.build_minimax_sq_fn(
             f, VARS, 1, analyze_f_model(f, VARS, 1), shapes, device="cpu"))
-        flats.append(_layers([2, 40, 40, 40, 1], seed=m))
+        flats.append(_layers(widths, seed=m))
         Xs.append(torch.from_numpy((rng.randn(N, 2) * 0.5).astype(
             np.float32)))
         ws.append(torch.from_numpy(rng.rand(N, 1).astype(np.float32)))
-    assert minimax.tape_groups(sqs) == [[0, 1, 2]]
+    assert minimax.tape_groups(sqs) == [list(range(len(thetas)))]
     got = _route_k3_members(sqs, flats, Xs, ws, n_sm)
     for sq, flat, X, w, out in zip(sqs, flats, Xs, ws, got):
         want = _route_k3(sq, flat, X, w, n_sm)
