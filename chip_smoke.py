@@ -30,8 +30,9 @@ Phases (each failure is fatal; exit code != 0, no result line):
    Each kernel's time is printed beside two bounds: the route it takes
    (its tensor-core products as 3 TF32 passes over the TF32 peak, the rest
    over the FP32 peak, its bytes over the HBM rate) and, for continuity,
-   every operation on the FP32 CUDA cores.  Two ``[yardstick]`` lines time
-   the same hidden-layer products as cuBLAS matmuls, f32 and TF32.
+   every operation on the FP32 CUDA cores.  Six ``[yardstick]`` lines time
+   the same hidden-layer products as cuBLAS matmuls, f32, TF32 and bf16,
+   at widths 128 and 256.
 6. the minimax slice, the main path: the Allen-Cahn SA-PINN at its full
    size trained through ``compile(fused="cuda")`` with the default
    ``minimax``, which adopts K3; ``fit(tf_iter=200)`` and ``predict`` on the
@@ -53,7 +54,19 @@ Phases (each failure is fatal; exit code != 0, no result line):
    fresh solver compiled the same way and restored on the card has the
    same ``update_loss()`` and the same 10 further Adam steps, bit for bit;
    a checkpoint taken mid-L-BFGS brings ``newton_done`` and the iterate
-   back.
+   back.  Then the wide paths: AC-SA full at WIDE_WIDTHS, where K2 and K3
+   take their NP = 256 design and K1 its kernel beside K2, in the f32
+   flavor (``wide``, ``wide-lbfgs``, ``wide-unfused``) and with
+   ``neural_net(..., precision=None)`` in the TF32 one (``wide-tf32``,
+   ``wide-tf32-lbfgs``, ``wide-tf32-unfused``): WIDE_TF_ITER minimax Adam
+   steps (K3 once per step, compile's cross-check beside; no K1/K2),
+   graphed and eager bit for bit with one capture and the loss falling,
+   K3 held on the path's own tensors to its plain flavor (the TF32 one in
+   phase 16's band); WIDE_LBFGS L-BFGS iterations (K3 once per
+   evaluation, the best below the Adam leg's last); WIDE_UNFUSED unfused
+   steps (K1 and K2 once each per step), graphed and eager bit for bit,
+   the loss history within the cross-check rtol of the minimax leg's.
+   ``--wide-only`` runs phases 3-5, the yardstick and these paths.
 9. the CUDA graphs against their eager referee: on each path an
    identically seeded solver trains 50 Adam steps through the replayed
    graphs and another through the same steps run eagerly
@@ -212,10 +225,13 @@ Phases (each failure is fatal; exit code != 0, no result line):
    run; K2-TF32 and K3-TF32 on the route K2_TF32_ROUTES and
    K3_TF32_ROUTES name for the case (``[route ...]``: the persistent
    wgmma route of ``csrc/wg_backward.cuh`` at the slice and ``burgers``,
-   the mma.sync kernels at WIDE_WIDTHS; another route fails the phase);
-   each timed over 20 launches beside the 3xTF32 flavor, its one-pass
-   bound and the mma.sync route's earlier ms (TF32_BEFORE_WGMMA_MS); the
-   distance to the IEEE flavor printed.  The f32 (3xTF32) K2 and K3 at the
+   its NP = 256 design, ``csrc/wg_backward_wide.cuh``, at WIDE_WIDTHS;
+   another route fails the phase); each timed over 20 launches beside the
+   3xTF32 flavor, its one-pass bound and the mma.sync route's earlier ms
+   (TF32_BEFORE_WGMMA_MS); at WIDE_WIDTHS the mma.sync kernels the NP =
+   256 design replaced, held to the same band on the same inputs and
+   timed in turns with it (``[time K3-TF32 wide]``); the distance to the
+   IEEE flavor printed.  The f32 (3xTF32) K2 and K3 at the
    same three shapes against the IEEE plain flavor (K2_RTOL, K3_RTOL), on
    the route K2_ROUTES/K3_ROUTES name (wgmma at the slice and ``burgers``,
    mma.sync at WIDE_WIDTHS), bit for bit run to run, timed.
@@ -480,13 +496,14 @@ AC_REQUESTS = {(), (1,), (0, 0)}
 MIXED_REQUESTS = {(), (0,), (1,), (0, 0), (0, 1), (0, 0, 1), (0, 0, 0, 0)}
 WIDTHS = [2, 128, 128, 128, 128, 1]
 # the slice's net at twice the width: K1's shapes past its wgmma route
-# (hidden widths over 128), which take the kernel beside K2; the f32 K2's
-# and K3's NP = 256 design (csrc/wg_backward_wide.cuh); the TF32 and bf16
+# (hidden widths over 128), which take the kernel beside K2; the f32 and
+# TF32 K2's and K3's NP = 256 design (csrc/wg_backward_wide.cuh); the bf16
 # K2/K3's mma.sync kernels
 WIDE_WIDTHS = [2, 256, 256, 256, 256, 1]
-# the wide path (AC-SA full at WIDE_WIDTHS): minimax Adam steps, L-BFGS
-# iterations after them, unfused steps
-WIDE_TF_ITER, WIDE_LBFGS, WIDE_UNFUSED = 200, 20, 50
+# the wide paths (AC-SA full at WIDE_WIDTHS, f32 and TF32): minimax Adam
+# steps (two paths share the smoke's time), L-BFGS iterations after them,
+# unfused steps
+WIDE_TF_ITER, WIDE_LBFGS, WIDE_UNFUSED = 100, 20, 50
 # the K1 route each case of phases 3 and 14 must take
 K1_ROUTES = {"ac": "wgmma", "mixed": "wgmma", "wide": "wide"}
 N_POINTS = 50_000
@@ -589,12 +606,13 @@ TF32_WIDTHS = ([2, 128, 128, 128, 128, 1], [2, 64, 64, 64, 64, 1],
                [2, 32, 32, 32, 32, 1], BURGERS_WIDTHS)
 TF32_LBFGS = 20  # L-BFGS iterations of the TF32 and custom-module legs
 TF32_UNFUSED_STEPS = 50  # the TF32 flavor's unfused steps (K1/K2)
-# the route K2-TF32 and K3-TF32 must take in each case of phase 16(a): the
-# persistent wgmma route (csrc/wg_backward.cuh) at the slice's and burgers'
-# shapes, the mma.sync kernels (csrc/taylor_table.cu, minimax_step.cu) at
-# WIDE_WIDTHS, past the wgmma route's widths
-K2_TF32_ROUTES = {"ac": "wgmma", "burgers": "wgmma", "wide": "mma"}
-K3_TF32_ROUTES = {"ac": "wgmma", "burgers": "wgmma", "wide": "mma"}
+# the route K2-TF32 and K3-TF32 must take in each case of phase 16(a) and
+# on the wide TF32 path: the persistent wgmma route at the slice's and
+# burgers' shapes (csrc/wg_backward.cuh) and at WIDE_WIDTHS (its NP = 256
+# design, csrc/wg_backward_wide.cuh; phase 16(a) times the mma.sync
+# kernels it replaced there in turns with it)
+K2_TF32_ROUTES = {"ac": "wgmma", "burgers": "wgmma", "wide": "wgmma"}
+K3_TF32_ROUTES = {"ac": "wgmma", "burgers": "wgmma", "wide": "wgmma"}
 # the route the f32 (3xTF32) K2 and K3 must take in each case of phases 3-5
 # and 16(a): the same wgmma route in its f32 flavor at the slice's (the AC
 # and mixed request sets; E = 2 and the 1/x residual) and burgers' shapes,
@@ -614,7 +632,7 @@ ROUTE_SOURCES = {("k2", "wgmma"): "csrc/wg_backward.cuh",
                  ("k3", "wgmma"): "csrc/wg_backward.cuh",
                  ("k2", "mma"): "csrc/taylor_table.cu",
                  ("k3", "mma"): "csrc/minimax_step.cu"}
-# each kernel's route at WIDE_WIDTHS in the f32 flavor
+# each kernel's route at WIDE_WIDTHS in the f32 and TF32 flavors
 WIDE_ROUTE_SOURCES = {"k1": "csrc/taylor_table.cu",
                       "k2": "csrc/wg_backward_wide.cuh",
                       "k3": "csrc/wg_backward_wide.cuh"}
@@ -1059,54 +1077,44 @@ def _wide_k3_old(plan, X, w, flat, want, ms, plain_ms, bound) -> dict:
 
 
 def phase_yardstick(dev) -> dict:
-    """What the card's own GEMM does on the slice's hidden-layer products:
-    torch.matmul on [N*C, 128] x [128, 128] (C = 4), the forward H W, dW =
+    """What the card's own GEMM does on the hidden-layer products of K2 and
+    K3: torch.matmul on [N*C, W] x [W, W] (C = 4), the forward H W, dW =
     H^T dP and dH = dP W^T, three of each as in one K2 or K3 launch (K1
     takes the three forward ones), with TF32 off (the f32 flavors'
     yardstick), on (the TF32 flavor's: one pass), and on bf16 operands
-    (the bf16 flavor's); and the f32 nine at 256 wide (WIDE_WIDTHS, the NP
-    = 256 design's).  A yardstick only: the port never calls it."""
+    (the bf16 flavor's), at the slice's W = 128 and at WIDE_WIDTHS' 256
+    (the NP = 256 design's, f32 and TF32, and the bf16 mma.sync kernels').
+    A yardstick only: the port never calls it."""
     import torch
     g = torch.Generator(device=dev).manual_seed(0)
     rows = N_POINTS * 4
-    H = torch.rand(rows, 128, generator=g, device=dev) * 2 - 1
-    dP = torch.randn(rows, 128, generator=g, device=dev)
-    W = torch.randn(128, 128, generator=g, device=dev) / 128 ** 0.5
     out = {}
-    for kind in ("f32", "tf32", "bf16"):
-        torch.backends.cuda.matmul.allow_tf32 = kind == "tf32"
-        h, p, w = ((H, dP, W) if kind != "bf16" else
-                   (t.to(torch.bfloat16) for t in (H, dP, W)))
-        try:
-            fwd = cuda_ms(lambda: [h @ w for _ in range(3)], reps=10)
-            dw = cuda_ms(lambda: [h.t() @ p for _ in range(3)], reps=10)
-            dh = cuda_ms(lambda: [p @ w.t() for _ in range(3)], reps=10)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = False
-        text = {"f32": "f32 (allow_tf32=False)",
-                "tf32": "TF32 (allow_tf32=True)",
-                "bf16": "bf16 (bf16 operands)"}[kind]
-        print(f"[yardstick] torch.matmul {text}, [{rows}, 128] x [128, 128], "
-              f"three of each: forward {fwd:.3f} ms, dW {dw:.3f} ms, dH "
-              f"{dh:.3f} ms; the nine of K2/K3 {fwd + dw + dh:.3f} ms, the "
-              f"three of K1 {fwd:.3f} ms (cuBLAS, not used by the port)",
-              flush=True)
-        out[kind] = dict(fwd_ms=fwd, dw_ms=dw, dh_ms=dh,
-                         nine_ms=fwd + dw + dh)
-    # the f32 nine at WIDE_WIDTHS' 256 (the NP = 256 design's yardstick)
-    H = torch.rand(rows, 256, generator=g, device=dev) * 2 - 1
-    dP = torch.randn(rows, 256, generator=g, device=dev)
-    W = torch.randn(256, 256, generator=g, device=dev) / 256 ** 0.5
-    fwd = cuda_ms(lambda: [H @ W for _ in range(3)], reps=10)
-    dw = cuda_ms(lambda: [H.t() @ dP for _ in range(3)], reps=10)
-    dh = cuda_ms(lambda: [dP @ W.t() for _ in range(3)], reps=10)
-    print(f"[yardstick] torch.matmul f32 (allow_tf32=False), [{rows}, 256] "
-          f"x [256, 256], three of each: forward {fwd:.3f} ms, dW "
-          f"{dw:.3f} ms, dH {dh:.3f} ms; the nine of K2/K3 at WIDE_WIDTHS "
-          f"{fwd + dw + dh:.3f} ms (cuBLAS, not used by the port)",
-          flush=True)
-    out["f32_wide"] = dict(fwd_ms=fwd, dw_ms=dw, dh_ms=dh,
-                           nine_ms=fwd + dw + dh)
+    for width, suffix in ((128, ""), (256, "_wide")):
+        H = torch.rand(rows, width, generator=g, device=dev) * 2 - 1
+        dP = torch.randn(rows, width, generator=g, device=dev)
+        W = torch.randn(width, width, generator=g, device=dev) / width ** 0.5
+        for kind in ("f32", "tf32", "bf16"):
+            torch.backends.cuda.matmul.allow_tf32 = kind == "tf32"
+            h, p, w = ((H, dP, W) if kind != "bf16" else
+                       (t.to(torch.bfloat16) for t in (H, dP, W)))
+            try:
+                fwd = cuda_ms(lambda: [h @ w for _ in range(3)], reps=10)
+                dw = cuda_ms(lambda: [h.t() @ p for _ in range(3)], reps=10)
+                dh = cuda_ms(lambda: [p @ w.t() for _ in range(3)], reps=10)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            text = {"f32": "f32 (allow_tf32=False)",
+                    "tf32": "TF32 (allow_tf32=True)",
+                    "bf16": "bf16 (bf16 operands)"}[kind]
+            at = "" if width == 128 else " at WIDE_WIDTHS"
+            print(f"[yardstick] torch.matmul {text}, [{rows}, {width}] x "
+                  f"[{width}, {width}], three of each: forward {fwd:.3f} ms, "
+                  f"dW {dw:.3f} ms, dH {dh:.3f} ms; the nine of K2/K3{at} "
+                  f"{fwd + dw + dh:.3f} ms, the three of K1 {fwd:.3f} ms "
+                  f"(cuBLAS, not used by the port)", flush=True)
+            out[kind + suffix] = dict(fwd_ms=fwd, dw_ms=dw, dh_ms=dh,
+                                      nine_ms=fwd + dw + dh)
+        del H, dP, W
     return out
 
 
@@ -1544,55 +1552,84 @@ def _state_diff(a, b, since: int = 0) -> float:
     return worst
 
 
-def phase_wide() -> dict:
+def phase_wide(tf32: bool = False) -> dict:
     """The wide path: AC-SA full (N_f = 50,000, SA λ) at WIDE_WIDTHS, where
-    the f32 K3 and K2 take their NP = 256 design (csrc/wg_backward_wide.cuh)
-    and K1 its kernel beside K2.  WIDE_TF_ITER minimax Adam steps (K3 once
-    per step, no K1/K2), graphed and eager from one seed, held bit for bit
-    with one capture; then WIDE_LBFGS L-BFGS iterations on the graphed
-    solver (K3 once per evaluation, no K1/K2); then WIDE_UNFUSED unfused
-    steps (K1 and K2 once per step), graphed and eager bit for bit, and
-    their loss history held to the minimax leg's over the same steps (one
-    loss by two engines: within SERVE_CROSSCHECK_RTOL, the engines'
-    cross-check rtol).  Each leg's counts are set to 0 just before it and
-    read just after; the minimax leg's loss falls and L-BFGS's best is
-    below it; K3 (and K1/K2) are held to the plain flavor on the path's own
-    tensors.  Returns the paths "wide", "wide-lbfgs", "wide-unfused"."""
-    import torch
+    K3 and K2 take their NP = 256 design (csrc/wg_backward_wide.cuh) and K1
+    its kernel beside K2, in the f32 flavor, or (``tf32``) with
+    ``neural_net(WIDE_WIDTHS, precision=None)`` in the TF32 one (K3-TF32,
+    K2-TF32, K1-TF32).  WIDE_TF_ITER minimax Adam steps (K3 once in
+    compile's cross-check and once per step, no K1/K2), graphed and eager
+    from one seed, held bit for bit with one capture; then WIDE_LBFGS
+    L-BFGS iterations on the graphed solver (K3 once per evaluation, no
+    K1/K2); then WIDE_UNFUSED unfused steps (K1 and K2 once per step),
+    graphed and eager bit for bit, and their loss history held to the
+    minimax leg's over the same steps (one loss by two engines: within
+    SERVE_CROSSCHECK_RTOL, the engines' cross-check rtol).  Each leg's
+    counts are set to 0 just before it and read just after; the minimax
+    leg's loss falls and L-BFGS's best is below it; K3 is held on the
+    path's own tensors to its plain flavor (``_held_k3``; the TF32 flavor
+    to its emulation in phase 16's band, ``_held_k3_tf32``), and in the
+    f32 flavor K1/K2 too (``_held_k1_k2``).  Returns the paths "wide",
+    "wide-lbfgs", "wide-unfused" (``tf32``: "wide-tf32", "wide-tf32-lbfgs",
+    "wide-tf32-unfused")."""
     import tensordiffeq_tpu_torch as tdqt
+    from tensordiffeq_tpu_torch.networks import neural_net
     from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+
+    flavor, tag = (ct.TF32, "wide-tf32") if tf32 else (None, "wide")
+    k1, k2, k3 = (("k1_tf32", "k2_tf32", "k3_tf32") if tf32 else
+                  ("k1", "k2", "k3"))
+    k2_routes, k3_routes = ((K2_TF32_ROUTES, K3_TF32_ROUTES) if tf32 else
+                            (K2_ROUTES, K3_ROUTES))
+    compiles = []
 
     def make(minimax=None):
         def build():
             domain, bcs, f_model, kw = ac_sa_problem()
             s = tdqt.CollocationSolverND(verbose=False, seed=0)
-            if minimax is not None:
-                kw = dict(kw, minimax=minimax)
-            s.compile(WIDE_WIDTHS, f_model, domain, bcs, fused="cuda", **kw)
+            if tf32:
+                kw = dict(kw, network=neural_net(WIDE_WIDTHS, precision=None,
+                                                 seed=0))
+            before = _counts_all()
+            s.compile(WIDE_WIDTHS, f_model, domain, bcs, fused="cuda",
+                      minimax=minimax, **kw)
+            compiles.append(_nonzero({k: v - before[k] for k, v in
+                                      _counts_all().items()}))
             return s
         return build
 
     out = {}
-    r = _graph_vs_eager("wide minimax", make(), WIDE_TF_ITER, 50)
+    r = _graph_vs_eager(f"{tag} minimax", make(), WIDE_TF_ITER, 50,
+                        _counts_all)
     solver = r["graph"]
-    route = solver._minimax_sq.plan.k3_routes.get(None)
+    sq = solver._minimax_sq
+    route = None if sq is None else sq.plan.k3_routes.get(flavor)
     loss = np.array([row["Total Loss"] for row in solver.losses])
     ms_step = 1e3 * r["seconds"] / WIDE_TF_ITER
-    print(f"[wide minimax] engine {solver.engine}, K3 on the {route} route; "
-          f"{WIDE_TF_ITER} steps {ms_step:.3f} ms/step (the fit's wall, its "
-          f"capture included; replays {_steady_ms(solver, 50):.3f} ms/step);"
-          f" loss {loss[0]:.6e} -> {loss[-1]:.6e}; launches {r['launches']}",
+    launches = _nonzero(r["launches"])
+    print(f"[{tag} minimax] engine {solver.engine}, "
+          f"{k3.upper().replace('_', '-')} on the "
+          f"{route} route; compile's launches {compiles[0]}; {WIDE_TF_ITER} "
+          f"steps {ms_step:.3f} ms/step (the fit's wall, its capture "
+          f"included; replays {_steady_ms(solver, 50):.3f} ms/step); loss "
+          f"{loss[0]:.6e} -> {loss[-1]:.6e}; launches {launches}",
           flush=True)
-    if solver.engine != "fused-minimax-cuda" or route != K3_ROUTES["wide"]:
-        fail(f"the wide path ran {solver.engine}, K3 on {route}")
-    if not (np.all(np.isfinite(loss)) and loss[-1] < loss[0]):
-        fail("wide minimax: the loss did not fall (or is not finite)")
-    if r["launches"] != {"k1": 0, "k2": 0, "k3": WIDE_TF_ITER}:
-        fail(f"wide minimax: launches {r['launches']}, not K3 x "
+    if solver.engine != "fused-minimax-cuda" or sq.flavor != flavor \
+            or route != k3_routes["wide"]:
+        fail(f"the {tag} path ran {solver.engine} "
+             f"({solver._minimax_fail_reason!r}), K3 on {route}")
+    if compiles[0].get(k3) != 1:
+        fail(f"{tag} compile: launches {compiles[0]}, not one K3 "
+             "cross-check")
+    if launches != {k3: WIDE_TF_ITER}:
+        fail(f"{tag} minimax: launches {launches}, not {k3} x "
              f"{WIDE_TF_ITER} alone")
-    _held_k3("wide minimax held", solver)
-    out["wide"] = dict(launches=r["launches"], ms_step=ms_step,
-                       steady_ms=_steady_ms(solver, 50))
+    if not (np.all(np.isfinite(loss)) and loss[-1] < loss[0]):
+        fail(f"{tag} minimax: the loss did not fall (or is not finite)")
+    (_held_k3_tf32 if tf32 else _held_k3)(f"{tag} minimax held", solver)
+    out[tag] = dict(launches={k: compiles[0].get(k, 0) + v
+                              for k, v in r["launches"].items()},
+                    ms_step=ms_step, steady_ms=_steady_ms(solver, 50))
     minimax_loss = loss
     del r
     # the L-BFGS leg after it
@@ -1600,49 +1637,54 @@ def phase_wide() -> dict:
     e0, _ = _lbfgs_counts()
     n_adam = len(solver.losses)
     t = _timed_fit(solver, newton_iter=WIDE_LBFGS)
-    lb = _counts()
+    lb = _nonzero(_counts_all())
     evals = _lbfgs_counts()[0] - e0
     iters = len(solver.losses) - n_adam
     hist = np.array([row["Total Loss"] for row in solver.losses[n_adam:]])
-    print(f"[wide lbfgs] {iters} iterations {1e3 * t / max(iters, 1):.3f} "
+    print(f"[{tag} lbfgs] {iters} iterations {1e3 * t / max(iters, 1):.3f} "
           f"ms/iteration, {evals} evaluations; loss {loss[-1]:.6e} (last "
           f"Adam step) -> {hist[-1]:.6e}, best "
           f"{solver.min_loss['l-bfgs']:.6e}; launches {lb}", flush=True)
-    if not (lb["k3"] == evals > 0 and lb["k1"] == lb["k2"] == 0):
-        fail(f"wide lbfgs: launches {lb} for {evals} evaluations")
+    if not (evals > 0 and lb == {k3: evals}):
+        fail(f"{tag} lbfgs: launches {lb} for {evals} evaluations")
     if not (np.all(np.isfinite(hist))
             and solver.min_loss["l-bfgs"] < loss[-1]):
-        fail("wide lbfgs: the best loss is not below the Adam leg's last")
-    out["wide-lbfgs"] = dict(launches=lb, ms_iter=1e3 * t / max(iters, 1))
+        fail(f"{tag} lbfgs: the best loss is not below the Adam leg's last")
+    out[f"{tag}-lbfgs"] = dict(launches=_counts_all(),
+                               ms_iter=1e3 * t / max(iters, 1))
     del solver
     # the unfused steps: K1 (its wide route) and K2 (the NP = 256 design)
-    r = _graph_vs_eager("wide unfused", make(False), WIDE_UNFUSED, 25)
+    r = _graph_vs_eager(f"{tag} unfused", make(False), WIDE_UNFUSED, 25,
+                        _counts_all)
     s2 = r["graph"]
     loss = np.array([row["Total Loss"] for row in s2.losses])
     ms_step = 1e3 * r["seconds"] / WIDE_UNFUSED
+    launches = _nonzero(r["launches"])
     plan = ct.build_cuda_table_fn(
         s2._fuse_requests, [tuple(W.shape) for W, _ in s2.net.layers()],
         device=s2.X_f.device).plan
-    k2_route = "mma" if plan.wb_route(s2.X_f.device, None, s2.X_f.shape[0],
+    k2_route = "mma" if plan.wb_route(s2.X_f.device, flavor, s2.X_f.shape[0],
                                       "k2") is None else "wgmma"
     ref = minimax_loss[:WIDE_UNFUSED]
     apart = float(np.max(np.abs(loss - ref) / np.abs(ref)))
-    print(f"[wide unfused] engine {s2.engine}, K2 on the {k2_route} route; "
-          f"{WIDE_UNFUSED} steps {ms_step:.3f} ms/step (the fit's wall); "
-          f"loss {loss[0]:.6e} -> {loss[-1]:.6e} (the minimax leg "
-          f"{ref[-1]:.6e} at that step; the histories {apart:.3e} apart, "
-          f"tol {SERVE_CROSSCHECK_RTOL:g}); launches {r['launches']}",
-          flush=True)
-    if s2.engine != "fused-cuda" or k2_route != K2_ROUTES["wide"]:
-        fail(f"the wide unfused path ran {s2.engine}, K2 on {k2_route}")
+    print(f"[{tag} unfused] engine {s2.engine}, "
+          f"{k2.upper().replace('_', '-')} on the "
+          f"{k2_route} route; {WIDE_UNFUSED} steps {ms_step:.3f} ms/step "
+          f"(the fit's wall); loss {loss[0]:.6e} -> {loss[-1]:.6e} (the "
+          f"minimax leg {ref[-1]:.6e} at that step; the histories "
+          f"{apart:.3e} apart, tol {SERVE_CROSSCHECK_RTOL:g}); launches "
+          f"{launches}", flush=True)
+    if s2.engine != "fused-cuda" or k2_route != k2_routes["wide"]:
+        fail(f"the {tag} unfused path ran {s2.engine}, K2 on {k2_route}")
     if not (np.all(np.isfinite(loss)) and apart <= SERVE_CROSSCHECK_RTOL):
-        fail("wide unfused: the loss history left the minimax leg's (or is "
-             "not finite)")
-    if r["launches"] != {"k1": WIDE_UNFUSED, "k2": WIDE_UNFUSED, "k3": 0}:
-        fail(f"wide unfused: launches {r['launches']}, not K1/K2 x "
+        fail(f"{tag} unfused: the loss history left the minimax leg's (or "
+             "is not finite)")
+    if launches != {k1: WIDE_UNFUSED, k2: WIDE_UNFUSED}:
+        fail(f"{tag} unfused: launches {launches}, not {k1}/{k2} x "
              f"{WIDE_UNFUSED}")
-    _held_k1_k2("wide unfused held", s2)
-    out["wide-unfused"] = dict(launches=r["launches"], ms_step=ms_step)
+    if not tf32:
+        _held_k1_k2(f"{tag} unfused held", s2)
+    out[f"{tag}-unfused"] = dict(launches=r["launches"], ms_step=ms_step)
     return out
 
 
@@ -2474,16 +2516,17 @@ def _timed_disc(model, steps: int, _graphs: bool = True) -> float:
 # --------------------------------------------------------------------- #
 # phase 13: the solver's remaining training options
 # --------------------------------------------------------------------- #
-def _fit_counted(solver, **kw) -> tuple:
+def _fit_counted(solver, counts=_counts, **kw) -> tuple:
     """``fit`` with the launch counts set to 0 just before and read just
-    after; returns (seconds, launches, Adam-step captures in the fit)."""
+    after (by ``counts``: the f32 flavor's, or ``_counts_all``); returns
+    (seconds, launches, Adam-step captures in the fit)."""
     from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
     from tensordiffeq_tpu_torch.training import graphs
 
     c0 = len(graphs.captures)
     ct.reset_launch_counts()
     t = _timed_fit(solver, **kw)
-    launches = _counts()
+    launches = counts()
     caps = [c for c in graphs.captures[c0:] if c["name"] == "Adam step"]
     return t, launches, len(caps)
 
@@ -2496,11 +2539,14 @@ def _steady_ms(solver, chunk: int) -> float:
     return 1e3 * float(np.mean(secs)) / chunk if secs else float("nan")
 
 
-def _graph_vs_eager(tag: str, make, steps: int, chunk: int) -> dict:
+def _graph_vs_eager(tag: str, make, steps: int, chunk: int,
+                    counts=_counts) -> dict:
     """Two solvers from one seed, ``steps`` Adam steps each, graphed and
-    eager: held bit for bit (``_state_diff``)."""
+    eager: held bit for bit (``_state_diff``); the graphed fit's launches
+    read by ``counts``."""
     graph, eager = make(), make()
-    t_g, launches, caps = _fit_counted(graph, tf_iter=steps, chunk=chunk)
+    t_g, launches, caps = _fit_counted(graph, counts, tf_iter=steps,
+                                       chunk=chunk)
     t_e = _timed_fit(eager, tf_iter=steps, chunk=chunk, _graphs=False)
     diff = _state_diff(graph, eager)
     print(f"[{tag} graph] {steps} steps each way: graphs "
@@ -3738,8 +3784,9 @@ def _wb_route(plan, kernel: str, label: str, flavor=None) -> str:
                                     "-bf16")}[flavor]
     want = routes[kernel == "k3"][label]
     name = kernel.upper() + tag
-    print(f"[route {name} {label}] {got} ({ROUTE_SOURCES[(kernel, got)]})",
-          flush=True)
+    source = (WIDE_ROUTE_SOURCES[kernel] if label == "wide" and got == "wgmma"
+              else ROUTE_SOURCES[(kernel, got)])
+    print(f"[route {name} {label}] {got} ({source})", flush=True)
     if got != want:
         fail(f"{name} ({label}) took the {got} route, not the {want} one")
     return got
@@ -3764,12 +3811,14 @@ def phase_tf32_kernels(dev) -> dict:
     """Phase 16(a): K1-TF32, K2-TF32 and K3-TF32 against the
     TF32-emulating plain flavor at the Allen-Cahn slice (N = 50,000,
     2-128x4-1, C = 4, E = 1), at ``burgers``' 2-20x8-1 (K2 and K3 on their
-    wgmma route at both) and at WIDE_WIDTHS (their mma.sync route), each
-    kernel bit for bit run to run, each timed over 20 launches beside the
-    3xTF32 flavor and its one-pass bound.  The 3xTF32 (f32) K2 and K3 at
-    the same three shapes against the IEEE plain flavor (K2_RTOL, K3_RTOL),
-    on the route K2_ROUTES/K3_ROUTES name, bit for bit run to run.  Returns
-    the Allen-Cahn measurements, with the wide case's K2-TF32/K3-TF32 as
+    wgmma route at both) and at WIDE_WIDTHS (their NP = 256 design, and the
+    mma.sync kernels it replaced there, held to the same band and timed in
+    turns with it), each kernel bit for bit run to run, each timed over 20
+    launches beside the 3xTF32 flavor and its one-pass bound.  The 3xTF32
+    (f32) K2 and K3 at the same three shapes against the IEEE plain flavor
+    (K2_RTOL, K3_RTOL), on the route K2_ROUTES/K3_ROUTES name, bit for bit
+    run to run.  Returns the Allen-Cahn measurements, with the wide case's
+    K2-TF32/K3-TF32 as ``wide`` and their mma.sync kernels as
     ``old_route``."""
     import torch
     from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
@@ -3873,12 +3922,13 @@ def phase_tf32_kernels(dev) -> dict:
 
         got = cm.k3_minimax_tf32(sq.plan, X, w, kflat)
         torch.cuda.synchronize()
+        k3_refs = (leaves(sq.plain(fl, w, X, emulate_tf32=True)),
+                   leaves(sq.plain(fl, w, X, emulate_tf32="float64")),
+                   leaves(sq32.plain(fl, w, X)))
         k3 = _tf32_check(
             f"K3-TF32 {label}",
             leaves((got[0], sq.plan.unpack(got[1]), got[2], got[3])),
-            leaves(sq.plain(fl, w, X, emulate_tf32=True)),
-            leaves(sq.plain(fl, w, X, emulate_tf32="float64")),
-            leaves(sq32.plain(fl, w, X)))
+            *k3_refs)
         k3["route"] = _wb_route(sq.plan, "k3", label, ct.TF32)
         k3["bit_identical"] = _bit_identical_run_to_run(
             f"K3-TF32 {label}", torch.cat([t.reshape(-1) for t in got]),
@@ -3921,12 +3971,53 @@ def phase_tf32_kernels(dev) -> dict:
               f" beside the 3xTF32 flavor's {k3['f32_ms']:.3f} ms (plain TF32 "
               f"emulation {k3['plain_ms']:.3f} ms); "
               f"{bound_text(k3['ms'], k3['bound'])}", flush=True)
+        if label == "wide":
+            # the mma.sync kernels the NP = 256 design replaced there, on
+            # the same inputs
+            k2["old_route"] = _tf32_old_route(
+                "K2-TF32", k2, lambda: ct.k2_mma(plan, X, flat, g, 2),
+                lambda: ct.k2_backward_tf32(plan, X, flat, g),
+                lambda o: plan.unpack(o[1]) + [o[0]], (ge, gt, gi))
+            k3["old_route"] = _tf32_old_route(
+                "K3-TF32", k3, lambda: cm.k3_mma(sq.plan, X, w, kflat, 2),
+                lambda: cm.k3_minimax_tf32(sq.plan, X, w, kflat),
+                lambda o: leaves((o[0], sq.plan.unpack(o[1]), o[2], o[3])),
+                k3_refs)
         out[label] = dict(k1_tf32=k1, k2_tf32=k2, k3_tf32=k3, k2=k2f, k3=k3f)
     _set_counts(before)  # comparison launches are not the main path's
     res = {k: out["ac"][k] for k in ("k1_tf32", "k2_tf32", "k3_tf32")}
     for key in ("k2_tf32", "k3_tf32"):
-        res[key]["old_route"] = dict(out["wide"][key], widths=WIDE_WIDTHS)
+        res[key]["wide"] = out["wide"][key]
+        res[key]["old_route"] = out["wide"][key].pop("old_route")
     return res
+
+
+def _tf32_old_route(name: str, new: dict, old_fn, new_fn, leaves,
+                    refs: tuple) -> dict:
+    """A TF32 kernel's mma.sync kernel at WIDE_WIDTHS on the inputs its NP
+    = 256 design was held on (phase 16(a)): held to the same referees
+    (``refs``: the emulation's, its twin's and the IEEE flavor's leaves;
+    ``leaves`` turns a launch's outputs into the kernel's) in phase 16's
+    band, and timed in turns with the new route (the mma.sync kernel, the
+    new route, twice; ``new["ms"]`` becomes the best of the new route's
+    turns).  Returns the mma.sync kernel's measurement."""
+    import torch
+    got = leaves(old_fn())
+    torch.cuda.synchronize()
+    chk = _tf32_check(f"{name} wide mma.sync", got, *refs)
+    old_ms, new_ms = [], [new["ms"]]
+    for _ in range(2):
+        old_ms.append(cuda_ms(old_fn))
+        new_ms.append(cuda_ms(new_fn))
+    new["ms"] = min(new_ms)
+    print(f"[time {name} wide] in turns: the NP = 256 design "
+          f"{', '.join(f'{v:.3f}' for v in new_ms)} ms, the mma.sync kernel "
+          f"{', '.join(f'{v:.3f}' for v in old_ms)} ms (its scale_rel_err "
+          f"{chk['scale_rel_err']:.3e}); {bound_text(min(old_ms), new['bound'])}",
+          flush=True)
+    return dict(route="mma", max_abs_err=chk["max_abs_err"],
+                scale_rel_err=chk["scale_rel_err"], ms=min(old_ms),
+                plain_ms=new["plain_ms"], bound=new["bound"])
 
 
 def _crosscheck_distances(solver) -> dict:
@@ -4332,6 +4423,46 @@ def _held_k3(label: str, solver) -> dict:
                         _k3_leaves(lam, *sq.plain(fl, w, X)),
                         _k3_leaves(lam, *sq32.plain(fl, w, X)), bands)
     _set_counts(saved)
+    return res
+
+
+def _held_k3_tf32(label: str, solver) -> dict:
+    """The solver's K3-TF32 launched once at the shapes its main path gives
+    it (its collocation rows, its parameters, w = λ² of its per-point λ)
+    against the TF32-emulating plain flavor, its float64-summed twin and
+    the IEEE plain flavor on the same card tensors (``_tf32_check``: phase
+    16's band) over the value, every dW/db, gw, the λ gradient 2λ·gw and
+    gX, and bit for bit run to run.  The launches are not the main path's:
+    the counts are put back."""
+    import torch
+    from tensordiffeq_tpu_torch.ops import cuda_minimax as cm
+    from tensordiffeq_tpu_torch.ops import cuda_taylor as ct
+    from tensordiffeq_tpu_torch.ops.minimax import build_minimax_sq_fn
+    saved = _counts_all()
+    sq, X = solver._minimax_sq, solver.X_f
+    plan = sq.plan
+    lam = solver.lambdas["residual"][0].detach()
+    fl = _solver_layers(solver)
+    w = (lam * lam).reshape(-1, 1)
+    flat = plan.pack(fl)
+    got = cm.k3_minimax_tf32(plan, X, w, flat)
+    again = cm.k3_minimax_tf32(plan, X, w, flat)
+    torch.cuda.synchronize()
+    _set_counts(saved)
+    bits = all(torch.equal(a, b) for a, b in zip(got, again))
+    sq32 = build_minimax_sq_fn(
+        solver.f_model, solver.domain.vars, solver.n_out,
+        solver._fuse_requests, plan.layer_shapes, device=X.device)
+    res = _tf32_check(
+        f"{label} K3-TF32 at N={X.shape[0]:,}",
+        _k3_leaves(lam, got[0], plan.unpack(got[1]), got[2], got[3]),
+        _k3_leaves(lam, *sq.plain(fl, w, X, emulate_tf32=True)),
+        _k3_leaves(lam, *sq.plain(fl, w, X, emulate_tf32="float64")),
+        _k3_leaves(lam, *sq32.plain(fl, w, X)))
+    print(f"[{label}] K3-TF32 route {plan.k3_routes.get(ct.TF32)}; run to "
+          f"run: {'bit-identical' if bits else 'DIFFERENT'}", flush=True)
+    if not bits:
+        fail(f"{label}: K3-TF32 is not bit-identical run to run")
     return res
 
 
@@ -4758,6 +4889,7 @@ def _dist_world_2(store: str, card: str) -> dict:
     os.makedirs(out, exist_ok=True)
     env = {k: v for k, v in os.environ.items()
            if k not in ("LOCAL_RANK", "RANK", "WORLD_SIZE")}
+    _release_card("dist w2")
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--dist-worker",
@@ -5231,6 +5363,7 @@ def _res_real_process(work: str) -> dict:
     argv = [sys.executable, os.path.abspath(__file__), "--resilience-child",
             ck, out]
     res = {}
+    _release_card("resilience c")
     t0 = time.perf_counter()
     p = subprocess.Popen(argv, env=env, stdout=subprocess.PIPE,
                          stderr=subprocess.STDOUT)
@@ -6707,11 +6840,29 @@ def _fleet_train(work: str) -> dict:
     return {"train_export_s": walls}
 
 
+def _release_card(tag: str):
+    """Before a child process starts on the same card: collect the dead
+    solvers' reference cycles and return PyTorch's cached, unused device
+    blocks to the driver (the caching allocator keeps what every earlier
+    phase freed, and a child that finds the card full fails with an
+    out-of-memory error); prints the memory the parent holds."""
+    import gc
+    import torch
+    gc.collect()
+    before = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    print(f"[{tag}] before the child processes: allocated "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB, reserved "
+          f"{before / 2 ** 30:.2f} -> {torch.cuda.memory_reserved() / 2 ** 30:.2f}"
+          f" GiB", flush=True)
+
+
 def _fleet_serving(work: str, card: str) -> dict:
     """Phase 21(a): the child process (``--fleet-child``)."""
     out = os.path.join(work, "fleet_child.json")
     env = {k: v for k, v in os.environ.items()
            if k not in ("LOCAL_RANK", "RANK", "WORLD_SIZE", "TDQ_CHAOS")}
+    _release_card("fleet")
     t0 = time.perf_counter()
     try:
         p = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -7009,6 +7160,7 @@ def phase_fleet(card: str) -> dict:
         queries = _ha_reference(work)
         _set_counts(saved)
         ha: dict = {}
+        _release_card("fleetha")
         th = threading.Thread(target=_ha_run, args=(work, queries, ha),
                               daemon=True)
         th.start()
@@ -7198,8 +7350,10 @@ def phase_audit(card: str) -> dict:
 
 def kernels_line(meas: dict, paths: dict) -> str:
     """``launches`` sums a kernel's launches over the runs of every path
-    (``launches_by_path`` splits them: minimax, unfused, lbfgs, pool,
-    ascent, discovery, phase 13's autotune, schedules, ntk, causal, remat,
+    (``launches_by_path`` splits them: minimax, unfused, lbfgs, the wide
+    paths wide, wide-lbfgs and wide-unfused and their TF32 twins
+    wide-tf32, wide-tf32-lbfgs and wide-tf32-unfused, pool, ascent,
+    discovery, phase 13's autotune, schedules, ntk, causal, remat,
     families, phase 14's minimax-bf16, lbfgs-bf16, unfused-bf16,
     serve-bf16, phase 15's zoo, phase 16's tf32-minimax, tf32-lbfgs,
     tf32-unfused, custom, custom-lbfgs, knob-sin and knob-bf16, phase
@@ -7265,9 +7419,11 @@ def kernels_line(meas: dict, paths: dict) -> str:
             # csrc/wg_backward.cuh; "k2_route"/"k3_route" for the f32 and
             # bf16 flavors, "tf32_route" for the TF32 one), their mma.sync
             # kernels at WIDE_WIDTHS (held and timed in phases 3-5, 14 and
-            # 16(a); in the f32 flavor beside the NP = 256 design that
-            # replaced them there; no main path takes them), and the
-            # flavor's products' torch.matmul time (the yardstick)
+            # 16(a); in the f32 and TF32 flavors in turns with the NP = 256
+            # design that replaced them there; no main path takes them; the
+            # bf16 flavor's route there, with its products' torch.matmul
+            # time at 256), and the flavor's products' torch.matmul time
+            # (the yardstick)
             **({("tf32_route" if key.endswith("tf32") else
                  f"{key[:2]}_route"): m["route"],
                 "yardstick_ms": m.get("yardstick_ms"),
@@ -7280,12 +7436,14 @@ def kernels_line(meas: dict, paths: dict) -> str:
                     "ms": m["old_route"]["ms"],
                     "plain_ms": m["old_route"]["plain_ms"],
                     "bound_ms": m["old_route"]["bound"]["ms"],
-                    "bound_by": m["old_route"]["bound"]["by"]}}
+                    "bound_by": m["old_route"]["bound"]["by"],
+                    **({"yardstick_ms": m["old_route"]["yardstick_ms"]}
+                       if "yardstick_ms" in m["old_route"] else {})}}
                if "old_route" in m else {}),
-            # the f32 kernels at WIDE_WIDTHS (phases 3-5): K1's kernel
-            # beside K2 (csrc/taylor_table.cu), K2's and K3's NP = 256
-            # design (csrc/wg_backward_wide.cuh; the wide path takes it)
-            # with its products' torch.matmul time
+            # the f32 and TF32 kernels at WIDE_WIDTHS (phases 3-5, 16(a)):
+            # K1's kernel beside K2 (csrc/taylor_table.cu), K2's and K3's
+            # NP = 256 design (csrc/wg_backward_wide.cuh; the wide paths
+            # take it) with its products' torch.matmul time
             **({"wide_route": {
                 "source": "tensordiffeq_tpu_torch/"
                           + WIDE_ROUTE_SOURCES[key[:2]],
@@ -7296,7 +7454,7 @@ def kernels_line(meas: dict, paths: dict) -> str:
                 "bound_by": m["wide"]["bound"]["by"],
                 **({"route": m["wide"]["route"],
                     "yardstick_ms": m["wide"].get("yardstick_ms")}
-                   if key in ("k2", "k3") else {})}}
+                   if key[:2] in ("k2", "k3") else {})}}
                if "wide" in m else {}),
             # the member-axis K3 (phase 19(b), the factory's 64 members):
             # the members' single launches in the same call, and the
@@ -7365,8 +7523,8 @@ def main():
     ap.add_argument("--wide-only", action="store_true",
                     help="build the kernels and run phases 3-5 (the kernels "
                     "against their plain flavors, at WIDE_WIDTHS too), the "
-                    "yardstick and the wide path alone; prints no result "
-                    "line")
+                    "yardstick and the wide paths (f32 and TF32) alone; "
+                    "prints no result line")
     ap.add_argument("--bf16-only", action="store_true",
                     help="build the kernels and run the yardstick and phase "
                     "14(a) (the bf16 kernels, on both routes) alone; prints "
@@ -7448,6 +7606,7 @@ def main():
         phase_k3(dev)
         phase_yardstick(dev)
         phase_wide()
+        phase_wide(tf32=True)
         print(card, flush=True)
         return
     if args.tf32_only:
@@ -7469,6 +7628,7 @@ def main():
           f"unfused {paths['unfused']['ms_step']:.3f}", flush=True)
     paths["lbfgs"] = phase_refine(paths)
     paths.update(phase_wide())
+    paths.update(phase_wide(tf32=True))
     phase_graphs()
     serve = phase_serve(paths["minimax"]["solver"], card)
     resample = phase_resample(dev)
@@ -7489,11 +7649,14 @@ def main():
         dev, paths["minimax"]["ms_step"])
     for key in ("k2_tf32", "k3_tf32"):
         tf32_meas[key]["yardstick_ms"] = yard["tf32"]["nine_ms"]
+        tf32_meas[key]["wide"]["yardstick_ms"] = yard["tf32_wide"]["nine_ms"]
     for key in ("k2", "k3"):
         meas[key]["yardstick_ms"] = yard["f32"]["nine_ms"]
         meas[key]["wide"]["yardstick_ms"] = yard["f32_wide"]["nine_ms"]
     for key in ("k2_bf16", "k3_bf16"):
         meas[key]["yardstick_ms"] = yard["bf16"]["nine_ms"]
+        # the bf16 flavor's route at WIDE_WIDTHS is the mma.sync kernel
+        meas[key]["old_route"]["yardstick_ms"] = yard["bf16_wide"]["nine_ms"]
     meas.update(tf32_meas)
     paths.update(option_paths)
     paths.update(phase_dist(card))

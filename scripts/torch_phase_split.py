@@ -20,9 +20,9 @@ on the route its shape takes in the checkout (the wgmma route of
 flavors alone; ``--flavor f32`` (``tf32``, ``bf16``) splits K2 and K3 at
 the AC slice in that flavor alone.  ``--widths`` splits K2 and K3 on
 another net (default: the slice's 2-128x4-1), such as WIDE_WIDTHS, whose
-f32 flavor runs ``wg_backward_wide.cuh``'s NP = 256 design (its phases are
-thread 0's, warpgroup 0's: ``wbw_products`` and ``wbw_dh`` hold the waits
-for the other warpgroup's half of the exchange).
+f32 and TF32 flavors run ``wg_backward_wide.cuh``'s NP = 256 design (its
+phases are thread 0's, warpgroup 0's: ``wbw_products`` and ``wbw_dh``
+hold the waits for the other warpgroup's half of the exchange).
 
 The instrumentation: every device function named in ``PHASES`` gets a
 ``clock64()`` stamp at its entry and at each exit, and thread 0 of each
@@ -119,12 +119,13 @@ PHASES = {
     # planes (the pieces' writes count as the cotangent split)
     "wb_dw_pieces": str(P["dW (+ partials)"]),
     "wb_put_pieces": str(P["cotangent split"]),
-    # the f32 flavor's NP = 256 design (wg_backward_wide.cuh): its
+    # the f32 and TF32 flavors' NP = 256 design (wg_backward_wide.cuh): its
     # products with the exchange of the other warpgroup's half inside, dW
     # in its passes (their A loads inside) and its staged slot adds
     "wbw_products": str(P["forward products"]),
     "wbw_dh": str(P["dH"]),
     "wbw_dw_passes": str(P["dW (+ partials)"]),
+    "wbw_dw_pass1": str(P["dW (+ partials)"]),
     "wbw_dw_stage": str(P["dW slot adds"]),
     "wbw_put_ht": str(P["K-major operand writes"]),
     "wbw_put_pt": str(P["K-major operand writes"]),
@@ -370,10 +371,12 @@ def main():
     # every flavor on the route its shape takes: the wgmma route
     # (wg_backward.cuh's instances) where the checkout has it, else the
     # mma.sync kernels
-    k2_units = ("taylor_table", "taylor_bwd_wg_f32_256") + tuple(
+    k2_units = ("taylor_table", "taylor_bwd_wg_f32_256",
+                "taylor_bwd_wg_tf32_256") + tuple(
         f"taylor_bwd_wg_{f}_{n}" for f in ("f32", "tf32", "bf16")
         for n in (64, 128))
-    k3_units = ("minimax_step", "minimax_wg_f32_256") + tuple(
+    k3_units = ("minimax_step", "minimax_wg_f32_256",
+                "minimax_wg_tf32_256") + tuple(
         f"minimax_wg_{f}_{n}" for f in ("f32", "tf32", "bf16")
         for n in (64, 128))
     f32, tf32 = args.flavor in ("all", "f32"), args.flavor in ("all", "tf32")

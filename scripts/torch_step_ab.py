@@ -7,10 +7,11 @@ AC-SA at its ``full`` size (N_f = 50,000, 2-128x4-1, the 512x201 grid,
 path (K3 per step) and ``minimax=False`` (K1 + K2 per step), and, where
 the checkout has it, each again under ``fused_dtype="bfloat16"`` and the
 minimax path with ``neural_net(..., precision=None)`` (K3-TF32 per step;
-``minimax-tf32``); ``--paths`` picks some of them, and ``--widths``
-another net for them (``--widths 2,256,256,256,256,1``: the wide path of
-``chip_smoke.py``, where the f32 K3 and K2 take their NP = 256 design;
-default the slice's 2-128x4-1).  Each
+``minimax-tf32``) and its unfused path (K1-TF32 + K2-TF32 per step;
+``unfused-tf32``); ``--paths`` picks some of them, and ``--widths``
+another net for them (``--widths 2,256,256,256,256,1``: the wide paths of
+``chip_smoke.py``, where the f32 and TF32 K3 and K2 take their NP = 256
+design; default the slice's 2-128x4-1).  Each
 solver first takes ``--steps`` Adam steps that hold the graph's warm-ups
 and capture (not timed); then ``--turns`` turns of ``--steps`` more,
 the paths in the order given and back, each turn one ``fit(tf_iter=steps,
@@ -38,7 +39,8 @@ PATHS = (("minimax", None, None, "highest"),
          ("unfused", False, None, "highest"),
          ("minimax-bf16", None, "bfloat16", "highest"),
          ("unfused-bf16", False, "bfloat16", "highest"),
-         ("minimax-tf32", None, None, None))
+         ("minimax-tf32", None, None, None),
+         ("unfused-tf32", False, None, None))
 
 
 def main():

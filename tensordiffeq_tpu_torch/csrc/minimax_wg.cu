@@ -1,8 +1,8 @@
 // The C interface of K3's wgmma route, in its f32 (3xTF32), TF32 and bf16
 // flavors, for one network and for a member axis of M networks
 // (wg_backward.cuh has the kernel and its note, wg_backward_wide.cuh the
-// f32 design at NP = 256; minimax_wg_{f32,tf32,bf16}_{64,128}.cu and
-// minimax_wg_f32_256.cu the instances; its plan is
+// f32 and TF32 design at NP = 256; minimax_wg_{f32,tf32,bf16}_{64,128}.cu
+// and minimax_wg_{f32,tf32}_256.cu the instances; its plan is
 // taylor_bwd_wg.cu's tdq_wb_plan).  Loaded with ctypes; the descriptors and
 // the tape as in minimax_step.cu's C interface, the flavor as
 // taylor_common.cuh's FL_F32 / FL_TF32 / FL_BF16.
@@ -12,7 +12,9 @@ typedef int (*K3wbLaunch)(WB_ARGS);
 
 // The route's launch in a flavor and at a plan, or nullptr.
 static K3wbLaunch k3wb_launch(int flavor, const WbPlan& wp) {
-  if (wp.NP == 256) return flavor == FL_F32 ? k3wb_f32_256 : nullptr;
+  if (wp.NP == 256)
+    return flavor == FL_F32 ? k3wb_f32_256
+                            : (flavor == FL_TF32 ? k3wb_tf32_256 : nullptr);
   if (wp.NP != 64 && wp.NP != 128) return nullptr;
   if (flavor == FL_F32) return wp.NP == 64 ? k3wb_f32_64 : k3wb_f32_128;
   if (flavor == FL_TF32) return wp.NP == 64 ? k3wb_tf32_64 : k3wb_tf32_128;

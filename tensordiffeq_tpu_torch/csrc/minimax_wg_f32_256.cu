@@ -2,4 +2,4 @@
 // (wg_backward_wide.cuh).
 #include "wg_backward_wide.cuh"
 
-WBW_INSTANCES(k3wb_f32_256, true)
+WBW_INSTANCES(k3wb_f32_256, FL_F32, true)

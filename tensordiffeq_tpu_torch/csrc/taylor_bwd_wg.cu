@@ -1,9 +1,10 @@
 // The C interface of K2's wgmma route, in its f32 (3xTF32), TF32 and bf16
 // flavors, and of the route's plan (wg_backward.cuh has the kernels, their
-// note and the plan, wg_backward_wide.cuh the f32 design at NP = 256;
-// taylor_bwd_wg_{f32,tf32,bf16}_{64,128}.cu and taylor_bwd_wg_f32_256.cu
-// the instances).  Loaded with ctypes; the descriptors as in taylor_common.cuh,
-// the flavor as taylor_common.cuh's FL_F32 / FL_TF32 / FL_BF16.
+// note and the plan, wg_backward_wide.cuh the f32 and TF32 design at NP =
+// 256; taylor_bwd_wg_{f32,tf32,bf16}_{64,128}.cu and
+// taylor_bwd_wg_{f32,tf32}_256.cu the instances).  Loaded with ctypes;
+// the descriptors as in taylor_common.cuh, the flavor as
+// taylor_common.cuh's FL_F32 / FL_TF32 / FL_BF16.
 #include "wg_backward.cuh"
 
 // The route's plan (K2's and K3's alike) in a flavor into out[0 ..
@@ -46,7 +47,9 @@ extern "C" int tdq_taylor_bwd_wg(const float* X, const float* prm,
   if (flavor == FL_F32) launch = wp.NP == 64 ? k2wb_f32_64 : k2wb_f32_128;
   if (flavor == FL_TF32) launch = wp.NP == 64 ? k2wb_tf32_64 : k2wb_tf32_128;
   if (flavor == FL_BF16) launch = wp.NP == 64 ? k2wb_bf16_64 : k2wb_bf16_128;
-  if (wp.NP == 256) launch = flavor == FL_F32 ? k2wb_f32_256 : nullptr;
+  if (wp.NP == 256)
+    launch = flavor == FL_F32 ? k2wb_f32_256
+                              : (flavor == FL_TF32 ? k2wb_tf32_256 : nullptr);
   else if (wp.NP != 64 && wp.NP != 128) launch = nullptr;
   if (launch == nullptr) return (int)cudaErrorInvalidValue;
   return launch(X, nullptr, prm, gtab, nullptr, dX, part, ws, grad, N, net,

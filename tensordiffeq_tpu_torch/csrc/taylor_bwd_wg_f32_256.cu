@@ -2,4 +2,4 @@
 // (wg_backward_wide.cuh).
 #include "wg_backward_wide.cuh"
 
-WBW_INSTANCES(k2wb_f32_256, false)
+WBW_INSTANCES(k2wb_f32_256, FL_F32, false)

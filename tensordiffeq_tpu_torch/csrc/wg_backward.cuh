@@ -6,7 +6,7 @@
 // wg_plan in taylor_fwd_wg.cuh), the device code; taylor_bwd_wg.cu and
 // minimax_wg.cu hold the C interfaces, taylor_bwd_wg_{f32,tf32,bf16}_{64,
 // 128}.cu and minimax_wg_{f32,tf32,bf16}_{64,128}.cu the instances.  The
-// f32 flavor's hidden widths 129-256 have a design of their own
+// f32 and TF32 flavors' hidden widths 129-256 have a design of their own
 // (wg_backward_wide.cuh, NP = 256), which wb_plan below also plans.
 //
 // Replaces, for those shapes, the JAX package's ops/pallas_taylor.py::
@@ -241,14 +241,29 @@ static __host__ __device__ __forceinline__ int wb_fixed_bytes(const Net& net,
          2 * WG_MAXS * 8;
 }
 
-// The f32 flavor's design for hidden widths 129 .. 256 (NP = 256,
-// wg_backward_wide.cuh): tiles of 64 rows, each warpgroup 128 columns.
+// The f32 and TF32 flavors' design for hidden widths 129 .. 256 (NP =
+// 256, wg_backward_wide.cuh): tiles of 64 rows, each warpgroup 128 columns.
 #define WBW_ROWS 64    // rows of a tile: both warpgroups' 64 rows
 #define WBW_H 128      // columns a warpgroup holds
-#define WBW_KC 16      // k rows of a weight chunk (hi and lo: 32 KB)
-#define WBW_NCH 16     // chunks of a layer's plane
 #define WBW_HALF 8192  // floats of a warpgroup's half of a 64-row operand
 #define WBW_LDS 132    // floats of a row of dW's staging
+
+// k rows of a weight chunk at NP = 256: 16 in the f32 flavor (the hi and
+// lo planes), 32 in the TF32 flavor (the hi plane alone): 32 KB a stage
+static __host__ __device__ constexpr int wbw_kc(int flavor) {
+  return flavor == FL_F32 ? 16 : 32;
+}
+
+// Stages of the ring at NP = 256: the TF32 flavor leaves the ring's fourth
+// 32 KB to warpgroup 1's parked running sum (WBW_KEEP1, wbw_product)
+static __host__ __device__ constexpr int wbw_maxs(int flavor) {
+  return flavor == FL_TF32 ? 3 : WG_MAXS;
+}
+// the parked sums' byte offsets: warpgroup 0's in the exchange buffer's
+// second 32 KB (the f32 flavor's lo plane), warpgroup 1's past the ring's
+// stages
+#define WBW_KEEP0 32768
+#define WBW_KEEP1 (65536 + wbw_maxs(FL_TF32) * 256 * wbw_kc(FL_TF32) * 4)
 
 // The region the ring shares with dW's operands: the exchange buffer and
 // H^T (64 KB), then dP^T (64 KB) and dW's staging (two warpgroups' 64 rows
@@ -280,25 +295,28 @@ static __host__ __device__ __forceinline__ int wbw_fixed_bytes(
 // FL_BF16) and N on a card with smem_optin bytes of shared memory a block
 // and n_sm SMs; 0 where the shape is the mma.sync route's: K1's route's
 // conditions (wg_plan) and a ring of at least two stages; past 128 wide,
-// the f32 flavor up to 256 (NP = 256: wg_backward_wide.cuh's layout, 64-row
-// tiles, chunks of KC = 16) where its region and the rest fit.
+// the f32 and TF32 flavors up to 256 (NP = 256: wg_backward_wide.cuh's
+// layout, 64-row tiles, chunks of wbw_kc k rows) where its region and the
+// rest fit.
 static inline int wb_plan(const Net& net, const Sched& s, int flavor,
                           int smem_optin, int n_sm, int N, WbPlan* p) {
   const int L = net.L, C = s.C;
   if (flavor != FL_F32 && flavor != FL_TF32 && flavor != FL_BF16) return 0;
   int width = 0;
   for (int l = 0; l + 1 < L; ++l) width = imax(width, net.w_out[l]);
-  if (C > WG_MAXC || width > (flavor == FL_F32 ? 256 : 128) ||
+  if (C > WG_MAXC || width > (flavor == FL_BF16 ? 128 : 256) ||
       net.d > WG_MAXD || net.n_out > WG_MAXOUT)
     return 0;
   int CP = 1;
   while (CP < C) CP *= 2;
   if (width > 128) {
-    const int KC = WBW_KC, stage = 256 * KC * 8, P = 2 * (L - 2) * WBW_NCH;
+    const int KC = wbw_kc(flavor), P = 2 * (L - 2) * (256 / KC);
+    const int stage = 256 * KC * (flavor == FL_F32 ? 8 : 4);
     const int fixed = wbw_fixed_bytes(net);
     int S = 0;
     if (P > 0) {
-      S = imin(imin(P, (smem_optin - fixed - 65536) / stage), WG_MAXS);
+      S = imin(imin(P, (smem_optin - fixed - 65536) / stage),
+               wbw_maxs(flavor));
       if (S < 2) return 0;
     }
     const int smem = wbw_region_bytes(S, stage) + fixed;
@@ -2056,3 +2074,5 @@ int k3wb_bf16_64(WB_ARGS);
 int k3wb_bf16_128(WB_ARGS);
 int k2wb_f32_256(WB_ARGS);  // wg_backward_wide.cuh's design
 int k3wb_f32_256(WB_ARGS);
+int k2wb_tf32_256(WB_ARGS);
+int k3wb_tf32_256(WB_ARGS);

@@ -1,14 +1,15 @@
-// The f32 (3xTF32) K2 and K3 of the wgmma route for hidden widths 129 ..
-// 256 (NP = 256): the device code.  taylor_bwd_wg_f32_256.cu and
-// minimax_wg_f32_256.cu build the instances; taylor_bwd_wg.cu and
-// minimax_wg.cu hold the C interfaces, wb_plan (wg_backward.cuh) the plan,
-// and the route chooses this design by shape there, as it chooses
-// wg_backward.cuh's NP = 64 and 128 instances.  It computes what those
-// compute (K2 dW/db and dX from the table cotangents; K3 the value, dW/db,
-// gw and gX through the residual tape, over a member axis), into the same
-// partial slots, which reduce_partials and reduce_member_partials sum in
-// slot order after it.  The TF32 and bf16 flavors past 128, widths over
-// 256, C > 8 and d or n_out > 16 stay on the mma.sync kernels.
+// The f32 (3xTF32) and TF32 (one pass) K2 and K3 of the wgmma route for
+// hidden widths 129 .. 256 (NP = 256): the device code.
+// {taylor_bwd,minimax}_wg_{f32,tf32}_256.cu build the instances;
+// taylor_bwd_wg.cu and minimax_wg.cu hold the C interfaces, wb_plan
+// (wg_backward.cuh) the plan, and the route chooses this design by shape
+// there, as it chooses wg_backward.cuh's NP = 64 and 128 instances.  It
+// computes what those compute (K2 dW/db and dX from the table cotangents;
+// K3 the value, dW/db, gw and gX through the residual tape, over a member
+// axis), into the same partial slots, which reduce_partials and
+// reduce_member_partials sum in slot order after it.  The bf16 flavor past
+// 128, widths over 256, C > 8 and d or n_out > 16 stay on the mma.sync
+// kernels.
 //
 // Replaces, at these shapes, the JAX package's ops/pallas_taylor.py::
 // bwd_kernel (pallas_call at :171) and ops/pallas_minimax.py::
@@ -76,6 +77,29 @@
 //   * the head's narrow product, its cotangent products, layer 0, the bias
 //     sums and K3's tape epilogue stay SIMT, as at NP = 128; the head's
 //     row sums take each warpgroup's half and add the two in order.
+// The TF32 flavor (FL_TF32, the network's precision=None: one TF32 pass a
+// product) keeps this layout and changes what the f32 flavor splits:
+//   * every operand that reaches wgmma is rounded to nearest (cvt.rna, as
+//     taylor_derivatives(emulate_tf32=True) rounds it; the tensor cores
+//     would truncate) where it is written or packed: the own half's A
+//     fragments in registers (tf32_bits), the exchange buffer, H^T, dP^T
+//     and the weight planes; so are the SIMT products' operands, as the
+//     NP = 128 TF32 flavor rounds them (X, W_0, the head's input and W,
+//     the head's cotangents; dP_0 read from its rounded dP^T).
+//   * the exchange buffer holds the hi plane alone (32 KB), a chunk is 32
+//     k rows of the hi plane (32 KB a stage), and a product takes each
+//     chunk's four k steps in one batch (wbw_chunk1).
+//   * every product sums each chunk (32 k rows) in the accumulator afresh
+//     and adds the chunks on the CUDA cores, rounded to nearest
+//     (wbw_chunk_sum), as the mma.sync kernels add each k step: 32 k steps
+//     into one accumulator, each rounded into it toward zero, put K3's gX
+//     outside phase 16's max band on a card test (and each half of K
+//     apart did not bring it back; PERF.md).  The running sum is parked
+//     in shared memory: warpgroup 0's in the exchange buffer's unused 32
+//     KB, warpgroup 1's past the ring's three stages (wbw_maxs).
+//   * dW is one pass a block with A loaded from H^T as its bits and B the
+//     rounded dP^T half (wbw_dw_pass1), all eight k steps in one batch:
+//     no lo parts, so dP^T keeps one form and no pass parity is run.
 // Shared memory at 2-256x4-1, C = 4, n_out = 1 (wb_plan):
 //   U, 198,656 bytes: [0, 64K) the exchange buffer (forward and dH), H^T
 //   (dW, the head), layer 0's dP^T; [64K, 128K) dP^T, then dW's staging
@@ -85,10 +109,15 @@
 //   bias partials: 4,096), X's rows (512), the small operands (7,232), the
 //   value's warp sums (32), the work item (64), the mbarriers (128):
 //   210,720 bytes of the H100's 232,448.
-// Registers: the forward holds the input, its sum, a 32-row accumulator
-// and a chunk's A fragments (64 + 64 + 64 + 16); dW the cotangent, the
-// block's accumulator and four k steps' A fragments (64 + 64 + 32);
-// ptxas's count is in PERF.md (scripts/torch_ptxas_report.py).
+// Registers: the f32 forward holds the input, its sum, a 32-row
+// accumulator and a chunk's A fragments (64 + 64 + 64 + 16); dW the
+// cotangent, the block's accumulator and four k steps' A fragments (64 +
+// 64 + 32).  The TF32 flavor: the forward 64 + 64 + 16, dW 64 + 64 + 32
+// (eight k steps of one plane).  ptxas's counts are in PERF.md
+// (scripts/torch_ptxas_report.py).  In TF32 the same shared memory: the
+// ring's three stages of 32 KB (chunks of KC = 32) at [64K, 160K) and
+// warpgroup 1's parked sum at [160K, 192K), both over dP^T and dW's
+// staging.
 
 #pragma once
 
@@ -109,7 +138,8 @@ struct WbwItem {
 static_assert(sizeof(WbwItem) <= 4 * WB_ITEM_FLOATS, "WbwItem's bytes");
 
 // The ring: chunk i in stage i % S; a tile's P chunks are its F forward
-// ones, then its layers' dH runs of WBW_NCH, the last layer first.
+// ones, then its layers' dH runs of 256 / wbw_kc chunks, the last layer
+// first.
 struct WbwRing {
   char* stages;
   uint64_t* full;
@@ -148,9 +178,10 @@ static __device__ __forceinline__ void wbw_release(const WbwRing& r,
 // Thread 0, after the block's barrier that ends dW: open the dH run that
 // starts at chunk rs, filling its first S chunks (every chunk before it
 // is released).
+template <int FL>
 static __device__ __forceinline__ void wbw_open(const WbwRing& r,
                                                 long long rs) {
-  r.it->open_end = rs + WBW_NCH;
+  r.it->open_end = rs + 256 / wbw_kc(FL);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   for (long long j = rs; j < rs + r.S && j < r.it->total; ++j) {
     const long long i = j - r.S;
@@ -168,7 +199,9 @@ static __device__ __forceinline__ void wbw_fence_async() {
 // warpgroup's products: K-major (row along M, column along K, 128 of
 // them), each k8 step's columns in wg_kslot's order (slot t column 2t,
 // slot t + 4 column 2t + 1, as the weight planes' k rows lie), split_tf32's
-// hi plane at xb, its lo plane WBW_HALF floats after it.
+// hi plane at xb, its lo plane WBW_HALF floats after it (FL_F32), or the
+// value rounded to TF32 alone (FL_TF32).
+template <int FL>
 static __device__ __forceinline__ void wbw_put_rows(const float (&a)[64],
                                                     float* xb, int row0,
                                                     int t) {
@@ -176,11 +209,15 @@ static __device__ __forceinline__ void wbw_put_rows(const float (&a)[64],
   for (int i = 0; i < 64; ++i) {
     const int r = row0 + ((i & 2) ? 8 : 0);
     const int k = 8 * (i >> 2) + ((i & 1) ? t + 4 : t);
-    unsigned hi, lo;
-    split_tf32(a[i], hi, lo);
     const int o = wg_cm_offset(r, k, WBW_H, 4);
-    xb[o] = __uint_as_float(hi);
-    xb[WBW_HALF + o] = __uint_as_float(lo);
+    if constexpr (FL == FL_TF32) {
+      xb[o] = tf32r(a[i]);
+    } else {
+      unsigned hi, lo;
+      split_tf32(a[i], hi, lo);
+      xb[o] = __uint_as_float(hi);
+      xb[WBW_HALF + o] = __uint_as_float(lo);
+    }
   }
 }
 
@@ -195,13 +232,14 @@ static __device__ __forceinline__ void wbw_chunk3(float (&d)[64],
                                                   const float (&h)[64],
                                                   int j0, unsigned xa,
                                                   unsigned bh, bool first) {
-  constexpr unsigned bsbo = (WBW_KC / 4) * 128, asbo = (WBW_H / 4) * 128;
-  const unsigned bl = bh + 256 * WBW_KC * 4;
+  constexpr int KC = wbw_kc(FL_F32);
+  constexpr unsigned bsbo = (KC / 4) * 128, asbo = (WBW_H / 4) * 128;
+  const unsigned bl = bh + 256 * KC * 4;
   if constexpr (XS) {
     const unsigned al = xa + WBW_HALF * 4;
     wg_fence();
 #pragma unroll
-    for (int s = 0; s < WBW_KC / 8; ++s) {
+    for (int s = 0; s < KC / 8; ++s) {
       const unsigned ko = 256 * (j0 + s);
       WgMmaSS<128>::run(d, wg_desc(al + ko, 128, asbo),
                         wg_desc(bh + 256 * s, 128, bsbo),
@@ -210,13 +248,13 @@ static __device__ __forceinline__ void wbw_chunk3(float (&d)[64],
                         wg_desc(bl + 256 * s, 128, bsbo), 1);
     }
 #pragma unroll
-    for (int s = 0; s < WBW_KC / 8; ++s)
+    for (int s = 0; s < KC / 8; ++s)
       WgMmaSS<128>::run(d, wg_desc(xa + 256 * (j0 + s), 128, asbo),
                         wg_desc(bh + 256 * s, 128, bsbo), 1);
     wg_commit();
     wg_wait_all();
   } else {
-    constexpr int S8 = WBW_KC / 8;
+    constexpr int S8 = KC / 8;
     unsigned ahi[S8][4], alo[S8][4];
 #pragma unroll
     for (int s = 0; s < S8; ++s) {
@@ -249,30 +287,108 @@ static __device__ __forceinline__ void wbw_chunk3(float (&d)[64],
   for (int i = 0; i < 64; ++i) wg_keep(d[i]);
 }
 
-// A product over K = 256 through the ring's next WBW_NCH chunks: out =
-// in_full W, the warpgroup's 128 output columns.  in is the warpgroup's
-// half of the input (the accumulator layout); the chunks' k rows 0 .. 127
-// are warpgroup 0's half, 128 .. 255 warpgroup 1's.  Warpgroup 0 writes
-// its half to the exchange buffer xb first; for the first eight chunks it
-// takes A from its registers and warpgroup 1 from xb; then warpgroup 1
-// writes its half over it, and the roles turn.  FWD: each two chunks (32 k
-// rows) into an accumulator of its own, the sums added into out rounded to
-// nearest (out starts at zero); else (dH) one accumulator.
-template <bool FWD>
+// One TF32 weight chunk's products into d afresh, issued and waited for:
+// one pass a k step, its KC / 8 k steps in one batch.  B: the
+// warpgroup's 128 rows of the chunk's hi plane at bh.  A: XS false, the k
+// steps j0 .. of the warpgroup's own half h, rounded to TF32 as they are
+// packed (wg_chunk<FL_TF32>'s order); XS true, the k steps j0 .. of the
+// exchange buffer at xa (wbw_put_rows<FL_TF32>).
+template <bool XS>
+static __device__ __forceinline__ void wbw_chunk1(float (&d)[64],
+                                                  const float (&h)[64],
+                                                  int j0, unsigned xa,
+                                                  unsigned bh) {
+  constexpr int KC = wbw_kc(FL_TF32), S8 = KC / 8;
+  constexpr unsigned bsbo = (KC / 4) * 128, asbo = (WBW_H / 4) * 128;
+  if constexpr (XS) {
+    wg_fence();
+#pragma unroll
+    for (int s = 0; s < S8; ++s)
+      WgMmaSS<128>::run(d, wg_desc(xa + 256 * (j0 + s), 128, asbo),
+                        wg_desc(bh + 256 * s, 128, bsbo), s == 0 ? 0 : 1);
+    wg_commit();
+    wg_wait_all();
+  } else {
+    unsigned a[S8][4];
+#pragma unroll
+    for (int s = 0; s < S8; ++s) {
+      const int j = j0 + s;
+      a[s][0] = tf32_bits(h[4 * j]);
+      a[s][1] = tf32_bits(h[4 * j + 2]);
+      a[s][2] = tf32_bits(h[4 * j + 1]);
+      a[s][3] = tf32_bits(h[4 * j + 3]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int s = 0; s < S8; ++s)
+      WgMma<false, 128>::run(d, a[s], wg_desc(bh + 256 * s, 128, bsbo),
+                             s == 0 ? 0 : 1);
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int s = 0; s < S8; ++s)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) wg_keep(a[s][q]);
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) wg_keep(d[i]);
+}
+
+// The TF32 flavor's running sum of a product's chunks (wbw_product) in
+// shared memory (keep: the thread's 64 values, 128 floats apart): chunk
+// c's sum d stored (c = 0) or added to it on the CUDA cores, rounded to
+// nearest.
+static __device__ __forceinline__ void wbw_chunk_sum(const float (&d)[64],
+                                                     float* keep, int c) {
+  if (c == 0) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) keep[128 * i] = d[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) keep[128 * i] += d[i];
+  }
+}
+
+// A product over K = 256 through the ring's next 256 / wbw_kc(FL) chunks:
+// out = in_full W, the warpgroup's 128 output columns.  in is the
+// warpgroup's half of the input (the accumulator layout); the chunks' k
+// rows 0 .. 127 are warpgroup 0's half, 128 .. 255 warpgroup 1's.
+// Warpgroup 0 writes its half to the exchange buffer xb first; for the
+// first half of the chunks it takes A from its registers and warpgroup 1
+// from xb; then warpgroup 1 writes its half over it, and the roles turn.
+// The f32 flavor's FWD: each two chunks (32 k rows) into an accumulator of
+// its own, the sums added into out rounded to nearest (out starts at
+// zero); its dH one accumulator.  The TF32 flavor: each chunk (32 k rows,
+// four k steps) into the accumulator afresh and the chunks' sums added in
+// order on the CUDA cores (wbw_chunk_sum, the running sum parked in shared
+// memory at WBW_KEEP0 / WBW_KEEP1, read back into out at the end): the
+// tensor cores round each k step's sum into
+// the accumulator toward zero, and 32 steps into one accumulator drifted
+// the products, and the operands rounded after them, away from the
+// referee's (PERF.md).
+template <int FL, bool FWD>
 static __device__ __forceinline__ void wbw_product(float (&out)[64],
                                                    const float (&in)[64],
                                                    int wg, int row0, int t,
                                                    int lane, float* xb,
                                                    const WbwRing& r,
                                                    long long& chunk) {
+  constexpr int KC = wbw_kc(FL), NH = 128 / KC;  // chunks of a half
+  constexpr bool SPLIT = FWD && FL == FL_F32;
+  constexpr unsigned wgb = (WBW_H / 8) * (KC / 4) * 128;  // a half's rows
   const unsigned xa = smem_addr(xb);
-  float part[FWD ? 64 : 1];
-  if constexpr (FWD) {
+  float part[SPLIT ? 64 : 1];
+  float* keep = nullptr;  // TF32: this thread's running sum
+  if constexpr (FL == FL_TF32)
+    keep = reinterpret_cast<float*>(reinterpret_cast<char*>(xb) +
+                                    (wg == 0 ? WBW_KEEP0 : WBW_KEEP1)) +
+           (threadIdx.x & 127);
+  if constexpr (SPLIT) {
 #pragma unroll
     for (int i = 0; i < 64; ++i) out[i] = 0.f;
   }
   if (wg == 0) {
-    wbw_put_rows(in, xb, row0, t);
+    wbw_put_rows<FL>(in, xb, row0, t);
     wbw_fence_async();
   }
   wb_sync_all();
@@ -281,57 +397,66 @@ static __device__ __forceinline__ void wbw_product(float (&out)[64],
     if (half == 1) {
       if (wg == 1) {
         wb_sync_wg(1);  // its reads of warpgroup 0's half are done
-        wbw_put_rows(in, xb, row0, t);
+        wbw_put_rows<FL>(in, xb, row0, t);
         wbw_fence_async();
       }
       wb_sync_all();
     }
     if (half == wg) {
 #pragma unroll
-      for (int hl = 0; hl < WBW_NCH / 2; ++hl) {
-        const unsigned bh = wb_acquire(r, chunk) + wg * (WBW_H / 8) *
-                                                       (WBW_KC / 4) * 128;
-        if constexpr (FWD) {
+      for (int hl = 0; hl < NH; ++hl) {
+        const unsigned bh = wb_acquire(r, chunk) + wg * wgb;
+        if constexpr (SPLIT) {
           wbw_chunk3<false>(part, in, 2 * hl, 0, bh, (hl & 1) == 0);
           if (hl & 1) {
 #pragma unroll
             for (int i = 0; i < 64; ++i) out[i] += part[i];
           }
-        } else {
+        } else if constexpr (FL == FL_F32) {
           wbw_chunk3<false>(out, in, 2 * hl, 0, bh, half == 0 && hl == 0);
+        } else {
+          wbw_chunk1<false>(out, in, (KC / 8) * hl, 0, bh);
+          wbw_chunk_sum(out, keep, half * NH + hl);
         }
         wbw_release(r, chunk, lane);
         ++chunk;
       }
     } else {
 #pragma unroll 1
-      for (int hl = 0; hl < WBW_NCH / 2; ++hl) {
-        const unsigned bh = wb_acquire(r, chunk) + wg * (WBW_H / 8) *
-                                                       (WBW_KC / 4) * 128;
-        if constexpr (FWD) {
+      for (int hl = 0; hl < NH; ++hl) {
+        const unsigned bh = wb_acquire(r, chunk) + wg * wgb;
+        if constexpr (SPLIT) {
           wbw_chunk3<true>(part, in, 2 * hl, xa, bh, (hl & 1) == 0);
           if (hl & 1) {
 #pragma unroll
             for (int i = 0; i < 64; ++i) out[i] += part[i];
           }
-        } else {
+        } else if constexpr (FL == FL_F32) {
           wbw_chunk3<true>(out, in, 2 * hl, xa, bh, half == 0 && hl == 0);
+        } else {
+          wbw_chunk1<true>(out, in, (KC / 8) * hl, xa, bh);
+          wbw_chunk_sum(out, keep, half * NH + hl);
         }
         wbw_release(r, chunk, lane);
         ++chunk;
       }
     }
   }
+  if constexpr (FL == FL_TF32) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) out[i] = keep[128 * i];
+  }
 }
 
 // Hidden layer l's forward product in place: acc (the warpgroup's half of
 // the layer's input) becomes its half of H W_l + b_l (the bias on primal
 // rows; sB's rows 256 wide).
+template <int FL>
 static __device__ __forceinline__ void wbw_products(
     float (&acc)[64], const float* sB, int l, int c, int wg, int row0,
     int t, int lane, float* xb, const WbwRing& r, long long& chunk) {
   float nacc[64];
-  wbw_product<true>(nacc, acc, wg, row0, t, lane, xb, r, chunk);
+  wbw_product<FL, true>(nacc, acc, wg, row0, t, lane, xb, r, chunk);
   const float* b = sB + l * 256 + WBW_H * wg;
 #pragma unroll
   for (int i = 0; i < 64; ++i)
@@ -340,12 +465,13 @@ static __device__ __forceinline__ void wbw_products(
 
 // dH_l = dP_l W_l^T: dh (the warpgroup's half of dP_l) becomes its half of
 // the next cotangent.
+template <int FL>
 static __device__ __forceinline__ void wbw_dh(float (&dh)[64], int wg,
                                               int row0, int t, int lane,
                                               float* xb, const WbwRing& r,
                                               long long& chunk) {
   float nh[64];
-  wbw_product<false>(nh, dh, wg, row0, t, lane, xb, r, chunk);
+  wbw_product<FL, false>(nh, dh, wg, row0, t, lane, xb, r, chunk);
 #pragma unroll
   for (int i = 0; i < 64; ++i) dh[i] = nh[i];
 }
@@ -363,26 +489,50 @@ static __device__ __forceinline__ int wbw_ht_offset(int f, int r) {
 }
 
 // The lane's two tile rows of its warpgroup's features (the accumulator
-// layout) into H^T (wbw_ht_offset).
+// layout) into H^T (wbw_ht_offset), as the flavor's operands (opnd: f32,
+// or rounded to TF32).
+template <int FL>
 static __device__ __forceinline__ void wbw_put_ht(const float (&a)[64],
                                                   float* ht, int wg,
                                                   int row0, int t) {
 #pragma unroll
   for (int i = 0; i < 64; ++i)
     ht[wbw_ht_offset(WBW_H * wg + acc_col(i, t), row0 + ((i & 2) ? 8 : 0))] =
-        a[i];
+        opnd<FL>(a[i]);
 }
 
 // The lane's two tile rows of its warpgroup's columns into its half of
 // dP^T, K-major for wgmma's B (feature n's 64 rows at wg_cm_offset(n, r,
-// 64, 4)), as f32 values.
+// 64, 4)), as f32 values (FL_F32) or rounded to TF32 (FL_TF32).
+template <int FL>
 static __device__ __forceinline__ void wbw_put_pt(const float (&a)[64],
                                                   float* pt, int row0,
                                                   int t) {
 #pragma unroll
   for (int i = 0; i < 64; ++i)
     pt[wg_cm_offset(acc_col(i, t), row0 + ((i & 2) ? 8 : 0), WBW_ROWS, 4)] =
-        a[i];
+        opnd<FL>(a[i]);
+}
+
+// H^T's values of dW's A fragments for two k8 steps of one 64-feature
+// block: the lane's features fa and fb = fa + 8 at the tile rows r, r +
+// 4, r + 8, r + 12 (two float4 loads); x[v] is k step v's fragment (rows
+// r (slot t), r + 4 (slot t + 4); step 1: + 8).
+static __device__ __forceinline__ void wbw_a_pair(float (&x)[2][4],
+                                                  const float* ht, int fa,
+                                                  int fb, int r) {
+  const float4 va =
+      *reinterpret_cast<const float4*>(ht + (wbw_ht_offset(fa, r) & ~3));
+  const float4 vb =
+      *reinterpret_cast<const float4*>(ht + (wbw_ht_offset(fb, r) & ~3));
+  x[0][0] = va.x;
+  x[0][1] = vb.x;
+  x[0][2] = va.y;
+  x[0][3] = vb.y;
+  x[1][0] = va.z;
+  x[1][1] = vb.z;
+  x[1][2] = va.w;
+  x[1][3] = vb.w;
 }
 
 // dW's A fragments of one 64-feature block (features f0 ..), k8 steps 4 b
@@ -396,20 +546,49 @@ static __device__ __forceinline__ void wbw_load_a(unsigned (&ahi)[4][4],
   const int fa = f0 + 16 * wq + g, fb = fa + 8;
 #pragma unroll
   for (int u = 0; u < 2; ++u) {
-    const int r = 16 * (2 * b + u) + t;  // rows r, r+4, r+8, r+12
-    const float4 va =
-        *reinterpret_cast<const float4*>(ht + (wbw_ht_offset(fa, r) & ~3));
-    const float4 vb =
-        *reinterpret_cast<const float4*>(ht + (wbw_ht_offset(fb, r) & ~3));
-    // k step 2 u: rows t (slot t), t + 4 (slot t + 4); step 2 u + 1: +8
-    const float x[2][4] = {{va.x, vb.x, va.y, vb.y},
-                           {va.z, vb.z, va.w, vb.w}};
+    float x[2][4];
+    wbw_a_pair(x, ht, fa, fb, 16 * (2 * b + u) + t);
 #pragma unroll
     for (int v = 0; v < 2; ++v)
 #pragma unroll
       for (int q = 0; q < 4; ++q)
         split_tf32(x[v][q], ahi[2 * u + v][q], alo[2 * u + v][q]);
   }
+}
+
+// One block of dW in the TF32 flavor (64 features f0 .., the tile's eight
+// k8 steps) into d afresh: one pass, A H^T's rounded values as their bits
+// (all eight k steps' fragments loaded at once), B the warpgroup's rounded
+// dP^T half at pb; issued and waited for.
+static __device__ __forceinline__ void wbw_dw_pass1(float (&d)[64],
+                                                    const float* ht, int f0,
+                                                    int wq, int g, int t,
+                                                    unsigned pb) {
+  constexpr unsigned sbo = (WBW_ROWS / 4) * 128;
+  const int fa = f0 + 16 * wq + g, fb = fa + 8;
+  unsigned a[8][4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    float x[2][4];
+    wbw_a_pair(x, ht, fa, fb, 16 * u + t);
+#pragma unroll
+    for (int v = 0; v < 2; ++v)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) a[2 * u + v][q] = __float_as_uint(x[v][q]);
+  }
+  wg_fence();
+#pragma unroll
+  for (int s = 0; s < 8; ++s)
+    WgMma<false, 128>::run(d, a[s], wg_desc(pb + 256 * s, 128, sbo),
+                           s == 0 ? 0 : 1);
+  wg_commit();
+  wg_wait_all();
+#pragma unroll
+  for (int s = 0; s < 8; ++s)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) wg_keep(a[s][q]);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) wg_keep(d[i]);
 }
 
 // One block's passes (64 features f0 .., the tile's eight k8 steps) into
@@ -501,8 +680,10 @@ static __device__ __forceinline__ void wbw_dw_stage(
 // dW_l = H_l^T dP_l over the tile's 64 rows, the warpgroup's 128 columns,
 // in four blocks of 64 features (the header's note), up to the layer's Ni
 // rows, each staged and added into the slot (wbw_dw_stage).  pt: the
-// warpgroup's dP^T half, which holds dP_l's f32 values on entry (nothing
-// reads it after); dp: the lane's rows of dP_l.
+// warpgroup's dP^T half, which holds dP_l's f32 values on entry (the f32
+// flavor changes their form; nothing reads it after), or their TF32
+// roundings (the TF32 flavor's one pass); dp: the lane's rows of dP_l.
+template <int FL>
 static __device__ __forceinline__ void wbw_dw(
     const float* ht, float* pt, float* stg, const float (&dp)[64],
     float* __restrict__ slot, int Ni, int Nn, bool first, int bulk,
@@ -511,15 +692,19 @@ static __device__ __forceinline__ void wbw_dw(
 #pragma unroll 1
   for (int m = 0; m < 4; ++m) {
     if (64 * m >= Ni) break;  // the block's features are all past the layer
-    const bool even = (m & 1) == 0;
     float d[64];
-    wbw_dw_passes<true>(d, ht, 64 * m, wq, g, t, pb, even);
-    wb_sync_wg(wg);
-    if (even) wb_lo_in_place(pt, WBW_HALF, wt, 128);
-    else wbw_put_pt(dp, pt, row0, t);
-    wbw_fence_async();
-    wb_sync_wg(wg);
-    wbw_dw_passes<false>(d, ht, 64 * m, wq, g, t, pb, even);
+    if constexpr (FL == FL_TF32) {
+      wbw_dw_pass1(d, ht, 64 * m, wq, g, t, pb);
+    } else {
+      const bool even = (m & 1) == 0;
+      wbw_dw_passes<true>(d, ht, 64 * m, wq, g, t, pb, even);
+      wb_sync_wg(wg);
+      if (even) wb_lo_in_place(pt, WBW_HALF, wt, 128);
+      else wbw_put_pt<FL>(dp, pt, row0, t);
+      wbw_fence_async();
+      wb_sync_wg(wg);
+      wbw_dw_passes<false>(d, ht, 64 * m, wq, g, t, pb, even);
+    }
     wbw_dw_stage(d, stg, slot, m, Ni, Nn, first, bulk, behind, wg, wt, wq,
                  g, t);
   }
@@ -550,7 +735,9 @@ static __device__ __forceinline__ void wbw_bias(const float* sDb, int w,
 }
 
 // Layer 0's pre-activations of the lane's two rows (wb_layer0) for the
-// warpgroup's columns: sW0 and sB rows are 256 wide.
+// warpgroup's columns: sW0 and sB rows are 256 wide; X's rows rounded as
+// the flavor's operands (opnd).
+template <int FL>
 static __device__ __forceinline__ void wbw_layer0(const float* sx, int d,
                                                   int pl0, int pl1, int ord,
                                                   int dir, int t, int wg,
@@ -561,7 +748,8 @@ static __device__ __forceinline__ void wbw_layer0(const float* sx, int d,
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
   for (int k = 0; k < d; ++k) {
-    const float x0 = sx[pl0 * d + k], x1 = sx[pl1 * d + k];
+    const float x0 = opnd<FL>(sx[pl0 * d + k]),
+                x1 = opnd<FL>(sx[pl1 * d + k]);
     const float* w = sW0 + k * 256 + c0;
 #pragma unroll
     for (int i = 0; i < 64; ++i)
@@ -576,10 +764,10 @@ static __device__ __forceinline__ void wbw_layer0(const float* sx, int d,
 }
 
 // The head's table rows T[row][o] (K3): each warpgroup's dot products over
-// its 128 columns (k1w_head's order) into Tp[wg], then, after the block's
-// barrier, T = Tp[0] + Tp[1] (+ the bias on primal rows), a row element a
-// thread.
-template <int CP>
+// its 128 columns (k1w_head's order; its input acc rounded as the flavor's
+// operands) into Tp[wg], then, after the block's barrier, T = Tp[0] +
+// Tp[1] (+ the bias on primal rows), a row element a thread.
+template <int FL, int CP>
 static __device__ __forceinline__ void wbw_head(const float (&acc)[64],
                                                 float* T, int n_out, int t,
                                                 int wg, int row0, int ctid,
@@ -592,10 +780,10 @@ static __device__ __forceinline__ void wbw_head(const float (&acc)[64],
     for (int j = 0; j < 16; ++j) {
       const int col = WBW_H * wg + 8 * j + 2 * t;
       const float w0 = sWh[col * n_out + o], w1 = sWh[(col + 1) * n_out + o];
-      s0 = fmaf(acc[4 * j], w0, s0);
-      s0 = fmaf(acc[4 * j + 1], w1, s0);
-      s1 = fmaf(acc[4 * j + 2], w0, s1);
-      s1 = fmaf(acc[4 * j + 3], w1, s1);
+      s0 = fmaf(opnd<FL>(acc[4 * j]), w0, s0);
+      s0 = fmaf(opnd<FL>(acc[4 * j + 1]), w1, s0);
+      s1 = fmaf(opnd<FL>(acc[4 * j + 2]), w0, s1);
+      s1 = fmaf(opnd<FL>(acc[4 * j + 3]), w1, s1);
     }
     s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
     s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
@@ -616,11 +804,12 @@ static __device__ __forceinline__ void wbw_head(const float (&acc)[64],
 }
 
 // The head's cotangent products from T (its pre-activation cotangents, 64
-// rows x n_out) and H^T (its input, wbw_ht_offset): db and dW into the
-// slot, one output element a thread, summed over the tile's rows in order;
-// dH, the cotangent of the last hidden layer's post-activations, into the
-// lane's registers for the warpgroup's columns.
-template <int CP>
+// rows x n_out; rounded as the flavor's cotangent operands, gopnd) and H^T
+// (its input, wbw_ht_offset): db and dW into the slot, one output element
+// a thread, summed over the tile's rows in order; dH, the cotangent of the
+// last hidden layer's post-activations, into the lane's registers for the
+// warpgroup's columns.
+template <int FL, int CP>
 static __device__ __forceinline__ void wbw_head_bwd(
     float (&dh)[64], const float* T, const float* ht, const float* sWh,
     int n_out, int wl, float* __restrict__ pW, float* __restrict__ pb,
@@ -635,14 +824,14 @@ static __device__ __forceinline__ void wbw_head_bwd(
     const int i = e / n_out, o = e % n_out;
     float v = 0.f;
     for (int r = 0; r < WBW_ROWS; ++r)
-      v = fmaf(ht[wbw_ht_offset(i, r)], T[r * n_out + o], v);
+      v = fmaf(ht[wbw_ht_offset(i, r)], gopnd<FL>(T[r * n_out + o]), v);
     slot_rmw(pW + e, v, first);
   }
 #pragma unroll
   for (int i = 0; i < 64; ++i) dh[i] = 0.f;
   for (int o = 0; o < n_out; ++o) {
-    const float a0 = T[row0 * n_out + o];
-    const float a1 = T[(row0 + 8) * n_out + o];
+    const float a0 = gopnd<FL>(T[row0 * n_out + o]);
+    const float a1 = gopnd<FL>(T[(row0 + 8) * n_out + o]);
 #pragma unroll
     for (int i = 0; i < 64; ++i)
       dh[i] = fmaf((i & 2) ? a1 : a0,
@@ -657,9 +846,10 @@ static __device__ __forceinline__ float wbw_p0(const float* p0, int j,
 }
 
 // Layer 0's weight and input cotangents from dP_0 (p0, wbw_put_pt's
-// halves) and the tile's rows of X: wb_layer0_bwd's sums, one output
-// element a thread.  dX = the sum (K2), or += it (K3).
-template <int CP, bool K3>
+// halves, the flavor's operands) and the tile's rows of X (rounded here as
+// the flavor's operands): wb_layer0_bwd's sums, one output element a
+// thread.  dX = the sum (K2), or += it (K3).
+template <int FL, int CP, bool K3>
 static __device__ __forceinline__ void wbw_layer0_bwd(
     const float* p0, const float* sx, const float* sW0,
     float* __restrict__ dX, float* __restrict__ pW, int N, int pt0, int d,
@@ -669,7 +859,7 @@ static __device__ __forceinline__ void wbw_layer0_bwd(
     const int k = e / w0, j = e % w0;
     float v = 0.f;
     for (int p = 0; p < TP; ++p)
-      v = fmaf(sx[p * d + k], wbw_p0(p0, j, p * CP), v);
+      v = fmaf(opnd<FL>(sx[p * d + k]), wbw_p0(p0, j, p * CP), v);
     for (int cc = 1; cc < s.C; ++cc) {
       if (s.order[cc] != 1 || s.idx[cc][0] != k) continue;
       for (int p = 0; p < TP; ++p) v += wbw_p0(p0, j, p * CP + cc);
@@ -687,12 +877,13 @@ static __device__ __forceinline__ void wbw_layer0_bwd(
   }
 }
 
-// The wide route's body, K2 (the table cotangents gtab in, dX out) or K3
-// (the tape's epilogue on the head's rows; w in, gw and gX = dX out) over
-// a member axis of M networks (K2: M = 1), with wb_body_k3's walk of the
-// work items (m, b): block k the items k, k + gridDim.x, ..., item (m, b)
-// member m's tiles b, b + G, ... into its slot m*G + b.
-template <bool K3, int CP>
+// The wide route's body in flavor FL (FL_F32 or FL_TF32), K2 (the table
+// cotangents gtab in, dX out) or K3 (the tape's epilogue on the head's
+// rows; w in, gw and gX = dX out) over a member axis of M networks (K2: M
+// = 1), with wb_body_k3's walk of the work items (m, b): block k the items
+// k, k + gridDim.x, ..., item (m, b) member m's tiles b, b + G, ... into
+// its slot m*G + b.
+template <int FL, bool K3, int CP>
 static __device__ __forceinline__ void wbw_body(
     const float* __restrict__ X, const float* __restrict__ w,
     const float* __restrict__ prm, const float* __restrict__ gtab,
@@ -737,7 +928,7 @@ static __device__ __forceinline__ void wbw_body(
   const int lane = threadIdx.x & 31;
   const size_t slice = (size_t)WBW_ROWS * 256;
   const WbwRing ring{stages, full, empty, wp.S, wp.P, wp.stage_bytes,
-                     (L - 2) * WBW_NCH, it};
+                     (L - 2) * (256 / wbw_kc(FL)), it};
   const int ctid = threadIdx.x, wg = warp >> 2, wq = warp & 3;
   const int g = lane >> 2, t = lane & 3, wt = ctid & 127;
   const int c = g % CP;
@@ -778,18 +969,19 @@ static __device__ __forceinline__ void wbw_body(
                                               G) * wp.P
                                 : 0);
       }
-      {  // the member's small operands, 256-wide rows
+      {  // the member's small operands, 256-wide rows (the weights
+         // rounded as the flavor's operands)
         const float* pm = prm + (size_t)(j / G) * net.P_total;
         for (int e = threadIdx.x; e < d * 256; e += WB_THREADS) {
           const int k = e / 256, n = e % 256;
-          sW0[e] = n < w0 ? pm[net.offW[0] + k * w0 + n] : 0.f;
+          sW0[e] = n < w0 ? opnd<FL>(pm[net.offW[0] + k * w0 + n]) : 0.f;
         }
         for (int e = threadIdx.x; e < (L - 1) * 256; e += WB_THREADS) {
           const int l = e / 256, n = e % 256;
           sB[e] = n < net.w_out[l] ? pm[net.offb[l] + n] : 0.f;
         }
         for (int e = threadIdx.x; e < 256 * n_out; e += WB_THREADS)
-          sWh[e] = e / n_out < wl ? pm[net.offW[L - 1] + e] : 0.f;
+          sWh[e] = e / n_out < wl ? opnd<FL>(pm[net.offW[L - 1] + e]) : 0.f;
         for (int o = threadIdx.x; o < n_out; o += WB_THREADS)
           sBh[o] = pm[net.offb[L - 1] + o];
       }
@@ -808,18 +1000,19 @@ static __device__ __forceinline__ void wbw_body(
       wb_sync_all();
       // the forward, staging Q_0 .. Q_{L-2}
       float acc[64];
-      wbw_layer0(sx, d, pl0, pl1, ord, dir, t, wg, sW0, sB, acc);
+      wbw_layer0<FL>(sx, d, pl0, pl1, ord, dir, t, wg, sW0, sB, acc);
       for (int l = 1; l < L; ++l) {
         wb_act<128, CP, false>(acc, c, s, myws + (l - 1) * slice, ctid);
         if (l + 1 < L)
-          wbw_products(acc, sB, l, c, wg, row0, t, lane, xb, ring, chunk);
+          wbw_products<FL>(acc, sB, l, c, wg, row0, t, lane, xb, ring,
+                           chunk);
       }
       // the head: acc holds its input H_{L-1}
       wb_sync_all();  // the exchange buffer read
-      wbw_put_ht(acc, ht, wg, row0, t);
+      wbw_put_ht<FL>(acc, ht, wg, row0, t);
       float* const slot = it->slot;
       if constexpr (K3) {
-        wbw_head<CP>(acc, T, n_out, t, wg, row0, ctid, sWh, sBh);
+        wbw_head<FL, CP>(acc, T, n_out, t, wg, row0, ctid, sWh, sBh);
         wb_sync_all();
         const size_t xm = (size_t)it->m * N;
         wb_epilogue<CP, WBW_ROWS>(
@@ -838,8 +1031,9 @@ static __device__ __forceinline__ void wbw_body(
         wb_sync_all();
       }
       float dh[64];
-      wbw_head_bwd<CP>(dh, T, ht, sWh, n_out, wl, slot + net.offW[L - 1],
-                       slot + net.offb[L - 1], first, ctid, wg, row0, t);
+      wbw_head_bwd<FL, CP>(dh, T, ht, sWh, n_out, wl,
+                           slot + net.offW[L - 1], slot + net.offb[L - 1],
+                           first, ctid, wg, row0, t);
       // the reverse sweep, last hidden layer to layer 0
       for (int l = L - 2; l >= 0; --l) {
         bulk_wait_read();
@@ -848,7 +1042,7 @@ static __device__ __forceinline__ void wbw_body(
         if (l >= 1) {  // H_l, the layer's input, from Q_{l-1}
           wb_load_p<128>(x, myws + (l - 1) * slice, ctid);
           wb_act<128, CP, true>(x, c, s, nullptr, ctid);
-          wbw_put_ht(x, ht, wg, row0, t);
+          wbw_put_ht<FL>(x, ht, wg, row0, t);
         }
         wb_load_p<128>(x, myws + l * slice, ctid);  // Q_l
         wb_act_vjp<128, CP>(x, dh, c, s);          // dh = dP_l
@@ -856,24 +1050,23 @@ static __device__ __forceinline__ void wbw_body(
         // dP_l^T: layer 0's where H^T lies (the ring's stages are the
         // next tile's), the others' over the ring's (its dH run not open)
         float* const mypt = (l == 0 ? xb : pt) + wg * WBW_HALF;
-        wbw_put_pt(dh, mypt, row0, t);
+        wbw_put_pt<FL>(dh, mypt, row0, t);
         wbw_fence_async();
         wb_sync_all();
         wbw_bias(sDb, net.w_out[l], slot + net.offb[l], first, ctid);
         if (l == 0) {
-          wbw_layer0_bwd<CP, K3>(xb, sx, sW0, K3 ? dX + (size_t)it->m * N * d
-                                                 : dX,
-                                 slot + net.offW[0], N, p0, d, w0, s, first,
-                                 ctid);
+          wbw_layer0_bwd<FL, CP, K3>(
+              xb, sx, sW0, K3 ? dX + (size_t)it->m * N * d : dX,
+              slot + net.offW[0], N, p0, d, w0, s, first, ctid);
           break;
         }
-        wbw_dw(ht, mypt, stg + wg * WBW_ROWS * WBW_LDS, dh,
-               slot + net.offW[l], net.w_in[l], net.w_out[l], first, wp.bulk,
-               behind, wg, wt, wq, g, t, row0);
+        wbw_dw<FL>(ht, mypt, stg + wg * WBW_ROWS * WBW_LDS, dh,
+                   slot + net.offW[l], net.w_in[l], net.w_out[l], first,
+                   wp.bulk, behind, wg, wt, wq, g, t, row0);
         bulk_wait_read();
         wb_sync_all();  // dW's operands and staging read: the ring's
-        if (threadIdx.x == 0) wbw_open(ring, chunk);
-        wbw_dh(dh, wg, row0, t, lane, xb, ring, chunk);
+        if (threadIdx.x == 0) wbw_open<FL>(ring, chunk);
+        wbw_dh<FL>(dh, wg, row0, t, lane, xb, ring, chunk);
       }
       wb_sync_all();  // sx, sDb and layer 0's dP^T read before the next tile
     }
@@ -887,18 +1080,18 @@ static __device__ __forceinline__ void wbw_body(
   bulk_wait();  // this thread's last bulk adds are in the slots
 }
 
-template <int CP>
+template <int FL, int CP>
 __global__ void __launch_bounds__(WB_THREADS, 1)
 taylor_bwd_wbw_kernel(const float* __restrict__ X,
                       const float* __restrict__ prm,
                       const float* __restrict__ gtab, float* __restrict__ dX,
                       float* __restrict__ part, float* __restrict__ ws,
                       int N, Net net, Sched s, WbPlan wp) {
-  wbw_body<false, CP>(X, nullptr, prm, gtab, nullptr, dX, part, ws, N, net,
-                      s, nullptr, nullptr, 1, wp);
+  wbw_body<FL, false, CP>(X, nullptr, prm, gtab, nullptr, dX, part, ws, N,
+                          net, s, nullptr, nullptr, 1, wp);
 }
 
-template <int CP>
+template <int FL, int CP>
 __global__ void __launch_bounds__(WB_THREADS, 1)
 minimax_wbw_kernel(const float* __restrict__ X, const float* __restrict__ w,
                    const float* __restrict__ prm, float* __restrict__ gw,
@@ -906,37 +1099,37 @@ minimax_wbw_kernel(const float* __restrict__ X, const float* __restrict__ w,
                    float* __restrict__ ws, int N, Net net, Sched s,
                    const __grid_constant__ Tape tp,
                    const float* __restrict__ cst, int M, WbPlan wp) {
-  wbw_body<true, CP>(X, w, prm, nullptr, gw, gX, part, ws, N, net, s, &tp,
-                     cst, M, wp);
+  wbw_body<FL, true, CP>(X, w, prm, nullptr, gw, gX, part, ws, N, net, s,
+                         &tp, cst, M, wp);
 }
 
-// K2 or K3 on the wide route: the (members') planes after the blocks'
-// slices, the kernel on grid persistent blocks, the slots' sums
+// K2 or K3 on the wide route in flavor FL: the (members') planes after the
+// blocks' slices, the kernel on grid persistent blocks, the slots' sums
 // (launch_k2wb's and launch_k3wb's steps).
-template <int CP, bool K3>
+template <int FL, int CP, bool K3>
 static int launch_wbw(WB_ARGS) {
   const size_t planes = (size_t)grid * (net.L - 1) * WBW_ROWS * 256;
   cudaError_t e;
   if constexpr (K3)
-    e = cudaFuncSetAttribute(minimax_wbw_kernel<CP>,
+    e = cudaFuncSetAttribute(minimax_wbw_kernel<FL, CP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              wp.smem);
   else
-    e = cudaFuncSetAttribute(taylor_bwd_wbw_kernel<CP>,
+    e = cudaFuncSetAttribute(taylor_bwd_wbw_kernel<FL, CP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              wp.smem);
   if (e != cudaSuccess) return (int)e;
   if (wp.P > 0) {
-    prep_wb_weights_m<FL_F32><<<dim3(64, M), 256, 0, st>>>(prm, ws + planes,
-                                                           net, wp);
+    prep_wb_weights_m<FL><<<dim3(64, M), 256, 0, st>>>(prm, ws + planes,
+                                                       net, wp);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   if constexpr (K3)
-    minimax_wbw_kernel<CP><<<grid, WB_THREADS, wp.smem, st>>>(
+    minimax_wbw_kernel<FL, CP><<<grid, WB_THREADS, wp.smem, st>>>(
         X, w, prm, gw, dX, part, ws, N, net, s, *tp, cst, M, wp);
   else
-    taylor_bwd_wbw_kernel<CP><<<grid, WB_THREADS, wp.smem, st>>>(
+    taylor_bwd_wbw_kernel<FL, CP><<<grid, WB_THREADS, wp.smem, st>>>(
         X, prm, gtab, dX, part, ws, N, net, s, wp);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -952,21 +1145,16 @@ static int launch_wbw(WB_ARGS) {
   return (int)cudaGetLastError();
 }
 
-#define WBW_INSTANCES(name, K3)                                              \
+#define WBW_CALL(FL, CP, K3)                                                 \
+  launch_wbw<FL, CP, K3>(X, w, prm, gtab, gw, dX, part, ws, out, N, net, s, \
+                         tp, cst, M, grid, wp, st)
+#define WBW_INSTANCES(name, FL, K3)                                          \
   int name(WB_ARGS) {                                                        \
     switch (wp.CP) {                                                         \
-      case 1: return launch_wbw<1, K3>(X, w, prm, gtab, gw, dX, part, ws,   \
-                                       out, N, net, s, tp, cst, M, grid, wp, \
-                                       st);                                  \
-      case 2: return launch_wbw<2, K3>(X, w, prm, gtab, gw, dX, part, ws,   \
-                                       out, N, net, s, tp, cst, M, grid, wp, \
-                                       st);                                  \
-      case 4: return launch_wbw<4, K3>(X, w, prm, gtab, gw, dX, part, ws,   \
-                                       out, N, net, s, tp, cst, M, grid, wp, \
-                                       st);                                  \
-      case 8: return launch_wbw<8, K3>(X, w, prm, gtab, gw, dX, part, ws,   \
-                                       out, N, net, s, tp, cst, M, grid, wp, \
-                                       st);                                  \
+      case 1: return WBW_CALL(FL, 1, K3);                                    \
+      case 2: return WBW_CALL(FL, 2, K3);                                    \
+      case 4: return WBW_CALL(FL, 4, K3);                                    \
+      case 8: return WBW_CALL(FL, 8, K3);                                    \
       default: return (int)cudaErrorInvalidValue;                            \
     }                                                                        \
   }

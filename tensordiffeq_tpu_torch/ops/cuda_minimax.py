@@ -16,8 +16,8 @@ products of ``taylor_derivatives(compute_dtype=torch.bfloat16)``,
 :func:`k3_minimax_tf32` its single-pass TF32 flavor (precision
 ``"default"``).  Every flavor runs on the persistent wgmma route of
 ``csrc/wg_backward.cuh`` where its shape allows
-(:func:`.cuda_taylor.wb_plan`), the f32 one at hidden widths 129-256 on
-``csrc/wg_backward_wide.cuh``.  The plain flavor, the CPU path and the
+(:func:`.cuda_taylor.wb_plan`), the f32 and TF32 ones at hidden widths
+129-256 on ``csrc/wg_backward_wide.cuh``.  The plain flavor, the CPU path and the
 kernel's referee, is ``tile_sq`` in :mod:`.minimax`.
 
 On that route K3 also runs over a member axis: :func:`k3_minimax_family`
@@ -157,7 +157,8 @@ def k3_minimax_tf32(plan: MinimaxPlan, X: torch.Tensor, w: torch.Tensor,
     True)``.  Its route is chosen by shape as K2-TF32's
     (:meth:`~.cuda_taylor._Plan.wb_route`, recorded in
     ``plan.k3_routes``): the persistent wgmma kernel of
-    ``csrc/wg_backward.cuh``, or ``minimax_step.cu``'s."""
+    ``csrc/wg_backward.cuh`` (``csrc/wg_backward_wide.cuh`` at hidden
+    widths 129-256), or ``minimax_step.cu``'s."""
     out = _k3(plan, X, w, flat, 2)
     k3_minimax_tf32.launches += 1
     return out

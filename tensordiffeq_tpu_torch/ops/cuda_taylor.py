@@ -478,13 +478,12 @@ def wg_prepare(flat_layers, wp: WgPlan, flavor) -> torch.Tensor:
 # ------------------------------------------------------------------ #
 WB_ROWS = 128  # rows of the route's tile: two consumer warpgroups of 64
 WB_ITEM_FLOATS = 16  # K3's work item state over a member axis (WbItem)
-# the f32 flavor past 128 wide (csrc/wg_backward_wide.cuh): hidden widths up
-# to 256 (NP = 256), tiles of 64 rows (each warpgroup 128 of the columns),
-# chunks of 16 k rows, a region of 64 KB + the larger of dW's 128 KB and
-# the ring; K1's limit stays WG_MAX_WIDTH
+# the f32 and TF32 flavors past 128 wide (csrc/wg_backward_wide.cuh):
+# hidden widths up to 256 (NP = 256), tiles of 64 rows (each warpgroup 128
+# of the columns), chunks of wbw_kc k rows, a region of 64 KB + the larger
+# of dW's 128 KB and the ring; K1's limit stays WG_MAX_WIDTH
 WB_MAX_WIDTH = 256
 WBW_ROWS = 64
-WBW_KC = 16
 WBW_LDS = 132  # floats of a row of dW's staging
 
 
@@ -502,11 +501,27 @@ def wb_kc(code: int) -> int:
     return 32 if code == 0 else 64
 
 
+def wbw_kc(code: int) -> int:
+    """k rows of a weight chunk at NP = 256 (``wbw_kc`` in
+    ``csrc/wg_backward.cuh``): 16 in the f32 flavor (code 0: the hi and lo
+    planes), 32 in the TF32 flavor (code 2: the hi plane alone), 32 KB a
+    stage either way."""
+    return 16 if code == 0 else 32
+
+
+def wbw_maxs(code: int) -> int:
+    """Stages of the ring at NP = 256 (``wbw_maxs`` in
+    ``csrc/wg_backward.cuh``): three in the TF32 flavor (the fourth 32 KB
+    holds a warpgroup's parked running sum), up to ``WG_MAX_STAGES`` in the
+    f32 one."""
+    return 3 if code == 2 else WG_MAX_STAGES
+
+
 class WbPlan(NamedTuple):
     """The backward route's launch for one plan, flavor and N (``wb_plan``
     in ``csrc/wg_backward.cuh``, in the same order); K2's and K3's
     alike."""
-    NP: int           # hidden width padded to 64, 128 or 256 (f32 only)
+    NP: int           # hidden width padded to 64, 128 or 256 (not bf16)
     CP: int           # channels padded to a power of two
     KC: int           # k rows of a weight chunk
     S: int            # weight stages in shared memory
@@ -531,10 +546,11 @@ def wb_plan(layer_shapes: Sequence[tuple], orders: Sequence[int], code: int,
     mma.sync route's: K1's route's conditions
     (:func:`wg_plan`: at most ``WG_MAX_C`` channels, hidden widths up to
     ``WG_MAX_WIDTH``, at most ``WG_MAX_D`` inputs and ``WG_MAX_OUT``
-    outputs) and a ring of at least two stages; the f32 flavor (code 0)
-    also takes hidden widths up to ``WB_MAX_WIDTH`` (NP = 256, the layout
-    of ``csrc/wg_backward_wide.cuh``: tiles of 64 rows, chunks of 16 k
-    rows, 32 KB stages over dW's operands) where that fits.  Shared memory
+    outputs) and a ring of at least two stages; the f32 and TF32 flavors
+    (codes 0 and 2) also take hidden widths up to ``WB_MAX_WIDTH`` (NP =
+    256, the layout of ``csrc/wg_backward_wide.cuh``: tiles of 64 rows,
+    chunks of :func:`wbw_kc` k rows, 32 KB stages over dW's operands)
+    where that fits.  Shared memory
     at NP <= 128: the ring
     (chunks of :func:`wb_kc` k rows, the f32 flavor's with the hi and lo
     planes, the bf16 flavor's of bf16), H^T and dP^T (NP x 128 floats each;
@@ -548,7 +564,7 @@ def wb_plan(layer_shapes: Sequence[tuple], orders: Sequence[int], code: int,
     d, n_out = layer_shapes[0][0], layer_shapes[-1][1]
     C = len(orders)
     width = max(fo for _, fo in layer_shapes[:-1])
-    if C > WG_MAX_C or width > (WB_MAX_WIDTH if code == 0 else WG_MAX_WIDTH) \
+    if C > WG_MAX_C or width > (WG_MAX_WIDTH if code == 1 else WB_MAX_WIDTH) \
             or d > WG_MAX_D or n_out > WG_MAX_OUT:
         return None
     CP = 1
@@ -561,7 +577,7 @@ def wb_plan(layer_shapes: Sequence[tuple], orders: Sequence[int], code: int,
     bulk = int(all(offW[l] % 4 == 0 and layer_shapes[l][1] % 4 == 0
                    for l in range(1, L - 1)))
     if width > WG_MAX_WIDTH:
-        return _wbw_plan(L, d, n_out, CP, bulk, smem_optin, n_sm, N)
+        return _wbw_plan(L, d, n_out, CP, bulk, code, smem_optin, n_sm, N)
     NP = 64 if width <= 64 else 128
     KC = wb_kc(code)
     P = 2 * (L - 2) * (NP // KC)
@@ -581,25 +597,28 @@ def wb_plan(layer_shapes: Sequence[tuple], orders: Sequence[int], code: int,
                   bulk, grid * (L - 1) * WB_ROWS * NP + P * stage // 4)
 
 
-def _wbw_plan(L: int, d: int, n_out: int, CP: int, bulk: int,
+def _wbw_plan(L: int, d: int, n_out: int, CP: int, bulk: int, code: int,
               smem_optin: int, n_sm: int, N: int):
-    """The f32 flavor's :class:`WbPlan` at NP = 256 (``wb_plan``'s wide
-    branch in ``csrc/wg_backward.cuh``), or ``None``.  Shared memory: the
-    region (64 KB for the exchange buffer and H^T, then the larger of dW's
-    dP^T and staging, 64 KB and 2 x 64 rows of ``WBW_LDS`` floats, and the
+    """The f32 (code 0) or TF32 (code 2) flavor's :class:`WbPlan` at NP =
+    256 (``wb_plan``'s wide branch in ``csrc/wg_backward.cuh``), or
+    ``None``.  Chunks of :func:`wbw_kc` k rows, 256 n rows, the hi and lo
+    planes (f32) or the hi plane alone (TF32).  Shared memory: the region
+    (64 KB for the exchange buffer and H^T, then the larger of dW's dP^T
+    and staging, 64 KB and 2 x 64 rows of ``WBW_LDS`` floats, and the
     ring's S stages of 32 KB), the rows
     (the head's table rows and its two halves' sums, or 8 warps' bias
     partials of 128 columns), X's rows, the small operands (256 wide), the
     value's warp sums, the work item and the mbarriers."""
-    stage = 256 * WBW_KC * 8
-    P = 2 * (L - 2) * (256 // WBW_KC)
+    KC = wbw_kc(code)
+    stage = 256 * KC * (8 if code == 0 else 4)
+    P = 2 * (L - 2) * (256 // KC)
     misc = _pad4(256 * (d + L - 1 + n_out) + WG_MAX_OUT)
     fixed = 4 * (_pad4(max(3 * WBW_ROWS * n_out, 8 * 128))
                  + _pad4(WBW_ROWS * d) + misc + 8 + WB_ITEM_FLOATS) \
         + 2 * WG_MAX_STAGES * 8
     S = 0
     if P > 0:
-        S = min(P, (smem_optin - fixed - 65536) // stage, WG_MAX_STAGES)
+        S = min(P, (smem_optin - fixed - 65536) // stage, wbw_maxs(code))
         if S < 2:
             return None
     smem = 65536 + max(65536 + 2 * WBW_ROWS * WBW_LDS * 4, S * stage) + fixed
@@ -607,7 +626,7 @@ def _wbw_plan(L: int, d: int, n_out: int, CP: int, bulk: int,
         return None
     n_tiles = -(-N * CP // WBW_ROWS)
     grid = min(n_tiles, n_sm)
-    return WbPlan(256, CP, WBW_KC, S, P, stage, n_tiles, grid, smem, bulk,
+    return WbPlan(256, CP, KC, S, P, stage, n_tiles, grid, smem, bulk,
                   grid * (L - 1) * WBW_ROWS * 256 + P * stage // 4)
 
 
@@ -991,7 +1010,8 @@ def k2_backward_tf32(plan: _Plan, X: torch.Tensor, flat: torch.Tensor,
     operands (the cotangent's included).  Its route is chosen by shape
     (:meth:`_Plan.wb_route`, recorded in ``plan.k2_routes``): the
     persistent wgmma kernel of ``csrc/wg_backward.cuh`` where
-    :func:`wb_plan` takes the shape, else the mma.sync kernel."""
+    :func:`wb_plan` takes the shape (``csrc/wg_backward_wide.cuh`` at
+    hidden widths 129-256), else the mma.sync kernel."""
     out = _k2(plan, X, flat, g, 2)
     k2_backward_tf32.launches += 1
     return out

@@ -235,8 +235,8 @@ def build_family_sq_fn(sqs: Sequence[Callable], device="cuda") -> Callable:
     (:func:`~.cuda_minimax.k3_minimax_family` in ``sqs``' flavor) once per
     tape group (:func:`tape_groups`), on the stacked tensors when there is
     one group; each member's outputs are its single launch's bit for bit.
-    Off the wgmma route's shapes (hidden widths past 128, more than 8
-    channels) there is no member-axis kernel and each member's K3 launches
+    Off the wgmma route's shapes (hidden widths past 256, or past 128 in
+    the bf16 flavor; more than 8 channels) there is no member-axis kernel and each member's K3 launches
     on its own, as :func:`build_minimax_sq_fn`'s would.
     ``fam.k3_routes[flavor]`` records which ran (``"wgmma"``: member-axis
     launches; ``"mma"``: one per member).

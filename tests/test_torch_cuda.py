@@ -1741,11 +1741,14 @@ def test_grad_norm_equals_the_eager_steps_gradient_norm(card):
 # --------------------------------------------------------------------------- #
 # the route's edges beside CASES: the slice's width on the wgmma route
 # (hi plane alone, resident chunks) with several tiles per SM, and a
-# 256-wide layer on the first kernel
+# 256-wide layer (K1-TF32 on its first kernel, K2-TF32 on the NP = 256
+# design of csrc/wg_backward_wide.cuh)
 TF32_EDGES = {
     "ac-128": (AC, [2, 128, 128, 128, 128, 1], 50_001),
     "wide-256": (AC, [2, 256, 256, 1], 517),
 }
+# the route K2-TF32 takes at each edge
+TF32_EDGE_ROUTES = {"ac-128": "wgmma", "wide-256": "wgmma"}
 
 
 def _nearer(got, want_a, want_b):
@@ -1826,6 +1829,9 @@ def test_tf32_kernels_match_tf32_emulation_on_card(card, case):
     assert (k1.launches, k2.launches, cuda_taylor.k1_forward.launches,
             cuda_taylor.k2_backward.launches) \
         == (before[0] + 1, before[1] + 1, before[2], before[3])
+    if case in TF32_EDGE_ROUTES:
+        assert producer.plan.k2_routes[cuda_taylor.TF32] \
+            == TF32_EDGE_ROUTES[case]
     mis = sorted(got)
     _within_tf32_spread([got[m] for m in mis], [want[m] for m in mis],
                         [twin[m] for m in mis], [want32[m] for m in mis])
@@ -1917,15 +1923,16 @@ def test_tf32_wgmma_chunks_are_the_hi_plane(card):
 
 
 # K2-TF32's and K3-TF32's routes by shape: the persistent wgmma route
-# (csrc/wg_backward.cuh) where cuda_taylor.wb_plan takes the shape (the
+# where cuda_taylor.wb_plan takes the shape (csrc/wg_backward.cuh at the
 # slice's, burgers', and widths whose slot rows are not 16-byte pieces,
-# which add dW from the SMs), the mma.sync kernels past it
+# which add dW from the SMs; csrc/wg_backward_wide.cuh at 256 wide), the
+# mma.sync kernels past it
 TF32_ROUTE_CASES = {
     # name: (K2's requests, widths, N, route)
     "ac-128": (AC, [2, 128, 128, 128, 128, 1], 20_011, "wgmma"),
     "burgers": (AC, [2] + [20] * 8 + [1], 3_001, "wgmma"),
     "odd-widths": ({(), (1,), (1, 1)}, [2, 37, 53, 1], 1003, "wgmma"),
-    "wide-256": (AC, [2, 256, 256, 256, 256, 1], 2_000, "mma"),
+    "wide-256": (AC, [2, 256, 256, 256, 256, 1], 2_000, "wgmma"),
 }
 
 
@@ -2009,6 +2016,40 @@ def test_tf32_backward_planes_match_the_plain_mirror(card):
     torch.cuda.synchronize()
     assert err == 0
     slices = wp.grid * (len(widths) - 2) * cuda_taylor.WB_ROWS * wp.NP
+    want = cuda_taylor.wb_prepare(flat_layers, wp, cuda_taylor.TF32)
+    assert torch.equal(ws[slices:].cpu().view(torch.uint8), want)
+
+
+def test_tf32_backward_planes_match_the_plain_mirror_at_256(card):
+    """At NP = 256 (csrc/wg_backward_wide.cuh) the TF32 weight prep writes
+    its chunks of 32 k rows (the hi plane, cvt.rna, 256 n rows) byte for
+    byte as ``wb_prepare`` lays them out, after the blocks' 64-row
+    slices."""
+    widths = [2, 256, 200, 1]
+    layers, _, g = _net(widths, card)
+    plan = cuda_taylor.build_cuda_table_fn(
+        AC, [tuple(W.shape) for W, _ in layers], precision=None).plan
+    flat_layers = [t for p in layers for t in p]
+    N = 1000
+    wp = plan.wb_route(card, cuda_taylor.TF32, N, "k2")
+    assert wp is not None and (wp.NP, wp.P, wp.KC) == (256, 16, 32)
+    ws = torch.zeros(wp.ws_floats, device=card)
+    part = torch.empty(wp.grid, cuda_taylor.slot_stride(plan.P_total),
+                       device=card)
+    X = (2 * torch.rand(N, 2, generator=g) - 1).to(card)
+    cot = torch.randn(plan.C, N, 1, generator=g).to(card)
+    dX = torch.empty(N, 2, device=card)
+    grad = torch.empty(plan.P_total, device=card)
+    err = cuda_taylor.build().tdq_taylor_bwd_wg(
+        X.data_ptr(), plan.pack(flat_layers).data_ptr(), cot.data_ptr(),
+        dX.data_ptr(), part.data_ptr(), ws.data_ptr(), grad.data_ptr(), N,
+        plan.net_h, plan.sched_h, cuda_taylor.FLAVOR_CODE[cuda_taylor.TF32],
+        (ctypes.c_int * len(wp))(*wp),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    slices = wp.grid * (len(widths) - 2) * cuda_taylor.wb_tile_rows(wp.NP) \
+        * wp.NP
     want = cuda_taylor.wb_prepare(flat_layers, wp, cuda_taylor.TF32)
     assert torch.equal(ws[slices:].cpu().view(torch.uint8), want)
 
@@ -2643,8 +2684,8 @@ def test_family_step_launches_k3_per_member_and_equals_eager(card):
 
 # K3 over the member axis: the factory's shape (2-64-64-1, N_f = 2,048,
 # 8 members), AC-SA full (2-128x4-1, N_f = 50,000, 2 members) and a
-# 256-wide factory (2-256-256-1, N_f = 2,048, 2 members: the f32 flavor's
-# NP = 256 design; the TF32 and bf16 flavors take the mma.sync route there)
+# 256-wide factory (2-256-256-1, N_f = 2,048, 2 members: the f32 and TF32
+# flavors' NP = 256 design; the bf16 flavor takes the mma.sync route there)
 FAMILY_K3_CASES = {"factory": ([2, 64, 64, 1], 2048, 8),
                    "ac-full": ([2, 128, 128, 128, 128, 1], 50_000, 2),
                    "wide-256": ([2, 256, 256, 1], 2048, 2)}
@@ -2703,7 +2744,7 @@ def test_family_k3_is_each_members_single_launch_on_card(card, case, flavor):
     16 and by its own tests)."""
     sqs, fam, X, w, flat = _family_k3_setup(card, case, flavor)
     assert fam.groups == [list(range(len(sqs)))]
-    if case == "wide-256" and flavor != "f32":
+    if case == "wide-256" and flavor == "bf16":
         # no member-axis launch off the wgmma route: each member's K3 on
         # the mma.sync kernels
         plan = sqs[0].plan

@@ -30,7 +30,12 @@ the algorithm it runs, on the CPU:
   JAX package's (``compute_dtype=bfloat16``) on the same weights, and
   nearer each than its f32 flavor by RMS;
 * the register VJP's in-place order (``wb_act_vjp``) against the
-  activation pass's autograd.
+  activation pass's autograd;
+* the TF32 flavor at NP = 256 (``csrc/wg_backward_wide.cuh``): its plan,
+  and K2 and K3 in its order (64-row tiles, one rounded pass a product,
+  each 32 k rows summed apart) within the TF32 band of the emulation and
+  its float64-summed twin, nearer them than the JAX package's IEEE
+  float32 result, and over a member axis bit for bit each member's.
 
 The kernels run only on the card: ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` phases 3-5 and 14-17.
@@ -104,10 +109,13 @@ def test_plan_at_the_slice_and_at_burgers():
 def test_route_choice_by_shape():
     assert _plan(AC, [2, 128, 128, 128, 128, 1])[1] is not None
     assert _plan(AC, [2] + [20] * 8 + [1])[1] is not None
-    # the mma.sync route: a hidden layer over 128 (the TF32 flavor; the
-    # f32 one takes up to 256), more than 8 channels, more than 16 inputs
-    # or outputs, a card with room for one stage
-    assert _plan(AC, [2, 256, 256, 256, 256, 1])[1] is None
+    # past 128 wide the TF32 flavor takes the NP = 256 design
+    # (csrc/wg_backward_wide.cuh), as the f32 one does
+    # (test_tf32_plan_at_256 holds it field for field)
+    assert _plan(AC, [2, 256, 256, 256, 256, 1])[1].NP == 256
+    # the mma.sync route: a hidden layer over 256, more than 8 channels,
+    # more than 16 inputs or outputs, a card with room for one stage
+    assert _plan(AC, [2, 257, 256, 1])[1] is None
     assert _plan({(), (0,), (2,), (1, 1), (0, 1, 2)}, [3, 64, 64, 1])[1] \
         is None
     assert _plan(AC, [17, 64, 64, 1])[1] is None
@@ -144,10 +152,8 @@ def _cm(n, k, KC, epc=4):
 def test_weight_planes_round_trip(widths):
     flat = _layers(widths)
     _, wp = _plan(AC, widths)
-    if wp is None:  # past 128 the TF32 flavor has no plan: the mirror's
-        # hi planes at the f32 flavor's NP = 256 geometry (16 k rows)
-        wp = _plan(AC, widths, code=F32)[1]
-        wp = wp._replace(stage_bytes=wp.stage_bytes // 2)
+    if wp.NP == 256:  # the NP = 256 design's chunks: 32 k rows, hi plane
+        assert (wp.KC, wp.stage_bytes) == (32, 256 * 32 * 4)
     raw = ct.wb_prepare(flat, wp, ct.TF32)
     assert raw.numel() == wp.P * wp.stage_bytes
     chunks = raw.view(torch.float32).numpy().reshape(wp.P, wp.NP * wp.KC)
@@ -394,11 +400,20 @@ def _arith(mode, wide=False):
     ``"f32"``: IEEE SIMT, three passes on the tensor cores; ``"bf16"``:
     products on bf16-rounded operands with float32 sums, the cotangent as
     its three bf16 pieces (smallest first), dH, dX and the head's dH
-    rounded to bf16.  ``wide``: the f32 flavor's NP = 256 design (the
-    forward's 32-row accumulators, dW's A split by split_tf32)."""
+    rounded to bf16.  ``wide``: the NP = 256 design (f32: the forward's
+    32-row accumulators, dW's A split by split_tf32; TF32: the forward's and
+    dH's chunks of 32 k rows summed apart, then added in order)."""
     keep = lambda t: t  # noqa: E731
     if mode == "tf32":
         mm = lambda A, B: rna_tf32(A) @ rna_tf32(B)  # noqa: E731
+        if wide:  # each chunk of K (32 rows) summed alone, then added
+            def chunks(A, B):
+                out = mm(A[..., :32], B[:32])
+                for k0 in range(32, A.shape[-1], 32):
+                    out = out + mm(A[..., k0:k0 + 32], B[k0:k0 + 32])
+                return out
+
+            return rna_tf32, rna_tf32, chunks, chunks, mm, keep
         return rna_tf32, rna_tf32, mm, mm, mm, keep
     if mode == "f32":
         mm = lambda A, B: _mm3(A, B, _rna_split)  # noqa: E731
@@ -651,7 +666,10 @@ def test_f32_plan_at_the_slice_and_at_burgers():
     assert bf is not None and (bf.KC, bf.stage_bytes) == (64, 16_384)
     assert _plan(AC, [2, 256, 256, 256, 256, 1], code=1)[1] is None
     assert _plan(AC, [2, 200, 256, 1], code=1)[1] is None
-    assert _plan(AC, [2, 200, 256, 1])[1] is None  # TF32
+    # the TF32 flavor: the NP = 256 design, chunks of 32 k rows of the hi
+    # plane (test_tf32_plan_at_256)
+    assert _plan(AC, [2, 200, 256, 1], N=517)[1] == ragged._replace(
+        KC=32, S=3, P=16, ws_floats=33 * 2 * 64 * 256 + 16 * 256 * 32)
 
 
 @pytest.mark.parametrize("widths", [[2, 128, 128, 128, 1], [2, 37, 53, 1],
@@ -767,7 +785,7 @@ N_OUT = dict(ac=1, system=2)
 
 
 def _route_k3(sq, flat, X, w, n_sm, mode="f32", visit=None):
-    """K3 on the route in the flavor ``mode`` ("f32" or "bf16"): the
+    """K3 on the route in the flavor ``mode`` ("f32", "tf32" or "bf16"): the
     route's forward gives the head's rows (per point: its rows do not
     depend on the tile), the tape runs on them per point
     (``minimax_tape.cuh``'s interpreter, mirrored by ``ResidualTape``), and
@@ -907,7 +925,7 @@ def test_route_k3_member_axis_at_256_is_each_members_route_bit_for_bit():
     _members_case([2, 256, 256, 1], 517, (0.05, 0.02), n_sm=5)
 
 
-def _members_case(widths, N, thetas, n_sm):
+def _members_case(widths, N, thetas, n_sm, mode="f32"):
     shapes = list(zip(widths[:-1], widths[1:]))
     rng = np.random.RandomState(1)
     sqs, flats, Xs, ws = [], [], [], []
@@ -922,9 +940,9 @@ def _members_case(widths, N, thetas, n_sm):
             np.float32)))
         ws.append(torch.from_numpy(rng.rand(N, 1).astype(np.float32)))
     assert minimax.tape_groups(sqs) == [list(range(len(thetas)))]
-    got = _route_k3_members(sqs, flats, Xs, ws, n_sm)
+    got = _route_k3_members(sqs, flats, Xs, ws, n_sm, mode)
     for sq, flat, X, w, out in zip(sqs, flats, Xs, ws, got):
-        want = _route_k3(sq, flat, X, w, n_sm)
+        want = _route_k3(sq, flat, X, w, n_sm, mode)
         assert torch.equal(out[0], want[0])
         assert all(torch.equal(a, b) for a, b in zip(out[1], want[1]))
         assert torch.equal(out[2], want[2]) and torch.equal(out[3], want[3])
@@ -1102,3 +1120,140 @@ def test_route_k3_bf16_within_the_bf16_bands_and_jax(case):
                  "jax": (jax_leaves(compute_dtype=jnp.bfloat16),
                          jax_leaves())},
                 bands)
+
+
+# ------------------------------------------------------------------ #
+# the TF32 flavor past 128 wide (NP = 256, csrc/wg_backward_wide.cuh)
+# ------------------------------------------------------------------ #
+def test_tf32_plan_at_256():
+    """The TF32 flavor at NP = 256: the f32 flavor's layout (64-row tiles,
+    the same region and shared memory) with chunks of 32 k rows of the hi
+    plane alone (32 KB a stage, half the f32 flavor's chunks) and three
+    stages (the fourth's bytes park warpgroup 1's running sums), field for
+    field in the C plan's order; the bf16 flavor, widths over 256, more
+    than 8 channels and a card without room for two stages decline."""
+    _, wide = _plan(AC, [2, 256, 256, 256, 256, 1])
+    assert wide == ct.WbPlan(NP=256, CP=4, KC=32, S=3, P=48,
+                             stage_bytes=32_768, n_tiles=3125, grid=132,
+                             smem=210_720, bulk=1,
+                             ws_floats=132 * 4 * 64 * 256 + 48 * 256 * 32)
+    f32 = _plan(AC, [2, 256, 256, 256, 256, 1], code=F32)[1]
+    assert (wide.smem, wide.S + 1, 2 * wide.P) == (f32.smem, f32.S, f32.P)
+    # the parked running sums: warpgroup 0's in the exchange buffer's second 32 KB,
+    # warpgroup 1's past the three stages, inside the region
+    assert 65_536 + wide.S * wide.stage_bytes + 32_768 \
+        <= 65_536 + 65_536 + 2 * 64 * ct.WBW_LDS * 4
+    _, ragged = _plan(AC, [2, 200, 256, 1], N=517)
+    assert ragged == ct.WbPlan(NP=256, CP=4, KC=32, S=3, P=16,
+                               stage_bytes=32_768, n_tiles=33, grid=33,
+                               smem=208_672, bulk=1,
+                               ws_floats=33 * 2 * 64 * 256 + 16 * 256 * 32)
+    assert _plan(MIXED, [2, 256, 256, 1], N=1000)[1].n_tiles == 125
+    assert _plan(AC, [2, 150, 201, 1])[1].bulk == 0
+    assert _plan(AC, [2, 256, 256, 256, 256, 1], code=BF16)[1] is None
+    assert _plan(AC, [2, 257, 256, 1])[1] is None
+    assert _plan({(), (0,), (2,), (1, 1), (0, 1, 2)}, [3, 256, 64, 1])[1] \
+        is None
+    assert _plan(AC, [2, 256, 256, 1], smem=200_000)[1] is None
+
+
+def _tf32_case_check(label, got, emu, twin, ieee):
+    """Each leaf's RMS scale-relative distance to the nearer TF32 referee
+    (the emulation, its float64-summed twin) within TF32_SPREAD times their
+    spread (at least TF32_FLOOR), and the whole nearer the emulation than
+    the JAX package's IEEE float32 leaves: the TF32 band, since the JAX
+    side rounds no operand."""
+    spread = max(_rms_rel(t, e) for t, e in zip(twin, emu))
+    band = max(TF32_FLOOR, TF32_SPREAD * spread)
+    for i, (a, e, t, j) in enumerate(zip(got, emu, twin, ieee)):
+        near = min(_rms_rel(a, e), _rms_rel(a, t))
+        print(f"{label} leaf {i}: to the TF32 referee {_rms_rel(a, e):.3e} "
+              f"(nearer {near:.3e}, band {band:.3e}); to JAX "
+              f"{_rms_rel(a, j):.3e}")
+        assert near <= band, (label, i, near, band)
+    assert _rms_rel(_cat(got), _cat(emu)) < _rms_rel(_cat(got), _cat(ieee))
+
+
+def test_route_k2_tf32_at_256_within_the_tf32_band():
+    """The route's K2 in the TF32 flavor at NP = 256 (2-256-256-1, N =
+    517, 9 tiles of 64 rows over 4 blocks; one rounded pass a product, H^T
+    through its swizzled layout) against
+    ``taylor_derivatives(emulate_tf32=True)``'s autograd and its
+    float64-summed twin, and against the JAX package's
+    ``taylor_derivatives`` and ``jax.grad`` on the same numpy-seeded
+    inputs (``_tf32_case_check``)."""
+    reqs, widths, N = AC, [2, 256, 256, 1], 517
+    _, wp = _plan(reqs, widths, N=N, n_sm=4)
+    assert (wp.NP, wp.KC, wp.n_tiles, wp.grid) == (256, 32, 33, 4)
+    flat, X = _case(widths, N)
+    C = len(channel_order(reqs))
+    g = torch.from_numpy(np.random.RandomState(4).randn(C, N, 1)
+                         .astype(np.float32))
+    got, dX = _route_k2(flat, X, g, reqs, n_sm=4, mode="tf32")
+    jl = [(jnp.asarray(W.numpy()), jnp.asarray(b.numpy()))
+          for W, b in zip(flat[0::2], flat[1::2])]
+    chans = channel_order(reqs)
+
+    def loss(layers, x):
+        t = jax_table(layers, x, reqs)
+        return sum(jnp.sum(t[mi] * jnp.asarray(g[c].numpy()))
+                   for c, mi in enumerate(chans))
+
+    gl, gx = jax.grad(loss, argnums=(0, 1))(jl, jnp.asarray(X.numpy()))
+    ieee = [torch.from_numpy(np.array(a)) for pair in gl for a in pair] \
+        + [torch.from_numpy(np.array(gx))]
+    _tf32_case_check("K2-TF32 at 256", got + [dX],
+                     _referee(flat, X, g, reqs, emulate_tf32=True),
+                     _referee(flat, X, g, reqs, emulate_tf32="float64"),
+                     ieee)
+
+
+@pytest.mark.parametrize("case", ["ac", "system"])
+def test_route_k3_tf32_at_256_within_the_tf32_band_and_jax(case):
+    """K3 on the route in the TF32 flavor at NP = 256 (2-256-256-n_out, N
+    = 517; the head's two halves of 128 columns added) against the plain
+    flavor's TF32 emulation and its float64-summed twin, and against the
+    JAX package's ``build_minimax_sq_fn`` (XLA, IEEE float32) on the same
+    weights and numpy-seeded points and weights (``_tf32_case_check``)."""
+    n_out, N = N_OUT[case], 517
+    net = jax_net([2, 256, 256, n_out])
+    params = net.init(jax.random.PRNGKey(0), jnp.zeros((1, 2)))
+    rng = np.random.RandomState(0)
+    X = (rng.randn(N, 2) * 0.5).astype(np.float32)
+    E = 2 if case == "system" else 1
+    w = rng.rand(N, E).astype(np.float32)
+    tl = params_from_jax(jax.tree_util.tree_map(np.asarray, params),
+                         device="cpu")
+    flat = [t.detach().float() for p in tl for t in p]
+    shapes = [tuple(W.shape) for W, _ in tl]
+    f = T_RES[case]
+    sq = minimax.build_minimax_sq_fn(f, VARS, n_out,
+                                     analyze_f_model(f, VARS, n_out), shapes,
+                                     device="cpu", precision=None)
+    Xt, wt = torch.from_numpy(X), torch.from_numpy(w)
+    val, dflat, gw, gX = _route_k3(sq, flat, Xt, wt, n_sm=4, mode="tf32")
+
+    def leaves(v, fl, gw_, gx_):
+        return [v.reshape(1)] + [t.reshape(-1) for t in fl] + [gw_, gx_]
+
+    jf = J_RES[case]
+    jsq = jmm.build_minimax_sq_fn(jf, VARS, n_out,
+                                  jax_analyze(jf, VARS, n_out), shapes)
+    jv, vjp = jax.vjp(jsq, extract_mlp_layers(params), jnp.asarray(w),
+                      jnp.asarray(X))
+    jg, jgw, jgx = vjp(jnp.ones((), jv.dtype))
+    jax_leaves = [np.asarray(jv).reshape(1)] + \
+        [np.asarray(a).reshape(-1) for p in jg for a in p] + \
+        [np.asarray(jgw), np.asarray(jgx)]
+    _tf32_case_check(f"K3-TF32 at 256 {case}", leaves(val, dflat, gw, gX),
+                     leaves(*sq.plain(flat, wt, Xt, emulate_tf32=True)),
+                     leaves(*sq.plain(flat, wt, Xt,
+                                      emulate_tf32="float64")),
+                     [torch.from_numpy(np.array(a)) for a in jax_leaves])
+
+
+def test_route_k3_member_axis_at_256_tf32_is_each_members_route_bit_for_bit():
+    """The member axis at NP = 256 in the TF32 flavor's order (2-256-256-1,
+    2 members, N = 517, 5 blocks): each member's outputs equal its
+    single-launch mirror bit for bit."""
+    _members_case([2, 256, 256, 1], 517, (0.05, 0.02), n_sm=5, mode="tf32")
